@@ -1,0 +1,36 @@
+"""paddle_tpu_torch — the PyTorch + CUDA port of paddle_tpu.
+
+The JAX package ``paddle_tpu`` stays the reference; this package mirrors
+its layout so each module's counterpart is found under the same path.
+It imports ``torch`` and ``numpy`` and never ``jax`` or ``paddle_tpu``.
+
+Ported so far: the continuous-batching generation engine
+(``inference.engine``) over the paged KV pool (``inference.kv_cache``)
+and the decoder LM (``inference.decode_model``), whose decode step runs
+the hand-written CUDA paged-attention kernel
+(``ops.kernels.paged_attention``).
+
+Entry points run on the CUDA card unless the caller passes
+``device="cpu"``; see :func:`resolve_device`.
+"""
+from __future__ import annotations
+
+__version__ = "0.1.0"
+
+
+def resolve_device(device=None):
+    """The torch device an entry point runs on.
+
+    ``None`` means the CUDA card.  When CUDA is absent that raises
+    instead of falling back: a caller that wants the CPU says so with
+    ``device="cpu"``."""
+    import torch
+
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "paddle_tpu_torch runs on a CUDA device by default, and "
+                "torch.cuda.is_available() is False; pass device='cpu' "
+                "to run on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)

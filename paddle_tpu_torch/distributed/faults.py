@@ -1,0 +1,229 @@
+"""Deterministic fault injection: the part of the JAX package's
+``distributed/faults.py`` that the generation engine calls.
+
+Gate: the layer is active only when BOTH the FLAGS_ps_fault_injection
+flag is on AND PADDLE_PS_FAULT_SPEC is non-empty. Flag-off behavior is
+bit-identical to a build without this module: each point consults
+`injector()` and gets None.
+
+Spec grammar (PADDLE_PS_FAULT_SPEC) — semicolon-separated rules:
+
+    <action>:<phase>:<nth>[:<arg>]
+
+    action  one of
+            crash   os._exit(1) at the Nth arrival at a named code phase
+                    (crash_point(phase) call sites). Serving phase:
+                    "gen_decode_step" (between decode steps in the
+                    generation engine's loop) kills a replica mid-decode
+            stall   REPEATING: every <nth>-th arrival at a named code
+                    phase (stall_point(phase) call sites, e.g.
+                    "gen_decode_step") sleeps <arg> MILLISECONDS — slows
+                    one replica's generation without killing it
+    phase   a phase name or "*"
+    nth     1-based index of the matching arrival AT THE INJECTION SITE;
+            a crash rule fires exactly once, on its Nth match
+
+The reference's RPC, lease, replication, disk, bitflip and OOM rules
+have no call site in the port yet; they come with the code that calls
+them, and a spec naming one is refused here.
+
+Counting is per-process and per-rule, so the schedule is a pure function
+of the arrival sequence — reruns inject the same faults at the same
+points.
+
+Process scoping: PADDLE_PS_FAULT_TAGS (comma-separated) arms the layer
+only in processes whose PADDLE_PS_RANK_TAG ("ps0") or trainer id
+("trainer1") is listed.
+"""
+from __future__ import annotations
+
+import os
+import threading
+import time
+from typing import List, Optional
+
+ENV_SPEC = "PADDLE_PS_FAULT_SPEC"
+ENV_TAGS = "PADDLE_PS_FAULT_TAGS"
+
+_PHASE_ACTIONS = ("crash", "stall")
+
+
+class _Rule:
+    __slots__ = ("action", "method", "nth", "arg", "count", "fired")
+
+    def __init__(self, action: str, method: str, nth: int, arg: float):
+        self.action = action
+        self.method = method
+        self.nth = nth
+        self.arg = arg
+        self.count = 0
+        self.fired = False
+
+    def matches(self, method: str) -> bool:
+        return self.method in ("*", method)
+
+    def __repr__(self):  # pragma: no cover - debugging aid
+        return (f"_Rule({self.action}:{self.method}:{self.nth}"
+                f"{':' + str(self.arg) if self.arg else ''})")
+
+
+def parse_spec(spec: str) -> List[_Rule]:
+    rules = []
+    for raw in spec.split(";"):
+        raw = raw.strip()
+        if not raw:
+            continue
+        parts = raw.split(":")
+        if len(parts) not in (3, 4):
+            raise ValueError(
+                f"bad fault rule {raw!r}: want action:phase:nth[:arg]")
+        action, method, nth = parts[0], parts[1], parts[2]
+        if action not in _PHASE_ACTIONS:
+            raise ValueError(
+                f"bad fault rule {raw!r}: unknown action {action!r} "
+                f"(want one of {_PHASE_ACTIONS})")
+        try:
+            n = int(nth)
+        except ValueError:
+            raise ValueError(f"bad fault rule {raw!r}: nth must be an int")
+        if n < 1:
+            raise ValueError(f"bad fault rule {raw!r}: nth is 1-based")
+        arg = float(parts[3]) if len(parts) == 4 else 0.0
+        if action == "stall" and arg <= 0:
+            raise ValueError(
+                f"bad fault rule {raw!r}: stall needs a duration — "
+                f"stall:<phase>:<nth>:<ms>")
+        rules.append(_Rule(action, method, n, arg))
+    return rules
+
+
+class FaultInjector:
+    """One injection schedule, shared by every caller in a process.
+
+    Phase hooks (called through crash_point()/stall_point() at named
+    code phases):
+      at_phase(phase)       — fires crash (os._exit) on the Nth arrival
+      at_stall_phase(phase) — sleeps on every nth-th arrival
+    """
+
+    def __init__(self, spec: str):
+        self.spec = spec
+        self._rules = parse_spec(spec)
+        self._lock = threading.Lock()
+
+    def _take(self, site_actions, method: str) -> List[_Rule]:
+        """Advance matching rules' counters; return the rules firing NOW."""
+        firing = []
+        with self._lock:
+            for r in self._rules:
+                if r.action not in site_actions or r.fired:
+                    continue
+                if not r.matches(method):
+                    continue
+                r.count += 1
+                if r.count == r.nth:
+                    r.fired = True
+                    firing.append(r)
+        return firing
+
+    def _take_every(self, site_actions, method: str) -> List[_Rule]:
+        """REPEATING variant (`stall`): fires on every nth-th match —
+        count % nth == 0 — and never spends the rule, so 1/nth of the
+        matching arrivals see the fault (a deterministic latency tail)."""
+        firing = []
+        with self._lock:
+            for r in self._rules:
+                if r.action not in site_actions:
+                    continue
+                if not r.matches(method):
+                    continue
+                r.count += 1
+                if r.count % r.nth == 0:
+                    firing.append(r)
+        return firing
+
+    @staticmethod
+    def _flight(reason: str) -> None:
+        """Best-effort flight-recorder dump before an os._exit — the
+        atexit/excepthook triggers never run for a hard death, so the
+        crash rule dumps the span ring itself. No-op unless
+        PADDLE_TRACING + PADDLE_TRACE_DIR are armed."""
+        try:
+            from ..telemetry import tracing
+
+            tracing.flight_dump(reason)
+        except Exception:  # noqa: BLE001 — the death must still happen
+            pass
+
+    def at_phase(self, phase: str) -> None:
+        for r in self._take(("crash",), phase):
+            # hard death, no cleanup: the recovery story must start from
+            # exactly this
+            os.write(2, (f"[faults] crashing pid {os.getpid()} at phase "
+                         f"{phase!r} (rule crash:{r.method}:{r.nth})\n"
+                         ).encode())
+            self._flight(f"crash:{phase}")
+            os._exit(1)
+
+    def at_stall_phase(self, phase: str) -> None:
+        """REPEATING delay at a named code phase (stall_point call
+        sites): every nth-th arrival sleeps <arg> milliseconds."""
+        for r in self._take_every(("stall",), phase):
+            time.sleep((r.arg or 0) / 1000.0)
+
+
+_injector: Optional[FaultInjector] = None
+_injector_lock = threading.Lock()
+
+
+def injector() -> Optional[FaultInjector]:
+    """The process-wide injector, or None when the layer is off (the
+    common case: one flag read + one env read, no state)."""
+    from ..fluid import flags
+
+    if not flags.flag("FLAGS_ps_fault_injection"):
+        return None
+    spec = os.environ.get(ENV_SPEC, "")
+    if not spec.strip():
+        return None
+    tags = os.environ.get(ENV_TAGS, "").strip()
+    if tags:
+        # scoped arming: only processes named in PADDLE_PS_FAULT_TAGS
+        # ("ps0", "trainer1") see the schedule
+        mine = {os.environ.get("PADDLE_PS_RANK_TAG") or "",
+                "trainer" + os.environ.get("PADDLE_TRAINER_ID", "")}
+        wanted = {t.strip() for t in tags.split(",") if t.strip()}
+        if not (wanted & mine):
+            return None
+    global _injector
+    with _injector_lock:
+        if _injector is None or _injector.spec != spec:
+            _injector = FaultInjector(spec)
+        return _injector
+
+
+def crash_point(phase: str) -> None:
+    """Deterministic kill site: os._exit(1) if an armed crash rule
+    matches this phase on this arrival. One flag read when the layer is
+    off."""
+    inj = injector()
+    if inj is not None:
+        inj.at_phase(phase)
+
+
+def stall_point(phase: str) -> None:
+    """Deterministic mid-phase delay site: a REPEATING
+    `stall:<phase>:<nth>:<ms>` rule sleeps at every nth-th arrival at
+    this phase — e.g. "gen_decode_step" in the serving decode loop
+    slows one replica's generation without killing it. One flag read
+    when the layer is off."""
+    inj = injector()
+    if inj is not None:
+        inj.at_stall_phase(phase)
+
+
+def reset() -> None:
+    """Drop the cached injector (tests: fresh counters per case)."""
+    global _injector
+    with _injector_lock:
+        _injector = None

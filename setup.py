@@ -16,9 +16,12 @@ setup(
         "PaddlePaddle Fluid 1.8: Program IR, whole-block XLA compilation, "
         "GSPMD dp/tp/pp/sp/ep parallelism, Pallas flash attention"
     ),
-    packages=find_packages(include=["paddle_tpu", "paddle_tpu.*"]),
+    packages=find_packages(include=["paddle_tpu", "paddle_tpu.*",
+                                    "paddle_tpu_torch", "paddle_tpu_torch.*"]),
     package_data={
         "paddle_tpu.native": ["*.cc", "*.h"],
+        # the PyTorch port's CUDA sources, compiled by nvcc at first use
+        "paddle_tpu_torch.ops.kernels": ["csrc/*.cu"],
         # checked-in per-chip autotune winners (tuning/cache.py layer 1)
         "paddle_tpu.tuning": ["defaults/*.json"],
     },
