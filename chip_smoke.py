@@ -1,27 +1,42 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one CUDA card.
+"""Drive the PyTorch/CUDA port's serving paths on one CUDA card.
 
     python3 chip_smoke.py [--out FILE]
 
 Phases, each printing one JSON line (any failure exits nonzero and
 prints no result):
 
-  env      card name and power limit (nvidia-smi), torch/CUDA versions;
-           TF32 off for matmuls and cuDNN
-  build    nvcc builds the port's kernel library from ``csrc/``
-  kernels  each kernel against its plain PyTorch version at the serving
-           path's shapes, with its time, bound, plain-version time and
-           the time of one library call computing the same function
-  engine   GenerationEngine over TinyDecoderLM at GPT-2-small widths
-           (d 768, 12 layers x 12 heads, FFN 3072, vocab 50257, 1024
-           positions): 8 requests, one sampled, two sharing a prefix;
-           checks every reply and that each decode step launched the
-           paged-attention kernel once per layer
-  parity   teacher-forced prefill + paged decode steps (through the
-           kernel) against the dense full forward, TF32 off, then once
-           with TF32 on to show the limit would catch it
-  profile  torch.profiler over engine decode steps: device busy time
-           by kernel and the device's idle share
+  env          card name and power limit (nvidia-smi), torch/CUDA
+               versions; TF32 off for matmuls and cuDNN
+  build        nvcc builds every kernel library from ``csrc/`` (one nvcc
+               per source, all started together): each library's path
+               and its ptxas register/spill lines
+  kernels      each kernel against its plain PyTorch version at its main
+               path's shapes (paged attention; BSH flash attention, o and
+               lse; add+LayerNorm, out and stats), with its time, bound,
+               plain-version time and the time of one library call
+               computing the same function
+  engine       GenerationEngine over TinyDecoderLM at GPT-2-small widths
+               (d 768, 12 layers x 12 heads, FFN 3072, vocab 50257, 1024
+               positions): 8 requests, one sampled, two sharing a prefix;
+               checks every reply and that each decode step launched the
+               paged-attention kernel once per layer
+  parity       teacher-forced prefill + paged decode steps (through the
+               kernel) against the dense full forward, TF32 off, then once
+               with TF32 on to show the limit would catch it
+  profile      torch.profiler over engine decode steps: device busy time
+               by kernel and the device's idle share
+  bert_infer   BERT-base (vocab 30522, hidden 768, 12 layers x 12 heads
+               of 64, FFN 3072, 512 positions) built with dropout, frozen
+               by freeze_program and served by the Predictor on the card:
+               20 batches of 8 x 512 with padded requests; checks every
+               fetch and that each run launched the flash kernel 12 times
+               and the LayerNorm kernel 25 times
+  bert_parity  the frozen BERT-base on the card (kernels) against the
+               same model and weights on the CPU (plain versions) on a
+               2 x 128 padded batch, TF32 off, then once with TF32 on
+  bert_profile torch.profiler over 5 Predictor runs: device busy time by
+               kernel and the device's idle share
 
 The line before the last is the kernels summary; the last line is
 ``{"ok": true, "device": {...}}``.  Needs one CUDA card; without one it
@@ -44,7 +59,12 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 F32_FLOPS = 67e12           # H100 SXM float32 outside the tensor cores
 ATOL_F32 = 2e-5             # f32 kernel vs plain: sums in another order
 ATOL_BF16 = 1e-2            # bf16 output rounding (8-bit mantissa)
+# bf16 outputs of the flash and LN kernels: both versions compute in f32
+# and round once, so they may differ by one bf16 ulp (2**-7 relative)
+RTOL_BF16 = 2.0 ** -7
+ATOL_LSE = 1e-4             # f32 log-sum-exp over up to 512 keys
 PARITY_LIMIT = 5e-4         # paged decode vs dense forward, f32, TF32 off
+BERT_PARITY_LIMIT = 5e-4    # BERT-base card vs CPU, f32, TF32 off
 
 _lines = []
 
@@ -140,13 +160,16 @@ def phase_build() -> dict:
     from paddle_tpu_torch.ops.kernels import _build
 
     t0 = time.perf_counter()
-    path, log = _build.build()
+    built = _build.build_all()
     secs = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in (log or "").splitlines()
-             if "registers" in ln or "spill" in ln]
-    emit({"phase": "build", "seconds": secs, "cached": log is None,
-          "library": os.path.basename(path), "ptxas": ptxas})
-    return {"log": log}
+    libs = {}
+    for name, (path, log) in built.items():
+        libs[name] = {
+            "library": os.path.basename(path), "cached": log is None,
+            "ptxas": [ln.strip() for ln in (log or "").splitlines()
+                      if "registers" in ln or "spill" in ln]}
+    emit({"phase": "build", "seconds": secs, "libraries": libs})
+    return {"log": {name: log for name, (_, log) in built.items()}}
 
 
 def _paged_case(torch, rng, *, b, h, kh, d, page, maxp, n_pages, lengths,
@@ -169,9 +192,50 @@ def _paged_case(torch, rng, *, b, h, kh, d, page, maxp, n_pages, lengths,
             torch.as_tensor(np.asarray(lengths, np.int32), device=dev))
 
 
-def phase_kernels(torch) -> dict:
-    import torch.nn.functional as F
+def _timed(torch, flush, kernel_fn, plain_fn, library_fn, *, nbytes,
+           flops, peak_flops) -> dict:
+    """Device times (time_cold_ms) of the kernel, its plain version and
+    the library call, and the bound: the larger of bytes / HBM rate and
+    flops / the dtype's peak."""
+    ker_t = time_cold_ms(torch, kernel_fn, flush)
+    plain_t = time_cold_ms(torch, plain_fn, flush)
+    lib_t = time_cold_ms(torch, library_fn, flush)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak_flops * 1e3
+    ms = ker_t["median"]
+    return {"ms": ms, "plain_ms": plain_t["median"],
+            "library_ms": lib_t["median"],
+            "bound_bytes": nbytes, "bound_flops": flops,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "achieved_GBps": nbytes / (ms * 1e-3) / 1e9,
+            "achieved_TFLOPs": flops / (ms * 1e-3) / 1e12,
+            "spread_ms": {"kernel": [ker_t["min"], ker_t["max"]],
+                          "plain": [plain_t["min"], plain_t["max"]],
+                          "library": [lib_t["min"], lib_t["max"]]},
+            "hold_ms": {"kernel": ker_t["hold_ms"],
+                        "plain": plain_t["hold_ms"],
+                        "library": lib_t["hold_ms"]},
+            "enqueue_ms_max": {"kernel": ker_t["enqueue_ms_max"],
+                               "plain": plain_t["enqueue_ms_max"],
+                               "library": lib_t["enqueue_ms_max"]},
+            "timing": "CUDA events, median of 40 calls, L2 flushed and "
+                      "the stream held by a spin kernel before each, so "
+                      "the window is device time"}
 
+
+def _check(name, ker, ref, atol, rtol=0.0) -> dict:
+    """Max abs error of ker vs ref; fails unless every element is within
+    atol + rtol * |ref|."""
+    diff = (ker.float() - ref.float()).abs()
+    err = diff.max().item()
+    excess = (diff - atol - rtol * ref.float().abs()).max().item()
+    if not math.isfinite(err) or excess > 0:
+        fail(f"{name}: max abs err {err} beyond atol {atol} + rtol {rtol}")
+    return {"max_abs_err": err, "atol": atol, "rtol": rtol}
+
+
+def _kernels_paged(torch, F, flush) -> tuple:
     from paddle_tpu_torch.ops.kernels import paged_attention as pa
 
     rng = np.random.default_rng(0)
@@ -201,19 +265,12 @@ def phase_kernels(torch) -> dict:
         ker = pa.paged_attention(*args)
         ref = pa.paged_attention(*args, impl="torch")
         torch.cuda.synchronize()
-        err = (ker.float() - ref.float()).abs().max().item()
-        results[name] = {"max_abs_err": err, "atol": atol}
-        if not math.isfinite(err) or err > atol:
-            fail(f"paged_attention {name}: max abs err {err} > {atol}")
+        results[name] = _check(f"paged_attention {name}", ker, ref, atol)
         if name == "f32":
             main = args
 
     q, kp, vp, table, lengths = main
     page = kp.shape[1]
-    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
-    ker_t = time_cold_ms(torch, lambda: pa.paged_attention(*main), flush)
-    plain_t = time_cold_ms(
-        torch, lambda: pa.paged_attention(*main, impl="torch"), flush)
     # library yardstick: SDPA on PRE-GATHERED dense K/V with a length
     # mask — the gather is excluded from its time; the port never calls it
     b, h, d = q.shape
@@ -226,44 +283,157 @@ def phase_kernels(torch) -> dict:
     q4 = q[:, :, None, :]
     lib = F.scaled_dot_product_attention(q4, kd, vd, attn_mask=mask)[:, :, 0]
     lib_err = (lib - pa.paged_attention(*main, impl="torch")).abs().max()
-    lib_t = time_cold_ms(
-        torch, lambda: F.scaled_dot_product_attention(q4, kd, vd,
-                                                      attn_mask=mask),
-        flush)
-    ms, plain_ms, library_ms = (ker_t["median"], plain_t["median"],
-                                lib_t["median"])
-    nbytes = pa.bound_bytes(q, kp, table, lengths)
     reach = maxp * page
-    flops = 4 * h * d * sum(min(int(n), reach) for n in lengths.tolist())
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
-    out = {"phase": "kernels", "cases": results,
-           "paged_attention": {
-               "shape": {"B": b, "H": h, "KH": kp.shape[2], "D": d,
-                         "page": page, "maxp": maxp,
-                         "pool_pages": kp.shape[0],
-                         "lengths": lengths.tolist(), "dtype": "float32"},
-               "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-               "library": "F.scaled_dot_product_attention on pre-gathered "
-                          "dense K/V with a length mask (excludes the "
-                          "gather)",
-               "library_max_abs_err": lib_err.item(),
-               "bound_bytes": nbytes, "bound_flops": flops,
-               "bound_ms": max(t_bytes, t_ops),
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-               "achieved_GBps": nbytes / (ms * 1e-3) / 1e9,
-               "spread_ms": {"kernel": [ker_t["min"], ker_t["max"]],
-                             "plain": [plain_t["min"], plain_t["max"]],
-                             "library": [lib_t["min"], lib_t["max"]]},
-               "hold_ms": {"kernel": ker_t["hold_ms"],
-                           "plain": plain_t["hold_ms"],
-                           "library": lib_t["hold_ms"]},
-               "enqueue_ms_max": {"kernel": ker_t["enqueue_ms_max"],
-                                  "plain": plain_t["enqueue_ms_max"],
-                                  "library": lib_t["enqueue_ms_max"]},
-               "timing": "CUDA events, median of 40 calls, L2 flushed "
-                         "and the stream held by a spin kernel before "
-                         "each, so the window is device time"}}
+    out = {"shape": {"B": b, "H": h, "KH": kp.shape[2], "D": d,
+                     "page": page, "maxp": maxp, "pool_pages": kp.shape[0],
+                     "lengths": lengths.tolist(), "dtype": "float32"},
+           "library": "F.scaled_dot_product_attention on pre-gathered "
+                      "dense K/V with a length mask (excludes the gather)",
+           "library_max_abs_err": lib_err.item()}
+    out.update(_timed(
+        torch, flush, lambda: pa.paged_attention(*main),
+        lambda: pa.paged_attention(*main, impl="torch"),
+        lambda: F.scaled_dot_product_attention(q4, kd, vd, attn_mask=mask),
+        nbytes=pa.bound_bytes(q, kp, table, lengths),
+        flops=4 * h * d * sum(min(int(n), reach) for n in lengths.tolist()),
+        peak_flops=F32_FLOPS))
+    out["max_abs_err"] = results["f32"]["max_abs_err"]
+    return results, out
+
+
+def _key_bias(torch, rng, b, s):
+    """BERT's additive padding mask as a per-key bias [B, 1, 1, S]: 0 on
+    the first len_b keys, -1e4 on the padding; lengths 128..S."""
+    lens = rng.integers(128, s + 1, b)
+    mask = (np.arange(s)[None, :] < lens[:, None]).astype(np.float32)
+    return torch.as_tensor(1e4 * (mask - 1.0))[:, None, None, :].to("cuda")
+
+
+def _kernels_flash(torch, F, flush) -> tuple:
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    rng = np.random.default_rng(3)
+
+    def case(b, s, nh, d, dtype, bias, causal=False):
+        h = nh * d
+        q, k, v = (torch.as_tensor(rng.standard_normal((b, s, h)),
+                                   dtype=torch.float32).to("cuda", dtype)
+                   for _ in range(3))
+        kb = _key_bias(torch, rng, b, s) if bias else None
+        return dict(q=q, k=k, v=v, bias=kb, num_heads=nh, causal=causal)
+
+    # the BERT-base attention of the infer path (B=8, S=512, 12 x 64),
+    # padded, in f32 (the main path) and bf16; causal; D=128 and D=256
+    cases = [
+        ("f32", case(8, 512, 12, 64, torch.float32, True), False),
+        ("bf16", case(8, 512, 12, 64, torch.bfloat16, True), True),
+        ("causal_f32", case(8, 512, 12, 64, torch.float32, False, True),
+         False),
+        ("d128_f32", case(8, 512, 12, 128, torch.float32, True), False),
+        ("d256_bf16", case(2, 512, 12, 256, torch.bfloat16, True), True),
+    ]
+    results = {}
+    for name, kw, is_bf16 in cases:
+        o, lse = fa.flash_attention_bsh_fwd(**kw)
+        o_ref, lse_ref = fa.flash_attention_bsh_reference(**kw)
+        torch.cuda.synchronize()
+        r = _check(f"flash_attention_bsh {name} o", o, o_ref,
+                   1e-5 if is_bf16 else ATOL_F32,
+                   RTOL_BF16 if is_bf16 else 0.0)
+        r["lse"] = _check(f"flash_attention_bsh {name} lse", lse, lse_ref,
+                          ATOL_LSE)
+        results[name] = r
+
+    kw = cases[0][1]
+    q, k, v, bias = kw["q"], kw["k"], kw["v"], kw["bias"]
+    b, s, h = q.shape
+    nh = kw["num_heads"]
+    # library yardstick: SDPA on PRE-SPLIT heads [B, nh, S, D] with the
+    # additive [B, 1, 1, S] mask (the head split is excluded)
+    qh, kh, vh = (t.reshape(b, s, nh, h // nh).transpose(1, 2).contiguous()
+                  for t in (q, k, v))
+    lib = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias)
+    lib_err = (lib.transpose(1, 2).reshape(b, s, h)
+               - fa.flash_attention_bsh_reference(**kw)[0]).abs().max()
+    out = {"shape": {"B": b, "S": s, "H": h, "nh": nh, "D": h // nh,
+                     "bias": "per key, lengths 128..512",
+                     "dtype": "float32"},
+           "library": "F.scaled_dot_product_attention on pre-split heads "
+                      "with the additive [B, 1, 1, S] mask",
+           "library_max_abs_err": lib_err.item()}
+    out.update(_timed(
+        torch, flush, lambda: fa.flash_attention_bsh_fwd(**kw),
+        lambda: fa.flash_attention_bsh_reference(**kw),
+        lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias),
+        nbytes=fa.bound_bytes(q, k, v, bias, nh),
+        flops=fa.bound_flops(q, k, nh), peak_flops=F32_FLOPS))
+    out["max_abs_err"] = results["f32"]["max_abs_err"]
+    return results, out
+
+
+def _kernels_ln(torch, F, flush) -> tuple:
+    from paddle_tpu_torch.ops.kernels import add_ln
+
+    rng = np.random.default_rng(4)
+    r, h = 4096, 768  # the infer path's rows (8 x 512) and BERT-base width
+
+    def case(dtype, with_y):
+        x, y = (torch.as_tensor(rng.standard_normal((r, h)),
+                                dtype=torch.float32).to("cuda", dtype)
+                for _ in range(2))
+        scale = torch.as_tensor(1 + 0.1 * rng.standard_normal(h),
+                                dtype=torch.float32).to("cuda")
+        shift = torch.as_tensor(0.1 * rng.standard_normal(h),
+                                dtype=torch.float32).to("cuda")
+        return dict(x=x, y=y if with_y else None, scale=scale, shift=shift,
+                    eps=1e-5)
+
+    # layer_norm of the infer path: f32, no residual (the main path);
+    # the residual y and bf16 as the encoder stack will use them
+    cases = [("f32", case(torch.float32, False), False),
+             ("f32_y", case(torch.float32, True), False),
+             ("bf16", case(torch.bfloat16, False), True),
+             ("bf16_y", case(torch.bfloat16, True), True)]
+    results = {}
+    for name, kw, is_bf16 in cases:
+        out, mean, rstd = add_ln.fused_add_ln_fwd(**kw)
+        out_r, mean_r, rstd_r = add_ln.fused_add_ln_reference(**kw)
+        torch.cuda.synchronize()
+        res = _check(f"add_ln {name} out", out, out_r,
+                     1e-5 if is_bf16 else ATOL_F32,
+                     RTOL_BF16 if is_bf16 else 0.0)
+        res["mean"] = _check(f"add_ln {name} mean", mean, mean_r, ATOL_F32)
+        res["rstd"] = _check(f"add_ln {name} rstd", rstd, rstd_r, ATOL_F32)
+        results[name] = res
+
+    kw = cases[0][1]
+    x, scale, shift = kw["x"], kw["scale"], kw["shift"]
+    lib = F.layer_norm(x, (h,), scale, shift, 1e-5)
+    lib_err = (lib - add_ln.fused_add_ln_reference(**kw)[0]).abs().max()
+    out = {"shape": {"R": r, "H": h, "y": False, "dtype": "float32"},
+           "library": "F.layer_norm (no stats returned)",
+           "library_max_abs_err": lib_err.item()}
+    out.update(_timed(
+        torch, flush, lambda: add_ln.fused_add_ln_fwd(**kw),
+        lambda: add_ln.fused_add_ln_reference(**kw),
+        lambda: F.layer_norm(x, (h,), scale, shift, 1e-5),
+        nbytes=add_ln.bound_bytes(x, None),
+        flops=add_ln.bound_flops(x, None), peak_flops=F32_FLOPS))
+    out["max_abs_err"] = results["f32"]["max_abs_err"]
+    return results, out
+
+
+def phase_kernels(torch) -> dict:
+    """Each kernel against its plain version (every case), then timed at
+    its main path's shapes."""
+    import torch.nn.functional as F
+
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    out = {"phase": "kernels", "cases": {}}
+    for name, fn in (("paged_attention", _kernels_paged),
+                     ("flash_attention_bsh", _kernels_flash),
+                     ("add_ln", _kernels_ln)):
+        out["cases"][name], out[name] = fn(torch, F, flush)
     emit(out)
     del flush
     return out
@@ -363,6 +533,18 @@ def phase_engine(torch, cfg, model, card: str) -> dict:
     return out
 
 
+def _device_rows(torch, prof) -> list:
+    """(ms, calls, name) of every device-side event (kernels, memcpys,
+    memsets), largest first.  CPU-side ops are left out: the profiler
+    also books a leaf op's kernels as that op's self device time, so
+    summing both counts the kernel twice."""
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = [(evt.self_device_time_total / 1e3, evt.count, evt.key)
+            for evt in prof.key_averages()
+            if evt.device_type == cuda and evt.self_device_time_total > 0]
+    return sorted(rows, reverse=True)
+
+
 def phase_profile(torch, cfg, model) -> dict:
     """Where a decode step's time goes: the engine serves the same
     traffic (16 new tokens) under torch.profiler; device busy time by
@@ -389,14 +571,7 @@ def phase_profile(torch, cfg, model) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     steps = eng.counters["decode_steps"] - steps0
     eng.stop()
-    rows = []
-    for evt in prof.key_averages():
-        dev = getattr(evt, "self_device_time_total", None)
-        if dev is None:
-            dev = getattr(evt, "self_cuda_time_total", 0)
-        if dev > 0:
-            rows.append((dev / 1e3, evt.count, evt.key))
-    rows.sort(reverse=True)
+    rows = _device_rows(torch, prof)
     busy_ms = sum(r[0] for r in rows)
     out = {"phase": "profile", "wall_ms": wall_ms, "decode_steps": steps,
            "device_busy_ms": busy_ms,
@@ -489,6 +664,200 @@ def phase_parity(torch, cfg, model) -> dict:
     return out
 
 
+def _bert_program(cfg, b: int, s: int):
+    """BERT-base encoder + pooler over [b, s] feeds, built in training
+    mode (dropout 0.1 present), as a user would before freezing."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import bert
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        def data(name, dtype):
+            return fluid.layers.data(name, [b, s], dtype,
+                                     append_batch_size=False)
+
+        ids, types, pos = (data(n, "int32") for n in
+                           ("input_ids", "token_type_ids", "position_ids"))
+        mask = data("input_mask", "float32")
+        seq = bert.bert_encoder(cfg, ids, types, pos, mask, is_test=False)
+        pooled = bert.bert_pooler(cfg, seq)
+    return main, startup, seq, pooled
+
+
+def _bert_batch(rng, cfg, b: int, s: int, min_len: int) -> dict:
+    """b requests padded to s: lengths min_len..s, random tokens, two
+    segments, positions 0..s-1, input_mask 1 on the live tokens."""
+    lens = rng.integers(min_len, s + 1, b)
+    live = np.arange(s)[None, :] < lens[:, None]
+    return {
+        "input_ids": np.where(live, rng.integers(1, cfg.vocab_size, (b, s)),
+                              0).astype(np.int32),
+        "token_type_ids": (np.arange(s)[None, :]
+                           >= (lens // 2)[:, None]).astype(np.int32),
+        "position_ids": np.tile(np.arange(s, dtype=np.int32), (b, 1)),
+        "input_mask": live.astype(np.float32)}
+
+
+def phase_bert_infer(torch, card: str) -> dict:
+    """BERT-base frozen and served on the card: the infer path."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.inference import ServingPredictor, freeze_program
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.ops.kernels import add_ln
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    cfg = bert.BertConfig.base()
+    b, s, n_runs = 8, 512, 20
+    t0 = time.perf_counter()
+    main, startup, seq, pooled = _bert_program(cfg, b, s)
+    build_s = time.perf_counter() - t0
+    scope = fluid.Scope()
+    t0 = time.perf_counter()
+    fluid.Executor().run(startup, scope=scope)   # device=None: the card
+    torch.cuda.synchronize()
+    startup_s = time.perf_counter() - t0
+    frozen = freeze_program(main, scope=scope, fetch_list=[seq, pooled])
+    ops = frozen.program.global_block().ops
+    live_dropout = [op for op in ops if op.type in
+                    ("dropout", "fused_multihead_attention")
+                    and not op.attr("is_test")]
+    if live_dropout:
+        fail(f"frozen program keeps {len(live_dropout)} ops in training "
+             f"mode")
+    n_params = sum(frozen.scope.find_var(n).numel()
+                   for n in frozen.param_names)
+    pred = ServingPredictor(frozen)               # device=None: the card
+    if pred.device.type != "cuda":
+        fail(f"the predictor runs on {pred.device}, not the card")
+
+    rng = np.random.default_rng(5)
+    batches = [_bert_batch(rng, cfg, b, s, 128) for _ in range(n_runs)]
+    pred.run(batches[0])                          # warm cuBLAS + allocator
+    torch.cuda.synchronize()
+    fa.flash_attention_bsh.launches = 0
+    add_ln.fused_add_ln.launches = 0
+    run_ms, outs = [], None
+    for feed in batches:
+        t0 = time.perf_counter()
+        outs = pred.run(feed)                     # numpy fetch: synchronises
+        run_ms.append((time.perf_counter() - t0) * 1e3)
+        for name, arr, shape in zip(frozen.fetch_names, outs,
+                                    [(b, s, cfg.hidden_size),
+                                     (b, cfg.hidden_size)]):
+            if arr.shape != shape or not np.isfinite(arr).all():
+                fail(f"fetch {name}: shape {arr.shape} (want {shape}) or "
+                     f"non-finite values")
+    flash_n = fa.flash_attention_bsh.launches
+    ln_n = add_ln.fused_add_ln.launches
+    layers = cfg.num_hidden_layers
+    if flash_n != layers * n_runs:
+        fail(f"flash_attention_bsh launched {flash_n} times in {n_runs} "
+             f"runs, want {layers} a run")
+    if ln_n != (2 * layers + 1) * n_runs:
+        fail(f"add_ln launched {ln_n} times in {n_runs} runs, want "
+             f"{2 * layers + 1} a run")
+    med = statistics.median(run_ms)
+    out = {"phase": "bert_infer", "card": card,
+           "config": {"vocab": cfg.vocab_size, "hidden": cfg.hidden_size,
+                      "layers": layers, "heads": cfg.num_attention_heads,
+                      "ffn": cfg.intermediate_size,
+                      "positions": cfg.max_position_embeddings,
+                      "dtype": "float32", "batch": b, "seq": s},
+           "params": n_params, "frozen_ops": len(ops),
+           "build_s": build_s, "startup_s": startup_s, "runs": n_runs,
+           "run_ms_median": med, "run_ms_min": min(run_ms),
+           "run_ms_max": max(run_ms),
+           "sequences_per_s": b / (med / 1e3),
+           "live_tokens_per_run": [int(f["input_mask"].sum())
+                                   for f in batches[:4]],
+           "flash_launches": flash_n, "ln_launches": ln_n,
+           "pooled_head": outs[1][0, :4].tolist()}
+    emit(out)
+    return dict(out, frozen=frozen, batches=batches, pred=pred)
+
+
+def _bert_parity_diff(cfg, weights) -> dict:
+    """Max |diff| of seq_out and pooled between the card (kernels) and
+    the CPU (plain versions) on one 2 x 128 padded batch."""
+    from paddle_tpu_torch.inference import ServingPredictor, freeze_program
+
+    b, s = 2, 128
+    main, _, seq, pooled = _bert_program(cfg, b, s)
+    frozen = freeze_program(main, scope=weights, fetch_list=[seq, pooled])
+    feed = _bert_batch(np.random.default_rng(6), cfg, b, s, 64)
+    card = ServingPredictor(frozen).run(feed)
+    cpu = ServingPredictor(frozen, device="cpu").run(feed)
+    return {name: float(np.abs(a - c).max())
+            for name, a, c in zip(("seq_out", "pooled"), card, cpu)}
+
+
+def phase_bert_parity(torch, infer: dict) -> dict:
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.ops.kernels import add_ln
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    cfg = bert.BertConfig.base()
+    weights = infer["frozen"].scope
+    n0 = (fa.flash_attention_bsh.launches, add_ln.fused_add_ln.launches)
+    diff = _bert_parity_diff(cfg, weights)
+    launched = (fa.flash_attention_bsh.launches - n0[0],
+                add_ln.fused_add_ln.launches - n0[1])
+    if launched != (cfg.num_hidden_layers, 2 * cfg.num_hidden_layers + 1):
+        fail(f"the parity run launched flash/LN {launched} times")
+    worst = max(diff.values())
+    if not math.isfinite(worst) or worst > BERT_PARITY_LIMIT:
+        fail(f"BERT-base card vs CPU: {diff} > {BERT_PARITY_LIMIT}")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        diff_tf32 = _bert_parity_diff(cfg, weights)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    out = {"phase": "bert_parity", "batch": 2, "seq": 128,
+           "max_abs_diff": diff, "limit": BERT_PARITY_LIMIT,
+           "max_abs_diff_tf32": diff_tf32,
+           "tf32_exceeds_limit": max(diff_tf32.values()) > BERT_PARITY_LIMIT}
+    emit(out)
+    return out
+
+
+def phase_bert_profile(torch, infer: dict) -> dict:
+    """Where a BERT-base run's time goes: 5 Predictor runs under
+    torch.profiler; device busy time by kernel against the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    pred, batches = infer["pred"], infer["batches"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for feed in batches[:5]:
+            pred.run(feed)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = _device_rows(torch, prof)
+    busy_ms = sum(r[0] for r in rows)
+    out = {"phase": "bert_profile", "runs": 5, "wall_ms": wall_ms,
+           "device_busy_ms": busy_ms,
+           "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
+           "top_kernels": [{"ms": ms, "calls": n, "name": k[:90]}
+                           for ms, n, k in rows[:15]],
+           "note": "window = 5 Predictor.run calls of 8 x 512 (feed copy, "
+                   "ops, numpy fetch); busy = sum of kernel self times"}
+    emit(out)
+    return out
+
+
+def _kernel_entry(name, source, replaces, launches, k) -> dict:
+    return {"name": name, "route": "cuda",
+            "source": f"paddle_tpu_torch/ops/kernels/csrc/{source}",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "library_ms": k["library_ms"]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -516,17 +885,25 @@ def main() -> int:
     eng = phase_engine(torch, cfg, model, env["card"])
     phase_parity(torch, cfg, model)
     phase_profile(torch, cfg, model)
+    del model
+    torch.cuda.empty_cache()
 
-    pa = kern["paged_attention"]
-    emit({"kernels": [{
-        "name": "paged_attention", "route": "cuda",
-        "source": "paddle_tpu_torch/ops/kernels/csrc/paged_attention.cu",
-        "replaces": "paddle_tpu/ops/pallas/paged_attention.py:144",
-        "launches": eng["paged_attention_launches"],
-        "max_abs_err": kern["cases"]["f32"]["max_abs_err"],
-        "ms": pa["ms"], "plain_ms": pa["plain_ms"],
-        "bound_ms": pa["bound_ms"], "bound_by": pa["bound_by"],
-        "library_ms": pa["library_ms"]}]})
+    infer = phase_bert_infer(torch, env["card"])
+    phase_bert_parity(torch, infer)
+    phase_bert_profile(torch, infer)
+
+    emit({"kernels": [
+        _kernel_entry("paged_attention", "paged_attention.cu",
+                      "paddle_tpu/ops/pallas/paged_attention.py:144",
+                      eng["paged_attention_launches"],
+                      kern["paged_attention"]),
+        _kernel_entry("flash_attention_bsh", "flash_attention_bsh.cu",
+                      "paddle_tpu/ops/pallas/flash_attention.py:1500",
+                      infer["flash_launches"],
+                      kern["flash_attention_bsh"]),
+        _kernel_entry("add_ln", "add_ln.cu",
+                      "paddle_tpu/ops/pallas/add_ln.py:145",
+                      infer["ln_launches"], kern["add_ln"])]})
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

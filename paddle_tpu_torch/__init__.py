@@ -8,7 +8,11 @@ Ported so far: the continuous-batching generation engine
 (``inference.engine``) over the paged KV pool (``inference.kv_cache``)
 and the decoder LM (``inference.decode_model``), whose decode step runs
 the hand-written CUDA paged-attention kernel
-(``ops.kernels.paged_attention``).
+(``ops.kernels.paged_attention``); and the frozen-Program ``infer`` path:
+the Program IR, layers and Executor (``fluid``), the op emitters
+(``ops``), ``inference.freeze`` / ``inference.predictor`` and BERT
+(``models.bert``), whose attention and LayerNorm run the CUDA kernels
+``ops.kernels.flash_attention`` and ``ops.kernels.add_ln``.
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; see :func:`resolve_device`.

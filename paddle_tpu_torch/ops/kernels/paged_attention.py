@@ -121,7 +121,7 @@ def _launcher():
     if _fn is None:
         from . import _build
 
-        fn = _build.load().paged_attention_launch
+        fn = _build.load("paged_attention").paged_attention_launch
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int

@@ -8,12 +8,16 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
 import paddle_tpu_torch
 from paddle_tpu_torch.inference import decode_model as dm
 from paddle_tpu_torch.inference.kv_cache import PagedKVPool
+from paddle_tpu_torch import fluid
+from paddle_tpu_torch.inference import shared_executor
+from paddle_tpu_torch.ops.kernels import _build
 from paddle_tpu_torch.ops.kernels import paged_attention as pa
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -32,6 +36,11 @@ bad = sorted(m for m in sys.modules
              or m.startswith("paddle_tpu."))
 print(len(names), bad)
 assert not bad, bad
+for n in ("fluid", "fluid.layers", "fluid.executor", "fluid.framework",
+          "inference.freeze", "inference.predictor", "models.bert",
+          "ops.attention", "ops.nn_ops", "ops.kernels.flash_attention",
+          "ops.kernels.add_ln", "ops.kernels._build"):
+    assert "paddle_tpu_torch." + n in names, n
 """
 
 
@@ -41,7 +50,7 @@ def test_port_imports_no_jax_and_no_paddle_tpu():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 15  # every module of the port was imported
+    assert n_modules >= 40  # every module of the port was imported
 
 
 def test_resolve_device_defaults_to_cuda_and_never_falls_back(monkeypatch):
@@ -53,9 +62,37 @@ def test_resolve_device_defaults_to_cuda_and_never_falls_back(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         PagedKVPool(n_pages=2, page_size=2, n_layers=1, kv_heads=1,
                     head_dim=4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fluid.Executor()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fluid.Scope.from_numpy({"w": np.zeros(2, np.float32)})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        shared_executor()
     assert paddle_tpu_torch.resolve_device("cpu") == torch.device("cpu")
+    assert fluid.Executor(device="cpu").device == torch.device("cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert paddle_tpu_torch.resolve_device(None) == torch.device("cuda")
+
+
+def test_every_kernel_source_builds_into_its_own_library(monkeypatch,
+                                                         tmp_path):
+    srcs = _build.sources()
+    assert sorted(srcs) == ["add_ln", "flash_attention_bsh",
+                            "paged_attention"]
+    libs = {_build.lib_path(n) for n in srcs}
+    assert len(libs) == 3 and all(os.path.basename(p).startswith("lib")
+                                  for p in libs)
+    # a compiler that refuses every source: one error naming each source,
+    # with its log, after all of them ran
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(_build, "nvcc_path", lambda: sys.executable)
+    with pytest.raises(_build.KernelBuildError) as err:
+        _build.build_all()
+    for path in srcs.values():
+        assert path in str(err.value)
+    assert "Unknown option" in str(err.value)  # the compiler's own output
+    with pytest.raises(_build.KernelBuildError, match="no kernel source"):
+        _build.build("no_such_kernel")
 
 
 def _good(b=2, h=4, kh=4, d=64, page=4, n_pages=6, maxp=3):
