@@ -13,9 +13,12 @@ prints no result):
                and its ptxas register/spill lines
   kernels      each kernel against its plain PyTorch version at its main
                path's shapes (paged attention; BSH flash attention, o and
-               lse; add+LayerNorm, out and stats), with its time, bound,
-               plain-version time and the time of one library call
-               computing the same function
+               lse, its backward dq/dk/dv and its dropout, from an explicit
+               mask and from the in-kernel Philox, whose drawn bits feed
+               the plain version, and whose keep rate is checked;
+               add+LayerNorm, out and stats, and its backward dx, dscale,
+               dshift), with its time, bound, plain-version time and the
+               time of one library call computing the same function
   engine       GenerationEngine over TinyDecoderLM at GPT-2-small widths
                (d 768, 12 layers x 12 heads, FFN 3072, vocab 50257, 1024
                positions): 8 requests, one sampled, two sharing a prefix;
@@ -37,6 +40,19 @@ prints no result):
                2 x 128 padded batch, TF32 off, then once with TF32 on
   bert_profile torch.profiler over 5 Predictor runs: device busy time by
                kernel and the device's idle share
+  bert_train   BERT-base pretraining (MLM + NSP) as the JAX package's bench
+               trains it: fuse_stack, Adam 1e-4, bf16 AMP, dropout 0.1,
+               8 x 512, 76 masked positions, on one fixed batch: 2 warm
+               steps, then 10 timed; every loss finite, the loss falling,
+               and every step launching each kernel exactly as often as
+               its program needs (flash forward 12, flash backward 24 =
+               12 x 2 kernels, LN forward and backward 26)
+  bert_train_profile  torch.profiler over 3 of those steps
+  bert_train_parity   the same training program on 2 x 128 with dropout
+               0, 3 Adam steps on the card (kernels) against the CPU
+               (plain versions) from the same weights: f32 with TF32 off
+               (then once on, to show the loss limit catches it), and bf16
+               AMP
 
 The line before the last is the kernels summary; the last line is
 ``{"ok": true, "device": {...}}``.  Needs one CUDA card; without one it
@@ -57,6 +73,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 F32_FLOPS = 67e12           # H100 SXM float32 outside the tensor cores
+BF16_FLOPS = 989e12         # H100 SXM bf16 tensor cores, dense
 ATOL_F32 = 2e-5             # f32 kernel vs plain: sums in another order
 ATOL_BF16 = 1e-2            # bf16 output rounding (8-bit mantissa)
 # bf16 outputs of the flash and LN kernels: both versions compute in f32
@@ -65,6 +82,23 @@ RTOL_BF16 = 2.0 ** -7
 ATOL_LSE = 1e-4             # f32 log-sum-exp over up to 512 keys
 PARITY_LIMIT = 5e-4         # paged decode vs dense forward, f32, TF32 off
 BERT_PARITY_LIMIT = 5e-4    # BERT-base card vs CPU, f32, TF32 off
+# BERT-base training, 3 Adam steps on 2 x 128, card vs CPU, f32 with TF32
+# off: the loss and the parameters after the steps agree within 1e-6
+# (the same math in another summation order), and TF32 on moves both by
+# about 1e-4, so limits of 2e-5 hold the card to f32 and catch TF32.
+# Under bf16 AMP both sides run bf16 matmuls, rounded at other places.
+TRAIN_PARITY_LOSS = 2e-5
+TRAIN_PARITY_PARAM = 2e-5
+TRAIN_PARITY_LOSS_BF16 = 2e-2
+# LN backward's dscale/dshift: f32 sums over 4096 rows of terms near 1,
+# taken in another order (the kernel's per-warp partials, torch's tree):
+# errors grow like sqrt(4096) ulps of partial sums up to ~200, whatever
+# the (possibly cancelled) result's size
+ATOL_SUM = 5e-4
+RTOL_SUM = 2e-6
+# Philox keep rate over B*nh*S*S draws: within 6 standard deviations of
+# the quantized keep probability thresh/256, itself within 1/512 of 1 - p
+KEEP_SIGMAS = 6.0
 
 _lines = []
 
@@ -93,8 +127,31 @@ def time_cold_ms(torch, fn, flush, reps: int = 40, warm: int = 3) -> dict:
     call, so the host queues both events and every op of ``fn`` before
     the device reaches them: the event window holds device work only,
     not the host's launch gaps.  The hold doubles until the host's
-    slowest enqueue fits inside it.  Returns the median, min and max over
-    ``reps`` calls, the hold and the slowest enqueue."""
+    slowest enqueue fits inside it.  A ``fn`` that synchronises inside
+    (its enqueue waits out any hold) is timed without the hold, and says
+    so (``held`` false): its window then includes the host's gaps after
+    the sync.  Returns the median, min and max over ``reps`` calls, the
+    hold and the slowest enqueue."""
+
+    def run(cycles):
+        pairs, enqueue_ms = [], 0.0
+        for _ in range(warm + reps):
+            flush.zero_()
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()   # the hold starts after this
+            if cycles:
+                torch.cuda._sleep(cycles)
+            s.record()
+            fn()
+            e.record()
+            enqueue_ms = max(enqueue_ms, (time.perf_counter() - t0) * 1e3)
+            pairs.append((s, e))
+        torch.cuda.synchronize()
+        times = [s.elapsed_time(e) for s, e in pairs[warm:]]
+        return {"median": statistics.median(times), "min": min(times),
+                "max": max(times), "enqueue_ms_max": enqueue_ms}
+
     fn()
     torch.cuda.synchronize()
     cycles = 1 << 20
@@ -106,27 +163,13 @@ def time_cold_ms(torch, fn, flush, reps: int = 40, warm: int = 3) -> dict:
         he.record()
         torch.cuda.synchronize()
         hold_ms = hs.elapsed_time(he)
-        pairs, enqueue_ms = [], 0.0
-        for _ in range(warm + reps):
-            flush.zero_()
-            s = torch.cuda.Event(enable_timing=True)
-            e = torch.cuda.Event(enable_timing=True)
-            t0 = time.perf_counter()   # the hold starts after this
-            torch.cuda._sleep(cycles)
-            s.record()
-            fn()
-            e.record()
-            enqueue_ms = max(enqueue_ms, (time.perf_counter() - t0) * 1e3)
-            pairs.append((s, e))
-        torch.cuda.synchronize()
-        if enqueue_ms < hold_ms:
-            times = [s.elapsed_time(e) for s, e in pairs[warm:]]
-            return {"median": statistics.median(times), "min": min(times),
-                    "max": max(times), "hold_ms": hold_ms,
-                    "enqueue_ms_max": enqueue_ms}
+        out = run(cycles)
+        if out["enqueue_ms_max"] < hold_ms:
+            return dict(out, hold_ms=hold_ms, held=True)
+        if hold_ms > 5.0 and out["enqueue_ms_max"] > 0.9 * hold_ms:
+            break  # the enqueue waited out the hold: fn synchronises
         cycles *= 2
-    fail(f"the host needs {enqueue_ms:.3f} ms to queue one call, more "
-         f"than a {hold_ms:.3f} ms hold of the stream")
+    return dict(run(0), hold_ms=None, held=False)
 
 
 # ---------------------------------------------------------------------------
@@ -219,6 +262,8 @@ def _timed(torch, flush, kernel_fn, plain_fn, library_fn, *, nbytes,
             "enqueue_ms_max": {"kernel": ker_t["enqueue_ms_max"],
                                "plain": plain_t["enqueue_ms_max"],
                                "library": lib_t["enqueue_ms_max"]},
+            "held": {"kernel": ker_t["held"], "plain": plain_t["held"],
+                     "library": lib_t["held"]},
             "timing": "CUDA events, median of 40 calls, L2 flushed and "
                       "the stream held by a spin kernel before each, so "
                       "the window is device time"}
@@ -309,18 +354,22 @@ def _key_bias(torch, rng, b, s):
     return torch.as_tensor(1e4 * (mask - 1.0))[:, None, None, :].to("cuda")
 
 
+def _flash_inputs(torch, rng, b, s, nh, d, dtype, bias, causal=False):
+    h = nh * d
+    q, k, v = (torch.as_tensor(rng.standard_normal((b, s, h)),
+                               dtype=torch.float32).to("cuda", dtype)
+               for _ in range(3))
+    kb = _key_bias(torch, rng, b, s) if bias else None
+    return dict(q=q, k=k, v=v, bias=kb, num_heads=nh, causal=causal)
+
+
 def _kernels_flash(torch, F, flush) -> tuple:
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
 
     rng = np.random.default_rng(3)
 
     def case(b, s, nh, d, dtype, bias, causal=False):
-        h = nh * d
-        q, k, v = (torch.as_tensor(rng.standard_normal((b, s, h)),
-                                   dtype=torch.float32).to("cuda", dtype)
-                   for _ in range(3))
-        kb = _key_bias(torch, rng, b, s) if bias else None
-        return dict(q=q, k=k, v=v, bias=kb, num_heads=nh, causal=causal)
+        return _flash_inputs(torch, rng, b, s, nh, d, dtype, bias, causal)
 
     # the BERT-base attention of the infer path (B=8, S=512, 12 x 64),
     # padded, in f32 (the main path) and bf16; causal; D=128 and D=256
@@ -423,6 +472,241 @@ def _kernels_ln(torch, F, flush) -> tuple:
     return results, out
 
 
+def _check_grads(name, got, want, is_bf16) -> dict:
+    return {g: _check(f"{name} {g}", a, b, 1e-5 if is_bf16 else ATOL_F32,
+                      RTOL_BF16 if is_bf16 else 0.0)["max_abs_err"]
+            for g, a, b in zip(("dq", "dk", "dv"), got, want)}
+
+
+def _flash_train_case(torch, rng, b, s, nh, d, dtype, causal=False, p=0.0,
+                      mode=None):
+    """One attention case of the training path: q, k, v, dO, the padding
+    bias, and the dropout as the forward takes it (an explicit keep mask,
+    or Philox from a seed)."""
+    kw = {**_flash_inputs(torch, rng, b, s, nh, d, dtype, True, causal),
+          "dropout_prob": p}
+    if mode == "mask":
+        kw["mask"] = torch.as_tensor(
+            rng.random((b, nh, s, s)) > p).to("cuda", torch.uint8)
+    elif mode == "philox":
+        kw["dropout_seed"] = int(rng.integers(1, 2 ** 62))
+    do = torch.as_tensor(rng.standard_normal((b, s, nh * d)),
+                         dtype=torch.float32).to("cuda", dtype)
+    return kw, do
+
+
+def _flash_bwd_check(torch, fa, name, kw, do) -> dict:
+    """Forward (drawing its Philox bits) and backward kernels against the
+    plain versions fed the same keep bits; returns the errors and, for
+    Philox, the keep rate."""
+    is_bf16 = kw["q"].dtype == torch.bfloat16
+    o, lse, bits = fa.flash_attention_bsh_fwd(**kw, return_bits=True)
+    p = kw["dropout_prob"]
+    mask = kw.get("mask")
+    keep_div = 1.0 - p
+    if "dropout_seed" in kw:
+        mask = bits
+        keep_div = fa.dropout_quantized_thresh(1.0 - p) / 256.0
+    plain_kw = {k: kw[k] for k in ("q", "k", "v", "bias", "num_heads",
+                                   "causal")}
+    o_ref, lse_ref = fa.flash_attention_bsh_reference(
+        **plain_kw, dropout_prob=p, mask=mask,
+        keep_div=keep_div if p else None)
+    # the backward's inputs are the kernel forward's o and lse on both
+    # sides: a bf16 o one ulp off would move delta, not the backward
+    grads = fa.flash_attention_bsh_bwd(
+        kw["q"], kw["k"], kw["v"], kw["bias"], o, lse, do, kw["num_heads"],
+        causal=kw["causal"], dropout_prob=p, mask=kw.get("mask"),
+        dropout_seed=kw.get("dropout_seed"))
+    ref = fa.flash_attention_bsh_bwd_reference(
+        kw["q"], kw["k"], kw["v"], kw["bias"], o, lse, do,
+        kw["num_heads"], causal=kw["causal"], mask=mask if p else None,
+        keep_div=keep_div)
+    torch.cuda.synchronize()
+    r = _check(f"flash {name} o", o, o_ref, 1e-5 if is_bf16 else ATOL_F32,
+               RTOL_BF16 if is_bf16 else 0.0)
+    r["lse"] = _check(f"flash {name} lse", lse, lse_ref,
+                      ATOL_LSE)["max_abs_err"]
+    r["grads"] = _check_grads(f"flash backward {name}", grads, ref, is_bf16)
+    if "dropout_seed" in kw and not kw["causal"]:
+        n = bits.numel()
+        rate = bits.float().mean().item()
+        want = keep_div
+        sigma = math.sqrt(want * (1 - want) / n)
+        if abs(rate - want) > KEEP_SIGMAS * sigma \
+                or abs(want - (1.0 - p)) > 1.0 / 512:
+            fail(f"flash {name}: Philox keep rate {rate} vs {want} "
+                 f"(1 - p = {1 - p}, sigma {sigma})")
+        r["keep_rate"] = {"measured": rate, "quantized_keep": want,
+                          "one_minus_p": 1.0 - p, "draws": n,
+                          "limit": KEEP_SIGMAS * sigma}
+    return r
+
+
+def _kernels_flash_train(torch, F, flush) -> tuple:
+    """The training path's flash kernels: the backward (and the forward's
+    dropout) against the plain versions, then timed at BERT-base's
+    training shapes: bf16, the padding bias, dropout 0.1 by Philox."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    rng = np.random.default_rng(7)
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [
+        ("f32", (8, 512, 12, 64, f32), {}),
+        ("bf16", (8, 512, 12, 64, bf16), {}),
+        ("causal_f32", (4, 512, 12, 64, f32), dict(causal=True)),
+        ("d128_f32", (2, 512, 12, 128, f32), {}),
+        ("d128_bf16_causal", (2, 256, 4, 128, bf16), dict(causal=True)),
+        ("d256_bf16", (2, 512, 4, 256, bf16), {}),
+        ("d256_f32_causal", (2, 256, 4, 256, f32), dict(causal=True)),
+        ("mask_f32", (4, 512, 12, 64, f32), dict(p=0.1, mode="mask")),
+        ("mask_bf16_causal", (2, 256, 4, 64, bf16),
+         dict(p=0.2, mode="mask", causal=True)),
+        ("philox_f32", (4, 512, 12, 64, f32), dict(p=0.1, mode="philox")),
+        ("philox_bf16", (8, 512, 12, 64, bf16), dict(p=0.1, mode="philox")),
+        ("philox_bf16_causal_d128", (2, 256, 4, 128, bf16),
+         dict(p=0.3, mode="philox", causal=True)),
+    ]
+    results = {}
+    main = None
+    for name, shape, extra in cases:
+        kw, do = _flash_train_case(torch, rng, *shape, **extra)
+        results[name] = _flash_bwd_check(torch, fa, name, kw, do)
+        if name == "philox_bf16":
+            main = (kw, do)
+        del kw, do
+
+    kw, do = main
+    q, k, v, bias = kw["q"], kw["k"], kw["v"], kw["bias"]
+    b, s, h = q.shape
+    nh, p = kw["num_heads"], kw["dropout_prob"]
+    o, lse, bits = fa.flash_attention_bsh_fwd(**kw, return_bits=True)
+    keep_div = fa.dropout_quantized_thresh(1.0 - p) / 256.0
+    plain = {k_: kw[k_] for k_ in ("q", "k", "v", "bias", "num_heads")}
+    # library yardstick: SDPA with dropout on pre-split heads and the
+    # additive mask; its autograd backward is timed
+    qh, kh, vh = (t.reshape(b, s, nh, h // nh).transpose(1, 2).contiguous()
+                  .requires_grad_() for t in (q, k, v))
+    dout = do.reshape(b, s, nh, h // nh).transpose(1, 2).contiguous()
+    lib_o = F.scaled_dot_product_attention(qh, kh, vh,
+                                           attn_mask=bias.to(q.dtype),
+                                           dropout_p=p)
+    fwd = {"shape": {"B": b, "S": s, "H": h, "nh": nh, "D": h // nh,
+                     "bias": "per key, lengths 128..512",
+                     "dtype": "bfloat16", "dropout": "Philox, p=0.1"},
+           "library": "F.scaled_dot_product_attention with dropout_p=0.1 "
+                      "on pre-split heads, additive bf16 mask",
+           "max_abs_err": results["philox_bf16"]["max_abs_err"]}
+    fwd.update(_timed(
+        torch, flush, lambda: fa.flash_attention_bsh_fwd(**kw),
+        lambda: fa.flash_attention_bsh_reference(
+            **plain, dropout_prob=p, mask=bits, keep_div=keep_div),
+        lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=bias.to(q.dtype), dropout_p=p),
+        nbytes=fa.bound_bytes(q, k, v, bias, nh),
+        flops=fa.bound_flops(q, k, nh), peak_flops=BF16_FLOPS))
+    bwd = {"shape": fwd["shape"],
+           "library": "autograd backward of F.scaled_dot_product_attention "
+                      "with dropout_p=0.1 on pre-split heads (dq, dk, dv)",
+           "kernels_a_call": 2,
+           "max_abs_err": max(results["philox_bf16"]["grads"].values())}
+    bwd.update(_timed(
+        torch, flush,
+        lambda: fa.flash_attention_bsh_bwd(
+            q, k, v, bias, o, lse, do, nh, dropout_prob=p,
+            dropout_seed=kw["dropout_seed"]),
+        lambda: fa.flash_attention_bsh_bwd_reference(
+            q, k, v, bias, o, lse, do, nh, mask=bits, keep_div=keep_div),
+        lambda: torch.autograd.grad(lib_o, (qh, kh, vh), dout,
+                                    retain_graph=True),
+        nbytes=fa.bound_bytes_bwd(q, k, v, bias, nh),
+        flops=fa.bound_flops_bwd(q, k, nh), peak_flops=BF16_FLOPS))
+    return results, fwd, bwd
+
+
+def _kernels_ln_train(torch, F, flush) -> tuple:
+    """The LN backward against its plain version (f32 and bf16, with and
+    without the residual), timed at the training path's shapes (bf16 with
+    the residual, the encoder stack's add+LN) and f32 without it."""
+    from paddle_tpu_torch.ops.kernels import add_ln
+
+    rng = np.random.default_rng(8)
+    r, h = 4096, 768  # 8 x 512 rows, BERT-base width
+
+    def case(dtype, with_y):
+        def t(*shape, scale=1.0, shift=0.0):
+            return torch.as_tensor(shift + scale * rng.standard_normal(
+                shape), dtype=torch.float32)
+
+        x, y, g = (t(r, h).to("cuda", dtype) for _ in range(3))
+        return dict(x=x, y=y if with_y else None,
+                    scale=t(h, scale=0.1, shift=1.0).to("cuda"),
+                    shift=t(h, scale=0.1).to("cuda")), g
+
+    results, timed = {}, {}
+    for name, dtype, with_y in (("f32", torch.float32, False),
+                                ("f32_y", torch.float32, True),
+                                ("bf16", torch.bfloat16, False),
+                                ("bf16_y", torch.bfloat16, True)):
+        kw, g = case(dtype, with_y)
+        is_bf16 = dtype == torch.bfloat16
+        out, mean, rstd = add_ln.fused_add_ln_fwd(**kw)
+        x, y, scale = kw["x"], kw["y"], kw["scale"]
+        dx, dsc, dsh = add_ln.fused_add_ln_bwd(x, y, scale, mean, rstd, g)
+        rdx, rdsc, rdsh = add_ln.fused_add_ln_bwd_reference(
+            x, y, scale, mean, rstd, g)
+        torch.cuda.synchronize()
+        res = _check(f"add_ln backward {name} dx", dx, rdx,
+                     1e-5 if is_bf16 else ATOL_F32,
+                     RTOL_BF16 if is_bf16 else 0.0)
+        res["dscale"] = _check(f"add_ln backward {name} dscale", dsc, rdsc,
+                               ATOL_SUM, RTOL_SUM)["max_abs_err"]
+        res["dshift"] = _check(f"add_ln backward {name} dshift", dsh, rdsh,
+                               ATOL_SUM, RTOL_SUM)["max_abs_err"]
+        results[name] = res
+        if name not in ("f32", "bf16_y"):
+            continue
+        s_ = (x.float() + y.float()).to(dtype) if with_y else x
+        lib_scale, lib_shift = scale.to(dtype), kw["shift"].to(dtype)
+        xs = s_.detach().clone().requires_grad_()
+        ws = lib_scale.detach().clone().requires_grad_()
+        bs = lib_shift.detach().clone().requires_grad_()
+        lib_out = F.layer_norm(xs, (h,), ws, bs, 1e-5)
+        t = {"shape": {"R": r, "H": h, "y": with_y,
+                       "dtype": "bfloat16" if is_bf16 else "float32"},
+             "library": "autograd backward of F.layer_norm (dx, dweight, "
+                        "dbias; the residual add left out)",
+             "max_abs_err": max(res["max_abs_err"], res["dscale"],
+                                res["dshift"])}
+        t.update(_timed(
+            torch, flush,
+            lambda: add_ln.fused_add_ln_bwd(x, y, scale, mean, rstd, g),
+            lambda: add_ln.fused_add_ln_bwd_reference(x, y, scale, mean,
+                                                      rstd, g),
+            lambda: torch.autograd.grad(lib_out, (xs, ws, bs), g,
+                                        retain_graph=True),
+            nbytes=add_ln.bound_bytes_bwd(x, y),
+            flops=add_ln.bound_flops_bwd(x, y),
+            peak_flops=BF16_FLOPS if is_bf16 else F32_FLOPS))
+        timed[name] = t
+        if name == "bf16_y":
+            # the forward at the same shapes, for the training path's row
+            t = {"shape": timed[name]["shape"],
+                 "library": "F.layer_norm of x + y (the add left out)",
+                 "max_abs_err": _check(
+                     "add_ln bf16_y out", out,
+                     add_ln.fused_add_ln_reference(**kw)[0], 1e-5,
+                     RTOL_BF16)["max_abs_err"]}
+            t.update(_timed(
+                torch, flush, lambda: add_ln.fused_add_ln_fwd(**kw),
+                lambda: add_ln.fused_add_ln_reference(**kw),
+                lambda: F.layer_norm(s_, (h,), lib_scale, lib_shift, 1e-5),
+                nbytes=add_ln.bound_bytes(x, y),
+                flops=add_ln.bound_flops(x, y), peak_flops=BF16_FLOPS))
+            timed["fwd_bf16_y"] = t
+    return results, timed
+
+
 def phase_kernels(torch) -> dict:
     """Each kernel against its plain version (every case), then timed at
     its main path's shapes."""
@@ -434,8 +718,16 @@ def phase_kernels(torch) -> dict:
                      ("flash_attention_bsh", _kernels_flash),
                      ("add_ln", _kernels_ln)):
         out["cases"][name], out[name] = fn(torch, F, flush)
+    (out["cases"]["flash_attention_bsh_train"],
+     out["flash_attention_bsh_train"],
+     out["flash_attention_bsh_bwd"]) = _kernels_flash_train(torch, F, flush)
+    out["cases"]["add_ln_bwd"], ln = _kernels_ln_train(torch, F, flush)
+    out["add_ln_bwd"] = ln["bf16_y"]
+    out["add_ln_bwd_f32"] = ln["f32"]
+    out["add_ln_train"] = ln["fwd_bf16_y"]
     emit(out)
     del flush
+    torch.cuda.empty_cache()
     return out
 
 
@@ -849,6 +1141,224 @@ def phase_bert_profile(torch, infer: dict) -> dict:
     return out
 
 
+def _train_program(cfg, b: int, s: int, max_preds: int, amp: bool):
+    """BERT pretraining as a user builds it: the MLM + NSP program, Adam at
+    1e-4, bf16 AMP (``decorate``) when ``amp``, ``minimize``."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.contrib import mixed_precision
+    from paddle_tpu_torch.models import bert
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard():
+        m, st, _, loss = bert.build_bert_pretrain_program(
+            cfg, b, s, max_preds, main_program=main, startup_program=startup)
+        with fluid.program_guard(m, st):
+            opt = fluid.optimizer.AdamOptimizer(learning_rate=1e-4)
+            if amp:
+                opt = mixed_precision.decorate(opt, use_bf16=True)
+            opt.minimize(loss)
+    return m, st, loss
+
+
+def _launches_per_step(program) -> dict:
+    """The kernel launches one step of ``program`` must make, counted
+    from its ops: a flash forward per attention (and per layer of a fused
+    stack), two backward kernels each; an LN forward and backward per
+    last-axis affine layer_norm and two per stack layer."""
+    block = program.global_block()
+    flash = ln = 0
+    for op in block.ops:
+        if op.type == "fused_encoder_stack":
+            layers = block.var(op.inputs["QKVW"][0]).shape[0]
+            flash += layers
+            ln += 2 * layers
+        elif op.type == "fused_multihead_attention":
+            flash += 1
+        elif op.type == "layer_norm" and op.inputs.get("Scale") \
+                and op.inputs.get("Bias") and op.attr("begin_norm_axis") \
+                == len(block.var(op.inputs["X"][0]).shape) - 1:
+            ln += 1
+    return {"flash_fwd": flash, "flash_bwd": 2 * flash, "ln_fwd": ln,
+            "ln_bwd": ln}
+
+
+def _counters():
+    from paddle_tpu_torch.ops.kernels import add_ln
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    return {"flash_fwd": fa.flash_attention_bsh,
+            "flash_bwd": fa.flash_attention_bsh_bwd,
+            "ln_fwd": add_ln.fused_add_ln, "ln_bwd": add_ln.fused_add_ln_bwd}
+
+
+def phase_bert_train(torch, card: str) -> dict:
+    """BERT-base pretraining on the card: fuse_stack, Adam, bf16 AMP,
+    dropout 0.1, 8 x 512, on one fixed batch."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.BertConfig.base()
+    cfg.fuse_stack = True
+    b, s, max_preds, n_steps, n_warm = 8, 512, 76, 10, 2
+    t0 = time.perf_counter()
+    main, startup, loss = _train_program(cfg, b, s, max_preds, amp=True)
+    build_s = time.perf_counter() - t0
+    want = _launches_per_step(main)
+    scope = fluid.Scope()
+    exe = fluid.Executor()                        # device=None: the card
+    t0 = time.perf_counter()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    startup_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in
+                   (scope.find_var(v.name) for v in main.all_parameters()))
+    feed = {k: torch.as_tensor(v, device=exe.device) for k, v in
+            bert.random_pretrain_batch(cfg, b, s, max_preds, seed=0).items()}
+    losses = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                            scope=scope)[0][0])
+              for _ in range(n_warm)]                # cuBLAS, allocator
+    torch.cuda.reset_peak_memory_stats()
+    counters = _counters()
+    total = {k: 0 for k in counters}
+    step_ms = []
+    for step in range(n_steps):
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        (lv,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        step_ms.append((time.perf_counter() - t0) * 1e3)  # numpy: synced
+        got = {k: c.launches for k, c in counters.items()}
+        if got != want:
+            fail(f"bert_train step {step} launched {got}, the program "
+                 f"needs {want}")
+        for k in total:
+            total[k] += got[k]
+        losses.append(float(lv[0]))
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"bert_train losses not finite: {losses}")
+    if not statistics.mean(losses[-3:]) < statistics.mean(losses[:3]):
+        fail(f"bert_train loss did not fall on a fixed batch: {losses}")
+    med = statistics.median(step_ms)
+    out = {"phase": "bert_train", "card": card,
+           "config": {"vocab": cfg.vocab_size, "hidden": cfg.hidden_size,
+                      "layers": cfg.num_hidden_layers,
+                      "heads": cfg.num_attention_heads,
+                      "ffn": cfg.intermediate_size, "dropout": 0.1,
+                      "fuse_stack": True, "optimizer": "Adam 1e-4",
+                      "amp": "bf16", "batch": b, "seq": s,
+                      "max_preds": max_preds},
+           "params": n_params, "program_ops": len(main.global_block().ops),
+           "build_s": build_s, "startup_s": startup_s,
+           "steps": n_steps, "warm_steps": n_warm,
+           "step_ms_median": med, "step_ms_min": min(step_ms),
+           "step_ms_max": max(step_ms), "tokens_per_s": b * s / (med / 1e3),
+           "losses": losses, "launches_per_step": want,
+           "launches": total,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+    emit(out)
+    return dict(out, exe=exe, main=main, scope=scope, feed=feed, loss=loss)
+
+
+def _train_parity(torch, cfg, amp: bool, steps: int = 3) -> dict:
+    """The training program on 2 x 128 on the card (kernels) and on the
+    CPU (plain versions) from the same weights: losses of every step and
+    a few parameters after the last."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import bert
+
+    b, s, max_preds = 2, 128, 20
+    main, startup, loss = _train_program(cfg, b, s, max_preds, amp)
+    cpu_exe, cpu_scope = fluid.Executor(device="cpu"), fluid.Scope()
+    cpu_exe.run(startup, scope=cpu_scope)
+    card_scope = fluid.Scope.from_numpy(
+        {n: v.numpy() for n, v in cpu_scope.vars.items()})
+    card_exe = fluid.Executor()
+    feed = bert.random_pretrain_batch(cfg, b, s, max_preds, seed=3)
+    card, cpu = [], []
+    for _ in range(steps):
+        card.append(float(card_exe.run(main, feed=feed, fetch_list=[loss],
+                                       scope=card_scope)[0][0]))
+        cpu.append(float(cpu_exe.run(main, feed=feed, fetch_list=[loss],
+                                     scope=cpu_scope)[0][0]))
+    params = {}
+    for n in ("encoder_stack.qkv_w", "encoder_stack.ffn_w2",
+              "encoder_stack.ln1_scale", "word_embedding",
+              "mask_lm_trans_fc.w_0", "next_sent_fc.w_0"):
+        params[n] = float((card_scope.find_var(n).cpu().float()
+                           - cpu_scope.find_var(n).float()).abs().max())
+    return {"loss_card": card, "loss_cpu": cpu,
+            "loss_diff": max(abs(a - c) for a, c in zip(card, cpu)),
+            "param_diff": params}
+
+
+def phase_bert_train_parity(torch) -> dict:
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.BertConfig.base()
+    cfg.fuse_stack = True
+    cfg.hidden_dropout_prob = cfg.attention_probs_dropout_prob = 0.0
+    counters = _counters()
+    n0 = {k: c.launches for k, c in counters.items()}
+    f32 = _train_parity(torch, cfg, amp=False)
+    if any(counters[k].launches == n0[k] for k in counters):
+        fail("the f32 parity run on the card missed a kernel")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32 = _train_parity(torch, cfg, amp=False)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    amp = _train_parity(torch, cfg, amp=True)
+    checks = [("f32 loss", f32["loss_diff"], TRAIN_PARITY_LOSS),
+              ("f32 params", max(f32["param_diff"].values()),
+               TRAIN_PARITY_PARAM),
+              ("bf16 loss", amp["loss_diff"], TRAIN_PARITY_LOSS_BF16)]
+    for name, diff, limit in checks:
+        if not math.isfinite(diff) or diff > limit:
+            fail(f"BERT-base training card vs CPU, {name}: {diff} > "
+                 f"{limit}")
+    out = {"phase": "bert_train_parity", "batch": 2, "seq": 128,
+           "steps": 3, "f32": f32, "f32_tf32_on": tf32, "amp_bf16": amp,
+           "limits": {"f32_loss": TRAIN_PARITY_LOSS,
+                      "f32_param": TRAIN_PARITY_PARAM,
+                      "bf16_loss": TRAIN_PARITY_LOSS_BF16},
+           "tf32_exceeds_limit": (
+               tf32["loss_diff"] > TRAIN_PARITY_LOSS
+               and max(tf32["param_diff"].values()) > TRAIN_PARITY_PARAM)}
+    emit(out)
+    return out
+
+
+def phase_bert_train_profile(torch, train: dict) -> dict:
+    """Where a training step's time goes: 3 steps of bert_train under
+    torch.profiler; device busy time by kernel against the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    exe, main, scope = train["exe"], train["main"], train["scope"]
+    feed, loss = train["feed"], train["loss"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = _device_rows(torch, prof)
+    busy_ms = sum(r[0] for r in rows)
+    out = {"phase": "bert_train_profile", "steps": 3, "wall_ms": wall_ms,
+           "device_busy_ms": busy_ms,
+           "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
+           "top_kernels": [{"ms": ms, "calls": n, "name": k[:90]}
+                           for ms, n, k in rows[:20]],
+           "note": "window = 3 training steps of 8 x 512 (forward, "
+                   "backward, Adam, loss fetch); busy = sum of kernel self "
+                   "times"}
+    emit(out)
+    return out
+
+
 def _kernel_entry(name, source, replaces, launches, k) -> dict:
     return {"name": name, "route": "cuda",
             "source": f"paddle_tpu_torch/ops/kernels/csrc/{source}",
@@ -891,19 +1401,45 @@ def main() -> int:
     infer = phase_bert_infer(torch, env["card"])
     phase_bert_parity(torch, infer)
     phase_bert_profile(torch, infer)
+    infer_launches = {"flash": infer["flash_launches"],
+                      "ln": infer["ln_launches"]}
+    del infer
+    torch.cuda.empty_cache()
+
+    train = phase_bert_train(torch, env["card"])
+    phase_bert_train_profile(torch, train)
+    launches = train["launches"]
+    del train
+    torch.cuda.empty_cache()
+    phase_bert_train_parity(torch)
+
+    def entry(name, source, replaces, k, path_launches):
+        e = _kernel_entry(name, source, replaces,
+                          path_launches["bert_train"], k)
+        e["launches_by_path"] = path_launches
+        return e
 
     emit({"kernels": [
         _kernel_entry("paged_attention", "paged_attention.cu",
                       "paddle_tpu/ops/pallas/paged_attention.py:144",
                       eng["paged_attention_launches"],
                       kern["paged_attention"]),
-        _kernel_entry("flash_attention_bsh", "flash_attention_bsh.cu",
-                      "paddle_tpu/ops/pallas/flash_attention.py:1500",
-                      infer["flash_launches"],
-                      kern["flash_attention_bsh"]),
-        _kernel_entry("add_ln", "add_ln.cu",
-                      "paddle_tpu/ops/pallas/add_ln.py:145",
-                      infer["ln_launches"], kern["add_ln"])]})
+        entry("flash_attention_bsh", "flash_attention_bsh.cu",
+              "paddle_tpu/ops/pallas/flash_attention.py:1500",
+              kern["flash_attention_bsh_train"],
+              {"bert_train": launches["flash_fwd"],
+               "bert_infer": infer_launches["flash"]}),
+        entry("flash_attention_bsh_bwd", "flash_attention_bsh.cu",
+              "paddle_tpu/ops/pallas/flash_attention.py:1697",
+              kern["flash_attention_bsh_bwd"],
+              {"bert_train": launches["flash_bwd"]}),
+        entry("add_ln", "add_ln.cu", "paddle_tpu/ops/pallas/add_ln.py:145",
+              kern["add_ln_train"],
+              {"bert_train": launches["ln_fwd"],
+               "bert_infer": infer_launches["ln"]}),
+        entry("add_ln_bwd", "add_ln.cu",
+              "paddle_tpu/ops/pallas/add_ln.py:175", kern["add_ln_bwd"],
+              {"bert_train": launches["ln_bwd"]})]})
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

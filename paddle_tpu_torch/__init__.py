@@ -12,7 +12,13 @@ the hand-written CUDA paged-attention kernel
 the Program IR, layers and Executor (``fluid``), the op emitters
 (``ops``), ``inference.freeze`` / ``inference.predictor`` and BERT
 (``models.bert``), whose attention and LayerNorm run the CUDA kernels
-``ops.kernels.flash_attention`` and ``ops.kernels.add_ln``.
+``ops.kernels.flash_attention`` and ``ops.kernels.add_ln``; and BERT
+pretraining: ``fluid.backward`` (generic grad ops through
+``torch.autograd``), the SGD / Momentum / Adam / AdamW optimizers
+(``fluid.optimizer``, ``ops.optimizer_ops``), bf16 AMP
+(``contrib.mixed_precision``) and the fused encoder stack
+(``ops.encoder_stack``), with the backward kernels of flash attention and
+LayerNorm and the forward's in-kernel Philox dropout.
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; see :func:`resolve_device`.

@@ -3,19 +3,25 @@
 Parity surface: python/paddle/fluid/__init__.py in the reference, ported
 from the JAX package's ``fluid``: the same Program / layers / Executor
 API, executing op by op in torch on one device (the CUDA card unless the
-Executor is given ``device="cpu"``).  Optimizers, backward, dygraph and
-the dataset / reader front ends wait for later slices (ROADMAP).
+Executor is given ``device="cpu"``), with ``append_backward`` and the
+SGD / Momentum / Adam / AdamW optimizers.  Dygraph and the dataset /
+reader front ends wait for later slices (ROADMAP).
 """
 from . import (  # noqa: F401
+    backward,
+    clip,
     dtypes,
     executor,
     framework,
     initializer,
     io,
     layers,
+    optimizer,
     param_attr,
+    regularizer,
     unique_name,
 )
+from .backward import append_backward, calc_gradient, gradients  # noqa: F401
 from .executor import Executor, Scope, global_scope, scope_guard  # noqa: F401
 from .flags import get_flags, set_flags  # noqa: F401
 from .framework import (  # noqa: F401

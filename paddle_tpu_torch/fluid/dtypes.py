@@ -7,13 +7,36 @@ the same metadata.  Emitters create tensors through
 :func:`to_torch_dtype` of :func:`runtime_dtype`.
 
 bfloat16 has no numpy dtype without ``ml_dtypes``, which the port does
-not depend on; a bf16 *Variable* waits for the AMP rewriter's slice.  The
-kernels themselves take bf16 torch tensors.
+not depend on (the card's installation lacks it).  The IR names it with
+its own singleton, :data:`bfloat16`, which the helpers here understand:
+``convert_dtype("bfloat16")`` returns it, ``dtype_name`` says
+"bfloat16", ``is_floating`` is true, and ``to_torch_dtype`` /
+``from_torch_dtype`` map it to and from ``torch.bfloat16``.  Code that
+reads a Variable's dtype goes through these helpers, never
+``np.dtype(v.dtype)``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+class _BFloat16:
+    """The IR's bfloat16 dtype (numpy has none): a singleton with the
+    attributes the port reads off a numpy dtype."""
+
+    name = "bfloat16"
+    kind = "f"
+    itemsize = 2
+
+    def __repr__(self):
+        return "dtype('bfloat16')"
+
+    def __reduce__(self):  # pickles (Program clones) keep the singleton
+        return "bfloat16"
+
+
+bfloat16 = _BFloat16()
 
 _STR2NP = {
     "bool": np.dtype("bool"),
@@ -43,23 +66,28 @@ _NP2TORCH = {
     np.dtype("complex128"): torch.complex128,
 }
 _TORCH2NP = {t: n for n, t in _NP2TORCH.items()}
+_NP2TORCH[bfloat16] = torch.bfloat16
+_TORCH2NP[torch.bfloat16] = bfloat16
 
 
-def convert_dtype(dtype) -> np.dtype:
-    """Canonicalize any dtype spec (str, np.dtype, torch.dtype) to np.dtype."""
+def convert_dtype(dtype):
+    """Canonicalize any dtype spec (str, np.dtype, torch.dtype) to a numpy
+    dtype, or to :data:`bfloat16`."""
     if dtype is None:
         return np.dtype("float32")
+    if dtype is bfloat16:
+        return bfloat16
     if isinstance(dtype, torch.dtype):
         return from_torch_dtype(dtype)
     if isinstance(dtype, str):
         key = dtype.lower()
         if key == "bfloat16":
-            raise TypeError(
-                "bfloat16 Variables are not supported by the port's IR yet "
-                "(numpy has no bfloat16; the AMP slice brings them)")
+            return bfloat16
         if key in _STR2NP:
             return _STR2NP[key]
         return np.dtype(dtype)
+    if getattr(dtype, "name", None) == "bfloat16":  # e.g. ml_dtypes' dtype
+        return bfloat16
     try:
         return np.dtype(dtype)
     except TypeError:  # an array or scalar: its dtype
@@ -71,10 +99,11 @@ def dtype_name(dtype) -> str:
 
 
 def is_floating(dtype) -> bool:
-    return np.issubdtype(convert_dtype(dtype), np.floating)
+    d = convert_dtype(dtype)
+    return d is bfloat16 or np.issubdtype(d, np.floating)
 
 
-def runtime_dtype(dtype) -> np.dtype:
+def runtime_dtype(dtype):
     """Device-side dtype for tensor CREATION.  The JAX package runs with
     64-bit types off, so a 64-bit int or float lives on the device as its
     32-bit kind while the Variable keeps its declared dtype; the port
@@ -87,7 +116,7 @@ def runtime_dtype(dtype) -> np.dtype:
 
 
 def to_torch_dtype(dtype) -> torch.dtype:
-    """The torch dtype of a (runtime) numpy dtype."""
+    """The torch dtype of a (runtime) numpy dtype or :data:`bfloat16`."""
     d = convert_dtype(dtype)
     try:
         return _NP2TORCH[d]
@@ -95,7 +124,7 @@ def to_torch_dtype(dtype) -> torch.dtype:
         raise TypeError(f"no torch dtype for {d}") from None
 
 
-def from_torch_dtype(dtype: torch.dtype) -> np.dtype:
+def from_torch_dtype(dtype: torch.dtype):
     try:
         return _TORCH2NP[dtype]
     except KeyError:

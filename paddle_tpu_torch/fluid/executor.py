@@ -24,8 +24,18 @@ from inside the emitters.  What carries over unchanged:
 * the spans ``step``, ``data_wait``, ``device`` and ``fetch`` of the
   port's ``telemetry/tracing.py`` (armed by PADDLE_TRACING=1).
 
-The executor has no backward yet, so every block runs under
-``torch.inference_mode()``.  Not ported yet: the step monitor, the
+Autograd mode.  A block that holds grad ops (``fluid.backward``) runs
+under ``torch.no_grad()``: the registry switches autograd on only for
+the forward ops whose generic grad op follows and inside the grad ops
+(primal reuse, ``ops/registry.py``).  A block with no grad op that writes
+no scope state (the frozen ``infer`` program) runs under
+``torch.inference_mode()``.  A block that writes scope state (a startup
+program, a forward with persistable outputs) runs under ``no_grad`` too,
+so the scope never holds an inference tensor: autograd refuses to save
+one for the backward of a later training step.  The optimizer ops write
+``ParamOut``/``Moment*Out`` under the input names: each is a new tensor,
+and ``state_out`` writes it back detached, so no step's graph outlives
+the step.  Not ported yet: the step monitor, the
 numerics guards (FLAGS_check_nan_inf, FLAGS_check_numerics), the memory
 OOM doctor and ``memory_analysis``, the mesh / shard_map paths and the
 dataset loops (ROADMAP §C).
@@ -119,6 +129,9 @@ class _BlockPlan:
         self.ops = ops
         self.state_in = state_in
         self.state_out = state_out
+        # inference mode only for a block with no backward that writes
+        # no scope state (see the module note)
+        self.inference = not state_out and not registry.has_grad_ops(ops)
 
 
 class Executor:
@@ -179,14 +192,16 @@ class Executor:
             env[n] = v
         env.update(feeds)
         seed = scope._rng_seed
-        with torch.inference_mode(), _tracing.span("device"):
+        mode = (torch.inference_mode() if plan.inference
+                else torch.no_grad())
+        with mode, _tracing.span("device"):
             ctx = registry.EmitContext(seed=seed, device=self.device)
             registry.emit_ops(ctx, plan.ops, env)
-            fetches = [env[n] for n in fetch_names]
+            fetches = [env[n].detach() for n in fetch_names]
         # advance the step seed even if no op drew from it
         scope._rng_seed = registry.mix_seed(seed, 0x5EED)
         for n in plan.state_out:
-            scope.set_var(n, env[n])
+            scope.set_var(n, env[n].detach())
         if return_numpy:
             with _tracing.span("fetch"):
                 return [f.cpu().numpy() for f in fetches]

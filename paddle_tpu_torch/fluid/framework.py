@@ -26,6 +26,7 @@ from typing import Any, Dict, List, Optional, Sequence
 from . import unique_name
 from .dtypes import convert_dtype, dtype_name, is_floating
 
+GRAD_VAR_SUFFIX = "@GRAD"
 _dummy_batch_probes = (3, 5)
 
 
@@ -143,6 +144,12 @@ class Operator:
     def output_names(self) -> List[str]:
         return [n for vs in self.outputs.values() for n in vs]
 
+    def input(self, slot: str) -> List[str]:
+        return self.inputs.get(slot, [])
+
+    def output(self, slot: str) -> List[str]:
+        return self.outputs.get(slot, [])
+
     def attr(self, name: str, default=None):
         return self.attrs.get(name, default)
 
@@ -192,6 +199,9 @@ class Block:
             raise ValueError(f"Variable {name!r} not found in block {self.idx}")
         return v
 
+    def all_parameters(self) -> List[Parameter]:
+        return [v for v in self.vars.values() if isinstance(v, Parameter)]
+
     def _find_var_recursive(self, name: str) -> Optional[Variable]:
         blk: Optional[Block] = self
         while blk is not None:
@@ -212,6 +222,15 @@ class Block:
         op = Operator(self, type, inputs=_normalize_io(inputs),
                       outputs=_normalize_io(outputs), attrs=attrs)
         self.ops.append(op)
+        self._post_insert(op, infer)
+        return op
+
+    def _insert_op(self, index: int, type: str, inputs=None, outputs=None,
+                   attrs=None, infer: bool = True) -> Operator:
+        """Insert an op at ``index`` (the AMP rewrite's cast insertion)."""
+        op = Operator(self, type, inputs=_normalize_io(inputs),
+                      outputs=_normalize_io(outputs), attrs=attrs)
+        self.ops.insert(index, op)
         self._post_insert(op, infer)
         return op
 
@@ -263,6 +282,9 @@ class Program:
 
     def current_block(self) -> Block:
         return self.blocks[self.current_block_idx]
+
+    def all_parameters(self) -> List[Parameter]:
+        return self.global_block().all_parameters()
 
     def list_vars(self):
         for b in self.blocks:

@@ -188,6 +188,13 @@ reduce_sum = _reduce("reduce_sum")
 reduce_mean = _reduce("reduce_mean")
 
 
+def mean(x, name=None):
+    helper = LayerHelper("mean", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="mean", inputs={"X": [x]}, outputs={"Out": [out]})
+    return out
+
+
 def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,
           name=None):
     helper = LayerHelper("scale", act=act, name=name)

@@ -5,11 +5,13 @@ emit the same Program (op types, attrs, parameter names) through the port's
 ``fluid.layers``.  The attention core is the ``fused_multihead_attention``
 op (flash-attention kernel on the card) when
 ``config.use_flash_attention`` is set; every post-LN ``layer_norm`` runs
-the add+LN kernel.
+the add+LN kernel.  ``fuse_stack=True`` builds the whole encoder as one
+``fused_encoder_stack`` op over stacked ``encoder_stack.*`` parameters
+(the same names as the JAX package's), as its bench trains BERT.
 
-Not ported yet: ``fuse_stack=True`` (the scanned ``fused_encoder_stack``
-op, training slice) and ``moe_num_experts > 0`` (``moe_ffn``, the
-distributed slice); both raise.
+Not ported yet: ``remat_policy`` (raises at build; the other remat
+flags work) and ``moe_num_experts > 0`` (``moe_ffn``, the distributed
+slice; raises).
 """
 from __future__ import annotations
 
@@ -39,9 +41,16 @@ class BertConfig:
     type_vocab_size: int = 2
     initializer_range: float = 0.02
     use_flash_attention: bool = True
-    # the scanned encoder stack and MoE FFN of the JAX package: both
-    # raise here until their slices land
+    # recompute the FFN inter activation / the q/k/v projections / the
+    # whole layer in the backward (fuse_stack only)
+    remat_ffn: bool = False
+    remat_qkv: bool = False
+    remat_layer: bool = False
+    # the JAX package's checkpoint-name policy: not ported, raises
+    remat_policy: str = ""
+    # one fused_encoder_stack op over stacked layer params
     fuse_stack: bool = False
+    # the MoE FFN of the JAX package: raises until its slice lands
     moe_num_experts: int = 0
 
     @staticmethod
@@ -164,14 +173,76 @@ def bert_encoder(cfg: BertConfig, input_ids, token_type_ids, position_ids,
     attn_bias = layers.unsqueeze(layers.unsqueeze(attn_bias, [1]), [1])
 
     if cfg.fuse_stack:
-        raise NotImplementedError(
-            "fuse_stack=True: the fused_encoder_stack op is not ported yet "
-            "(the BERT training slice brings it); use fuse_stack=False")
+        if cfg.moe_num_experts > 0:
+            raise ValueError(
+                "fuse_stack + moe_num_experts: the scanned stack cannot hold "
+                "per-layer MoE routers yet; set fuse_stack=False for MoE")
+        return _encoder_stack(cfg, emb, attn_bias, is_test)
     hidden = emb
     for i in range(cfg.num_hidden_layers):
         hidden = encoder_layer(cfg, hidden, attn_bias, f"encoder_layer_{i}",
                                is_test)
     return hidden
+
+
+def _encoder_stack(cfg: BertConfig, hidden, attn_bias, is_test: bool):
+    """One fused_encoder_stack op (ops/encoder_stack.py) over stacked
+    [L, ...] params named encoder_stack.*."""
+    from ..fluid.layer_helper import LayerHelper
+    from ..fluid.layers.nn import _rng_salt_counter
+
+    if cfg.remat_policy:
+        raise NotImplementedError(
+            "remat_policy (checkpoint-name policies) is not ported; use "
+            "remat_ffn / remat_qkv / remat_layer (ROADMAP A5)")
+    L, h, f = cfg.num_hidden_layers, cfg.hidden_size, cfg.intermediate_size
+    helper = LayerHelper("fused_encoder_stack")
+
+    def param(name, shape, init=None):
+        return helper.create_parameter(
+            ParamAttr(name=f"encoder_stack.{name}",
+                      initializer=init or TruncatedNormalInitializer(
+                          scale=cfg.initializer_range)),
+            shape=shape, dtype="float32")
+
+    ones = ConstantInitializer(1.0)
+    zeros = ConstantInitializer(0.0)
+    p = {
+        "QKVW": param("qkv_w", [L, h, 3 * h]),
+        "QKVB": param("qkv_b", [L, 3 * h], zeros),
+        "OutW": param("out_w", [L, h, h]),
+        "OutB": param("out_b", [L, h], zeros),
+        "Ln1S": param("ln1_scale", [L, h], ones),
+        "Ln1B": param("ln1_bias", [L, h], zeros),
+        "FfnW1": param("ffn_w1", [L, h, f]),
+        "FfnB1": param("ffn_b1", [L, f], zeros),
+        "FfnW2": param("ffn_w2", [L, f, h]),
+        "FfnB2": param("ffn_b2", [L, h], zeros),
+        "Ln2S": param("ln2_scale", [L, h], ones),
+        "Ln2B": param("ln2_bias", [L, h], zeros),
+    }
+    out = helper.create_variable_for_type_inference("float32")
+    _rng_salt_counter[0] += 1
+    helper.append_op(
+        type="fused_encoder_stack",
+        inputs={"Hidden": [hidden], "AttnBias": [attn_bias],
+                **{k: [v] for k, v in p.items()}},
+        outputs={"Out": [out]},
+        attrs={
+            "num_heads": cfg.num_attention_heads,
+            "act": cfg.hidden_act,
+            "dropout_prob": cfg.hidden_dropout_prob,
+            "attn_dropout_prob": cfg.attention_probs_dropout_prob,
+            "is_test": is_test,
+            "use_flash_attention": cfg.use_flash_attention,
+            "remat_ffn": cfg.remat_ffn,
+            "remat_qkv": cfg.remat_qkv,
+            "remat_layer": cfg.remat_layer,
+            "remat_policy": cfg.remat_policy,
+            "rng_salt": _rng_salt_counter[0],
+        },
+    )
+    return out
 
 
 def bert_pooler(cfg: BertConfig, sequence_output):

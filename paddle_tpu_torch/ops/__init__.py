@@ -8,9 +8,11 @@ from . import registry  # noqa: F401
 from . import (  # noqa: F401
     attention,
     creation,
+    encoder_stack,
     manipulation,
     math_ops,
     nn_ops,
+    optimizer_ops,
     reduce_ops,
 )
 from .registry import EmitContext, get, register  # noqa: F401

@@ -11,8 +11,9 @@ never the device):
 
 * BSH — ``bsh_dispatch_ok``: no bias or a per-key [B, 1, 1, Skv] bias,
   D in {64, 128, 256}, lengths multiples of 128.  The flash-attention
-  kernel ``ops/kernels/flash_attention.py`` (its plain version on the
-  CPU).
+  kernels ``ops/kernels/flash_attention.py`` (their plain versions on the
+  CPU), differentiable, with the dropout drawn from the op's salted
+  generator (Philox in the kernel on the card).
 * BHSD — a square full bias ([B, nh, S, S] and the like) the BSH kernel
   cannot hold: the JAX package runs its BHSD Pallas kernel there, which
   is not ported yet (ROADMAP §B row 6).  On the card it raises
@@ -21,7 +22,9 @@ never the device):
   FLAGS_use_flash_attention off): ``_reference_attention`` in torch, as
   the reference does.
 
-The ring-attention branch (sequence parallel over a mesh) waits for the
+BiasQK gets a zero cotangent on every branch, as in the reference: the
+kernels return none, and the composition detaches the bias.  The
+ring-attention branch (sequence parallel over a mesh) waits for the
 distributed slice.
 """
 from __future__ import annotations
@@ -99,5 +102,7 @@ def fused_multihead_attention(ctx, ins, attrs):
         bias = cmask if bias is None else bias + cmask
     gen = (ctx.salted_rng(int(attrs.get("rng_salt", 0)))
            if train_dropout else None)
+    if bias is not None:
+        bias = bias.detach()  # the zero-cotangent BiasQK contract
     out = _reference_attention(q, k, v, bias, dropout_prob, is_test, gen)
     return {"Out": [_merge_heads(out)]}

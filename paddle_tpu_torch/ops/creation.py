@@ -2,9 +2,10 @@
 
 Parity surface: reference ops fill_constant_op.cc, uniform_random_op.cc,
 gaussian_random_op.cc, truncated_gaussian_random_op.cc, assign_value_op.cc,
-cast_op.cc, scale_op.cc; ported from the JAX package's
-``ops/creation.py``.  Random ops draw from the generator the Executor's
-step context hands them (``ctx.rng()``), never from a global one.
+cast_op.cc, scale_op.cc, fill_zeros_like_op.cc, assign_op.cc; ported
+from the JAX package's ``ops/creation.py``, with its ``no_vjp_grad``
+flags.  Random ops draw from the generator the Executor's step context
+hands them (``ctx.rng()``), never from a global one.
 """
 from __future__ import annotations
 
@@ -30,20 +31,20 @@ def _uniform(ctx, shape, lo, hi):
     return u * (hi - lo) + lo
 
 
-@register("fill_constant")
+@register("fill_constant", no_vjp_grad=True)
 def fill_constant(ctx, ins, attrs):
     return {"Out": [torch.full(_attr_shape(attrs), attrs.get("value", 0.0),
                                dtype=_attr_dtype(attrs), device=ctx.device)]}
 
 
-@register("uniform_random")
+@register("uniform_random", no_vjp_grad=True)
 def uniform_random(ctx, ins, attrs):
     out = _uniform(ctx, _attr_shape(attrs), float(attrs.get("min", -1.0)),
                    float(attrs.get("max", 1.0)))
     return {"Out": [out.to(_attr_dtype(attrs))]}
 
 
-@register("gaussian_random")
+@register("gaussian_random", no_vjp_grad=True)
 def gaussian_random(ctx, ins, attrs):
     z = torch.randn(_attr_shape(attrs), generator=ctx.rng(),
                     device=ctx.device)
@@ -51,7 +52,7 @@ def gaussian_random(ctx, ins, attrs):
     return {"Out": [out.to(_attr_dtype(attrs))]}
 
 
-@register("truncated_gaussian_random")
+@register("truncated_gaussian_random", no_vjp_grad=True)
 def truncated_gaussian_random(ctx, ins, attrs):
     """Normal truncated to [-2, 2] standard deviations (as
     ``jax.random.truncated_normal(-2, 2)``): inverse-CDF sampling of a
@@ -63,11 +64,22 @@ def truncated_gaussian_random(ctx, ins, attrs):
     return {"Out": [out.to(_attr_dtype(attrs))]}
 
 
-@register("assign_value")
+@register("assign_value", no_vjp_grad=True)
 def assign_value(ctx, ins, attrs):
     dt = runtime_dtype(attrs.get("dtype", "float32"))
     arr = np.asarray(attrs["values"], dtype=dt).reshape(_attr_shape(attrs))
     return {"Out": [torch.as_tensor(arr, device=ctx.device)]}
+
+
+@register("fill_zeros_like", no_vjp_grad=True)
+def fill_zeros_like(ctx, ins, attrs):
+    """The zero cotangent of an output no grad reached (fluid.backward)."""
+    return {"Out": [torch.zeros_like(ins["X"][0])]}
+
+
+@register("assign")
+def assign(ctx, ins, attrs):
+    return {"Out": [ins["X"][0]]}
 
 
 @register("cast")

@@ -1,0 +1,235 @@
+"""Fused transformer encoder stack over stacked [L, ...] layer params.
+
+Ported from the JAX package's ``ops/encoder_stack.py``
+(``fused_encoder_stack``): one op holds every encoder layer, its
+parameters stacked on a leading layer axis.  The JAX package scans one
+compiled layer body over that axis; PyTorch runs eagerly, so here the
+body is a Python loop over the L slices (``unbind``), and autograd flows
+back into the stacked [L, ...] tensors.
+
+Per layer (post-LN, as the reference's BERT):
+
+    q, k, v  = split(hid @ QKVW + QKVB)
+    ctx      = attention(q, k, v, AttnBias)     (dropout attn_dropout_prob)
+    hid      = add_ln(hid, dropout(ctx @ OutW + OutB), Ln1S, Ln1B)
+    hid      = add_ln(hid, dropout(act(hid @ FfnW1 + FfnB1) @ FfnW2 + FfnB2),
+                      Ln2S, Ln2B)
+
+Attention branches, as in the JAX package: BSH (``bsh_dispatch_ok``: the
+flash kernels of ``ops/kernels/flash_attention.py`` on the [B, S, H]
+projections, no head transposes); BHSD (flash-able lengths with a bias
+the BSH kernel cannot hold: the JAX package's BHSD Pallas kernel, not
+ported — it raises on the card and runs the plain composition on the
+CPU); and the composition (f32 scores, softmax, ``_cheap_dropout``).
+``add_ln`` is the fused LayerNorm kernel (``ops/kernels/add_ln.py``,
+differentiable) under FLAGS_use_fused_ln, else ``_ln_f32(x + y)``.
+
+Randomness: the op's salted seed (``EmitContext.salted_seed``) mixed
+with the layer index gives each layer its seed, and each dropout site of
+the layer its own generator created from that seed where it draws, so a
+checkpointed layer, FFN or projection draws the same bits when it is
+recomputed.  The attention's dropout draws through the flash path
+(Philox in the kernel on the card, a keep mask on the CPU).
+
+Remat: ``remat_ffn``, ``remat_qkv`` and ``remat_layer`` wrap the FFN, the
+q/k/v projection or the whole layer in ``torch.utils.checkpoint``
+(non-reentrant).  Not ported: ``remat_policy`` (the JAX package's
+checkpoint-name policy), the GPipe pipeline and the ring
+(sequence-parallel) branches; each raises NotImplementedError (ROADMAP
+A5, A10).
+
+Slots (all stacked on dim 0 = layer):
+  Hidden [B,S,H], AttnBias [B,1,1,S],
+  QKVW [L,H,3H], QKVB [L,3H], OutW [L,H,H], OutB [L,H],
+  Ln1S/Ln1B [L,H], FfnW1 [L,H,F], FfnB1 [L,F], FfnW2 [L,F,H], FfnB2 [L,H],
+  Ln2S/Ln2B [L,H]
+"""
+from __future__ import annotations
+
+import functools
+import math
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from .kernels import add_ln as _add_ln_kernel
+from .kernels.flash_attention import (bsh_dispatch_ok, flash_attention_bsh,
+                                      flash_shapes_ok)
+from .registry import mix_seed, register
+
+_PARAM_KEYS = (
+    "QKVW", "QKVB", "OutW", "OutB", "Ln1S", "Ln1B",
+    "FfnW1", "FfnB1", "FfnW2", "FfnB2", "Ln2S", "Ln2B",
+)
+
+# the three dropout sites of a layer (the JAX package's k1, k2, k3)
+_ATTN, _ATTN_OUT, _FFN = 1, 2, 3
+
+
+def _act(name):
+    return {
+        "gelu": lambda x: F.gelu(x, approximate="tanh"),  # jax.nn.gelu
+        "relu": F.relu,
+        "tanh": torch.tanh,
+        "silu": F.silu,
+    }[name]
+
+
+def _ln_f32(x, scale, shift, eps):
+    """LayerNorm with f32 statistics regardless of compute dtype (bf16
+    under AMP)."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps) * scale.float() + shift.float()
+    return y.to(x.dtype)
+
+
+def _add_ln(x, y, scale, shift, eps):
+    """LayerNorm(x + y): the fused kernel (its plain version on the CPU)
+    under FLAGS_use_fused_ln, else the f32-statistics composition."""
+    from ..fluid.flags import flag
+
+    if flag("FLAGS_use_fused_ln"):
+        return _add_ln_kernel.fused_add_ln(x, y, scale, shift, eps)
+    return _ln_f32(x + y, scale, shift, eps)
+
+
+def _generator(seed: int, device):
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return g
+
+
+def _cheap_dropout(x, prob, seed):
+    """uint8 random bits (the JAX package's: 4x less generator traffic
+    than 32-bit uniforms).  The threshold is quantized to 1/256, so kept
+    values divide by the EFFECTIVE keep probability to stay unbiased."""
+    thresh = max(1, min(255, round((1.0 - prob) * 256)))
+    keep_eff = thresh / 256.0
+    bits = torch.randint(0, 256, x.shape, dtype=torch.uint8,
+                         generator=_generator(seed, x.device),
+                         device=x.device)
+    return torch.where(bits < thresh, x / keep_eff, 0.0)
+
+
+def _refuse_unported(attrs):
+    if str(attrs.get("remat_policy", "") or "").strip():
+        raise NotImplementedError(
+            "fused_encoder_stack remat_policy (checkpoint-name policies) is "
+            "not ported; use remat_ffn / remat_qkv / remat_layer "
+            "(ROADMAP A5)")
+    for attr in ("pipeline", "sequence_parallel"):
+        if attrs.get(attr, False):
+            raise NotImplementedError(
+                f"fused_encoder_stack {attr}: the GPipe and ring branches "
+                f"wait for the distributed slice (ROADMAP A10)")
+
+
+@register("fused_encoder_stack")
+def fused_encoder_stack(ctx, ins, attrs):
+    _refuse_unported(attrs)
+    hidden = ins["Hidden"][0]
+    bias = ins.get("AttnBias", [None])[0]
+    nh = int(attrs["num_heads"])
+    act = _act(attrs.get("act", "gelu"))
+    dropout_prob = float(attrs.get("dropout_prob", 0.0))
+    attn_dropout_prob = float(attrs.get("attn_dropout_prob", 0.0))
+    is_test = bool(attrs.get("is_test", False))
+    eps = float(attrs.get("epsilon", 1e-5))
+    use_flash = bool(attrs.get("use_flash_attention", True))
+    base_seed = ctx.salted_seed(int(attrs.get("rng_salt", 0)))
+    shape_only = hidden.device.type == "meta"
+
+    def ckpt(fn, *args):
+        # the generators are made inside fn from integer seeds, so the
+        # recompute draws the same bits without the global RNG state
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+
+    def dropout(x, prob, seed):
+        if is_test or prob <= 0.0 or shape_only:
+            return x
+        return _cheap_dropout(x, prob, seed)
+
+    def layer(hid, idx, *params):
+        p = dict(zip(_PARAM_KEYS, params))
+        b, s, h = hid.shape
+        dh = h // nh
+        lseed = mix_seed(base_seed, idx)
+
+        def seed_of(site):
+            return mix_seed(lseed, site)
+
+        use_bsh = use_flash and bsh_dispatch_ok(s, s, h, nh, bias=bias,
+                                                batch=b)
+
+        def project_qkv_flat(hid_, w, bias_):
+            qkv = torch.matmul(hid_, w) + bias_
+            return tuple(t.contiguous() for t in qkv.split(h, dim=-1))
+
+        def project_qkv(hid_, w, bias_):
+            return tuple(t.reshape(b, s, nh, dh).transpose(1, 2)
+                         for t in project_qkv_flat(hid_, w, bias_))
+
+        qkv_flat, qkv_heads = project_qkv_flat, project_qkv
+        if attrs.get("remat_qkv", False):
+            # recompute the q/k/v projections in the backward instead of
+            # keeping three [B, S, H] tensors a layer
+            qkv_flat = functools.partial(ckpt, project_qkv_flat)
+            qkv_heads = functools.partial(ckpt, project_qkv)
+
+        attn_p = 0.0 if is_test else attn_dropout_prob
+        if use_bsh:
+            q, k, v = qkv_flat(hid, p["QKVW"], p["QKVB"])
+            gen = (_generator(seed_of(_ATTN), hid.device)
+                   if attn_p > 0.0 and not shape_only else None)
+            ctx_l = flash_attention_bsh(q, k, v, bias, num_heads=nh,
+                                        dropout_prob=attn_p,
+                                        dropout_generator=gen)
+        else:
+            if use_flash and flash_shapes_ok(s, dh) \
+                    and hid.device.type == "cuda":
+                raise NotImplementedError(
+                    "fused_encoder_stack: this bias shape "
+                    f"{None if bias is None else tuple(bias.shape)} needs "
+                    "the BHSD flash kernel, which the port does not have "
+                    "yet (ROADMAP §B row 6)")
+            q, k, v = qkv_heads(hid, p["QKVW"], p["QKVB"])
+            scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) \
+                / math.sqrt(dh)
+            if bias is not None:
+                scores = scores + bias.float()
+            probs = torch.softmax(scores, dim=-1).to(hid.dtype)
+            probs = dropout(probs, attn_p, seed_of(_ATTN))
+            ctx_l = torch.matmul(probs, v).transpose(1, 2).reshape(b, s, h)
+
+        attn_out = torch.matmul(ctx_l, p["OutW"]) + p["OutB"]
+        attn_out = dropout(attn_out, dropout_prob, seed_of(_ATTN_OUT))
+        hid = _add_ln(hid, attn_out, p["Ln1S"], p["Ln1B"], eps)
+
+        def ffn(h_, w1, b1, w2, b2):
+            inter = act(torch.matmul(h_, w1) + b1)
+            out_ = torch.matmul(inter, w2) + b2
+            return dropout(out_, dropout_prob, seed_of(_FFN))
+
+        ffn_args = (hid, p["FfnW1"], p["FfnB1"], p["FfnW2"], p["FfnB2"])
+        if attrs.get("remat_ffn", False):
+            # recompute `inter` ([B, S, F], the largest activation) in the
+            # backward instead of keeping it
+            ffn_out = ckpt(ffn, *ffn_args)
+        else:
+            ffn_out = ffn(*ffn_args)
+        return _add_ln(hid, ffn_out, p["Ln2S"], p["Ln2B"], eps)
+
+    per_layer = zip(*(ins[k][0].unbind(0) for k in _PARAM_KEYS))
+    remat_layer = bool(attrs.get("remat_layer", False))
+    out = hidden
+    for idx, params in enumerate(per_layer):
+        if remat_layer:
+            # full-layer remat: keep only the hidden between layers
+            out = ckpt(layer, out, idx, *params)
+        else:
+            out = layer(out, idx, *params)
+    return {"Out": [out]}

@@ -4,18 +4,32 @@
     out  = (s - mean(s)) * rsqrt(var(s) + eps) * scale + shift
 
 computed in f32 whatever the input dtype (biased variance), cast back to
-x's dtype, plus the per-row ``mean`` and ``rstd`` (f32).  Same semantics
-as the JAX package's ``ops/pallas/add_ln.py`` ``fused_add_ln`` (whose
-Pallas forward ``_ln_fwd`` / ``_fwd_kernel`` this module's kernel
-replaces) and ``ops/encoder_stack._ln_f32``.
+x's dtype, plus the per-row ``mean`` and ``rstd`` (f32), and its
+backward
 
-Two implementations:
+    dx = dy = rstd * (gs - mean(gs) - xhat * mean(gs * xhat)),
+    gs = g * scale,  xhat = (s - mean) * rstd
+    dscale = sum over rows of g * xhat,  dshift = sum over rows of g
 
-* ``fused_add_ln_reference`` — the plain PyTorch version.  CPU and
-  ``meta`` tensors take it (shape inference goes through it).
-* the CUDA kernel ``csrc/add_ln.cu`` (sm_90a, built by nvcc at first use,
-  bound with ctypes): one warp a row, the row held in registers, two
-  shuffle reductions.  Its header note has the design.
+Same semantics as the JAX package's ``ops/pallas/add_ln.py``
+``fused_add_ln`` and its custom VJP (whose Pallas kernels ``_ln_fwd`` /
+``_fwd_kernel`` and ``_ln_bwd`` / ``_bwd_kernel`` this module's kernels
+replace) and ``ops/encoder_stack._ln_f32``.
+
+Two implementations of each direction:
+
+* ``fused_add_ln_reference`` / ``fused_add_ln_bwd_reference`` — the
+  plain PyTorch versions.  CPU and ``meta`` tensors take them (shape
+  inference goes through them).
+* the CUDA kernels of ``csrc/add_ln.cu`` (sm_90a, built by nvcc at first
+  use, bound with ctypes): one warp a row, two shuffle reductions a
+  row; the backward accumulates dscale/dshift partials a warp in
+  registers and writes one row of partials a block, which the wrapper
+  sums.  The source's header note has the design.
+
+``add_ln`` is the differentiable entry (a ``torch.autograd.Function``
+whose forward and backward are the above): ``mean`` and ``rstd`` are
+non-differentiable outputs, and dx serves as dy.
 
 The TPU gate (``ln_shapes_ok``: H % 128, VMEM row blocks) is TPU
 machinery and is not ported.  On the card the caller's flag
@@ -24,9 +38,11 @@ machinery and is not ported.  On the card the caller's flag
 raises ``ValueError``; nothing falls back.
 
 Bound: memory.  ``bound_bytes`` counts x and y read once, out written
-once, scale and shift read once (as f32) and the two f32 stats a row,
-against 3.35 TB/s on an H100 SXM.  ``fused_add_ln.launches`` counts
-kernel launches.
+once, scale and shift read once (as f32) and the two f32 stats a row;
+``bound_bytes_bwd`` x, y, g, scale and the stats read once, dx, dscale
+and dshift written once; both against 3.35 TB/s on an H100 SXM.
+``fused_add_ln.launches`` and ``fused_add_ln_bwd.launches`` count kernel
+launches.
 """
 from __future__ import annotations
 
@@ -49,6 +65,24 @@ def fused_add_ln_reference(x, y, scale, shift, eps: float = 1e-5):
     rstd = torch.rsqrt(var + eps)
     out = (s - mu) * rstd * scale.float() + shift.float()
     return out.to(x.dtype), mu[..., 0], rstd[..., 0]
+
+
+def fused_add_ln_bwd_reference(x, y, scale, mean, rstd, g):
+    """Plain backward, any device: (dx in x.dtype, dscale f32, dshift
+    f32); dx is also dy."""
+    h = x.shape[-1]
+    s = x.float()
+    if y is not None:
+        s = s + y.float()
+    xhat = (s - mean[..., None]) * rstd[..., None]
+    gf = g.float()
+    dscale = (gf * xhat).reshape(-1, h).sum(0)
+    dshift = gf.reshape(-1, h).sum(0)
+    gs = gf * scale.float()
+    m1 = gs.mean(dim=-1, keepdim=True)
+    m2 = (gs * xhat).mean(dim=-1, keepdim=True)
+    dx = rstd[..., None] * (gs - m1 - xhat * m2)
+    return dx.to(x.dtype), dscale, dshift
 
 
 def check_kernel_inputs(x, y, scale, shift) -> None:
@@ -84,20 +118,46 @@ def check_kernel_inputs(x, y, scale, shift) -> None:
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
-_fn = None
+def check_bwd_inputs(x, y, scale, mean, rstd, g) -> None:
+    """What the backward kernel takes; raises ValueError on anything
+    else.  Device-independent, so the CPU tests call it directly."""
+    check_kernel_inputs(x, y, scale, scale)
+    lead = tuple(x.shape[:-1])
+    if g.dtype != x.dtype or g.shape != x.shape:
+        raise ValueError(f"g {tuple(g.shape)} {g.dtype} must match x "
+                         f"{tuple(x.shape)} {x.dtype}")
+    for name, t in (("mean", mean), ("rstd", rstd)):
+        if t.dtype != torch.float32 or tuple(t.shape) != lead:
+            raise ValueError(f"{name} must be float32 {lead}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    for name, t in (("g", g), ("mean", mean), ("rstd", rstd)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+    if g.data_ptr() % 16:
+        raise ValueError("g must be 16-byte aligned")
 
 
-def _launcher():
-    global _fn
-    if _fn is None:
+_fns = {}
+
+
+def _launcher(name: str):
+    """The ctypes function ``add_ln_<name>_launch`` of the built library."""
+    fn = _fns.get(name)
+    if fn is None:
         from . import _build
 
-        fn = _build.load("add_ln").add_ln_fwd_launch
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn = getattr(_build.load("add_ln"), f"add_ln_{name}_launch")
+        if name == "fwd":
+            fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
+                           + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        else:
+            fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+                           + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return fn
 
 
 def _cuda_add_ln(x, y, scale, shift, eps: float):
@@ -107,7 +167,7 @@ def _cuda_add_ln(x, y, scale, shift, eps: float):
     lead = tuple(x.shape[:-1])
     scale = scale.float().contiguous()
     shift = shift.float().contiguous()
-    fn = _launcher()
+    fn = _launcher("fwd")
     out = torch.empty_like(x)
     mean = torch.empty(lead, dtype=torch.float32, device=x.device)
     rstd = torch.empty(lead, dtype=torch.float32, device=x.device)
@@ -137,11 +197,80 @@ def fused_add_ln_fwd(x, y, scale, shift, eps: float = 1e-5):
 
 def fused_add_ln(x, y, scale, shift, eps: float = 1e-5):
     """LayerNorm(x + y) over the last axis with f32 stats; y may be None.
-    The JAX package's signature: returns out only."""
-    return fused_add_ln_fwd(x, y, scale, shift, eps)[0]
+    The JAX package's signature: returns out only, differentiable."""
+    return add_ln(x, y, scale, shift, eps)[0]
 
 
 fused_add_ln.launches = 0
+
+BWD_MAX_BLOCKS = 256  # rows of dscale/dshift partials the wrapper sums
+
+
+def _cuda_add_ln_bwd(x, y, scale, mean, rstd, g):
+    check_bwd_inputs(x, y, scale, mean, rstd, g)
+    h = x.shape[-1]
+    rows = x.numel() // h
+    scale = scale.float().contiguous()
+    nblocks = max(1, min(-(-rows // 8), BWD_MAX_BLOCKS))
+    fn = _launcher("bwd")
+    dx = torch.empty_like(x)
+    parts = torch.empty((2, nblocks, h), dtype=torch.float32,
+                        device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), None if y is None else y.data_ptr(),
+                 scale.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+                 g.data_ptr(), dx.data_ptr(), parts[0].data_ptr(),
+                 parts[1].data_ptr(), rows, h, nblocks,
+                 _DTYPE_CODES[x.dtype], stream)
+    if err:
+        raise RuntimeError(f"add_ln backward kernel launch failed: CUDA "
+                           f"error {err}")
+    fused_add_ln_bwd.launches += 1
+    dscale, dshift = parts.sum(dim=1)
+    return dx, dscale, dshift
+
+
+def fused_add_ln_bwd(x, y, scale, mean, rstd, g):
+    """The backward of ``fused_add_ln_fwd``: (dx, dscale, dshift), dx in
+    x's dtype (it is dy too), dscale and dshift f32.  CPU and meta
+    tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
+    if x.device.type in ("cpu", "meta"):
+        return fused_add_ln_bwd_reference(x, y, scale, mean, rstd, g)
+    if x.device.type != "cuda":
+        raise ValueError(f"no add_ln kernel for device {x.device}")
+    return _cuda_add_ln_bwd(x, y, scale, mean, rstd, g)
+
+
+fused_add_ln_bwd.launches = 0
+
+
+class _AddLN(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, y, scale, shift, eps):
+        out, mean, rstd = fused_add_ln_fwd(x, y, scale, shift, eps)
+        ctx.save_for_backward(x, y, scale, mean, rstd)
+        ctx.shift_dtype = shift.dtype
+        ctx.mark_non_differentiable(mean, rstd)
+        return out, mean, rstd
+
+    @staticmethod
+    def backward(ctx, g, _gm, _gr):
+        x, y, scale, mean, rstd = ctx.saved_tensors
+        g = g.contiguous()
+        if g.data_ptr() % 16:  # a view autograd handed over unaligned
+            g = g.clone()
+        dx, dscale, dshift = fused_add_ln_bwd(x, y, scale, mean, rstd, g)
+        return (dx, None if y is None else dx, dscale.to(scale.dtype),
+                dshift.to(ctx.shift_dtype), None)
+
+
+def add_ln(x, y, scale, shift, eps: float = 1e-5):
+    """Differentiable LayerNorm(x + y): (out, mean, rstd), the stats
+    non-differentiable.  Forward and backward each run the kernel on CUDA
+    tensors and the plain version on CPU and meta tensors."""
+    return _AddLN.apply(x, y, scale, shift, float(eps))
 
 
 def bound_bytes(x, y) -> int:
@@ -151,6 +280,22 @@ def bound_bytes(x, y) -> int:
     rows = x.numel() // h
     act = x.numel() * x.element_size()
     return act * (3 if y is not None else 2) + 2 * 4 * h + 2 * 4 * rows
+
+
+def bound_bytes_bwd(x, y) -> int:
+    """Bytes the backward must move: x (and y) and g read and dx written
+    once, scale (f32) and the two f32 stats a row read once, dscale and
+    dshift (f32) written once."""
+    h = x.shape[-1]
+    rows = x.numel() // h
+    act = x.numel() * x.element_size()
+    return act * (4 if y is not None else 3) + 3 * 4 * h + 2 * 4 * rows
+
+
+def bound_flops_bwd(x, y) -> int:
+    """About 13 flops an element (the add of y one more): xhat, g*scale,
+    the two row sums, the dscale/dshift partials and dx."""
+    return (14 if y is not None else 13) * x.numel()
 
 
 def bound_flops(x, y) -> int:

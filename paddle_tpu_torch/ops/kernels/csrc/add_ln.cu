@@ -1,8 +1,9 @@
-// Residual add + LayerNorm forward over the last axis for Hopper (sm_90a).
+// Residual add + LayerNorm over the last axis, forward and backward, for
+// Hopper (sm_90a).
 //
-// Replaces the TPU kernel paddle_tpu/ops/pallas/add_ln.py _fwd_kernel
-// (launched by _ln_fwd).  For every row r of x [R, H] (and y [R, H] when
-// given):
+// Forward.  Replaces the TPU kernel paddle_tpu/ops/pallas/add_ln.py
+// _fwd_kernel (launched by _ln_fwd).  For every row r of x [R, H] (and
+// y [R, H] when given):
 //
 //     s        = x[r] + y[r]                      (f32)
 //     mean[r]  = sum(s) / H
@@ -26,9 +27,31 @@
 // block, one row a warp, so 4096 rows make 512 blocks.  H must be a
 // multiple of 4 and at most 4096 (32 chunks a lane); the wrapper checks.
 //
-// C interface (ctypes): add_ln_fwd_launch returns cudaGetLastError()
-// after the launch.  The kernel runs on the caller's stream, allocates
-// nothing and does not synchronise.
+// Backward.  Replaces the TPU kernel add_ln.py _bwd_kernel (launched by
+// _ln_bwd).  With the forward's mean and rstd and the cotangent g:
+//
+//     xhat     = (x[r] + y[r] - mean[r]) * rstd[r]        (f32)
+//     gs       = g[r] * scale
+//     dx[r]    = rstd[r] * (gs - mean(gs) - xhat * mean(gs * xhat))
+//     dscale   = sum_r g[r] * xhat,   dshift = sum_r g[r]
+//
+// dx is cast to x's dtype and serves as dy too.  Bound: memory again
+// (about 13 flops an element): x, y, g read and dx written once, bytes /
+// 3.35 TB/s.  Design: one warp a row as in the forward, but a warp walks
+// rows gridDim.x * 8 apart, so the grid is at most 256 blocks.  Pass one
+// reads the row (16- or 8-byte loads a lane) and reduces mean(gs) and
+// mean(gs * xhat) with xor shuffles; pass two reads it again (from L1:
+// the 8 rows of a block are a few KB each) and writes dx.  Each lane
+// keeps its columns' dscale/dshift partials in registers across all its
+// rows; at the end the block's 8 warps add theirs into shared memory in
+// warp order and the block writes one row of partials, which the wrapper
+// sums over blocks.  The order of every sum is fixed, so the result is
+// deterministic.  At H > 1024 the partials (up to 256 floats a lane)
+// spill to local memory: right, but slow.
+//
+// C interface (ctypes): add_ln_fwd_launch and add_ln_bwd_launch return
+// cudaGetLastError() after the launch.  The kernels run on the caller's
+// stream, allocate nothing and do not synchronise.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -159,6 +182,143 @@ int launch_h(const void* x, const void* y, const void* scale,
                        stream);
 }
 
+// NCH: the most 4-element chunks a lane holds (H <= 128 * NCH)
+template <typename T, int NCH, bool HAS_Y>
+__global__ void __launch_bounds__(kWarps * 32)
+add_ln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ y,
+                  const float* __restrict__ scale,
+                  const float* __restrict__ mean,
+                  const float* __restrict__ rstd, const T* __restrict__ g,
+                  T* __restrict__ dx, float* __restrict__ dscale_part,
+                  float* __restrict__ dshift_part, int rows, int h) {
+  extern __shared__ float red[];  // [2][h]: dscale, dshift of the block
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int nch = h >> 2;
+  const float inv_h = 1.f / h;
+
+  float psc[NCH][4], psh[NCH][4];
+#pragma unroll
+  for (int c = 0; c < NCH; ++c)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) psc[c][i] = psh[c][i] = 0.f;
+
+  for (int row = blockIdx.x * kWarps + warp; row < rows;
+       row += gridDim.x * kWarps) {
+    const int64_t off = (int64_t)row * h;
+    const float mu = mean[row];
+    const float rs = rstd[row];
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) {
+      const int ch = lane + 32 * c;
+      if (ch < nch) {
+        float v[4], gg[4], sc[4];
+        load4(x + off + 4 * ch, v);
+        if (HAS_Y) {
+          float w[4];
+          load4(y + off + 4 * ch, w);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) v[i] += w[i];
+        }
+        load4(g + off + 4 * ch, gg);
+        load4(scale + 4 * ch, sc);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float xh = (v[i] - mu) * rs;
+          const float gs = gg[i] * sc[i];
+          s1 += gs;
+          s2 = fmaf(gs, xh, s2);
+          psc[c][i] = fmaf(gg[i], xh, psc[c][i]);
+          psh[c][i] += gg[i];
+        }
+      }
+    }
+    const float m1 = warp_sum(s1) * inv_h;
+    const float m2 = warp_sum(s2) * inv_h;
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) {
+      const int ch = lane + 32 * c;
+      if (ch < nch) {
+        float v[4], gg[4], sc[4], o[4];
+        load4(x + off + 4 * ch, v);
+        if (HAS_Y) {
+          float w[4];
+          load4(y + off + 4 * ch, w);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) v[i] += w[i];
+        }
+        load4(g + off + 4 * ch, gg);
+        load4(scale + 4 * ch, sc);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float xh = (v[i] - mu) * rs;
+          o[i] = rs * (gg[i] * sc[i] - m1 - xh * m2);
+        }
+        store4(dx + off + 4 * ch, o);
+      }
+    }
+  }
+
+  // the block's partials: warp 0 writes, warps 1..7 add, in order
+  for (int w = 0; w < kWarps; ++w) {
+    if (warp == w) {
+#pragma unroll
+      for (int c = 0; c < NCH; ++c) {
+        const int ch = lane + 32 * c;
+        if (ch < nch) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int col = 4 * ch + i;
+            red[col] = (w ? red[col] : 0.f) + psc[c][i];
+            red[h + col] = (w ? red[h + col] : 0.f) + psh[c][i];
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+  for (int col = threadIdx.x; col < h; col += kWarps * 32) {
+    dscale_part[(int64_t)blockIdx.x * h + col] = red[col];
+    dshift_part[(int64_t)blockIdx.x * h + col] = red[h + col];
+  }
+}
+
+template <typename T, int NCH>
+int launch_bwd(const void* x, const void* y, const void* scale,
+               const void* mean, const void* rstd, const void* g, void* dx,
+               void* dscale_part, void* dshift_part, int rows, int h,
+               int nblocks, cudaStream_t stream) {
+  const size_t smem = 2 * static_cast<size_t>(h) * sizeof(float);
+  if (y)
+    add_ln_bwd_kernel<T, NCH, true><<<nblocks, kWarps * 32, smem, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(y),
+        static_cast<const float*>(scale), static_cast<const float*>(mean),
+        static_cast<const float*>(rstd), static_cast<const T*>(g),
+        static_cast<T*>(dx), static_cast<float*>(dscale_part),
+        static_cast<float*>(dshift_part), rows, h);
+  else
+    add_ln_bwd_kernel<T, NCH, false><<<nblocks, kWarps * 32, smem, stream>>>(
+        static_cast<const T*>(x), nullptr, static_cast<const float*>(scale),
+        static_cast<const float*>(mean), static_cast<const float*>(rstd),
+        static_cast<const T*>(g), static_cast<T*>(dx),
+        static_cast<float*>(dscale_part), static_cast<float*>(dshift_part),
+        rows, h);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_bwd_h(const void* x, const void* y, const void* scale,
+                 const void* mean, const void* rstd, const void* g, void* dx,
+                 void* dscale_part, void* dshift_part, int rows, int h,
+                 int nblocks, cudaStream_t stream) {
+  if (h <= 128 * 8)
+    return launch_bwd<T, 8>(x, y, scale, mean, rstd, g, dx, dscale_part,
+                            dshift_part, rows, h, nblocks, stream);
+  return launch_bwd<T, 32>(x, y, scale, mean, rstd, g, dx, dscale_part,
+                           dshift_part, rows, h, nblocks, stream);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (x, y, out); scale and shift are f32.
@@ -177,5 +337,29 @@ extern "C" int add_ln_fwd_launch(const void* x, const void* y,
   if (dtype == 1)
     return launch_h<__nv_bfloat16>(x, y, scale, shift, out, mean, rstd, rows,
                                    h, eps, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// dtype: 0 = float32, 1 = bfloat16 (x, y, g, dx); scale, mean and rstd
+// are f32.  y may be null.  dscale_part and dshift_part are [nblocks, h]
+// f32, one row a block, summed by the caller.  Returns 0 on success, the
+// CUDA error code of a refused launch, or cudaErrorInvalidValue for an
+// unsupported dtype, width or grid.
+extern "C" int add_ln_bwd_launch(const void* x, const void* y,
+                                 const void* scale, const void* mean,
+                                 const void* rstd, const void* g, void* dx,
+                                 void* dscale_part, void* dshift_part,
+                                 int rows, int h, int nblocks, int dtype,
+                                 void* stream) {
+  if (rows <= 0 || h <= 0 || h % 4 != 0 || h > 4096 || nblocks <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_bwd_h<float>(x, y, scale, mean, rstd, g, dx, dscale_part,
+                               dshift_part, rows, h, nblocks, s);
+  if (dtype == 1)
+    return launch_bwd_h<__nv_bfloat16>(x, y, scale, mean, rstd, g, dx,
+                                       dscale_part, dshift_part, rows, h,
+                                       nblocks, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

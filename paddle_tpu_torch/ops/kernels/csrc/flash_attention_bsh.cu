@@ -1,51 +1,83 @@
-// Flash-attention forward over head-interleaved [B, S, H] tensors for
-// Hopper (sm_90a).
+// Flash attention over head-interleaved [B, S, H] tensors for Hopper
+// (sm_90a): the forward, with dropout, and the backward.
 //
-// Replaces the TPU kernel paddle_tpu/ops/pallas/flash_attention.py
-// _make_fwd_bsh_kernel (launched by _flash_fwd_bsh).  For batch b, head h
-// (H = nh * D, head h owns columns [h*D, (h+1)*D) of every row) and query
-// row i:
+// Forward.  Replaces the TPU kernel paddle_tpu/ops/pallas/
+// flash_attention.py _make_fwd_bsh_kernel (launched by _flash_fwd_bsh).
+// For batch b, head h (H = nh * D, head h owns columns [h*D, (h+1)*D) of
+// every row) and query row i:
 //
 //     s[j]   = q[b,i,h] . k[b,j,h] * sm_scale + bias[b,j]   (-1e30 above
 //              the diagonal when causal)
-//     o[b,i,h] = sum_j softmax(s)[j] v[b,j,h]
+//     o[b,i,h] = sum_j softmax(s)[j] c[j] v[b,j,h]
 //     lse[b,h,i] = m + log(max(l, 1e-30))
 //
 // with the online softmax of the TPU kernel: m starts at -1e30, each key
 // tile updates m_new = max(m, max s), l = l*exp(m - m_new) + sum exp(s -
-// m_new), acc = acc*exp(m - m_new) + p v, and the output is acc /
+// m_new), acc = acc*exp(m - m_new) + (p c) v, and the output is acc /
 // max(l, 1e-30).  sm_scale is folded into q when it is a power of two
 // (prescale, as _prescale_ok decides), otherwise it multiplies the
 // scores.  The optional bias is one f32 value per key ([B, 1, Skv]: the
-// BERT padding mask).  Dropout is not done here: the wrapper refuses a
-// nonzero dropout_prob on the card.
+// BERT padding mask).
 //
-// Bound.  4*B*nh*Sq*Skv*D flops (half of it when causal) against the
-// card's float32 rate outside the tensor cores (this kernel runs FMA on
-// the SIMT cores), and the bytes of q, k, v, bias, o and lse against
-// 3.35 TB/s; at BERT-base's shapes (S = 512, D = 64) the flops bound.
+// Dropout acts on the numerator only (l sums the undropped p, as in the
+// TPU kernel): c = keep / keep_div.  The keep bit of (b, h, i, j) comes
+// from one of two sources:
+//   * an explicit uint8 mask [B, nh, Sq, Skv] (the TPU kernel's has_mask
+//     path), keep_div = 1 - p;
+//   * a counter-based Philox4x32-10 keyed by the 64-bit seed, at counter
+//     (j, i / 4, b * nh + h, offset): word i % 4 of the result, low byte
+//     below thresh = clamp(round((1 - p) * 256), 1, 256) keeps
+//     (_dropout_quantized_thresh), keep_div = thresh / 256.  The bit is
+//     a function of (seed, offset, b, h, i, j) alone, not of the tiling,
+//     so the backward kernels regenerate it; the forward can also write
+//     the bits it drew (a debug output, for the checks on the card).
 //
-// Design.  The TPU kernel walks a (batch, query block) grid and keeps a
-// whole sequence of K/V resident in VMEM.  Here one block of 256 threads
-// owns one (query tile of 64 rows, head, batch) triple, so B*nh*Sq/64
-// blocks fill the 132 SMs, and streams its head's K/V in tiles of BK rows
-// through shared memory, reading the head's D-column slice straight from
-// the [B, S, H] rows: no head split or merge transposes.  All arithmetic
-// is f32 (bf16 inputs widen on load).  Thread (ty, tx) of a 16 x 16 grid
-// holds query rows ty*4 .. ty*4+3, score columns tx + 16*j and output
-// columns tx + 16*j in registers; row max and row sum reduce over the 16
-// lanes of a half-warp with xor shuffles.  The probabilities pass through
-// shared memory to the P.V product.  Rows of Q and K in shared memory are
-// padded by one float, so the 16 lanes reading 16 different K rows hit 16
-// banks.  A causal block skips the key tiles above its diagonal, as
-// _hi_blocks does.
+// Backward.  Replaces _make_bwd_bsh_kernel (launched by _flash_bwd_bsh).
+// With the forward's lse and delta = rowsum(dO * O) (computed by the
+// wrapper, as _flash_bwd_bsh does outside its kernel):
+//
+//     p  = exp(s - lse),  dp = dO . v,  ds = p (dp c - delta) sm_scale
+//     dv = sum_i (p c) dO,  dk = sum_i ds q,  dq = sum_j ds k
+//
+// with the prescale rule: when sm_scale is a power of two q is scaled on
+// load, ds leaves sm_scale out (dk then carries it through q) and dq is
+// scaled once at the end.  The TPU kernel accumulates dq in an output
+// block resident across a sequential key grid; here key blocks run in
+// parallel, so the backward is two kernels, each deterministic: one
+// block per (key tile, head, batch) sums dk and dv over the query tiles,
+// and one block per (query tile, head, batch) sums dq over the key tiles.
+// Both recompute s and dp.  Causal tiles above the diagonal are skipped
+// in all three kernels (_hi_blocks / _lo_blocks).
+//
+// Bound.  Forward 4*B*nh*Sq*Skv*D flops, backward 10*B*nh*Sq*Skv*D (half
+// of each when causal), against the card's float32 rate outside the
+// tensor cores (these kernels run FMA on the SIMT cores), and the bytes
+// of the inputs and outputs against 3.35 TB/s; at BERT-base's shapes (S =
+// 512, D = 64) the flops bound.
+//
+// Design.  The TPU kernels walk a (batch, block) grid and keep whole
+// sequences resident in VMEM.  Here one block of 256 threads owns one
+// tile of T rows (T = 64, 32 at D = 256) of one head of one batch row,
+// so B*nh*S/T blocks fill the 132 SMs, and streams the other operand in
+// T-row tiles through shared memory, reading each head's D-column slice
+// straight from the [B, S, H] rows: no head split or merge transposes.
+// All arithmetic is f32 (bf16 inputs widen on load).  Thread (ty, tx) of
+// a 16 x 16 grid holds rows ty*T/16 .. and columns tx + 16*j of every
+// T x T score tile, and rows ty*T/16 .. and columns tx + 16*j of every
+// T x D accumulator, in registers; row max and row sum reduce over the
+// 16 lanes of a half-warp with xor shuffles.  Scores pass through shared
+// memory between the two products.  Tile rows in shared memory are
+// padded by one float, so 16 lanes reading 16 different rows hit 16
+// banks.
 //
 // Later work, not done here: tensor cores (mma.sync / wgmma on bf16),
-// TMA or cp.async tile loads, and keeping P in registers.
+// TMA or cp.async tile loads, keeping P in registers, one fused
+// backward.
 //
-// C interface (ctypes): flash_attention_bsh_launch returns
-// cudaGetLastError() after the launch.  The kernel runs on the caller's
-// stream, allocates nothing and does not synchronise.
+// C interface (ctypes): flash_attention_bsh_launch and
+// flash_attention_bsh_bwd_launch return cudaGetLastError() after the
+// launch (the first failing one).  The kernels run on the caller's
+// stream, allocate nothing and do not synchronise.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -55,8 +87,23 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;  // the TPU kernel's NEG_INF
-constexpr int kBQ = 64;            // query rows per block
+constexpr int kBQ = 64;            // forward: query rows per block
 constexpr int kThreads = 256;      // 16 x 16
+
+// dropout modes
+constexpr int kNoDrop = 0;
+constexpr int kMaskDrop = 1;
+constexpr int kPhiloxDrop = 2;
+
+struct Dropout {
+  int mode;               // kNoDrop, kMaskDrop or kPhiloxDrop
+  const uint8_t* mask;    // [B, nh, Sq, Skv] keep bytes (kMaskDrop)
+  uint8_t* bits_out;      // forward debug output of the drawn bits, or null
+  uint32_t key0, key1;    // the seed (kPhiloxDrop)
+  uint32_t offset;
+  uint32_t thresh;        // keep iff byte < thresh (kPhiloxDrop)
+  float inv_keep;         // 1 / keep_div
+};
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -80,18 +127,83 @@ __device__ __forceinline__ float half_sum(float x) {
   return x;
 }
 
+// Philox4x32-10 (Salmon et al., SC'11; the constants of Random123)
+__device__ __forceinline__ uint4 philox(uint4 c, uint32_t k0, uint32_t k1) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    const uint32_t hi0 = __umulhi(0xD2511F53u, c.x);
+    const uint32_t lo0 = 0xD2511F53u * c.x;
+    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z);
+    const uint32_t lo1 = 0xCD9E8D57u * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
+    k0 += 0x9E3779B9u;
+    k1 += 0xBB67AE85u;
+  }
+  return c;
+}
+
+__device__ __forceinline__ uint32_t word_of(const uint4& r, int row) {
+  const int w = row & 3;
+  return w == 0 ? r.x : w == 1 ? r.y : w == 2 ? r.z : r.w;
+}
+
+// The multipliers c of a thread's R x C scores (rows row0 + i, columns
+// col0 + 16 * j; row0 % 4 == 0 or R <= 2 with row0 even, so the rows share
+// one Philox counter): keep / keep_div, or 1 without dropout.
+template <int R, int C>
+__device__ __forceinline__ void dropout_scale(const Dropout& dr, int bh,
+                                              int sq, int skv, int row0,
+                                              int col0, float (&c)[R][C],
+                                              bool write_bits) {
+  if (dr.mode == kNoDrop) {
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < C; ++j) c[i][j] = 1.f;
+    return;
+  }
+  const int64_t base = (int64_t)bh * sq * skv;
+#pragma unroll
+  for (int j = 0; j < C; ++j) {
+    const int col = col0 + 16 * j;
+    uint4 r = make_uint4(0, 0, 0, 0);
+    if (dr.mode == kPhiloxDrop)
+      r = philox(make_uint4(col, row0 >> 2, bh, dr.offset), dr.key0,
+                 dr.key1);
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int row = row0 + i;
+      const int64_t at = base + (int64_t)row * skv + col;
+      bool keep;
+      if (dr.mode == kPhiloxDrop) {
+        keep = (word_of(r, row) & 0xFFu) < dr.thresh;
+        if (write_bits && dr.bits_out) dr.bits_out[at] = keep ? 1 : 0;
+      } else {
+        keep = dr.mask[at] != 0;
+      }
+      c[i][j] = keep ? dr.inv_keep : 0.f;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// forward
+// ---------------------------------------------------------------------------
+
 template <int D, int BK>
-constexpr int smem_floats() {
+constexpr int fwd_smem_floats() {
   return kBQ * (D + 1) + BK * (D + 1) + BK * D + kBQ * (BK + 1);
 }
 
-template <typename T, int D, int BK>
+// DROP: dropout compiled in (the no-dropout instantiation, the infer
+// path's, carries none of its registers or branches)
+template <typename T, int D, int BK, bool DROP>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_bsh_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const float* __restrict__ bias,
                      T* __restrict__ o, float* __restrict__ lse, int sq,
                      int skv, int nh, float sm_scale, int prescale,
-                     int causal) {
+                     int causal, Dropout dr) {
   constexpr int DP = D + 1;   // padded row stride of Q and K tiles
   constexpr int BKP = BK + 1;  // padded row stride of the P tile
   constexpr int NJ = BK / 16;  // score columns per thread
@@ -105,6 +217,7 @@ flash_fwd_bsh_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.x * kBQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
+  const int bh = b * nh + h;
   const int64_t hstride = (int64_t)nh * D;  // between rows of [B, S, H]
   const int tid = threadIdx.x;
   const int tx = tid & 15;
@@ -164,6 +277,10 @@ flash_fwd_bsh_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int j = 0; j < NJ; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
     }
 
+    float cm[4][NJ];
+    if (DROP)
+      dropout_scale<4, NJ>(dr, bh, sq, skv, q0 + ty * 4, k0 + tx, cm, true);
+
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = q0 + ty * 4 + i;
@@ -182,7 +299,7 @@ flash_fwd_bsh_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
         const float p = expf(s[i][j] - m_new);
-        s[i][j] = p;
+        s[i][j] = DROP ? p * cm[i][j] : p;  // dropout: the numerator only
         rs += p;
       }
       const float alpha = expf(m[i] - m_new);
@@ -219,68 +336,485 @@ flash_fwd_bsh_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int jd = 0; jd < ND; ++jd)
       store(orow + tx + 16 * jd, acc[i][jd] / l_safe);
-    if (tx == 0) lse[((int64_t)b * nh + h) * sq + row] = m[i] + logf(l_safe);
+    if (tx == 0) lse[(int64_t)bh * sq + row] = m[i] + logf(l_safe);
   }
 }
 
-template <typename T, int D, int BK>
-int launch(const void* q, const void* k, const void* v, const void* bias,
-           void* o, void* lse, int batch, int sq, int skv, int nh,
-           float sm_scale, int prescale, int causal, cudaStream_t stream) {
-  constexpr int kSmem = smem_floats<D, BK>() * static_cast<int>(sizeof(float));
-  // above 48 KB a block's shared memory must be asked for (once a process)
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_bsh_kernel<T, D, BK>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+// ---------------------------------------------------------------------------
+// backward
+// ---------------------------------------------------------------------------
+
+struct BwdArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const float* bias;   // [B, Skv] or null
+  const float* lse;    // [B, nh, Sq]
+  const float* delta;  // [B, nh, Sq]
+  const void* dout;    // [B, Sq, H]
+  void* dq;
+  void* dk;
+  void* dv;
+  int sq, skv, nh;
+  float sm_scale;
+  int prescale, causal;
+};
+
+// Load a T x D tile of rows r0.. of one head into shared memory (row
+// stride D + 1), times mul.
+template <typename T, int TT, int D>
+__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
+                                          int64_t hstride, float mul) {
+  for (int idx = threadIdx.x; idx < TT * D; idx += kThreads) {
+    const int r = idx / D, c = idx % D;
+    dst[r * (D + 1) + c] = to_float(src[r * hstride + c]) * mul;
+  }
+}
+
+// The thread's R x R scores of a T x T tile: s = a_r . b_c over D, a and
+// b tiles in shared memory (rows ty*R + i, columns tx + 16*j).
+template <int TT, int D>
+__device__ __forceinline__ void tile_dot(const float* a, const float* b,
+                                         float (&s)[TT / 16][TT / 16]) {
+  constexpr int R = TT / 16;
+  constexpr int DP = D + 1;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < R; ++j) s[i][j] = 0.f;
+#pragma unroll 8
+  for (int d = 0; d < D; ++d) {
+    float av[R], bv[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) av[i] = a[(ty * R + i) * DP + d];
+#pragma unroll
+    for (int j = 0; j < R; ++j) bv[j] = b[(tx + 16 * j) * DP + d];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < R; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
+  }
+}
+
+// p (times c) and ds of the thread's scores of the tile (q0, k0), from
+// s = q . k (q prescaled or not) and dp = dO . v; written to shared
+// memory (row stride T + 1).  ps may be null (the dq kernel).
+template <int TT>
+__device__ __forceinline__ void tile_probs(const BwdArgs& a, const Dropout& dr,
+                                           int b, int h, int q0, int k0,
+                                           const float (&s)[TT / 16][TT / 16],
+                                           const float (&dp)[TT / 16][TT / 16],
+                                           const float* lse_s,
+                                           const float* delta_s, float* ps,
+                                           float* dss) {
+  constexpr int R = TT / 16;
+  constexpr int TP = TT + 1;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int bh = b * a.nh + h;
+  const float smul = a.prescale ? 1.f : a.sm_scale;
+  const float* __restrict__ biasb =
+      a.bias ? a.bias + (int64_t)b * a.skv : nullptr;
+  float cm[R][R];
+  dropout_scale<R, R>(dr, bh, a.sq, a.skv, q0 + ty * R, k0 + tx, cm, false);
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int rl = ty * R + i;
+    const int row = q0 + rl;
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int cl = tx + 16 * j;
+      const int col = k0 + cl;
+      float x = s[i][j] * smul;
+      if (biasb) x += biasb[col];
+      if (a.causal && col > row) x = kNegInf;
+      const float p = expf(x - lse_s[rl]);
+      if (ps) ps[rl * TP + cl] = p * cm[i][j];
+      dss[rl * TP + cl] = p * (dp[i][j] * cm[i][j] - delta_s[rl]) * smul;
+    }
+  }
+}
+
+template <int TT, int D>
+constexpr int dkv_smem_floats() {
+  return 4 * TT * (D + 1) + 2 * TT * (TT + 1) + 2 * TT;
+}
+
+// dk, dv of one (key tile, head, batch): sum over the query tiles.
+template <typename T, int TT, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_kernel(BwdArgs a, Dropout dr) {
+  constexpr int R = TT / 16;
+  constexpr int DP = D + 1;
+  constexpr int TP = TT + 1;
+  constexpr int ND = D / 16;
+  extern __shared__ float smem[];
+  float* ks = smem;              // [TT][DP]
+  float* vs = ks + TT * DP;      // [TT][DP]
+  float* qs = vs + TT * DP;      // [TT][DP]
+  float* dos = qs + TT * DP;     // [TT][DP]
+  float* ps = dos + TT * DP;     // [TT][TP]
+  float* dss = ps + TT * TP;     // [TT][TP]
+  float* lse_s = dss + TT * TP;  // [TT]
+  float* delta_s = lse_s + TT;   // [TT]
+
+  const int k0 = blockIdx.x * TT;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int64_t hstride = (int64_t)a.nh * D;
+  const int64_t stat0 = ((int64_t)b * a.nh + h) * a.sq;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const T* __restrict__ qb =
+      static_cast<const T*>(a.q) + (int64_t)b * a.sq * hstride + h * D;
+  const T* __restrict__ dob =
+      static_cast<const T*>(a.dout) + (int64_t)b * a.sq * hstride + h * D;
+  const int64_t kofs = ((int64_t)b * a.skv + k0) * hstride + h * D;
+  const float qmul = a.prescale ? a.sm_scale : 1.f;
+
+  load_tile<T, TT, D>(ks, static_cast<const T*>(a.k) + kofs, hstride, 1.f);
+  load_tile<T, TT, D>(vs, static_cast<const T*>(a.v) + kofs, hstride, 1.f);
+
+  float dk[R][ND], dv[R][ND];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int jd = 0; jd < ND; ++jd) dk[i][jd] = dv[i][jd] = 0.f;
+
+  const int nq = a.sq / TT;
+  const int lo = a.causal ? k0 / TT : 0;
+  for (int t = lo; t < nq; ++t) {
+    const int q0 = t * TT;
+    __syncthreads();  // the previous tile's readers are done
+    load_tile<T, TT, D>(qs, qb + (int64_t)q0 * hstride, hstride, qmul);
+    load_tile<T, TT, D>(dos, dob + (int64_t)q0 * hstride, hstride, 1.f);
+    for (int r = threadIdx.x; r < TT; r += kThreads) {
+      lse_s[r] = a.lse[stat0 + q0 + r];
+      delta_s[r] = a.delta[stat0 + q0 + r];
+    }
+    __syncthreads();
+    float s[R][R], dp[R][R];
+    tile_dot<TT, D>(qs, ks, s);
+    tile_dot<TT, D>(dos, vs, dp);
+    tile_probs<TT>(a, dr, b, h, q0, k0, s, dp, lse_s, delta_s, ps, dss);
+    __syncthreads();
+    // dv[c] += sum_r p[r][c] dO[r];  dk[c] += sum_r ds[r][c] q[r]
+#pragma unroll 4
+    for (int r = 0; r < TT; ++r) {
+      float pv[R], dsv[R], dov[ND], qv[ND];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        pv[i] = ps[r * TP + ty * R + i];
+        dsv[i] = dss[r * TP + ty * R + i];
+      }
+#pragma unroll
+      for (int jd = 0; jd < ND; ++jd) {
+        dov[jd] = dos[r * DP + tx + 16 * jd];
+        qv[jd] = qs[r * DP + tx + 16 * jd];
+      }
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int jd = 0; jd < ND; ++jd) {
+          dv[i][jd] = fmaf(pv[i], dov[jd], dv[i][jd]);
+          dk[i][jd] = fmaf(dsv[i], qv[jd], dk[i][jd]);
+        }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int64_t at = kofs + (int64_t)(ty * R + i) * hstride;
+#pragma unroll
+    for (int jd = 0; jd < ND; ++jd) {
+      store(static_cast<T*>(a.dk) + at + tx + 16 * jd, dk[i][jd]);
+      store(static_cast<T*>(a.dv) + at + tx + 16 * jd, dv[i][jd]);
+    }
+  }
+}
+
+template <int TT, int D>
+constexpr int dq_smem_floats() {
+  return 4 * TT * (D + 1) + TT * (TT + 1) + 2 * TT;
+}
+
+// dq of one (query tile, head, batch): sum over the key tiles.
+template <typename T, int TT, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_kernel(BwdArgs a, Dropout dr) {
+  constexpr int R = TT / 16;
+  constexpr int DP = D + 1;
+  constexpr int TP = TT + 1;
+  constexpr int ND = D / 16;
+  extern __shared__ float smem[];
+  float* qs = smem;              // [TT][DP]
+  float* dos = qs + TT * DP;     // [TT][DP]
+  float* ks = dos + TT * DP;     // [TT][DP]
+  float* vs = ks + TT * DP;      // [TT][DP]
+  float* dss = vs + TT * DP;     // [TT][TP]
+  float* lse_s = dss + TT * TP;  // [TT]
+  float* delta_s = lse_s + TT;   // [TT]
+
+  const int q0 = blockIdx.x * TT;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int64_t hstride = (int64_t)a.nh * D;
+  const int64_t stat0 = ((int64_t)b * a.nh + h) * a.sq;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int64_t qofs = ((int64_t)b * a.sq + q0) * hstride + h * D;
+  const T* __restrict__ kb =
+      static_cast<const T*>(a.k) + (int64_t)b * a.skv * hstride + h * D;
+  const T* __restrict__ vb =
+      static_cast<const T*>(a.v) + (int64_t)b * a.skv * hstride + h * D;
+
+  load_tile<T, TT, D>(qs, static_cast<const T*>(a.q) + qofs, hstride,
+                      a.prescale ? a.sm_scale : 1.f);
+  load_tile<T, TT, D>(dos, static_cast<const T*>(a.dout) + qofs, hstride,
+                      1.f);
+  for (int r = threadIdx.x; r < TT; r += kThreads) {
+    lse_s[r] = a.lse[stat0 + q0 + r];
+    delta_s[r] = a.delta[stat0 + q0 + r];
+  }
+
+  float dq[R][ND];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int jd = 0; jd < ND; ++jd) dq[i][jd] = 0.f;
+
+  int nk = a.skv / TT;
+  if (a.causal) nk = min(nk, (q0 + TT + TT - 1) / TT);
+  for (int t = 0; t < nk; ++t) {
+    const int k0 = t * TT;
+    __syncthreads();  // the previous tile's readers are done
+    load_tile<T, TT, D>(ks, kb + (int64_t)k0 * hstride, hstride, 1.f);
+    load_tile<T, TT, D>(vs, vb + (int64_t)k0 * hstride, hstride, 1.f);
+    __syncthreads();
+    float s[R][R], dp[R][R];
+    tile_dot<TT, D>(qs, ks, s);
+    tile_dot<TT, D>(dos, vs, dp);
+    tile_probs<TT>(a, dr, b, h, q0, k0, s, dp, lse_s, delta_s, nullptr, dss);
+    __syncthreads();
+    // dq[r] += sum_c ds[r][c] k[c]
+#pragma unroll 4
+    for (int c = 0; c < TT; ++c) {
+      float dsv[R], kv[ND];
+#pragma unroll
+      for (int i = 0; i < R; ++i) dsv[i] = dss[(ty * R + i) * TP + c];
+#pragma unroll
+      for (int jd = 0; jd < ND; ++jd) kv[jd] = ks[c * DP + tx + 16 * jd];
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int jd = 0; jd < ND; ++jd)
+          dq[i][jd] = fmaf(dsv[i], kv[jd], dq[i][jd]);
+    }
+  }
+
+  // prescale: ds left sm_scale out; apply it once here
+  const float dqmul = a.prescale ? a.sm_scale : 1.f;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int64_t at = qofs + (int64_t)(ty * R + i) * hstride;
+#pragma unroll
+    for (int jd = 0; jd < ND; ++jd)
+      store(static_cast<T*>(a.dq) + at + tx + 16 * jd, dq[i][jd] * dqmul);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launchers
+// ---------------------------------------------------------------------------
+
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes) {
+  // above 48 KB a block's shared memory must be asked for
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
+}
+
+template <typename T, int D, int BK, bool DROP>
+int launch_fwd_drop(const void* q, const void* k, const void* v,
+                    const void* bias, void* o, void* lse, int batch, int sq,
+                    int skv, int nh, float sm_scale, int prescale, int causal,
+                    const Dropout& dr, cudaStream_t stream) {
+  constexpr int kSmem = fwd_smem_floats<D, BK>() * static_cast<int>(sizeof(float));
+  static const cudaError_t attr =
+      allow_smem(flash_fwd_bsh_kernel<T, D, BK, DROP>, kSmem);  // once
   if (attr != cudaSuccess) return static_cast<int>(attr);
   if (sq % kBQ != 0 || skv % BK != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(sq / kBQ, nh, batch);
-  flash_fwd_bsh_kernel<T, D, BK><<<grid, kThreads, kSmem, stream>>>(
+  flash_fwd_bsh_kernel<T, D, BK, DROP><<<grid, kThreads, kSmem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(bias),
       static_cast<T*>(o), static_cast<float*>(lse), sq, skv, nh, sm_scale,
-      prescale, causal);
+      prescale, causal, dr);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int D, int BK>
+int launch_fwd(const void* q, const void* k, const void* v, const void* bias,
+               void* o, void* lse, int batch, int sq, int skv, int nh,
+               float sm_scale, int prescale, int causal, const Dropout& dr,
+               cudaStream_t stream) {
+  if (dr.mode == kNoDrop)
+    return launch_fwd_drop<T, D, BK, false>(q, k, v, bias, o, lse, batch, sq,
+                                            skv, nh, sm_scale, prescale,
+                                            causal, dr, stream);
+  return launch_fwd_drop<T, D, BK, true>(q, k, v, bias, o, lse, batch, sq,
+                                         skv, nh, sm_scale, prescale, causal,
+                                         dr, stream);
+}
+
 template <typename T>
-int launch_d(int head_dim, const void* q, const void* k, const void* v,
-             const void* bias, void* o, void* lse, int batch, int sq, int skv,
-             int nh, float sm_scale, int prescale, int causal,
-             cudaStream_t stream) {
+int launch_fwd_d(int head_dim, const void* q, const void* k, const void* v,
+                 const void* bias, void* o, void* lse, int batch, int sq,
+                 int skv, int nh, float sm_scale, int prescale, int causal,
+                 const Dropout& dr, cudaStream_t stream) {
   switch (head_dim) {
     case 64:
-      return launch<T, 64, 64>(q, k, v, bias, o, lse, batch, sq, skv, nh,
-                               sm_scale, prescale, causal, stream);
+      return launch_fwd<T, 64, 64>(q, k, v, bias, o, lse, batch, sq, skv, nh,
+                                   sm_scale, prescale, causal, dr, stream);
     case 128:
-      return launch<T, 128, 64>(q, k, v, bias, o, lse, batch, sq, skv, nh,
-                                sm_scale, prescale, causal, stream);
+      return launch_fwd<T, 128, 64>(q, k, v, bias, o, lse, batch, sq, skv,
+                                    nh, sm_scale, prescale, causal, dr,
+                                    stream);
     case 256:
-      return launch<T, 256, 32>(q, k, v, bias, o, lse, batch, sq, skv, nh,
-                                sm_scale, prescale, causal, stream);
+      return launch_fwd<T, 256, 32>(q, k, v, bias, o, lse, batch, sq, skv,
+                                    nh, sm_scale, prescale, causal, dr,
+                                    stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+template <typename T, int TT, int D>
+int launch_bwd(const BwdArgs& a, const Dropout& dr, int batch,
+               cudaStream_t stream) {
+  constexpr int kDkv = dkv_smem_floats<TT, D>() * static_cast<int>(sizeof(float));
+  constexpr int kDq = dq_smem_floats<TT, D>() * static_cast<int>(sizeof(float));
+  static const cudaError_t attr_dkv =
+      allow_smem(flash_bwd_dkv_kernel<T, TT, D>, kDkv);
+  static const cudaError_t attr_dq =
+      allow_smem(flash_bwd_dq_kernel<T, TT, D>, kDq);
+  if (attr_dkv != cudaSuccess) return static_cast<int>(attr_dkv);
+  if (attr_dq != cudaSuccess) return static_cast<int>(attr_dq);
+  if (a.sq % TT != 0 || a.skv % TT != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  flash_bwd_dkv_kernel<T, TT, D>
+      <<<dim3(a.skv / TT, a.nh, batch), kThreads, kDkv, stream>>>(a, dr);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  flash_bwd_dq_kernel<T, TT, D>
+      <<<dim3(a.sq / TT, a.nh, batch), kThreads, kDq, stream>>>(a, dr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_bwd_d(int head_dim, const BwdArgs& a, const Dropout& dr, int batch,
+                 cudaStream_t stream) {
+  switch (head_dim) {
+    case 64:
+      return launch_bwd<T, 64, 64>(a, dr, batch, stream);
+    case 128:
+      return launch_bwd<T, 64, 128>(a, dr, batch, stream);
+    case 256:
+      return launch_bwd<T, 32, 256>(a, dr, batch, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+Dropout make_dropout(int mode, const void* mask, void* bits_out,
+                     unsigned long long seed, int offset, int thresh,
+                     float keep_div) {
+  Dropout dr;
+  dr.mode = mode;
+  dr.mask = static_cast<const uint8_t*>(mask);
+  dr.bits_out = static_cast<uint8_t*>(bits_out);
+  dr.key0 = static_cast<uint32_t>(seed);
+  dr.key1 = static_cast<uint32_t>(seed >> 32);
+  dr.offset = static_cast<uint32_t>(offset);
+  dr.thresh = static_cast<uint32_t>(thresh);
+  dr.inv_keep = mode == kNoDrop ? 1.f : 1.f / keep_div;
+  return dr;
+}
+
+bool dropout_ok(int mode, const void* mask, int thresh, float keep_div) {
+  if (mode == kNoDrop) return true;
+  if (!(keep_div > 0.f)) return false;
+  if (mode == kMaskDrop) return mask != nullptr;
+  return mode == kPhiloxDrop && thresh >= 1 && thresh <= 256;
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  bias may be null.  Returns 0 on
+// dtype: 0 = float32, 1 = bfloat16.  bias may be null.  drop_mode: 0 none,
+// 1 the uint8 keep mask, 2 Philox from (seed, offset) with threshold
+// thresh; keep_div divides the kept numerator; bits_out (uint8 [B, nh,
+// Sq, Skv], or null) receives the Philox bits drawn.  Returns 0 on
 // success, the CUDA error code of a refused launch, or
-// cudaErrorInvalidValue for an unsupported dtype, head_dim or length.
+// cudaErrorInvalidValue for an unsupported dtype, head_dim, length or
+// dropout.
 extern "C" int flash_attention_bsh_launch(
     const void* q, const void* k, const void* v, const void* bias, void* o,
     void* lse, int batch, int sq, int skv, int nh, int head_dim,
-    float sm_scale, int prescale, int causal, int dtype, void* stream) {
-  if (batch <= 0 || sq <= 0 || skv <= 0 || nh <= 0 || (causal && sq != skv))
+    float sm_scale, int prescale, int causal, int dtype, int drop_mode,
+    const void* mask, void* bits_out, unsigned long long seed, int offset,
+    int thresh, float keep_div, void* stream) {
+  if (batch <= 0 || sq <= 0 || skv <= 0 || nh <= 0 || (causal && sq != skv)
+      || !dropout_ok(drop_mode, mask, thresh, keep_div))
     return static_cast<int>(cudaErrorInvalidValue);
+  const Dropout dr = make_dropout(drop_mode, mask, bits_out, seed, offset,
+                                  thresh, keep_div);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_d<float>(head_dim, q, k, v, bias, o, lse, batch, sq, skv,
-                           nh, sm_scale, prescale, causal, s);
+    return launch_fwd_d<float>(head_dim, q, k, v, bias, o, lse, batch, sq,
+                               skv, nh, sm_scale, prescale, causal, dr, s);
   if (dtype == 1)
-    return launch_d<__nv_bfloat16>(head_dim, q, k, v, bias, o, lse, batch, sq,
-                                   skv, nh, sm_scale, prescale, causal, s);
+    return launch_fwd_d<__nv_bfloat16>(head_dim, q, k, v, bias, o, lse, batch,
+                                       sq, skv, nh, sm_scale, prescale,
+                                       causal, dr, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The backward: dq, dk, dv (the inputs' dtype) from q, k, v, dout (the
+// dtype), the per-key bias (f32, may be null), lse and delta (f32 [B, nh,
+// Sq]); the dropout as in the forward (bits are never written here).
+// Launches the dk/dv kernel, then the dq kernel.
+extern "C" int flash_attention_bsh_bwd_launch(
+    const void* q, const void* k, const void* v, const void* bias,
+    const void* lse, const void* delta, const void* dout, void* dq, void* dk,
+    void* dv, int batch, int sq, int skv, int nh, int head_dim,
+    float sm_scale, int prescale, int causal, int dtype, int drop_mode,
+    const void* mask, unsigned long long seed, int offset, int thresh,
+    float keep_div, void* stream) {
+  if (batch <= 0 || sq <= 0 || skv <= 0 || nh <= 0 || (causal && sq != skv)
+      || !dropout_ok(drop_mode, mask, thresh, keep_div))
+    return static_cast<int>(cudaErrorInvalidValue);
+  BwdArgs a;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.bias = static_cast<const float*>(bias);
+  a.lse = static_cast<const float*>(lse);
+  a.delta = static_cast<const float*>(delta);
+  a.dout = dout;
+  a.dq = dq;
+  a.dk = dk;
+  a.dv = dv;
+  a.sq = sq;
+  a.skv = skv;
+  a.nh = nh;
+  a.sm_scale = sm_scale;
+  a.prescale = prescale;
+  a.causal = causal;
+  const Dropout dr = make_dropout(drop_mode, mask, nullptr, seed, offset,
+                                  thresh, keep_div);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_bwd_d<float>(head_dim, a, dr, batch, s);
+  if (dtype == 1)
+    return launch_bwd_d<__nv_bfloat16>(head_dim, a, dr, batch, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

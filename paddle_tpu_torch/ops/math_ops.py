@@ -1,9 +1,11 @@
 """Dense math ops: elementwise (with paddle axis-broadcast), the matmul
-family, the activations and softmax that BERT uses.
+family, the activations and softmax that BERT uses, and the clip / norm
+ops the optimizer's gradient clipping and regularizers emit.
 
 Parity surface: reference operators/elementwise/*, matmul_op.cc,
-mul_op.cc, activation_op.cc, softmax_op.cc; ported from the JAX
-package's ``ops/math_ops.py``.  Matrix products are ``torch.matmul``
+mul_op.cc, activation_op.cc, softmax_op.cc, clip_op.cc,
+clip_by_norm_op.cc, squared_l2_norm_op.cc; ported from the JAX package's
+``ops/math_ops.py``.  Matrix products are ``torch.matmul``
 (cuBLAS on the card), as the JAX package left them to XLA.
 """
 from __future__ import annotations
@@ -88,6 +90,8 @@ def _act(name, fn):
 
 
 _act("tanh", lambda x, a: torch.tanh(x))
+_act("sqrt", lambda x, a: torch.sqrt(x))
+_act("sign", lambda x, a: torch.sign(x))
 _act("gelu", lambda x, a: F.gelu(
     x, approximate="tanh" if a.get("approximate", False) else "none"))
 
@@ -95,3 +99,22 @@ _act("gelu", lambda x, a: F.gelu(
 @register("softmax")
 def softmax(ctx, ins, attrs):
     return {"Out": [torch.softmax(ins["X"][0], dim=attrs.get("axis", -1))]}
+
+
+@register("clip")
+def clip(ctx, ins, attrs):
+    return {"Out": [torch.clamp(ins["X"][0], attrs.get("min"),
+                                attrs.get("max"))]}
+
+
+@register("clip_by_norm")
+def clip_by_norm(ctx, ins, attrs):
+    x = ins["X"][0]
+    max_norm = attrs["max_norm"]
+    norm = torch.sqrt(torch.sum(torch.square(x)))
+    return {"Out": [x * (max_norm / torch.clamp_min(norm, max_norm))]}
+
+
+@register("squared_l2_norm")
+def squared_l2_norm(ctx, ins, attrs):
+    return {"Out": [torch.sum(torch.square(ins["X"][0])).reshape(1)]}

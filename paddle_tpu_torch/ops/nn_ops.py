@@ -1,18 +1,20 @@
 """Neural-net ops of the BERT path: layer_norm, lookup_table(_v2),
-dropout, softmax_with_cross_entropy.
+dropout (+ dropout_grad), softmax_with_cross_entropy.
 
 Parity surface: reference layer_norm_op.cc, lookup_table_v2_op.cc,
 dropout_op.cc, softmax_with_cross_entropy_op.cc; ported from the JAX
 package's ``ops/nn_ops.py``.  A last-axis affine ``layer_norm`` runs the
-fused add+LN kernel (``ops/kernels/add_ln.py``) when FLAGS_use_fused_ln
-is on; every other layer_norm is the plain f32-statistics composition.
+fused add+LN kernels (``ops/kernels/add_ln.py``, forward and backward
+through ``add_ln``) when FLAGS_use_fused_ln is on; every other layer_norm
+is the plain f32-statistics composition.  ``dropout`` takes no generic
+grad: its grad maker emits ``dropout_grad``, which reads the saved Mask.
 """
 from __future__ import annotations
 
 import torch
 
-from .kernels.add_ln import fused_add_ln_fwd
-from .registry import register
+from .kernels import add_ln as _add_ln
+from .registry import register, set_grad_maker
 
 
 @register("layer_norm")
@@ -29,8 +31,8 @@ def layer_norm(ctx, ins, attrs):
         # the kernel returns Y, the row mean and rstd = 1/sqrt(var + eps);
         # the op's Variance output is recovered as 1/rstd^2 - eps (about
         # 3 f32 ulps of var + eps off the direct variance)
-        y, m, rstd = fused_add_ln_fwd(x, None, ins["Scale"][0],
-                                      ins["Bias"][0], eps=eps)
+        y, m, rstd = _add_ln.add_ln(x, None, ins["Scale"][0],
+                                    ins["Bias"][0], eps=eps)
         v = rstd.reciprocal().square() - eps
         return {"Y": [y], "Mean": [m.reshape(lead)],
                 "Variance": [v.reshape(lead)]}
@@ -48,7 +50,7 @@ def layer_norm(ctx, ins, attrs):
             "Variance": [v.reshape(lead)]}
 
 
-@register("dropout")
+@register("dropout", no_vjp_grad=True)
 def dropout(ctx, ins, attrs):
     x = ins["X"][0]
     p = float(attrs.get("dropout_prob", 0.5))
@@ -63,6 +65,40 @@ def dropout(ctx, ins, attrs):
     else:
         out = torch.where(keep, x, 0.0).to(x.dtype)
     return {"Out": [out], "Mask": [keep.to(torch.uint8)]}
+
+
+@register("dropout_grad", no_vjp_grad=True)
+def dropout_grad(ctx, ins, attrs):
+    dout = ins["Out@GRAD"][0]
+    mask = ins["Mask"][0]
+    p = float(attrs.get("dropout_prob", 0.5))
+    impl = attrs.get("dropout_implementation", "downgrade_in_infer")
+    if attrs.get("is_test", False):
+        # forward was out = x*(1-p) (downgrade) or out = x (upscale)
+        return {"X@GRAD": [dout * (1.0 - p) if impl == "downgrade_in_infer"
+                           else dout]}
+    dx = dout * mask.to(dout.dtype)
+    if impl == "upscale_in_train":
+        dx = dx / max(1.0 - p, 1e-12)
+    return {"X@GRAD": [dx]}
+
+
+def _dropout_grad_maker(op, out_grads, block):
+    og = out_grads.get("Out")
+    if og is None:
+        return [], {}
+    xname = op.input("X")[0]
+    gname = xname + "@GRAD"
+    desc = {
+        "type": "dropout_grad",
+        "inputs": {"Mask": [op.output("Mask")[0]], "Out@GRAD": [og[0]]},
+        "outputs": {"X@GRAD": [gname]},
+        "attrs": dict(op.attrs),
+    }
+    return [desc], {xname: gname}
+
+
+set_grad_maker("dropout", _dropout_grad_maker)
 
 
 def _lookup(w, ids, padding_idx):

@@ -1,6 +1,7 @@
 """Reductions: reduce_sum / reduce_mean with attrs dim / keep_dim /
-reduce_all.  Parity surface: reference operators/reduce_ops/; ported from
-the JAX package's ``ops/reduce_ops.py``."""
+reduce_all, and the whole-tensor ``mean``.  Parity surface: reference
+operators/reduce_ops/, mean_op.cc; ported from the JAX package's
+``ops/reduce_ops.py``."""
 from __future__ import annotations
 
 import torch
@@ -39,3 +40,9 @@ def _reduce(name, fn):
 
 _reduce("reduce_sum", torch.sum)
 _reduce("reduce_mean", torch.mean)
+
+
+@register("mean")
+def mean(ctx, ins, attrs):
+    """Whole-tensor mean to a [1] tensor (reference mean_op.cc)."""
+    return {"Out": [torch.mean(ins["X"][0]).reshape(1)]}

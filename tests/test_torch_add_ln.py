@@ -2,13 +2,19 @@
 CPU tensors take) against the JAX package's ``fused_add_ln`` — its Pallas
 forward in interpret mode — with and without the residual, and the
 ``layer_norm`` op emitter's Y / Mean / Variance against the JAX
-package's emitter, on the same numpy inputs.  Also the CUDA wrapper's
+package's emitter, on the same numpy inputs; the backward (dx = dy,
+dscale, dshift) of the port's autograd Function against ``jax.vjp`` of
+the JAX package's custom VJP (its Pallas backward in interpret mode),
+with and without the residual, in f32 and bf16.  Also the CUDA wrappers'
 input checks.
 
 Tolerances (f32): out 2e-6 and the stats 1e-6 (the same math; XLA and
 torch sum the row in other orders).  Variance: the port's emitter forms
 it from the kernel's rstd as 1/rstd**2 - eps, a few f32 ulps of
-var + eps from the direct variance: rtol 2e-6 on var + eps.
+var + eps from the direct variance: rtol 2e-6 on var + eps.  Backward:
+dx 2e-6 in f32 and one bf16 ulp (2^-7 relative, atol 1e-2 near zero) in
+bf16; dscale and dshift 2e-6 relative (sums over up to 128 rows of
+products near 1) in both.
 """
 from __future__ import annotations
 
@@ -137,9 +143,9 @@ def test_layer_norm_flag_off_takes_the_plain_path(monkeypatch):
     x = _inputs(5, (4, 128))
     ins = {"X": x["x"], "Scale": x["scale"], "Bias": x["shift"]}
     calls = []
-    monkeypatch.setattr("paddle_tpu_torch.ops.nn_ops.fused_add_ln_fwd",
-                        lambda *a, **k: calls.append(1) or
-                        add_ln.fused_add_ln_fwd(*a, **k))
+    real = add_ln.add_ln
+    monkeypatch.setattr(add_ln, "add_ln",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
     attrs = {"epsilon": 1e-5, "begin_norm_axis": 1}
     _, on = _emit_both(ins, attrs)
     assert calls == [1]
@@ -209,3 +215,96 @@ def test_launch_counter_counts_only_kernel_launches():
     n0 = add_ln.fused_add_ln.launches
     add_ln.fused_add_ln(**x)
     assert add_ln.fused_add_ln.launches == n0  # CPU: the plain version
+
+
+def _jax_bwd(x, y, scale, shift, g):
+    import jax
+
+    def fn(*a):
+        return jax_add_ln.fused_add_ln(a[0], a[1] if y is not None else None,
+                                       a[-2], a[-1], eps=1e-5)
+
+    args = [x] + ([y] if y is not None else []) + [scale, shift]
+    _, vjp = jax.vjp(fn, *args)
+    out = [np.asarray(v, np.float32) for v in vjp(g)]
+    return (out[0], out[1] if y is not None else None, out[-2], out[-1])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("with_y", [False, True], ids=["no_y", "y"])
+def test_backward_matches_jax_vjp(with_y, dtype):
+    x = _inputs(6, (2, 64, 128))
+    g = np.random.default_rng(7).standard_normal((2, 64, 128)).astype(
+        np.float32)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = getattr(torch, dtype)
+    want = _jax_bwd(jnp.asarray(x["x"], jdt),
+                    jnp.asarray(x["y"], jdt) if with_y else None,
+                    jnp.asarray(x["scale"]), jnp.asarray(x["shift"]),
+                    jnp.asarray(g, jdt))
+    leaves = [torch.as_tensor(x["x"]).to(tdt).requires_grad_(),
+              torch.as_tensor(x["y"]).to(tdt).requires_grad_(),
+              torch.as_tensor(x["scale"]).requires_grad_(),
+              torch.as_tensor(x["shift"]).requires_grad_()]
+    if not with_y:
+        leaves[1] = None
+    out = add_ln.fused_add_ln(*leaves, eps=1e-5)
+    live = [t for t in leaves if t is not None]
+    got = torch.autograd.grad(out, live, torch.as_tensor(g).to(tdt))
+    got = list(got) if with_y else [got[0], None, got[1], got[2]]
+    assert got[0].dtype == tdt and got[2].dtype == torch.float32
+    bf16 = dtype == "bfloat16"
+    for name, a, b in zip(("dx", "dy", "dscale", "dshift"), want, got):
+        if a is None:
+            assert b is None
+            continue
+        b = b.float().numpy()
+        if name in ("dx", "dy"):
+            np.testing.assert_allclose(b, a, atol=1e-2 if bf16 else OUT_TOL,
+                                       rtol=2.0 ** -7 if bf16 else 0,
+                                       err_msg=name)
+        else:
+            np.testing.assert_allclose(b, a, atol=1e-5, rtol=2e-6,
+                                       err_msg=name)
+    if with_y:
+        assert torch.equal(got[0], got[1])  # dx serves as dy
+
+
+def test_stats_are_not_differentiable():
+    x = _inputs(8, (4, 128))
+    xt = torch.as_tensor(x["x"]).requires_grad_()
+    out, mean, rstd = add_ln.add_ln(xt, None, torch.as_tensor(x["scale"]),
+                                    torch.as_tensor(x["shift"]))
+    assert out.requires_grad and not mean.requires_grad \
+        and not rstd.requires_grad
+
+
+def test_backward_kernel_check():
+    x = _good()
+    mean = torch.zeros(8)
+    add_ln.check_bwd_inputs(x["x"], x["y"], x["scale"], mean, mean, x["x"])
+    for bad in (dict(g=x["x"].bfloat16()), dict(g=x["x"][:4]),
+                dict(mean=mean.double()), dict(rstd=mean[:4])):
+        kw = dict(x=x["x"], y=x["y"], scale=x["scale"], mean=mean,
+                  rstd=mean, g=x["x"])
+        kw.update(bad)
+        with pytest.raises(ValueError):
+            add_ln.check_bwd_inputs(**kw)
+
+
+def test_backward_bounds_count_the_bytes():
+    x = torch.zeros(4096, 768)
+    act = 4096 * 768 * 4
+    # about 37.7 MB in f32 without a residual at [4096, 768]
+    assert add_ln.bound_bytes_bwd(x, None) == (3 * act + 3 * 4 * 768
+                                               + 2 * 4 * 4096)
+    assert add_ln.bound_bytes_bwd(x, x) == (4 * act + 3 * 4 * 768
+                                            + 2 * 4 * 4096)
+
+
+def test_backward_launch_counter_counts_only_kernel_launches():
+    x = _good()
+    n0 = add_ln.fused_add_ln_bwd.launches
+    xt = x["x"].requires_grad_()
+    add_ln.fused_add_ln(xt, None, x["scale"], x["shift"]).sum().backward()
+    assert add_ln.fused_add_ln_bwd.launches == n0  # CPU: the plain version

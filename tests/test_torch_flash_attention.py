@@ -1,14 +1,17 @@
-"""The port's BSH flash attention (the plain PyTorch version, the one CPU
-tensors take) against the JAX package's: the Pallas BSH kernel in
+"""The port's BSH flash attention (the plain PyTorch versions, the ones
+CPU tensors take) against the JAX package's: the Pallas BSH kernels in
 interpret mode (``attention.FORCE_PALLAS``, as tests/test_flash_bsh.py
-runs it) and its ``_flash_fwd_bsh`` forward with the lse, on the same
-numpy inputs.  Also the dispatch gates against the JAX package's, and
-the CUDA wrapper's input checks, which refuse what the kernel does not
-take (dropout included).
+runs them), its ``_flash_fwd_bsh`` forward with the lse, and the
+gradients of its custom VJP (``jax.vjp``) against the port's autograd
+Function, with bias and causal, and with dropout from the same explicit
+uint8 keep mask on both sides.  Also the dispatch gates against the JAX
+package's, and the CUDA wrappers' input checks, which refuse what the
+kernels do not take.
 
 Tolerances: o 2e-6 and lse 2e-5 in f32 (the same math; the Pallas kernel
 sums its online softmax tile by tile, torch in one pass, and the lse is
-a log of a sum of up to 128 terms of size up to e^4).
+a log of a sum of up to 128 terms of size up to e^4); gradients 1e-5
+(sums over up to 256 terms of products of two such quantities).
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ from paddle_tpu_torch.ops.kernels import flash_attention as fa
 
 B, S, NH, D = 1, 128, 2, 64
 H = NH * D
-O_TOL, LSE_TOL = 2e-6, 2e-5
+O_TOL, LSE_TOL, GRAD_TOL = 2e-6, 2e-5, 1e-5
 
 
 @pytest.fixture
@@ -221,9 +224,102 @@ def test_kernel_check_refuses(name):
         fa.check_kernel_inputs(**x)
 
 
-def test_kernel_check_refuses_dropout_until_the_training_slice():
-    with pytest.raises(NotImplementedError, match="training slice"):
-        fa.check_kernel_inputs(**_good(), dropout_prob=0.1)
+def test_kernel_check_accepts_dropout():
+    fa.check_kernel_inputs(**_good(), dropout_prob=0.1)
+    x = _good()
+    mask = torch.ones(2, 2, 128, 128, dtype=torch.uint8)
+    fa.check_kernel_inputs(**x, dropout_prob=0.1, mask=mask)
+    for bad in (mask.float(), mask[:, :1], mask.transpose(2, 3)):
+        with pytest.raises(ValueError, match="mask"):
+            fa.check_kernel_inputs(**x, dropout_prob=0.1, mask=bad)
+    with pytest.raises(ValueError, match="dropout_prob"):
+        fa.check_kernel_inputs(**x, dropout_prob=1.0)
+
+
+def _jax_vjp(x, cot, *, causal=False, dropout_prob=0.0, mask=None):
+    """o and (dq, dk, dv) of the JAX package's BSH custom VJP."""
+    import jax
+
+    bias = x.get("bias")
+    b, sq = x["q"].shape[:2]
+    skv = x["k"].shape[1]
+    core = jfa._make_flash_core_bsh(sm_scale=1.0 / math.sqrt(D), nh=NH,
+                                    causal=causal,
+                                    dropout_prob=dropout_prob)
+    jb = None if bias is None else jnp.asarray(bias.reshape(b, 1, skv))
+    jm = None if mask is None else jnp.asarray(mask)
+
+    def fn(q, k, v):
+        return core(q, k, v, jb, jm, None, None)
+
+    o, vjp = jax.vjp(fn, *(jnp.asarray(x[n]) for n in ("q", "k", "v")))
+    return np.asarray(o), [np.asarray(g) for g in vjp(jnp.asarray(cot))]
+
+
+def _torch_grads(x, cot, **kw):
+    leaves = [torch.as_tensor(x[n]).requires_grad_() for n in "qkv"]
+    bias = x.get("bias")
+    o = fa.flash_attention_bsh(
+        *leaves, None if bias is None else torch.as_tensor(bias),
+        num_heads=NH, **kw)
+    grads = torch.autograd.grad(o, leaves, torch.as_tensor(cot))
+    return o.detach().numpy(), [g.numpy() for g in grads]
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_backward_matches_jax_vjp(case, force_pallas):
+    kw = CASES[case]
+    x = _inputs(6, b=2, bias=kw["bias"])
+    cot = np.random.default_rng(7).standard_normal((2, S, H)).astype(
+        np.float32)
+    o_j, g_j = _jax_vjp(x, cot, causal=kw["causal"])
+    o_t, g_t = _torch_grads(x, cot, causal=kw["causal"])
+    np.testing.assert_allclose(o_t, o_j, atol=O_TOL, rtol=0)
+    for name, a, b in zip("qkv", g_j, g_t):
+        np.testing.assert_allclose(b, a, atol=GRAD_TOL, rtol=0,
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_dropout_with_the_same_mask_matches_jax(causal, force_pallas):
+    x = _inputs(8, b=2, bias=True)
+    rng = np.random.default_rng(9)
+    mask = (rng.random((2, NH, S, S)) > 0.2).astype(np.uint8)
+    cot = rng.standard_normal((2, S, H)).astype(np.float32)
+    o_j, g_j = _jax_vjp(x, cot, causal=causal, dropout_prob=0.2, mask=mask)
+    o_t, g_t = _torch_grads(x, cot, causal=causal, dropout_prob=0.2,
+                            mask=torch.as_tensor(mask))
+    np.testing.assert_allclose(o_t, o_j, atol=O_TOL, rtol=0)
+    for name, a, b in zip("qkv", g_j, g_t):
+        np.testing.assert_allclose(b, a, atol=GRAD_TOL, rtol=0,
+                                   err_msg=f"d{name}")
+    o_nodrop, _ = _torch_grads(x, cot, causal=causal)
+    assert not np.allclose(o_t, o_nodrop)
+
+
+def test_bias_gets_no_gradient():
+    x = _inputs(10, b=2, bias=True)
+    leaves = [torch.as_tensor(x[n]).requires_grad_() for n in "qkv"]
+    bias = torch.as_tensor(x["bias"]).requires_grad_()
+    o = fa.flash_attention_bsh(*leaves, bias, num_heads=NH)
+    grads = torch.autograd.grad(o.sum(), leaves + [bias], allow_unused=True)
+    assert grads[3] is None and all(g is not None for g in grads[:3])
+
+
+def test_plain_backward_refuses_philox_without_the_mask():
+    x = _good()
+    o, lse = fa.flash_attention_bsh_fwd(x["q"], x["k"], x["v"], x["bias"],
+                                        num_heads=2)
+    with pytest.raises(ValueError, match="mask"):
+        fa.flash_attention_bsh_bwd(x["q"], x["k"], x["v"], x["bias"], o,
+                                   lse, o, 2, dropout_prob=0.1,
+                                   dropout_seed=5)
+
+
+def test_dropout_threshold_matches_jax():
+    for keep in (0.0, 0.5, 0.9, 0.999, 1.0, 0.12345):
+        assert fa.dropout_quantized_thresh(keep) == \
+            jfa._dropout_quantized_thresh(keep)
 
 
 def test_bounds_count_the_work():
@@ -237,8 +333,23 @@ def test_bounds_count_the_work():
                                                  + 8 * 12 * 512 * 4)
 
 
+def test_backward_bounds_count_the_work():
+    x = _good(b=8, sq=512, skv=512, nh=12, d=64)
+    q, k, v, bias = x["q"], x["k"], x["v"], x["bias"]
+    # 10 * B * nh * S^2 * D: 16.1 GFLOP at BERT-base's shapes
+    assert fa.bound_flops_bwd(q, k, 12) == 16_106_127_360
+    act = 8 * 512 * 768 * 4
+    assert fa.bound_bytes_bwd(q, k, v, bias, 12) == (
+        8 * act + 8 * 512 * 4 + 8 * 12 * 512 * 4)
+
+
 def test_launch_counter_counts_only_kernel_launches():
     x = _good()
-    n0 = fa.flash_attention_bsh.launches
-    fa.flash_attention_bsh(x["q"], x["k"], x["v"], x["bias"], num_heads=2)
-    assert fa.flash_attention_bsh.launches == n0  # CPU: the plain version
+    n0 = (fa.flash_attention_bsh.launches,
+          fa.flash_attention_bsh_bwd.launches)
+    q = x["q"].requires_grad_()
+    o = fa.flash_attention_bsh(q, x["k"], x["v"], x["bias"], num_heads=2)
+    o.sum().backward()
+    # CPU: the plain versions
+    assert (fa.flash_attention_bsh.launches,
+            fa.flash_attention_bsh_bwd.launches) == n0

@@ -382,5 +382,13 @@ def test_dtypes_mirror_the_jax_package():
         assert tdtypes.runtime_dtype(spec) == jd.runtime_dtype(spec)
     assert tdtypes.convert_dtype(torch.int32) == np.dtype("int32")
     assert tdtypes.to_torch_dtype("float32") is torch.float32
-    with pytest.raises(TypeError, match="bfloat16"):
-        tdtypes.convert_dtype("bfloat16")
+    # bfloat16: the port's own IR dtype (numpy has none), named as JAX's
+    bf16 = tdtypes.convert_dtype("bfloat16")
+    assert tdtypes.dtype_name(bf16) == jd.dtype_name("bfloat16")
+    assert tdtypes.is_floating(bf16) and jd.is_floating("bfloat16")
+    assert tdtypes.convert_dtype(jd.convert_dtype("bfloat16")) is bf16
+    assert tdtypes.to_torch_dtype(bf16) is torch.bfloat16
+    assert tdtypes.from_torch_dtype(torch.bfloat16) is bf16
+    assert tdtypes.runtime_dtype(bf16) is bf16
+    with pytest.raises(TypeError, match="no torch dtype"):
+        tdtypes.to_torch_dtype("U4")

@@ -39,7 +39,12 @@ assert not bad, bad
 for n in ("fluid", "fluid.layers", "fluid.executor", "fluid.framework",
           "inference.freeze", "inference.predictor", "models.bert",
           "ops.attention", "ops.nn_ops", "ops.kernels.flash_attention",
-          "ops.kernels.add_ln", "ops.kernels._build"):
+          "ops.kernels.add_ln", "ops.kernels._build", "fluid.backward",
+          "fluid.optimizer", "fluid.clip", "fluid.regularizer",
+          "ops.encoder_stack", "ops.optimizer_ops",
+          "contrib.mixed_precision", "contrib.mixed_precision.decorator",
+          "contrib.mixed_precision.fp16_utils",
+          "contrib.mixed_precision.fp16_lists"):
     assert "paddle_tpu_torch." + n in names, n
 """
 
