@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving paths on one CUDA card.
+"""Drive the PyTorch/CUDA port's serving and training paths on one CUDA
+card.
 
     python3 chip_smoke.py [--out FILE]
 
@@ -17,7 +18,8 @@ prints no result):
                mask and from the in-kernel Philox, whose drawn bits feed
                the plain version, and whose keep rate is checked;
                add+LayerNorm, out and stats, and its backward dx, dscale,
-               dshift), with its time, bound, plain-version time and the
+               dshift; the five conv+BN kernels at ResNet-50's shapes, f32
+               and bf16), with its time, bound, plain-version time and the
                time of one library call computing the same function
   engine       GenerationEngine over TinyDecoderLM at GPT-2-small widths
                (d 768, 12 layers x 12 heads, FFN 3072, vocab 50257, 1024
@@ -53,6 +55,25 @@ prints no result):
                (plain versions) from the same weights: f32 with TF32 off
                (then once on, to show the loss limit catches it), and bf16
                AMP
+  resnet_train ResNet-50 training as the JAX package's bench runs it:
+               FLAGS_conv_bn_fusion (53 fused_conv_bn ops), Momentum
+               0.1/0.9, bf16 AMP, batch 128 at 224 x 224, one fixed seed-0
+               batch: 2 warm steps, then 10 timed; every loss finite and
+               every step launching the conv+BN kernels exactly as its
+               program needs (13 conv_stats, 36 mm_stats, 49 each of
+               bn_apply, bn_bwd_reduce, bn_bwd_dz; 4 reference routes for
+               the stride-2 k x k convs)
+  resnet_train_profile  torch.profiler over 3 of those steps
+  resnet_train_parity   ResNet-50 widths at batch 8, 64 x 64, 3 steps of
+               Momentum 0.01 on the card (kernels) against the CPU (plain
+               versions) from the same weights: the first step's loss,
+               gradients and batch statistics held in f32 with TF32 off
+               (then once on, to show the limits catch it) and the first
+               loss in bf16 AMP; the same without the fusion (the
+               library's own card-vs-CPU gap) beside them
+  resnet_infer ResNet-50 frozen by freeze_program (all 53 conv+BN pairs
+               folded into the conv weights: no conv+BN kernel runs) and
+               served by the Predictor, f32, batch 32 at 224 x 224
 
 The line before the last is the kernels summary; the last line is
 ``{"ok": true, "device": {...}}``.  Needs one CUDA card; without one it
@@ -725,6 +746,8 @@ def phase_kernels(torch) -> dict:
     out["add_ln_bwd"] = ln["bf16_y"]
     out["add_ln_bwd_f32"] = ln["f32"]
     out["add_ln_train"] = ln["fwd_bf16_y"]
+    out["cases"]["conv_bn"], cbn = _kernels_conv_bn(torch, F, flush)
+    out.update(cbn)
     emit(out)
     del flush
     torch.cuda.empty_cache()
@@ -1358,6 +1381,700 @@ def phase_bert_train_profile(torch, train: dict) -> dict:
     emit(out)
     return out
 
+# ---------------------------------------------------------------------------
+# ResNet-50 training: the conv+BN kernels (rows 10-14)
+# ---------------------------------------------------------------------------
+
+# conv+BN kernel checks against the plain versions on the same inputs.
+# Rows 10/11, f32 (TF32 off): the kernel sums the K = kh*kw*C products in
+# another order than cuDNN; the error is normalised by max |z| of the case.
+# bf16: both round the f32 sum to bf16 once, so z may differ by one bf16
+# ulp where the two f32 sums straddle a rounding boundary.  Rows 12 and 14
+# repeat the plain version's arithmetic one rounding an op (no FMA), so
+# they agree to the last bit; row 13 sums over R rows in another order.
+CONV_Z_F32 = 2e-5           # max |z - z_plain| / max |z_plain|, f32
+CONV_STAT_F32 = 2e-5        # batch mean/var vs the plain version's, f32
+CONV_STAT_BF16 = 2e-3       # the same over bf16 z that may differ by 1 ulp
+# row 13's dgamma/dbeta: f32 sums over up to 401,408 rows of terms of
+# size ~1, in the kernel's per-block order against torch's tree
+ATOL_CONV_SUM = 5e-3
+RTOL_CONV_SUM = 1e-5
+# ResNet-50 training card vs CPU (batch 8, 64 x 64, Momentum 0.01).  f32
+# with TF32 off: the first step's loss (the forward), gradients and batch
+# statistics are held.  This network's gradient at this size is sensitive
+# to rounding: the library's own convolutions and batch_norm (the program
+# without the fusion) differ card vs CPU by 1.5% in the first gradients
+# (relative norm), and later steps diverge whatever computes them, so
+# they are reported, not held.  TF32 moves the first loss by 3e-2, the
+# gradients by 53% and the statistics by 2e-3, far past the f32 limits.
+# bf16 AMP: one bf16 ulp is 2^-8 relative, and the rounding differences
+# of any two correct paths grow from layer to layer.  On the H100 at
+# seeds 0-3 the 53 conv+BN outputs of the kernels' path and of the
+# library's path (cuDNN, torch's batch_norm) sit the same distance from
+# the CPU's at every layer, from ~1e-4 after the first kernel to ~0.45
+# at the last, and the first loss 0.02-0.25 (kernels) and 0.01-0.23
+# (library) from the CPU's in two runs.  So the first loss is held on
+# every seed at 0.4, above all sixteen readings: a sanity bound, since
+# any rounding change moves it that far.  The kernels' accuracy is held
+# op by op instead: each gated op run again from its own inputs of that
+# step, kernels against the CPU's plain versions, read at most 2.1e-4
+# (relative L2 of y; cuDNN's composition 2.6e-4).  The limit 5e-4 sits
+# above both and below the fault it must catch, statistics of the
+# unrounded f32 z (5.4e-4 to 1.8e-3 by op), which the phase computes
+# beside.  The bench's learning rate 0.1 makes 8 images at
+# 64 x 64 diverge within three steps; 0.01 keeps the reported steps
+# stable.
+PARITY_LR = 0.01
+RESNET_PARITY_LOSS = 2e-4
+RESNET_PARITY_GRAD = 5e-2
+RESNET_PARITY_STAT = 1e-4
+RESNET_BF16_SEEDS = (0, 1, 2, 3)
+RESNET_PARITY_LOSS_BF16 = 0.4
+RESNET_LOCAL_BF16 = 5e-4
+CONV_BN_KERNELS = ("conv_stats", "mm_stats", "bn_apply", "bn_bwd_reduce",
+                   "bn_bwd_dz")
+# the kernel checks' cases, ResNet-50 at batch 128: (N, H, W, C, O, k,
+# stride, relu); the first two are also timed (stage 0's 3 x 3 and 1 x 1)
+CONV_BN_CASES = {
+    "s0_3x3": (128, 56, 56, 64, 64, 3, 1, True),
+    "s0_1x1_64to256": (128, 56, 56, 64, 256, 1, 1, False),
+    "s1_proj_s2_256to512": (128, 56, 56, 256, 512, 1, 2, False),
+    "s3_3x3": (128, 7, 7, 512, 512, 3, 1, True),
+}
+
+
+def _conv_case(torch, rng, n, h, w, c, o, k, stride, dtype):
+    dev = "cuda"
+    x = torch.as_tensor(rng.standard_normal((n, h, w, c)),
+                        dtype=torch.float32).to(dev, dtype)
+    wt = torch.as_tensor(rng.standard_normal((o, c, k, k))
+                         * math.sqrt(2.0 / (k * k * c)),
+                         dtype=torch.float32).to(dev, dtype)
+    scale = torch.as_tensor(1 + 0.1 * rng.standard_normal(o),
+                            dtype=torch.float32).to(dev)
+    shift = torch.as_tensor(0.1 * rng.standard_normal(o),
+                            dtype=torch.float32).to(dev)
+    pad = (k - 1) // 2
+    return x, wt, scale, shift, (stride, stride), ((pad, pad), (pad, pad))
+
+
+def _conv_bn_check(torch, cb, name, case, relu, seed):
+    """Each of the five kernels against its plain version on one case: the
+    conv kernel (row 10 or 11) on x and w; rows 12-14 on the kernel's z and
+    statistics and a random cotangent (the same inputs on both sides)."""
+    x, w, scale, shift, strides, pads = case
+    is_bf16 = x.dtype == torch.bfloat16
+    one_by_one = tuple(w.shape[2:]) == (1, 1)
+    conv = (lambda: cb.mm_stats(x, w, strides)) if one_by_one else (
+        lambda: cb.conv_stats(x, w, pads))
+    z, s, ss = conv()
+    zr, sr, ssr = cb.conv_stats_reference(x, w, strides, pads)
+    torch.cuda.synchronize()
+    r = z.shape[0]
+    scale_z = zr.float().abs().max().item()
+    if is_bf16:
+        res = {"z": _check(f"{name} z", z, zr, 1e-3 * scale_z, RTOL_BF16)}
+    else:
+        res = {"z": _check(f"{name} z", z, zr, CONV_Z_F32 * scale_z)}
+    m, mr = s / r, sr / r
+    v, vr = ss / r - m * m, ssr / r - mr * mr
+    lim = (CONV_STAT_BF16 if is_bf16 else CONV_STAT_F32) * vr.abs().max()
+    res["mean"] = _check(f"{name} mean", m, mr, lim.item())["max_abs_err"]
+    res["var"] = _check(f"{name} var", v, vr, lim.item())["max_abs_err"]
+    v = torch.clamp_min(v, 0.0)
+    stat = torch.stack([m, torch.rsqrt(v + 1e-5), scale, shift])
+    y = cb.bn_apply(z, stat, relu)
+    yr = cb.bn_apply_reference(z, stat, relu)
+    g = torch.as_tensor(np.random.default_rng(seed).standard_normal(
+        tuple(z.shape)), dtype=torch.float32).to("cuda", z.dtype)
+    dgamma, dbeta = cb.bn_bwd_reduce(z, g, stat, relu)
+    rdg, rdb = cb.bn_bwd_reduce_reference(z, g, stat, relu)
+    tot = torch.stack([dgamma, dbeta])
+    dz = cb.bn_bwd_dz(z, g, stat, tot, relu)
+    dzr = cb.bn_bwd_dz_reference(z, g, stat, tot, relu)
+    torch.cuda.synchronize()
+    res["y"] = _check(f"{name} y", y, yr, ATOL_F32)["max_abs_err"]
+    res["dgamma"] = _check(f"{name} dgamma", dgamma, rdg, ATOL_CONV_SUM,
+                           RTOL_CONV_SUM)["max_abs_err"]
+    res["dbeta"] = _check(f"{name} dbeta", dbeta, rdb, ATOL_CONV_SUM,
+                          RTOL_CONV_SUM)["max_abs_err"]
+    res["dz"] = _check(f"{name} dz", dz, dzr, ATOL_F32)["max_abs_err"]
+    res["relu_kept"] = float((y > 0).float().mean()) if relu else None
+    return res, dict(z=z, stat=stat, g=g, tot=tot, conv=conv)
+
+
+def _kernels_conv_bn(torch, F, flush) -> tuple:
+    """Rows 10-14 against their plain versions at ResNet-50's shapes (batch
+    128), f32 with TF32 off and bf16; then timed in bf16 (the training
+    path's dtype) at the stage-0 shapes."""
+    from paddle_tpu_torch.ops.kernels import conv_bn as cb
+
+    rng = np.random.default_rng(9)
+    f32, bf16 = torch.float32, torch.bfloat16
+    shapes = CONV_BN_CASES
+    results, main = {}, {}
+    for name, (n, h, w, c, o, k, st, relu) in shapes.items():
+        for tag, dt in (("f32", f32), ("bf16", bf16)):
+            case = _conv_case(torch, rng, n, h, w, c, o, k, st, dt)
+            res, t = _conv_bn_check(torch, cb, f"conv_bn {name} {tag}", case,
+                                    relu, seed=len(results))
+            results[f"{name}_{tag}"] = res
+            if tag == "bf16" and name in ("s0_3x3", "s0_1x1_64to256"):
+                main[name] = (case, t, relu)
+            del case, t
+            torch.cuda.empty_cache()
+
+    # TF32 shown once: the f32 stage-0 3 x 3 plain conv with TF32 on,
+    # against the kernel's f32 z
+    case = _conv_case(torch, np.random.default_rng(10), *shapes["s0_3x3"][:7],
+                      f32)
+    x, w, _, _, strides, pads = case
+    z = cb.conv_stats(x, w, pads)[0]
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        zt = cb.conv_stats_reference(x, w, strides, pads)[0]
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    zr = cb.conv_stats_reference(x, w, strides, pads)[0]
+    tf32_err = ((z - zt).abs().max() / zr.abs().max()).item()
+    results["tf32"] = {"case": "s0_3x3_f32", "normalised_err_tf32_on":
+                       tf32_err, "limit": CONV_Z_F32,
+                       "tf32_exceeds_limit": tf32_err > CONV_Z_F32}
+    del case, x, w, z, zt, zr
+    torch.cuda.empty_cache()
+
+    timed = {}
+    for name, (case, t, relu) in main.items():
+        x, w, scale, shift, strides, pads = case
+        z, stat, g, tot = t["z"], t["stat"], t["g"], t["tot"]
+        xc = x.permute(0, 3, 1, 2)
+        kname = "mm_stats" if name.endswith("256") else "conv_stats"
+        row = {"shape": {"x": list(x.shape), "w": list(w.shape),
+                         "strides": list(strides), "pads": pads,
+                         "dtype": "bfloat16"},
+               "library": "F.conv2d on the channels_last view (no stats)",
+               "max_abs_err": results[f"{name}_bf16"]["z"]["max_abs_err"]}
+        row.update(_timed(
+            torch, flush, t["conv"],
+            lambda: cb.conv_stats_reference(x, w, strides, pads),
+            lambda: F.conv2d(xc, w, None, strides, pads[0][0]),
+            nbytes=cb.bound_bytes_conv(x, w, strides, pads),
+            flops=cb.bound_flops_conv(x, w, strides, pads),
+            peak_flops=BF16_FLOPS))
+        timed[kname] = row
+        if kname != "mm_stats":
+            continue
+        # the sweeps at [401408, 256] bf16 (stage 0's widest BN)
+        zc = z.reshape(x.shape[0], x.shape[1], x.shape[2], -1).permute(
+            0, 3, 1, 2)
+        m, rstd = stat[0], stat[1]
+        var = 1.0 / (rstd * rstd) - 1e-5
+        shape = {"R": z.shape[0], "O": z.shape[1], "relu": relu,
+                 "dtype": "bfloat16"}
+        row = {"shape": shape, "library": "F.batch_norm(training=False) "
+               "on the channels_last view (no ReLU)",
+               "max_abs_err": results[f"{name}_bf16"]["y"]}
+        row.update(_timed(
+            torch, flush, lambda: cb.bn_apply(z, stat, relu),
+            lambda: cb.bn_apply_reference(z, stat, relu),
+            lambda: F.batch_norm(zc, m, var, stat[2], stat[3], False, 0.0,
+                                 1e-5),
+            nbytes=cb.bound_bytes_sweep(z, 1, 1, 4),
+            flops=cb.bound_flops_sweep(z, 4), peak_flops=BF16_FLOPS))
+        timed["bn_apply"] = row
+        zl = zc.detach().clone().requires_grad_()
+        wl = stat[2].detach().clone().requires_grad_()
+        bl = stat[3].detach().clone().requires_grad_()
+        lib_y = F.batch_norm(zl, None, None, wl, bl, True, 0.0, 1e-5)
+        gc = g.reshape(zc.shape[0], zc.shape[2], zc.shape[3], -1).permute(
+            0, 3, 1, 2)
+
+        def lib_bwd():
+            return torch.autograd.grad(lib_y, (zl, wl, bl), gc,
+                                       retain_graph=True)
+
+        lib_note = ("autograd backward of F.batch_norm(training=True) on the "
+                    "channels_last view (dx, dweight, dbias: rows 13 and 14 "
+                    "together; no ReLU mask)")
+        row = {"shape": shape, "library": lib_note,
+               "max_abs_err": max(results[f"{name}_bf16"]["dgamma"],
+                                  results[f"{name}_bf16"]["dbeta"])}
+        row.update(_timed(
+            torch, flush, lambda: cb.bn_bwd_reduce(z, g, stat, relu),
+            lambda: cb.bn_bwd_reduce_reference(z, g, stat, relu), lib_bwd,
+            nbytes=cb.bound_bytes_sweep(z, 2, 0, 4) + 2 * 4 * z.shape[1],
+            flops=cb.bound_flops_sweep(z, 6), peak_flops=BF16_FLOPS))
+        timed["bn_bwd_reduce"] = row
+        row = {"shape": shape, "library": lib_note,
+               "max_abs_err": results[f"{name}_bf16"]["dz"]}
+        row.update(_timed(
+            torch, flush, lambda: cb.bn_bwd_dz(z, g, stat, tot, relu),
+            lambda: cb.bn_bwd_dz_reference(z, g, stat, tot, relu), lib_bwd,
+            nbytes=cb.bound_bytes_sweep(z, 2, 1, 6),
+            flops=cb.bound_flops_sweep(z, 9), peak_flops=BF16_FLOPS))
+        timed["bn_bwd_dz"] = row
+        del zl, wl, bl, lib_y
+    del main
+    torch.cuda.empty_cache()
+    return results, timed
+
+
+def _resnet_train_program(cfg, batch: int, size: int, amp: bool,
+                          lr: float = 0.1, fuse: bool = True):
+    """ResNet training as the JAX package's bench builds it: conv+BN
+    fusion on (``fuse``), Momentum ``lr`` (the bench's 0.1) / 0.9, bf16
+    AMP (``decorate``) when ``amp``."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.contrib import mixed_precision
+    from paddle_tpu_torch.fluid import flags
+    from paddle_tpu_torch.models import resnet
+
+    flags.set_flags({"FLAGS_conv_bn_fusion": fuse})
+    try:
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard():
+            m, st, _, loss = resnet.build_resnet_train_program(
+                cfg, batch, size, main, startup)
+            with fluid.program_guard(m, st):
+                opt = fluid.optimizer.MomentumOptimizer(learning_rate=lr,
+                                                        momentum=0.9)
+                if amp:
+                    opt = mixed_precision.decorate(opt, use_bf16=True)
+                opt.minimize(loss)
+    finally:
+        flags.set_flags({"FLAGS_conv_bn_fusion": False})
+    return m, st, loss
+
+
+def _resnet_batch(batch: int, size: int, classes: int,
+                  seed: int = 0) -> dict:
+    """The bench's batch: uniform [0, 1) images and labels,
+    RandomState(seed), 0 as the bench."""
+    rng = np.random.RandomState(seed)
+    return {"image": rng.rand(batch, 3, size, size).astype(np.float32),
+            "label": rng.randint(0, classes, (batch, 1)).astype(np.int64)}
+
+
+def _conv_bn_launches_per_step(program) -> dict:
+    """The conv+BN launches one step of ``program`` must make, from its
+    fused ops and the kernel gate: row 10 per k x k stride-1 conv, row 11
+    per 1 x 1 conv, rows 12-14 once each per gated op; the reference route
+    per other op."""
+    from paddle_tpu_torch.ops import nn_ops
+    from paddle_tpu_torch.ops.kernels import conv_bn as cb
+
+    want = {k: 0 for k in CONV_BN_KERNELS + ("reference_routes",)}
+    block = program.global_block()
+    for op in block.ops:
+        if op.type != "fused_conv_bn":
+            continue
+        xs = block.var(op.input("Input")[0]).shape
+        ws = block.var(op.input("Filter")[0]).shape
+        strides = tuple(op.attr("strides"))
+        pads = cb._resolve_pads(
+            nn_ops._conv_padding(op.attr("paddings"),
+                                 op.attr("padding_algorithm", "EXPLICIT"), 2),
+            xs[1], xs[2], ws[2], ws[3], strides)
+        if not cb.conv_bn_shapes_ok(xs, ws, strides, pads):
+            want["reference_routes"] += 1
+            continue
+        want["mm_stats" if tuple(ws[2:]) == (1, 1) else "conv_stats"] += 1
+        for k in ("bn_apply", "bn_bwd_reduce", "bn_bwd_dz"):
+            want[k] += 1
+    return want
+
+
+def _conv_bn_counts(reset: bool = False) -> dict:
+    from paddle_tpu_torch.ops.kernels import conv_bn as cb
+
+    fns = {k: getattr(cb, k) for k in CONV_BN_KERNELS}
+    if reset:
+        for f in fns.values():
+            f.launches = 0
+        cb.fused_conv_bn.reference_routes = 0
+    got = {k: f.launches for k, f in fns.items()}
+    got["reference_routes"] = cb.fused_conv_bn.reference_routes
+    return got
+
+
+def phase_resnet_train(torch, card: str, n_steps: int = 10,
+                       n_warm: int = 2, b: int = 128,
+                       size: int = 224) -> dict:
+    """ResNet-50 training on the card as the bench runs it: conv+BN
+    fusion, Momentum 0.1/0.9, bf16 AMP, batch 128 at 224 x 224, one fixed
+    seed-0 batch."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import resnet
+
+    cfg = resnet.ResNetConfig.resnet50()
+    t0 = time.perf_counter()
+    main, startup, loss = _resnet_train_program(cfg, b, size, amp=True)
+    build_s = time.perf_counter() - t0
+    types = [op.type for op in main.global_block().ops]
+    want = _conv_bn_launches_per_step(main)
+    if (types.count("fused_conv_bn") != 53 or want != {
+            "conv_stats": 13, "mm_stats": 36, "bn_apply": 49,
+            "bn_bwd_reduce": 49, "bn_bwd_dz": 49, "reference_routes": 4}):
+        fail(f"resnet_train program: {types.count('fused_conv_bn')} fused "
+             f"ops, launches a step {want}")
+    scope = fluid.Scope()
+    exe = fluid.Executor()                        # device=None: the card
+    t0 = time.perf_counter()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    startup_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in
+                   (scope.find_var(v.name) for v in main.all_parameters()))
+    feed = {k: torch.as_tensor(v, device=exe.device)
+            for k, v in _resnet_batch(b, size, cfg.num_classes).items()}
+    losses = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                            scope=scope)[0][0]) for _ in range(n_warm)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    total = {k: 0 for k in want}
+    step_ms = []
+    for step in range(n_steps):
+        _conv_bn_counts(reset=True)
+        t0 = time.perf_counter()
+        (lv,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        step_ms.append((time.perf_counter() - t0) * 1e3)  # numpy: synced
+        got = _conv_bn_counts()
+        if got != want:
+            fail(f"resnet_train step {step} launched {got}, the program "
+                 f"needs {want}")
+        for k in total:
+            total[k] += got[k]
+        losses.append(float(lv[0]))
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"resnet_train losses not finite: {losses}")
+    med = statistics.median(step_ms)
+    flops = resnet.resnet_step_flops(cfg, b, size)
+    out = {"phase": "resnet_train", "card": card,
+           "config": {"depth": 50, "blocks": cfg.blocks, "classes": 1000,
+                      "layout": cfg.layout, "conv_bn_fusion": True,
+                      "optimizer": "Momentum 0.1 / 0.9", "amp": "bf16",
+                      "batch": b, "image": size},
+           "params": n_params, "program_ops": len(types),
+           "fused_conv_bn_ops": types.count("fused_conv_bn"),
+           "build_s": build_s, "startup_s": startup_s,
+           "steps": n_steps, "warm_steps": n_warm,
+           "step_ms_median": med, "step_ms_min": min(step_ms),
+           "step_ms_max": max(step_ms), "images_per_s": b / (med / 1e3),
+           "step_flops": flops,
+           "flops_share_of_bf16_peak": flops / (med * 1e-3) / BF16_FLOPS,
+           "losses": losses, "launches_per_step": want, "launches": total,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+    emit(out)
+    return dict(out, exe=exe, main=main, scope=scope, feed=feed, loss=loss)
+
+
+def phase_resnet_train_profile(torch, train: dict) -> dict:
+    """Where a ResNet-50 training step's time goes: 3 steps under
+    torch.profiler; device busy time by kernel against the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    exe, main, scope = train["exe"], train["main"], train["scope"]
+    feed, loss = train["feed"], train["loss"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = _device_rows(torch, prof)
+    busy_ms = sum(r[0] for r in rows)
+    # one more step with the ops' input shapes recorded (outside the timed
+    # window): which op launches each cuDNN layout transform
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        torch.cuda.synchronize()
+    transforms = {}
+    for e in prof.events():
+        for k in e.kernels:
+            if any(t in k.name for t in ("nchwToNhwc", "nhwcToNchw",
+                                         "tensorTransform")):
+                key = (k.name.split("<")[0].split("::")[-1], e.name,
+                       str(e.input_shapes[:3]))
+                t = transforms.setdefault(key, [0, 0.0])
+                t[0] += 1
+                t[1] += k.duration / 1e3
+    out = {"phase": "resnet_train_profile", "steps": 3, "wall_ms": wall_ms,
+           "device_busy_ms": busy_ms,
+           "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
+           "top_kernels": [{"ms": ms, "calls": n, "name": k[:90]}
+                           for ms, n, k in rows[:25]],
+           "layout_transforms_one_step": [
+               {"kernel": k, "op": op, "input_shapes": shapes, "calls": n,
+                "ms": ms} for (k, op, shapes), (n, ms) in transforms.items()],
+           "note": "window = 3 training steps of 128 x 224 x 224 (forward, "
+                   "backward, Momentum, loss fetch); busy = sum of kernel "
+                   "self times; layout transforms from a 4th step with "
+                   "shapes recorded"}
+    emit(out)
+    return out
+
+
+def _resnet_parity(torch, fuse: bool = True, steps: int = 3, b: int = 8,
+                   size: int = 64, lr: float = PARITY_LR) -> dict:
+    """ResNet-50 widths at batch 8, 64 x 64, f32: the training program on
+    the card (kernels) and on the CPU (plain versions) from the same
+    weights.
+    The first step's loss (the forward), its gradients (the Momentum
+    velocities after one step equal them) and its batch statistics (in
+    the moving statistics) are compared; the later steps' losses are
+    reported."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import resnet
+
+    cfg = resnet.ResNetConfig.resnet50()
+    # fuse=False: conv2d + batch_norm + relu, the library's own card-vs-CPU
+    # gap beside the kernels'
+    main, startup, loss = _resnet_train_program(cfg, b, size, False, lr,
+                                               fuse)
+    cpu_exe, cpu_scope = fluid.Executor(device="cpu"), fluid.Scope()
+    cpu_exe.run(startup, scope=cpu_scope)
+    card_scope = fluid.Scope.from_numpy(
+        {n: v.numpy() for n, v in cpu_scope.vars.items()})
+    card_exe = fluid.Executor()
+    feed = _resnet_batch(b, size, cfg.num_classes)
+    before = _conv_bn_counts()
+    card, cpu, first = [], [], {}
+
+    def rel(names):
+        num = den = 0.0
+        for n in names:
+            ref = cpu_scope.find_var(n).double()
+            num += float(((card_scope.find_var(n).cpu().double() - ref)
+                          ** 2).sum())
+            den += float((ref ** 2).sum())
+        return math.sqrt(num / den)
+
+    grads = [n for n in cpu_scope.vars if n.endswith("_velocity_0")]
+    stats = [n for op in main.global_block().ops
+             if op.type in ("fused_conv_bn", "batch_norm")
+             for n in op.input("Mean") + op.input("Variance")]
+    for step in range(steps):
+        card.append(float(card_exe.run(main, feed=feed, fetch_list=[loss],
+                                       scope=card_scope)[0][0]))
+        cpu.append(float(cpu_exe.run(main, feed=feed, fetch_list=[loss],
+                                     scope=cpu_scope)[0][0]))
+        if step == 0:
+            first = {"grad_rel": rel(grads), "moving_stat_rel": rel(stats)}
+    after = _conv_bn_counts()
+    if fuse and any(after[k] == before[k] for k in CONV_BN_KERNELS):
+        fail(f"resnet parity on the card missed a conv+BN kernel: {before} "
+             f"-> {after}")
+    return {"fused": fuse, "loss_card": card, "loss_cpu": cpu,
+            "first_loss_diff": abs(card[0] - cpu[0]),
+            "loss_diff_by_step": [abs(a - c) for a, c in zip(card, cpu)],
+            "first_step_grad_rel": first["grad_rel"],
+            "first_step_moving_stat_rel": first["moving_stat_rel"]}
+
+
+def _rel(a, b) -> float:
+    """||a - b|| / ||b||, in float64 on the CPU."""
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).norm() / max(float(b.norm()), 1e-30))
+
+
+def _resnet_bf16_seed(torch, seed: int, b: int = 8, size: int = 64,
+                      local: bool = False) -> dict:
+    """bf16 AMP at ResNet-50 widths, batch 8 at 64 x 64: the first step's
+    forward from seed-``seed`` weights and batch on three paths, the fused
+    program on the card (the kernels) and on the CPU (their plain
+    versions), and the unfused program (library conv2d, batch_norm, relu)
+    on the card.  Gives the first losses and, for the 53 conv+BN outputs
+    in program order, the relative L2 distance between the paths.  With
+    ``local``, each gated op is run again from its own inputs of that
+    step: the kernels and the library composition on the card against the
+    plain versions on the CPU, the error one op adds by itself."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import resnet
+    from paddle_tpu_torch.ops import nn_ops
+    from paddle_tpu_torch.ops.kernels import conv_bn as cb
+
+    cfg = resnet.ResNetConfig.resnet50()
+    fused, startup, loss = _resnet_train_program(cfg, b, size, True,
+                                                 PARITY_LR)
+    lib, _, lib_loss = _resnet_train_program(cfg, b, size, True, PARITY_LR,
+                                             fuse=False)
+    startup.random_seed = seed
+    init = fluid.Scope()
+    fluid.Executor(device="cpu").run(startup, scope=init)
+    weights = {n: v.numpy() for n, v in init.vars.items()}
+    feed = _resnet_batch(b, size, cfg.num_classes, seed)
+    ops = [op for op in fused.global_block().ops
+           if op.type == "fused_conv_bn"]
+    outs = [op.output("Y")[0] for op in ops]
+    ins = [n for k in ("Input", "Filter") for op in ops
+           for n in op.input(k)] if local else []
+
+    def run(program, lv, names, device):
+        scope = fluid.Scope.from_numpy(weights, device=device)
+        got = fluid.Executor(device=device).run(
+            program, feed=feed, fetch_list=[lv] + names, scope=scope,
+            return_numpy=False)
+        return float(got[0].reshape(-1)[0]), got[1:]
+
+    card_loss, card = run(fused, loss, outs + ins, None)
+    library_loss, library = run(lib, lib_loss, outs, None)
+    cpu_loss, cpu = run(fused, loss, outs, "cpu")
+    out = {"seed": seed, "first_loss": {"kernels_card": card_loss,
+                                        "library_card": library_loss,
+                                        "cpu": cpu_loss},
+           "first_loss_diff": abs(card_loss - cpu_loss),
+           "library_first_loss_diff": abs(library_loss - cpu_loss),
+           "kernels_vs_library_first_loss": abs(card_loss - library_loss),
+           "layers": {
+               "kernels_vs_library": [_rel(k, l)
+                                      for k, l in zip(card, library)],
+               "library_card_vs_cpu": [_rel(l, c)
+                                       for l, c in zip(library, cpu)],
+               "kernels_card_vs_cpu": [_rel(k, c)
+                                       for k, c in zip(card, cpu)]}}
+    if not local:
+        return out
+    n, rows = len(ops), []
+    for i, op in enumerate(ops):
+        x, w = card[n + i], card[2 * n + i]
+        strides = tuple(op.attr("strides"))
+        pads = cb._resolve_pads(
+            nn_ops._conv_padding(op.attr("paddings"),
+                                 op.attr("padding_algorithm", "EXPLICIT"), 2),
+            x.shape[1], x.shape[2], w.shape[2], w.shape[3], strides)
+        if not cb.conv_bn_shapes_ok(tuple(x.shape), tuple(w.shape), strides,
+                                    pads):
+            continue
+        kw = dict(strides=strides, pads=pads, eps=op.attr("epsilon"),
+                  with_relu=bool(op.attr("with_relu")))
+        sb = [torch.as_tensor(weights[op.input(k)[0]])
+              for k in ("Scale", "Bias")]
+        xc, wc = x.cpu(), w.cpu()
+        with torch.no_grad():
+            yk = cb.fused_conv_bn(x, w, *(t.cuda() for t in sb), **kw)[0]
+            yl = cb.conv_bn_reference(x, w, *(t.cuda() for t in sb), **kw)[0]
+            yp = cb.fused_conv_bn(xc, wc, *sb, **kw)[0]
+            # the fault the limit must catch: statistics of the unrounded
+            # f32 z instead of the stored bf16 z (the plain versions, CPU)
+            z = cb.conv_stats_reference(xc.float(), wc.float(), strides,
+                                        pads)[0]
+            m = z.mean(0)
+            v = torch.clamp_min((z * z).mean(0) - m * m, 0.0)
+            stat = torch.stack([m, torch.rsqrt(v + kw["eps"]), *sb])
+            yf = cb.bn_apply_reference(z.to(x.dtype), stat,
+                                       kw["with_relu"]).reshape(yp.shape)
+        rows.append({"op": i, "w": list(w.shape), "strides": list(strides),
+                     "kernels_vs_cpu": _rel(yk, yp),
+                     "library_vs_cpu": _rel(yl, yp),
+                     "kernels_vs_library": _rel(yk, yl),
+                     "unrounded_stats_vs_cpu": _rel(yf, yp)})
+    out["local"] = rows
+    return out
+
+
+def phase_resnet_train_parity(torch) -> dict:
+    f32 = _resnet_parity(torch)
+    library = _resnet_parity(torch, fuse=False)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32 = _resnet_parity(torch)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    amp = [_resnet_bf16_seed(torch, seed, local=seed == 0)
+           for seed in RESNET_BF16_SEEDS]
+    local = amp[0]["local"]
+    limits = {"f32_first_loss": RESNET_PARITY_LOSS,
+              "f32_first_grad_rel": RESNET_PARITY_GRAD,
+              "f32_first_moving_stat_rel": RESNET_PARITY_STAT,
+              "bf16_first_loss": RESNET_PARITY_LOSS_BF16,
+              "bf16_local_y_rel": RESNET_LOCAL_BF16}
+    got = {"f32_first_loss": f32["first_loss_diff"],
+           "f32_first_grad_rel": f32["first_step_grad_rel"],
+           "f32_first_moving_stat_rel": f32["first_step_moving_stat_rel"],
+           "bf16_first_loss": max(a["first_loss_diff"] for a in amp),
+           "bf16_local_y_rel": max(r["kernels_vs_cpu"] for r in local)}
+    out = {"phase": "resnet_train_parity", "batch": 8, "image": 64,
+           "steps": 3, "lr": PARITY_LR, "f32": f32,
+           "f32_library_only": library, "f32_tf32_on": tf32,
+           "amp_bf16_by_seed": amp, "limits": limits, "held": got,
+           "bf16_library_first_loss_max": max(
+               a["library_first_loss_diff"] for a in amp),
+           "bf16_local_library_max": max(r["library_vs_cpu"]
+                                         for r in local),
+           "bf16_local_unrounded_stats_min": min(
+               r["unrounded_stats_vs_cpu"] for r in local),
+           "unrounded_stats_exceeds_limit": max(
+               r["unrounded_stats_vs_cpu"] for r in local)
+           > RESNET_LOCAL_BF16,
+           "tf32_exceeds_limit": {
+               "first_loss": tf32["first_loss_diff"] > RESNET_PARITY_LOSS,
+               "first_grad_rel": tf32["first_step_grad_rel"]
+               > RESNET_PARITY_GRAD,
+               "first_moving_stat_rel": tf32["first_step_moving_stat_rel"]
+               > RESNET_PARITY_STAT}}
+    emit(out)
+    for name, limit in limits.items():
+        if not math.isfinite(got[name]) or got[name] > limit:
+            fail(f"ResNet-50 training card vs CPU, {name}: {got[name]} > "
+                 f"{limit}")
+    return out
+
+
+def phase_resnet_infer(torch, card: str, n_runs: int = 10, b: int = 32,
+                       size: int = 224) -> dict:
+    """The frozen ResNet-50 served on the card: freeze_program folds each
+    conv+BN pair into the conv's weights (is_test), so no conv+BN kernel
+    runs here; f32, batch 32 at 224 x 224."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.inference import ServingPredictor, freeze_program
+    from paddle_tpu_torch.models import resnet
+
+    cfg = resnet.ResNetConfig.resnet50()
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        img = fluid.layers.data("image", [b, 3, size, size],
+                                append_batch_size=False)
+        logits = resnet.resnet(cfg, img)
+    scope = fluid.Scope()
+    fluid.Executor().run(startup, scope=scope)
+    frozen = freeze_program(main, scope=scope, fetch_list=[logits])
+    if frozen.fused_conv_bn != 53:
+        fail(f"freeze_program folded {frozen.fused_conv_bn} conv+BN pairs, "
+             f"want 53")
+    pred = ServingPredictor(frozen)
+    feed = {"image": _resnet_batch(b, size, 1000)["image"]}
+    pred.run(feed)
+    torch.cuda.synchronize()
+    _conv_bn_counts(reset=True)
+    run_ms = []
+    for _ in range(n_runs):
+        t0 = time.perf_counter()
+        (out,) = pred.run(feed)                   # numpy fetch: synchronises
+        run_ms.append((time.perf_counter() - t0) * 1e3)
+        if out.shape != (b, 1000) or not np.isfinite(out).all():
+            fail(f"resnet_infer logits {out.shape} or non-finite")
+    launched = _conv_bn_counts()
+    if any(launched.values()):
+        fail(f"the folded ResNet-50 launched conv+BN kernels: {launched}")
+    med = statistics.median(run_ms)
+    out = {"phase": "resnet_infer", "card": card,
+           "config": {"depth": 50, "dtype": "float32", "batch": b,
+                      "image": size},
+           "frozen_ops": len(frozen.program.global_block().ops),
+           "folded_conv_bn": frozen.fused_conv_bn, "runs": n_runs,
+           "run_ms_median": med, "run_ms_min": min(run_ms),
+           "run_ms_max": max(run_ms), "images_per_s": b / (med / 1e3),
+           "conv_bn_launches": launched,
+           "note": "no conv+BN kernel runs on this path: the fold leaves one "
+                   "library conv and one bias add per pair"}
+    emit(out)
+    return out
+
 
 def _kernel_entry(name, source, replaces, launches, k) -> dict:
     return {"name": name, "route": "cuda",
@@ -1413,12 +2130,25 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_bert_train_parity(torch)
 
-    def entry(name, source, replaces, k, path_launches):
-        e = _kernel_entry(name, source, replaces,
-                          path_launches["bert_train"], k)
+    rtrain = phase_resnet_train(torch, env["card"])
+    phase_resnet_train_profile(torch, rtrain)
+    rlaunches = rtrain["launches"]
+    del rtrain
+    torch.cuda.empty_cache()
+    phase_resnet_train_parity(torch)
+    phase_resnet_infer(torch, env["card"])
+
+    def entry(name, source, replaces, k, path_launches, main="bert_train"):
+        e = _kernel_entry(name, source, replaces, path_launches[main], k)
         e["launches_by_path"] = path_launches
         return e
 
+    conv_bn = [
+        ("conv_stats", "paddle_tpu/ops/pallas/conv_bn.py:354"),
+        ("mm_stats", "paddle_tpu/ops/pallas/conv_bn.py:387"),
+        ("bn_apply", "paddle_tpu/ops/pallas/conv_bn.py:478"),
+        ("bn_bwd_reduce", "paddle_tpu/ops/pallas/conv_bn.py:496"),
+        ("bn_bwd_dz", "paddle_tpu/ops/pallas/conv_bn.py:510")]
     emit({"kernels": [
         _kernel_entry("paged_attention", "paged_attention.cu",
                       "paddle_tpu/ops/pallas/paged_attention.py:144",
@@ -1439,7 +2169,10 @@ def main() -> int:
                "bert_infer": infer_launches["ln"]}),
         entry("add_ln_bwd", "add_ln.cu",
               "paddle_tpu/ops/pallas/add_ln.py:175", kern["add_ln_bwd"],
-              {"bert_train": launches["ln_bwd"]})]})
+              {"bert_train": launches["ln_bwd"]})]
+        + [entry(name, "conv_bn.cu", replaces, kern[name],
+                 {"resnet_train": rlaunches[name]}, main="resnet_train")
+           for name, replaces in conv_bn]})
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

@@ -18,7 +18,10 @@ pretraining: ``fluid.backward`` (generic grad ops through
 (``fluid.optimizer``, ``ops.optimizer_ops``), bf16 AMP
 (``contrib.mixed_precision``) and the fused encoder stack
 (``ops.encoder_stack``), with the backward kernels of flash attention and
-LayerNorm and the forward's in-kernel Philox dropout.
+LayerNorm and the forward's in-kernel Philox dropout; and ResNet
+training (``models.resnet``): the conv / pool / batch-norm emitters, the
+conv+BN fusion pass (``fluid.fusion_pass``) and the fused conv+BN
+kernels (``ops.kernels.conv_bn``), with the fold of a frozen ResNet.
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; see :func:`resolve_device`.

@@ -63,6 +63,12 @@ class OptimizerWithMixedPrecision:
     def backward(self, loss, startup_program=None, parameter_list=None,
                  no_grad_set=None, callbacks=None):
         program = loss.block.program
+        # fuse BEFORE the cast rewrite: the matcher sees the raw
+        # conv2d -> batch_norm [-> relu] triples, and the fused op then
+        # takes its own white-list casts (Input/Filter bf16, stats f32)
+        from ...fluid.fusion_pass import maybe_apply_conv_bn_fusion
+
+        maybe_apply_conv_bn_fusion(program)
         rewrite_program(program, self._amp_lists, self._dest_dtype)
         self._create_scaling_state()
         with framework.program_guard(

@@ -1,5 +1,5 @@
-"""Neural network layers (the ``fluid.layers.*`` DSL) that BERT builds
-with.
+"""Neural network layers (the ``fluid.layers.*`` DSL) that BERT and
+ResNet build with.
 
 Parity surface: python/paddle/fluid/layers/nn.py in the reference;
 ported from the JAX package's ``fluid/layers/nn.py``.  Each function
@@ -10,8 +10,9 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..initializer import ConstantInitializer
+from ..initializer import ConstantInitializer, NormalInitializer
 from ..layer_helper import LayerHelper
+from ..param_attr import ParamAttr
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -64,6 +65,114 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
         attrs={"padding_idx": padding_idx, "is_sparse": is_sparse},
     )
     return out
+
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=1, param_attr=None, bias_attr=None, use_cudnn=True,
+           act=None, name=None, data_format="NCHW"):
+    """2-D convolution; the filter is OIHW whatever ``data_format``, drawn
+    from N(0, sqrt(2 / (kh * kw * C)))."""
+    helper = LayerHelper("conv2d", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    num_channels = input.shape[1] if data_format == "NCHW" else input.shape[-1]
+    if isinstance(filter_size, int):
+        filter_size = [filter_size, filter_size]
+    if isinstance(stride, int):
+        stride = [stride, stride]
+    if isinstance(padding, int):
+        padding = [padding, padding]
+    if isinstance(dilation, int):
+        dilation = [dilation, dilation]
+    filter_shape = [num_filters, num_channels // groups] + list(filter_size)
+    std = (2.0 / (filter_size[0] * filter_size[1] * num_channels)) ** 0.5
+    w = helper.create_parameter(helper.param_attr, shape=filter_shape,
+                                dtype=dtype,
+                                default_initializer=NormalInitializer(0.0,
+                                                                      std))
+    pre_bias = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="conv2d",
+        inputs={"Input": [input], "Filter": [w]},
+        outputs={"Output": [pre_bias]},
+        attrs={"strides": stride, "paddings": padding,
+               "dilations": dilation, "groups": groups,
+               "data_format": data_format},
+    )
+    if data_format == "NCHW":
+        pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    else:
+        pre_act = helper.append_bias_op(pre_bias, dim_start=3)
+    return helper.append_activation(pre_act)
+
+
+def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, exclusive=True, name=None, data_format="NCHW"):
+    helper = LayerHelper("pool2d", name=name)
+    if isinstance(pool_size, int):
+        pool_size = [pool_size, pool_size]
+    if isinstance(pool_stride, int):
+        pool_stride = [pool_stride, pool_stride]
+    if isinstance(pool_padding, int):
+        pool_padding = [pool_padding, pool_padding]
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="pool2d",
+        inputs={"X": [input]},
+        outputs={"Out": [out]},
+        attrs={"pooling_type": pool_type, "ksize": pool_size,
+               "strides": pool_stride, "paddings": pool_padding,
+               "global_pooling": global_pooling, "ceil_mode": ceil_mode,
+               "exclusive": exclusive, "data_format": data_format},
+    )
+    return out
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW",
+               in_place=False, name=None, moving_mean_name=None,
+               moving_variance_name=None,
+               do_model_average_for_mean_and_var=True,
+               use_global_stats=False):
+    """Batch normalisation: Scale and Bias are trainable; the moving Mean
+    and Variance are non-trainable persistables (stop_gradient), read and
+    written back by the op under the same names."""
+    helper = LayerHelper("batch_norm", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    channels = input.shape[1] if data_layout == "NCHW" else input.shape[-1]
+    scale = helper.create_parameter(
+        helper.param_attr, shape=[channels], dtype=dtype,
+        default_initializer=ConstantInitializer(1.0))
+    bias = helper.create_parameter(helper.bias_attr, shape=[channels],
+                                   dtype=dtype, is_bias=True)
+    mean = helper.create_parameter(
+        ParamAttr(name=moving_mean_name,
+                  initializer=ConstantInitializer(0.0), trainable=False),
+        shape=[channels], dtype=dtype)
+    mean.stop_gradient = True
+    variance = helper.create_parameter(
+        ParamAttr(name=moving_variance_name,
+                  initializer=ConstantInitializer(1.0), trainable=False),
+        shape=[channels], dtype=dtype)
+    variance.stop_gradient = True
+    saved_mean = helper.create_variable_for_type_inference(
+        dtype, stop_gradient=True)
+    saved_var = helper.create_variable_for_type_inference(
+        dtype, stop_gradient=True)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="batch_norm",
+        inputs={"X": [input], "Scale": [scale], "Bias": [bias],
+                "Mean": [mean], "Variance": [variance]},
+        outputs={"Y": [out], "MeanOut": [mean], "VarianceOut": [variance],
+                 "SavedMean": [saved_mean], "SavedVariance": [saved_var]},
+        attrs={"momentum": momentum, "epsilon": epsilon, "is_test": is_test,
+               "data_layout": data_layout,
+               "use_global_stats": use_global_stats},
+    )
+    return helper.append_activation(out)
 
 
 def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,

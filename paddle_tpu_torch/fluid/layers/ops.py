@@ -1,16 +1,25 @@
 """Unary activation layers (reference layers/ops.py pattern), the ones
-BERT uses: tanh and gelu.  Ported from the JAX package's
+BERT and ResNet use: tanh, gelu and relu.  Ported from the JAX package's
 ``fluid/layers/ops.py``."""
 from __future__ import annotations
 
 from ..layer_helper import LayerHelper
 
 
-def tanh(x, name=None):
-    helper = LayerHelper("tanh", name=name)
-    out = helper.create_variable_for_type_inference(x.dtype)
-    helper.append_op(type="tanh", inputs={"X": [x]}, outputs={"Out": [out]})
-    return out
+def _unary(op_type):
+    def layer(x, name=None):
+        helper = LayerHelper(op_type, name=name)
+        out = helper.create_variable_for_type_inference(x.dtype)
+        helper.append_op(type=op_type, inputs={"X": [x]},
+                         outputs={"Out": [out]})
+        return out
+
+    layer.__name__ = op_type
+    return layer
+
+
+tanh = _unary("tanh")
+relu = _unary("relu")
 
 
 def gelu(x, approximate=False):

@@ -8,10 +8,11 @@ same accumulators, op descs and attrs.  Updates are emitted as ops
 (operators/optimizers/ in the reference), so the Executor runs forward,
 backward and update in one step and parameters never leave the device.
 
-Not ported (ROADMAP): the other optimizers, the dygraph path
-(``minimize`` in dygraph mode, ``state_dict``), the numerics hooks
-(FLAGS_tensor_stats, FLAGS_check_numerics) and the conv+BN fusion pass
-``backward`` runs first in the JAX package (the ResNet slice).
+``backward`` runs the conv+BN fusion pass first (FLAGS_conv_bn_fusion,
+``fluid/fusion_pass.py``), as the JAX package does.  Not ported
+(ROADMAP): the other optimizers, the dygraph path (``minimize`` in
+dygraph mode, ``state_dict``) and the numerics hooks (FLAGS_tensor_stats,
+FLAGS_check_numerics).
 """
 from __future__ import annotations
 
@@ -117,6 +118,11 @@ class Optimizer:
         no_grad_set=None,
         callbacks=None,
     ):
+        # graph-level fusion runs BEFORE backward so grad synthesis
+        # differentiates the fused ops (a no-op with the flag off)
+        from .fusion_pass import maybe_apply_conv_bn_fusion
+
+        maybe_apply_conv_bn_fusion(loss.block.program)
         return append_backward(
             loss, parameter_list or self._parameter_list, no_grad_set, callbacks
         )

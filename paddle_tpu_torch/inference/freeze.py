@@ -8,7 +8,10 @@ analog of the reference's AnalysisPredictor program preparation):
   2. backward slice from the fetch targets (``fluid/io.py``'s inference
      prune) — backward ops, optimizer update ops and feed-queue glue all
      fall out because nothing downstream of the fetches needs them;
-  3. dead-variable sweep: vars only the stripped ops touched leave
+  3. the conv+BN fold: ``apply_conv_bn_fusion`` on the ``is_test``
+     program, whose ``fused_conv_bn`` emitter folds each BN into its
+     conv's weights (one conv and one bias add; no kernel runs);
+  4. dead-variable sweep: vars only the stripped ops touched leave
      ``block.vars``.
 
 The frozen weights are captured by reference into the FrozenModel's own
@@ -17,9 +20,7 @@ into a captured tensor, so serving stays isolated from further training.
 
 Not ported yet (ROADMAP §C): the static verifier the JAX package runs
 around and after the freeze (``pass_sandwich``, ``verify_program``,
-``assert_scope_valid`` — fluid/analysis, A12) and the conv+BN fold
-(``fusion_pass``, with the ResNet slice; BERT has no conv, so the fold
-finds nothing there).
+``assert_scope_valid`` — fluid/analysis, A12).
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ from typing import Dict, List, Optional, Sequence
 from ..fluid import executor as _executor
 from ..fluid import framework
 from ..fluid.executor import Scope
+from ..fluid.fusion_pass import apply_conv_bn_fusion
 from ..fluid.io import _prune_for_inference
 
 
@@ -139,6 +141,9 @@ def freeze_program(program, scope=None, feed_names: Optional[Sequence[str]]
     frozen = _prune_for_inference(program, feed_names, fetch_names,
                                   state_vars=state_vars)
     blk = frozen.global_block()
+    # conv+BN fold: is_test is set, so the fused emitter folds the BN into
+    # the conv weights
+    fused = apply_conv_bn_fusion(frozen)
 
     # dead-variable sweep, then rebuild the last-writer links of the
     # surviving vars (a param whose writer was pruned points at no op)
@@ -176,4 +181,5 @@ def freeze_program(program, scope=None, feed_names: Optional[Sequence[str]]
             f"first): {missing[:5]}")
     return FrozenModel(program=frozen, feed_names=list(feed_names),
                        fetch_names=fetch_names, param_names=param_names,
-                       scope=fscope, meta={"state_vars": state_vars})
+                       scope=fscope, fused_conv_bn=fused,
+                       meta={"state_vars": state_vars})

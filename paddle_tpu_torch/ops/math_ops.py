@@ -1,6 +1,6 @@
 """Dense math ops: elementwise (with paddle axis-broadcast), the matmul
-family, the activations and softmax that BERT uses, and the clip / norm
-ops the optimizer's gradient clipping and regularizers emit.
+family, the activations and softmax that BERT and ResNet use, and the
+clip / norm ops the optimizer's gradient clipping and regularizers emit.
 
 Parity surface: reference operators/elementwise/*, matmul_op.cc,
 mul_op.cc, activation_op.cc, softmax_op.cc, clip_op.cc,
@@ -89,6 +89,7 @@ def _act(name, fn):
     return _emit
 
 
+_act("relu", lambda x, a: torch.relu(x))
 _act("tanh", lambda x, a: torch.tanh(x))
 _act("sqrt", lambda x, a: torch.sqrt(x))
 _act("sign", lambda x, a: torch.sign(x))

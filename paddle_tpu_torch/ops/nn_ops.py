@@ -1,9 +1,15 @@
-"""Neural-net ops of the BERT path: layer_norm, lookup_table(_v2),
-dropout (+ dropout_grad), softmax_with_cross_entropy.
+"""Neural-net ops of the BERT and ResNet paths: conv2d, pool2d,
+batch_norm, fused_conv_bn, layer_norm, lookup_table(_v2), dropout (+
+dropout_grad), softmax_with_cross_entropy.
 
-Parity surface: reference layer_norm_op.cc, lookup_table_v2_op.cc,
-dropout_op.cc, softmax_with_cross_entropy_op.cc; ported from the JAX
-package's ``ops/nn_ops.py``.  A last-axis affine ``layer_norm`` runs the
+Parity surface: reference conv_op.cc, pool_op.cc, batch_norm_op.cc,
+layer_norm_op.cc, lookup_table_v2_op.cc, dropout_op.cc,
+softmax_with_cross_entropy_op.cc; ported from the JAX package's
+``ops/nn_ops.py``.  Convolutions keep OIHW weights and run the library
+convolution (cuDNN on the card) on channels_last views of NHWC tensors.
+``fused_conv_bn`` in training mode runs the conv+BN kernels
+(``ops/kernels/conv_bn.py``); with ``is_test`` it folds the BN into the
+conv weights.  A last-axis affine ``layer_norm`` runs the
 fused add+LN kernels (``ops/kernels/add_ln.py``, forward and backward
 through ``add_ln``) when FLAGS_use_fused_ln is on; every other layer_norm
 is the plain f32-statistics composition.  ``dropout`` takes no generic
@@ -11,10 +17,259 @@ grad: its grad maker emits ``dropout_grad``, which reads the saved Mask.
 """
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.nn.functional as F
 
 from .kernels import add_ln as _add_ln
+from .kernels import conv_bn as _cb
 from .registry import register, set_grad_maker
+
+
+# ---------------------------------------------------------------------------
+# convolution
+# ---------------------------------------------------------------------------
+
+
+def _conv_padding(paddings, algo, ndim_spatial):
+    if algo == "SAME":
+        return "SAME"
+    if algo == "VALID":
+        return "VALID"
+    p = list(paddings)
+    if len(p) == ndim_spatial:
+        return [(pi, pi) for pi in p]
+    if len(p) == 2 * ndim_spatial:
+        return [(p[2 * i], p[2 * i + 1]) for i in range(ndim_spatial)]
+    raise ValueError(f"bad paddings {paddings}")
+
+
+def _conv2d_impl(x, w, attrs):
+    """conv2d with OIHW weights over NCHW or NHWC x.  "SAME" and explicit
+    (possibly asymmetric) pads resolve to explicit (lo, hi) pads, SAME
+    putting total // 2 on the low side as JAX does."""
+    strides = tuple(attrs.get("strides", [1, 1]))
+    dil = tuple(attrs.get("dilations", [1, 1]))
+    groups = int(attrs.get("groups", 1))
+    pad = _conv_padding(attrs.get("paddings", [0, 0]),
+                        attrs.get("padding_algorithm", "EXPLICIT"), 2)
+    nhwc = attrs.get("data_format", "NCHW") not in ("NCHW", "AnyLayout")
+    h, wd = (x.shape[1], x.shape[2]) if nhwc else (x.shape[2], x.shape[3])
+    # SAME pads by the dilated kernel's extent
+    kh = (w.shape[2] - 1) * dil[0] + 1
+    kw = (w.shape[3] - 1) * dil[1] + 1
+    pads = _cb._resolve_pads(pad, h, wd, kh, kw, strides)
+    if nhwc:
+        return _cb.conv2d_nhwc(x, w, strides, pads, dil, groups)
+    (t, b), (l, r) = pads
+    if t == b and l == r:
+        return F.conv2d(x, w, None, strides, (t, l), dil, groups)
+    return F.conv2d(F.pad(x, (l, r, t, b)), w, None, strides, 0, dil, groups)
+
+
+def _use_im2col_dw(attrs, w_shape):
+    from ..fluid.flags import flag
+
+    if not flag("FLAGS_conv_dw_im2col"):
+        return False
+    return (attrs.get("data_format", "NCHW") == "NHWC"
+            and int(attrs.get("groups", 1)) == 1
+            and (int(w_shape[2]), int(w_shape[3])) != (1, 1))
+
+
+@register("conv2d")
+def conv2d(ctx, ins, attrs):
+    x, w = ins["Input"][0], ins["Filter"][0]
+    if _use_im2col_dw(attrs, w.shape):
+        raise NotImplementedError(
+            "FLAGS_conv_dw_im2col (the im2col weight-gradient formulation) "
+            "is not ported yet; turn the flag off")
+    return {"Output": [_conv2d_impl(x, w, attrs)]}
+
+
+# ---------------------------------------------------------------------------
+# pooling
+# ---------------------------------------------------------------------------
+
+
+def _pool_pads(attrs, ksize, strides, h, w):
+    """Explicit ((lo, hi), (lo, hi)) pads of a windowed pool, with the
+    ceil_mode extension on the high side (the JAX emitter's rule)."""
+    algo = attrs.get("padding_algorithm", "EXPLICIT")
+    paddings = list(attrs.get("paddings", [0, 0]))
+    if algo == "SAME":
+        return _cb._resolve_pads("SAME", h, w, ksize[0], ksize[1], strides)
+    if algo == "VALID":
+        pad = [(0, 0), (0, 0)]
+    elif len(paddings) == 2:
+        pad = [(paddings[0], paddings[0]), (paddings[1], paddings[1])]
+    else:
+        pad = [(paddings[0], paddings[1]), (paddings[2], paddings[3])]
+    if attrs.get("ceil_mode", False):
+        def extra(dim, k, s, p):
+            out = math.ceil((dim + p[0] + p[1] - k) / s) + 1
+            need = (out - 1) * s + k - dim - p[0]
+            return max(need - p[1], 0)
+
+        pad = [(pad[0][0], pad[0][1] + extra(h, ksize[0], strides[0], pad[0])),
+               (pad[1][0], pad[1][1] + extra(w, ksize[1], strides[1], pad[1]))]
+    return tuple(tuple(p) for p in pad)
+
+
+@register("pool2d")
+def pool2d(ctx, ins, attrs):
+    x = ins["X"][0]
+    ptype = attrs.get("pooling_type", "max")
+    ksize = list(attrs.get("ksize", [1, 1]))
+    strides = list(attrs.get("strides", ksize))
+    nhwc = attrs.get("data_format", "NCHW") != "NCHW"
+    hax, wax = (1, 2) if nhwc else (2, 3)
+    h, w = x.shape[hax], x.shape[wax]
+
+    if attrs.get("global_pooling", False) or (
+            attrs.get("adaptive", False) and ksize == [1, 1]):
+        if ptype == "max":
+            return {"Out": [x.amax(dim=(hax, wax), keepdim=True)]}
+        return {"Out": [x.mean(dim=(hax, wax), keepdim=True)]}
+    if attrs.get("adaptive", False):
+        oh, ow = ksize
+        if h % oh or w % ow:
+            raise NotImplementedError(
+                "adaptive pool2d with non-divisible bins is not ported yet")
+        if nhwc:
+            xr = x.reshape(x.shape[0], oh, h // oh, ow, w // ow, x.shape[3])
+            red = (2, 4)
+        else:
+            xr = x.reshape(x.shape[0], x.shape[1], oh, h // oh, ow, w // ow)
+            red = (3, 5)
+        return {"Out": [xr.amax(dim=red) if ptype == "max"
+                        else xr.mean(dim=red)]}
+
+    pads = _pool_pads(attrs, ksize, strides, h, w)
+    xc = x.permute(0, 3, 1, 2) if nhwc else x   # NCHW view
+    (t, b), (l, r) = pads
+    native = (t == b and l == r and 2 * t <= ksize[0] and 2 * l <= ksize[1])
+    if ptype == "max":
+        if native:   # torch pads max pools with -inf implicitly
+            out = F.max_pool2d(xc, ksize, strides, (t, l))
+        else:
+            out = F.max_pool2d(F.pad(xc, (l, r, t, b), value=-math.inf),
+                               ksize, strides)
+    elif attrs.get("exclusive", True):
+        if native:   # divides each window by its non-padding count
+            out = F.avg_pool2d(xc, ksize, strides, (t, l),
+                               count_include_pad=False)
+        else:
+            s = F.avg_pool2d(F.pad(xc, (l, r, t, b)), ksize, strides,
+                             divisor_override=1)
+            ones = torch.ones((1, 1, h, w), dtype=x.dtype, device=x.device)
+            cnt = F.avg_pool2d(F.pad(ones, (l, r, t, b)), ksize, strides,
+                               divisor_override=1)
+            out = s / cnt
+    else:
+        out = F.avg_pool2d(F.pad(xc, (l, r, t, b)), ksize, strides,
+                           divisor_override=1) / (ksize[0] * ksize[1])
+    return {"Out": [out.permute(0, 2, 3, 1).contiguous() if nhwc else out]}
+
+
+# ---------------------------------------------------------------------------
+# normalization
+# ---------------------------------------------------------------------------
+
+
+@register("batch_norm")
+def batch_norm(ctx, ins, attrs):
+    x = ins["X"][0]
+    scale, bias = ins["Scale"][0], ins["Bias"][0]
+    mean, var = ins["Mean"][0], ins["Variance"][0]
+    eps = attrs.get("epsilon", 1e-5)
+    momentum = attrs.get("momentum", 0.9)
+    use_global = (attrs.get("use_global_stats", False)
+                  or attrs.get("is_test", False))
+    ch_axis = 1 if attrs.get("data_layout", "NCHW") == "NCHW" else x.dim() - 1
+    axes = tuple(i for i in range(x.dim()) if i != ch_axis)
+    bshape = tuple(x.shape[ch_axis] if i == ch_axis else 1
+                   for i in range(x.dim()))
+
+    # statistics always in f32 (the op sits on AMP's low-precision list;
+    # bf16 in/out, f32 mean/variance math)
+    xf = x.float()
+    if use_global:
+        m, v = mean, var
+        mean_out, var_out = mean, var
+        saved_mean = torch.zeros_like(mean)
+        saved_var = torch.zeros_like(var)
+    else:
+        # one-pass moments, as the JAX package takes them
+        m = xf.mean(dim=axes)
+        v = torch.clamp_min((xf * xf).mean(dim=axes) - m * m, 0.0)
+        mean_out = momentum * mean + (1 - momentum) * m
+        var_out = momentum * var + (1 - momentum) * v
+        saved_mean = m
+        saved_var = 1.0 / torch.sqrt(v + eps)
+    inv = 1.0 / torch.sqrt(v + eps)
+    y = ((xf - m.reshape(bshape)) * inv.reshape(bshape)
+         * scale.float().reshape(bshape)
+         + bias.float().reshape(bshape)).to(x.dtype)
+    return {"Y": [y], "MeanOut": [mean_out], "VarianceOut": [var_out],
+            "SavedMean": [saved_mean], "SavedVariance": [saved_var]}
+
+
+@register("fused_conv_bn")
+def fused_conv_bn(ctx, ins, attrs):
+    """conv2d -> batch_norm [-> relu] as one op (fluid/fusion_pass.py).
+
+    Training mode runs the conv+BN kernels of ``ops/kernels/conv_bn.py``
+    for NHWC (the reference composition for the shapes they do not
+    take, and for NCHW, transposed); ``is_test`` / ``use_global_stats``
+    folds the BN into the conv weights: one conv and one bias add.  The
+    outputs are batch_norm's five."""
+    x, w = ins["Input"][0], ins["Filter"][0]
+    scale, bias = ins["Scale"][0], ins["Bias"][0]
+    mean, var = ins["Mean"][0], ins["Variance"][0]
+    eps = attrs.get("epsilon", 1e-5)
+    momentum = attrs.get("momentum", 0.9)
+    with_relu = bool(attrs.get("with_relu", False))
+    strides = tuple(attrs.get("strides", [1, 1]))
+    pads = _conv_padding(attrs.get("paddings", [0, 0]),
+                         attrs.get("padding_algorithm", "EXPLICIT"), 2)
+    use_global = (attrs.get("use_global_stats", False)
+                  or attrs.get("is_test", False))
+    nhwc = attrs.get("data_format", "NCHW") == "NHWC"
+
+    if use_global:
+        # weight folding: y = conv(x, w * (s * inv)) + (b - m * s * inv)
+        inv = 1.0 / torch.sqrt(var.float() + eps)
+        gain = scale.float() * inv
+        wf = (w.float() * gain.reshape(-1, 1, 1, 1)).to(w.dtype)
+        shift = bias.float() - mean.float() * gain
+        z = _conv2d_impl(x, wf, attrs)
+        bshape = (1, 1, 1, -1) if nhwc else (1, -1, 1, 1)
+        y = z.float() + shift.reshape(bshape)
+        if with_relu:
+            y = torch.relu(y)
+        return {"Y": [y.to(x.dtype)], "MeanOut": [mean],
+                "VarianceOut": [var], "SavedMean": [torch.zeros_like(mean)],
+                "SavedVariance": [torch.zeros_like(var)]}
+
+    if nhwc:
+        y, m, v = _cb.fused_conv_bn(x, w, scale, bias, strides=strides,
+                                    pads=pads, eps=eps, with_relu=with_relu)
+    else:
+        # NCHW never reaches the kernels; compose channel-last
+        xt = x.permute(0, 2, 3, 1)
+        pads_r = _cb._resolve_pads(pads, xt.shape[1], xt.shape[2],
+                                   int(w.shape[2]), int(w.shape[3]), strides)
+        y, m, v = _cb.conv_bn_reference(xt, w, scale, bias, strides=strides,
+                                        pads=pads_r, eps=eps,
+                                        with_relu=with_relu)
+        y = y.permute(0, 3, 1, 2)
+    mean_out = momentum * mean + (1 - momentum) * m.to(mean.dtype)
+    var_out = momentum * var + (1 - momentum) * v.to(var.dtype)
+    return {"Y": [y], "MeanOut": [mean_out], "VarianceOut": [var_out],
+            "SavedMean": [m.to(mean.dtype)],
+            "SavedVariance": [(1.0 / torch.sqrt(v + eps)).to(var.dtype)]}
 
 
 @register("layer_norm")

@@ -44,7 +44,8 @@ for n in ("fluid", "fluid.layers", "fluid.executor", "fluid.framework",
           "ops.encoder_stack", "ops.optimizer_ops",
           "contrib.mixed_precision", "contrib.mixed_precision.decorator",
           "contrib.mixed_precision.fp16_utils",
-          "contrib.mixed_precision.fp16_lists"):
+          "contrib.mixed_precision.fp16_lists", "ops.kernels.conv_bn",
+          "fluid.fusion_pass", "models.resnet", "fluid.layers.nn"):
     assert "paddle_tpu_torch." + n in names, n
 """
 
@@ -82,10 +83,10 @@ def test_resolve_device_defaults_to_cuda_and_never_falls_back(monkeypatch):
 def test_every_kernel_source_builds_into_its_own_library(monkeypatch,
                                                          tmp_path):
     srcs = _build.sources()
-    assert sorted(srcs) == ["add_ln", "flash_attention_bsh",
+    assert sorted(srcs) == ["add_ln", "conv_bn", "flash_attention_bsh",
                             "paged_attention"]
     libs = {_build.lib_path(n) for n in srcs}
-    assert len(libs) == 3 and all(os.path.basename(p).startswith("lib")
+    assert len(libs) == 4 and all(os.path.basename(p).startswith("lib")
                                   for p in libs)
     # a compiler that refuses every source: one error naming each source,
     # with its log, after all of them ran
@@ -155,3 +156,45 @@ def test_kernel_check_refuses(name):
     BAD[name](x)
     with pytest.raises(ValueError):
         _check(x)
+
+
+_RESNET_PROBE = r"""
+import sys
+import numpy as np
+from paddle_tpu_torch import fluid
+from paddle_tpu_torch.contrib import mixed_precision
+from paddle_tpu_torch.fluid import flags
+from paddle_tpu_torch.models import resnet
+cfg = resnet.ResNetConfig(50, 10, [1, 1], base_filters=8)
+main, startup = fluid.Program(), fluid.Program()
+flags.set_flags({"FLAGS_conv_bn_fusion": True})
+m, st, _, loss = resnet.build_resnet_train_program(cfg, 2, 32, main, startup)
+with fluid.program_guard(m, st):
+    opt = mixed_precision.decorate(
+        fluid.optimizer.MomentumOptimizer(0.1, momentum=0.9), use_bf16=True)
+    opt.minimize(loss)
+types = [op.type for op in m.global_block().ops]
+assert types.count("fused_conv_bn") == 9, types
+exe = fluid.Executor(device="cpu")
+scope = fluid.Scope()
+exe.run(st, scope=scope)
+rng = np.random.default_rng(0)
+feed = {"image": rng.standard_normal((2, 3, 32, 32)).astype(np.float32),
+        "label": rng.integers(0, 10, (2, 1))}
+(lv,) = exe.run(m, feed=feed, fetch_list=[loss], scope=scope)
+assert np.isfinite(lv).all(), lv
+bad = sorted(k for k in sys.modules if k.split(".")[0] in
+             ("jax", "jaxlib", "paddle_tpu"))
+assert not bad, bad
+print("ok", float(lv[0]))
+"""
+
+
+def test_resnet_trains_with_fusion_and_amp_without_jax():
+    """The ResNet training path (fusion, Momentum, bf16 AMP, Executor)
+    runs a step in a process that never imports jax or paddle_tpu."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _RESNET_PROBE], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.startswith("ok")
