@@ -19,8 +19,12 @@ prints no result):
                the plain version, and whose keep rate is checked;
                add+LayerNorm, out and stats, and its backward dx, dscale,
                dshift; the five conv+BN kernels at ResNet-50's shapes, f32
-               and bf16), with its time, bound, plain-version time and the
-               time of one library call computing the same function
+               and bf16; the BHSD flash kernels, rows 6-9, at the NMT's
+               shapes: every bias broadcast, dbias, causal at offsets with
+               rows that see no key, the lse cotangent, dropout from a
+               mask and from Philox), with its time, bound, plain-version
+               time and the time of one library call computing the same
+               function
   engine       GenerationEngine over TinyDecoderLM at GPT-2-small widths
                (d 768, 12 layers x 12 heads, FFN 3072, vocab 50257, 1024
                positions): 8 requests, one sampled, two sharing a prefix;
@@ -74,6 +78,26 @@ prints no result):
   resnet_infer ResNet-50 frozen by freeze_program (all 53 conv+BN pairs
                folded into the conv weights: no conv+BN kernel runs) and
                served by the Predictor, f32, batch 32 at 224 x 224
+  nmt_train    the hapi Transformer NMT (examples/hapi_text_nmt.py's
+               network) at Transformer-base widths (6 + 6 layers, d_model
+               512, 8 heads, d_inner 2048, vocabulary 30000, dropout 0.1),
+               the encoder fed the reference recipe's full [B, 8, S, S]
+               self-attention bias: bf16 AMP, Adam 1e-4, 64 x 256 -> 256
+               on one seed-0 batch, 2 warm and 10 timed steps; every step
+               launching rows 6, 8 and 9 once an encoder layer, the BSH
+               kernels for the decoder and the LN kernels exactly as the
+               program needs
+  nmt_train_profile  torch.profiler over 3 of those steps
+  nmt_train_parity   2 + 2 layers at those widths, 2 x 128, dropout 0, 3
+               Adam steps on the card (kernels) against the CPU (plain
+               versions): f32 with TF32 off (then on, shown to exceed the
+               limits), and bf16 AMP, the losses and each stack op again
+               from the card's own inputs
+  nmt_infer    the frozen is_test NMT served by the Predictor, f32, 8 x
+               256 -> 256, the logits fetched; row 6 once an encoder layer
+  mha_key_train hapi MultiHeadAttention (d_model 512, 8 heads) at 64 x
+               256 with a [1, 1, 1, S] padding bias, bf16 AMP, Adam, 3
+               steps with causal off and 3 on: rows 6 and 7 once a step
 
 The line before the last is the kernels summary; the last line is
 ``{"ok": true, "device": {...}}``.  Needs one CUDA card; without one it
@@ -728,6 +752,314 @@ def _kernels_ln_train(torch, F, flush) -> tuple:
     return results, timed
 
 
+# BHSD flash (rows 6-9).  dbias is ds summed in f32 over up to B * nh * S
+# = 131,072 terms (a [1, 1, 1, S] key bias) in another order than
+# torch's (first reading 1.1e-4); a bf16 full dbias is rounded to bf16 by
+# both sides
+ATOL_DBIAS = 5e-4
+BHSD_BIASES = ("key", "key_shared", "full", "full_b1", "full_1h", "full_11")
+
+
+def _bhsd_bias(torch, rng, name, b, nh, s, dtype, padded=False):
+    """A bias of the named broadcast: the per-key ones a padding mask
+    (lengths S/2..S, f32 like the data), the full ones random N(0, 1) in
+    the dtype (bf16 under AMP), or with ``padded`` the reference recipe's
+    tiling of a padding mask over heads and query rows."""
+    shape = {"key": (b, 1, 1, s), "key_shared": (1, 1, 1, s),
+             "full": (b, nh, s, s), "full_b1": (b, 1, s, s),
+             "full_1h": (1, nh, s, s), "full_11": (1, 1, s, s)}[name]
+    if name.startswith("key") or padded:
+        lens = rng.integers(s // 2, s + 1, shape[0])
+        key = 1e4 * ((np.arange(s)[None, :] < lens[:, None]) - 1.0)
+        x = np.broadcast_to(key[:, None, None, :], shape)
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=torch.float32
+                               ).to("cuda", torch.float32
+                                    if name.startswith("key") else dtype)
+    return torch.as_tensor(rng.standard_normal(shape),
+                           dtype=torch.float32).to("cuda", dtype)
+
+
+def _bhsd_case(torch, rng, b, nh, s, d, dtype, bias=None, *, causal=False,
+               q_off=0, k_off=0, p=0.0, mode=None, g_lse=False,
+               want_dbias=False, padded=False):
+    """q, k, v, dO [B, nh, S, D], the bias, causal offsets, the dropout as
+    the forward takes it, the lse cotangent and whether dbias is asked."""
+    q, k, v, do = (torch.as_tensor(rng.standard_normal((b, nh, s, d)),
+                                   dtype=torch.float32).to("cuda", dtype)
+                   for _ in range(4))
+    kw = dict(q=q, k=k, v=v, causal=causal, q_offset=q_off, k_offset=k_off,
+              dropout_prob=p,
+              bias=None if bias is None else _bhsd_bias(
+                  torch, rng, bias, b, nh, s, dtype, padded))
+    if mode == "mask":
+        kw["mask"] = torch.as_tensor(
+            rng.random((b, nh, s, s)) > p).to("cuda", torch.uint8)
+    elif mode == "philox":
+        kw["dropout_seed"] = int(rng.integers(1, 2 ** 62))
+    bwd = dict(do=do, want_dbias=want_dbias,
+               g_lse=torch.as_tensor(rng.standard_normal((b, nh, s)),
+                                     dtype=torch.float32).to("cuda")
+               if g_lse else None)
+    return kw, bwd
+
+
+def _bhsd_keep(fa, kw, bits):
+    """(keep mask, keep_div) the plain versions take: the given mask, or
+    the Philox bits the forward drew at the quantized keep."""
+    p = kw["dropout_prob"]
+    if "dropout_seed" in kw:
+        return bits, fa.dropout_quantized_thresh(1.0 - p) / 256.0
+    return kw.get("mask"), 1.0 - p
+
+
+def _bhsd_check(torch, fa, name, kw, bwd) -> dict:
+    """Row 6 (drawing its Philox bits) and the backward kernels the bias
+    selects (rows 8 and 9 for a full bias, row 7 otherwise) against the
+    plain versions fed the same keep bits; the keep rate for Philox."""
+    is_bf16 = kw["q"].dtype == torch.bfloat16
+    p = kw["dropout_prob"]
+    o, lse, bits = fa.flash_attention_fwd(**kw, return_bits=True)
+    mask, keep_div = _bhsd_keep(fa, kw, bits)
+    plain = {k: kw[k] for k in ("q", "k", "v", "bias", "causal", "q_offset",
+                                "k_offset")}
+    o_ref, lse_ref = fa.flash_attention_reference(
+        **plain, dropout_prob=p, mask=mask, keep_div=keep_div if p else None)
+    # both backwards start from the kernel forward's o and lse
+    args = (kw["q"], kw["k"], kw["v"], kw["bias"], o, lse, bwd["do"])
+    offs = dict(causal=kw["causal"], q_offset=kw["q_offset"],
+                k_offset=kw["k_offset"], g_lse=bwd["g_lse"],
+                want_dbias=bwd["want_dbias"])
+    n0 = (fa.flash_attention_bwd_fused.launches,
+          fa.flash_attention_bwd_dq.launches,
+          fa.flash_attention_bwd_dkv.launches)
+    got = fa.flash_attention_bwd(*args, dropout_prob=p, mask=kw.get("mask"),
+                                 dropout_seed=kw.get("dropout_seed"), **offs)
+    ref = fa.flash_attention_bwd_reference(
+        *args, mask=mask if p else None, keep_div=keep_div, **offs)
+    torch.cuda.synchronize()
+    ran = [a - b for a, b in zip((fa.flash_attention_bwd_fused.launches,
+                                  fa.flash_attention_bwd_dq.launches,
+                                  fa.flash_attention_bwd_dkv.launches), n0)]
+    full = kw["bias"] is not None and kw["bias"].shape[2] != 1
+    if ran != ([0, 1, 1] if full else [1, 0, 0]):
+        fail(f"flash bhsd {name}: backward launched {ran} (fused, dq, dkv)")
+    r = _check(f"flash bhsd {name} o", o, o_ref,
+               1e-5 if is_bf16 else ATOL_F32, RTOL_BF16 if is_bf16 else 0.0)
+    r["lse"] = _check(f"flash bhsd {name} lse", lse, lse_ref,
+                      ATOL_LSE)["max_abs_err"]
+    r["grads"] = _check_grads(f"flash bhsd backward {name}", got[:3],
+                              ref[:3], is_bf16)
+    if bwd["want_dbias"]:
+        bias_bf16 = kw["bias"].dtype == torch.bfloat16
+        r["grads"]["dbias"] = _check(
+            f"flash bhsd backward {name} dbias", got[3], ref[3], ATOL_DBIAS,
+            RTOL_BF16 if bias_bf16 else 0.0)["max_abs_err"]
+    r["backward_kernels"] = "rows 8 + 9" if full else "row 7"
+    if "dropout_seed" in kw and not kw["causal"]:
+        n = bits.numel()
+        rate = bits.float().mean().item()
+        sigma = math.sqrt(keep_div * (1 - keep_div) / n)
+        if abs(rate - keep_div) > KEEP_SIGMAS * sigma \
+                or abs(keep_div - (1.0 - p)) > 1.0 / 512:
+            fail(f"flash bhsd {name}: Philox keep rate {rate} vs "
+                 f"{keep_div} (sigma {sigma})")
+        r["keep_rate"] = {"measured": rate, "quantized_keep": keep_div,
+                          "draws": n, "limit": KEEP_SIGMAS * sigma}
+    if kw["causal"] and kw["k_offset"] - kw["q_offset"] >= 64:
+        # the first q tile sees no key: o 0, lse NEG_INF, no gradient
+        blind = kw["k_offset"] - kw["q_offset"]
+        if o[:, :, :blind].any() or got[0][:, :, :blind].any() \
+                or not (lse[:, :, :blind] <= fa.NEG_INF).all():
+            fail(f"flash bhsd {name}: rows that see no key are not 0")
+        r["rows_seeing_no_key"] = blind
+    return r
+
+
+def _bhsd_block_lse_check(torch, fa, rng) -> dict:
+    """``flash_block_with_lse`` through its autograd Function on the card:
+    (o, lse) with cotangents for both and the key dbias, causal at
+    offsets, against the plain versions."""
+    b, nh, s, d = 8, 8, 256, 64
+    kw, bwd = _bhsd_case(torch, rng, b, nh, s, d, torch.float32, "key",
+                         causal=True, q_off=128, k_off=0, g_lse=True)
+    kb = kw["bias"].reshape(b, s).clone().requires_grad_()
+    qkv = [kw[n].clone().requires_grad_() for n in ("q", "k", "v")]
+    o, lse = fa.flash_block_with_lse(*qkv, kb, causal=True, q_offset=128,
+                                     k_offset=0)
+    grads = torch.autograd.grad((o, lse), qkv + [kb],
+                                (bwd["do"], bwd["g_lse"]))
+    o_ref, lse_ref = fa.flash_attention_reference(
+        kw["q"], kw["k"], kw["v"], kw["bias"], causal=True, q_offset=128)
+    ref = fa.flash_attention_bwd_reference(
+        kw["q"], kw["k"], kw["v"], kw["bias"], o.detach(), lse.detach(),
+        bwd["do"], causal=True, q_offset=128, g_lse=bwd["g_lse"],
+        want_dbias=True)
+    torch.cuda.synchronize()
+    r = _check("flash_block_with_lse o", o, o_ref, ATOL_F32)
+    r["lse"] = _check("flash_block_with_lse lse", lse, lse_ref,
+                      ATOL_LSE)["max_abs_err"]
+    r["grads"] = _check_grads("flash_block_with_lse", grads[:3], ref[:3],
+                              False)
+    r["grads"]["dkey_bias"] = _check(
+        "flash_block_with_lse dkey_bias", grads[3], ref[3].reshape(b, s),
+        ATOL_DBIAS)["max_abs_err"]
+    return r
+
+
+def _bhsd_sdpa(torch, F, kw, p):
+    """The library yardstick: SDPA on the same [B, nh, S, D] tensors with
+    the bias as a float ``attn_mask``, and q, k, v needing grads for its
+    autograd backward."""
+    qh, kh, vh = (kw[n].detach().clone().requires_grad_()
+                  for n in ("q", "k", "v"))
+    mask = kw["bias"].to(kw["q"].dtype)
+
+    def call():
+        return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                              dropout_p=p)
+
+    return (qh, kh, vh), call
+
+
+def _kernels_flash_bhsd(torch, F, flush) -> tuple:
+    """Rows 6-9 against their plain versions at the NMT path's shapes (B
+    64, nh 8, S 256, D 64, f32 with TF32 off and bf16; every bias mode
+    and broadcast, dbias, causal at offsets, dropout from a mask and from
+    Philox), then each timed at its main path's inputs."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    rng = np.random.default_rng(11)
+    f32, bf16 = torch.float32, torch.bfloat16
+    b, nh, s, d = 64, 8, 256, 64
+    cases = [("none_f32", (f32, None), {}),
+             ("none_bf16_causal", (bf16, None), dict(causal=True))]
+    for i, bias in enumerate(BHSD_BIASES):
+        for dtype in (f32, bf16):
+            cases.append((f"{bias}_{'bf16' if dtype == bf16 else 'f32'}",
+                          (dtype, bias),
+                          dict(want_dbias=True, causal=i % 2 == 1)))
+    cases += [
+        ("key_causal_k_after", (f32, "key"),
+         dict(causal=True, q_off=0, k_off=128, g_lse=True)),
+        ("full_causal_offsets", (f32, "full"),
+         dict(causal=True, q_off=96, k_off=32, g_lse=True,
+              want_dbias=True)),
+        ("full_b1_bf16_k_after", (bf16, "full_b1"),
+         dict(causal=True, q_off=64, k_off=192)),
+        ("key_shared_g_lse", (f32, "key_shared"),
+         dict(g_lse=True, want_dbias=True)),
+        ("full_mask_f32", (f32, "full"), dict(p=0.1, mode="mask")),
+        ("key_mask_bf16_causal", (bf16, "key"),
+         dict(p=0.2, mode="mask", causal=True)),
+        ("full_philox_bf16", (bf16, "full"), dict(p=0.1, mode="philox")),
+        ("key_shared_philox_bf16", (bf16, "key_shared"),
+         dict(p=0.1, mode="philox", want_dbias=True)),
+        ("full_11_philox_f32_causal", (f32, "full_11"),
+         dict(p=0.3, mode="philox", causal=True, want_dbias=True)),
+    ]
+    results = {}
+    for name, (dtype, bias), extra in cases:
+        kw, bwd = _bhsd_case(torch, rng, b, nh, s, d, dtype, bias, **extra)
+        results[name] = _bhsd_check(torch, fa, name, kw, bwd)
+        del kw, bwd
+    # the other head dims the kernels are built for, at a smaller batch
+    for name, dd, dtype, bias, extra in (
+            ("d128_full_bf16", 128, bf16, "full_b1",
+             dict(want_dbias=True)),
+            ("d128_key_f32_philox", 128, f32, "key",
+             dict(p=0.1, mode="philox")),
+            ("d256_full_f32_causal", 256, f32, "full_1h",
+             dict(causal=True, want_dbias=True)),
+            ("d256_key_bf16", 256, bf16, "key_shared",
+             dict(want_dbias=True))):
+        kw, bwd = _bhsd_case(torch, rng, 4, 4, 256, dd, dtype, bias, **extra)
+        results[name] = _bhsd_check(torch, fa, name, kw, bwd)
+    results["block_with_lse"] = _bhsd_block_lse_check(torch, fa, rng)
+    torch.cuda.empty_cache()
+
+    timed = {}
+    sm = 1.0 / math.sqrt(d)
+    # rows 6, 8 and 9 at nmt_train's encoder: bf16, the reference
+    # recipe's tiled padding bias [B, nh, S, S] in bf16, Philox p = 0.1
+    p = 0.1
+    kw, bwd = _bhsd_case(torch, rng, b, nh, s, d, bf16, "full", p=p,
+                         mode="philox", padded=True)
+    q, k, v, bias, do = kw["q"], kw["k"], kw["v"], kw["bias"], bwd["do"]
+    o, lse, bits = fa.flash_attention_fwd(**kw, return_bits=True)
+    mask, keep_div = _bhsd_keep(fa, kw, bits)
+    bias_k, mode, dims = fa._classify_bias(bias, b, nh, s)
+    delta = (o.float() * do.float()).sum(-1)
+    args = (q, k, v, bias_k, mode, dims, lse, delta, do, sm, False, 0, 0, p,
+            None, kw["dropout_seed"], 0, False)
+    (qh, kh, vh), sdpa = _bhsd_sdpa(torch, F, kw, p)
+    lib_o = sdpa()
+    shape = {"B": b, "nh": nh, "S": s, "D": d, "dtype": "bfloat16",
+             "bias": "full [B, nh, S, S] bf16, the tiled padding mask",
+             "dropout": "Philox, p=0.1"}
+    plain_fwd = dict(q=q, k=k, v=v, bias=bias, dropout_prob=p, mask=mask,
+                     keep_div=keep_div)
+    t = {"shape": shape, "max_abs_err": results["full_philox_bf16"][
+        "max_abs_err"],
+         "library": "F.scaled_dot_product_attention, the bias as a bf16 "
+                    "attn_mask, dropout_p=0.1"}
+    t.update(_timed(torch, flush, lambda: fa.flash_attention_fwd(**kw),
+                    lambda: fa.flash_attention_reference(**plain_fwd),
+                    sdpa, nbytes=fa.bound_bytes_bhsd(q, bias),
+                    flops=fa.bound_flops_bhsd(q), peak_flops=BF16_FLOPS))
+    timed["flash_attention"] = t
+    plain_bwd = (lambda: fa.flash_attention_bwd_reference(
+        q, k, v, bias, o, lse, do, mask=mask, keep_div=keep_div))
+    lib_bwd = (lambda: torch.autograd.grad(lib_o, (qh, kh, vh), do,
+                                           retain_graph=True))
+    for key, fn, part in (("flash_attention_bwd_dq",
+                           fa.flash_attention_bwd_dq, "dq"),
+                          ("flash_attention_bwd_dkv",
+                           fa.flash_attention_bwd_dkv, "dkv")):
+        t = {"shape": shape,
+             "max_abs_err": max(results["full_philox_bf16"]["grads"]
+                                .values()),
+             "library": "autograd backward of the SDPA call above (dq, dk "
+                        "and dv: rows 8 and 9 together)",
+             "plain": "the plain backward (dq, dk and dv together)"}
+        t.update(_timed(torch, flush, lambda fn=fn: fn(*args), plain_bwd,
+                        lib_bwd, nbytes=fa.bound_bytes_bhsd(q, bias, part),
+                        flops=fa.bound_flops_bhsd(q, part),
+                        peak_flops=BF16_FLOPS))
+        timed[key] = t
+    del kw, bwd, q, k, v, bias, do, o, lse, bits, lib_o, qh, kh, vh, args
+    torch.cuda.empty_cache()
+
+    # row 7 at mha_key_train's attention: bf16, a [1, 1, 1, S] padding
+    # bias, Philox p = 0.1
+    kw, bwd = _bhsd_case(torch, rng, b, nh, s, d, bf16, "key_shared", p=p,
+                         mode="philox")
+    q, k, v, bias, do = kw["q"], kw["k"], kw["v"], kw["bias"], bwd["do"]
+    o, lse, bits = fa.flash_attention_fwd(**kw, return_bits=True)
+    mask, keep_div = _bhsd_keep(fa, kw, bits)
+    bias_k, mode, dims = fa._classify_bias(bias, b, nh, s)
+    delta = (o.float() * do.float()).sum(-1)
+    args = (q, k, v, bias_k, mode, dims, lse, delta, do, sm, False, 0, 0, p,
+            None, kw["dropout_seed"], 0, False)
+    (qh, kh, vh), sdpa = _bhsd_sdpa(torch, F, kw, p)
+    lib_o = sdpa()
+    t = {"shape": dict(shape, bias="per key [1, 1, 1, S], shared over the "
+                                   "batch"),
+         "max_abs_err": max(results["key_shared_philox_bf16"]["grads"]
+                            .values()),
+         "library": "autograd backward of SDPA with the [1, 1, 1, S] bias "
+                    "as a bf16 attn_mask, dropout_p=0.1 (dq, dk, dv)"}
+    t.update(_timed(
+        torch, flush, lambda: fa.flash_attention_bwd_fused(*args),
+        lambda: fa.flash_attention_bwd_reference(
+            q, k, v, bias, o, lse, do, mask=mask, keep_div=keep_div),
+        lambda: torch.autograd.grad(lib_o, (qh, kh, vh), do,
+                                    retain_graph=True),
+        nbytes=fa.bound_bytes_bhsd(q, bias, "fused"),
+        flops=fa.bound_flops_bhsd(q, "fused"), peak_flops=BF16_FLOPS))
+    timed["flash_attention_bwd_fused"] = t
+    return results, timed
+
+
 def phase_kernels(torch) -> dict:
     """Each kernel against its plain version (every case), then timed at
     its main path's shapes."""
@@ -748,6 +1080,9 @@ def phase_kernels(torch) -> dict:
     out["add_ln_train"] = ln["fwd_bf16_y"]
     out["cases"]["conv_bn"], cbn = _kernels_conv_bn(torch, F, flush)
     out.update(cbn)
+    out["cases"]["flash_attention_bhsd"], bhsd = _kernels_flash_bhsd(
+        torch, F, flush)
+    out.update(bhsd)
     emit(out)
     del flush
     torch.cuda.empty_cache()
@@ -1183,35 +1518,80 @@ def _train_program(cfg, b: int, s: int, max_preds: int, amp: bool):
     return m, st, loss
 
 
-def _launches_per_step(program) -> dict:
-    """The kernel launches one step of ``program`` must make, counted
-    from its ops: a flash forward per attention (and per layer of a fused
-    stack), two backward kernels each; an LN forward and backward per
-    last-axis affine layer_norm and two per stack layer."""
-    block = program.global_block()
-    flash = ln = 0
-    for op in block.ops:
-        if op.type == "fused_encoder_stack":
-            layers = block.var(op.inputs["QKVW"][0]).shape[0]
-            flash += layers
-            ln += 2 * layers
-        elif op.type == "fused_multihead_attention":
-            flash += 1
-        elif op.type == "layer_norm" and op.inputs.get("Scale") \
-                and op.inputs.get("Bias") and op.attr("begin_norm_axis") \
-                == len(block.var(op.inputs["X"][0]).shape) - 1:
-            ln += 1
-    return {"flash_fwd": flash, "flash_bwd": 2 * flash, "ln_fwd": ln,
-            "ln_bwd": ln}
+KERNEL_COUNTERS = ("row6", "row7", "row8", "row9", "bsh_fwd", "bsh_bwd",
+                   "ln_fwd", "ln_bwd")
 
 
 def _counters():
     from paddle_tpu_torch.ops.kernels import add_ln
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
 
-    return {"flash_fwd": fa.flash_attention_bsh,
-            "flash_bwd": fa.flash_attention_bsh_bwd,
+    return {"row6": fa.flash_attention, "row7": fa.flash_attention_bwd_fused,
+            "row8": fa.flash_attention_bwd_dq,
+            "row9": fa.flash_attention_bwd_dkv,
+            "bsh_fwd": fa.flash_attention_bsh,
+            "bsh_bwd": fa.flash_attention_bsh_bwd,
             "ln_fwd": add_ln.fused_add_ln, "ln_bwd": add_ln.fused_add_ln_bwd}
+
+
+def _launches_per_step(program) -> dict:
+    """The flash and LayerNorm kernel launches one run of ``program`` must
+    make, counted from its ops and their bias shapes: an encoder stack
+    layer with a full [.., S, S] bias runs row 6 (rows 8 and 9 in the
+    backward), with a per-key [B, 1, 1, S] one the BSH forward (and its
+    two backward kernels); a decoder layer the BSH forward for its causal
+    self-attention and, with a per-key source bias, for its
+    cross-attention; an LN forward and backward per residual (2 an
+    encoder layer, 3 a decoder layer) and per last-axis affine
+    layer_norm; an attention op with a per-key bias shared over the
+    batch row 6 (row 7 in the backward), any other the BSH kernels."""
+    block = program.global_block()
+    n = dict.fromkeys(KERNEL_COUNTERS, 0)
+    train = any(op.type.endswith("_grad") for op in block.ops)
+
+    def shape(op, slot):
+        names = op.inputs.get(slot) or []
+        return tuple(block.var(names[0]).shape) if names else None
+
+    for op in block.ops:
+        if op.type == "fused_encoder_stack":
+            layers = shape(op, "QKVW")[0]
+            bias = shape(op, "AttnBias")
+            if bias is not None and bias[2] != 1:
+                n["row6"] += layers
+                n["row8"] += layers
+                n["row9"] += layers
+            else:
+                n["bsh_fwd"] += layers
+                n["bsh_bwd"] += 2 * layers
+            n["ln_fwd"] += 2 * layers
+            n["ln_bwd"] += 2 * layers
+        elif op.type == "fused_decoder_stack":
+            layers = shape(op, "SelfQKVW")[0]
+            bias = shape(op, "SrcBias")
+            calls = 2 if bias is not None and bias[1:3] == (1, 1) else 1
+            n["bsh_fwd"] += calls * layers
+            n["bsh_bwd"] += 2 * calls * layers
+            n["ln_fwd"] += 3 * layers
+            n["ln_bwd"] += 3 * layers
+        elif op.type == "fused_multihead_attention":
+            bias = shape(op, "BiasQK")
+            if bias is not None and bias[0] == 1:
+                n["row6"] += 1
+                n["row7"] += 1
+            else:
+                n["bsh_fwd"] += 1
+                n["bsh_bwd"] += 2
+        elif op.type == "layer_norm" and op.inputs.get("Scale") \
+                and op.inputs.get("Bias") and op.attr("begin_norm_axis") \
+                == len(shape(op, "X")) - 1:
+            n["ln_fwd"] += 1
+            n["ln_bwd"] += 1
+    if not train:
+        for k in ("row7", "row8", "row9", "bsh_bwd", "ln_bwd"):
+            n[k] = 0
+    return n
+
 
 
 def phase_bert_train(torch, card: str) -> dict:
@@ -1323,7 +1703,8 @@ def phase_bert_train_parity(torch) -> dict:
     counters = _counters()
     n0 = {k: c.launches for k, c in counters.items()}
     f32 = _train_parity(torch, cfg, amp=False)
-    if any(counters[k].launches == n0[k] for k in counters):
+    if any(counters[k].launches == n0[k]
+           for k in ("bsh_fwd", "bsh_bwd", "ln_fwd", "ln_bwd")):
         fail("the f32 parity run on the card missed a kernel")
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.backends.cudnn.allow_tf32 = True
@@ -2076,6 +2457,426 @@ def phase_resnet_infer(torch, card: str, n_runs: int = 10, b: int = 32,
     return out
 
 
+# ---------------------------------------------------------------------------
+# hapi Transformer NMT: the BHSD flash kernels (rows 6-9) behind full-bias
+# attention
+# ---------------------------------------------------------------------------
+
+# Transformer-base widths (the JAX package's TransformerConfig.base(), the
+# reference recipe's base model): 6 + 6 layers, d_model 512, 8 heads,
+# d_inner 2048, vocabulary 30000, dropout 0.1; batch 64 at source and
+# target length 256 (bench.py's NMT shapes)
+NMT = dict(layers=6, d_model=512, heads=8, d_inner=2048, vocab=30000,
+           dropout=0.1, batch=64, src_len=256, trg_len=256)
+# nmt_train_parity's limits: f32 held to the BERT training limits (the
+# same math in another order; TF32 on moves the parameters by ~1e-4,
+# past them); bf16 AMP: the losses to the BERT bf16 limit, and each stack
+# op's output, from the card's own inputs, within 1e-2 relative L2 of the
+# CPU's (both round to bf16 at every op of six layers; the first reading
+# was 1.5e-3 and 2.0e-3, and a wrong bias row or a dropped tile moves it
+# by orders more)
+NMT_OP_REL_BF16 = 1e-2
+
+
+def _nmt_program(b, s, t, *, n_layers=NMT["layers"], dropout=NMT["dropout"],
+                 amp=True, train=True, lr=1e-4):
+    """The network of examples/hapi_text_nmt.py at Transformer-base widths
+    as a user builds it: embeddings times sqrt(d_model),
+    add_position_encoding, hapi TransformerEncoder (fed the reference
+    recipe's full self-attention bias [B, n_head, S, S]) and
+    TransformerDecoder (fed the [B, 1, 1, S] cross bias), an fc to the
+    vocabulary, softmax cross entropy, mean; Adam (bf16 AMP when ``amp``)
+    when ``train``, else the ``is_test`` network."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.contrib import mixed_precision
+    from paddle_tpu_torch.fluid import layers
+    from paddle_tpu_torch.hapi import text
+
+    h, nh, f, v = NMT["d_model"], NMT["heads"], NMT["d_inner"], NMT["vocab"]
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        def data(name, shape, dtype="float32"):
+            return layers.data(name, shape, dtype, append_batch_size=False)
+
+        src, trg = data("src_ids", [b, s], "int64"), data("trg_ids", [b, t],
+                                                          "int64")
+        lbl = data("lbl", [b, t, 1], "int64")
+        self_bias = data("src_slf_attn_bias", [b, nh, s, s])
+        cross_bias = data("trg_src_attn_bias", [b, 1, 1, s])
+        drop = dict(prepostprocess_dropout=dropout,
+                    attention_dropout=dropout, relu_dropout=dropout)
+        enc = text.TransformerEncoder(n_layers, nh, d_model=h,
+                                      d_inner_hid=f, name="enc", **drop)
+        dec = text.TransformerDecoder(n_layers, nh, d_model=h,
+                                      d_inner_hid=f, name="dec", **drop)
+
+        def embed(ids, name):
+            return layers.add_position_encoding(layers.scale(
+                layers.embedding(ids, size=[v, h],
+                                 param_attr=fluid.ParamAttr(name=name)),
+                scale=h ** 0.5), alpha=1.0, beta=1.0)
+
+        out = dec(embed(trg, "trg_emb"),
+                  enc(embed(src, "src_emb"), self_bias, is_test=not train),
+                  cross_bias, is_test=not train)
+        logits = layers.fc(out, v, num_flatten_dims=2)
+        loss = layers.mean(layers.softmax_with_cross_entropy(logits, lbl))
+        if train:
+            opt = fluid.optimizer.AdamOptimizer(learning_rate=lr)
+            if amp:
+                opt = mixed_precision.decorate(opt, use_bf16=True)
+            opt.minimize(loss)
+    return main, startup, loss, logits
+
+
+def _nmt_batch(b, s, t, seed=0, min_len=128) -> dict:
+    """Random ids from ``seed``: source lengths min_len..S (id 0 pads),
+    the reference recipe's biases (pad_batch_data: -1e4 at padded keys,
+    tiled to [B, n_head, S, S] for the encoder's self-attention)."""
+    nh, v = NMT["heads"], NMT["vocab"]
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(min_len, s + 1, b)
+    live = np.arange(s)[None, :] < lens[:, None]
+    key = np.where(live, 0.0, -1e4).astype(np.float32)
+    return {"src_ids": np.where(live, rng.integers(2, v, (b, s)), 0),
+            "trg_ids": rng.integers(2, v, (b, t)),
+            "lbl": rng.integers(2, v, (b, t, 1)),
+            "src_slf_attn_bias": np.ascontiguousarray(np.broadcast_to(
+                key[:, None, None, :], (b, nh, s, s))),
+            "trg_src_attn_bias": key[:, None, None, :]}
+
+
+def _count_step(counters, fn):
+    """Run ``fn`` with every counter set to 0 just before; the launches it
+    made."""
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    return out, {k: c.launches for k, c in counters.items()}
+
+
+def phase_nmt_train(torch, card: str, n_steps: int = 10, n_warm: int = 2,
+                    b: int = NMT["batch"], s: int = NMT["src_len"],
+                    t: int = NMT["trg_len"],
+                    n_layers: int = NMT["layers"]) -> dict:
+    """hapi Transformer-base NMT training on the card: bf16 AMP, Adam
+    1e-4, dropout 0.1, 64 x 256 -> 256, the encoder's full self-attention
+    bias through rows 6, 8 and 9, on one fixed seed-0 batch: 2 warm steps,
+    then 10 timed; every loss finite, the loss falling, and every step
+    launching each kernel exactly as the program needs."""
+    from paddle_tpu_torch import fluid
+
+    t0 = time.perf_counter()
+    main, startup, loss, _ = _nmt_program(b, s, t, n_layers=n_layers)
+    build_s = time.perf_counter() - t0
+    want = _launches_per_step(main)
+    scope, exe = fluid.Scope(), fluid.Executor()
+    exe.run(startup, scope=scope)
+    n_params = sum(p.numel() for p in
+                   (scope.find_var(v.name) for v in main.all_parameters()))
+    feed = {k: torch.as_tensor(v, device=exe.device)
+            for k, v in _nmt_batch(b, s, t, seed=0).items()}
+
+    def step():
+        return float(exe.run(main, feed=feed, fetch_list=[loss],
+                             scope=scope)[0][0])
+
+    losses = [step() for _ in range(n_warm)]
+    torch.cuda.reset_peak_memory_stats()
+    counters = _counters()
+    total = dict.fromkeys(counters, 0)
+    step_ms = []
+    for i in range(n_steps):
+        t0 = time.perf_counter()
+        lv, got = _count_step(counters, step)       # numpy fetch: synced
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if got != want:
+            fail(f"nmt_train step {i} launched {got}, the program needs "
+                 f"{want}")
+        for k in total:
+            total[k] += got[k]
+        losses.append(lv)
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"nmt_train losses not finite: {losses}")
+    if not statistics.mean(losses[-3:]) < statistics.mean(losses[:3]):
+        fail(f"nmt_train loss did not fall on a fixed batch: {losses}")
+    med = statistics.median(step_ms)
+    out = {"phase": "nmt_train", "card": card,
+           "config": dict(NMT, layers=n_layers, batch=b, src_len=s,
+                          trg_len=t, optimizer="Adam 1e-4", amp="bf16",
+                          encoder_bias="full [B, 8, S, S] (tiled padding)",
+                          cross_bias="[B, 1, 1, S]", src_lengths="128..256"),
+           "params": n_params, "program_ops": len(main.global_block().ops),
+           "build_s": build_s, "steps": n_steps, "warm_steps": n_warm,
+           "step_ms_median": med, "step_ms_min": min(step_ms),
+           "step_ms_max": max(step_ms),
+           "trg_tokens_per_s": b * t / (med / 1e3),
+           "src_trg_tokens_per_s": b * (s + t) / (med / 1e3),
+           "losses": losses, "launches_per_step": want, "launches": total,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+    emit(out)
+    return dict(out, exe=exe, main=main, scope=scope, feed=feed, loss=loss)
+
+
+def phase_nmt_train_profile(torch, train: dict) -> dict:
+    """Where an NMT training step's time goes: 3 steps under
+    torch.profiler; device busy time by kernel against the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    exe, main, scope = train["exe"], train["main"], train["scope"]
+    feed, loss = train["feed"], train["loss"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = _device_rows(torch, prof)
+    busy_ms = sum(r[0] for r in rows)
+    out = {"phase": "nmt_train_profile", "steps": 3, "wall_ms": wall_ms,
+           "device_busy_ms": busy_ms,
+           "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
+           "top_kernels": [{"ms": ms, "calls": n, "name": k[:90]}
+                           for ms, n, k in rows[:20]],
+           "note": "window = 3 NMT training steps of 64 x 256 -> 256 "
+                   "(forward, backward, Adam, loss fetch); busy = sum of "
+                   "kernel self times"}
+    emit(out)
+    return out
+
+
+def _nmt_parity_run(torch, amp: bool, b: int, s: int, n_layers: int,
+                    steps: int = 3, op_by_op: bool = False) -> dict:
+    """The training program at Transformer-base widths, ``n_layers`` + ``n_layers``
+    layers, b x s -> s, dropout 0, on the card (kernels) and on the CPU
+    (plain versions) from the same weights: the losses of every step and a
+    few parameters after the last.  With ``op_by_op``, each stack op of
+    the first step is run again from the card's own inputs on the card
+    and on the CPU: the error it adds by itself."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.ops import registry
+
+    main, startup, loss, _ = _nmt_program(b, s, s, n_layers=n_layers,
+                                          dropout=0.0, amp=amp)
+    cpu_exe, cpu_scope = fluid.Executor(device="cpu"), fluid.Scope()
+    cpu_exe.run(startup, scope=cpu_scope)
+    card_scope = fluid.Scope.from_numpy(
+        {n: v.numpy() for n, v in cpu_scope.vars.items()})
+    card_exe = fluid.Executor()
+    feed = _nmt_batch(b, s, s, seed=3, min_len=s // 2)
+    ops = [op for op in main.global_block().ops
+           if op.type in ("fused_encoder_stack", "fused_decoder_stack")]
+    in_names = sorted({n for op in ops for ns in op.inputs.values()
+                       for n in ns}) if op_by_op else []
+    card, cpu, local = [], [], []
+    for i in range(steps):
+        got = card_exe.run(main, feed=feed, fetch_list=[loss] + in_names,
+                           scope=card_scope, return_numpy=False)
+        card.append(float(got[0].reshape(-1)[0]))
+        cpu.append(float(cpu_exe.run(main, feed=feed, fetch_list=[loss],
+                                     scope=cpu_scope)[0][0]))
+        if i == 0 and op_by_op:
+            env = dict(zip(in_names, got[1:]))
+            for op in ops:
+                ins = {k: [env[n] for n in ns] for k, ns in op.inputs.items()
+                       if ns}
+                spec = registry.get(op.type)
+                with torch.no_grad():
+                    yk = spec.emit(
+                        registry.EmitContext(device=card_exe.device), ins,
+                        dict(op.attrs))["Out"][0]
+                    yp = spec.emit(registry.EmitContext(device="cpu"),
+                                   {k: [x.cpu() for x in v]
+                                    for k, v in ins.items()},
+                                   dict(op.attrs))["Out"][0]
+                local.append({"op": op.type, "dtype": str(yk.dtype),
+                              "kernels_card_vs_cpu": _rel(yk, yp)})
+    params = {}
+    for n in ("enc.qkv_w", "enc.ffn_w2", "dec.cross_k_w", "dec.ln3_s",
+              "src_emb", "trg_emb"):
+        params[n] = float((card_scope.find_var(n).cpu().float()
+                           - cpu_scope.find_var(n).float()).abs().max())
+    out = {"loss_card": card, "loss_cpu": cpu,
+           "loss_diff": max(abs(a - c) for a, c in zip(card, cpu)),
+           "param_diff": params}
+    if op_by_op:
+        out["op_by_op"] = local
+    return out
+
+
+def phase_nmt_train_parity(torch, b: int = 2, s: int = 128,
+                           n_layers: int = 2) -> dict:
+    """The NMT training program at Transformer-base widths with 2 + 2
+    layers, batch 2 at 128 -> 128, dropout 0, 3 Adam steps on the card
+    against the CPU: f32 with TF32 off (then on, to show the limits catch
+    it); bf16 AMP: the losses, and each stack op from the same inputs."""
+    counters = _counters()
+    n0 = {k: c.launches for k, c in counters.items()}
+    f32 = _nmt_parity_run(torch, False, b, s, n_layers)
+    missed = [k for k in ("row6", "row8", "row9", "bsh_fwd", "bsh_bwd",
+                          "ln_fwd", "ln_bwd")
+              if counters[k].launches == n0[k]]
+    if missed:
+        fail(f"the f32 NMT parity run on the card missed kernels {missed}")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32 = _nmt_parity_run(torch, False, b, s, n_layers)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    amp = _nmt_parity_run(torch, True, b, s, n_layers, op_by_op=True)
+    checks = [("f32 loss", f32["loss_diff"], TRAIN_PARITY_LOSS),
+              ("f32 params", max(f32["param_diff"].values()),
+               TRAIN_PARITY_PARAM),
+              ("bf16 loss", amp["loss_diff"], TRAIN_PARITY_LOSS_BF16)] + [
+        (f"bf16 {r['op']}", r["kernels_card_vs_cpu"], NMT_OP_REL_BF16)
+        for r in amp["op_by_op"]]
+    for name, diff, limit in checks:
+        if not math.isfinite(diff) or diff > limit:
+            fail(f"NMT training card vs CPU, {name}: {diff} > {limit}")
+    out = {"phase": "nmt_train_parity", "batch": b, "len": s,
+           "layers": n_layers, "steps": 3, "f32": f32, "f32_tf32_on": tf32,
+           "amp_bf16": amp,
+           "limits": {"f32_loss": TRAIN_PARITY_LOSS,
+                      "f32_param": TRAIN_PARITY_PARAM,
+                      "bf16_loss": TRAIN_PARITY_LOSS_BF16,
+                      "bf16_op_rel_l2": NMT_OP_REL_BF16},
+           "tf32_exceeds_limit": (
+               tf32["loss_diff"] > TRAIN_PARITY_LOSS
+               or max(tf32["param_diff"].values()) > TRAIN_PARITY_PARAM)}
+    if not out["tf32_exceeds_limit"]:
+        fail(f"TF32 on stayed within the f32 NMT limits: {tf32}")
+    emit(out)
+    return out
+
+
+def phase_nmt_infer(torch, card: str, n_runs: int = 10, b: int = 8,
+                    s: int = NMT["src_len"],
+                    n_layers: int = NMT["layers"]) -> dict:
+    """The frozen ``is_test`` NMT (freeze_program + ServingPredictor) on
+    the card at Transformer-base widths, f32, batch 8 at 256 -> 256,
+    fetching the logits: every run launches row 6 once a layer."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.inference import ServingPredictor, freeze_program
+
+    main, startup, _, logits = _nmt_program(b, s, s, n_layers=n_layers,
+                                            train=False, amp=False)
+    scope = fluid.Scope()
+    fluid.Executor().run(startup, scope=scope)
+    feeds = ["src_ids", "trg_ids", "src_slf_attn_bias", "trg_src_attn_bias"]
+    frozen = freeze_program(main, scope=scope, feed_names=feeds,
+                            fetch_list=[logits])
+    want = _launches_per_step(frozen.program)
+    pred = ServingPredictor(frozen)
+    batch = _nmt_batch(b, s, s, seed=1)
+    feed = {k: batch[k] for k in feeds}
+    pred.run(feed)
+    torch.cuda.synchronize()
+    counters = _counters()
+    total = dict.fromkeys(counters, 0)
+    run_ms = []
+    for i in range(n_runs):
+        t0 = time.perf_counter()
+        (out,), got = _count_step(counters, lambda: pred.run(feed))
+        run_ms.append((time.perf_counter() - t0) * 1e3)
+        if got != want:
+            fail(f"nmt_infer run {i} launched {got}, the program needs "
+                 f"{want}")
+        if out.shape != (b, s, NMT["vocab"]) or not np.isfinite(out).all():
+            fail(f"nmt_infer logits {out.shape} or non-finite")
+        for k in total:
+            total[k] += got[k]
+    # the same runs without the numpy fetch of the 246 MB of logits
+    dev_ms = []
+    for _ in range(n_runs):
+        t0 = time.perf_counter()
+        pred.run(feed, return_numpy=False)
+        torch.cuda.synchronize()
+        dev_ms.append((time.perf_counter() - t0) * 1e3)
+    med = statistics.median(run_ms)
+    out = {"phase": "nmt_infer", "card": card,
+           "config": dict(NMT, layers=n_layers, batch=b, src_len=s,
+                          trg_len=s, dtype="float32", dropout=0.0),
+           "frozen_ops": len(frozen.program.global_block().ops),
+           "runs": n_runs, "run_ms_median": med, "run_ms_min": min(run_ms),
+           "run_ms_max": max(run_ms),
+           "sentences_per_s": b / (med / 1e3),
+           "run_ms_without_fetch_median": statistics.median(dev_ms),
+           "launches_per_run": want, "launches": total,
+           "note": "run = feed copy, the frozen ops, and the [8, 256, "
+                   "30000] f32 logits fetched to numpy (246 MB)"}
+    emit(out)
+    return out
+
+
+def phase_mha_key_train(torch, card: str, n_steps: int = 3, b: int = 64,
+                        s: int = 256) -> dict:
+    """hapi MultiHeadAttention at d_model 512, 8 heads, batch 64 at 256,
+    with a padding bias shared over the batch ([1, 1, 1, S]: the BSH
+    kernels refuse it), attention dropout 0.1, bf16 AMP, Adam 1e-4: 3
+    steps with causal off and 3 with it on, each step launching row 6
+    and row 7 once."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.contrib import mixed_precision
+    from paddle_tpu_torch.fluid import layers
+    from paddle_tpu_torch.hapi import text
+
+    h = NMT["d_model"]
+    rng = np.random.default_rng(5)
+    key = np.where(np.arange(s) < s - 64, 0.0, -1e4).astype(np.float32)
+    feed = {"x": rng.standard_normal((b, s, h)).astype(np.float32),
+            "bias": key[None, None, None, :]}
+    counters = _counters()
+    out = {"phase": "mha_key_train", "card": card,
+           "config": {"d_model": h, "heads": NMT["heads"], "batch": b,
+                      "seq": s, "bias": "[1, 1, 1, S], last 64 keys -1e4",
+                      "attn_dropout": 0.1, "amp": "bf16",
+                      "optimizer": "Adam 1e-4"}, "runs": {}}
+    total = dict.fromkeys(counters, 0)
+    for causal in (False, True):
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            x = layers.data("x", [b, s, h], append_batch_size=False)
+            bias = layers.data("bias", [1, 1, 1, s], append_batch_size=False)
+            y = text.MultiHeadAttention(d_model=h, n_head=NMT["heads"],
+                                        dropout_rate=0.1)(
+                x, attn_bias=bias, causal=causal)
+            loss = layers.mean(layers.elementwise_mul(y, y))
+            mixed_precision.decorate(fluid.optimizer.AdamOptimizer(1e-4),
+                                     use_bf16=True).minimize(loss)
+        want = _launches_per_step(main)
+        if (want["row6"], want["row7"]) != (1, 1):
+            fail(f"mha_key_train causal={causal}: the program needs "
+                 f"{want}, not one launch each of rows 6 and 7")
+        scope, exe = fluid.Scope(), fluid.Executor()
+        exe.run(startup, scope=scope)
+        dfeed = {k: torch.as_tensor(v, device=exe.device)
+                 for k, v in feed.items()}
+        losses, step_ms = [], []
+        for i in range(n_steps):
+            t0 = time.perf_counter()
+            (lv,), got = _count_step(counters, lambda: exe.run(
+                main, feed=dfeed, fetch_list=[loss], scope=scope))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if got != want:
+                fail(f"mha_key_train causal={causal} step {i} launched "
+                     f"{got}, the program needs {want}")
+            for k in total:
+                total[k] += got[k]
+            losses.append(float(lv[0]))
+        if not all(math.isfinite(x) for x in losses) \
+                or not losses[-1] < losses[0]:
+            fail(f"mha_key_train causal={causal} losses {losses}")
+        out["runs"]["causal" if causal else "full"] = {
+            "losses": losses, "step_ms": step_ms, "launches_per_step": want}
+    out["launches"] = total
+    emit(out)
+    return out
+
+
 def _kernel_entry(name, source, replaces, launches, k) -> dict:
     return {"name": name, "route": "cuda",
             "source": f"paddle_tpu_torch/ops/kernels/csrc/{source}",
@@ -2138,6 +2939,15 @@ def main() -> int:
     phase_resnet_train_parity(torch)
     phase_resnet_infer(torch, env["card"])
 
+    nmt = phase_nmt_train(torch, env["card"])
+    phase_nmt_train_profile(torch, nmt)
+    nlaunches = nmt["launches"]
+    del nmt
+    torch.cuda.empty_cache()
+    phase_nmt_train_parity(torch)
+    ninfer = phase_nmt_infer(torch, env["card"])["launches"]
+    mlaunches = phase_mha_key_train(torch, env["card"])["launches"]
+
     def entry(name, source, replaces, k, path_launches, main="bert_train"):
         e = _kernel_entry(name, source, replaces, path_launches[main], k)
         e["launches_by_path"] = path_launches
@@ -2157,19 +2967,42 @@ def main() -> int:
         entry("flash_attention_bsh", "flash_attention_bsh.cu",
               "paddle_tpu/ops/pallas/flash_attention.py:1500",
               kern["flash_attention_bsh_train"],
-              {"bert_train": launches["flash_fwd"],
-               "bert_infer": infer_launches["flash"]}),
+              {"bert_train": launches["bsh_fwd"],
+               "bert_infer": infer_launches["flash"],
+               "nmt_train": nlaunches["bsh_fwd"],
+               "nmt_infer": ninfer["bsh_fwd"]}),
         entry("flash_attention_bsh_bwd", "flash_attention_bsh.cu",
               "paddle_tpu/ops/pallas/flash_attention.py:1697",
               kern["flash_attention_bsh_bwd"],
-              {"bert_train": launches["flash_bwd"]}),
+              {"bert_train": launches["bsh_bwd"],
+               "nmt_train": nlaunches["bsh_bwd"]}),
         entry("add_ln", "add_ln.cu", "paddle_tpu/ops/pallas/add_ln.py:145",
               kern["add_ln_train"],
               {"bert_train": launches["ln_fwd"],
-               "bert_infer": infer_launches["ln"]}),
+               "bert_infer": infer_launches["ln"],
+               "nmt_train": nlaunches["ln_fwd"],
+               "nmt_infer": ninfer["ln_fwd"]}),
         entry("add_ln_bwd", "add_ln.cu",
               "paddle_tpu/ops/pallas/add_ln.py:175", kern["add_ln_bwd"],
-              {"bert_train": launches["ln_bwd"]})]
+              {"bert_train": launches["ln_bwd"],
+               "nmt_train": nlaunches["ln_bwd"]}),
+        entry("flash_attention", "flash_attention_bhsd.cu",
+              "paddle_tpu/ops/pallas/flash_attention.py:392",
+              kern["flash_attention"],
+              {"nmt_train": nlaunches["row6"], "nmt_infer": ninfer["row6"],
+               "mha_key_train": mlaunches["row6"]}, main="nmt_train"),
+        entry("flash_attention_bwd_fused", "flash_attention_bhsd.cu",
+              "paddle_tpu/ops/pallas/flash_attention.py:790",
+              kern["flash_attention_bwd_fused"],
+              {"mha_key_train": mlaunches["row7"]}, main="mha_key_train"),
+        entry("flash_attention_bwd_dq", "flash_attention_bhsd.cu",
+              "paddle_tpu/ops/pallas/flash_attention.py:902",
+              kern["flash_attention_bwd_dq"],
+              {"nmt_train": nlaunches["row8"]}, main="nmt_train"),
+        entry("flash_attention_bwd_dkv", "flash_attention_bhsd.cu",
+              "paddle_tpu/ops/pallas/flash_attention.py:943",
+              kern["flash_attention_bwd_dkv"],
+              {"nmt_train": nlaunches["row9"]}, main="nmt_train")]
         + [entry(name, "conv_bn.cu", replaces, kern[name],
                  {"resnet_train": rlaunches[name]}, main="resnet_train")
            for name, replaces in conv_bn]})

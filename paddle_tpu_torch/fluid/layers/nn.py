@@ -351,6 +351,15 @@ def unsqueeze(input, axes, name=None):
     return out
 
 
+def expand_as(x, target_tensor, name=None):
+    helper = LayerHelper("expand_as", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="expand_as",
+                     inputs={"X": [x], "target_tensor": [target_tensor]},
+                     outputs={"Out": [out]})
+    return out
+
+
 def gather(input, index, overwrite=True):
     helper = LayerHelper("gather")
     out = helper.create_variable_for_type_inference(input.dtype)

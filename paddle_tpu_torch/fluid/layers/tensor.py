@@ -1,9 +1,12 @@
-"""Tensor-creation layers: data, create_parameter, fill_constant, cast.
+"""Tensor-creation layers: data, create_parameter, fill_constant, cast,
+assign.
 
 Parity surface: python/paddle/fluid/layers/tensor.py in the reference;
 ported from the JAX package's ``fluid/layers/tensor.py``.
 """
 from __future__ import annotations
+
+import numpy as np
 
 from .. import framework
 from ..dtypes import convert_dtype
@@ -52,3 +55,25 @@ def cast(x, dtype):
     helper.append_op(type="cast", inputs={"X": [x]}, outputs={"Out": [out]},
                      attrs={"out_dtype": convert_dtype(dtype)})
     return out
+
+
+def assign(input, output=None):
+    """Copy a Variable (``assign``) or a numpy array (``assign_value``,
+    its values held in the op's attrs) into ``output``."""
+    helper = LayerHelper("assign")
+    if isinstance(input, np.ndarray):
+        if output is None:
+            output = helper.create_variable_for_type_inference(
+                dtype=input.dtype)
+        helper.append_op(
+            type="assign_value",
+            outputs={"Out": [output]},
+            attrs={"shape": list(input.shape),
+                   "dtype": convert_dtype(input.dtype),
+                   "values": input.flatten().tolist()})
+        return output
+    if output is None:
+        output = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(type="assign", inputs={"X": [input]},
+                     outputs={"Out": [output]})
+    return output

@@ -14,10 +14,11 @@ never the device):
   kernels ``ops/kernels/flash_attention.py`` (their plain versions on the
   CPU), differentiable, with the dropout drawn from the op's salted
   generator (Philox in the kernel on the card).
-* BHSD — a square full bias ([B, nh, S, S] and the like) the BSH kernel
-  cannot hold: the JAX package runs its BHSD Pallas kernel there, which
-  is not ported yet (ROADMAP §B row 6).  On the card it raises
-  NotImplementedError; on the CPU the plain composition computes it.
+* BHSD — any other bias (a square full [B|1, nh|1, S, S] one, a per-key
+  bias shared over the batch) or other flag/shape cases where
+  ``flash_shapes_ok`` holds and Sq == Skv: ``flash_attention`` of the
+  same module on head-split [B, nh, S, D] tensors (the BHSD kernels, rows
+  6-9; their plain versions on the CPU).
 * composition — every shape the flash gates reject (and
   FLAGS_use_flash_attention off): ``_reference_attention`` in torch, as
   the reference does.
@@ -33,8 +34,8 @@ import math
 
 import torch
 
-from .kernels.flash_attention import (bsh_dispatch_ok, flash_attention_bsh,
-                                      flash_shapes_ok)
+from .kernels.flash_attention import (bsh_dispatch_ok, flash_attention,
+                                      flash_attention_bsh, flash_shapes_ok)
 from .registry import register
 
 
@@ -86,22 +87,24 @@ def fused_multihead_attention(ctx, ins, attrs):
             dropout_generator=gen)
         return {"Out": [out]}
 
-    if flash_shapes_ok(sq, h // nh) and sq == skv \
-            and q3.device.type == "cuda":
-        raise NotImplementedError(
-            "fused_multihead_attention: this bias shape "
-            f"{None if bias is None else tuple(bias.shape)} needs the BHSD "
-            "flash kernel, which the port does not have yet (ROADMAP §B "
-            "row 6, ops/pallas/flash_attention.py:392)")
-
     q, k, v = (_split_heads(t, nh) for t in (q3, k3, v3))
+    gen = (ctx.salted_rng(int(attrs.get("rng_salt", 0)))
+           if train_dropout else None)
+    if flash_shapes_ok(sq, h // nh) and sq == skv:
+        # full [.., S, S] biases (and per-key ones shared over the batch)
+        # on square lengths ride the BHSD kernels; BiasQK keeps its zero
+        # cotangent (bias_requires_grad=False)
+        out = flash_attention(
+            q.contiguous(), k.contiguous(), v.contiguous(),
+            None if bias is None else bias.contiguous(),
+            causal=causal, dropout_prob=dropout_prob if train_dropout
+            else 0.0, dropout_generator=gen)
+        return {"Out": [_merge_heads(out)]}
     if causal:
         s = q.shape[2]
         keep = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
         cmask = torch.where(keep, 0.0, -1e30)[None, None]
         bias = cmask if bias is None else bias + cmask
-    gen = (ctx.salted_rng(int(attrs.get("rng_salt", 0)))
-           if train_dropout else None)
     if bias is not None:
         bias = bias.detach()  # the zero-cotangent BiasQK contract
     out = _reference_attention(q, k, v, bias, dropout_prob, is_test, gen)

@@ -18,11 +18,21 @@ Per layer (post-LN, as the reference's BERT):
 Attention branches, as in the JAX package: BSH (``bsh_dispatch_ok``: the
 flash kernels of ``ops/kernels/flash_attention.py`` on the [B, S, H]
 projections, no head transposes); BHSD (flash-able lengths with a bias
-the BSH kernel cannot hold: the JAX package's BHSD Pallas kernel, not
-ported — it raises on the card and runs the plain composition on the
-CPU); and the composition (f32 scores, softmax, ``_cheap_dropout``).
-``add_ln`` is the fused LayerNorm kernel (``ops/kernels/add_ln.py``,
-differentiable) under FLAGS_use_fused_ln, else ``_ln_f32(x + y)``.
+the BSH kernel cannot hold, such as the reference Transformer's full
+[B, nh, S, S] self-attention bias: ``flash_attention`` of the same
+module on head-split q, k, v, the BHSD kernels); and the composition
+(f32 scores, softmax, ``_cheap_dropout``).  ``add_ln`` is the fused
+LayerNorm kernel (``ops/kernels/add_ln.py``, differentiable) under
+FLAGS_use_fused_ln, else ``_ln_f32(x + y)``.
+
+``fused_decoder_stack`` (the JAX package's, in this module too) is the
+NMT decoder over stacked [L, ...] parameters, one Python loop: causal
+self-attention, cross-attention over the encoder output (rectangular,
+St x Ss) and the FFN, post-LN.  Both attentions take the BSH kernels
+when ``bsh_dispatch_ok`` holds (causal self-attention with no bias; the
+cross-attention with a per-key [B, 1, 1, Ss] source bias), else the
+composition, a full cross bias included: the JAX decoder stack has no
+BHSD branch, nor does this one.
 
 Randomness: the op's salted seed (``EmitContext.salted_seed``) mixed
 with the layer index gives each layer its seed, and each dropout site of
@@ -36,13 +46,16 @@ q/k/v projection or the whole layer in ``torch.utils.checkpoint``
 (non-reentrant).  Not ported: ``remat_policy`` (the JAX package's
 checkpoint-name policy), the GPipe pipeline and the ring
 (sequence-parallel) branches; each raises NotImplementedError (ROADMAP
-A5, A10).
+A5, A10).  The decoder stack takes ``remat_ffn`` (the JAX package's
+only remat there) and raises on ``sequence_parallel``.
 
-Slots (all stacked on dim 0 = layer):
+Encoder slots (all stacked on dim 0 = layer):
   Hidden [B,S,H], AttnBias [B,1,1,S],
   QKVW [L,H,3H], QKVB [L,3H], OutW [L,H,H], OutB [L,H],
   Ln1S/Ln1B [L,H], FfnW1 [L,H,F], FfnB1 [L,F], FfnW2 [L,F,H], FfnB2 [L,H],
   Ln2S/Ln2B [L,H]
+Decoder slots: ``_DEC_PARAM_KEYS``; inputs Hidden [B,St,H], EncOut
+[B,Ss,H], SrcBias [B,1,1,Ss].
 """
 from __future__ import annotations
 
@@ -54,8 +67,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from .kernels import add_ln as _add_ln_kernel
-from .kernels.flash_attention import (bsh_dispatch_ok, flash_attention_bsh,
-                                      flash_shapes_ok)
+from .kernels.flash_attention import (bsh_dispatch_ok, flash_attention,
+                                      flash_attention_bsh, flash_shapes_ok)
 from .registry import mix_seed, register
 
 _PARAM_KEYS = (
@@ -114,6 +127,31 @@ def _cheap_dropout(x, prob, seed):
     return torch.where(bits < thresh, x / keep_eff, 0.0)
 
 
+def _ckpt(fn, *args):
+    # the generators are made inside fn from integer seeds, so the
+    # recompute draws the same bits without the global RNG state
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def _composition(q, k, v, bias, causal, dropout):
+    """Attention on head-split [B, nh, S, dh] tensors as the JAX
+    package's composition: f32 scores / sqrt(dh) plus the bias, the causal
+    mask (-1e30 above the diagonal, top-left aligned), softmax in the
+    dtype, ``dropout`` on the probabilities."""
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) \
+        / math.sqrt(q.shape[-1])
+    if bias is not None:
+        scores = scores + bias.float()
+    if causal:
+        qlen, klen = scores.shape[-2:]
+        keep = (torch.arange(qlen, device=q.device)[:, None]
+                >= torch.arange(klen, device=q.device)[None, :])
+        scores = torch.where(keep, scores, -1e30)
+    probs = dropout(torch.softmax(scores, dim=-1).to(q.dtype))
+    return torch.matmul(probs, v)
+
+
 def _refuse_unported(attrs):
     if str(attrs.get("remat_policy", "") or "").strip():
         raise NotImplementedError(
@@ -141,12 +179,6 @@ def fused_encoder_stack(ctx, ins, attrs):
     use_flash = bool(attrs.get("use_flash_attention", True))
     base_seed = ctx.salted_seed(int(attrs.get("rng_salt", 0)))
     shape_only = hidden.device.type == "meta"
-
-    def ckpt(fn, *args):
-        # the generators are made inside fn from integer seeds, so the
-        # recompute draws the same bits without the global RNG state
-        return checkpoint(fn, *args, use_reentrant=False,
-                          preserve_rng_state=False)
 
     def dropout(x, prob, seed):
         if is_test or prob <= 0.0 or shape_only:
@@ -177,8 +209,8 @@ def fused_encoder_stack(ctx, ins, attrs):
         if attrs.get("remat_qkv", False):
             # recompute the q/k/v projections in the backward instead of
             # keeping three [B, S, H] tensors a layer
-            qkv_flat = functools.partial(ckpt, project_qkv_flat)
-            qkv_heads = functools.partial(ckpt, project_qkv)
+            qkv_flat = functools.partial(_ckpt, project_qkv_flat)
+            qkv_heads = functools.partial(_ckpt, project_qkv)
 
         attn_p = 0.0 if is_test else attn_dropout_prob
         if use_bsh:
@@ -188,22 +220,23 @@ def fused_encoder_stack(ctx, ins, attrs):
             ctx_l = flash_attention_bsh(q, k, v, bias, num_heads=nh,
                                         dropout_prob=attn_p,
                                         dropout_generator=gen)
+        elif use_flash and flash_shapes_ok(s, dh):
+            # streamed BHSD kernels: the biases BSH cannot hold, such as
+            # a full [B, nh, S, S] one
+            q, k, v = (t.contiguous()
+                       for t in qkv_heads(hid, p["QKVW"], p["QKVB"]))
+            gen = (_generator(seed_of(_ATTN), hid.device)
+                   if attn_p > 0.0 and not shape_only else None)
+            ctx_l = flash_attention(
+                q, k, v, None if bias is None else bias.contiguous(),
+                dropout_prob=attn_p, dropout_generator=gen)
+            ctx_l = ctx_l.transpose(1, 2).reshape(b, s, h)
         else:
-            if use_flash and flash_shapes_ok(s, dh) \
-                    and hid.device.type == "cuda":
-                raise NotImplementedError(
-                    "fused_encoder_stack: this bias shape "
-                    f"{None if bias is None else tuple(bias.shape)} needs "
-                    "the BHSD flash kernel, which the port does not have "
-                    "yet (ROADMAP §B row 6)")
             q, k, v = qkv_heads(hid, p["QKVW"], p["QKVB"])
-            scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) \
-                / math.sqrt(dh)
-            if bias is not None:
-                scores = scores + bias.float()
-            probs = torch.softmax(scores, dim=-1).to(hid.dtype)
-            probs = dropout(probs, attn_p, seed_of(_ATTN))
-            ctx_l = torch.matmul(probs, v).transpose(1, 2).reshape(b, s, h)
+            ctx_l = _composition(
+                q, k, v, bias, False,
+                lambda pr: dropout(pr, attn_p, seed_of(_ATTN)))
+            ctx_l = ctx_l.transpose(1, 2).reshape(b, s, h)
 
         attn_out = torch.matmul(ctx_l, p["OutW"]) + p["OutB"]
         attn_out = dropout(attn_out, dropout_prob, seed_of(_ATTN_OUT))
@@ -218,7 +251,7 @@ def fused_encoder_stack(ctx, ins, attrs):
         if attrs.get("remat_ffn", False):
             # recompute `inter` ([B, S, F], the largest activation) in the
             # backward instead of keeping it
-            ffn_out = ckpt(ffn, *ffn_args)
+            ffn_out = _ckpt(ffn, *ffn_args)
         else:
             ffn_out = ffn(*ffn_args)
         return _add_ln(hid, ffn_out, p["Ln2S"], p["Ln2B"], eps)
@@ -229,7 +262,110 @@ def fused_encoder_stack(ctx, ins, attrs):
     for idx, params in enumerate(per_layer):
         if remat_layer:
             # full-layer remat: keep only the hidden between layers
-            out = ckpt(layer, out, idx, *params)
+            out = _ckpt(layer, out, idx, *params)
         else:
             out = layer(out, idx, *params)
+    return {"Out": [out]}
+
+
+_DEC_PARAM_KEYS = (
+    "SelfQKVW", "SelfQKVB", "SelfOutW", "SelfOutB", "Ln1S", "Ln1B",
+    "CrossQW", "CrossQB", "CrossKW", "CrossKB", "CrossVW", "CrossVB",
+    "CrossOutW", "CrossOutB", "Ln2S", "Ln2B",
+    "FfnW1", "FfnB1", "FfnW2", "FfnB2", "Ln3S", "Ln3B",
+)
+
+# the five dropout sites of a decoder layer (the JAX package's k1 .. k5)
+_SELF_ATTN, _SELF_OUT, _CROSS_ATTN, _CROSS_OUT, _DEC_FFN = 1, 2, 3, 4, 5
+
+
+@register("fused_decoder_stack")
+def fused_decoder_stack(ctx, ins, attrs):
+    """The transformer decoder stack (causal self-attention, then
+    cross-attention over the encoder output, then the FFN, post-LN) over
+    stacked [L, ...] parameters: the NMT counterpart of
+    ``fused_encoder_stack``."""
+    if attrs.get("sequence_parallel", False):
+        raise NotImplementedError(
+            "fused_decoder_stack sequence_parallel: the ring branch waits "
+            "for the distributed slice (ROADMAP A10)")
+    hidden = ins["Hidden"][0]
+    enc_out = ins["EncOut"][0]
+    src_bias = ins.get("SrcBias", [None])[0]
+    nh = int(attrs["num_heads"])
+    act = _act(attrs.get("act", "relu"))
+    dropout_prob = float(attrs.get("dropout_prob", 0.0))
+    attn_dropout_prob = float(attrs.get("attn_dropout_prob", 0.0))
+    is_test = bool(attrs.get("is_test", False))
+    eps = float(attrs.get("epsilon", 1e-5))
+    use_flash = bool(attrs.get("use_flash_attention", True))
+    base_seed = ctx.salted_seed(int(attrs.get("rng_salt", 0)))
+    shape_only = hidden.device.type == "meta"
+    b, st, h = hidden.shape
+    dh = h // nh
+    attn_p = 0.0 if is_test else attn_dropout_prob
+
+    def dropout(x, prob, seed):
+        if is_test or prob <= 0.0 or shape_only:
+            return x
+        return _cheap_dropout(x, prob, seed)
+
+    def attend(q3, k3, v3, bias4, causal, seed):
+        """q3 [B, Sq, H], k3/v3 [B, Skv, H] -> [B, Sq, H]: the BSH kernels
+        when the shapes allow (rectangular cross-attention included),
+        else the composition."""
+        sq, skv = q3.shape[1], k3.shape[1]
+        if use_flash and bsh_dispatch_ok(sq, skv, h, nh, bias=bias4,
+                                         batch=b, causal=causal):
+            gen = (_generator(seed, hidden.device)
+                   if attn_p > 0.0 and not shape_only else None)
+            return flash_attention_bsh(q3, k3, v3, bias4, num_heads=nh,
+                                       causal=causal, dropout_prob=attn_p,
+                                       dropout_generator=gen)
+        q, k, v = (t.reshape(b, t.shape[1], nh, dh).transpose(1, 2)
+                   for t in (q3, k3, v3))
+        out = _composition(q, k, v, bias4, causal,
+                           lambda pr: dropout(pr, attn_dropout_prob, seed))
+        return out.transpose(1, 2).reshape(b, sq, h)
+
+    def layer(hid, idx, *params):
+        p = dict(zip(_DEC_PARAM_KEYS, params))
+        lseed = mix_seed(base_seed, idx)
+
+        def seed_of(site):
+            return mix_seed(lseed, site)
+
+        # causal self-attention
+        qkv = torch.matmul(hid, p["SelfQKVW"]) + p["SelfQKVB"]
+        q, k, v = (t.contiguous() for t in qkv.split(h, dim=-1))
+        ctx_s = attend(q, k, v, None, True, seed_of(_SELF_ATTN))
+        self_out = torch.matmul(ctx_s, p["SelfOutW"]) + p["SelfOutB"]
+        hid = _add_ln(hid, dropout(self_out, dropout_prob,
+                                   seed_of(_SELF_OUT)),
+                      p["Ln1S"], p["Ln1B"], eps)
+
+        # cross-attention over the encoder output (St queries, Ss keys)
+        qc = torch.matmul(hid, p["CrossQW"]) + p["CrossQB"]
+        kc = torch.matmul(enc_out, p["CrossKW"]) + p["CrossKB"]
+        vc = torch.matmul(enc_out, p["CrossVW"]) + p["CrossVB"]
+        ctx_c = attend(qc, kc, vc, src_bias, False, seed_of(_CROSS_ATTN))
+        cross_out = torch.matmul(ctx_c, p["CrossOutW"]) + p["CrossOutB"]
+        hid = _add_ln(hid, dropout(cross_out, dropout_prob,
+                                   seed_of(_CROSS_OUT)),
+                      p["Ln2S"], p["Ln2B"], eps)
+
+        def ffn(h_, w1, b1, w2, b2):
+            inter = act(torch.matmul(h_, w1) + b1)
+            out_ = torch.matmul(inter, w2) + b2
+            return dropout(out_, dropout_prob, seed_of(_DEC_FFN))
+
+        ffn_args = (hid, p["FfnW1"], p["FfnB1"], p["FfnW2"], p["FfnB2"])
+        ffn_out = (_ckpt(ffn, *ffn_args) if attrs.get("remat_ffn", False)
+                   else ffn(*ffn_args))
+        return _add_ln(hid, ffn_out, p["Ln3S"], p["Ln3B"], eps)
+
+    out = hidden
+    per_layer = zip(*(ins[k][0].unbind(0) for k in _DEC_PARAM_KEYS))
+    for idx, params in enumerate(per_layer):
+        out = layer(out, idx, *params)
     return {"Out": [out]}

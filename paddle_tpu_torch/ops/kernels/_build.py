@@ -3,8 +3,8 @@
 Every ``csrc/<name>.cu`` is compiled by ``nvcc`` into its own shared
 library with a plain C interface, loaded with ``ctypes``.  A library goes
 to ``ops/kernels/build/`` (listed in ``.gitignore``), named by a hash of
-its source and the compiler flags, so a changed source rebuilds and an
-unchanged one loads at once.  Nothing is compiled at import time: the
+its source, the shared headers ``csrc/*.cuh`` and the compiler flags, so
+a changed source or header rebuilds and an unchanged one loads at once.  Nothing is compiled at import time: the
 first call that needs a kernel builds its library; ``build_all`` starts
 one ``nvcc`` per source at once and waits for them together.
 """
@@ -62,8 +62,10 @@ def _source(name: str) -> str:
 
 def lib_path(name: str) -> str:
     h = hashlib.sha256()
-    with open(_source(name), "rb") as f:
-        h.update(f.read())
+    for src in [_source(name)] + sorted(glob.glob(os.path.join(CSRC,
+                                                               "*.cuh"))):
+        with open(src, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 

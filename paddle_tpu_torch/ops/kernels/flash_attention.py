@@ -1,5 +1,7 @@
-"""Flash attention (online softmax) over head-interleaved [B, S, H]
-tensors — the forward and backward of the JAX package's BSH path.
+"""Flash attention (online softmax): the forward and backward of the JAX
+package's ``ops/pallas/flash_attention.py`` in both of its layouts.
+
+BSH — head-interleaved [B, S, H] tensors (``flash_attention_bsh``):
 
     o[b, :, h]    = softmax(q_h k_h^T * sm_scale + bias[b]) v_h
     lse[b, h, :]  = log-sum-exp of those scores
@@ -8,8 +10,20 @@ with q [B, Sq, H], k/v [B, Skv, H], H = num_heads * D and head h owning
 columns [h*D, (h+1)*D); bias is per key ([B, 1, 1, Skv] or [B, 1, Skv],
 the BERT padding mask) and gets a zero cotangent; causal masks keys above
 the diagonal (Sq == Skv only).  Same semantics and shape rules as the JAX
-package's ``ops/pallas/flash_attention.py`` ``flash_attention_bsh`` and
-its custom VJP.
+package's ``flash_attention_bsh`` and its custom VJP.
+
+BHSD — [B, nh, S, D] tensors, Sq = Skv = S (``flash_attention`` and
+``flash_block_with_lse``, rows 6-9 of PERF.md's kernel table): what BSH
+does not take — a full [B|1, nh|1, S, S] bias (held as its [R, S, S]
+rows, read through the row map (bh // div) % mod, never broadcast), a
+per-key [B|1, 1, 1, S] bias (its [bb, S] rows), dbias when
+``bias_requires_grad``, the lse as an output with a cotangent (folded into
+delta), and causal masking at runtime (q_offset, k_offset).  Scores are
+multiplied by sm_scale (no q prescale).  A row that sees no key gets o =
+0 and lse = NEG_INF, and zero gradients.  The backward dispatches as the
+JAX package's ``_flash_bwd``: a full bias takes the split kernels (dq,
+then dk/dv and the [BH, S, S] dbias), every other bias the single pass
+(dq, dk, dv and the key dbias).
 
 Dropout acts on the probabilities' numerator (the row sum l and the lse
 stay undropped, as in the TPU kernels).  The keep bits come from
@@ -19,36 +33,45 @@ stay undropped, as in the TPU kernels).  The keep bits come from
   from the op's generator (the JAX package materializes one in interpret
   mode);
 * on the card, without a mask, an in-kernel Philox keyed by (seed,
-  offset, b, h, q, k), the threshold quantized to 1/256 as
+  offset, b * nh + h, q, k), the threshold quantized to 1/256 as
   ``_dropout_quantized_thresh`` does and kept values divided by the
   quantized keep probability.  The seed is the op's salted generator's
   (``Generator.initial_seed()``: a host integer, no device sync); the
-  backward regenerates the same bits.
+  backward regenerates the same bits, and both layouts draw the same bits
+  for the same (seed, offset, head, q, k).
 
 Two implementations of each direction:
 
-* ``flash_attention_bsh_reference`` / ``flash_attention_bsh_bwd_reference``
-  — the plain PyTorch versions (the reference's ``_reference_attention``
-  with a per-key bias plus the lse, and its backward from the lse), in
-  f32.  CPU and ``meta`` tensors take them.
-* the CUDA kernels of ``csrc/flash_attention_bsh.cu`` (sm_90a, built by
-  nvcc at first use, bound with ctypes).  They replace the TPU kernels
-  ``_make_fwd_bsh_kernel`` (launched by ``_flash_fwd_bsh``) and
-  ``_make_bwd_bsh_kernel`` (``_flash_bwd_bsh``): one block per (64-row
-  tile, head, batch) streams the other operand's tiles through shared
-  memory in f32; the backward is a dk/dv kernel and a dq kernel, both
-  deterministic.  The source's header note has the design.
+* the plain PyTorch versions — ``flash_attention_bsh_reference`` /
+  ``flash_attention_bsh_bwd_reference`` (the reference's
+  ``_reference_attention`` with a per-key bias plus the lse, and its
+  backward from the lse) and ``flash_attention_reference`` /
+  ``flash_attention_bwd_reference`` (the BHSD kernels' math), in f32.
+  CPU and ``meta`` tensors take them.
+* the CUDA kernels of ``csrc/flash_attention_bsh.cu`` and
+  ``csrc/flash_attention_bhsd.cu`` (sm_90a, built by nvcc at first use,
+  bound with ctypes; their shared dropout helpers in
+  ``csrc/flash_common.cuh``).  They replace the TPU kernels
+  ``_make_fwd_bsh_kernel`` / ``_make_bwd_bsh_kernel`` and
+  ``_make_fwd_kernel`` (row 6), ``_make_bwd_fused_kernel`` (row 7),
+  ``_make_bwd_dq_kernel`` (row 8) and ``_make_bwd_dkv_kernel`` (row 9):
+  one block per (64-row tile, head) streams the other operand's tiles
+  through shared memory in f32; every backward is deterministic (no
+  atomics).  The sources' header notes have the designs.
 
-``flash_attention_bsh`` is differentiable: a ``torch.autograd.Function``
-whose forward and backward are the above.
+``flash_attention_bsh``, ``flash_attention`` and ``flash_block_with_lse``
+are differentiable: ``torch.autograd.Function``s whose forward and
+backward are the above.
 
-Bounds: ``bound_flops`` (4*B*nh*Sq*Skv*D forward, ``bound_flops_bwd``
-10*B*nh*Sq*Skv*D backward, the causal triangle's share when causal)
-against the dtype's peak and ``bound_bytes`` / ``bound_bytes_bwd``
-against 3.35 TB/s; the larger time bounds.  CUDA tensors reach the
-kernels or raise; ``flash_attention_bsh.launches`` counts forward kernel
-launches and ``flash_attention_bsh_bwd.launches`` backward ones (two a
-call).
+Bounds: ``bound_flops`` / ``bound_flops_bwd`` and ``bound_bytes`` /
+``bound_bytes_bwd`` for BSH, ``bound_flops_bhsd`` / ``bound_bytes_bhsd``
+per BHSD kernel (flops against the dtype's peak, bytes against 3.35
+TB/s; the larger time bounds).  CUDA tensors reach the kernels or raise.
+Launch counters: ``flash_attention_bsh.launches`` (BSH forward),
+``flash_attention_bsh_bwd.launches`` (BSH backward, two a call),
+``flash_attention.launches`` (row 6), ``flash_attention_bwd_fused``
+(row 7), ``flash_attention_bwd_dq`` (row 8) and
+``flash_attention_bwd_dkv`` (row 9) ``.launches``.
 """
 from __future__ import annotations
 
@@ -516,3 +539,598 @@ def bound_bytes_bwd(q, k, v, bias, num_heads) -> int:
     if bias is not None:
         nbytes += bias.numel() * 4
     return nbytes + b * num_heads * sq * 4
+
+
+# ---------------------------------------------------------------------------
+# [B, nh, S, D]: the BHSD half (the JAX package's flash_attention and
+# flash_block_with_lse, rows 6-9 of PERF.md's kernel table)
+# ---------------------------------------------------------------------------
+
+_BIAS_CODES = {None: 0, "key": 1, "full": 2}
+_FUSED, _DQ, _DKV = 0, 1, 2
+
+
+def _classify_bias(bias, b, nh, s):
+    """(kernel bias, mode, (bb, bn)) as the JAX package's
+    ``_classify_bias``: no bias; 'key' for [B|1, 1, 1, S], held as its
+    [bb, S] f32 rows (a reshape, never broadcast to [B * nh, S]); 'full'
+    for [B|1, nh|1, S, S], held as [bb * bn, S, S] in its dtype."""
+    if bias is None:
+        return None, None, None
+    if bias.dim() != 4:
+        raise ValueError(f"flash_attention bias must be 4-D, got "
+                         f"{tuple(bias.shape)}")
+    bb, bn, bq, bk = bias.shape
+    if bb not in (1, b) or bn not in (1, nh):
+        raise ValueError(f"bias dims {tuple(bias.shape)} not broadcastable "
+                         f"to batch={b}, heads={nh}")
+    if bk != s:
+        raise ValueError(f"bias key dim {bk} != seq {s}")
+    if bn == 1 and bq == 1:
+        return bias.reshape(bb, s).float(), "key", (bb, 1)
+    if bq != s:
+        raise ValueError(f"bias query dim {bq} != seq {s}")
+    return bias.reshape(bb * bn, s, s), "full", (bb, bn)
+
+
+def _bias_row_map(bias_dims, num_heads):
+    """(div, mod): the kernel bias row of bh = b * nh + h is (bh // div)
+    % mod, for the key rows and the full [R, S, S] rows alike."""
+    bb, bn = bias_dims
+    return (num_heads if bn == 1 else 1), bb * bn
+
+
+def _causal_masked(s, q_off, k_off, device):
+    """[S, S] True where key k_off + j lies above query q_off + i
+    (``_causal_mask``)."""
+    i = torch.arange(s, device=device)[:, None] + int(q_off)
+    j = torch.arange(s, device=device)[None, :] + int(k_off)
+    return i < j
+
+
+def _bhsd_scores(q, k, bias, sm_scale, causal, q_off, k_off):
+    """f32 scores [B, nh, S, S] (q . k times sm_scale, no prescale, plus
+    the bias) and the causal mask (None without causal)."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
+    if bias is not None:
+        s = s + bias.float()
+    masked = None
+    if causal:
+        masked = _causal_masked(q.shape[2], q_off, k_off, q.device)
+        s = s.masked_fill(masked, NEG_INF)
+    return s, masked
+
+
+def flash_attention_reference(q, k, v, bias=None, sm_scale=None,
+                              causal=False, dropout_prob=0.0, mask=None,
+                              keep_div=None, q_offset=0, k_offset=0):
+    """Plain version of rows 6's kernel, any device: (o [B, nh, S, D] in
+    q.dtype, lse [B, nh, S] f32).  f32 scores, a masked score's p is 0 (a
+    row that sees no key gets o = 0 and lse = NEG_INF), l_safe = max(l,
+    1e-30), numerator-only dropout where ``mask`` (uint8 [B, nh, S, S])
+    is 0, kept values divided by ``keep_div`` (default 1 - p)."""
+    b, nh, s, d = q.shape
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    _classify_bias(bias, b, nh, s)  # the same shape errors as the kernel
+    sc, masked = _bhsd_scores(q, k, bias, sm_scale, causal, q_offset,
+                              k_offset)
+    m = sc.amax(dim=-1, keepdim=True)
+    p = torch.exp(sc - m)
+    if masked is not None:
+        p = p.masked_fill(masked, 0.0)
+    l_safe = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    num = p
+    if dropout_prob > 0.0 and mask is not None:
+        div = (1.0 - dropout_prob) if keep_div is None else keep_div
+        num = torch.where(mask != 0, p / div, 0.0)
+    o = torch.matmul(num, v.float()) / l_safe
+    return o.to(q.dtype), (m + torch.log(l_safe))[..., 0]
+
+
+def _sum_to(t, shape):
+    """Sum a [B, nh, S, S] cotangent over the dims ``shape`` broadcasts."""
+    dims = tuple(i for i, n in enumerate(shape) if n == 1 and t.shape[i] != 1)
+    return t.sum(dim=dims, keepdim=True) if dims else t
+
+
+def flash_attention_bwd_reference(q, k, v, bias, o, lse, do, sm_scale=None,
+                                  causal=False, mask=None, keep_div=1.0,
+                                  q_offset=0, k_offset=0, g_lse=None,
+                                  want_dbias=False):
+    """Plain backward of rows 7-9, any device: (dq, dk, dv in the inputs'
+    dtypes, dbias in the bias's shape and dtype, or None) from the
+    forward's o and lse: p = exp(s - lse) (0 where masked), delta =
+    rowsum(o * dO) - g_lse in f32, ds0 = p (dp c - delta) with c = keep /
+    keep_div (1 without ``mask``); dq = ds0 k sm_scale, dk = ds0^T q
+    sm_scale, dv = (p c)^T dO; dbias = ds0 without sm_scale, summed back
+    to the bias's shape (key: over heads and rows, and the batch when the
+    bias has one row; full: over the broadcast batch and heads)."""
+    b, nh, s, d = q.shape
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    sc, masked = _bhsd_scores(q, k, bias, sm_scale, causal, q_offset,
+                              k_offset)
+    p = torch.exp(sc - lse[..., None].float())
+    if masked is not None:
+        p = p.masked_fill(masked, 0.0)
+    dof = do.float()
+    delta = (dof * o.float()).sum(dim=-1, keepdim=True)
+    if g_lse is not None:
+        delta = delta - g_lse[..., None].float()
+    dp = torch.matmul(dof, v.float().transpose(-1, -2))
+    if mask is not None:
+        c = torch.where(mask != 0, 1.0 / keep_div, 0.0)
+        p_num, dp = p * c, dp * c
+    else:
+        p_num = p
+    ds0 = p * (dp - delta)
+    dq = torch.matmul(ds0, k.float()) * sm_scale
+    dk = torch.matmul(ds0.transpose(-1, -2), q.float()) * sm_scale
+    dv = torch.matmul(p_num.transpose(-1, -2), dof)
+    dbias = None
+    if want_dbias and bias is not None:
+        dbias = _sum_to(ds0, bias.shape).to(bias.dtype)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias
+
+
+def draw_keep_mask_bhsd(q, dropout_prob, generator):
+    """A uint8 keep mask [B, nh, S, S] drawn from ``generator``: each
+    entry kept with probability 1 - dropout_prob."""
+    shape = tuple(q.shape[:3]) + (q.shape[2],)
+    u = torch.rand(shape, generator=generator, device=q.device)
+    return (u < 1.0 - dropout_prob).to(torch.uint8)
+
+
+def check_bhsd_inputs(q, k, v, bias, dropout_prob=0.0, mask=None) -> None:
+    """What the BHSD kernels take; raises ValueError on anything else.
+    Device-independent, so the CPU tests call it directly."""
+    if not 0.0 <= dropout_prob < 1.0:
+        raise ValueError(f"dropout_prob {dropout_prob} is not in [0, 1)")
+    if q.dtype not in _DTYPE_CODES:
+        raise ValueError(f"flash kernel takes float32 or bfloat16 q, got "
+                         f"{q.dtype}")
+    for name, t in (("k", k), ("v", v)):
+        if t.dtype != q.dtype:
+            raise ValueError(f"{name} dtype {t.dtype} != q dtype {q.dtype}")
+    if q.dim() != 4 or q.shape != k.shape or k.shape != v.shape:
+        raise ValueError(f"q, k, v must be one [B, nh, S, D] shape, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, nh, s, d = q.shape
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
+    if s % KERNEL_ROWS:
+        raise ValueError(f"length S={s} must be a multiple of {KERNEL_ROWS}")
+    if b * nh > 65535:
+        raise ValueError(f"B * nh = {b * nh} blocks exceed the grid's 65535")
+    _, mode, _ = _classify_bias(bias, b, nh, s)
+    if mode == "full" and bias.dtype not in _DTYPE_CODES:
+        raise ValueError(f"full bias must be float32 or bfloat16, got "
+                         f"{bias.dtype}")
+    if mask is not None and (mask.dtype != torch.uint8
+                             or tuple(mask.shape) != (b, nh, s, s)):
+        raise ValueError(f"mask must be uint8 [B, nh, S, S] = "
+                         f"{(b, nh, s, s)}, got {mask.dtype} "
+                         f"{tuple(mask.shape)}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("bias", bias),
+                    ("mask", mask)):
+        if t is None:
+            continue
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+
+
+def _bhsd_launcher(name: str):
+    """The ctypes function ``flash_bhsd_<name>_launch`` of the library."""
+    key = f"bhsd_{name}"
+    fn = _fns.get(key)
+    if fn is None:
+        from . import _build
+
+        fn = getattr(_build.load("flash_attention_bhsd"),
+                     f"flash_bhsd_{name}_launch")
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        if name == "fwd":
+            fn.argtypes = ([p] * 4 + [i] * 4 + [p, p] + [i] * 3 + [f]
+                           + [i] * 5 + [p, p, ctypes.c_ulonglong, i, i, f,
+                                        p])
+        else:
+            fn.argtypes = ([i] + [p] * 4 + [i] * 4 + [p] * 8 + [i] * 3
+                           + [f] + [i] * 5 + [p, ctypes.c_ulonglong, i, i,
+                                              f, p])
+        fn.restype = ctypes.c_int
+        _fns[key] = fn
+    return fn
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _bias_args(bias_k, mode, dims, nh):
+    """(pointer, mode code, bf16 flag, row div, row mod) of the kernel
+    bias."""
+    if mode is None:
+        return None, 0, 0, 1, 1
+    div, mod = _bias_row_map(dims, nh)
+    return (bias_k.data_ptr(), _BIAS_CODES[mode],
+            int(bias_k.dtype == torch.bfloat16), div, mod)
+
+
+def _drop_tail(mode, mask, seed, offset, thresh, keep_div):
+    return (mode, _ptr(mask), int(seed or 0) & ((1 << 64) - 1), int(offset),
+            thresh, float(keep_div))
+
+
+def _cuda_flash_fwd(q, k, v, bias_k, mode, dims, sm_scale, causal, q_off,
+                    k_off, dropout_prob, mask, seed, offset, return_bits):
+    b, nh, s, d = q.shape
+    dmode, mask, thresh, keep_div = _drop_args(dropout_prob, mask, seed)
+    bits = None
+    if return_bits and dmode == _PHILOX_DROP:
+        bits = torch.zeros((b, nh, s, s), dtype=torch.uint8, device=q.device)
+    o = torch.empty_like(q)
+    lse = torch.empty((b, nh, s), dtype=torch.float32, device=q.device)
+    fn = _bhsd_launcher("fwd")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        dm, mptr, sd, off, th, kd = _drop_tail(dmode, mask, seed, offset,
+                                               thresh, keep_div)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 *_bias_args(bias_k, mode, dims, nh), o.data_ptr(),
+                 lse.data_ptr(), b * nh, s, d, float(sm_scale), int(causal),
+                 int(q_off), int(k_off), _DTYPE_CODES[q.dtype], dm, mptr,
+                 _ptr(bits), sd, off, th, kd, stream)
+    if err:
+        raise RuntimeError(f"flash_attention (BHSD) kernel launch failed: "
+                           f"CUDA error {err}")
+    flash_attention.launches += 1
+    return o, lse, bits
+
+
+def _cuda_flash_bwd_part(part, q, k, v, bias_k, mode, dims, lse, delta, do,
+                         sm_scale, causal, q_off, k_off, dropout_prob, mask,
+                         seed, offset, want_dbias):
+    """Launch one backward kernel: row 7 (``_FUSED``: dq, dk, dv and the
+    key dbias [BH, S]), row 8 (``_DQ``: dq) or row 9 (``_DKV``: dk, dv
+    and the full dbias [BH, S, S])."""
+    b, nh, s, d = q.shape
+    dmode, mask, thresh, keep_div = _drop_args(dropout_prob, mask, seed)
+    dq = torch.empty_like(q) if part != _DKV else None
+    dk, dv = ((torch.empty_like(k), torch.empty_like(v)) if part != _DQ
+              else (None, None))
+    dq_part = dbias = None
+    if part == _FUSED:
+        rows = KERNEL_ROWS if d < 256 else KERNEL_ROWS // 2
+        dq_part = torch.empty((s // rows, b * nh, s, d), dtype=torch.float32,
+                              device=q.device)
+        if want_dbias:
+            dbias = torch.empty((b * nh, s), dtype=torch.float32,
+                                device=q.device)
+    elif part == _DKV and want_dbias:
+        dbias = torch.empty((b * nh, s, s), dtype=torch.float32,
+                            device=q.device)
+    fn = _bhsd_launcher("bwd")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(part, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 *_bias_args(bias_k, mode, dims, nh), lse.data_ptr(),
+                 delta.data_ptr(), do.data_ptr(), _ptr(dq), _ptr(dk),
+                 _ptr(dv), _ptr(dq_part), _ptr(dbias), b * nh, s, d,
+                 float(sm_scale), int(causal), int(q_off), int(k_off),
+                 _DTYPE_CODES[q.dtype],
+                 *_drop_tail(dmode, mask, seed, offset, thresh, keep_div),
+                 stream)
+    if err:
+        raise RuntimeError(f"flash_attention (BHSD) backward kernel "
+                           f"{('fused', 'dq', 'dkv')[part]} launch failed: "
+                           f"CUDA error {err}")
+    return dq, dk, dv, dbias
+
+
+def flash_attention_bwd_fused(*args, **kwargs):
+    """Row 7 on the card: (dq, dk, dv, key dbias [BH, S] or None);
+    arguments as ``_cuda_flash_bwd_part``'s after ``part``."""
+    out = _cuda_flash_bwd_part(_FUSED, *args, **kwargs)
+    flash_attention_bwd_fused.launches += 1
+    return out
+
+
+def flash_attention_bwd_dq(*args, **kwargs):
+    """Row 8 on the card: dq."""
+    out = _cuda_flash_bwd_part(_DQ, *args, **kwargs)[0]
+    flash_attention_bwd_dq.launches += 1
+    return out
+
+
+def flash_attention_bwd_dkv(*args, **kwargs):
+    """Row 9 on the card: (dk, dv, full dbias [BH, S, S] or None)."""
+    out = _cuda_flash_bwd_part(_DKV, *args, **kwargs)[1:]
+    flash_attention_bwd_dkv.launches += 1
+    return out
+
+
+flash_attention_bwd_fused.launches = 0
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dkv.launches = 0
+
+
+def _fold_dbias(db, mode, dims, nh):
+    """The kernels' per-bh dbias summed to the kernel bias's rows: key
+    [BH, S] -> [bb, S]; full [BH, S, S] -> [bb * bn, S, S] (the
+    reduction of ``_flash_bwd``)."""
+    bb, bn = dims
+    s = db.shape[-1]
+    db = db.reshape(-1, nh, *db.shape[1:])
+    if bn == 1:
+        db = db.sum(dim=1, keepdim=True)
+    if bb == 1:
+        db = db.sum(dim=0, keepdim=True)
+    return db.reshape(bb, s) if mode == "key" else db.reshape(bb * bn, s, s)
+
+
+def _cuda_flash_bwd(q, k, v, bias_k, mode, dims, o, lse, do, sm_scale,
+                    causal, q_off, k_off, dropout_prob, mask, seed, offset,
+                    g_lse, want_dbias):
+    """The backward's dispatch (``_flash_bwd``): the full bias takes the
+    split path (rows 8 and 9), everything else the single pass (row 7).
+    Returns (dq, dk, dv, f32 dbias in the kernel bias's form or None)."""
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {tuple(q.shape)} "
+                             f"{q.dtype} tensor, got {tuple(t.shape)} "
+                             f"{t.dtype}")
+    if lse.shape != q.shape[:3] or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be float32 {tuple(q.shape[:3])}")
+    # delta = rowsum(dO * O) - g_lse, outside the kernels as in _flash_bwd
+    delta = (o.float() * do.float()).sum(-1)
+    if g_lse is not None:
+        delta = delta - g_lse.float()
+    delta, lse = delta.contiguous(), lse.contiguous()
+    args = (q, k, v, bias_k, mode, dims, lse, delta, do, sm_scale, causal,
+            q_off, k_off, dropout_prob, mask, seed, offset, want_dbias)
+    nh = q.shape[1]
+    if mode == "full":
+        dq = flash_attention_bwd_dq(*args)
+        dk, dv, db = flash_attention_bwd_dkv(*args)
+    else:
+        dq, dk, dv, db = flash_attention_bwd_fused(*args)
+    if db is not None:
+        db = _fold_dbias(db, mode, dims, nh)
+    return dq, dk, dv, db
+
+
+def _device_check(q):
+    if q.device.type not in ("cpu", "meta", "cuda"):
+        raise ValueError(f"no flash-attention kernel for device {q.device}")
+
+
+class _FlashBHSD(torch.autograd.Function):
+    """(o, lse) of the BHSD kernels with their backward: the lse
+    cotangent folds into delta; the bias gets dbias when ``want_dbias``,
+    else a zero cotangent (None, which autograd and the generic grad ops
+    read as zeros)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, mask, seed, sm_scale, causal,
+                dropout_prob, offset, q_off, k_off, want_dbias):
+        ctx.set_materialize_grads(False)
+        o, lse = flash_attention_fwd(
+            q, k, v, bias, sm_scale, causal, dropout_prob, mask=mask,
+            dropout_seed=seed, dropout_offset=offset, q_offset=q_off,
+            k_offset=k_off)
+        ctx.save_for_backward(q, k, v, bias, mask, o, lse)
+        ctx.args = (sm_scale, causal, dropout_prob, seed, offset, q_off,
+                    k_off, want_dbias)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, g_lse):
+        q, k, v, bias, mask, o, lse = ctx.saved_tensors
+        sm_scale, causal, p, seed, offset, q_off, k_off, want = ctx.args
+        dq, dk, dv, db = flash_attention_bwd(
+            q, k, v, bias, o, lse, torch.zeros_like(o) if do is None else do,
+            sm_scale, causal, p, mask=mask, dropout_seed=seed,
+            dropout_offset=offset, q_offset=q_off, k_offset=k_off,
+            g_lse=g_lse, want_dbias=want)
+        return (dq, dk, dv, db) + (None,) * 9
+
+
+def flash_attention_fwd(q, k, v, bias=None, sm_scale=None, causal=False,
+                        dropout_prob=0.0, dropout_generator=None, *,
+                        mask=None, dropout_seed=None, dropout_offset=0,
+                        q_offset=0, k_offset=0, return_bits=False):
+    """Row 6, not differentiable: (o [B, nh, S, D], lse [B, nh, S] f32).
+    CPU and meta tensors take the plain version (dropout from ``mask`` or
+    drawn from ``dropout_generator``); CUDA tensors launch the kernel or
+    raise (dropout from ``mask``, else Philox from ``dropout_seed``).
+    ``return_bits`` adds the uint8 keep bits the Philox drew (None
+    without Philox)."""
+    _device_check(q)
+    b, nh, s, d = q.shape
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    if q.device.type != "cuda":
+        if dropout_prob > 0.0 and mask is None and q.device.type == "cpu":
+            mask = draw_keep_mask_bhsd(q, dropout_prob, dropout_generator)
+        out = flash_attention_reference(q, k, v, bias, sm_scale, causal,
+                                        dropout_prob, mask, None, q_offset,
+                                        k_offset)
+        return out + (None,) if return_bits else out
+    check_bhsd_inputs(q, k, v, bias, dropout_prob, mask)
+    bias_k, mode, dims = _classify_bias(bias, b, nh, s)
+    o, lse, bits = _cuda_flash_fwd(q, k, v, bias_k, mode, dims, sm_scale,
+                                   causal, q_offset, k_offset, dropout_prob,
+                                   mask, dropout_seed, dropout_offset,
+                                   return_bits)
+    return (o, lse, bits) if return_bits else (o, lse)
+
+
+def flash_attention_bwd(q, k, v, bias, o, lse, do, sm_scale=None,
+                        causal=False, dropout_prob=0.0, *, mask=None,
+                        dropout_seed=None, dropout_offset=0, q_offset=0,
+                        k_offset=0, g_lse=None, want_dbias=False):
+    """(dq, dk, dv, dbias in the bias's shape or None) of the forward that
+    gave o and lse, with the lse cotangent ``g_lse``.  CPU and meta
+    tensors take the plain version, which needs the forward's ``mask``
+    for dropout; CUDA tensors launch rows 8 and 9 (a full bias) or row 7
+    (any other) or raise."""
+    _device_check(q)
+    b, nh, s, d = q.shape
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    if q.device.type != "cuda":
+        if dropout_prob > 0.0 and mask is None and q.device.type == "cpu":
+            raise ValueError("the plain backward needs the forward's keep "
+                             "mask for dropout")
+        return flash_attention_bwd_reference(
+            q, k, v, bias, o, lse, do, sm_scale, causal,
+            mask if dropout_prob > 0.0 else None, 1.0 - dropout_prob,
+            q_offset, k_offset, g_lse, want_dbias)
+    check_bhsd_inputs(q, k, v, bias, dropout_prob, mask)
+    bias_k, mode, dims = _classify_bias(bias, b, nh, s)
+    dq, dk, dv, db = _cuda_flash_bwd(
+        q, k, v, bias_k, mode, dims, o, lse, do.contiguous(), sm_scale,
+        causal, q_offset, k_offset, dropout_prob, mask, dropout_seed,
+        dropout_offset, g_lse, want_dbias and mode is not None)
+    if db is not None:
+        db = db.reshape(bias.shape).to(bias.dtype)
+    return dq, dk, dv, db
+
+
+def _flash_bhsd(q, k, v, bias, sm_scale, causal, dropout_prob, mask, seed,
+                offset, q_off, k_off, want_dbias):
+    if q.shape[2] % MIN_BLOCK:
+        raise ValueError(f"flash_attention needs seq % {MIN_BLOCK} == 0, "
+                         f"got {q.shape[2]}")
+    return _FlashBHSD.apply(q, k, v, bias, mask, seed, float(sm_scale),
+                            bool(causal), float(dropout_prob), int(offset),
+                            int(q_off), int(k_off), bool(want_dbias))
+
+
+def _dropout_source(q, dropout_prob, generator, seed, mask):
+    """(mask, seed) of a training call: the card draws Philox bits from
+    the seed (the generator's, when given one); the CPU a keep mask from
+    the generator (or from a generator made from the seed)."""
+    if dropout_prob <= 0.0 or mask is not None:
+        return mask, None
+    if q.device.type == "cuda":
+        if seed is None:
+            if generator is None:
+                raise ValueError("dropout needs a mask, a seed or a "
+                                 "generator")
+            seed = generator.initial_seed()
+        return None, int(seed)
+    if q.device.type == "cpu":
+        if generator is None:
+            if seed is None:
+                raise ValueError("dropout needs a mask, a seed or a "
+                                 "generator")
+            generator = torch.Generator(device="cpu")
+            generator.manual_seed(int(seed))
+        return draw_keep_mask_bhsd(q, dropout_prob, generator), None
+    return None, None
+
+
+def flash_attention(q, k, v, bias=None, sm_scale=None, causal=False,
+                    dropout_prob=0.0, dropout_generator=None,
+                    bias_requires_grad=False, *, dropout_seed=None,
+                    mask=None, dropout_offset=0):
+    """Flash attention on [B, nh, S, D] (the JAX package's
+    ``flash_attention``, without its mesh): bias additive, [B|1, 1, 1, S]
+    per key or [B|1, nh|1, S, S] full; returns o [B, nh, S, D],
+    differentiable in q, k, v, and in the bias when
+    ``bias_requires_grad`` (else its cotangent is zero).  Dropout keeps
+    where ``mask`` says, else draws: a keep mask from
+    ``dropout_generator`` (or ``dropout_seed``) on the CPU, Philox bits
+    of its seed on the card."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    mask, seed = _dropout_source(q, dropout_prob, dropout_generator,
+                                 dropout_seed, mask)
+    return _flash_bhsd(q, k, v, bias, sm_scale, causal, dropout_prob, mask,
+                       seed, dropout_offset, 0, 0, bias_requires_grad)[0]
+
+
+flash_attention.launches = 0
+
+
+def flash_block_with_lse(q, k, v, key_bias=None, sm_scale=None,
+                         bias_requires_grad=True, causal=False,
+                         q_offset=None, k_offset=None, dropout_prob=0.0,
+                         dropout_seed=None, dropout_mask=None):
+    """One attention block of ring attention (the JAX package's
+    ``flash_block_with_lse``): q, k, v [B, nh, S, D], key_bias [B, S]
+    additive per key.  Returns (o [B, nh, S, D], lse [B, nh, S]), both
+    differentiable (the lse cotangent folds into delta).  causal with
+    (q_offset, k_offset): the global positions of the q rows and of the k
+    block.  Dropout from ``dropout_mask`` [B, nh, S, S] uint8, else from
+    ``dropout_seed`` (Philox on the card, a keep mask drawn from it on
+    the CPU).  dbias is computed by default."""
+    b, nh, s, d = q.shape
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    bias = None if key_bias is None else key_bias.reshape(b, 1, 1, s)
+    q_off = int(q_offset or 0) if causal else 0
+    k_off = int(k_offset or 0) if causal else 0
+    if dropout_prob > 0.0 and dropout_mask is None and dropout_seed is None:
+        raise ValueError("dropout needs dropout_seed or dropout_mask")
+    mask, seed = _dropout_source(q, dropout_prob, None, dropout_seed,
+                                 dropout_mask)
+    return _flash_bhsd(q, k, v, bias, sm_scale, causal, dropout_prob, mask,
+                       seed, 0, q_off, k_off, bias_requires_grad)
+
+
+def _visible_pairs(s, causal, q_off=0, k_off=0) -> int:
+    """(query, key) pairs a head computes: S * S, or under causal those
+    with k_off + j <= q_off + i."""
+    if not causal:
+        return s * s
+    return sum(min(max(q_off + i - k_off + 1, 0), s) for i in range(s))
+
+
+_BWD_FLOPS = {"fwd": 4, "fused": 10, "dq": 6, "dkv": 8}
+
+
+def bound_flops_bhsd(q, part="fwd", causal=False, q_offset=0,
+                     k_offset=0) -> int:
+    """Flops of one kernel, 2 a multiply-add over D per visible pair and
+    product: the forward's two products (4 D), row 7's five (10 D), row
+    8's three (s, dp, dq: 6 D), row 9's four (s, dp, dv, dk: 8 D)."""
+    b, nh, s, d = q.shape
+    return (_BWD_FLOPS[part] * b * nh * d
+            * _visible_pairs(s, causal, q_offset, k_offset))
+
+
+def _bias_bytes(q, bias):
+    if bias is None:
+        return 0
+    b, nh, s, _ = q.shape
+    bias_k, mode, _ = _classify_bias(bias, b, nh, s)
+    return bias_k.numel() * (4 if mode == "key" else bias.element_size())
+
+
+def bound_bytes_bhsd(q, bias=None, part="fwd", mask=None,
+                     want_dbias=False) -> int:
+    """Bytes one kernel must move, each input read once and each output
+    written once: the forward reads q, k, v, the bias (as the kernel
+    holds it: [bb, S] f32 or [R, S, S]) and the mask, and writes o and
+    the f32 lse; each backward kernel reads q, k, v, dO, lse, delta, the
+    bias and the mask, and writes its outputs (row 7 dq, dk, dv and the
+    key dbias [BH, S] f32; row 8 dq; row 9 dk, dv and the full dbias
+    [BH, S, S] f32).  Row 7's f32 dq partials are scratch, not counted."""
+    b, nh, s, _ = q.shape
+    act = q.numel() * q.element_size()
+    stat = b * nh * s * 4
+    extra = _bias_bytes(q, bias) + (0 if mask is None else mask.numel())
+    if part == "fwd":
+        return 4 * act + stat + extra
+    reads = 4 * act + 2 * stat + extra
+    if part == "fused":
+        return reads + 3 * act + (stat if want_dbias else 0)
+    if part == "dq":
+        return reads + act
+    return reads + 2 * act + (b * nh * s * s * 4 if want_dbias else 0)

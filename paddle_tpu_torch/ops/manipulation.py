@@ -84,6 +84,12 @@ def unsqueeze2(ctx, ins, attrs):
     return {"Out": [_unsqueeze(x, attrs["axes"])], "XShape": [_xshape(x)]}
 
 
+@register("expand_as")
+def expand_as(ctx, ins, attrs):
+    x, tgt = ins["X"][0], ins["target_tensor"][0]
+    return {"Out": [x.expand(tgt.shape)]}
+
+
 @register("gather")
 def gather(ctx, ins, attrs):
     x, idx = ins["X"][0], ins["Index"][0]

@@ -156,3 +156,38 @@ def test_unported_branches_raise(attrs):
     ins, cot, base = _inputs("composition_h32")
     with pytest.raises(NotImplementedError):
         _torch(ins, cot, dict(base, **attrs))
+
+
+BHSD_BIASES = {"full": (2, 2, 128, 128), "full_b1": (2, 1, 128, 128),
+               "key_shared": (1, 1, 1, 128)}
+
+
+@pytest.mark.parametrize("force_pallas", [False, True],
+                         ids=["jax_composition", "jax_pallas"])
+@pytest.mark.parametrize("bias", sorted(BHSD_BIASES))
+def test_stack_bhsd_branch_matches_jax(bias, force_pallas, monkeypatch):
+    """A bias the BSH kernel cannot hold (the reference Transformer's full
+    [B, nh, S, S] self-attention bias, a head-shared full one, a per-key
+    one shared over the batch): the port's layers take the BHSD branch
+    (its autograd Function once a layer), the JAX package's its BHSD
+    Pallas kernel (FORCE_PALLAS) or its composition; Out and every
+    gradient agree within the tolerances above."""
+    ins, cot, attrs = _inputs("bsh_h128_s128")
+    rng = np.random.default_rng(5)
+    ins["AttnBias"] = np.where(rng.random(BHSD_BIASES[bias]) > 0.2, 0.0,
+                               -1e4).astype(np.float32)
+    jax_attention.FORCE_PALLAS = force_pallas
+    try:
+        out_j, g_j = _jax(ins, cot, attrs)
+    finally:
+        jax_attention.FORCE_PALLAS = False
+    calls = []
+    real = fa._FlashBHSD.apply
+    monkeypatch.setattr(fa._FlashBHSD, "apply",
+                        lambda *a: calls.append(1) or real(*a))
+    out_t, g_t = _torch(ins, cot, attrs)
+    assert len(calls) == CONFIGS["bsh_h128_s128"][-1]
+    np.testing.assert_allclose(out_t, out_j, atol=ATOL, rtol=0)
+    for k, g in g_t.items():
+        np.testing.assert_allclose(g, g_j[k], atol=ATOL, rtol=RTOL,
+                                   err_msg=k)

@@ -1,0 +1,520 @@
+"""The port's BHSD flash attention (rows 6-9: the plain PyTorch versions,
+the ones CPU tensors take) against the JAX package's: the Pallas BHSD
+kernels in interpret mode (``_flash_fwd`` for o and the lse,
+``flash_attention`` and ``flash_block_with_lse`` and their custom VJPs
+through ``jax.vjp``) on the same numpy inputs, B 2, two heads of 64, S
+128 (256 for the causal offsets).
+
+Covered: every bias mode and broadcast (none; per key [B,1,1,S] and
+[1,1,1,S]; full [B,nh,S,S], [B,1,S,S], [1,nh,S,S], [1,1,S,S]), causal,
+causal at (q_offset, k_offset) including a q block that sees no key, the
+lse cotangent of ``flash_block_with_lse``, dropout from one shared
+explicit keep mask, dbias with ``bias_requires_grad`` on and a zero bias
+cotangent without it; the attention op's BHSD branch against the JAX op
+with ``FORCE_PALLAS`` on and off; the CUDA wrappers' input checks, the
+bounds at the path's shapes, and the launch counters (only a kernel
+launch counts).
+
+Tolerances (f32, the same math in another summation order; the Pallas
+kernels sum their online softmax block by block, torch in one pass): o
+2e-6, lse 2e-5 (a log of a sum of up to 256 terms of size up to e^5), dq
+dk dv 1e-5 (sums over up to 256 products of such terms), dbias 2e-5 (a
+key bias sums ds over both heads and all rows as well).
+"""
+from __future__ import annotations
+
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu.ops import attention as jax_attention
+from paddle_tpu.ops import registry as jreg
+from paddle_tpu.ops.pallas import flash_attention as jfa
+from paddle_tpu_torch.ops import registry as treg
+from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+B, NH, S, D = 2, 2, 128, 64
+O_TOL, LSE_TOL, GRAD_TOL, DBIAS_TOL = 2e-6, 2e-5, 1e-5, 2e-5
+
+BIASES = {"none": None, "key": (B, 1, 1, S), "key_shared": (1, 1, 1, S),
+          "full": (B, NH, S, S), "full_b1": (B, 1, S, S),
+          "full_1h": (1, NH, S, S), "full_11": (1, 1, S, S)}
+
+
+def _qkv(seed, s=S):
+    rng = np.random.default_rng(seed)
+    return [(rng.standard_normal((B, NH, s, D)) * 0.5).astype(np.float32)
+            for _ in range(3)], rng
+
+
+def _bias(rng, name, s=S):
+    shape = BIASES[name]
+    if shape is None:
+        return None
+    shape = tuple(s if n == S else n for n in shape)
+    if name.startswith("key"):  # a padding mask with a random offset
+        return (np.where(rng.random(shape) > 0.25, 0.0, -1e4)
+                + rng.standard_normal(shape)).astype(np.float32)
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def _t(x, grad=False):
+    return None if x is None else torch.as_tensor(x).requires_grad_(grad)
+
+
+def _j(x):
+    return None if x is None else jnp.asarray(x)
+
+
+def _close(got, want, tol, msg=""):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=tol,
+                               rtol=0, err_msg=msg)
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("bias", sorted(BIASES))
+def test_plain_forward_matches_jax_o_and_lse(bias, causal):
+    (q, k, v), rng = _qkv(1)
+    bs = _bias(rng, bias)
+    sm_scale = 1.0 / math.sqrt(D)
+    biask, mode, dims = jfa._classify_bias(_j(bs), B, NH, S)
+    o_j, lse_j = jfa._flash_fwd(
+        *(jnp.asarray(x.reshape(B * NH, S, D)) for x in (q, k, v)), biask,
+        None, None, None, sm_scale=sm_scale, num_heads=NH, causal=causal,
+        dropout_prob=0.0, bias_mode=mode, bias_dims=dims)
+    o_t, lse_t = fa.flash_attention_fwd(_t(q), _t(k), _t(v), _t(bs),
+                                        causal=causal)
+    assert o_t.shape == (B, NH, S, D) and lse_t.shape == (B, NH, S)
+    _close(o_t.numpy().reshape(B * NH, S, D), o_j, O_TOL)
+    _close(lse_t.numpy().reshape(B * NH, 1, S), lse_j, LSE_TOL)
+    # the kernel's bias form: never a broadcast copy
+    bk, tmode, tdims = fa._classify_bias(_t(bs), B, NH, S)
+    assert (tmode, tdims) == (mode, dims)
+    if mode == "key":
+        assert tuple(bk.shape) == (dims[0], S)
+    elif mode == "full":
+        assert tuple(bk.shape) == (dims[0] * dims[1], S, S)
+        assert fa._bias_row_map(tdims, NH) == jfa._bias_row_map(dims, NH)
+
+
+def _jax_grads(q, k, v, bs, cot, **kw):
+    args = [jnp.asarray(x) for x in (q, k, v)] + (
+        [] if bs is None else [jnp.asarray(bs)])
+
+    def f(*a):
+        return jfa.flash_attention(*a[:3], a[3] if len(a) > 3 else None,
+                                   **kw)
+
+    o, vjp = jax.vjp(f, *args)
+    return np.asarray(o), [np.asarray(g) for g in vjp(jnp.asarray(cot))]
+
+
+def _torch_grads(q, k, v, bs, cot, **kw):
+    ts = [_t(x, True) for x in (q, k, v)] + (
+        [] if bs is None else [_t(bs, True)])
+    o = fa.flash_attention(*ts[:3], ts[3] if len(ts) > 3 else None, **kw)
+    gs = torch.autograd.grad(o, ts, torch.as_tensor(cot), allow_unused=True)
+    return o.detach().numpy(), [None if g is None else g.numpy()
+                                for g in gs]
+
+
+@pytest.mark.parametrize("want_dbias", [False, True],
+                         ids=["zero_dbias", "dbias"])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("bias", sorted(BIASES))
+def test_plain_grads_match_jax_vjp(bias, causal, want_dbias):
+    (q, k, v), rng = _qkv(2)
+    bs = _bias(rng, bias)
+    cot = rng.standard_normal((B, NH, S, D)).astype(np.float32)
+    kw = dict(causal=causal, bias_requires_grad=want_dbias)
+    o_j, g_j = _jax_grads(q, k, v, bs, cot, **kw)
+    o_t, g_t = _torch_grads(q, k, v, bs, cot, **kw)
+    _close(o_t, o_j, O_TOL)
+    for name, a, b in zip(("dq", "dk", "dv"), g_t, g_j):
+        _close(a, b, GRAD_TOL, name)
+    if bs is None:
+        return
+    if want_dbias:
+        assert g_t[3].shape == bs.shape and np.abs(g_t[3]).max() > 0
+        _close(g_t[3], g_j[3], DBIAS_TOL, "dbias")
+    else:
+        # the zero cotangent: JAX returns zeros, the port none
+        assert not np.any(g_j[3]) and g_t[3] is None
+
+
+@pytest.fixture
+def jax_block_128(monkeypatch):
+    """JAX's BHSD kernels on 128-row blocks at S = 256, so a q block can
+    see no key (its default at S = 256 is one 256-row block)."""
+    monkeypatch.setenv("PADDLE_FLASH_BLOCK", "128")
+
+
+OFFSETS = {"q_after": (128, 0), "k_after": (0, 128),
+           "k_after_shifted": (128, 256), "aligned": (256, 256)}
+
+
+@pytest.mark.parametrize("key_bias", [False, True], ids=["no_bias", "bias"])
+@pytest.mark.parametrize("offsets", sorted(OFFSETS))
+def test_block_with_lse_offsets_and_lse_cotangent(offsets, key_bias,
+                                                  jax_block_128):
+    """Causal at runtime offsets, with (o, lse) both carrying a
+    cotangent; ``k_after`` and ``k_after_shifted`` leave the first q
+    block of 128 rows seeing no key at all (o 0, lse NEG_INF, zero
+    gradients, no NaN)."""
+    s = 256
+    (q, k, v), rng = _qkv(3, s)
+    kb = (np.where(rng.random((B, s)) > 0.2, 0.0, -1e4).astype(np.float32)
+          if key_bias else None)
+    q_off, k_off = OFFSETS[offsets]
+    cot_o = rng.standard_normal((B, NH, s, D)).astype(np.float32)
+    cot_l = rng.standard_normal((B, NH, s)).astype(np.float32)
+    kw = dict(causal=True, q_offset=q_off, k_offset=k_off)
+
+    args = [jnp.asarray(x) for x in (q, k, v)] + (
+        [jnp.asarray(kb)] if key_bias else [])
+    (o_j, lse_j), vjp = jax.vjp(
+        lambda *a: jfa.flash_block_with_lse(
+            *a[:3], a[3] if key_bias else None, **kw), *args)
+    g_j = vjp((jnp.asarray(cot_o), jnp.asarray(cot_l)))
+
+    ts = [_t(x, True) for x in (q, k, v)] + ([_t(kb, True)] if key_bias
+                                             else [])
+    o_t, lse_t = fa.flash_block_with_lse(
+        *ts[:3], ts[3] if key_bias else None, **kw)
+    g_t = torch.autograd.grad((o_t, lse_t), ts, (torch.as_tensor(cot_o),
+                                                 torch.as_tensor(cot_l)))
+    _close(o_t.detach(), o_j, O_TOL, "o")
+    _close(lse_t.detach(), lse_j, LSE_TOL, "lse")
+    for name, a, b in zip(("dq", "dk", "dv", "dkey_bias"), g_t, g_j):
+        assert torch.isfinite(a).all(), name
+        _close(a, b, DBIAS_TOL if name == "dkey_bias" else GRAD_TOL, name)
+    if offsets.startswith("k_after"):
+        assert not o_t[:, :, :128].detach().any()
+        assert (lse_t[:, :, :128] <= jfa.NEG_INF).all()
+        assert not g_t[0][:, :, :128].any()
+
+
+def test_rows_that_see_no_key_in_a_visited_tile():
+    """Offsets 96 apart: rows 0-95 of the first q tile see no key while
+    its other rows do.  The port gives such a row o = 0, lse = NEG_INF
+    and zero gradients in every tiling (the TPU kernel does so only when
+    its whole q block sees no key); the rows that see keys are the masked
+    softmax of a plain composition."""
+    (q, k, v), rng = _qkv(9, 256)
+    ts = [_t(x, True) for x in (q, k, v)]
+    o, lse = fa.flash_block_with_lse(*ts, causal=True, q_offset=32,
+                                     k_offset=128)
+    (o.sum() + lse.clamp_min(-1e4).sum()).backward()
+    assert not o[:, :, :96].detach().any()
+    assert (lse[:, :, :96] <= fa.NEG_INF).all()
+    assert not ts[0].grad[:, :, :96].any()
+    assert all(torch.isfinite(t.grad).all() for t in ts)
+    i = torch.arange(256)[:, None] + 32
+    j = torch.arange(256)[None, :] + 128
+    sc = torch.matmul(ts[0], ts[1].transpose(-1, -2)) / math.sqrt(D)
+    probs = torch.softmax(sc[:, :, 96:].masked_fill((i < j)[96:], -1e30), -1)
+    _close(o[:, :, 96:].detach(), torch.matmul(probs, ts[2])[...].detach(),
+           O_TOL)
+
+
+@pytest.mark.parametrize("bias", ["none", "key_shared", "full_b1"])
+def test_dropout_from_one_shared_mask_matches_jax(bias):
+    """Numerator-only dropout with the same uint8 keep mask on both
+    sides, forward and every gradient (the mask rides the custom VJP)."""
+    p = 0.2
+    (q, k, v), rng = _qkv(4)
+    bs = _bias(rng, bias)
+    mask = (rng.random((B, NH, S, S)) > p).astype(np.uint8)
+    cot = rng.standard_normal((B, NH, S, D)).astype(np.float32)
+    seed = jnp.zeros((1,), jnp.int32)  # unused: the mask is given
+
+    def f(*a):
+        return jfa._flash_local(
+            *a[:3], a[3] if bs is not None else None, jnp.asarray(mask),
+            seed, sm_scale=1.0 / math.sqrt(D), causal=False,
+            dropout_prob=p, bias_requires_grad=True)
+
+    args = [jnp.asarray(x) for x in (q, k, v)] + (
+        [] if bs is None else [jnp.asarray(bs)])
+    o_j, vjp = jax.vjp(f, *args)
+    g_j = vjp(jnp.asarray(cot))
+    ts = [_t(x, True) for x in (q, k, v)] + (
+        [] if bs is None else [_t(bs, True)])
+    o_t = fa.flash_attention(*ts[:3], ts[3] if bs is not None else None,
+                             dropout_prob=p, bias_requires_grad=True,
+                             mask=torch.as_tensor(mask))
+    g_t = torch.autograd.grad(o_t, ts, torch.as_tensor(cot))
+    _close(o_t.detach(), o_j, O_TOL)
+    for a, b in zip(g_t, g_j):
+        _close(a, b, DBIAS_TOL)
+    # the plain backward refuses dropout without the forward's mask
+    o, lse = fa.flash_attention_fwd(_t(q), _t(k), _t(v), dropout_prob=p,
+                                    mask=torch.as_tensor(mask))
+    with pytest.raises(ValueError, match="keep mask"):
+        fa.flash_attention_bwd(_t(q), _t(k), _t(v), None, o, lse,
+                               torch.as_tensor(cot), dropout_prob=p)
+
+
+def test_cpu_dropout_draws_from_the_generator_or_seed():
+    (q, k, v), _ = _qkv(5)
+    q, k, v = _t(q), _t(k), _t(v)
+
+    def gen(seed):
+        g = torch.Generator()
+        g.manual_seed(seed)
+        return g
+
+    a = fa.flash_attention(q, k, v, dropout_prob=0.3,
+                           dropout_generator=gen(1))
+    b = fa.flash_attention(q, k, v, dropout_prob=0.3,
+                           dropout_generator=gen(1))
+    c = fa.flash_attention(q, k, v, dropout_prob=0.3,
+                           dropout_generator=gen(2))
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    assert not torch.allclose(a, fa.flash_attention(q, k, v))
+    o1, _ = fa.flash_block_with_lse(q, k, v, dropout_prob=0.3,
+                                    dropout_seed=9)
+    o2, _ = fa.flash_block_with_lse(q, k, v, dropout_prob=0.3,
+                                    dropout_seed=9)
+    assert torch.equal(o1, o2)
+    with pytest.raises(ValueError, match="dropout needs"):
+        fa.flash_block_with_lse(q, k, v, dropout_prob=0.3)
+    with pytest.raises(ValueError, match="dropout needs"):
+        fa.flash_attention(q, k, v, dropout_prob=0.3)
+
+
+# ---------------------------------------------------------------------------
+# the attention op's BHSD branch against the JAX op
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("force_pallas", [False, True],
+                         ids=["jax_composition", "jax_pallas"])
+@pytest.mark.parametrize("bias", ["full", "full_1h", "key_shared"])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_attention_op_bhsd_branch_matches_jax(bias, causal, force_pallas,
+                                              monkeypatch):
+    """``fused_multihead_attention`` with a bias the BSH kernel refuses:
+    the port takes its BHSD branch (the autograd Function runs once), the
+    JAX op its BHSD Pallas kernel (FORCE_PALLAS) or its composition; the
+    output and dQ/dK/dV agree and BiasQK's cotangent is zero on both."""
+    rng = np.random.default_rng(6)
+    h = NH * D
+    q, k, v = (rng.standard_normal((B, S, h)).astype(np.float32) * 0.5
+               for _ in range(3))
+    bs = _bias(rng, bias)
+    cot = rng.standard_normal((B, S, h)).astype(np.float32)
+    attrs = {"num_heads": NH, "dropout_prob": 0.0, "is_test": False,
+             "causal": causal, "rng_salt": 1}
+
+    def jfn(q_, k_, v_, b_):
+        return jreg.get("fused_multihead_attention").emit(
+            jreg.EmitContext(rng_key=jax.random.PRNGKey(0)),
+            {"Q": [q_], "K": [k_], "V": [v_], "BiasQK": [b_]},
+            dict(attrs))["Out"][0]
+
+    jax_attention.FORCE_PALLAS = force_pallas
+    try:
+        o_j, vjp = jax.vjp(jfn, *(jnp.asarray(x) for x in (q, k, v, bs)))
+        g_j = vjp(jnp.asarray(cot))
+    finally:
+        jax_attention.FORCE_PALLAS = False
+    calls = []
+    real = fa._FlashBHSD.apply
+    monkeypatch.setattr(fa._FlashBHSD, "apply",
+                        lambda *a: calls.append(1) or real(*a))
+    ts = [_t(x, True) for x in (q, k, v, bs)]
+    o_t = treg.get("fused_multihead_attention").emit(
+        treg.EmitContext(seed=0),
+        {"Q": [ts[0]], "K": [ts[1]], "V": [ts[2]], "BiasQK": [ts[3]]},
+        dict(attrs))["Out"][0]
+    g_t = torch.autograd.grad(o_t, ts, torch.as_tensor(cot),
+                              allow_unused=True)
+    assert len(calls) == 1
+    _close(o_t.detach(), o_j, O_TOL)
+    for name, a, b in zip(("dQ", "dK", "dV"), g_t, g_j):
+        _close(a, b, GRAD_TOL, name)
+    assert not np.any(np.asarray(g_j[3])) and g_t[3] is None
+
+
+def test_attention_op_takes_bsh_for_a_per_key_batch_bias(monkeypatch):
+    """A [B, 1, 1, S] bias stays on the BSH kernels; a [1, 1, 1, S] one
+    fails BSH's batch test and takes the BHSD branch, as in the JAX op."""
+    rng = np.random.default_rng(7)
+    h = NH * D
+    q = torch.as_tensor(rng.standard_normal((B, S, h)), dtype=torch.float32)
+    seen = []
+    for name in ("_FlashBSH", "_FlashBHSD"):
+        cls = getattr(fa, name)
+        real = cls.apply
+        monkeypatch.setattr(cls, "apply",
+                            lambda *a, _r=real, _n=name: seen.append(_n)
+                            or _r(*a))
+    attrs = {"num_heads": NH, "causal": False, "rng_salt": 1}
+    for bias in ("key", "key_shared"):
+        treg.get("fused_multihead_attention").emit(
+            treg.EmitContext(seed=0),
+            {"Q": [q], "K": [q], "V": [q],
+             "BiasQK": [_t(_bias(rng, bias))]}, attrs)
+    assert seen == ["_FlashBSH", "_FlashBHSD"]
+
+
+# ---------------------------------------------------------------------------
+# CUDA wrappers: input checks, bounds, counters
+# ---------------------------------------------------------------------------
+
+
+def _good(dtype=torch.float32, bias="full", d=D, s=S):
+    q, k, v = (torch.zeros(B, NH, s, d, dtype=dtype) for _ in range(3))
+    shape = BIASES[bias]
+    b = None if shape is None else torch.zeros(
+        tuple(s if n == S else n for n in shape))
+    return q, k, v, b
+
+
+@pytest.mark.parametrize("case", ["f32_full", "bf16_full_bf16_bias",
+                                  "key_shared", "none_d128", "d256_s64",
+                                  "mask"])
+def test_kernel_check_accepts_supported_inputs(case):
+    if case == "f32_full":
+        fa.check_bhsd_inputs(*_good())
+    elif case == "bf16_full_bf16_bias":
+        q, k, v, b = _good(torch.bfloat16)
+        fa.check_bhsd_inputs(q, k, v, b.to(torch.bfloat16))
+    elif case == "key_shared":
+        fa.check_bhsd_inputs(*_good(bias="key_shared"))
+    elif case == "none_d128":
+        fa.check_bhsd_inputs(*_good(bias="none", d=128))
+    elif case == "d256_s64":
+        fa.check_bhsd_inputs(*_good(d=256, s=64))
+    else:
+        fa.check_bhsd_inputs(*_good(), dropout_prob=0.1,
+                             mask=torch.ones(B, NH, S, S, dtype=torch.uint8))
+
+
+REFUSED = {
+    "f16": lambda: _good(torch.float16),
+    "mixed_dtype": lambda: (lambda q, k, v, b: (q, k.double(), v, b))(
+        *_good()),
+    "three_d": lambda: (lambda q, k, v, b: (q[0], k[0], v[0], None))(
+        *_good()),
+    "kv_mismatch": lambda: (lambda q, k, v, b: (q, k[:1], v, b))(*_good()),
+    "d96": lambda: _good(d=96),
+    "s96": lambda: _good(s=96),
+    "bias_3d": lambda: (lambda q, k, v, b: (q, k, v, b[0]))(*_good()),
+    "bias_heads": lambda: (lambda q, k, v, b: (
+        q, k, v, torch.zeros(B, 3, S, S)))(*_good()),
+    "bias_rows": lambda: (lambda q, k, v, b: (
+        q, k, v, torch.zeros(B, NH, 64, S)))(*_good()),
+    "bias_f16": lambda: (lambda q, k, v, b: (q, k, v, b.half()))(*_good()),
+    "non_contiguous": lambda: (lambda q, k, v, b: (
+        q.transpose(2, 3).contiguous().transpose(2, 3), k, v, b))(*_good()),
+}
+
+
+@pytest.mark.parametrize("name", sorted(REFUSED) + ["mask_shape",
+                                                    "dropout_one"])
+def test_kernel_check_refuses(name):
+    if name == "mask_shape":
+        with pytest.raises(ValueError, match="mask"):
+            fa.check_bhsd_inputs(*_good(), dropout_prob=0.1,
+                                 mask=torch.ones(B, NH, S, dtype=torch.uint8))
+        return
+    if name == "dropout_one":
+        with pytest.raises(ValueError, match="dropout_prob"):
+            fa.check_bhsd_inputs(*_good(), dropout_prob=1.0)
+        return
+    with pytest.raises(ValueError):
+        fa.check_bhsd_inputs(*REFUSED[name]())
+
+
+def test_flash_attention_wants_lengths_of_128():
+    q = torch.zeros(1, 1, 64, 64)
+    with pytest.raises(ValueError, match="seq"):
+        fa.flash_attention(q, q, q)
+
+
+def test_bounds_at_the_nmt_shapes():
+    """The bytes and flops bounds at the encoder's shapes (B 64, nh 8,
+    S 256, D 64, bf16 with the bf16 [B, nh, S, S] bias) and row 7's at
+    the hapi MultiHeadAttention's ([1, 1, 1, S] bias)."""
+    q = torch.empty(64, 8, 256, 64, dtype=torch.bfloat16, device="meta")
+    full = torch.empty(64, 8, 256, 256, dtype=torch.bfloat16, device="meta")
+    key = torch.empty(1, 1, 1, 256, dtype=torch.bfloat16, device="meta")
+    act, stat, bias = 2 * 64 * 8 * 256 * 64, 4 * 64 * 8 * 256, 2 * 64 * 8 * 256 ** 2
+    assert fa.bound_bytes_bhsd(q, full) == 4 * act + stat + bias
+    assert fa.bound_bytes_bhsd(q, full, "dq") == 5 * act + 2 * stat + bias
+    assert fa.bound_bytes_bhsd(q, full, "dkv") == 6 * act + 2 * stat + bias
+    assert fa.bound_bytes_bhsd(q, full, "dkv", want_dbias=True) == (
+        6 * act + 2 * stat + bias + 4 * 64 * 8 * 256 ** 2)
+    assert fa.bound_bytes_bhsd(q, key, "fused") == 7 * act + 2 * stat + 4 * 256
+    # in MB: 134.7, 152.0, 168.8 and ~118.5
+    assert round(fa.bound_bytes_bhsd(q, full) / 1e6, 1) == 134.7
+    assert round(fa.bound_bytes_bhsd(q, full, "dq") / 1e6, 1) == 152.0
+    assert round(fa.bound_bytes_bhsd(q, full, "dkv") / 1e6, 1) == 168.8
+    pairs = 256 * 256
+    assert fa.bound_flops_bhsd(q) == 4 * 64 * 8 * pairs * 64 == 8589934592
+    assert fa.bound_flops_bhsd(q, "fused") == 10 * 64 * 8 * pairs * 64
+    assert fa.bound_flops_bhsd(q, "dq") == 6 * 64 * 8 * pairs * 64
+    assert fa.bound_flops_bhsd(q, "dkv") == 8 * 64 * 8 * pairs * 64
+    assert fa.bound_flops_bhsd(q, causal=True) == 4 * 64 * 8 * (
+        256 * 257 // 2) * 64
+    # offsets count the pairs this run's data needs
+    assert fa._visible_pairs(4, True, 0, 2) == 0 + 0 + 1 + 2
+    assert fa._visible_pairs(4, True, 8, 0) == 16
+
+
+def test_counters_count_kernel_launches_only(monkeypatch):
+    """CPU calls launch nothing and count nothing; on the card the
+    backward dispatches like ``_flash_bwd``: a full bias to rows 8 and 9
+    (one launch each), any other bias to row 7; a launch that CUDA
+    refuses raises and does not count."""
+    counters = (fa.flash_attention, fa.flash_attention_bwd_fused,
+                fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
+    before = [c.launches for c in counters]
+    (q, k, v), rng = _qkv(8)
+    for bias in ("none", "key", "full"):
+        ts = [_t(x, True) for x in (q, k, v)]
+        o = fa.flash_attention(*ts, _t(_bias(rng, bias)))
+        o.sum().backward()
+    assert [c.launches for c in counters] == before
+
+    parts = []
+    monkeypatch.setattr(fa, "_cuda_flash_bwd_part",
+                        lambda part, *a: parts.append(part) or (
+                            None, None, None, None))
+    qt, kt, vt = (torch.zeros(B, NH, S, D) for _ in range(3))
+    lse = torch.zeros(B, NH, S)
+    for bias in ("full_b1", "key_shared", "none"):
+        bk, mode, dims = fa._classify_bias(_t(_bias(rng, bias)), B, NH, S)
+        fa._cuda_flash_bwd(qt, kt, vt, bk, mode, dims, qt, lse, qt, 0.125,
+                           False, 0, 0, 0.0, None, None, 0, None, False)
+    assert parts == [fa._DQ, fa._DKV, fa._FUSED, fa._FUSED]
+    assert [c.launches for c in counters] == [
+        before[0], before[1] + 2, before[2] + 1, before[3] + 1]
+
+    class _Dev:
+        def __init__(self, *a):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *a):
+            return False
+
+    class _Stream:
+        cuda_stream = 0
+
+    monkeypatch.setattr(torch.cuda, "device", _Dev)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: _Stream())
+    monkeypatch.setattr(fa, "_bhsd_launcher", lambda name: lambda *a: 700)
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        fa._cuda_flash_fwd(qt, kt, vt, None, None, None, 0.125, False, 0, 0,
+                           0.0, None, None, 0, False)
+    assert fa.flash_attention.launches == before[0]
+

@@ -45,7 +45,8 @@ for n in ("fluid", "fluid.layers", "fluid.executor", "fluid.framework",
           "contrib.mixed_precision", "contrib.mixed_precision.decorator",
           "contrib.mixed_precision.fp16_utils",
           "contrib.mixed_precision.fp16_lists", "ops.kernels.conv_bn",
-          "fluid.fusion_pass", "models.resnet", "fluid.layers.nn"):
+          "fluid.fusion_pass", "models.resnet", "fluid.layers.nn",
+          "fluid.layers.misc", "fluid.layers.tensor", "hapi", "hapi.text"):
     assert "paddle_tpu_torch." + n in names, n
 """
 
@@ -83,10 +84,10 @@ def test_resolve_device_defaults_to_cuda_and_never_falls_back(monkeypatch):
 def test_every_kernel_source_builds_into_its_own_library(monkeypatch,
                                                          tmp_path):
     srcs = _build.sources()
-    assert sorted(srcs) == ["add_ln", "conv_bn", "flash_attention_bsh",
-                            "paged_attention"]
+    assert sorted(srcs) == ["add_ln", "conv_bn", "flash_attention_bhsd",
+                            "flash_attention_bsh", "paged_attention"]
     libs = {_build.lib_path(n) for n in srcs}
-    assert len(libs) == 4 and all(os.path.basename(p).startswith("lib")
+    assert len(libs) == 5 and all(os.path.basename(p).startswith("lib")
                                   for p in libs)
     # a compiler that refuses every source: one error naming each source,
     # with its log, after all of them ran
@@ -195,6 +196,67 @@ def test_resnet_trains_with_fusion_and_amp_without_jax():
     runs a step in a process that never imports jax or paddle_tpu."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", _RESNET_PROBE], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.startswith("ok")
+
+
+def test_a_shared_header_change_rebuilds_every_library(monkeypatch,
+                                                       tmp_path):
+    """A library is named by its source and the shared ``csrc/*.cuh``
+    headers, so a header edit builds anew instead of loading a stale
+    library."""
+    import shutil
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", str(csrc))
+    before = {n: _build.lib_path(n) for n in _build.sources()}
+    with open(csrc / "flash_common.cuh", "a") as f:
+        f.write("// edited\n")
+    after = {n: _build.lib_path(n) for n in _build.sources()}
+    assert all(before[n] != after[n] for n in before)
+
+
+_NMT_PROBE = r"""
+import sys
+import numpy as np
+import paddle_tpu_torch.fluid as fluid
+from paddle_tpu_torch.fluid import layers
+from paddle_tpu_torch.hapi import text
+b, s, v, h, nh = 2, 128, 32, 128, 2
+main, startup = fluid.Program(), fluid.Program()
+with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+    ids = layers.data("ids", [b, s], "int64", append_batch_size=False)
+    bias = layers.data("bias", [b, nh, s, s], append_batch_size=False)
+    lbl = layers.data("lbl", [b, s, 1], "int64", append_batch_size=False)
+    x = layers.add_position_encoding(layers.embedding(ids, size=[v, h]),
+                                     1.0, 1.0)
+    enc = text.TransformerEncoder(1, nh, d_model=h, d_inner_hid=2 * h)
+    dec = text.TransformerDecoder(1, nh, d_model=h, d_inner_hid=2 * h)
+    logits = layers.fc(dec(x, enc(x, bias), None), v, num_flatten_dims=2)
+    loss = layers.mean(layers.softmax_with_cross_entropy(logits, lbl))
+    fluid.optimizer.AdamOptimizer(1e-3).minimize(loss)
+scope, exe = fluid.Scope(), fluid.Executor(device="cpu")
+exe.run(startup, scope=scope)
+rng = np.random.default_rng(0)
+feed = {"ids": rng.integers(0, v, (b, s)), "lbl": rng.integers(0, v, (b, s, 1)),
+        "bias": np.zeros((b, nh, s, s), np.float32)}
+(lv,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+assert np.isfinite(lv).all(), lv
+bad = sorted(k for k in sys.modules if k.split(".")[0] in
+             ("jax", "jaxlib", "paddle_tpu"))
+assert not bad, bad
+print("ok", float(lv[0]))
+"""
+
+
+def test_hapi_nmt_trains_without_jax():
+    """The hapi encoder-decoder with a full encoder bias (the BHSD
+    branch) runs a training step in a process that never imports jax or
+    paddle_tpu."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _NMT_PROBE], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.startswith("ok")
