@@ -11,15 +11,23 @@ prints no result):
                versions; TF32 off for matmuls and cuDNN
   build        nvcc builds every kernel library from ``csrc/`` (one nvcc
                per source, all started together): each library's path
-               and its ptxas register/spill lines
+               and its ptxas register/spill lines, and the tensor-core
+               kernels' ptxas lines by kernel
   kernels      each kernel against its plain PyTorch version at its main
                path's shapes (paged attention; BSH flash attention, o and
                lse, its backward dq/dk/dv and its dropout, from an explicit
                mask and from the in-kernel Philox, whose drawn bits feed
-               the plain version, and whose keep rate is checked;
-               add+LayerNorm, out and stats, and its backward dx, dscale,
-               dshift; the five conv+BN kernels at ResNet-50's shapes, f32
-               and bf16; the BHSD flash kernels, rows 6-9, at the NMT's
+               the plain version, and whose keep rate is checked; the
+               bf16 backward (the wgmma kernels) held rounding by rounding:
+               its rounded p c and ds against the plain version's, and its
+               dq, dk, dv against the plain products of them; timed at
+               BERT's shape, without dropout, and at the NMT decoder's two
+               shapes); add+LayerNorm, out and stats, and its backward dx,
+               dscale, dshift; the five conv+BN kernels at ResNet-50's
+               shapes, f32 and bf16 (row 10 at all four 3 x 3 stage shapes,
+               each route's launch counted, a tile sweep beside each
+               timing, and a C = 3 case for the bf16 SIMT route); the BHSD
+               flash kernels, rows 6-9, at the NMT's
                shapes: every bias broadcast, dbias, causal at offsets with
                rows that see no key, the lse cotangent, dropout from a
                mask and from Philox), with its time, bound, plain-version
@@ -52,7 +60,8 @@ prints no result):
                steps, then 10 timed; every loss finite, the loss falling,
                and every step launching each kernel exactly as often as
                its program needs (flash forward 12, flash backward 24 =
-               12 x 2 kernels, LN forward and backward 26)
+               12 x 2 kernels, all 24 on the wgmma pair, LN forward and
+               backward 26)
   bert_train_profile  torch.profiler over 3 of those steps
   bert_train_parity   the same training program on 2 x 128 with dropout
                0, 3 Adam steps on the card (kernels) against the CPU
@@ -64,7 +73,8 @@ prints no result):
                0.1/0.9, bf16 AMP, batch 128 at 224 x 224, one fixed seed-0
                batch: 2 warm steps, then 10 timed; every loss finite and
                every step launching the conv+BN kernels exactly as its
-               program needs (13 conv_stats, 36 mm_stats, 49 each of
+               program needs (13 conv_stats, all 13 on the wgmma
+               kernel, 36 mm_stats, 49 each of
                bn_apply, bn_bwd_reduce, bn_bwd_dz; 4 reference routes for
                the stride-2 k x k convs)
   resnet_train_profile  torch.profiler over 3 of those steps
@@ -85,8 +95,9 @@ prints no result):
                self-attention bias: bf16 AMP, Adam 1e-4, 64 x 256 -> 256
                on one seed-0 batch, 2 warm and 10 timed steps; every step
                launching rows 6, 8 and 9 once an encoder layer, the BSH
-               kernels for the decoder and the LN kernels exactly as the
-               program needs
+               kernels for the decoder (the 24 backward launches on the
+               wgmma pair) and the LN kernels exactly as the program
+               needs
   nmt_train_profile  torch.profiler over 3 of those steps
   nmt_train_parity   2 + 2 layers at those widths, 2 x 128, dropout 0, 3
                Adam steps on the card (kernels) against the CPU (plain
@@ -244,19 +255,34 @@ def phase_env(torch) -> dict:
     return env
 
 
+def _ptxas_by_kernel(log: str) -> dict:
+    """ptxas -v's register, spill and shared-memory lines, by kernel (the
+    mangled name of each entry function, its template arguments in it)."""
+    out, cur = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            cur = ln.split("'")[1] if "'" in ln else ln.strip()
+        elif cur and ("registers" in ln or "spill" in ln or "smem" in ln):
+            out.setdefault(cur, []).append(ln.split("info    :")[-1].strip())
+    return out
+
+
 def phase_build() -> dict:
     from paddle_tpu_torch.ops.kernels import _build
 
     t0 = time.perf_counter()
     built = _build.build_all()
     secs = time.perf_counter() - t0
-    libs = {}
+    libs, tc = {}, {}
     for name, (path, log) in built.items():
         libs[name] = {
             "library": os.path.basename(path), "cached": log is None,
             "ptxas": [ln.strip() for ln in (log or "").splitlines()
                       if "registers" in ln or "spill" in ln]}
-    emit({"phase": "build", "seconds": secs, "libraries": libs})
+        tc.update({k: v for k, v in _ptxas_by_kernel(log or "").items()
+                   if "_tc_kernel" in k})
+    emit({"phase": "build", "seconds": secs, "libraries": libs,
+          "tensor_core_kernels_ptxas": tc})
     return {"log": {name: log for name, (_, log) in built.items()}}
 
 
@@ -540,10 +566,51 @@ def _flash_train_case(torch, rng, b, s, nh, d, dtype, causal=False, p=0.0,
     return kw, do
 
 
+def _bwd_f64(torch, q, k, v, bias, o, lse, do, nh, causal):
+    """(dq, dk, dv) in float64 under the TPU kernel's rounding rule: s,
+    dp and delta in float64, p and ds rounded to bf16 from them, the
+    products in float64."""
+    b, s, hd = q.shape
+    d = hd // nh
+
+    def heads(t):
+        return t.double().reshape(b, s, nh, d).transpose(1, 2)
+
+    sc = heads(q) @ heads(k).transpose(-1, -2) / math.sqrt(d)
+    if bias is not None:
+        sc = sc + bias.reshape(b, 1, 1, s).double()
+    if causal:
+        sc = torch.where(torch.ones(s, s, dtype=torch.bool,
+                                    device=q.device).tril(), sc, -1e30)
+    p = torch.exp(sc - lse[..., None].double())
+    dof = heads(do)
+    dp = dof @ heads(v).transpose(-1, -2)
+    delta = (dof * heads(o)).sum(-1, keepdim=True)
+    ds = (p * (dp - delta) / math.sqrt(d)).to(torch.bfloat16).double()
+    p = p.to(torch.bfloat16).double()
+    out = (ds @ heads(k), ds.transpose(-1, -2) @ heads(q),
+           p.transpose(-1, -2) @ dof)
+    return tuple(t.transpose(1, 2).reshape(b, s, hd) for t in out)
+
+
 def _flash_bwd_check(torch, fa, name, kw, do) -> dict:
     """Forward (drawing its Philox bits) and backward kernels against the
     plain versions fed the same keep bits; returns the errors and, for
-    Philox, the keep rate."""
+    Philox, the keep rate.
+
+    bf16 (the wgmma kernels): both versions round p c and ds to bf16
+    before the dv, dk and dq products, as the TPU kernel does.  Where an
+    f32 p or ds sits within the two versions' f32 difference (their
+    scores and dP summed in other orders) of a bf16 rounding boundary,
+    the two round it to neighbouring values: one bf16 ulp of that term,
+    which moves an output that cancels to near zero by more than
+    1e-5 + 2^-7 |out| (on BERT-base's shape ~100 of 3.1M elements a
+    gradient, each version as far from a float64 evaluation as the
+    other).  So each rounding is held on its own at the same limits: the
+    kernels' rounded intermediates (their check outputs) against the
+    plain version's, and the kernels' dq, dk, dv against the plain
+    products of those intermediates.  The end-to-end difference is
+    reported beside them."""
     is_bf16 = kw["q"].dtype == torch.bfloat16
     o, lse, bits = fa.flash_attention_bsh_fwd(**kw, return_bits=True)
     p = kw["dropout_prob"]
@@ -559,20 +626,52 @@ def _flash_bwd_check(torch, fa, name, kw, do) -> dict:
         keep_div=keep_div if p else None)
     # the backward's inputs are the kernel forward's o and lse on both
     # sides: a bf16 o one ulp off would move delta, not the backward
-    grads = fa.flash_attention_bsh_bwd(
-        kw["q"], kw["k"], kw["v"], kw["bias"], o, lse, do, kw["num_heads"],
-        causal=kw["causal"], dropout_prob=p, mask=kw.get("mask"),
-        dropout_seed=kw.get("dropout_seed"))
-    ref = fa.flash_attention_bsh_bwd_reference(
-        kw["q"], kw["k"], kw["v"], kw["bias"], o, lse, do,
-        kw["num_heads"], causal=kw["causal"], mask=mask if p else None,
-        keep_div=keep_div)
+    q, k, v, nh = kw["q"], kw["k"], kw["v"], kw["num_heads"]
+    out = fa.flash_attention_bsh_bwd(
+        q, k, v, kw["bias"], o, lse, do, nh, causal=kw["causal"],
+        dropout_prob=p, mask=kw.get("mask"),
+        dropout_seed=kw.get("dropout_seed"), return_probs=is_bf16)
+    grads = out[:3]
+    p_ref, ds_ref = fa.bwd_probs_reference(
+        q, k, v, kw["bias"], o, lse, do, nh, causal=kw["causal"],
+        mask=mask if p else None, keep_div=keep_div)
+    ref = fa.bwd_products_reference(q, k, v, do, p_ref, ds_ref, nh)
     torch.cuda.synchronize()
     r = _check(f"flash {name} o", o, o_ref, 1e-5 if is_bf16 else ATOL_F32,
                RTOL_BF16 if is_bf16 else 0.0)
     r["lse"] = _check(f"flash {name} lse", lse, lse_ref,
                       ATOL_LSE)["max_abs_err"]
-    r["grads"] = _check_grads(f"flash backward {name}", grads, ref, is_bf16)
+    if not is_bf16:
+        r["grads"] = _check_grads(f"flash backward {name}", grads, ref,
+                                  False)
+    else:
+        p_k, ds_k, dsq_k = out[3]
+        r["intermediates"] = {
+            t: _check(f"flash backward {name} {t}", a, p_ref if t == "p"
+                      else ds_ref, 1e-5, RTOL_BF16)["max_abs_err"]
+            for t, a in (("p", p_k), ("ds", ds_k), ("ds_dq", dsq_k))}
+        fed = fa.bwd_products_reference(q, k, v, do, p_k, ds_k, nh,
+                                        ds_q=dsq_k)
+        r["grads"] = _check_grads(f"flash backward {name}", grads, fed,
+                                  True)
+        r["grads_end_to_end"] = {}
+        exact = (_bwd_f64(torch, q, k, v, kw["bias"], o, lse, do, nh,
+                          kw["causal"]) if p == 0.0 else (None,) * 3)
+        for g, a, b, e in zip(("dq", "dk", "dv"), grads, ref, exact):
+            diff = (a.float() - b.float()).abs()
+            r["grads_end_to_end"][g] = {
+                "max_abs_err": diff.max().item(),
+                "beyond_limit": int((diff > 1e-5 + RTOL_BF16
+                                     * b.float().abs()).sum()),
+                "elements": diff.numel()}
+            if e is not None:
+                # each version's distance from the float64 evaluation of
+                # the same rounding rule (relative L2)
+                r["grads_end_to_end"][g]["rel_l2_to_f64"] = {
+                    side: ((t.double() - e).norm() / e.norm()).item()
+                    for side, t in (("kernel", a), ("plain", b))}
+        del out, p_k, ds_k, dsq_k, fed, exact
+    del p_ref, ds_ref, ref
     if "dropout_seed" in kw and not kw["causal"]:
         n = bits.numel()
         rate = bits.float().mean().item()
@@ -666,7 +765,70 @@ def _kernels_flash_train(torch, F, flush) -> tuple:
                                     retain_graph=True),
         nbytes=fa.bound_bytes_bwd(q, k, v, bias, nh),
         flops=fa.bound_flops_bwd(q, k, nh), peak_flops=BF16_FLOPS))
+    # the same backward without dropout: what regenerating the Philox
+    # bits costs the two kernels
+    o0, lse0 = fa.flash_attention_bsh_fwd(q, k, v, bias, nh)
+    bwd["no_dropout_ms"] = time_cold_ms(
+        torch, lambda: fa.flash_attention_bsh_bwd(q, k, v, bias, o0, lse0,
+                                                  do, nh), flush)["median"]
+    del qh, kh, vh, lib_o, dout, main, kw, do, o0, lse0
+    torch.cuda.empty_cache()
+    bwd["nmt_decoder"] = _time_bwd_nmt(torch, F, flush, fa, rng)
     return results, fwd, bwd
+
+
+def _time_bwd_nmt(torch, F, flush, fa, rng) -> dict:
+    """Row 5 timed at the NMT decoder's two shapes (64 x 256, 8 heads of
+    64, bf16, Philox p = 0.1): the causal self-attention and the
+    cross-attention with its per-key source bias, each beside SDPA's
+    autograd backward on the same inputs."""
+    out = {}
+    for name, causal in (("self_causal", True), ("cross_key_bias", False)):
+        kw, do = _flash_train_case(torch, rng, NMT["batch"], NMT["src_len"],
+                                   NMT["heads"], NMT["d_model"] //
+                                   NMT["heads"], torch.bfloat16,
+                                   causal=causal, p=NMT["dropout"],
+                                   mode="philox")
+        if causal:
+            kw["bias"] = None
+        q, k, v, bias = kw["q"], kw["k"], kw["v"], kw["bias"]
+        b, s, h = q.shape
+        nh, p = kw["num_heads"], kw["dropout_prob"]
+        o, lse, bits = fa.flash_attention_bsh_fwd(**kw, return_bits=True)
+        keep_div = fa.dropout_quantized_thresh(1.0 - p) / 256.0
+        qh, kh, vh = (t.reshape(b, s, nh, h // nh).transpose(1, 2)
+                      .contiguous().requires_grad_() for t in (q, k, v))
+        dout = do.reshape(b, s, nh, h // nh).transpose(1, 2).contiguous()
+        lib_o = F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=None if bias is None else bias.to(q.dtype),
+            dropout_p=p, is_causal=causal)
+        n0 = fa.flash_attention_bsh_bwd.launches_tc
+        row = {"shape": {"B": b, "S": s, "H": h, "nh": nh, "D": h // nh,
+                         "causal": causal, "bias": None if causal else
+                         "per key", "dtype": "bfloat16",
+                         "dropout": f"Philox, p={p}"},
+               "library": "autograd backward of "
+                          "F.scaled_dot_product_attention (dropout_p, "
+                          "is_causal or the additive key mask)"}
+        row.update(_timed(
+            torch, flush,
+            lambda: fa.flash_attention_bsh_bwd(
+                q, k, v, bias, o, lse, do, nh, causal=causal,
+                dropout_prob=p, dropout_seed=kw["dropout_seed"]),
+            lambda: fa.flash_attention_bsh_bwd_reference(
+                q, k, v, bias, o, lse, do, nh, causal=causal, mask=bits,
+                keep_div=keep_div),
+            lambda: torch.autograd.grad(lib_o, (qh, kh, vh), dout,
+                                        retain_graph=True),
+            nbytes=fa.bound_bytes_bwd(q, k, v, bias, nh),
+            flops=fa.bound_flops_bwd(q, k, nh, causal),
+            peak_flops=BF16_FLOPS))
+        if fa.flash_attention_bsh_bwd.launches_tc == n0:
+            fail(f"row 5 at the NMT {name} shape ran no wgmma kernel")
+        out[name] = row
+        del kw, do, q, k, v, bias, o, lse, bits, qh, kh, vh, lib_o, dout
+        torch.cuda.empty_cache()
+    return out
 
 
 def _kernels_ln_train(torch, F, flush) -> tuple:
@@ -1519,7 +1681,23 @@ def _train_program(cfg, b: int, s: int, max_preds: int, amp: bool):
 
 
 KERNEL_COUNTERS = ("row6", "row7", "row8", "row9", "bsh_fwd", "bsh_bwd",
-                   "ln_fwd", "ln_bwd")
+                   "bsh_bwd_tc", "ln_fwd", "ln_bwd")
+
+
+class _Counter:
+    """A wrapper's launch counter kept under another attribute (the
+    tensor-core route's ``launches_tc``), read and reset as ``launches``."""
+
+    def __init__(self, fn, attr: str):
+        self.fn, self.attr = fn, attr
+
+    @property
+    def launches(self) -> int:
+        return getattr(self.fn, self.attr)
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        setattr(self.fn, self.attr, value)
 
 
 def _counters():
@@ -1531,10 +1709,12 @@ def _counters():
             "row9": fa.flash_attention_bwd_dkv,
             "bsh_fwd": fa.flash_attention_bsh,
             "bsh_bwd": fa.flash_attention_bsh_bwd,
+            "bsh_bwd_tc": _Counter(fa.flash_attention_bsh_bwd,
+                                   "launches_tc"),
             "ln_fwd": add_ln.fused_add_ln, "ln_bwd": add_ln.fused_add_ln_bwd}
 
 
-def _launches_per_step(program) -> dict:
+def _launches_per_step(program, bf16: bool = False) -> dict:
     """The flash and LayerNorm kernel launches one run of ``program`` must
     make, counted from its ops and their bias shapes: an encoder stack
     layer with a full [.., S, S] bias runs row 6 (rows 8 and 9 in the
@@ -1590,6 +1770,8 @@ def _launches_per_step(program) -> dict:
     if not train:
         for k in ("row7", "row8", "row9", "bsh_bwd", "ln_bwd"):
             n[k] = 0
+    # a bf16 program's BSH backward runs the wgmma pair (bsh_bwd_route)
+    n["bsh_bwd_tc"] = n["bsh_bwd"] if bf16 else 0
     return n
 
 
@@ -1606,7 +1788,7 @@ def phase_bert_train(torch, card: str) -> dict:
     t0 = time.perf_counter()
     main, startup, loss = _train_program(cfg, b, s, max_preds, amp=True)
     build_s = time.perf_counter() - t0
-    want = _launches_per_step(main)
+    want = _launches_per_step(main, bf16=True)
     scope = fluid.Scope()
     exe = fluid.Executor()                        # device=None: the card
     t0 = time.perf_counter()
@@ -1815,13 +1997,19 @@ RESNET_LOCAL_BF16 = 5e-4
 CONV_BN_KERNELS = ("conv_stats", "mm_stats", "bn_apply", "bn_bwd_reduce",
                    "bn_bwd_dz")
 # the kernel checks' cases, ResNet-50 at batch 128: (N, H, W, C, O, k,
-# stride, relu); the first two are also timed (stage 0's 3 x 3 and 1 x 1)
+# stride, relu); the four 3 x 3 stage shapes time row 10 (bf16, the wgmma
+# kernel), s0_1x1 rows 11-14
 CONV_BN_CASES = {
     "s0_3x3": (128, 56, 56, 64, 64, 3, 1, True),
     "s0_1x1_64to256": (128, 56, 56, 64, 256, 1, 1, False),
+    "s1_3x3": (128, 28, 28, 128, 128, 3, 1, True),
     "s1_proj_s2_256to512": (128, 56, 56, 256, 512, 1, 2, False),
+    "s2_3x3": (128, 14, 14, 256, 256, 3, 1, True),
     "s3_3x3": (128, 7, 7, 512, 512, 3, 1, True),
 }
+# a bf16 k x k conv that conv_route sends to the SIMT kernel (C = 3 is
+# not a multiple of 8): that route's own card check
+CONV_SIMT_BF16_CASE = (32, 32, 32, 3, 64, 3, 1, True)
 
 
 def _conv_case(torch, rng, n, h, w, c, o, k, stride, dtype):
@@ -1884,6 +2072,23 @@ def _conv_bn_check(torch, cb, name, case, relu, seed):
     return res, dict(z=z, stat=stat, g=g, tot=tot, conv=conv)
 
 
+def _conv_tile_sweep(torch, cb, flush, x, w, pads) -> dict:
+    """Row 10's wgmma kernel under each tile (bm, bn) it takes, on one
+    stage shape: the record behind conv_tc_tile's choice (time_cold_ms,
+    20 calls each)."""
+    chosen = cb.conv_tc_tile
+    out = {}
+    try:
+        for tile in ((128, 64), (128, 128), (64, 64), (64, 128)):
+            cb.conv_tc_tile = lambda rows, o, t=tile: t
+            out[f"{tile[0]}x{tile[1]}"] = time_cold_ms(
+                torch, lambda: cb.conv_stats(x, w, pads), flush,
+                reps=20)["median"]
+    finally:
+        cb.conv_tc_tile = chosen
+    return out
+
+
 def _kernels_conv_bn(torch, F, flush) -> tuple:
     """Rows 10-14 against their plain versions at ResNet-50's shapes (batch
     128), f32 with TF32 off and bf16; then timed in bf16 (the training
@@ -1894,16 +2099,37 @@ def _kernels_conv_bn(torch, F, flush) -> tuple:
     f32, bf16 = torch.float32, torch.bfloat16
     shapes = CONV_BN_CASES
     results, main = {}, {}
-    for name, (n, h, w, c, o, k, st, relu) in shapes.items():
-        for tag, dt in (("f32", f32), ("bf16", bf16)):
-            case = _conv_case(torch, rng, n, h, w, c, o, k, st, dt)
-            res, t = _conv_bn_check(torch, cb, f"conv_bn {name} {tag}", case,
-                                    relu, seed=len(results))
-            results[f"{name}_{tag}"] = res
-            if tag == "bf16" and name in ("s0_3x3", "s0_1x1_64to256"):
-                main[name] = (case, t, relu)
-            del case, t
-            torch.cuda.empty_cache()
+    cases = [(name, tag, dt, shape) for name, shape in shapes.items()
+             for tag, dt in (("f32", f32), ("bf16", bf16))]
+    cases.append(("simt_route_c3", "bf16", bf16, CONV_SIMT_BF16_CASE))
+    for name, tag, dt, (n, h, w, c, o, k, st, relu) in cases:
+        case = _conv_case(torch, rng, n, h, w, c, o, k, st, dt)
+        kxk = k > 1
+        n0 = (cb.conv_stats.launches, cb.conv_stats.launches_tc)
+        res, t = _conv_bn_check(torch, cb, f"conv_bn {name} {tag}", case,
+                                relu, seed=len(results))
+        if kxk:
+            # the route conv_route names, and only that one, launched
+            tc = cb.conv_route(dt, c, o) == "tc"
+            got = (cb.conv_stats.launches - n0[0],
+                   cb.conv_stats.launches_tc - n0[1])
+            if got != (1, int(tc)):
+                fail(f"conv_bn {name} {tag}: launches (all, tc) {got}, "
+                     f"want (1, {int(tc)})")
+            res["route"] = "tc" if tc else "simt"
+            if tc:
+                res["tile"] = cb.conv_tc_tile(n * h * w, o)
+        results[f"{name}_{tag}"] = res
+        if tag == "bf16" and (kxk or name == "s0_1x1_64to256") \
+                and name in shapes:
+            main[name] = (case, t, relu)
+        del case, t
+        torch.cuda.empty_cache()
+    if results["simt_route_c3_bf16"]["route"] != "simt" or any(
+            results[f"{n}_bf16"].get("route") != "tc"
+            for n, sh in shapes.items() if sh[5] > 1):
+        fail("conv_bn: a bf16 3 x 3 stage shape missed the wgmma kernel, "
+             "or the C = 3 case missed the SIMT one")
 
     # TF32 shown once: the f32 stage-0 3 x 3 plain conv with TF32 on,
     # against the kernel's f32 z
@@ -1924,7 +2150,7 @@ def _kernels_conv_bn(torch, F, flush) -> tuple:
     del case, x, w, z, zt, zr
     torch.cuda.empty_cache()
 
-    timed = {}
+    timed = {"conv_stats_by_stage": {}}
     for name, (case, t, relu) in main.items():
         x, w, scale, shift, strides, pads = case
         z, stat, g, tot = t["z"], t["stat"], t["g"], t["tot"]
@@ -1935,6 +2161,9 @@ def _kernels_conv_bn(torch, F, flush) -> tuple:
                          "dtype": "bfloat16"},
                "library": "F.conv2d on the channels_last view (no stats)",
                "max_abs_err": results[f"{name}_bf16"]["z"]["max_abs_err"]}
+        if kname == "conv_stats":
+            row["route"] = results[f"{name}_bf16"]["route"]
+            row["tile"] = results[f"{name}_bf16"]["tile"]
         row.update(_timed(
             torch, flush, t["conv"],
             lambda: cb.conv_stats_reference(x, w, strides, pads),
@@ -1942,9 +2171,13 @@ def _kernels_conv_bn(torch, F, flush) -> tuple:
             nbytes=cb.bound_bytes_conv(x, w, strides, pads),
             flops=cb.bound_flops_conv(x, w, strides, pads),
             peak_flops=BF16_FLOPS))
-        timed[kname] = row
-        if kname != "mm_stats":
+        if kname == "conv_stats":
+            row["tiles_ms"] = _conv_tile_sweep(torch, cb, flush, x, w, pads)
+            timed["conv_stats_by_stage"][name] = row
+            if name == "s0_3x3":
+                timed[kname] = row
             continue
+        timed[kname] = row
         # the sweeps at [401408, 256] bf16 (stage 0's widest BN)
         zc = z.reshape(x.shape[0], x.shape[1], x.shape[2], -1).permute(
             0, 3, 1, 2)
@@ -2036,15 +2269,19 @@ def _resnet_batch(batch: int, size: int, classes: int,
             "label": rng.randint(0, classes, (batch, 1)).astype(np.int64)}
 
 
-def _conv_bn_launches_per_step(program) -> dict:
+def _conv_bn_launches_per_step(program, bf16: bool = False) -> dict:
     """The conv+BN launches one step of ``program`` must make, from its
-    fused ops and the kernel gate: row 10 per k x k stride-1 conv, row 11
-    per 1 x 1 conv, rows 12-14 once each per gated op; the reference route
-    per other op."""
+    fused ops and the kernel gate: row 10 per k x k stride-1 conv (on the
+    wgmma kernel, ``conv_stats_tc``, where a bf16 program's shape takes
+    it), row 11 per 1 x 1 conv, rows 12-14 once each per gated op; the
+    reference route per other op."""
+    from torch import bfloat16 as torch_bf16
+
     from paddle_tpu_torch.ops import nn_ops
     from paddle_tpu_torch.ops.kernels import conv_bn as cb
 
-    want = {k: 0 for k in CONV_BN_KERNELS + ("reference_routes",)}
+    want = {k: 0 for k in CONV_BN_KERNELS + ("conv_stats_tc",
+                                              "reference_routes")}
     block = program.global_block()
     for op in block.ops:
         if op.type != "fused_conv_bn":
@@ -2059,7 +2296,12 @@ def _conv_bn_launches_per_step(program) -> dict:
         if not cb.conv_bn_shapes_ok(xs, ws, strides, pads):
             want["reference_routes"] += 1
             continue
-        want["mm_stats" if tuple(ws[2:]) == (1, 1) else "conv_stats"] += 1
+        if tuple(ws[2:]) == (1, 1):
+            want["mm_stats"] += 1
+        else:
+            want["conv_stats"] += 1
+            want["conv_stats_tc"] += int(
+                bf16 and cb.conv_route(torch_bf16, xs[3], ws[0]) == "tc")
         for k in ("bn_apply", "bn_bwd_reduce", "bn_bwd_dz"):
             want[k] += 1
     return want
@@ -2069,6 +2311,7 @@ def _conv_bn_counts(reset: bool = False) -> dict:
     from paddle_tpu_torch.ops.kernels import conv_bn as cb
 
     fns = {k: getattr(cb, k) for k in CONV_BN_KERNELS}
+    fns["conv_stats_tc"] = _Counter(cb.conv_stats, "launches_tc")
     if reset:
         for f in fns.values():
             f.launches = 0
@@ -2092,10 +2335,11 @@ def phase_resnet_train(torch, card: str, n_steps: int = 10,
     main, startup, loss = _resnet_train_program(cfg, b, size, amp=True)
     build_s = time.perf_counter() - t0
     types = [op.type for op in main.global_block().ops]
-    want = _conv_bn_launches_per_step(main)
+    want = _conv_bn_launches_per_step(main, bf16=True)
     if (types.count("fused_conv_bn") != 53 or want != {
-            "conv_stats": 13, "mm_stats": 36, "bn_apply": 49,
-            "bn_bwd_reduce": 49, "bn_bwd_dz": 49, "reference_routes": 4}):
+            "conv_stats": 13, "conv_stats_tc": 13, "mm_stats": 36,
+            "bn_apply": 49, "bn_bwd_reduce": 49, "bn_bwd_dz": 49,
+            "reference_routes": 4}):
         fail(f"resnet_train program: {types.count('fused_conv_bn')} fused "
              f"ops, launches a step {want}")
     scope = fluid.Scope()
@@ -2569,7 +2813,7 @@ def phase_nmt_train(torch, card: str, n_steps: int = 10, n_warm: int = 2,
     t0 = time.perf_counter()
     main, startup, loss, _ = _nmt_program(b, s, t, n_layers=n_layers)
     build_s = time.perf_counter() - t0
-    want = _launches_per_step(main)
+    want = _launches_per_step(main, bf16=True)
     scope, exe = fluid.Scope(), fluid.Executor()
     exe.run(startup, scope=scope)
     n_params = sum(p.numel() for p in
@@ -2847,7 +3091,7 @@ def phase_mha_key_train(torch, card: str, n_steps: int = 3, b: int = 64,
             loss = layers.mean(layers.elementwise_mul(y, y))
             mixed_precision.decorate(fluid.optimizer.AdamOptimizer(1e-4),
                                      use_bf16=True).minimize(loss)
-        want = _launches_per_step(main)
+        want = _launches_per_step(main, bf16=True)
         if (want["row6"], want["row7"]) != (1, 1):
             fail(f"mha_key_train causal={causal}: the program needs "
                  f"{want}, not one launch each of rows 6 and 7")
@@ -2959,7 +3203,12 @@ def main() -> int:
         ("bn_apply", "paddle_tpu/ops/pallas/conv_bn.py:478"),
         ("bn_bwd_reduce", "paddle_tpu/ops/pallas/conv_bn.py:496"),
         ("bn_bwd_dz", "paddle_tpu/ops/pallas/conv_bn.py:510")]
-    emit({"kernels": [
+    tc_paths = {
+        "flash_attention_bsh_bwd": {"bert_train": launches["bsh_bwd_tc"],
+                                    "nmt_train": nlaunches["bsh_bwd_tc"]},
+        "conv_stats": {"resnet_train": rlaunches["conv_stats_tc"]}}
+    emit({"kernels": [dict(e, launches_tc_by_path=tc_paths[e["name"]])
+                      if e["name"] in tc_paths else e for e in [
         _kernel_entry("paged_attention", "paged_attention.cu",
                       "paddle_tpu/ops/pallas/paged_attention.py:144",
                       eng["paged_attention_launches"],
@@ -3005,7 +3254,7 @@ def main() -> int:
               {"nmt_train": nlaunches["row9"]}, main="nmt_train")]
         + [entry(name, "conv_bn.cu", replaces, kern[name],
                  {"resnet_train": rlaunches[name]}, main="resnet_train")
-           for name, replaces in conv_bn]})
+           for name, replaces in conv_bn]]})
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

@@ -33,7 +33,10 @@ def _uniform(ctx, shape, lo, hi):
 
 @register("fill_constant", no_vjp_grad=True)
 def fill_constant(ctx, ins, attrs):
-    return {"Out": [torch.full(_attr_shape(attrs), attrs.get("value", 0.0),
+    val = attrs.get("value", 0.0)
+    if attrs.get("str_value"):
+        val = float(attrs["str_value"])  # str_value overrides value
+    return {"Out": [torch.full(_attr_shape(attrs), val,
                                dtype=_attr_dtype(attrs), device=ctx.device)]}
 
 
@@ -67,7 +70,11 @@ def truncated_gaussian_random(ctx, ins, attrs):
 @register("assign_value", no_vjp_grad=True)
 def assign_value(ctx, ins, attrs):
     dt = runtime_dtype(attrs.get("dtype", "float32"))
-    arr = np.asarray(attrs["values"], dtype=dt).reshape(_attr_shape(attrs))
+    vals = attrs.get("values")
+    if vals is None:  # Paddle's typed attr names
+        vals = (attrs.get("fp32_values") or attrs.get("int32_values")
+                or attrs.get("int64_values"))
+    arr = np.asarray(vals, dtype=dt).reshape(_attr_shape(attrs))
     return {"Out": [torch.as_tensor(arr, device=ctx.device)]}
 
 

@@ -33,7 +33,11 @@ operations at the dtype's peak (989 TFLOP/s bf16, 67 TFLOP/s f32);
 the three sweeps bytes alone.  Design: the source's header note (an
 implicit GEMM with the halo zero-filled in the kernel and per-tile
 statistics partials; sweeps that hold the statistic rows in registers;
-one shared ReLU predicate).
+one shared ReLU predicate).  Row 10 has two kernels, chosen by dtype and
+shape alone (``conv_route``): bf16 with C and O multiples of 8 runs the
+wgmma kernel (``conv_stats_tc`` in the source, its tile from
+``conv_tc_tile``), everything else the SIMT one; ``conv_stats.launches``
+counts both, ``conv_stats.launches_tc`` the wgmma kernel's.
 
 ``fused_conv_bn`` is the dispatcher: shapes that pass
 ``conv_bn_shapes_ok`` (groups 1, dilation 1; a 1 x 1 conv with no padding
@@ -51,7 +55,7 @@ import torch
 import torch.nn.functional as F
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-TILE_ROWS = 64          # rows of z a conv block computes (one partial row)
+TILE_ROWS = 64          # rows of z a SIMT conv block computes (one partial row)
 SWEEP_THREADS = 256     # threads of an apply / bwd_reduce / bwd_dz block
 
 
@@ -260,6 +264,8 @@ _fns = {}
 _ARGTYPES = {
     "conv_stats": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12
     + [ctypes.c_void_p],
+    "conv_stats_tc": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 13
+    + [ctypes.c_void_p],
     "mm_stats": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
     + [ctypes.c_void_p],
     "apply": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
@@ -301,35 +307,87 @@ def _device_check(x) -> bool:
     return True
 
 
+def conv_route(dtype, c: int, o: int) -> str:
+    """Which kernel row 10 launches, by dtype and shape alone: "tc" (the
+    wgmma kernel) for bf16 with C and O multiples of 8 (16-byte rows of
+    x, w and z); "simt" (f32 FMA) for float32, which tensor cores would
+    round to TF32, and for any other bf16 shape."""
+    if dtype == torch.bfloat16 and c % 8 == 0 and o % 8 == 0:
+        return "tc"
+    return "simt"
+
+
+def conv_tc_tile(rows: int, o: int) -> tuple:
+    """(bm, bn) of the wgmma kernel: rows and output channels a block.
+    128 rows, and 128 channels where O allows it, else 64.  Timed on the
+    H100 at ResNet-50's four 3 x 3 stage shapes (chip_smoke.py's tile
+    sweep, PERF.md row 10), the largest tile was the fastest of the four
+    or within 3% of it at every stage, the deep stages' part-empty last
+    wave included: fewer, larger blocks re-read fewer A and B tiles
+    through L2."""
+    return 128, 128 if o % 128 == 0 else 64
+
+
+def conv_tile_rows(name: str, dtype, c: int, rows: int, o: int) -> int:
+    """Rows of z one block of the kernel ``name`` ("conv_stats" or
+    "mm_stats") launches for these shapes computes: conv_tc_tile's bm on
+    the wgmma route, TILE_ROWS on the SIMT kernel (row 11 always)."""
+    if name == "conv_stats" and conv_route(dtype, c, o) == "tc":
+        return conv_tc_tile(rows, o)[0]
+    return TILE_ROWS
+
+
+def stat_tiles(rows: int, tile_rows: int) -> int:
+    """Rows T of the [2, T, O] statistics partials: one a tile of
+    ``tile_rows`` rows of z, the launching kernel's own."""
+    return -(-rows // tile_rows)
+
+
 def _cuda_conv(name, x, w, strides, pads):
     check_kernel_inputs(x, w, strides, pads)
     n, h, wd, c = x.shape
     o, _, kh, kw = w.shape
     ho, wo = _out_hw(x.shape, w.shape, strides, pads)
     rows = n * ho * wo
-    tiles = -(-rows // TILE_ROWS)
-    w2d = w.permute(2, 3, 1, 0).contiguous()      # [kh, kw, C, O]
-    z = torch.empty((rows, o), dtype=x.dtype, device=x.device)
-    part = torch.empty((2, tiles, o), dtype=torch.float32, device=x.device)
-    if name == "conv_stats":
-        _launch(name, x, x.data_ptr(), w2d.data_ptr(), z.data_ptr(),
-                part.data_ptr(), n, h, wd, c, o, kh, kw, pads[0][0],
-                pads[1][0], ho, wo)
+    tc = name == "conv_stats" and conv_route(x.dtype, c, o) == "tc"
+    bm = conv_tile_rows(name, x.dtype, c, rows, o)
+    if tc:
+        wk = w.permute(2, 3, 0, 1).contiguous()   # [kh, kw, O, C]
     else:
-        _launch(name, x, x.data_ptr(), w2d.data_ptr(), z.data_ptr(),
-                part.data_ptr(), n, h, wd, c, o, strides[0], strides[1], ho,
-                wo)
+        wk = w.permute(2, 3, 1, 0).contiguous()   # [kh, kw, C, O]
+    z = torch.empty((rows, o), dtype=x.dtype, device=x.device)
+    part = torch.empty((2, stat_tiles(rows, bm), o), dtype=torch.float32,
+                       device=x.device)
+    ptrs = (x.data_ptr(), wk.data_ptr(), z.data_ptr(), part.data_ptr(), n, h,
+            wd, c, o)
+    if tc:
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = _launcher("conv_stats_tc")(*ptrs, kh, kw, pads[0][0],
+                                             pads[1][0], ho, wo,
+                                             *conv_tc_tile(rows, o), stream)
+        if err:
+            raise RuntimeError(f"conv_bn conv_stats_tc kernel launch "
+                               f"failed: CUDA error {err}")
+    elif name == "conv_stats":
+        _launch(name, x, *ptrs, kh, kw, pads[0][0], pads[1][0], ho, wo)
+    else:
+        _launch(name, x, *ptrs, strides[0], strides[1], ho, wo)
     s, ss = part.sum(dim=1)
     return z, s, ss
 
 
 def conv_stats(x, w, pads):
     """Row 10: k x k stride-1 conv of NHWC x by OIHW w with explicit pads
-    -> (z [N*Ho*Wo, O] in x's dtype, sum, sum of squares of z, f32)."""
+    -> (z [N*Ho*Wo, O] in x's dtype, sum, sum of squares of z, f32).
+    CUDA tensors take the route ``conv_route`` names; ``launches`` counts
+    every launch, ``launches_tc`` those of the wgmma kernel."""
     if not _device_check(x):
         return conv_stats_reference(x, w, (1, 1), pads)
     out = _cuda_conv("conv_stats", x, w, (1, 1), pads)
     conv_stats.launches += 1
+    if conv_route(x.dtype, x.shape[3], w.shape[0]) == "tc":
+        conv_stats.launches_tc += 1
     return out
 
 
@@ -345,6 +403,7 @@ def mm_stats(x, w, strides):
 
 
 conv_stats.launches = 0
+conv_stats.launches_tc = 0
 mm_stats.launches = 0
 
 

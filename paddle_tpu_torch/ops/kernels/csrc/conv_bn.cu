@@ -19,7 +19,8 @@
 // dX and dW of the conv stay on the library convolution, as the TPU path
 // keeps them on XLA.
 //
-// Bounds on the H100 (3.35 TB/s, 989 TFLOP/s bf16, 67 TFLOP/s f32).
+// Bounds on the H100 (3.35 TB/s, 989 TFLOP/s bf16 on the tensor cores,
+// 67 TFLOP/s f32 outside them).
 // conv_stats / mm_stats: 2 * M * O * K operations for M = N * Ho * Wo,
 // K = kh * kw * C, against x, w and z moved once: at ResNet-50's shapes
 // both terms are close (a stage-0 3 x 3 at batch 128 moves 103 MB and does
@@ -48,7 +49,30 @@
 // [2, T, O] per 64-row tile.  The grid is (M tiles, O tiles), so the deep
 // stages' few rows still give hundreds of blocks.  Any C, O, H, W, float32
 // or bfloat16, with scalar loads where a 4-wide load does not fit.  This is
-// SIMT f32 arithmetic: right first; mma/wgmma tiles with TMA are later work.
+// SIMT f32 arithmetic: row 11 (mm_stats), row 10 in float32 (tensor cores
+// would round it to TF32) and row 10 in bf16 where C or O is not a multiple
+// of 8 run it.
+//
+// conv_stats_tc (row 10 in bf16, the training path's dtype): the same
+// implicit GEMM on the tensor cores (hopper_mma.cuh).  A block of WG
+// warpgroups computes a BM = 64 * WG row x BN (64 or 128) column tile, each
+// warpgroup 64 rows with wgmma.m64nBNk16 (bf16 operands from shared
+// memory, f32 accumulators in registers).  A k-block is one tap x 64 input
+// channels: the A tile (BM rows of the im2col matrix) is gathered straight
+// from NHWC x by 16-byte cp.async copies, zero-filled where the tap falls
+// into the padding or the row lies past M; the B tile comes from the
+// weights laid out [kh, kw, O, C] (K-major) by the caller.  Both land in
+// the 128B-swizzled layout the wgmma descriptor names.  A ring of 4 stages
+// keeps 2 k-blocks loading while one multiplies and the one before may
+// still be in flight (wgmma.wait_group 1).  Epilogue: each accumulator is
+// rounded to bf16 and staged in shared memory (stored as coalesced
+// 16-byte rows); the rounded values' column sums and sums of squares go
+// by warp shuffles over the warp's 16 rows, then in a fixed order over
+// the warps through shared memory, into one partial row per BM-row tile:
+// still no atomics, still deterministic.  At ResNet-50's shapes the
+// kernel moves each x element through L2 once a tap (9 times a 3 x 3):
+// the next step is to keep the input rows' halo in shared memory across
+// the taps.  The caller picks (BM, BN) (conv_bn.py conv_tc_tile).
 //
 // apply, bwd_reduce and bwd_dz sweep z [R, O] (and g): a thread owns 4
 // adjacent channels (1 when O % 4 != 0), holds their four statistic rows
@@ -74,6 +98,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "hopper_mma.cuh"
 
 namespace {
 
@@ -290,6 +316,221 @@ conv_stats_kernel(const T* __restrict__ x, const T* __restrict__ w2d,
       part[(tiles + blockIdx.x) * o + col] = ss;
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// conv_stats on the tensor cores (bf16): the same implicit GEMM and epilogue
+// on wgmma, fed by a cp.async ring
+// ---------------------------------------------------------------------------
+
+constexpr int kTcStages = 4;   // the ring: k-blocks in shared memory
+constexpr int kTcAhead = 2;    // k-blocks loading while one multiplies and
+                               // the one before may still be in flight
+constexpr int kTcBK = 64;      // input channels of one tap a k-block
+
+template <int WG, int BN>
+constexpr int tc_smem_bytes() {
+  // the ring, or (after it) the z staging tile and the statistics
+  // partials, plus 1024 for the alignment the swizzle needs
+  constexpr int ring = kTcStages * (64 * WG + BN) * 128;
+  constexpr int epi = 64 * WG * (BN + 8) * 2 + 2 * 4 * WG * BN * 4;
+  return (ring > epi ? ring : epi) + 1024;
+}
+
+// WG warpgroups of 128 threads; each owns 64 rows of the BM = 64 * WG row
+// tile and all BN columns.  wk is [kh * kw, O, C] (K-major for B).
+template <int WG, int BN>
+__global__ void __launch_bounds__(WG * 128)
+conv_stats_tc_kernel(const __nv_bfloat16* __restrict__ x,
+                     const __nv_bfloat16* __restrict__ wk,
+                     __nv_bfloat16* __restrict__ z, float* __restrict__ part,
+                     int n, int h, int w, int c, int o, int kh, int kw,
+                     int ph, int pw, int ho, int wo) {
+  constexpr int BM = 64 * WG;
+  constexpr int NT = 128 * WG;
+  constexpr int A_BYTES = BM * 128;
+  constexpr int STAGE = A_BYTES + BN * 128;
+  constexpr int A_PER = BM * 8 / NT;   // 16-byte chunks a thread, A
+  constexpr int B_PER = BN * 8 / NT;   // and B
+  constexpr int ROW_STEP = NT / 8;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t pad = (1024u - (raw & 1023u)) & 1023u;
+  const uint32_t sbase = raw + pad;
+  uint8_t* sptr = smem_raw + pad;
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int warp = tid >> 5;        // 0 .. 4 * WG - 1: rows 16 * warp ..
+  const int lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int64_t m_total = (int64_t)n * ho * wo;
+  const int64_t m0 = (int64_t)blockIdx.x * BM;
+  const int o0 = blockIdx.y * BN;
+  const int chunk = tid & 7;
+
+  // this thread's A rows: top-left input pixel of the window (may lie in
+  // the padding) and its offset in x
+  int64_t aoff[A_PER];
+  int aih[A_PER], aiw[A_PER];
+  bool aok[A_PER];
+#pragma unroll
+  for (int i = 0; i < A_PER; ++i) {
+    const int64_t m = m0 + (tid >> 3) + ROW_STEP * i;
+    aok[i] = m < m_total;
+    const int64_t mm = aok[i] ? m : 0;
+    const int nn = (int)(mm / ((int64_t)ho * wo));
+    const int rem = (int)(mm - (int64_t)nn * ho * wo);
+    const int oh = rem / wo;
+    aih[i] = oh - ph;
+    aiw[i] = rem - oh * wo - pw;
+    aoff[i] = (((int64_t)nn * h + aih[i]) * w + aiw[i]) * c;
+  }
+
+  const int cblocks = (c + kTcBK - 1) / kTcBK;
+  const int nkb = kh * kw * cblocks;
+
+  // load() fills the ring with the k-blocks in order: tap (ki, kj), then
+  // the channel block cb within it (counters, no divisions)
+  int l_ki = 0, l_kj = 0, l_cb = 0;
+  auto load = [&](int stage) {
+    const int cc = l_cb * kTcBK + chunk * 8;
+    const int64_t xoff = ((int64_t)l_ki * w + l_kj) * c + cc;
+    const uint32_t sa = sbase + stage * STAGE;
+#pragma unroll
+    for (int i = 0; i < A_PER; ++i) {
+      const int r = (tid >> 3) + ROW_STEP * i;
+      const bool ok = aok[i] && cc < c &&
+                      (unsigned)(aih[i] + l_ki) < (unsigned)h &&
+                      (unsigned)(aiw[i] + l_kj) < (unsigned)w;
+      cp_async16(sa + swz128(r, chunk), ok ? x + (aoff[i] + xoff) : x, ok);
+    }
+    const uint32_t sb = sa + A_BYTES;
+    const int64_t woff = ((int64_t)(l_ki * kw + l_kj) * o + o0) * c + cc;
+#pragma unroll
+    for (int i = 0; i < B_PER; ++i) {
+      const int r = (tid >> 3) + ROW_STEP * i;
+      const bool ok = o0 + r < o && cc < c;
+      cp_async16(sb + swz128(r, chunk), ok ? wk + (woff + (int64_t)r * c) : wk,
+                 ok);
+    }
+    if (++l_cb == cblocks) {
+      l_cb = 0;
+      if (++l_kj == kw) {
+        l_kj = 0;
+        ++l_ki;
+      }
+    }
+  };
+
+  float acc[BN / 2];
+  zero(acc);
+
+  static_assert(kTcAhead + 2 <= kTcStages, "the ring holds k-blocks kb - 1 "
+                "(in flight), kb and kTcAhead loading");
+#pragma unroll
+  for (int s = 0; s < kTcAhead; ++s) {
+    if (s < nkb) load(s);
+    cp_async_commit();
+  }
+  for (int kb = 0; kb < nkb; ++kb) {
+    cp_async_wait<kTcAhead - 1>();    // k-block kb has landed
+    fence_async_smem();
+    __syncthreads();   // ... for every thread; and every warpgroup is done
+                       // with k-block kb - 2, whose stage is refilled here
+    const int nxt = kb + kTcAhead;
+    if (nxt < nkb) load(nxt % kTcStages);
+    cp_async_commit();
+    const uint32_t sa = sbase + (kb % kTcStages) * STAGE;
+    const uint32_t a0 = sa + wg * 64 * 128;
+    const uint32_t b0 = sa + A_BYTES;
+    fence_regs(acc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTcBK / 16; ++kk)
+      wgmma_ss<BN, 0>(acc, desc_sw128(a0 + 32 * kk), desc_sw128(b0 + 32 * kk));
+    wg_commit();
+    wg_wait<1>();      // k-block kb - 1's products are done; kb's run on
+    fence_regs(acc);
+  }
+  wg_wait<0>();
+  fence_regs(acc);
+  cp_async_wait<0>();
+  __syncthreads();   // the ring is free: the epilogue reuses it
+
+  // epilogue: round to bf16; stage z in shared memory; the rounded values'
+  // column sums and sums of squares (rows past M are zero: they add 0)
+  constexpr int ZP = BN + 8;   // padded row pitch of the z tile (elements)
+  __nv_bfloat16* zs = reinterpret_cast<__nv_bfloat16*>(sptr);
+  float* red = reinterpret_cast<float*>(sptr + BM * ZP * 2);  // [2][NT/32][BN]
+  const int r0 = 16 * warp + g;
+#pragma unroll
+  for (int i = 0; i < BN / 8; ++i) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(acc[4 * i], acc[4 * i + 1]);
+    const __nv_bfloat162 hi =
+        __floats2bfloat162_rn(acc[4 * i + 2], acc[4 * i + 3]);
+    const int col = 8 * i + 2 * t;
+    *reinterpret_cast<__nv_bfloat162*>(zs + r0 * ZP + col) = lo;
+    *reinterpret_cast<__nv_bfloat162*>(zs + (r0 + 8) * ZP + col) = hi;
+    const float2 fl = __bfloat1622float2(lo), fh = __bfloat1622float2(hi);
+    float s0 = fl.x + fh.x, s1 = fl.y + fh.y;
+    float q0 = fmaf(fh.x, fh.x, fl.x * fl.x);
+    float q1 = fmaf(fh.y, fh.y, fl.y * fl.y);
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1) {   // over g: the warp's 16 rows
+      s0 += __shfl_xor_sync(0xffffffffu, s0, off);
+      s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+      q0 += __shfl_xor_sync(0xffffffffu, q0, off);
+      q1 += __shfl_xor_sync(0xffffffffu, q1, off);
+    }
+    if (g == 0) {
+      red[warp * BN + col] = s0;
+      red[warp * BN + col + 1] = s1;
+      red[(NT / 32 + warp) * BN + col] = q0;
+      red[(NT / 32 + warp) * BN + col + 1] = q1;
+    }
+  }
+  __syncthreads();
+  if (tid < BN && o0 + tid < o) {
+    float s = 0.f, ss = 0.f;
+#pragma unroll
+    for (int wi = 0; wi < NT / 32; ++wi) {   // fixed order
+      s += red[wi * BN + tid];
+      ss += red[(NT / 32 + wi) * BN + tid];
+    }
+    const int64_t tiles = gridDim.x;
+    part[(int64_t)blockIdx.x * o + o0 + tid] = s;
+    part[(tiles + blockIdx.x) * o + o0 + tid] = ss;
+  }
+  // z: 16-byte rows, coalesced
+  constexpr int CH = BN / 8;
+  for (int idx = tid; idx < BM * CH; idx += NT) {
+    const int r = idx / CH, ch = idx - r * CH;
+    const int64_t m = m0 + r;
+    if (m < m_total && o0 + ch * 8 < o)
+      *reinterpret_cast<uint4*>(z + m * o + o0 + ch * 8) =
+          *reinterpret_cast<const uint4*>(zs + r * ZP + ch * 8);
+  }
+}
+
+template <int WG, int BN>
+int launch_conv_tc(const void* x, const void* wk, void* z, void* part, int n,
+                   int h, int w, int c, int o, int kh, int kw, int ph, int pw,
+                   int ho, int wo, cudaStream_t s) {
+  constexpr int kSmem = tc_smem_bytes<WG, BN>();
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      conv_stats_tc_kernel<WG, BN>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);   // once
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int64_t m = (int64_t)n * ho * wo;
+  const int64_t tiles = (m + 64 * WG - 1) / (64 * WG);
+  if (tiles > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid((unsigned)tiles, (unsigned)((o + BN - 1) / BN));
+  conv_stats_tc_kernel<WG, BN><<<grid, WG * 128, kSmem, s>>>(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(wk), static_cast<__nv_bfloat16*>(z),
+      static_cast<float*>(part), n, h, w, c, o, kh, kw, ph, pw, ho, wo);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -542,6 +783,35 @@ extern "C" int conv_bn_conv_stats_launch(const void* x, const void* w2d,
   if (dtype == 1)
     return launch_conv<__nv_bfloat16, true>(x, w2d, z, part, n, h, w, c, o,
                                             kh, kw, 1, 1, ph, pw, ho, wo, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The bf16 k x k conv on the tensor cores: as conv_bn_conv_stats_launch,
+// but wk is [kh * kw, O, C] bf16 and the tile is bm rows (64 or 128) x bn
+// output channels (64 or 128): part is [2, T, O] with T = ceil(N*Ho*Wo /
+// bm).  C and O must be multiples of 8 (16-byte rows of x, w and z).
+extern "C" int conv_bn_conv_stats_tc_launch(const void* x, const void* wk,
+                                            void* z, void* part, int n,
+                                            int h, int w, int c, int o,
+                                            int kh, int kw, int ph, int pw,
+                                            int ho, int wo, int bm, int bn,
+                                            void* stream) {
+  if (n <= 0 || h <= 0 || w <= 0 || c <= 0 || o <= 0 || kh <= 0 || kw <= 0 ||
+      ho <= 0 || wo <= 0 || ph < 0 || pw < 0 || c % 8 || o % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bm == 128 && bn == 64)
+    return launch_conv_tc<2, 64>(x, wk, z, part, n, h, w, c, o, kh, kw, ph,
+                                 pw, ho, wo, s);
+  if (bm == 128 && bn == 128)
+    return launch_conv_tc<2, 128>(x, wk, z, part, n, h, w, c, o, kh, kw, ph,
+                                  pw, ho, wo, s);
+  if (bm == 64 && bn == 64)
+    return launch_conv_tc<1, 64>(x, wk, z, part, n, h, w, c, o, kh, kw, ph,
+                                 pw, ho, wo, s);
+  if (bm == 64 && bn == 128)
+    return launch_conv_tc<1, 128>(x, wk, z, part, n, h, w, c, o, kh, kw, ph,
+                                  pw, ho, wo, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

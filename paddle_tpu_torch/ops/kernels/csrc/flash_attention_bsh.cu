@@ -51,10 +51,11 @@
 // in all three kernels (_hi_blocks / _lo_blocks).
 //
 // Bound.  Forward 4*B*nh*Sq*Skv*D flops, backward 10*B*nh*Sq*Skv*D (half
-// of each when causal), against the card's float32 rate outside the
-// tensor cores (these kernels run FMA on the SIMT cores), and the bytes
-// of the inputs and outputs against 3.35 TB/s; at BERT-base's shapes (S =
-// 512, D = 64) the flops bound.
+// of each when causal), against the dtype's rate (989 TFLOP/s bf16, 67
+// TFLOP/s f32), and the bytes of the inputs and outputs against 3.35
+// TB/s; at BERT-base's shapes (S = 512, D = 64) the flops bound.  The
+// split backward does 7 products to the bound's 5 (S and dP in both
+// kernels).
 //
 // Design.  The TPU kernels walk a (batch, block) grid and keep whole
 // sequences resident in VMEM.  Here one block of 256 threads owns one
@@ -71,9 +72,29 @@
 // padded by one float, so 16 lanes reading 16 different rows hit 16
 // banks.
 //
-// Later work, not done here: tensor cores (mma.sync / wgmma on bf16),
-// TMA or cp.async tile loads, keeping P in registers, one fused
-// backward.
+// The bf16 backward on the tensor cores (hopper_mma.cuh): the same two
+// kernels, deterministic, no atomics, with causal tile skipping, the
+// per-key bias, the mask and the Philox bits of the forward.  One
+// warpgroup owns a 64-row tile; every product is wgmma with bf16 operands
+// and f32 accumulators in registers.  The dk/dv kernel (one block per key
+// tile, head and batch, and per 128-column half of a D = 256 head) runs
+// S^T = K Q^T and dP^T = V dO^T (A: the K and V tiles, B: the Q and dO
+// tiles, both K-major in shared memory), forms p c and ds = p (dp c -
+// delta) sm_scale in registers and rounds them to bf16, as the TPU kernel
+// rounds p_num and ds: those rounded accumulators are the A operands, from
+// registers, of dV += (p c)^T dO and dK += ds^T Q (B: the same dO and Q
+// tiles read MN-major), with no round trip through shared memory.  Query
+// tiles (BQ = 64 rows, 32 at D >= 128, for registers) stream through a
+// 2-stage cp.async ring, the next tile's copies overlapping this tile's
+// products.  The dq kernel mirrors it over key tiles: S = Q K^T, dP = dO
+// V^T, dQ += ds K.  sm_scale multiplies the scores and ds; with a power of
+// two that is bit for bit the prescale rule's result, so the kernels
+// need no second path.  The Philox bits: a counter (key, query / 4)
+// yields the words of 4 consecutive queries, which the accumulator layout
+// spreads over lanes; the lanes holding one counter's queries draw one
+// counter each and exchange the words by shuffles (drop_keys_by_queries,
+// drop_queries_by_keys), so every word drawn is used.  f32 stays on the
+// SIMT kernels above: tensor cores would round it to TF32.
 //
 // C interface (ctypes): flash_attention_bsh_launch and
 // flash_attention_bsh_bwd_launch return cudaGetLastError() after the
@@ -86,6 +107,7 @@
 #include <stdint.h>
 
 #include "flash_common.cuh"
+#include "hopper_mma.cuh"
 
 namespace {
 
@@ -264,6 +286,11 @@ struct BwdArgs {
   int sq, skv, nh;
   float sm_scale;
   int prescale, causal;
+  // the wgmma kernels' check outputs, bf16 [B, nh, Sq, Skv] or null: the
+  // rounded p c and ds of the dk/dv kernel and the ds of the dq kernel
+  void* p_out;
+  void* ds_out;
+  void* dsq_out;
 };
 
 // Load a T x D tile of rows r0.. of one head into shared memory (row
@@ -624,6 +651,488 @@ int launch_bwd_d(int head_dim, const BwdArgs& a, const Dropout& dr, int batch,
   }
 }
 
+// ---------------------------------------------------------------------------
+// backward on the tensor cores (bf16)
+// ---------------------------------------------------------------------------
+
+constexpr int kTcRows = 64;  // rows of a warpgroup's tile: M of every wgmma
+
+// cp.async an R x D tile of one head (R rows of [B, S, H] from src, row
+// stride hs elements) into D / 64 swizzled column blocks of R rows
+template <int R, int D>
+__device__ __forceinline__ void tile_async(uint32_t dst,
+                                           const __nv_bfloat16* src,
+                                           int64_t hs) {
+  constexpr int CH = D / 8;  // 16-byte chunks a row
+  for (int idx = threadIdx.x; idx < R * CH; idx += 128) {
+    const int r = idx / CH, ch = idx - r * CH;
+    cp_async16(dst + (ch >> 3) * (R * 128) + swz128(r, ch & 7),
+               src + r * hs + ch * 8, true);
+  }
+}
+
+__device__ __forceinline__ uint32_t pick4(const uint4& r, int i) {
+  return i == 0 ? r.x : i == 1 ? r.y : i == 2 ? r.z : r.w;
+}
+__device__ __forceinline__ float keep_mult(const Dropout& dr, uint32_t word) {
+  return (word & 0xFFu) < dr.thresh ? dr.inv_keep : 0.f;
+}
+
+// Dropout multipliers c of an accumulator fragment of NB n8 blocks whose
+// rows are KEYS (row0 and row0 + 8, absolute) and columns QUERIES (col0 +
+// 8 i + 2 t + {0, 1}): the dk/dv kernel's S^T.  The lanes t and t ^ 1
+// need the same two Philox counters (key, query / 4): the even lane draws
+// the one of row0, the odd lane the one of row0 + 8, and each passes the
+// two words the other needs by one shuffle, so every word drawn is used.
+template <int NB>
+__device__ __forceinline__ void drop_keys_by_queries(const Dropout& dr,
+                                                     int bh, int sq, int skv,
+                                                     int row0, int col0,
+                                                     float (&c)[4 * NB]) {
+  const int t = threadIdx.x & 3;
+  if (dr.mode == kNoDrop) {
+#pragma unroll
+    for (int i = 0; i < 4 * NB; ++i) c[i] = 1.f;
+    return;
+  }
+  if (dr.mode == kMaskDrop) {
+#pragma unroll
+    for (int i = 0; i < NB; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = row0 + ((e & 2) ? 8 : 0);
+        const int q = col0 + 8 * i + 2 * t + (e & 1);
+        c[4 * i + e] =
+            dr.mask[((int64_t)bh * sq + q) * skv + key] ? dr.inv_keep : 0.f;
+      }
+    return;
+  }
+  const bool odd = t & 1;
+#pragma unroll
+  for (int i = 0; i < NB; ++i) {
+    const int qg = (col0 + 8 * i + 2 * t) >> 2;
+    const uint4 r = philox(
+        make_uint4(row0 + (odd ? 8 : 0), qg, bh, dr.offset), dr.key0,
+        dr.key1);
+    const uint32_t g0 = __shfl_xor_sync(0xffffffffu, odd ? r.x : r.z, 1);
+    const uint32_t g1 = __shfl_xor_sync(0xffffffffu, odd ? r.y : r.w, 1);
+    c[4 * i + 0] = keep_mult(dr, odd ? g0 : r.x);
+    c[4 * i + 1] = keep_mult(dr, odd ? g1 : r.y);
+    c[4 * i + 2] = keep_mult(dr, odd ? r.z : g0);
+    c[4 * i + 3] = keep_mult(dr, odd ? r.w : g1);
+  }
+}
+
+// The same for a fragment whose rows are QUERIES (row0, row0 + 8) and
+// columns KEYS (col0 + 8 i + 2 t + {0, 1}): the dq kernel's S.  The four
+// lanes g = 4 a + s (s = 0..3) of one t hold 4 consecutive queries, the
+// 4 words of each counter: lane s draws counter s of the block's four
+// (key 2t or 2t + 1, query row0 or row0 + 8) and three xor shuffles
+// transpose the 4 x 4 words.
+template <int NB>
+__device__ __forceinline__ void drop_queries_by_keys(const Dropout& dr,
+                                                     int bh, int sq, int skv,
+                                                     int row0, int col0,
+                                                     float (&c)[4 * NB]) {
+  const int lane = threadIdx.x & 31;
+  const int t = lane & 3, s = (lane >> 2) & 3;
+  if (dr.mode == kNoDrop) {
+#pragma unroll
+    for (int i = 0; i < 4 * NB; ++i) c[i] = 1.f;
+    return;
+  }
+  if (dr.mode == kMaskDrop) {
+#pragma unroll
+    for (int i = 0; i < NB; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int q = row0 + ((e & 2) ? 8 : 0);
+        const int key = col0 + 8 * i + 2 * t + (e & 1);
+        c[4 * i + e] =
+            dr.mask[((int64_t)bh * sq + q) * skv + key] ? dr.inv_keep : 0.f;
+      }
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < NB; ++i) {
+    const uint4 r = philox(
+        make_uint4(col0 + 8 * i + 2 * t + (s & 1),
+                   (row0 >> 2) + ((s & 2) ? 2 : 0), bh, dr.offset),
+        dr.key0, dr.key1);
+    const uint32_t r1 = __shfl_xor_sync(0xffffffffu, pick4(r, s ^ 1), 4);
+    const uint32_t r2 = __shfl_xor_sync(0xffffffffu, pick4(r, s ^ 2), 8);
+    const uint32_t r3 = __shfl_xor_sync(0xffffffffu, pick4(r, s ^ 3), 12);
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int k = m ^ s;  // the round that brought counter m's word s
+      const uint32_t wd = k == 0 ? pick4(r, s) : k == 1 ? r1 : k == 2 ? r2
+                                                                      : r3;
+      c[4 * i + m] = keep_mult(dr, wd);
+    }
+  }
+}
+
+// store a 64 x 64 block of f32 accumulators as bf16 rows of [B, S, H]
+__device__ __forceinline__ void store_frag(__nv_bfloat16* dst, int64_t hs,
+                                           const float (&d)[32]) {
+  const int lane = threadIdx.x & 31;
+  const int r = 16 * (threadIdx.x >> 5) + (lane >> 2), t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int col = 8 * i + 2 * t;
+    *reinterpret_cast<uint32_t*>(dst + r * hs + col) =
+        pack_bf16(d[4 * i], d[4 * i + 1]);
+    *reinterpret_cast<uint32_t*>(dst + (r + 8) * hs + col) =
+        pack_bf16(d[4 * i + 2], d[4 * i + 3]);
+  }
+}
+
+template <int D, int BQ>
+constexpr int dkv_tc_smem_bytes() {
+  return 2 * kTcRows * D * 2 + 2 * 2 * BQ * D * 2 + 2 * 2 * BQ * 4 + 1024;
+}
+
+// dk, dv of one (64-key tile, head, DO-column slice of the head, batch):
+// one warpgroup; the query tiles (BQ rows of q and dO, their lse and
+// delta) stream through a 2-stage cp.async ring.  Per query tile:
+//   S^T  = K . Q^T and dP^T = V . dO^T   (A: K, V; B: Q, dO; K-major)
+//   p c, ds in registers, rounded to bf16: the A operands of
+//   dV  += (p c)^T . dO and dK += ds^T . Q  (B: dO, Q; MN-major)
+template <int D, int BQ, int DO>
+__global__ void __launch_bounds__(128)
+flash_bwd_dkv_tc_kernel(BwdArgs a, Dropout dr) {
+  constexpr int NSPLIT = D / DO;
+  constexpr int KV_BYTES = kTcRows * D * 2;
+  constexpr int Q_BYTES = BQ * D * 2;
+  constexpr int NB = BQ / 8;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t pad = (1024u - (raw & 1023u)) & 1023u;
+  const uint32_t ks = raw + pad, vs = ks + KV_BYTES;
+  const uint32_t qs0 = vs + KV_BYTES;  // stage st: Q at qs0 + st * 2 * Q_BYTES,
+                                       // dO Q_BYTES after it
+  float* stat_s = reinterpret_cast<float*>(smem_raw + pad + 2 * KV_BYTES +
+                                           4 * Q_BYTES);  // [2][lse, delta][BQ]
+
+  const int k0 = blockIdx.x * kTcRows;
+  const int h = blockIdx.y / NSPLIT, dsplit = blockIdx.y % NSPLIT;
+  const int b = blockIdx.z;
+  const int bh = b * a.nh + h;
+  const int64_t hs = (int64_t)a.nh * D;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const __nv_bfloat16* qb = static_cast<const __nv_bfloat16*>(a.q) +
+                            (int64_t)b * a.sq * hs + h * D;
+  const __nv_bfloat16* dob = static_cast<const __nv_bfloat16*>(a.dout) +
+                             (int64_t)b * a.sq * hs + h * D;
+  const int64_t kofs = ((int64_t)b * a.skv + k0) * hs + h * D;
+  const float* lseb = a.lse + (int64_t)bh * a.sq;
+  const float* deltab = a.delta + (int64_t)bh * a.sq;
+  const int nq = a.sq / BQ;
+  const int lo = a.causal ? k0 / BQ : 0;
+
+  auto load_q = [&](int qt, int st) {
+    const uint32_t qd = qs0 + st * 2 * Q_BYTES;
+    tile_async<BQ, D>(qd, qb + (int64_t)qt * BQ * hs, hs);
+    tile_async<BQ, D>(qd + Q_BYTES, dob + (int64_t)qt * BQ * hs, hs);
+    const uint32_t sd = smem_u32(stat_s + st * 2 * BQ);
+    if (tid < BQ / 4)
+      cp_async16(sd + tid * 16, lseb + qt * BQ + tid * 4, true);
+    else if (tid < BQ / 2)
+      cp_async16(sd + BQ * 4 + (tid - BQ / 4) * 16,
+                 deltab + qt * BQ + (tid - BQ / 4) * 4, true);
+  };
+
+  tile_async<kTcRows, D>(ks, static_cast<const __nv_bfloat16*>(a.k) + kofs,
+                         hs);
+  tile_async<kTcRows, D>(vs, static_cast<const __nv_bfloat16*>(a.v) + kofs,
+                         hs);
+  if (lo < nq) load_q(lo, 0);
+  cp_async_commit();
+
+  const int kr0 = 16 * warp + g;  // this thread's key rows kr0, kr0 + 8
+  const float* biasb = a.bias ? a.bias + (int64_t)b * a.skv + k0 : nullptr;
+  const float bias0 = biasb ? biasb[kr0] : 0.f;
+  const float bias1 = biasb ? biasb[kr0 + 8] : 0.f;
+  const float scale = a.sm_scale;
+
+  float dk[DO / 64][32], dv[DO / 64][32];
+#pragma unroll
+  for (int cb = 0; cb < DO / 64; ++cb) {
+    zero(dk[cb]);
+    zero(dv[cb]);
+  }
+
+  for (int qt = lo; qt < nq; ++qt) {
+    const int st = (qt - lo) & 1;
+    cp_async_wait<0>();  // this tile (and, first, K and V) has landed
+    fence_async_smem();
+    __syncthreads();     // for every thread; the other stage is free
+    if (qt + 1 < nq) load_q(qt + 1, st ^ 1);
+    cp_async_commit();
+
+    const uint32_t qd = qs0 + st * 2 * Q_BYTES, dod = qd + Q_BYTES;
+    const float* lse_s = stat_s + st * 2 * BQ;
+    const float* delta_s = lse_s + BQ;
+    float sacc[BQ / 2], dpacc[BQ / 2];
+    zero(sacc);
+    zero(dpacc);
+    fence_regs(sacc);
+    fence_regs(dpacc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t ko = (kk >> 2) * (kTcRows * 128) + (kk & 3) * 32;
+      const uint32_t qo = (kk >> 2) * (BQ * 128) + (kk & 3) * 32;
+      wgmma_ss<BQ, 0>(sacc, desc_sw128(ks + ko), desc_sw128(qd + qo));
+      wgmma_ss<BQ, 0>(dpacc, desc_sw128(vs + ko), desc_sw128(dod + qo));
+    }
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(sacc);
+    fence_regs(dpacc);
+
+    const int q0 = qt * BQ;
+    float cm[BQ / 2];
+    drop_keys_by_queries<NB>(dr, bh, a.sq, a.skv, k0 + kr0, q0, cm);
+#pragma unroll
+    for (int i = 0; i < NB; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int idx = 4 * i + e;
+        const int kr = kr0 + ((e & 2) ? 8 : 0);
+        const int qc = 8 * i + 2 * t + (e & 1);
+        float x = sacc[idx] * scale + ((e & 2) ? bias1 : bias0);
+        if (a.causal && k0 + kr > q0 + qc) x = kNegInf;
+        const float p = expf(x - lse_s[qc]);
+        sacc[idx] = p * cm[idx];                                   // p c
+        dpacc[idx] = p * (dpacc[idx] * cm[idx] - delta_s[qc]) * scale;  // ds
+        if (a.p_out) {
+          const int64_t at = ((int64_t)bh * a.sq + q0 + qc) * a.skv + k0 + kr;
+          static_cast<__nv_bfloat16*>(a.p_out)[at] =
+              __float2bfloat16_rn(sacc[idx]);
+          static_cast<__nv_bfloat16*>(a.ds_out)[at] =
+              __float2bfloat16_rn(dpacc[idx]);
+        }
+      }
+
+#pragma unroll
+    for (int cb = 0; cb < DO / 64; ++cb) {
+      fence_regs(dk[cb]);
+      fence_regs(dv[cb]);
+    }
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      uint32_t pa[4], da[4];
+      a_frag(sacc, kk, pa);
+      a_frag(dpacc, kk, da);
+#pragma unroll
+      for (int cb = 0; cb < DO / 64; ++cb) {
+        const uint32_t off =
+            (dsplit * (DO / 64) + cb) * (BQ * 128) + kk * 16 * 128;
+        wgmma_rs_n64<1>(dv[cb], pa, desc_sw128(dod + off));
+        wgmma_rs_n64<1>(dk[cb], da, desc_sw128(qd + off));
+      }
+    }
+    wg_commit();
+    wg_wait<0>();
+#pragma unroll
+    for (int cb = 0; cb < DO / 64; ++cb) {
+      fence_regs(dk[cb]);
+      fence_regs(dv[cb]);
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int cb = 0; cb < DO / 64; ++cb) {
+    const int64_t at = kofs + dsplit * DO + cb * 64;
+    store_frag(static_cast<__nv_bfloat16*>(a.dk) + at, hs, dk[cb]);
+    store_frag(static_cast<__nv_bfloat16*>(a.dv) + at, hs, dv[cb]);
+  }
+}
+
+template <int D>
+constexpr int dq_tc_smem_bytes() {
+  return 2 * kTcRows * D * 2 + 2 * 2 * kTcRows * D * 2 + 2 * kTcRows * 4 +
+         1024;
+}
+
+// dq of one (64-query tile, head, DO-column slice, batch): one warpgroup;
+// the key tiles (64 rows of k and v, their bias) stream through a 2-stage
+// cp.async ring.  Per key tile: S = Q . K^T, dP = dO . V^T (K-major), ds
+// in registers rounded to bf16, dQ += ds . K (B: K, MN-major).
+template <int D, int DO>
+__global__ void __launch_bounds__(128)
+flash_bwd_dq_tc_kernel(BwdArgs a, Dropout dr) {
+  constexpr int NSPLIT = D / DO;
+  constexpr int T_BYTES = kTcRows * D * 2;
+  constexpr int NB = kTcRows / 8;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t pad = (1024u - (raw & 1023u)) & 1023u;
+  const uint32_t qs = raw + pad, dos = qs + T_BYTES;
+  const uint32_t kv0 = dos + T_BYTES;  // stage st: K at kv0 + st * 2 * T_BYTES,
+                                       // V T_BYTES after it
+  float* bias_s = reinterpret_cast<float*>(smem_raw + pad + 6 * T_BYTES);
+
+  const int q0 = blockIdx.x * kTcRows;
+  const int h = blockIdx.y / NSPLIT, dsplit = blockIdx.y % NSPLIT;
+  const int b = blockIdx.z;
+  const int bh = b * a.nh + h;
+  const int64_t hs = (int64_t)a.nh * D;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int64_t qofs = ((int64_t)b * a.sq + q0) * hs + h * D;
+  const __nv_bfloat16* kb = static_cast<const __nv_bfloat16*>(a.k) +
+                            (int64_t)b * a.skv * hs + h * D;
+  const __nv_bfloat16* vb = static_cast<const __nv_bfloat16*>(a.v) +
+                            (int64_t)b * a.skv * hs + h * D;
+  const float* biasb = a.bias ? a.bias + (int64_t)b * a.skv : nullptr;
+  int nk = a.skv / kTcRows;
+  if (a.causal) nk = min(nk, (q0 + 2 * kTcRows - 1) / kTcRows);
+
+  auto load_kv = [&](int kt, int st) {
+    const uint32_t kd = kv0 + st * 2 * T_BYTES;
+    tile_async<kTcRows, D>(kd, kb + (int64_t)kt * kTcRows * hs, hs);
+    tile_async<kTcRows, D>(kd + T_BYTES, vb + (int64_t)kt * kTcRows * hs, hs);
+    if (biasb && tid < kTcRows / 4)
+      cp_async16(smem_u32(bias_s + st * kTcRows) + tid * 16,
+                 biasb + kt * kTcRows + tid * 4, true);
+  };
+
+  tile_async<kTcRows, D>(qs, static_cast<const __nv_bfloat16*>(a.q) + qofs,
+                         hs);
+  tile_async<kTcRows, D>(dos,
+                         static_cast<const __nv_bfloat16*>(a.dout) + qofs, hs);
+  if (nk > 0) load_kv(0, 0);
+  cp_async_commit();
+
+  const int qr0 = 16 * warp + g;  // this thread's query rows qr0, qr0 + 8
+  const int64_t stat0 = (int64_t)bh * a.sq + q0;
+  const float lse0 = a.lse[stat0 + qr0], lse1 = a.lse[stat0 + qr0 + 8];
+  const float dl0 = a.delta[stat0 + qr0], dl1 = a.delta[stat0 + qr0 + 8];
+  const float scale = a.sm_scale;
+
+  float dq[DO / 64][32];
+#pragma unroll
+  for (int cb = 0; cb < DO / 64; ++cb) zero(dq[cb]);
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int st = kt & 1;
+    cp_async_wait<0>();
+    fence_async_smem();
+    __syncthreads();
+    if (kt + 1 < nk) load_kv(kt + 1, st ^ 1);
+    cp_async_commit();
+
+    const uint32_t kd = kv0 + st * 2 * T_BYTES, vd = kd + T_BYTES;
+    const float* bias_t = bias_s + st * kTcRows;
+    float sacc[32], dpacc[32];
+    zero(sacc);
+    zero(dpacc);
+    fence_regs(sacc);
+    fence_regs(dpacc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk >> 2) * (kTcRows * 128) + (kk & 3) * 32;
+      wgmma_ss<64, 0>(sacc, desc_sw128(qs + off), desc_sw128(kd + off));
+      wgmma_ss<64, 0>(dpacc, desc_sw128(dos + off), desc_sw128(vd + off));
+    }
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(sacc);
+    fence_regs(dpacc);
+
+    const int k0 = kt * kTcRows;
+    float cm[32];
+    drop_queries_by_keys<NB>(dr, bh, a.sq, a.skv, q0 + qr0, k0, cm);
+#pragma unroll
+    for (int i = 0; i < NB; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int idx = 4 * i + e;
+        const int qr = qr0 + ((e & 2) ? 8 : 0);
+        const int kc = 8 * i + 2 * t + (e & 1);
+        float x = sacc[idx] * scale + (biasb ? bias_t[kc] : 0.f);
+        if (a.causal && k0 + kc > q0 + qr) x = kNegInf;
+        const float p = expf(x - ((e & 2) ? lse1 : lse0));
+        dpacc[idx] =
+            p * (dpacc[idx] * cm[idx] - ((e & 2) ? dl1 : dl0)) * scale;
+        if (a.dsq_out)
+          static_cast<__nv_bfloat16*>(
+              a.dsq_out)[((int64_t)bh * a.sq + q0 + qr) * a.skv + k0 + kc] =
+              __float2bfloat16_rn(dpacc[idx]);
+      }
+
+#pragma unroll
+    for (int cb = 0; cb < DO / 64; ++cb) fence_regs(dq[cb]);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTcRows / 16; ++kk) {
+      uint32_t da[4];
+      a_frag(dpacc, kk, da);
+#pragma unroll
+      for (int cb = 0; cb < DO / 64; ++cb) {
+        const uint32_t off =
+            (dsplit * (DO / 64) + cb) * (kTcRows * 128) + kk * 16 * 128;
+        wgmma_rs_n64<1>(dq[cb], da, desc_sw128(kd + off));
+      }
+    }
+    wg_commit();
+    wg_wait<0>();
+#pragma unroll
+    for (int cb = 0; cb < DO / 64; ++cb) fence_regs(dq[cb]);
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int cb = 0; cb < DO / 64; ++cb)
+    store_frag(static_cast<__nv_bfloat16*>(a.dq) + qofs + dsplit * DO +
+                   cb * 64,
+               hs, dq[cb]);
+}
+
+template <int D, int BQ, int DO>
+int launch_bwd_tc(const BwdArgs& a, const Dropout& dr, int batch,
+                  cudaStream_t stream) {
+  constexpr int kDkv = dkv_tc_smem_bytes<D, BQ>();
+  constexpr int kDq = dq_tc_smem_bytes<D>();
+  static const cudaError_t attr_dkv =
+      allow_smem(flash_bwd_dkv_tc_kernel<D, BQ, DO>, kDkv);
+  static const cudaError_t attr_dq =
+      allow_smem(flash_bwd_dq_tc_kernel<D, DO>, kDq);
+  if (attr_dkv != cudaSuccess) return static_cast<int>(attr_dkv);
+  if (attr_dq != cudaSuccess) return static_cast<int>(attr_dq);
+  if (a.sq % kTcRows != 0 || a.skv % kTcRows != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  flash_bwd_dkv_tc_kernel<D, BQ, DO>
+      <<<dim3(a.skv / kTcRows, a.nh * (D / DO), batch), 128, kDkv,
+         stream>>>(a, dr);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  flash_bwd_dq_tc_kernel<D, DO>
+      <<<dim3(a.sq / kTcRows, a.nh * (D / DO), batch), 128, kDq, stream>>>(
+          a, dr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_bwd_tc_d(int head_dim, const BwdArgs& a, const Dropout& dr,
+                    int batch, cudaStream_t stream) {
+  switch (head_dim) {
+    case 64:
+      return launch_bwd_tc<64, 64, 64>(a, dr, batch, stream);
+    case 128:
+      return launch_bwd_tc<128, 32, 128>(a, dr, batch, stream);
+    case 256:
+      return launch_bwd_tc<256, 32, 128>(a, dr, batch, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  bias may be null.  drop_mode: 0 none,
@@ -655,10 +1164,11 @@ extern "C" int flash_attention_bsh_launch(
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The backward: dq, dk, dv (the inputs' dtype) from q, k, v, dout (the
-// dtype), the per-key bias (f32, may be null), lse and delta (f32 [B, nh,
-// Sq]); the dropout as in the forward (bits are never written here).
-// Launches the dk/dv kernel, then the dq kernel.
+// The f32 backward on the SIMT kernels (dtype must be 0; bf16 takes
+// flash_attention_bsh_bwd_tc_launch): dq, dk, dv from q, k, v, dout, the
+// per-key bias (f32, may be null), lse and delta (f32 [B, nh, Sq]); the
+// dropout as in the forward (bits are never written here).  Launches the
+// dk/dv kernel, then the dq kernel.
 extern "C" int flash_attention_bsh_bwd_launch(
     const void* q, const void* k, const void* v, const void* bias,
     const void* lse, const void* delta, const void* dout, void* dq, void* dk,
@@ -669,28 +1179,40 @@ extern "C" int flash_attention_bsh_bwd_launch(
   if (batch <= 0 || sq <= 0 || skv <= 0 || nh <= 0 || (causal && sq != skv)
       || !dropout_ok(drop_mode, mask, thresh, keep_div))
     return static_cast<int>(cudaErrorInvalidValue);
-  BwdArgs a;
-  a.q = q;
-  a.k = k;
-  a.v = v;
-  a.bias = static_cast<const float*>(bias);
-  a.lse = static_cast<const float*>(lse);
-  a.delta = static_cast<const float*>(delta);
-  a.dout = dout;
-  a.dq = dq;
-  a.dk = dk;
-  a.dv = dv;
-  a.sq = sq;
-  a.skv = skv;
-  a.nh = nh;
-  a.sm_scale = sm_scale;
-  a.prescale = prescale;
-  a.causal = causal;
+  const BwdArgs a = {q, k, v, static_cast<const float*>(bias),
+                     static_cast<const float*>(lse),
+                     static_cast<const float*>(delta), dout, dq, dk, dv, sq,
+                     skv, nh, sm_scale, prescale, causal};
   const Dropout dr = make_dropout(drop_mode, mask, nullptr, seed, offset,
                                   thresh, keep_div);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_bwd_d<float>(head_dim, a, dr, batch, s);
-  if (dtype == 1)
-    return launch_bwd_d<__nv_bfloat16>(head_dim, a, dr, batch, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_bwd_d<float>(head_dim, a, dr, batch,
+                             static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 backward on the tensor cores: the arguments of
+// flash_attention_bsh_bwd_launch (dtype must be 1), then three check
+// outputs that are null on the training path: p_out and ds_out receive
+// the dk/dv kernel's rounded p c and ds, dsq_out the dq kernel's ds (bf16
+// [B, nh, Sq, Skv]).  Launches the dk/dv kernel, then the dq kernel.
+extern "C" int flash_attention_bsh_bwd_tc_launch(
+    const void* q, const void* k, const void* v, const void* bias,
+    const void* lse, const void* delta, const void* dout, void* dq, void* dk,
+    void* dv, int batch, int sq, int skv, int nh, int head_dim,
+    float sm_scale, int prescale, int causal, int dtype, int drop_mode,
+    const void* mask, unsigned long long seed, int offset, int thresh,
+    float keep_div, void* p_out, void* ds_out, void* dsq_out, void* stream) {
+  if (batch <= 0 || sq <= 0 || skv <= 0 || nh <= 0 || (causal && sq != skv)
+      || dtype != 1 || !dropout_ok(drop_mode, mask, thresh, keep_div) ||
+      (p_out == nullptr) != (ds_out == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const BwdArgs a = {q, k, v, static_cast<const float*>(bias),
+                     static_cast<const float*>(lse),
+                     static_cast<const float*>(delta), dout, dq, dk, dv, sq,
+                     skv, nh, sm_scale, prescale, causal, p_out, ds_out,
+                     dsq_out};
+  const Dropout dr = make_dropout(drop_mode, mask, nullptr, seed, offset,
+                                  thresh, keep_div);
+  return launch_bwd_tc_d(head_dim, a, dr, batch,
+                         static_cast<cudaStream_t>(stream));
 }

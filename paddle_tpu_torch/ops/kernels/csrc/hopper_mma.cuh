@@ -1,0 +1,237 @@
+// Hopper (sm_90a) building blocks shared by the tensor-core kernels of
+// conv_bn.cu (row 10's conv_stats) and flash_attention_bsh.cu (row 5's
+// backward): warpgroup matrix multiplies (wgmma.mma_async, bf16 operands,
+// f32 accumulators in registers), the shared-memory matrix descriptor of
+// the 128-byte swizzled layout they read, and 16-byte cp.async copies
+// that zero-fill what lies outside a tensor.
+//
+// The tile layout.  An operand tile sits in shared memory as blocks of 64
+// bf16 columns (128 bytes a row); a block of R rows is R x 128 bytes,
+// 1024-byte aligned, and the 16-byte chunk c of row r is stored at chunk
+// c ^ (r % 8) of that row (swz128): the 128B swizzle the descriptor
+// names, so the 8 rows of a core matrix hit 8 different bank groups.
+// One such block serves two ways:
+//   * K-major (the contraction runs along the row): rows are M or N, a
+//     k16 step advances the start address by 32 bytes, SBO = 1024 (the
+//     next 8 rows);
+//   * MN-major (rows are the contraction index, columns are N; trans-b
+//     1): a k16 step advances 16 rows (2048 bytes), SBO = 1024 bytes
+//     between 8-row groups; a product N wider than 64 is issued as one
+//     n64 instruction per column block, so the only stride a descriptor
+//     carries is the 1024 bytes between 8-row groups (desc_sw128 writes
+//     it to both offset fields; LBO is not read for these products).
+//
+// Accumulators of m64nN: thread (warp w of the warpgroup, lane = 4 g + t)
+// holds rows 16 w + g and 16 w + g + 8, columns 8 i + 2 t and 8 i + 2 t + 1
+// of every n8 block i, as d[4 i + 0..1] (row g) and d[4 i + 2..3] (row g +
+// 8).  Rounded to bf16 pairs, the accumulator of one product is the A
+// operand of the next from registers (a_frag): the k16 step kk takes
+// d[8 kk .. 8 kk + 7].
+//
+// Every item sits in an anonymous namespace, local to the library that
+// includes it.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// byte offset of chunk `chunk` (16 bytes) of row `row` in a swizzled block
+__device__ __forceinline__ uint32_t swz128(uint32_t row, uint32_t chunk) {
+  return row * 128u + ((chunk ^ (row & 7u)) << 4);
+}
+
+// 16-byte copy global -> shared; 16 zero bytes instead where !valid (src
+// is then not read, but must still be a mapped address)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// make this thread's completed shared-memory writes visible to wgmma's
+// (async proxy) reads; a __syncthreads follows
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// descriptor of a 128B-swizzled operand block starting at shared address
+// `saddr` (the block 1024-byte aligned; saddr may sit 32, 64 or 96 bytes
+// into it for a k16 step)
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr) {
+  uint64_t d = 0;
+  d |= static_cast<uint64_t>((saddr & 0x3FFFFu) >> 4);
+  d |= static_cast<uint64_t>(1024 >> 4) << 16;    // LBO (not read: see above)
+  d |= static_cast<uint64_t>(1024 >> 4) << 32;    // SBO: next 8 rows
+  d |= static_cast<uint64_t>(1) << 62;            // 128B swizzle
+  return d;
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keep the compiler from moving accumulator reads or writes across an
+// asynchronous wgmma
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int R>
+__device__ __forceinline__ void zero(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) d[i] = 0.f;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+// the A fragment of k16 step kk from an m64nN accumulator array, each
+// value rounded to bf16 (round to nearest even); kk must be a constant
+// after unrolling, or the array goes to local memory
+template <int R>
+__device__ __forceinline__ void a_frag(const float (&d)[R], int kk,
+                                       uint32_t (&a)[4]) {
+  a[0] = pack_bf16(d[8 * kk + 0], d[8 * kk + 1]);
+  a[1] = pack_bf16(d[8 * kk + 2], d[8 * kk + 3]);
+  a[2] = pack_bf16(d[8 * kk + 4], d[8 * kk + 5]);
+  a[3] = pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
+}
+
+// D[64 x 32] += A[64 x 16] * B[16 x 32], A and B from shared memory
+template <int TB>
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, %19;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1), "n"(TB));
+}
+
+// D[64 x 64] += A[64 x 16] * B[16 x 64], A and B from shared memory
+template <int TB>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1), "n"(TB));
+}
+
+// D[64 x 128] += A[64 x 16] * B[16 x 128], A and B from shared memory
+template <int TB>
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(TB));
+}
+
+// D[64 x 64] += A[64 x 16] * B[16 x 64], A from registers (the
+// accumulator layout of a previous product, packed to bf16 pairs)
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+        "n"(TB));
+}
+
+// D[64 x N] += A * B with both operands in shared memory, N in {32, 64, 128}
+template <int N, int TB, int R>
+__device__ __forceinline__ void wgmma_ss(float (&d)[R], uint64_t da,
+                                         uint64_t db) {
+  static_assert(R == N / 2, "an m64nN accumulator holds N / 2 floats");
+  if constexpr (N == 32)
+    wgmma_ss_n32<TB>(d, da, db);
+  else if constexpr (N == 64)
+    wgmma_ss_n64<TB>(d, da, db);
+  else
+    wgmma_ss_n128<TB>(d, da, db);
+}
+
+}  // namespace

@@ -57,7 +57,10 @@ Two implementations of each direction:
   ``_make_bwd_dq_kernel`` (row 8) and ``_make_bwd_dkv_kernel`` (row 9):
   one block per (64-row tile, head) streams the other operand's tiles
   through shared memory in f32; every backward is deterministic (no
-  atomics).  The sources' header notes have the designs.
+  atomics).  The BSH backward in bf16 runs on the tensor cores instead
+  (wgmma, ``bsh_bwd_route``), rounding p c and ds to bf16 before its
+  products as the TPU kernel does; the plain backward rounds them the
+  same way.  The sources' header notes have the designs.
 
 ``flash_attention_bsh``, ``flash_attention`` and ``flash_block_with_lse``
 are differentiable: ``torch.autograd.Function``s whose forward and
@@ -68,7 +71,8 @@ Bounds: ``bound_flops`` / ``bound_flops_bwd`` and ``bound_bytes`` /
 per BHSD kernel (flops against the dtype's peak, bytes against 3.35
 TB/s; the larger time bounds).  CUDA tensors reach the kernels or raise.
 Launch counters: ``flash_attention_bsh.launches`` (BSH forward),
-``flash_attention_bsh_bwd.launches`` (BSH backward, two a call),
+``flash_attention_bsh_bwd.launches`` (BSH backward, two a call;
+``.launches_tc`` those of the wgmma pair),
 ``flash_attention.launches`` (row 6), ``flash_attention_bwd_fused``
 (row 7), ``flash_attention_bwd_dq`` (row 8) and
 ``flash_attention_bwd_dkv`` (row 9) ``.launches``.
@@ -185,14 +189,13 @@ def flash_attention_bsh_reference(q, k, v, bias=None, num_heads=None,
     return o, lse
 
 
-def flash_attention_bsh_bwd_reference(q, k, v, bias, o, lse, do,
-                                      num_heads, sm_scale=None,
-                                      causal=False, mask=None,
-                                      keep_div=1.0):
-    """Plain backward, any device: (dq, dk, dv) in the inputs' dtypes,
-    from the forward's o and lse, as ``_make_bwd_bsh_kernel`` computes
-    them: p = exp(s - lse), ds = p (dp c - delta) sm_scale with c = keep /
-    keep_div (1 without ``mask``)."""
+def bwd_probs_reference(q, k, v, bias, o, lse, do, num_heads,
+                        sm_scale=None, causal=False, mask=None,
+                        keep_div=1.0):
+    """The plain backward's intermediates, f32 [B, nh, Sq, Skv]: p c and
+    ds = p (dp c - delta) sm_scale, each rounded to the inputs' dtype as
+    ``_make_bwd_bsh_kernel`` rounds them before its products (a no-op in
+    f32); p = exp(s - lse), c = keep / keep_div (1 without ``mask``)."""
     b, sq, hdim = q.shape
     skv = k.shape[1]
     nh = int(num_heads)
@@ -209,14 +212,39 @@ def flash_attention_bsh_bwd_reference(q, k, v, bias, o, lse, do,
     else:
         p_num = p
     ds = p * (dp - delta) * sm_scale
-    dv = torch.matmul(p_num.transpose(-1, -2), dof)
-    dk = torch.matmul(ds.transpose(-1, -2), _heads(q, b, sq, nh))
-    dq = torch.matmul(ds, _heads(k, b, skv, nh))
+    return p_num.to(q.dtype).float(), ds.to(q.dtype).float()
+
+
+def bwd_products_reference(q, k, v, do, p_num, ds, num_heads, ds_q=None):
+    """(dq, dk, dv) in the inputs' dtypes from the intermediates: dv =
+    (p c)^T dO, dk = ds^T q, dq = ds_q k (ds_q defaults to ds), summed in
+    f32."""
+    b, sq, hdim = q.shape
+    skv = k.shape[1]
+    nh = int(num_heads)
+    dof = _heads(do, b, sq, nh)
+    ds_q = ds if ds_q is None else ds_q
+    dv = torch.matmul(p_num.float().transpose(-1, -2), dof)
+    dk = torch.matmul(ds.float().transpose(-1, -2), _heads(q, b, sq, nh))
+    dq = torch.matmul(ds_q.float(), _heads(k, b, skv, nh))
 
     def merge(t, s, like):
         return t.transpose(1, 2).reshape(b, s, hdim).to(like.dtype)
 
     return merge(dq, sq, q), merge(dk, skv, k), merge(dv, skv, v)
+
+
+def flash_attention_bsh_bwd_reference(q, k, v, bias, o, lse, do,
+                                      num_heads, sm_scale=None,
+                                      causal=False, mask=None,
+                                      keep_div=1.0):
+    """Plain backward, any device: (dq, dk, dv) in the inputs' dtypes,
+    from the forward's o and lse, as ``_make_bwd_bsh_kernel`` computes
+    them: the intermediates of ``bwd_probs_reference`` (rounded to the
+    inputs' dtype) through the products of ``bwd_products_reference``."""
+    p_num, ds = bwd_probs_reference(q, k, v, bias, o, lse, do, num_heads,
+                                    sm_scale, causal, mask, keep_div)
+    return bwd_products_reference(q, k, v, do, p_num, ds, num_heads)
 
 
 def draw_keep_mask(q, k, num_heads, dropout_prob, generator):
@@ -294,8 +322,10 @@ def _launcher(name: str):
             fn.argtypes = ([p] * 6 + [i] * 5 + [f] + [i] * 4 + [p, p]
                            + [ctypes.c_ulonglong, i, i, f, p])
         else:
+            # bwd_tc_launch: three check outputs before the stream
             fn.argtypes = ([p] * 10 + [i] * 5 + [f] + [i] * 4 + [p]
-                           + [ctypes.c_ulonglong, i, i, f, p])
+                           + [ctypes.c_ulonglong, i, i, f]
+                           + [p] * (4 if name == "bwd_tc_launch" else 1))
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
@@ -381,8 +411,22 @@ def flash_attention_bsh_fwd(q, k, v, bias=None, num_heads=None,
                            return_bits)
 
 
+def bsh_bwd_route(dtype) -> str:
+    """Which backward kernels row 5 launches, by dtype alone: "tc" (the
+    wgmma kernels) for bf16, "simt" (f32 FMA) for float32, which tensor
+    cores would round to TF32."""
+    return "tc" if dtype == torch.bfloat16 else "simt"
+
+
+def _aligned(t):
+    """t itself when its data is 16-byte aligned (the kernels' cp.async
+    rows), else an aligned copy."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _cuda_flash_bsh_bwd(q, k, v, bias, o, lse, do, num_heads, sm_scale,
-                        causal, dropout_prob, mask, seed, offset):
+                        causal, dropout_prob, mask, seed, offset,
+                        return_probs=False):
     check_kernel_inputs(q, k, v, bias, num_heads, causal, dropout_prob, mask)
     b, sq, hdim = q.shape
     skv = k.shape[1]
@@ -401,8 +445,17 @@ def _cuda_flash_bsh_bwd(q, k, v, bias, o, lse, do, num_heads, sm_scale,
     delta = (o.float() * do.float()).reshape(b, sq, num_heads, d).sum(-1)
     delta = delta.transpose(1, 2).contiguous()
     lse = lse.contiguous()
-    fn = _launcher("bwd_launch")
+    tc = bsh_bwd_route(q.dtype) == "tc"
+    if tc:
+        q, k, v, do, lse = (_aligned(t) for t in (q, k, v, do, lse))
+    fn = _launcher("bwd_tc_launch" if tc else "bwd_launch")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    probs = ()
+    if tc:
+        probs = tuple(
+            torch.zeros((b, num_heads, sq, skv), dtype=q.dtype,
+                        device=q.device) if return_probs else None
+            for _ in range(3))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -413,23 +466,34 @@ def _cuda_flash_bsh_bwd(q, k, v, bias, o, lse, do, num_heads, sm_scale,
                  _DTYPE_CODES[q.dtype], mode,
                  None if mask is None else mask.data_ptr(),
                  int(seed or 0) & ((1 << 64) - 1), int(offset), thresh,
-                 float(keep_div), stream)
+                 float(keep_div),
+                 *(None if t is None else t.data_ptr() for t in probs),
+                 stream)
     if err:
         raise RuntimeError(f"flash_attention_bsh backward kernel launch "
                            f"failed: CUDA error {err}")
     flash_attention_bsh_bwd.launches += 2  # the dk/dv and the dq kernel
+    if tc:
+        flash_attention_bsh_bwd.launches_tc += 2
+    if return_probs:
+        return dq, dk, dv, probs if tc else None
     return dq, dk, dv
 
 
 def flash_attention_bsh_bwd(q, k, v, bias, o, lse, do, num_heads,
                             sm_scale=None, causal=False, dropout_prob=0.0,
                             *, mask=None, dropout_seed=None,
-                            dropout_offset=0):
+                            dropout_offset=0, return_probs=False):
     """(dq, dk, dv) of the forward that gave o and lse (bias: zero
     cotangent).  CPU and meta tensors take the plain version, which
     needs the forward's ``mask`` for dropout; CUDA tensors launch the two
     backward kernels or raise (Philox regenerated from ``dropout_seed``
-    when no mask is given)."""
+    when no mask is given): the wgmma pair for bf16, the SIMT pair for
+    f32 (``bsh_bwd_route``); ``launches`` counts both, ``launches_tc``
+    the wgmma pair's.  ``return_probs`` (CUDA only, a check's output)
+    appends the wgmma kernels' rounded intermediates (p c and ds of the
+    dk/dv kernel, ds of the dq kernel, each [B, nh, Sq, Skv]), or None on
+    the SIMT route."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1] // num_heads)
     if q.device.type in ("cpu", "meta"):
@@ -443,10 +507,12 @@ def flash_attention_bsh_bwd(q, k, v, bias, o, lse, do, num_heads,
         raise ValueError(f"no flash-attention kernel for device {q.device}")
     return _cuda_flash_bsh_bwd(q, k, v, bias, o, lse, do.contiguous(),
                                num_heads, sm_scale, causal, dropout_prob,
-                               mask, dropout_seed, dropout_offset)
+                               mask, dropout_seed, dropout_offset,
+                               return_probs)
 
 
 flash_attention_bsh_bwd.launches = 0
+flash_attention_bsh_bwd.launches_tc = 0
 
 
 class _FlashBSH(torch.autograd.Function):

@@ -53,9 +53,16 @@ def sum_op(ctx, ins, attrs):
     return {"Out": [out]}
 
 
+def _promoted(x, y):
+    """Both operands in their promoted dtype (bf16 x f32 -> f32), as
+    jnp.matmul promotes before the product."""
+    dt = torch.promote_types(x.dtype, y.dtype)
+    return x.to(dt), y.to(dt)
+
+
 @register("matmul")
 def matmul(ctx, ins, attrs):
-    x, y = ins["X"][0], ins["Y"][0]
+    x, y = _promoted(ins["X"][0], ins["Y"][0])
     # transpose of a 1-D operand is the identity
     if attrs.get("transpose_X", False) and x.dim() > 1:
         x = x.transpose(-1, -2)
@@ -72,7 +79,7 @@ def matmul(ctx, ins, attrs):
 def mul(ctx, ins, attrs):
     """Flattening matmul (reference mul_op.cc): x flattened at
     x_num_col_dims, y at y_num_col_dims, then one 2-D product."""
-    x, y = ins["X"][0], ins["Y"][0]
+    x, y = _promoted(ins["X"][0], ins["Y"][0])
     xn = attrs.get("x_num_col_dims", 1)
     yn = attrs.get("y_num_col_dims", 1)
     xs, ys = tuple(x.shape), tuple(y.shape)
@@ -102,9 +109,32 @@ def softmax(ctx, ins, attrs):
     return {"Out": [torch.softmax(ins["X"][0], dim=attrs.get("axis", -1))]}
 
 
+class _Clip(torch.autograd.Function):
+    """clamp whose gradient follows jnp.clip = min(max(x, lo), hi) under
+    lax.max / lax.min's tie rule: half the cotangent where x equals a
+    bound, all of it strictly inside, none outside."""
+
+    @staticmethod
+    def forward(ctx, x, lo, hi):
+        ctx.save_for_backward(x)
+        ctx.bounds = (lo, hi)
+        return torch.clamp(x, lo, hi)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        lo, hi = ctx.bounds
+        w = torch.ones_like(g)
+        for bound, inside in ((lo, lambda: x > lo), (hi, lambda: x < hi)):
+            if bound is not None:
+                w = torch.where(inside(), w,
+                                torch.where(x == bound, 0.5 * w, 0.0 * w))
+        return g * w, None, None
+
+
 @register("clip")
 def clip(ctx, ins, attrs):
-    return {"Out": [torch.clamp(ins["X"][0], attrs.get("min"),
+    return {"Out": [_Clip.apply(ins["X"][0], attrs.get("min"),
                                 attrs.get("max"))]}
 
 

@@ -20,10 +20,12 @@ def _axes(x, attrs):
     return tuple(d % x.dim() for d in dim)
 
 
-def _reduce(name, fn):
+def _reduce(name, fn, float_out=False):
     @register(name)
     def _emit(ctx, ins, attrs, _fn=fn):
         x = ins["X"][0]
+        if float_out and not x.is_floating_point():
+            x = x.float()  # jnp.mean of integers gives float32 means
         axes = _axes(x, attrs)
         keep = attrs.get("keep_dim", False)
         out = _fn(x) if axes is None and not keep else _fn(
@@ -39,7 +41,7 @@ def _reduce(name, fn):
 
 
 _reduce("reduce_sum", torch.sum)
-_reduce("reduce_mean", torch.mean)
+_reduce("reduce_mean", torch.mean, float_out=True)
 
 
 @register("mean")

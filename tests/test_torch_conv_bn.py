@@ -310,3 +310,53 @@ def test_sweep_rows_fill_the_card():
         rb, vec, tx, ty = tcb.sweep_layout(rows, o)
         assert o % vec == 0 and tx * ty <= tcb.SWEEP_THREADS
         assert -(-(o // vec) // tx) * tx * vec >= o
+
+
+# ---------------------------------------------------------------------------
+# row 10's two routes (the wgmma kernel for bf16, the SIMT one for f32),
+# decided by dtype and shape alone
+# ---------------------------------------------------------------------------
+
+# ResNet-50's four 3 x 3 stage shapes at batch 128: (rows, C, O)
+STAGES = {"s0": (401408, 64, 64), "s1": (100352, 128, 128),
+          "s2": (25088, 256, 256), "s3": (6272, 512, 512)}
+
+
+@pytest.mark.parametrize("dtype,c,o,route", [
+    (torch.bfloat16, 64, 64, "tc"), (torch.bfloat16, 512, 512, "tc"),
+    (torch.bfloat16, 8, 40, "tc"), (torch.float32, 64, 64, "simt"),
+    (torch.bfloat16, 3, 64, "simt"), (torch.bfloat16, 64, 12, "simt"),
+    (torch.float16, 64, 64, "simt")])
+def test_conv_route_by_dtype_and_shape(dtype, c, o, route):
+    assert tcb.conv_route(dtype, c, o) == route
+
+
+def test_every_resnet50_stage_takes_the_wgmma_kernel_at_its_tile():
+    want = {"s0": (128, 64), "s1": (128, 128), "s2": (128, 128),
+            "s3": (128, 128)}
+    for name, (rows, c, o) in STAGES.items():
+        assert tcb.conv_route(torch.bfloat16, c, o) == "tc"
+        assert tcb.conv_tc_tile(rows, o) == want[name]
+    assert tcb.conv_tc_tile(640, 40) == (128, 64)
+
+
+@pytest.mark.parametrize("name,dtype,c,rows,o,tile", [
+    ("conv_stats", torch.bfloat16, 64, 401408, 64, 128),
+    ("conv_stats", torch.bfloat16, 256, 25088, 256, 128),
+    ("conv_stats", torch.float32, 64, 401408, 64, tcb.TILE_ROWS),
+    ("conv_stats", torch.bfloat16, 3, 32768, 64, tcb.TILE_ROWS),
+    ("mm_stats", torch.bfloat16, 64, 401408, 256, tcb.TILE_ROWS)])
+def test_partials_follow_each_kernels_own_tile_rows(name, dtype, c, rows, o,
+                                                    tile):
+    assert tcb.conv_tile_rows(name, dtype, c, rows, o) == tile
+    t = tcb.stat_tiles(rows, tile)
+    assert (t - 1) * tile < rows <= t * tile
+
+
+def test_a_cpu_call_counts_no_launch_on_either_route():
+    x = torch.randn(2, 8, 8, 8).to(torch.bfloat16)
+    w = (torch.randn(16, 8, 3, 3) * 0.1).to(torch.bfloat16)
+    n0 = (tcb.conv_stats.launches, tcb.conv_stats.launches_tc)
+    z, s, ss = tcb.conv_stats(x, w, ((1, 1), (1, 1)))
+    assert z.shape == (128, 16) and z.dtype == torch.bfloat16
+    assert (tcb.conv_stats.launches, tcb.conv_stats.launches_tc) == n0

@@ -353,3 +353,98 @@ def test_launch_counter_counts_only_kernel_launches():
     # CPU: the plain versions
     assert (fa.flash_attention_bsh.launches,
             fa.flash_attention_bsh_bwd.launches) == n0
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_bf16_plain_backward_rounds_as_the_tpu_kernel(causal, force_pallas):
+    """bf16 dq/dk/dv of the port's plain backward against the JAX kernel
+    ``_flash_bwd_bsh`` (interpret mode), both fed the same bf16 q, k, v,
+    dO, o and f32 lse: both round p c and ds to bf16 before the dv, dk
+    and dq products and sum in f32, so they agree to one bf16 ulp of the
+    output (rtol 2^-7) plus 1e-5; the f32 products of unrounded p and ds
+    miss that by up to 5e-3."""
+    b = 2
+    rng = np.random.default_rng(3)
+    x = {n: torch.as_tensor(rng.standard_normal((b, S, H)),
+                            dtype=torch.float32).to(torch.bfloat16)
+         for n in ("q", "k", "v", "do")}
+    bias = np.where(rng.random((b, 1, 1, S)) > 0.25, 0.0, -1e4).astype(
+        np.float32)
+    tb = torch.as_tensor(bias)
+    o, lse = fa.flash_attention_bsh_fwd(x["q"], x["k"], x["v"], tb,
+                                        num_heads=NH, causal=causal)
+    got = fa.flash_attention_bsh_bwd(x["q"], x["k"], x["v"], tb, o, lse,
+                                     x["do"], NH, causal=causal)
+
+    def j(t):
+        return jnp.asarray(t.float().numpy(), jnp.bfloat16)
+
+    res = (j(x["q"]), j(x["k"]), j(x["v"]),
+           jnp.asarray(bias.reshape(b, 1, S)), None, None, None, j(o),
+           jnp.asarray(lse.numpy()))
+    want = jfa._flash_bwd_bsh(res, j(x["do"]), sm_scale=1.0 / math.sqrt(D),
+                              nh=NH, causal=causal, dropout_prob=0.0)
+    for name, a, w in zip("qkv", got, want):
+        assert a.dtype == torch.bfloat16
+        w = np.asarray(w.astype(jnp.float32))
+        np.testing.assert_allclose(a.float().numpy(), w, atol=1e-5,
+                                   rtol=2.0 ** -7, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "tc"),
+                                         (torch.float32, "simt")])
+def test_backward_route_by_dtype(dtype, route):
+    """The wgmma pair takes bf16; f32 stays on the SIMT pair, which tensor
+    cores would round to TF32."""
+    assert fa.bsh_bwd_route(dtype) == route
+
+
+def test_cpu_backward_counts_no_launch_on_either_route():
+    x = _good(dtype=torch.bfloat16)
+    n0 = (fa.flash_attention_bsh_bwd.launches,
+          fa.flash_attention_bsh_bwd.launches_tc)
+    q = x["q"].requires_grad_()
+    o = fa.flash_attention_bsh(q, x["k"], x["v"], x["bias"], num_heads=2)
+    o.float().sum().backward()
+    assert q.grad is not None and q.grad.dtype == torch.bfloat16
+    assert (fa.flash_attention_bsh_bwd.launches,
+            fa.flash_attention_bsh_bwd.launches_tc) == n0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plain_backward_is_its_intermediates_through_the_products(dtype):
+    """The split the card's check uses: ``bwd_probs_reference`` (p c, ds
+    rounded to the dtype) through ``bwd_products_reference`` is the plain
+    backward, bit for bit; the intermediates are [B, nh, Sq, Skv] values
+    of the dtype."""
+    rng = np.random.default_rng(4)
+    x = {n: torch.as_tensor(rng.standard_normal((2, 128, 128)),
+                            dtype=torch.float32).to(dtype)
+         for n in ("q", "k", "v")}
+    x["bias"] = torch.as_tensor(np.where(rng.random((2, 1, 1, 128)) > 0.2,
+                                         0.0, -1e4), dtype=torch.float32)
+    mask = torch.as_tensor(rng.random((2, 2, 128, 128)) > 0.1).to(
+        torch.uint8)
+    do = torch.as_tensor(rng.standard_normal(x["q"].shape),
+                         dtype=torch.float32).to(dtype)
+    o, lse = fa.flash_attention_bsh_fwd(x["q"], x["k"], x["v"], x["bias"],
+                                        num_heads=2, dropout_prob=0.1,
+                                        mask=mask)
+    args = (x["q"], x["k"], x["v"], x["bias"], o, lse, do, 2)
+    p_num, ds = fa.bwd_probs_reference(*args, mask=mask, keep_div=0.9)
+    assert p_num.shape == ds.shape == (2, 2, 128, 128)
+    for t in (p_num, ds):
+        assert torch.equal(t, t.to(dtype).float())
+    got = fa.bwd_products_reference(x["q"], x["k"], x["v"], do, p_num, ds, 2)
+    want = fa.flash_attention_bsh_bwd_reference(*args, mask=mask,
+                                                keep_div=0.9)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and torch.equal(a, b)
+
+
+def test_unaligned_rows_are_copied_for_the_kernels():
+    t = torch.zeros(17, dtype=torch.bfloat16)
+    assert fa._aligned(t) is t
+    v = t[1:]
+    assert v.data_ptr() % 16 and fa._aligned(v).data_ptr() % 16 == 0
+    assert torch.equal(fa._aligned(v), v)

@@ -14,6 +14,7 @@ package's.
 """
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -126,6 +127,17 @@ def _f(*shape):
     return _R.standard_normal(shape).astype(np.float32)
 
 
+class _Bf16:
+    """An EMIT input handed to both packages as bfloat16."""
+
+    def __init__(self, a):
+        self.a = a
+
+
+def _bf16(*shape):
+    return _Bf16(_f(*shape))
+
+
 EMIT = {
     "elementwise_add_axis": ("elementwise_add",
                              {"X": _f(2, 3, 4), "Y": _f(3)}, {"axis": 1}),
@@ -142,6 +154,14 @@ EMIT = {
                         "alpha": 0.125}),
     "matmul_tx": ("matmul", {"X": _f(64, 5), "Y": _f(64, 3)},
                   {"transpose_X": True, "transpose_Y": False, "alpha": 1.0}),
+    # mixed dtypes promote before the product, as jnp does: bf16 x f32
+    "mul_bf16_f32": ("mul", {"X": _bf16(2, 16), "Y": _f(16, 4)}, {}),
+    "matmul_bf16_f32": ("matmul", {"X": _bf16(2, 16), "Y": _f(16, 4)},
+                        {"transpose_X": False, "transpose_Y": False,
+                         "alpha": 1.0}),
+    "matmul_f32_bf16_ty": ("matmul", {"X": _f(3, 16), "Y": _bf16(5, 16)},
+                           {"transpose_X": False, "transpose_Y": True,
+                            "alpha": 0.5}),
     "sum": ("sum", {"X": [_f(3, 4), _f(3, 4), _f(3, 4)]}, {}),
     "softmax": ("softmax", {"X": _f(2, 3, 9)}, {"axis": -1}),
     "softmax_axis1": ("softmax", {"X": _f(2, 3, 9)}, {"axis": 1}),
@@ -174,6 +194,20 @@ EMIT = {
     "fill_constant_int64": ("fill_constant", {},
                             {"shape": [4], "dtype": np.dtype("int64"),
                              "value": 3.0}),
+    "fill_constant_str_value": ("fill_constant", {},
+                                {"shape": [2, 3],
+                                 "dtype": np.dtype("float32"), "value": 0.0,
+                                 "str_value": "0.5"}),
+    "assign_value_fp32_values": ("assign_value", {},
+                                 {"shape": [3], "dtype": np.dtype("float32"),
+                                  "fp32_values": [0.5, -1.0, 2.0]}),
+    "assign_value_int32_values": ("assign_value", {},
+                                  {"shape": [2, 2],
+                                   "dtype": np.dtype("int32"),
+                                   "int32_values": [1, -2, 3, 4]}),
+    "assign_value_int64_values": ("assign_value", {},
+                                  {"shape": [2], "dtype": np.dtype("int64"),
+                                   "int64_values": [7, 9]}),
     "assign_value": ("assign_value", {},
                      {"shape": [2, 2], "dtype": np.dtype("float32"),
                       "values": [1.0, 2.0, 3.0, 4.0]}),
@@ -184,6 +218,10 @@ EMIT = {
                                       .reshape(3, 4)}, {"dim": [1]}),
     "reduce_mean_keep": ("reduce_mean", {"X": _f(2, 3, 4)},
                          {"dim": [-1], "keep_dim": True}),
+    "reduce_mean_int": ("reduce_mean", {"X": np.arange(12, dtype=np.int32)
+                                        .reshape(3, 4)}, {"dim": [1]}),
+    "reduce_mean_int_all": ("reduce_mean", {"X": np.arange(
+        12, dtype=np.int32).reshape(3, 4) - 5}, {"reduce_all": True}),
     "layer_norm_plain": ("layer_norm", {"X": _f(2, 3, 8), "Scale": _f(24),
                                         "Bias": _f(24)},
                          {"epsilon": 1e-5, "begin_norm_axis": 1}),
@@ -228,7 +266,14 @@ EMIT = {
 
 
 def _as(ins, conv):
-    return {k: [conv(a) for a in (v if isinstance(v, list) else [v])]
+    def one(a):
+        if not isinstance(a, _Bf16):
+            return conv(a)
+        if conv is torch.as_tensor:
+            return torch.as_tensor(a.a).to(torch.bfloat16)
+        return jnp.asarray(a.a, jnp.bfloat16)
+
+    return {k: [one(a) for a in (v if isinstance(v, list) else [v])]
             for k, v in ins.items()}
 
 
@@ -260,6 +305,30 @@ def test_shape_inference_matches_jax(name):
              for k, v in _as(ins, np.asarray).items()}
     assert (treg.abstract_eval(op, metas, attrs, 3)
             == jreg.abstract_eval(op, metas, attrs, 3))
+
+
+@pytest.mark.parametrize("bounds", [(-0.5, 0.5), (-0.5, None), (None, 0.5),
+                                    (0.2, 0.2)])
+def test_clip_gradient_matches_jax_vjp(bounds):
+    """clip's cotangent where x sits on a bound is half, as jnp.clip's
+    lax.max / lax.min tie rule gives it."""
+    x = np.array([-0.5, 0.5, 0.2, 1.0, -2.0, 0.0], np.float32)
+    g = _f(6)
+    attrs = {"min": bounds[0], "max": bounds[1]}
+
+    def jclip(a):
+        return jreg.get("clip").emit(jreg.EmitContext(), {"X": [a]},
+                                     dict(attrs))["Out"][0]
+
+    out, vjp = jax.vjp(jclip, jnp.asarray(x))
+    want = np.asarray(vjp(jnp.asarray(g))[0])
+    xt = torch.as_tensor(x).requires_grad_()
+    got = treg.get("clip").emit(treg.EmitContext(), {"X": [xt]},
+                                dict(attrs))["Out"][0]
+    got.backward(torch.as_tensor(g))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(out),
+                               atol=0, rtol=0)
+    np.testing.assert_allclose(xt.grad.numpy(), want, atol=TOL, rtol=0)
 
 
 def test_dropout_training_draws_from_the_step_generator():
