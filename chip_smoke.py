@@ -30,7 +30,10 @@ prints no result):
                flash kernels, rows 6-9, at the NMT's
                shapes: every bias broadcast, dbias, causal at offsets with
                rows that see no key, the lse cotangent, dropout from a
-               mask and from Philox), with its time, bound, plain-version
+               mask and from Philox; rows 8 and 9 in bf16 with a full
+               bias (the wgmma kernels) held rounding by rounding as the
+               BSH backward is, and timed with and without dropout),
+               with its time, bound, plain-version
                time and the time of one library call computing the same
                function
   engine       GenerationEngine over TinyDecoderLM at GPT-2-small widths
@@ -94,10 +97,10 @@ prints no result):
                the encoder fed the reference recipe's full [B, 8, S, S]
                self-attention bias: bf16 AMP, Adam 1e-4, 64 x 256 -> 256
                on one seed-0 batch, 2 warm and 10 timed steps; every step
-               launching rows 6, 8 and 9 once an encoder layer, the BSH
-               kernels for the decoder (the 24 backward launches on the
-               wgmma pair) and the LN kernels exactly as the program
-               needs
+               launching rows 6, 8 and 9 once an encoder layer (rows 8
+               and 9 on their wgmma kernels), the BSH kernels for the
+               decoder (the 24 backward launches on the wgmma pair) and
+               the LN kernels exactly as the program needs
   nmt_train_profile  torch.profiler over 3 of those steps
   nmt_train_parity   2 + 2 layers at those widths, 2 x 128, dropout 0, 3
                Adam steps on the card (kernels) against the CPU (plain
@@ -593,6 +596,22 @@ def _bwd_f64(torch, q, k, v, bias, o, lse, do, nh, causal):
     return tuple(t.transpose(1, 2).reshape(b, s, hd) for t in out)
 
 
+def _end_to_end(grads, ref) -> dict:
+    """Each bf16 gradient of a tensor-core backward against the plain
+    backward end to end (both rounding p c and ds, each its own f32 S and
+    dP): the largest difference and the elements past 1e-5 + 2^-7
+    |plain|, where one term rounded to the neighbouring bf16 value moves
+    an output that cancels to near zero."""
+    out = {}
+    for g, a, b in zip(("dq", "dk", "dv"), grads, ref):
+        diff = (a.float() - b.float()).abs()
+        out[g] = {"max_abs_err": diff.max().item(),
+                  "beyond_limit": int((diff > 1e-5 + RTOL_BF16
+                                       * b.float().abs()).sum()),
+                  "elements": diff.numel()}
+    return out
+
+
 def _flash_bwd_check(torch, fa, name, kw, do) -> dict:
     """Forward (drawing its Philox bits) and backward kernels against the
     plain versions fed the same keep bits; returns the errors and, for
@@ -654,16 +673,10 @@ def _flash_bwd_check(torch, fa, name, kw, do) -> dict:
                                         ds_q=dsq_k)
         r["grads"] = _check_grads(f"flash backward {name}", grads, fed,
                                   True)
-        r["grads_end_to_end"] = {}
+        r["grads_end_to_end"] = _end_to_end(grads, ref)
         exact = (_bwd_f64(torch, q, k, v, kw["bias"], o, lse, do, nh,
                           kw["causal"]) if p == 0.0 else (None,) * 3)
         for g, a, b, e in zip(("dq", "dk", "dv"), grads, ref, exact):
-            diff = (a.float() - b.float()).abs()
-            r["grads_end_to_end"][g] = {
-                "max_abs_err": diff.max().item(),
-                "beyond_limit": int((diff > 1e-5 + RTOL_BF16
-                                     * b.float().abs()).sum()),
-                "elements": diff.numel()}
             if e is not None:
                 # each version's distance from the float64 evaluation of
                 # the same rounding rule (relative L2)
@@ -943,16 +956,17 @@ def _bhsd_bias(torch, rng, name, b, nh, s, dtype, padded=False):
 
 def _bhsd_case(torch, rng, b, nh, s, d, dtype, bias=None, *, causal=False,
                q_off=0, k_off=0, p=0.0, mode=None, g_lse=False,
-               want_dbias=False, padded=False):
-    """q, k, v, dO [B, nh, S, D], the bias, causal offsets, the dropout as
-    the forward takes it, the lse cotangent and whether dbias is asked."""
+               want_dbias=False, padded=False, bias_dtype=None):
+    """q, k, v, dO [B, nh, S, D], the bias (a full one in ``bias_dtype``,
+    default the data's), causal offsets, the dropout as the forward takes
+    it, the lse cotangent and whether dbias is asked."""
     q, k, v, do = (torch.as_tensor(rng.standard_normal((b, nh, s, d)),
                                    dtype=torch.float32).to("cuda", dtype)
                    for _ in range(4))
     kw = dict(q=q, k=k, v=v, causal=causal, q_offset=q_off, k_offset=k_off,
               dropout_prob=p,
               bias=None if bias is None else _bhsd_bias(
-                  torch, rng, bias, b, nh, s, dtype, padded))
+                  torch, rng, bias, b, nh, s, bias_dtype or dtype, padded))
     if mode == "mask":
         kw["mask"] = torch.as_tensor(
             rng.random((b, nh, s, s)) > p).to("cuda", torch.uint8)
@@ -977,7 +991,16 @@ def _bhsd_keep(fa, kw, bits):
 def _bhsd_check(torch, fa, name, kw, bwd) -> dict:
     """Row 6 (drawing its Philox bits) and the backward kernels the bias
     selects (rows 8 and 9 for a full bias, row 7 otherwise) against the
-    plain versions fed the same keep bits; the keep rate for Philox."""
+    plain versions fed the same keep bits; the keep rate for Philox.
+
+    bf16 with a full bias (rows 8 and 9 on the wgmma kernels): both
+    versions round p c and ds0 sm_scale to bf16 before the products, as
+    the TPU kernels do, and each rounding is held on its own, as row 5's
+    (``_flash_bwd_check``): the kernels' rounded intermediates (their check
+    outputs) against the plain version's, and their dq, dk, dv against
+    the plain products of those intermediates, at 1e-5 + 2^-7 |plain|;
+    dbias (the unrounded ds0) against the plain one at ATOL_DBIAS.  The
+    end-to-end difference is reported beside them."""
     is_bf16 = kw["q"].dtype == torch.bfloat16
     p = kw["dropout_prob"]
     o, lse, bits = fa.flash_attention_fwd(**kw, return_bits=True)
@@ -987,36 +1010,67 @@ def _bhsd_check(torch, fa, name, kw, bwd) -> dict:
     o_ref, lse_ref = fa.flash_attention_reference(
         **plain, dropout_prob=p, mask=mask, keep_div=keep_div if p else None)
     # both backwards start from the kernel forward's o and lse
-    args = (kw["q"], kw["k"], kw["v"], kw["bias"], o, lse, bwd["do"])
+    q, k, v, do = kw["q"], kw["k"], kw["v"], bwd["do"]
+    args = (q, k, v, kw["bias"], o, lse, do)
     offs = dict(causal=kw["causal"], q_offset=kw["q_offset"],
-                k_offset=kw["k_offset"], g_lse=bwd["g_lse"],
-                want_dbias=bwd["want_dbias"])
-    n0 = (fa.flash_attention_bwd_fused.launches,
-          fa.flash_attention_bwd_dq.launches,
-          fa.flash_attention_bwd_dkv.launches)
-    got = fa.flash_attention_bwd(*args, dropout_prob=p, mask=kw.get("mask"),
-                                 dropout_seed=kw.get("dropout_seed"), **offs)
+                k_offset=kw["k_offset"], g_lse=bwd["g_lse"])
+
+    def counts():
+        return (fa.flash_attention_bwd_fused.launches,
+                fa.flash_attention_bwd_dq.launches,
+                fa.flash_attention_bwd_dkv.launches,
+                fa.flash_attention_bwd_dq.launches_tc,
+                fa.flash_attention_bwd_dkv.launches_tc)
+
+    n0 = counts()
+    out = fa.flash_attention_bwd(*args, dropout_prob=p, mask=kw.get("mask"),
+                                 dropout_seed=kw.get("dropout_seed"),
+                                 want_dbias=bwd["want_dbias"],
+                                 return_probs=True, **offs)
+    got = out[:4]
     ref = fa.flash_attention_bwd_reference(
-        *args, mask=mask if p else None, keep_div=keep_div, **offs)
+        *args, mask=mask if p else None, keep_div=keep_div,
+        want_dbias=bwd["want_dbias"], **offs)
     torch.cuda.synchronize()
-    ran = [a - b for a, b in zip((fa.flash_attention_bwd_fused.launches,
-                                  fa.flash_attention_bwd_dq.launches,
-                                  fa.flash_attention_bwd_dkv.launches), n0)]
+    ran = [a - b for a, b in zip(counts(), n0)]
     full = kw["bias"] is not None and kw["bias"].shape[2] != 1
-    if ran != ([0, 1, 1] if full else [1, 0, 0]):
-        fail(f"flash bhsd {name}: backward launched {ran} (fused, dq, dkv)")
+    tc = full and is_bf16
+    if ran != ([0, 1, 1, 1, 1] if tc else [0, 1, 1, 0, 0] if full
+               else [1, 0, 0, 0, 0]):
+        fail(f"flash bhsd {name}: backward launched {ran} (fused, dq, dkv, "
+             f"dq on the tensor cores, dkv on the tensor cores)")
     r = _check(f"flash bhsd {name} o", o, o_ref,
                1e-5 if is_bf16 else ATOL_F32, RTOL_BF16 if is_bf16 else 0.0)
     r["lse"] = _check(f"flash bhsd {name} lse", lse, lse_ref,
                       ATOL_LSE)["max_abs_err"]
-    r["grads"] = _check_grads(f"flash bhsd backward {name}", got[:3],
-                              ref[:3], is_bf16)
+    if not tc:
+        r["grads"] = _check_grads(f"flash bhsd backward {name}", got[:3],
+                                  ref[:3], is_bf16)
+    else:
+        p_k, ds_k, dsq_k = out[4]
+        sm = 1.0 / math.sqrt(q.shape[-1])
+        p_num, ds0 = fa.bhsd_bwd_probs_reference(
+            *args, sm, mask=mask if p else None, keep_div=keep_div, **offs)
+        p_ref, ds_ref = fa.bhsd_bwd_rounded(p_num, ds0, sm, do.dtype,
+                                            q.dtype)
+        del p_num, ds0
+        r["intermediates"] = {
+            t: _check(f"flash bhsd backward {name} {t}", a, p_ref if t == "p"
+                      else ds_ref, 1e-5, RTOL_BF16)["max_abs_err"]
+            for t, a in (("p", p_k), ("ds", ds_k), ("ds_dq", dsq_k))}
+        fed = fa.bhsd_bwd_products_reference(q, k, v, do, p_k, ds_k,
+                                             ds_q=dsq_k)
+        r["grads"] = _check_grads(f"flash bhsd backward {name}", got[:3],
+                                  fed, True)
+        r["grads_end_to_end"] = _end_to_end(got[:3], ref[:3])
+        del out, p_k, ds_k, dsq_k, p_ref, ds_ref, fed
     if bwd["want_dbias"]:
         bias_bf16 = kw["bias"].dtype == torch.bfloat16
         r["grads"]["dbias"] = _check(
             f"flash bhsd backward {name} dbias", got[3], ref[3], ATOL_DBIAS,
             RTOL_BF16 if bias_bf16 else 0.0)["max_abs_err"]
-    r["backward_kernels"] = "rows 8 + 9" if full else "row 7"
+    r["backward_kernels"] = (("rows 8 + 9 (wgmma)" if tc else "rows 8 + 9")
+                             if full else "row 7")
     if "dropout_seed" in kw and not kw["causal"]:
         n = bits.numel()
         rate = bits.float().mean().item()
@@ -1114,6 +1168,8 @@ def _kernels_flash_bhsd(torch, F, flush) -> tuple:
         ("key_mask_bf16_causal", (bf16, "key"),
          dict(p=0.2, mode="mask", causal=True)),
         ("full_philox_bf16", (bf16, "full"), dict(p=0.1, mode="philox")),
+        ("full_f32_bias_bf16_mask", (bf16, "full"),
+         dict(p=0.1, mode="mask", bias_dtype=f32, want_dbias=True)),
         ("key_shared_philox_bf16", (bf16, "key_shared"),
          dict(p=0.1, mode="philox", want_dbias=True)),
         ("full_11_philox_f32_causal", (f32, "full_11"),
@@ -1133,7 +1189,9 @@ def _kernels_flash_bhsd(torch, F, flush) -> tuple:
             ("d256_full_f32_causal", 256, f32, "full_1h",
              dict(causal=True, want_dbias=True)),
             ("d256_key_bf16", 256, bf16, "key_shared",
-             dict(want_dbias=True))):
+             dict(want_dbias=True)),
+            ("d256_full_bf16_philox_causal", 256, bf16, "full_1h",
+             dict(causal=True, p=0.1, mode="philox", want_dbias=True))):
         kw, bwd = _bhsd_case(torch, rng, 4, 4, 256, dd, dtype, bias, **extra)
         results[name] = _bhsd_check(torch, fa, name, kw, bwd)
     results["block_with_lse"] = _bhsd_block_lse_check(torch, fa, rng)
@@ -1173,6 +1231,14 @@ def _kernels_flash_bhsd(torch, F, flush) -> tuple:
         q, k, v, bias, o, lse, do, mask=mask, keep_div=keep_div))
     lib_bwd = (lambda: torch.autograd.grad(lib_o, (qh, kh, vh), do,
                                            retain_graph=True))
+    # the same inputs without dropout: what regenerating the Philox bits
+    # costs rows 8 and 9 (as row 5 is timed)
+    o0, lse0 = fa.flash_attention_fwd(q, k, v, bias)
+    args0 = (q, k, v, bias_k, mode, dims, lse0,
+             (o0.float() * do.float()).sum(-1), do, sm, False, 0, 0, 0.0,
+             None, None, 0, False)
+    n0 = (fa.flash_attention_bwd_dq.launches_tc,
+          fa.flash_attention_bwd_dkv.launches_tc)
     for key, fn, part in (("flash_attention_bwd_dq",
                            fa.flash_attention_bwd_dq, "dq"),
                           ("flash_attention_bwd_dkv",
@@ -1187,8 +1253,23 @@ def _kernels_flash_bhsd(torch, F, flush) -> tuple:
                         lib_bwd, nbytes=fa.bound_bytes_bhsd(q, bias, part),
                         flops=fa.bound_flops_bhsd(q, part),
                         peak_flops=BF16_FLOPS))
+        t["no_dropout_ms"] = time_cold_ms(
+            torch, lambda fn=fn: fn(*args0), flush)["median"]
         timed[key] = t
+    # the pair in one window, as one backward of the encoder runs it
+    pair = {"ms": time_cold_ms(torch, lambda: (
+        fa.flash_attention_bwd_dq(*args), fa.flash_attention_bwd_dkv(*args)),
+        flush)["median"]}
+    pair["no_dropout_ms"] = time_cold_ms(torch, lambda: (
+        fa.flash_attention_bwd_dq(*args0),
+        fa.flash_attention_bwd_dkv(*args0)), flush)["median"]
+    pair["library_ms"] = timed["flash_attention_bwd_dq"]["library_ms"]
+    timed["flash_attention_bwd_dkv"]["pair_with_dq"] = pair
+    if (fa.flash_attention_bwd_dq.launches_tc == n0[0]
+            or fa.flash_attention_bwd_dkv.launches_tc == n0[1]):
+        fail("rows 8 and 9 at the NMT encoder shape ran no wgmma kernel")
     del kw, bwd, q, k, v, bias, do, o, lse, bits, lib_o, qh, kh, vh, args
+    del o0, lse0, args0
     torch.cuda.empty_cache()
 
     # row 7 at mha_key_train's attention: bf16, a [1, 1, 1, S] padding
@@ -1680,8 +1761,8 @@ def _train_program(cfg, b: int, s: int, max_preds: int, amp: bool):
     return m, st, loss
 
 
-KERNEL_COUNTERS = ("row6", "row7", "row8", "row9", "bsh_fwd", "bsh_bwd",
-                   "bsh_bwd_tc", "ln_fwd", "ln_bwd")
+KERNEL_COUNTERS = ("row6", "row7", "row8", "row9", "row8_tc", "row9_tc",
+                   "bsh_fwd", "bsh_bwd", "bsh_bwd_tc", "ln_fwd", "ln_bwd")
 
 
 class _Counter:
@@ -1707,6 +1788,8 @@ def _counters():
     return {"row6": fa.flash_attention, "row7": fa.flash_attention_bwd_fused,
             "row8": fa.flash_attention_bwd_dq,
             "row9": fa.flash_attention_bwd_dkv,
+            "row8_tc": _Counter(fa.flash_attention_bwd_dq, "launches_tc"),
+            "row9_tc": _Counter(fa.flash_attention_bwd_dkv, "launches_tc"),
             "bsh_fwd": fa.flash_attention_bsh,
             "bsh_bwd": fa.flash_attention_bsh_bwd,
             "bsh_bwd_tc": _Counter(fa.flash_attention_bsh_bwd,
@@ -1770,8 +1853,10 @@ def _launches_per_step(program, bf16: bool = False) -> dict:
     if not train:
         for k in ("row7", "row8", "row9", "bsh_bwd", "ln_bwd"):
             n[k] = 0
-    # a bf16 program's BSH backward runs the wgmma pair (bsh_bwd_route)
-    n["bsh_bwd_tc"] = n["bsh_bwd"] if bf16 else 0
+    # a bf16 program's BSH backward runs the wgmma pair (bsh_bwd_route),
+    # and so do rows 8 and 9 (a full bias, bhsd_bwd_route)
+    for k in ("bsh_bwd", "row8", "row9"):
+        n[f"{k}_tc"] = n[k] if bf16 else 0
     return n
 
 
@@ -2972,6 +3057,10 @@ def phase_nmt_train_parity(torch, b: int = 2, s: int = 128,
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     amp = _nmt_parity_run(torch, True, b, s, n_layers, op_by_op=True)
+    missed = [k for k in ("row8_tc", "row9_tc")
+              if counters[k].launches == n0[k]]
+    if missed:
+        fail(f"the bf16 NMT parity run on the card missed kernels {missed}")
     checks = [("f32 loss", f32["loss_diff"], TRAIN_PARITY_LOSS),
               ("f32 params", max(f32["param_diff"].values()),
                TRAIN_PARITY_PARAM),
@@ -3206,6 +3295,8 @@ def main() -> int:
     tc_paths = {
         "flash_attention_bsh_bwd": {"bert_train": launches["bsh_bwd_tc"],
                                     "nmt_train": nlaunches["bsh_bwd_tc"]},
+        "flash_attention_bwd_dq": {"nmt_train": nlaunches["row8_tc"]},
+        "flash_attention_bwd_dkv": {"nmt_train": nlaunches["row9_tc"]},
         "conv_stats": {"resnet_train": rlaunches["conv_stats_tc"]}}
     emit({"kernels": [dict(e, launches_tc_by_path=tc_paths[e["name"]])
                       if e["name"] in tc_paths else e for e in [

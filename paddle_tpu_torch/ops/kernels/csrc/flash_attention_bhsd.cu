@@ -68,29 +68,54 @@
 // each kernel's inputs and outputs against 3.35 TB/s.  At the encoder's
 // full-bias shapes the [B, nh, S, S] bias (67 MB in bf16) outweighs q, k,
 // v and o, and rows 6, 8 and 9 each stream it once: the bytes bound.
-// These kernels run f32 FMA on the SIMT cores, so they sit far above it.
+// The SIMT kernels run f32 FMA, so they sit far above it.
 //
-// Design.  As the [B, S, H] kernels: one block of 256 threads owns one
-// tile of T rows (T = 64, 32 at D = 256) of one bh and streams the other
-// operand's tiles through shared memory; all arithmetic is f32 (bf16
-// widens on load).  Thread (ty, tx) of a 16 x 16 grid holds rows
-// ty * T/16 .. and columns tx + 16 j of each score tile and of each
-// accumulator; row max and sum reduce over 16 lanes with xor shuffles;
-// tile rows in shared memory are padded by one float.  Causal tiles that
-// no row sees are skipped in all four kernels.  Later work: tensor cores
-// (mma.sync / wgmma on bf16), TMA tile loads, one pass for rows 8 and 9.
+// Design (SIMT: rows 6 and 7 in both dtypes, rows 8 and 9 in f32).  As
+// the [B, S, H] kernels: one block of 256 threads owns one tile of T rows
+// (T = 64, 32 at D = 256) of one bh and streams the other operand's
+// tiles through shared memory; all arithmetic is f32 (bf16 widens on
+// load).  Thread (ty, tx) of a 16 x 16 grid holds rows ty * T/16 .. and
+// columns tx + 16 j of each score tile and of each accumulator; row max
+// and sum reduce over 16 lanes with xor shuffles; tile rows in shared
+// memory are padded by one float.  Causal tiles that no row sees are
+// skipped in all four kernels.
 //
-// C interface (ctypes): flash_bhsd_fwd_launch and flash_bhsd_bwd_launch
-// return cudaGetLastError() after the launch (the first failing one).
-// The kernels run on the caller's stream, allocate nothing and do not
-// synchronise.
+// Rows 8 and 9 on the tensor cores (bf16 with a full bias, the route of
+// nmt_train's encoder): row 5's design (flash_attention_bsh.cu; helpers
+// in hopper_mma.cuh and flash_tc.cuh) with the full bias tile.  One
+// warpgroup owns a 64-row tile, every product is wgmma with bf16
+// operands and f32 accumulators, and the other operand's tiles stream
+// through a 2-stage cp.async ring, the next tile's copies overlapping
+// this tile's products.  Row 9 (per 64-key tile, and per 128-column half
+// of a D = 256 head): per query tile of BQ rows (64; 32 at D 128 and 256,
+// for registers) S^T = K Q^T and dP^T = V dO^T, then p c and ds = ds0
+// sm_scale in registers, rounded to bf16 as _make_bwd_dkv_kernel rounds
+// them, as the A operands of dV += (p c)^T dO and dK += ds^T Q.  Its ring
+// stage carries Q, dO, lse, delta and the bias tile [BQ queries x 64
+// keys], read transposed (the accumulator rows are keys); dbias, when
+// asked, is ds0 in f32 staged through shared memory as [query][key] rows
+// and stored 16 bytes a thread.  Row 8 (per 64-query tile): S = Q K^T,
+// dP = dO V^T, dQ += ds K, the ring carrying K, V and the [64 x 64] bias
+// tile.  Both recompute S and dP (the bound counts them once each in
+// its kernel) and draw the forward's Philox bits from the fragment
+// layout (drop_keys_by_queries, drop_queries_by_keys); causal tiles that
+// no row sees are skipped (_lo_blocks / _hi_blocks).  Each reads the
+// [B, nh, S, S] bias once: one pass for both is later work.
+//
+// C interface (ctypes): flash_bhsd_fwd_launch, flash_bhsd_bwd_launch and
+// flash_bhsd_bwd_tc_launch return cudaGetLastError() after the launch
+// (the first failing one).  The kernels run on the caller's stream,
+// allocate nothing and do not synchronise.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+#include <type_traits>
 
 #include "flash_common.cuh"
+#include "flash_tc.cuh"
+#include "hopper_mma.cuh"
 
 namespace {
 
@@ -121,6 +146,9 @@ struct Args {
   void* dv;
   float* dq_part;       // row 7: [nk, BH, S, D]
   float* dbias;         // row 7: [BH, S]; row 9: [BH, S, S]; or null
+  void* p_out;          // rows 8, 9 on the tensor cores: check outputs,
+  void* ds_out;         // bf16 [BH, S, S] or null (row 9's p c and ds,
+  void* dsq_out;        // row 8's ds)
   int bh_count, s;
   float sm_scale;
   int causal, q_off, k_off;
@@ -628,6 +656,378 @@ flash_bhsd_bwd_dq_kernel(Args a, Dropout dr) {
 }
 
 // ---------------------------------------------------------------------------
+// rows 8 and 9 on the tensor cores (bf16 with a full bias)
+// ---------------------------------------------------------------------------
+
+// a staged bias row: 64 keys and a pad that keeps the dk/dv kernel's
+// transposed read of a fragment's bias (row = key) free of bank
+// conflicts, and the dq kernel's (row = query) too for a bf16 bias (an
+// f32 one takes 2-way conflicts there)
+template <typename BT>
+__host__ __device__ constexpr int bias_pitch() {
+  return 64 + 16 / static_cast<int>(sizeof(BT));
+}
+constexpr int kDbPitch = 68;  // the dk/dv kernel's staged ds0 rows (f32)
+
+template <typename BT>
+__host__ __device__ constexpr int bias_tile_bytes(int rows) {
+  return rows * bias_pitch<BT>() * static_cast<int>(sizeof(BT));
+}
+
+// cp.async R rows of 64 bias values (row stride s elements) into rows of
+// bias_pitch<BT>() at dst
+template <int R, typename BT>
+__device__ __forceinline__ void bias_async(uint32_t dst, const BT* src,
+                                           int s) {
+  constexpr int CH = 64 * static_cast<int>(sizeof(BT)) / 16;  // chunks a row
+  constexpr int EL = 16 / static_cast<int>(sizeof(BT));       // values a chunk
+  constexpr int P = bias_pitch<BT>() * static_cast<int>(sizeof(BT));
+  for (int idx = threadIdx.x; idx < R * CH; idx += 128) {
+    const int r = idx / CH, ch = idx - r * CH;
+    cp_async16(dst + r * P + ch * 16, src + (int64_t)r * s + ch * EL, true);
+  }
+}
+
+template <int D, int BQ, typename BT>
+constexpr int dkv_tc_smem_bytes() {
+  return 2 * kTcRows * D * 2 + 2 * 2 * BQ * D * 2 + 2 * 2 * BQ * 4 +
+         2 * bias_tile_bytes<BT>(BQ) + BQ * kDbPitch * 4 + 1024;
+}
+
+// Row 9: dk, dv of one (64-key tile, bh, DO-column slice of the head):
+// one warpgroup; the query tiles (BQ rows of q and dO, their lse and
+// delta, and the bias tile [BQ queries x 64 keys]) stream through a
+// 2-stage cp.async ring.  Per query tile:
+//   S^T  = K . Q^T and dP^T = V . dO^T   (A: K, V; B: Q, dO; K-major)
+//   p c, ds in registers, rounded to bf16: the A operands of
+//   dV  += (p c)^T . dO and dK += ds^T . Q  (B: dO, Q; MN-major)
+// The accumulator rows are keys, so the bias is read transposed from the
+// stage.  dbias (when asked, by the slice dsplit 0 only): ds0 staged as
+// [query][key] f32 rows, then stored row by row, 16 bytes a thread.
+template <int D, int BQ, int DO, typename BT>
+__global__ void __launch_bounds__(128)
+flash_bhsd_bwd_dkv_tc_kernel(Args a, Dropout dr) {
+  constexpr int KV_BYTES = kTcRows * D * 2;
+  constexpr int Q_BYTES = BQ * D * 2;
+  constexpr int NB = BQ / 8;
+  constexpr int BP = bias_pitch<BT>();
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t pad = (1024u - (raw & 1023u)) & 1023u;
+  uint8_t* base_p = smem_raw + pad;
+  const uint32_t ks = raw + pad, vs = ks + KV_BYTES;
+  const uint32_t qs0 = vs + KV_BYTES;  // stage st: Q at qs0 + st * 2 * Q_BYTES,
+                                       // dO Q_BYTES after it
+  float* stat_s = reinterpret_cast<float*>(base_p + 2 * KV_BYTES +
+                                           4 * Q_BYTES);  // [2][lse, delta][BQ]
+  uint8_t* bias_p = reinterpret_cast<uint8_t*>(stat_s + 4 * BQ);  // [2] tiles
+  float* db_s = reinterpret_cast<float*>(bias_p + 2 * bias_tile_bytes<BT>(BQ));
+
+  const int k0 = blockIdx.x * kTcRows;
+  const int bh = blockIdx.y, dsplit = blockIdx.z;
+  const int s = a.s;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int64_t base = (int64_t)bh * s * D;
+  const __nv_bfloat16* qb = static_cast<const __nv_bfloat16*>(a.q) + base;
+  const __nv_bfloat16* dob = static_cast<const __nv_bfloat16*>(a.dout) + base;
+  const int64_t kofs = base + (int64_t)k0 * D;
+  const float* lseb = a.lse + (int64_t)bh * s;
+  const float* deltab = a.delta + (int64_t)bh * s;
+  const int64_t brow = (bh / a.row_div) % a.row_mod;
+  const BT* biasb = static_cast<const BT*>(a.bias) + brow * s * s + k0;
+  float* dbb = a.dbias && dsplit == 0
+                   ? a.dbias + (int64_t)bh * s * s + k0 : nullptr;
+  const int nq = s / BQ;
+  const int lo = lo_blocks(a, k0, BQ);
+
+  auto load_q = [&](int qt, int st) {
+    const uint32_t qd = qs0 + st * 2 * Q_BYTES;
+    tile_async<BQ, D>(qd, qb + (int64_t)qt * BQ * D, D);
+    tile_async<BQ, D>(qd + Q_BYTES, dob + (int64_t)qt * BQ * D, D);
+    const uint32_t sd = smem_u32(stat_s + st * 2 * BQ);
+    if (tid < BQ / 4)
+      cp_async16(sd + tid * 16, lseb + qt * BQ + tid * 4, true);
+    else if (tid < BQ / 2)
+      cp_async16(sd + BQ * 4 + (tid - BQ / 4) * 16,
+                 deltab + qt * BQ + (tid - BQ / 4) * 4, true);
+    bias_async<BQ, BT>(smem_u32(bias_p + st * bias_tile_bytes<BT>(BQ)),
+                       biasb + (int64_t)qt * BQ * s, s);
+  };
+
+  tile_async<kTcRows, D>(ks, static_cast<const __nv_bfloat16*>(a.k) + kofs,
+                         D);
+  tile_async<kTcRows, D>(vs, static_cast<const __nv_bfloat16*>(a.v) + kofs,
+                         D);
+  if (lo < nq) load_q(lo, 0);
+  cp_async_commit();
+
+  if (dbb) {
+    // the q tiles that never see this key tile get a zero dbias
+    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int idx = tid; idx < lo * BQ * 16; idx += 128)
+      *reinterpret_cast<float4*>(dbb + (int64_t)(idx >> 4) * s +
+                                 (idx & 15) * 4) = z;
+  }
+
+  const int kr0 = 16 * warp + g;  // this thread's key rows kr0, kr0 + 8
+  const float scale = a.sm_scale;
+
+  float dk[DO / 64][32], dv[DO / 64][32];
+#pragma unroll
+  for (int cb = 0; cb < DO / 64; ++cb) {
+    zero(dk[cb]);
+    zero(dv[cb]);
+  }
+
+  for (int qt = lo; qt < nq; ++qt) {
+    const int st = (qt - lo) & 1;
+    cp_async_wait<0>();  // this tile (and, first, K and V) has landed
+    fence_async_smem();
+    __syncthreads();     // for every thread; the other stage is free
+    if (qt + 1 < nq) load_q(qt + 1, st ^ 1);
+    cp_async_commit();
+
+    const uint32_t qd = qs0 + st * 2 * Q_BYTES, dod = qd + Q_BYTES;
+    const float* lse_s = stat_s + st * 2 * BQ;
+    const float* delta_s = lse_s + BQ;
+    const BT* bias_t =
+        reinterpret_cast<const BT*>(bias_p + st * bias_tile_bytes<BT>(BQ));
+    float sacc[BQ / 2], dpacc[BQ / 2];
+    zero(sacc);
+    zero(dpacc);
+    fence_regs(sacc);
+    fence_regs(dpacc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t ko = (kk >> 2) * (kTcRows * 128) + (kk & 3) * 32;
+      const uint32_t qo = (kk >> 2) * (BQ * 128) + (kk & 3) * 32;
+      wgmma_ss<BQ, 0>(sacc, desc_sw128(ks + ko), desc_sw128(qd + qo));
+      wgmma_ss<BQ, 0>(dpacc, desc_sw128(vs + ko), desc_sw128(dod + qo));
+    }
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(sacc);
+    fence_regs(dpacc);
+
+    const int q0 = qt * BQ;
+    float cm[BQ / 2];
+    drop_keys_by_queries<NB>(dr, bh, s, s, k0 + kr0, q0, cm);
+#pragma unroll
+    for (int i = 0; i < NB; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int idx = 4 * i + e;
+        const int kr = kr0 + ((e & 2) ? 8 : 0);
+        const int qc = 8 * i + 2 * t + (e & 1);
+        const float x = sacc[idx] * scale + to_float(bias_t[qc * BP + kr]);
+        // p = 0 at a masked score, also in a row that sees no key
+        const float p = masked(a, q0 + qc, k0 + kr) ? 0.f
+                                                    : expf(x - lse_s[qc]);
+        const float ds0 = p * (dpacc[idx] * cm[idx] - delta_s[qc]);
+        sacc[idx] = p * cm[idx];    // p c
+        dpacc[idx] = ds0 * scale;   // ds
+        if (dbb) db_s[qc * kDbPitch + kr] = ds0;
+        if (a.p_out) {
+          const int64_t at = ((int64_t)bh * s + q0 + qc) * s + k0 + kr;
+          static_cast<__nv_bfloat16*>(a.p_out)[at] =
+              __float2bfloat16_rn(sacc[idx]);
+          static_cast<__nv_bfloat16*>(a.ds_out)[at] =
+              __float2bfloat16_rn(dpacc[idx]);
+        }
+      }
+
+#pragma unroll
+    for (int cb = 0; cb < DO / 64; ++cb) {
+      fence_regs(dk[cb]);
+      fence_regs(dv[cb]);
+    }
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      uint32_t pa[4], da[4];
+      a_frag(sacc, kk, pa);
+      a_frag(dpacc, kk, da);
+#pragma unroll
+      for (int cb = 0; cb < DO / 64; ++cb) {
+        const uint32_t off =
+            (dsplit * (DO / 64) + cb) * (BQ * 128) + kk * 16 * 128;
+        wgmma_rs_n64<1>(dv[cb], pa, desc_sw128(dod + off));
+        wgmma_rs_n64<1>(dk[cb], da, desc_sw128(qd + off));
+      }
+    }
+    wg_commit();
+    wg_wait<0>();
+#pragma unroll
+    for (int cb = 0; cb < DO / 64; ++cb) {
+      fence_regs(dk[cb]);
+      fence_regs(dv[cb]);
+    }
+
+    if (dbb) {
+      __syncthreads();  // every thread's ds0 is staged
+      for (int idx = tid; idx < BQ * 16; idx += 128) {
+        const int r = idx >> 4, c4 = (idx & 15) * 4;
+        *reinterpret_cast<float4*>(dbb + (int64_t)(q0 + r) * s + c4) =
+            *reinterpret_cast<const float4*>(db_s + r * kDbPitch + c4);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int cb = 0; cb < DO / 64; ++cb) {
+    const int64_t at = kofs + dsplit * DO + cb * 64;
+    store_frag(static_cast<__nv_bfloat16*>(a.dk) + at, D, dk[cb]);
+    store_frag(static_cast<__nv_bfloat16*>(a.dv) + at, D, dv[cb]);
+  }
+}
+
+template <int D, typename BT>
+constexpr int dq_tc_smem_bytes() {
+  return 2 * kTcRows * D * 2 + 2 * 2 * kTcRows * D * 2 +
+         2 * bias_tile_bytes<BT>(kTcRows) + 1024;
+}
+
+// Row 8: dq of one (64-query tile, bh, DO-column slice): one warpgroup;
+// the key tiles (64 rows of k and v, and the bias tile [64 queries x 64
+// keys]) stream through a 2-stage cp.async ring.  Per key tile: S = Q .
+// K^T, dP = dO . V^T (K-major), ds in registers rounded to bf16, dQ += ds
+// . K (B: K, MN-major).
+template <int D, int DO, typename BT>
+__global__ void __launch_bounds__(128)
+flash_bhsd_bwd_dq_tc_kernel(Args a, Dropout dr) {
+  constexpr int T_BYTES = kTcRows * D * 2;
+  constexpr int NB = kTcRows / 8;
+  constexpr int BP = bias_pitch<BT>();
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t pad = (1024u - (raw & 1023u)) & 1023u;
+  const uint32_t qs = raw + pad, dos = qs + T_BYTES;
+  const uint32_t kv0 = dos + T_BYTES;  // stage st: K at kv0 + st * 2 * T_BYTES,
+                                       // V T_BYTES after it
+  uint8_t* bias_p = smem_raw + pad + 6 * T_BYTES;  // [2] bias tiles
+
+  const int q0 = blockIdx.x * kTcRows;
+  const int bh = blockIdx.y, dsplit = blockIdx.z;
+  const int s = a.s;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int64_t base = (int64_t)bh * s * D;
+  const int64_t qofs = base + (int64_t)q0 * D;
+  const __nv_bfloat16* kb = static_cast<const __nv_bfloat16*>(a.k) + base;
+  const __nv_bfloat16* vb = static_cast<const __nv_bfloat16*>(a.v) + base;
+  const int64_t brow = (bh / a.row_div) % a.row_mod;
+  const BT* biasb =
+      static_cast<const BT*>(a.bias) + (brow * s + q0) * (int64_t)s;
+  const int nk = hi_blocks(a, q0, kTcRows, kTcRows);
+
+  auto load_kv = [&](int kt, int st) {
+    const uint32_t kd = kv0 + st * 2 * T_BYTES;
+    tile_async<kTcRows, D>(kd, kb + (int64_t)kt * kTcRows * D, D);
+    tile_async<kTcRows, D>(kd + T_BYTES, vb + (int64_t)kt * kTcRows * D, D);
+    bias_async<kTcRows, BT>(
+        smem_u32(bias_p + st * bias_tile_bytes<BT>(kTcRows)),
+        biasb + kt * kTcRows, s);
+  };
+
+  tile_async<kTcRows, D>(qs, static_cast<const __nv_bfloat16*>(a.q) + qofs,
+                         D);
+  tile_async<kTcRows, D>(dos,
+                         static_cast<const __nv_bfloat16*>(a.dout) + qofs, D);
+  if (nk > 0) load_kv(0, 0);
+  cp_async_commit();
+
+  const int qr0 = 16 * warp + g;  // this thread's query rows qr0, qr0 + 8
+  const int64_t stat0 = (int64_t)bh * s + q0;
+  const float lse0 = a.lse[stat0 + qr0], lse1 = a.lse[stat0 + qr0 + 8];
+  const float dl0 = a.delta[stat0 + qr0], dl1 = a.delta[stat0 + qr0 + 8];
+  const float scale = a.sm_scale;
+
+  float dq[DO / 64][32];
+#pragma unroll
+  for (int cb = 0; cb < DO / 64; ++cb) zero(dq[cb]);
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int st = kt & 1;
+    cp_async_wait<0>();
+    fence_async_smem();
+    __syncthreads();
+    if (kt + 1 < nk) load_kv(kt + 1, st ^ 1);
+    cp_async_commit();
+
+    const uint32_t kd = kv0 + st * 2 * T_BYTES, vd = kd + T_BYTES;
+    const BT* bias_t = reinterpret_cast<const BT*>(
+        bias_p + st * bias_tile_bytes<BT>(kTcRows));
+    float sacc[32], dpacc[32];
+    zero(sacc);
+    zero(dpacc);
+    fence_regs(sacc);
+    fence_regs(dpacc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk >> 2) * (kTcRows * 128) + (kk & 3) * 32;
+      wgmma_ss<64, 0>(sacc, desc_sw128(qs + off), desc_sw128(kd + off));
+      wgmma_ss<64, 0>(dpacc, desc_sw128(dos + off), desc_sw128(vd + off));
+    }
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(sacc);
+    fence_regs(dpacc);
+
+    const int k0 = kt * kTcRows;
+    float cm[32];
+    drop_queries_by_keys<NB>(dr, bh, s, s, q0 + qr0, k0, cm);
+#pragma unroll
+    for (int i = 0; i < NB; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int idx = 4 * i + e;
+        const int qr = qr0 + ((e & 2) ? 8 : 0);
+        const int kc = 8 * i + 2 * t + (e & 1);
+        const float x = sacc[idx] * scale + to_float(bias_t[qr * BP + kc]);
+        const float p = masked(a, q0 + qr, k0 + kc)
+                            ? 0.f
+                            : expf(x - ((e & 2) ? lse1 : lse0));
+        dpacc[idx] =
+            p * (dpacc[idx] * cm[idx] - ((e & 2) ? dl1 : dl0)) * scale;
+        if (a.dsq_out)
+          static_cast<__nv_bfloat16*>(
+              a.dsq_out)[((int64_t)bh * s + q0 + qr) * s + k0 + kc] =
+              __float2bfloat16_rn(dpacc[idx]);
+      }
+
+#pragma unroll
+    for (int cb = 0; cb < DO / 64; ++cb) fence_regs(dq[cb]);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTcRows / 16; ++kk) {
+      uint32_t da[4];
+      a_frag(dpacc, kk, da);
+#pragma unroll
+      for (int cb = 0; cb < DO / 64; ++cb) {
+        const uint32_t off =
+            (dsplit * (DO / 64) + cb) * (kTcRows * 128) + kk * 16 * 128;
+        wgmma_rs_n64<1>(dq[cb], da, desc_sw128(kd + off));
+      }
+    }
+    wg_commit();
+    wg_wait<0>();
+#pragma unroll
+    for (int cb = 0; cb < DO / 64; ++cb) fence_regs(dq[cb]);
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int cb = 0; cb < DO / 64; ++cb)
+    store_frag(static_cast<__nv_bfloat16*>(a.dq) + qofs + dsplit * DO +
+                   cb * 64,
+               D, dq[cb]);
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -673,10 +1073,6 @@ int launch_bwd(int part, const Args& a, const Dropout& dr,
   constexpr int kQ = dq_smem_floats<TT, D>() * static_cast<int>(sizeof(float));
   static const cudaError_t attr_fused =
       allow_smem(flash_bhsd_bwd_kv_kernel<T, TT, D, true>, kKv);
-  static const cudaError_t attr_dkv =
-      allow_smem(flash_bhsd_bwd_kv_kernel<T, TT, D, false>, kKv);
-  static const cudaError_t attr_dq =
-      allow_smem(flash_bhsd_bwd_dq_kernel<T, TT, D>, kQ);
   if (a.s % TT != 0) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(a.s / TT, a.bh_count);
   if (part == kFused) {
@@ -693,16 +1089,24 @@ int launch_bwd(int part, const Args& a, const Dropout& dr,
     flash_bhsd_dq_sum_kernel<T, TT><<<blocks, kThreads, 0, stream>>>(a, D);
     return static_cast<int>(cudaGetLastError());
   }
-  if (part == kDq) {
-    if (attr_dq != cudaSuccess) return static_cast<int>(attr_dq);
-    flash_bhsd_bwd_dq_kernel<T, TT, D><<<grid, kThreads, kQ, stream>>>(a, dr);
-    return static_cast<int>(cudaGetLastError());
-  }
-  if (part == kDkv) {
-    if (attr_dkv != cudaSuccess) return static_cast<int>(attr_dkv);
-    flash_bhsd_bwd_kv_kernel<T, TT, D, false>
-        <<<grid, kThreads, kKv, stream>>>(a, dr);
-    return static_cast<int>(cudaGetLastError());
+  if constexpr (std::is_same<T, float>::value) {
+    // rows 8 and 9 in bf16 take the tensor cores (flash_bhsd_bwd_tc_launch)
+    static const cudaError_t attr_dkv =
+        allow_smem(flash_bhsd_bwd_kv_kernel<T, TT, D, false>, kKv);
+    static const cudaError_t attr_dq =
+        allow_smem(flash_bhsd_bwd_dq_kernel<T, TT, D>, kQ);
+    if (part == kDq) {
+      if (attr_dq != cudaSuccess) return static_cast<int>(attr_dq);
+      flash_bhsd_bwd_dq_kernel<T, TT, D>
+          <<<grid, kThreads, kQ, stream>>>(a, dr);
+      return static_cast<int>(cudaGetLastError());
+    }
+    if (part == kDkv) {
+      if (attr_dkv != cudaSuccess) return static_cast<int>(attr_dkv);
+      flash_bhsd_bwd_kv_kernel<T, TT, D, false>
+          <<<grid, kThreads, kKv, stream>>>(a, dr);
+      return static_cast<int>(cudaGetLastError());
+    }
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -717,6 +1121,49 @@ int launch_bwd_d(int head_dim, int part, const Args& a, const Dropout& dr,
       return launch_bwd<T, 64, 128>(part, a, dr, stream);
     case 256:
       return launch_bwd<T, 32, 256>(part, a, dr, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <int D, int BQ, int DO, typename BT>
+int launch_bwd_tc(int part, const Args& a, const Dropout& dr,
+                  cudaStream_t stream) {
+  constexpr int kDkvBytes = dkv_tc_smem_bytes<D, BQ, BT>();
+  constexpr int kDqBytes = dq_tc_smem_bytes<D, BT>();
+  static const cudaError_t attr_dkv =
+      allow_smem(flash_bhsd_bwd_dkv_tc_kernel<D, BQ, DO, BT>, kDkvBytes);
+  static const cudaError_t attr_dq =
+      allow_smem(flash_bhsd_bwd_dq_tc_kernel<D, DO, BT>, kDqBytes);
+  if (a.s % kTcRows != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(a.s / kTcRows, a.bh_count, D / DO);
+  if (part == kDq) {
+    if (attr_dq != cudaSuccess) return static_cast<int>(attr_dq);
+    flash_bhsd_bwd_dq_tc_kernel<D, DO, BT>
+        <<<grid, 128, kDqBytes, stream>>>(a, dr);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (part == kDkv) {
+    if (attr_dkv != cudaSuccess) return static_cast<int>(attr_dkv);
+    flash_bhsd_bwd_dkv_tc_kernel<D, BQ, DO, BT>
+        <<<grid, 128, kDkvBytes, stream>>>(a, dr);
+    return static_cast<int>(cudaGetLastError());
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// the tiles of row 5's tensor-core pair: 32-row streamed tiles at D 128
+// and 256, D 256 in two 128-column slices
+template <typename BT>
+int launch_bwd_tc_d(int head_dim, int part, const Args& a, const Dropout& dr,
+                    cudaStream_t stream) {
+  switch (head_dim) {
+    case 64:
+      return launch_bwd_tc<64, 64, 64, BT>(part, a, dr, stream);
+    case 128:
+      return launch_bwd_tc<128, 32, 128, BT>(part, a, dr, stream);
+    case 256:
+      return launch_bwd_tc<256, 32, 128, BT>(part, a, dr, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -784,11 +1231,13 @@ extern "C" int flash_bhsd_fwd_launch(
   return launch_fwd_d<__nv_bfloat16>(head_dim, a, dr, st);
 }
 
-// Rows 7-9.  part: 0 the single pass (row 7: dq, dk, dv, and the key
-// dbias [BH, S] when dbias is given; dq_part is f32 scratch [S / T, BH,
-// S, D], T = 64, 32 at D = 256), 1 dq (row 8), 2 dk and dv (row 9: the
-// full dbias [BH, S, S] f32 when dbias is given).  lse, delta: f32 [BH,
-// S]; dout and the gradients in the dtype; the rest as the forward's.
+// Rows 7-9 on the SIMT cores.  part: 0 the single pass (row 7: dq, dk,
+// dv, and the key dbias [BH, S] when dbias is given; dq_part is f32
+// scratch [S / T, BH, S, D], T = 64, 32 at D = 256), 1 dq (row 8), 2 dk
+// and dv (row 9: the full dbias [BH, S, S] f32 when dbias is given);
+// parts 1 and 2 in float32 only (bf16: flash_bhsd_bwd_tc_launch).  lse,
+// delta: f32 [BH, S]; dout and the gradients in the dtype; the rest as
+// the forward's.
 extern "C" int flash_bhsd_bwd_launch(
     int part, const void* q, const void* k, const void* v, const void* bias,
     int bias_mode, int bias_bf16, int row_div, int row_mod, const void* lse,
@@ -814,4 +1263,44 @@ extern "C" int flash_bhsd_bwd_launch(
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_bwd_d<float>(head_dim, part, a, dr, st);
   return launch_bwd_d<__nv_bfloat16>(head_dim, part, a, dr, st);
+}
+
+// Rows 8 and 9 on the tensor cores: the arguments of flash_bhsd_bwd_launch
+// (part 1 or 2, dtype 1 = bfloat16, bias_mode 2 = full, f32 or bf16;
+// dq_part unused), then three check outputs that are null on the training
+// path: p_out and ds_out receive row 9's rounded p c and ds, dsq_out row
+// 8's ds (bf16 [BH, S, S]).
+extern "C" int flash_bhsd_bwd_tc_launch(
+    int part, const void* q, const void* k, const void* v, const void* bias,
+    int bias_mode, int bias_bf16, int row_div, int row_mod, const void* lse,
+    const void* delta, const void* dout, void* dq, void* dk, void* dv,
+    void* dq_part, void* dbias, int bh_count, int s, int head_dim,
+    float sm_scale, int causal, int q_off, int k_off, int dtype,
+    int drop_mode, const void* mask, unsigned long long seed, int offset,
+    int thresh, float keep_div, void* p_out, void* ds_out, void* dsq_out,
+    void* stream) {
+  Args a = make_args(q, k, v, bias, bias_mode, bias_bf16, row_div, row_mod,
+                     bh_count, s, sm_scale, causal, q_off, k_off);
+  a.lse = const_cast<float*>(static_cast<const float*>(lse));
+  a.delta = static_cast<const float*>(delta);
+  a.dout = dout;
+  a.dq = dq;
+  a.dk = dk;
+  a.dv = dv;
+  a.dbias = static_cast<float*>(dbias);
+  a.p_out = p_out;
+  a.ds_out = ds_out;
+  a.dsq_out = dsq_out;
+  (void)dq_part;
+  if (!args_ok(a, dtype) || dtype != 1 || bias_mode != kFullBias ||
+      (part != kDq && part != kDkv) ||
+      (p_out == nullptr) != (ds_out == nullptr) ||
+      !dropout_ok(drop_mode, mask, thresh, keep_div))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Dropout dr =
+      make_dropout(drop_mode, mask, nullptr, seed, offset, thresh, keep_div);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bias_bf16)
+    return launch_bwd_tc_d<__nv_bfloat16>(head_dim, part, a, dr, st);
+  return launch_bwd_tc_d<float>(head_dim, part, a, dr, st);
 }

@@ -46,7 +46,10 @@ Two implementations of each direction:
   ``flash_attention_bsh_bwd_reference`` (the reference's
   ``_reference_attention`` with a per-key bias plus the lse, and its
   backward from the lse) and ``flash_attention_reference`` /
-  ``flash_attention_bwd_reference`` (the BHSD kernels' math), in f32.
+  ``flash_attention_bwd_reference`` (the BHSD kernels' math), in f32;
+  each backward is a probs part and a products part
+  (``bwd_probs_reference`` / ``bwd_products_reference``,
+  ``bhsd_bwd_probs_reference`` / ``bhsd_bwd_products_reference``).
   CPU and ``meta`` tensors take them.
 * the CUDA kernels of ``csrc/flash_attention_bsh.cu`` and
   ``csrc/flash_attention_bhsd.cu`` (sm_90a, built by nvcc at first use,
@@ -58,8 +61,9 @@ Two implementations of each direction:
   one block per (64-row tile, head) streams the other operand's tiles
   through shared memory in f32; every backward is deterministic (no
   atomics).  The BSH backward in bf16 runs on the tensor cores instead
-  (wgmma, ``bsh_bwd_route``), rounding p c and ds to bf16 before its
-  products as the TPU kernel does; the plain backward rounds them the
+  (wgmma, ``bsh_bwd_route``), and so do rows 8 and 9 in bf16 with a full
+  bias (``bhsd_bwd_route``), each rounding p c and ds to bf16 before its
+  products as the TPU kernels do; the plain backwards round them the
   same way.  The sources' header notes have the designs.
 
 ``flash_attention_bsh``, ``flash_attention`` and ``flash_block_with_lse``
@@ -75,7 +79,8 @@ Launch counters: ``flash_attention_bsh.launches`` (BSH forward),
 ``.launches_tc`` those of the wgmma pair),
 ``flash_attention.launches`` (row 6), ``flash_attention_bwd_fused``
 (row 7), ``flash_attention_bwd_dq`` (row 8) and
-``flash_attention_bwd_dkv`` (row 9) ``.launches``.
+``flash_attention_bwd_dkv`` (row 9) ``.launches`` (rows 8 and 9:
+``.launches_tc`` those of their wgmma kernels).
 """
 from __future__ import annotations
 
@@ -700,21 +705,23 @@ def _sum_to(t, shape):
     return t.sum(dim=dims, keepdim=True) if dims else t
 
 
-def flash_attention_bwd_reference(q, k, v, bias, o, lse, do, sm_scale=None,
-                                  causal=False, mask=None, keep_div=1.0,
-                                  q_offset=0, k_offset=0, g_lse=None,
-                                  want_dbias=False):
-    """Plain backward of rows 7-9, any device: (dq, dk, dv in the inputs'
-    dtypes, dbias in the bias's shape and dtype, or None) from the
-    forward's o and lse: p = exp(s - lse) (0 where masked), delta =
-    rowsum(o * dO) - g_lse in f32, ds0 = p (dp c - delta) with c = keep /
-    keep_div (1 without ``mask``); dq = ds0 k sm_scale, dk = ds0^T q
-    sm_scale, dv = (p c)^T dO; dbias = ds0 without sm_scale, summed back
-    to the bias's shape (key: over heads and rows, and the batch when the
-    bias has one row; full: over the broadcast batch and heads)."""
-    b, nh, s, d = q.shape
+def bhsd_bwd_route(dtype, mode) -> str:
+    """Which kernels the BHSD backward launches: "tc" (rows 8 and 9 on the
+    wgmma kernels) for bf16 with a full bias; "simt" (f32 FMA) for float32,
+    which tensor cores would round to TF32, and for every other bias mode
+    (row 7)."""
+    return "tc" if dtype == torch.bfloat16 and mode == "full" else "simt"
+
+
+def bhsd_bwd_probs_reference(q, k, v, bias, o, lse, do, sm_scale=None,
+                             causal=False, mask=None, keep_div=1.0,
+                             q_offset=0, k_offset=0, g_lse=None):
+    """The plain backward's intermediates, f32 [B, nh, S, S], unrounded:
+    (p c, ds0).  p = exp(s - lse), 0 where masked; delta = rowsum(o * dO)
+    - g_lse in f32; ds0 = p (dp c - delta) with c = keep / keep_div (1
+    without ``mask``)."""
     if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(d)
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
     sc, masked = _bhsd_scores(q, k, bias, sm_scale, causal, q_offset,
                               k_offset)
     p = torch.exp(sc - lse[..., None].float())
@@ -730,14 +737,61 @@ def flash_attention_bwd_reference(q, k, v, bias, o, lse, do, sm_scale=None,
         p_num, dp = p * c, dp * c
     else:
         p_num = p
-    ds0 = p * (dp - delta)
-    dq = torch.matmul(ds0, k.float()) * sm_scale
-    dk = torch.matmul(ds0.transpose(-1, -2), q.float()) * sm_scale
-    dv = torch.matmul(p_num.transpose(-1, -2), dof)
+    return p_num, p * (dp - delta)
+
+
+def bhsd_bwd_rounded(p_num, ds0, sm_scale, do_dtype, q_dtype):
+    """The tensor-core route's intermediates as ``_make_bwd_dkv_kernel``
+    and ``_make_bwd_dq_kernel`` round them before their products: p c in
+    dO's dtype, ds = ds0 sm_scale in q's; returned as f32."""
+    return (p_num.to(do_dtype).float(),
+            (ds0 * sm_scale).to(q_dtype).float())
+
+
+def bhsd_bwd_products_reference(q, k, v, do, p_num, ds, sm_scale=1.0,
+                                ds_q=None):
+    """(dq, dk, dv) in the inputs' dtypes from the intermediates: dv =
+    (p c)^T dO, dk = (ds^T q) sm_scale, dq = (ds_q k) sm_scale (ds_q
+    defaults to ds), summed in f32.  The SIMT route passes ds0 and
+    sm_scale, the tensor-core route the rounded ds (sm_scale in it)."""
+    ds_q = ds if ds_q is None else ds_q
+    dq = torch.matmul(ds_q.float(), k.float()) * sm_scale
+    dk = torch.matmul(ds.float().transpose(-1, -2), q.float()) * sm_scale
+    dv = torch.matmul(p_num.float().transpose(-1, -2), do.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_reference(q, k, v, bias, o, lse, do, sm_scale=None,
+                                  causal=False, mask=None, keep_div=1.0,
+                                  q_offset=0, k_offset=0, g_lse=None,
+                                  want_dbias=False):
+    """Plain backward of rows 7-9, any device: (dq, dk, dv in the inputs'
+    dtypes, dbias in the bias's shape and dtype, or None) from the
+    forward's o and lse: the intermediates of ``bhsd_bwd_probs_reference``
+    through ``bhsd_bwd_products_reference``: dq = ds0 k sm_scale, dk =
+    ds0^T q sm_scale, dv = (p c)^T dO.  On the tensor-core route
+    (``bhsd_bwd_route``: bf16 with a full bias) p c and ds0 sm_scale are
+    rounded first (``bhsd_bwd_rounded``), as the TPU's split kernels round
+    them.  dbias = the unrounded ds0 without sm_scale, summed back to the
+    bias's shape (key: over heads and rows, and the batch when the bias
+    has one row; full: over the broadcast batch and heads)."""
+    b, nh, s, d = q.shape
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    _, mode, _ = _classify_bias(bias, b, nh, s)
+    p_num, ds0 = bhsd_bwd_probs_reference(
+        q, k, v, bias, o, lse, do, sm_scale, causal, mask, keep_div,
+        q_offset, k_offset, g_lse)
+    if bhsd_bwd_route(q.dtype, mode) == "tc":
+        p_r, ds_r = bhsd_bwd_rounded(p_num, ds0, sm_scale, do.dtype, q.dtype)
+        dq, dk, dv = bhsd_bwd_products_reference(q, k, v, do, p_r, ds_r)
+    else:
+        dq, dk, dv = bhsd_bwd_products_reference(q, k, v, do, p_num, ds0,
+                                                 sm_scale)
     dbias = None
     if want_dbias and bias is not None:
         dbias = _sum_to(ds0, bias.shape).to(bias.dtype)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias
+    return dq, dk, dv, dbias
 
 
 def draw_keep_mask_bhsd(q, dropout_prob, generator):
@@ -804,9 +858,11 @@ def _bhsd_launcher(name: str):
                            + [i] * 5 + [p, p, ctypes.c_ulonglong, i, i, f,
                                         p])
         else:
+            # bwd_tc: three check outputs before the stream
             fn.argtypes = ([i] + [p] * 4 + [i] * 4 + [p] * 8 + [i] * 3
                            + [f] + [i] * 5 + [p, ctypes.c_ulonglong, i, i,
-                                              f, p])
+                                              f]
+                           + [p] * (4 if name == "bwd_tc" else 1))
         fn.restype = ctypes.c_int
         _fns[key] = fn
     return fn
@@ -859,11 +915,19 @@ def _cuda_flash_fwd(q, k, v, bias_k, mode, dims, sm_scale, causal, q_off,
 
 def _cuda_flash_bwd_part(part, q, k, v, bias_k, mode, dims, lse, delta, do,
                          sm_scale, causal, q_off, k_off, dropout_prob, mask,
-                         seed, offset, want_dbias):
+                         seed, offset, want_dbias, return_probs=False):
     """Launch one backward kernel: row 7 (``_FUSED``: dq, dk, dv and the
     key dbias [BH, S]), row 8 (``_DQ``: dq) or row 9 (``_DKV``: dk, dv
-    and the full dbias [BH, S, S])."""
+    and the full dbias [BH, S, S]); rows 8 and 9 on the wgmma kernels
+    for bf16 with the full bias (``bhsd_bwd_route``).  Returns (dq, dk,
+    dv, dbias, checks): with ``return_probs`` on the tensor-core route,
+    ``checks`` holds the kernel's rounded intermediates (p c, ds, ds_dq:
+    row 9 sets p c and ds, row 8 ds_dq; bf16 [B, nh, S, S]), else None."""
     b, nh, s, d = q.shape
+    tc = part != _FUSED and bhsd_bwd_route(q.dtype, mode) == "tc"
+    if tc:
+        q, k, v, bias_k, lse, delta, do = (
+            _aligned(t) for t in (q, k, v, bias_k, lse, delta, do))
     dmode, mask, thresh, keep_div = _drop_args(dropout_prob, mask, seed)
     dq = torch.empty_like(q) if part != _DKV else None
     dk, dv = ((torch.empty_like(k), torch.empty_like(v)) if part != _DQ
@@ -879,7 +943,13 @@ def _cuda_flash_bwd_part(part, q, k, v, bias_k, mode, dims, lse, delta, do,
     elif part == _DKV and want_dbias:
         dbias = torch.empty((b * nh, s, s), dtype=torch.float32,
                             device=q.device)
-    fn = _bhsd_launcher("bwd")
+    probs = (None,) * 3
+    if tc and return_probs:
+        probs = tuple(
+            torch.zeros((b * nh, s, s), dtype=q.dtype, device=q.device)
+            if use else None
+            for use in (part == _DKV, part == _DKV, part == _DQ))
+    fn = _bhsd_launcher("bwd_tc" if tc else "bwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(part, q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -889,39 +959,54 @@ def _cuda_flash_bwd_part(part, q, k, v, bias_k, mode, dims, lse, delta, do,
                  float(sm_scale), int(causal), int(q_off), int(k_off),
                  _DTYPE_CODES[q.dtype],
                  *_drop_tail(dmode, mask, seed, offset, thresh, keep_div),
-                 stream)
+                 *((_ptr(t) for t in probs) if tc else ()), stream)
     if err:
         raise RuntimeError(f"flash_attention (BHSD) backward kernel "
-                           f"{('fused', 'dq', 'dkv')[part]} launch failed: "
-                           f"CUDA error {err}")
-    return dq, dk, dv, dbias
+                           f"{('fused', 'dq', 'dkv')[part]}"
+                           f"{' (tensor cores)' if tc else ''} launch "
+                           f"failed: CUDA error {err}")
+    if tc:
+        (flash_attention_bwd_dq if part == _DQ
+         else flash_attention_bwd_dkv).launches_tc += 1
+    checks = None
+    if tc and return_probs:
+        checks = tuple(None if t is None else t.reshape(b, nh, s, s)
+                       for t in probs)
+    return dq, dk, dv, dbias, checks
 
 
 def flash_attention_bwd_fused(*args, **kwargs):
     """Row 7 on the card: (dq, dk, dv, key dbias [BH, S] or None);
     arguments as ``_cuda_flash_bwd_part``'s after ``part``."""
-    out = _cuda_flash_bwd_part(_FUSED, *args, **kwargs)
+    out = _cuda_flash_bwd_part(_FUSED, *args, **kwargs)[:4]
     flash_attention_bwd_fused.launches += 1
     return out
 
 
 def flash_attention_bwd_dq(*args, **kwargs):
-    """Row 8 on the card: dq."""
-    out = _cuda_flash_bwd_part(_DQ, *args, **kwargs)[0]
+    """Row 8 on the card: dq; ``launches_tc`` counts the wgmma kernel's
+    launches (bf16).  ``return_probs=True`` adds its check outputs (p c,
+    ds, ds_dq: ds_dq set) or None on the SIMT route."""
+    out = _cuda_flash_bwd_part(_DQ, *args, **kwargs)
     flash_attention_bwd_dq.launches += 1
-    return out
+    return (out[0], out[4]) if kwargs.get("return_probs") else out[0]
 
 
 def flash_attention_bwd_dkv(*args, **kwargs):
-    """Row 9 on the card: (dk, dv, full dbias [BH, S, S] or None)."""
-    out = _cuda_flash_bwd_part(_DKV, *args, **kwargs)[1:]
+    """Row 9 on the card: (dk, dv, full dbias [BH, S, S] or None);
+    ``launches_tc`` counts the wgmma kernel's launches (bf16).
+    ``return_probs=True`` adds its check outputs (p c, ds, ds_dq: p c and
+    ds set) or None on the SIMT route."""
+    out = _cuda_flash_bwd_part(_DKV, *args, **kwargs)
     flash_attention_bwd_dkv.launches += 1
-    return out
+    return (out[1:4], out[4]) if kwargs.get("return_probs") else out[1:4]
 
 
 flash_attention_bwd_fused.launches = 0
 flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dq.launches_tc = 0
 flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dkv.launches_tc = 0
 
 
 def _fold_dbias(db, mode, dims, nh):
@@ -940,10 +1025,12 @@ def _fold_dbias(db, mode, dims, nh):
 
 def _cuda_flash_bwd(q, k, v, bias_k, mode, dims, o, lse, do, sm_scale,
                     causal, q_off, k_off, dropout_prob, mask, seed, offset,
-                    g_lse, want_dbias):
+                    g_lse, want_dbias, return_probs=False):
     """The backward's dispatch (``_flash_bwd``): the full bias takes the
     split path (rows 8 and 9), everything else the single pass (row 7).
-    Returns (dq, dk, dv, f32 dbias in the kernel bias's form or None)."""
+    Returns (dq, dk, dv, f32 dbias in the kernel bias's form or None), and
+    with ``return_probs`` the tensor-core kernels' check outputs (p c, ds,
+    ds_dq), None on the SIMT route."""
     for name, t in (("o", o), ("do", do)):
         if t.shape != q.shape or t.dtype != q.dtype or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous {tuple(q.shape)} "
@@ -959,14 +1046,21 @@ def _cuda_flash_bwd(q, k, v, bias_k, mode, dims, o, lse, do, sm_scale,
     args = (q, k, v, bias_k, mode, dims, lse, delta, do, sm_scale, causal,
             q_off, k_off, dropout_prob, mask, seed, offset, want_dbias)
     nh = q.shape[1]
-    if mode == "full":
+    checks = None
+    if mode == "full" and return_probs:
+        dq, c_dq = flash_attention_bwd_dq(*args, return_probs=True)
+        (dk, dv, db), c_dkv = flash_attention_bwd_dkv(*args,
+                                                      return_probs=True)
+        if c_dq is not None:  # the tensor-core route
+            checks = c_dkv[:2] + c_dq[2:]
+    elif mode == "full":
         dq = flash_attention_bwd_dq(*args)
         dk, dv, db = flash_attention_bwd_dkv(*args)
     else:
         dq, dk, dv, db = flash_attention_bwd_fused(*args)
     if db is not None:
         db = _fold_dbias(db, mode, dims, nh)
-    return dq, dk, dv, db
+    return (dq, dk, dv, db, checks) if return_probs else (dq, dk, dv, db)
 
 
 def _device_check(q):
@@ -1038,12 +1132,16 @@ def flash_attention_fwd(q, k, v, bias=None, sm_scale=None, causal=False,
 def flash_attention_bwd(q, k, v, bias, o, lse, do, sm_scale=None,
                         causal=False, dropout_prob=0.0, *, mask=None,
                         dropout_seed=None, dropout_offset=0, q_offset=0,
-                        k_offset=0, g_lse=None, want_dbias=False):
+                        k_offset=0, g_lse=None, want_dbias=False,
+                        return_probs=False):
     """(dq, dk, dv, dbias in the bias's shape or None) of the forward that
     gave o and lse, with the lse cotangent ``g_lse``.  CPU and meta
     tensors take the plain version, which needs the forward's ``mask``
-    for dropout; CUDA tensors launch rows 8 and 9 (a full bias) or row 7
-    (any other) or raise."""
+    for dropout; CUDA tensors launch rows 8 and 9 (a full bias; on the
+    wgmma kernels for bf16, ``bhsd_bwd_route``) or row 7 (any other) or
+    raise.  ``return_probs`` (CUDA only, a check's output) appends the
+    wgmma kernels' rounded intermediates (p c and ds of row 9, ds of row
+    8, each bf16 [B, nh, S, S]), or None on the SIMT route."""
     _device_check(q)
     b, nh, s, d = q.shape
     if sm_scale is None:
@@ -1058,13 +1156,14 @@ def flash_attention_bwd(q, k, v, bias, o, lse, do, sm_scale=None,
             q_offset, k_offset, g_lse, want_dbias)
     check_bhsd_inputs(q, k, v, bias, dropout_prob, mask)
     bias_k, mode, dims = _classify_bias(bias, b, nh, s)
-    dq, dk, dv, db = _cuda_flash_bwd(
+    out = _cuda_flash_bwd(
         q, k, v, bias_k, mode, dims, o, lse, do.contiguous(), sm_scale,
         causal, q_offset, k_offset, dropout_prob, mask, dropout_seed,
-        dropout_offset, g_lse, want_dbias and mode is not None)
+        dropout_offset, g_lse, want_dbias and mode is not None, return_probs)
+    dq, dk, dv, db = out[:4]
     if db is not None:
         db = db.reshape(bias.shape).to(bias.dtype)
-    return dq, dk, dv, db
+    return (dq, dk, dv, db) + out[4:]
 
 
 def _flash_bhsd(q, k, v, bias, sm_scale, causal, dropout_prob, mask, seed,

@@ -31,11 +31,29 @@ H = NH * D
 O_TOL, LSE_TOL, GRAD_TOL = 2e-6, 2e-5, 1e-5
 
 
-@pytest.fixture
-def force_pallas():
-    jax_attention.FORCE_PALLAS = True
+@pytest.fixture(autouse=True)
+def _f32_state(monkeypatch):
+    """What both sides of every comparison here read, pinned against
+    state another test in the same worker may leave: torch's float32
+    matmul precision (at "medium" a CPU with bf16 units runs the plain
+    versions' f32 matmuls in bf16, far past these limits), and
+    the JAX BSH tile choice (``_resolve_bsh_blocks``: PADDLE_FLASH_BLOCK
+    and the autotune flag with its cache).  Each is restored afterwards."""
+    from paddle_tpu.fluid import flags as jflags
+
+    precision = torch.get_float32_matmul_precision()
+    autotune = jflags.get_flags(["FLAGS_kernel_autotune"])
+    torch.set_float32_matmul_precision("highest")
+    jflags.set_flags({"FLAGS_kernel_autotune": False})
+    monkeypatch.delenv("PADDLE_FLASH_BLOCK", raising=False)
     yield
-    jax_attention.FORCE_PALLAS = False
+    jflags.set_flags(autotune)
+    torch.set_float32_matmul_precision(precision)
+
+
+@pytest.fixture
+def force_pallas(monkeypatch):
+    monkeypatch.setattr(jax_attention, "FORCE_PALLAS", True)
 
 
 def _inputs(seed, b=B, sq=S, skv=S, bias=False):

@@ -10,10 +10,13 @@ Covered: every bias mode and broadcast (none; per key [B,1,1,S] and
 causal at (q_offset, k_offset) including a q block that sees no key, the
 lse cotangent of ``flash_block_with_lse``, dropout from one shared
 explicit keep mask, dbias with ``bias_requires_grad`` on and a zero bias
-cotangent without it; the attention op's BHSD branch against the JAX op
-with ``FORCE_PALLAS`` on and off; the CUDA wrappers' input checks, the
-bounds at the path's shapes, and the launch counters (only a kernel
-launch counts).
+cotangent without it; the bf16 full-bias backward, which rounds p c and
+ds to bf16 as the TPU's split kernels do, against ``_flash_bwd`` (its
+own tolerance, in its docstring); the attention op's BHSD branch against
+the JAX op with ``FORCE_PALLAS`` on and off; the CUDA wrappers' input
+checks, the backward's route (the wgmma kernels for bf16 with a full
+bias, no fallback), the bounds at the path's shapes, and the launch
+counters (only a kernel launch counts).
 
 Tolerances (f32, the same math in another summation order; the Pallas
 kernels sum their online softmax block by block, torch in one pass): o
@@ -288,6 +291,156 @@ def test_cpu_dropout_draws_from_the_generator_or_seed():
 
 
 # ---------------------------------------------------------------------------
+# bf16 with a full bias: the rounding of rows 8 and 9
+# ---------------------------------------------------------------------------
+
+BF16_FULL = {
+    # bias broadcast, bias dtype, causal, dropout p (from a shared mask)
+    "f32_bias": ("full", torch.float32, False, 0.0),
+    "bf16_bias": ("full", torch.bfloat16, False, 0.0),
+    "bf16_bias_causal": ("full", torch.bfloat16, True, 0.0),
+    "f32_bias_causal_mask": ("full", torch.float32, True, 0.2),
+    "bf16_b1_bias_mask": ("full_b1", torch.bfloat16, False, 0.2),
+}
+
+
+@pytest.fixture
+def force_pallas(monkeypatch):
+    monkeypatch.setattr(jax_attention, "FORCE_PALLAS", True)
+
+
+def _grid(rng, shape, step, top):
+    """Random multiples of ``step`` in [-top, top]: bf16-exact values
+    whose products and sums here are exact in f32 in any order."""
+    n = int(round(top / step))
+    return torch.as_tensor(rng.integers(-n, n + 1, shape) * step,
+                           dtype=torch.float32)
+
+
+@pytest.mark.parametrize("case", sorted(BF16_FULL))
+def test_bf16_full_bias_plain_backward_rounds_as_the_tpu_kernels(
+        case, force_pallas):
+    """bf16 dq/dk/dv (and dbias) of the port's plain backward with a full
+    bias against the JAX custom VJP's backward ``_flash_bwd`` (rows 8 and
+    9 in interpret mode), both fed the same bf16 q, k, v, dO, o, f32 lse
+    and keep mask: both round p c to bf16 and ds0 sm_scale to bf16 before
+    the dv, dk and dq products and sum in f32; dbias is the unrounded
+    ds0 (cast to the bias's dtype).
+
+    The residuals are the port's forward's (JAX's own forward rounds p
+    before P.V, row 6's recorded difference, so its o moves delta).  The
+    values lie on coarse grids (o rounded to 1/64) so that S, dP and delta
+    are exact in any summation order: what is left to differ is the two
+    libraries' exp, an f32 ulp apart for some arguments, which where it
+    straddles a bf16 rounding boundary rounds one p c or ds term to the
+    neighbouring value: that moves one row of dq and one of dk or dv.  So
+    every element is held within one bf16 ulp (rtol 2^-7) plus 1e-5, save
+    those of at most 2 of each gradient's 512 rows (0 or 1 in these
+    cases); the products of the unrounded intermediates are shown to miss
+    that limit in more than half the rows."""
+    bias_name, bias_dtype, causal, p = BF16_FULL[case]
+    rng = np.random.default_rng(12)
+    q, k, v, do = (_grid(rng, (B, NH, S, D), 1 / 8, 2).to(torch.bfloat16)
+                   for _ in range(4))
+    shape = BIASES[bias_name]
+    bias = _grid(rng, shape, 1 / 16, 2).to(bias_dtype)
+    mask = (torch.as_tensor(rng.random((B, NH, S, S)) > p).to(torch.uint8)
+            if p else None)
+    o, lse = fa.flash_attention_fwd(q, k, v, bias, causal=causal,
+                                    dropout_prob=p, mask=mask)
+    o = (o.float() * 64).round().div(64).to(torch.bfloat16)
+    got = fa.flash_attention_bwd(q, k, v, bias, o, lse, do, causal=causal,
+                                 dropout_prob=p, mask=mask, want_dbias=True)
+
+    def j(t, n=D):
+        dt = jnp.bfloat16 if t.dtype == torch.bfloat16 else jnp.float32
+        return jnp.asarray(t.float().numpy().reshape(B * NH, S, n), dt)
+
+    bias_j, mode, dims = jfa._classify_bias(
+        jnp.asarray(bias.float().numpy(), jnp.bfloat16
+                    if bias_dtype == torch.bfloat16 else jnp.float32),
+        B, NH, S)
+    assert mode == "full" and fa.bhsd_bwd_route(q.dtype, mode) == "tc"
+    res = (j(q), j(k), j(v), bias_j, None if mask is None else
+           jnp.asarray(mask.numpy().reshape(B * NH, S, S)),
+           jnp.zeros((1,), jnp.int32), None, j(o),
+           jnp.asarray(lse.numpy().reshape(B * NH, 1, S)))
+    sm = 1.0 / math.sqrt(D)
+    want = jfa._flash_bwd(res, j(do), sm_scale=sm, num_heads=NH,
+                          causal=causal, dropout_prob=p, bias_mode=mode,
+                          bias_dims=dims, want_dbias=True)
+
+    def rows_past(a, w):
+        a = a.float().numpy().reshape(-1, a.shape[-1])
+        w = np.asarray(w.astype(jnp.float32)).reshape(a.shape)
+        past = np.abs(a - w) > 1e-5 + 2.0 ** -7 * np.abs(w)
+        return int(past.any(axis=1).sum())
+
+    for name, a, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        assert a.dtype == (bias_dtype if name == "dbias" else torch.bfloat16)
+        assert rows_past(a, w) <= 2, name
+    # the limit tells the rounding from its absence: the same products of
+    # unrounded p c and ds0 sm_scale miss it in most rows
+    p_num, ds0 = fa.bhsd_bwd_probs_reference(q, k, v, bias, o, lse, do, sm,
+                                             causal, mask, 1.0 - p)
+    unrounded = fa.bhsd_bwd_products_reference(q, k, v, do, p_num, ds0, sm)
+    for name, a, w in zip(("dq", "dk", "dv"), unrounded, want):
+        assert rows_past(a, w) > 256, name
+
+
+@pytest.mark.parametrize("dtype,bias,route", [
+    (torch.bfloat16, "full", "tc"), (torch.bfloat16, "full_11", "tc"),
+    (torch.float32, "full", "simt"), (torch.bfloat16, "key", "simt"),
+    (torch.bfloat16, "key_shared", "simt"), (torch.bfloat16, "none", "simt"),
+    (torch.float32, "none", "simt")])
+def test_backward_route_takes_tensor_cores_for_bf16_full_bias_only(
+        dtype, bias, route):
+    """Rows 8 and 9 on the wgmma kernels for bf16 with a full bias; f32
+    (which tensor cores would round to TF32) and every row-7 mode stay
+    SIMT."""
+    shape = BIASES[bias]
+    bt = None if shape is None else torch.zeros(shape)
+    _, mode, _ = fa._classify_bias(bt, B, NH, S)
+    assert fa.bhsd_bwd_route(dtype, mode) == route
+
+
+@pytest.mark.parametrize("dtype,bias", [(torch.float32, "full"),
+                                        (torch.bfloat16, "full_1h"),
+                                        (torch.bfloat16, "key")])
+def test_plain_backward_is_its_intermediates_through_the_products(dtype,
+                                                                  bias):
+    """The split the card's check uses, bit for bit: the intermediates of
+    ``bhsd_bwd_probs_reference`` (rounded by ``bhsd_bwd_rounded`` on the
+    tensor-core route) through ``bhsd_bwd_products_reference`` are the
+    plain backward; dbias is the unrounded ds0."""
+    (q, k, v), rng = _qkv(13)
+    q, k, v = (torch.as_tensor(x).to(dtype) for x in (q, k, v))
+    bs = _t(_bias(rng, bias))
+    do = torch.as_tensor(rng.standard_normal(q.shape),
+                         dtype=torch.float32).to(dtype)
+    mask = torch.as_tensor(rng.random((B, NH, S, S)) > 0.1).to(torch.uint8)
+    o, lse = fa.flash_attention_fwd(q, k, v, bs, dropout_prob=0.1, mask=mask)
+    sm = 1.0 / math.sqrt(D)
+    kw = dict(causal=True, mask=mask, keep_div=0.9)
+    p_num, ds0 = fa.bhsd_bwd_probs_reference(q, k, v, bs, o, lse, do, sm,
+                                             **kw)
+    assert p_num.shape == ds0.shape == (B, NH, S, S)
+    _, mode, _ = fa._classify_bias(bs, B, NH, S)
+    if fa.bhsd_bwd_route(dtype, mode) == "tc":
+        p_r, ds_r = fa.bhsd_bwd_rounded(p_num, ds0, sm, dtype, dtype)
+        for t in (p_r, ds_r):
+            assert torch.equal(t, t.to(dtype).float())
+        got = fa.bhsd_bwd_products_reference(q, k, v, do, p_r, ds_r)
+    else:
+        got = fa.bhsd_bwd_products_reference(q, k, v, do, p_num, ds0, sm)
+    want = fa.flash_attention_bwd_reference(q, k, v, bs, o, lse, do, sm,
+                                            want_dbias=True, **kw)
+    for a, b in zip(got, want[:3]):
+        assert a.dtype == dtype and torch.equal(a, b)
+    assert torch.equal(want[3], fa._sum_to(ds0, bs.shape).to(bs.dtype))
+
+
+# ---------------------------------------------------------------------------
 # the attention op's BHSD branch against the JAX op
 # ---------------------------------------------------------------------------
 
@@ -468,6 +621,21 @@ def test_bounds_at_the_nmt_shapes():
     assert fa._visible_pairs(4, True, 8, 0) == 16
 
 
+class _Dev:
+    def __init__(self, *a):
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *a):
+        return False
+
+
+class _Stream:
+    cuda_stream = 0
+
+
 def test_counters_count_kernel_launches_only(monkeypatch):
     """CPU calls launch nothing and count nothing; on the card the
     backward dispatches like ``_flash_bwd``: a full bias to rows 8 and 9
@@ -497,19 +665,6 @@ def test_counters_count_kernel_launches_only(monkeypatch):
     assert [c.launches for c in counters] == [
         before[0], before[1] + 2, before[2] + 1, before[3] + 1]
 
-    class _Dev:
-        def __init__(self, *a):
-            pass
-
-        def __enter__(self):
-            return self
-
-        def __exit__(self, *a):
-            return False
-
-    class _Stream:
-        cuda_stream = 0
-
     monkeypatch.setattr(torch.cuda, "device", _Dev)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: _Stream())
     monkeypatch.setattr(fa, "_bhsd_launcher", lambda name: lambda *a: 700)
@@ -518,3 +673,49 @@ def test_counters_count_kernel_launches_only(monkeypatch):
                            0.0, None, None, 0, False)
     assert fa.flash_attention.launches == before[0]
 
+
+
+
+@pytest.mark.parametrize("dtype,entry", [(torch.bfloat16, "bwd_tc"),
+                                         (torch.float32, "bwd")])
+def test_full_bias_backward_launches_by_route_and_never_falls_back(
+        dtype, entry, monkeypatch):
+    """On the card a full bias sends the backward to rows 8 and 9 through
+    its route's library entry: ``flash_bhsd_bwd_tc_launch`` for bf16 (the
+    wgmma kernels, three check outputs more), ``flash_bhsd_bwd_launch``
+    for f32; ``launches_tc`` counts the tensor-core launches, and the
+    check outputs come back only from them.  A launch that fails raises:
+    nothing retries it on the other route or the plain version."""
+    monkeypatch.setattr(torch.cuda, "device", _Dev)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: _Stream())
+    calls = []
+    monkeypatch.setattr(fa, "_bhsd_launcher", lambda name: lambda *a: (
+        calls.append((name, len(a))) or 0))
+    counters = (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
+    n0 = [(c.launches, c.launches_tc) for c in counters]
+    q, k, v = (torch.zeros(B, NH, S, D, dtype=dtype) for _ in range(3))
+    lse = torch.zeros(B, NH, S)
+    bk, mode, dims = fa._classify_bias(torch.zeros(B, 1, S, S, dtype=dtype),
+                                       B, NH, S)
+    args = (q, k, v, bk, mode, dims, q, lse, q, 0.125, False, 0, 0, 0.0,
+            None, None, 0, None, True)
+    out = fa._cuda_flash_bwd(*args, return_probs=True)
+    tc = entry == "bwd_tc"
+    assert calls == [(entry, 35 if tc else 32)] * 2
+    assert [(c.launches, c.launches_tc) for c in counters] == [
+        (a + 1, b + tc) for a, b in n0]
+    assert out[3].shape == (B, S, S)  # dbias summed over the heads
+    if tc:
+        assert all(t.shape == (B, NH, S, S) and t.dtype == dtype
+                   for t in out[4])
+    else:
+        assert out[4] is None
+
+    calls.clear()
+    monkeypatch.setattr(fa, "_bhsd_launcher", lambda name: lambda *a: (
+        calls.append(name) or 700))
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        fa._cuda_flash_bwd(*args)
+    assert calls == [entry]
+    assert [(c.launches, c.launches_tc) for c in counters] == [
+        (a + 1, b + tc) for a, b in n0]
