@@ -1,0 +1,217 @@
+#!/usr/bin/env python3
+"""Time the port's redesigned kernels and their neighbours at the main
+paths' shapes on one CUDA card, for two trees of the repository in one
+call: a parent checkout and this one, in turns (A, B, B, A).
+
+    python3 chip_kernel_ab.py --trees PARENT_DIR . [--out FILE]
+
+Each turn is a process of its own that puts its tree first on sys.path,
+builds that tree's kernels from its ``csrc/`` and times each kernel
+through the public wrappers both trees share (bf16, the shapes
+``chip_smoke.py`` times): row 11 (``mm_stats``) at five 1 x 1 shapes of
+ResNet-50 at batch 128, row 10 (``conv_stats``) at the four 3 x 3 stage
+shapes, rows 12-14 at [401408, 256], row 6 at the NMT encoder's shape
+(full bias, with and without Philox dropout) and at mha_key_train's
+(key bias), rows 8 and 9 at the encoder's shape, row 7 at
+mha_key_train's, and row 5 at BERT-base's training shape.  Device times
+come from ``chip_smoke.time_cold_ms`` of the tree that runs this script
+(CUDA events, L2 flushed, the stream held), the same clock for both
+trees.  Prints one JSON line per turn and, last before the card line, a
+summary: each kernel's median per tree, and this tree's time over the
+parent's.  Needs one card; without one it exits 2.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+# (N, H, W, C, O, stride) of ResNet-50 at batch 128
+MM_SHAPES = {"s0_64to256": (128, 56, 56, 64, 256, 1),
+             "s0_256to64": (128, 56, 56, 256, 64, 1),
+             "s1_proj_s2_256to512": (128, 56, 56, 256, 512, 2),
+             "s2_1024to256": (128, 14, 14, 1024, 256, 1),
+             "s3_512to2048": (128, 7, 7, 512, 2048, 1)}
+CONV_SHAPES = {"s0": (128, 56, 56, 64, 64), "s1": (128, 28, 28, 128, 128),
+               "s2": (128, 14, 14, 256, 256), "s3": (128, 7, 7, 512, 512)}
+
+
+def _measure(tree: str) -> dict:
+    """Build ``tree``'s kernels and time every case; runs in its own
+    process with the tree first on sys.path."""
+    import importlib.util
+
+    sys.path.insert(0, tree)
+    import torch
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_clock", os.path.join(HERE, "chip_smoke.py"))
+    clock = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(clock)
+    time_cold_ms = clock.time_cold_ms
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import conv_bn as cb
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    if not os.path.abspath(cb.__file__).startswith(tree + os.sep):
+        raise SystemExit(f"imported {cb.__file__}, not {tree}'s")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build_all()
+    dev, bf16 = "cuda", torch.bfloat16
+    rng = np.random.default_rng(0)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
+
+    def randn(*shape, scale=1.0):
+        return (torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32)
+                * scale).to(dev, bf16)
+
+    def ms(fn):
+        return time_cold_ms(torch, fn, flush, reps=30)["median"]
+
+    out = {}
+    for name, (n, h, w, c, o, st) in MM_SHAPES.items():
+        x = randn(n, h, w, c)
+        wt = randn(o, c, 1, 1, scale=math.sqrt(2.0 / c))
+        out[f"row11_mm_stats_{name}"] = ms(
+            lambda x=x, wt=wt, st=st: cb.mm_stats(x, wt, (st, st)))
+        del x, wt
+    for name, (n, h, w, c, o) in CONV_SHAPES.items():
+        x = randn(n, h, w, c)
+        wt = randn(o, c, 3, 3, scale=math.sqrt(2.0 / (9 * c)))
+        out[f"row10_conv_stats_{name}"] = ms(
+            lambda x=x, wt=wt: cb.conv_stats(x, wt, ((1, 1), (1, 1))))
+        del x, wt
+    z, g = randn(401408, 256), randn(401408, 256)
+    stat = torch.stack([torch.zeros(256), torch.ones(256), torch.ones(256),
+                        torch.full((256,), 0.1)]).to(dev)
+    tot = torch.ones(2, 256, device=dev)
+    out["row12_bn_apply"] = ms(lambda: cb.bn_apply(z, stat, True))
+    out["row13_bn_bwd_reduce"] = ms(lambda: cb.bn_bwd_reduce(z, g, stat,
+                                                             True))
+    out["row14_bn_bwd_dz"] = ms(lambda: cb.bn_bwd_dz(z, g, stat, tot, True))
+    del z, g
+
+    # the NMT encoder: B 64, nh 8, S 256, D 64, the [B, nh, S, S] bf16
+    # padding bias, Philox p = 0.1
+    b, nh, s, d = 64, 8, 256, 64
+    q, k, v, do = (randn(b, nh, s, d) for _ in range(4))
+    lens = rng.integers(s // 2, s + 1, b)
+    key = 1e4 * ((np.arange(s)[None, :] < lens[:, None]) - 1.0)
+    full = torch.as_tensor(np.ascontiguousarray(np.broadcast_to(
+        key[:, None, None, :], (b, nh, s, s))), dtype=torch.float32).to(
+        dev, bf16)
+    seed, p, sm = 12345, 0.1, 1.0 / math.sqrt(d)
+    out["row6_fwd_full_philox"] = ms(lambda: fa.flash_attention_fwd(
+        q, k, v, full, dropout_prob=p, dropout_seed=seed))
+    out["row6_fwd_full_no_dropout"] = ms(lambda: fa.flash_attention_fwd(
+        q, k, v, full))
+    o, lse = fa.flash_attention_fwd(q, k, v, full, dropout_prob=p,
+                                    dropout_seed=seed)
+    bias_k, mode, dims = fa._classify_bias(full, b, nh, s)
+    delta = (o.float() * do.float()).sum(-1)
+    args = (q, k, v, bias_k, mode, dims, lse, delta, do, sm, False, 0, 0, p,
+            None, seed, 0, False)
+    out["row8_bwd_dq_full_philox"] = ms(
+        lambda: fa.flash_attention_bwd_dq(*args))
+    out["row9_bwd_dkv_full_philox"] = ms(
+        lambda: fa.flash_attention_bwd_dkv(*args))
+    del full, bias_k, args
+
+    # mha_key_train: the same q, k, v with a [1, 1, 1, S] padding bias
+    kb = torch.as_tensor(np.where(np.arange(s) < s - 64, 0.0, -1e4)
+                         .reshape(1, 1, 1, s), dtype=torch.float32).to(dev)
+    out["row6_fwd_key_philox"] = ms(lambda: fa.flash_attention_fwd(
+        q, k, v, kb, dropout_prob=p, dropout_seed=seed))
+    o, lse = fa.flash_attention_fwd(q, k, v, kb, dropout_prob=p,
+                                    dropout_seed=seed)
+    bias_k, mode, dims = fa._classify_bias(kb, b, nh, s)
+    delta = (o.float() * do.float()).sum(-1)
+    args = (q, k, v, bias_k, mode, dims, lse, delta, do, sm, False, 0, 0, p,
+            None, seed, 0, False)
+    out["row7_bwd_fused_key_philox"] = ms(
+        lambda: fa.flash_attention_bwd_fused(*args))
+    del q, k, v, do, o, lse, args
+
+    # BERT-base training: B 8, S 512, 12 heads of 64, per-key bias
+    b, s, nh, d = 8, 512, 12, 64
+    q, k, v, do = (randn(b, s, nh * d) for _ in range(4))
+    bias = torch.zeros(b, 1, 1, s, device=dev)
+    o, lse = fa.flash_attention_bsh_fwd(q, k, v, bias, nh, dropout_prob=p,
+                                        dropout_seed=seed)
+    out["row5_bsh_bwd_philox"] = ms(lambda: fa.flash_attention_bsh_bwd(
+        q, k, v, bias, o, lse, do, nh, dropout_prob=p, dropout_seed=seed))
+    return {"tree": tree, "card": torch.cuda.get_device_name(0),
+            "ms": out}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--trees", nargs=2, metavar=("PARENT", "THIS"))
+    ap.add_argument("--measure", metavar="TREE",
+                    help="one turn: time TREE's kernels (internal)")
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args()
+    if args.measure:
+        print(json.dumps(_measure(args.measure)), flush=True)
+        return 0
+
+    import torch
+
+    if not torch.cuda.is_available() or not args.trees:
+        print("chip_kernel_ab: needs a CUDA card and --trees PARENT THIS",
+              file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    card = smi.stdout.strip()
+    print(card, flush=True)
+    parent, this = args.trees
+    runs = []
+    for label, tree in (("parent", parent), ("this", this), ("this", this),
+                        ("parent", parent)):
+        tree = os.path.abspath(tree)
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--measure", tree], capture_output=True,
+                              text=True, cwd=tree, timeout=1800)
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-8000:], file=sys.stderr)
+            raise SystemExit(f"chip_kernel_ab: the {label} turn failed")
+        rec = dict(json.loads(proc.stdout.strip().splitlines()[-1]),
+                   label=label)
+        runs.append(rec)
+        print(json.dumps(rec), flush=True)
+    names = runs[0]["ms"]
+    summary = {}
+    for n in names:
+        pm = statistics.median(r["ms"][n] for r in runs
+                               if r["label"] == "parent")
+        tm = statistics.median(r["ms"][n] for r in runs
+                               if r["label"] == "this")
+        summary[n] = {"parent_ms": pm, "this_ms": tm, "this_over_parent":
+                      tm / pm}
+    line = {"card": card, "order": [r["label"] for r in runs],
+            "summary": summary}
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                    exist_ok=True)
+        with open(args.out, "w") as f:
+            f.write("\n".join(json.dumps(r) for r in runs + [line]) + "\n")
+    print(json.dumps(line), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

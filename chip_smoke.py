@@ -24,15 +24,19 @@ prints no result):
                BERT's shape, without dropout, and at the NMT decoder's two
                shapes); add+LayerNorm, out and stats, and its backward dx,
                dscale, dshift; the five conv+BN kernels at ResNet-50's
-               shapes, f32 and bf16 (row 10 at all four 3 x 3 stage shapes,
-               each route's launch counted, a tile sweep beside each
-               timing, and a C = 3 case for the bf16 SIMT route); the BHSD
-               flash kernels, rows 6-9, at the NMT's
-               shapes: every bias broadcast, dbias, causal at offsets with
-               rows that see no key, the lse cotangent, dropout from a
-               mask and from Philox; rows 8 and 9 in bf16 with a full
-               bias (the wgmma kernels) held rounding by rounding as the
-               BSH backward is, and timed with and without dropout),
+               shapes, f32 and bf16 (row 10 at all four 3 x 3 stage shapes
+               and row 11 at five 1 x 1 shapes, each route's launch
+               counted, a tile sweep beside each timing (row 11: tile and
+               ring depth, and its SIMT kernel on the same inputs), and a
+               C = 3 case for the bf16 SIMT route); the BHSD flash
+               kernels, rows 6-9, at the NMT's shapes: every bias
+               broadcast, dbias, causal at offsets with rows that see no
+               key, the lse cotangent, D 64/128/256, dropout from a mask
+               and from Philox; every bf16 kernel (row 6 and rows 8 and 9
+               with a full bias on the wgmma kernels, row 7) held
+               rounding by rounding as the BSH backward is, the wgmma
+               forward's Philox bits against the f32 SIMT forward's, rows
+               6, 8 and 9 timed with and without dropout),
                with its time, bound, plain-version
                time and the time of one library call computing the same
                function
@@ -76,11 +80,12 @@ prints no result):
                0.1/0.9, bf16 AMP, batch 128 at 224 x 224, one fixed seed-0
                batch: 2 warm steps, then 10 timed; every loss finite and
                every step launching the conv+BN kernels exactly as its
-               program needs (13 conv_stats, all 13 on the wgmma
-               kernel, 36 mm_stats, 49 each of
-               bn_apply, bn_bwd_reduce, bn_bwd_dz; 4 reference routes for
-               the stride-2 k x k convs)
-  resnet_train_profile  torch.profiler over 3 of those steps
+               program needs (13 conv_stats and 36 mm_stats, all 49 on
+               the wgmma kernel, 49 each of bn_apply, bn_bwd_reduce,
+               bn_bwd_dz; 4 reference routes for the stride-2 k x k
+               convs)
+  resnet_train_profile  torch.profiler over 3 of those steps, rows 10
+               and 11 summed by their kernels' names
   resnet_train_parity   ResNet-50 widths at batch 8, 64 x 64, 3 steps of
                Momentum 0.01 on the card (kernels) against the CPU (plain
                versions) from the same weights: the first step's loss,
@@ -97,8 +102,8 @@ prints no result):
                the encoder fed the reference recipe's full [B, 8, S, S]
                self-attention bias: bf16 AMP, Adam 1e-4, 64 x 256 -> 256
                on one seed-0 batch, 2 warm and 10 timed steps; every step
-               launching rows 6, 8 and 9 once an encoder layer (rows 8
-               and 9 on their wgmma kernels), the BSH kernels for the
+               launching rows 6, 8 and 9 once an encoder layer (all on
+               their wgmma kernels), the BSH kernels for the
                decoder (the 24 backward launches on the wgmma pair) and
                the LN kernels exactly as the program needs
   nmt_train_profile  torch.profiler over 3 of those steps
@@ -111,7 +116,8 @@ prints no result):
                256 -> 256, the logits fetched; row 6 once an encoder layer
   mha_key_train hapi MultiHeadAttention (d_model 512, 8 heads) at 64 x
                256 with a [1, 1, 1, S] padding bias, bf16 AMP, Adam, 3
-               steps with causal off and 3 on: rows 6 and 7 once a step
+               steps with causal off and 3 on: rows 6 (on the wgmma
+               kernel) and 7 once a step
 
 The line before the last is the kernels summary; the last line is
 ``{"ok": true, "device": {...}}``.  Needs one CUDA card; without one it
@@ -988,22 +994,72 @@ def _bhsd_keep(fa, kw, bits):
     return kw.get("mask"), 1.0 - p
 
 
+def _bhsd_fwd_rounding(torch, fa, name, kw, o, lse, checks, mask, keep_div,
+                       o_ref) -> dict:
+    """Row 6 in bf16 (the wgmma kernel) held rounding by rounding, as the
+    backward is: it rounds p c to bf16 before P.V relative to its running
+    max after each 64-key tile, the plain version relative to the row's
+    max, and where an f32 p sits within the two versions' f32 difference
+    of a bf16 boundary the two round it to neighbouring values.  So the
+    kernel's rounded p c (its check output), scaled by exp(m_t - lse) to
+    p c / l, is held against the plain version's p c / l, and its o
+    against the plain product of its own p c, both at 1e-5 + 2^-7
+    |plain| (two roundings of one value differ by at most 2^-8 of it);
+    the end-to-end difference from the plain forward is reported."""
+    p_k, m_k = checks
+    q, v = kw["q"], kw["v"]
+    sm = 1.0 / math.sqrt(q.shape[-1])
+    p_ref, m_ref, l_ref = fa.bhsd_fwd_probs_reference(
+        q, kw["k"], kw["bias"], sm, kw["causal"],
+        mask if kw["dropout_prob"] else None, keep_div, kw["q_offset"],
+        kw["k_offset"])
+    tile = p_k.shape[-1] // m_k.shape[-1]
+    pn_k = p_k.float() * torch.exp(
+        m_k - lse[..., None]).repeat_interleave(tile, dim=-1)
+    pn_ref = p_ref / l_ref
+    del p_ref, m_ref, l_ref
+    r = {"p_over_l": _check(f"flash bhsd {name} forward p c / l", pn_k,
+                            pn_ref, 1e-5, RTOL_BF16)["max_abs_err"]}
+    del pn_k, pn_ref
+    fed = fa.bhsd_fwd_products_reference(v, p_k, m_k, lse, tile)
+    r["o_vs_products"] = _check(f"flash bhsd {name} o", o, fed, 1e-5,
+                                RTOL_BF16)["max_abs_err"]
+    diff = (o.float() - o_ref.float()).abs()
+    r["o_end_to_end"] = {
+        "max_abs_err": diff.max().item(),
+        "beyond_limit": int((diff > 1e-5 + RTOL_BF16
+                             * o_ref.float().abs()).sum()),
+        "elements": diff.numel()}
+    return r
+
+
 def _bhsd_check(torch, fa, name, kw, bwd) -> dict:
     """Row 6 (drawing its Philox bits) and the backward kernels the bias
     selects (rows 8 and 9 for a full bias, row 7 otherwise) against the
     plain versions fed the same keep bits; the keep rate for Philox.
 
-    bf16 with a full bias (rows 8 and 9 on the wgmma kernels): both
-    versions round p c and ds0 sm_scale to bf16 before the products, as
-    the TPU kernels do, and each rounding is held on its own, as row 5's
-    (``_flash_bwd_check``): the kernels' rounded intermediates (their check
-    outputs) against the plain version's, and their dq, dk, dv against
-    the plain products of those intermediates, at 1e-5 + 2^-7 |plain|;
-    dbias (the unrounded ds0) against the plain one at ATOL_DBIAS.  The
-    end-to-end difference is reported beside them."""
+    bf16: row 6 (the wgmma kernel) rounds p c before P.V as the TPU
+    kernel does, held rounding by rounding (``_bhsd_fwd_rounding``); its
+    Philox bits must equal the f32 SIMT forward's for the same seed.
+    Every bf16 backward (rows 8 and 9 on the wgmma kernels with a full
+    bias, row 7 on the SIMT cores otherwise) rounds p c and ds0 sm_scale
+    to bf16 before the products, as the TPU kernels do, and each rounding
+    is held on its own, as row 5's (``_flash_bwd_check``): the kernels'
+    rounded intermediates (their check outputs) against the plain
+    version's, and their dq, dk, dv against the plain products of those
+    intermediates, at 1e-5 + 2^-7 |plain|; dbias (the unrounded ds0)
+    against the plain one at ATOL_DBIAS.  The end-to-end difference is
+    reported beside them."""
     is_bf16 = kw["q"].dtype == torch.bfloat16
     p = kw["dropout_prob"]
-    o, lse, bits = fa.flash_attention_fwd(**kw, return_bits=True)
+    f0 = (fa.flash_attention.launches, fa.flash_attention.launches_tc)
+    o, lse, bits, fchecks = fa.flash_attention_fwd(**kw, return_bits=True,
+                                                   return_probs=True)
+    ran_fwd = (fa.flash_attention.launches - f0[0],
+               fa.flash_attention.launches_tc - f0[1])
+    if ran_fwd != (1, int(is_bf16)) or (fchecks is None) == is_bf16:
+        fail(f"flash bhsd {name}: the forward launched {ran_fwd} (all, on "
+             f"the tensor cores)")
     mask, keep_div = _bhsd_keep(fa, kw, bits)
     plain = {k: kw[k] for k in ("q", "k", "v", "bias", "causal", "q_offset",
                                 "k_offset")}
@@ -1039,11 +1095,17 @@ def _bhsd_check(torch, fa, name, kw, bwd) -> dict:
                else [1, 0, 0, 0, 0]):
         fail(f"flash bhsd {name}: backward launched {ran} (fused, dq, dkv, "
              f"dq on the tensor cores, dkv on the tensor cores)")
-    r = _check(f"flash bhsd {name} o", o, o_ref,
-               1e-5 if is_bf16 else ATOL_F32, RTOL_BF16 if is_bf16 else 0.0)
+    if is_bf16:
+        r = _bhsd_fwd_rounding(torch, fa, name, kw, o, lse, fchecks, mask,
+                               keep_div, o_ref)
+        r["max_abs_err"] = r["o_vs_products"]
+        r["forward_kernel"] = "row 6 (wgmma)"
+    else:
+        r = _check(f"flash bhsd {name} o", o, o_ref, ATOL_F32)
+    del fchecks
     r["lse"] = _check(f"flash bhsd {name} lse", lse, lse_ref,
                       ATOL_LSE)["max_abs_err"]
-    if not tc:
+    if not is_bf16:
         r["grads"] = _check_grads(f"flash bhsd backward {name}", got[:3],
                                   ref[:3], is_bf16)
     else:
@@ -1071,6 +1133,16 @@ def _bhsd_check(torch, fa, name, kw, bwd) -> dict:
             RTOL_BF16 if bias_bf16 else 0.0)["max_abs_err"]
     r["backward_kernels"] = (("rows 8 + 9 (wgmma)" if tc else "rows 8 + 9")
                              if full else "row 7")
+    if "dropout_seed" in kw and is_bf16:
+        # the same Philox bits as the f32 SIMT forward draws
+        kw32 = dict(kw, **{n: kw[n].float() for n in ("q", "k", "v")})
+        bits32 = fa.flash_attention_fwd(**kw32, return_bits=True)[2]
+        if not torch.equal(bits, bits32):
+            fail(f"flash bhsd {name}: the wgmma forward's Philox bits "
+                 f"differ from the SIMT forward's in "
+                 f"{int((bits != bits32).sum())} places")
+        r["philox_bits_equal_simt_f32"] = True
+        del kw32, bits32
     if "dropout_seed" in kw and not kw["causal"]:
         n = bits.numel()
         rate = bits.float().mean().item()
@@ -1191,7 +1263,12 @@ def _kernels_flash_bhsd(torch, F, flush) -> tuple:
             ("d256_key_bf16", 256, bf16, "key_shared",
              dict(want_dbias=True)),
             ("d256_full_bf16_philox_causal", 256, bf16, "full_1h",
-             dict(causal=True, p=0.1, mode="philox", want_dbias=True))):
+             dict(causal=True, p=0.1, mode="philox", want_dbias=True)),
+            ("d128_key_bf16_causal_offsets", 128, bf16, "key",
+             dict(causal=True, q_off=32, k_off=96, g_lse=True,
+                  want_dbias=True)),
+            ("d256_none_bf16_mask", 256, bf16, None,
+             dict(p=0.2, mode="mask"))):
         kw, bwd = _bhsd_case(torch, rng, 4, 4, 256, dd, dtype, bias, **extra)
         results[name] = _bhsd_check(torch, fa, name, kw, bwd)
     results["block_with_lse"] = _bhsd_block_lse_check(torch, fa, rng)
@@ -1222,10 +1299,21 @@ def _kernels_flash_bhsd(torch, F, flush) -> tuple:
         "max_abs_err"],
          "library": "F.scaled_dot_product_attention, the bias as a bf16 "
                     "attn_mask, dropout_p=0.1"}
+    n_tc = fa.flash_attention.launches_tc
     t.update(_timed(torch, flush, lambda: fa.flash_attention_fwd(**kw),
                     lambda: fa.flash_attention_reference(**plain_fwd),
                     sdpa, nbytes=fa.bound_bytes_bhsd(q, bias),
                     flops=fa.bound_flops_bhsd(q), peak_flops=BF16_FLOPS))
+    if fa.flash_attention.launches_tc == n_tc:
+        fail("row 6 at the NMT encoder shape ran no wgmma kernel")
+    t["route"] = fa.bhsd_fwd_route(q.dtype)
+    # without dropout: what drawing the Philox bits costs row 6
+    t["no_dropout_ms"] = time_cold_ms(
+        torch, lambda: fa.flash_attention_fwd(q, k, v, bias),
+        flush)["median"]
+    t["no_dropout_library_ms"] = time_cold_ms(
+        torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=bias), flush)["median"]
     timed["flash_attention"] = t
     plain_bwd = (lambda: fa.flash_attention_bwd_reference(
         q, k, v, bias, o, lse, do, mask=mask, keep_div=keep_div))
@@ -1300,6 +1388,18 @@ def _kernels_flash_bhsd(torch, F, flush) -> tuple:
         nbytes=fa.bound_bytes_bhsd(q, bias, "fused"),
         flops=fa.bound_flops_bhsd(q, "fused"), peak_flops=BF16_FLOPS))
     timed["flash_attention_bwd_fused"] = t
+    # row 6 at the same inputs (mha_key_train's forward)
+    t = {"shape": timed["flash_attention_bwd_fused"]["shape"],
+         "max_abs_err": results["key_shared_philox_bf16"]["max_abs_err"],
+         "library": "F.scaled_dot_product_attention, the [1, 1, 1, S] bias "
+                    "as a bf16 attn_mask, dropout_p=0.1"}
+    t.update(_timed(
+        torch, flush, lambda: fa.flash_attention_fwd(**kw),
+        lambda: fa.flash_attention_reference(
+            q, k, v, bias, dropout_prob=p, mask=mask, keep_div=keep_div),
+        sdpa, nbytes=fa.bound_bytes_bhsd(q, bias),
+        flops=fa.bound_flops_bhsd(q), peak_flops=BF16_FLOPS))
+    timed["flash_attention"]["mha_key_train"] = t
     return results, timed
 
 
@@ -1761,8 +1861,9 @@ def _train_program(cfg, b: int, s: int, max_preds: int, amp: bool):
     return m, st, loss
 
 
-KERNEL_COUNTERS = ("row6", "row7", "row8", "row9", "row8_tc", "row9_tc",
-                   "bsh_fwd", "bsh_bwd", "bsh_bwd_tc", "ln_fwd", "ln_bwd")
+KERNEL_COUNTERS = ("row6", "row7", "row8", "row9", "row6_tc", "row8_tc",
+                   "row9_tc", "bsh_fwd", "bsh_bwd", "bsh_bwd_tc", "ln_fwd",
+                   "ln_bwd")
 
 
 class _Counter:
@@ -1788,6 +1889,7 @@ def _counters():
     return {"row6": fa.flash_attention, "row7": fa.flash_attention_bwd_fused,
             "row8": fa.flash_attention_bwd_dq,
             "row9": fa.flash_attention_bwd_dkv,
+            "row6_tc": _Counter(fa.flash_attention, "launches_tc"),
             "row8_tc": _Counter(fa.flash_attention_bwd_dq, "launches_tc"),
             "row9_tc": _Counter(fa.flash_attention_bwd_dkv, "launches_tc"),
             "bsh_fwd": fa.flash_attention_bsh,
@@ -1854,8 +1956,9 @@ def _launches_per_step(program, bf16: bool = False) -> dict:
         for k in ("row7", "row8", "row9", "bsh_bwd", "ln_bwd"):
             n[k] = 0
     # a bf16 program's BSH backward runs the wgmma pair (bsh_bwd_route),
-    # and so do rows 8 and 9 (a full bias, bhsd_bwd_route)
-    for k in ("bsh_bwd", "row8", "row9"):
+    # and so do rows 8 and 9 (a full bias, bhsd_bwd_route) and row 6
+    # (bhsd_fwd_route)
+    for k in ("bsh_bwd", "row6", "row8", "row9"):
         n[f"{k}_tc"] = n[k] if bf16 else 0
     return n
 
@@ -2083,15 +2186,21 @@ CONV_BN_KERNELS = ("conv_stats", "mm_stats", "bn_apply", "bn_bwd_reduce",
                    "bn_bwd_dz")
 # the kernel checks' cases, ResNet-50 at batch 128: (N, H, W, C, O, k,
 # stride, relu); the four 3 x 3 stage shapes time row 10 (bf16, the wgmma
-# kernel), s0_1x1 rows 11-14
+# kernel), the five 1 x 1 shapes row 11 (bf16, the wgmma kernel), s0_1x1
+# rows 12-14
 CONV_BN_CASES = {
     "s0_3x3": (128, 56, 56, 64, 64, 3, 1, True),
     "s0_1x1_64to256": (128, 56, 56, 64, 256, 1, 1, False),
+    "s0_1x1_256to64": (128, 56, 56, 256, 64, 1, 1, True),
     "s1_3x3": (128, 28, 28, 128, 128, 3, 1, True),
     "s1_proj_s2_256to512": (128, 56, 56, 256, 512, 1, 2, False),
     "s2_3x3": (128, 14, 14, 256, 256, 3, 1, True),
+    "s2_1x1_1024to256": (128, 14, 14, 1024, 256, 1, 1, True),
     "s3_3x3": (128, 7, 7, 512, 512, 3, 1, True),
+    "s3_1x1_512to2048": (128, 7, 7, 512, 2048, 1, 1, False),
 }
+# the 1 x 1 case rows 12-14 are timed at (stage 0's widest BN)
+SWEEP_CASE = "s0_1x1_64to256"
 # a bf16 k x k conv that conv_route sends to the SIMT kernel (C = 3 is
 # not a multiple of 8): that route's own card check
 CONV_SIMT_BF16_CASE = (32, 32, 32, 3, 64, 3, 1, True)
@@ -2174,10 +2283,43 @@ def _conv_tile_sweep(torch, cb, flush, x, w, pads) -> dict:
     return out
 
 
+def _mm_tile_sweep(torch, cb, flush, x, w, strides) -> dict:
+    """Row 11's wgmma kernel under each tile (bm, bn) and ring depth it
+    takes, on one 1 x 1 shape: the record behind mm_tc_tile's choice
+    (time_cold_ms, 20 calls each)."""
+    chosen = cb.mm_tc_tile
+    out = {}
+    try:
+        for tile in ((128, 64), (128, 128), (64, 64), (64, 128)):
+            for stages in (2, 4):
+                cb.mm_tc_tile = lambda rows, c, o, t=tile + (stages,): t
+                out[f"{tile[0]}x{tile[1]}x{stages}"] = time_cold_ms(
+                    torch, lambda: cb.mm_stats(x, w, strides), flush,
+                    reps=20)["median"]
+    finally:
+        cb.mm_tc_tile = chosen
+    return out
+
+
+def _simt_ms(torch, cb, flush, x, w, strides) -> float:
+    """Row 11 on the SIMT kernel (the route f32 and odd bf16 shapes take,
+    and every bf16 1 x 1 conv took before the wgmma kernel) at the same
+    bf16 inputs: the redesign's yardstick in the same run."""
+    route = cb.conv_route
+    try:
+        cb.conv_route = lambda dtype, c, o: "simt"
+        return time_cold_ms(torch, lambda: cb.mm_stats(x, w, strides),
+                            flush)["median"]
+    finally:
+        cb.conv_route = route
+
+
 def _kernels_conv_bn(torch, F, flush) -> tuple:
     """Rows 10-14 against their plain versions at ResNet-50's shapes (batch
     128), f32 with TF32 off and bf16; then timed in bf16 (the training
-    path's dtype) at the stage-0 shapes."""
+    path's dtype): rows 10 and 11 at every stage shape in CONV_BN_CASES
+    with their tile sweeps (row 11 beside its SIMT kernel), rows 12-14 at
+    SWEEP_CASE's."""
     from paddle_tpu_torch.ops.kernels import conv_bn as cb
 
     rng = np.random.default_rng(9)
@@ -2190,31 +2332,30 @@ def _kernels_conv_bn(torch, F, flush) -> tuple:
     for name, tag, dt, (n, h, w, c, o, k, st, relu) in cases:
         case = _conv_case(torch, rng, n, h, w, c, o, k, st, dt)
         kxk = k > 1
-        n0 = (cb.conv_stats.launches, cb.conv_stats.launches_tc)
+        fn = cb.conv_stats if kxk else cb.mm_stats
+        n0 = (fn.launches, fn.launches_tc)
         res, t = _conv_bn_check(torch, cb, f"conv_bn {name} {tag}", case,
                                 relu, seed=len(results))
-        if kxk:
-            # the route conv_route names, and only that one, launched
-            tc = cb.conv_route(dt, c, o) == "tc"
-            got = (cb.conv_stats.launches - n0[0],
-                   cb.conv_stats.launches_tc - n0[1])
-            if got != (1, int(tc)):
-                fail(f"conv_bn {name} {tag}: launches (all, tc) {got}, "
-                     f"want (1, {int(tc)})")
-            res["route"] = "tc" if tc else "simt"
-            if tc:
-                res["tile"] = cb.conv_tc_tile(n * h * w, o)
+        # the route conv_route names, and only that one, launched
+        tc = cb.conv_route(dt, c, o) == "tc"
+        got = (fn.launches - n0[0], fn.launches_tc - n0[1])
+        if got != (1, int(tc)):
+            fail(f"conv_bn {name} {tag}: launches (all, tc) {got}, "
+                 f"want (1, {int(tc)})")
+        res["route"] = "tc" if tc else "simt"
+        if tc:
+            rows = t["z"].shape[0]
+            res["tile"] = (cb.conv_tc_tile(rows, o) if kxk
+                           else cb.mm_tc_tile(rows, c, o))
         results[f"{name}_{tag}"] = res
-        if tag == "bf16" and (kxk or name == "s0_1x1_64to256") \
-                and name in shapes:
+        if tag == "bf16" and name in shapes:
             main[name] = (case, t, relu)
         del case, t
         torch.cuda.empty_cache()
     if results["simt_route_c3_bf16"]["route"] != "simt" or any(
-            results[f"{n}_bf16"].get("route") != "tc"
-            for n, sh in shapes.items() if sh[5] > 1):
-        fail("conv_bn: a bf16 3 x 3 stage shape missed the wgmma kernel, "
-             "or the C = 3 case missed the SIMT one")
+            results[f"{n}_bf16"].get("route") != "tc" for n in shapes):
+        fail("conv_bn: a bf16 ResNet-50 shape missed the wgmma kernel, or "
+             "the C = 3 case missed the SIMT one")
 
     # TF32 shown once: the f32 stage-0 3 x 3 plain conv with TF32 on,
     # against the kernel's f32 z
@@ -2235,20 +2376,19 @@ def _kernels_conv_bn(torch, F, flush) -> tuple:
     del case, x, w, z, zt, zr
     torch.cuda.empty_cache()
 
-    timed = {"conv_stats_by_stage": {}}
+    timed = {"conv_stats_by_stage": {}, "mm_stats_by_shape": {}}
     for name, (case, t, relu) in main.items():
         x, w, scale, shift, strides, pads = case
         z, stat, g, tot = t["z"], t["stat"], t["g"], t["tot"]
         xc = x.permute(0, 3, 1, 2)
-        kname = "mm_stats" if name.endswith("256") else "conv_stats"
+        kname = "mm_stats" if tuple(w.shape[2:]) == (1, 1) else "conv_stats"
         row = {"shape": {"x": list(x.shape), "w": list(w.shape),
                          "strides": list(strides), "pads": pads,
                          "dtype": "bfloat16"},
                "library": "F.conv2d on the channels_last view (no stats)",
-               "max_abs_err": results[f"{name}_bf16"]["z"]["max_abs_err"]}
-        if kname == "conv_stats":
-            row["route"] = results[f"{name}_bf16"]["route"]
-            row["tile"] = results[f"{name}_bf16"]["tile"]
+               "max_abs_err": results[f"{name}_bf16"]["z"]["max_abs_err"],
+               "route": results[f"{name}_bf16"]["route"],
+               "tile": results[f"{name}_bf16"]["tile"]}
         row.update(_timed(
             torch, flush, t["conv"],
             lambda: cb.conv_stats_reference(x, w, strides, pads),
@@ -2261,6 +2401,11 @@ def _kernels_conv_bn(torch, F, flush) -> tuple:
             timed["conv_stats_by_stage"][name] = row
             if name == "s0_3x3":
                 timed[kname] = row
+            continue
+        row["tiles_ms"] = _mm_tile_sweep(torch, cb, flush, x, w, strides)
+        row["simt_ms"] = _simt_ms(torch, cb, flush, x, w, strides)
+        timed["mm_stats_by_shape"][name] = row
+        if name != SWEEP_CASE:
             continue
         timed[kname] = row
         # the sweeps at [401408, 256] bf16 (stage 0's widest BN)
@@ -2356,16 +2501,16 @@ def _resnet_batch(batch: int, size: int, classes: int,
 
 def _conv_bn_launches_per_step(program, bf16: bool = False) -> dict:
     """The conv+BN launches one step of ``program`` must make, from its
-    fused ops and the kernel gate: row 10 per k x k stride-1 conv (on the
-    wgmma kernel, ``conv_stats_tc``, where a bf16 program's shape takes
-    it), row 11 per 1 x 1 conv, rows 12-14 once each per gated op; the
-    reference route per other op."""
+    fused ops and the kernel gate: row 10 per k x k stride-1 conv, row 11
+    per 1 x 1 conv (each on the wgmma kernel, ``conv_stats_tc`` /
+    ``mm_stats_tc``, where a bf16 program's shape takes it), rows 12-14
+    once each per gated op; the reference route per other op."""
     from torch import bfloat16 as torch_bf16
 
     from paddle_tpu_torch.ops import nn_ops
     from paddle_tpu_torch.ops.kernels import conv_bn as cb
 
-    want = {k: 0 for k in CONV_BN_KERNELS + ("conv_stats_tc",
+    want = {k: 0 for k in CONV_BN_KERNELS + ("conv_stats_tc", "mm_stats_tc",
                                               "reference_routes")}
     block = program.global_block()
     for op in block.ops:
@@ -2381,12 +2526,10 @@ def _conv_bn_launches_per_step(program, bf16: bool = False) -> dict:
         if not cb.conv_bn_shapes_ok(xs, ws, strides, pads):
             want["reference_routes"] += 1
             continue
-        if tuple(ws[2:]) == (1, 1):
-            want["mm_stats"] += 1
-        else:
-            want["conv_stats"] += 1
-            want["conv_stats_tc"] += int(
-                bf16 and cb.conv_route(torch_bf16, xs[3], ws[0]) == "tc")
+        kname = "mm_stats" if tuple(ws[2:]) == (1, 1) else "conv_stats"
+        want[kname] += 1
+        want[f"{kname}_tc"] += int(
+            bf16 and cb.conv_route(torch_bf16, xs[3], ws[0]) == "tc")
         for k in ("bn_apply", "bn_bwd_reduce", "bn_bwd_dz"):
             want[k] += 1
     return want
@@ -2397,6 +2540,7 @@ def _conv_bn_counts(reset: bool = False) -> dict:
 
     fns = {k: getattr(cb, k) for k in CONV_BN_KERNELS}
     fns["conv_stats_tc"] = _Counter(cb.conv_stats, "launches_tc")
+    fns["mm_stats_tc"] = _Counter(cb.mm_stats, "launches_tc")
     if reset:
         for f in fns.values():
             f.launches = 0
@@ -2423,7 +2567,7 @@ def phase_resnet_train(torch, card: str, n_steps: int = 10,
     want = _conv_bn_launches_per_step(main, bf16=True)
     if (types.count("fused_conv_bn") != 53 or want != {
             "conv_stats": 13, "conv_stats_tc": 13, "mm_stats": 36,
-            "bn_apply": 49, "bn_bwd_reduce": 49, "bn_bwd_dz": 49,
+            "mm_stats_tc": 36, "bn_apply": 49, "bn_bwd_reduce": 49, "bn_bwd_dz": 49,
             "reference_routes": 4}):
         fail(f"resnet_train program: {types.count('fused_conv_bn')} fused "
              f"ops, launches a step {want}")
@@ -2511,9 +2655,18 @@ def phase_resnet_train_profile(torch, train: dict) -> dict:
                 t = transforms.setdefault(key, [0, 0.0])
                 t[0] += 1
                 t[1] += k.duration / 1e3
+    # rows 10 and 11 by their kernels' names: the wgmma kernel's last
+    # template argument is true for the k x k conv, false for the 1 x 1
+    shares = {"row10_conv_stats": ("conv_stats_tc_kernel<", "true>"),
+              "row11_mm_stats": ("conv_stats_tc_kernel<", "false>")}
+    by_row = {}
+    for key, (stem, tail) in shares.items():
+        ms = sum(r[0] for r in rows if stem in r[2] and tail in r[2])
+        by_row[key] = {"ms_per_step": ms / 3, "share_of_busy": ms / busy_ms}
     out = {"phase": "resnet_train_profile", "steps": 3, "wall_ms": wall_ms,
            "device_busy_ms": busy_ms,
            "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
+           "conv_kernels_by_row": by_row,
            "top_kernels": [{"ms": ms, "calls": n, "name": k[:90]}
                            for ms, n, k in rows[:25]],
            "layout_transforms_one_step": [
@@ -3057,7 +3210,7 @@ def phase_nmt_train_parity(torch, b: int = 2, s: int = 128,
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     amp = _nmt_parity_run(torch, True, b, s, n_layers, op_by_op=True)
-    missed = [k for k in ("row8_tc", "row9_tc")
+    missed = [k for k in ("row6_tc", "row8_tc", "row9_tc")
               if counters[k].launches == n0[k]]
     if missed:
         fail(f"the bf16 NMT parity run on the card missed kernels {missed}")
@@ -3295,9 +3448,12 @@ def main() -> int:
     tc_paths = {
         "flash_attention_bsh_bwd": {"bert_train": launches["bsh_bwd_tc"],
                                     "nmt_train": nlaunches["bsh_bwd_tc"]},
+        "flash_attention": {"nmt_train": nlaunches["row6_tc"],
+                            "mha_key_train": mlaunches["row6_tc"]},
         "flash_attention_bwd_dq": {"nmt_train": nlaunches["row8_tc"]},
         "flash_attention_bwd_dkv": {"nmt_train": nlaunches["row9_tc"]},
-        "conv_stats": {"resnet_train": rlaunches["conv_stats_tc"]}}
+        "conv_stats": {"resnet_train": rlaunches["conv_stats_tc"]},
+        "mm_stats": {"resnet_train": rlaunches["mm_stats_tc"]}}
     emit({"kernels": [dict(e, launches_tc_by_path=tc_paths[e["name"]])
                       if e["name"] in tc_paths else e for e in [
         _kernel_entry("paged_attention", "paged_attention.cu",

@@ -33,11 +33,12 @@ operations at the dtype's peak (989 TFLOP/s bf16, 67 TFLOP/s f32);
 the three sweeps bytes alone.  Design: the source's header note (an
 implicit GEMM with the halo zero-filled in the kernel and per-tile
 statistics partials; sweeps that hold the statistic rows in registers;
-one shared ReLU predicate).  Row 10 has two kernels, chosen by dtype and
-shape alone (``conv_route``): bf16 with C and O multiples of 8 runs the
-wgmma kernel (``conv_stats_tc`` in the source, its tile from
-``conv_tc_tile``), everything else the SIMT one; ``conv_stats.launches``
-counts both, ``conv_stats.launches_tc`` the wgmma kernel's.
+one shared ReLU predicate).  Rows 10 and 11 each have two kernels, chosen
+by dtype and shape alone (``conv_route``): bf16 with C and O multiples of
+8 runs the wgmma kernel (``conv_stats_tc`` in the source; row 10's tile
+from ``conv_tc_tile``, row 11's tile and ring from ``mm_tc_tile``),
+everything else the SIMT one; ``conv_stats.launches`` and
+``mm_stats.launches`` count both, ``.launches_tc`` the wgmma kernel's.
 
 ``fused_conv_bn`` is the dispatcher: shapes that pass
 ``conv_bn_shapes_ok`` (groups 1, dilation 1; a 1 x 1 conv with no padding
@@ -268,6 +269,8 @@ _ARGTYPES = {
     + [ctypes.c_void_p],
     "mm_stats": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
     + [ctypes.c_void_p],
+    "mm_stats_tc": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12
+    + [ctypes.c_void_p],
     "apply": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
     "bwd_reduce": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
     + [ctypes.c_void_p],
@@ -308,33 +311,51 @@ def _device_check(x) -> bool:
 
 
 def conv_route(dtype, c: int, o: int) -> str:
-    """Which kernel row 10 launches, by dtype and shape alone: "tc" (the
-    wgmma kernel) for bf16 with C and O multiples of 8 (16-byte rows of
-    x, w and z); "simt" (f32 FMA) for float32, which tensor cores would
-    round to TF32, and for any other bf16 shape."""
+    """Which kernel rows 10 and 11 launch, by dtype and shape alone: "tc"
+    (the wgmma kernel) for bf16 with C and O multiples of 8 (16-byte rows
+    of x, w and z); "simt" (f32 FMA) for float32, which tensor cores
+    would round to TF32, and for any other bf16 shape."""
     if dtype == torch.bfloat16 and c % 8 == 0 and o % 8 == 0:
         return "tc"
     return "simt"
 
 
 def conv_tc_tile(rows: int, o: int) -> tuple:
-    """(bm, bn) of the wgmma kernel: rows and output channels a block.
-    128 rows, and 128 channels where O allows it, else 64.  Timed on the
-    H100 at ResNet-50's four 3 x 3 stage shapes (chip_smoke.py's tile
-    sweep, PERF.md row 10), the largest tile was the fastest of the four
-    or within 3% of it at every stage, the deep stages' part-empty last
-    wave included: fewer, larger blocks re-read fewer A and B tiles
+    """(bm, bn) of row 10's wgmma kernel: rows and output channels a
+    block.  128 rows, and 128 channels where O allows it, else 64.  Timed
+    on the H100 at ResNet-50's four 3 x 3 stage shapes (chip_smoke.py's
+    tile sweep, PERF.md row 10), the largest tile was the fastest of the
+    four or within 3% of it at every stage, the deep stages' part-empty
+    last wave included: fewer, larger blocks re-read fewer A and B tiles
     through L2."""
     return 128, 128 if o % 128 == 0 else 64
 
 
+def mm_tc_tile(rows: int, c: int, o: int) -> tuple:
+    """(bm, bn, stages) of row 11's wgmma kernel: rows and output channels
+    a block, and the k-blocks (64 input channels each) its ring holds.
+    The 1 x 1 convs have C / 64 k-blocks, one at C = 64, so a deep ring
+    overlaps nothing there and only keeps blocks off the SM: 2 stages,
+    and a 128 x 128 tile where O allows it, else 64 x 64.  Timed on an
+    H100 (chip_smoke.py's sweep of 4 tiles x 2 ring depths, PERF.md row
+    11) at ResNet-50's five 1 x 1 shapes, this was the fastest of the
+    eight or within 2% of it at every shape; the same sweep in another
+    call moved single timings by up to 10%."""
+    if o % 128 == 0:
+        return 128, 128, 2
+    return 64, 64, 2
+
+
 def conv_tile_rows(name: str, dtype, c: int, rows: int, o: int) -> int:
     """Rows of z one block of the kernel ``name`` ("conv_stats" or
-    "mm_stats") launches for these shapes computes: conv_tc_tile's bm on
-    the wgmma route, TILE_ROWS on the SIMT kernel (row 11 always)."""
-    if name == "conv_stats" and conv_route(dtype, c, o) == "tc":
+    "mm_stats") launches for these shapes computes: the wgmma tile's bm
+    on that route (``conv_tc_tile``, ``mm_tc_tile``), TILE_ROWS on the
+    SIMT kernel."""
+    if conv_route(dtype, c, o) != "tc":
+        return TILE_ROWS
+    if name == "conv_stats":
         return conv_tc_tile(rows, o)[0]
-    return TILE_ROWS
+    return mm_tc_tile(rows, c, o)[0]
 
 
 def stat_tiles(rows: int, tile_rows: int) -> int:
@@ -349,7 +370,7 @@ def _cuda_conv(name, x, w, strides, pads):
     o, _, kh, kw = w.shape
     ho, wo = _out_hw(x.shape, w.shape, strides, pads)
     rows = n * ho * wo
-    tc = name == "conv_stats" and conv_route(x.dtype, c, o) == "tc"
+    tc = conv_route(x.dtype, c, o) == "tc"
     bm = conv_tile_rows(name, x.dtype, c, rows, o)
     if tc:
         wk = w.permute(2, 3, 0, 1).contiguous()   # [kh, kw, O, C]
@@ -360,21 +381,30 @@ def _cuda_conv(name, x, w, strides, pads):
                        device=x.device)
     ptrs = (x.data_ptr(), wk.data_ptr(), z.data_ptr(), part.data_ptr(), n, h,
             wd, c, o)
-    if tc:
+    if not tc:
+        geom = ((kh, kw, pads[0][0], pads[1][0]) if name == "conv_stats"
+                else tuple(strides))
+        _launch(name, x, *ptrs, *geom, ho, wo)
+    else:
+        if name == "conv_stats":
+            tail = (kh, kw, pads[0][0], pads[1][0], ho, wo,
+                    *conv_tc_tile(rows, o))
+        else:
+            tail = (*strides, ho, wo, *mm_tc_tile(rows, c, o))
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
-            err = _launcher("conv_stats_tc")(*ptrs, kh, kw, pads[0][0],
-                                             pads[1][0], ho, wo,
-                                             *conv_tc_tile(rows, o), stream)
+            err = _launcher(f"{name}_tc")(*ptrs, *tail, stream)
         if err:
-            raise RuntimeError(f"conv_bn conv_stats_tc kernel launch "
-                               f"failed: CUDA error {err}")
-    elif name == "conv_stats":
-        _launch(name, x, *ptrs, kh, kw, pads[0][0], pads[1][0], ho, wo)
-    else:
-        _launch(name, x, *ptrs, strides[0], strides[1], ho, wo)
+            raise RuntimeError(f"conv_bn {name}_tc kernel launch failed: "
+                               f"CUDA error {err}")
     s, ss = part.sum(dim=1)
     return z, s, ss
+
+
+def _count(fn, x, c, o):
+    fn.launches += 1
+    if conv_route(x.dtype, c, o) == "tc":
+        fn.launches_tc += 1
 
 
 def conv_stats(x, w, pads):
@@ -385,26 +415,26 @@ def conv_stats(x, w, pads):
     if not _device_check(x):
         return conv_stats_reference(x, w, (1, 1), pads)
     out = _cuda_conv("conv_stats", x, w, (1, 1), pads)
-    conv_stats.launches += 1
-    if conv_route(x.dtype, x.shape[3], w.shape[0]) == "tc":
-        conv_stats.launches_tc += 1
+    _count(conv_stats, x, x.shape[3], w.shape[0])
     return out
 
 
 def mm_stats(x, w, strides):
     """Row 11: 1 x 1 conv of NHWC x by OIHW w at ``strides`` -> (z, sum,
-    sum of squares), as ``conv_stats``."""
+    sum of squares), as ``conv_stats``: the route ``conv_route`` names,
+    ``launches`` and ``launches_tc`` likewise."""
     pads = ((0, 0), (0, 0))
     if not _device_check(x):
         return conv_stats_reference(x, w, strides, pads)
     out = _cuda_conv("mm_stats", x, w, tuple(strides), pads)
-    mm_stats.launches += 1
+    _count(mm_stats, x, x.shape[3], w.shape[0])
     return out
 
 
 conv_stats.launches = 0
 conv_stats.launches_tc = 0
 mm_stats.launches = 0
+mm_stats.launches_tc = 0
 
 
 def sweep_layout(rows: int, o: int) -> tuple:
@@ -564,12 +594,15 @@ fused_conv_bn.reference_routes = 0
 
 
 def bound_bytes_conv(x, w, strides, pads) -> int:
-    """x, w and z moved once, plus the f32 sum and sum of squares."""
+    """The x elements the conv reads, w and z moved once, plus the f32
+    sum and sum of squares.  A k x k conv at stride 1 reads all of x; a
+    1 x 1 conv at stride (sh, sw) only the N * Ho * Wo pixels it
+    samples."""
     ho, wo = _out_hw(x.shape, w.shape, strides, pads)
     rows = x.shape[0] * ho * wo
-    o = w.shape[0]
-    return ((x.numel() + w.numel() + rows * o) * x.element_size()
-            + 2 * 4 * o)
+    o, c = w.shape[0], w.shape[1]
+    x_read = rows * c if tuple(w.shape[2:]) == (1, 1) else x.numel()
+    return (x_read + w.numel() + rows * o) * x.element_size() + 2 * 4 * o
 
 
 def bound_flops_conv(x, w, strides, pads) -> int:

@@ -16,6 +16,8 @@
 //   bwd_dz       replaces _bwd_dz_kernel (launched by _pallas_bwd):
 //                dz = rstd * scale * (g - dbeta / R - xhat * dgamma / R).
 //
+// conv_stats and mm_stats each run one of two kernels: the tensor-core one
+// (conv_stats_tc below: bf16 with C and O multiples of 8) or the SIMT one.
 // dX and dW of the conv stay on the library convolution, as the TPU path
 // keeps them on XLA.
 //
@@ -49,12 +51,11 @@
 // [2, T, O] per 64-row tile.  The grid is (M tiles, O tiles), so the deep
 // stages' few rows still give hundreds of blocks.  Any C, O, H, W, float32
 // or bfloat16, with scalar loads where a 4-wide load does not fit.  This is
-// SIMT f32 arithmetic: row 11 (mm_stats), row 10 in float32 (tensor cores
-// would round it to TF32) and row 10 in bf16 where C or O is not a multiple
-// of 8 run it.
+// SIMT f32 arithmetic: rows 10 and 11 in float32 (tensor cores would round
+// them to TF32) and in bf16 where C or O is not a multiple of 8 run it.
 //
-// conv_stats_tc (row 10 in bf16, the training path's dtype): the same
-// implicit GEMM on the tensor cores (hopper_mma.cuh).  A block of WG
+// conv_stats_tc (rows 10 and 11 in bf16, the training path's dtype): the
+// same implicit GEMM on the tensor cores (hopper_mma.cuh).  A block of WG
 // warpgroups computes a BM = 64 * WG row x BN (64 or 128) column tile, each
 // warpgroup 64 rows with wgmma.m64nBNk16 (bf16 operands from shared
 // memory, f32 accumulators in registers).  A k-block is one tap x 64 input
@@ -62,18 +63,28 @@
 // from NHWC x by 16-byte cp.async copies, zero-filled where the tap falls
 // into the padding or the row lies past M; the B tile comes from the
 // weights laid out [kh, kw, O, C] (K-major) by the caller.  Both land in
-// the 128B-swizzled layout the wgmma descriptor names.  A ring of 4 stages
-// keeps 2 k-blocks loading while one multiplies and the one before may
-// still be in flight (wgmma.wait_group 1).  Epilogue: each accumulator is
-// rounded to bf16 and staged in shared memory (stored as coalesced
-// 16-byte rows); the rounded values' column sums and sums of squares go
-// by warp shuffles over the warp's 16 rows, then in a fixed order over
-// the warps through shared memory, into one partial row per BM-row tile:
-// still no atomics, still deterministic.  At ResNet-50's shapes the
-// kernel moves each x element through L2 once a tap (9 times a 3 x 3):
-// the next step is to keep the input rows' halo in shared memory across
-// the taps.  The caller picks (BM, BN) (conv_bn.py conv_tc_tile).
-//
+// the 128B-swizzled layout the wgmma descriptor names.  A ring of STAGES
+// k-blocks: with 4, 2 k-blocks load while one multiplies and the one
+// before may still be in flight (wgmma.wait_group 1); with 2, one loads
+// while one multiplies.  Epilogue: each accumulator is rounded to bf16
+// and staged in shared memory (stored as coalesced 16-byte rows); the
+// rounded values' column sums and sums of squares go by warp shuffles
+// over the warp's 16 rows, then in a fixed order over the warps through
+// shared memory, into one partial row per BM-row tile: still no atomics,
+// still deterministic.  Blocks are numbered with the column tiles
+// fastest, so the blocks that share an A tile run together and read it
+// from device memory once.  Row 10 (k x k, stride 1) runs it with a
+// 4-stage ring; at ResNet-50's shapes it moves each x element through L2
+// once a tap (9 times a 3 x 3): the next step is to keep the input rows'
+// halo in shared memory across the taps.  Row 11 (1 x 1, any stride, no
+// padding: kh = kw = 1, the A rows read x at the stride) is bound by
+// bytes (at ResNet-50's stage 0, z is 205 of the 257 MB moved) and has
+// only C / 64 k-blocks (one at C = 64), so a deep ring overlaps nothing
+// there: it takes the smallest ring and tile that let several blocks
+// share an SM, one block's z store overlapping another's loads and
+// products.  The caller picks the tile and the ring (conv_bn.py
+// conv_tc_tile, mm_tc_tile).
+
 // apply, bwd_reduce and bwd_dz sweep z [R, O] (and g): a thread owns 4
 // adjacent channels (1 when O % 4 != 0), holds their four statistic rows
 // (and the dgamma/dbeta totals) in registers, and walks rows; blocks are
@@ -323,29 +334,39 @@ conv_stats_kernel(const T* __restrict__ x, const T* __restrict__ w2d,
 // on wgmma, fed by a cp.async ring
 // ---------------------------------------------------------------------------
 
-constexpr int kTcStages = 4;   // the ring: k-blocks in shared memory
-constexpr int kTcAhead = 2;    // k-blocks loading while one multiplies and
-                               // the one before may still be in flight
 constexpr int kTcBK = 64;      // input channels of one tap a k-block
 
-template <int WG, int BN>
+// k-blocks a ring of STAGES keeps loading ahead, and wgmma groups it
+// leaves in flight: the ring holds k-blocks kb - INFLIGHT .. kb + AHEAD
+template <int STAGES>
+struct TcRing {
+  static constexpr int INFLIGHT = STAGES >= 3 ? 1 : 0;
+  static constexpr int AHEAD = STAGES - 1 - INFLIGHT;
+  static_assert(STAGES >= 2, "a ring of at least 2 stages");
+};
+
+template <int WG, int BN, int STAGES>
 constexpr int tc_smem_bytes() {
   // the ring, or (after it) the z staging tile and the statistics
   // partials, plus 1024 for the alignment the swizzle needs
-  constexpr int ring = kTcStages * (64 * WG + BN) * 128;
+  constexpr int ring = STAGES * (64 * WG + BN) * 128;
   constexpr int epi = 64 * WG * (BN + 8) * 2 + 2 * 4 * WG * BN * 4;
   return (ring > epi ? ring : epi) + 1024;
 }
 
 // WG warpgroups of 128 threads; each owns 64 rows of the BM = 64 * WG row
-// tile and all BN columns.  wk is [kh * kw, O, C] (K-major for B).
-template <int WG, int BN>
-__global__ void __launch_bounds__(WG * 128)
+// tile and all BN columns.  wk is [kh * kw, O, C] (K-major for B).  Block
+// b computes row tile b / nt and column tile b % nt (nt = ceil(O / BN)).
+// KXK false: the 1 x 1 entry point (kh = kw = 1, no padding: every A row's
+// pixel lies in x), whose blocks are short: registers for two at least on
+// an SM.
+template <int WG, int BN, int STAGES, bool KXK>
+__global__ void __launch_bounds__(WG * 128, KXK ? 1 : 2)
 conv_stats_tc_kernel(const __nv_bfloat16* __restrict__ x,
                      const __nv_bfloat16* __restrict__ wk,
                      __nv_bfloat16* __restrict__ z, float* __restrict__ part,
                      int n, int h, int w, int c, int o, int kh, int kw,
-                     int ph, int pw, int ho, int wo) {
+                     int sh, int sw, int ph, int pw, int ho, int wo) {
   constexpr int BM = 64 * WG;
   constexpr int NT = 128 * WG;
   constexpr int A_BYTES = BM * 128;
@@ -353,6 +374,8 @@ conv_stats_tc_kernel(const __nv_bfloat16* __restrict__ x,
   constexpr int A_PER = BM * 8 / NT;   // 16-byte chunks a thread, A
   constexpr int B_PER = BN * 8 / NT;   // and B
   constexpr int ROW_STEP = NT / 8;
+  constexpr int AHEAD = TcRing<STAGES>::AHEAD;
+  constexpr int INFLIGHT = TcRing<STAGES>::INFLIGHT;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t pad = (1024u - (raw & 1023u)) & 1023u;
@@ -364,9 +387,12 @@ conv_stats_tc_kernel(const __nv_bfloat16* __restrict__ x,
   const int warp = tid >> 5;        // 0 .. 4 * WG - 1: rows 16 * warp ..
   const int lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
+  const int ntn = (o + BN - 1) / BN;
+  const int mt = blockIdx.x / ntn;
+  const int mtiles = gridDim.x / ntn;
   const int64_t m_total = (int64_t)n * ho * wo;
-  const int64_t m0 = (int64_t)blockIdx.x * BM;
-  const int o0 = blockIdx.y * BN;
+  const int64_t m0 = (int64_t)mt * BM;
+  const int o0 = (blockIdx.x - mt * ntn) * BN;
   const int chunk = tid & 7;
 
   // this thread's A rows: top-left input pixel of the window (may lie in
@@ -382,8 +408,8 @@ conv_stats_tc_kernel(const __nv_bfloat16* __restrict__ x,
     const int nn = (int)(mm / ((int64_t)ho * wo));
     const int rem = (int)(mm - (int64_t)nn * ho * wo);
     const int oh = rem / wo;
-    aih[i] = oh - ph;
-    aiw[i] = rem - oh * wo - pw;
+    aih[i] = oh * sh - ph;
+    aiw[i] = (rem - oh * wo) * sw - pw;
     aoff[i] = (((int64_t)nn * h + aih[i]) * w + aiw[i]) * c;
   }
 
@@ -401,8 +427,8 @@ conv_stats_tc_kernel(const __nv_bfloat16* __restrict__ x,
     for (int i = 0; i < A_PER; ++i) {
       const int r = (tid >> 3) + ROW_STEP * i;
       const bool ok = aok[i] && cc < c &&
-                      (unsigned)(aih[i] + l_ki) < (unsigned)h &&
-                      (unsigned)(aiw[i] + l_kj) < (unsigned)w;
+                      (!KXK || ((unsigned)(aih[i] + l_ki) < (unsigned)h &&
+                                (unsigned)(aiw[i] + l_kj) < (unsigned)w));
       cp_async16(sa + swz128(r, chunk), ok ? x + (aoff[i] + xoff) : x, ok);
     }
     const uint32_t sb = sa + A_BYTES;
@@ -426,22 +452,21 @@ conv_stats_tc_kernel(const __nv_bfloat16* __restrict__ x,
   float acc[BN / 2];
   zero(acc);
 
-  static_assert(kTcAhead + 2 <= kTcStages, "the ring holds k-blocks kb - 1 "
-                "(in flight), kb and kTcAhead loading");
 #pragma unroll
-  for (int s = 0; s < kTcAhead; ++s) {
+  for (int s = 0; s < AHEAD; ++s) {
     if (s < nkb) load(s);
     cp_async_commit();
   }
   for (int kb = 0; kb < nkb; ++kb) {
-    cp_async_wait<kTcAhead - 1>();    // k-block kb has landed
+    cp_async_wait<AHEAD - 1>();   // k-block kb has landed
     fence_async_smem();
     __syncthreads();   // ... for every thread; and every warpgroup is done
-                       // with k-block kb - 2, whose stage is refilled here
-    const int nxt = kb + kTcAhead;
-    if (nxt < nkb) load(nxt % kTcStages);
+                       // with k-block kb - 1 - INFLIGHT, whose stage is
+                       // refilled here
+    const int nxt = kb + AHEAD;
+    if (nxt < nkb) load(nxt % STAGES);
     cp_async_commit();
-    const uint32_t sa = sbase + (kb % kTcStages) * STAGE;
+    const uint32_t sa = sbase + (kb % STAGES) * STAGE;
     const uint32_t a0 = sa + wg * 64 * 128;
     const uint32_t b0 = sa + A_BYTES;
     fence_regs(acc);
@@ -450,7 +475,7 @@ conv_stats_tc_kernel(const __nv_bfloat16* __restrict__ x,
     for (int kk = 0; kk < kTcBK / 16; ++kk)
       wgmma_ss<BN, 0>(acc, desc_sw128(a0 + 32 * kk), desc_sw128(b0 + 32 * kk));
     wg_commit();
-    wg_wait<1>();      // k-block kb - 1's products are done; kb's run on
+    wg_wait<INFLIGHT>();   // at most k-block kb's products still run
     fence_regs(acc);
   }
   wg_wait<0>();
@@ -498,9 +523,8 @@ conv_stats_tc_kernel(const __nv_bfloat16* __restrict__ x,
       s += red[wi * BN + tid];
       ss += red[(NT / 32 + wi) * BN + tid];
     }
-    const int64_t tiles = gridDim.x;
-    part[(int64_t)blockIdx.x * o + o0 + tid] = s;
-    part[(tiles + blockIdx.x) * o + o0 + tid] = ss;
+    part[(int64_t)mt * o + o0 + tid] = s;
+    part[((int64_t)mtiles + mt) * o + o0 + tid] = ss;
   }
   // z: 16-byte rows, coalesced
   constexpr int CH = BN / 8;
@@ -513,24 +537,51 @@ conv_stats_tc_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-template <int WG, int BN>
+template <int WG, int BN, int STAGES, bool KXK>
 int launch_conv_tc(const void* x, const void* wk, void* z, void* part, int n,
-                   int h, int w, int c, int o, int kh, int kw, int ph, int pw,
-                   int ho, int wo, cudaStream_t s) {
-  constexpr int kSmem = tc_smem_bytes<WG, BN>();
+                   int h, int w, int c, int o, int kh, int kw, int sh, int sw,
+                   int ph, int pw, int ho, int wo, cudaStream_t s) {
+  constexpr int kSmem = tc_smem_bytes<WG, BN, STAGES>();
   static const cudaError_t attr = cudaFuncSetAttribute(
-      conv_stats_tc_kernel<WG, BN>,
+      conv_stats_tc_kernel<WG, BN, STAGES, KXK>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);   // once
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const int64_t m = (int64_t)n * ho * wo;
-  const int64_t tiles = (m + 64 * WG - 1) / (64 * WG);
-  if (tiles > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid((unsigned)tiles, (unsigned)((o + BN - 1) / BN));
-  conv_stats_tc_kernel<WG, BN><<<grid, WG * 128, kSmem, s>>>(
+  const int64_t blocks =
+      (m + 64 * WG - 1) / (64 * WG) * ((o + BN - 1) / BN);
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  conv_stats_tc_kernel<WG, BN, STAGES, KXK><<<(unsigned)blocks, WG * 128,
+                                              kSmem, s>>>(
       static_cast<const __nv_bfloat16*>(x),
       static_cast<const __nv_bfloat16*>(wk), static_cast<__nv_bfloat16*>(z),
-      static_cast<float*>(part), n, h, w, c, o, kh, kw, ph, pw, ho, wo);
+      static_cast<float*>(part), n, h, w, c, o, kh, kw, sh, sw, ph, pw, ho,
+      wo);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the tile (bm, bn) and ring depth the caller chose: bm 64 or 128, bn 64
+// or 128, stages 4 (and 2 for the 1 x 1 entry point)
+template <bool KXK>
+int launch_tc_tile(int bm, int bn, int stages, const void* x, const void* wk,
+                   void* z, void* part, int n, int h, int w, int c, int o,
+                   int kh, int kw, int sh, int sw, int ph, int pw, int ho,
+                   int wo, cudaStream_t s) {
+#define PADDLE_CONV_TC(BM_, BN_, ST_)                                      \
+  if (bm == BM_ && bn == BN_ && stages == ST_)                             \
+    return launch_conv_tc<BM_ / 64, BN_, ST_, KXK>(                        \
+        x, wk, z, part, n, h, w, c, o, kh, kw, sh, sw, ph, pw, ho, wo, s);
+  PADDLE_CONV_TC(128, 64, 4)
+  PADDLE_CONV_TC(128, 128, 4)
+  PADDLE_CONV_TC(64, 64, 4)
+  PADDLE_CONV_TC(64, 128, 4)
+  if constexpr (!KXK) {
+    PADDLE_CONV_TC(128, 64, 2)
+    PADDLE_CONV_TC(128, 128, 2)
+    PADDLE_CONV_TC(64, 64, 2)
+    PADDLE_CONV_TC(64, 128, 2)
+  }
+#undef PADDLE_CONV_TC
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // ---------------------------------------------------------------------------
@@ -788,8 +839,9 @@ extern "C" int conv_bn_conv_stats_launch(const void* x, const void* w2d,
 
 // The bf16 k x k conv on the tensor cores: as conv_bn_conv_stats_launch,
 // but wk is [kh * kw, O, C] bf16 and the tile is bm rows (64 or 128) x bn
-// output channels (64 or 128): part is [2, T, O] with T = ceil(N*Ho*Wo /
-// bm).  C and O must be multiples of 8 (16-byte rows of x, w and z).
+// output channels (64 or 128), on a 4-stage ring: part is [2, T, O] with
+// T = ceil(N*Ho*Wo / bm).  C and O must be multiples of 8 (16-byte rows of
+// x, w and z).
 extern "C" int conv_bn_conv_stats_tc_launch(const void* x, const void* wk,
                                             void* z, void* part, int n,
                                             int h, int w, int c, int o,
@@ -799,20 +851,9 @@ extern "C" int conv_bn_conv_stats_tc_launch(const void* x, const void* wk,
   if (n <= 0 || h <= 0 || w <= 0 || c <= 0 || o <= 0 || kh <= 0 || kw <= 0 ||
       ho <= 0 || wo <= 0 || ph < 0 || pw < 0 || c % 8 || o % 8)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bm == 128 && bn == 64)
-    return launch_conv_tc<2, 64>(x, wk, z, part, n, h, w, c, o, kh, kw, ph,
-                                 pw, ho, wo, s);
-  if (bm == 128 && bn == 128)
-    return launch_conv_tc<2, 128>(x, wk, z, part, n, h, w, c, o, kh, kw, ph,
-                                  pw, ho, wo, s);
-  if (bm == 64 && bn == 64)
-    return launch_conv_tc<1, 64>(x, wk, z, part, n, h, w, c, o, kh, kw, ph,
-                                 pw, ho, wo, s);
-  if (bm == 64 && bn == 128)
-    return launch_conv_tc<1, 128>(x, wk, z, part, n, h, w, c, o, kh, kw, ph,
-                                  pw, ho, wo, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_tc_tile<true>(bm, bn, 4, x, wk, z, part, n, h, w, c, o, kh,
+                              kw, 1, 1, ph, pw, ho, wo,
+                              static_cast<cudaStream_t>(stream));
 }
 
 // The 1 x 1 conv at stride (sh, sw), no padding: z [N*Ho*Wo, O] with
@@ -833,6 +874,23 @@ extern "C" int conv_bn_mm_stats_launch(const void* x, const void* w2d,
     return launch_conv<__nv_bfloat16, false>(x, w2d, z, part, n, h, w, c, o,
                                              1, 1, sh, sw, 0, 0, ho, wo, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The bf16 1 x 1 conv on the tensor cores: as conv_bn_mm_stats_launch, but
+// wk is [O, C] bf16 (K-major), the tile bm x bn as for the k x k conv and
+// the ring `stages` k-blocks deep (2 or 4): part is [2, T, O] with T =
+// ceil(N*Ho*Wo / bm).  C and O must be multiples of 8.
+extern "C" int conv_bn_mm_stats_tc_launch(const void* x, const void* wk,
+                                          void* z, void* part, int n, int h,
+                                          int w, int c, int o, int sh, int sw,
+                                          int ho, int wo, int bm, int bn,
+                                          int stages, void* stream) {
+  if (n <= 0 || h <= 0 || w <= 0 || c <= 0 || o <= 0 || sh <= 0 || sw <= 0 ||
+      ho != (h + sh - 1) / sh || wo != (w + sw - 1) / sw || c % 8 || o % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_tc_tile<false>(bm, bn, stages, x, wk, z, part, n, h, w, c, o,
+                               1, 1, sh, sw, 0, 0, ho, wo,
+                               static_cast<cudaStream_t>(stream));
 }
 
 // The sweeps take the caller's layout: rb rows a block, vec channels a

@@ -70,7 +70,7 @@
 // v and o, and rows 6, 8 and 9 each stream it once: the bytes bound.
 // The SIMT kernels run f32 FMA, so they sit far above it.
 //
-// Design (SIMT: rows 6 and 7 in both dtypes, rows 8 and 9 in f32).  As
+// Design (SIMT: rows 6, 8 and 9 in f32, row 7 in both dtypes).  As
 // the [B, S, H] kernels: one block of 256 threads owns one tile of T rows
 // (T = 64, 32 at D = 256) of one bh and streams the other operand's
 // tiles through shared memory; all arithmetic is f32 (bf16 widens on
@@ -78,7 +78,22 @@
 // columns tx + 16 j of each score tile and of each accumulator; row max
 // and sum reduce over 16 lanes with xor shuffles; tile rows in shared
 // memory are padded by one float.  Causal tiles that no row sees are
-// skipped in all four kernels.
+// skipped in all four kernels.  Row 7 in bf16 rounds p c and ds0 sm_scale
+// to bf16 before its products, as _make_bwd_fused_kernel does.
+//
+// Row 6 on the tensor cores (bf16, every bias mode: the route of
+// nmt_train's encoder, mha_key_train and flash_block_with_lse): one
+// warpgroup owns a 64-query tile; Q lands once in a swizzled tile, and
+// the key tiles (K, V and the bias tile) stream through a 2-stage
+// cp.async ring.  S = Q K^T on wgmma, the online softmax in registers
+// (each query row's max and sum over the quad of lanes holding it; exp by
+// the ex2 unit, __expf), p c rounded to bf16 as the A operand of O += (p
+// c) V from registers, as _make_fwd_kernel rounds p_num to v's dtype: so
+// p c is rounded relative to the running max of the key tiles seen so
+// far, 64 keys a tile.  The bytes bound (the [B, nh, S, S] bias) is what
+// this kernel is after; the Philox draws of a dropout run are its largest
+// cost of arithmetic, so they run while the tile's S product is in
+// flight.
 //
 // Rows 8 and 9 on the tensor cores (bf16 with a full bias, the route of
 // nmt_train's encoder): row 5's design (flash_attention_bsh.cu; helpers
@@ -105,7 +120,10 @@
 // C interface (ctypes): flash_bhsd_fwd_launch, flash_bhsd_bwd_launch and
 // flash_bhsd_bwd_tc_launch return cudaGetLastError() after the launch
 // (the first failing one).  The kernels run on the caller's stream,
-// allocate nothing and do not synchronise.
+// allocate nothing and do not synchronise.  Check outputs (null on the
+// training path) let a test hold each bf16 rounding on its own: the
+// rounded p c (and ds) a kernel feeds its products, and row 6's running
+// max.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -146,9 +164,10 @@ struct Args {
   void* dv;
   float* dq_part;       // row 7: [nk, BH, S, D]
   float* dbias;         // row 7: [BH, S]; row 9: [BH, S, S]; or null
-  void* p_out;          // rows 8, 9 on the tensor cores: check outputs,
-  void* ds_out;         // bf16 [BH, S, S] or null (row 9's p c and ds,
-  void* dsq_out;        // row 8's ds)
+  void* p_out;          // check outputs, bf16 [BH, S, S] or null: the p c
+  void* ds_out;         // and ds rows 6, 7 and 9 feed their products (row
+  void* dsq_out;        // 6: p c only), row 8's ds
+  float* m_out;         // row 6's running max at each key tile [BH, S, S/64]
   int bh_count, s;
   float sm_scale;
   int causal, q_off, k_off;
@@ -175,6 +194,11 @@ __device__ __forceinline__ int lo_blocks(const Args& a, int k0, int qt) {
 
 __device__ __forceinline__ bool masked(const Args& a, int row, int col) {
   return a.causal && a.q_off + row < a.k_off + col;
+}
+
+// x rounded to bf16 (round to nearest even), as f32
+__device__ __forceinline__ float bf16r(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 // bias(bh, row, col) for the block's bias row r
@@ -372,8 +396,11 @@ flash_bhsd_fwd_kernel(Args a, Dropout dr) {
 
 // p c (to ps, when given) and ds0 = p (dp c - delta) (to dss) of the
 // thread's scores of the tile (q0, k0), from s = q . k and dp = dO . v;
-// shared-memory row stride TT + 1.
-template <int TT>
+// shared-memory row stride TT + 1; db[j] adds the thread's ds0 of column
+// tx + 16 j.  ROUND (row 7 in bf16): ps and dss take p c and ds0 sm_scale
+// rounded to bf16, the operands of the products, and so do the check
+// outputs when given.
+template <int TT, bool ROUND>
 __device__ __forceinline__ void tile_probs(const Args& a, const Dropout& dr,
                                            int bh, int64_t brow, int q0,
                                            int k0,
@@ -381,7 +408,7 @@ __device__ __forceinline__ void tile_probs(const Args& a, const Dropout& dr,
                                            const float (&dp)[TT / 16][TT / 16],
                                            const float* lse_s,
                                            const float* delta_s, float* ps,
-                                           float* dss) {
+                                           float* dss, float (&db)[TT / 16]) {
   constexpr int R = TT / 16;
   constexpr int TP = TT + 1;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
@@ -400,8 +427,17 @@ __device__ __forceinline__ void tile_probs(const Args& a, const Dropout& dr,
               ? 0.f
               : expf(s[i][j] * a.sm_scale + bias_at(a, brow, row, col) -
                      lse_s[rl]);
-      if (ps) ps[rl * TP + cl] = p * cm[i][j];
-      dss[rl * TP + cl] = p * (dp[i][j] * cm[i][j] - delta_s[rl]);
+      const float pc = p * cm[i][j];
+      const float ds0 = p * (dp[i][j] * cm[i][j] - delta_s[rl]);
+      if (ps) ps[rl * TP + cl] = ROUND ? bf16r(pc) : pc;
+      dss[rl * TP + cl] = ROUND ? bf16r(ds0 * a.sm_scale) : ds0;
+      db[j] += ds0;
+      if (ROUND && a.p_out) {
+        const int64_t at = ((int64_t)bh * a.s + row) * a.s + col;
+        static_cast<__nv_bfloat16*>(a.p_out)[at] = __float2bfloat16_rn(pc);
+        static_cast<__nv_bfloat16*>(a.ds_out)[at] =
+            __float2bfloat16_rn(ds0 * a.sm_scale);
+      }
     }
   }
 }
@@ -424,10 +460,16 @@ constexpr int kv_smem_floats() {
 // Rows 7 and 9: one block per (k tile, bh) sums dk and dv over the q
 // tiles that see it.  FUSED (row 7) adds dq's partial of this k tile and
 // the key-mode dbias column sums; otherwise (row 9) the full-bias ds0 is
-// written as dbias when asked.
+// written as dbias when asked.  Row 7 in bf16 rounds as
+// _make_bwd_fused_kernel does: p c to bf16 before dv, ds = ds0 sm_scale to
+// bf16 before dk and dq (sm_scale is then in ds); its key dbias sums the
+// unrounded ds0, each thread its columns' share in registers, added over
+// the threads in a fixed order at the end.
 template <typename T, int TT, int D, bool FUSED>
 __global__ void __launch_bounds__(kThreads)
 flash_bhsd_bwd_kv_kernel(Args a, Dropout dr) {
+  constexpr bool ROUND = FUSED && std::is_same<T, __nv_bfloat16>::value;
+  const float ds_scale = ROUND ? 1.f : a.sm_scale;  // left for dk and dq
   constexpr int R = TT / 16;
   constexpr int DP = D + 1;
   constexpr int TP = TT + 1;
@@ -461,7 +503,9 @@ flash_bhsd_bwd_kv_kernel(Args a, Dropout dr) {
   for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int jd = 0; jd < ND; ++jd) dk[i][jd] = dv[i][jd] = 0.f;
-  float dbsum = 0.f;  // FUSED: column threadIdx.x's dbias sum
+  float db[R];  // FUSED: this thread's share of columns tx + 16 j's dbias
+#pragma unroll
+  for (int j = 0; j < R; ++j) db[j] = 0.f;
 
   const int nq = a.s / TT;
   const int lo = lo_blocks(a, k0, TT);
@@ -482,7 +526,8 @@ flash_bhsd_bwd_kv_kernel(Args a, Dropout dr) {
     float s[R][R], dp[R][R];
     tile_dot<TT, D>(qs, ks, s);
     tile_dot<TT, D>(dos, vs, dp);
-    tile_probs<TT>(a, dr, bh, brow, q0, k0, s, dp, lse_s, delta_s, ps, dss);
+    tile_probs<TT, ROUND>(a, dr, bh, brow, q0, k0, s, dp, lse_s, delta_s, ps,
+                          dss, db);
     __syncthreads();
     // dv[c] += sum_r p[r][c] dO[r];  dk[c] += sum_r ds0[r][c] q[r]
 #pragma unroll 4
@@ -532,10 +577,8 @@ flash_bhsd_bwd_kv_kernel(Args a, Dropout dr) {
         float* prow = part + (int64_t)(q0 + ty * R + i) * D;
 #pragma unroll
         for (int jd = 0; jd < ND; ++jd)
-          prow[tx + 16 * jd] = dq[i][jd] * a.sm_scale;
+          prow[tx + 16 * jd] = dq[i][jd] * ds_scale;
       }
-      if (a.dbias && threadIdx.x < TT)
-        for (int r = 0; r < TT; ++r) dbsum += dss[r * TP + threadIdx.x];
     } else if (a.dbias) {
       for (int idx = threadIdx.x; idx < TT * TT; idx += kThreads) {
         const int r = idx / TT, c = idx % TT;
@@ -552,12 +595,22 @@ flash_bhsd_bwd_kv_kernel(Args a, Dropout dr) {
 #pragma unroll
     for (int jd = 0; jd < ND; ++jd) {
       store(static_cast<T*>(a.dk) + at + tx + 16 * jd,
-            dk[i][jd] * a.sm_scale);
+            dk[i][jd] * ds_scale);
       store(static_cast<T*>(a.dv) + at + tx + 16 * jd, dv[i][jd]);
     }
   }
-  if (FUSED && a.dbias && threadIdx.x < TT)
-    a.dbias[(int64_t)bh * a.s + k0 + threadIdx.x] = dbsum;
+  if (FUSED && a.dbias) {
+    // the column sums over the 16 thread rows, in order (ps is free now)
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < R; ++j) ps[ty * TT + tx + 16 * j] = db[j];
+    __syncthreads();
+    if (threadIdx.x < TT) {
+      float sum = 0.f;
+      for (int r = 0; r < 16; ++r) sum += ps[r * TT + threadIdx.x];
+      a.dbias[(int64_t)bh * a.s + k0 + threadIdx.x] = sum;
+    }
+  }
 }
 
 // Row 7's second kernel: dq = the sum, in k-tile order, of the partials
@@ -627,8 +680,9 @@ flash_bhsd_bwd_dq_kernel(Args a, Dropout dr) {
     float s[R][R], dp[R][R];
     tile_dot<TT, D>(qs, ks, s);
     tile_dot<TT, D>(dos, vs, dp);
-    tile_probs<TT>(a, dr, bh, brow, q0, k0, s, dp, lse_s, delta_s, nullptr,
-                   dss);
+    float db_unused[R] = {};
+    tile_probs<TT, false>(a, dr, bh, brow, q0, k0, s, dp, lse_s, delta_s,
+                          nullptr, dss, db_unused);
     __syncthreads();
 #pragma unroll 4
     for (int c = 0; c < TT; ++c) {
@@ -1028,6 +1082,241 @@ flash_bhsd_bwd_dq_tc_kernel(Args a, Dropout dr) {
 }
 
 // ---------------------------------------------------------------------------
+// row 6 on the tensor cores (bf16)
+// ---------------------------------------------------------------------------
+
+// shared memory of the bias tile of one key tile: a full bias's 64 query
+// rows, a key bias's 64 values
+template <int BMODE, typename BT>
+__host__ __device__ constexpr int fwd_bias_bytes() {
+  return BMODE == kFullBias ? bias_tile_bytes<BT>(kTcRows)
+                            : BMODE == kKeyBias ? 64 * 4 : 0;
+}
+
+template <int D, int DO, int BMODE, typename BT>
+constexpr int fwd_tc_smem_bytes() {
+  return kTcRows * D * 2 + 2 * kTcRows * (D + DO) * 2 +
+         2 * fwd_bias_bytes<BMODE, BT>() + 1024;
+}
+
+// m and l of one query row over the quad of lanes that holds it
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Row 6: o and lse of one (64-query tile, bh, DO-column slice of the
+// head): one warpgroup; Q lands once, the key tiles (64 rows of k, the
+// slice of v, and the bias tile: a full bias's [64 queries x 64 keys], a
+// key bias's 64 values) stream through a 2-stage cp.async ring.  Per key
+// tile: S = Q . K^T (wgmma, K-major B), then in registers the scores
+// (scale, bias in f32, p = 0 at a masked score), the online softmax (row
+// max and sum over the quad of lanes that holds a row; l sums the
+// undropped p), and p c rounded to bf16 as the A operand of O += (p c) . V
+// (V MN-major), after O is rescaled by alpha = exp(m - m_new) (the
+// previous tile's P . V has retired by then).  A row that sees no key
+// keeps m = NEG_INF, l = 0: o = 0, lse = NEG_INF.  The slice dsplit 0
+// writes lse and the check outputs.
+template <int D, int DO, int BMODE, typename BT>
+__global__ void __launch_bounds__(128)
+flash_bhsd_fwd_tc_kernel(Args a, Dropout dr) {
+  constexpr int T_BYTES = kTcRows * D * 2;     // the Q tile, a K tile
+  constexpr int STAGE = T_BYTES + kTcRows * DO * 2;   // K, then V's slice
+  constexpr int NB = kTcRows / 8;
+  constexpr int BP = bias_pitch<BT>();
+  constexpr int BIAS_BYTES = fwd_bias_bytes<BMODE, BT>();
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t pad = (1024u - (raw & 1023u)) & 1023u;
+  const uint32_t qs = raw + pad;
+  const uint32_t kv0 = qs + T_BYTES;   // stage st at kv0 + st * STAGE
+  uint8_t* bias_p = smem_raw + pad + T_BYTES + 2 * STAGE;  // [2] tiles
+
+  const int q0 = blockIdx.x * kTcRows;
+  const int bh = blockIdx.y, dsplit = blockIdx.z;
+  const int s = a.s;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int64_t base = (int64_t)bh * s * D;
+  const int64_t qofs = base + (int64_t)q0 * D;
+  const __nv_bfloat16* kb = static_cast<const __nv_bfloat16*>(a.k) + base;
+  const __nv_bfloat16* vb =
+      static_cast<const __nv_bfloat16*>(a.v) + base + dsplit * DO;
+  const int64_t brow = BMODE ? (bh / a.row_div) % a.row_mod : 0;
+  const BT* biasb = static_cast<const BT*>(a.bias) +
+                    (BMODE == kFullBias ? (brow * s + q0) * (int64_t)s
+                                        : brow * s);
+  const int nk = hi_blocks(a, q0, kTcRows, kTcRows);
+  const bool checks = dsplit == 0;
+
+  auto load_kv = [&](int kt, int st) {
+    const uint32_t kd = kv0 + st * STAGE;
+    const int64_t at = (int64_t)kt * kTcRows * D;
+    tile_async<kTcRows, D>(kd, kb + at, D);
+    tile_async<kTcRows, DO>(kd + T_BYTES, vb + at, D);
+    const uint32_t bd = smem_u32(bias_p + st * BIAS_BYTES);
+    if constexpr (BMODE == kFullBias)
+      bias_async<kTcRows, BT>(bd, biasb + kt * kTcRows, s);
+    else if constexpr (BMODE == kKeyBias)
+      bias_async<1, BT>(bd, biasb + kt * kTcRows, s);
+  };
+
+  tile_async<kTcRows, D>(qs, static_cast<const __nv_bfloat16*>(a.q) + qofs,
+                         D);
+  if (nk > 0) load_kv(0, 0);
+  cp_async_commit();
+
+  const int qr0 = 16 * warp + g;  // this thread's query rows qr0, qr0 + 8
+  const float scale = a.sm_scale;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+  float o[DO / 64][32];
+#pragma unroll
+  for (int cb = 0; cb < DO / 64; ++cb) zero(o[cb]);
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int st = kt & 1;
+    cp_async_wait<0>();   // this key tile (and, first, Q) has landed
+    fence_async_smem();
+    __syncthreads();      // for every thread; the other stage is free
+    if (kt + 1 < nk) load_kv(kt + 1, st ^ 1);
+    cp_async_commit();
+
+    const uint32_t kd = kv0 + st * STAGE, vd = kd + T_BYTES;
+    const BT* bias_t = reinterpret_cast<const BT*>(bias_p + st * BIAS_BYTES);
+    float sacc[32];
+    zero(sacc);
+    fence_regs(sacc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk >> 2) * (kTcRows * 128) + (kk & 3) * 32;
+      wgmma_ss<64, 0>(sacc, desc_sw128(qs + off), desc_sw128(kd + off));
+    }
+    wg_commit();
+    // the dropout multipliers (Philox: arithmetic alone) while the
+    // products run
+    const int k0 = kt * kTcRows;
+    float cm[32];
+    drop_queries_by_keys<NB>(dr, bh, s, s, q0 + qr0, k0, cm);
+    wg_wait<0>();
+    fence_regs(sacc);
+
+    // the scores and their row maxima (a masked score is NEG_INF)
+    float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+    for (int i = 0; i < NB; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int idx = 4 * i + e;
+        const int qr = qr0 + ((e & 2) ? 8 : 0);
+        const int kc = 8 * i + 2 * t + (e & 1);
+        float x = sacc[idx] * scale;
+        if constexpr (BMODE == kFullBias) x += to_float(bias_t[qr * BP + kc]);
+        if constexpr (BMODE == kKeyBias) x += to_float(bias_t[kc]);
+        if (masked(a, q0 + qr, k0 + kc)) x = kNegInf;
+        sacc[idx] = x;
+        if (e & 2)
+          mx1 = fmaxf(mx1, x);
+        else
+          mx0 = fmaxf(mx0, x);
+      }
+    const float mn0 = fmaxf(m0, quad_max(mx0));
+    const float mn1 = fmaxf(m1, quad_max(mx1));
+    // alpha = 1 where the max did not move: also in a row that has seen
+    // no key yet (m = m_new = NEG_INF), never exp(NEG_INF - NEG_INF)
+    const float al0 = mn0 == m0 ? 1.f : __expf(m0 - mn0);
+    const float al1 = mn1 == m1 ? 1.f : __expf(m1 - mn1);
+
+    float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+    for (int i = 0; i < NB; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int idx = 4 * i + e;
+        const int qr = qr0 + ((e & 2) ? 8 : 0);
+        const int kc = 8 * i + 2 * t + (e & 1);
+        // p = 0 at a masked score, also in a row that sees no key
+        const float p = masked(a, q0 + qr, k0 + kc)
+                            ? 0.f
+                            : __expf(sacc[idx] - ((e & 2) ? mn1 : mn0));
+        if (e & 2)
+          rs1 += p;
+        else
+          rs0 += p;
+        sacc[idx] = p * cm[idx];   // p c: the numerator only
+        if (checks && (a.p_out || dr.bits_out)) {
+          const int64_t at = ((int64_t)bh * s + q0 + qr) * s + k0 + kc;
+          if (a.p_out)
+            static_cast<__nv_bfloat16*>(a.p_out)[at] =
+                __float2bfloat16_rn(sacc[idx]);
+          if (dr.bits_out) dr.bits_out[at] = cm[idx] != 0.f ? 1 : 0;
+        }
+      }
+    l0 = l0 * al0 + quad_sum(rs0);
+    l1 = l1 * al1 + quad_sum(rs1);
+    m0 = mn0;
+    m1 = mn1;
+    if (checks && a.m_out && t == 0) {
+      const int64_t at = ((int64_t)bh * s + q0 + qr0) * (s / kTcRows) + kt;
+      a.m_out[at] = mn0;
+      a.m_out[at + 8 * (s / kTcRows)] = mn1;
+    }
+
+    // O = O alpha + (p c) . V: the previous tile's products have retired
+    // (wg_wait<0> below), so the accumulators may be rescaled here
+#pragma unroll
+    for (int cb = 0; cb < DO / 64; ++cb) {
+#pragma unroll
+      for (int i = 0; i < NB; ++i) {
+        o[cb][4 * i] *= al0;
+        o[cb][4 * i + 1] *= al0;
+        o[cb][4 * i + 2] *= al1;
+        o[cb][4 * i + 3] *= al1;
+      }
+      fence_regs(o[cb]);
+    }
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTcRows / 16; ++kk) {
+      uint32_t pa[4];
+      a_frag(sacc, kk, pa);
+#pragma unroll
+      for (int cb = 0; cb < DO / 64; ++cb)
+        wgmma_rs_n64<1>(o[cb], pa,
+                        desc_sw128(vd + cb * (kTcRows * 128) + kk * 16 * 128));
+    }
+    wg_commit();
+    wg_wait<0>();
+#pragma unroll
+    for (int cb = 0; cb < DO / 64; ++cb) fence_regs(o[cb]);
+  }
+  cp_async_wait<0>();
+
+  const float ls0 = fmaxf(l0, 1e-30f), ls1 = fmaxf(l1, 1e-30f);
+#pragma unroll
+  for (int cb = 0; cb < DO / 64; ++cb) {
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      o[cb][4 * i] /= ls0;
+      o[cb][4 * i + 1] /= ls0;
+      o[cb][4 * i + 2] /= ls1;
+      o[cb][4 * i + 3] /= ls1;
+    }
+    store_frag(static_cast<__nv_bfloat16*>(a.o) + qofs + dsplit * DO +
+                   cb * 64,
+               D, o[cb]);
+  }
+  if (checks && t == 0) {
+    a.lse[(int64_t)bh * s + q0 + qr0] = m0 + logf(ls0);
+    a.lse[(int64_t)bh * s + q0 + qr0 + 8] = m1 + logf(ls1);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -1061,6 +1350,46 @@ int launch_fwd_d(int head_dim, const Args& a, const Dropout& dr,
       return launch_fwd_drop<T, 128, 64>(a, dr, stream);
     case 256:
       return launch_fwd_drop<T, 256, 32>(a, dr, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <int D, int DO, int BMODE, typename BT>
+int launch_fwd_tc(const Args& a, const Dropout& dr, cudaStream_t stream) {
+  constexpr int kSmem = fwd_tc_smem_bytes<D, DO, BMODE, BT>();
+  static const cudaError_t attr =
+      allow_smem(flash_bhsd_fwd_tc_kernel<D, DO, BMODE, BT>, kSmem);  // once
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  if (a.s % kTcRows != 0) return static_cast<int>(cudaErrorInvalidValue);
+  flash_bhsd_fwd_tc_kernel<D, DO, BMODE, BT>
+      <<<dim3(a.s / kTcRows, a.bh_count, D / DO), 128, kSmem, stream>>>(a,
+                                                                       dr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, int DO>
+int launch_fwd_tc_bias(const Args& a, const Dropout& dr, cudaStream_t st) {
+  if (a.bias_mode == kNoBias)
+    return launch_fwd_tc<D, DO, kNoBias, float>(a, dr, st);
+  if (a.bias_mode == kKeyBias)
+    return launch_fwd_tc<D, DO, kKeyBias, float>(a, dr, st);
+  if (a.bias_bf16)
+    return launch_fwd_tc<D, DO, kFullBias, __nv_bfloat16>(a, dr, st);
+  return launch_fwd_tc<D, DO, kFullBias, float>(a, dr, st);
+}
+
+// D 256 in two 128-column slices (grid z), each recomputing S: 64 O
+// accumulators a thread at most
+int launch_fwd_tc_d(int head_dim, const Args& a, const Dropout& dr,
+                    cudaStream_t stream) {
+  switch (head_dim) {
+    case 64:
+      return launch_fwd_tc_bias<64, 64>(a, dr, stream);
+    case 128:
+      return launch_fwd_tc_bias<128, 128>(a, dr, stream);
+    case 256:
+      return launch_fwd_tc_bias<256, 128>(a, dr, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1203,32 +1532,40 @@ Args make_args(const void* q, const void* k, const void* v, const void* bias,
 
 }  // namespace
 
-// Row 6.  dtype: 0 = float32, 1 = bfloat16 (q, k, v, o).  bias_mode: 0
-// none, 1 key (f32 [rows, S]), 2 full ([rows, S, S], bf16 when bias_bf16);
-// row = (bh / row_div) % row_mod.  lse: f32 [BH, S].  drop_mode: 0 none,
-// 1 the uint8 keep mask [BH, S, S], 2 Philox from (seed, offset) with
-// threshold thresh; keep_div divides the kept numerator; bits_out (uint8
-// [BH, S, S], or null) receives the Philox bits drawn.  Returns 0, the
-// CUDA error of a refused launch, or cudaErrorInvalidValue for arguments
-// the kernels do not take.
+// Row 6.  dtype: 0 = float32 (the SIMT kernel), 1 = bfloat16 (the
+// tensor-core kernel) (q, k, v, o).  bias_mode: 0 none, 1 key (f32 [rows,
+// S]), 2 full ([rows, S, S], bf16 when bias_bf16); row = (bh / row_div) %
+// row_mod.  lse: f32 [BH, S].  drop_mode: 0 none, 1 the uint8 keep mask
+// [BH, S, S], 2 Philox from (seed, offset) with threshold thresh; keep_div
+// divides the kept numerator; bits_out (uint8 [BH, S, S], or null)
+// receives the Philox bits drawn.  p_out and m_out, check outputs of the
+// tensor-core kernel (null on the training path, and always in f32):
+// p_out (bf16 [BH, S, S], zeros where a causal tile is skipped) the
+// rounded p c its P . V products take, relative to the running max m_out
+// (f32 [BH, S, S / 64]: the max after each key tile, left as given where a
+// tile is skipped).  Returns 0, the CUDA error of a refused launch, or
+// cudaErrorInvalidValue for arguments the kernels do not take.
 extern "C" int flash_bhsd_fwd_launch(
     const void* q, const void* k, const void* v, const void* bias,
     int bias_mode, int bias_bf16, int row_div, int row_mod, void* o,
     void* lse, int bh_count, int s, int head_dim, float sm_scale, int causal,
     int q_off, int k_off, int dtype, int drop_mode, const void* mask,
     void* bits_out, unsigned long long seed, int offset, int thresh,
-    float keep_div, void* stream) {
+    float keep_div, void* p_out, void* m_out, void* stream) {
   Args a = make_args(q, k, v, bias, bias_mode, bias_bf16, row_div, row_mod,
                      bh_count, s, sm_scale, causal, q_off, k_off);
   a.o = o;
   a.lse = static_cast<float*>(lse);
-  if (!args_ok(a, dtype) || !dropout_ok(drop_mode, mask, thresh, keep_div))
+  a.p_out = p_out;
+  a.m_out = static_cast<float*>(m_out);
+  if (!args_ok(a, dtype) || !dropout_ok(drop_mode, mask, thresh, keep_div) ||
+      (dtype == 0 && (p_out || m_out)))
     return static_cast<int>(cudaErrorInvalidValue);
   const Dropout dr =
       make_dropout(drop_mode, mask, bits_out, seed, offset, thresh, keep_div);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_fwd_d<float>(head_dim, a, dr, st);
-  return launch_fwd_d<__nv_bfloat16>(head_dim, a, dr, st);
+  return launch_fwd_tc_d(head_dim, a, dr, st);
 }
 
 // Rows 7-9 on the SIMT cores.  part: 0 the single pass (row 7: dq, dk,
@@ -1237,7 +1574,9 @@ extern "C" int flash_bhsd_fwd_launch(
 // and dv (row 9: the full dbias [BH, S, S] f32 when dbias is given);
 // parts 1 and 2 in float32 only (bf16: flash_bhsd_bwd_tc_launch).  lse,
 // delta: f32 [BH, S]; dout and the gradients in the dtype; the rest as
-// the forward's.
+// the forward's.  p_out and ds_out (bf16 [BH, S, S] or null; row 7 in
+// bf16 only, null on the training path) receive the rounded p c and ds0
+// sm_scale row 7's products take.
 extern "C" int flash_bhsd_bwd_launch(
     int part, const void* q, const void* k, const void* v, const void* bias,
     int bias_mode, int bias_bf16, int row_div, int row_mod, const void* lse,
@@ -1245,7 +1584,7 @@ extern "C" int flash_bhsd_bwd_launch(
     void* dq_part, void* dbias, int bh_count, int s, int head_dim,
     float sm_scale, int causal, int q_off, int k_off, int dtype,
     int drop_mode, const void* mask, unsigned long long seed, int offset,
-    int thresh, float keep_div, void* stream) {
+    int thresh, float keep_div, void* p_out, void* ds_out, void* stream) {
   Args a = make_args(q, k, v, bias, bias_mode, bias_bf16, row_div, row_mod,
                      bh_count, s, sm_scale, causal, q_off, k_off);
   a.lse = const_cast<float*>(static_cast<const float*>(lse));
@@ -1256,7 +1595,11 @@ extern "C" int flash_bhsd_bwd_launch(
   a.dv = dv;
   a.dq_part = static_cast<float*>(dq_part);
   a.dbias = static_cast<float*>(dbias);
-  if (!args_ok(a, dtype) || !dropout_ok(drop_mode, mask, thresh, keep_div))
+  a.p_out = p_out;
+  a.ds_out = ds_out;
+  if (!args_ok(a, dtype) || !dropout_ok(drop_mode, mask, thresh, keep_div) ||
+      (p_out == nullptr) != (ds_out == nullptr) ||
+      (p_out && (dtype != 1 || part != kFused)))
     return static_cast<int>(cudaErrorInvalidValue);
   const Dropout dr =
       make_dropout(drop_mode, mask, nullptr, seed, offset, thresh, keep_div);

@@ -1,6 +1,6 @@
-// Fragment helpers of the flash-attention backward kernels on the tensor
-// cores, shared by flash_attention_bsh.cu (row 5, [B, S, H] tiles) and
-// flash_attention_bhsd.cu (rows 8 and 9, [B, nh, S, D] tiles): the
+// Fragment helpers of the flash-attention kernels on the tensor cores,
+// shared by flash_attention_bsh.cu (row 5, [B, S, H] tiles) and
+// flash_attention_bhsd.cu (rows 6, 8 and 9, [B, nh, S, D] tiles): the
 // cp.async tile copy into the swizzled layout of hopper_mma.cuh, the
 // dropout multipliers of an accumulator fragment (the explicit mask or
 // the Philox bits of flash_common.cuh, drawn so that every word is used),
@@ -90,7 +90,8 @@ __device__ __forceinline__ void drop_keys_by_queries(const Dropout& dr,
 }
 
 // The same for a fragment whose rows are QUERIES (row0, row0 + 8) and
-// columns KEYS (col0 + 8 i + 2 t + {0, 1}): a dq kernel's S.  The four
+// columns KEYS (col0 + 8 i + 2 t + {0, 1}): a dq kernel's or the
+// forward's S.  The four
 // lanes g = 4 a + s (s = 0..3) of one t hold 4 consecutive queries, the
 // 4 words of each counter: lane s draws counter s of the block's four
 // (key 2t or 2t + 1, query row0 or row0 + 8) and three xor shuffles

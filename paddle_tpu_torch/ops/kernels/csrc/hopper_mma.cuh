@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels of
-// conv_bn.cu (row 10's conv_stats) and flash_attention_bsh.cu (row 5's
-// backward): warpgroup matrix multiplies (wgmma.mma_async, bf16 operands,
-// f32 accumulators in registers), the shared-memory matrix descriptor of
-// the 128-byte swizzled layout they read, and 16-byte cp.async copies
-// that zero-fill what lies outside a tensor.
+// conv_bn.cu (rows 10 and 11), flash_attention_bsh.cu (row 5) and
+// flash_attention_bhsd.cu (rows 6, 8 and 9): warpgroup matrix multiplies
+// (wgmma.mma_async, bf16 operands, f32 accumulators in registers), the
+// shared-memory matrix descriptor of the 128-byte swizzled layout they
+// read, and 16-byte cp.async copies that zero-fill what lies outside a
+// tensor.
 //
 // The tile layout.  An operand tile sits in shared memory as blocks of 64
 // bf16 columns (128 bytes a row); a block of R rows is R x 128 bytes,

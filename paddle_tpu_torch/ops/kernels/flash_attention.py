@@ -61,10 +61,12 @@ Two implementations of each direction:
   one block per (64-row tile, head) streams the other operand's tiles
   through shared memory in f32; every backward is deterministic (no
   atomics).  The BSH backward in bf16 runs on the tensor cores instead
-  (wgmma, ``bsh_bwd_route``), and so do rows 8 and 9 in bf16 with a full
-  bias (``bhsd_bwd_route``), each rounding p c and ds to bf16 before its
-  products as the TPU kernels do; the plain backwards round them the
-  same way.  The sources' header notes have the designs.
+  (wgmma, ``bsh_bwd_route``), and so do row 6 in bf16 (``bhsd_fwd_route``)
+  and rows 8 and 9 in bf16 with a full bias (``bhsd_bwd_route``), each
+  rounding p c (and ds) to bf16 before its products as the TPU kernels
+  do; row 7 in bf16 rounds them on the SIMT cores, and the plain
+  versions round them the same way.  The sources' header notes have the
+  designs.
 
 ``flash_attention_bsh``, ``flash_attention`` and ``flash_block_with_lse``
 are differentiable: ``torch.autograd.Function``s whose forward and
@@ -79,7 +81,7 @@ Launch counters: ``flash_attention_bsh.launches`` (BSH forward),
 ``.launches_tc`` those of the wgmma pair),
 ``flash_attention.launches`` (row 6), ``flash_attention_bwd_fused``
 (row 7), ``flash_attention_bwd_dq`` (row 8) and
-``flash_attention_bwd_dkv`` (row 9) ``.launches`` (rows 8 and 9:
+``flash_attention_bwd_dkv`` (row 9) ``.launches`` (rows 6, 8 and 9:
 ``.launches_tc`` those of their wgmma kernels).
 """
 from __future__ import annotations
@@ -672,18 +674,24 @@ def _bhsd_scores(q, k, bias, sm_scale, causal, q_off, k_off):
     return s, masked
 
 
-def flash_attention_reference(q, k, v, bias=None, sm_scale=None,
-                              causal=False, dropout_prob=0.0, mask=None,
-                              keep_div=None, q_offset=0, k_offset=0):
-    """Plain version of rows 6's kernel, any device: (o [B, nh, S, D] in
-    q.dtype, lse [B, nh, S] f32).  f32 scores, a masked score's p is 0 (a
-    row that sees no key gets o = 0 and lse = NEG_INF), l_safe = max(l,
-    1e-30), numerator-only dropout where ``mask`` (uint8 [B, nh, S, S])
-    is 0, kept values divided by ``keep_div`` (default 1 - p)."""
-    b, nh, s, d = q.shape
+def bhsd_fwd_route(dtype) -> str:
+    """Which kernel row 6 launches, by dtype alone: "tc" (the wgmma
+    kernel) for bf16, in every bias mode; "simt" (f32 FMA) for float32,
+    which tensor cores would round to TF32."""
+    return "tc" if dtype == torch.bfloat16 else "simt"
+
+
+def bhsd_fwd_probs_reference(q, k, bias=None, sm_scale=None, causal=False,
+                             mask=None, keep_div=1.0, q_offset=0,
+                             k_offset=0):
+    """The plain forward's intermediates: (p c [B, nh, S, S] rounded to
+    q's dtype as ``_make_fwd_kernel`` rounds p_num before P.V, relative to
+    each row's max, returned as f32; m and l_safe = max(l, 1e-30), [B, nh,
+    S, 1] f32).  p = exp(s - m), 0 at a masked score; l sums the
+    undropped p; c = keep / keep_div where ``mask`` (uint8 [B, nh, S, S])
+    is given, else 1."""
     if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(d)
-    _classify_bias(bias, b, nh, s)  # the same shape errors as the kernel
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
     sc, masked = _bhsd_scores(q, k, bias, sm_scale, causal, q_offset,
                               k_offset)
     m = sc.amax(dim=-1, keepdim=True)
@@ -691,11 +699,40 @@ def flash_attention_reference(q, k, v, bias=None, sm_scale=None,
     if masked is not None:
         p = p.masked_fill(masked, 0.0)
     l_safe = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    num = p
-    if dropout_prob > 0.0 and mask is not None:
-        div = (1.0 - dropout_prob) if keep_div is None else keep_div
-        num = torch.where(mask != 0, p / div, 0.0)
-    o = torch.matmul(num, v.float()) / l_safe
+    num = p if mask is None else torch.where(mask != 0, p / keep_div, 0.0)
+    return num.to(q.dtype).float(), m, l_safe
+
+
+def bhsd_fwd_products_reference(v, p_num, m_tiles, lse, tile=64):
+    """o [B, nh, S, D] f32 from a tiled forward's intermediates: p c
+    rounded relative to the running max ``m_tiles`` [B, nh, S, S / tile]
+    (the max after each key tile), so o = sum over key tiles t of
+    exp(m_t - lse) (p c)_t v_t."""
+    scale = torch.exp(m_tiles - lse[..., None].float())
+    scale = scale.repeat_interleave(tile, dim=-1)
+    return torch.matmul(p_num.float() * scale, v.float())
+
+
+def flash_attention_reference(q, k, v, bias=None, sm_scale=None,
+                              causal=False, dropout_prob=0.0, mask=None,
+                              keep_div=None, q_offset=0, k_offset=0):
+    """Plain version of rows 6's kernel, any device: (o [B, nh, S, D] in
+    q.dtype, lse [B, nh, S] f32).  f32 scores, a masked score's p is 0 (a
+    row that sees no key gets o = 0 and lse = NEG_INF), l_safe = max(l,
+    1e-30), numerator-only dropout where ``mask`` (uint8 [B, nh, S, S])
+    is 0, kept values divided by ``keep_div`` (default 1 - p); p c rounded
+    to v's dtype before P.V, as ``_make_fwd_kernel`` rounds it (in f32 a
+    no-op): ``bhsd_fwd_probs_reference``."""
+    b, nh, s, d = q.shape
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    _classify_bias(bias, b, nh, s)  # the same shape errors as the kernel
+    drop = dropout_prob > 0.0 and mask is not None
+    div = (1.0 - dropout_prob) if keep_div is None else keep_div
+    p_num, m, l_safe = bhsd_fwd_probs_reference(
+        q, k, bias, sm_scale, causal, mask if drop else None, div, q_offset,
+        k_offset)
+    o = torch.matmul(p_num, v.float()) / l_safe
     return o.to(q.dtype), (m + torch.log(l_safe))[..., 0]
 
 
@@ -741,9 +778,10 @@ def bhsd_bwd_probs_reference(q, k, v, bias, o, lse, do, sm_scale=None,
 
 
 def bhsd_bwd_rounded(p_num, ds0, sm_scale, do_dtype, q_dtype):
-    """The tensor-core route's intermediates as ``_make_bwd_dkv_kernel``
-    and ``_make_bwd_dq_kernel`` round them before their products: p c in
-    dO's dtype, ds = ds0 sm_scale in q's; returned as f32."""
+    """The intermediates as ``_make_bwd_dkv_kernel``,
+    ``_make_bwd_dq_kernel`` and ``_make_bwd_fused_kernel`` round them
+    before their products: p c in dO's dtype, ds = ds0 sm_scale in q's;
+    returned as f32."""
     return (p_num.to(do_dtype).float(),
             (ds0 * sm_scale).to(q_dtype).float())
 
@@ -752,8 +790,8 @@ def bhsd_bwd_products_reference(q, k, v, do, p_num, ds, sm_scale=1.0,
                                 ds_q=None):
     """(dq, dk, dv) in the inputs' dtypes from the intermediates: dv =
     (p c)^T dO, dk = (ds^T q) sm_scale, dq = (ds_q k) sm_scale (ds_q
-    defaults to ds), summed in f32.  The SIMT route passes ds0 and
-    sm_scale, the tensor-core route the rounded ds (sm_scale in it)."""
+    defaults to ds), summed in f32.  f32 passes ds0 and sm_scale, bf16
+    the rounded ds (sm_scale in it)."""
     ds_q = ds if ds_q is None else ds_q
     dq = torch.matmul(ds_q.float(), k.float()) * sm_scale
     dk = torch.matmul(ds.float().transpose(-1, -2), q.float()) * sm_scale
@@ -769,20 +807,21 @@ def flash_attention_bwd_reference(q, k, v, bias, o, lse, do, sm_scale=None,
     dtypes, dbias in the bias's shape and dtype, or None) from the
     forward's o and lse: the intermediates of ``bhsd_bwd_probs_reference``
     through ``bhsd_bwd_products_reference``: dq = ds0 k sm_scale, dk =
-    ds0^T q sm_scale, dv = (p c)^T dO.  On the tensor-core route
-    (``bhsd_bwd_route``: bf16 with a full bias) p c and ds0 sm_scale are
-    rounded first (``bhsd_bwd_rounded``), as the TPU's split kernels round
-    them.  dbias = the unrounded ds0 without sm_scale, summed back to the
-    bias's shape (key: over heads and rows, and the batch when the bias
-    has one row; full: over the broadcast batch and heads)."""
+    ds0^T q sm_scale, dv = (p c)^T dO.  In bf16, every bias mode, p c and
+    ds0 sm_scale are rounded first (``bhsd_bwd_rounded``), as the TPU's
+    kernels (rows 7, 8 and 9) round them: the rule goes by dtype, and in
+    f32 the rounding would be a no-op.  dbias = the unrounded ds0 without
+    sm_scale, summed back to the bias's shape (key: over heads and rows,
+    and the batch when the bias has one row; full: over the broadcast
+    batch and heads)."""
     b, nh, s, d = q.shape
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
-    _, mode, _ = _classify_bias(bias, b, nh, s)
+    _classify_bias(bias, b, nh, s)  # the same shape errors as the kernels
     p_num, ds0 = bhsd_bwd_probs_reference(
         q, k, v, bias, o, lse, do, sm_scale, causal, mask, keep_div,
         q_offset, k_offset, g_lse)
-    if bhsd_bwd_route(q.dtype, mode) == "tc":
+    if q.dtype == torch.bfloat16:
         p_r, ds_r = bhsd_bwd_rounded(p_num, ds0, sm_scale, do.dtype, q.dtype)
         dq, dk, dv = bhsd_bwd_products_reference(q, k, v, do, p_r, ds_r)
     else:
@@ -854,15 +893,16 @@ def _bhsd_launcher(name: str):
                      f"flash_bhsd_{name}_launch")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         if name == "fwd":
+            # two check outputs before the stream
             fn.argtypes = ([p] * 4 + [i] * 4 + [p, p] + [i] * 3 + [f]
-                           + [i] * 5 + [p, p, ctypes.c_ulonglong, i, i, f,
-                                        p])
+                           + [i] * 5 + [p, p, ctypes.c_ulonglong, i, i, f]
+                           + [p] * 3)
         else:
-            # bwd_tc: three check outputs before the stream
+            # check outputs before the stream: bwd_tc three, bwd two
             fn.argtypes = ([i] + [p] * 4 + [i] * 4 + [p] * 8 + [i] * 3
                            + [f] + [i] * 5 + [p, ctypes.c_ulonglong, i, i,
                                               f]
-                           + [p] * (4 if name == "bwd_tc" else 1))
+                           + [p] * (4 if name == "bwd_tc" else 3))
         fn.restype = ctypes.c_int
         _fns[key] = fn
     return fn
@@ -888,12 +928,27 @@ def _drop_tail(mode, mask, seed, offset, thresh, keep_div):
 
 
 def _cuda_flash_fwd(q, k, v, bias_k, mode, dims, sm_scale, causal, q_off,
-                    k_off, dropout_prob, mask, seed, offset, return_bits):
+                    k_off, dropout_prob, mask, seed, offset, return_bits,
+                    return_probs=False):
+    """Launch row 6 on the route ``bhsd_fwd_route`` names.  Returns (o,
+    lse, bits, checks): bits the Philox keep bits when ``return_bits``,
+    checks on the tensor-core route with ``return_probs`` (p c as the
+    kernel rounds it for P.V, bf16 [B, nh, S, S], and its running max
+    after each 64-key tile, f32 [B, nh, S, S / 64]), else None."""
     b, nh, s, d = q.shape
+    tc = bhsd_fwd_route(q.dtype) == "tc"
+    if tc:
+        q, k, v = (_aligned(t) for t in (q, k, v))
+        bias_k = None if bias_k is None else _aligned(bias_k)
     dmode, mask, thresh, keep_div = _drop_args(dropout_prob, mask, seed)
     bits = None
     if return_bits and dmode == _PHILOX_DROP:
         bits = torch.zeros((b, nh, s, s), dtype=torch.uint8, device=q.device)
+    checks = None
+    if tc and return_probs:
+        checks = (torch.zeros((b, nh, s, s), dtype=q.dtype, device=q.device),
+                  torch.full((b, nh, s, s // KERNEL_ROWS), NEG_INF,
+                             dtype=torch.float32, device=q.device))
     o = torch.empty_like(q)
     lse = torch.empty((b, nh, s), dtype=torch.float32, device=q.device)
     fn = _bhsd_launcher("fwd")
@@ -905,12 +960,17 @@ def _cuda_flash_fwd(q, k, v, bias_k, mode, dims, sm_scale, causal, q_off,
                  *_bias_args(bias_k, mode, dims, nh), o.data_ptr(),
                  lse.data_ptr(), b * nh, s, d, float(sm_scale), int(causal),
                  int(q_off), int(k_off), _DTYPE_CODES[q.dtype], dm, mptr,
-                 _ptr(bits), sd, off, th, kd, stream)
+                 _ptr(bits), sd, off, th, kd,
+                 *((None, None) if checks is None else map(_ptr, checks)),
+                 stream)
     if err:
-        raise RuntimeError(f"flash_attention (BHSD) kernel launch failed: "
-                           f"CUDA error {err}")
+        raise RuntimeError(f"flash_attention (BHSD) kernel"
+                           f"{' (tensor cores)' if tc else ''} launch "
+                           f"failed: CUDA error {err}")
     flash_attention.launches += 1
-    return o, lse, bits
+    if tc:
+        flash_attention.launches_tc += 1
+    return o, lse, bits, checks
 
 
 def _cuda_flash_bwd_part(part, q, k, v, bias_k, mode, dims, lse, delta, do,
@@ -920,11 +980,14 @@ def _cuda_flash_bwd_part(part, q, k, v, bias_k, mode, dims, lse, delta, do,
     key dbias [BH, S]), row 8 (``_DQ``: dq) or row 9 (``_DKV``: dk, dv
     and the full dbias [BH, S, S]); rows 8 and 9 on the wgmma kernels
     for bf16 with the full bias (``bhsd_bwd_route``).  Returns (dq, dk,
-    dv, dbias, checks): with ``return_probs`` on the tensor-core route,
-    ``checks`` holds the kernel's rounded intermediates (p c, ds, ds_dq:
-    row 9 sets p c and ds, row 8 ds_dq; bf16 [B, nh, S, S]), else None."""
+    dv, dbias, checks): with ``return_probs`` in bf16, ``checks`` holds
+    the kernel's rounded intermediates (p c, ds, ds_dq: row 9 sets p c
+    and ds, row 8 ds_dq, row 7 all three, its dq taking its ds; bf16 [B,
+    nh, S, S]), else None."""
     b, nh, s, d = q.shape
     tc = part != _FUSED and bhsd_bwd_route(q.dtype, mode) == "tc"
+    fused_checks = (part == _FUSED and return_probs
+                    and q.dtype == torch.bfloat16)
     if tc:
         q, k, v, bias_k, lse, delta, do = (
             _aligned(t) for t in (q, k, v, bias_k, lse, delta, do))
@@ -949,6 +1012,10 @@ def _cuda_flash_bwd_part(part, q, k, v, bias_k, mode, dims, lse, delta, do,
             torch.zeros((b * nh, s, s), dtype=q.dtype, device=q.device)
             if use else None
             for use in (part == _DKV, part == _DKV, part == _DQ))
+    elif fused_checks:
+        probs = tuple(torch.zeros((b * nh, s, s), dtype=q.dtype,
+                                  device=q.device) for _ in range(2))
+        probs += probs[1:]
     fn = _bhsd_launcher("bwd_tc" if tc else "bwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -959,7 +1026,7 @@ def _cuda_flash_bwd_part(part, q, k, v, bias_k, mode, dims, lse, delta, do,
                  float(sm_scale), int(causal), int(q_off), int(k_off),
                  _DTYPE_CODES[q.dtype],
                  *_drop_tail(dmode, mask, seed, offset, thresh, keep_div),
-                 *((_ptr(t) for t in probs) if tc else ()), stream)
+                 *map(_ptr, probs if tc else probs[:2]), stream)
     if err:
         raise RuntimeError(f"flash_attention (BHSD) backward kernel "
                            f"{('fused', 'dq', 'dkv')[part]}"
@@ -969,7 +1036,7 @@ def _cuda_flash_bwd_part(part, q, k, v, bias_k, mode, dims, lse, delta, do,
         (flash_attention_bwd_dq if part == _DQ
          else flash_attention_bwd_dkv).launches_tc += 1
     checks = None
-    if tc and return_probs:
+    if (tc or fused_checks) and return_probs:
         checks = tuple(None if t is None else t.reshape(b, nh, s, s)
                        for t in probs)
     return dq, dk, dv, dbias, checks
@@ -977,10 +1044,12 @@ def _cuda_flash_bwd_part(part, q, k, v, bias_k, mode, dims, lse, delta, do,
 
 def flash_attention_bwd_fused(*args, **kwargs):
     """Row 7 on the card: (dq, dk, dv, key dbias [BH, S] or None);
-    arguments as ``_cuda_flash_bwd_part``'s after ``part``."""
-    out = _cuda_flash_bwd_part(_FUSED, *args, **kwargs)[:4]
+    arguments as ``_cuda_flash_bwd_part``'s after ``part``.
+    ``return_probs=True`` adds its check outputs in bf16 (p c, ds, ds_dq,
+    the last two one tensor), None in f32."""
+    out = _cuda_flash_bwd_part(_FUSED, *args, **kwargs)
     flash_attention_bwd_fused.launches += 1
-    return out
+    return out if kwargs.get("return_probs") else out[:4]
 
 
 def flash_attention_bwd_dq(*args, **kwargs):
@@ -1029,8 +1098,8 @@ def _cuda_flash_bwd(q, k, v, bias_k, mode, dims, o, lse, do, sm_scale,
     """The backward's dispatch (``_flash_bwd``): the full bias takes the
     split path (rows 8 and 9), everything else the single pass (row 7).
     Returns (dq, dk, dv, f32 dbias in the kernel bias's form or None), and
-    with ``return_probs`` the tensor-core kernels' check outputs (p c, ds,
-    ds_dq), None on the SIMT route."""
+    with ``return_probs`` the kernels' check outputs in bf16 (p c, ds,
+    ds_dq), None in f32."""
     for name, t in (("o", o), ("do", do)):
         if t.shape != q.shape or t.dtype != q.dtype or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous {tuple(q.shape)} "
@@ -1056,6 +1125,9 @@ def _cuda_flash_bwd(q, k, v, bias_k, mode, dims, o, lse, do, sm_scale,
     elif mode == "full":
         dq = flash_attention_bwd_dq(*args)
         dk, dv, db = flash_attention_bwd_dkv(*args)
+    elif return_probs:
+        dq, dk, dv, db, checks = flash_attention_bwd_fused(
+            *args, return_probs=True)
     else:
         dq, dk, dv, db = flash_attention_bwd_fused(*args)
     if db is not None:
@@ -1102,31 +1174,37 @@ class _FlashBHSD(torch.autograd.Function):
 def flash_attention_fwd(q, k, v, bias=None, sm_scale=None, causal=False,
                         dropout_prob=0.0, dropout_generator=None, *,
                         mask=None, dropout_seed=None, dropout_offset=0,
-                        q_offset=0, k_offset=0, return_bits=False):
+                        q_offset=0, k_offset=0, return_bits=False,
+                        return_probs=False):
     """Row 6, not differentiable: (o [B, nh, S, D], lse [B, nh, S] f32).
     CPU and meta tensors take the plain version (dropout from ``mask`` or
-    drawn from ``dropout_generator``); CUDA tensors launch the kernel or
-    raise (dropout from ``mask``, else Philox from ``dropout_seed``).
-    ``return_bits`` adds the uint8 keep bits the Philox drew (None
-    without Philox)."""
+    drawn from ``dropout_generator``); CUDA tensors launch the kernel
+    ``bhsd_fwd_route`` names (``launches_tc`` counts the wgmma kernel's
+    launches) or raise (dropout from ``mask``, else Philox from
+    ``dropout_seed``).  ``return_bits`` adds the uint8 keep bits the
+    Philox drew (None without Philox); ``return_probs`` (CUDA only, a
+    check's output) then the wgmma kernel's (p c, running max), None on
+    the SIMT route (``_cuda_flash_fwd``)."""
     _device_check(q)
     b, nh, s, d = q.shape
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
+    extra = (return_bits, return_probs)
     if q.device.type != "cuda":
         if dropout_prob > 0.0 and mask is None and q.device.type == "cpu":
             mask = draw_keep_mask_bhsd(q, dropout_prob, dropout_generator)
         out = flash_attention_reference(q, k, v, bias, sm_scale, causal,
                                         dropout_prob, mask, None, q_offset,
                                         k_offset)
-        return out + (None,) if return_bits else out
+        return out + tuple(None for want in extra if want)
     check_bhsd_inputs(q, k, v, bias, dropout_prob, mask)
     bias_k, mode, dims = _classify_bias(bias, b, nh, s)
-    o, lse, bits = _cuda_flash_fwd(q, k, v, bias_k, mode, dims, sm_scale,
-                                   causal, q_offset, k_offset, dropout_prob,
-                                   mask, dropout_seed, dropout_offset,
-                                   return_bits)
-    return (o, lse, bits) if return_bits else (o, lse)
+    o, lse, bits, checks = _cuda_flash_fwd(
+        q, k, v, bias_k, mode, dims, sm_scale, causal, q_offset, k_offset,
+        dropout_prob, mask, dropout_seed, dropout_offset, return_bits,
+        return_probs)
+    return (o, lse) + tuple(t for t, want in zip((bits, checks), extra)
+                            if want)
 
 
 def flash_attention_bwd(q, k, v, bias, o, lse, do, sm_scale=None,
@@ -1140,8 +1218,9 @@ def flash_attention_bwd(q, k, v, bias, o, lse, do, sm_scale=None,
     for dropout; CUDA tensors launch rows 8 and 9 (a full bias; on the
     wgmma kernels for bf16, ``bhsd_bwd_route``) or row 7 (any other) or
     raise.  ``return_probs`` (CUDA only, a check's output) appends the
-    wgmma kernels' rounded intermediates (p c and ds of row 9, ds of row
-    8, each bf16 [B, nh, S, S]), or None on the SIMT route."""
+    kernels' rounded intermediates in bf16 (p c and ds of row 9, ds of
+    row 8; row 7's p c and its ds twice; each bf16 [B, nh, S, S]), or None
+    in f32."""
     _device_check(q)
     b, nh, s, d = q.shape
     if sm_scale is None:
@@ -1221,6 +1300,7 @@ def flash_attention(q, k, v, bias=None, sm_scale=None, causal=False,
 
 
 flash_attention.launches = 0
+flash_attention.launches_tc = 0
 
 
 def flash_block_with_lse(q, k, v, key_bias=None, sm_scale=None,

@@ -345,7 +345,10 @@ def test_every_resnet50_stage_takes_the_wgmma_kernel_at_its_tile():
     ("conv_stats", torch.bfloat16, 256, 25088, 256, 128),
     ("conv_stats", torch.float32, 64, 401408, 64, tcb.TILE_ROWS),
     ("conv_stats", torch.bfloat16, 3, 32768, 64, tcb.TILE_ROWS),
-    ("mm_stats", torch.bfloat16, 64, 401408, 256, tcb.TILE_ROWS)])
+    ("mm_stats", torch.bfloat16, 64, 401408, 256, 128),
+    ("mm_stats", torch.bfloat16, 256, 401408, 64, 64),
+    ("mm_stats", torch.float32, 64, 401408, 256, tcb.TILE_ROWS),
+    ("mm_stats", torch.bfloat16, 3, 32768, 64, tcb.TILE_ROWS)])
 def test_partials_follow_each_kernels_own_tile_rows(name, dtype, c, rows, o,
                                                     tile):
     assert tcb.conv_tile_rows(name, dtype, c, rows, o) == tile
@@ -360,3 +363,164 @@ def test_a_cpu_call_counts_no_launch_on_either_route():
     z, s, ss = tcb.conv_stats(x, w, ((1, 1), (1, 1)))
     assert z.shape == (128, 16) and z.dtype == torch.bfloat16
     assert (tcb.conv_stats.launches, tcb.conv_stats.launches_tc) == n0
+
+
+# ---------------------------------------------------------------------------
+# row 11's two routes: the wgmma kernel for bf16, the SIMT one otherwise
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype,c,o,route,tile", [
+    (torch.bfloat16, 64, 256, "tc", (128, 128, 2)),
+    (torch.bfloat16, 256, 64, "tc", (64, 64, 2)),
+    (torch.bfloat16, 1024, 256, "tc", (128, 128, 2)),
+    (torch.bfloat16, 128, 512, "tc", (128, 128, 2)),
+    (torch.bfloat16, 8, 40, "tc", (64, 64, 2)),
+    (torch.float32, 64, 256, "simt", None),
+    (torch.bfloat16, 3, 64, "simt", None),
+    (torch.bfloat16, 64, 12, "simt", None)])
+def test_mm_route_and_tile_by_dtype_and_shape(dtype, c, o, route, tile):
+    """Row 11 routes as row 10 (``conv_route``: bf16 with C and O
+    multiples of 8 on the wgmma kernel); its tile and ring come from
+    ``mm_tc_tile``, and its partials follow the tile's rows."""
+    assert tcb.conv_route(dtype, c, o) == route
+    rows = 401408
+    if tile is None:
+        assert tcb.conv_tile_rows("mm_stats", dtype, c, rows, o) == \
+            tcb.TILE_ROWS
+        return
+    assert tcb.mm_tc_tile(rows, c, o) == tile
+    assert tcb.conv_tile_rows("mm_stats", dtype, c, rows, o) == tile[0]
+
+
+def _resnet50_1x1_shapes():
+    """(rows, C, O, stride) of every 1 x 1 fused_conv_bn of the port's
+    ResNet-50 training program at batch 128, 224 x 224."""
+    import paddle_tpu_torch.fluid as tfluid
+    from paddle_tpu_torch.fluid import flags as tflags
+    from paddle_tpu_torch.models import resnet as tresnet
+
+    tflags.set_flags({"FLAGS_conv_bn_fusion": True})
+    try:
+        main, startup = tfluid.Program(), tfluid.Program()
+        with tfluid.unique_name.guard():
+            m, st, _, loss = tresnet.build_resnet_train_program(
+                tresnet.ResNetConfig.resnet50(), 128, 224, main, startup)
+            with tfluid.program_guard(m, st):   # the pass runs here
+                tfluid.optimizer.MomentumOptimizer(
+                    0.1, momentum=0.9).minimize(loss)
+    finally:
+        tflags.set_flags({"FLAGS_conv_bn_fusion": False})
+    blk = m.global_block()
+    out = []
+    for op in blk.ops:
+        if op.type != "fused_conv_bn":
+            continue
+        xs = blk.var(op.input("Input")[0]).shape
+        ws = blk.var(op.input("Filter")[0]).shape
+        if tuple(ws[2:]) != (1, 1):
+            continue
+        st = tuple(op.attr("strides"))
+        ho, wo = -(-xs[1] // st[0]), -(-xs[2] // st[1])
+        out.append((xs[0] * ho * wo, xs[3], ws[0], st[0]))
+    return out
+
+
+def test_every_resnet50_1x1_conv_takes_the_wgmma_kernel():
+    """All 36 1 x 1 convs of a ResNet-50 step (the five shapes
+    chip_smoke.py times among them) take the wgmma route in bf16, each at
+    the tile and ring ``mm_tc_tile`` gives, and size their partials by
+    its rows."""
+    shapes = _resnet50_1x1_shapes()
+    assert len(shapes) == 36
+    assert {(401408, 64, 256, 1), (401408, 256, 64, 1),
+            (100352, 256, 512, 2), (25088, 1024, 256, 1),
+            (6272, 512, 2048, 1)} <= set(shapes)
+    for rows, c, o, _ in shapes:
+        assert tcb.conv_route(torch.bfloat16, c, o) == "tc"
+        bm, bn, stages = tcb.mm_tc_tile(rows, c, o)
+        assert bm == bn == (128 if o % 128 == 0 else 64) and stages == 2
+        assert tcb.conv_tile_rows("mm_stats", torch.bfloat16, c, rows,
+                                  o) == bm
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_a_cpu_mm_call_counts_no_launch_on_either_route(dtype):
+    x = torch.randn(2, 8, 8, 16).to(dtype)
+    w = (torch.randn(32, 16, 1, 1) * 0.1).to(dtype)
+    n0 = (tcb.mm_stats.launches, tcb.mm_stats.launches_tc)
+    z, s, ss = tcb.mm_stats(x, w, (2, 2))
+    assert z.shape == (32, 32) and z.dtype == dtype
+    assert (tcb.mm_stats.launches, tcb.mm_stats.launches_tc) == n0
+
+
+class _Dev:
+    def __init__(self, *a):
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *a):
+        return False
+
+
+class _Stream:
+    cuda_stream = 0
+
+
+@pytest.mark.parametrize("dtype,entry", [(torch.bfloat16, "mm_stats_tc"),
+                                         (torch.float32, "mm_stats")])
+def test_mm_stats_launches_its_route_and_never_falls_back(dtype, entry,
+                                                          monkeypatch):
+    """On the card (here a stand-in launcher) row 11 calls its route's
+    library entry once: ``conv_bn_mm_stats_tc_launch`` for bf16 with the
+    K-major [O, C] weights, the stride and ``mm_tc_tile``'s tile and
+    ring, or the SIMT ``conv_bn_mm_stats_launch``; ``launches`` counts
+    both, ``launches_tc`` the first.  A launch that fails raises and
+    counts nothing: nothing retries it on the other route."""
+    monkeypatch.setattr(tcb, "_device_check", lambda x: True)
+    monkeypatch.setattr(torch.cuda, "device", _Dev)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: _Stream())
+    calls = []
+    monkeypatch.setattr(tcb, "_launcher", lambda name: lambda *a: (
+        calls.append((name, a)) or 0))
+    x = torch.zeros(2, 9, 9, 16, dtype=dtype)
+    w = torch.zeros(24, 16, 1, 1, dtype=dtype)
+    n0 = (tcb.mm_stats.launches, tcb.mm_stats.launches_tc)
+    tc = dtype == torch.bfloat16
+    z, s, ss = tcb.mm_stats(x, w, (2, 2))
+    (name, args), = calls
+    assert name == entry and z.shape == (2 * 5 * 5, 24)
+    assert s.shape == ss.shape == (24,)
+    if tc:
+        assert args[4:] == (2, 9, 9, 16, 24, 2, 2, 5, 5, 64, 64, 2, 0)
+    else:
+        assert args[4:] == (2, 9, 9, 16, 24, 2, 2, 5, 5, 0, 0)
+    assert (tcb.mm_stats.launches, tcb.mm_stats.launches_tc) == (
+        n0[0] + 1, n0[1] + tc)
+
+    calls.clear()
+    monkeypatch.setattr(tcb, "_launcher", lambda name: lambda *a: (
+        calls.append(name) or 700))
+    monkeypatch.setattr(tcb, "_fns", {})
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        tcb.mm_stats(x, w, (2, 2))
+    assert calls == [entry]
+    assert (tcb.mm_stats.launches, tcb.mm_stats.launches_tc) == (
+        n0[0] + 1, n0[1] + tc)
+
+
+def test_bound_bytes_count_what_the_conv_reads():
+    """A 1 x 1 conv at stride 2 reads only the pixels it samples (the
+    stage-1 projection: x [128, 56, 56, 256] at stride 2 into 512
+    channels); a k x k conv at stride 1 all of x."""
+    x = torch.empty(128, 56, 56, 256, dtype=torch.bfloat16, device="meta")
+    w = torch.empty(512, 256, 1, 1, dtype=torch.bfloat16, device="meta")
+    rows = 128 * 28 * 28
+    assert tcb.bound_bytes_conv(x, w, (2, 2), ((0, 0), (0, 0))) == (
+        (rows * 256 + 512 * 256 + rows * 512) * 2 + 8 * 512)
+    w3 = torch.empty(256, 256, 3, 3, dtype=torch.bfloat16, device="meta")
+    assert tcb.bound_bytes_conv(x, w3, (1, 1), ((1, 1), (1, 1))) == (
+        (x.numel() + w3.numel() + 128 * 56 * 56 * 256) * 2 + 8 * 256)

@@ -410,9 +410,10 @@ def test_backward_route_takes_tensor_cores_for_bf16_full_bias_only(
 def test_plain_backward_is_its_intermediates_through_the_products(dtype,
                                                                   bias):
     """The split the card's check uses, bit for bit: the intermediates of
-    ``bhsd_bwd_probs_reference`` (rounded by ``bhsd_bwd_rounded`` on the
-    tensor-core route) through ``bhsd_bwd_products_reference`` are the
-    plain backward; dbias is the unrounded ds0."""
+    ``bhsd_bwd_probs_reference`` (rounded by ``bhsd_bwd_rounded`` in bf16,
+    every bias mode, as the TPU's kernels round them) through
+    ``bhsd_bwd_products_reference`` are the plain backward; dbias is the
+    unrounded ds0."""
     (q, k, v), rng = _qkv(13)
     q, k, v = (torch.as_tensor(x).to(dtype) for x in (q, k, v))
     bs = _t(_bias(rng, bias))
@@ -425,8 +426,7 @@ def test_plain_backward_is_its_intermediates_through_the_products(dtype,
     p_num, ds0 = fa.bhsd_bwd_probs_reference(q, k, v, bs, o, lse, do, sm,
                                              **kw)
     assert p_num.shape == ds0.shape == (B, NH, S, S)
-    _, mode, _ = fa._classify_bias(bs, B, NH, S)
-    if fa.bhsd_bwd_route(dtype, mode) == "tc":
+    if dtype == torch.bfloat16:
         p_r, ds_r = fa.bhsd_bwd_rounded(p_num, ds0, sm, dtype, dtype)
         for t in (p_r, ds_r):
             assert torch.equal(t, t.to(dtype).float())
@@ -438,6 +438,272 @@ def test_plain_backward_is_its_intermediates_through_the_products(dtype,
     for a, b in zip(got, want[:3]):
         assert a.dtype == dtype and torch.equal(a, b)
     assert torch.equal(want[3], fa._sum_to(ds0, bs.shape).to(bs.dtype))
+
+
+# ---------------------------------------------------------------------------
+# bf16 forward (row 6) and single-pass backward (row 7): the TPU kernels'
+# rounding
+# ---------------------------------------------------------------------------
+
+
+def _grid_qkv(rng, n=3):
+    return [_grid(rng, (B, NH, S, D), 1 / 8, 2).to(torch.bfloat16)
+            for _ in range(n)]
+
+
+def _grid_bias(rng, name):
+    shape = BIASES[name]
+    if shape is None:
+        return None
+    if name.startswith("key"):  # a padding mask on the grid
+        pad = torch.as_tensor(rng.random(shape) > 0.8)
+        return torch.where(pad, -1e4, _grid(rng, shape, 1 / 16, 2))
+    return _grid(rng, shape, 1 / 16, 2).to(torch.bfloat16)
+
+
+def _rows_past(a, w, n):
+    """Rows of ``a`` (last dim n) with an element past 1e-5 + 2^-7 |w|."""
+    a = np.asarray(a, np.float32).reshape(-1, n)
+    w = np.asarray(w, np.float32).reshape(a.shape)
+    return int((np.abs(a - w) > 1e-5 + 2.0 ** -7 * np.abs(w)).any(1).sum())
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("bias", sorted(BIASES))
+def test_bf16_plain_forward_rounds_as_the_tpu_kernel(bias, causal):
+    """bf16 o and lse of the port's plain forward against ``_flash_fwd``
+    (``_make_fwd_kernel`` in interpret mode) on the same bf16 inputs: both
+    round p c to bf16 before P.V.  S = 128 is one JAX key block, so JAX's
+    running max is the row's max and both round the same p.  The inputs
+    lie on coarse grids, so S is exact in any summation order; what is
+    left is the two libraries' exp, an f32 ulp apart for some arguments,
+    which where it straddles a bf16 boundary rounds one p to its
+    neighbour.  So o is held within one bf16 ulp (rtol 2^-7) plus 1e-5
+    save at most 2 of its 512 rows, the lse within 2e-5; P.V of the
+    unrounded p is shown to miss that limit in more than half the
+    rows."""
+    rng = np.random.default_rng(14)
+    q, k, v = _grid_qkv(rng)
+    bs = _grid_bias(rng, bias)
+    sm = 1.0 / math.sqrt(D)
+    assert jfa._pick_block(S) == S
+    bj = None if bs is None else jnp.asarray(
+        bs.float().numpy(), jnp.float32 if bs.dtype == torch.float32
+        else jnp.bfloat16)
+    biask, mode, dims = jfa._classify_bias(bj, B, NH, S)
+    o_j, lse_j = jfa._flash_fwd(
+        *(jnp.asarray(t.float().numpy().reshape(B * NH, S, D), jnp.bfloat16)
+          for t in (q, k, v)), biask, None, None, None, sm_scale=sm,
+        num_heads=NH, causal=causal, dropout_prob=0.0, bias_mode=mode,
+        bias_dims=dims)
+    o_t, lse_t = fa.flash_attention_fwd(q, k, v, bs, causal=causal)
+    assert o_t.dtype == torch.bfloat16 and fa.bhsd_fwd_route(
+        q.dtype) == "tc"
+    o_j = np.asarray(o_j.astype(jnp.float32))
+    assert _rows_past(o_t.float().numpy(), o_j, D) <= 2
+    _close(lse_t.numpy().reshape(B * NH, 1, S), lse_j, LSE_TOL)
+    # the limit tells the rounding from its absence
+    p_num, m, l_safe = fa.bhsd_fwd_probs_reference(q, k, bs, sm, causal)
+    sc, masked = fa._bhsd_scores(q, k, bs, sm, causal, 0, 0)
+    p = torch.exp(sc - m)
+    if masked is not None:
+        p = p.masked_fill(masked, 0.0)
+    assert torch.equal(p_num, p.to(torch.bfloat16).float())
+    unrounded = torch.matmul(p, v.float()) / l_safe
+    assert _rows_past(unrounded.numpy(), o_j, D) > 256
+
+
+def test_plain_forward_products_of_tiles_are_the_plain_forward():
+    """o from a tiled forward's intermediates
+    (``bhsd_fwd_products_reference``: p c rounded relative to the running
+    max of each 64-key tile, scaled by exp(m_t - lse)) equals the plain
+    forward's within f32 rounding when the p c are the plain version's
+    own (the tiles' running max then the row's max)."""
+    (q, k, v), rng = _qkv(15)
+    bs = _t(_bias(rng, "full"))
+    q, k, v = (torch.as_tensor(x) for x in (q, k, v))
+    sm = 1.0 / math.sqrt(D)
+    p_num, m, l_safe = fa.bhsd_fwd_probs_reference(q, k, bs, sm)
+    o, lse = fa.flash_attention_reference(q, k, v, bs, sm)
+    m_tiles = m.expand(B, NH, S, S // fa.KERNEL_ROWS)
+    got = fa.bhsd_fwd_products_reference(v, p_num, m_tiles, lse)
+    _close(got.numpy(), o.numpy(), O_TOL)
+
+
+BF16_FUSED = {
+    # bias, causal, dropout p (from a shared mask)
+    "none": ("none", False, 0.0),
+    "none_causal": ("none", True, 0.0),
+    "key": ("key", False, 0.0),
+    "key_causal": ("key", True, 0.0),
+    "key_shared_mask": ("key_shared", False, 0.2),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BF16_FUSED))
+def test_bf16_plain_backward_rounds_as_the_fused_tpu_kernel(case,
+                                                             force_pallas):
+    """bf16 dq/dk/dv (and the key dbias) of the port's plain backward
+    without a full bias (row 7's) against the JAX custom VJP's backward
+    ``_flash_bwd``, which takes ``_bwd_fused`` (``_make_bwd_fused_kernel``
+    in interpret mode) there, both fed the same bf16 q, k, v, dO, o, f32
+    lse and keep mask: both round p c and ds0 sm_scale to bf16 before the
+    dv, dk and dq products and sum in f32; dbias sums the unrounded ds0.
+    Grid-valued inputs as in the full-bias test above, and its limit:
+    within one bf16 ulp (rtol 2^-7) plus 1e-5 save at most 2 of each
+    gradient's 512 rows, dbias within 2e-5; the products of the
+    unrounded intermediates miss that limit in more than half the
+    rows."""
+    bias_name, causal, p = BF16_FUSED[case]
+    rng = np.random.default_rng(16)
+    q, k, v, do = _grid_qkv(rng, 4)
+    bias = _grid_bias(rng, bias_name)
+    mask = (torch.as_tensor(rng.random((B, NH, S, S)) > p).to(torch.uint8)
+            if p else None)
+    o, lse = fa.flash_attention_fwd(q, k, v, bias, causal=causal,
+                                    dropout_prob=p, mask=mask)
+    o = (o.float() * 64).round().div(64).to(torch.bfloat16)
+    want_dbias = bias is not None
+    got = fa.flash_attention_bwd(q, k, v, bias, o, lse, do, causal=causal,
+                                 dropout_prob=p, mask=mask,
+                                 want_dbias=want_dbias)
+
+    def j(t, n=D):
+        return jnp.asarray(t.float().numpy().reshape(B * NH, S, n),
+                           jnp.bfloat16)
+
+    bias_j, mode, dims = jfa._classify_bias(
+        None if bias is None else jnp.asarray(bias.numpy()), B, NH, S)
+    assert mode != "full" and fa.bhsd_bwd_route(q.dtype, mode) == "simt"
+    res = (j(q), j(k), j(v), bias_j, None if mask is None else
+           jnp.asarray(mask.numpy().reshape(B * NH, S, S)),
+           jnp.zeros((1,), jnp.int32), None, j(o),
+           jnp.asarray(lse.numpy().reshape(B * NH, 1, S)))
+    sm = 1.0 / math.sqrt(D)
+    want = jfa._flash_bwd(res, j(do), sm_scale=sm, num_heads=NH,
+                          causal=causal, dropout_prob=p, bias_mode=mode,
+                          bias_dims=dims, want_dbias=want_dbias)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.bfloat16
+        assert _rows_past(a.float().numpy(),
+                          np.asarray(w.astype(jnp.float32)), D) <= 2, name
+    if want_dbias:
+        db = np.asarray(want[3]).reshape(B, NH, S).sum(axis=1)
+        if bias.shape[0] == 1:
+            db = db.sum(axis=0, keepdims=True)
+        _close(got[3].numpy().reshape(db.shape), db, DBIAS_TOL, "dbias")
+    p_num, ds0 = fa.bhsd_bwd_probs_reference(q, k, v, bias, o, lse, do, sm,
+                                             causal, mask, 1.0 - p)
+    unrounded = fa.bhsd_bwd_products_reference(q, k, v, do, p_num, ds0, sm)
+    for name, a, w in zip(("dq", "dk", "dv"), unrounded, want):
+        assert _rows_past(a.float().numpy(),
+                          np.asarray(w.astype(jnp.float32)), D) > 256, name
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "tc"),
+                                         (torch.float32, "simt"),
+                                         (torch.float16, "simt")])
+def test_forward_route_takes_tensor_cores_for_bf16(dtype, route):
+    """Row 6 on the wgmma kernel for bf16 in every bias mode; f32 (which
+    tensor cores would round to TF32) stays SIMT."""
+    assert fa.bhsd_fwd_route(dtype) == route
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_a_cpu_forward_counts_no_launch_on_either_route(dtype):
+    (q, k, v), rng = _qkv(17)
+    q, k, v = (torch.as_tensor(x).to(dtype) for x in (q, k, v))
+    n0 = (fa.flash_attention.launches, fa.flash_attention.launches_tc)
+    for bias in ("none", "key", "full"):
+        o, lse, bits, checks = fa.flash_attention_fwd(
+            q, k, v, _t(_bias(rng, bias)), return_bits=True,
+            return_probs=True)
+        assert o.dtype == dtype and bits is None and checks is None
+    assert (fa.flash_attention.launches, fa.flash_attention.launches_tc) == n0
+
+
+@pytest.mark.parametrize("dtype,bias", [(torch.bfloat16, "full_b1"),
+                                        (torch.bfloat16, "key"),
+                                        (torch.bfloat16, "none"),
+                                        (torch.float32, "full")])
+def test_forward_launches_by_route_and_never_falls_back(dtype, bias,
+                                                        monkeypatch):
+    """On the card row 6 goes through ``flash_bhsd_fwd_launch`` with the
+    dtype saying the route (bf16: the wgmma kernel, ``launches_tc``); the
+    check outputs (p c bf16 [B, nh, S, S] and the running max [B, nh, S,
+    S / 64], NEG_INF where a tile is skipped) are passed only on the
+    tensor-core route.  A launch that fails raises and counts nothing:
+    nothing retries it on the SIMT kernel or the plain version."""
+    monkeypatch.setattr(torch.cuda, "device", _Dev)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: _Stream())
+    calls = []
+    monkeypatch.setattr(fa, "_bhsd_launcher", lambda name: lambda *a: (
+        calls.append((name, a)) or 0))
+    rng = np.random.default_rng(18)
+    q, k, v = (torch.zeros(B, NH, S, D, dtype=dtype) for _ in range(3))
+    bk, mode, dims = fa._classify_bias(_t(_bias(rng, bias)), B, NH, S)
+    n0 = (fa.flash_attention.launches, fa.flash_attention.launches_tc)
+    tc = dtype == torch.bfloat16
+    o, lse, bits, checks = fa._cuda_flash_fwd(
+        q, k, v, bk, mode, dims, 0.125, False, 0, 0, 0.0, None, None, 0,
+        True, return_probs=True)
+    (name, args), = calls
+    assert name == "fwd" and len(args) == 28
+    assert args[17] == fa._DTYPE_CODES[dtype] and bits is None
+    assert (fa.flash_attention.launches,
+            fa.flash_attention.launches_tc) == (n0[0] + 1, n0[1] + tc)
+    if tc:
+        p_out, m_out = checks
+        assert p_out.shape == (B, NH, S, S) and p_out.dtype == dtype
+        assert m_out.shape == (B, NH, S, S // 64) and bool(
+            (m_out == fa.NEG_INF).all())
+        assert args[25:27] == (p_out.data_ptr(), m_out.data_ptr())
+    else:
+        assert checks is None and args[25:27] == (None, None)
+
+    calls.clear()
+    monkeypatch.setattr(fa, "_bhsd_launcher", lambda name: lambda *a: (
+        calls.append(name) or 700))
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        fa._cuda_flash_fwd(q, k, v, bk, mode, dims, 0.125, False, 0, 0, 0.0,
+                           None, None, 0, False)
+    assert calls == ["fwd"]
+    assert (fa.flash_attention.launches,
+            fa.flash_attention.launches_tc) == (n0[0] + 1, n0[1] + tc)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_fused_backward_check_outputs_in_bf16_only(dtype, monkeypatch):
+    """Row 7's library entry takes two check outputs (its rounded p c and
+    ds, bf16 [B, nh, S, S]): passed with ``return_probs`` in bf16, where
+    the kernel rounds them, and null otherwise; the checks come back as
+    (p c, ds, ds), its dq taking its ds."""
+    monkeypatch.setattr(torch.cuda, "device", _Dev)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: _Stream())
+    calls = []
+    monkeypatch.setattr(fa, "_bhsd_launcher", lambda name: lambda *a: (
+        calls.append((name, a)) or 0))
+    q, k, v = (torch.zeros(B, NH, S, D, dtype=dtype) for _ in range(3))
+    lse = torch.zeros(B, NH, S)
+    bk, mode, dims = fa._classify_bias(torch.zeros(1, 1, 1, S), B, NH, S)
+    n0 = fa.flash_attention_bwd_fused.launches
+    for probs in (True, False):
+        out = fa._cuda_flash_bwd(q, k, v, bk, mode, dims, q, lse, q, 0.125,
+                                 False, 0, 0, 0.0, None, None, 0, None,
+                                 True, return_probs=probs)
+        name, args = calls[-1]
+        assert name == "bwd" and len(args) == 34 and args[0] == fa._FUSED
+        if probs and dtype == torch.bfloat16:
+            p_k, ds_k, dsq_k = out[4]
+            assert p_k.shape == ds_k.shape == (B, NH, S, S)
+            assert dsq_k.data_ptr() == ds_k.data_ptr() and p_k.dtype == dtype
+            assert args[31:33] == (p_k.data_ptr(), ds_k.data_ptr())
+        else:
+            assert args[31:33] == (None, None)
+            assert len(out) == 4 or out[4] is None
+    assert fa.flash_attention_bwd_fused.launches == n0 + 2
 
 
 # ---------------------------------------------------------------------------
@@ -682,9 +948,10 @@ def test_full_bias_backward_launches_by_route_and_never_falls_back(
         dtype, entry, monkeypatch):
     """On the card a full bias sends the backward to rows 8 and 9 through
     its route's library entry: ``flash_bhsd_bwd_tc_launch`` for bf16 (the
-    wgmma kernels, three check outputs more), ``flash_bhsd_bwd_launch``
-    for f32; ``launches_tc`` counts the tensor-core launches, and the
-    check outputs come back only from them.  A launch that fails raises:
+    wgmma kernels, three check outputs), ``flash_bhsd_bwd_launch`` for f32
+    (two check outputs, row 7's in bf16, passed null); ``launches_tc``
+    counts the tensor-core launches, and the check outputs come back only
+    from them.  A launch that fails raises:
     nothing retries it on the other route or the plain version."""
     monkeypatch.setattr(torch.cuda, "device", _Dev)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: _Stream())
@@ -701,7 +968,7 @@ def test_full_bias_backward_launches_by_route_and_never_falls_back(
             None, None, 0, None, True)
     out = fa._cuda_flash_bwd(*args, return_probs=True)
     tc = entry == "bwd_tc"
-    assert calls == [(entry, 35 if tc else 32)] * 2
+    assert calls == [(entry, 35 if tc else 34)] * 2
     assert [(c.launches, c.launches_tc) for c in counters] == [
         (a + 1, b + tc) for a, b in n0]
     assert out[3].shape == (B, S, S)  # dbias summed over the heads
