@@ -7,18 +7,23 @@ call: a parent checkout and this one, in turns (A, B, B, A).
 
 Each turn is a process of its own that puts its tree first on sys.path,
 builds that tree's kernels from its ``csrc/`` and times each kernel
-through the public wrappers both trees share (bf16, the shapes
-``chip_smoke.py`` times): row 11 (``mm_stats``) at five 1 x 1 shapes of
-ResNet-50 at batch 128, row 10 (``conv_stats``) at the four 3 x 3 stage
-shapes, rows 12-14 at [401408, 256], row 6 at the NMT encoder's shape
-(full bias, with and without Philox dropout) and at mha_key_train's
-(key bias), rows 8 and 9 at the encoder's shape, row 7 at
-mha_key_train's, and row 5 at BERT-base's training shape.  Device times
-come from ``chip_smoke.time_cold_ms`` of the tree that runs this script
-(CUDA events, L2 flushed, the stream held), the same clock for both
-trees.  Prints one JSON line per turn and, last before the card line, a
-summary: each kernel's median per tree, and this tree's time over the
-parent's.  Needs one card; without one it exits 2.
+through the public wrappers both trees share (bf16 unless named, the
+shapes ``chip_smoke.py`` times): row 11 (``mm_stats``) at five 1 x 1
+shapes of ResNet-50 at batch 128, row 10 (``conv_stats``) at the four 3
+x 3 stage shapes, rows 12-14 at [401408, 256], row 6 at the NMT
+encoder's shape (full bias, with and without Philox dropout) and at
+mha_key_train's (key bias), rows 8 and 9 at the encoder's shape, row 7 at
+mha_key_train's (causal off and on, with and without Philox), row 5 at
+BERT-base's
+training shape, row 4 there (with and without Philox, and f32 at the
+infer path's shape) and at the NMT decoder's two shapes, row 1 at the
+decode step's shape, rows 2 and 3 at BERT-base's.  Device times come
+from ``chip_smoke.time_cold_ms`` of the tree that runs this script (CUDA
+events, L2 flushed, the stream held), the same clock for both trees.
+Prints one JSON line per turn and, last before the card line, a
+summary: each case's median per tree, and this tree's time over the
+parent's (a case only one tree has gives the other's as null).  Needs
+one card; without one it exits 2.
 """
 from __future__ import annotations
 
@@ -139,6 +144,20 @@ def _measure(tree: str) -> dict:
             None, seed, 0, False)
     out["row7_bwd_fused_key_philox"] = ms(
         lambda: fa.flash_attention_bwd_fused(*args))
+    for causal in (False, True):
+        for drop in (False, True):
+            if drop and not causal:
+                continue  # timed above
+            o, lse = fa.flash_attention_fwd(
+                q, k, v, kb, causal=causal, dropout_prob=p if drop else 0.0,
+                dropout_seed=seed if drop else None)
+            delta = (o.float() * do.float()).sum(-1)
+            a = (q, k, v, bias_k, mode, dims, lse, delta, do, sm, causal, 0,
+                 0, p if drop else 0.0, None, seed if drop else None, 0,
+                 False)
+            name = (f"row7_bwd_fused_key_{'philox' if drop else 'no_dropout'}"
+                    f"{'_causal' if causal else ''}")
+            out[name] = ms(lambda a=a: fa.flash_attention_bwd_fused(*a))
     del q, k, v, do, o, lse, args
 
     # BERT-base training: B 8, S 512, 12 heads of 64, per-key bias
@@ -149,6 +168,64 @@ def _measure(tree: str) -> dict:
                                         dropout_seed=seed)
     out["row5_bsh_bwd_philox"] = ms(lambda: fa.flash_attention_bsh_bwd(
         q, k, v, bias, o, lse, do, nh, dropout_prob=p, dropout_seed=seed))
+    out["row4_bsh_fwd_philox"] = ms(lambda: fa.flash_attention_bsh_fwd(
+        q, k, v, bias, nh, dropout_prob=p, dropout_seed=seed))
+    out["row4_bsh_fwd_no_dropout"] = ms(lambda: fa.flash_attention_bsh_fwd(
+        q, k, v, bias, nh))
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    out["row4_bsh_fwd_f32_infer"] = ms(lambda: fa.flash_attention_bsh_fwd(
+        q32, k32, v32, bias, nh))
+    del q, k, v, do, o, lse, q32, k32, v32
+
+    # the NMT decoder: B 64, S 256, 8 heads of 64, Philox p = 0.1; the
+    # causal self-attention and the cross-attention's per-key bias
+    b, s, nh = 64, 256, 8
+    q, k, v = (randn(b, s, nh * 64) for _ in range(3))
+    src = torch.as_tensor(np.where(np.arange(s)[None, :] < rng.integers(
+        s // 2, s + 1, b)[:, None], 0.0, -1e4).reshape(b, 1, 1, s),
+        dtype=torch.float32).to(dev)
+    out["row4_bsh_fwd_nmt_self_causal_philox"] = ms(
+        lambda: fa.flash_attention_bsh_fwd(q, k, v, None, nh, causal=True,
+                                           dropout_prob=p, dropout_seed=seed))
+    out["row4_bsh_fwd_nmt_cross_key_philox"] = ms(
+        lambda: fa.flash_attention_bsh_fwd(q, k, v, src, nh, dropout_prob=p,
+                                           dropout_seed=seed))
+    del q, k, v, src
+
+    # row 1 at the decode step's shape (8 slots x 12 heads of 64, pages of
+    # 16, 64 table entries, a 513-page pool), f32
+    from paddle_tpu_torch.ops.kernels import add_ln
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+
+    lens = [1, 37, 1024, 300, 513, 64, 777, 129]
+    kp, vp = (torch.as_tensor(rng.standard_normal((513, 16, 12, 64)),
+                              dtype=torch.float32).to(dev) for _ in range(2))
+    qd = torch.as_tensor(rng.standard_normal((8, 12, 64)),
+                         dtype=torch.float32).to(dev)
+    table = np.zeros((8, 64), np.int32)
+    free = list(rng.permutation(np.arange(1, 513)))
+    for i, n in enumerate(lens):
+        table[i, :-(-n // 16)] = [free.pop() for _ in range(-(-n // 16))]
+    table = torch.as_tensor(table, device=dev)
+    lengths = torch.as_tensor(np.asarray(lens, np.int32), device=dev)
+    out["row1_paged_f32"] = ms(lambda: pa.paged_attention(
+        qd, kp, vp, table, lengths))
+    del kp, vp, qd, table, lengths
+
+    # rows 2 and 3 at BERT-base's rows (8 x 512 x 768): f32 without the
+    # residual (infer), bf16 with it (train)
+    x32 = torch.as_tensor(rng.standard_normal((4096, 768)),
+                          dtype=torch.float32).to(dev)
+    x, y, g = (randn(4096, 768) for _ in range(3))
+    sc = torch.ones(768, device=dev)
+    sh = torch.zeros(768, device=dev)
+    out["row2_ln_fwd_f32"] = ms(lambda: add_ln.fused_add_ln_fwd(
+        x32, None, sc, sh))
+    out["row2_ln_fwd_bf16_y"] = ms(lambda: add_ln.fused_add_ln_fwd(
+        x, y, sc, sh))
+    _, mean, rstd = add_ln.fused_add_ln_fwd(x, y, sc, sh)
+    out["row3_ln_bwd_bf16_y"] = ms(lambda: add_ln.fused_add_ln_bwd(
+        x, y, sc, mean, rstd, g))
     return {"tree": tree, "card": torch.cuda.get_device_name(0),
             "ms": out}
 
@@ -190,15 +267,17 @@ def main() -> int:
                    label=label)
         runs.append(rec)
         print(json.dumps(rec), flush=True)
-    names = runs[0]["ms"]
+    names = dict.fromkeys(n for r in runs for n in r["ms"])
     summary = {}
     for n in names:
-        pm = statistics.median(r["ms"][n] for r in runs
-                               if r["label"] == "parent")
-        tm = statistics.median(r["ms"][n] for r in runs
-                               if r["label"] == "this")
+        med = {}
+        for label in ("parent", "this"):
+            got = [r["ms"][n] for r in runs
+                   if r["label"] == label and n in r["ms"]]
+            med[label] = statistics.median(got) if got else None
+        pm, tm = med["parent"], med["this"]
         summary[n] = {"parent_ms": pm, "this_ms": tm, "this_over_parent":
-                      tm / pm}
+                      tm / pm if pm and tm else None}
     line = {"card": card, "order": [r["label"] for r in runs],
             "summary": summary}
     if args.out:

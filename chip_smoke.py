@@ -18,11 +18,16 @@ prints no result):
                lse, its backward dq/dk/dv and its dropout, from an explicit
                mask and from the in-kernel Philox, whose drawn bits feed
                the plain version, and whose keep rate is checked; the
-               bf16 backward (the wgmma kernels) held rounding by rounding:
-               its rounded p c and ds against the plain version's, and its
-               dq, dk, dv against the plain products of them; timed at
-               BERT's shape, without dropout, and at the NMT decoder's two
-               shapes); add+LayerNorm, out and stats, and its backward dx,
+               bf16 forward (row 4, the wgmma kernel: key bias, causal,
+               rectangular, D 64/128/256) held rounding by rounding: its
+               rounded p c / l against the plain version's and its o
+               against the plain product of its own p c, its Philox bits
+               against the f32 SIMT forward's; the bf16 backward (the
+               wgmma kernels) likewise: its rounded p c and ds against
+               the plain version's, and its dq, dk, dv against the plain
+               products of them; both timed at BERT's shape, with and
+               without dropout, and at the NMT decoder's two shapes);
+               add+LayerNorm, out and stats, and its backward dx,
                dscale, dshift; the five conv+BN kernels at ResNet-50's
                shapes, f32 and bf16 (row 10 at all four 3 x 3 stage shapes
                and row 11 at five 1 x 1 shapes, each route's launch
@@ -32,11 +37,12 @@ prints no result):
                kernels, rows 6-9, at the NMT's shapes: every bias
                broadcast, dbias, causal at offsets with rows that see no
                key, the lse cotangent, D 64/128/256, dropout from a mask
-               and from Philox; every bf16 kernel (row 6 and rows 8 and 9
-               with a full bias on the wgmma kernels, row 7) held
-               rounding by rounding as the BSH backward is, the wgmma
-               forward's Philox bits against the f32 SIMT forward's, rows
-               6, 8 and 9 timed with and without dropout),
+               and from Philox; every bf16 kernel (row 6, rows 8 and 9
+               with a full bias, row 7 with any other, all on the wgmma
+               kernels) held rounding by rounding as the BSH backward is,
+               the wgmma forward's Philox bits against the f32 SIMT
+               forward's; rows 6-9 timed with and without dropout, row 7
+               causal too),
                with its time, bound, plain-version
                time and the time of one library call computing the same
                function
@@ -67,7 +73,7 @@ prints no result):
                steps, then 10 timed; every loss finite, the loss falling,
                and every step launching each kernel exactly as often as
                its program needs (flash forward 12, flash backward 24 =
-               12 x 2 kernels, all 24 on the wgmma pair, LN forward and
+               12 x 2 kernels, all 36 on the wgmma kernels, LN forward and
                backward 26)
   bert_train_profile  torch.profiler over 3 of those steps
   bert_train_parity   the same training program on 2 x 128 with dropout
@@ -102,10 +108,10 @@ prints no result):
                the encoder fed the reference recipe's full [B, 8, S, S]
                self-attention bias: bf16 AMP, Adam 1e-4, 64 x 256 -> 256
                on one seed-0 batch, 2 warm and 10 timed steps; every step
-               launching rows 6, 8 and 9 once an encoder layer (all on
-               their wgmma kernels), the BSH kernels for the
-               decoder (the 24 backward launches on the wgmma pair) and
-               the LN kernels exactly as the program needs
+               launching rows 6, 8 and 9 once an encoder layer, the BSH
+               kernels for the decoder (12 forward, 24 backward), all on
+               their wgmma kernels, and the LN kernels exactly as the
+               program needs
   nmt_train_profile  torch.profiler over 3 of those steps
   nmt_train_parity   2 + 2 layers at those widths, 2 x 128, dropout 0, 3
                Adam steps on the card (kernels) against the CPU (plain
@@ -116,8 +122,8 @@ prints no result):
                256 -> 256, the logits fetched; row 6 once an encoder layer
   mha_key_train hapi MultiHeadAttention (d_model 512, 8 heads) at 64 x
                256 with a [1, 1, 1, S] padding bias, bf16 AMP, Adam, 3
-               steps with causal off and 3 on: rows 6 (on the wgmma
-               kernel) and 7 once a step
+               steps with causal off and 3 on: rows 6 and 7 once a step,
+               both on their wgmma kernels
 
 The line before the last is the kernels summary; the last line is
 ``{"ok": true, "device": {...}}``.  Needs one CUDA card; without one it
@@ -443,6 +449,66 @@ def _flash_inputs(torch, rng, b, s, nh, d, dtype, bias, causal=False):
     return dict(q=q, k=k, v=v, bias=kb, num_heads=nh, causal=causal)
 
 
+def _bsh_fwd_rounding(torch, fa, name, kw, o, lse, checks, mask, keep_div,
+                      o_ref) -> dict:
+    """Row 4 in bf16 held rounding by rounding (``_fwd_rounding``)."""
+    q, nh = kw["q"], kw["num_heads"]
+    probs = fa.bsh_fwd_probs_reference(
+        q, kw["k"], kw["bias"], nh, 1.0 / math.sqrt(q.shape[-1] // nh),
+        kw.get("causal", False), mask, keep_div)
+    return _fwd_rounding(
+        torch, f"flash_attention_bsh {name}", o, lse, checks, probs,
+        lambda p_k, m_k, tile: fa.bsh_fwd_products_reference(
+            kw["v"], p_k, m_k, lse, nh, tile), o_ref)
+
+
+def _bsh_fwd_check(torch, fa, name, kw, is_bf16) -> tuple:
+    """Row 4 against its plain version (fed the Philox bits it drew):
+    f32 (the SIMT kernel) elementwise at ATOL_F32; bf16 (the wgmma
+    kernel, which must have run: ``launches_tc``) rounding by rounding
+    (``_bsh_fwd_rounding``), and its Philox bits equal to the f32 SIMT
+    forward's for the same seed and offset.  Returns (result, o, lse,
+    bits, keep mask, keep_div)."""
+    p = kw.get("dropout_prob", 0.0)
+    n0 = (fa.flash_attention_bsh.launches, fa.flash_attention_bsh.launches_tc)
+    o, lse, bits, checks = fa.flash_attention_bsh_fwd(
+        **kw, return_bits=True, return_probs=True)
+    ran = (fa.flash_attention_bsh.launches - n0[0],
+           fa.flash_attention_bsh.launches_tc - n0[1])
+    if ran != (1, int(is_bf16)) or (checks is None) == is_bf16:
+        fail(f"flash_attention_bsh {name}: the forward launched {ran} (all, "
+             f"on the tensor cores)")
+    mask, keep_div = kw.get("mask"), 1.0 - p
+    if "dropout_seed" in kw:
+        mask = bits
+        keep_div = fa.dropout_quantized_thresh(1.0 - p) / 256.0
+    plain_kw = {k: kw[k] for k in ("q", "k", "v", "bias", "num_heads")}
+    o_ref, lse_ref = fa.flash_attention_bsh_reference(
+        **plain_kw, causal=kw.get("causal", False), dropout_prob=p,
+        mask=mask, keep_div=keep_div if p else None)
+    torch.cuda.synchronize()
+    if is_bf16:
+        r = _bsh_fwd_rounding(torch, fa, name, kw, o, lse, checks,
+                              mask if p else None, keep_div, o_ref)
+        r["max_abs_err"] = r["o_vs_products"]
+        r["forward_kernel"] = "row 4 (wgmma)"
+    else:
+        r = _check(f"flash_attention_bsh {name} o", o, o_ref, ATOL_F32)
+    del checks, o_ref
+    r["lse"] = _check(f"flash_attention_bsh {name} lse", lse, lse_ref,
+                      ATOL_LSE)["max_abs_err"]
+    if "dropout_seed" in kw and is_bf16:
+        kw32 = dict(kw, **{n: kw[n].float() for n in ("q", "k", "v")})
+        bits32 = fa.flash_attention_bsh_fwd(**kw32, return_bits=True)[2]
+        if not torch.equal(bits, bits32):
+            fail(f"flash_attention_bsh {name}: the wgmma forward's Philox "
+                 f"bits differ from the SIMT forward's in "
+                 f"{int((bits != bits32).sum())} places")
+        r["philox_bits_equal_simt_f32"] = True
+        del kw32, bits32
+    return r, o, lse, bits, mask, keep_div
+
+
 def _kernels_flash(torch, F, flush) -> tuple:
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
 
@@ -451,27 +517,33 @@ def _kernels_flash(torch, F, flush) -> tuple:
     def case(b, s, nh, d, dtype, bias, causal=False):
         return _flash_inputs(torch, rng, b, s, nh, d, dtype, bias, causal)
 
+    def rect(b, sq, skv, nh, d, dtype):
+        kw = case(b, max(sq, skv), nh, d, dtype, True)
+        kw["q"] = kw["q"][:, :sq].contiguous()
+        kw["k"], kw["v"] = (kw[n][:, :skv].contiguous() for n in "kv")
+        kw["bias"] = kw["bias"][..., :skv].contiguous()
+        return kw
+
     # the BERT-base attention of the infer path (B=8, S=512, 12 x 64),
-    # padded, in f32 (the main path) and bf16; causal; D=128 and D=256
+    # padded, in f32 (the main path) and bf16 (row 4 on the wgmma
+    # kernel: the key bias, causal, rectangular, D 64/128/256); dropout
+    # in _kernels_flash_train
+    f32, bf16 = torch.float32, torch.bfloat16
     cases = [
-        ("f32", case(8, 512, 12, 64, torch.float32, True), False),
-        ("bf16", case(8, 512, 12, 64, torch.bfloat16, True), True),
-        ("causal_f32", case(8, 512, 12, 64, torch.float32, False, True),
-         False),
-        ("d128_f32", case(8, 512, 12, 128, torch.float32, True), False),
-        ("d256_bf16", case(2, 512, 12, 256, torch.bfloat16, True), True),
+        ("f32", case(8, 512, 12, 64, f32, True), False),
+        ("bf16", case(8, 512, 12, 64, bf16, True), True),
+        ("causal_f32", case(8, 512, 12, 64, f32, False, True), False),
+        ("causal_bf16", case(8, 512, 12, 64, bf16, False, True), True),
+        ("d128_f32", case(8, 512, 12, 128, f32, True), False),
+        ("d128_bf16_causal", case(4, 512, 8, 128, bf16, True, True), True),
+        ("d256_bf16", case(2, 512, 12, 256, bf16, True), True),
+        ("rect_bf16_256_from_512", rect(8, 256, 512, 12, 64, bf16), True),
+        ("rect_bf16_512_from_256_d256", rect(2, 512, 256, 4, 256, bf16),
+         True),
     ]
     results = {}
     for name, kw, is_bf16 in cases:
-        o, lse = fa.flash_attention_bsh_fwd(**kw)
-        o_ref, lse_ref = fa.flash_attention_bsh_reference(**kw)
-        torch.cuda.synchronize()
-        r = _check(f"flash_attention_bsh {name} o", o, o_ref,
-                   1e-5 if is_bf16 else ATOL_F32,
-                   RTOL_BF16 if is_bf16 else 0.0)
-        r["lse"] = _check(f"flash_attention_bsh {name} lse", lse, lse_ref,
-                          ATOL_LSE)
-        results[name] = r
+        results[name] = _bsh_fwd_check(torch, fa, name, kw, is_bf16)[0]
 
     kw = cases[0][1]
     q, k, v, bias = kw["q"], kw["k"], kw["v"], kw["bias"]
@@ -619,9 +691,9 @@ def _end_to_end(grads, ref) -> dict:
 
 
 def _flash_bwd_check(torch, fa, name, kw, do) -> dict:
-    """Forward (drawing its Philox bits) and backward kernels against the
-    plain versions fed the same keep bits; returns the errors and, for
-    Philox, the keep rate.
+    """Forward (drawing its Philox bits; ``_bsh_fwd_check``) and backward
+    kernels against the plain versions fed the same keep bits; returns
+    the errors and, for Philox, the keep rate.
 
     bf16 (the wgmma kernels): both versions round p c and ds to bf16
     before the dv, dk and dq products, as the TPU kernel does.  Where an
@@ -637,18 +709,9 @@ def _flash_bwd_check(torch, fa, name, kw, do) -> dict:
     products of those intermediates.  The end-to-end difference is
     reported beside them."""
     is_bf16 = kw["q"].dtype == torch.bfloat16
-    o, lse, bits = fa.flash_attention_bsh_fwd(**kw, return_bits=True)
     p = kw["dropout_prob"]
-    mask = kw.get("mask")
-    keep_div = 1.0 - p
-    if "dropout_seed" in kw:
-        mask = bits
-        keep_div = fa.dropout_quantized_thresh(1.0 - p) / 256.0
-    plain_kw = {k: kw[k] for k in ("q", "k", "v", "bias", "num_heads",
-                                   "causal")}
-    o_ref, lse_ref = fa.flash_attention_bsh_reference(
-        **plain_kw, dropout_prob=p, mask=mask,
-        keep_div=keep_div if p else None)
+    r, o, lse, bits, mask, keep_div = _bsh_fwd_check(torch, fa, name, kw,
+                                                     is_bf16)
     # the backward's inputs are the kernel forward's o and lse on both
     # sides: a bf16 o one ulp off would move delta, not the backward
     q, k, v, nh = kw["q"], kw["k"], kw["v"], kw["num_heads"]
@@ -662,10 +725,6 @@ def _flash_bwd_check(torch, fa, name, kw, do) -> dict:
         mask=mask if p else None, keep_div=keep_div)
     ref = fa.bwd_products_reference(q, k, v, do, p_ref, ds_ref, nh)
     torch.cuda.synchronize()
-    r = _check(f"flash {name} o", o, o_ref, 1e-5 if is_bf16 else ATOL_F32,
-               RTOL_BF16 if is_bf16 else 0.0)
-    r["lse"] = _check(f"flash {name} lse", lse, lse_ref,
-                      ATOL_LSE)["max_abs_err"]
     if not is_bf16:
         r["grads"] = _check_grads(f"flash backward {name}", grads, ref,
                                   False)
@@ -760,6 +819,7 @@ def _kernels_flash_train(torch, F, flush) -> tuple:
            "library": "F.scaled_dot_product_attention with dropout_p=0.1 "
                       "on pre-split heads, additive bf16 mask",
            "max_abs_err": results["philox_bf16"]["max_abs_err"]}
+    n_tc = fa.flash_attention_bsh.launches_tc
     fwd.update(_timed(
         torch, flush, lambda: fa.flash_attention_bsh_fwd(**kw),
         lambda: fa.flash_attention_bsh_reference(
@@ -768,6 +828,16 @@ def _kernels_flash_train(torch, F, flush) -> tuple:
             qh, kh, vh, attn_mask=bias.to(q.dtype), dropout_p=p),
         nbytes=fa.bound_bytes(q, k, v, bias, nh),
         flops=fa.bound_flops(q, k, nh), peak_flops=BF16_FLOPS))
+    if fa.flash_attention_bsh.launches_tc == n_tc:
+        fail("row 4 at BERT's training shape ran no wgmma kernel")
+    fwd["route"] = fa.bsh_fwd_route(q.dtype)
+    # without dropout: what drawing the Philox bits costs row 4
+    fwd["no_dropout_ms"] = time_cold_ms(
+        torch, lambda: fa.flash_attention_bsh_fwd(q, k, v, bias, nh),
+        flush)["median"]
+    fwd["no_dropout_library_ms"] = time_cold_ms(
+        torch, lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=bias.to(q.dtype)), flush)["median"]
     bwd = {"shape": fwd["shape"],
            "library": "autograd backward of F.scaled_dot_product_attention "
                       "with dropout_p=0.1 on pre-split heads (dq, dk, dv)",
@@ -793,7 +863,57 @@ def _kernels_flash_train(torch, F, flush) -> tuple:
     del qh, kh, vh, lib_o, dout, main, kw, do, o0, lse0
     torch.cuda.empty_cache()
     bwd["nmt_decoder"] = _time_bwd_nmt(torch, F, flush, fa, rng)
+    fwd["nmt_decoder"] = _time_fwd_nmt(torch, F, flush, fa, rng)
     return results, fwd, bwd
+
+
+def _time_fwd_nmt(torch, F, flush, fa, rng) -> dict:
+    """Row 4 timed at the NMT decoder's two shapes (64 x 256, 8 heads of
+    64, bf16, Philox p = 0.1): the causal self-attention and the
+    cross-attention with its per-key source bias, each beside SDPA on the
+    same inputs and the bound."""
+    out = {}
+    for name, causal in (("self_causal", True), ("cross_key_bias", False)):
+        kw, _ = _flash_train_case(torch, rng, NMT["batch"], NMT["src_len"],
+                                  NMT["heads"], NMT["d_model"] //
+                                  NMT["heads"], torch.bfloat16,
+                                  causal=causal, p=NMT["dropout"],
+                                  mode="philox")
+        if causal:
+            kw["bias"] = None
+        q, k, v, bias = kw["q"], kw["k"], kw["v"], kw["bias"]
+        b, s, h = q.shape
+        nh, p = kw["num_heads"], kw["dropout_prob"]
+        bits = fa.flash_attention_bsh_fwd(**kw, return_bits=True)[2]
+        keep_div = fa.dropout_quantized_thresh(1.0 - p) / 256.0
+        qh, kh, vh = (t.reshape(b, s, nh, h // nh).transpose(1, 2)
+                      .contiguous() for t in (q, k, v))
+        mask = None if bias is None else bias.to(q.dtype)
+        n0 = fa.flash_attention_bsh.launches_tc
+        row = {"shape": {"B": b, "S": s, "H": h, "nh": nh, "D": h // nh,
+                         "causal": causal, "bias": None if causal else
+                         "per key", "dtype": "bfloat16",
+                         "dropout": f"Philox, p={p}"},
+               "library": "F.scaled_dot_product_attention (dropout_p, "
+                          "is_causal or the additive key mask)"}
+        row.update(_timed(
+            torch, flush, lambda: fa.flash_attention_bsh_fwd(**kw),
+            lambda: fa.flash_attention_bsh_reference(
+                q, k, v, bias, nh, causal=causal, dropout_prob=p, mask=bits,
+                keep_div=keep_div),
+            lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask, dropout_p=p, is_causal=causal),
+            nbytes=fa.bound_bytes(q, k, v, bias, nh),
+            flops=fa.bound_flops(q, k, nh, causal), peak_flops=BF16_FLOPS))
+        if fa.flash_attention_bsh.launches_tc == n0:
+            fail(f"row 4 at the NMT {name} shape ran no wgmma kernel")
+        row["no_dropout_ms"] = time_cold_ms(
+            torch, lambda: fa.flash_attention_bsh_fwd(
+                q, k, v, bias, nh, causal=causal), flush)["median"]
+        out[name] = row
+        del kw, q, k, v, bias, bits, qh, kh, vh, mask
+        torch.cuda.empty_cache()
+    return out
 
 
 def _time_bwd_nmt(torch, F, flush, fa, rng) -> dict:
@@ -994,36 +1114,33 @@ def _bhsd_keep(fa, kw, bits):
     return kw.get("mask"), 1.0 - p
 
 
-def _bhsd_fwd_rounding(torch, fa, name, kw, o, lse, checks, mask, keep_div,
-                       o_ref) -> dict:
-    """Row 6 in bf16 (the wgmma kernel) held rounding by rounding, as the
-    backward is: it rounds p c to bf16 before P.V relative to its running
-    max after each 64-key tile, the plain version relative to the row's
-    max, and where an f32 p sits within the two versions' f32 difference
-    of a bf16 boundary the two round it to neighbouring values.  So the
-    kernel's rounded p c (its check output), scaled by exp(m_t - lse) to
-    p c / l, is held against the plain version's p c / l, and its o
-    against the plain product of its own p c, both at 1e-5 + 2^-7
+def _fwd_rounding(torch, name, o, lse, checks, probs_ref, products,
+                  o_ref) -> dict:
+    """A bf16 wgmma forward (row 4 or row 6) held rounding by rounding, as
+    the backwards are: it rounds p c to bf16 before P.V relative to its
+    running max after each 64-key tile, the plain version relative to the
+    row's max, and where an f32 p sits within the two versions' f32
+    difference of a bf16 boundary the two round it to neighbouring
+    values.  So the kernel's rounded p c (its check output), scaled by
+    exp(m_t - lse) to p c / l, is held against the plain version's p c /
+    l (``probs_ref``: p c, m, l_safe), and its o against the plain product
+    of its own p c (``products(p_k, m_k, tile)``), both at 1e-5 + 2^-7
     |plain| (two roundings of one value differ by at most 2^-8 of it);
     the end-to-end difference from the plain forward is reported."""
     p_k, m_k = checks
-    q, v = kw["q"], kw["v"]
-    sm = 1.0 / math.sqrt(q.shape[-1])
-    p_ref, m_ref, l_ref = fa.bhsd_fwd_probs_reference(
-        q, kw["k"], kw["bias"], sm, kw["causal"],
-        mask if kw["dropout_prob"] else None, keep_div, kw["q_offset"],
-        kw["k_offset"])
+    p_ref, _, l_ref = probs_ref
     tile = p_k.shape[-1] // m_k.shape[-1]
     pn_k = p_k.float() * torch.exp(
         m_k - lse[..., None]).repeat_interleave(tile, dim=-1)
     pn_ref = p_ref / l_ref
-    del p_ref, m_ref, l_ref
-    r = {"p_over_l": _check(f"flash bhsd {name} forward p c / l", pn_k,
-                            pn_ref, 1e-5, RTOL_BF16)["max_abs_err"]}
+    del p_ref, l_ref, probs_ref
+    r = {"p_over_l": _check(f"{name} forward p c / l", pn_k, pn_ref, 1e-5,
+                            RTOL_BF16)["max_abs_err"]}
     del pn_k, pn_ref
-    fed = fa.bhsd_fwd_products_reference(v, p_k, m_k, lse, tile)
-    r["o_vs_products"] = _check(f"flash bhsd {name} o", o, fed, 1e-5,
+    fed = products(p_k, m_k, tile)
+    r["o_vs_products"] = _check(f"{name} o", o, fed, 1e-5,
                                 RTOL_BF16)["max_abs_err"]
+    del fed
     diff = (o.float() - o_ref.float()).abs()
     r["o_end_to_end"] = {
         "max_abs_err": diff.max().item(),
@@ -1031,6 +1148,21 @@ def _bhsd_fwd_rounding(torch, fa, name, kw, o, lse, checks, mask, keep_div,
                              * o_ref.float().abs()).sum()),
         "elements": diff.numel()}
     return r
+
+
+def _bhsd_fwd_rounding(torch, fa, name, kw, o, lse, checks, mask, keep_div,
+                       o_ref) -> dict:
+    """Row 6 in bf16 held rounding by rounding (``_fwd_rounding``)."""
+    q, v = kw["q"], kw["v"]
+    sm = 1.0 / math.sqrt(q.shape[-1])
+    probs = fa.bhsd_fwd_probs_reference(
+        q, kw["k"], kw["bias"], sm, kw["causal"],
+        mask if kw["dropout_prob"] else None, keep_div, kw["q_offset"],
+        kw["k_offset"])
+    return _fwd_rounding(
+        torch, f"flash bhsd {name}", o, lse, checks, probs,
+        lambda p_k, m_k, tile: fa.bhsd_fwd_products_reference(
+            v, p_k, m_k, lse, tile), o_ref)
 
 
 def _bhsd_check(torch, fa, name, kw, bwd) -> dict:
@@ -1075,6 +1207,7 @@ def _bhsd_check(torch, fa, name, kw, bwd) -> dict:
         return (fa.flash_attention_bwd_fused.launches,
                 fa.flash_attention_bwd_dq.launches,
                 fa.flash_attention_bwd_dkv.launches,
+                fa.flash_attention_bwd_fused.launches_tc,
                 fa.flash_attention_bwd_dq.launches_tc,
                 fa.flash_attention_bwd_dkv.launches_tc)
 
@@ -1090,11 +1223,11 @@ def _bhsd_check(torch, fa, name, kw, bwd) -> dict:
     torch.cuda.synchronize()
     ran = [a - b for a, b in zip(counts(), n0)]
     full = kw["bias"] is not None and kw["bias"].shape[2] != 1
-    tc = full and is_bf16
-    if ran != ([0, 1, 1, 1, 1] if tc else [0, 1, 1, 0, 0] if full
-               else [1, 0, 0, 0, 0]):
+    want = [0, 1, 1, 0, int(is_bf16), int(is_bf16)] if full else [
+        1, 0, 0, int(is_bf16), 0, 0]
+    if ran != want:
         fail(f"flash bhsd {name}: backward launched {ran} (fused, dq, dkv, "
-             f"dq on the tensor cores, dkv on the tensor cores)")
+             f"each again on the tensor cores), want {want}")
     if is_bf16:
         r = _bhsd_fwd_rounding(torch, fa, name, kw, o, lse, fchecks, mask,
                                keep_div, o_ref)
@@ -1131,8 +1264,8 @@ def _bhsd_check(torch, fa, name, kw, bwd) -> dict:
         r["grads"]["dbias"] = _check(
             f"flash bhsd backward {name} dbias", got[3], ref[3], ATOL_DBIAS,
             RTOL_BF16 if bias_bf16 else 0.0)["max_abs_err"]
-    r["backward_kernels"] = (("rows 8 + 9 (wgmma)" if tc else "rows 8 + 9")
-                             if full else "row 7")
+    r["backward_kernels"] = ("rows 8 + 9" if full else "row 7") + (
+        " (wgmma)" if is_bf16 else "")
     if "dropout_seed" in kw and is_bf16:
         # the same Philox bits as the f32 SIMT forward draws
         kw32 = dict(kw, **{n: kw[n].float() for n in ("q", "k", "v")})
@@ -1246,6 +1379,16 @@ def _kernels_flash_bhsd(torch, F, flush) -> tuple:
          dict(p=0.1, mode="philox", want_dbias=True)),
         ("full_11_philox_f32_causal", (f32, "full_11"),
          dict(p=0.3, mode="philox", causal=True, want_dbias=True)),
+        # row 7 on its wgmma kernel: causal offsets with the lse
+        # cotangent, a query tile that sees no key, Philox without a bias
+        ("key_causal_offsets_bf16", (bf16, "key"),
+         dict(causal=True, q_off=96, k_off=32, g_lse=True,
+              want_dbias=True)),
+        ("key_shared_k_after_bf16", (bf16, "key_shared"),
+         dict(causal=True, q_off=0, k_off=128, g_lse=True,
+              want_dbias=True)),
+        ("none_philox_bf16_causal", (bf16, None),
+         dict(p=0.1, mode="philox", causal=True)),
     ]
     results = {}
     for name, (dtype, bias), extra in cases:
@@ -1379,6 +1522,7 @@ def _kernels_flash_bhsd(torch, F, flush) -> tuple:
                             .values()),
          "library": "autograd backward of SDPA with the [1, 1, 1, S] bias "
                     "as a bf16 attn_mask, dropout_p=0.1 (dq, dk, dv)"}
+    n_tc = fa.flash_attention_bwd_fused.launches_tc
     t.update(_timed(
         torch, flush, lambda: fa.flash_attention_bwd_fused(*args),
         lambda: fa.flash_attention_bwd_reference(
@@ -1387,6 +1531,29 @@ def _kernels_flash_bhsd(torch, F, flush) -> tuple:
                                     retain_graph=True),
         nbytes=fa.bound_bytes_bhsd(q, bias, "fused"),
         flops=fa.bound_flops_bhsd(q, "fused"), peak_flops=BF16_FLOPS))
+    if fa.flash_attention_bwd_fused.launches_tc == n_tc:
+        fail("row 7 at mha_key_train's shape ran no wgmma kernel")
+    t["route"] = fa.bhsd_bwd_route(q.dtype, mode)
+    # without dropout (what regenerating the Philox bits costs), and
+    # causal (mha_key_train's second run)
+    o0, lse0 = fa.flash_attention_fwd(q, k, v, bias)
+    args0 = (q, k, v, bias_k, mode, dims, lse0,
+             (o0.float() * do.float()).sum(-1), do, sm, False, 0, 0, 0.0,
+             None, None, 0, False)
+    t["no_dropout_ms"] = time_cold_ms(
+        torch, lambda: fa.flash_attention_bwd_fused(*args0), flush)["median"]
+    oc, lsec = fa.flash_attention_fwd(q, k, v, bias, causal=True,
+                                      dropout_prob=p,
+                                      dropout_seed=kw["dropout_seed"])
+    argsc = (q, k, v, bias_k, mode, dims, lsec,
+             (oc.float() * do.float()).sum(-1), do, sm, True, 0, 0, p,
+             None, kw["dropout_seed"], 0, False)
+    t["causal_ms"] = time_cold_ms(
+        torch, lambda: fa.flash_attention_bwd_fused(*argsc), flush)["median"]
+    t["causal_bound_ms"] = max(
+        fa.bound_bytes_bhsd(q, bias, "fused") / HBM_BYTES_PER_S,
+        fa.bound_flops_bhsd(q, "fused", causal=True) / BF16_FLOPS) * 1e3
+    del o0, lse0, args0, oc, lsec, argsc
     timed["flash_attention_bwd_fused"] = t
     # row 6 at the same inputs (mha_key_train's forward)
     t = {"shape": timed["flash_attention_bwd_fused"]["shape"],
@@ -1728,6 +1895,7 @@ def phase_bert_infer(torch, card: str) -> dict:
     pred.run(batches[0])                          # warm cuBLAS + allocator
     torch.cuda.synchronize()
     fa.flash_attention_bsh.launches = 0
+    fa.flash_attention_bsh.launches_tc = 0
     add_ln.fused_add_ln.launches = 0
     run_ms, outs = [], None
     for feed in batches:
@@ -1746,6 +1914,9 @@ def phase_bert_infer(torch, card: str) -> dict:
     if flash_n != layers * n_runs:
         fail(f"flash_attention_bsh launched {flash_n} times in {n_runs} "
              f"runs, want {layers} a run")
+    if fa.flash_attention_bsh.launches_tc:
+        fail(f"the f32 infer path launched row 4's wgmma kernel "
+             f"{fa.flash_attention_bsh.launches_tc} times (f32 stays SIMT)")
     if ln_n != (2 * layers + 1) * n_runs:
         fail(f"add_ln launched {ln_n} times in {n_runs} runs, want "
              f"{2 * layers + 1} a run")
@@ -1861,9 +2032,9 @@ def _train_program(cfg, b: int, s: int, max_preds: int, amp: bool):
     return m, st, loss
 
 
-KERNEL_COUNTERS = ("row6", "row7", "row8", "row9", "row6_tc", "row8_tc",
-                   "row9_tc", "bsh_fwd", "bsh_bwd", "bsh_bwd_tc", "ln_fwd",
-                   "ln_bwd")
+KERNEL_COUNTERS = ("row6", "row7", "row8", "row9", "row6_tc", "row7_tc",
+                   "row8_tc", "row9_tc", "bsh_fwd", "bsh_fwd_tc", "bsh_bwd",
+                   "bsh_bwd_tc", "ln_fwd", "ln_bwd")
 
 
 class _Counter:
@@ -1890,9 +2061,11 @@ def _counters():
             "row8": fa.flash_attention_bwd_dq,
             "row9": fa.flash_attention_bwd_dkv,
             "row6_tc": _Counter(fa.flash_attention, "launches_tc"),
+            "row7_tc": _Counter(fa.flash_attention_bwd_fused, "launches_tc"),
             "row8_tc": _Counter(fa.flash_attention_bwd_dq, "launches_tc"),
             "row9_tc": _Counter(fa.flash_attention_bwd_dkv, "launches_tc"),
             "bsh_fwd": fa.flash_attention_bsh,
+            "bsh_fwd_tc": _Counter(fa.flash_attention_bsh, "launches_tc"),
             "bsh_bwd": fa.flash_attention_bsh_bwd,
             "bsh_bwd_tc": _Counter(fa.flash_attention_bsh_bwd,
                                    "launches_tc"),
@@ -1909,7 +2082,8 @@ def _launches_per_step(program, bf16: bool = False) -> dict:
     cross-attention; an LN forward and backward per residual (2 an
     encoder layer, 3 a decoder layer) and per last-axis affine
     layer_norm; an attention op with a per-key bias shared over the
-    batch row 6 (row 7 in the backward), any other the BSH kernels."""
+    batch row 6 (row 7 in the backward), any other the BSH kernels.  In a
+    bf16 program every flash launch is on its wgmma kernel (``*_tc``)."""
     block = program.global_block()
     n = dict.fromkeys(KERNEL_COUNTERS, 0)
     train = any(op.type.endswith("_grad") for op in block.ops)
@@ -1955,10 +2129,9 @@ def _launches_per_step(program, bf16: bool = False) -> dict:
     if not train:
         for k in ("row7", "row8", "row9", "bsh_bwd", "ln_bwd"):
             n[k] = 0
-    # a bf16 program's BSH backward runs the wgmma pair (bsh_bwd_route),
-    # and so do rows 8 and 9 (a full bias, bhsd_bwd_route) and row 6
-    # (bhsd_fwd_route)
-    for k in ("bsh_bwd", "row6", "row8", "row9"):
+    # a bf16 program's flash kernels all run on the tensor cores
+    # (bsh_fwd_route, bsh_bwd_route, bhsd_fwd_route, bhsd_bwd_route)
+    for k in ("bsh_fwd", "bsh_bwd", "row6", "row7", "row8", "row9"):
         n[f"{k}_tc"] = n[k] if bf16 else 0
     return n
 
@@ -3304,7 +3477,7 @@ def phase_mha_key_train(torch, card: str, n_steps: int = 3, b: int = 64,
     with a padding bias shared over the batch ([1, 1, 1, S]: the BSH
     kernels refuse it), attention dropout 0.1, bf16 AMP, Adam 1e-4: 3
     steps with causal off and 3 with it on, each step launching row 6
-    and row 7 once."""
+    and row 7 once, both on their wgmma kernels."""
     from paddle_tpu_torch import fluid
     from paddle_tpu_torch.contrib import mixed_precision
     from paddle_tpu_torch.fluid import layers
@@ -3446,8 +3619,13 @@ def main() -> int:
         ("bn_bwd_reduce", "paddle_tpu/ops/pallas/conv_bn.py:496"),
         ("bn_bwd_dz", "paddle_tpu/ops/pallas/conv_bn.py:510")]
     tc_paths = {
+        "flash_attention_bsh": {"bert_train": launches["bsh_fwd_tc"],
+                                "nmt_train": nlaunches["bsh_fwd_tc"],
+                                "bert_infer": 0,
+                                "nmt_infer": ninfer["bsh_fwd_tc"]},
         "flash_attention_bsh_bwd": {"bert_train": launches["bsh_bwd_tc"],
                                     "nmt_train": nlaunches["bsh_bwd_tc"]},
+        "flash_attention_bwd_fused": {"mha_key_train": mlaunches["row7_tc"]},
         "flash_attention": {"nmt_train": nlaunches["row6_tc"],
                             "mha_key_train": mlaunches["row6_tc"]},
         "flash_attention_bwd_dq": {"nmt_train": nlaunches["row8_tc"]},

@@ -61,7 +61,12 @@
 //     row only) and casts.  Cost: nk * BH * S * D * 4 bytes written and
 //     read again, nk = S / 64 (at B 64, nh 8, S 256, D 64: 134 MB each
 //     way, ~0.08 ms at 3.35 TB/s), against a second pass that would
-//     recompute s and dp (two of the five products).
+//     recompute s and dp (two of the five products).  Summing the
+//     shares within a thread-block cluster of the nk key-tile blocks
+//     instead (distributed shared memory, no scratch) measured slower
+//     on the bf16 kernel: the shares of every query row (68 KB a block at
+//     S 256) left one block an SM where the partials run two, and each
+//     cluster waits for its busiest block under causal (PERF.md, row 7).
 //
 // Bound.  Forward 4 * BH * S * S * D flops (about half when causal), row
 // 7 10x, row 8 6x, row 9 8x, against the dtype's peak, and the bytes of
@@ -70,7 +75,7 @@
 // v and o, and rows 6, 8 and 9 each stream it once: the bytes bound.
 // The SIMT kernels run f32 FMA, so they sit far above it.
 //
-// Design (SIMT: rows 6, 8 and 9 in f32, row 7 in both dtypes).  As
+// Design (SIMT: rows 6-9 in f32).  As
 // the [B, S, H] kernels: one block of 256 threads owns one tile of T rows
 // (T = 64, 32 at D = 256) of one bh and streams the other operand's
 // tiles through shared memory; all arithmetic is f32 (bf16 widens on
@@ -78,11 +83,11 @@
 // columns tx + 16 j of each score tile and of each accumulator; row max
 // and sum reduce over 16 lanes with xor shuffles; tile rows in shared
 // memory are padded by one float.  Causal tiles that no row sees are
-// skipped in all four kernels.  Row 7 in bf16 rounds p c and ds0 sm_scale
-// to bf16 before its products, as _make_bwd_fused_kernel does.
+// skipped in all four kernels.
 //
 // Row 6 on the tensor cores (bf16, every bias mode: the route of
-// nmt_train's encoder, mha_key_train and flash_block_with_lse): one
+// nmt_train's encoder, mha_key_train and flash_block_with_lse; the body,
+// fwd_tc_tile, in flash_tc.cuh, shared with row 4's [B, S, H] kernel): one
 // warpgroup owns a 64-query tile; Q lands once in a swizzled tile, and
 // the key tiles (K, V and the bias tile) stream through a 2-stage
 // cp.async ring.  S = Q K^T on wgmma, the online softmax in registers
@@ -117,9 +122,19 @@
 // no row sees are skipped (_lo_blocks / _hi_blocks).  Each reads the
 // [B, nh, S, S] bias once: one pass for both is later work.
 //
-// C interface (ctypes): flash_bhsd_fwd_launch, flash_bhsd_bwd_launch and
-// flash_bhsd_bwd_tc_launch return cudaGetLastError() after the launch
-// (the first failing one).  The kernels run on the caller's stream,
+// Row 7 on the tensor cores (bf16, no bias or a key bias: the route of
+// mha_key_train and flash_block_with_lse): row 9's kernel with the key
+// bias as two values a thread, its dbias summed along the accumulator
+// rows (the keys) in registers, and dq.  The rounded ds^T of each query
+// tile is stored once to a swizzled bf16 tile, the A operand (read
+// transposed, MN-major) of dQ_tile = ds K against the resident K tile;
+// dQ_tile is this key tile's share, summed over the key tiles through
+// the f32 partials and the summing kernel (see row 7 above).  BQ is 64 at every D, and D splits into 64-column
+// slices (grid z) that each recompute S and dP: five products at D 64.
+//
+// C interface (ctypes): flash_bhsd_fwd_launch, flash_bhsd_bwd_launch (f32)
+// and flash_bhsd_bwd_tc_launch (bf16) return cudaGetLastError() after the
+// launch (the first failing one).  The kernels run on the caller's stream,
 // allocate nothing and do not synchronise.  Check outputs (null on the
 // training path) let a test hold each bf16 rounding on its own: the
 // rounded p c (and ds) a kernel feeds its products, and row 6's running
@@ -129,7 +144,6 @@
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
-#include <type_traits>
 
 #include "flash_common.cuh"
 #include "flash_tc.cuh"
@@ -139,10 +153,6 @@ namespace {
 
 constexpr int kBQ = 64;        // forward: query rows per block
 constexpr int kThreads = 256;  // 16 x 16
-
-constexpr int kNoBias = 0;
-constexpr int kKeyBias = 1;
-constexpr int kFullBias = 2;
 
 // backward parts
 constexpr int kFused = 0;  // row 7
@@ -194,11 +204,6 @@ __device__ __forceinline__ int lo_blocks(const Args& a, int k0, int qt) {
 
 __device__ __forceinline__ bool masked(const Args& a, int row, int col) {
   return a.causal && a.q_off + row < a.k_off + col;
-}
-
-// x rounded to bf16 (round to nearest even), as f32
-__device__ __forceinline__ float bf16r(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 // bias(bh, row, col) for the block's bias row r
@@ -397,10 +402,8 @@ flash_bhsd_fwd_kernel(Args a, Dropout dr) {
 // p c (to ps, when given) and ds0 = p (dp c - delta) (to dss) of the
 // thread's scores of the tile (q0, k0), from s = q . k and dp = dO . v;
 // shared-memory row stride TT + 1; db[j] adds the thread's ds0 of column
-// tx + 16 j.  ROUND (row 7 in bf16): ps and dss take p c and ds0 sm_scale
-// rounded to bf16, the operands of the products, and so do the check
-// outputs when given.
-template <int TT, bool ROUND>
+// tx + 16 j.
+template <int TT>
 __device__ __forceinline__ void tile_probs(const Args& a, const Dropout& dr,
                                            int bh, int64_t brow, int q0,
                                            int k0,
@@ -429,15 +432,9 @@ __device__ __forceinline__ void tile_probs(const Args& a, const Dropout& dr,
                      lse_s[rl]);
       const float pc = p * cm[i][j];
       const float ds0 = p * (dp[i][j] * cm[i][j] - delta_s[rl]);
-      if (ps) ps[rl * TP + cl] = ROUND ? bf16r(pc) : pc;
-      dss[rl * TP + cl] = ROUND ? bf16r(ds0 * a.sm_scale) : ds0;
+      if (ps) ps[rl * TP + cl] = pc;
+      dss[rl * TP + cl] = ds0;
       db[j] += ds0;
-      if (ROUND && a.p_out) {
-        const int64_t at = ((int64_t)bh * a.s + row) * a.s + col;
-        static_cast<__nv_bfloat16*>(a.p_out)[at] = __float2bfloat16_rn(pc);
-        static_cast<__nv_bfloat16*>(a.ds_out)[at] =
-            __float2bfloat16_rn(ds0 * a.sm_scale);
-      }
     }
   }
 }
@@ -460,16 +457,13 @@ constexpr int kv_smem_floats() {
 // Rows 7 and 9: one block per (k tile, bh) sums dk and dv over the q
 // tiles that see it.  FUSED (row 7) adds dq's partial of this k tile and
 // the key-mode dbias column sums; otherwise (row 9) the full-bias ds0 is
-// written as dbias when asked.  Row 7 in bf16 rounds as
-// _make_bwd_fused_kernel does: p c to bf16 before dv, ds = ds0 sm_scale to
-// bf16 before dk and dq (sm_scale is then in ds); its key dbias sums the
-// unrounded ds0, each thread its columns' share in registers, added over
-// the threads in a fixed order at the end.
+// written as dbias when asked.  Row 7's key dbias: each thread its
+// columns' share in registers, added over the threads in a fixed order at
+// the end.  float32 only (bf16 takes the tensor cores).
 template <typename T, int TT, int D, bool FUSED>
 __global__ void __launch_bounds__(kThreads)
 flash_bhsd_bwd_kv_kernel(Args a, Dropout dr) {
-  constexpr bool ROUND = FUSED && std::is_same<T, __nv_bfloat16>::value;
-  const float ds_scale = ROUND ? 1.f : a.sm_scale;  // left for dk and dq
+  const float ds_scale = a.sm_scale;  // left out of ds for dk and dq
   constexpr int R = TT / 16;
   constexpr int DP = D + 1;
   constexpr int TP = TT + 1;
@@ -526,7 +520,7 @@ flash_bhsd_bwd_kv_kernel(Args a, Dropout dr) {
     float s[R][R], dp[R][R];
     tile_dot<TT, D>(qs, ks, s);
     tile_dot<TT, D>(dos, vs, dp);
-    tile_probs<TT, ROUND>(a, dr, bh, brow, q0, k0, s, dp, lse_s, delta_s, ps,
+    tile_probs<TT>(a, dr, bh, brow, q0, k0, s, dp, lse_s, delta_s, ps,
                           dss, db);
     __syncthreads();
     // dv[c] += sum_r p[r][c] dO[r];  dk[c] += sum_r ds0[r][c] q[r]
@@ -629,6 +623,16 @@ flash_bhsd_dq_sum_kernel(Args a, int d) {
   }
 }
 
+// launch flash_bhsd_dq_sum_kernel over a.dq: at most 16 blocks an SM
+template <typename T, int TT>
+int launch_dq_sum(const Args& a, int d, cudaStream_t stream) {
+  const int64_t total = (int64_t)a.bh_count * a.s * d;
+  const int64_t need = (total + kThreads - 1) / kThreads;
+  const int blocks = static_cast<int>(need < 132 * 16 ? need : 132 * 16);
+  flash_bhsd_dq_sum_kernel<T, TT><<<blocks, kThreads, 0, stream>>>(a, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int TT, int D>
 constexpr int dq_smem_floats() {
   return 4 * TT * (D + 1) + TT * (TT + 1) + 2 * TT;
@@ -681,7 +685,7 @@ flash_bhsd_bwd_dq_kernel(Args a, Dropout dr) {
     tile_dot<TT, D>(qs, ks, s);
     tile_dot<TT, D>(dos, vs, dp);
     float db_unused[R] = {};
-    tile_probs<TT, false>(a, dr, bh, brow, q0, k0, s, dp, lse_s, delta_s,
+    tile_probs<TT>(a, dr, bh, brow, q0, k0, s, dp, lse_s, delta_s,
                           nullptr, dss, db_unused);
     __syncthreads();
 #pragma unroll 4
@@ -713,34 +717,7 @@ flash_bhsd_bwd_dq_kernel(Args a, Dropout dr) {
 // rows 8 and 9 on the tensor cores (bf16 with a full bias)
 // ---------------------------------------------------------------------------
 
-// a staged bias row: 64 keys and a pad that keeps the dk/dv kernel's
-// transposed read of a fragment's bias (row = key) free of bank
-// conflicts, and the dq kernel's (row = query) too for a bf16 bias (an
-// f32 one takes 2-way conflicts there)
-template <typename BT>
-__host__ __device__ constexpr int bias_pitch() {
-  return 64 + 16 / static_cast<int>(sizeof(BT));
-}
 constexpr int kDbPitch = 68;  // the dk/dv kernel's staged ds0 rows (f32)
-
-template <typename BT>
-__host__ __device__ constexpr int bias_tile_bytes(int rows) {
-  return rows * bias_pitch<BT>() * static_cast<int>(sizeof(BT));
-}
-
-// cp.async R rows of 64 bias values (row stride s elements) into rows of
-// bias_pitch<BT>() at dst
-template <int R, typename BT>
-__device__ __forceinline__ void bias_async(uint32_t dst, const BT* src,
-                                           int s) {
-  constexpr int CH = 64 * static_cast<int>(sizeof(BT)) / 16;  // chunks a row
-  constexpr int EL = 16 / static_cast<int>(sizeof(BT));       // values a chunk
-  constexpr int P = bias_pitch<BT>() * static_cast<int>(sizeof(BT));
-  for (int idx = threadIdx.x; idx < R * CH; idx += 128) {
-    const int r = idx / CH, ch = idx - r * CH;
-    cp_async16(dst + r * P + ch * 16, src + (int64_t)r * s + ch * EL, true);
-  }
-}
 
 template <int D, int BQ, typename BT>
 constexpr int dkv_tc_smem_bytes() {
@@ -1082,238 +1059,259 @@ flash_bhsd_bwd_dq_tc_kernel(Args a, Dropout dr) {
 }
 
 // ---------------------------------------------------------------------------
-// row 6 on the tensor cores (bf16)
+// row 7 on the tensor cores (bf16, no bias or a key bias)
 // ---------------------------------------------------------------------------
 
-// shared memory of the bias tile of one key tile: a full bias's 64 query
-// rows, a key bias's 64 values
-template <int BMODE, typename BT>
-__host__ __device__ constexpr int fwd_bias_bytes() {
-  return BMODE == kFullBias ? bias_tile_bytes<BT>(kTcRows)
-                            : BMODE == kKeyBias ? 64 * 4 : 0;
+// the fused kernel's shared memory: K, V, a 2-stage ring of Q and dO,
+// the ds^T tile, lse and delta
+template <int D>
+constexpr int fused_tc_smem_bytes() {
+  return 6 * kTcRows * D * 2 + kTcRows * kTcRows * 2 + 4 * kTcRows * 4 +
+         1024;
 }
 
-template <int D, int DO, int BMODE, typename BT>
-constexpr int fwd_tc_smem_bytes() {
-  return kTcRows * D * 2 + 2 * kTcRows * (D + DO) * 2 +
-         2 * fwd_bias_bytes<BMODE, BT>() + 1024;
-}
-
-// m and l of one query row over the quad of lanes that holds it
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// Row 6: o and lse of one (64-query tile, bh, DO-column slice of the
-// head): one warpgroup; Q lands once, the key tiles (64 rows of k, the
-// slice of v, and the bias tile: a full bias's [64 queries x 64 keys], a
-// key bias's 64 values) stream through a 2-stage cp.async ring.  Per key
-// tile: S = Q . K^T (wgmma, K-major B), then in registers the scores
-// (scale, bias in f32, p = 0 at a masked score), the online softmax (row
-// max and sum over the quad of lanes that holds a row; l sums the
-// undropped p), and p c rounded to bf16 as the A operand of O += (p c) . V
-// (V MN-major), after O is rescaled by alpha = exp(m - m_new) (the
-// previous tile's P . V has retired by then).  A row that sees no key
-// keeps m = NEG_INF, l = 0: o = 0, lse = NEG_INF.  The slice dsplit 0
-// writes lse and the check outputs.
-template <int D, int DO, int BMODE, typename BT>
+// Row 7: dk, dv, the key dbias and dq's share of one (64-key tile, bh,
+// 64-column slice of the head): one warpgroup; K and V land once, the
+// query tiles (64 rows of q and dO, their lse and delta) stream through a
+// 2-stage cp.async ring.  Per query tile:
+//   S^T  = K . Q^T and dP^T = V . dO^T   (A: K, V; B: Q, dO; K-major)
+//   p c and ds = ds0 sm_scale in registers, rounded to bf16 as
+//   _make_bwd_fused_kernel rounds them: the A operands of
+//   dV  += (p c)^T . dO and dK += ds^T . Q  (B: dO, Q; MN-major)
+//   the rounded ds^T stored once to a swizzled bf16 tile, the A operand
+//   (read transposed) of dQ_tile = ds . K (B: K, MN-major)
+// The accumulator rows are keys: the key bias is two values a thread,
+// loaded once, and the key dbias (the unrounded ds0) adds along each row
+// in the thread's registers, its quad summed by shuffles at the end, in a
+// fixed order.  dQ_tile is this key tile's share of the query tile's dq,
+// written as the f32 partial [nk, BH, S, D] that flash_bhsd_dq_sum_kernel
+// sums in key-tile order.
+template <int D>
 __global__ void __launch_bounds__(128)
-flash_bhsd_fwd_tc_kernel(Args a, Dropout dr) {
-  constexpr int T_BYTES = kTcRows * D * 2;     // the Q tile, a K tile
-  constexpr int STAGE = T_BYTES + kTcRows * DO * 2;   // K, then V's slice
+flash_bhsd_bwd_fused_tc_kernel(Args a, Dropout dr) {
+  constexpr int T_BYTES = kTcRows * D * 2;   // a K, V, Q or dO tile
   constexpr int NB = kTcRows / 8;
-  constexpr int BP = bias_pitch<BT>();
-  constexpr int BIAS_BYTES = fwd_bias_bytes<BMODE, BT>();
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t pad = (1024u - (raw & 1023u)) & 1023u;
-  const uint32_t qs = raw + pad;
-  const uint32_t kv0 = qs + T_BYTES;   // stage st at kv0 + st * STAGE
-  uint8_t* bias_p = smem_raw + pad + T_BYTES + 2 * STAGE;  // [2] tiles
+  uint8_t* base_p = smem_raw + pad;
+  const uint32_t ks = raw + pad, vs = ks + T_BYTES;
+  const uint32_t qs0 = vs + T_BYTES;  // stage st: Q at qs0 + st * 2 * T_BYTES,
+                                      // dO T_BYTES after it
+  const uint32_t dst = qs0 + 4 * T_BYTES;   // ds^T [64 keys x 64 queries]
+  float* stat_s = reinterpret_cast<float*>(
+      base_p + 6 * T_BYTES + kTcRows * kTcRows * 2);  // [2][lse, delta][64]
 
-  const int q0 = blockIdx.x * kTcRows;
+  const int kt = blockIdx.x, k0 = kt * kTcRows;
   const int bh = blockIdx.y, dsplit = blockIdx.z;
   const int s = a.s;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
   const int64_t base = (int64_t)bh * s * D;
-  const int64_t qofs = base + (int64_t)q0 * D;
-  const __nv_bfloat16* kb = static_cast<const __nv_bfloat16*>(a.k) + base;
-  const __nv_bfloat16* vb =
-      static_cast<const __nv_bfloat16*>(a.v) + base + dsplit * DO;
-  const int64_t brow = BMODE ? (bh / a.row_div) % a.row_mod : 0;
-  const BT* biasb = static_cast<const BT*>(a.bias) +
-                    (BMODE == kFullBias ? (brow * s + q0) * (int64_t)s
-                                        : brow * s);
-  const int nk = hi_blocks(a, q0, kTcRows, kTcRows);
-  const bool checks = dsplit == 0;
+  const __nv_bfloat16* qb = static_cast<const __nv_bfloat16*>(a.q) + base;
+  const __nv_bfloat16* dob = static_cast<const __nv_bfloat16*>(a.dout) + base;
+  const int64_t kofs = base + (int64_t)k0 * D;
+  const float* lseb = a.lse + (int64_t)bh * s;
+  const float* deltab = a.delta + (int64_t)bh * s;
+  const int nq = s / kTcRows;
+  const int lo = lo_blocks(a, k0, kTcRows);
 
-  auto load_kv = [&](int kt, int st) {
-    const uint32_t kd = kv0 + st * STAGE;
-    const int64_t at = (int64_t)kt * kTcRows * D;
-    tile_async<kTcRows, D>(kd, kb + at, D);
-    tile_async<kTcRows, DO>(kd + T_BYTES, vb + at, D);
-    const uint32_t bd = smem_u32(bias_p + st * BIAS_BYTES);
-    if constexpr (BMODE == kFullBias)
-      bias_async<kTcRows, BT>(bd, biasb + kt * kTcRows, s);
-    else if constexpr (BMODE == kKeyBias)
-      bias_async<1, BT>(bd, biasb + kt * kTcRows, s);
+  auto load_q = [&](int qt, int st) {
+    const uint32_t qd = qs0 + st * 2 * T_BYTES;
+    tile_async<kTcRows, D>(qd, qb + (int64_t)qt * kTcRows * D, D);
+    tile_async<kTcRows, D>(qd + T_BYTES, dob + (int64_t)qt * kTcRows * D, D);
+    const uint32_t sd = smem_u32(stat_s + st * 2 * kTcRows);
+    if (tid < kTcRows / 4)
+      cp_async16(sd + tid * 16, lseb + qt * kTcRows + tid * 4, true);
+    else if (tid < kTcRows / 2)
+      cp_async16(sd + kTcRows * 4 + (tid - kTcRows / 4) * 16,
+                 deltab + qt * kTcRows + (tid - kTcRows / 4) * 4, true);
   };
 
-  tile_async<kTcRows, D>(qs, static_cast<const __nv_bfloat16*>(a.q) + qofs,
+  tile_async<kTcRows, D>(ks, static_cast<const __nv_bfloat16*>(a.k) + kofs,
                          D);
-  if (nk > 0) load_kv(0, 0);
+  tile_async<kTcRows, D>(vs, static_cast<const __nv_bfloat16*>(a.v) + kofs,
+                         D);
+  if (lo < nq) load_q(lo, 0);
   cp_async_commit();
 
-  const int qr0 = 16 * warp + g;  // this thread's query rows qr0, qr0 + 8
+  const int kr0 = 16 * warp + g;  // this thread's key rows kr0, kr0 + 8
+  const float* biasb =
+      a.bias_mode == kKeyBias
+          ? static_cast<const float*>(a.bias) +
+                ((bh / a.row_div) % a.row_mod) * (int64_t)s + k0
+          : nullptr;
+  const float bias0 = biasb ? biasb[kr0] : 0.f;
+  const float bias1 = biasb ? biasb[kr0 + 8] : 0.f;
   const float scale = a.sm_scale;
-  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
-  float o[DO / 64][32];
-#pragma unroll
-  for (int cb = 0; cb < DO / 64; ++cb) zero(o[cb]);
+  const bool checks = a.p_out && dsplit == 0;
 
-  for (int kt = 0; kt < nk; ++kt) {
-    const int st = kt & 1;
-    cp_async_wait<0>();   // this key tile (and, first, Q) has landed
+  float dk[32], dv[32];
+  zero(dk);
+  zero(dv);
+  float db0 = 0.f, db1 = 0.f;  // the key dbias of rows kr0, kr0 + 8
+
+  for (int qt = lo; qt < nq; ++qt) {
+    const int st = (qt - lo) & 1;
+    cp_async_wait<0>();  // this tile (and, first, K and V) has landed
     fence_async_smem();
-    __syncthreads();      // for every thread; the other stage is free
-    if (kt + 1 < nk) load_kv(kt + 1, st ^ 1);
+    __syncthreads();     // for every thread; the other stage and ds^T free
+    if (qt + 1 < nq) load_q(qt + 1, st ^ 1);
     cp_async_commit();
 
-    const uint32_t kd = kv0 + st * STAGE, vd = kd + T_BYTES;
-    const BT* bias_t = reinterpret_cast<const BT*>(bias_p + st * BIAS_BYTES);
-    float sacc[32];
+    const uint32_t qd = qs0 + st * 2 * T_BYTES, dod = qd + T_BYTES;
+    const float* lse_s = stat_s + st * 2 * kTcRows;
+    const float* delta_s = lse_s + kTcRows;
+    float sacc[32], dpacc[32];
     zero(sacc);
+    zero(dpacc);
     fence_regs(sacc);
+    fence_regs(dpacc);
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t off = (kk >> 2) * (kTcRows * 128) + (kk & 3) * 32;
-      wgmma_ss<64, 0>(sacc, desc_sw128(qs + off), desc_sw128(kd + off));
+      wgmma_ss<64, 0>(sacc, desc_sw128(ks + off), desc_sw128(qd + off));
+      wgmma_ss<64, 0>(dpacc, desc_sw128(vs + off), desc_sw128(dod + off));
     }
     wg_commit();
-    // the dropout multipliers (Philox: arithmetic alone) while the
-    // products run
-    const int k0 = kt * kTcRows;
+    // the dropout multipliers while the products run
+    const int q0 = qt * kTcRows;
     float cm[32];
-    drop_queries_by_keys<NB>(dr, bh, s, s, q0 + qr0, k0, cm);
+    drop_keys_by_queries<NB>(dr, bh, s, s, k0 + kr0, q0, cm);
     wg_wait<0>();
     fence_regs(sacc);
+    fence_regs(dpacc);
 
-    // the scores and their row maxima (a masked score is NEG_INF)
-    float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
     for (int i = 0; i < NB; ++i)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int idx = 4 * i + e;
-        const int qr = qr0 + ((e & 2) ? 8 : 0);
-        const int kc = 8 * i + 2 * t + (e & 1);
-        float x = sacc[idx] * scale;
-        if constexpr (BMODE == kFullBias) x += to_float(bias_t[qr * BP + kc]);
-        if constexpr (BMODE == kKeyBias) x += to_float(bias_t[kc]);
-        if (masked(a, q0 + qr, k0 + kc)) x = kNegInf;
-        sacc[idx] = x;
-        if (e & 2)
-          mx1 = fmaxf(mx1, x);
-        else
-          mx0 = fmaxf(mx0, x);
-      }
-    const float mn0 = fmaxf(m0, quad_max(mx0));
-    const float mn1 = fmaxf(m1, quad_max(mx1));
-    // alpha = 1 where the max did not move: also in a row that has seen
-    // no key yet (m = m_new = NEG_INF), never exp(NEG_INF - NEG_INF)
-    const float al0 = mn0 == m0 ? 1.f : __expf(m0 - mn0);
-    const float al1 = mn1 == m1 ? 1.f : __expf(m1 - mn1);
-
-    float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-    for (int i = 0; i < NB; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int idx = 4 * i + e;
-        const int qr = qr0 + ((e & 2) ? 8 : 0);
-        const int kc = 8 * i + 2 * t + (e & 1);
+        const int kr = kr0 + ((e & 2) ? 8 : 0);
+        const int qc = 8 * i + 2 * t + (e & 1);
+        const float x = sacc[idx] * scale + ((e & 2) ? bias1 : bias0);
         // p = 0 at a masked score, also in a row that sees no key
-        const float p = masked(a, q0 + qr, k0 + kc)
-                            ? 0.f
-                            : __expf(sacc[idx] - ((e & 2) ? mn1 : mn0));
+        const float p = masked(a, q0 + qc, k0 + kr) ? 0.f
+                                                    : __expf(x - lse_s[qc]);
+        const float ds0 = p * (dpacc[idx] * cm[idx] - delta_s[qc]);
+        sacc[idx] = p * cm[idx];    // p c
+        dpacc[idx] = ds0 * scale;   // ds
         if (e & 2)
-          rs1 += p;
+          db1 += ds0;
         else
-          rs0 += p;
-        sacc[idx] = p * cm[idx];   // p c: the numerator only
-        if (checks && (a.p_out || dr.bits_out)) {
-          const int64_t at = ((int64_t)bh * s + q0 + qr) * s + k0 + kc;
-          if (a.p_out)
-            static_cast<__nv_bfloat16*>(a.p_out)[at] =
-                __float2bfloat16_rn(sacc[idx]);
-          if (dr.bits_out) dr.bits_out[at] = cm[idx] != 0.f ? 1 : 0;
+          db0 += ds0;
+        if (checks) {
+          const int64_t at = ((int64_t)bh * s + q0 + qc) * s + k0 + kr;
+          static_cast<__nv_bfloat16*>(a.p_out)[at] =
+              __float2bfloat16_rn(sacc[idx]);
+          static_cast<__nv_bfloat16*>(a.ds_out)[at] =
+              __float2bfloat16_rn(dpacc[idx]);
         }
       }
-    l0 = l0 * al0 + quad_sum(rs0);
-    l1 = l1 * al1 + quad_sum(rs1);
-    m0 = mn0;
-    m1 = mn1;
-    if (checks && a.m_out && t == 0) {
-      const int64_t at = ((int64_t)bh * s + q0 + qr0) * (s / kTcRows) + kt;
-      a.m_out[at] = mn0;
-      a.m_out[at + 8 * (s / kTcRows)] = mn1;
+    // the rounded ds^T, rows keys and columns queries: dQ's A, MN-major
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(dst + swz128(kr0, i) +
+                                                      4 * t),
+                   "r"(pack_bf16(dpacc[4 * i], dpacc[4 * i + 1])));
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(dst +
+                                                      swz128(kr0 + 8, i) +
+                                                      4 * t),
+                   "r"(pack_bf16(dpacc[4 * i + 2], dpacc[4 * i + 3])));
     }
 
-    // O = O alpha + (p c) . V: the previous tile's products have retired
-    // (wg_wait<0> below), so the accumulators may be rescaled here
-#pragma unroll
-    for (int cb = 0; cb < DO / 64; ++cb) {
-#pragma unroll
-      for (int i = 0; i < NB; ++i) {
-        o[cb][4 * i] *= al0;
-        o[cb][4 * i + 1] *= al0;
-        o[cb][4 * i + 2] *= al1;
-        o[cb][4 * i + 3] *= al1;
-      }
-      fence_regs(o[cb]);
-    }
+    fence_async_smem();
+    __syncthreads();     // every thread's ds^T is in the tile
+
+    // dV += (p c)^T dO, dK += ds^T Q, dQ_tile = ds K: one group
+    float dq[32];
+    zero(dq);
+    fence_regs(dq);
+    fence_regs(dk);
+    fence_regs(dv);
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < kTcRows / 16; ++kk) {
-      uint32_t pa[4];
+      uint32_t pa[4], da[4];
       a_frag(sacc, kk, pa);
-#pragma unroll
-      for (int cb = 0; cb < DO / 64; ++cb)
-        wgmma_rs_n64<1>(o[cb], pa,
-                        desc_sw128(vd + cb * (kTcRows * 128) + kk * 16 * 128));
+      a_frag(dpacc, kk, da);
+      const uint32_t off = dsplit * (kTcRows * 128) + kk * 16 * 128;
+      wgmma_rs_n64<1>(dv, pa, desc_sw128(dod + off));
+      wgmma_rs_n64<1>(dk, da, desc_sw128(qd + off));
+      wgmma_ss_n64_mn(dq, desc_sw128(dst + kk * 16 * 128),
+                      desc_sw128(ks + off));
     }
     wg_commit();
     wg_wait<0>();
+    fence_regs(dk);
+    fence_regs(dv);
+    fence_regs(dq);
+
+    // this key tile's share of dq: query rows 16 warp + g (+ 8), columns
+    // 8 i + 2 t (+ 1) of the slice
+    float* dqp = a.dq_part +
+                 (((int64_t)kt * a.bh_count + bh) * s + q0 + kr0) * D +
+                 dsplit * 64;
 #pragma unroll
-    for (int cb = 0; cb < DO / 64; ++cb) fence_regs(o[cb]);
+    for (int i = 0; i < NB; ++i) {
+      *reinterpret_cast<float2*>(dqp + 8 * i + 2 * t) =
+          make_float2(dq[4 * i], dq[4 * i + 1]);
+      *reinterpret_cast<float2*>(dqp + 8 * D + 8 * i + 2 * t) =
+          make_float2(dq[4 * i + 2], dq[4 * i + 3]);
+    }
   }
   cp_async_wait<0>();
 
-  const float ls0 = fmaxf(l0, 1e-30f), ls1 = fmaxf(l1, 1e-30f);
-#pragma unroll
-  for (int cb = 0; cb < DO / 64; ++cb) {
-#pragma unroll
-    for (int i = 0; i < NB; ++i) {
-      o[cb][4 * i] /= ls0;
-      o[cb][4 * i + 1] /= ls0;
-      o[cb][4 * i + 2] /= ls1;
-      o[cb][4 * i + 3] /= ls1;
+  store_frag(static_cast<__nv_bfloat16*>(a.dk) + kofs + dsplit * 64, D, dk);
+  store_frag(static_cast<__nv_bfloat16*>(a.dv) + kofs + dsplit * 64, D, dv);
+  if (a.dbias && dsplit == 0) {
+    db0 = quad_sum(db0);
+    db1 = quad_sum(db1);
+    if (t == 0) {
+      a.dbias[(int64_t)bh * s + k0 + kr0] = db0;
+      a.dbias[(int64_t)bh * s + k0 + kr0 + 8] = db1;
     }
-    store_frag(static_cast<__nv_bfloat16*>(a.o) + qofs + dsplit * DO +
-                   cb * 64,
-               D, o[cb]);
   }
-  if (checks && t == 0) {
-    a.lse[(int64_t)bh * s + q0 + qr0] = m0 + logf(ls0);
-    a.lse[(int64_t)bh * s + q0 + qr0 + 8] = m1 + logf(ls1);
-  }
+}
+
+// ---------------------------------------------------------------------------
+// row 6 on the tensor cores (bf16)
+// ---------------------------------------------------------------------------
+
+// Row 6: o and lse of one (64-query tile, bh, DO-column slice of the
+// head), the forward body of flash_tc.cuh (fwd_tc_tile) at [B, nh, S, D]
+// rows; the slice dsplit 0 writes lse and the check outputs.
+template <int D, int DO, int BMODE, typename BT>
+__global__ void __launch_bounds__(128)
+flash_bhsd_fwd_tc_kernel(Args a, Dropout dr) {
+  const int q0 = blockIdx.x * kTcRows;
+  const int bh = blockIdx.y, dsplit = blockIdx.z;
+  const int s = a.s;
+  const int64_t base = (int64_t)bh * s * D;
+  const int64_t brow = BMODE ? (bh / a.row_div) % a.row_mod : 0;
+  FwdTile f;
+  f.q = static_cast<const __nv_bfloat16*>(a.q) + base + (int64_t)q0 * D;
+  f.k = static_cast<const __nv_bfloat16*>(a.k) + base;
+  f.v = static_cast<const __nv_bfloat16*>(a.v) + base + dsplit * DO;
+  f.o = static_cast<__nv_bfloat16*>(a.o) + base + (int64_t)q0 * D +
+        dsplit * DO;
+  f.rs = D;
+  f.bias = static_cast<const BT*>(a.bias) +
+           (BMODE == kFullBias ? (brow * s + q0) * (int64_t)s : brow * s);
+  f.lse = a.lse + (int64_t)bh * s + q0;
+  f.p_out = static_cast<__nv_bfloat16*>(a.p_out);
+  f.m_out = a.m_out;
+  f.bh = bh;
+  f.sq = f.skv = s;
+  f.q0 = q0;
+  f.nk = hi_blocks(a, q0, kTcRows, kTcRows);
+  f.causal = a.causal;
+  f.q_off = a.q_off;
+  f.k_off = a.k_off;
+  f.sm_scale = a.sm_scale;
+  f.checks = dsplit == 0;
+  fwd_tc_tile<D, DO, BMODE, BT>(f, dr);
 }
 
 // ---------------------------------------------------------------------------
@@ -1395,61 +1393,54 @@ int launch_fwd_tc_d(int head_dim, const Args& a, const Dropout& dr,
   }
 }
 
-template <typename T, int TT, int D>
+// Rows 7-9 on the SIMT cores (float32)
+template <int TT, int D>
 int launch_bwd(int part, const Args& a, const Dropout& dr,
                cudaStream_t stream) {
   constexpr int kKv = kv_smem_floats<TT, D>() * static_cast<int>(sizeof(float));
   constexpr int kQ = dq_smem_floats<TT, D>() * static_cast<int>(sizeof(float));
   static const cudaError_t attr_fused =
-      allow_smem(flash_bhsd_bwd_kv_kernel<T, TT, D, true>, kKv);
+      allow_smem(flash_bhsd_bwd_kv_kernel<float, TT, D, true>, kKv);
+  static const cudaError_t attr_dkv =
+      allow_smem(flash_bhsd_bwd_kv_kernel<float, TT, D, false>, kKv);
+  static const cudaError_t attr_dq =
+      allow_smem(flash_bhsd_bwd_dq_kernel<float, TT, D>, kQ);
   if (a.s % TT != 0) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(a.s / TT, a.bh_count);
   if (part == kFused) {
     if (attr_fused != cudaSuccess) return static_cast<int>(attr_fused);
     if (a.bias_mode == kFullBias || !a.dq_part)
       return static_cast<int>(cudaErrorInvalidValue);
-    flash_bhsd_bwd_kv_kernel<T, TT, D, true>
+    flash_bhsd_bwd_kv_kernel<float, TT, D, true>
         <<<grid, kThreads, kKv, stream>>>(a, dr);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
-    const int64_t total = (int64_t)a.bh_count * a.s * D;
-    const int64_t need = (total + kThreads - 1) / kThreads;
-    const int blocks = static_cast<int>(need < 132 * 16 ? need : 132 * 16);
-    flash_bhsd_dq_sum_kernel<T, TT><<<blocks, kThreads, 0, stream>>>(a, D);
+    return launch_dq_sum<float, TT>(a, D, stream);
+  }
+  if (part == kDq) {
+    if (attr_dq != cudaSuccess) return static_cast<int>(attr_dq);
+    flash_bhsd_bwd_dq_kernel<float, TT, D>
+        <<<grid, kThreads, kQ, stream>>>(a, dr);
     return static_cast<int>(cudaGetLastError());
   }
-  if constexpr (std::is_same<T, float>::value) {
-    // rows 8 and 9 in bf16 take the tensor cores (flash_bhsd_bwd_tc_launch)
-    static const cudaError_t attr_dkv =
-        allow_smem(flash_bhsd_bwd_kv_kernel<T, TT, D, false>, kKv);
-    static const cudaError_t attr_dq =
-        allow_smem(flash_bhsd_bwd_dq_kernel<T, TT, D>, kQ);
-    if (part == kDq) {
-      if (attr_dq != cudaSuccess) return static_cast<int>(attr_dq);
-      flash_bhsd_bwd_dq_kernel<T, TT, D>
-          <<<grid, kThreads, kQ, stream>>>(a, dr);
-      return static_cast<int>(cudaGetLastError());
-    }
-    if (part == kDkv) {
-      if (attr_dkv != cudaSuccess) return static_cast<int>(attr_dkv);
-      flash_bhsd_bwd_kv_kernel<T, TT, D, false>
-          <<<grid, kThreads, kKv, stream>>>(a, dr);
-      return static_cast<int>(cudaGetLastError());
-    }
+  if (part == kDkv) {
+    if (attr_dkv != cudaSuccess) return static_cast<int>(attr_dkv);
+    flash_bhsd_bwd_kv_kernel<float, TT, D, false>
+        <<<grid, kThreads, kKv, stream>>>(a, dr);
+    return static_cast<int>(cudaGetLastError());
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <typename T>
 int launch_bwd_d(int head_dim, int part, const Args& a, const Dropout& dr,
                  cudaStream_t stream) {
   switch (head_dim) {
     case 64:
-      return launch_bwd<T, 64, 64>(part, a, dr, stream);
+      return launch_bwd<64, 64>(part, a, dr, stream);
     case 128:
-      return launch_bwd<T, 64, 128>(part, a, dr, stream);
+      return launch_bwd<64, 128>(part, a, dr, stream);
     case 256:
-      return launch_bwd<T, 32, 256>(part, a, dr, stream);
+      return launch_bwd<32, 256>(part, a, dr, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1493,6 +1484,38 @@ int launch_bwd_tc_d(int head_dim, int part, const Args& a, const Dropout& dr,
       return launch_bwd_tc<128, 32, 128, BT>(part, a, dr, stream);
     case 256:
       return launch_bwd_tc<256, 32, 128, BT>(part, a, dr, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Row 7 on the tensor cores: one block per (64-key tile, bh, 64-column
+// slice), then the summing kernel over dq_part (f32 [S / 64, BH, S, D]).
+template <int D>
+int launch_fused_tc(const Args& a, const Dropout& dr, cudaStream_t stream) {
+  constexpr int kBytes = fused_tc_smem_bytes<D>();
+  static const cudaError_t attr =
+      allow_smem(flash_bhsd_bwd_fused_tc_kernel<D>, kBytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  if (a.s % kTcRows != 0 || a.bias_mode == kFullBias || !a.dq_part)
+    return static_cast<int>(cudaErrorInvalidValue);
+  flash_bhsd_bwd_fused_tc_kernel<D>
+      <<<dim3(a.s / kTcRows, a.bh_count, D / 64), 128, kBytes, stream>>>(a,
+                                                                      dr);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return launch_dq_sum<__nv_bfloat16, kTcRows>(a, D, stream);
+}
+
+int launch_fused_tc_d(int head_dim, const Args& a, const Dropout& dr,
+                      cudaStream_t stream) {
+  switch (head_dim) {
+    case 64:
+      return launch_fused_tc<64>(a, dr, stream);
+    case 128:
+      return launch_fused_tc<128>(a, dr, stream);
+    case 256:
+      return launch_fused_tc<256>(a, dr, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1568,15 +1591,13 @@ extern "C" int flash_bhsd_fwd_launch(
   return launch_fwd_tc_d(head_dim, a, dr, st);
 }
 
-// Rows 7-9 on the SIMT cores.  part: 0 the single pass (row 7: dq, dk,
+// Rows 7-9 on the SIMT cores (dtype 0 = float32 only; bf16 takes
+// flash_bhsd_bwd_tc_launch).  part: 0 the single pass (row 7: dq, dk,
 // dv, and the key dbias [BH, S] when dbias is given; dq_part is f32
 // scratch [S / T, BH, S, D], T = 64, 32 at D = 256), 1 dq (row 8), 2 dk
-// and dv (row 9: the full dbias [BH, S, S] f32 when dbias is given);
-// parts 1 and 2 in float32 only (bf16: flash_bhsd_bwd_tc_launch).  lse,
-// delta: f32 [BH, S]; dout and the gradients in the dtype; the rest as
-// the forward's.  p_out and ds_out (bf16 [BH, S, S] or null; row 7 in
-// bf16 only, null on the training path) receive the rounded p c and ds0
-// sm_scale row 7's products take.
+// and dv (row 9: the full dbias [BH, S, S] f32 when dbias is given).
+// lse, delta: f32 [BH, S]; dout and the gradients in the dtype; the rest
+// as the forward's.
 extern "C" int flash_bhsd_bwd_launch(
     int part, const void* q, const void* k, const void* v, const void* bias,
     int bias_mode, int bias_bf16, int row_div, int row_mod, const void* lse,
@@ -1584,7 +1605,7 @@ extern "C" int flash_bhsd_bwd_launch(
     void* dq_part, void* dbias, int bh_count, int s, int head_dim,
     float sm_scale, int causal, int q_off, int k_off, int dtype,
     int drop_mode, const void* mask, unsigned long long seed, int offset,
-    int thresh, float keep_div, void* p_out, void* ds_out, void* stream) {
+    int thresh, float keep_div, void* stream) {
   Args a = make_args(q, k, v, bias, bias_mode, bias_bf16, row_div, row_mod,
                      bh_count, s, sm_scale, causal, q_off, k_off);
   a.lse = const_cast<float*>(static_cast<const float*>(lse));
@@ -1595,24 +1616,21 @@ extern "C" int flash_bhsd_bwd_launch(
   a.dv = dv;
   a.dq_part = static_cast<float*>(dq_part);
   a.dbias = static_cast<float*>(dbias);
-  a.p_out = p_out;
-  a.ds_out = ds_out;
-  if (!args_ok(a, dtype) || !dropout_ok(drop_mode, mask, thresh, keep_div) ||
-      (p_out == nullptr) != (ds_out == nullptr) ||
-      (p_out && (dtype != 1 || part != kFused)))
+  if (!args_ok(a, dtype) || dtype != 0 ||
+      !dropout_ok(drop_mode, mask, thresh, keep_div))
     return static_cast<int>(cudaErrorInvalidValue);
   const Dropout dr =
       make_dropout(drop_mode, mask, nullptr, seed, offset, thresh, keep_div);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_bwd_d<float>(head_dim, part, a, dr, st);
-  return launch_bwd_d<__nv_bfloat16>(head_dim, part, a, dr, st);
+  return launch_bwd_d(head_dim, part, a, dr,
+                      static_cast<cudaStream_t>(stream));
 }
 
-// Rows 8 and 9 on the tensor cores: the arguments of flash_bhsd_bwd_launch
-// (part 1 or 2, dtype 1 = bfloat16, bias_mode 2 = full, f32 or bf16;
-// dq_part unused), then three check outputs that are null on the training
-// path: p_out and ds_out receive row 9's rounded p c and ds, dsq_out row
-// 8's ds (bf16 [BH, S, S]).
+// Rows 7-9 on the tensor cores (dtype 1 = bfloat16): the arguments of
+// flash_bhsd_bwd_launch, then three check outputs that are null on the
+// training path (bf16 [BH, S, S]): p_out and ds_out receive the rounded p
+// c and ds of row 7 or row 9, dsq_out row 8's ds.  Part 0 (row 7) takes
+// no bias or a key bias, and dq_part as f32 scratch [S / 64, BH, S, D].
+// Parts 1 and 2 (rows 8 and 9) take a full bias, f32 or bf16.
 extern "C" int flash_bhsd_bwd_tc_launch(
     int part, const void* q, const void* k, const void* v, const void* bias,
     int bias_mode, int bias_bf16, int row_div, int row_mod, const void* lse,
@@ -1630,19 +1648,22 @@ extern "C" int flash_bhsd_bwd_tc_launch(
   a.dq = dq;
   a.dk = dk;
   a.dv = dv;
+  a.dq_part = static_cast<float*>(dq_part);
   a.dbias = static_cast<float*>(dbias);
   a.p_out = p_out;
   a.ds_out = ds_out;
   a.dsq_out = dsq_out;
-  (void)dq_part;
-  if (!args_ok(a, dtype) || dtype != 1 || bias_mode != kFullBias ||
-      (part != kDq && part != kDkv) ||
+  const bool fused_ok = part == kFused && bias_mode != kFullBias && !dsq_out;
+  const bool split_ok = (part == kDq || part == kDkv) &&
+                        bias_mode == kFullBias;
+  if (!args_ok(a, dtype) || dtype != 1 || !(fused_ok || split_ok) ||
       (p_out == nullptr) != (ds_out == nullptr) ||
       !dropout_ok(drop_mode, mask, thresh, keep_div))
     return static_cast<int>(cudaErrorInvalidValue);
   const Dropout dr =
       make_dropout(drop_mode, mask, nullptr, seed, offset, thresh, keep_div);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (part == kFused) return launch_fused_tc_d(head_dim, a, dr, st);
   if (bias_bf16)
     return launch_bwd_tc_d<__nv_bfloat16>(head_dim, part, a, dr, st);
   return launch_bwd_tc_d<float>(head_dim, part, a, dr, st);

@@ -53,11 +53,12 @@
 // Bound.  Forward 4*B*nh*Sq*Skv*D flops, backward 10*B*nh*Sq*Skv*D (half
 // of each when causal), against the dtype's rate (989 TFLOP/s bf16, 67
 // TFLOP/s f32), and the bytes of the inputs and outputs against 3.35
-// TB/s; at BERT-base's shapes (S = 512, D = 64) the flops bound.  The
-// split backward does 7 products to the bound's 5 (S and dP in both
-// kernels).
+// TB/s; at BERT-base's shapes (S = 512, D = 64) the flops bound the f32
+// forward and the backward, the bytes the bf16 forward.  The split
+// backward does 7 products to the bound's 5 (S and dP in both kernels).
 //
-// Design.  The TPU kernels walk a (batch, block) grid and keep whole
+// Design (SIMT: the f32 forward and backward).  The TPU kernels walk a
+// (batch, block) grid and keep whole
 // sequences resident in VMEM.  Here one block of 256 threads owns one
 // tile of T rows (T = 64, 32 at D = 256) of one head of one batch row,
 // so B*nh*S/T blocks fill the 132 SMs, and streams the other operand in
@@ -71,6 +72,14 @@
 // memory between the two products.  Tile rows in shared memory are
 // padded by one float, so 16 lanes reading 16 different rows hit 16
 // banks.
+//
+// The bf16 forward on the tensor cores: row 6's forward body
+// (flash_tc.cuh fwd_tc_tile, one warpgroup a 64-query tile, a 2-stage
+// cp.async ring of K, V and the key bias, S = Q K^T on wgmma with the
+// Philox draws under it, the online softmax in registers, p c rounded to
+// bf16 as the A operand of O += (p c) V, as _make_fwd_bsh_kernel rounds
+// p_num to v's dtype) at [B, S, H] rows, so p c is rounded relative to
+// the running max of the 64-key tiles seen so far.
 //
 // The bf16 backward on the tensor cores (hopper_mma.cuh; the fragment
 // helpers, shared with the [B, nh, S, D] kernels, in flash_tc.cuh): the
@@ -97,10 +106,12 @@
 // drop_queries_by_keys), so every word drawn is used.  f32 stays on the
 // SIMT kernels above: tensor cores would round it to TF32.
 //
-// C interface (ctypes): flash_attention_bsh_launch and
-// flash_attention_bsh_bwd_launch return cudaGetLastError() after the
-// launch (the first failing one).  The kernels run on the caller's
-// stream, allocate nothing and do not synchronise.
+// C interface (ctypes): flash_attention_bsh_launch (f32) and
+// flash_attention_bsh_fwd_tc_launch (bf16), flash_attention_bsh_bwd_launch
+// (f32) and flash_attention_bsh_bwd_tc_launch (bf16) return
+// cudaGetLastError() after the launch (the first failing one).  The
+// kernels run on the caller's stream, allocate nothing and do not
+// synchronise.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -594,23 +605,23 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* bias,
                                          dr, stream);
 }
 
-template <typename T>
 int launch_fwd_d(int head_dim, const void* q, const void* k, const void* v,
                  const void* bias, void* o, void* lse, int batch, int sq,
                  int skv, int nh, float sm_scale, int prescale, int causal,
                  const Dropout& dr, cudaStream_t stream) {
   switch (head_dim) {
     case 64:
-      return launch_fwd<T, 64, 64>(q, k, v, bias, o, lse, batch, sq, skv, nh,
-                                   sm_scale, prescale, causal, dr, stream);
+      return launch_fwd<float, 64, 64>(q, k, v, bias, o, lse, batch, sq, skv,
+                                       nh, sm_scale, prescale, causal, dr,
+                                       stream);
     case 128:
-      return launch_fwd<T, 128, 64>(q, k, v, bias, o, lse, batch, sq, skv,
-                                    nh, sm_scale, prescale, causal, dr,
-                                    stream);
+      return launch_fwd<float, 128, 64>(q, k, v, bias, o, lse, batch, sq,
+                                        skv, nh, sm_scale, prescale, causal,
+                                        dr, stream);
     case 256:
-      return launch_fwd<T, 256, 32>(q, k, v, bias, o, lse, batch, sq, skv,
-                                    nh, sm_scale, prescale, causal, dr,
-                                    stream);
+      return launch_fwd<float, 256, 32>(q, k, v, bias, o, lse, batch, sq,
+                                        skv, nh, sm_scale, prescale, causal,
+                                        dr, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -648,6 +659,100 @@ int launch_bwd_d(int head_dim, const BwdArgs& a, const Dropout& dr, int batch,
       return launch_bwd<T, 64, 128>(a, dr, batch, stream);
     case 256:
       return launch_bwd<T, 32, 256>(a, dr, batch, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// forward on the tensor cores (bf16)
+// ---------------------------------------------------------------------------
+
+struct FwdArgs {
+  const __nv_bfloat16* q;  // [B, Sq, H]
+  const __nv_bfloat16* k;  // [B, Skv, H]
+  const __nv_bfloat16* v;
+  const float* bias;       // [B, Skv] or null
+  __nv_bfloat16* o;        // [B, Sq, H]
+  float* lse;              // [B, nh, Sq]
+  __nv_bfloat16* p_out;    // check outputs (null on the training path):
+  float* m_out;            // [B, nh, Sq, Skv] and [B, nh, Sq, Skv / 64]
+  int sq, skv, nh, causal;
+  float sm_scale;
+};
+
+// Row 4: o and lse of one (64-query tile, head, batch, DO-column slice
+// of the head), the forward body of flash_tc.cuh (fwd_tc_tile) at [B, S,
+// H] rows: each row's D values of head h are contiguous, so the tiles
+// land as 16-byte copies with no head split or merge.  Causal (Sq ==
+// Skv) is top-left, its key tiles past the diagonal skipped.  sm_scale
+// multiplies the scores: with a power of two that is bit for bit the
+// prescale rule's q * sm_scale.
+template <int D, int DO, int BMODE>
+__global__ void __launch_bounds__(128)
+flash_fwd_bsh_tc_kernel(FwdArgs a, Dropout dr) {
+  const int q0 = blockIdx.x * kTcRows;
+  const int bh = blockIdx.y, dsplit = blockIdx.z;
+  const int b = bh / a.nh, h = bh - b * a.nh;
+  const int64_t hs = (int64_t)a.nh * D;
+  const int64_t qofs = ((int64_t)b * a.sq + q0) * hs + h * D;
+  const int64_t kofs = (int64_t)b * a.skv * hs + h * D;
+  FwdTile f;
+  f.q = a.q + qofs;
+  f.k = a.k + kofs;
+  f.v = a.v + kofs + dsplit * DO;
+  f.o = a.o + qofs + dsplit * DO;
+  f.rs = hs;
+  f.bias = BMODE == kKeyBias ? a.bias + (int64_t)b * a.skv : nullptr;
+  f.lse = a.lse + (int64_t)bh * a.sq + q0;
+  f.p_out = a.p_out;
+  f.m_out = a.m_out;
+  f.bh = bh;
+  f.sq = a.sq;
+  f.skv = a.skv;
+  f.q0 = q0;
+  f.nk = a.causal ? min(a.skv, q0 + kTcRows) / kTcRows : a.skv / kTcRows;
+  f.causal = a.causal;
+  f.q_off = f.k_off = 0;
+  f.sm_scale = a.sm_scale;
+  f.checks = dsplit == 0;
+  fwd_tc_tile<D, DO, BMODE, float>(f, dr);
+}
+
+template <int D, int DO, int BMODE>
+int launch_fwd_tc(const FwdArgs& a, const Dropout& dr, int batch,
+                  cudaStream_t stream) {
+  constexpr int kSmem = fwd_tc_smem_bytes<D, DO, BMODE, float>();
+  static const cudaError_t attr =
+      allow_smem(flash_fwd_bsh_tc_kernel<D, DO, BMODE>, kSmem);  // once
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  if (a.sq % kTcRows != 0 || a.skv % kTcRows != 0 ||
+      (int64_t)batch * a.nh > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  flash_fwd_bsh_tc_kernel<D, DO, BMODE>
+      <<<dim3(a.sq / kTcRows, batch * a.nh, D / DO), 128, kSmem, stream>>>(
+          a, dr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, int DO>
+int launch_fwd_tc_bias(const FwdArgs& a, const Dropout& dr, int batch,
+                       cudaStream_t stream) {
+  if (a.bias) return launch_fwd_tc<D, DO, kKeyBias>(a, dr, batch, stream);
+  return launch_fwd_tc<D, DO, kNoBias>(a, dr, batch, stream);
+}
+
+// D 256 in two 128-column slices (grid z), each recomputing S: 64 O
+// accumulators a thread at most (row 6's split)
+int launch_fwd_tc_d(int head_dim, const FwdArgs& a, const Dropout& dr,
+                    int batch, cudaStream_t stream) {
+  switch (head_dim) {
+    case 64:
+      return launch_fwd_tc_bias<64, 64>(a, dr, batch, stream);
+    case 128:
+      return launch_fwd_tc_bias<128, 128>(a, dr, batch, stream);
+    case 256:
+      return launch_fwd_tc_bias<256, 128>(a, dr, batch, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1005,11 +1110,12 @@ int launch_bwd_tc_d(int head_dim, const BwdArgs& a, const Dropout& dr,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  bias may be null.  drop_mode: 0 none,
-// 1 the uint8 keep mask, 2 Philox from (seed, offset) with threshold
-// thresh; keep_div divides the kept numerator; bits_out (uint8 [B, nh,
-// Sq, Skv], or null) receives the Philox bits drawn.  Returns 0 on
-// success, the CUDA error code of a refused launch, or
+// The f32 forward on the SIMT kernel (dtype must be 0 = float32; bf16
+// takes flash_attention_bsh_fwd_tc_launch).  bias may be null.
+// drop_mode: 0 none, 1 the uint8 keep mask, 2 Philox from (seed, offset)
+// with threshold thresh; keep_div divides the kept numerator; bits_out
+// (uint8 [B, nh, Sq, Skv], or null) receives the Philox bits drawn.
+// Returns 0 on success, the CUDA error code of a refused launch, or
 // cudaErrorInvalidValue for an unsupported dtype, head_dim, length or
 // dropout.
 extern "C" int flash_attention_bsh_launch(
@@ -1023,15 +1129,42 @@ extern "C" int flash_attention_bsh_launch(
     return static_cast<int>(cudaErrorInvalidValue);
   const Dropout dr = make_dropout(drop_mode, mask, bits_out, seed, offset,
                                   thresh, keep_div);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_fwd_d<float>(head_dim, q, k, v, bias, o, lse, batch, sq,
-                               skv, nh, sm_scale, prescale, causal, dr, s);
-  if (dtype == 1)
-    return launch_fwd_d<__nv_bfloat16>(head_dim, q, k, v, bias, o, lse, batch,
-                                       sq, skv, nh, sm_scale, prescale,
-                                       causal, dr, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_fwd_d(head_dim, q, k, v, bias, o, lse, batch, sq, skv, nh,
+                      sm_scale, prescale, causal, dr,
+                      static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 forward on the tensor cores: the arguments of
+// flash_attention_bsh_launch (dtype must be 1; prescale is implied, see
+// flash_fwd_bsh_tc_kernel), then two check outputs that are null on the
+// training path: p_out (bf16 [B, nh, Sq, Skv], zeros where a causal tile
+// is skipped) the rounded p c its P . V products take, relative to the
+// running max m_out (f32 [B, nh, Sq, Skv / 64]: the max after each key
+// tile, left as given where a tile is skipped).
+extern "C" int flash_attention_bsh_fwd_tc_launch(
+    const void* q, const void* k, const void* v, const void* bias, void* o,
+    void* lse, int batch, int sq, int skv, int nh, int head_dim,
+    float sm_scale, int prescale, int causal, int dtype, int drop_mode,
+    const void* mask, void* bits_out, unsigned long long seed, int offset,
+    int thresh, float keep_div, void* p_out, void* m_out, void* stream) {
+  (void)prescale;
+  if (batch <= 0 || sq <= 0 || skv <= 0 || nh <= 0 || (causal && sq != skv)
+      || dtype != 1 || !dropout_ok(drop_mode, mask, thresh, keep_div))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Dropout dr = make_dropout(drop_mode, mask, bits_out, seed, offset,
+                                  thresh, keep_div);
+  const FwdArgs a = {static_cast<const __nv_bfloat16*>(q),
+                     static_cast<const __nv_bfloat16*>(k),
+                     static_cast<const __nv_bfloat16*>(v),
+                     static_cast<const float*>(bias),
+                     static_cast<__nv_bfloat16*>(o),
+                     static_cast<float*>(lse),
+                     static_cast<__nv_bfloat16*>(p_out),
+                     static_cast<float*>(m_out), sq, skv, nh, causal,
+                     sm_scale};
+  return launch_fwd_tc_d(head_dim, a, dr, batch,
+                         static_cast<cudaStream_t>(stream));
 }
 
 // The f32 backward on the SIMT kernels (dtype must be 0; bf16 takes

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels of
-// conv_bn.cu (rows 10 and 11), flash_attention_bsh.cu (row 5) and
-// flash_attention_bhsd.cu (rows 6, 8 and 9): warpgroup matrix multiplies
+// conv_bn.cu (rows 10 and 11), flash_attention_bsh.cu (rows 4 and 5) and
+// flash_attention_bhsd.cu (rows 6-9): warpgroup matrix multiplies
 // (wgmma.mma_async, bf16 operands, f32 accumulators in registers), the
 // shared-memory matrix descriptor of the 128-byte swizzled layout they
 // read, and 16-byte cp.async copies that zero-fill what lies outside a
@@ -16,11 +16,13 @@
 //     k16 step advances the start address by 32 bytes, SBO = 1024 (the
 //     next 8 rows);
 //   * MN-major (rows are the contraction index, columns are N; trans-b
-//     1): a k16 step advances 16 rows (2048 bytes), SBO = 1024 bytes
-//     between 8-row groups; a product N wider than 64 is issued as one
-//     n64 instruction per column block, so the only stride a descriptor
-//     carries is the 1024 bytes between 8-row groups (desc_sw128 writes
-//     it to both offset fields; LBO is not read for these products).
+//     1, or M with trans-a 1 for an A read from shared memory,
+//     wgmma_ss_n64_mn): a k16 step advances 16 rows (2048 bytes), SBO =
+//     1024 bytes between 8-row groups; a product N wider than 64 is
+//     issued as one n64 instruction per column block, so the only stride
+//     a descriptor carries is the 1024 bytes between 8-row groups
+//     (desc_sw128 writes it to both offset fields; LBO is not read for
+//     these products).
 //
 // Accumulators of m64nN: thread (warp w of the warpgroup, lane = 4 g + t)
 // holds rows 16 w + g and 16 w + g + 8, columns 8 i + 2 t and 8 i + 2 t + 1
@@ -220,6 +222,30 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
         "n"(TB));
+}
+
+// D[64 x 64] += A[64 x 16] * B[16 x 64], both from shared memory and both
+// MN-major (trans-a 1, trans-b 1): A's tile rows are the contraction index
+// and its 64 columns M, laid out as an MN-major B block is
+__device__ __forceinline__ void wgmma_ss_n64_mn(float (&d)[32], uint64_t da,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
 }
 
 // D[64 x N] += A * B with both operands in shared memory, N in {32, 64, 128}

@@ -47,10 +47,11 @@ Two implementations of each direction:
   ``_reference_attention`` with a per-key bias plus the lse, and its
   backward from the lse) and ``flash_attention_reference`` /
   ``flash_attention_bwd_reference`` (the BHSD kernels' math), in f32;
-  each backward is a probs part and a products part
-  (``bwd_probs_reference`` / ``bwd_products_reference``,
-  ``bhsd_bwd_probs_reference`` / ``bhsd_bwd_products_reference``).
-  CPU and ``meta`` tensors take them.
+  each is a probs part and a products part (``bsh_fwd_probs_reference``
+  / ``bsh_fwd_products_reference``, ``bwd_probs_reference`` /
+  ``bwd_products_reference``, their ``bhsd_`` twins), so a check on the
+  card can hold each bf16 rounding on its own.  CPU and ``meta`` tensors
+  take them.
 * the CUDA kernels of ``csrc/flash_attention_bsh.cu`` and
   ``csrc/flash_attention_bhsd.cu`` (sm_90a, built by nvcc at first use,
   bound with ctypes; their shared dropout helpers in
@@ -58,15 +59,13 @@ Two implementations of each direction:
   ``_make_fwd_bsh_kernel`` / ``_make_bwd_bsh_kernel`` and
   ``_make_fwd_kernel`` (row 6), ``_make_bwd_fused_kernel`` (row 7),
   ``_make_bwd_dq_kernel`` (row 8) and ``_make_bwd_dkv_kernel`` (row 9):
-  one block per (64-row tile, head) streams the other operand's tiles
-  through shared memory in f32; every backward is deterministic (no
-  atomics).  The BSH backward in bf16 runs on the tensor cores instead
-  (wgmma, ``bsh_bwd_route``), and so do row 6 in bf16 (``bhsd_fwd_route``)
-  and rows 8 and 9 in bf16 with a full bias (``bhsd_bwd_route``), each
-  rounding p c (and ds) to bf16 before its products as the TPU kernels
-  do; row 7 in bf16 rounds them on the SIMT cores, and the plain
-  versions round them the same way.  The sources' header notes have the
-  designs.
+  in f32 one block per (64-row tile, head) streams the other operand's
+  tiles through shared memory on the SIMT cores; in bf16 every one runs
+  on the tensor cores (wgmma: ``bsh_fwd_route``, ``bsh_bwd_route``,
+  ``bhsd_fwd_route``, ``bhsd_bwd_route``), rounding p c (and ds) to bf16
+  before its products as the TPU kernels do, and the plain versions
+  round them the same way.  Every backward is deterministic (no
+  atomics).  The sources' header notes have the designs.
 
 ``flash_attention_bsh``, ``flash_attention`` and ``flash_block_with_lse``
 are differentiable: ``torch.autograd.Function``s whose forward and
@@ -77,12 +76,11 @@ Bounds: ``bound_flops`` / ``bound_flops_bwd`` and ``bound_bytes`` /
 per BHSD kernel (flops against the dtype's peak, bytes against 3.35
 TB/s; the larger time bounds).  CUDA tensors reach the kernels or raise.
 Launch counters: ``flash_attention_bsh.launches`` (BSH forward),
-``flash_attention_bsh_bwd.launches`` (BSH backward, two a call;
-``.launches_tc`` those of the wgmma pair),
+``flash_attention_bsh_bwd.launches`` (BSH backward, two a call),
 ``flash_attention.launches`` (row 6), ``flash_attention_bwd_fused``
 (row 7), ``flash_attention_bwd_dq`` (row 8) and
-``flash_attention_bwd_dkv`` (row 9) ``.launches`` (rows 6, 8 and 9:
-``.launches_tc`` those of their wgmma kernels).
+``flash_attention_bwd_dkv`` (row 9) ``.launches``; each also counts
+``.launches_tc``, the launches of its wgmma kernels.
 """
 from __future__ import annotations
 
@@ -166,34 +164,64 @@ def _scores(q, k, bias, nh, sm_scale, causal):
     return s
 
 
+def bsh_fwd_probs_reference(q, k, bias=None, num_heads=None,
+                            sm_scale=None, causal=False, mask=None,
+                            keep_div=1.0):
+    """The plain forward's intermediates: (p c [B, nh, Sq, Skv] rounded
+    to q's dtype as ``_make_fwd_bsh_kernel`` rounds p_num to v's before
+    P.V, relative to each row's max, returned as f32; m and l_safe =
+    max(l, 1e-30), [B, nh, Sq, 1] f32).  p = exp(s - m); l sums the
+    undropped p; c = keep / keep_div where ``mask`` (uint8 [B, nh, Sq,
+    Skv]) is given, else 1.  In f32 the rounding is a no-op."""
+    nh = int(num_heads)
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1] // nh)
+    s = _scores(q, k, bias, nh, sm_scale, causal)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l_safe = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    num = p if mask is None else torch.where(mask != 0, p / keep_div, 0.0)
+    return num.to(q.dtype).float(), m, l_safe
+
+
+def bsh_fwd_products_reference(v, p_num, m_tiles, lse, num_heads,
+                               tile=64):
+    """o [B, Sq, H] f32 from a tiled forward's intermediates: p c rounded
+    relative to the running max ``m_tiles`` [B, nh, Sq, Skv / tile] (the
+    max after each key tile), as ``bhsd_fwd_products_reference`` on the
+    heads of ``v``."""
+    b, skv, hdim = v.shape
+    nh = int(num_heads)
+    o = bhsd_fwd_products_reference(_heads(v, b, skv, nh), p_num, m_tiles,
+                                    lse, tile)
+    return o.transpose(1, 2).reshape(b, o.shape[2], hdim)
+
+
 def flash_attention_bsh_reference(q, k, v, bias=None, num_heads=None,
                                   sm_scale=None, causal=False,
                                   dropout_prob=0.0, generator=None,
                                   mask=None, keep_div=None):
     """Plain version, any device: (o [B, Sq, H] in q.dtype, lse [B, nh,
-    Sq] f32).  Scores, softmax and the P.V product are f32.  Dropout keeps
-    where ``mask`` (uint8 [B, nh, Sq, Skv]) is nonzero, or draws the mask
-    from ``generator``; kept values divide by ``keep_div`` (default
-    1 - dropout_prob)."""
+    Sq] f32).  f32 scores and softmax; p c rounded to v's dtype before
+    the P.V product, as ``_make_fwd_bsh_kernel`` rounds it
+    (``bsh_fwd_probs_reference``; in f32 a no-op), o = (p c) V / l.
+    Dropout keeps where ``mask`` (uint8 [B, nh, Sq, Skv]) is nonzero, or
+    draws the mask from ``generator``; kept values divide by ``keep_div``
+    (default 1 - dropout_prob)."""
     b, sq, hdim = q.shape
     skv = k.shape[1]
     nh = int(num_heads)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(hdim // nh)
-    s = _scores(q, k, bias, nh, sm_scale, causal)
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m)
-    l = p.sum(dim=-1, keepdim=True)
-    probs = p / l
-    if dropout_prob > 0.0 and q.device.type != "meta":
-        if mask is None:
-            mask = draw_keep_mask(q, k, nh, dropout_prob, generator)
-        div = (1.0 - dropout_prob) if keep_div is None else keep_div
-        probs = torch.where(mask != 0, probs / div, 0.0)
-    o = torch.matmul(probs, _heads(v, b, skv, nh))
+    drop = dropout_prob > 0.0 and q.device.type != "meta"
+    if drop and mask is None:
+        mask = draw_keep_mask(q, k, nh, dropout_prob, generator)
+    div = (1.0 - dropout_prob) if keep_div is None else keep_div
+    p_num, m, l_safe = bsh_fwd_probs_reference(
+        q, k, bias, nh, sm_scale, causal, mask if drop else None, div)
+    o = torch.matmul(p_num, _heads(v, b, skv, nh)) / l_safe
     o = o.transpose(1, 2).reshape(b, sq, hdim).to(q.dtype)
-    lse = (m + torch.log(l.clamp_min(1e-30)))[..., 0]
-    return o, lse
+    return o, (m + torch.log(l_safe))[..., 0]
 
 
 def bwd_probs_reference(q, k, v, bias, o, lse, do, num_heads,
@@ -325,9 +353,11 @@ def _launcher(name: str):
         fn = getattr(_build.load("flash_attention_bsh"),
                      f"flash_attention_bsh_{name}")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        if name == "launch":
+        if name in ("launch", "fwd_tc_launch"):
+            # fwd_tc_launch: two check outputs before the stream
             fn.argtypes = ([p] * 6 + [i] * 5 + [f] + [i] * 4 + [p, p]
-                           + [ctypes.c_ulonglong, i, i, f, p])
+                           + [ctypes.c_ulonglong, i, i, f]
+                           + [p] * (3 if name == "fwd_tc_launch" else 1))
         else:
             # bwd_tc_launch: three check outputs before the stream
             fn.argtypes = ([p] * 10 + [i] * 5 + [f] + [i] * 4 + [p]
@@ -354,18 +384,41 @@ def _key_bias(bias, b, skv):
     return None if bias is None else bias.reshape(b, skv).float().contiguous()
 
 
+def bsh_fwd_route(dtype) -> str:
+    """Which forward kernel row 4 launches, by dtype alone: "tc" (the
+    wgmma kernel) for bf16; "simt" (f32 FMA) for float32, which tensor
+    cores would round to TF32."""
+    return "tc" if dtype == torch.bfloat16 else "simt"
+
+
 def _cuda_flash_bsh(q, k, v, bias, num_heads, sm_scale, causal,
-                    dropout_prob, mask, seed, offset, return_bits):
+                    dropout_prob, mask, seed, offset, return_bits,
+                    return_probs=False):
+    """Launch row 4 on the route ``bsh_fwd_route`` names.  Returns (o,
+    lse, bits, checks): bits the Philox keep bits when ``return_bits``,
+    checks on the tensor-core route with ``return_probs`` (p c as the
+    kernel rounds it for P.V, bf16 [B, nh, Sq, Skv], and its running max
+    after each 64-key tile, f32 [B, nh, Sq, Skv / 64]), else None."""
     check_kernel_inputs(q, k, v, bias, num_heads, causal, dropout_prob, mask)
     b, sq, hdim = q.shape
     skv = k.shape[1]
     bias = _key_bias(bias, b, skv)
+    tc = bsh_fwd_route(q.dtype) == "tc"
+    if tc:
+        q, k, v = (_aligned(t) for t in (q, k, v))
+        bias = None if bias is None else _aligned(bias)
     mode, mask, thresh, keep_div = _drop_args(dropout_prob, mask, seed)
     bits = None
     if return_bits and mode == _PHILOX_DROP:
         bits = torch.zeros((b, num_heads, sq, skv), dtype=torch.uint8,
                            device=q.device)
-    fn = _launcher("launch")
+    checks = None
+    if tc and return_probs:
+        checks = (torch.zeros((b, num_heads, sq, skv), dtype=q.dtype,
+                              device=q.device),
+                  torch.full((b, num_heads, sq, skv // KERNEL_ROWS), NEG_INF,
+                             dtype=torch.float32, device=q.device))
+    fn = _launcher("fwd_tc_launch" if tc else "launch")
     o = torch.empty_like(q)
     lse = torch.empty((b, num_heads, sq), dtype=torch.float32,
                       device=q.device)
@@ -379,25 +432,34 @@ def _cuda_flash_bsh(q, k, v, bias, num_heads, sm_scale, causal,
                  None if mask is None else mask.data_ptr(),
                  None if bits is None else bits.data_ptr(),
                  int(seed or 0) & ((1 << 64) - 1), int(offset), thresh,
-                 float(keep_div), stream)
+                 float(keep_div),
+                 *(() if not tc else (None, None) if checks is None
+                   else map(_ptr, checks)),
+                 stream)
     if err:
-        raise RuntimeError(f"flash_attention_bsh kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"flash_attention_bsh kernel"
+                           f"{' (tensor cores)' if tc else ''} launch "
+                           f"failed: CUDA error {err}")
     flash_attention_bsh.launches += 1
-    return (o, lse, bits) if return_bits else (o, lse)
+    if tc:
+        flash_attention_bsh.launches_tc += 1
+    return o, lse, bits, checks
 
 
 def flash_attention_bsh_fwd(q, k, v, bias=None, num_heads=None,
                             sm_scale: Optional[float] = None, causal=False,
                             dropout_prob=0.0, dropout_generator=None, *,
                             mask=None, dropout_seed=None, dropout_offset=0,
-                            return_bits=False):
+                            return_bits=False, return_probs=False):
     """(o [B, Sq, H], lse [B, nh, Sq] f32), not differentiable.  CPU and
     meta tensors take the plain version (dropout from ``mask`` or drawn
-    from ``dropout_generator``); CUDA tensors launch the kernel or raise
-    (dropout from ``mask``, else Philox from ``dropout_seed``).
-    ``return_bits`` adds the uint8 keep bits the Philox drew (None
-    without Philox)."""
+    from ``dropout_generator``); CUDA tensors launch the kernel
+    ``bsh_fwd_route`` names (``launches_tc`` counts the wgmma kernel's
+    launches) or raise (dropout from ``mask``, else Philox from
+    ``dropout_seed``).  ``return_bits`` adds the uint8 keep bits the
+    Philox drew (None without Philox); ``return_probs`` (CUDA only, a
+    check's output) then the wgmma kernel's (p c, running max), None on
+    the SIMT route (``_cuda_flash_bsh``)."""
     if num_heads is None:
         raise ValueError("flash_attention_bsh needs num_heads")
     if causal and q.shape[1] != k.shape[1]:
@@ -406,16 +468,19 @@ def flash_attention_bsh_fwd(q, k, v, bias=None, num_heads=None,
             "aligned (use equal lengths)")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1] // num_heads)
+    extra = (return_bits, return_probs)
     if q.device.type in ("cpu", "meta"):
         out = flash_attention_bsh_reference(
             q, k, v, bias, num_heads, sm_scale, causal, dropout_prob,
             dropout_generator, mask)
-        return out + (None,) if return_bits else out
+        return out + tuple(None for want in extra if want)
     if q.device.type != "cuda":
         raise ValueError(f"no flash-attention kernel for device {q.device}")
-    return _cuda_flash_bsh(q, k, v, bias, num_heads, sm_scale, causal,
-                           dropout_prob, mask, dropout_seed, dropout_offset,
-                           return_bits)
+    o, lse, bits, checks = _cuda_flash_bsh(
+        q, k, v, bias, num_heads, sm_scale, causal, dropout_prob, mask,
+        dropout_seed, dropout_offset, return_bits, return_probs)
+    return (o, lse) + tuple(t for t, want in zip((bits, checks), extra)
+                            if want)
 
 
 def bsh_bwd_route(dtype) -> str:
@@ -573,6 +638,7 @@ def flash_attention_bsh(q, k, v, bias=None, num_heads=None, sm_scale=None,
 
 
 flash_attention_bsh.launches = 0
+flash_attention_bsh.launches_tc = 0
 
 
 def _pairs(q, k, causal):
@@ -744,10 +810,12 @@ def _sum_to(t, shape):
 
 def bhsd_bwd_route(dtype, mode) -> str:
     """Which kernels the BHSD backward launches: "tc" (rows 8 and 9 on the
-    wgmma kernels) for bf16 with a full bias; "simt" (f32 FMA) for float32,
-    which tensor cores would round to TF32, and for every other bias mode
-    (row 7)."""
-    return "tc" if dtype == torch.bfloat16 and mode == "full" else "simt"
+    wgmma kernels) for bf16 with a full bias; "fused_tc" (row 7 on its
+    wgmma kernel) for bf16 with no bias or a key bias; "simt" (f32 FMA,
+    rows 7-9) for float32, which tensor cores would round to TF32."""
+    if dtype != torch.bfloat16:
+        return "simt"
+    return "tc" if mode == "full" else "fused_tc"
 
 
 def bhsd_bwd_probs_reference(q, k, v, bias, o, lse, do, sm_scale=None,
@@ -898,11 +966,11 @@ def _bhsd_launcher(name: str):
                            + [i] * 5 + [p, p, ctypes.c_ulonglong, i, i, f]
                            + [p] * 3)
         else:
-            # check outputs before the stream: bwd_tc three, bwd two
+            # bwd_tc: three check outputs before the stream
             fn.argtypes = ([i] + [p] * 4 + [i] * 4 + [p] * 8 + [i] * 3
                            + [f] + [i] * 5 + [p, ctypes.c_ulonglong, i, i,
                                               f]
-                           + [p] * (4 if name == "bwd_tc" else 3))
+                           + [p] * (4 if name == "bwd_tc" else 1))
         fn.restype = ctypes.c_int
         _fns[key] = fn
     return fn
@@ -978,26 +1046,27 @@ def _cuda_flash_bwd_part(part, q, k, v, bias_k, mode, dims, lse, delta, do,
                          seed, offset, want_dbias, return_probs=False):
     """Launch one backward kernel: row 7 (``_FUSED``: dq, dk, dv and the
     key dbias [BH, S]), row 8 (``_DQ``: dq) or row 9 (``_DKV``: dk, dv
-    and the full dbias [BH, S, S]); rows 8 and 9 on the wgmma kernels
-    for bf16 with the full bias (``bhsd_bwd_route``).  Returns (dq, dk,
-    dv, dbias, checks): with ``return_probs`` in bf16, ``checks`` holds
-    the kernel's rounded intermediates (p c, ds, ds_dq: row 9 sets p c
-    and ds, row 8 ds_dq, row 7 all three, its dq taking its ds; bf16 [B,
-    nh, S, S]), else None."""
+    and the full dbias [BH, S, S]), on the route ``bhsd_bwd_route``
+    names (bf16: the wgmma kernels).  Row 7 writes its key tiles' shares
+    of dq to f32 partials [S / 64, BH, S, D] (S / 32 on the SIMT route at
+    D 256) that a second kernel sums in key-tile order.  Returns (dq, dk,
+    dv, dbias, checks): with ``return_probs`` on the tensor-core route,
+    ``checks`` holds the kernel's rounded intermediates (p c, ds, ds_dq:
+    row 9 sets p c and ds, row 8 ds_dq, row 7 all three, its dq taking
+    its ds; bf16 [B, nh, S, S]), else None."""
     b, nh, s, d = q.shape
-    tc = part != _FUSED and bhsd_bwd_route(q.dtype, mode) == "tc"
-    fused_checks = (part == _FUSED and return_probs
-                    and q.dtype == torch.bfloat16)
+    tc = bhsd_bwd_route(q.dtype, mode) != "simt"
     if tc:
-        q, k, v, bias_k, lse, delta, do = (
-            _aligned(t) for t in (q, k, v, bias_k, lse, delta, do))
+        q, k, v, lse, delta, do = (
+            _aligned(t) for t in (q, k, v, lse, delta, do))
+        bias_k = None if bias_k is None else _aligned(bias_k)
     dmode, mask, thresh, keep_div = _drop_args(dropout_prob, mask, seed)
     dq = torch.empty_like(q) if part != _DKV else None
     dk, dv = ((torch.empty_like(k), torch.empty_like(v)) if part != _DQ
               else (None, None))
     dq_part = dbias = None
     if part == _FUSED:
-        rows = KERNEL_ROWS if d < 256 else KERNEL_ROWS // 2
+        rows = KERNEL_ROWS if d < 256 or tc else KERNEL_ROWS // 2
         dq_part = torch.empty((s // rows, b * nh, s, d), dtype=torch.float32,
                               device=q.device)
         if want_dbias:
@@ -1011,11 +1080,7 @@ def _cuda_flash_bwd_part(part, q, k, v, bias_k, mode, dims, lse, delta, do,
         probs = tuple(
             torch.zeros((b * nh, s, s), dtype=q.dtype, device=q.device)
             if use else None
-            for use in (part == _DKV, part == _DKV, part == _DQ))
-    elif fused_checks:
-        probs = tuple(torch.zeros((b * nh, s, s), dtype=q.dtype,
-                                  device=q.device) for _ in range(2))
-        probs += probs[1:]
+            for use in (part != _DQ, part != _DQ, part == _DQ))
     fn = _bhsd_launcher("bwd_tc" if tc else "bwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -1026,17 +1091,19 @@ def _cuda_flash_bwd_part(part, q, k, v, bias_k, mode, dims, lse, delta, do,
                  float(sm_scale), int(causal), int(q_off), int(k_off),
                  _DTYPE_CODES[q.dtype],
                  *_drop_tail(dmode, mask, seed, offset, thresh, keep_div),
-                 *map(_ptr, probs if tc else probs[:2]), stream)
+                 *(map(_ptr, probs) if tc else ()), stream)
     if err:
         raise RuntimeError(f"flash_attention (BHSD) backward kernel "
                            f"{('fused', 'dq', 'dkv')[part]}"
                            f"{' (tensor cores)' if tc else ''} launch "
                            f"failed: CUDA error {err}")
     if tc:
-        (flash_attention_bwd_dq if part == _DQ
-         else flash_attention_bwd_dkv).launches_tc += 1
+        (flash_attention_bwd_fused, flash_attention_bwd_dq,
+         flash_attention_bwd_dkv)[part].launches_tc += 1
     checks = None
-    if (tc or fused_checks) and return_probs:
+    if tc and return_probs:
+        if part == _FUSED:
+            probs = probs[:2] + probs[1:2]
         checks = tuple(None if t is None else t.reshape(b, nh, s, s)
                        for t in probs)
     return dq, dk, dv, dbias, checks
@@ -1045,6 +1112,7 @@ def _cuda_flash_bwd_part(part, q, k, v, bias_k, mode, dims, lse, delta, do,
 def flash_attention_bwd_fused(*args, **kwargs):
     """Row 7 on the card: (dq, dk, dv, key dbias [BH, S] or None);
     arguments as ``_cuda_flash_bwd_part``'s after ``part``.
+    ``launches_tc`` counts the wgmma kernel's launches (bf16).
     ``return_probs=True`` adds its check outputs in bf16 (p c, ds, ds_dq,
     the last two one tensor), None in f32."""
     out = _cuda_flash_bwd_part(_FUSED, *args, **kwargs)
@@ -1072,6 +1140,7 @@ def flash_attention_bwd_dkv(*args, **kwargs):
 
 
 flash_attention_bwd_fused.launches = 0
+flash_attention_bwd_fused.launches_tc = 0
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dq.launches_tc = 0
 flash_attention_bwd_dkv.launches = 0
@@ -1215,8 +1284,8 @@ def flash_attention_bwd(q, k, v, bias, o, lse, do, sm_scale=None,
     """(dq, dk, dv, dbias in the bias's shape or None) of the forward that
     gave o and lse, with the lse cotangent ``g_lse``.  CPU and meta
     tensors take the plain version, which needs the forward's ``mask``
-    for dropout; CUDA tensors launch rows 8 and 9 (a full bias; on the
-    wgmma kernels for bf16, ``bhsd_bwd_route``) or row 7 (any other) or
+    for dropout; CUDA tensors launch rows 8 and 9 (a full bias) or row 7
+    (any other), on the wgmma kernels for bf16 (``bhsd_bwd_route``), or
     raise.  ``return_probs`` (CUDA only, a check's output) appends the
     kernels' rounded intermediates in bf16 (p c and ds of row 9, ds of
     row 8; row 7's p c and its ds twice; each bf16 [B, nh, S, S]), or None

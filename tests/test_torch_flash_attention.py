@@ -108,17 +108,207 @@ def test_public_entry_matches_jax(sq, skv, force_pallas):
                                rtol=0)
 
 
-def test_bf16_rounds_once_from_f32_math():
-    x = _inputs(3, bias=True)
-    args = [torch.as_tensor(x[n]).bfloat16() for n in ("q", "k", "v")]
-    o16, lse16 = fa.flash_attention_bsh_fwd(*args, torch.as_tensor(x["bias"]),
-                                            num_heads=NH)
-    o32, lse32 = fa.flash_attention_bsh_fwd(*(a.float() for a in args),
-                                            torch.as_tensor(x["bias"]),
-                                            num_heads=NH)
-    assert o16.dtype == torch.bfloat16 and lse16.dtype == torch.float32
-    assert torch.equal(o16, o32.bfloat16())
-    assert torch.equal(lse16, lse32)
+def _grid(rng, shape, step, top):
+    """Random multiples of ``step`` in [-top, top]: bf16-exact values
+    whose products and sums here are exact in f32 in any order."""
+    n = int(round(top / step))
+    return torch.as_tensor(rng.integers(-n, n + 1, shape) * step,
+                           dtype=torch.float32)
+
+
+def _rows_past(a, w, n):
+    """Rows of ``a`` (last dim n) with an element past 1e-5 + 2^-7 |w|."""
+    a = np.asarray(a, np.float32).reshape(-1, n)
+    w = np.asarray(w, np.float32).reshape(a.shape)
+    return int((np.abs(a - w) > 1e-5 + 2.0 ** -7 * np.abs(w)).any(1).sum())
+
+
+BF16_FWD = {
+    # key bias, causal, head dim, dropout p (from a shared mask)
+    "none_d64": (False, False, 64, 0.0),
+    "none_causal_d64": (False, True, 64, 0.0),
+    "key_d64": (True, False, 64, 0.0),
+    "key_causal_d64": (True, True, 64, 0.0),
+    "none_d128": (False, False, 128, 0.0),
+    "none_causal_d128": (False, True, 128, 0.0),
+    "key_d128": (True, False, 128, 0.0),
+    "key_causal_d128": (True, True, 128, 0.0),
+    "key_mask_d64": (True, False, 64, 0.2),
+    "none_mask_causal_d128": (False, True, 128, 0.2),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BF16_FWD))
+def test_bf16_rounds_once_from_f32_math(case, force_pallas):
+    """bf16 o and lse of the port's plain forward against
+    ``_flash_fwd_bsh`` (``_make_fwd_bsh_kernel`` in interpret mode) on the
+    same bf16 inputs: both compute the scores and the softmax in f32 and
+    round p c once, to bf16, before P.V.  S = 128 is one JAX key block, so
+    JAX's running max is the row's max and both round the same p.  The
+    inputs lie on coarse grids, so S is exact in any summation order;
+    what is left is the two libraries' exp, an f32 ulp apart for some
+    arguments, which where it straddles a bf16 boundary rounds one p to
+    its neighbour.  So o is held within one bf16 ulp (rtol 2^-7) plus
+    1e-5 save at most 2 of its 512 rows of D, the lse within 2e-5; P.V of
+    the unrounded p is shown to miss that limit in more than half the
+    rows."""
+    key_bias, causal, d, p = BF16_FWD[case]
+    b, nh = 2, 2
+    rng = np.random.default_rng(21)
+    q, k, v = (_grid(rng, (b, S, nh * d), 1 / 8, 2).to(torch.bfloat16)
+               for _ in range(3))
+    bias = None
+    if key_bias:
+        pad = torch.as_tensor(rng.random((b, 1, 1, S)) > 0.8)
+        bias = torch.where(pad, -1e4, _grid(rng, (b, 1, 1, S), 1 / 16, 2))
+    mask = (torch.as_tensor(rng.random((b, nh, S, S)) > p).to(torch.uint8)
+            if p else None)
+    sm = 1.0 / math.sqrt(d)
+    assert jfa._resolve_bsh_blocks(S, S, nh * d, jnp.bfloat16)[:2] == (S, S)
+
+    def j(t):
+        return jnp.asarray(t.float().numpy(), jnp.bfloat16)
+
+    o_j, lse_j = jfa._flash_fwd_bsh(
+        j(q), j(k), j(v),
+        None if bias is None else jnp.asarray(bias.numpy().reshape(b, 1, S)),
+        None if mask is None else jnp.asarray(mask.numpy()), None, None,
+        sm_scale=sm, nh=nh, causal=causal, dropout_prob=p)
+    o_t, lse_t = fa.flash_attention_bsh_fwd(q, k, v, bias, num_heads=nh,
+                                            causal=causal, dropout_prob=p,
+                                            mask=mask)
+    assert o_t.dtype == torch.bfloat16 and lse_t.dtype == torch.float32
+    assert fa.bsh_fwd_route(q.dtype) == "tc"
+    o_j = np.asarray(o_j.astype(jnp.float32))
+    assert _rows_past(o_t.float().numpy(), o_j, d) <= 2
+    np.testing.assert_allclose(lse_t.numpy(), np.asarray(lse_j),
+                               atol=LSE_TOL, rtol=0)
+    # the limit tells the rounding from its absence
+    p_num, m, l_safe = fa.bsh_fwd_probs_reference(
+        q, k, bias, nh, sm, causal, mask, 1.0 - p)
+    sc = fa._scores(q, k, bias, nh, sm, causal)
+    pr = torch.exp(sc - m)
+    if mask is not None:
+        pr = torch.where(mask != 0, pr / (1.0 - p), 0.0)
+    assert torch.equal(p_num, pr.to(torch.bfloat16).float())
+    unrounded = torch.matmul(pr, fa._heads(v, b, S, nh)) / l_safe
+    unrounded = unrounded.transpose(1, 2).reshape(b, S, nh * d)
+    assert _rows_past(unrounded.numpy(), o_j, d) > 256
+
+
+def test_plain_forward_products_of_tiles_are_the_plain_forward():
+    """o from a tiled forward's intermediates
+    (``bsh_fwd_products_reference``: p c rounded relative to the running
+    max of each 64-key tile, scaled by exp(m_t - lse)) equals the plain
+    forward's within f32 rounding when the p c are the plain version's
+    own (the tiles' running max then the row's max), with a key bias, a
+    keep mask and a rectangular Skv."""
+    x = _inputs(22, b=2, sq=128, skv=256, bias=True)
+    q, k, v, bias = (torch.as_tensor(x[n]) for n in ("q", "k", "v", "bias"))
+    mask = torch.as_tensor(np.random.default_rng(23).random(
+        (2, NH, 128, 256)) > 0.1).to(torch.uint8)
+    sm = 1.0 / math.sqrt(D)
+    p_num, m, l_safe = fa.bsh_fwd_probs_reference(q, k, bias, NH, sm,
+                                                  mask=mask, keep_div=0.9)
+    o, lse = fa.flash_attention_bsh_reference(q, k, v, bias, NH, sm,
+                                              dropout_prob=0.1, mask=mask,
+                                              keep_div=0.9)
+    m_tiles = m.expand(2, NH, 128, 256 // fa.KERNEL_ROWS)
+    got = fa.bsh_fwd_products_reference(v, p_num, m_tiles, lse, NH)
+    assert got.shape == o.shape
+    np.testing.assert_allclose(got.numpy(), o.numpy(), atol=O_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "tc"),
+                                         (torch.float32, "simt"),
+                                         (torch.float16, "simt")])
+def test_forward_route_by_dtype(dtype, route):
+    """Row 4 on the wgmma kernel for bf16; f32 (which tensor cores would
+    round to TF32) stays on the SIMT kernel."""
+    assert fa.bsh_fwd_route(dtype) == route
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_a_cpu_forward_counts_no_launch_on_either_route(dtype):
+    x = _good(dtype=dtype)
+    n0 = (fa.flash_attention_bsh.launches, fa.flash_attention_bsh.launches_tc)
+    o, lse, bits, checks = fa.flash_attention_bsh_fwd(
+        **x, return_bits=True, return_probs=True)
+    assert o.dtype == dtype and bits is None and checks is None
+    o2, lse2 = fa.flash_attention_bsh_fwd(**x, causal=True)
+    assert o2.dtype == dtype and lse2.shape == (2, 2, 128)
+    assert (fa.flash_attention_bsh.launches,
+            fa.flash_attention_bsh.launches_tc) == n0
+
+
+class _Dev:
+    def __init__(self, *a):
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *a):
+        return False
+
+
+class _Stream:
+    cuda_stream = 0
+
+
+@pytest.mark.parametrize("dtype,entry", [(torch.bfloat16, "fwd_tc_launch"),
+                                         (torch.float32, "launch")])
+def test_forward_launches_by_route_and_never_falls_back(dtype, entry,
+                                                        monkeypatch):
+    """On the card row 4 goes through its route's library entry:
+    ``flash_attention_bsh_fwd_tc_launch`` for bf16 (the wgmma kernel, two
+    check outputs: p c bf16 [B, nh, Sq, Skv] and the running max [B, nh,
+    Sq, Skv / 64], NEG_INF where a tile is skipped, passed only with
+    ``return_probs``), ``flash_attention_bsh_launch`` for f32;
+    ``launches_tc`` counts the tensor-core launches.  A launch that
+    fails raises and counts nothing: nothing retries it on the SIMT
+    kernel or the plain version."""
+    monkeypatch.setattr(torch.cuda, "device", _Dev)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: _Stream())
+    calls = []
+    monkeypatch.setattr(fa, "_launcher", lambda name: lambda *a: (
+        calls.append((name, a)) or 0))
+    x = _good(dtype=dtype)
+    n0 = (fa.flash_attention_bsh.launches, fa.flash_attention_bsh.launches_tc)
+    tc = dtype == torch.bfloat16
+    o, lse, bits, checks = fa._cuda_flash_bsh(
+        x["q"], x["k"], x["v"], x["bias"], 2, 0.125, False, 0.0, None, None,
+        0, False, return_probs=True)
+    (name, args), = calls
+    assert name == entry and len(args) == (25 if tc else 23)
+    assert args[14] == fa._DTYPE_CODES[dtype] and bits is None
+    assert o.shape == x["q"].shape and lse.shape == (2, 2, 128)
+    assert (fa.flash_attention_bsh.launches,
+            fa.flash_attention_bsh.launches_tc) == (n0[0] + 1, n0[1] + tc)
+    if tc:
+        p_out, m_out = checks
+        assert p_out.shape == (2, 2, 128, 128) and p_out.dtype == dtype
+        assert m_out.shape == (2, 2, 128, 2) and bool(
+            (m_out == fa.NEG_INF).all())
+        assert args[22:24] == (p_out.data_ptr(), m_out.data_ptr())
+        calls.clear()
+        fa._cuda_flash_bsh(x["q"], x["k"], x["v"], x["bias"], 2, 0.125,
+                           False, 0.0, None, None, 0, False)
+        assert calls[0][1][22:24] == (None, None)
+    else:
+        assert checks is None
+
+    calls.clear()
+    monkeypatch.setattr(fa, "_launcher", lambda name: lambda *a: (
+        calls.append(name) or 700))
+    n1 = (fa.flash_attention_bsh.launches, fa.flash_attention_bsh.launches_tc)
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        fa._cuda_flash_bsh(x["q"], x["k"], x["v"], x["bias"], 2, 0.125,
+                           False, 0.0, None, None, 0, False)
+    assert calls == [entry]
+    assert (fa.flash_attention_bsh.launches,
+            fa.flash_attention_bsh.launches_tc) == n1
 
 
 def test_rectangular_causal_is_refused():
@@ -389,8 +579,12 @@ def test_bf16_plain_backward_rounds_as_the_tpu_kernel(causal, force_pallas):
     bias = np.where(rng.random((b, 1, 1, S)) > 0.25, 0.0, -1e4).astype(
         np.float32)
     tb = torch.as_tensor(bias)
-    o, lse = fa.flash_attention_bsh_fwd(x["q"], x["k"], x["v"], tb,
-                                        num_heads=NH, causal=causal)
+    # o and lse of the f32 forward (o rounded once to bf16): any o and
+    # lse will do, both backwards take the same
+    o, lse = fa.flash_attention_bsh_fwd(x["q"].float(), x["k"].float(),
+                                        x["v"].float(), tb, num_heads=NH,
+                                        causal=causal)
+    o = o.bfloat16()
     got = fa.flash_attention_bsh_bwd(x["q"], x["k"], x["v"], tb, o, lse,
                                      x["do"], NH, causal=causal)
 

@@ -390,14 +390,13 @@ def test_bf16_full_bias_plain_backward_rounds_as_the_tpu_kernels(
 
 @pytest.mark.parametrize("dtype,bias,route", [
     (torch.bfloat16, "full", "tc"), (torch.bfloat16, "full_11", "tc"),
-    (torch.float32, "full", "simt"), (torch.bfloat16, "key", "simt"),
-    (torch.bfloat16, "key_shared", "simt"), (torch.bfloat16, "none", "simt"),
-    (torch.float32, "none", "simt")])
-def test_backward_route_takes_tensor_cores_for_bf16_full_bias_only(
-        dtype, bias, route):
-    """Rows 8 and 9 on the wgmma kernels for bf16 with a full bias; f32
-    (which tensor cores would round to TF32) and every row-7 mode stay
-    SIMT."""
+    (torch.float32, "full", "simt"), (torch.bfloat16, "key", "fused_tc"),
+    (torch.bfloat16, "key_shared", "fused_tc"),
+    (torch.bfloat16, "none", "fused_tc"), (torch.float32, "none", "simt")])
+def test_backward_route_takes_tensor_cores_for_bf16(dtype, bias, route):
+    """Rows 8 and 9 on their wgmma kernels for bf16 with a full bias, row
+    7 on its wgmma kernel for bf16 with no bias or a key bias; f32 (which
+    tensor cores would round to TF32) stays SIMT in every mode."""
     shape = BIASES[bias]
     bt = None if shape is None else torch.zeros(shape)
     _, mode, _ = fa._classify_bias(bt, B, NH, S)
@@ -574,7 +573,7 @@ def test_bf16_plain_backward_rounds_as_the_fused_tpu_kernel(case,
 
     bias_j, mode, dims = jfa._classify_bias(
         None if bias is None else jnp.asarray(bias.numpy()), B, NH, S)
-    assert mode != "full" and fa.bhsd_bwd_route(q.dtype, mode) == "simt"
+    assert mode != "full" and fa.bhsd_bwd_route(q.dtype, mode) == "fused_tc"
     res = (j(q), j(k), j(v), bias_j, None if mask is None else
            jnp.asarray(mask.numpy().reshape(B * NH, S, S)),
            jnp.zeros((1,), jnp.int32), None, j(o),
@@ -676,10 +675,12 @@ def test_forward_launches_by_route_and_never_falls_back(dtype, bias,
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "f32"])
 def test_fused_backward_check_outputs_in_bf16_only(dtype, monkeypatch):
-    """Row 7's library entry takes two check outputs (its rounded p c and
-    ds, bf16 [B, nh, S, S]): passed with ``return_probs`` in bf16, where
-    the kernel rounds them, and null otherwise; the checks come back as
-    (p c, ds, ds), its dq taking its ds."""
+    """Row 7 goes through its route's library entry: bf16 the wgmma
+    kernel's (``flash_bhsd_bwd_tc_launch``, three check outputs: its
+    rounded p c and ds, bf16 [B, nh, S, S], passed with ``return_probs``,
+    and a null third, its dq taking its ds), f32 the SIMT kernel's
+    (``flash_bhsd_bwd_launch``, none); the checks come back as (p c, ds,
+    ds) in bf16 only."""
     monkeypatch.setattr(torch.cuda, "device", _Dev)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: _Stream())
     calls = []
@@ -689,21 +690,73 @@ def test_fused_backward_check_outputs_in_bf16_only(dtype, monkeypatch):
     lse = torch.zeros(B, NH, S)
     bk, mode, dims = fa._classify_bias(torch.zeros(1, 1, 1, S), B, NH, S)
     n0 = fa.flash_attention_bwd_fused.launches
+    tc = dtype == torch.bfloat16
     for probs in (True, False):
         out = fa._cuda_flash_bwd(q, k, v, bk, mode, dims, q, lse, q, 0.125,
                                  False, 0, 0, 0.0, None, None, 0, None,
                                  True, return_probs=probs)
         name, args = calls[-1]
-        assert name == "bwd" and len(args) == 34 and args[0] == fa._FUSED
-        if probs and dtype == torch.bfloat16:
+        assert args[0] == fa._FUSED
+        assert (name, len(args)) == (("bwd_tc", 35) if tc else ("bwd", 32))
+        if probs and tc:
             p_k, ds_k, dsq_k = out[4]
             assert p_k.shape == ds_k.shape == (B, NH, S, S)
             assert dsq_k.data_ptr() == ds_k.data_ptr() and p_k.dtype == dtype
-            assert args[31:33] == (p_k.data_ptr(), ds_k.data_ptr())
+            assert args[31:34] == (p_k.data_ptr(), ds_k.data_ptr(), None)
         else:
-            assert args[31:33] == (None, None)
+            if tc:
+                assert args[31:34] == (None, None, None)
             assert len(out) == 4 or out[4] is None
     assert fa.flash_attention_bwd_fused.launches == n0 + 2
+
+
+@pytest.mark.parametrize("bias", ["none", "key", "key_shared"])
+def test_fused_backward_launches_the_wgmma_kernel_and_never_falls_back(
+        bias, monkeypatch):
+    """bf16 row 7 on the card: one call of the tensor-core entry with the
+    dq_part scratch (f32 [S / 64, BH, S, D]: 64-row key tiles at every D)
+    and the key bias as its [bb, S] rows; ``launches_tc`` counts it.  A
+    launch that fails raises and counts nothing."""
+    monkeypatch.setattr(torch.cuda, "device", _Dev)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: _Stream())
+    calls = []
+    monkeypatch.setattr(fa, "_bhsd_launcher", lambda name: lambda *a: (
+        calls.append((name, a)) or 0))
+    q, k, v = (torch.zeros(B, NH, S, 256, dtype=torch.bfloat16)
+               for _ in range(3))
+    lse = torch.zeros(B, NH, S)
+    shape = BIASES[bias]
+    bk, mode, dims = fa._classify_bias(
+        None if shape is None else torch.zeros(shape), B, NH, S)
+    f = fa.flash_attention_bwd_fused
+    n0 = (f.launches, f.launches_tc)
+    args = (q, k, v, bk, mode, dims, lse, lse, q, 0.0625, True, 0, 64, 0.0,
+            None, None, 0, mode is not None)
+    dq, dk, dv, db = f(*args)
+    (name, a), = calls
+    assert name == "bwd_tc" and a[0] == fa._FUSED and a[5] == fa._BIAS_CODES[
+        mode]
+    assert a[15] is not None and a[19] == 256
+    assert (db is None) == (mode is None) and dq.dtype == torch.bfloat16
+    assert (f.launches, f.launches_tc) == (n0[0] + 1, n0[1] + 1)
+    monkeypatch.setattr(fa, "_bhsd_launcher", lambda name: lambda *a: 700)
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        f(*args)
+    assert (f.launches, f.launches_tc) == (n0[0] + 1, n0[1] + 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_a_cpu_backward_counts_no_launch_on_either_route(dtype):
+    (q, k, v), rng = _qkv(19)
+    f = fa.flash_attention_bwd_fused
+    n0 = (f.launches, f.launches_tc)
+    for bias in ("none", "key_shared"):
+        ts = [torch.as_tensor(x).to(dtype).requires_grad_() for x in (q, k, v)]
+        o = fa.flash_attention(*ts, _t(_bias(rng, bias)))
+        o.float().sum().backward()
+        assert ts[0].grad.dtype == dtype
+    assert (f.launches, f.launches_tc) == n0
 
 
 # ---------------------------------------------------------------------------
@@ -949,7 +1002,7 @@ def test_full_bias_backward_launches_by_route_and_never_falls_back(
     """On the card a full bias sends the backward to rows 8 and 9 through
     its route's library entry: ``flash_bhsd_bwd_tc_launch`` for bf16 (the
     wgmma kernels, three check outputs), ``flash_bhsd_bwd_launch`` for f32
-    (two check outputs, row 7's in bf16, passed null); ``launches_tc``
+    (no check outputs); ``launches_tc``
     counts the tensor-core launches, and the check outputs come back only
     from them.  A launch that fails raises:
     nothing retries it on the other route or the plain version."""
@@ -968,7 +1021,7 @@ def test_full_bias_backward_launches_by_route_and_never_falls_back(
             None, None, 0, None, True)
     out = fa._cuda_flash_bwd(*args, return_probs=True)
     tc = entry == "bwd_tc"
-    assert calls == [(entry, 35 if tc else 34)] * 2
+    assert calls == [(entry, 35 if tc else 32)] * 2
     assert [(c.launches, c.launches_tc) for c in counters] == [
         (a + 1, b + tc) for a, b in n0]
     assert out[3].shape == (B, S, S)  # dbias summed over the heads
