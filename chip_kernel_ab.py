@@ -17,7 +17,11 @@ mha_key_train's (causal off and on, with and without Philox), row 5 at
 BERT-base's
 training shape, row 4 there (with and without Philox, and f32 at the
 infer path's shape) and at the NMT decoder's two shapes, row 1 at the
-decode step's shape, rows 2 and 3 at BERT-base's.  Device times come
+decode step's shape, rows 2 and 3 at BERT-base's (row 3 also in f32
+without the residual) and at the NMT step's (16,384 x 512, bf16, the
+residual), row 4 in f32 also at nmt_infer's two decoder shapes (8 x
+256, 8 heads of 64: causal self-attention, key-bias cross-attention).
+Device times come
 from ``chip_smoke.time_cold_ms`` of the tree that runs this script (CUDA
 events, L2 flushed, the stream held), the same clock for both trees.
 Prints one JSON line per turn and, last before the card line, a
@@ -226,6 +230,39 @@ def _measure(tree: str) -> dict:
     _, mean, rstd = add_ln.fused_add_ln_fwd(x, y, sc, sh)
     out["row3_ln_bwd_bf16_y"] = ms(lambda: add_ln.fused_add_ln_bwd(
         x, y, sc, mean, rstd, g))
+    g32 = torch.as_tensor(rng.standard_normal((4096, 768)),
+                          dtype=torch.float32).to(dev)
+    _, mean32, rstd32 = add_ln.fused_add_ln_fwd(x32, None, sc, sh)
+    out["row3_ln_bwd_f32"] = ms(lambda: add_ln.fused_add_ln_bwd(
+        x32, None, sc, mean32, rstd32, g32))
+    del x32, g32, x, y, g
+
+    # rows 2 and 3 at the NMT step's rows (64 x 256 tokens, d_model 512),
+    # bf16 with the residual
+    x, y, g = (randn(16384, 512) for _ in range(3))
+    sc = torch.ones(512, device=dev)
+    sh = torch.zeros(512, device=dev)
+    out["row2_ln_fwd_nmt_bf16_y"] = ms(lambda: add_ln.fused_add_ln_fwd(
+        x, y, sc, sh))
+    _, mean, rstd = add_ln.fused_add_ln_fwd(x, y, sc, sh)
+    out["row3_ln_bwd_nmt_bf16_y"] = ms(lambda: add_ln.fused_add_ln_bwd(
+        x, y, sc, mean, rstd, g))
+    del x, y, g
+
+    # row 4 in f32 at the frozen NMT's decoder shapes (nmt_infer: 8 x 256,
+    # 8 heads of 64): the causal self-attention and the key-bias
+    # cross-attention
+    b, s, nh = 8, 256, 8
+    q, k, v = (torch.as_tensor(rng.standard_normal((b, s, nh * 64)),
+                               dtype=torch.float32).to(dev)
+               for _ in range(3))
+    src = torch.as_tensor(np.where(np.arange(s)[None, :] < rng.integers(
+        s // 2, s + 1, b)[:, None], 0.0, -1e4).reshape(b, 1, 1, s),
+        dtype=torch.float32).to(dev)
+    out["row4_bsh_fwd_f32_nmt_self_causal"] = ms(
+        lambda: fa.flash_attention_bsh_fwd(q, k, v, None, nh, causal=True))
+    out["row4_bsh_fwd_f32_nmt_cross_key"] = ms(
+        lambda: fa.flash_attention_bsh_fwd(q, k, v, src, nh))
     return {"tree": tree, "card": torch.cuda.get_device_name(0),
             "ms": out}
 

@@ -11,8 +11,10 @@ prints no result):
                versions; TF32 off for matmuls and cuDNN
   build        nvcc builds every kernel library from ``csrc/`` (one nvcc
                per source, all started together): each library's path
-               and its ptxas register/spill lines, and the tensor-core
-               kernels' ptxas lines by kernel
+               and its ptxas register/spill lines, the tensor-core
+               kernels' and the redesigned SIMT kernels' ptxas lines by
+               kernel, and the f32 BSH forward's SASS (cuobjdump): FFMA
+               and no tensor-core instruction
   kernels      each kernel against its plain PyTorch version at its main
                path's shapes (paged attention; BSH flash attention, o and
                lse, its backward dq/dk/dv and its dropout, from an explicit
@@ -27,8 +29,13 @@ prints no result):
                the plain version's, and its dq, dk, dv against the plain
                products of them; both timed at BERT's shape, with and
                without dropout, and at the NMT decoder's two shapes);
+               the f32 forward (the infer path's SIMT kernel) also at
+               nmt_infer's two decoder shapes;
                add+LayerNorm, out and stats, and its backward dx,
-               dscale, dshift; the five conv+BN kernels at ResNet-50's
+               dscale, dshift, timed at BERT's and the NMT step's rows,
+               the backward one launch (a torch.profiler window sees one
+               device kernel) and bit-for-bit repeatable; the five
+               conv+BN kernels at ResNet-50's
                shapes, f32 and bf16 (row 10 at all four 3 x 3 stage shapes
                and row 11 at five 1 x 1 shapes, each route's launch
                counted, a tile sweep beside each timing (row 11: tile and
@@ -282,22 +289,67 @@ def _ptxas_by_kernel(log: str) -> dict:
     return out
 
 
+# the SIMT kernels redesigned for register tiles: their ptxas lines by
+# kernel, and (the f32 forward) their SASS, which must hold no
+# tensor-core instruction
+SIMT_KERNELS = ("flash_fwd_bsh_kernel", "add_ln_bwd_kernel")
+
+
+def _sass_ops(nvcc: str, path: str, needle: str) -> dict:
+    """Opcode counts of each function of the library at ``path`` whose
+    mangled name holds ``needle`` (``cuobjdump -sass``, beside nvcc)."""
+    tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    proc = subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, timeout=300)
+    if proc.returncode != 0:
+        fail(f"cuobjdump -sass {path}: {proc.stderr.strip()[-2000:]}")
+    out, cur = {}, None
+    for ln in proc.stdout.splitlines():
+        s = ln.strip()
+        if s.startswith("Function :"):
+            name = s.split(":", 1)[1].strip()
+            cur = out.setdefault(name, {}) if needle in name else None
+        elif cur is not None and s.startswith("/*") and "*/" in s:
+            words = s.split("*/", 1)[1].split()
+            if words and words[0].startswith("@"):
+                words = words[1:]
+            if words and not words[0].startswith("/*"):
+                op = words[0].split(".")[0]
+                cur[op] = cur.get(op, 0) + 1
+    return out
+
+
 def phase_build() -> dict:
     from paddle_tpu_torch.ops.kernels import _build
 
     t0 = time.perf_counter()
     built = _build.build_all()
     secs = time.perf_counter() - t0
-    libs, tc = {}, {}
+    libs, tc, simt = {}, {}, {}
     for name, (path, log) in built.items():
         libs[name] = {
             "library": os.path.basename(path), "cached": log is None,
             "ptxas": [ln.strip() for ln in (log or "").splitlines()
                       if "registers" in ln or "spill" in ln]}
-        tc.update({k: v for k, v in _ptxas_by_kernel(log or "").items()
-                   if "_tc_kernel" in k})
+        by_kernel = _ptxas_by_kernel(log or "")
+        tc.update({k: v for k, v in by_kernel.items() if "_tc_kernel" in k})
+        simt.update({k: v for k, v in by_kernel.items()
+                     if any(n in k for n in SIMT_KERNELS)})
+    # row 4's f32 forward runs full-f32 FFMA: no HMMA/HGMMA (TF32) in it
+    sass = _sass_ops(_build.nvcc_path(), built["flash_attention_bsh"][0],
+                     SIMT_KERNELS[0])
+    mma = {f: {op: n for op, n in ops.items() if "MMA" in op}
+           for f, ops in sass.items()}
+    if not sass or any(mma.values()) or not all(
+            ops.get("FFMA", 0) for ops in sass.values()):
+        fail(f"the f32 BSH forward's SASS: tensor-core instructions "
+             f"{mma}, functions {sorted(sass)}")
     emit({"phase": "build", "seconds": secs, "libraries": libs,
-          "tensor_core_kernels_ptxas": tc})
+          "tensor_core_kernels_ptxas": tc, "simt_kernels_ptxas": simt,
+          "f32_forward_sass": {f: {"FFMA": ops.get("FFMA", 0),
+                                   "instructions": sum(ops.values()),
+                                   "tensor_core": mma[f]}
+                               for f, ops in sass.items()}})
     return {"log": {name: log for name, (_, log) in built.items()}}
 
 
@@ -509,6 +561,41 @@ def _bsh_fwd_check(torch, fa, name, kw, is_bf16) -> tuple:
     return r, o, lse, bits, mask, keep_div
 
 
+def _time_fwd_nmt_infer(torch, F, flush, fa, rng) -> dict:
+    """Row 4 in f32 at the frozen NMT's two decoder shapes (``nmt_infer``:
+    8 x 256, 8 heads of 64): the causal self-attention and the
+    cross-attention with its per-key source bias, each against its plain
+    version and timed beside SDPA on the same inputs and the bound."""
+    out = {}
+    b, s, nh = 8, NMT["trg_len"], NMT["heads"]
+    d = NMT["d_model"] // nh
+    for name, causal in (("self_causal", True), ("cross_key_bias", False)):
+        kw = _flash_inputs(torch, rng, b, s, nh, d, torch.float32,
+                           not causal, causal)
+        q, k, v, bias = kw["q"], kw["k"], kw["v"], kw["bias"]
+        res = _bsh_fwd_check(torch, fa, f"nmt_infer {name}", kw, False)[0]
+        qh, kh, vh = (t.reshape(b, s, nh, d).transpose(1, 2).contiguous()
+                      for t in (q, k, v))
+        row = {"shape": {"B": b, "S": s, "H": nh * d, "nh": nh, "D": d,
+                         "causal": causal,
+                         "bias": None if causal else "per key",
+                         "dtype": "float32"},
+               "library": "F.scaled_dot_product_attention (is_causal or "
+                          "the additive key mask)",
+               "max_abs_err": res["max_abs_err"],
+               "grid": fa.simt_fwd_grid(b, s, nh, d)}
+        row.update(_timed(
+            torch, flush, lambda: fa.flash_attention_bsh_fwd(**kw),
+            lambda: fa.flash_attention_bsh_reference(**kw),
+            lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=bias, is_causal=causal),
+            nbytes=fa.bound_bytes(q, k, v, bias, nh),
+            flops=fa.bound_flops(q, k, nh, causal), peak_flops=F32_FLOPS))
+        out[name] = row
+        del kw, q, k, v, bias, qh, kh, vh
+    return out
+
+
 def _kernels_flash(torch, F, flush) -> tuple:
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
 
@@ -540,6 +627,12 @@ def _kernels_flash(torch, F, flush) -> tuple:
         ("rect_bf16_256_from_512", rect(8, 256, 512, 12, 64, bf16), True),
         ("rect_bf16_512_from_256_d256", rect(2, 512, 256, 4, 256, bf16),
          True),
+        # the f32 kernel's ragged last tiles (128 x 128 at D 64, 64 x 128
+        # at D 128): query rows and keys past a tile's end
+        ("rect_f32_192_from_320", rect(2, 192, 320, 4, 64, f32), False),
+        ("causal_f32_192", case(2, 192, 4, 64, f32, False, True), False),
+        ("rect_f32_192_from_192_d128", rect(2, 192, 192, 4, 128, f32),
+         False),
     ]
     results = {}
     for name, kw, is_bf16 in cases:
@@ -569,6 +662,11 @@ def _kernels_flash(torch, F, flush) -> tuple:
         nbytes=fa.bound_bytes(q, k, v, bias, nh),
         flops=fa.bound_flops(q, k, nh), peak_flops=F32_FLOPS))
     out["max_abs_err"] = results["f32"]["max_abs_err"]
+    grid = fa.simt_fwd_grid(b, s, nh, h // nh)
+    out["grid"] = grid
+    out["waves"] = (math.prod(grid) / torch.cuda.get_device_properties(
+        0).multi_processor_count)  # one block an SM
+    out["nmt_infer"] = _time_fwd_nmt_infer(torch, F, flush, fa, rng)
     return results, out
 
 
@@ -970,33 +1068,125 @@ def _time_bwd_nmt(torch, F, flush, fa, rng) -> dict:
     return out
 
 
+def _ln_case(torch, rng, r, h, dtype, with_y):
+    """LN inputs [r, h] in ``dtype`` (scale near 1, shift near 0, both
+    f32) and a cotangent g."""
+    def t(*shape, scale=1.0, shift=0.0):
+        return torch.as_tensor(shift + scale * rng.standard_normal(shape),
+                               dtype=torch.float32)
+
+    x, y, g = (t(r, h).to("cuda", dtype) for _ in range(3))
+    return dict(x=x, y=y if with_y else None,
+                scale=t(h, scale=0.1, shift=1.0).to("cuda"),
+                shift=t(h, scale=0.1).to("cuda")), g
+
+
+def _ln_bwd_timed(torch, F, flush, add_ln, kw, g, res) -> dict:
+    """Row 3 timed on ``kw`` and g beside the autograd backward of
+    F.layer_norm and its bound."""
+    x, y, scale = kw["x"], kw["y"], kw["scale"]
+    r, h = x.shape
+    is_bf16 = x.dtype == torch.bfloat16
+    _, mean, rstd = add_ln.fused_add_ln_fwd(**kw)
+    s_ = (x.float() + y.float()).to(x.dtype) if y is not None else x
+    xs = s_.detach().clone().requires_grad_()
+    ws = scale.to(x.dtype).detach().clone().requires_grad_()
+    bs = kw["shift"].to(x.dtype).detach().clone().requires_grad_()
+    lib_out = F.layer_norm(xs, (h,), ws, bs, 1e-5)
+    out = {"shape": {"R": r, "H": h, "y": y is not None,
+                     "dtype": "bfloat16" if is_bf16 else "float32"},
+           "library": "autograd backward of F.layer_norm (dx, dweight, "
+                      "dbias; the residual add left out)",
+           "max_abs_err": max(res["max_abs_err"], res["dscale"],
+                              res["dshift"])}
+    out.update(_timed(
+        torch, flush,
+        lambda: add_ln.fused_add_ln_bwd(x, y, scale, mean, rstd, g),
+        lambda: add_ln.fused_add_ln_bwd_reference(x, y, scale, mean, rstd,
+                                                  g),
+        lambda: torch.autograd.grad(lib_out, (xs, ws, bs), g,
+                                    retain_graph=True),
+        nbytes=add_ln.bound_bytes_bwd(x, y),
+        flops=add_ln.bound_flops_bwd(x, y),
+        peak_flops=BF16_FLOPS if is_bf16 else F32_FLOPS))
+    threads, per_block, nblocks, ngroups = add_ln.bwd_geometry(
+        r, h, torch.cuda.get_device_properties(0).multi_processor_count)
+    out["geometry"] = {"threads": threads, "rows_per_block": per_block,
+                       "blocks": nblocks, "groups": ngroups}
+    return out
+
+
+def _ln_fwd_timed(torch, F, flush, add_ln, kw) -> dict:
+    """Row 2 on ``kw`` (bf16 with the residual) against its plain version
+    and timed beside F.layer_norm of x + y."""
+    x, y = kw["x"], kw["y"]
+    r, h = x.shape
+    s_ = (x.float() + y.float()).to(x.dtype)
+    lib_scale, lib_shift = kw["scale"].to(x.dtype), kw["shift"].to(x.dtype)
+    out = {"shape": {"R": r, "H": h, "y": True, "dtype": "bfloat16"},
+           "library": "F.layer_norm of x + y (the add left out)",
+           "max_abs_err": _check(
+               f"add_ln {r} x {h} bf16_y out", add_ln.fused_add_ln_fwd(**kw)[0],
+               add_ln.fused_add_ln_reference(**kw)[0], 1e-5,
+               RTOL_BF16)["max_abs_err"]}
+    out.update(_timed(
+        torch, flush, lambda: add_ln.fused_add_ln_fwd(**kw),
+        lambda: add_ln.fused_add_ln_reference(**kw),
+        lambda: F.layer_norm(s_, (h,), lib_scale, lib_shift, 1e-5),
+        nbytes=add_ln.bound_bytes(x, y),
+        flops=add_ln.bound_flops(x, y), peak_flops=BF16_FLOPS))
+    return out
+
+
+def _ln_bwd_one_launch(torch, add_ln, kw, g) -> dict:
+    """Row 3 is one launch and deterministic: two calls on the same
+    inputs give dx, dscale and dshift equal bit for bit, and a
+    torch.profiler window around one (warm) call sees exactly one CUDA
+    kernel, the backward's (its final sums run inside it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x, y, scale = kw["x"], kw["y"], kw["scale"]
+    _, mean, rstd = add_ln.fused_add_ln_fwd(**kw)
+    first = add_ln.fused_add_ln_bwd(x, y, scale, mean, rstd, g)
+    second = add_ln.fused_add_ln_bwd(x, y, scale, mean, rstd, g)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dx", "dscale", "dshift"), first, second):
+        if not torch.equal(a, b):
+            fail(f"add_ln backward: two calls on the same inputs gave "
+                 f"different {name} ({int((a != b).sum())} elements)")
+    cuda = torch.autograd.DeviceType.CUDA
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        add_ln.fused_add_ln_bwd(x, y, scale, mean, rstd, g)
+        torch.cuda.synchronize()
+    kernels = [evt.name for evt in prof.events()
+               if evt.device_type == cuda]
+    if len(kernels) != 1 or "add_ln_bwd_kernel" not in kernels[0]:
+        fail(f"add_ln backward: a profiled call ran {len(kernels)} device "
+             f"operations, not the one kernel: {kernels}")
+    return {"bitwise_repeatable": True, "device_ops_in_one_call": kernels}
+
+
 def _kernels_ln_train(torch, F, flush) -> tuple:
     """The LN backward against its plain version (f32 and bf16, with and
-    without the residual), timed at the training path's shapes (bf16 with
-    the residual, the encoder stack's add+LN) and f32 without it."""
+    without the residual), timed at the training paths' shapes: BERT's
+    rows (4096 x 768) bf16 with the residual (the encoder stack's add+LN)
+    and f32 without it, and the NMT step's (16,384 x 512, bf16, the
+    residual), the forward beside it at both bf16 shapes; then the
+    backward's one-launch and bit-for-bit checks."""
     from paddle_tpu_torch.ops.kernels import add_ln
 
     rng = np.random.default_rng(8)
     r, h = 4096, 768  # 8 x 512 rows, BERT-base width
-
-    def case(dtype, with_y):
-        def t(*shape, scale=1.0, shift=0.0):
-            return torch.as_tensor(shift + scale * rng.standard_normal(
-                shape), dtype=torch.float32)
-
-        x, y, g = (t(r, h).to("cuda", dtype) for _ in range(3))
-        return dict(x=x, y=y if with_y else None,
-                    scale=t(h, scale=0.1, shift=1.0).to("cuda"),
-                    shift=t(h, scale=0.1).to("cuda")), g
 
     results, timed = {}, {}
     for name, dtype, with_y in (("f32", torch.float32, False),
                                 ("f32_y", torch.float32, True),
                                 ("bf16", torch.bfloat16, False),
                                 ("bf16_y", torch.bfloat16, True)):
-        kw, g = case(dtype, with_y)
+        kw, g = _ln_case(torch, rng, r, h, dtype, with_y)
         is_bf16 = dtype == torch.bfloat16
-        out, mean, rstd = add_ln.fused_add_ln_fwd(**kw)
+        _, mean, rstd = add_ln.fused_add_ln_fwd(**kw)
         x, y, scale = kw["x"], kw["y"], kw["scale"]
         dx, dsc, dsh = add_ln.fused_add_ln_bwd(x, y, scale, mean, rstd, g)
         rdx, rdsc, rdsh = add_ln.fused_add_ln_bwd_reference(
@@ -1010,46 +1200,60 @@ def _kernels_ln_train(torch, F, flush) -> tuple:
         res["dshift"] = _check(f"add_ln backward {name} dshift", dsh, rdsh,
                                ATOL_SUM, RTOL_SUM)["max_abs_err"]
         results[name] = res
-        if name not in ("f32", "bf16_y"):
-            continue
-        s_ = (x.float() + y.float()).to(dtype) if with_y else x
-        lib_scale, lib_shift = scale.to(dtype), kw["shift"].to(dtype)
-        xs = s_.detach().clone().requires_grad_()
-        ws = lib_scale.detach().clone().requires_grad_()
-        bs = lib_shift.detach().clone().requires_grad_()
-        lib_out = F.layer_norm(xs, (h,), ws, bs, 1e-5)
-        t = {"shape": {"R": r, "H": h, "y": with_y,
-                       "dtype": "bfloat16" if is_bf16 else "float32"},
-             "library": "autograd backward of F.layer_norm (dx, dweight, "
-                        "dbias; the residual add left out)",
-             "max_abs_err": max(res["max_abs_err"], res["dscale"],
-                                res["dshift"])}
-        t.update(_timed(
-            torch, flush,
-            lambda: add_ln.fused_add_ln_bwd(x, y, scale, mean, rstd, g),
-            lambda: add_ln.fused_add_ln_bwd_reference(x, y, scale, mean,
-                                                      rstd, g),
-            lambda: torch.autograd.grad(lib_out, (xs, ws, bs), g,
-                                        retain_graph=True),
-            nbytes=add_ln.bound_bytes_bwd(x, y),
-            flops=add_ln.bound_flops_bwd(x, y),
-            peak_flops=BF16_FLOPS if is_bf16 else F32_FLOPS))
-        timed[name] = t
+        if name in ("f32", "bf16_y"):
+            timed[name] = _ln_bwd_timed(torch, F, flush, add_ln, kw, g, res)
         if name == "bf16_y":
             # the forward at the same shapes, for the training path's row
-            t = {"shape": timed[name]["shape"],
-                 "library": "F.layer_norm of x + y (the add left out)",
-                 "max_abs_err": _check(
-                     "add_ln bf16_y out", out,
-                     add_ln.fused_add_ln_reference(**kw)[0], 1e-5,
-                     RTOL_BF16)["max_abs_err"]}
-            t.update(_timed(
-                torch, flush, lambda: add_ln.fused_add_ln_fwd(**kw),
-                lambda: add_ln.fused_add_ln_reference(**kw),
-                lambda: F.layer_norm(s_, (h,), lib_scale, lib_shift, 1e-5),
-                nbytes=add_ln.bound_bytes(x, y),
-                flops=add_ln.bound_flops(x, y), peak_flops=BF16_FLOPS))
-            timed["fwd_bf16_y"] = t
+            timed["fwd_bf16_y"] = _ln_fwd_timed(torch, F, flush, add_ln, kw)
+            results["one_launch"] = _ln_bwd_one_launch(torch, add_ln, kw, g)
+        del kw, g, dx, rdx
+
+    # the other instantiations the paths above do not reach: bf16 rows with
+    # H % 8 != 0 (8-byte chunks), wide rows (four warps a block), and a
+    # row count that leaves the last block short
+    for name, r_, h_, dtype, with_y in (
+            ("bf16_y_h772", 512, 772, torch.bfloat16, True),
+            ("f32_h2048", 256, 2048, torch.float32, False),
+            ("bf16_y_h4096", 128, 4096, torch.bfloat16, True),
+            ("f32_h4096", 64, 4096, torch.float32, False),
+            ("bf16_h2052", 64, 2052, torch.bfloat16, False),
+            ("f32_y_1000_rows_h1024", 1000, 1024, torch.float32, True)):
+        kw, g = _ln_case(torch, rng, r_, h_, dtype, with_y)
+        is_bf16 = dtype == torch.bfloat16
+        _, mean, rstd = add_ln.fused_add_ln_fwd(**kw)
+        x, y, scale = kw["x"], kw["y"], kw["scale"]
+        got = add_ln.fused_add_ln_bwd(x, y, scale, mean, rstd, g)
+        want = add_ln.fused_add_ln_bwd_reference(x, y, scale, mean, rstd, g)
+        torch.cuda.synchronize()
+        res = _check(f"add_ln backward {name} dx", got[0], want[0],
+                     1e-5 if is_bf16 else ATOL_F32,
+                     RTOL_BF16 if is_bf16 else 0.0)
+        for i, part in ((1, "dscale"), (2, "dshift")):
+            res[part] = _check(f"add_ln backward {name} {part}", got[i],
+                               want[i], ATOL_SUM, RTOL_SUM)["max_abs_err"]
+        results[name] = res
+        del kw, g, got, want
+
+    # the NMT step's rows: 64 x 256 tokens, d_model 512, bf16, residual
+    kw, g = _ln_case(torch, rng, NMT["batch"] * NMT["src_len"],
+                     NMT["d_model"], torch.bfloat16, True)
+    x, y, scale = kw["x"], kw["y"], kw["scale"]
+    _, mean, rstd = add_ln.fused_add_ln_fwd(**kw)
+    dx, dsc, dsh = add_ln.fused_add_ln_bwd(x, y, scale, mean, rstd, g)
+    rdx, rdsc, rdsh = add_ln.fused_add_ln_bwd_reference(x, y, scale, mean,
+                                                        rstd, g)
+    torch.cuda.synchronize()
+    res = _check("add_ln backward nmt_bf16_y dx", dx, rdx, 1e-5, RTOL_BF16)
+    # dscale/dshift sum 16,384 rows here: the same limits as at 4096
+    res["dscale"] = _check("add_ln backward nmt_bf16_y dscale", dsc, rdsc,
+                           ATOL_SUM, RTOL_SUM)["max_abs_err"]
+    res["dshift"] = _check("add_ln backward nmt_bf16_y dshift", dsh, rdsh,
+                           ATOL_SUM, RTOL_SUM)["max_abs_err"]
+    results["nmt_bf16_y"] = res
+    timed["nmt_bf16_y"] = _ln_bwd_timed(torch, F, flush, add_ln, kw, g, res)
+    timed["nmt_fwd_bf16_y"] = _ln_fwd_timed(torch, F, flush, add_ln, kw)
+    del kw, g, dx, rdx
+    torch.cuda.empty_cache()
     return results, timed
 
 
@@ -1588,6 +1792,8 @@ def phase_kernels(torch) -> dict:
     out["add_ln_bwd"] = ln["bf16_y"]
     out["add_ln_bwd_f32"] = ln["f32"]
     out["add_ln_train"] = ln["fwd_bf16_y"]
+    out["add_ln_bwd_nmt"] = ln["nmt_bf16_y"]
+    out["add_ln_train_nmt"] = ln["nmt_fwd_bf16_y"]
     out["cases"]["conv_bn"], cbn = _kernels_conv_bn(torch, F, flush)
     out.update(cbn)
     out["cases"]["flash_attention_bhsd"], bhsd = _kernels_flash_bhsd(

@@ -22,10 +22,13 @@ Two implementations of each direction:
   plain PyTorch versions.  CPU and ``meta`` tensors take them (shape
   inference goes through them).
 * the CUDA kernels of ``csrc/add_ln.cu`` (sm_90a, built by nvcc at first
-  use, bound with ctypes): one warp a row, two shuffle reductions a
-  row; the backward accumulates dscale/dshift partials a warp in
-  registers and writes one row of partials a block, which the wrapper
-  sums.  The source's header note has the design.
+  use, bound with ctypes): one warp a row, held in registers, two shuffle
+  reductions a row.  The backward is one launch: each block writes a
+  partial row of dscale/dshift, and the blocks that finish last (an
+  atomic ticket) sum them in a fixed order, so it is deterministic.  Its
+  grid comes from ``bwd_geometry`` and its workspace from
+  ``bwd_workspace`` (cached per device, stream and H).  The source's
+  header note has the design.
 
 ``add_ln`` is the differentiable entry (a ``torch.autograd.Function``
 whose forward and backward are the above): ``mean`` and ``rstd`` are
@@ -42,11 +45,12 @@ once, scale and shift read once (as f32) and the two f32 stats a row;
 ``bound_bytes_bwd`` x, y, g, scale and the stats read once, dx, dscale
 and dshift written once; both against 3.35 TB/s on an H100 SXM.
 ``fused_add_ln.launches`` and ``fused_add_ln_bwd.launches`` count kernel
-launches.
+launches (one a call each).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -153,7 +157,7 @@ def _launcher(name: str):
             fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
                            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         else:
-            fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+            fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
                            + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fns[name] = fn
@@ -203,7 +207,46 @@ def fused_add_ln(x, y, scale, shift, eps: float = 1e-5):
 
 fused_add_ln.launches = 0
 
-BWD_MAX_BLOCKS = 256  # rows of dscale/dshift partials the wrapper sums
+BWD_GROUP = 16  # block partial rows that one group sum takes
+
+
+def bwd_geometry(rows: int, h: int, sms: int) -> tuple:
+    """The backward kernel's launch: (threads, rows_per_block, nblocks,
+    ngroups).  Sixteen warps a block, one block an SM, up to H = 1024;
+    four warps, two blocks an SM, beyond.  Rows a block are a multiple of
+    the warps, sized so that the grid is one wave with every SM holding
+    rows in flight; blocks go in groups of ``BWD_GROUP`` for the
+    two-level final sum."""
+    warps, per_sm = (16, 1) if h <= 1024 else (4, 2)
+    per_block = warps * max(1, -(-rows // (warps * per_sm * sms)))
+    nblocks = -(-rows // per_block)
+    return warps * 32, per_block, nblocks, -(-nblocks // BWD_GROUP)
+
+
+_workspaces = {}
+
+
+def bwd_workspace(device, stream: int, h: int, nblocks: int,
+                  ngroups: int) -> tuple:
+    """(part, ticket) of the backward kernel on ``device`` and ``stream``:
+    f32 partial rows [>= nblocks + ngroups, 2, H] (the blocks', then the
+    groups') and int32 tickets [>= 1 + ngroups], zero between calls (each
+    call leaves them at zero).  Cached per (device, stream, H); a call
+    that needs more rows gets a larger pair."""
+    key = (torch.device(device), int(stream), int(h))
+    ws = _workspaces.get(key)
+    if (ws is None or ws[0].shape[0] < nblocks + ngroups
+            or ws[1].numel() < 1 + ngroups):
+        ws = (torch.empty((nblocks + ngroups, 2, h), dtype=torch.float32,
+                          device=device),
+              torch.zeros(1 + ngroups, dtype=torch.int32, device=device))
+        _workspaces[key] = ws
+    return ws
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _cuda_add_ln_bwd(x, y, scale, mean, rstd, g):
@@ -211,24 +254,25 @@ def _cuda_add_ln_bwd(x, y, scale, mean, rstd, g):
     h = x.shape[-1]
     rows = x.numel() // h
     scale = scale.float().contiguous()
-    nblocks = max(1, min(-(-rows // 8), BWD_MAX_BLOCKS))
+    threads, per_block, nblocks, ngroups = bwd_geometry(
+        rows, h, _sm_count(x.device))
     fn = _launcher("bwd")
     dx = torch.empty_like(x)
-    parts = torch.empty((2, nblocks, h), dtype=torch.float32,
-                        device=x.device)
+    dparams = torch.empty((2, h), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
+        part, ticket = bwd_workspace(x.device, stream, h, nblocks, ngroups)
         err = fn(x.data_ptr(), None if y is None else y.data_ptr(),
                  scale.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-                 g.data_ptr(), dx.data_ptr(), parts[0].data_ptr(),
-                 parts[1].data_ptr(), rows, h, nblocks,
+                 g.data_ptr(), dx.data_ptr(), dparams[0].data_ptr(),
+                 dparams[1].data_ptr(), part.data_ptr(), ticket.data_ptr(),
+                 rows, h, per_block, nblocks, threads,
                  _DTYPE_CODES[x.dtype], stream)
     if err:
         raise RuntimeError(f"add_ln backward kernel launch failed: CUDA "
                            f"error {err}")
     fused_add_ln_bwd.launches += 1
-    dscale, dshift = parts.sum(dim=1)
-    return dx, dscale, dshift
+    return dx, dparams[0], dparams[1]
 
 
 def fused_add_ln_bwd(x, y, scale, mean, rstd, g):

@@ -57,20 +57,41 @@
 // forward and the backward, the bytes the bf16 forward.  The split
 // backward does 7 products to the bound's 5 (S and dP in both kernels).
 //
-// Design (SIMT: the f32 forward and backward).  The TPU kernels walk a
-// (batch, block) grid and keep whole
-// sequences resident in VMEM.  Here one block of 256 threads owns one
-// tile of T rows (T = 64, 32 at D = 256) of one head of one batch row,
-// so B*nh*S/T blocks fill the 132 SMs, and streams the other operand in
+// The f32 forward on the SIMT cores (FFMA only: tensor cores would round
+// f32 to TF32).  Bound: its 4 B nh Sq Skv D flops at 67 TFLOP/s (at the
+// infer path's 8 x 512, 12 heads of 64: 6.44 GFLOP, 0.096 ms).  What
+// keeps a SIMT kernel from that rate is feeding the FMA units: the SM's
+// shared memory delivers 32 floats a clock to 128 FMA lanes, so an inner
+// product that loads one float a thread for each two FMAs caps near half
+// the rate; copies that run between barriers leave the units idle; and a
+// grid that ends on a partial wave idles SMs at the end.  Design: one
+// block of 256 threads owns BQ query rows of one head of one batch row (at
+// D = 64, 128 rows: 384 blocks of one a SM at the infer shape, 2.9 waves)
+// and streams BK = 128 keys a tile.  Each thread holds an 8 x 8 register
+// tile of the scores (rows ty + 16 i, keys tx + 16 j) and one of the
+// output (the same rows, columns 4 (tx % 8) + 32 g + e, summed over key
+// half tx / 8 of every tile and added across the two halves' lanes at the
+// end), and reads its operands from shared memory as float4s along the
+// reduction (d for S, keys for P V): 16 float4 loads feed 256 FMAs, 4 FMAs
+// a float, in padded rows that keep the loads free of bank conflicts.  K
+// (with the key bias) and V arrive by 16-byte cp.async straight from the
+// [B, S, H] rows (a head's D columns are contiguous), K of the next tile
+// under this tile's P V and V of this tile under its S product, so a tile
+// takes two barriers and every copy overlaps FMAs.  The online softmax
+// reduces a row over the 16 lanes that hold it (xor shuffles).  Rows past
+// Sq and keys past Skv of a ragged last tile are zero-filled and masked.
+// Dropout draws each Philox counter once a lane pair (the two rows of one
+// counter sit in lanes l and l ^ 16, which swap words).
+//
+// The f32 backward on the SIMT cores: one block of 256 threads owns one
+// tile of T rows (T = 64, 32 at D = 256) of one head of one batch row, so
+// B*nh*S/T blocks fill the 132 SMs, and streams the other operand in
 // T-row tiles through shared memory, reading each head's D-column slice
 // straight from the [B, S, H] rows: no head split or merge transposes.
-// All arithmetic is f32 (bf16 inputs widen on load).  Thread (ty, tx) of
-// a 16 x 16 grid holds rows ty*T/16 .. and columns tx + 16*j of every
-// T x T score tile, and rows ty*T/16 .. and columns tx + 16*j of every
-// T x D accumulator, in registers; row max and row sum reduce over the
-// 16 lanes of a half-warp with xor shuffles.  Scores pass through shared
-// memory between the two products.  Tile rows in shared memory are
-// padded by one float, so 16 lanes reading 16 different rows hit 16
+// Thread (ty, tx) of a 16 x 16 grid holds rows ty*T/16 .. and columns tx
+// + 16*j of every T x T score tile in registers; row sums reduce over the
+// 16 lanes of a half-warp with xor shuffles.  Tile rows in shared memory
+// are padded by one float, so 16 lanes reading 16 different rows hit 16
 // banks.
 //
 // The bf16 forward on the tensor cores: row 6's forward body
@@ -124,160 +145,314 @@
 
 namespace {
 
-constexpr int kBQ = 64;            // forward: query rows per block
 constexpr int kThreads = 256;      // 16 x 16
 
 // ---------------------------------------------------------------------------
-// forward
+// forward, f32 (SIMT)
 // ---------------------------------------------------------------------------
 
+// Tiles of the f32 forward by head dim: BQ query rows and BK keys a block.
+// Thread (ty, tx) = (tid / 16, tid % 16) holds rows ty + 16 i (i < BQ / 16)
+// of the BQ x BK scores, keys tx + 16 j (j < BK / 16), and the same rows of
+// the BQ x D output, columns 4 (tx % 8) + 32 g + e (g < D / 32, e < 4),
+// summed over key half tx / 8 of every tile: at D = 64 an 8 x 8 tile of S
+// and one of O.
+template <int D> struct SimtTile;
+template <> struct SimtTile<64> { static constexpr int BQ = 128, BK = 128; };
+template <> struct SimtTile<128> { static constexpr int BQ = 64, BK = 128; };
+template <> struct SimtTile<256> { static constexpr int BQ = 32, BK = 64; };
+
+// Shared memory of the f32 forward, offsets in floats.  Q and K rows are
+// padded to D + 4 floats, so consecutive rows start in consecutive 16-byte
+// bank groups and the float4 loads along d of a warp (2 rows of Q, 16 of
+// K) take the fewest wavefronts; a P row holds key half 0 at 0 and half 1
+// at BK / 2 + 4 in BK + 8 floats, so the 2 rows x 2 halves a warp reads at
+// once fall in 4 different bank groups.
+template <int D>
+struct SimtSmem {
+  static constexpr int BQ = SimtTile<D>::BQ, BK = SimtTile<D>::BK;
+  static constexpr int DP = D + 4;
+  static constexpr int PP = BK + 8;
+  static constexpr int HOFF = BK / 2 + 4;
+  static constexpr int Q = 0;
+  static constexpr int K = Q + BQ * DP;
+  static constexpr int V = K + BK * DP;
+  static constexpr int P = V + BK * D;
+  static constexpr int BIAS = P + BQ * PP;
+  static constexpr int BYTES = (BIAS + BK) * 4;
+};
+
+// cp.async rows k0 .. k0 + BK of one head's D columns ([B, S, H] rows hs
+// floats apart) into shared memory at dst, rows `stride` floats apart;
+// rows at or past skv are zero-filled
 template <int D, int BK>
-constexpr int fwd_smem_floats() {
-  return kBQ * (D + 1) + BK * (D + 1) + BK * D + kBQ * (BK + 1);
+__device__ __forceinline__ void fwd_tile_async(uint32_t dst,
+                                               const float* src, int64_t hs,
+                                               int k0, int skv, int stride) {
+  constexpr int C4 = D / 4;
+  for (int idx = threadIdx.x; idx < BK * C4; idx += kThreads) {
+    const int r = idx / C4, c = idx % C4;
+    const bool ok = k0 + r < skv;
+    cp_async16(dst + (r * stride + 4 * c) * 4,
+               src + (int64_t)(ok ? k0 + r : 0) * hs + 4 * c, ok);
+  }
+}
+template <int BK>
+__device__ __forceinline__ void fwd_bias_async(uint32_t dst,
+                                               const float* src, int k0,
+                                               int skv) {
+  for (int idx = threadIdx.x; idx < BK / 4; idx += kThreads) {
+    const bool ok = k0 + 4 * idx < skv;
+    cp_async16(dst + 16 * idx, src + (ok ? k0 + 4 * idx : 0), ok);
+  }
+}
+
+// The dropout multipliers c of a thread's CN scores of one row (keys col0
+// + 16 j): keep / keep_div, or 0.  A Philox counter (key, row / 4) gives
+// the words of 4 rows; this row and row ^ 1 (lanes l and l ^ 16) share
+// it, so each of the two lanes draws every other key's counter and they
+// swap the word the other needs.  Writes the bits it drew to bits_out,
+// under causal only in the 64 x 64 tiles on or below the diagonal (the
+// tiles every forward of the port visits, whatever its own tiling).
+template <int CN>
+__device__ __forceinline__ void fwd_keep(const Dropout& dr, int bh, int sq,
+                                         int skv, int causal, int row,
+                                         int col0, float (&c)[CN]) {
+  const int64_t at0 = ((int64_t)bh * sq + row) * skv;
+  const bool in_row = row < sq;
+  if (dr.mode == kMaskDrop) {
+#pragma unroll
+    for (int j = 0; j < CN; ++j) {
+      const int col = col0 + 16 * j;
+      c[j] = in_row && col < skv && dr.mask[at0 + col] ? dr.inv_keep : 0.f;
+    }
+    return;
+  }
+  const bool odd = row & 1;
+#pragma unroll
+  for (int jj = 0; jj < CN / 2; ++jj) {
+    const uint4 r = philox(make_uint4(col0 + 16 * (2 * jj + (odd ? 1 : 0)),
+                                      row >> 2, bh, dr.offset),
+                           dr.key0, dr.key1);
+    const uint32_t own = word_of(r, row);
+    const uint32_t other =
+        __shfl_xor_sync(0xffffffffu, word_of(r, row ^ 1), 16);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int j = 2 * jj + e;
+      const bool keep = ((e == (odd ? 1 : 0) ? own : other) & 0xFFu) <
+                        dr.thresh;
+      c[j] = keep ? dr.inv_keep : 0.f;
+      const int col = col0 + 16 * j;
+      if (dr.bits_out && in_row && col < skv &&
+          !(causal && (col >> 6) > (row >> 6)))
+        dr.bits_out[at0 + col] = keep ? 1 : 0;
+    }
+  }
 }
 
 // DROP: dropout compiled in (the no-dropout instantiation, the infer
 // path's, carries none of its registers or branches)
-template <typename T, int D, int BK, bool DROP>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_bsh_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const float* __restrict__ bias,
-                     T* __restrict__ o, float* __restrict__ lse, int sq,
-                     int skv, int nh, float sm_scale, int prescale,
-                     int causal, Dropout dr) {
-  constexpr int DP = D + 1;   // padded row stride of Q and K tiles
-  constexpr int BKP = BK + 1;  // padded row stride of the P tile
-  constexpr int NJ = BK / 16;  // score columns per thread
-  constexpr int ND = D / 16;   // output columns per thread
-  extern __shared__ float smem[];
-  float* qs = smem;             // [kBQ][DP]
-  float* ks = qs + kBQ * DP;    // [BK][DP]
-  float* vs = ks + BK * DP;     // [BK][D]
-  float* ps = vs + BK * D;      // [kBQ][BKP]
+template <int D, bool DROP>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_bsh_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ bias, float* __restrict__ o,
+                     float* __restrict__ lse, int sq, int skv, int nh,
+                     float sm_scale, int prescale, int causal, Dropout dr) {
+  using L = SimtSmem<D>;
+  constexpr int BQ = L::BQ, BK = L::BK, DP = L::DP, PP = L::PP;
+  constexpr int RM = BQ / 16;  // rows a thread, of S and of O
+  constexpr int CN = BK / 16;  // keys a thread, of S
+  constexpr int DG = D / 32;   // float4 column groups a thread, of O
+  constexpr int HALF = BK / 2;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem + L::Q;     // [BQ][DP], scaled
+  float* ks = smem + L::K;     // [BK][DP]
+  float* vs = smem + L::V;     // [BK][D]
+  float* ps = smem + L::P;     // [BQ][PP]
+  float* bs = smem + L::BIAS;  // [BK]
 
-  const int q0 = blockIdx.x * kBQ;
+  // the query tiles in reverse: under causal the longest rows start first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int bh = b * nh + h;
-  const int64_t hstride = (int64_t)nh * D;  // between rows of [B, S, H]
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
+  const int64_t hs = (int64_t)nh * D;  // between rows of [B, S, H]
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+  const int half = tx >> 3;  // the key half this thread sums into O
+  const int cx = tx & 7;
 
-  const T* __restrict__ qb = q + ((int64_t)b * sq + q0) * hstride + h * D;
-  const T* __restrict__ kb = k + (int64_t)b * skv * hstride + h * D;
-  const T* __restrict__ vb = v + (int64_t)b * skv * hstride + h * D;
+  const float* __restrict__ qb = q + (int64_t)b * sq * hs + h * D;
+  const float* __restrict__ kb = k + (int64_t)b * skv * hs + h * D;
+  const float* __restrict__ vb = v + (int64_t)b * skv * hs + h * D;
   const float* __restrict__ biasb = bias ? bias + (int64_t)b * skv : nullptr;
+  const uint32_t ks_u = smem_u32(ks), vs_u = smem_u32(vs), bs_u = smem_u32(bs);
+
+  int nk = (skv + BK - 1) / BK;
+  if (causal) nk = min(nk, (q0 + BQ + BK - 1) / BK);
+  fwd_tile_async<D, BK>(ks_u, kb, hs, 0, skv, DP);
+  if (biasb) fwd_bias_async<BK>(bs_u, biasb, 0, skv);
+  cp_async_commit();
 
   // q * sm_scale is exact when sm_scale is a power of two
   const float qmul = prescale ? sm_scale : 1.f;
   const float smul = prescale ? 1.f : sm_scale;
-  for (int idx = tid; idx < kBQ * D; idx += kThreads) {
-    const int r = idx / D, c = idx % D;
-    qs[r * DP + c] = to_float(qb[r * hstride + c]) * qmul;
+  for (int idx = threadIdx.x; idx < BQ * (D / 4); idx += kThreads) {
+    const int r = idx / (D / 4), c = idx % (D / 4);
+    float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q0 + r < sq)
+      t = *reinterpret_cast<const float4*>(qb + (int64_t)(q0 + r) * hs +
+                                           4 * c);
+    t.x *= qmul; t.y *= qmul; t.z *= qmul; t.w *= qmul;
+    *reinterpret_cast<float4*>(qs + r * DP + 4 * c) = t;
   }
 
-  float m[4], l[4], acc[4][ND];
+  float m[RM], l[RM], acc[RM][DG][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RM; ++i) {
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
-    for (int jd = 0; jd < ND; ++jd) acc[i][jd] = 0.f;
+    for (int g = 0; g < DG; ++g)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][g][e] = 0.f;
   }
-
-  int nk = skv / BK;
-  if (causal) nk = min(nk, (q0 + kBQ + BK - 1) / BK);
 
   for (int t = 0; t < nk; ++t) {
     const int k0 = t * BK;
-    __syncthreads();  // the previous tile's readers are done
-    for (int idx = tid; idx < BK * D; idx += kThreads) {
-      const int r = idx / D, c = idx % D;
-      const int64_t g = (int64_t)(k0 + r) * hstride + c;
-      ks[r * DP + c] = to_float(kb[g]);
-      vs[r * D + c] = to_float(vb[g]);
+    cp_async_wait<0>();
+    __syncthreads();  // K and bias of tile t are in; V and P are free
+    fwd_tile_async<D, BK>(vs_u, vb, hs, k0, skv, D);  // under S and softmax
+    cp_async_commit();
+
+    // S = Q K^T: per 4 columns of d, RM + CN float4 loads for 4 RM CN FMAs
+    float s[RM][CN];
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int j = 0; j < CN; ++j) s[i][j] = 0.f;
+#pragma unroll 1
+    for (int d = 0; d < D; d += 4) {
+      float4 qv[RM], kv[CN];
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+        qv[i] = *reinterpret_cast<const float4*>(qs + (ty + 16 * i) * DP + d);
+#pragma unroll
+      for (int j = 0; j < CN; ++j)
+        kv[j] = *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * DP + d);
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int j = 0; j < CN; ++j) {
+          s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
+          s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
+          s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
+          s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
+        }
     }
-    __syncthreads();
 
-    float s[4][NJ];
+    // the online softmax of each row over the 16 lanes that hold it
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[NJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = qs[(ty * 4 + i) * DP + d];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) kv[j] = ks[(tx + 16 * j) * DP + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-    float cm[4][NJ];
-    if (DROP)
-      dropout_scale<4, NJ>(dr, bh, sq, skv, q0 + ty * 4, k0 + tx, cm, true);
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
+    for (int i = 0; i < RM; ++i) {
+      const int row = q0 + ty + 16 * i;
       float mx = kNegInf;
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
+      for (int j = 0; j < CN; ++j) {
         const int col = k0 + tx + 16 * j;
         float x = s[i][j] * smul;
-        if (biasb) x += biasb[col];
+        if (biasb) x += bs[tx + 16 * j];
         if (causal && col > row) x = kNegInf;
+        if (col >= skv) x = -INFINITY;  // a ragged last tile
         s[i][j] = x;
         mx = fmaxf(mx, x);
       }
       const float m_new = fmaxf(m[i], half_max(mx));
-      float rs = 0.f;
+      float cm[CN];
+      if (DROP) fwd_keep<CN>(dr, bh, sq, skv, causal, row, k0 + tx, cm);
+      float rsum = 0.f;
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
+      for (int j = 0; j < CN; ++j) {
         const float p = expf(s[i][j] - m_new);
-        s[i][j] = DROP ? p * cm[i][j] : p;  // dropout: the numerator only
-        rs += p;
+        s[i][j] = DROP ? p * cm[j] : p;  // dropout: the numerator only
+        rsum += p;
       }
       const float alpha = expf(m[i] - m_new);
-      l[i] = l[i] * alpha + half_sum(rs);
+      l[i] = l[i] * alpha + half_sum(rsum);
       m[i] = m_new;
 #pragma unroll
-      for (int jd = 0; jd < ND; ++jd) acc[i][jd] *= alpha;
+      for (int g = 0; g < DG; ++g)
 #pragma unroll
-      for (int j = 0; j < NJ; ++j)
-        ps[(ty * 4 + i) * BKP + tx + 16 * j] = s[i][j];
+        for (int e = 0; e < 4; ++e) acc[i][g][e] *= alpha;
+#pragma unroll
+      for (int j = 0; j < CN; ++j)
+        ps[(ty + 16 * i) * PP + tx + 16 * j + (j < CN / 2 ? 0 : 4)] = s[i][j];
     }
-    __syncthreads();
 
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float pv[4], vv[ND];
+    cp_async_wait<0>();
+    __syncthreads();  // V of tile t is in, P is written; K and bias are free
+    if (t + 1 < nk) {  // under P V
+      fwd_tile_async<D, BK>(ks_u, kb, hs, k0 + BK, skv, DP);
+      if (biasb) fwd_bias_async<BK>(bs_u, biasb, k0 + BK, skv);
+      cp_async_commit();
+    }
+
+    // O += P V over this thread's key half: per 4 keys, RM + 4 DG float4
+    // loads for 4 RM 4 DG FMAs
+    const float* __restrict__ pp = ps + ty * PP + half * L::HOFF;
+    const float* __restrict__ vp = vs + half * HALF * D + 4 * cx;
+#pragma unroll 1
+    for (int kk = 0; kk < HALF; kk += 4) {
+      float pv[RM][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = ps[(ty * 4 + i) * BKP + c];
+      for (int i = 0; i < RM; ++i) {
+        const float4 t4 =
+            *reinterpret_cast<const float4*>(pp + 16 * i * PP + kk);
+        pv[i][0] = t4.x; pv[i][1] = t4.y; pv[i][2] = t4.z; pv[i][3] = t4.w;
+      }
 #pragma unroll
-      for (int jd = 0; jd < ND; ++jd) vv[jd] = vs[c * D + tx + 16 * jd];
+      for (int e = 0; e < 4; ++e) {
+        float4 vv[DG];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int g = 0; g < DG; ++g)
+          vv[g] = *reinterpret_cast<const float4*>(vp + (kk + e) * D + 32 * g);
 #pragma unroll
-        for (int jd = 0; jd < ND; ++jd)
-          acc[i][jd] = fmaf(pv[i], vv[jd], acc[i][jd]);
+        for (int i = 0; i < RM; ++i)
+#pragma unroll
+          for (int g = 0; g < DG; ++g) {
+            acc[i][g][0] = fmaf(pv[i][e], vv[g].x, acc[i][g][0]);
+            acc[i][g][1] = fmaf(pv[i][e], vv[g].y, acc[i][g][1]);
+            acc[i][g][2] = fmaf(pv[i][e], vv[g].z, acc[i][g][2]);
+            acc[i][g][3] = fmaf(pv[i][e], vv[g].w, acc[i][g][3]);
+          }
+      }
     }
   }
 
+  // the two key halves' sums (lanes tx and tx ^ 8); each half stores half
+  // of the rows
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int g = 0; g < DG; ++g)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[i][g][e] += __shfl_xor_sync(0xffffffffu, acc[i][g][e], 8);
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int row = q0 + ty + 16 * i;
     const float l_safe = fmaxf(l[i], 1e-30f);
-    T* __restrict__ orow = o + ((int64_t)b * sq + row) * hstride + h * D;
+    if (row < sq && (i < RM / 2) == (half == 0)) {
+      float* __restrict__ orow =
+          o + ((int64_t)b * sq + row) * hs + h * D + 4 * cx;
 #pragma unroll
-    for (int jd = 0; jd < ND; ++jd)
-      store(orow + tx + 16 * jd, acc[i][jd] / l_safe);
-    if (tx == 0) lse[(int64_t)bh * sq + row] = m[i] + logf(l_safe);
+      for (int g = 0; g < DG; ++g)
+        *reinterpret_cast<float4*>(orow + 32 * g) =
+            make_float4(acc[i][g][0] / l_safe, acc[i][g][1] / l_safe,
+                        acc[i][g][2] / l_safe, acc[i][g][3] / l_safe);
+    }
+    if (tx == 0 && row < sq) lse[(int64_t)bh * sq + row] = m[i] + logf(l_safe);
   }
 }
 
@@ -571,38 +746,37 @@ flash_bwd_dq_kernel(BwdArgs a, Dropout dr) {
 // launchers
 // ---------------------------------------------------------------------------
 
-template <typename T, int D, int BK, bool DROP>
+template <int D, bool DROP>
 int launch_fwd_drop(const void* q, const void* k, const void* v,
                     const void* bias, void* o, void* lse, int batch, int sq,
                     int skv, int nh, float sm_scale, int prescale, int causal,
                     const Dropout& dr, cudaStream_t stream) {
-  constexpr int kSmem = fwd_smem_floats<D, BK>() * static_cast<int>(sizeof(float));
+  using L = SimtSmem<D>;
   static const cudaError_t attr =
-      allow_smem(flash_fwd_bsh_kernel<T, D, BK, DROP>, kSmem);  // once
+      allow_smem(flash_fwd_bsh_kernel<D, DROP>, L::BYTES);  // once
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  if (sq % kBQ != 0 || skv % BK != 0)
+  if (sq % 64 != 0 || skv % 64 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(sq / kBQ, nh, batch);
-  flash_fwd_bsh_kernel<T, D, BK, DROP><<<grid, kThreads, kSmem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const float*>(bias),
-      static_cast<T*>(o), static_cast<float*>(lse), sq, skv, nh, sm_scale,
-      prescale, causal, dr);
+  const dim3 grid((sq + L::BQ - 1) / L::BQ, nh, batch);
+  flash_fwd_bsh_kernel<D, DROP><<<grid, kThreads, L::BYTES, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(bias),
+      static_cast<float*>(o), static_cast<float*>(lse), sq, skv, nh,
+      sm_scale, prescale, causal, dr);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D, int BK>
+template <int D>
 int launch_fwd(const void* q, const void* k, const void* v, const void* bias,
                void* o, void* lse, int batch, int sq, int skv, int nh,
                float sm_scale, int prescale, int causal, const Dropout& dr,
                cudaStream_t stream) {
   if (dr.mode == kNoDrop)
-    return launch_fwd_drop<T, D, BK, false>(q, k, v, bias, o, lse, batch, sq,
-                                            skv, nh, sm_scale, prescale,
-                                            causal, dr, stream);
-  return launch_fwd_drop<T, D, BK, true>(q, k, v, bias, o, lse, batch, sq,
-                                         skv, nh, sm_scale, prescale, causal,
-                                         dr, stream);
+    return launch_fwd_drop<D, false>(q, k, v, bias, o, lse, batch, sq, skv,
+                                     nh, sm_scale, prescale, causal, dr,
+                                     stream);
+  return launch_fwd_drop<D, true>(q, k, v, bias, o, lse, batch, sq, skv, nh,
+                                  sm_scale, prescale, causal, dr, stream);
 }
 
 int launch_fwd_d(int head_dim, const void* q, const void* k, const void* v,
@@ -611,17 +785,14 @@ int launch_fwd_d(int head_dim, const void* q, const void* k, const void* v,
                  const Dropout& dr, cudaStream_t stream) {
   switch (head_dim) {
     case 64:
-      return launch_fwd<float, 64, 64>(q, k, v, bias, o, lse, batch, sq, skv,
-                                       nh, sm_scale, prescale, causal, dr,
-                                       stream);
+      return launch_fwd<64>(q, k, v, bias, o, lse, batch, sq, skv, nh,
+                            sm_scale, prescale, causal, dr, stream);
     case 128:
-      return launch_fwd<float, 128, 64>(q, k, v, bias, o, lse, batch, sq,
-                                        skv, nh, sm_scale, prescale, causal,
-                                        dr, stream);
+      return launch_fwd<128>(q, k, v, bias, o, lse, batch, sq, skv, nh,
+                             sm_scale, prescale, causal, dr, stream);
     case 256:
-      return launch_fwd<float, 256, 32>(q, k, v, bias, o, lse, batch, sq,
-                                        skv, nh, sm_scale, prescale, causal,
-                                        dr, stream);
+      return launch_fwd<256>(q, k, v, bias, o, lse, batch, sq, skv, nh,
+                             sm_scale, prescale, causal, dr, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -59,8 +59,10 @@ Two implementations of each direction:
   ``_make_fwd_bsh_kernel`` / ``_make_bwd_bsh_kernel`` and
   ``_make_fwd_kernel`` (row 6), ``_make_bwd_fused_kernel`` (row 7),
   ``_make_bwd_dq_kernel`` (row 8) and ``_make_bwd_dkv_kernel`` (row 9):
-  in f32 one block per (64-row tile, head) streams the other operand's
-  tiles through shared memory on the SIMT cores; in bf16 every one runs
+  in f32 one block per (query or key tile, head) streams the other
+  operand's tiles through shared memory on the SIMT cores (the BSH
+  forward with 8 x 8 register tiles and a cp.async ring,
+  ``simt_fwd_grid``); in bf16 every one runs
   on the tensor cores (wgmma: ``bsh_fwd_route``, ``bsh_bwd_route``,
   ``bhsd_fwd_route``, ``bhsd_bwd_route``), rounding p c (and ds) to bf16
   before its products as the TPU kernels do, and the plain versions
@@ -384,6 +386,16 @@ def _key_bias(bias, b, skv):
     return None if bias is None else bias.reshape(b, skv).float().contiguous()
 
 
+# the f32 SIMT forward's (query rows, keys) a block by head dim
+SIMT_FWD_TILES = {64: (128, 128), 128: (64, 128), 256: (32, 64)}
+
+
+def simt_fwd_grid(b, sq, num_heads, head_dim) -> tuple:
+    """The f32 SIMT forward's grid (query tiles, heads, batch): one block
+    of 256 threads a ``SIMT_FWD_TILES`` query tile, one block an SM."""
+    return (-(-sq // SIMT_FWD_TILES[head_dim][0]), num_heads, b)
+
+
 def bsh_fwd_route(dtype) -> str:
     """Which forward kernel row 4 launches, by dtype alone: "tc" (the
     wgmma kernel) for bf16; "simt" (f32 FMA) for float32, which tensor
@@ -404,9 +416,9 @@ def _cuda_flash_bsh(q, k, v, bias, num_heads, sm_scale, causal,
     skv = k.shape[1]
     bias = _key_bias(bias, b, skv)
     tc = bsh_fwd_route(q.dtype) == "tc"
-    if tc:
-        q, k, v = (_aligned(t) for t in (q, k, v))
-        bias = None if bias is None else _aligned(bias)
+    # both routes cp.async 16-byte rows of k, v and the bias
+    q, k, v = (_aligned(t) for t in (q, k, v))
+    bias = None if bias is None else _aligned(bias)
     mode, mask, thresh, keep_div = _drop_args(dropout_prob, mask, seed)
     bits = None
     if return_bits and mode == _PHILOX_DROP:

@@ -308,3 +308,111 @@ def test_backward_launch_counter_counts_only_kernel_launches():
     xt = x["x"].requires_grad_()
     add_ln.fused_add_ln(xt, None, x["scale"], x["shift"]).sum().backward()
     assert add_ln.fused_add_ln_bwd.launches == n0  # CPU: the plain version
+
+
+@pytest.mark.parametrize("rows,h,sms,want", [
+    (4096, 768, 132, (512, 32, 128, 8)),       # BERT-base's training rows
+    (16384, 512, 132, (512, 128, 128, 8)),     # the NMT step's rows
+    (8, 768, 132, (512, 16, 1, 1)),
+    (100, 2048, 132, (128, 4, 25, 2)),         # wide rows: four warps
+    (4097, 1024, 4, (512, 1040, 4, 1)),
+    (40000, 768, 132, (512, 304, 132, 9)),
+], ids=["bert", "nmt", "tiny", "wide", "ragged", "many"])
+def test_bwd_geometry(rows, h, sms, want):
+    """Sixteen warps a block, one block an SM, up to H = 1024; four warps,
+    two blocks an SM, beyond; rows a block a multiple of the warps; every
+    row in exactly one block; at most one wave; blocks in groups of 16
+    for the final sums."""
+    threads, per_block, nblocks, ngroups = got = add_ln.bwd_geometry(
+        rows, h, sms)
+    assert got == want
+    assert per_block % (threads // 32) == 0
+    assert (nblocks - 1) * per_block < rows <= nblocks * per_block
+    assert nblocks <= sms * (1 if threads == 512 else 2)
+    assert ngroups == -(-nblocks // add_ln.BWD_GROUP)
+
+
+def test_bwd_workspace_is_cached_per_device_stream_and_width(monkeypatch):
+    monkeypatch.setattr(add_ln, "_workspaces", {})
+    part, ticket = add_ln.bwd_workspace("cpu", 7, 768, 256, 16)
+    assert part.shape == (272, 2, 768) and part.dtype == torch.float32
+    assert ticket.shape == (17,) and ticket.dtype == torch.int32
+    assert not ticket.any()  # zero before the first call
+    again = add_ln.bwd_workspace(torch.device("cpu"), 7, 768, 200, 13)
+    assert again[0] is part and again[1] is ticket  # fewer rows: reused
+    assert add_ln.bwd_workspace("cpu", 8, 768, 256, 16)[0] is not part
+    assert add_ln.bwd_workspace("cpu", 7, 512, 256, 16)[0].shape == (
+        272, 2, 512)
+    grown = add_ln.bwd_workspace("cpu", 7, 768, 512, 32)
+    assert grown[0].shape == (544, 2, 768) and grown[1].shape == (33,)
+    assert add_ln.bwd_workspace("cpu", 7, 768, 256, 16)[0] is grown[0]
+
+
+class _Dev:
+    def __init__(self, *a):
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *a):
+        return False
+
+
+class _Stream:
+    cuda_stream = 5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_y", [False, True], ids=["no_y", "y"])
+def test_bwd_launch_passes_the_geometry_and_never_falls_back(
+        dtype, with_y, monkeypatch):
+    """On the card the backward is one call of ``add_ln_bwd_launch`` with
+    the geometry of ``bwd_geometry`` and the cached workspace: no second
+    kernel sums the partials (dscale and dshift are views of one [2, H]
+    output the kernel writes).  A failed launch raises and counts
+    nothing: nothing retries it on the plain version."""
+    monkeypatch.setattr(torch.cuda, "device", _Dev)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: _Stream())
+    monkeypatch.setattr(add_ln, "_sm_count", lambda device: 132)
+    monkeypatch.setattr(add_ln, "_workspaces", {})
+    calls = []
+    monkeypatch.setattr(add_ln, "_launcher", lambda name: lambda *a: (
+        calls.append((name, a)) or 0))
+    x = _good(r=4096, dtype=dtype, y=with_y)
+    g = torch.zeros_like(x["x"])
+    stats = torch.zeros(4096)
+    n0 = add_ln.fused_add_ln_bwd.launches
+    dx, dscale, dshift = add_ln._cuda_add_ln_bwd(
+        x["x"], x["y"], x["scale"], stats, stats, g)
+    (name, args), = calls
+    assert name == "bwd" and len(args) == 18
+    part, ticket = add_ln._workspaces[(torch.device("cpu"), 5, 768)]
+    assert args[1] == (x["y"].data_ptr() if with_y else None)
+    assert args[6] == dx.data_ptr()
+    assert args[7:11] == (dscale.data_ptr(), dshift.data_ptr(),
+                          part.data_ptr(), ticket.data_ptr())
+    assert args[11:17] == (4096, 768, 32, 128, 512,
+                           add_ln._DTYPE_CODES[dtype])
+    assert args[17] == 5
+    assert dx.dtype == dtype and dscale.shape == dshift.shape == (768,)
+    assert dshift.data_ptr() - dscale.data_ptr() == 768 * 4
+    assert add_ln.fused_add_ln_bwd.launches == n0 + 1
+
+    monkeypatch.setattr(add_ln, "_launcher", lambda name: lambda *a: 700)
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        add_ln._cuda_add_ln_bwd(x["x"], x["y"], x["scale"], stats, stats, g)
+    assert add_ln.fused_add_ln_bwd.launches == n0 + 1
+
+
+def test_bwd_launch_refuses_what_the_kernel_does_not_take(monkeypatch):
+    monkeypatch.setattr(add_ln, "_launcher", lambda name: pytest.fail(
+        "launched"))
+    x = _good()
+    stats = torch.zeros(8)
+    with pytest.raises(ValueError):
+        add_ln._cuda_add_ln_bwd(x["x"], x["y"], x["scale"], stats, stats,
+                                x["x"].bfloat16())
+    with pytest.raises(ValueError):
+        add_ln._cuda_add_ln_bwd(x["x"], x["y"], x["scale"], stats[:4],
+                                stats, x["x"])

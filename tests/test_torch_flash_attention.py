@@ -660,3 +660,50 @@ def test_unaligned_rows_are_copied_for_the_kernels():
     v = t[1:]
     assert v.data_ptr() % 16 and fa._aligned(v).data_ptr() % 16 == 0
     assert torch.equal(fa._aligned(v), v)
+
+
+@pytest.mark.parametrize("d,sq,want", [(64, 512, (4, 12, 8)),
+                                       (64, 192, (2, 12, 8)),
+                                       (128, 512, (8, 12, 8)),
+                                       (256, 64, (2, 12, 8))],
+                         ids=["infer", "ragged", "d128", "d256"])
+def test_simt_forward_grid(d, sq, want):
+    """One 256-thread block a query tile of ``SIMT_FWD_TILES`` (a ragged
+    last tile included), head and batch row; each thread's tile of O
+    (BQ / 16 rows x D / 8 columns) is 64 floats at every D, and at D = 64
+    8 x 8, as is its tile of S (BQ / 16 x BK / 16)."""
+    assert fa.simt_fwd_grid(8, sq, 12, d) == want
+    bq, bk = fa.SIMT_FWD_TILES[d]
+    assert bq % 16 == 0 and bk % 32 == 0
+    assert (bq // 16) * (d // 8) == 64
+    if d == 64:
+        assert (bq // 16, bk // 16) == (8, 8)
+
+
+def test_infer_grid_ends_on_a_nearly_full_wave():
+    # BERT-base infer: 8 x 512, 12 heads of 64 -> 384 blocks, one an SM
+    blocks = math.prod(fa.simt_fwd_grid(8, 512, 12, 64))
+    assert blocks == 384 and 2.9 < blocks / 132 < 3.0
+
+
+@pytest.mark.parametrize("dtype,entry", [(torch.bfloat16, "fwd_tc_launch"),
+                                         (torch.float32, "launch")])
+def test_both_forward_routes_get_aligned_rows(dtype, entry, monkeypatch):
+    """Both forward kernels cp.async 16-byte rows of q, k, v and the key
+    bias: an unaligned tensor reaches either as an aligned copy."""
+    monkeypatch.setattr(torch.cuda, "device", _Dev)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: _Stream())
+    calls = []
+    monkeypatch.setattr(fa, "_launcher", lambda name: lambda *a: (
+        calls.append((name, a)) or 0))
+    x = _good(dtype=dtype)
+    q = torch.zeros(x["q"].numel() + 1, dtype=dtype)[1:].view(x["q"].shape)
+    bias = torch.zeros(2 * 128 + 1)[1:].view(2, 1, 1, 128)
+    assert q.data_ptr() % 16 and bias.data_ptr() % 16
+    fa._cuda_flash_bsh(q, x["k"], x["v"], bias, 2, 0.125, False, 0.0, None,
+                       None, 0, False)
+    (name, args), = calls
+    assert name == entry
+    assert args[0] % 16 == 0 and args[0] != q.data_ptr()
+    assert args[3] % 16 == 0 and args[3] != bias.data_ptr()
+    assert args[1] == x["k"].data_ptr() and args[2] == x["v"].data_ptr()
