@@ -17,10 +17,16 @@ mha_key_train's (causal off and on, with and without Philox), row 5 at
 BERT-base's
 training shape, row 4 there (with and without Philox, and f32 at the
 infer path's shape) and at the NMT decoder's two shapes, row 1 at the
-decode step's shape, rows 2 and 3 at BERT-base's (row 3 also in f32
+decode step's shape (f32, bf16, and f32 with 4 kv heads) and the device
+time of a whole decode step at GPT-2 small's widths around it (the sum
+of its ops' times in a torch.profiler window), rows 2 and 3 at BERT-base's (row 3 also in f32
 without the residual) and at the NMT step's (16,384 x 512, bf16, the
 residual), row 4 in f32 also at nmt_infer's two decoder shapes (8 x
 256, 8 heads of 64: causal self-attention, key-bias cross-attention).
+Yardsticks beside
+them (the same in both trees): the clock's floor, a 4-byte ``zero_``,
+and torch ops that move rows 1 and 2's bytes (``max`` of 17.5 MB,
+``torch.add`` of the BERT and NMT rows, ``copy_`` of the ``infer`` rows).
 Device times come
 from ``chip_smoke.time_cold_ms`` of the tree that runs this script (CUDA
 events, L2 flushed, the stream held), the same clock for both trees.
@@ -214,7 +220,14 @@ def _measure(tree: str) -> dict:
     lengths = torch.as_tensor(np.asarray(lens, np.int32), device=dev)
     out["row1_paged_f32"] = ms(lambda: pa.paged_attention(
         qd, kp, vp, table, lengths))
-    del kp, vp, qd, table, lengths
+    kb, vb, qb = kp.to(bf16), vp.to(bf16), qd.to(bf16)
+    out["row1_paged_bf16"] = ms(lambda: pa.paged_attention(
+        qb, kb, vb, table, lengths))
+    # grouped-query: 4 kv heads for the 12 query heads
+    kg, vg = kp[:, :, :4].contiguous(), vp[:, :, :4].contiguous()
+    out["row1_paged_gqa_kh4_f32"] = ms(lambda: pa.paged_attention(
+        qd, kg, vg, table, lengths))
+    del kp, vp, qd, table, lengths, kb, vb, qb, kg, vg
 
     # rows 2 and 3 at BERT-base's rows (8 x 512 x 768): f32 without the
     # residual (infer), bf16 with it (train)
@@ -248,6 +261,66 @@ def _measure(tree: str) -> dict:
     out["row3_ln_bwd_nmt_bf16_y"] = ms(lambda: add_ln.fused_add_ln_bwd(
         x, y, sc, mean, rstd, g))
     del x, y, g
+
+    # yardsticks: the clock's floor (a 4-byte zero_ between the same
+    # events) and torch ops that move rows 1 and 2's bytes
+    tiny = torch.empty(1, device=dev)
+    out["yard_floor_zero_4B"] = ms(lambda: tiny.zero_())
+    big = torch.empty(4_382_398, device=dev)  # 17.5 MB: row 1's bytes
+    out["yard_max_17MB_f32"] = ms(lambda: big.max())
+    del big
+    for name, r, h, dt in (("bert_bf16", 4096, 768, bf16),
+                           ("nmt_bf16", 16384, 512, bf16)):
+        x, y = (randn(r, h).to(dt) for _ in range(2))
+        o = torch.empty_like(x)
+        out[f"yard_add_{name}"] = ms(lambda: torch.add(x, y, out=o))
+    x32 = torch.as_tensor(rng.standard_normal((4096, 768)),
+                          dtype=torch.float32).to(dev)
+    o32 = torch.empty_like(x32)
+    out["yard_copy_infer_f32"] = ms(lambda: o32.copy_(x32))
+    del x, y, o, x32, o32
+
+    # one whole decode step (GPT-2 small widths, 12 layers, f32) at row
+    # 1's decode shape: 8 slots at its lengths, pages of 16
+    from paddle_tpu_torch.inference import DecoderConfig, TinyDecoderLM
+    from paddle_tpu_torch.inference import decode_model as dm
+
+    cfg = DecoderConfig(vocab=50257, d_model=768, n_layers=12, n_heads=12,
+                        ffn=3072, max_seq=1024)
+    model = TinyDecoderLM(cfg, seed=0, device=dev)
+    table = np.zeros((8, 64), np.int32)
+    free = list(rng.permutation(np.arange(1, 513)))
+    for i, n in enumerate(lens):
+        table[i, :-(-n // 16)] = [free.pop() for _ in range(-(-n // 16))]
+    pos = np.asarray(lens, np.int32) - 1
+    write = np.asarray([table[i, p // 16] * 16 + p % 16
+                        for i, p in enumerate(pos)], np.int32)
+    shape = (12, 513 * 16, 12, 64)
+    kf, vf = torch.randn(shape, device=dev), torch.randn(shape, device=dev)
+    step = (model.params, kf, vf,
+            torch.as_tensor(rng.integers(1, 50257, 8).astype(np.int32),
+                            device=dev),
+            torch.as_tensor(pos, device=dev), torch.as_tensor(table,
+                                                              device=dev),
+            torch.as_tensor(write, device=dev))
+    # its device time is the sum of its ~300 ops' times in a profiler
+    # window (events around it would also hold the host's launch gaps)
+    def decode():
+        dm.decode_step(*step, page_size=16, n_heads=12)
+
+    decode()
+    torch.cuda.synchronize()
+    prof = clock._profile_warm(torch)
+    try:
+        for _ in range(3):
+            decode()
+        torch.cuda.synchronize()
+    finally:
+        prof.__exit__(None, None, None)
+    out["decode_step_gpt2s_f32_device_busy"] = sum(
+        r[0] for r in clock._device_rows(torch, prof)
+        if "spin_kernel" not in r[2]) / 3
+    del model, kf, vf, step
 
     # row 4 in f32 at the frozen NMT's decoder shapes (nmt_infer: 8 x 256,
     # 8 heads of 64): the causal self-attention and the key-bias

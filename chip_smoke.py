@@ -16,7 +16,11 @@ prints no result):
                kernel, and the f32 BSH forward's SASS (cuobjdump): FFMA
                and no tensor-core instruction
   kernels      each kernel against its plain PyTorch version at its main
-               path's shapes (paged attention; BSH flash attention, o and
+               path's shapes (paged attention, split across blocks:
+               ragged lengths, chunk edges, the table's reach and past it,
+               GQA, D 64/128/256, f32 and bf16, against the dense and the
+               split plain versions, two calls equal bit for bit, one
+               device kernel a call; BSH flash attention, o and
                lse, its backward dq/dk/dv and its dropout, from an explicit
                mask and from the in-kernel Philox, whose drawn bits feed
                the plain version, and whose keep rate is checked; the
@@ -31,7 +35,9 @@ prints no result):
                without dropout, and at the NMT decoder's two shapes);
                the f32 forward (the infer path's SIMT kernel) also at
                nmt_infer's two decoder shapes;
-               add+LayerNorm, out and stats, and its backward dx,
+               add+LayerNorm, out and stats (the infer and training
+               rows, the NMT rows, bf16 H 772, H 2052 and 4096, ragged
+               last waves), and its backward dx,
                dscale, dshift, timed at BERT's and the NMT step's rows,
                the backward one launch (a torch.profiler window sees one
                device kernel) and bit-for-bit repeatable; the five
@@ -53,6 +59,11 @@ prints no result):
                with its time, bound, plain-version
                time and the time of one library call computing the same
                function
+  emitters     the emitters repaired against the JAX package (take's
+               fill mode in gather and lookup_table_v2, cast's saturation,
+               sign, scale, narrow-int sums, the int mean) on the card
+               against the CPU, ids past the end included (NaN rows, no
+               device assert), and the lookup's gradient
   engine       GenerationEngine over TinyDecoderLM at GPT-2-small widths
                (d 768, 12 layers x 12 heads, FFN 3072, vocab 50257, 1024
                positions): 8 requests, one sampled, two sharing a prefix;
@@ -61,6 +72,9 @@ prints no result):
   parity       teacher-forced prefill + paged decode steps (through the
                kernel) against the dense full forward, TF32 off, then once
                with TF32 on to show the limit would catch it
+  decode_sync  one decode step under torch.profiler: no host sync
+               between its 12 paged-attention launches (the wrapper never
+               reads lengths), 12 device kernels, the step's device ms
   profile      torch.profiler over engine decode steps: device busy time
                by kernel and the device's idle share
   bert_infer   BERT-base (vocab 30522, hidden 768, 12 layers x 12 heads
@@ -356,7 +370,8 @@ def phase_build() -> dict:
 def _paged_case(torch, rng, *, b, h, kh, d, page, maxp, n_pages, lengths,
                 dtype):
     """Pool pages, a page table whose live entries are distinct pages
-    and whose trailing dead entries point at trash page 0, and q."""
+    and whose trailing dead entries point at trash page 0, and q.  A
+    length past the table's reach fills the whole row."""
     dev = "cuda"
     kp = torch.as_tensor(rng.standard_normal((n_pages, page, kh, d)),
                          dtype=torch.float32).to(dev, dtype)
@@ -367,7 +382,7 @@ def _paged_case(torch, rng, *, b, h, kh, d, page, maxp, n_pages, lengths,
     table = np.zeros((b, maxp), np.int32)
     free = list(rng.permutation(np.arange(1, n_pages)))
     for i, n in enumerate(lengths):
-        live = -(-n // page)
+        live = min(-(-n // page), maxp)
         table[i, :live] = [free.pop() for _ in range(live)]
     return (q, kp, vp, torch.as_tensor(table, device=dev),
             torch.as_tensor(np.asarray(lengths, np.int32), device=dev))
@@ -440,17 +455,51 @@ def _kernels_paged(torch, F, flush) -> tuple:
         ("d256_bf16", dict(b=3, h=4, kh=4, d=256, page=8, maxp=6,
                            n_pages=24, lengths=[1, 9, 48],
                            dtype=torch.bfloat16), ATOL_BF16),
+        # the split's edges at the decode shape (chunks of 4 pages = 64
+        # positions): lengths on a chunk boundary, one past and one short
+        # of it, the table's whole reach and past it
+        ("chunk_edges_f32", dict(b=8, h=12, kh=12, d=64, page=16, maxp=64,
+                                 n_pages=513,
+                                 lengths=[64, 65, 63, 128, 129, 1024, 2000,
+                                          960],
+                                 dtype=torch.float32), ATOL_F32),
+        ("chunk_edges_gqa_bf16", dict(b=4, h=12, kh=4, d=128, page=16,
+                                      maxp=32, n_pages=140,
+                                      lengths=[64, 65, 512, 5000],
+                                      dtype=torch.bfloat16), ATOL_BF16),
+        ("length_1_everywhere_f32", dict(b=8, h=12, kh=12, d=64, page=16,
+                                         maxp=64, n_pages=513,
+                                         lengths=[1] * 8,
+                                         dtype=torch.float32), ATOL_F32),
+        ("d256_gqa_long_f32", dict(b=2, h=8, kh=2, d=256, page=8, maxp=100,
+                                   n_pages=210, lengths=[800, 9],
+                                   dtype=torch.float32), ATOL_F32),
     ]
     results = {}
     main = None
     for name, kw, atol in cases:
         args = _paged_case(torch, rng, **kw)
         ker = pa.paged_attention(*args)
+        again = pa.paged_attention(*args)
         ref = pa.paged_attention(*args, impl="torch")
+        split = pa.paged_attention_split_reference(*args)
         torch.cuda.synchronize()
         results[name] = _check(f"paged_attention {name}", ker, ref, atol)
+        results[name]["split_reference_err"] = _check(
+            f"paged_attention {name} vs the split plain version", ker,
+            split, atol)["max_abs_err"]
+        if not torch.equal(ker, again):
+            fail(f"paged_attention {name}: two calls on the same inputs "
+                 f"gave different outputs ({int((ker != again).sum())} "
+                 f"elements)")
+        results[name]["bitwise_repeatable"] = True
         if name == "f32":
             main = args
+    # one launch: the merge runs inside the kernel, and no copy of lengths
+    # to the host
+    results["one_launch"] = _one_device_kernel(
+        torch, lambda: pa.paged_attention(*main), "paged_attention_kernel",
+        "paged_attention")
 
     q, kp, vp, table, lengths = main
     page = kp.shape[1]
@@ -481,6 +530,15 @@ def _kernels_paged(torch, F, flush) -> tuple:
         flops=4 * h * d * sum(min(int(n), reach) for n in lengths.tolist()),
         peak_flops=F32_FLOPS))
     out["max_abs_err"] = results["f32"]["max_abs_err"]
+    chunk_pages, nchunks, hpb, hgroups = pa.split_geometry(
+        h, kp.shape[2], maxp, page)
+    out["split"] = {"chunk_pages": chunk_pages, "chunks": nchunks,
+                    "heads_per_block": hpb, "head_groups": hgroups,
+                    "blocks": nchunks * kp.shape[2] * hgroups * b,
+                    "live_blocks": sum(max(1, -(-min(int(n), reach)
+                                                // (chunk_pages * page)))
+                                       for n in lengths.tolist())
+                    * kp.shape[2] * hgroups}
     return results, out
 
 
@@ -704,6 +762,31 @@ def _kernels_ln(torch, F, flush) -> tuple:
         res["mean"] = _check(f"add_ln {name} mean", mean, mean_r, ATOL_F32)
         res["rstd"] = _check(f"add_ln {name} rstd", rstd, rstd_r, ATOL_F32)
         results[name] = res
+
+    # the forward's other routes and geometries: the NMT step's rows, bf16
+    # with H % 8 != 0 (8-byte chunks), the widest rows (not pipelined,
+    # four warps a block), and row counts that leave the last wave ragged
+    for name, r_, h_, dtype, with_y in (
+            ("nmt_bf16_y", 16384, 512, torch.bfloat16, True),
+            ("bf16_y_h772", 512, 772, torch.bfloat16, True),
+            ("bf16_h2052", 64, 2052, torch.bfloat16, False),
+            ("bf16_y_h4096", 128, 4096, torch.bfloat16, True),
+            ("f32_h4096", 64, 4096, torch.float32, False),
+            ("f32_y_1000_rows", 1000, 768, torch.float32, True),
+            ("bf16_1000_rows_h1024", 1000, 1024, torch.bfloat16, False),
+            ("f32_y_h128", 4099, 128, torch.float32, True)):
+        kw_, _ = _ln_case(torch, rng, r_, h_, dtype, with_y)
+        is_bf16 = dtype == torch.bfloat16
+        out, mean, rstd = add_ln.fused_add_ln_fwd(**kw_)
+        out_r, mean_r, rstd_r = add_ln.fused_add_ln_reference(**kw_)
+        torch.cuda.synchronize()
+        res = _check(f"add_ln {name} out", out, out_r,
+                     1e-5 if is_bf16 else ATOL_F32,
+                     RTOL_BF16 if is_bf16 else 0.0)
+        res["mean"] = _check(f"add_ln {name} mean", mean, mean_r, ATOL_F32)
+        res["rstd"] = _check(f"add_ln {name} rstd", rstd, rstd_r, ATOL_F32)
+        results[name] = res
+        del kw_, out, out_r
 
     kw = cases[0][1]
     x, scale, shift = kw["x"], kw["scale"], kw["shift"]
@@ -1143,8 +1226,6 @@ def _ln_bwd_one_launch(torch, add_ln, kw, g) -> dict:
     inputs give dx, dscale and dshift equal bit for bit, and a
     torch.profiler window around one (warm) call sees exactly one CUDA
     kernel, the backward's (its final sums run inside it)."""
-    from torch.profiler import ProfilerActivity, profile
-
     x, y, scale = kw["x"], kw["y"], kw["scale"]
     _, mean, rstd = add_ln.fused_add_ln_fwd(**kw)
     first = add_ln.fused_add_ln_bwd(x, y, scale, mean, rstd, g)
@@ -1154,17 +1235,58 @@ def _ln_bwd_one_launch(torch, add_ln, kw, g) -> dict:
         if not torch.equal(a, b):
             fail(f"add_ln backward: two calls on the same inputs gave "
                  f"different {name} ({int((a != b).sum())} elements)")
+    kernels = _one_device_kernel(
+        torch, lambda: add_ln.fused_add_ln_bwd(x, y, scale, mean, rstd, g),
+        "add_ln_bwd_kernel", "add_ln backward")
+    return {"bitwise_repeatable": True, "profiled": kernels}
+
+
+def _profile_warm(torch):
+    """A torch.profiler window whose device tracing is warm: it opens with
+    a spin kernel (``torch.cuda._sleep``) and a short host pause, so a
+    tracer that starts late loses the spin, not the work under test.
+    Device events of the spin are to be left out (``spin_kernel``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof.__enter__()
+    torch.cuda._sleep(1 << 22)
+    torch.cuda.synchronize()
+    time.sleep(0.2)
+    return prof
+
+
+def _device_events(torch, prof) -> list:
+    """The window's device events, the warm-up spin left out."""
     cuda = torch.autograd.DeviceType.CUDA
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        add_ln.fused_add_ln_bwd(x, y, scale, mean, rstd, g)
-        torch.cuda.synchronize()
-    kernels = [evt.name for evt in prof.events()
-               if evt.device_type == cuda]
-    if len(kernels) != 1 or "add_ln_bwd_kernel" not in kernels[0]:
-        fail(f"add_ln backward: a profiled call ran {len(kernels)} device "
-             f"operations, not the one kernel: {kernels}")
-    return {"bitwise_repeatable": True, "device_ops_in_one_call": kernels}
+    return [evt for evt in prof.events()
+            if evt.device_type == cuda and "spin_kernel" not in evt.name]
+
+
+def _one_device_kernel(torch, fn, kernel: str, what: str,
+                       calls: int = 3) -> dict:
+    """The device operations of ``calls`` (warm) calls of ``fn`` in a
+    torch.profiler window; fails unless every one is a kernel whose name
+    holds ``kernel`` and there are at most ``calls`` of them, and at
+    least one.  A window after the process's first can lose an event
+    (PR 11's runs: 2 of 3, and 0 of 1), so the check asks for no other
+    device op (a second kernel, a copy) rather than an exact count."""
+    fn()
+    torch.cuda.synchronize()
+    prof = _profile_warm(torch)
+    try:
+        for _ in range(calls):
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        prof.__exit__(None, None, None)
+    kernels = [evt.name for evt in _device_events(torch, prof)]
+    if not 1 <= len(kernels) <= calls or any(kernel not in k
+                                              for k in kernels):
+        fail(f"{what}: {calls} profiled calls ran {len(kernels)} device "
+             f"operations, not one kernel each: {kernels}")
+    return {"calls": calls, "device_ops": len(kernels),
+            "kernel": kernels[0]}
 
 
 def _kernels_ln_train(torch, F, flush) -> tuple:
@@ -2026,6 +2148,196 @@ def phase_parity(torch, cfg, model) -> dict:
            "max_abs_logit_diff": diff, "limit": PARITY_LIMIT,
            "max_abs_logit_diff_tf32": diff_tf32,
            "tf32_exceeds_limit": diff_tf32 > PARITY_LIMIT}
+    emit(out)
+    return out
+
+
+# host calls that wait for the card: a decode step must make none between
+# its paged-attention launches (the wrapper never reads lengths)
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize", "cudaMemcpy", "cuMemcpyDtoH",
+              "cuStreamSynchronize", "cuCtxSynchronize")
+
+
+def phase_decode_sync(torch, cfg, model) -> dict:
+    """One decode step (``decode_model.decode_step``: 12 layers, 8 slots
+    at the kernels phase's lengths) under torch.profiler: 12 launches of
+    the paged-attention kernel, and between the start of the first of its
+    12 wrapper calls and the end of the last the host makes no
+    synchronising CUDA call (synchronize, blocking or device-to-host
+    copy).  Syncs after the step, in the same window, show that the
+    profiler sees such calls."""
+    from torch.profiler import record_function
+
+    from paddle_tpu_torch.inference import decode_model as dm
+
+    params, dev = model.params, model.device
+    psz, slots, maxp, n_pages = 16, 8, 64, 513
+    lens = [1, 37, 1024, 300, 513, 64, 777, 129]
+    rng = np.random.default_rng(3)
+    table = np.zeros((slots, maxp), np.int32)
+    free = list(rng.permutation(np.arange(1, n_pages)))
+    for i, n in enumerate(lens):
+        table[i, :-(-n // psz)] = [free.pop() for _ in range(-(-n // psz))]
+    pos = np.asarray(lens, np.int32) - 1
+    write = np.asarray([table[i, p // psz] * psz + p % psz
+                        for i, p in enumerate(pos)], np.int32)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    shape = (cfg.n_layers, n_pages * psz, cfg.n_heads, cfg.head_dim)
+    k_flat = torch.randn(shape, generator=gen, device=dev)
+    v_flat = torch.randn(shape, generator=gen, device=dev)
+    args = (params, k_flat, v_flat,
+            torch.as_tensor(rng.integers(1, cfg.vocab, slots)
+                            .astype(np.int32), device=dev),
+            torch.as_tensor(pos, device=dev),
+            torch.as_tensor(table, device=dev),
+            torch.as_tensor(write, device=dev))
+    real = dm.paged_attention
+
+    def traced(*a, **k):
+        with record_function("paged_attention_wrapper"):
+            return real(*a, **k)
+
+    dm.paged_attention = traced
+    try:
+        dm.decode_step(*args, page_size=psz, n_heads=cfg.n_heads)  # warm
+        torch.cuda.synchronize()
+        prof = _profile_warm(torch)
+        try:
+            n0 = real.launches
+            logits, nxt, _, _ = dm.decode_step(*args, page_size=psz,
+                                               n_heads=cfg.n_heads)
+            launches = real.launches - n0
+            nxt.cpu()   # syncs the profiler must see, after the step
+            torch.cuda.synchronize()
+            logits[0, 0].item()
+        finally:
+            prof.__exit__(None, None, None)
+    finally:
+        dm.paged_attention = real
+    events = prof.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    # the host's side of each wrapper call (the profiler also books a copy
+    # of the annotation on the device's timeline)
+    calls = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.name == "paged_attention_wrapper"
+                   and e.device_type != cuda)
+    if len(calls) != cfg.n_layers:
+        fail(f"decode step: {len(calls)} paged-attention calls profiled, "
+             f"want {cfg.n_layers}")
+    lo, hi = calls[0][0], calls[-1][1]
+    syncs = [(e.name, e.time_range.start) for e in events
+             if e.device_type != cuda and e.name.startswith(SYNC_CALLS)]
+    inside = sorted({n for n, t in syncs if lo <= t <= hi})
+    if inside:
+        fail(f"decode step: host syncs between the paged-attention "
+             f"launches: {inside}")
+    after = sorted({n for n, t in syncs if t > hi})
+    if not after:
+        fail("decode step: the profiler saw no sync call even for the "
+             "syncs after the step; the check would be blind")
+    if launches != cfg.n_layers:
+        fail(f"decode step: {launches} paged-attention launches, want "
+             f"{cfg.n_layers}")
+    # the profiler's count may lose an event (see _one_device_kernel)
+    kernels = sum(1 for e in _device_events(torch, prof)
+                  if "paged_attention_kernel" in e.name)
+    if not bool(torch.isfinite(logits).all()):
+        fail("decode step: non-finite logits")
+    rows = [r for r in _device_rows(torch, prof)
+            if "spin_kernel" not in r[2]
+            and r[2] != "paged_attention_wrapper"]
+    out = {"phase": "decode_sync", "lengths": lens,
+           "wrapper_calls": len(calls), "launches": launches,
+           "device_kernels_seen": kernels,
+           "window_us": hi - lo, "syncs_between_launches": inside,
+           "syncs_after_step": after,
+           # the step's device time: every device op of the window (the
+           # .cpu() copy of 8 tokens included), and row 1's share of it
+           "decode_step_device_ms": sum(r[0] for r in rows),
+           "paged_attention_device_ms": sum(
+               r[0] for r in rows if "paged_attention_kernel" in r[2])}
+    emit(out)
+    del k_flat, v_flat
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_emitters(torch) -> dict:
+    """The emitters repaired against the JAX package's (take's fill mode,
+    cast's saturation, sign's NaN and -0.0, scale's integer bias, the
+    narrow-int sums, the int mean) on the card against the same emitters
+    on the CPU, bit for bit and dtype for dtype; gather and
+    lookup_table_v2 with ids past the end give NaN rows, and no device
+    assert; the lookup's gradient through them is zero."""
+    from paddle_tpu_torch.ops import registry as reg
+
+    f32 = np.float32
+    cases = {
+        "gather_past_end": ("gather", {
+            "X": np.arange(12, dtype=f32).reshape(6, 2),
+            "Index": np.array([-1, 6, 2, -7], np.int32)}, {}),
+        "gather_int_past_end": ("gather", {
+            "X": np.arange(12, dtype=np.int32).reshape(6, 2),
+            "Index": np.array([6, 0], np.int32)}, {}),
+        "lookup_past_table": ("lookup_table_v2", {
+            "W": np.arange(15, dtype=f32).reshape(5, 3),
+            "Ids": np.array([[4, 5], [-1, 900]], np.int32)},
+            {"padding_idx": -1}),
+        "cast_saturates": ("cast", {"X": np.array(
+            [3e9, -3e9, np.nan, 300.7, -2.5, np.inf], f32)},
+            {"out_dtype": np.dtype("int32")}),
+        "cast_saturates_uint8": ("cast", {"X": np.array(
+            [3e9, -3e9, np.nan, 300.7, -2.5, 2.5], f32)},
+            {"out_dtype": np.dtype("uint8")}),
+        "sign": ("sign", {"X": np.array([np.nan, -0.0, 2.0, -3.0], f32)},
+                 {}),
+        "scale_int": ("scale", {"X": np.array([1, 2, 3], np.int32)},
+                      {"scale": 2.5, "bias": 0.5}),
+        "reduce_sum_int8": ("reduce_sum", {"X": np.ones((2, 3), np.int8)},
+                            {"dim": [1]}),
+        "reduce_sum_uint8": ("reduce_sum", {
+            "X": np.full((2, 300), 255, np.uint8)}, {"dim": [1]}),
+        "mean_int": ("mean", {"X": np.array([[1, 2], [3, 4]], np.int32)},
+                     {}),
+    }
+    results = {}
+    for name, (op, ins, attrs) in cases.items():
+        got = {}
+        for dev in ("cpu", "cuda"):
+            t_ins = {k: [torch.as_tensor(v, device=dev)]
+                     for k, v in ins.items()}
+            got[dev] = reg.get(op).emit(reg.EmitContext(device=dev), t_ins,
+                                        dict(attrs))["Out"][0]
+        torch.cuda.synchronize()  # a device assert would surface here
+        a, b = got["cpu"], got["cuda"].cpu()
+        if a.dtype != b.dtype or a.shape != b.shape:
+            fail(f"emitter {name}: card {b.dtype} {tuple(b.shape)} vs CPU "
+                 f"{a.dtype} {tuple(a.shape)}")
+        same = (torch.equal(a, b) if not a.is_floating_point() else
+                bool(((a == b) | (a.isnan() & b.isnan())).all())
+                and torch.equal(a.signbit(), b.signbit()))
+        if not same:
+            fail(f"emitter {name}: card {b.tolist()} vs CPU {a.tolist()}")
+        results[name] = {"dtype": str(b.dtype), "out": b.tolist()}
+    if not np.isnan(results["lookup_past_table"]["out"][0][1]).all():
+        fail("lookup_table_v2: an id past the table did not give NaN")
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        w = torch.arange(15, dtype=torch.float32, device=dev).reshape(
+            5, 3).requires_grad_()
+        ids = torch.tensor([[4, 7], [-1, 0]], dtype=torch.int32, device=dev)
+        out = reg.get("lookup_table_v2").emit(
+            reg.EmitContext(device=dev), {"W": [w], "Ids": [ids]},
+            {"padding_idx": -1})["Out"][0]
+        out.backward(torch.ones_like(out))
+        grads[dev] = w.grad.cpu()
+    torch.cuda.synchronize()
+    if not torch.equal(grads["cpu"], grads["cuda"]):
+        fail(f"lookup_table_v2 gradient: card {grads['cuda'].tolist()} vs "
+             f"CPU {grads['cpu'].tolist()}")
+    results["lookup_grad_past_table"] = {"grad": grads["cuda"].tolist()}
+    out = {"phase": "emitters", "cases": results}
     emit(out)
     return out
 
@@ -3767,6 +4079,7 @@ def main() -> int:
     env = phase_env(torch)
     build = phase_build()
     kern = phase_kernels(torch)
+    phase_emitters(torch)
 
     from paddle_tpu_torch.inference import DecoderConfig, TinyDecoderLM
 
@@ -3777,6 +4090,7 @@ def main() -> int:
     model = TinyDecoderLM(cfg, seed=0, device="cuda")
     eng = phase_engine(torch, cfg, model, env["card"])
     phase_parity(torch, cfg, model)
+    phase_decode_sync(torch, cfg, model)
     phase_profile(torch, cfg, model)
     del model
     torch.cuda.empty_cache()

@@ -43,6 +43,7 @@ _STR2NP = {
     "int8": np.dtype("int8"),
     "uint8": np.dtype("uint8"),
     "int16": np.dtype("int16"),
+    "uint32": np.dtype("uint32"),
     "int32": np.dtype("int32"),
     "int64": np.dtype("int64"),
     "float16": np.dtype("float16"),
@@ -57,6 +58,9 @@ _NP2TORCH = {
     np.dtype("int8"): torch.int8,
     np.dtype("uint8"): torch.uint8,
     np.dtype("int16"): torch.int16,
+    # jnp.sum of uint8 gives uint32; torch keeps few ops for it (casts,
+    # views, copies), so a uint32 result is for reading, not arithmetic
+    np.dtype("uint32"): torch.uint32,
     np.dtype("int32"): torch.int32,
     np.dtype("int64"): torch.int64,
     np.dtype("float16"): torch.float16,

@@ -91,15 +91,24 @@ def assign(ctx, ins, attrs):
 
 @register("cast")
 def cast(ctx, ins, attrs):
-    dt = attrs.get("out_dtype", attrs.get("dtype", "float32"))
-    return {"Out": [ins["X"][0].to(to_torch_dtype(runtime_dtype(dt)))]}
+    x = ins["X"][0]
+    dt = to_torch_dtype(runtime_dtype(
+        attrs.get("out_dtype", attrs.get("dtype", "float32"))))
+    if x.is_floating_point() and not (dt.is_floating_point or dt == torch.bool):
+        # XLA's convert saturates and maps NaN to 0; torch's is undefined
+        # out of range.  The bounds are exact in float64, not in f32.
+        info = torch.iinfo(dt)
+        x = torch.nan_to_num(x.double(), nan=0.0).clamp(info.min, info.max)
+    return {"Out": [x.to(dt)]}
 
 
 @register("scale")
 def scale(ctx, ins, attrs):
     x = ins["X"][0]
     s = attrs.get("scale", 1.0)
-    b = attrs.get("bias", 0.0)
+    # the bias takes X's dtype first, as jnp.asarray(b, x.dtype) does: an
+    # integer X drops its fraction, a bf16 X rounds it
+    b = torch.tensor(attrs.get("bias", 0.0), dtype=x.dtype)
     if attrs.get("bias_after_scale", True):
         return {"Out": [x * s + b]}
     return {"Out": [(x + b) * s]}

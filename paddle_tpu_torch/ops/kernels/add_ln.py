@@ -22,8 +22,11 @@ Two implementations of each direction:
   plain PyTorch versions.  CPU and ``meta`` tensors take them (shape
   inference goes through them).
 * the CUDA kernels of ``csrc/add_ln.cu`` (sm_90a, built by nvcc at first
-  use, bound with ctypes): one warp a row, held in registers, two shuffle
-  reductions a row.  The backward is one launch: each block writes a
+  use, bound with ctypes): one warp a row, held in registers and read
+  with 16-byte loads, two shuffle reductions a row.  The forward's grid
+  is one wave (``fwd_geometry``); each warp walks several rows and, up to
+  H = 1024, issues the next row's loads and this row's scale and shift
+  before this row's reductions.  The backward is one launch: each block writes a
   partial row of dscale/dshift, and the blocks that finish last (an
   atomic ticket) sum them in a fixed order, so it is deterministic.  Its
   grid comes from ``bwd_geometry`` and its workspace from
@@ -155,13 +158,32 @@ def _launcher(name: str):
         fn = getattr(_build.load("add_ln"), f"add_ln_{name}_launch")
         if name == "fwd":
             fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
-                           + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                           + [ctypes.c_float] + [ctypes.c_int] * 3
+                           + [ctypes.c_void_p])
         else:
             fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
                            + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+FWD_BLOCKS_PER_SM = 2
+
+
+def fwd_geometry(rows: int, h: int, sms: int) -> tuple:
+    """The forward kernel's launch: (threads, nblocks).  Eight warps a
+    block up to H = 1024 (rows pipelined), four beyond; at most
+    ``FWD_BLOCKS_PER_SM`` blocks an SM, so the grid is one wave, and no
+    more blocks than rows need.  Warp w of the grid walks rows w, w +
+    nblocks * warps, ..."""
+    warps = 8 if h <= 1024 else 4
+    return warps * 32, min(-(-rows // warps), FWD_BLOCKS_PER_SM * sms)
 
 
 def _cuda_add_ln(x, y, scale, shift, eps: float):
@@ -171,6 +193,7 @@ def _cuda_add_ln(x, y, scale, shift, eps: float):
     lead = tuple(x.shape[:-1])
     scale = scale.float().contiguous()
     shift = shift.float().contiguous()
+    threads, nblocks = fwd_geometry(rows, h, _sm_count(x.device))
     fn = _launcher("fwd")
     out = torch.empty_like(x)
     mean = torch.empty(lead, dtype=torch.float32, device=x.device)
@@ -180,7 +203,7 @@ def _cuda_add_ln(x, y, scale, shift, eps: float):
         err = fn(x.data_ptr(), None if y is None else y.data_ptr(),
                  scale.data_ptr(), shift.data_ptr(), out.data_ptr(),
                  mean.data_ptr(), rstd.data_ptr(), rows, h, float(eps),
-                 _DTYPE_CODES[x.dtype], stream)
+                 nblocks, threads, _DTYPE_CODES[x.dtype], stream)
     if err:
         raise RuntimeError(f"add_ln kernel launch failed: CUDA error {err}")
     fused_add_ln.launches += 1
@@ -242,11 +265,6 @@ def bwd_workspace(device, stream: int, h: int, nblocks: int,
               torch.zeros(1 + ngroups, dtype=torch.int32, device=device))
         _workspaces[key] = ws
     return ws
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _cuda_add_ln_bwd(x, y, scale, mean, rstd, g):

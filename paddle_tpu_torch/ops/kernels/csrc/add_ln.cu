@@ -15,17 +15,30 @@
 //
 // Bound.  About 8 flops an element against a few bytes: memory.  The
 // function reads x (and y) and writes out once, plus scale, shift and the
-// two f32 stats a row: bytes / 3.35 TB/s.
+// two f32 stats a row: bytes / 3.35 TB/s; at BERT-base's training rows
+// (4096 x 768 bf16 with the residual) 18.9 MB: 5.6 us.  What kept the
+// first design from it: 8-byte bf16 loads, scale and shift read only
+// after both reductions (a second dependent round trip at the end of
+// every row), and one row a warp, so no warp had loads in flight while
+// it reduced.
 //
 // Design.  The TPU kernel normalises a block of rows per grid step with
-// the row held in VMEM.  Here one warp owns one row and holds it in
-// registers: lane i loads the 4-element chunks i, i+32, i+64, ... with one
-// 16-byte (f32) or 8-byte (bf16) load each, so the row is read from device
-// memory once; mean and the sum of squared deviations are two xor-shuffle
-// reductions over the registers (the two-pass variance, no cancellation),
-// and the output is written from the same registers.  Eight warps a
-// block, one row a warp, so 4096 rows make 512 blocks.  H must be a
-// multiple of 4 and at most 4096 (32 chunks a lane); the wrapper checks.
+// the row held in VMEM.  Here one warp owns one row at a time and holds
+// it in registers: lane i loads the VEC-element chunks i, i+32, i+64, ...
+// with one 16-byte load each (8 bf16 or 4 f32; bf16 with H % 8 != 0
+// takes 8-byte chunks of 4, another instantiation of the same kernel), so
+// the row is read from device memory once; mean and the sum of squared
+// deviations are two xor-shuffle reductions over the registers (the
+// two-pass variance, no cancellation), and the output is written from the
+// same registers.  The grid is one wave (the wrapper's fwd_geometry: two
+// blocks an SM, eight warps a block up to H = 1024, four beyond), and
+// each warp walks the rows row, row + stride, ...: up to H = 1024 the
+// next row's loads are issued, as raw bits, before this row's reductions,
+// so every warp keeps a row in flight while it reduces, and scale and
+// shift are loaded before each row's reductions (from L1 after the first
+// row), so they arrive while the row is reduced; wider rows hold one row
+// in their registers and load scale and shift after.  H must be a
+// multiple of 4 and at most 4096; the wrapper checks.
 //
 // Backward.  Replaces the TPU kernel add_ln.py _bwd_kernel (launched by
 // _ln_bwd).  With the forward's mean and rstd and the cotangent g:
@@ -77,9 +90,9 @@
 #include <math.h>
 #include <stdint.h>
 
-namespace {
+#include <type_traits>
 
-constexpr int kWarps = 8;  // rows per block
+namespace {
 
 __device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
   const float4 t = *reinterpret_cast<const float4*>(p);
@@ -116,108 +129,6 @@ cudaError_t allow_smem(K kernel, int bytes) {
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               bytes);
 }
-
-// ---------------------------------------------------------------------------
-// forward
-// ---------------------------------------------------------------------------
-
-// NCH: the most 4-element chunks a lane holds (H <= 128 * NCH)
-template <typename T, int NCH, bool HAS_Y>
-__global__ void __launch_bounds__(kWarps * 32)
-add_ln_fwd_kernel(const T* __restrict__ x, const T* __restrict__ y,
-                  const float* __restrict__ scale,
-                  const float* __restrict__ shift, T* __restrict__ out,
-                  float* __restrict__ mean, float* __restrict__ rstd,
-                  int rows, int h, float eps) {
-  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;
-  const int nch = h >> 2;
-  const int64_t off = (int64_t)row * h;
-
-  float v[NCH][4];
-  float sum = 0.f;
-#pragma unroll
-  for (int c = 0; c < NCH; ++c) {
-    const int ch = lane + 32 * c;
-    if (ch < nch) {
-      load4(x + off + 4 * ch, v[c]);
-      if (HAS_Y) {
-        float w[4];
-        load4(y + off + 4 * ch, w);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) v[c][i] += w[i];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) sum += v[c][i];
-    }
-  }
-  const float mu = warp_sum(sum) / h;
-  float sq = 0.f;
-#pragma unroll
-  for (int c = 0; c < NCH; ++c) {
-    if (lane + 32 * c < nch) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float d = v[c][i] - mu;
-        sq = fmaf(d, d, sq);
-      }
-    }
-  }
-  const float rs = 1.f / sqrtf(warp_sum(sq) / h + eps);
-#pragma unroll
-  for (int c = 0; c < NCH; ++c) {
-    const int ch = lane + 32 * c;
-    if (ch < nch) {
-      float sc[4], sh[4], o[4];
-      load4(scale + 4 * ch, sc);
-      load4(shift + 4 * ch, sh);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) o[i] = (v[c][i] - mu) * rs * sc[i] + sh[i];
-      store4(out + off + 4 * ch, o);
-    }
-  }
-  if (lane == 0) {
-    mean[row] = mu;
-    rstd[row] = rs;
-  }
-}
-
-template <typename T, int NCH>
-int launch(const void* x, const void* y, const void* scale, const void* shift,
-           void* out, void* mean, void* rstd, int rows, int h, float eps,
-           cudaStream_t stream) {
-  const int blocks = (rows + kWarps - 1) / kWarps;
-  if (y)
-    add_ln_fwd_kernel<T, NCH, true><<<blocks, kWarps * 32, 0, stream>>>(
-        static_cast<const T*>(x), static_cast<const T*>(y),
-        static_cast<const float*>(scale), static_cast<const float*>(shift),
-        static_cast<T*>(out), static_cast<float*>(mean),
-        static_cast<float*>(rstd), rows, h, eps);
-  else
-    add_ln_fwd_kernel<T, NCH, false><<<blocks, kWarps * 32, 0, stream>>>(
-        static_cast<const T*>(x), nullptr, static_cast<const float*>(scale),
-        static_cast<const float*>(shift), static_cast<T*>(out),
-        static_cast<float*>(mean), static_cast<float*>(rstd), rows, h, eps);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_h(const void* x, const void* y, const void* scale,
-             const void* shift, void* out, void* mean, void* rstd, int rows,
-             int h, float eps, cudaStream_t stream) {
-  if (h <= 128 * 8)
-    return launch<T, 8>(x, y, scale, shift, out, mean, rstd, rows, h, eps,
-                        stream);
-  return launch<T, 32>(x, y, scale, shift, out, mean, rstd, rows, h, eps,
-                       stream);
-}
-
-// ---------------------------------------------------------------------------
-// backward
-// ---------------------------------------------------------------------------
-
-constexpr int kGroup = 16;  // block partial rows that one group sum takes
 
 __device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
   const float4 a = *reinterpret_cast<const float4*>(p);
@@ -256,6 +167,231 @@ __device__ __forceinline__ void storev(T* p, const float (&v)[4]) { store4(p, v)
 __device__ __forceinline__ void storev(__nv_bfloat16* p, const float (&v)[8]) {
   store8(p, v);
 }
+
+// ---------------------------------------------------------------------------
+// forward
+// ---------------------------------------------------------------------------
+
+// VEC-wide chunks as raw bits: 16 bytes (8 bf16 or 4 f32) or 8 bytes (4
+// bf16), loaded now and widened when the row's turn comes
+template <typename T, int VEC>
+using raw_t = typename std::conditional<VEC * sizeof(T) == 16, uint4,
+                                        uint2>::type;
+
+__device__ __forceinline__ void widen(const uint4& r, float (&v)[4]) {
+  v[0] = __uint_as_float(r.x); v[1] = __uint_as_float(r.y);
+  v[2] = __uint_as_float(r.z); v[3] = __uint_as_float(r.w);
+}
+__device__ __forceinline__ void widen_bf16(uint32_t w, float* v) {
+  const float2 f = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&w));
+  v[0] = f.x;
+  v[1] = f.y;
+}
+__device__ __forceinline__ void widen(const uint4& r, float (&v)[8]) {
+  widen_bf16(r.x, v); widen_bf16(r.y, v + 2);
+  widen_bf16(r.z, v + 4); widen_bf16(r.w, v + 6);
+}
+__device__ __forceinline__ void widen(const uint2& r, float (&v)[4]) {
+  widen_bf16(r.x, v); widen_bf16(r.y, v + 2);
+}
+
+struct FwdArgs {
+  const void* x;
+  const void* y;        // null without the residual
+  const float* scale;
+  const float* shift;
+  void* out;
+  float* mean;
+  float* rstd;
+  int rows, h;
+  float eps;
+};
+
+// VEC: elements a chunk (one load a lane); NCH: the most chunks a lane
+// holds (H <= 32 * VEC * NCH).  Rows of up to 32 elements a lane (H <=
+// 1024) are pipelined, eight warps a block; wider rows are not (their
+// registers hold one row), four warps a block.
+template <int VEC, int NCH>
+__host__ __device__ constexpr bool fwd_pipelined() {
+  return NCH * VEC <= 32;
+}
+template <int VEC, int NCH>
+__host__ __device__ constexpr int fwd_warps() {
+  return fwd_pipelined<VEC, NCH>() ? 8 : 4;
+}
+
+// One row from its registers v (x + y, f32): mean and rstd by two xor-
+// shuffle reductions (the two-pass variance), then the affine and the
+// stores.  Up to H = 1024 (the pipelined rows) scale and shift are loaded
+// first, so they arrive while the row is reduced; wider rows hold too
+// much in registers for that and load them after the reductions.
+template <typename T, int VEC, int NCH>
+__device__ __forceinline__ void fwd_row(const FwdArgs& a, int row,
+                                        float (&v)[NCH][VEC]) {
+  constexpr bool kEarly = fwd_pipelined<VEC, NCH>();
+  constexpr int NP = kEarly ? NCH : 1;
+  const int lane = threadIdx.x & 31;
+  const int h = a.h;
+  const int nch = h / VEC;
+  float scv[NP][VEC], shv[NP][VEC];
+  if constexpr (kEarly) {
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) {
+      const int ch = lane + 32 * c;
+      if (ch < nch) {
+        loadv(a.scale + ch * VEC, scv[c]);
+        loadv(a.shift + ch * VEC, shv[c]);
+      }
+    }
+  }
+  float sum = 0.f;
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) {
+    if (lane + 32 * c < nch) {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) sum += v[c][i];
+    }
+  }
+  const float mu = warp_sum(sum) / h;
+  float sq = 0.f;
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) {
+    if (lane + 32 * c < nch) {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        const float d = v[c][i] - mu;
+        sq = fmaf(d, d, sq);
+      }
+    }
+  }
+  const float rs = 1.f / sqrtf(warp_sum(sq) / h + a.eps);
+  T* __restrict__ out = static_cast<T*>(a.out) + (int64_t)row * h;
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) {
+    const int ch = lane + 32 * c;
+    if (ch < nch) {
+      if constexpr (!kEarly) {
+        loadv(a.scale + ch * VEC, scv[0]);
+        loadv(a.shift + ch * VEC, shv[0]);
+      }
+      const float* sc = scv[kEarly ? c : 0];
+      const float* sh = shv[kEarly ? c : 0];
+      float o[VEC];
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) o[i] = (v[c][i] - mu) * rs * sc[i] + sh[i];
+      storev(out + ch * VEC, o);
+    }
+  }
+  if (lane == 0) {
+    a.mean[row] = mu;
+    a.rstd[row] = rs;
+  }
+}
+
+template <typename T, int VEC, int NCH, bool HAS_Y>
+__global__ void __launch_bounds__(fwd_warps<VEC, NCH>() * 32, 2)
+add_ln_fwd_kernel(FwdArgs a) {
+  constexpr int WARPS = fwd_warps<VEC, NCH>();
+  using R = raw_t<T, VEC>;
+  const T* __restrict__ x = static_cast<const T*>(a.x);
+  const T* __restrict__ y = static_cast<const T*>(a.y);
+  const int lane = threadIdx.x & 31;
+  const int h = a.h;
+  const int nch = h / VEC;
+  const int stride = gridDim.x * WARPS;  // rows a wave of warps covers
+  int row = blockIdx.x * WARPS + (threadIdx.x >> 5);
+
+  float v[NCH][VEC];
+  if constexpr (fwd_pipelined<VEC, NCH>()) {
+    // the warp walks rows row, row + stride, ...; the next row's loads
+    // are issued, as raw bits, before this row's reductions
+    R rx[NCH], ry[NCH];
+    auto fetch = [&](int r) {
+      const int64_t off = (int64_t)r * h;
+#pragma unroll
+      for (int c = 0; c < NCH; ++c) {
+        const int ch = lane + 32 * c;
+        if (ch < nch) {
+          rx[c] = *reinterpret_cast<const R*>(x + off + ch * VEC);
+          if (HAS_Y) ry[c] = *reinterpret_cast<const R*>(y + off + ch * VEC);
+        }
+      }
+    };
+    if (row < a.rows) fetch(row);
+    for (; row < a.rows; row += stride) {
+#pragma unroll
+      for (int c = 0; c < NCH; ++c) {
+        if (lane + 32 * c < nch) {
+          widen(rx[c], v[c]);
+          if (HAS_Y) {
+            float w[VEC];
+            widen(ry[c], w);
+#pragma unroll
+            for (int i = 0; i < VEC; ++i) v[c][i] += w[i];
+          }
+        }
+      }
+      if (row + stride < a.rows) fetch(row + stride);
+      fwd_row<T, VEC, NCH>(a, row, v);
+    }
+  } else {
+    // wide rows: one row in the registers at a time
+    for (; row < a.rows; row += stride) {
+      const int64_t off = (int64_t)row * h;
+#pragma unroll
+      for (int c = 0; c < NCH; ++c) {
+        const int ch = lane + 32 * c;
+        if (ch < nch) {
+          loadv(x + off + ch * VEC, v[c]);
+          if (HAS_Y) {
+            float w[VEC];
+            loadv(y + off + ch * VEC, w);
+#pragma unroll
+            for (int i = 0; i < VEC; ++i) v[c][i] += w[i];
+          }
+        }
+      }
+      fwd_row<T, VEC, NCH>(a, row, v);
+    }
+  }
+}
+
+template <typename T, int VEC, int NCH>
+int launch_fwd(const FwdArgs& a, int nblocks, int threads,
+               cudaStream_t stream) {
+  if (threads != fwd_warps<VEC, NCH>() * 32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (a.y)
+    add_ln_fwd_kernel<T, VEC, NCH, true><<<nblocks, threads, 0, stream>>>(a);
+  else
+    add_ln_fwd_kernel<T, VEC, NCH, false><<<nblocks, threads, 0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the narrowest instantiation that holds a lane's chunks
+template <typename T, int VEC>
+int launch_fwd_v(const FwdArgs& a, int nblocks, int threads,
+                 cudaStream_t stream) {
+  const int per_lane = (a.h / VEC + 31) / 32;
+  if (per_lane <= 2) return launch_fwd<T, VEC, 2>(a, nblocks, threads, stream);
+  if (per_lane <= 3) return launch_fwd<T, VEC, 3>(a, nblocks, threads, stream);
+  if (per_lane <= 4) return launch_fwd<T, VEC, 4>(a, nblocks, threads, stream);
+  if (per_lane <= 6) return launch_fwd<T, VEC, 6>(a, nblocks, threads, stream);
+  if (per_lane <= 8) return launch_fwd<T, VEC, 8>(a, nblocks, threads, stream);
+  if (per_lane <= 16)
+    return launch_fwd<T, VEC, 16>(a, nblocks, threads, stream);
+  if constexpr (VEC == 4)
+    if (per_lane <= 32)
+      return launch_fwd<T, 4, 32>(a, nblocks, threads, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ---------------------------------------------------------------------------
+// backward
+// ---------------------------------------------------------------------------
+
+constexpr int kGroup = 16;  // block partial rows that one group sum takes
 
 __device__ __forceinline__ void add4(float4& a, const float4& b) {
   a.x += b.x; a.y += b.y; a.z += b.z; a.w += b.w;
@@ -511,21 +647,28 @@ int launch_bwd_v(const BwdArgs& a, int nblocks, int threads,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (x, y, out); scale and shift are f32.
-// y may be null.  Returns 0 on success, the CUDA error code of a refused
-// launch, or cudaErrorInvalidValue for an unsupported dtype or width.
+// y may be null.  nblocks and threads come from the wrapper's
+// fwd_geometry (threads 256 up to h = 1024, 128 beyond); the warps walk
+// the rows with a stride of nblocks * threads / 32.  Returns 0 on
+// success, the CUDA error code of a refused launch, or
+// cudaErrorInvalidValue for an unsupported dtype, width or geometry.
 extern "C" int add_ln_fwd_launch(const void* x, const void* y,
                                  const void* scale, const void* shift,
                                  void* out, void* mean, void* rstd, int rows,
-                                 int h, float eps, int dtype, void* stream) {
-  if (rows <= 0 || h <= 0 || h % 4 != 0 || h > 4096)
+                                 int h, float eps, int nblocks, int threads,
+                                 int dtype, void* stream) {
+  if (rows <= 0 || h <= 0 || h % 4 != 0 || h > 4096 || nblocks <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  const FwdArgs a = {x, y, static_cast<const float*>(scale),
+                     static_cast<const float*>(shift), out,
+                     static_cast<float*>(mean), static_cast<float*>(rstd),
+                     rows, h, eps};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_h<float>(x, y, scale, shift, out, mean, rstd, rows, h, eps,
-                           s);
+  if (dtype == 0) return launch_fwd_v<float, 4>(a, nblocks, threads, s);
   if (dtype == 1)
-    return launch_h<__nv_bfloat16>(x, y, scale, shift, out, mean, rstd, rows,
-                                   h, eps, s);
+    return h % 8 == 0
+               ? launch_fwd_v<__nv_bfloat16, 8>(a, nblocks, threads, s)
+               : launch_fwd_v<__nv_bfloat16, 4>(a, nblocks, threads, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

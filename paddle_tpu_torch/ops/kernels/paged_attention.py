@@ -7,17 +7,30 @@ where K[b]/V[b] are the first ``lengths[b]`` logical positions gathered
 through ``page_table[b]``.  Same signature and layout as the JAX
 package's ``ops/pallas/paged_attention.py`` ``paged_attention``.
 
-Two implementations:
+Implementations:
 
 * ``paged_attention_reference`` — dense gather + f32 softmax, the plain
   PyTorch mirror of the JAX ``_ref_paged_attention``.  CPU tensors take
   it; ``impl="torch"`` forces it (tests and the kernel comparison only).
+* ``paged_attention_split_reference`` — the kernel's algorithm in plain
+  PyTorch: per-chunk softmax partials (m, l, acc) merged in chunk order.
+  Tests hold it against the JAX reference; nothing on the main path
+  calls it.
 * the CUDA kernel ``csrc/paged_attention.cu`` (sm_90a, built by nvcc at
   first use, bound with ctypes).  It replaces the TPU kernel
   ``ops/pallas/paged_attention.py`` ``_paged_kernel`` /
-  ``_pallas_paged_attention``.  One block per (slot, head) loops over
-  only the live pages, ceil(len/page), with its online-softmax state in
-  registers; the source's header note has the design.
+  ``_pallas_paged_attention``.  The sequence is split across blocks
+  (flash-decoding): a block takes one chunk of ``split_geometry``'s
+  pages of one slot for every query head of one kv head, streams its K
+  and V rows through a cp.async ring in shared memory, and the last
+  chunk block of a slot to finish (an atomic ticket) merges the chunks'
+  f32 partials in chunk order, so the result is bit-for-bit repeatable.
+  The grid comes from the table's width, never from ``lengths``: the
+  wrapper never reads ``lengths`` on the host, so a decode step does not
+  synchronise.  The partials and tickets are a workspace cached per
+  device and stream (``split_workspace``).  The merge runs inside the
+  one kernel: one launch a call.  The source's header note has the
+  design.
 
 Bound: memory.  The function has to read each slot's K and V rows at
 positions t < len_b once, one int32 table entry per live page, the
@@ -68,6 +81,72 @@ def paged_attention_reference(q, k_pages, v_pages, page_table, lengths,
     l = p.sum(dim=-1, keepdim=True)
     o = torch.einsum("bht,bthd->bhd", p / l, v.float())
     return o.to(q.dtype)
+
+
+CHUNK_POSITIONS = 64  # positions a kernel block takes, in whole pages
+HEADS_PER_BLOCK = (1, 2, 4, 8, 16, 32)  # the kernel's warp splits
+
+
+def split_geometry(h: int, kh: int, maxp: int, page: int) -> tuple:
+    """The kernel's split, from the shapes alone (never from lengths):
+    (chunk_pages, nchunks, heads_per_block, hgroups).  A chunk is the
+    whole pages that fit in ``CHUNK_POSITIONS`` (one page if a page is
+    longer); a block serves the narrowest ``HEADS_PER_BLOCK`` that holds
+    the H / KH query heads of a kv head, at most 32, and ``hgroups``
+    blocks of heads cover them."""
+    chunk_pages = max(1, CHUNK_POSITIONS // page)
+    group = h // kh
+    hpb = next(n for n in HEADS_PER_BLOCK if n >= min(group, 32))
+    return chunk_pages, -(-maxp // chunk_pages), hpb, -(-group // hpb)
+
+
+def paged_attention_split_reference(q, k_pages, v_pages, page_table,
+                                    lengths, sm_scale: Optional[float] = None,
+                                    chunk: Optional[int] = None):
+    """The kernel's algorithm in plain PyTorch, any device: the table's
+    positions cut into chunks of ``chunk`` pages (default
+    ``split_geometry``'s), each chunk's f32 partial (m_c, l_c, acc_c) over
+    its positions < len (len clamped to the table's reach), and the
+    partials merged in chunk order: M = max m_c, L = sum l_c exp(m_c - M),
+    o = sum acc_c exp(m_c - M) / max(L, 1e-30).  A chunk at or past len
+    adds nothing, and length 0 gives 0."""
+    b, h, d = q.shape
+    _, page, kh, _ = k_pages.shape
+    maxp = page_table.shape[1]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    if chunk is None:
+        chunk = split_geometry(h, kh, maxp, page)[0]
+    nchunks = -(-maxp // chunk)
+    idx = page_table.long()
+    k = k_pages[idx].reshape(b, maxp * page, kh, d).float()
+    v = v_pages[idx].reshape(b, maxp * page, kh, d).float()
+    if kh != h:
+        k = k.repeat_interleave(h // kh, dim=2)
+        v = v.repeat_interleave(h // kh, dim=2)
+    s = torch.einsum("bhd,bthd->bht", q.float(), k) * sm_scale
+    pos = torch.arange(maxp * page, device=q.device)
+    live = pos[None, :] < lengths.long().clamp(max=maxp * page)[:, None]
+    s = torch.where(live[:, None, :], s, _NEG_INF)
+    pad = nchunks * chunk * page - maxp * page   # the last chunk's tail
+    s = torch.nn.functional.pad(s, (0, pad), value=_NEG_INF)
+    v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    s = s.reshape(b, h, nchunks, chunk * page)
+    v = v.reshape(b, nchunks, chunk * page, h, d)
+    m = s.amax(dim=-1)                                       # [B, H, C]
+    dead = m == _NEG_INF
+    p = torch.exp(s - torch.where(dead, 0.0, m)[..., None])  # 0 where masked
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bhct,bcthd->bhcd", p, v)
+    mx = m.amax(dim=-1)
+    mx = torch.where(mx == _NEG_INF, 0.0, mx)
+    out_l = torch.zeros_like(mx)
+    out_a = torch.zeros(b, h, d, dtype=torch.float32, device=q.device)
+    for c in range(nchunks):   # chunk order, as the kernel's merge
+        w = torch.where(dead[..., c], 0.0, torch.exp(m[..., c] - mx))
+        out_l = out_l + l[..., c] * w
+        out_a = out_a + acc[:, :, c] * w[..., None]
+    return (out_a / out_l.clamp(min=1e-30)[..., None]).to(q.dtype)
 
 
 def check_kernel_inputs(q, k_pages, v_pages, page_table, lengths) -> None:
@@ -122,11 +201,32 @@ def _launcher():
         from . import _build
 
         fn = _build.load("paged_attention").paged_attention_launch
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+_workspaces = {}
+
+
+def split_workspace(device, stream: int, n_part: int, n_tickets: int):
+    """(part, ticket) of the kernel on ``device`` and ``stream``: f32
+    partials [>= n_part] (every chunk's acc[D], then its (m, l)) and int32
+    tickets [>= n_tickets], zero between calls (each call leaves them at
+    zero).  Cached per (device, stream); a call that needs more gets a
+    larger pair."""
+    key = (torch.device(device), int(stream))
+    ws = _workspaces.get(key)
+    if ws is None or ws[0].numel() < n_part or ws[1].numel() < n_tickets:
+        old = (0, 0) if ws is None else (ws[0].numel(), ws[1].numel())
+        ws = (torch.empty(max(n_part, old[0]), dtype=torch.float32,
+                          device=device),
+              torch.zeros(max(n_tickets, old[1]), dtype=torch.int32,
+                          device=device))
+        _workspaces[key] = ws
+    return ws
 
 
 def _cuda_paged_attention(q, k_pages, v_pages, page_table, lengths,
@@ -134,14 +234,20 @@ def _cuda_paged_attention(q, k_pages, v_pages, page_table, lengths,
     check_kernel_inputs(q, k_pages, v_pages, page_table, lengths)
     b, h, d = q.shape
     _, page, kh, _ = k_pages.shape
+    maxp = page_table.shape[1]
+    chunk_pages, nchunks, hpb, hgroups = split_geometry(h, kh, maxp, page)
     fn = _launcher()
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        part, ticket = split_workspace(q.device, stream,
+                                       b * h * nchunks * (d + 2),
+                                       b * kh * hgroups)
         err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                  page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                 b, h, kh, d, page, page_table.shape[1], float(sm_scale),
-                 _DTYPE_CODES[q.dtype], stream)
+                 part.data_ptr(), ticket.data_ptr(), b, h, kh, d, page, maxp,
+                 chunk_pages, hpb, float(sm_scale), _DTYPE_CODES[q.dtype],
+                 stream)
     if err:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {err}")
@@ -159,8 +265,10 @@ def paged_attention(q, k_pages, v_pages, page_table, lengths,
       k_pages:    [P, page, KH, D] physical key pages (whole pool).
       v_pages:    [P, page, KH, D] physical value pages.
       page_table: [B, maxp] int32 physical page id per logical page.
-      lengths:    [B] int32 live KV length per slot (0 => undefined
-                  output for that slot; callers mask dead slots).
+      lengths:    [B] int32 live KV length per slot, a device tensor
+                  the kernel reads itself (0 gives 0 from the kernel and
+                  NaN from the dense plain version; callers mask dead
+                  slots).
       sm_scale:   softmax scale; default 1/sqrt(D).
       impl:       None (CPU tensors: the plain version; CUDA tensors: the
                   kernel) or ``"torch"`` (the plain version, for tests

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import math
 
+import torch
+
 from .registry import register
 
 
@@ -90,7 +92,33 @@ def expand_as(ctx, ins, attrs):
     return {"Out": [x.expand(tgt.shape)]}
 
 
+def _fill_value(dtype):
+    """``jnp.take``'s default fill: NaN for floats, True for bool, the most
+    negative signed and the largest unsigned integer."""
+    if dtype.is_floating_point:
+        return math.nan
+    if dtype == torch.bool:
+        return True
+    info = torch.iinfo(dtype)
+    return info.min if info.min < 0 else info.max
+
+
+def take(x, idx, axis=0):
+    """``jnp.take(x, idx, axis)`` in its default ``mode="fill"``: an index
+    in [-n, 0) wraps, one outside [-n, n) gives the fill value.  The index
+    is clamped before the read, so an out-of-range one reads a valid row
+    (on the card no device assert) and is masked after; the masked
+    elements take no gradient."""
+    n = x.shape[axis]
+    idx = torch.where(idx < 0, idx + n, idx)
+    ok = (idx >= 0) & (idx < n)
+    out = x.index_select(axis, idx.clamp(0, max(n - 1, 0)).reshape(-1))
+    out = out.reshape(x.shape[:axis] + idx.shape + x.shape[axis + 1:])
+    ok = ok.reshape(idx.shape + (1,) * (x.dim() - axis - 1))
+    return torch.where(ok, out, _fill_value(x.dtype))
+
+
 @register("gather")
 def gather(ctx, ins, attrs):
     x, idx = ins["X"][0], ins["Index"][0]
-    return {"Out": [x.index_select(attrs.get("axis", 0), idx.reshape(-1))]}
+    return {"Out": [take(x, idx.reshape(-1), attrs.get("axis", 0) % x.dim())]}

@@ -99,7 +99,10 @@ def _act(name, fn):
 _act("relu", lambda x, a: torch.relu(x))
 _act("tanh", lambda x, a: torch.tanh(x))
 _act("sqrt", lambda x, a: torch.sqrt(x))
-_act("sign", lambda x, a: torch.sign(x))
+# jnp.sign keeps NaN and -0.0, where torch.sign gives 0 and +0.0; the kept
+# elements are detached, so the gradient stays zero everywhere
+_act("sign", lambda x, a: torch.where((x == 0) | torch.isnan(x), x.detach(),
+                                      torch.sign(x)))
 _act("gelu", lambda x, a: F.gelu(
     x, approximate="tanh" if a.get("approximate", False) else "none"))
 

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from .kernels import add_ln as _add_ln
 from .kernels import conv_bn as _cb
+from .manipulation import take
 from .registry import register, set_grad_maker
 
 
@@ -357,7 +358,7 @@ set_grad_maker("dropout", _dropout_grad_maker)
 
 
 def _lookup(w, ids, padding_idx):
-    out = w[ids]
+    out = take(w, ids)  # negative ids wrap, ids past the table give NaN rows
     if padding_idx is not None and padding_idx >= 0:
         out = torch.where((ids == padding_idx)[..., None], 0.0, out)
     return out

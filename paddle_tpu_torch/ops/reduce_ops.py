@@ -33,8 +33,11 @@ def _reduce(name, fn, float_out=False):
             keepdim=keep)
         if out.dim() == 0:
             out = out.reshape(1)  # fluid reductions keep at least rank 1
-        if out.dtype == torch.int64 and x.dtype == torch.int32:
-            out = out.to(torch.int32)  # torch widens int sums; JAX keeps i32
+        if out.dtype == torch.int64 and x.dtype != torch.int64:
+            # torch widens sums of narrow ints and bools to int64; jnp.sum
+            # gives int32, and uint32 for uint8
+            out = out.to(torch.uint32 if x.dtype == torch.uint8
+                         else torch.int32)
         return {"Out": [out]}
 
     return _emit
@@ -47,4 +50,7 @@ _reduce("reduce_mean", torch.mean, float_out=True)
 @register("mean")
 def mean(ctx, ins, attrs):
     """Whole-tensor mean to a [1] tensor (reference mean_op.cc)."""
-    return {"Out": [torch.mean(ins["X"][0]).reshape(1)]}
+    x = ins["X"][0]
+    if not x.is_floating_point():
+        x = x.float()  # jnp.mean of integers gives a float32 mean
+    return {"Out": [torch.mean(x).reshape(1)]}

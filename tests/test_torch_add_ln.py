@@ -416,3 +416,76 @@ def test_bwd_launch_refuses_what_the_kernel_does_not_take(monkeypatch):
     with pytest.raises(ValueError):
         add_ln._cuda_add_ln_bwd(x["x"], x["y"], x["scale"], stats[:4],
                                 stats, x["x"])
+
+
+@pytest.mark.parametrize("rows,h,sms,want", [
+    (4096, 768, 132, (256, 264)),      # BERT-base's rows: ~2 rows a warp
+    (16384, 512, 132, (256, 264)),     # the NMT step's rows: ~8 a warp
+    (8, 768, 132, (256, 1)),
+    (1000, 768, 132, (256, 125)),      # a ragged last wave
+    (100, 2048, 132, (128, 25)),       # wide rows: four warps a block
+    (4097, 4096, 4, (128, 8)),
+    (40000, 1024, 132, (256, 264)),
+], ids=["bert", "nmt", "tiny", "ragged", "wide", "widest", "many"])
+def test_fwd_geometry(rows, h, sms, want):
+    """Eight warps a block up to H = 1024, four beyond; at most two blocks
+    an SM (one wave), and no block without a row; the grid's warps cover
+    every row once with the stride nblocks * warps."""
+    threads, nblocks = got = add_ln.fwd_geometry(rows, h, sms)
+    assert got == want
+    warps = threads // 32
+    assert nblocks <= add_ln.FWD_BLOCKS_PER_SM * sms
+    assert (nblocks - 1) * warps < rows
+    stride = nblocks * warps
+    walked = sorted(r for w in range(stride) for r in range(w, rows, stride))
+    assert walked == list(range(rows))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_y", [False, True], ids=["no_y", "y"])
+def test_fwd_launch_passes_the_geometry_and_never_falls_back(
+        dtype, with_y, monkeypatch):
+    """On the card the forward is one call of ``add_ln_fwd_launch`` with
+    the geometry of ``fwd_geometry``; scale and shift go over as f32.  A
+    failed launch raises and counts nothing: nothing retries it on the
+    plain version."""
+    monkeypatch.setattr(torch.cuda, "device", _Dev)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: _Stream())
+    monkeypatch.setattr(add_ln, "_sm_count", lambda device: 132)
+    calls = []
+    monkeypatch.setattr(add_ln, "_launcher", lambda name: lambda *a: (
+        calls.append((name, a)) or 0))
+    x = _good(r=4096, dtype=dtype, y=with_y)
+    x["scale"], x["shift"] = x["scale"].to(dtype), x["shift"].to(dtype)
+    n0 = add_ln.fused_add_ln.launches
+    out, mean, rstd = add_ln._cuda_add_ln(x["x"], x["y"], x["scale"],
+                                          x["shift"], 1e-5)
+    (name, args), = calls
+    assert name == "fwd" and len(args) == 14
+    assert args[0] == x["x"].data_ptr()
+    assert args[1] == (x["y"].data_ptr() if with_y else None)
+    assert args[4:7] == (out.data_ptr(), mean.data_ptr(), rstd.data_ptr())
+    assert args[7:9] == (4096, 768) and args[9] == 1e-5
+    assert args[10:13] == (264, 256, add_ln._DTYPE_CODES[dtype])
+    assert args[13] == 5
+    assert out.dtype == dtype and mean.shape == rstd.shape == (4096,)
+    assert mean.dtype == rstd.dtype == torch.float32
+    assert add_ln.fused_add_ln.launches == n0 + 1
+
+    monkeypatch.setattr(add_ln, "_launcher", lambda name: lambda *a: 700)
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        add_ln._cuda_add_ln(x["x"], x["y"], x["scale"], x["shift"], 1e-5)
+    assert add_ln.fused_add_ln.launches == n0 + 1
+
+
+@pytest.mark.parametrize("name", ["x_float64", "h_not_multiple_of_4",
+                                  "h_too_wide", "y_shape_differs",
+                                  "x_misaligned"])
+def test_fwd_launch_refuses_what_the_kernel_does_not_take(name,
+                                                          monkeypatch):
+    monkeypatch.setattr(add_ln, "_launcher", lambda name: pytest.fail(
+        "launched"))
+    x = _good()
+    BAD[name](x)
+    with pytest.raises(ValueError):
+        add_ln._cuda_add_ln(x["x"], x["y"], x["scale"], x["shift"], 1e-5)

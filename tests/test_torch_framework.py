@@ -262,6 +262,39 @@ EMIT = {
                             {"Q": _f(1, 8, 32), "K": _f(1, 8, 32),
                              "V": _f(1, 8, 32), "BiasQK": _f(1, 2, 8, 8)},
                             {"num_heads": 2, "is_test": True}),
+    # the re-anchor probe's six faults, on its inputs
+    "mean_int": ("mean", {"X": np.array([[1, 2], [3, 4]], np.int32)}, {}),
+    **{f"reduce_sum_{dt}": ("reduce_sum", {"X": np.ones((2, 3), dt)},
+                            {"dim": [1]})
+       for dt in ("bool", "int8", "uint8", "int16")},
+    "scale_int_frac_bias": ("scale", {"X": np.array([1, 2, 3], np.int32)},
+                            {"scale": 2.5, "bias": 0.5}),
+    "scale_int_frac_bias_first": ("scale",
+                                  {"X": np.array([1, 2, 3], np.int32)},
+                                  {"scale": 2.5, "bias": -1.5,
+                                   "bias_after_scale": False}),
+    "sign_nan_negzero": ("sign", {"X": np.array([np.nan, -0.0, 2.0, -3.0],
+                                                np.float32)}, {}),
+    "gather_wrap_fill": ("gather", {"X": np.arange(12, dtype=np.float32)
+                                    .reshape(6, 2),
+                                    "Index": np.array([-1, 6], np.int32)},
+                         {}),
+    "gather_int_fill": ("gather", {"X": np.arange(12, dtype=np.int32)
+                                   .reshape(6, 2),
+                                   "Index": np.array([-1, 6, -7, 2],
+                                                     np.int32)}, {}),
+    "gather_axis1_fill": ("gather", {"X": _f(2, 6),
+                                     "Index": np.array([5, -6, 6],
+                                                       np.int32)},
+                          {"axis": 1}),
+    "lookup_table_v2_past_table": ("lookup_table_v2",
+                                   {"W": _f(5, 3), "Ids": np.array(
+                                       [[4, 5], [-1, 0]], np.int32)},
+                                   {"padding_idx": -1}),
+    **{f"cast_saturate_{dt}": ("cast", {"X": np.array(
+        [3e9, -3e9, np.nan, 300.7, -300.7, 2.5, -2.5, np.inf, -np.inf],
+        np.float32)}, {"out_dtype": np.dtype(dt)})
+       for dt in ("int8", "int16", "int32", "int64", "uint8")},
 }
 
 
@@ -298,7 +331,9 @@ def test_emitter_matches_jax(name):
 @pytest.mark.parametrize("name", ["elementwise_add_axis", "mul", "slice",
                                   "layer_norm_fused", "attention_full_bias",
                                   "fill_constant_int64", "reduce_sum_int",
-                                  "cast_int64_narrows"])
+                                  "cast_int64_narrows", "reduce_sum_uint8",
+                                  "gather_axis1_fill", "cast_saturate_int8",
+                                  "lookup_table_v2_past_table"])
 def test_shape_inference_matches_jax(name):
     op, ins, attrs = EMIT[name]
     metas = {k: [(a.shape, a.dtype) for a in v]
@@ -329,6 +364,82 @@ def test_clip_gradient_matches_jax_vjp(bounds):
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(out),
                                atol=0, rtol=0)
     np.testing.assert_allclose(xt.grad.numpy(), want, atol=TOL, rtol=0)
+
+
+def test_sign_keeps_negative_zero_and_has_a_zero_gradient():
+    """jnp.sign(-0.0) is -0.0 (the EMIT case cannot see the sign bit), and
+    its gradient is zero everywhere, NaN and zeros included."""
+    x = np.array([np.nan, -0.0, 0.0, 2.0, -3.0], np.float32)
+    want = np.asarray(jnp.sign(jnp.asarray(x)))
+    xt = torch.as_tensor(x).requires_grad_()
+    got = treg.get("sign").emit(treg.EmitContext(), {"X": [xt]},
+                                {})["Out"][0]
+    np.testing.assert_array_equal(np.signbit(got.detach().numpy()),
+                                  np.signbit(want))
+    got.sum().backward()
+    assert not xt.grad.any()
+
+
+def _lookup_vjp_case():
+    w = _f(5, 3)
+    ids = np.array([[4, 7], [-1, 0], [2, 4]], np.int32)  # 7: past the table
+    return w, ids, _f(3, 2, 3)
+
+
+def test_lookup_gradient_past_table_matches_jax_vjp():
+    """An id past the table reads a NaN row and sends no gradient; a
+    negative id wraps and sends it to the wrapped row (jax.vjp of the
+    reference emitter)."""
+    w, ids, g = _lookup_vjp_case()
+
+    def jlookup(a):
+        return jreg.get("lookup_table_v2").emit(
+            jreg.EmitContext(), {"W": [a], "Ids": [jnp.asarray(ids)]},
+            {"padding_idx": -1})["Out"][0]
+
+    out, vjp = jax.vjp(jlookup, jnp.asarray(w))
+    want = np.asarray(vjp(jnp.asarray(g))[0])
+    wt = torch.as_tensor(w).requires_grad_()
+    got = treg.get("lookup_table_v2").emit(
+        treg.EmitContext(), {"W": [wt], "Ids": [torch.as_tensor(ids)]},
+        {"padding_idx": -1})["Out"][0]
+    got.backward(torch.as_tensor(g))
+    np.testing.assert_array_equal(got.detach().numpy(), np.asarray(out))
+    assert np.isnan(got.detach().numpy()[0, 1]).all()
+    np.testing.assert_allclose(wt.grad.numpy(), want, atol=TOL, rtol=0)
+
+
+def test_gather_gradient_past_the_end_matches_jax_vjp():
+    x = _f(6, 2)
+    idx = np.array([-1, 6, 2, 5], np.int32)
+    g = _f(4, 2)
+
+    def jgather(a):
+        return jreg.get("gather").emit(
+            jreg.EmitContext(), {"X": [a], "Index": [jnp.asarray(idx)]},
+            {})["Out"][0]
+
+    _, vjp = jax.vjp(jgather, jnp.asarray(x))
+    want = np.asarray(vjp(jnp.asarray(g))[0])
+    xt = torch.as_tensor(x).requires_grad_()
+    got = treg.get("gather").emit(
+        treg.EmitContext(), {"X": [xt], "Index": [torch.as_tensor(idx)]},
+        {})["Out"][0]
+    got.backward(torch.as_tensor(g))
+    np.testing.assert_allclose(xt.grad.numpy(), want, atol=TOL, rtol=0)
+
+
+def test_uint8_sum_is_uint32_in_the_ir():
+    """jnp.sum of uint8 gives uint32; the port's IR carries it both ways.
+    torch keeps only casts, views and copies for uint32 (no add, no sum),
+    the gap ROADMAP.md section C records."""
+    assert tdtypes.to_torch_dtype("uint32") is torch.uint32
+    assert tdtypes.from_torch_dtype(torch.uint32) == np.dtype("uint32")
+    out = treg.get("reduce_sum").emit(
+        treg.EmitContext(), {"X": [torch.full((4, 100), 255, dtype=torch.uint8)]},
+        {"dim": [1]})["Out"][0]
+    assert out.dtype == torch.uint32
+    np.testing.assert_array_equal(out.numpy(), np.full(4, 25500, np.uint32))
 
 
 def test_dropout_training_draws_from_the_step_generator():
