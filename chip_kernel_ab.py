@@ -22,7 +22,9 @@ time of a whole decode step at GPT-2 small's widths around it (the sum
 of its ops' times in a torch.profiler window), rows 2 and 3 at BERT-base's (row 3 also in f32
 without the residual) and at the NMT step's (16,384 x 512, bf16, the
 residual), row 4 in f32 also at nmt_infer's two decoder shapes (8 x
-256, 8 heads of 64: causal self-attention, key-bias cross-attention).
+256, 8 heads of 64: causal self-attention, key-bias cross-attention),
+and a whole BERT-base training step of chip_smoke's bert_train through
+the tree's own Executor (its host wall time and peak device memory).
 Yardsticks beside
 them (the same in both trees): the clock's floor, a 4-byte ``zero_``,
 and torch ops that move rows 1 and 2's bytes (``max`` of 17.5 MB,
@@ -336,8 +338,51 @@ def _measure(tree: str) -> dict:
         lambda: fa.flash_attention_bsh_fwd(q, k, v, None, nh, causal=True))
     out["row4_bsh_fwd_f32_nmt_cross_key"] = ms(
         lambda: fa.flash_attention_bsh_fwd(q, k, v, src, nh))
+    del q, k, v, src
+    out.update(_train_step(torch, dev))
     return {"tree": tree, "card": torch.cuda.get_device_name(0),
             "ms": out}
+
+
+def _train_step(torch, dev) -> dict:
+    """A whole BERT-base training step as chip_smoke's bert_train runs it
+    (fuse_stack, bf16 AMP, Adam 1e-4, dropout 0.1, 8 x 512, one seed-0
+    batch) through the tree's own Executor: the host wall median of 10
+    steps after 3 warm ones (the fetch syncs), and the peak device memory
+    over them in GB (``bert_train_step_peak_gb``, not a time)."""
+    import time
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.contrib import mixed_precision
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.BertConfig.base()
+    cfg.fuse_stack = True
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard():
+        m, st, _, loss = bert.build_bert_pretrain_program(
+            cfg, 8, 512, 76, main_program=main, startup_program=startup)
+        with fluid.program_guard(m, st):
+            mixed_precision.decorate(fluid.optimizer.AdamOptimizer(1e-4),
+                                     use_bf16=True).minimize(loss)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(st, scope=scope)
+    feed = {k: torch.as_tensor(v, device=dev) for k, v in
+            bert.random_pretrain_batch(cfg, 8, 512, 76, seed=0).items()}
+
+    def step():
+        t0 = time.perf_counter()
+        exe.run(m, feed=feed, fetch_list=[loss], scope=scope)
+        return (time.perf_counter() - t0) * 1e3
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wall = statistics.median(step() for _ in range(10))
+    return {"bert_train_step_host_wall": wall,
+            "bert_train_step_peak_gb": torch.cuda.max_memory_allocated()
+            / 2 ** 30}
 
 
 def main() -> int:

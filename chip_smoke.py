@@ -55,7 +55,11 @@ prints no result):
                kernels) held rounding by rounding as the BSH backward is,
                the wgmma forward's Philox bits against the f32 SIMT
                forward's; rows 6-9 timed with and without dropout, row 7
-               causal too),
+               causal too); rows 4 and 5 at BERT s4096's shape (B 8, S
+               4096, 12 x 64, bf16, key bias, Philox p 0.1) held rounding
+               by rounding against their plain versions at B 1 and timed
+               at B 1 and B 8 beside SDPA's forward and backward, and rows
+               2 and 3 at its rows (32,768 x 768, bf16, the residual),
                with its time, bound, plain-version
                time and the time of one library call computing the same
                function
@@ -145,6 +149,31 @@ prints no result):
                256 with a [1, 1, 1, S] padding bias, bf16 AMP, Adam, 3
                steps with causal off and 3 on: rows 6 and 7 once a step,
                both on their wgmma kernels
+  transformer_train  bench.py's Transformer-base NMT
+               (models/transformer.py: 6 + 6 layers, d_model 512, 8
+               heads, d_inner 2048, vocabularies of 30000, dropout 0.1,
+               label smoothing 0.1), unfused as bench_transformer runs
+               it: flash on, Adam 1e-4, bf16 AMP, 64 x 256 -> 256 on one
+               seed-0 random_nmt_batch; 2 warm and 10 timed steps (step
+               ms, tokens/s, share of 989 TFLOP/s from
+               transformer_step_flops), every step launching rows 4 and 5
+               18 and 36 times (all on the wgmma kernels) and the LN
+               kernels 30 and 30; 3 profiled steps; then 3 steps with
+               fuse_stack
+  transformer_train_parity  2 + 2 layers at those widths, 2 x 128,
+               dropout 0, 3 Adam steps on the card (kernels) against the
+               CPU (plain versions) from the same weights: f32 with TF32
+               off, the losses and the first step's logits (then TF32 on,
+               shown to exceed the limits), and the losses in bf16 AMP
+  bert_long_train  BERT-base pretraining at s4096 / b8 as bench.py's
+               _run_bert(8, 4096, 76, ...) runs it (fuse_stack, 4096
+               positions, Adam 1e-4, bf16 AMP, dropout 0.1):
+               Executor.memory_analysis under each rung of bench.py's
+               remat ladder (peaks ordered remat_layer < "flash" <
+               remat_ffn), the rung bench.py would choose run 2 warm and
+               5 timed steps, then 3 under remat_policy="flash" (the
+               flash forward once a layer); exact launches a step by
+               program and rung; 2 profiled steps of each
 
 The line before the last is the kernels summary; the last line is
 ``{"ok": true, "device": {...}}``.  Needs one CUDA card; without one it
@@ -153,6 +182,7 @@ exits 2.  Weights and inputs are random from fixed seeds.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -171,7 +201,12 @@ ATOL_BF16 = 1e-2            # bf16 output rounding (8-bit mantissa)
 # bf16 outputs of the flash and LN kernels: both versions compute in f32
 # and round once, so they may differ by one bf16 ulp (2**-7 relative)
 RTOL_BF16 = 2.0 ** -7
-ATOL_LSE = 1e-4             # f32 log-sum-exp over up to 512 keys
+# f32 log-sum-exp over up to 4096 keys: l sums terms in (0, 1] whose
+# largest is 1, in another order in each version, and the rounding errors
+# add like a random walk, ~sqrt(4096) * 2^-24 = 4e-6 of l (1e-6 read at
+# 512 keys), so lse agrees to ~1e-5; one key tile dropped or doubled moves
+# it by ~log(1 + 64/4096) = 1.6e-2 at the widest, and 1e-4 tells them apart
+ATOL_LSE = 1e-4
 PARITY_LIMIT = 5e-4         # paged decode vs dense forward, f32, TF32 off
 BERT_PARITY_LIMIT = 5e-4    # BERT-base card vs CPU, f32, TF32 off
 # BERT-base training, 3 Adam steps on 2 x 128, card vs CPU, f32 with TF32
@@ -185,7 +220,9 @@ TRAIN_PARITY_LOSS_BF16 = 2e-2
 # LN backward's dscale/dshift: f32 sums over 4096 rows of terms near 1,
 # taken in another order (the kernel's per-warp partials, torch's tree):
 # errors grow like sqrt(4096) ulps of partial sums up to ~200, whatever
-# the (possibly cancelled) result's size
+# the (possibly cancelled) result's size.  They grow like sqrt(rows): read
+# 6.1e-5 at 4096 rows and 1.2e-4 at 16,384, so ~1.8e-4 expected at
+# BERT s4096's 32,768
 ATOL_SUM = 5e-4
 RTOL_SUM = 2e-6
 # Philox keep rate over B*nh*S*S draws: within 6 standard deviations of
@@ -392,9 +429,14 @@ def _timed(torch, flush, kernel_fn, plain_fn, library_fn, *, nbytes,
            flops, peak_flops) -> dict:
     """Device times (time_cold_ms) of the kernel, its plain version and
     the library call, and the bound: the larger of bytes / HBM rate and
-    flops / the dtype's peak."""
+    flops / the dtype's peak.  ``plain_fn`` None: the plain version is
+    not timed here (its inputs would not fit), and its entries are
+    None."""
+    none = {"median": None, "min": None, "max": None, "hold_ms": None,
+            "enqueue_ms_max": None, "held": None}
     ker_t = time_cold_ms(torch, kernel_fn, flush)
-    plain_t = time_cold_ms(torch, plain_fn, flush)
+    plain_t = none if plain_fn is None else time_cold_ms(torch, plain_fn,
+                                                         flush)
     lib_t = time_cold_ms(torch, library_fn, flush)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak_flops * 1e3
@@ -1379,6 +1421,112 @@ def _kernels_ln_train(torch, F, flush) -> tuple:
     return results, timed
 
 
+# BERT-base pretraining at s4096 / b8 (bench.py's long-context row)
+BERT_LONG = dict(batch=8, seq=4096, max_preds=76)
+
+
+def _kernels_bert_long(torch, F, flush) -> tuple:
+    """Rows 4 and 5 at BERT-base's long-context training shape (B 8, S
+    4096, 12 heads of 64, bf16, the padding key bias, Philox p = 0.1):
+    held against their plain versions at B 1 rounding by rounding
+    (``_flash_bwd_check``; at B 8 the plain version's [B, 12, S, S] f32
+    scores alone take 6.4 GB), timed at B 1 beside the plain versions and
+    at B 8 beside SDPA's forward and autograd backward and the bound.
+    Rows 2 and 3 at the step's rows (32,768 x 768, bf16, the residual),
+    against their plain versions and timed."""
+    from paddle_tpu_torch.ops.kernels import add_ln
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    rng = np.random.default_rng(12)
+    b, s, nh, d, p = BERT_LONG["batch"], BERT_LONG["seq"], 12, 64, 0.1
+    bf16 = torch.bfloat16
+    results, timed = {}, {}
+    for batch in (1, b):
+        kw, do = _flash_train_case(torch, rng, batch, s, nh, d, bf16, p=p,
+                                   mode="philox")
+        q, k, v, bias = kw["q"], kw["k"], kw["v"], kw["bias"]
+        seed = kw["dropout_seed"]
+        if batch == 1:
+            results["philox_bf16_b1"] = _flash_bwd_check(
+                torch, fa, "bert_long b1", kw, do)
+        o, lse, bits = fa.flash_attention_bsh_fwd(**kw, return_bits=True)
+        keep_div = fa.dropout_quantized_thresh(1.0 - p) / 256.0
+        qh, kh, vh = (t.reshape(batch, s, nh, d).transpose(1, 2)
+                      .contiguous().requires_grad_() for t in (q, k, v))
+        dout = do.reshape(batch, s, nh, d).transpose(1, 2).contiguous()
+        mask = bias.to(bf16)
+        lib_o = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                               dropout_p=p)
+        plain = batch == 1
+        shape = {"B": batch, "S": s, "H": nh * d, "nh": nh, "D": d,
+                 "bias": "per key, lengths 128..4096", "dtype": "bfloat16",
+                 "dropout": f"Philox, p={p}"}
+        n0 = (fa.flash_attention_bsh.launches_tc,
+              fa.flash_attention_bsh_bwd.launches_tc)
+        fwd = {"shape": shape,
+               "library": "F.scaled_dot_product_attention with dropout_p="
+                          "0.1 on pre-split heads, additive bf16 mask"}
+        fwd.update(_timed(
+            torch, flush, lambda: fa.flash_attention_bsh_fwd(**kw),
+            (lambda: fa.flash_attention_bsh_reference(
+                q, k, v, bias, nh, dropout_prob=p, mask=bits,
+                keep_div=keep_div)) if plain else None,
+            lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask, dropout_p=p),
+            nbytes=fa.bound_bytes(q, k, v, bias, nh),
+            flops=fa.bound_flops(q, k, nh), peak_flops=BF16_FLOPS))
+        fwd["no_dropout_ms"] = time_cold_ms(
+            torch, lambda: fa.flash_attention_bsh_fwd(q, k, v, bias, nh),
+            flush)["median"]
+        bwd = {"shape": shape, "kernels_a_call": 2,
+               "library": "autograd backward of "
+                          "F.scaled_dot_product_attention with dropout_p="
+                          "0.1 on pre-split heads (dq, dk, dv)"}
+        bwd.update(_timed(
+            torch, flush,
+            lambda: fa.flash_attention_bsh_bwd(
+                q, k, v, bias, o, lse, do, nh, dropout_prob=p,
+                dropout_seed=seed),
+            (lambda: fa.flash_attention_bsh_bwd_reference(
+                q, k, v, bias, o, lse, do, nh, mask=bits,
+                keep_div=keep_div)) if plain else None,
+            lambda: torch.autograd.grad(lib_o, (qh, kh, vh), dout,
+                                        retain_graph=True),
+            nbytes=fa.bound_bytes_bwd(q, k, v, bias, nh),
+            flops=fa.bound_flops_bwd(q, k, nh), peak_flops=BF16_FLOPS))
+        if (fa.flash_attention_bsh.launches_tc == n0[0]
+                or fa.flash_attention_bsh_bwd.launches_tc == n0[1]):
+            fail(f"rows 4 and 5 at BERT s4096, B {batch}, ran no wgmma "
+                 f"kernel")
+        for row in (fwd, bwd):
+            row["max_abs_err"] = (
+                results["philox_bf16_b1"]["max_abs_err"] if row is fwd
+                else max(results["philox_bf16_b1"]["grads"].values()))
+        timed[f"flash_attention_bsh_b{batch}"] = fwd
+        timed[f"flash_attention_bsh_bwd_b{batch}"] = bwd
+        del kw, do, q, k, v, bias, o, lse, bits, qh, kh, vh, dout, mask
+        del lib_o
+        torch.cuda.empty_cache()
+
+    kw, g = _ln_case(torch, rng, b * s, 768, bf16, True)
+    x, y, scale = kw["x"], kw["y"], kw["scale"]
+    _, mean, rstd = add_ln.fused_add_ln_fwd(**kw)
+    got = add_ln.fused_add_ln_bwd(x, y, scale, mean, rstd, g)
+    want = add_ln.fused_add_ln_bwd_reference(x, y, scale, mean, rstd, g)
+    torch.cuda.synchronize()
+    res = _check("add_ln backward bert_long dx", got[0], want[0], 1e-5,
+                 RTOL_BF16)
+    for i, part in ((1, "dscale"), (2, "dshift")):
+        res[part] = _check(f"add_ln backward bert_long {part}", got[i],
+                           want[i], ATOL_SUM, RTOL_SUM)["max_abs_err"]
+    results["add_ln_bwd_bf16_y"] = res
+    timed["add_ln_bwd"] = _ln_bwd_timed(torch, F, flush, add_ln, kw, g, res)
+    timed["add_ln"] = _ln_fwd_timed(torch, F, flush, add_ln, kw)
+    del kw, g, got, want
+    torch.cuda.empty_cache()
+    return results, timed
+
+
 # BHSD flash (rows 6-9).  dbias is ds summed in f32 over up to B * nh * S
 # = 131,072 terms (a [1, 1, 1, S] key bias) in another order than
 # torch's (first reading 1.1e-4); a bf16 full dbias is rounded to bf16 by
@@ -1916,6 +2064,8 @@ def phase_kernels(torch) -> dict:
     out["add_ln_train"] = ln["fwd_bf16_y"]
     out["add_ln_bwd_nmt"] = ln["nmt_bf16_y"]
     out["add_ln_train_nmt"] = ln["nmt_fwd_bf16_y"]
+    out["cases"]["bert_long"], out["bert_long"] = _kernels_bert_long(
+        torch, F, flush)
     out["cases"]["conv_bn"], cbn = _kernels_conv_bn(torch, F, flush)
     out.update(cbn)
     out["cases"]["flash_attention_bhsd"], bhsd = _kernels_flash_bhsd(
@@ -2601,7 +2751,15 @@ def _launches_per_step(program, bf16: bool = False) -> dict:
     encoder layer, 3 a decoder layer) and per last-axis affine
     layer_norm; an attention op with a per-key bias shared over the
     batch row 6 (row 7 in the backward), any other the BSH kernels.  In a
-    bf16 program every flash launch is on its wgmma kernel (``*_tc``)."""
+    bf16 program every flash launch is on its wgmma kernel (``*_tc``).
+    In training, an encoder stack whose whole layer is recomputed
+    (``remat_layer``, or a ``remat_policy``) runs its two LN forwards
+    again, and its flash forward again unless the policy keeps the
+    forward's o and lse (both ``flash_o`` and ``flash_lse``, as "flash"
+    does) on the BSH branch; ``remat_ffn`` and ``remat_qkv`` recompute
+    neither."""
+    from paddle_tpu_torch.ops.encoder_stack import _policy_names
+
     block = program.global_block()
     n = dict.fromkeys(KERNEL_COUNTERS, 0)
     train = any(op.type.endswith("_grad") for op in block.ops)
@@ -2614,14 +2772,17 @@ def _launches_per_step(program, bf16: bool = False) -> dict:
         if op.type == "fused_encoder_stack":
             layers = shape(op, "QKVW")[0]
             bias = shape(op, "AttnBias")
+            policy = set(_policy_names(op.attr("remat_policy") or ""))
+            again = train and (bool(policy) or bool(op.attr("remat_layer")))
             if bias is not None and bias[2] != 1:
-                n["row6"] += layers
+                n["row6"] += layers * (2 if again else 1)
                 n["row8"] += layers
                 n["row9"] += layers
             else:
-                n["bsh_fwd"] += layers
+                keeps = {"flash_o", "flash_lse"} <= policy
+                n["bsh_fwd"] += layers * (2 if again and not keeps else 1)
                 n["bsh_bwd"] += 2 * layers
-            n["ln_fwd"] += 2 * layers
+            n["ln_fwd"] += 2 * layers * (2 if again else 1)
             n["ln_bwd"] += 2 * layers
         elif op.type == "fused_decoder_stack":
             layers = shape(op, "SelfQKVW")[0]
@@ -2678,28 +2839,9 @@ def phase_bert_train(torch, card: str) -> dict:
                    (scope.find_var(v.name) for v in main.all_parameters()))
     feed = {k: torch.as_tensor(v, device=exe.device) for k, v in
             bert.random_pretrain_batch(cfg, b, s, max_preds, seed=0).items()}
-    losses = [float(exe.run(main, feed=feed, fetch_list=[loss],
-                            scope=scope)[0][0])
-              for _ in range(n_warm)]                # cuBLAS, allocator
-    torch.cuda.reset_peak_memory_stats()
-    counters = _counters()
-    total = {k: 0 for k in counters}
-    step_ms = []
-    for step in range(n_steps):
-        for c in counters.values():
-            c.launches = 0
-        t0 = time.perf_counter()
-        (lv,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
-        step_ms.append((time.perf_counter() - t0) * 1e3)  # numpy: synced
-        got = {k: c.launches for k, c in counters.items()}
-        if got != want:
-            fail(f"bert_train step {step} launched {got}, the program "
-                 f"needs {want}")
-        for k in total:
-            total[k] += got[k]
-        losses.append(float(lv[0]))
-    if not all(math.isfinite(x) for x in losses):
-        fail(f"bert_train losses not finite: {losses}")
+    losses, step_ms, total = _train_steps(
+        torch, "bert_train", exe, main, scope, feed, loss, want, n_steps,
+        n_warm)
     if not statistics.mean(losses[-3:]) < statistics.mean(losses[:3]):
         fail(f"bert_train loss did not fall on a fixed batch: {losses}")
     med = statistics.median(step_ms)
@@ -2795,33 +2937,39 @@ def phase_bert_train_parity(torch) -> dict:
     return out
 
 
-def phase_bert_train_profile(torch, train: dict) -> dict:
-    """Where a training step's time goes: 3 steps of bert_train under
+def _step_profile(torch, exe, main, scope, feed, loss, steps: int,
+                  note: str) -> dict:
+    """Where a training step's time goes: ``steps`` steps under
     torch.profiler; device busy time by kernel against the wall time."""
     from torch.profiler import ProfilerActivity, profile
 
-    exe, main, scope = train["exe"], train["main"], train["scope"]
-    feed, loss = train["feed"], train["loss"]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(3):
+        for _ in range(steps):
             exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = _device_rows(torch, prof)
     busy_ms = sum(r[0] for r in rows)
-    out = {"phase": "bert_train_profile", "steps": 3, "wall_ms": wall_ms,
-           "device_busy_ms": busy_ms,
-           "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
-           "top_kernels": [{"ms": ms, "calls": n, "name": k[:90]}
-                           for ms, n, k in rows[:20]],
-           "note": "window = 3 training steps of 8 x 512 (forward, "
-                   "backward, Adam, loss fetch); busy = sum of kernel self "
-                   "times"}
+    return {"steps": steps, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
+            "top_kernels": [{"ms": ms, "calls": n, "name": k[:90]}
+                            for ms, n, k in rows[:20]],
+            "note": note + "; busy = sum of kernel self times"}
+
+
+def phase_bert_train_profile(torch, train: dict) -> dict:
+    """Where a training step's time goes: 3 steps of bert_train under
+    torch.profiler; device busy time by kernel against the wall time."""
+    out = {"phase": "bert_train_profile", **_step_profile(
+        torch, train["exe"], train["main"], train["scope"], train["feed"],
+        train["loss"], 3, "window = 3 training steps of 8 x 512 (forward, "
+        "backward, Adam, loss fetch)")}
     emit(out)
     return out
+
 
 # ---------------------------------------------------------------------------
 # ResNet-50 training: the conv+BN kernels (rows 10-14)
@@ -3728,6 +3876,36 @@ def _count_step(counters, fn):
     return out, {k: c.launches for k, c in counters.items()}
 
 
+def _train_steps(torch, what, exe, main, scope, feed, loss, want,
+                 n_steps, n_warm=0) -> tuple:
+    """``n_warm`` steps (cuBLAS, the allocator), the peak memory reset,
+    then ``n_steps`` steps, each with every launch counter set to 0 just
+    before it and held to ``want`` just after; fails on a loss that is
+    not finite.  Returns (losses, step ms, launches summed)."""
+    def step():
+        return float(exe.run(main, feed=feed, fetch_list=[loss],
+                             scope=scope)[0][0])
+
+    losses = [step() for _ in range(n_warm)]
+    torch.cuda.reset_peak_memory_stats()
+    counters = _counters()
+    total = dict.fromkeys(counters, 0)
+    step_ms = []
+    for i in range(n_steps):
+        t0 = time.perf_counter()
+        lv, got = _count_step(counters, step)       # numpy fetch: synced
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if got != want:
+            fail(f"{what} step {i} launched {got}, the program needs "
+                 f"{want}")
+        for k in total:
+            total[k] += got[k]
+        losses.append(lv)
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{what} losses not finite: {losses}")
+    return losses, step_ms, total
+
+
 def phase_nmt_train(torch, card: str, n_steps: int = 10, n_warm: int = 2,
                     b: int = NMT["batch"], s: int = NMT["src_len"],
                     t: int = NMT["trg_len"],
@@ -3750,27 +3928,9 @@ def phase_nmt_train(torch, card: str, n_steps: int = 10, n_warm: int = 2,
     feed = {k: torch.as_tensor(v, device=exe.device)
             for k, v in _nmt_batch(b, s, t, seed=0).items()}
 
-    def step():
-        return float(exe.run(main, feed=feed, fetch_list=[loss],
-                             scope=scope)[0][0])
-
-    losses = [step() for _ in range(n_warm)]
-    torch.cuda.reset_peak_memory_stats()
-    counters = _counters()
-    total = dict.fromkeys(counters, 0)
-    step_ms = []
-    for i in range(n_steps):
-        t0 = time.perf_counter()
-        lv, got = _count_step(counters, step)       # numpy fetch: synced
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        if got != want:
-            fail(f"nmt_train step {i} launched {got}, the program needs "
-                 f"{want}")
-        for k in total:
-            total[k] += got[k]
-        losses.append(lv)
-    if not all(math.isfinite(x) for x in losses):
-        fail(f"nmt_train losses not finite: {losses}")
+    losses, step_ms, total = _train_steps(
+        torch, "nmt_train", exe, main, scope, feed, loss, want, n_steps,
+        n_warm)
     if not statistics.mean(losses[-3:]) < statistics.mean(losses[:3]):
         fail(f"nmt_train loss did not fall on a fixed batch: {losses}")
     med = statistics.median(step_ms)
@@ -3794,28 +3954,10 @@ def phase_nmt_train(torch, card: str, n_steps: int = 10, n_warm: int = 2,
 def phase_nmt_train_profile(torch, train: dict) -> dict:
     """Where an NMT training step's time goes: 3 steps under
     torch.profiler; device busy time by kernel against the wall time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    exe, main, scope = train["exe"], train["main"], train["scope"]
-    feed, loss = train["feed"], train["loss"]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(3):
-            exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = _device_rows(torch, prof)
-    busy_ms = sum(r[0] for r in rows)
-    out = {"phase": "nmt_train_profile", "steps": 3, "wall_ms": wall_ms,
-           "device_busy_ms": busy_ms,
-           "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
-           "top_kernels": [{"ms": ms, "calls": n, "name": k[:90]}
-                           for ms, n, k in rows[:20]],
-           "note": "window = 3 NMT training steps of 64 x 256 -> 256 "
-                   "(forward, backward, Adam, loss fetch); busy = sum of "
-                   "kernel self times"}
+    out = {"phase": "nmt_train_profile", **_step_profile(
+        torch, train["exe"], train["main"], train["scope"], train["feed"],
+        train["loss"], 3, "window = 3 NMT training steps of 64 x 256 -> 256 "
+        "(forward, backward, Adam, loss fetch)")}
     emit(out)
     return out
 
@@ -4054,6 +4196,317 @@ def phase_mha_key_train(torch, card: str, n_steps: int = 3, b: int = 64,
     return out
 
 
+# ---------------------------------------------------------------------------
+# bench.py's Transformer-base NMT (models/transformer.py) and BERT-base at
+# s4096 / b8 through the remat ladder
+# ---------------------------------------------------------------------------
+
+TRANSFORMER = dict(batch=64, src_len=256, trg_len=256)
+# transformer_train_parity, f32 with TF32 off: the first step's logits
+# (the same weights on both sides), relative L2 card vs CPU.  The first
+# reading was 5.1e-7 (the same math in another summation order); TF32 on
+# moved them by 3.5e-4 but the loss by only 1.1e-5, under
+# TRAIN_PARITY_LOSS: the random-init logits are small and their errors
+# average out over 256 tokens.  So the logits catch TF32, the loss does not
+TRANSFORMER_PARITY_LOGITS = 2e-5
+
+
+def _transformer_program(cfg, b, s, t, amp=True):
+    """``build_transformer_nmt_program`` as bench.py's ``bench_transformer``
+    trains it: Adam 1e-4, bf16 AMP (``decorate``) when ``amp``."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.contrib import mixed_precision
+    from paddle_tpu_torch.models import transformer
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard():
+        m, st, _, loss = transformer.build_transformer_nmt_program(
+            cfg, b, s, t, main_program=main, startup_program=startup)
+        with fluid.program_guard(m, st):
+            opt = fluid.optimizer.AdamOptimizer(learning_rate=1e-4)
+            if amp:
+                opt = mixed_precision.decorate(opt, use_bf16=True)
+            opt.minimize(loss)
+    return m, st, loss
+
+
+def phase_transformer_train(torch, card: str, n_steps: int = 10,
+                            n_warm: int = 2, n_fused: int = 3) -> dict:
+    """bench.py's Transformer-base NMT (``models/transformer.py``: 6 + 6
+    layers, d_model 512, 8 heads, d_inner 2048, vocabularies of 30000,
+    dropout 0.1, label smoothing 0.1) as ``bench_transformer`` trains it:
+    unfused, flash on, Adam 1e-4, bf16 AMP, 64 x 256 -> 256 on one seed-0
+    ``random_nmt_batch``; 2 warm and 10 timed steps, every loss finite,
+    the loss falling, and every step launching each kernel exactly as the
+    program needs (all 18 attentions on the BSH kernels); then 3 steps
+    with ``fuse_stack``."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import transformer
+
+    b, s, t = (TRANSFORMER[k] for k in ("batch", "src_len", "trg_len"))
+    cfg = transformer.TransformerConfig.base()
+    t0 = time.perf_counter()
+    main, startup, loss = _transformer_program(cfg, b, s, t)
+    build_s = time.perf_counter() - t0
+    want = _launches_per_step(main, bf16=True)
+    layers = cfg.n_encoder_layers + 2 * cfg.n_decoder_layers
+    if (want["bsh_fwd"], want["bsh_bwd"], want["ln_fwd"]) != (
+            layers, 2 * layers, cfg.n_encoder_layers * 2
+            + cfg.n_decoder_layers * 3):
+        fail(f"transformer_train: the program needs {want}, not one BSH "
+             f"launch an attention and one LN a residual")
+    scope, exe = fluid.Scope(), fluid.Executor()
+    exe.run(startup, scope=scope)
+    n_params = sum(p.numel() for p in
+                   (scope.find_var(v.name) for v in main.all_parameters()))
+    feed = {k: torch.as_tensor(v, device=exe.device) for k, v in
+            transformer.random_nmt_batch(cfg, b, s, t, seed=0).items()}
+    losses, step_ms, total = _train_steps(
+        torch, "transformer_train", exe, main, scope, feed, loss, want,
+        n_steps, n_warm)
+    if not statistics.mean(losses[-3:]) < statistics.mean(losses[:3]):
+        fail(f"transformer_train loss did not fall on a fixed batch: "
+             f"{losses}")
+    med = statistics.median(step_ms)
+    flops = transformer.transformer_step_flops(cfg, b, s, t)
+    out = {"phase": "transformer_train", "card": card,
+           "config": dict(dataclasses.asdict(cfg), batch=b, src_len=s,
+                          trg_len=t, optimizer="Adam 1e-4", amp="bf16",
+                          flash=True),
+           "params": n_params, "program_ops": len(main.global_block().ops),
+           "build_s": build_s, "steps": n_steps, "warm_steps": n_warm,
+           "step_ms_median": med, "step_ms_min": min(step_ms),
+           "step_ms_max": max(step_ms),
+           "tokens_per_s": b * (s + t) / (med / 1e3),
+           "step_flops": flops,
+           "bf16_peak_share": flops / (med / 1e3) / BF16_FLOPS,
+           "losses": losses, "launches_per_step": want, "launches": total,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+    out["profile"] = _step_profile(
+        torch, exe, main, scope, feed, loss, 3,
+        "window = 3 training steps of 64 x 256 -> 256 (forward, backward, "
+        "Adam, loss fetch)")
+    del main, startup, scope, exe
+    torch.cuda.empty_cache()
+
+    cfg.fuse_stack = True
+    main, startup, loss = _transformer_program(cfg, b, s, t)
+    fwant = _launches_per_step(main, bf16=True)
+    scope, exe = fluid.Scope(), fluid.Executor()
+    exe.run(startup, scope=scope)
+    flosses, fms, _ = _train_steps(torch, "transformer_train fused", exe,
+                                   main, scope, feed, loss, fwant, n_fused)
+    out["fused"] = {"steps": n_fused, "losses": flosses, "step_ms": fms,
+                    "launches_per_step": fwant}
+    emit(out)
+    return out
+
+
+def _transformer_parity_run(torch, amp: bool, b: int, s: int,
+                            n_layers: int, steps: int = 3) -> dict:
+    """The Transformer-base NMT program at its widths with ``n_layers`` +
+    ``n_layers`` layers, b x s -> s, dropout 0, on the card (kernels) and
+    on the CPU (plain versions) from the same weights: the losses of every
+    step and a few parameters after the last."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import transformer
+
+    cfg = transformer.TransformerConfig.base()
+    cfg.n_encoder_layers = cfg.n_decoder_layers = n_layers
+    cfg.dropout = 0.0
+    main, startup, loss = _transformer_program(cfg, b, s, s, amp=amp)
+    # the logits: the tied output projection, dec_out x trg_embedding^T
+    (logits,) = [op.output("Out")[0] for op in main.global_block().ops
+                 if op.type == "matmul" and any(
+                     n.startswith("trg_embedding") for n in op.input("Y"))]
+    cpu_exe, cpu_scope = fluid.Executor(device="cpu"), fluid.Scope()
+    cpu_exe.run(startup, scope=cpu_scope)
+    card_scope = fluid.Scope.from_numpy(
+        {n: v.numpy() for n, v in cpu_scope.vars.items()})
+    card_exe = fluid.Executor()
+    feed = transformer.random_nmt_batch(cfg, b, s, s, seed=3)
+    feed["src_mask"][-1, s // 2 + 5:] = 0.0     # one padded source row
+    card, cpu, logits_rel = [], [], None
+    for _ in range(steps):
+        got = card_exe.run(main, feed=feed, fetch_list=[loss, logits],
+                           scope=card_scope, return_numpy=False)
+        want = cpu_exe.run(main, feed=feed, fetch_list=[loss, logits],
+                           scope=cpu_scope, return_numpy=False)
+        card.append(float(got[0].reshape(-1)[0]))
+        cpu.append(float(want[0].reshape(-1)[0]))
+        if logits_rel is None:      # the first step: the same weights
+            logits_rel = _rel(got[1], want[1])
+    params = {}
+    for n in ("enc_0_q_fc.w_0", "enc_1_ffn_fc0.w_0", "enc_1_ffn_fc1.w_0",
+              "dec_0_cross_key_fc.w_0", "dec_1_cross_ln_scale",
+              "src_embedding", "trg_embedding"):
+        diff = (card_scope.find_var(n).cpu().float()
+                - cpu_scope.find_var(n).float()).abs()
+        params[n] = {"max": float(diff.max()),
+                     "beyond_2e-5": int((diff > 2e-5).sum()),
+                     "elements": diff.numel()}
+    return {"loss_card": card, "loss_cpu": cpu,
+            "loss_diff": max(abs(a - c) for a, c in zip(card, cpu)),
+            "logits_rel_l2": logits_rel, "param_diff": params}
+
+
+def phase_transformer_train_parity(torch, b: int = 2, s: int = 128,
+                                   n_layers: int = 2) -> dict:
+    """The Transformer-base NMT training program with 2 + 2 layers at its
+    widths, 2 x 128 -> 128, dropout 0, 3 Adam steps on the card against
+    the CPU: in f32 with TF32 off the losses and the first step's logits
+    (then TF32 on, to show the limits catch it), in bf16 AMP the
+    losses."""
+    counters = _counters()
+    n0 = {k: c.launches for k, c in counters.items()}
+    f32 = _transformer_parity_run(torch, False, b, s, n_layers)
+    missed = [k for k in ("bsh_fwd", "bsh_bwd", "ln_fwd", "ln_bwd")
+              if counters[k].launches == n0[k]]
+    if missed:
+        fail(f"the f32 Transformer parity run on the card missed kernels "
+             f"{missed}")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32 = _transformer_parity_run(torch, False, b, s, n_layers)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    n1 = {k: c.launches for k, c in counters.items()}
+    amp = _transformer_parity_run(torch, True, b, s, n_layers)
+    if any(counters[k].launches == n1[k]
+           for k in ("bsh_fwd_tc", "bsh_bwd_tc")):
+        fail("the bf16 Transformer parity run on the card ran no wgmma "
+             "flash kernel")
+    # the losses are held; the parameters are reported: Adam's first
+    # step moves every weight by about lr times the sign of its
+    # gradient, so a weight whose gradient is ~0 on one side (a ReLU
+    # unit at its kink) moves by up to 1e-4 on one side and not the other
+    checks = [("f32 loss", f32["loss_diff"], TRAIN_PARITY_LOSS),
+              ("f32 logits", f32["logits_rel_l2"],
+               TRANSFORMER_PARITY_LOGITS),
+              ("bf16 loss", amp["loss_diff"], TRAIN_PARITY_LOSS_BF16)]
+    for name, diff, limit in checks:
+        if not math.isfinite(diff) or diff > limit:
+            fail(f"Transformer training card vs CPU, {name}: {diff} > "
+                 f"{limit} (f32 {f32}, bf16 {amp})")
+    out = {"phase": "transformer_train_parity", "batch": b, "len": s,
+           "layers": n_layers, "steps": 3, "f32": f32, "f32_tf32_on": tf32,
+           "amp_bf16": amp,
+           "limits": {"f32_loss": TRAIN_PARITY_LOSS,
+                      "f32_logits_rel_l2": TRANSFORMER_PARITY_LOGITS,
+                      "bf16_loss": TRAIN_PARITY_LOSS_BF16},
+           "tf32_exceeds_limit": (
+               tf32["loss_diff"] > TRAIN_PARITY_LOSS
+               or tf32["logits_rel_l2"] > TRANSFORMER_PARITY_LOGITS)}
+    if not out["tf32_exceeds_limit"]:
+        fail(f"TF32 on stayed within the f32 Transformer limits: {tf32}")
+    emit(out)
+    return out
+
+
+# bench.py's remat ladder, cheapest recompute first
+REMAT_LADDER = ({"remat_ffn": True}, {"remat_policy": "flash"},
+                {"remat_layer": True})
+
+
+def bert_step_flops(cfg, batch, seq) -> int:
+    """bench.py's ``_bert_step_flops``: 6 N a token for the matmul
+    parameters (forward 2 N, backward 4 N) plus 12 L S H a token for the
+    attention scores and context."""
+    h, L = cfg.hidden_size, cfg.num_hidden_layers
+    n_matmul = L * (4 * h * h + 2 * h * cfg.intermediate_size) \
+        + cfg.vocab_size * h
+    return (6 * n_matmul + 12 * L * seq * h) * batch * seq
+
+
+def phase_bert_long_train(torch, card: str, n_steps: int = 5,
+                          n_warm: int = 2, n_flash: int = 3) -> dict:
+    """BERT-base pretraining at s4096 / b8 as bench.py's ``_run_bert(8,
+    4096, 76, ...)`` runs it: fuse_stack, 4096 positions, Adam 1e-4, bf16
+    AMP, dropout 0.1, one seed-0 ``random_pretrain_batch``.
+    ``Executor.memory_analysis`` of the program under each rung of the
+    ladder (their peaks must order remat_layer < "flash" < remat_ffn);
+    the rung bench.py would choose (the first whose peak is at most 95%
+    of the card's memory): 2 warm and 5 timed steps; then 3 steps under
+    ``remat_policy="flash"``, the flash forward once a layer.  Every step
+    launches each kernel exactly as its program and rung need."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import bert
+
+    b, s, max_preds = (BERT_LONG[k] for k in ("batch", "seq", "max_preds"))
+    base = bert.BertConfig.base()
+    base.fuse_stack = True
+    base.max_position_embeddings = max(base.max_position_embeddings, s)
+    limit = torch.cuda.get_device_properties(0).total_memory
+    exe, scope = fluid.Executor(), fluid.Scope()
+    feed = {k: torch.as_tensor(v, device=exe.device) for k, v in
+            bert.random_pretrain_batch(base, b, s, max_preds,
+                                       seed=0).items()}
+    programs, peaks, chosen = {}, {}, None
+    for remat in REMAT_LADDER:
+        name = remat.get("remat_policy") or next(iter(remat))
+        cfg = dataclasses.replace(base, **remat)
+        main, startup, loss = _train_program(cfg, b, s, max_preds, amp=True)
+        if not scope.vars:
+            # the rungs' programs hold the same parameters: one startup
+            exe.run(startup, scope=scope)
+        t0 = time.perf_counter()
+        ma = exe.memory_analysis(main, feed=feed, fetch_list=[loss],
+                                 scope=scope)
+        ma["seconds"] = time.perf_counter() - t0
+        peaks[name] = ma
+        programs[name] = (main, loss)
+        if chosen is None and ma["peak_bytes"] <= 0.95 * limit:
+            chosen = name
+        torch.cuda.empty_cache()
+    order = [peaks[k]["peak_bytes"] for k in ("remat_layer", "flash",
+                                              "remat_ffn")]
+    if not order[0] < order[1] < order[2]:
+        fail(f"bert_long_train: memory_analysis peaks do not order "
+             f"remat_layer < flash < remat_ffn: {order}")
+    if chosen is None:
+        fail(f"bert_long_train: no rung fits 95% of {limit} bytes: {peaks}")
+    flops = bert_step_flops(base, b, s)
+    runs = {}
+    for run, name, n_run, warm in (("chosen", chosen, n_steps, n_warm),
+                                   ("flash", "flash", n_flash, 0)):
+        main, loss = programs[name]
+        want = _launches_per_step(main, bf16=True)
+        if name == "flash" and want["bsh_fwd"] != base.num_hidden_layers:
+            fail(f"bert_long_train: remat_policy flash needs {want}, not "
+                 f"one flash forward a layer")
+        losses, step_ms, total = _train_steps(
+            torch, f"bert_long_train {name}", exe, main, scope, feed, loss,
+            want, n_run, warm)
+        med = statistics.median(step_ms)
+        runs[run] = {"rung": name, "warm_steps": warm, "steps": n_run,
+                     "losses": losses, "step_ms": step_ms,
+                     "step_ms_median": med,
+                     "tokens_per_s": b * s / (med / 1e3),
+                     "bf16_peak_share": flops / (med / 1e3) / BF16_FLOPS,
+                     "launches_per_step": want, "launches": total,
+                     "peak_mem_gb": torch.cuda.max_memory_allocated()
+                     / 2 ** 30}
+        runs[run]["profile"] = _step_profile(
+            torch, exe, main, scope, feed, loss, 2,
+            f"window = 2 training steps of 8 x 4096 under {name} (forward, "
+            f"backward, Adam, loss fetch)")
+    out = {"phase": "bert_long_train", "card": card,
+           "config": {"vocab": base.vocab_size, "hidden": base.hidden_size,
+                      "layers": base.num_hidden_layers,
+                      "heads": base.num_attention_heads,
+                      "ffn": base.intermediate_size, "dropout": 0.1,
+                      "fuse_stack": True, "positions": s,
+                      "optimizer": "Adam 1e-4", "amp": "bf16", "batch": b,
+                      "seq": s, "max_preds": max_preds},
+           "device_memory_bytes": limit,
+           "memory_analysis": peaks, "chosen": chosen, "step_flops": flops,
+           "runs": runs}
+    emit(out)
+    return out
+
+
 def _kernel_entry(name, source, replaces, launches, k) -> dict:
     return {"name": name, "route": "cuda",
             "source": f"paddle_tpu_torch/ops/kernels/csrc/{source}",
@@ -4126,6 +4579,21 @@ def main() -> int:
     phase_nmt_train_parity(torch)
     ninfer = phase_nmt_infer(torch, env["card"])["launches"]
     mlaunches = phase_mha_key_train(torch, env["card"])["launches"]
+    torch.cuda.empty_cache()
+
+    tlaunches = phase_transformer_train(torch, env["card"])["launches"]
+    torch.cuda.empty_cache()
+    phase_transformer_train_parity(torch)
+    long_runs = phase_bert_long_train(torch, env["card"])["runs"]
+    llaunches = long_runs["chosen"]["launches"]
+    flaunches = long_runs["flash"]["launches"]
+    torch.cuda.empty_cache()
+
+    def new_paths(key):
+        """The launches of ``key`` on this slice's two paths."""
+        return {"transformer_train": tlaunches[key],
+                "bert_long_train": llaunches[key],
+                "bert_long_train_flash": flaunches[key]}
 
     def entry(name, source, replaces, k, path_launches, main="bert_train"):
         e = _kernel_entry(name, source, replaces, path_launches[main], k)
@@ -4142,9 +4610,11 @@ def main() -> int:
         "flash_attention_bsh": {"bert_train": launches["bsh_fwd_tc"],
                                 "nmt_train": nlaunches["bsh_fwd_tc"],
                                 "bert_infer": 0,
-                                "nmt_infer": ninfer["bsh_fwd_tc"]},
+                                "nmt_infer": ninfer["bsh_fwd_tc"],
+                                **new_paths("bsh_fwd_tc")},
         "flash_attention_bsh_bwd": {"bert_train": launches["bsh_bwd_tc"],
-                                    "nmt_train": nlaunches["bsh_bwd_tc"]},
+                                    "nmt_train": nlaunches["bsh_bwd_tc"],
+                                    **new_paths("bsh_bwd_tc")},
         "flash_attention_bwd_fused": {"mha_key_train": mlaunches["row7_tc"]},
         "flash_attention": {"nmt_train": nlaunches["row6_tc"],
                             "mha_key_train": mlaunches["row6_tc"]},
@@ -4164,22 +4634,22 @@ def main() -> int:
               {"bert_train": launches["bsh_fwd"],
                "bert_infer": infer_launches["flash"],
                "nmt_train": nlaunches["bsh_fwd"],
-               "nmt_infer": ninfer["bsh_fwd"]}),
+               "nmt_infer": ninfer["bsh_fwd"], **new_paths("bsh_fwd")}),
         entry("flash_attention_bsh_bwd", "flash_attention_bsh.cu",
               "paddle_tpu/ops/pallas/flash_attention.py:1697",
               kern["flash_attention_bsh_bwd"],
               {"bert_train": launches["bsh_bwd"],
-               "nmt_train": nlaunches["bsh_bwd"]}),
+               "nmt_train": nlaunches["bsh_bwd"], **new_paths("bsh_bwd")}),
         entry("add_ln", "add_ln.cu", "paddle_tpu/ops/pallas/add_ln.py:145",
               kern["add_ln_train"],
               {"bert_train": launches["ln_fwd"],
                "bert_infer": infer_launches["ln"],
                "nmt_train": nlaunches["ln_fwd"],
-               "nmt_infer": ninfer["ln_fwd"]}),
+               "nmt_infer": ninfer["ln_fwd"], **new_paths("ln_fwd")}),
         entry("add_ln_bwd", "add_ln.cu",
               "paddle_tpu/ops/pallas/add_ln.py:175", kern["add_ln_bwd"],
               {"bert_train": launches["ln_bwd"],
-               "nmt_train": nlaunches["ln_bwd"]}),
+               "nmt_train": nlaunches["ln_bwd"], **new_paths("ln_bwd")}),
         entry("flash_attention", "flash_attention_bhsd.cu",
               "paddle_tpu/ops/pallas/flash_attention.py:392",
               kern["flash_attention"],

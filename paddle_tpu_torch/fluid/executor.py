@@ -21,6 +21,10 @@ from inside the emitters.  What carries over unchanged:
 * the plan cache keyed like the JAX package's compile cache (program
   serial + version, feed signature, fetch names): the classification is
   computed once per key;
+* buffer reuse, eagerly: a var leaves the step's env after the last op
+  that reads or writes it, unless it goes back to the scope or is
+  fetched (``_BlockPlan.free_after``), so a step holds what a compiled
+  step would and ``memory_analysis`` measures that;
 * the spans ``step``, ``data_wait``, ``device`` and ``fetch`` of the
   port's ``telemetry/tracing.py`` (armed by PADDLE_TRACING=1).
 
@@ -35,10 +39,10 @@ so the scope never holds an inference tensor: autograd refuses to save
 one for the backward of a later training step.  The optimizer ops write
 ``ParamOut``/``Moment*Out`` under the input names: each is a new tensor,
 and ``state_out`` writes it back detached, so no step's graph outlives
-the step.  Not ported yet: the step monitor, the
-numerics guards (FLAGS_check_nan_inf, FLAGS_check_numerics), the memory
-OOM doctor and ``memory_analysis``, the mesh / shard_map paths and the
-dataset loops (ROADMAP §C).
+the step.  ``memory_analysis`` measures one trial step (see there).  Not
+ported yet: the step monitor, the numerics guards (FLAGS_check_nan_inf,
+FLAGS_check_numerics), the memory OOM doctor, the mesh / shard_map paths
+and the dataset loops (ROADMAP §C).
 """
 from __future__ import annotations
 
@@ -122,16 +126,40 @@ def scope_guard(scope):
 
 
 class _BlockPlan:
-    """What one cache key of a block needs: its ops and the scope
-    variables it reads (``state_in``) and writes back (``state_out``)."""
+    """What one cache key of a block needs: its ops, the scope variables
+    it reads (``state_in``) and writes back (``state_out``), and the vars
+    each op is the last to touch (``free_after``)."""
 
-    def __init__(self, ops, state_in, state_out):
+    def __init__(self, ops, state_in, state_out, fetch_names):
         self.ops = ops
         self.state_in = state_in
         self.state_out = state_out
         # inference mode only for a block with no backward that writes
         # no scope state (see the module note)
         self.inference = not state_out and not registry.has_grad_ops(ops)
+        # an eager step frees a var after the last op that reads or
+        # writes it, as a compiled step reuses its buffer; what goes back
+        # to the scope or to the caller stays
+        keep = set(state_out) | set(fetch_names)
+        last = {}
+        for i, op in enumerate(ops):
+            for n in op.input_names() + op.output_names():
+                last[n] = i
+        self.free_after = [[] for _ in ops]
+        for n, i in last.items():
+            if n not in keep:
+                self.free_after[i].append(n)
+
+
+def _cpu_high_water(events) -> int:
+    """The largest running sum of the profiler's memory records: each
+    op's own bytes (``self_cpu_memory_usage``) and each free, taken in
+    the order they started."""
+    live = high = 0
+    for e in sorted(events, key=lambda e: e.time_range.start):
+        live += e.self_cpu_memory_usage
+        high = max(high, live)
+    return high
 
 
 class Executor:
@@ -162,9 +190,23 @@ class Executor:
                                   return_numpy)
 
     def _run_impl(self, program, feed, fetch_list, scope, return_numpy):
+        scope = scope or global_scope()
+        plan, env, fetches, seed = self._step(program, feed, fetch_list,
+                                              scope)
+        # advance the step seed even if no op drew from it
+        scope._rng_seed = registry.mix_seed(seed, 0x5EED)
+        for n in plan.state_out:
+            scope.set_var(n, env[n].detach())
+        if return_numpy:
+            with _tracing.span("fetch"):
+                return [f.cpu().numpy() for f in fetches]
+        return fetches
+
+    def _step(self, program, feed, fetch_list, scope):
+        """Run one step of ``program`` and return (plan, env, fetches,
+        seed) without touching ``scope``: the caller writes back."""
         if program is None:
             program = framework.default_main_program()
-        scope = scope or global_scope()
         fetch_names = tuple(
             v.name if isinstance(v, framework.Variable) else str(v)
             for v in (fetch_list or []))
@@ -173,8 +215,9 @@ class Executor:
         with _tracing.span("data_wait"):
             feeds = self._prepare_feed(block, dict(feed or {}))
         plan = self._ensure_plan(program, block, feeds, fetch_names, scope)
-        if scope._rng_seed is None:
-            scope._rng_seed = int(program.random_seed or 0)
+        seed = scope._rng_seed
+        if seed is None:
+            seed = int(program.random_seed or 0)
 
         env: Dict[str, Any] = {}
         for n in plan.state_in:
@@ -191,21 +234,84 @@ class Executor:
                     f"runs on {self.device}")
             env[n] = v
         env.update(feeds)
-        seed = scope._rng_seed
         mode = (torch.inference_mode() if plan.inference
                 else torch.no_grad())
         with mode, _tracing.span("device"):
             ctx = registry.EmitContext(seed=seed, device=self.device)
-            registry.emit_ops(ctx, plan.ops, env)
+            registry.emit_ops(ctx, plan.ops, env, plan.free_after)
             fetches = [env[n].detach() for n in fetch_names]
-        # advance the step seed even if no op drew from it
-        scope._rng_seed = registry.mix_seed(seed, 0x5EED)
-        for n in plan.state_out:
-            scope.set_var(n, env[n].detach())
-        if return_numpy:
-            with _tracing.span("fetch"):
-                return [f.cpu().numpy() for f in fetches]
-        return fetches
+        return plan, env, fetches, seed
+
+    def memory_analysis(self, program=None, feed=None, fetch_list=None,
+                        scope=None) -> Dict[str, int]:
+        """The memory one step of ``program`` takes, with the JAX
+        package's keys: ``argument_size_in_bytes`` (the scope state the
+        step reads, and the feeds), ``output_size_in_bytes`` (the state it
+        writes back, and the fetches), ``temp_size_in_bytes`` (the
+        step's high-water mark above what it started with, less its
+        outputs), ``alias_size_in_bytes`` and
+        ``generated_code_size_in_bytes`` (0: an eager step updates no
+        buffer in place and compiles no program), and ``peak_bytes`` =
+        arguments + outputs + temps - aliased.
+
+        Where the JAX package asks XLA's compiler for an estimate, this
+        runs one trial step and measures it; the step's state is not
+        written back and the step seed does not advance, so ``scope`` is
+        left as it was and the next ``run`` gives the loss it would have
+        given without this call.  The startup program must have run in
+        ``scope`` first (RuntimeError otherwise).  On the card the
+        high-water mark is ``torch.cuda.max_memory_allocated`` after
+        ``reset_peak_memory_stats``.  On the CPU, where torch keeps no
+        allocator statistics, it is the running sum of the
+        ``torch.profiler`` memory records (``profile_memory=True``): each
+        op's own allocations and each free, in time order; a buffer an op
+        allocates and frees inside itself falls between the records."""
+        scope = scope or global_scope()
+        fetch_list = list(fetch_list or [])
+        block = (program or framework.default_main_program()).global_block()
+        # feeds reach the device before the window: arguments, not temps
+        feed = self._prepare_feed(block, dict(feed or {}))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+            base = torch.cuda.memory_allocated(self.device)
+            torch.cuda.reset_peak_memory_stats(self.device)
+            plan, env, fetches, _ = self._step(program, feed, fetch_list,
+                                               scope)
+            torch.cuda.synchronize(self.device)
+            high = torch.cuda.max_memory_allocated(self.device) - base
+        else:
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CPU],
+                         profile_memory=True) as prof:
+                plan, env, fetches, _ = self._step(program, feed,
+                                                   fetch_list, scope)
+            high = _cpu_high_water(prof.events())
+        seen = set()
+
+        def nbytes(tensors):
+            total = 0
+            for t in tensors:
+                if isinstance(t, torch.Tensor) and id(t) not in seen:
+                    seen.add(id(t))
+                    total += t.numel() * t.element_size()
+            return total
+
+        # env holds the step's new state under the old names: the
+        # arguments are the scope's, which the step left as they were
+        args = nbytes([scope.find_var(n) for n in plan.state_in
+                       if n not in feed]) + nbytes(feed.values())
+        outs = nbytes([env[n] for n in plan.state_out]) + nbytes(fetches)
+        out = {"argument_size_in_bytes": args,
+               "output_size_in_bytes": outs,
+               "temp_size_in_bytes": max(0, high - outs),
+               "alias_size_in_bytes": 0,
+               "generated_code_size_in_bytes": 0}
+        out["peak_bytes"] = (out["argument_size_in_bytes"]
+                             + out["output_size_in_bytes"]
+                             + out["temp_size_in_bytes"]
+                             - out["alias_size_in_bytes"])
+        return out
 
     # ------------------------------------------------------------------
     def _ensure_plan(self, program, block, feeds, fetch_names, scope):
@@ -253,4 +359,4 @@ class Executor:
             n for n in dict.fromkeys(n for op in ops for n in op.output_names())
             if n in persistable or scope.find_var(n) is not None
         ]
-        return _BlockPlan(ops, state_in, state_out)
+        return _BlockPlan(ops, state_in, state_out, fetch_names)

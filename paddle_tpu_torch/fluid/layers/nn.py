@@ -295,6 +295,7 @@ def _reduce(op_type):
 
 reduce_sum = _reduce("reduce_sum")
 reduce_mean = _reduce("reduce_mean")
+reduce_max = _reduce("reduce_max")
 
 
 def mean(x, name=None):

@@ -1,5 +1,5 @@
 """Unary activation layers (reference layers/ops.py pattern), the ones
-BERT and ResNet use: tanh, gelu and relu.  Ported from the JAX package's
+BERT, ResNet and the Transformer NMT use: tanh, gelu, relu, exp and log.  Ported from the JAX package's
 ``fluid/layers/ops.py``."""
 from __future__ import annotations
 
@@ -20,6 +20,8 @@ def _unary(op_type):
 
 tanh = _unary("tanh")
 relu = _unary("relu")
+exp = _unary("exp")
+log = _unary("log")
 
 
 def gelu(x, approximate=False):

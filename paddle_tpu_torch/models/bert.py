@@ -9,8 +9,7 @@ the add+LN kernel.  ``fuse_stack=True`` builds the whole encoder as one
 ``fused_encoder_stack`` op over stacked ``encoder_stack.*`` parameters
 (the same names as the JAX package's), as its bench trains BERT.
 
-Not ported yet: ``remat_policy`` (raises at build; the other remat
-flags work) and ``moe_num_experts > 0`` (``moe_ffn``, the distributed
+Not ported yet: ``moe_num_experts > 0`` (``moe_ffn``, the distributed
 slice; raises).
 """
 from __future__ import annotations
@@ -46,7 +45,9 @@ class BertConfig:
     remat_ffn: bool = False
     remat_qkv: bool = False
     remat_layer: bool = False
-    # the JAX package's checkpoint-name policy: not ported, raises
+    # checkpoint-name policy (fuse_stack only): comma-separated tags the
+    # layer keeps ("flash" = the flash forward's o and lse), everything
+    # else recomputed (ops/encoder_stack.py)
     remat_policy: str = ""
     # one fused_encoder_stack op over stacked layer params
     fuse_stack: bool = False
@@ -191,10 +192,6 @@ def _encoder_stack(cfg: BertConfig, hidden, attn_bias, is_test: bool):
     from ..fluid.layer_helper import LayerHelper
     from ..fluid.layers.nn import _rng_salt_counter
 
-    if cfg.remat_policy:
-        raise NotImplementedError(
-            "remat_policy (checkpoint-name policies) is not ported; use "
-            "remat_ffn / remat_qkv / remat_layer (ROADMAP A5)")
     L, h, f = cfg.num_hidden_layers, cfg.hidden_size, cfg.intermediate_size
     helper = LayerHelper("fused_encoder_stack")
 

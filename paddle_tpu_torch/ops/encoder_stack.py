@@ -43,11 +43,25 @@ recomputed.  The attention's dropout draws through the flash path
 
 Remat: ``remat_ffn``, ``remat_qkv`` and ``remat_layer`` wrap the FFN, the
 q/k/v projection or the whole layer in ``torch.utils.checkpoint``
-(non-reentrant).  Not ported: ``remat_policy`` (the JAX package's
-checkpoint-name policy), the GPipe pipeline and the ring
+(non-reentrant).  ``remat_policy`` is the JAX package's checkpoint-name
+policy: comma-separated tags (``_policy_names``; "flash" is shorthand for
+``flash_o`` and ``flash_lse``).  A policy switches the three flags off and
+checkpoints each whole layer, keeping only what it names.  The flash
+kernels launch outside torch's dispatcher, where selective-checkpoint
+contexts cannot see them, so the policy lives in the layer body: on the
+BSH branch, with both ``flash_o`` and ``flash_lse`` named, the layer's
+first pass stashes the forward's o and lse (``_FlashStash``), and the
+recompute hands them to ``flash_attention_bsh(saved=...)``, which launches
+no forward and saves the same tensors as the first pass did, so the
+checkpoint's saved-tensor check holds.  The attention forward then runs
+once a layer, its backward gets q, k and v recomputed.  ``attn_out``,
+``ln1_out`` and ``ffn_inter`` are accepted and keep nothing: their
+producers run in the recompute anyway, to rebuild the autograd nodes that
+the backward needs.  The BHSD and composition branches recompute their
+attention too.  Not ported: the GPipe pipeline and the ring
 (sequence-parallel) branches; each raises NotImplementedError (ROADMAP
-A5, A10).  The decoder stack takes ``remat_ffn`` (the JAX package's
-only remat there) and raises on ``sequence_parallel``.
+A10).  The decoder stack takes ``remat_ffn`` (the JAX package's only remat
+there) and raises on ``sequence_parallel``.
 
 Encoder slots (all stacked on dim 0 = layer):
   Hidden [B,S,H], AttnBias [B,1,1,S],
@@ -152,12 +166,32 @@ def _composition(q, k, v, bias, causal, dropout):
     return torch.matmul(probs, v)
 
 
+def _policy_names(spec):
+    """Parse a remat_policy attr: comma-separated checkpoint-name tags,
+    with the shorthand 'flash' -> the kernel's saved residuals (o, lse).
+    Tags of the layer body: flash_o, flash_lse, attn_out, ln1_out,
+    ffn_inter."""
+    names = []
+    for tok in str(spec).split(","):
+        tok = tok.strip()
+        if not tok:
+            continue
+        if tok == "flash":
+            names += ["flash_o", "flash_lse"]
+        else:
+            names.append(tok)
+    return tuple(dict.fromkeys(names))
+
+
+class _FlashStash:
+    """A policy-checkpointed layer's (o, lse) of the BSH flash forward:
+    filled by the layer's first pass, read by its recompute."""
+
+    def __init__(self):
+        self.saved = None
+
+
 def _refuse_unported(attrs):
-    if str(attrs.get("remat_policy", "") or "").strip():
-        raise NotImplementedError(
-            "fused_encoder_stack remat_policy (checkpoint-name policies) is "
-            "not ported; use remat_ffn / remat_qkv / remat_layer "
-            "(ROADMAP A5)")
     for attr in ("pipeline", "sequence_parallel"):
         if attrs.get(attr, False):
             raise NotImplementedError(
@@ -179,13 +213,20 @@ def fused_encoder_stack(ctx, ins, attrs):
     use_flash = bool(attrs.get("use_flash_attention", True))
     base_seed = ctx.salted_seed(int(attrs.get("rng_salt", 0)))
     shape_only = hidden.device.type == "meta"
+    remat_policy = _policy_names(attrs.get("remat_policy", ""))
+    if remat_policy:
+        # the policy checkpoints the whole layer; the blanket flags would
+        # recompute what it keeps, so they are mutually exclusive
+        attrs = dict(attrs, remat_ffn=False, remat_qkv=False,
+                     remat_layer=False)
+    keep_flash = {"flash_o", "flash_lse"} <= set(remat_policy)
 
     def dropout(x, prob, seed):
         if is_test or prob <= 0.0 or shape_only:
             return x
         return _cheap_dropout(x, prob, seed)
 
-    def layer(hid, idx, *params):
+    def layer(hid, idx, *params, stash=None):
         p = dict(zip(_PARAM_KEYS, params))
         b, s, h = hid.shape
         dh = h // nh
@@ -217,9 +258,16 @@ def fused_encoder_stack(ctx, ins, attrs):
             q, k, v = qkv_flat(hid, p["QKVW"], p["QKVB"])
             gen = (_generator(seed_of(_ATTN), hid.device)
                    if attn_p > 0.0 and not shape_only else None)
-            ctx_l = flash_attention_bsh(q, k, v, bias, num_heads=nh,
-                                        dropout_prob=attn_p,
-                                        dropout_generator=gen)
+            attend = functools.partial(
+                flash_attention_bsh, q, k, v, bias, num_heads=nh,
+                dropout_prob=attn_p, dropout_generator=gen)
+            if stash is None:
+                ctx_l = attend()
+            elif stash.saved is None:           # the policy's first pass
+                ctx_l, lse = attend(return_lse=True)
+                stash.saved = (ctx_l.detach(), lse)
+            else:                               # its recompute
+                ctx_l = attend(saved=stash.saved)
         elif use_flash and flash_shapes_ok(s, dh):
             # streamed BHSD kernels: the biases BSH cannot hold, such as
             # a full [B, nh, S, S] one
@@ -260,7 +308,12 @@ def fused_encoder_stack(ctx, ins, attrs):
     remat_layer = bool(attrs.get("remat_layer", False))
     out = hidden
     for idx, params in enumerate(per_layer):
-        if remat_layer:
+        if remat_policy:
+            # keep what the policy names, recompute the rest
+            stash = _FlashStash() if keep_flash else None
+            out = _ckpt(functools.partial(layer, stash=stash), out, idx,
+                        *params)
+        elif remat_layer:
             # full-layer remat: keep only the hidden between layers
             out = _ckpt(layer, out, idx, *params)
         else:

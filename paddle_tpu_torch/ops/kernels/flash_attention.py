@@ -599,6 +599,14 @@ flash_attention_bsh_bwd.launches = 0
 flash_attention_bsh_bwd.launches_tc = 0
 
 
+def _bsh_backward(ctx, do):
+    q, k, v, bias, mask, o, lse = ctx.saved_tensors
+    nh, sm_scale, causal, p, seed, offset = ctx.args
+    return flash_attention_bsh_bwd(
+        q, k, v, bias, o, lse, do, nh, sm_scale, causal, p, mask=mask,
+        dropout_seed=seed, dropout_offset=offset)
+
+
 class _FlashBSH(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, bias, mask, num_heads, sm_scale, causal,
@@ -613,24 +621,42 @@ class _FlashBSH(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do, _dlse):
-        q, k, v, bias, mask, o, lse = ctx.saved_tensors
-        nh, sm_scale, causal, p, seed, offset = ctx.args
-        dq, dk, dv = flash_attention_bsh_bwd(
-            q, k, v, bias, o, lse, do, nh, sm_scale, causal, p, mask=mask,
-            dropout_seed=seed, dropout_offset=offset)
         # BiasQK: a zero cotangent on every path, as in the reference
-        return dq, dk, dv, None, None, None, None, None, None, None, None
+        return _bsh_backward(ctx, do) + (None,) * 8
+
+
+class _FlashBSHSaved(torch.autograd.Function):
+    """``_FlashBSH`` with the forward's (o, lse) handed in: launches
+    nothing, saves what ``_FlashBSH`` saves, in the same order (a
+    checkpointed layer's recompute under ``remat_policy="flash"``, whose
+    saved tensors stand in for the first pass's), and has its backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, mask, o, lse, num_heads, sm_scale,
+                causal, dropout_prob, seed, offset):
+        ctx.save_for_backward(q, k, v, bias, mask, o, lse)
+        ctx.args = (num_heads, sm_scale, causal, dropout_prob, seed, offset)
+        o, lse = o.view_as(o), lse.view_as(lse)
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        return _bsh_backward(ctx, do) + (None,) * 10
 
 
 def flash_attention_bsh(q, k, v, bias=None, num_heads=None, sm_scale=None,
                         causal=False, dropout_prob=0.0,
                         dropout_generator=None, *, mask=None,
-                        dropout_offset=0):
+                        dropout_offset=0, return_lse=False, saved=None):
     """Transpose-free attention on projection-layout tensors; returns o
     [B, Sq, H] (the JAX package's signature, without its mesh),
     differentiable in q, k and v.  Dropout keeps where ``mask`` says, else
     draws: a mask from ``dropout_generator`` on the CPU, the Philox bits
-    of its seed on the card."""
+    of its seed on the card.  ``return_lse`` returns (o, lse [B, nh, Sq]
+    f32, not differentiable).  ``saved`` = (o, lse) of an earlier call on
+    the same inputs launches no forward: the result is that o, with this
+    call's backward (``_FlashBSHSaved``)."""
     if num_heads is None:
         raise ValueError("flash_attention_bsh needs num_heads")
     if sm_scale is None:
@@ -644,9 +670,13 @@ def flash_attention_bsh(q, k, v, bias=None, num_heads=None, sm_scale=None,
         elif q.device.type == "cpu":
             mask = draw_keep_mask(q, k, num_heads, dropout_prob,
                                   dropout_generator)
-    return _FlashBSH.apply(q, k, v, bias, mask, int(num_heads),
-                           float(sm_scale), bool(causal), float(dropout_prob),
-                           seed, int(dropout_offset))[0]
+    args = (int(num_heads), float(sm_scale), bool(causal),
+            float(dropout_prob), seed, int(dropout_offset))
+    if saved is None:
+        o, lse = _FlashBSH.apply(q, k, v, bias, mask, *args)
+    else:
+        o, lse = _FlashBSHSaved.apply(q, k, v, bias, mask, *saved, *args)
+    return (o, lse) if return_lse else o
 
 
 flash_attention_bsh.launches = 0

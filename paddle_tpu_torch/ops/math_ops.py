@@ -1,5 +1,6 @@
 """Dense math ops: elementwise (with paddle axis-broadcast), the matmul
-family, the activations and softmax that BERT and ResNet use, and the
+family, the activations and softmax that BERT and ResNet use (exp and
+log for the Transformer NMT's label smoothing), and the
 clip / norm ops the optimizer's gradient clipping and regularizers emit.
 
 Parity surface: reference operators/elementwise/*, matmul_op.cc,
@@ -99,6 +100,8 @@ def _act(name, fn):
 _act("relu", lambda x, a: torch.relu(x))
 _act("tanh", lambda x, a: torch.tanh(x))
 _act("sqrt", lambda x, a: torch.sqrt(x))
+_act("exp", lambda x, a: torch.exp(x))
+_act("log", lambda x, a: torch.log(x))
 # jnp.sign keeps NaN and -0.0, where torch.sign gives 0 and +0.0; the kept
 # elements are detached, so the gradient stays zero everywhere
 _act("sign", lambda x, a: torch.where((x == 0) | torch.isnan(x), x.detach(),

@@ -1,5 +1,5 @@
-"""Reductions: reduce_sum / reduce_mean with attrs dim / keep_dim /
-reduce_all, and the whole-tensor ``mean``.  Parity surface: reference
+"""Reductions: reduce_sum / reduce_mean / reduce_max with attrs dim /
+keep_dim / reduce_all, and the whole-tensor ``mean``.  Parity surface: reference
 operators/reduce_ops/, mean_op.cc; ported from the JAX package's
 ``ops/reduce_ops.py``."""
 from __future__ import annotations
@@ -45,6 +45,9 @@ def _reduce(name, fn, float_out=False):
 
 _reduce("reduce_sum", torch.sum)
 _reduce("reduce_mean", torch.mean, float_out=True)
+# amax, not max(x, dim): where values tie, it splits the gradient evenly
+# between them, as jnp.max's VJP does
+_reduce("reduce_max", torch.amax)
 
 
 @register("mean")

@@ -244,9 +244,12 @@ def has_grad_ops(ops) -> bool:
     return any(op.type.endswith("_grad") for op in ops)
 
 
-def emit_ops(ctx: EmitContext, ops, env: Dict[str, Any]) -> Dict[str, Any]:
+def emit_ops(ctx: EmitContext, ops, env: Dict[str, Any],
+             free_after=None) -> Dict[str, Any]:
     """Run a list of framework Operators.  ``env`` maps var name ->
     tensor and is updated in place (op outputs land there).
+    ``free_after[i]`` (optional) names the vars to drop from ``env`` once
+    op i has run: no later op touches them, so their memory can go.
 
     The caller runs the list under ``torch.no_grad()`` (or inference
     mode when it holds no grad op); autograd is switched on here only for
@@ -260,7 +263,7 @@ def emit_ops(ctx: EmitContext, ops, env: Dict[str, Any]) -> Dict[str, Any]:
                 k = _fwd_key_from_grad(op)
                 wanted[k] = wanted.get(k, 0) + 1
 
-    for op in ops:
+    for i, op in enumerate(ops):
         spec = get(op.type)
         if spec is None:
             raise KeyError(f"op {op.type!r} has no registered emitter")
@@ -298,6 +301,8 @@ def emit_ops(ctx: EmitContext, ops, env: Dict[str, Any]) -> Dict[str, Any]:
                 continue
             for n, v in zip(names, vals):
                 env[n] = v
+        for n in (free_after[i] if free_after is not None else ()):
+            env.pop(n, None)
     return env
 
 

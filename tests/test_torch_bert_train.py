@@ -16,7 +16,9 @@ widths (head dim 8: the attention's composition branch in both
 packages) and hidden 128 as 2 heads of 64 at S = 128, where the JAX side
 runs its Pallas flash and LayerNorm kernels in interpret mode
 (``FORCE_PALLAS``) and the port takes the flash branch (its kernels'
-plain versions, checked by counting the autograd Function's calls).
+plain versions, checked by counting the autograd Function's calls); and
+``fuse_stack`` in f32 under ``remat_policy="flash"`` at both widths, the
+JAX package's checkpoint-name policy against the port's.
 """
 from __future__ import annotations
 
@@ -50,11 +52,12 @@ CASES = [("tiny", False, False), ("tiny", True, False), ("tiny", False, True),
          ("d64_s128", False, False), ("d64_s128", True, True)]
 
 
-def _build(fluid, nn, bert, mp, width, fuse, amp):
+def _build(fluid, nn, bert, mp, width, fuse, amp, **extra):
     kw, b, s, mpn = WIDTHS[width]
     nn._rng_salt_counter[0] = 0
     cfg = bert.BertConfig(**kw, hidden_dropout_prob=0.0,
-                          attention_probs_dropout_prob=0.0, fuse_stack=fuse)
+                          attention_probs_dropout_prob=0.0, fuse_stack=fuse,
+                          **extra)
     main, startup = fluid.Program(), fluid.Program()
     with fluid.unique_name.guard():
         m, st, _, loss = bert.build_bert_pretrain_program(
@@ -77,8 +80,23 @@ def _ops(program):
                               f"{'bf16' if a else 'f32'}"
                               for w, f, a in CASES])
 def test_train_loss_trace_matches_jax(width, fuse, amp, monkeypatch):
-    jc, jm, js, jl = _build(jfluid, jnn, jbert, jmp, width, fuse, amp)
-    tc, tm, ts, tl = _build(tfluid, tnn, tbert, tmp, width, fuse, amp)
+    _check_trace(width, fuse, amp, monkeypatch)
+
+
+@pytest.mark.parametrize("width", sorted(WIDTHS))
+def test_remat_policy_loss_trace_matches_jax(width, monkeypatch):
+    """``remat_policy="flash"`` on the fused stack: the JAX package's
+    checkpoint-name policy against the port's stash of the flash
+    forward's o and lse; the flash forward still runs once a layer a
+    step."""
+    _check_trace(width, True, False, monkeypatch, remat_policy="flash")
+
+
+def _check_trace(width, fuse, amp, monkeypatch, **extra):
+    jc, jm, js, jl = _build(jfluid, jnn, jbert, jmp, width, fuse, amp,
+                            **extra)
+    tc, tm, ts, tl = _build(tfluid, tnn, tbert, tmp, width, fuse, amp,
+                            **extra)
     assert _ops(tm) == _ops(jm)
     assert sorted(tm.global_block().vars) == sorted(jm.global_block().vars)
     if fuse:

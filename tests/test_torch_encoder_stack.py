@@ -7,8 +7,11 @@ where both packages take the BSH flash branch (the JAX package's Pallas
 kernels in interpret mode under ``FORCE_PALLAS``, the port's flash and
 LayerNorm kernels' plain versions through their autograd Functions); and
 hidden 32 as 4 heads of 8 (the composition branch in both).  Each runs
-without remat and with ``remat_ffn``, ``remat_qkv`` and ``remat_layer``,
-whose recompute must not change a number.  The gradients are pulled back
+without remat, with ``remat_ffn``, ``remat_qkv`` and ``remat_layer``, and
+with ``remat_policy`` "flash" and "flash,ln1_out,attn_out" (the JAX
+package's checkpoint-name policy, the same attrs on both sides), whose
+recompute must not change a number; under a policy that keeps o and lse
+the flash forward runs once a layer.  The gradients are pulled back
 from one random cotangent of Out (JAX: ``jax.vjp`` of the emitter; the
 port: ``torch.autograd``).
 
@@ -37,7 +40,11 @@ CONFIGS = {"bsh_h128_s128": (2, 128, 128, 2, 256, 2),
            "composition_h32": (2, 16, 32, 4, 64, 2)}
 REMAT = {"none": {}, "remat_ffn": {"remat_ffn": True},
          "remat_qkv": {"remat_qkv": True},
-         "remat_layer": {"remat_layer": True}}
+         "remat_layer": {"remat_layer": True},
+         # a policy switches the blanket flags off: the layer keeps the
+         # flash forward's o and lse and recomputes the rest
+         "policy_flash": {"remat_policy": "flash", "remat_layer": True},
+         "policy_flash_ln1_attn": {"remat_policy": "flash,ln1_out,attn_out"}}
 
 
 def _inputs(config, seed=0):
@@ -103,12 +110,18 @@ def test_stack_forward_and_grads_match_jax(config, remat, monkeypatch):
     real = fa._FlashBSH.apply
     monkeypatch.setattr(fa._FlashBSH, "apply",
                         lambda *a: calls.append(1) or real(*a))
+    saved = []
+    real_saved = fa._FlashBSHSaved.apply
+    monkeypatch.setattr(fa._FlashBSHSaved, "apply",
+                        lambda *a: saved.append(1) or real_saved(*a))
     out_t, g_t = _torch(ins, cot, attrs)
     layers = CONFIGS[config][-1]
     want_calls = layers if config.startswith("bsh") else 0
     if remat == "remat_layer" and want_calls:
         want_calls *= 2  # the recompute runs the forward again
     assert len(calls) == want_calls
+    # the policy's recompute reads the stashed o and lse instead
+    assert len(saved) == (want_calls if remat.startswith("policy") else 0)
     np.testing.assert_allclose(out_t, out_j, atol=ATOL, rtol=0)
     assert sorted(g_t) == sorted(KEYS + ("Hidden",))
     for k, g in g_t.items():
@@ -117,15 +130,11 @@ def test_stack_forward_and_grads_match_jax(config, remat, monkeypatch):
                                    err_msg=k)
 
 
-@pytest.mark.parametrize("config", sorted(CONFIGS))
-def test_remat_recompute_draws_the_same_dropout(config):
-    """With dropout on, a checkpointed layer's recompute draws the same
-    bits: the layer's generators are made inside it from (salted seed,
-    layer index)."""
+def _same_dropout(config, remat):
     ins, cot, attrs = _inputs(config, seed=1)
     attrs.update(dropout_prob=0.2, attn_dropout_prob=0.2)
     out0, g0 = _torch(ins, cot, attrs, seed=7)
-    out1, g1 = _torch(ins, cot, dict(attrs, remat_layer=True), seed=7)
+    out1, g1 = _torch(ins, cot, dict(attrs, **REMAT[remat]), seed=7)
     out2, _ = _torch(ins, cot, attrs, seed=8)
     np.testing.assert_array_equal(out0, out1)
     for k in g0:
@@ -134,6 +143,22 @@ def test_remat_recompute_draws_the_same_dropout(config):
     no_drop, _ = _torch(ins, cot, dict(attrs, dropout_prob=0.0,
                                        attn_dropout_prob=0.0))
     assert not np.allclose(out0, no_drop)
+
+
+@pytest.mark.parametrize("config", sorted(CONFIGS))
+def test_remat_recompute_draws_the_same_dropout(config):
+    """With dropout on, a checkpointed layer's recompute draws the same
+    bits: the layer's generators are made inside it from (salted seed,
+    layer index)."""
+    _same_dropout(config, "remat_layer")
+
+
+@pytest.mark.parametrize("remat", ["policy_flash", "policy_flash_ln1_attn"])
+@pytest.mark.parametrize("config", sorted(CONFIGS))
+def test_remat_policy_draws_the_same_dropout(config, remat):
+    """The same under a ``remat_policy``: out and every gradient equal
+    the no-remat run's bit for bit, the stashed o and lse included."""
+    _same_dropout(config, remat)
 
 
 def test_cheap_dropout_rescales_by_the_quantized_keep():
@@ -148,10 +173,9 @@ def test_cheap_dropout_rescales_by_the_quantized_keep():
     assert torch.equal(y, _cheap_dropout(x, 0.1, seed=3))
 
 
-@pytest.mark.parametrize("attrs", [{"remat_policy": "flash"},
-                                   {"pipeline": True},
+@pytest.mark.parametrize("attrs", [{"pipeline": True},
                                    {"sequence_parallel": True}],
-                         ids=["remat_policy", "pipeline", "ring"])
+                         ids=["pipeline", "ring"])
 def test_unported_branches_raise(attrs):
     ins, cot, base = _inputs("composition_h32")
     with pytest.raises(NotImplementedError):

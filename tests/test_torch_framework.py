@@ -138,6 +138,27 @@ def _bf16(*shape):
     return _Bf16(_f(*shape))
 
 
+# ties, rows of -inf, NaN, integers, bf16, keep_dim and reduce_all
+_TIES = np.array([[1.0, 3.0, 3.0, -2.0], [-np.inf] * 4, [0.5, np.nan, 2.0,
+                                                         2.0]], np.float32)
+_MAX_CASES = {
+    "ties_dim1": (_TIES, {"dim": [1]}),
+    "ties_dim0_keep": (_TIES, {"dim": [0], "keep_dim": True}),
+    "neg_dim": (_f(2, 3, 4), {"dim": [-1], "keep_dim": True}),
+    "all": (_f(3, 4), {"reduce_all": True}),
+    "all_keep": (_f(2, 3), {"reduce_all": True, "keep_dim": True}),
+    "int": (np.array([[3, -7, 3], [-1, -9, -1]], np.int32), {"dim": [1]}),
+    "bf16": (_bf16(4, 8), {"dim": [1]}),
+}
+_UNARY_CASES = {
+    "f32": np.array([[-3.0, -0.0, 0.0, 0.5], [2.0, np.nan, np.inf,
+                                             -np.inf]], np.float32),
+    "rand": np.abs(_f(3, 5)) + 0.1,
+    "int": np.array([0, 1, 3, -2], np.int32),
+    "bf16": _bf16(3, 4),
+}
+
+
 EMIT = {
     "elementwise_add_axis": ("elementwise_add",
                              {"X": _f(2, 3, 4), "Y": _f(3)}, {"axis": 1}),
@@ -295,6 +316,11 @@ EMIT = {
         [3e9, -3e9, np.nan, 300.7, -300.7, 2.5, -2.5, np.inf, -np.inf],
         np.float32)}, {"out_dtype": np.dtype(dt)})
        for dt in ("int8", "int16", "int32", "int64", "uint8")},
+    # the Transformer NMT's label-smoothing chain: reduce_max, exp, log
+    **{f"reduce_max_{k}": ("reduce_max", {"X": x}, a)
+       for k, (x, a) in _MAX_CASES.items()},
+    **{f"{op}_{k}": (op, {"X": x}, {})
+       for op in ("exp", "log") for k, x in _UNARY_CASES.items()},
 }
 
 
@@ -324,6 +350,9 @@ def test_emitter_matches_jax(name):
         for a, b in zip(j[slot], t[slot]):
             a = np.asarray(a)
             assert tuple(b.shape) == a.shape, slot
+            if b.dtype == torch.bfloat16:  # numpy has no bf16 of its own
+                assert a.dtype == jnp.bfloat16, slot
+                a, b = a.astype(np.float32), b.float()
             assert tdtypes.from_torch_dtype(b.dtype) == a.dtype, slot
             np.testing.assert_allclose(b.numpy(), a, atol=tol, rtol=0)
 
@@ -333,7 +362,9 @@ def test_emitter_matches_jax(name):
                                   "fill_constant_int64", "reduce_sum_int",
                                   "cast_int64_narrows", "reduce_sum_uint8",
                                   "gather_axis1_fill", "cast_saturate_int8",
-                                  "lookup_table_v2_past_table"])
+                                  "lookup_table_v2_past_table",
+                                  "reduce_max_all_keep", "reduce_max_int",
+                                  "exp_int", "log_f32"])
 def test_shape_inference_matches_jax(name):
     op, ins, attrs = EMIT[name]
     metas = {k: [(a.shape, a.dtype) for a in v]
@@ -364,6 +395,34 @@ def test_clip_gradient_matches_jax_vjp(bounds):
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(out),
                                atol=0, rtol=0)
     np.testing.assert_allclose(xt.grad.numpy(), want, atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("case", ["reduce_max_ties_dim1",
+                                  "reduce_max_ties_dim0_keep",
+                                  "reduce_max_all", "reduce_max_neg_dim",
+                                  "exp_f32", "log_f32", "log_rand"])
+def test_max_exp_log_gradients_match_jax_vjp(case):
+    """The gradients of reduce_max (split evenly between tied maxima, NaN
+    over a row whose max is NaN, even over a row of -inf), exp and log
+    (infinities and NaN included) against jax.vjp of the JAX emitters."""
+    op, ins, attrs = EMIT[case]
+    x = ins["X"]
+
+    def jfn(a):
+        return jreg.get(op).emit(jreg.EmitContext(), {"X": [a]},
+                                 dict(attrs))["Out"][0]
+
+    out, vjp = jax.vjp(jfn, jnp.asarray(x))
+    g = np.random.default_rng(3).standard_normal(out.shape).astype(
+        np.float32)
+    want = np.asarray(vjp(jnp.asarray(g))[0])
+    xt = torch.as_tensor(x).requires_grad_()
+    got = treg.get(op).emit(treg.EmitContext(), {"X": [xt]},
+                            dict(attrs))["Out"][0]
+    got.backward(torch.as_tensor(g))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(out),
+                               atol=TOL, rtol=0)
+    np.testing.assert_allclose(xt.grad.numpy(), want, atol=TOL, rtol=1e-6)
 
 
 def test_sign_keeps_negative_zero_and_has_a_zero_gradient():
@@ -542,6 +601,44 @@ def test_executor_step_seed_advances_and_repeats():
     np.testing.assert_array_equal(a[0], b[0])
     np.testing.assert_array_equal(a[1], b[1])
     assert not np.array_equal(a[0], a[1])
+
+
+def test_executor_frees_each_var_after_its_last_use():
+    """A training step drops every var from its env after the last op
+    that reads or writes it, and keeps what goes back to the scope and
+    what is fetched; the fetched values are those of a run that frees
+    nothing."""
+    main, startup = tfluid.Program(), tfluid.Program()
+    with tfluid.unique_name.guard(), tfluid.program_guard(main, startup):
+        x = tnn.fc(tfluid.layers.data("x", [4, 8], "float32",
+                                      append_batch_size=False), 16)
+        h = tfluid.layers.relu(x)
+        loss = tnn.reduce_mean(tnn.fc(h, 1))
+        tfluid.optimizer.AdamOptimizer(1e-2).minimize(loss)
+    exe, scope = tfluid.Executor(device="cpu"), tfluid.Scope()
+    exe.run(startup, scope=scope)
+    feed = {"x": np.random.default_rng(0).standard_normal(
+        (4, 8)).astype(np.float32)}
+    plan, env, fetches, _ = exe._step(main, feed, [loss, h], scope)
+    kept = set(plan.state_out) | {loss.name, h.name}
+    touched = {n for op in plan.ops
+               for n in op.input_names() + op.output_names()}
+    assert set(env) == kept | (set(feed) - touched)
+    freed = {n for names in plan.free_after for n in names}
+    assert freed == touched - kept
+    assert x.name in freed and h.name not in freed
+    ops = plan.ops
+    for i, names in enumerate(plan.free_after):
+        for n in names:
+            assert not any(n in op.input_names() + op.output_names()
+                           for op in ops[i + 1:]), n
+    ctx = treg.EmitContext(seed=scope._rng_seed or 0, device="cpu")
+    full = {n: scope.find_var(n) for n in plan.state_in if n not in feed}
+    full.update({k: torch.as_tensor(v) for k, v in feed.items()})
+    with torch.no_grad():
+        treg.emit_ops(ctx, ops, full)
+    for got, name in zip(fetches, (loss.name, h.name)):
+        assert torch.equal(got, full[name].detach()), name
 
 
 def test_scope_from_numpy_narrows_to_runtime_dtypes():
