@@ -90,6 +90,23 @@ prints no result):
   bert_parity  the frozen BERT-base on the card (kernels) against the
                same model and weights on the CPU (plain versions) on a
                2 x 128 padded batch, TF32 off, then once with TF32 on
+  serve        the RPC replica (inference/server.py): BERT-base (f32,
+               seed-0 startup) saved by fluid.io.save_inference_model;
+               ``python -m paddle_tpu_torch.inference.server --model_dir D``
+               as a subprocess answers 8 infer requests of 1-4 x 512,
+               health and model_info, then drains and exits 0 on SIGTERM;
+               an in-process replica (serve() over load_frozen(D), with a
+               GenerationEngine over the GPT-2-small decoder attached) in
+               three windows: 32 infer requests (1-4 x 512) from 4 client
+               threads alone; the same beside 8 greedy generate requests
+               (4 streamed) submitted in order; 8 + 4 under torch.profiler
+               (device idle share); every infer reply within 1e-5 of the
+               direct predictor on the same rows padded to 8, every
+               generation equal token for token to a direct engine run,
+               rows 4 / 2 / 1 launched exactly 12 / 25 a batch and 12 a
+               decode step, no error or shed reply; client p50/p99, batch
+               and request ms, rows a batch, TTFT and decode tokens/s
+               through the replica beside the direct runs
   bert_profile torch.profiler over 5 Predictor runs: device busy time by
                kernel and the device's idle share
   bert_train   BERT-base pretraining (MLM + NSP) as the JAX package's bench
@@ -2681,6 +2698,478 @@ def phase_bert_profile(torch, infer: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# serve: the RPC replica (inference/server.py) over a saved BERT-base, and
+# the decoder's generate verb through it
+# ---------------------------------------------------------------------------
+
+SERVE_LIMIT = 1e-5      # a served infer reply vs the direct predictor, f32
+SERVE_MAX_BATCH = 8
+SERVE_FEEDS = ("input_ids", "token_type_ids", "position_ids", "input_mask")
+
+
+def _serve_save_bert(model_dir: str):
+    """BERT-base's infer program (f32, seed-0 startup on the card) saved
+    by ``fluid.io.save_inference_model``: returns (cfg, fetch names,
+    seconds to save)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.BertConfig.base()
+    main, startup, seq, pooled = _bert_program(cfg, SERVE_MAX_BATCH, 512)
+    scope, exe = fluid.Scope(), fluid.Executor()  # device=None: the card
+    exe.run(startup, scope=scope)
+    t0 = time.perf_counter()
+    with fluid.scope_guard(scope):
+        fetch = fluid.io.save_inference_model(
+            model_dir, list(SERVE_FEEDS), [seq, pooled], exe,
+            main_program=main)
+    return cfg, fetch, time.perf_counter() - t0
+
+
+def _serve_requests(cfg, n: int, seed: int) -> list:
+    """n infer requests of 1-4 sequences x 512 (lengths 128-512)."""
+    rng = np.random.default_rng(seed)
+    return [_bert_batch(rng, cfg, int(rng.integers(1, 5)), 512, 128)
+            for _ in range(n)]
+
+
+def _pad_rows(feed: dict, rows: int) -> dict:
+    """``feed`` padded with zero rows to ``rows``, as the batcher pads."""
+    return {k: np.concatenate([v, np.zeros((rows - len(v),) + v.shape[1:],
+                                           v.dtype)])
+            for k, v in feed.items()}
+
+
+def _serve_diff(replies, direct) -> float:
+    """Largest |served - direct| over every fetch of every request."""
+    worst = 0.0
+    for got, want in zip(replies, direct):
+        for g, w in zip(got, want):
+            if g.shape != w.shape or not np.isfinite(g).all():
+                fail(f"a served fetch has shape {g.shape} (want {w.shape}) "
+                     f"or non-finite values")
+            worst = max(worst, float(np.abs(g - w).max()))
+    return worst
+
+
+def _pcts(xs) -> dict:
+    return {"p50": float(np.percentile(xs, 50)),
+            "p99": float(np.percentile(xs, 99)), "n": len(xs)}
+
+
+def _serve_cli_replica(model_dir: str, reqs: list, fetch: list) -> dict:
+    """``python -m paddle_tpu_torch.inference.server`` as a subprocess:
+    its ``listening on`` line, 8 infer requests from 4 client threads,
+    health and model_info, then SIGTERM: it must drain and exit 0."""
+    import queue
+    import signal
+    import tempfile
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from paddle_tpu_torch.inference.client import InferenceClient
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (root, env.get("PYTHONPATH")) if p)
+    err = tempfile.TemporaryFile()
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.inference.server",
+         "--model_dir", model_dir, "--port", "0", "--host", "127.0.0.1",
+         "--max_batch", str(SERVE_MAX_BATCH)],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=err, text=True)
+    lines: "queue.Queue[str]" = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(x) for x in proc.stdout],
+                     daemon=True).start()
+
+    def tail() -> str:
+        err.seek(0)
+        return err.read().decode(errors="replace")[-3000:]
+
+    try:
+        ep, deadline = None, time.monotonic() + 300
+        while ep is None:
+            try:
+                line = lines.get(timeout=1.0)
+            except queue.Empty:
+                if proc.poll() is not None or time.monotonic() > deadline:
+                    fail(f"the CLI replica never printed 'listening on' "
+                         f"(rc {proc.poll()}): {tail()}")
+                continue
+            if "listening on" in line:
+                ep = line.rsplit(" ", 1)[1].strip()
+        ready_s = time.perf_counter() - t0
+        cli = InferenceClient([ep], deadline_secs=300)
+
+        def one(feed):
+            t = time.perf_counter()
+            res = cli.infer(feed, deadline_ms=300000)
+            return res.outputs, (time.perf_counter() - t) * 1e3
+
+        with ThreadPoolExecutor(4) as pool:
+            got = list(pool.map(one, reqs))
+        health, info = cli.health(), cli.model_info()
+        served = cli.stats()["serving"]
+        cli.close()
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            fail(f"the CLI replica did not exit within 120 s of SIGTERM: "
+                 f"{tail()}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if rc != 0:
+        fail(f"the CLI replica exited {rc} after SIGTERM: {tail()}")
+    if not health.get("ok") or sorted(info["feeds"]) != sorted(SERVE_FEEDS) \
+            or list(info["fetches"]) != list(fetch):
+        fail(f"the CLI replica's health {health} or model_info {info}")
+    if served["error_total"] or served["shed_total"] \
+            or served["served_total"] != len(reqs):
+        fail(f"the CLI replica's books: {served}")
+    if "SIGTERM: draining" not in tail():
+        fail(f"the CLI replica exited without draining: {tail()}")
+    return {"endpoint": ep, "ready_s": ready_s, "rc": rc,
+            "outputs": [g[0] for g in got],
+            "client_ms": [g[1] for g in got],
+            "batches": served["batches_total"],
+            "num_ops": info["num_ops"]}
+
+
+def phase_serve(torch, card: str, dec_cfg) -> dict:
+    """The RPC replica: a BERT-base export served by the CLI replica and
+    by an in-process replica that also answers generate, every reply held
+    against the direct predictor or engine, the kernels' launches exact."""
+    import shutil
+    import tempfile
+    import threading
+
+    from paddle_tpu_torch.distributed.ps_server import _Conn
+    from paddle_tpu_torch.inference import (GenerationEngine, TinyDecoderLM,
+                                            ServingPredictor, load_frozen)
+    from paddle_tpu_torch.inference import server as srv_mod
+    from paddle_tpu_torch.inference.client import InferenceClient
+    from paddle_tpu_torch.ops.kernels import add_ln
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+    from paddle_tpu_torch.telemetry import get_registry
+
+    reg = get_registry()
+    model_dir = tempfile.mkdtemp(prefix="serve_bert_")
+    try:
+        cfg, fetch, save_s = _serve_save_bert(model_dir)
+        disk_mb = sum(os.path.getsize(os.path.join(model_dir, f))
+                      for f in os.listdir(model_dir)) / 2 ** 20
+        reqs = _serve_requests(cfg, 32, seed=0)
+        ref = ServingPredictor(load_frozen(model_dir))
+        ref.run(_pad_rows(reqs[0], SERVE_MAX_BATCH))   # warm
+        direct, direct_ms = [], []
+        for feed in reqs:
+            t = time.perf_counter()
+            outs = ref.run(_pad_rows(feed, SERVE_MAX_BATCH))
+            direct_ms.append((time.perf_counter() - t) * 1e3)
+            direct.append([o[:len(feed["input_ids"])] for o in outs])
+
+        cli_rep = _serve_cli_replica(model_dir, reqs[:8], fetch)
+        cli_diff = _serve_diff(cli_rep["outputs"], direct[:8])
+        if not cli_diff <= SERVE_LIMIT:
+            fail(f"the CLI replica's infer replies differ from the direct "
+                 f"predictor by {cli_diff} > {SERVE_LIMIT}")
+
+        # the direct engine run: the same seed-0 decoder and 8 greedy
+        # requests submitted in order
+        prompts = _engine_traffic(np.random.default_rng(0), dec_cfg.vocab)
+        new_tokens = 64
+        model = TinyDecoderLM(dec_cfg, seed=0)       # device=None: the card
+        geom = dict(max_slots=8, page_size=16, n_pages=513)
+        # warm cuBLAS at these prompts' prefill shapes on a throwaway
+        # engine, so neither measured run pays a cold start
+        eng = GenerationEngine(model, **geom)
+        for r in [eng.submit(p, max_new_tokens=2) for p in prompts]:
+            eng.result(r, timeout=900)
+        eng.stop()
+        step_h = reg.histogram("serve_decode_step_ms")
+        h0 = step_h.sum
+        eng = GenerationEngine(model, **geom)
+        t0 = time.perf_counter()
+        dreqs = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts]
+        dreps = [eng.result(r, timeout=900) for r in dreqs]
+        direct_gen_s = time.perf_counter() - t0
+        dc = dict(eng.counters)
+        eng.stop()
+        direct_step_ms = step_h.sum - h0
+
+        # the in-process replica: both paths, counters set to 0 just
+        # before it is driven
+        frozen = load_frozen(model_dir)
+        eng = GenerationEngine(model, **geom)
+        order = []
+        submit = eng.submit
+
+        def submit_in_order(*a, **kw):
+            req = submit(*a, **kw)
+            order.append(req)
+            return req
+
+        eng.submit = submit_in_order
+        ready = threading.Event()
+        addr = {}
+
+        def on_ready(a):
+            addr["ep"] = f"127.0.0.1:{a[1]}"
+            ready.set()
+
+        serve_err = []
+
+        def run_server():
+            try:
+                srv_mod.serve(frozen, port=0, host="127.0.0.1",
+                              ready_cb=on_ready, max_batch=SERVE_MAX_BATCH,
+                              engine=eng)
+            except BaseException as e:  # noqa: BLE001 — reported below
+                serve_err.append(f"{type(e).__name__}: {e}")
+                ready.set()
+
+        server = threading.Thread(target=run_server, daemon=True)
+        server.start()
+        if not ready.wait(300) or serve_err:
+            fail(f"the in-process replica did not start: {serve_err}")
+        ep = addr["ep"]
+        inf = srv_mod._ACTIVE
+        batch_ms = []
+        run = inf.predictor.run
+
+        def timed_run(feed):
+            t = time.perf_counter()
+            try:
+                return run(feed)
+            finally:
+                batch_ms.append((time.perf_counter() - t) * 1e3)
+
+        inf.predictor.run = timed_run
+        torch.cuda.synchronize()
+        b0 = reg.counter("serve_batches_total").value
+        r0 = reg.counter("serve_batch_rows_total").value
+        fa.flash_attention_bsh.launches = 0
+        fa.flash_attention_bsh.launches_tc = 0
+        add_ln.fused_add_ln.launches = 0
+        pa.paged_attention.launches = 0
+
+        errors = []
+
+        def infer_threads(idx, n_threads=4):
+            """Threads sending reqs[i] for i in idx from n_threads
+            clients; (threads, {i: outputs}, {i: client ms})."""
+            outs, ms = {}, {}
+
+            def worker(part):
+                c = InferenceClient([ep], deadline_secs=300)
+                try:
+                    for i in part:
+                        t1 = time.perf_counter()
+                        res = c.infer(reqs[i], deadline_ms=300000)
+                        ms[i] = (time.perf_counter() - t1) * 1e3
+                        outs[i] = res.outputs
+                except BaseException as e:  # noqa: BLE001
+                    errors.append(f"infer: {type(e).__name__}: {e}")
+                finally:
+                    c.close()
+
+            return ([threading.Thread(target=worker,
+                                      args=(idx[t::n_threads],))
+                     for t in range(n_threads)], outs, ms)
+
+        def gen_worker(i, n_new, out):
+            c = InferenceClient([ep], deadline_secs=600)
+            try:
+                if i % 2:
+                    timings, toks = {}, []
+                    for chunk in c.generate_stream(
+                            prompts[i], max_new_tokens=n_new,
+                            timings=timings):
+                        toks.extend(chunk)
+                    out[i] = {"tokens": toks, "stream": True,
+                              "ttft_ms_client": timings["ttft_ms"]}
+                else:
+                    res = c.generate(prompts[i], max_new_tokens=n_new)
+                    out[i] = {"tokens": res.tokens, "stream": False,
+                              "ttft_ms": res.ttft_ms}
+            except BaseException as e:  # noqa: BLE001
+                errors.append(f"generate {i}: {type(e).__name__}: {e}")
+            finally:
+                c.close()
+
+        def window(name, idx, gen_idx=(), n_new=new_tokens):
+            """Drive reqs[idx] and, submitted in order after them, the
+            generate requests gen_idx; returns the window's record."""
+            nb0 = len(batch_ms)
+            b1 = reg.counter("serve_batches_total").value
+            r1 = reg.counter("serve_batch_rows_total").value
+            s1, d1 = step_h.sum, eng.counters["decode_positions"]
+            threads, outs, ms = infer_threads(list(idx))
+            gen_out, n_order = {}, len(order)
+            t0 = time.perf_counter()
+            for th in threads:
+                th.start()
+            # one thread submits the generate requests in order: each
+            # next one only after the engine took the last
+            for k, i in enumerate(gen_idx):
+                th = threading.Thread(target=gen_worker,
+                                      args=(i, n_new, gen_out))
+                th.start()
+                threads.append(th)
+                limit = time.monotonic() + 60
+                while len(order) <= n_order + k and not errors \
+                        and time.monotonic() < limit:
+                    time.sleep(0.0005)
+                if len(order) <= n_order + k:
+                    fail(f"generate request {i} never reached the "
+                         f"engine: {errors}")
+            done = sum(r.event.is_set() for r in order[n_order:])
+            for th in threads:
+                th.join(900)
+            rec = {"window": name, "wall_s": time.perf_counter() - t0,
+                   "infer_requests": len(idx),
+                   "generate_requests": len(gen_idx)}
+            if idx:
+                nb = reg.counter("serve_batches_total").value - b1
+                rec.update(
+                    batches=nb, rows_per_batch=(
+                        reg.counter("serve_batch_rows_total").value - r1)
+                    / max(1, nb),
+                    client_ms=_pcts(list(ms.values())),
+                    serve_batch_ms_exact=_pcts(batch_ms[nb0:]))
+            if gen_idx:
+                rec.update(done_at_last_submit=done,
+                           decode_tokens_per_s=(
+                               eng.counters["decode_positions"] - d1)
+                           / ((step_h.sum - s1) / 1e3))
+            return rec, outs, gen_out
+
+        # 1: infer alone through the replica; 2: infer beside the 8
+        # generate requests (the run held against the direct engine);
+        # 3: a short mixed replay under torch.profiler
+        alone, alone_out, _ = window("infer_alone", range(len(reqs)))
+        mixed, infer_out, gen_out = window("mixed", range(len(reqs)),
+                                           range(len(prompts)))
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            prof_rec, prof_out, _ = window("profiled", range(8), range(4),
+                                           n_new=16)
+            torch.cuda.synchronize()
+        rows_dev = _device_rows(torch, prof)
+        busy_ms = sum(r[0] for r in rows_dev)
+        prof_rec.update(device_busy_ms=busy_ms, device_idle_share=max(
+            0.0, 1 - busy_ms / (prof_rec["wall_s"] * 1e3)),
+            top_kernels=[{"ms": ms, "calls": n, "name": k[:90]}
+                         for ms, n, k in rows_dev[:10]])
+        torch.cuda.synchronize()
+        launches = {"flash": fa.flash_attention_bsh.launches,
+                    "flash_tc": fa.flash_attention_bsh.launches_tc,
+                    "ln": add_ln.fused_add_ln.launches,
+                    "paged": pa.paged_attention.launches}
+        batches = reg.counter("serve_batches_total").value - b0
+        rows = reg.counter("serve_batch_rows_total").value - r0
+        sc = dict(eng.counters)
+        cli = InferenceClient([ep], deadline_secs=60)
+        stats = cli.stats()
+        health = cli.health()
+        cli.close()
+        ctl = _Conn(ep, deadline=60.0)
+        drained = ctl.call("drain", timeout=60.0)
+        ctl.call("shutdown")
+        ctl.close()
+        server.join(120)
+        if server.is_alive() or serve_err:
+            fail(f"the in-process replica did not shut down: {serve_err}")
+    finally:
+        shutil.rmtree(model_dir, ignore_errors=True)
+
+    if errors:
+        fail(f"error replies from the in-process replica: {errors[:4]}")
+    serving = stats["serving"]
+    if serving["error_total"] or serving["shed_total"] \
+            or serving["deadline_exceeded_total"]:
+        fail(f"the replica's books: {serving}")
+    if not drained.get("drained") or not health.get("ok"):
+        fail(f"drain {drained}, health {health}")
+    infer_diff = max(
+        _serve_diff([o[i] for i in sorted(o)], [direct[i] for i in sorted(o)])
+        for o in (alone_out, infer_out, prof_out))
+    if not infer_diff <= SERVE_LIMIT:
+        fail(f"served infer replies differ from the direct predictor by "
+             f"{infer_diff} > {SERVE_LIMIT}")
+    prefix = []
+    for i, want in enumerate(dreps):
+        a, b = gen_out[i]["tokens"], want["tokens"]
+        n = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y),
+                 min(len(a), len(b)))
+        prefix.append(n)
+        if a != b:
+            fail(f"generate request {i} through the replica differs from "
+                 f"the direct engine after {n} of {len(b)} tokens")
+    layers = cfg.num_hidden_layers
+    want = {"flash": batches * layers, "flash_tc": 0,
+            "ln": batches * (2 * layers + 1),
+            "paged": sc["decode_steps"] * dec_cfg.n_layers}
+    if launches != want:
+        fail(f"launches in the served run {launches}, want {want} "
+             f"({batches} infer batches, {sc['decode_steps']} decode steps)")
+    if sc["served"] != len(prompts) + 4 \
+            or serving["batches_total"] != batches:
+        fail(f"served {sc['served']} generations, {batches} batches "
+             f"(stats: {serving['batches_total']})")
+    gens = [gen_out[i] for i in range(len(prompts))]
+    ttft = [g["ttft_ms"] for g in gens if not g["stream"]]
+    ttft_client = [g["ttft_ms_client"] for g in gens if g["stream"]]
+    mixed.update(ttft_ms_server_p50=statistics.median(ttft),
+                 ttft_ms_client_stream_p50=statistics.median(ttft_client),
+                 streams=sum(g["stream"] for g in gens),
+                 common_prefix=prefix)
+    out = {
+        "phase": "serve", "card": card,
+        "model": {"bert": "BertConfig.base() f32, seed-0 startup",
+                  "saved_mb": disk_mb, "save_s": save_s,
+                  "fetch_names": fetch,
+                  "decoder": dataclasses.asdict(dec_cfg)},
+        "cli_replica": {k: v for k, v in cli_rep.items()
+                        if k not in ("outputs",)},
+        "cli_max_abs_diff": cli_diff,
+        "direct": {"predictor_run_ms": _pcts(direct_ms),
+                   "engine_ttft_ms_p50": statistics.median(
+                       r["ttft_ms"] for r in dreps),
+                   "engine_decode_tokens_per_s":
+                       dc["decode_positions"] / (direct_step_ms / 1e3),
+                   "engine_wall_s": direct_gen_s},
+        "windows": [alone, mixed, prof_rec],
+        "infer_max_abs_diff": infer_diff, "limit": SERVE_LIMIT,
+        "batches": batches, "rows": rows,
+        "rows_per_batch": rows / max(1, batches),
+        "serve_batch_ms": serving["batch_ms"],
+        "serve_batch_ms_p50_bucket": reg.histogram(
+            "serve_batch_ms").quantile(0.5),
+        "serve_request_ms": serving["request_ms"],
+        "serve_request_ms_p50_bucket": serving["p50_ms"],
+        "serve_request_ms_p99_bucket": serving["p99_ms"],
+        "generate_counters": sc, "launches": launches,
+        "engine_stats": {k: stats["generation"][k] for k in (
+            "ttft_p50_ms", "tpot_p50_ms", "served_total",
+            "cached_positions_total")},
+    }
+    emit(out)
+    del frozen, ref, model, eng, inf
+    torch.cuda.empty_cache()
+    return out
+
+
 def _train_program(cfg, b: int, s: int, max_preds: int, amp: bool):
     """BERT pretraining as a user builds it: the MLM + NSP program, Adam at
     1e-4, bf16 AMP (``decorate``) when ``amp``, ``minimize``."""
@@ -4550,6 +5039,7 @@ def main() -> int:
 
     infer = phase_bert_infer(torch, env["card"])
     phase_bert_parity(torch, infer)
+    serve = phase_serve(torch, env["card"], cfg)
     phase_bert_profile(torch, infer)
     infer_launches = {"flash": infer["flash_launches"],
                       "ln": infer["ln_launches"]}
@@ -4610,6 +5100,7 @@ def main() -> int:
         "flash_attention_bsh": {"bert_train": launches["bsh_fwd_tc"],
                                 "nmt_train": nlaunches["bsh_fwd_tc"],
                                 "bert_infer": 0,
+                                "serve": serve["launches"]["flash_tc"],
                                 "nmt_infer": ninfer["bsh_fwd_tc"],
                                 **new_paths("bsh_fwd_tc")},
         "flash_attention_bsh_bwd": {"bert_train": launches["bsh_bwd_tc"],
@@ -4624,15 +5115,17 @@ def main() -> int:
         "mm_stats": {"resnet_train": rlaunches["mm_stats_tc"]}}
     emit({"kernels": [dict(e, launches_tc_by_path=tc_paths[e["name"]])
                       if e["name"] in tc_paths else e for e in [
-        _kernel_entry("paged_attention", "paged_attention.cu",
-                      "paddle_tpu/ops/pallas/paged_attention.py:144",
-                      eng["paged_attention_launches"],
-                      kern["paged_attention"]),
+        entry("paged_attention", "paged_attention.cu",
+              "paddle_tpu/ops/pallas/paged_attention.py:144",
+              kern["paged_attention"],
+              {"engine": eng["paged_attention_launches"],
+               "serve": serve["launches"]["paged"]}, main="engine"),
         entry("flash_attention_bsh", "flash_attention_bsh.cu",
               "paddle_tpu/ops/pallas/flash_attention.py:1500",
               kern["flash_attention_bsh_train"],
               {"bert_train": launches["bsh_fwd"],
                "bert_infer": infer_launches["flash"],
+               "serve": serve["launches"]["flash"],
                "nmt_train": nlaunches["bsh_fwd"],
                "nmt_infer": ninfer["bsh_fwd"], **new_paths("bsh_fwd")}),
         entry("flash_attention_bsh_bwd", "flash_attention_bsh.cu",
@@ -4644,6 +5137,7 @@ def main() -> int:
               kern["add_ln_train"],
               {"bert_train": launches["ln_fwd"],
                "bert_infer": infer_launches["ln"],
+               "serve": serve["launches"]["ln"],
                "nmt_train": nlaunches["ln_fwd"],
                "nmt_infer": ninfer["ln_fwd"], **new_paths("ln_fwd")}),
         entry("add_ln_bwd", "add_ln.cu",

@@ -1,5 +1,8 @@
 """Deterministic fault injection: the part of the JAX package's
-``distributed/faults.py`` that the generation engine calls.
+``distributed/faults.py`` that the port's call sites reach — the RPC
+transport (``distributed/ps_server.py``'s ``_Conn`` and the serving
+replica's ``handle``) and the named code phases of the generation engine
+and the atomic writes of ``fluid/io.py``.
 
 Gate: the layer is active only when BOTH the FLAGS_ps_fault_injection
 flag is on AND PADDLE_PS_FAULT_SPEC is non-empty. Flag-off behavior is
@@ -8,24 +11,47 @@ bit-identical to a build without this module: each point consults
 
 Spec grammar (PADDLE_PS_FAULT_SPEC) — semicolon-separated rules:
 
-    <action>:<phase>:<nth>[:<arg>]
+    <action>:<method>:<nth>[:<arg>]
 
     action  one of
-            crash   os._exit(1) at the Nth arrival at a named code phase
-                    (crash_point(phase) call sites). Serving phase:
-                    "gen_decode_step" (between decode steps in the
-                    generation engine's loop) kills a replica mid-decode
-            stall   REPEATING: every <nth>-th arrival at a named code
-                    phase (stall_point(phase) call sites, e.g.
-                    "gen_decode_step") sleeps <arg> MILLISECONDS — slows
-                    one replica's generation without killing it
-    phase   a phase name or "*"
-    nth     1-based index of the matching arrival AT THE INJECTION SITE;
-            a crash rule fires exactly once, on its Nth match
+            drop    client side: close the connection AFTER sending the
+                    request, before reading the reply — the server has
+                    (usually) handled it, the client cannot know:
+                    exercises the retry + dedup path (a marked-retry
+                    `generate` reattaches instead of decoding twice)
+            refuse  client side: raise FaultError BEFORE sending — the
+                    request never reaches the server: the plain retry
+                    path
+            delay   client side: sleep <arg> seconds before sending
+            stall   REPEATING: every <nth>-th arrival sleeps <arg>
+                    MILLISECONDS — client side, before an outgoing RPC
+                    whose verb matches; or at a named code phase
+                    (stall_point call sites: "gen_decode_step", between
+                    decode steps in the generation engine's loop, slows
+                    one replica's generation without killing it). Phase
+                    names and RPC verbs never collide
+            kill    server side: os._exit(1) the serving process once it
+                    has handled <nth> RPCs matching the verb
+            slow    server side, REPEATING: every <nth>-th handled RPC
+                    matching the verb sleeps <arg> MILLISECONDS before
+                    being served — the slow-tail hedge drill
+            partition  server side, LATCHING: once this server has
+                    handled <nth> RPCs it latches `partitioned`, which
+                    the parameter server's replication (ROADMAP A6) reads;
+                    the <method> field names the server's tag
+                    (PADDLE_PS_RANK_TAG) or "*"
+            crash   phase side: os._exit(1) at the Nth arrival at a
+                    named code phase (crash_point(phase) call sites:
+                    "gen_decode_step" kills a replica mid-decode; an
+                    atomic write's `crash_phase`)
+    method  an RPC verb name (infer, generate, ...), a phase name, or "*"
+    nth     1-based index of the matching call AT THE INJECTION SITE;
+            each one-shot rule fires exactly once, on its Nth match
 
-The reference's RPC, lease, replication, disk, bitflip and OOM rules
-have no call site in the port yet; they come with the code that calls
-them, and a spec naming one is refused here.
+The reference's lease, netsplit, disk (io_err, short_write, diskfull),
+bitflip and OOM rules have no call site in the port yet; they come with
+the code that calls them (ROADMAP A6), and a spec naming one is refused
+here.
 
 Counting is per-process and per-rule, so the schedule is a pure function
 of the arrival sequence — reruns inject the same faults at the same
@@ -45,7 +71,19 @@ from typing import List, Optional
 ENV_SPEC = "PADDLE_PS_FAULT_SPEC"
 ENV_TAGS = "PADDLE_PS_FAULT_TAGS"
 
-_PHASE_ACTIONS = ("crash", "stall")
+_CLIENT_ACTIONS = ("drop", "refuse", "delay", "stall")
+_SERVER_ACTIONS = ("kill", "slow", "partition")
+_PHASE_ACTIONS = ("crash",)
+_KNOWN = _CLIENT_ACTIONS + _SERVER_ACTIONS + _PHASE_ACTIONS
+# rules of the JAX package whose call sites the port does not have yet
+_NOT_PORTED = ("oom", "bitflip", "io_err", "short_write", "diskfull",
+               "lease_expire", "netsplit")
+
+
+class FaultError(ConnectionError):
+    """Raised by client-side `refuse`/`drop` rules; a subclass of
+    ConnectionError so it flows through the exact retry path a real
+    transport fault would take."""
 
 
 class _Rule:
@@ -76,12 +114,16 @@ def parse_spec(spec: str) -> List[_Rule]:
         parts = raw.split(":")
         if len(parts) not in (3, 4):
             raise ValueError(
-                f"bad fault rule {raw!r}: want action:phase:nth[:arg]")
+                f"bad fault rule {raw!r}: want action:method:nth[:arg]")
         action, method, nth = parts[0], parts[1], parts[2]
-        if action not in _PHASE_ACTIONS:
+        if action in _NOT_PORTED:
+            raise ValueError(
+                f"bad fault rule {raw!r}: the {action!r} rule has no call "
+                f"site in the port yet (ROADMAP A6)")
+        if action not in _KNOWN:
             raise ValueError(
                 f"bad fault rule {raw!r}: unknown action {action!r} "
-                f"(want one of {_PHASE_ACTIONS})")
+                f"(want one of {_KNOWN})")
         try:
             n = int(nth)
         except ValueError:
@@ -92,13 +134,22 @@ def parse_spec(spec: str) -> List[_Rule]:
         if action == "stall" and arg <= 0:
             raise ValueError(
                 f"bad fault rule {raw!r}: stall needs a duration — "
-                f"stall:<phase>:<nth>:<ms>")
+                f"stall:<verb|phase>:<nth>:<ms>")
         rules.append(_Rule(action, method, n, arg))
     return rules
 
 
 class FaultInjector:
     """One injection schedule, shared by every caller in a process.
+
+    Client hooks (called by ps_server._Conn.call):
+      before_send(method)  — fires refuse (raises FaultError), delay and
+                             the repeating stall
+      drop_after_send(method) -> bool — True: close the socket now
+
+    Server hook (called by the serving replica's handle):
+      on_server_call(method) — fires kill (os._exit) at the nth match,
+      the repeating slow, and latches partition
 
     Phase hooks (called through crash_point()/stall_point() at named
     code phases):
@@ -110,6 +161,7 @@ class FaultInjector:
         self.spec = spec
         self._rules = parse_spec(spec)
         self._lock = threading.Lock()
+        self.partitioned = False  # latched by a fired `partition` rule
 
     def _take(self, site_actions, method: str) -> List[_Rule]:
         """Advance matching rules' counters; return the rules firing NOW."""
@@ -141,6 +193,42 @@ class FaultInjector:
                 if r.count % r.nth == 0:
                     firing.append(r)
         return firing
+
+    # -- client side -----------------------------------------------------
+    def before_send(self, method: str) -> None:
+        for r in self._take_every(("stall",), method):
+            time.sleep(r.arg / 1000.0)  # arg is MILLISECONDS, repeating
+        for r in self._take(("refuse", "delay"), method):
+            if r.action == "delay":
+                time.sleep(r.arg)
+            else:
+                raise FaultError(
+                    f"fault injection: refused {method!r} RPC "
+                    f"(rule {r.action}:{r.method}:{r.nth})")
+
+    def drop_after_send(self, method: str) -> bool:
+        return bool(self._take(("drop",), method))
+
+    # -- server side -----------------------------------------------------
+    def on_server_call(self, method: str) -> None:
+        for r in self._take(("kill",), method):
+            # hard death, no cleanup: the supervision + failover story
+            # must recover from exactly this
+            os.write(2, (f"[faults] killing server pid {os.getpid()} "
+                         f"(rule kill:{r.method}:{r.nth})\n").encode())
+            self._flight("kill")
+            os._exit(1)
+        for r in self._take_every(("slow",), method):
+            time.sleep(r.arg / 1000.0)  # arg is MILLISECONDS
+        # partition rules match the server's TAG, not the RPC verb, and
+        # count every handled RPC; once fired the injector latches
+        tag = os.environ.get("PADDLE_PS_RANK_TAG", "")
+        for r in self._take(("partition",), tag):
+            os.write(2, (f"[faults] partitioning server {tag or '?'} pid "
+                         f"{os.getpid()} (rule partition:{r.method}:"
+                         f"{r.nth})\n").encode())
+            with self._lock:
+                self.partitioned = True
 
     @staticmethod
     def _flight(reason: str) -> None:

@@ -35,6 +35,10 @@ class _BFloat16:
     def __reduce__(self):  # pickles (Program clones) keep the singleton
         return "bfloat16"
 
+    def __setstate__(self, state):
+        """A numpy dtype's pickle state, met where an unpickler reads
+        ml_dtypes' bfloat16 as this singleton (``fluid/io.py``)."""
+
 
 bfloat16 = _BFloat16()
 

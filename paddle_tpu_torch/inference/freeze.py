@@ -14,6 +14,9 @@ analog of the reference's AnalysisPredictor program preparation):
   4. dead-variable sweep: vars only the stripped ops touched leave
      ``block.vars``.
 
+``load_frozen`` freezes a model saved by ``fluid.io.save_inference_model``
+(either package's), as a serving replica loads it.
+
 The frozen weights are captured by reference into the FrozenModel's own
 scope: the executor replaces a scope entry after a step and never writes
 into a captured tensor, so serving stays isolated from further training.
@@ -31,7 +34,7 @@ from ..fluid import executor as _executor
 from ..fluid import framework
 from ..fluid.executor import Scope
 from ..fluid.fusion_pass import apply_conv_bn_fusion
-from ..fluid.io import _prune_for_inference
+from ..fluid.io import _prune_for_inference, load_inference_model
 
 
 @dataclass
@@ -183,3 +186,20 @@ def freeze_program(program, scope=None, feed_names: Optional[Sequence[str]]
                        fetch_names=fetch_names, param_names=param_names,
                        scope=fscope, fused_conv_bn=fused,
                        meta={"state_vars": state_vars})
+
+
+def load_frozen(model_dir: str, model_filename=None, params_filename=None,
+                device=None) -> FrozenModel:
+    """Freeze a saved inference model (``fluid.io.save_inference_model``
+    output of either package) — the disk path serving replicas load
+    from.  The weights land on ``device`` (None: the CUDA card)."""
+    exe = _executor.Executor(device=device)
+    scope = Scope()
+    with _executor.scope_guard(scope):
+        prog, feeds, fetches = load_inference_model(
+            model_dir, exe, model_filename=model_filename,
+            params_filename=params_filename)
+    fm = freeze_program(prog, scope=scope, feed_names=feeds,
+                        fetch_list=fetches)
+    fm.meta["model_dir"] = model_dir
+    return fm

@@ -8,7 +8,8 @@ once for all predictors and replica threads.
 Weight adoption (``adopt_weights``) replaces parameter VALUES in the
 predictor's scope between runs; the next run serves the new weights.
 The epoch fence around it belongs to the server's micro-batch scheduler
-(server slice); a bare Predictor is single-threaded by contract.
+(``server.MicroBatcher``); a bare Predictor is single-threaded by
+contract.
 """
 from __future__ import annotations
 
@@ -44,8 +45,10 @@ class Predictor:
 
     device: where it runs (None: the CUDA card, or the executor's).
     Weights already on that device are shared with the FrozenModel when
-    ``share_weights`` (replicas of one model; ``adopt_weights`` replaces
-    entries, so sharing is never aliasing); others are copied to it."""
+    ``share_weights`` (replicas of one model); others are copied to it.
+    Each predictor holds its own scope of them, and ``adopt_weights``
+    replaces entries there, so an adoption never reaches the
+    FrozenModel or another predictor of it."""
 
     def __init__(self, frozen: FrozenModel, executor: Optional[Executor] = None,
                  share_weights: bool = True, device=None):
@@ -55,13 +58,13 @@ class Predictor:
         on_dev = all(isinstance(frozen.scope.find_var(n), torch.Tensor)
                      and frozen.scope.find_var(n).device == dev
                      for n in frozen.param_names)
-        if share_weights and on_dev:
-            self._scope = frozen.scope
-        else:
-            self._scope = Scope()
-            for n in frozen.param_names:
-                self._scope.set_var(
-                    n, _to_tensor(frozen.scope.find_var(n), dev))
+        # a scope of its own either way: adopt_weights replaces entries
+        # here, never in the FrozenModel's scope that other replicas read
+        self._scope = Scope()
+        for n in frozen.param_names:
+            v = frozen.scope.find_var(n)
+            self._scope.set_var(
+                n, v if share_weights and on_dev else _to_tensor(v, dev))
         self.weight_epoch = 0
 
     @property
@@ -107,7 +110,11 @@ class Predictor:
                     f"adopt_weights: shape mismatch for {n!r}: "
                     f"{tuple(cur.shape)} vs {np.shape(v)}")
         for n, v in weights.items():
-            self._scope.set_var(n, _to_tensor(v, self.device))
+            t = _to_tensor(v, self.device)
+            cur = self._scope.find_var(n)
+            if isinstance(cur, torch.Tensor) and t.dtype != cur.dtype:
+                t = t.to(cur.dtype)  # e.g. a bf16 weight unpacked as f32
+            self._scope.set_var(n, t)
         self.weight_epoch = (self.weight_epoch + 1 if epoch is None
                              else int(epoch))
         return self.weight_epoch

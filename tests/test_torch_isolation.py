@@ -1,7 +1,8 @@
 """The port stands alone: no module of paddle_tpu_torch, and not
 chip_smoke.py, imports jax or anything of paddle_tpu; entry points run
-on the card unless the caller asks for the CPU; the CUDA wrapper's input
-checks refuse what the kernel does not take."""
+on the card unless the caller asks for the CPU (the serving replica,
+the file-based predictor and the server's command line included); the
+CUDA wrapper's input checks refuse what the kernel does not take."""
 from __future__ import annotations
 
 import os
@@ -46,7 +47,10 @@ for n in ("fluid", "fluid.layers", "fluid.executor", "fluid.framework",
           "contrib.mixed_precision.fp16_utils",
           "contrib.mixed_precision.fp16_lists", "ops.kernels.conv_bn",
           "fluid.fusion_pass", "models.resnet", "fluid.layers.nn",
-          "fluid.layers.misc", "fluid.layers.tensor", "hapi", "hapi.text"):
+          "fluid.layers.misc", "fluid.layers.tensor", "hapi", "hapi.text",
+          "fluid.io", "fluid.crypto", "inference.server", "inference.client",
+          "inference.weight_sync", "distributed.ps_server",
+          "distributed.faults"):
     assert "paddle_tpu_torch." + n in names, n
 """
 
@@ -260,3 +264,129 @@ def test_hapi_nmt_trains_without_jax():
                          env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.startswith("ok")
+
+
+_SERVE_PROBE = r"""
+import os, sys, tempfile
+import numpy as np
+os.environ["PADDLE_SERVE_WEIGHT_SYNC"] = "0"
+import paddle_tpu_torch.fluid as fluid
+from paddle_tpu_torch import inference
+from paddle_tpu_torch.inference import server
+from paddle_tpu_torch.inference.client import InferenceClient
+d = tempfile.mkdtemp()
+main, startup = fluid.Program(), fluid.Program()
+with fluid.program_guard(main, startup):
+    x = fluid.layers.data("x", [8], dtype="float32")
+    pred = fluid.layers.fc(x, 4)
+exe = fluid.Executor(device="cpu")
+with fluid.scope_guard(fluid.Scope()):
+    exe.run(startup)
+    fluid.io.save_inference_model(d, ["x"], [pred], exe, main_program=main)
+cfg = inference.Config(d)
+cfg.disable_gpu()
+out = inference.create_predictor(cfg).run([np.ones((2, 8), np.float32)])
+assert out[0].shape == (2, 4)
+bad = sorted(k for k in sys.modules if k.split(".")[0] in
+             ("jax", "jaxlib", "paddle_tpu"))
+assert not bad, bad
+print("ok", d)
+"""
+
+
+def test_saved_model_serves_without_jax(tmp_path):
+    """Saving, loading and the file-based predictor run in a process that
+    never imports jax or paddle_tpu."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _SERVE_PROBE], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.startswith("ok")
+
+
+def test_serving_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    """The replica, the file-based predictor and ``main`` without
+    ``--device`` want the card, and raise where there is none instead of
+    running on the CPU."""
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.inference import server
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x = fluid.layers.data("x", [8], dtype="float32")
+        pred = fluid.layers.fc(x, 4)
+    exe = fluid.Executor(device="cpu")
+    d = str(tmp_path / "model")
+    with fluid.scope_guard(fluid.Scope()):
+        exe.run(startup)
+        fluid.io.save_inference_model(d, ["x"], [pred], exe,
+                                      main_program=main)
+    frozen = inference.load_frozen(d, device="cpu")
+    monkeypatch.setenv("PADDLE_SERVE_WEIGHT_SYNC", "0")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        server.InferenceServer(frozen)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        inference.create_predictor(inference.Config(d))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        inference.load_frozen(d)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        server.main(["--model_dir", d, "--port", "0"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fluid.io.load_inference_model(d, None)
+    assert server._ACTIVE is None
+    cfg = inference.Config(d)
+    cfg.disable_gpu()
+    assert inference.create_predictor(cfg).device == torch.device("cpu")
+    srv = server.InferenceServer(frozen, device="cpu")
+    assert srv.predictor.device == torch.device("cpu")
+    srv.close()
+
+
+def test_cli_replica_serves_and_drains_on_sigterm(tmp_path):
+    """``python -m paddle_tpu_torch.inference.server --device cpu``: it
+    prints its ``listening on`` line, answers ``infer`` and ``health``,
+    and on SIGTERM stops admission, drains and exits 0."""
+    import queue
+    import signal
+    import threading
+
+    from paddle_tpu_torch.inference.client import InferenceClient
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x = fluid.layers.data("x", [8], dtype="float32")
+        pred = fluid.layers.fc(x, 4)
+    exe = fluid.Executor(device="cpu")
+    d = str(tmp_path / "model")
+    with fluid.scope_guard(fluid.Scope()):
+        exe.run(startup)
+        fluid.io.save_inference_model(d, ["x"], [pred], exe,
+                                      main_program=main)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PADDLE_SERVE_WEIGHT_SYNC"] = "0"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.inference.server",
+         "--model_dir", d, "--port", "0", "--host", "127.0.0.1",
+         "--device", "cpu", "--max_batch", "4"],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    lines = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(s) for s in proc.stdout],
+                     daemon=True).start()
+    try:
+        line = lines.get(timeout=120)
+        assert "listening on" in line, line
+        ep = line.rsplit(" ", 1)[1].strip()
+        cli = InferenceClient([ep], deadline_secs=30)
+        res = cli.infer({"x": np.ones((2, 8), np.float32)})
+        assert res.outputs[0].shape == (2, 4)
+        assert cli.health()["ok"]
+        cli.close()
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0
+        assert "SIGTERM: draining" in proc.stderr.read()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()

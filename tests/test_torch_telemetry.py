@@ -59,6 +59,8 @@ def test_ledger_is_off_without_the_gate(monkeypatch):
     "crash:gen_decode_step:3",
     "stall:gen_decode_step:2:5",
     "crash:*:1;stall:*:4:1.5",
+    "drop:generate:1;refuse:infer:2;delay:*:1:0.5",
+    "kill:infer:40;slow:infer:3:25;partition:ps1:5;stall:infer:2:5",
 ])
 def test_fault_specs_parse_like_reference(spec):
     fields = ("action", "method", "nth", "arg")
@@ -69,7 +71,7 @@ def test_fault_specs_parse_like_reference(spec):
 
 
 @pytest.mark.parametrize("spec", [
-    "drop:generate:1",            # no RPC call site in the port
+    "lease_expire:*:1",           # no lease call site in the port
     "stall:gen_decode_step:1",    # stall without a duration
     "crash:gen_decode_step:0",    # nth is 1-based
     "crash:gen_decode_step",      # too few fields
