@@ -3,7 +3,12 @@
 paths' shapes on one CUDA card, for two trees of the repository in one
 call: a parent checkout and this one, in turns (A, B, B, A).
 
-    python3 chip_kernel_ab.py --trees PARENT_DIR . [--out FILE]
+    python3 chip_kernel_ab.py --trees PARENT_DIR . [--steps] [--out FILE]
+
+With ``--steps`` a turn times only the gradient of an embedding lookup
+(``take``'s backward at BERT's three table sizes, 4096 and 32,768 ids)
+and whole training steps of bert_train, bert_long_train and
+transformer_train (``_whole_steps``); without it, the cases below.
 
 Each turn is a process of its own that puts its tree first on sys.path,
 builds that tree's kernels from its ``csrc/`` and times each kernel
@@ -61,9 +66,10 @@ CONV_SHAPES = {"s0": (128, 56, 56, 64, 64), "s1": (128, 28, 28, 128, 128),
                "s2": (128, 14, 14, 256, 256), "s3": (128, 7, 7, 512, 512)}
 
 
-def _measure(tree: str) -> dict:
-    """Build ``tree``'s kernels and time every case; runs in its own
-    process with the tree first on sys.path."""
+def _measure(tree: str, steps_only: bool = False) -> dict:
+    """Build ``tree``'s kernels and time every case (``steps_only``: the
+    embedding gradients and the whole training steps only); runs in its
+    own process with the tree first on sys.path."""
     import importlib.util
 
     sys.path.insert(0, tree)
@@ -86,6 +92,11 @@ def _measure(tree: str) -> dict:
     dev, bf16 = "cuda", torch.bfloat16
     rng = np.random.default_rng(0)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
+    if steps_only:
+        out = _embedding_grads(torch, time_cold_ms, flush)
+        out.update(_whole_steps(torch, clock))
+        return {"tree": tree, "card": torch.cuda.get_device_name(0),
+                "ms": out}
 
     def randn(*shape, scale=1.0):
         return (torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32)
@@ -385,15 +396,112 @@ def _train_step(torch, dev) -> dict:
             / 2 ** 30}
 
 
+EMBED_TABLES = (2, 512, 30522)        # BERT's token-type, position, word
+EMBED_IDS = (4096, 32768)             # 8 x 512 and 8 x 4096 tokens
+
+
+def _embedding_grads(torch, time_cold_ms, flush) -> dict:
+    """The gradient of an embedding lookup as the tree's ``take`` gives
+    it (``lookup_table_v2``'s read): forward and backward of ``take`` on
+    an f32 [rows, 768] table at uniform seed-0 ids, for each of BERT's
+    three tables at 8 x 512 and 8 x 4096 tokens; then whether two
+    backwards agree to the bit (``*_runs_equal``: 1 or 0, not a time)."""
+    from paddle_tpu_torch.ops import manipulation
+
+    out = {}
+    for rows in EMBED_TABLES:
+        for ids in EMBED_IDS:
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(0)
+            x = torch.randn(rows, 768, device="cuda", generator=gen,
+                            requires_grad=True)
+            idx = torch.randint(0, rows, (ids,), device="cuda",
+                                generator=gen)
+            g = torch.randn(ids, 768, device="cuda", generator=gen)
+
+            def grad(x=x, idx=idx, g=g):
+                return torch.autograd.grad(manipulation.take(x, idx), x, g)[0]
+
+            name = f"embed_grad_{rows}x{ids}"
+            out[f"{name}_runs_equal"] = float(all(
+                torch.equal(grad(), grad()) for _ in range(3)))
+            out[name] = time_cold_ms(torch, grad, flush, reps=20)["median"]
+            del x, idx, g
+    return out
+
+
+def _whole_steps(torch, clock) -> dict:
+    """Three of chip_smoke's training paths through the tree's own
+    Executor, built by this tree's chip_smoke helpers: bert_train (BERT-
+    base, fuse_stack, bf16 AMP, Adam 1e-4, dropout 0.1, 8 x 512),
+    bert_long_train (the same at 8 x 4096 under remat_ffn, the rung the
+    card chooses) and transformer_train (Transformer-base NMT, 64 x 256
+    -> 256).  For each, the host wall median of the timed steps after 2
+    warm ones (the numpy fetch syncs) and, over 2 more steps under
+    torch.profiler, the wall and the device's busy ms a step (the sum of
+    kernel self times)."""
+    import dataclasses
+    import statistics
+    import time
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import bert, transformer
+
+    def timed(name, main, startup, loss, feed, n):
+        exe, scope = fluid.Executor(), fluid.Scope()
+        exe.run(startup, scope=scope)
+        feed = {k: torch.as_tensor(v, device=exe.device)
+                for k, v in feed.items()}
+
+        def step():
+            t0 = time.perf_counter()
+            exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+            return (time.perf_counter() - t0) * 1e3
+
+        for _ in range(2):
+            step()
+        wall = statistics.median(step() for _ in range(n))
+        prof = clock._step_profile(torch, exe, main, scope, feed, loss, 2,
+                                   name)
+        del exe, scope
+        torch.cuda.empty_cache()
+        return {f"{name}_step_host_wall": wall,
+                f"{name}_profiled_wall": prof["wall_ms"] / 2,
+                f"{name}_device_busy": prof["device_busy_ms"] / 2}
+
+    out = {}
+    cfg = bert.BertConfig.base()
+    cfg.fuse_stack = True
+    main, startup, loss = clock._train_program(cfg, 8, 512, 76, amp=True)
+    out.update(timed("bert_train", main, startup, loss,
+                     bert.random_pretrain_batch(cfg, 8, 512, 76, seed=0),
+                     10))
+    cfg = dataclasses.replace(cfg, remat_ffn=True,
+                              max_position_embeddings=4096)
+    main, startup, loss = clock._train_program(cfg, 8, 4096, 76, amp=True)
+    out.update(timed("bert_long_train", main, startup, loss,
+                     bert.random_pretrain_batch(cfg, 8, 4096, 76, seed=0),
+                     5))
+    tcfg = transformer.TransformerConfig.base()
+    main, startup, loss = clock._transformer_program(tcfg, 64, 256, 256)
+    out.update(timed("transformer_train", main, startup, loss,
+                     transformer.random_nmt_batch(tcfg, 64, 256, 256,
+                                                  seed=0), 10))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--trees", nargs=2, metavar=("PARENT", "THIS"))
     ap.add_argument("--measure", metavar="TREE",
                     help="one turn: time TREE's kernels (internal)")
+    ap.add_argument("--steps", action="store_true",
+                    help="time the embedding gradients and whole "
+                         "training steps only")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if args.measure:
-        print(json.dumps(_measure(args.measure)), flush=True)
+        print(json.dumps(_measure(args.measure, args.steps)), flush=True)
         return 0
 
     import torch
@@ -413,7 +521,9 @@ def main() -> int:
                         ("parent", parent)):
         tree = os.path.abspath(tree)
         proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               "--measure", tree], capture_output=True,
+                               "--measure", tree]
+                              + (["--steps"] if args.steps else []),
+                              capture_output=True,
                               text=True, cwd=tree, timeout=1800)
         if proc.returncode != 0:
             print(proc.stdout[-4000:], proc.stderr[-8000:], file=sys.stderr)

@@ -191,6 +191,38 @@ prints no result):
                5 timed steps, then 3 under remat_policy="flash" (the
                flash forward once a layer); exact launches a step by
                program and rung; 2 profiled steps of each
+  fit_resume   BERT-base pretraining as bert_train trains it (fuse_stack,
+               dropout 0.1, Adam 1e-4, bf16 AMP, 8 x 512, 76 masked
+               positions), written as a hapi.Model network over
+               models/bert.py's builders and driven by Model.fit on 12
+               random_pretrain_batch batches (seeds 0-11): two straight
+               runs in this process, equal bit for bit (losses,
+               parameters, Adam moments, step seed); the checkpoint's
+               costs (bytes; sync save ms as snapshot, serialize + sha256,
+               write + fsync; verify and restore ms; an async save's stall
+               and the steps beside its writer; the embedding gradient's
+               scatter, autograd's atomic index_add_ beside the port's
+               fixed-order index_sum, at 4096 and 32,768 ids); then a child
+               process (``--fit-child``) running the fit with
+               checkpoint_dir, checkpoint_freq 4, checkpoint_keep 2, paced
+               a step at a time and sent a real SIGTERM after step 6: it
+               must exit 75 with a committed checkpoint; a second child
+               resumes (resume=True) to step 12 with every step's launches
+               of rows 2-5 counted and held to the program's; the trace up
+               to the checkpoint's position followed by the resumed trace,
+               and the step-12 parameters and moments, must equal the
+               straight run's bit for bit, and tools/ckpt_doctor.py must
+               report the checkpoint directory clean
+  verify       FLAGS_program_verify=1 and FLAGS_op_callstack=1 over
+               BERT-base training (fused, AMP), the frozen BERT-base infer
+               program, ResNet-50 training after the conv+BN fusion (AMP)
+               and the NMT's training (AMP): each built with every pass
+               sandwich armed and run once through the executor's
+               plan-cache hook, no ERROR finding anywhere; each program's
+               op count and the full suite's host ms; then a seeded fault
+               (an op reading a var nothing writes) raised as a
+               ProgramVerifyError naming this file's line before any op
+               runs
 
 The line before the last is the kernels summary; the last line is
 ``{"ok": true, "device": {...}}``.  Needs one CUDA card; without one it
@@ -4996,6 +5028,642 @@ def phase_bert_long_train(torch, card: str, n_steps: int = 5,
     return out
 
 
+# ---------------------------------------------------------------------------
+# fit_resume: BERT-base pretraining through hapi.Model.fit, SIGTERM'd and
+# resumed bit for bit
+# ---------------------------------------------------------------------------
+
+FIT = dict(batch=8, seq=512, max_preds=76, steps=12, freq=4, keep=2,
+           sigterm_after=6)
+FIT_FEEDS = ("input_ids", "token_type_ids", "position_ids", "input_mask",
+             "mask_positions", "mask_labels", "mask_weights", "nsp_labels")
+FIT_ROWS = ("bsh_fwd", "bsh_fwd_tc", "bsh_bwd", "bsh_bwd_tc", "ln_fwd",
+            "ln_bwd")
+
+
+def _fit_model(cfg, b: int, s: int, mp: int):
+    """BERT pretraining (MLM + NSP) as bert_train trains it, written as a
+    hapi.Model user writes it from models/bert.py's builders: the network
+    takes the five feature inputs and returns the MLM and NSP logits, the
+    loss is build_bert_pretrain_program's; Adam 1e-4 under bf16 AMP."""
+    from paddle_tpu_torch import fluid, hapi
+    from paddle_tpu_torch.contrib import mixed_precision
+    from paddle_tpu_torch.fluid import layers as L
+    from paddle_tpu_torch.fluid.initializer import ConstantInitializer
+    from paddle_tpu_torch.models import bert
+
+    attr = fluid.ParamAttr
+
+    def network(input_ids, token_type_ids, position_ids, input_mask,
+                mask_positions):
+        seq = bert.bert_encoder(cfg, input_ids, token_type_ids, position_ids,
+                                input_mask, is_test=False)
+        pooled = bert.bert_pooler(cfg, seq)
+        picked = L.gather(L.reshape(seq, [b * s, cfg.hidden_size]),
+                          mask_positions)
+        trans = L.fc(picked, cfg.hidden_size,
+                     param_attr=attr(name="mask_lm_trans_fc.w_0",
+                                     initializer=bert._winit(cfg).initializer),
+                     bias_attr=attr(name="mask_lm_trans_fc.b_0"),
+                     act=cfg.hidden_act)
+        trans = L.layer_norm(trans, begin_norm_axis=1,
+                             param_attr=attr(name="mask_lm_trans_ln_scale"),
+                             bias_attr=attr(name="mask_lm_trans_ln_bias"))
+        word_emb = fluid.default_main_program().global_block().var(
+            "word_embedding")
+        logits = L.elementwise_add(
+            L.matmul(trans, word_emb, transpose_y=True),
+            L.create_parameter(shape=[cfg.vocab_size], dtype="float32",
+                               name="mask_lm_out_fc.b_0",
+                               default_initializer=ConstantInitializer(0.0)))
+        nsp = L.fc(pooled, 2,
+                   param_attr=attr(name="next_sent_fc.w_0",
+                                   initializer=bert._winit(cfg).initializer),
+                   bias_attr=attr(name="next_sent_fc.b_0"))
+        return [logits, nsp]
+
+    def loss(logits, nsp, mask_labels, mask_weights, nsp_labels):
+        mlm = L.elementwise_mul(
+            L.softmax_with_cross_entropy(logits, mask_labels), mask_weights)
+        denom = L.elementwise_add(
+            L.reduce_sum(mask_weights),
+            L.fill_constant(shape=[1], dtype="float32", value=1e-5))
+        mlm = L.elementwise_div(L.reduce_sum(mlm), denom)
+        return L.elementwise_add(mlm, L.reduce_mean(
+            L.softmax_with_cross_entropy(nsp, nsp_labels)))
+
+    In = hapi.Input
+    model = hapi.Model(
+        network,
+        [In("input_ids", [b, s], "int32"),
+         In("token_type_ids", [b, s], "int32"),
+         In("position_ids", [b, s], "int32"),
+         In("input_mask", [b, s], "float32"),
+         In("mask_positions", [b * mp], "int32")],
+        [In("mask_labels", [b * mp, 1], "int32"),
+         In("mask_weights", [b * mp, 1], "float32"),
+         In("nsp_labels", [b, 1], "int32")])
+    model.prepare(mixed_precision.decorate(
+        fluid.optimizer.AdamOptimizer(learning_rate=1e-4), use_bf16=True),
+        loss)
+    return model
+
+
+def _fit_setup(torch):
+    """The fit's config, its model and its 12 batches on the card
+    (random_pretrain_batch, seeds 0-11).  The attention ops' dropout salts
+    are numbered from 0, as in a fresh process: this process built other
+    programs before, and the children start afresh."""
+    from paddle_tpu_torch.fluid.layers import nn as layers_nn
+    from paddle_tpu_torch.models import bert
+
+    layers_nn._rng_salt_counter[0] = 0
+    cfg = bert.BertConfig.base()
+    cfg.fuse_stack = True
+    b, s, mp = FIT["batch"], FIT["seq"], FIT["max_preds"]
+    model = _fit_model(cfg, b, s, mp)
+    batches = [[torch.as_tensor(v[k], device="cuda") for k in FIT_FEEDS]
+               for v in (bert.random_pretrain_batch(cfg, b, s, mp, seed=i)
+                         for i in range(FIT["steps"]))]
+    return model, batches
+
+
+class _FitTrace:
+    """A fit callback: each train step's loss; optionally a line a step
+    on stdout (``report``), a line read from stdin after it (``paced``:
+    the parent decides when the child goes on), and each step's kernel
+    launches (``counters``, set to 0 at the step's start)."""
+
+    def __init__(self, report=False, paced=False, counters=None):
+        self.losses, self.launches = [], []
+        self.report, self.paced, self.counters = report, paced, counters
+
+    def set_model(self, model):
+        self.model = model
+
+    def on_train_begin(self):
+        pass
+
+    def on_train_end(self):
+        pass
+
+    def on_epoch_begin(self, epoch):
+        pass
+
+    def on_epoch_end(self, epoch, logs=None):
+        return False
+
+    def on_batch_begin(self, mode, step):
+        for c in (self.counters or {}).values():
+            c.launches = 0
+
+    def on_batch_end(self, mode, step, logs=None):
+        self.losses.append(logs["loss"])
+        if self.counters:
+            self.launches.append({k: c.launches
+                                  for k, c in self.counters.items()})
+        if self.report:
+            print(f"FIT_STEP {len(self.losses)} {logs['loss'].hex()}",
+                  flush=True)
+        if self.paced:
+            sys.stdin.readline()
+
+
+def _host_state(model) -> dict:
+    """Every persistable of the train program, copied to the host bit for
+    bit, and the scope's step seed."""
+    from paddle_tpu_torch.fluid.checkpoint import _host_array
+
+    main = model._progs["train"][0]
+    out = {v.name: _host_array(model._scope.find_var(v.name), deep=True)
+           for v in main.list_vars() if v.persistable
+           and model._scope.find_var(v.name) is not None}
+    out["__seed__"] = model._scope._rng_seed
+    return out
+
+
+def _state_diff(a: dict, b: dict) -> list:
+    """Names whose arrays differ in a bit (or in shape, dtype, presence)."""
+    from paddle_tpu_torch.fluid.checkpoint import BF16Array
+
+    bad = sorted(set(a) ^ set(b))
+    for k in sorted(set(a) & set(b)):
+        x, y = a[k], b[k]
+        if isinstance(x, BF16Array) or isinstance(y, BF16Array):
+            same = x == y
+        elif isinstance(x, np.ndarray) and isinstance(y, np.ndarray):
+            same = (x.dtype == y.dtype and x.shape == y.shape
+                    and x.tobytes() == y.tobytes())
+        else:
+            same = x == y
+        if not same:
+            bad.append(k)
+    return bad
+
+
+def _fit_child(root: str, role: str) -> int:
+    """One child of fit_resume: ``preempt`` runs the fit with checkpoints
+    under ``root``, paced a step at a time by the parent, which sends the
+    SIGTERM; ``resume`` resumes from ``root`` to the end, counting every
+    step's launches, and prints its trace as FIT_DONE."""
+    import torch
+
+    from paddle_tpu_torch.fluid import checkpoint as ckpt
+
+    if not torch.cuda.is_available():
+        fail("the fit child needs the CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model, batches = _fit_setup(torch)
+    kw = dict(epochs=1, verbose=0, checkpoint_dir=root,
+              checkpoint_freq=FIT["freq"], checkpoint_keep=FIT["keep"])
+    if role == "preempt":
+        trace = _FitTrace(report=True, paced=True)
+        try:
+            model.fit(batches, callbacks=[trace], **kw)
+        except ckpt.Preempted:
+            mgr = model._checkpoint_manager(root)
+            print("FIT_DONE " + json.dumps(
+                {"losses": [x.hex() for x in trace.losses],
+                 "final_save": mgr.last_save}), flush=True)
+            return ckpt.PREEMPTED_EXIT_CODE
+        fail("the preempt child's fit ran to its end without the SIGTERM")
+    counters = {k: c for k, c in _counters().items() if k in FIT_ROWS}
+    want = {k: v for k, v in _launches_per_step(
+        model._progs["train"][0], bf16=True).items() if k in FIT_ROWS}
+    trace = _FitTrace(counters=counters)
+    t0 = time.perf_counter()
+    model.fit(batches, callbacks=[trace], resume=True, **kw)
+    print("FIT_DONE " + json.dumps(
+        {"losses": [x.hex() for x in trace.losses],
+         "launches": trace.launches, "want": want,
+         "fit_s": time.perf_counter() - t0}), flush=True)
+    return 0
+
+
+def _fit_child_run(root: str, role: str, sigterm_after=None) -> tuple:
+    """Run ``_fit_child`` as a subprocess (``python3 chip_smoke.py
+    --fit-child``): its FIT_STEP losses, its FIT_DONE record, its exit
+    code and the seconds it took.  With ``sigterm_after`` the child goes
+    on a step at a time, and gets a real SIGTERM after it reports that
+    step."""
+    import signal
+    import tempfile
+
+    here = os.path.abspath(__file__)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (os.path.dirname(here), env.get("PYTHONPATH")) if p)
+    err = tempfile.TemporaryFile()
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-u", here, "--fit-child", root, "--fit-role",
+         role], cwd=os.path.dirname(here), env=env, stdin=subprocess.PIPE,
+        stdout=subprocess.PIPE, stderr=err, text=True)
+    steps, done = [], None
+    try:
+        for line in proc.stdout:
+            if line.startswith("FIT_STEP"):
+                _, n, loss = line.split()
+                steps.append(float.fromhex(loss))
+                if sigterm_after is not None and int(n) == sigterm_after:
+                    proc.send_signal(signal.SIGTERM)
+                if sigterm_after is not None:
+                    proc.stdin.write("\n")
+                    proc.stdin.flush()
+            elif line.startswith("FIT_DONE"):
+                done = json.loads(line.split(" ", 1)[1])
+        rc = proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    err.seek(0)
+    tail = err.read().decode(errors="replace")[-3000:]
+    return steps, done, rc, time.perf_counter() - t0, tail
+
+
+def _embedding_grad_ms(torch, flush, rows: int, ids: int,
+                       width: int) -> dict:
+    """The embedding gradient's scatter: ``ids`` rows of ``width`` f32
+    summed into a ``rows`` table by autograd's ``index_add_`` (atomics)
+    and by the port's ``manipulation.index_sum`` (masked sums for a small
+    table, else the sorted ``index_put_``), at uniform seed-0 ids: both
+    timed, whether two runs of each agree bit for bit, and the largest
+    difference between them.  Fails if the port's runs differ."""
+    from paddle_tpu_torch.ops import manipulation
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    idx = torch.randint(0, rows, (ids,), device="cuda", generator=gen)
+    g = torch.randn(ids, width, device="cuda", generator=gen)
+
+    def atomic():
+        return torch.zeros(rows, width, device="cuda").index_add_(0, idx, g)
+
+    def port():
+        return manipulation.index_sum((rows, width), 0, idx, g)
+
+    runs = {f: [f() for _ in range(4)] for f in (atomic, port)}
+    same = {f.__name__: all(torch.equal(r[0], x) for x in r[1:])
+            for f, r in runs.items()}
+    out = {"rows": rows, "ids": ids, "width": width,
+           "atomic_runs_equal": same["atomic"],
+           "port_runs_equal": same["port"],
+           "port_max_abs_diff": float((runs[port][0]
+                                       - runs[atomic][0]).abs().max()),
+           "atomic_ms": time_cold_ms(torch, atomic, flush)["median"],
+           "port_ms": time_cold_ms(torch, port, flush)["median"]}
+    if not same["port"]:
+        fail(f"the port's embedding gradient differs between runs: {out}")
+    return out
+
+
+def phase_fit_resume(torch, card: str) -> dict:
+    """BERT-base pretraining through hapi.Model.fit, preempted by a real
+    SIGTERM and resumed: every step's loss, the parameters and the Adam
+    moments bit for bit against a straight run; the checkpoint's costs."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch.fluid import checkpoint as ckpt
+
+    t_phase = time.perf_counter()
+    n = FIT["steps"]
+    straight = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        model, batches = _fit_setup(torch)
+        build_s = time.perf_counter() - t0
+        trace = _FitTrace()
+        t0 = time.perf_counter()
+        model.fit(batches, epochs=1, verbose=0, callbacks=[trace])
+        torch.cuda.synchronize()
+        straight.append({"losses": trace.losses, "state": _host_state(model),
+                         "build_s": build_s,
+                         "fit_s": time.perf_counter() - t0})
+        if len(straight) == 1:
+            del model
+            torch.cuda.empty_cache()
+    ref = straight[0]["losses"]
+    if not all(math.isfinite(x) for x in ref) or len(ref) != n:
+        fail(f"fit_resume straight losses {ref}")
+    if straight[1]["losses"] != ref:
+        fail(f"fit_resume: two straight runs differ: {ref} vs "
+             f"{straight[1]['losses']}")
+    bad = _state_diff(straight[0]["state"], straight[1]["state"])
+    if bad:
+        fail(f"fit_resume: two straight runs end with different state: "
+             f"{bad[:8]}")
+
+    # -- the checkpoint's costs, on the second straight run's model ------
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    work = tempfile.mkdtemp(prefix="fit_resume_")
+    main = model._progs["train"][0]
+    feed_n = len(model._inputs)
+    mgr = ckpt.CheckpointManager(os.path.join(work, "costs"), keep_last_n=2,
+                                 program=main, scope=model._scope)
+
+    def step_ms(k):
+        out = []
+        for i in range(k):
+            bt = batches[i % n]
+            t0 = time.perf_counter()
+            model.train_batch(bt[:feed_n], bt[feed_n:])   # numpy fetch
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    saved = _host_state(model)
+    sync = []
+    for s in (101, 102):
+        mgr.save(s, async_=False)
+        sync.append(dict(mgr.last_save))
+    t0 = time.perf_counter()
+    ok = mgr.verify(102)
+    verify_ms = (time.perf_counter() - t0) * 1e3
+    if not ok:
+        fail("fit_resume: a committed checkpoint failed verification")
+    restored = ckpt.CheckpointManager(
+        os.path.join(work, "costs"), program=main,
+        scope=model._scope).restore()
+    if restored["step"] != 102 or _state_diff(saved, _host_state(model)):
+        fail("fit_resume: the restore changed the state it read back")
+    base_ms = step_ms(4)
+    mgr.save(103, async_=True)
+    async_save = dict(mgr.last_save)
+    during_ms = step_ms(4)
+    t0 = time.perf_counter()
+    mgr.drain()
+    drain_ms = (time.perf_counter() - t0) * 1e3
+    async_write = dict(mgr.last_save)
+    determinism = [_embedding_grad_ms(torch, flush, rows, ids, 768)
+                   for ids in (FIT["batch"] * FIT["seq"],
+                               BERT_LONG["batch"] * BERT_LONG["seq"])
+                   for rows in (30522, 512, 2)]
+    del model, mgr, flush
+    torch.cuda.empty_cache()
+
+    # -- the drill: a child SIGTERM'd after step 6, then one resuming ----
+    root = os.path.join(work, "drill")
+    pre, done1, rc1, secs1, tail1 = _fit_child_run(
+        root, "preempt", sigterm_after=FIT["sigterm_after"])
+    if rc1 != ckpt.PREEMPTED_EXIT_CODE or done1 is None:
+        fail(f"fit_resume: the SIGTERM'd child exited {rc1}: {tail1}")
+    dmgr = ckpt.CheckpointManager(root, device="cpu")
+    pos = dmgr.latest_step()
+    if pos is None or not dmgr.verify(pos):
+        fail(f"fit_resume: no committed checkpoint after the SIGTERM "
+             f"({dmgr.steps()})")
+    extra = ckpt._loads(open(os.path.join(dmgr._dir(pos), "extra.pkl"),
+                             "rb").read())
+    if extra["global_step"] != pos or pos < FIT["sigterm_after"]:
+        fail(f"fit_resume: checkpoint position {extra} at step {pos}")
+    post, done2, rc2, secs2, tail2 = _fit_child_run(root, "resume")
+    if rc2 != 0 or done2 is None:
+        fail(f"fit_resume: the resuming child exited {rc2}: {tail2}")
+    resumed = [float.fromhex(x) for x in done2["losses"]]
+    joined = pre[:pos] + resumed
+    if joined != ref:
+        fail(f"fit_resume: the resumed trace differs from the straight "
+             f"run: {joined} vs {ref}")
+    last = dmgr.latest_step()
+    state = ckpt._loads(open(os.path.join(dmgr._dir(last), "state.pkl"),
+                             "rb").read())["arrays"]
+    state["__seed__"] = ckpt._restore_rng(ckpt._loads(open(os.path.join(
+        dmgr._dir(last), "rng.pkl"), "rb").read()))
+    bad = _state_diff(straight[0]["state"], state)
+    if last != n or bad:
+        fail(f"fit_resume: the resumed step-{last} state differs from the "
+             f"straight run's: {bad[:8]}")
+    want = done2["want"]
+    if any(got != want for got in done2["launches"]) \
+            or len(done2["launches"]) != n - pos:
+        fail(f"fit_resume: resumed launches {done2['launches']} against "
+             f"{want} a step")
+    doctor = subprocess.run(
+        [sys.executable, os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "tools", "ckpt_doctor.py"), root,
+         "--json"], capture_output=True, text=True, timeout=300)
+    rep = json.loads(doctor.stdout) if doctor.returncode == 0 else {}
+    if doctor.returncode != 0 or rep.get("orphans") or not rep.get(
+            "steps") or any(e["status"] != "ok" for e in rep["steps"]):
+        fail(f"fit_resume: ckpt_doctor on the port's checkpoints "
+             f"rc {doctor.returncode}: {doctor.stdout[-2000:]} "
+             f"{doctor.stderr[-2000:]}")
+    shutil.rmtree(work, ignore_errors=True)
+    launches = {k: sum(step[k] for step in done2["launches"])
+                for k in want}
+    out = {"phase": "fit_resume", "card": card,
+           "config": {"model": "BertConfig.base()", "fuse_stack": True,
+                      "dropout": 0.1, "optimizer": "Adam 1e-4",
+                      "amp": "bf16", "batch": FIT["batch"],
+                      "seq": FIT["seq"], "max_preds": FIT["max_preds"],
+                      "steps": n, "checkpoint_freq": FIT["freq"],
+                      "checkpoint_keep": FIT["keep"],
+                      "data": "random_pretrain_batch seeds 0-11"},
+           "straight_losses": ref,
+           "straight_runs_bit_equal": True,
+           "straight_build_s": [r["build_s"] for r in straight],
+           "straight_fit_s": [r["fit_s"] for r in straight],
+           "sigterm_after_step": FIT["sigterm_after"],
+           "preempted_rc": rc1, "checkpoint_position": pos,
+           "preempted_child_s": secs1, "resumed_child_s": secs2,
+           "final_save_ms": done1["final_save"],
+           "resumed_steps": n - pos, "resumed_trace_bit_equal": True,
+           "resumed_state_bit_equal": True,
+           "state_vars": len(state) - 1,
+           "ckpt_doctor": [(e["step"], e["status"]) for e in rep["steps"]],
+           "checkpoint_bytes": sync[-1]["bytes"],
+           "sync_save_ms": sync,
+           "verify_ms": verify_ms, "restore_ms": restored["restore_ms"],
+           "async_save_ms": async_save["save"],
+           "async_snapshot_ms": async_save["snapshot"],
+           "async_writer_ms": {k: async_write.get(k) for k in
+                               ("serialize", "write")},
+           "step_ms_before_async": base_ms, "step_ms_during_async": during_ms,
+           "drain_ms": drain_ms,
+           "launches_per_step": want, "launches": launches,
+           "embedding_grad_scatter": determinism,
+           "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# verify: the static verifier on the programs the card runs
+# ---------------------------------------------------------------------------
+
+
+def _verify_program(what, build, run, findings):
+    """Build a program under FLAGS_program_verify (every pass sandwich
+    armed), run its first step (the executor's plan-cache hook), then
+    time the full check suite on it standalone."""
+    from paddle_tpu_torch.fluid import analysis
+
+    t0 = time.perf_counter()
+    prog, live = build()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run()
+    first_run_s = time.perf_counter() - t0
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        fs = analysis.verify_program(prog, live_out=live)
+        times.append((time.perf_counter() - t0) * 1e3)
+    errors = [f.format() for f in fs if f.severity == analysis.ERROR]
+    if errors:
+        fail(f"verify: {what} has {len(errors)} ERROR finding(s): "
+             f"{errors[:4]}")
+    findings[what] = {"ops": len(prog.global_block().ops),
+                      "verify_ms": statistics.median(times),
+                      "verify_ms_all": times, "build_s": build_s,
+                      "first_run_s": first_run_s,
+                      "errors": 0,
+                      "warnings": sum(f.severity == analysis.WARNING
+                                      for f in fs),
+                      "checks": sorted({f.check for f in fs})}
+
+
+def phase_verify(torch, card: str) -> dict:
+    """FLAGS_program_verify=1 and FLAGS_op_callstack=1 on the card's
+    programs: BERT-base training (fused, AMP), the frozen BERT-base infer
+    program, ResNet-50 training after the conv+BN fusion and the NMT's
+    training; no ERROR finding through any pass sandwich, the executor's
+    plan-cache hook or the standalone suite, each program's op count and
+    the verifier's host ms; then a seeded fault (an op reading a var that
+    nothing writes) caught before any op runs, naming this file's line."""
+    import inspect
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import analysis, flags
+    from paddle_tpu_torch.fluid.analysis import sandwich
+    from paddle_tpu_torch.inference import ServingPredictor, freeze_program
+    from paddle_tpu_torch.models import bert, resnet
+
+    t_phase = time.perf_counter()
+    calls = []
+    real = sandwich.verify_program
+
+    def counted(program, **kw):
+        fs = real(program, **kw)
+        calls.append(sum(f.severity == analysis.ERROR for f in fs))
+        return fs
+
+    sandwich.verify_program = counted
+    flags.set_flags({"FLAGS_program_verify": True,
+                     "FLAGS_op_callstack": True})
+    found, sandwiches = {}, {}
+    try:
+        cfg = bert.BertConfig.base()
+        cfg.fuse_stack = True
+        exe = fluid.Executor()
+        state = {}
+
+        def bert_train():
+            m, st, loss = _train_program(cfg, 8, 512, 76, amp=True)
+            state.update(main=m, startup=st, loss=loss)
+            return m, [loss.name]
+
+        def bert_train_run():
+            scope = fluid.Scope()
+            exe.run(state["startup"], scope=scope)
+            feed = bert.random_pretrain_batch(cfg, 8, 512, 76, seed=0)
+            exe.run(state["main"], feed=feed, fetch_list=[state["loss"]],
+                    scope=scope)
+            state.clear()
+
+        def bert_infer():
+            m, st, seq, pooled = _bert_program(cfg, 8, 512)
+            scope = fluid.Scope()
+            exe.run(st, scope=scope)
+            fm = freeze_program(m, scope=scope, fetch_list=[seq, pooled])
+            state.update(frozen=fm)
+            return fm.program, list(fm.feed_names) + list(fm.fetch_names)
+
+        def bert_infer_run():
+            feed = _bert_batch(np.random.default_rng(0), cfg, 8, 512, 128)
+            ServingPredictor(state["frozen"]).run(feed)
+            state.clear()
+
+        def resnet_train():
+            rcfg = resnet.ResNetConfig.resnet50()
+            m, st, loss = _resnet_train_program(rcfg, 128, 224, amp=True)
+            state.update(main=m, startup=st, loss=loss,
+                         classes=rcfg.num_classes)
+            return m, [loss.name]
+
+        def resnet_run():
+            scope = fluid.Scope()
+            exe.run(state["startup"], scope=scope)
+            exe.run(state["main"], feed=_resnet_batch(128, 224,
+                                                      state["classes"]),
+                    fetch_list=[state["loss"]], scope=scope)
+            state.clear()
+
+        def nmt_train():
+            m, st, loss, _ = _nmt_program(NMT["batch"], NMT["src_len"],
+                                          NMT["trg_len"])
+            state.update(main=m, startup=st, loss=loss)
+            return m, [loss.name]
+
+        def nmt_run():
+            scope = fluid.Scope()
+            exe.run(state["startup"], scope=scope)
+            exe.run(state["main"], feed=_nmt_batch(
+                NMT["batch"], NMT["src_len"], NMT["trg_len"]),
+                fetch_list=[state["loss"]], scope=scope)
+            state.clear()
+
+        for what, build, run in (
+                ("bert_train_fused_amp", bert_train, bert_train_run),
+                ("bert_infer_frozen", bert_infer, bert_infer_run),
+                ("resnet50_train_fused_amp", resnet_train, resnet_run),
+                ("nmt_train_amp", nmt_train, nmt_run)):
+            before = len(calls)
+            _verify_program(what, build, run, found)
+            sandwiches[what] = len(calls) - before
+            torch.cuda.empty_cache()
+        if any(calls) or min(sandwiches.values()) < 2:
+            fail(f"verify: sandwich ERROR counts {calls}, passes "
+                 f"{sandwiches}")
+
+        # the seeded fault: an op reading a var that nothing writes
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup):
+            x = fluid.layers.data("x", [4, 8], append_batch_size=False)
+            fluid.layers.relu(x)
+        line = inspect.currentframe().f_lineno + 1
+        main.global_block().append_op(type="relu", inputs={"X": ["ghost"]},
+                                      outputs={"Out": ["o"]}, infer=False)
+        where = f"{inspect.currentframe().f_code.co_filename}:{line}"
+        t0 = time.perf_counter()
+        try:
+            exe.run(main, feed={"x": np.zeros((4, 8), np.float32)},
+                    fetch_list=["o"], scope=fluid.Scope())
+        except analysis.ProgramVerifyError as e:
+            caught = str(e)
+            checks = sorted({f.check for f in e.findings
+                             if f.severity == analysis.ERROR})
+        else:
+            fail("verify: the seeded fault ran without a ProgramVerifyError")
+        seeded_ms = (time.perf_counter() - t0) * 1e3
+        if checks != ["dangling-ref"] or where not in caught:
+            fail(f"verify: the seeded fault gave {checks}, not naming "
+                 f"{where}: {caught[:1000]}")
+    finally:
+        sandwich.verify_program = real
+        flags.set_flags({"FLAGS_program_verify": False})
+    out = {"phase": "verify", "card": card, "programs": found,
+           "sandwich_passes": sandwiches,
+           "sandwich_errors": sum(calls),
+           "seeded_fault": {"checks": checks, "user_frame": where,
+                            "ms": seeded_ms},
+           "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
 def _kernel_entry(name, source, replaces, launches, k) -> dict:
     return {"name": name, "route": "cuda",
             "source": f"paddle_tpu_torch/ops/kernels/csrc/{source}",
@@ -5009,7 +5677,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
                     help="also write every JSON line to this file")
+    ap.add_argument("--fit-child", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--fit-role", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.fit_child:
+        return _fit_child(args.fit_child, args.fit_role)
 
     import torch
 
@@ -5018,6 +5690,7 @@ def main() -> int:
               "script needs a CUDA card", file=sys.stderr)
         return 2
     os.environ["PADDLE_TRACING"] = "1"   # engine spans: per-step times
+    t_start = time.perf_counter()
     env = phase_env(torch)
     build = phase_build()
     kern = phase_kernels(torch)
@@ -5078,18 +5751,24 @@ def main() -> int:
     llaunches = long_runs["chosen"]["launches"]
     flaunches = long_runs["flash"]["launches"]
     torch.cuda.empty_cache()
+    rlaunches_fit = phase_fit_resume(torch, env["card"])["launches"]
+    torch.cuda.empty_cache()
+    phase_verify(torch, env["card"])
+    torch.cuda.empty_cache()
 
     def new_paths(key):
         """The launches of ``key`` on this slice's two paths."""
         return {"transformer_train": tlaunches[key],
                 "bert_long_train": llaunches[key],
-                "bert_long_train_flash": flaunches[key]}
+                "bert_long_train_flash": flaunches[key],
+                "fit_resume": rlaunches_fit[key]}
 
     def entry(name, source, replaces, k, path_launches, main="bert_train"):
         e = _kernel_entry(name, source, replaces, path_launches[main], k)
         e["launches_by_path"] = path_launches
         return e
 
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     conv_bn = [
         ("conv_stats", "paddle_tpu/ops/pallas/conv_bn.py:354"),
         ("mm_stats", "paddle_tpu/ops/pallas/conv_bn.py:387"),

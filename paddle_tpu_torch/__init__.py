@@ -21,7 +21,11 @@ pretraining: ``fluid.backward`` (generic grad ops through
 LayerNorm and the forward's in-kernel Philox dropout; and ResNet
 training (``models.resnet``): the conv / pool / batch-norm emitters, the
 conv+BN fusion pass (``fluid.fusion_pass``) and the fused conv+BN
-kernels (``ops.kernels.conv_bn``), with the fold of a frozen ResNet.
+kernels (``ops.kernels.conv_bn``), with the fold of a frozen ResNet;
+the hapi and Transformer NMTs, the RPC serving replica; and
+preemption-safe training: the static verifier (``fluid.analysis``),
+checkpoints (``fluid.checkpoint``) and ``hapi.Model.fit`` with
+``checkpoint_dir``/``resume``.
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; see :func:`resolve_device`.

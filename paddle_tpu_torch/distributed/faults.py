@@ -1,8 +1,9 @@
 """Deterministic fault injection: the part of the JAX package's
 ``distributed/faults.py`` that the port's call sites reach — the RPC
 transport (``distributed/ps_server.py``'s ``_Conn`` and the serving
-replica's ``handle``) and the named code phases of the generation engine
-and the atomic writes of ``fluid/io.py``.
+replica's ``handle``), the named code phases of the generation engine,
+the atomic writes of ``fluid/io.py`` and the commit protocol of
+``fluid/checkpoint.py``.
 
 Gate: the layer is active only when BOTH the FLAGS_ps_fault_injection
 flag is on AND PADDLE_PS_FAULT_SPEC is non-empty. Flag-off behavior is
@@ -43,15 +44,29 @@ Spec grammar (PADDLE_PS_FAULT_SPEC) — semicolon-separated rules:
             crash   phase side: os._exit(1) at the Nth arrival at a
                     named code phase (crash_point(phase) call sites:
                     "gen_decode_step" kills a replica mid-decode; an
-                    atomic write's `crash_phase`)
+                    atomic write's `crash_phase`; the checkpoint's
+                    "ckpt_tmp_written" (content written, step dir not
+                    yet renamed in), "ckpt_before_commit" (step dir in
+                    place, manifest not yet written),
+                    "ckpt_manifest_tmp_written" (manifest tmp written,
+                    not yet renamed) and "ckpt_writer" (inside the async
+                    writer thread, before it touches the disk))
+            io_err  phase side: raise OSError(EIO) at the Nth arrival at
+                    a named WRITE phase (io_point(phase) call sites:
+                    "ckpt_content", "ckpt_manifest")
+            short_write  phase side: the Nth write at the matching phase
+                    lands TRUNCATED (half the intended bytes) while the
+                    writer believes it succeeded
+            diskfull  phase side, LATCHING: from the Nth arrival at the
+                    matching phase on, EVERY io_point write phase in
+                    this process raises OSError(ENOSPC)
     method  an RPC verb name (infer, generate, ...), a phase name, or "*"
     nth     1-based index of the matching call AT THE INJECTION SITE;
             each one-shot rule fires exactly once, on its Nth match
 
-The reference's lease, netsplit, disk (io_err, short_write, diskfull),
-bitflip and OOM rules have no call site in the port yet; they come with
-the code that calls them (ROADMAP A6), and a spec naming one is refused
-here.
+The JAX package's lease, netsplit, bitflip and OOM rules have no call
+site in the port yet; they come with the code that calls them (ROADMAP
+A6), and a spec naming one is refused here.
 
 Counting is per-process and per-rule, so the schedule is a pure function
 of the arrival sequence — reruns inject the same faults at the same
@@ -74,10 +89,12 @@ ENV_TAGS = "PADDLE_PS_FAULT_TAGS"
 _CLIENT_ACTIONS = ("drop", "refuse", "delay", "stall")
 _SERVER_ACTIONS = ("kill", "slow", "partition")
 _PHASE_ACTIONS = ("crash",)
-_KNOWN = _CLIENT_ACTIONS + _SERVER_ACTIONS + _PHASE_ACTIONS
+# disk-fault rules: fire at named WRITE phases (io_point call sites in
+# the checkpoint commit protocol)
+_IO_ACTIONS = ("io_err", "short_write", "diskfull")
+_KNOWN = _CLIENT_ACTIONS + _SERVER_ACTIONS + _PHASE_ACTIONS + _IO_ACTIONS
 # rules of the JAX package whose call sites the port does not have yet
-_NOT_PORTED = ("oom", "bitflip", "io_err", "short_write", "diskfull",
-               "lease_expire", "netsplit")
+_NOT_PORTED = ("oom", "bitflip", "lease_expire", "netsplit")
 
 
 class FaultError(ConnectionError):
@@ -151,10 +168,11 @@ class FaultInjector:
       on_server_call(method) — fires kill (os._exit) at the nth match,
       the repeating slow, and latches partition
 
-    Phase hooks (called through crash_point()/stall_point() at named
-    code phases):
+    Phase hooks (called through crash_point()/stall_point()/io_point()
+    at named code phases):
       at_phase(phase)       — fires crash (os._exit) on the Nth arrival
       at_stall_phase(phase) — sleeps on every nth-th arrival
+      at_io_phase(phase)    — the disk faults of a write phase
     """
 
     def __init__(self, spec: str):
@@ -162,6 +180,7 @@ class FaultInjector:
         self._rules = parse_spec(spec)
         self._lock = threading.Lock()
         self.partitioned = False  # latched by a fired `partition` rule
+        self.disk_full = False  # latched by a fired `diskfull` rule
 
     def _take(self, site_actions, method: str) -> List[_Rule]:
         """Advance matching rules' counters; return the rules firing NOW."""
@@ -259,6 +278,34 @@ class FaultInjector:
         for r in self._take_every(("stall",), phase):
             time.sleep((r.arg or 0) / 1000.0)
 
+    def at_io_phase(self, phase: str) -> bool:
+        """Consulted at named checkpoint WRITE phases (io_point call
+        sites). Raises OSError for `io_err` (one EIO at the Nth match)
+        and `diskfull` (ENOSPC from the Nth match on — latched: a full
+        disk fails every later write too); returns True when a
+        `short_write` rule fired and the caller must truncate the bytes
+        it is about to write."""
+        import errno
+
+        for r in self._take(("diskfull",), phase):
+            os.write(2, (f"[faults] disk full from phase {phase!r} on "
+                         f"(rule diskfull:{r.method}:{r.nth})\n").encode())
+            with self._lock:
+                self.disk_full = True
+        if self.disk_full:
+            raise OSError(errno.ENOSPC,
+                          f"fault injection: no space left on device "
+                          f"(phase {phase!r})")
+        for r in self._take(("io_err",), phase):
+            raise OSError(errno.EIO,
+                          f"fault injection: I/O error at phase "
+                          f"{phase!r} (rule io_err:{r.method}:{r.nth})")
+        short = bool(self._take(("short_write",), phase))
+        if short:
+            os.write(2, (f"[faults] short write at phase {phase!r}\n"
+                         ).encode())
+        return short
+
 
 _injector: Optional[FaultInjector] = None
 _injector_lock = threading.Lock()
@@ -308,6 +355,17 @@ def stall_point(phase: str) -> None:
     inj = injector()
     if inj is not None:
         inj.at_stall_phase(phase)
+
+
+def io_point(phase: str) -> bool:
+    """Deterministic disk-fault site at a named write phase: may raise
+    OSError (`io_err`, `diskfull`); returns True when the caller must
+    simulate a short write (truncate the bytes). One flag read when the
+    layer is off."""
+    inj = injector()
+    if inj is None:
+        return False
+    return inj.at_io_phase(phase)
 
 
 def reset() -> None:

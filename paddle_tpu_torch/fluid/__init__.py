@@ -3,9 +3,11 @@
 Parity surface: python/paddle/fluid/__init__.py in the reference, ported
 from the JAX package's ``fluid``: the same Program / layers / Executor
 API, executing op by op in torch on one device (the CUDA card unless the
-Executor is given ``device="cpu"``), with ``append_backward`` and the
-SGD / Momentum / Adam / AdamW optimizers.  Dygraph and the dataset /
-reader front ends wait for later slices (ROADMAP).
+Executor is given ``device="cpu"``), with ``append_backward``, the
+SGD / Momentum / Adam / AdamW optimizers, the static verifier
+(``analysis``) and preemption-safe checkpoints (``CheckpointManager``).
+Dygraph mode (only ``dygraph.save_dygraph`` / ``load_dygraph`` so far)
+and the dataset / reader front ends wait for later slices (ROADMAP).
 """
 from . import (  # noqa: F401
     backward,
@@ -21,6 +23,8 @@ from . import (  # noqa: F401
     regularizer,
     unique_name,
 )
+from . import analysis, checkpoint, dygraph, monitor  # noqa: F401
+from .checkpoint import CheckpointManager  # noqa: F401
 from .backward import append_backward, calc_gradient, gradients  # noqa: F401
 from .executor import Executor, Scope, global_scope, scope_guard  # noqa: F401
 from .flags import get_flags, set_flags  # noqa: F401

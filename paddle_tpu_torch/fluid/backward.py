@@ -13,8 +13,10 @@ grad op ``<type>_grad`` is synthesized from the forward emitter through
 ``torch.autograd`` (ops/registry.py).  Ops with randomness or saved
 residuals (dropout) register explicit grad makers.
 
-Not ported: the JAX package's ``pass_sandwich`` program verification
-around the pass (FLAGS_program_verify; the verifier is ROADMAP A12).
+Under FLAGS_program_verify the builder runs pass-sandwiched
+(``fluid/analysis``), as in the JAX package: the program is verified
+before and after, and an error finding the pass introduced raises a
+ProgramVerifyError attributed to ``append_backward``.
 """
 from __future__ import annotations
 
@@ -66,6 +68,21 @@ def append_backward(
     reference's recompute segments); the fused encoder stack's remat
     attrs do the recompute here.
     """
+    from .analysis import pass_sandwich
+
+    with pass_sandwich(loss.block.program, "append_backward",
+                       live_out=(loss.name,)):
+        return _append_backward_impl(
+            loss, parameter_list, no_grad_set, callbacks, checkpoints)
+
+
+def _append_backward_impl(
+    loss: framework.Variable,
+    parameter_list: Optional[Sequence] = None,
+    no_grad_set: Optional[Set[str]] = None,
+    callbacks=None,
+    checkpoints: Optional[List] = None,
+) -> List[Tuple[framework.Parameter, framework.Variable]]:
     if parameter_list is not None:
         parameter_list = [
             p.name if isinstance(p, framework.Variable) else p for p in parameter_list

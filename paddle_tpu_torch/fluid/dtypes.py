@@ -111,6 +111,11 @@ def is_floating(dtype) -> bool:
     return d is bfloat16 or np.issubdtype(d, np.floating)
 
 
+def is_integer(dtype) -> bool:
+    d = convert_dtype(dtype)
+    return d is not bfloat16 and np.issubdtype(d, np.integer)
+
+
 def runtime_dtype(dtype):
     """Device-side dtype for tensor CREATION.  The JAX package runs with
     64-bit types off, so a 64-bit int or float lives on the device as its

@@ -26,7 +26,12 @@ from inside the emitters.  What carries over unchanged:
   fetched (``_BlockPlan.free_after``), so a step holds what a compiled
   step would and ``memory_analysis`` measures that;
 * the spans ``step``, ``data_wait``, ``device`` and ``fetch`` of the
-  port's ``telemetry/tracing.py`` (armed by PADDLE_TRACING=1).
+  port's ``telemetry/tracing.py`` (armed by PADDLE_TRACING=1), and the
+  step count of ``fluid/monitor.py`` (``mark_step``);
+* the static verifier under FLAGS_program_verify: on a plan-cache miss,
+  before any op runs, the program is verified (``assert_valid``) and so
+  is the scope it reads (``assert_scope_valid``); with the flag off the
+  cost is one flag read a miss.
 
 Autograd mode.  A block that holds grad ops (``fluid.backward``) runs
 under ``torch.no_grad()``: the registry switches autograd on only for
@@ -40,9 +45,9 @@ one for the backward of a later training step.  The optimizer ops write
 ``ParamOut``/``Moment*Out`` under the input names: each is a new tensor,
 and ``state_out`` writes it back detached, so no step's graph outlives
 the step.  ``memory_analysis`` measures one trial step (see there).  Not
-ported yet: the step monitor, the numerics guards (FLAGS_check_nan_inf,
-FLAGS_check_numerics), the memory OOM doctor, the mesh / shard_map paths
-and the dataset loops (ROADMAP §C).
+ported yet: the step monitor's records, the numerics guards
+(FLAGS_check_nan_inf, FLAGS_check_numerics), the memory OOM doctor, the
+mesh / shard_map paths and the dataset loops (ROADMAP §C).
 """
 from __future__ import annotations
 
@@ -52,8 +57,9 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from . import framework
+from . import framework, monitor
 from .dtypes import runtime_dtype, to_torch_dtype
+from .flags import flag
 from ..ops import registry
 from ..telemetry import tracing as _tracing
 
@@ -186,8 +192,10 @@ class Executor:
         use_program_cache: bool = True,  # parity arg; always cached
     ):
         with _tracing.step_span():
-            return self._run_impl(program, feed, fetch_list, scope,
-                                  return_numpy)
+            out = self._run_impl(program, feed, fetch_list, scope,
+                                 return_numpy)
+        monitor.mark_step()
+        return out
 
     def _run_impl(self, program, feed, fetch_list, scope, return_numpy):
         scope = scope or global_scope()
@@ -318,9 +326,27 @@ class Executor:
         key = self._cache_key(program, feeds, fetch_names)
         plan = self._cache.get(key)
         if plan is None:
+            if flag("FLAGS_program_verify"):
+                self._verify(program, feeds, fetch_names, scope)
             plan = self._cache[key] = self._plan(program, block, feeds,
                                                  fetch_names, scope)
         return plan
+
+    @staticmethod
+    def _verify(program, feeds, fetch_names, scope):
+        """The static verifier before a new plan's first step: a
+        malformed graph, or a persistable the scope lacks or holds at
+        another shape or dtype, raises ProgramVerifyError naming the op's
+        build-time call stack instead of failing inside an emitter.
+        Orphan-scope warnings are skipped: scopes are shared across
+        programs (startup, then main)."""
+        from .analysis import assert_scope_valid, assert_valid
+
+        where = "Executor plan (FLAGS_program_verify)"
+        assert_valid(program, live_out=set(feeds) | set(fetch_names),
+                     where=where)
+        assert_scope_valid(program, scope, feed_names=set(feeds),
+                           check_orphans=False, where=where)
 
     @staticmethod
     def _cache_key(program, feeds, fetch_names):

@@ -12,8 +12,10 @@ tensors (shapes and dtypes only, no data, no kernel launch) instead of
 (batch) dims: the op is evaluated with -1 read as 3 and as 5, and every
 output dim that differs between the two becomes -1.
 
-Not ported yet: ``device_guard`` stage tags and the op-callstack
-diagnostics attr (the pipeline and verifier slices), dygraph mode, and
+Each op records the Python call stack that built it
+(``OP_CALLSTACK_ATTR``, under FLAGS_op_callstack), so the static
+verifier (``fluid/analysis``) names the user's layer call.  Not ported
+yet: ``device_guard`` stage tags (the pipeline slice), dygraph mode, and
 the mesh a fleet pass attaches.
 """
 from __future__ import annotations
@@ -21,13 +23,39 @@ from __future__ import annotations
 import contextlib
 import copy
 import itertools
+import sys
 from typing import Any, Dict, List, Optional, Sequence
 
 from . import unique_name
 from .dtypes import convert_dtype, dtype_name, is_floating
+from .flags import flag
 
 GRAD_VAR_SUFFIX = "@GRAD"
 _dummy_batch_probes = (3, 5)
+
+# op attr holding the build-time Python call stack (reference OpDesc attr
+# "op_callstack").  Double-underscored so the registry's attr signatures
+# (registry._attrs_sig) and the generic grad path ignore it: diagnostics,
+# never semantics.
+OP_CALLSTACK_ATTR = "__op_callstack__"
+
+
+def _capture_callstack(skip: int = 2, limit: int = 32):
+    """A (file, line, fn) stack walk for op attribution: no source line
+    is read, so it costs a few microseconds an op.  FLAGS_op_callstack=0
+    turns it off."""
+    if not flag("FLAGS_op_callstack"):
+        return None
+    try:
+        f = sys._getframe(skip)
+    except ValueError:
+        return None
+    out = []
+    while f is not None and len(out) < limit:
+        code = f.f_code
+        out.append((code.co_filename, f.f_lineno, code.co_name))
+        f = f.f_back
+    return tuple(out)
 
 
 class Variable:
@@ -153,6 +181,10 @@ class Operator:
     def attr(self, name: str, default=None):
         return self.attrs.get(name, default)
 
+    def _set_attr(self, name: str, val):
+        self.attrs[name] = val
+        self.block.program._bump_version()
+
     def __repr__(self):
         return (f"Op(type={self.type}, inputs={self.inputs}, "
                 f"outputs={self.outputs})")
@@ -221,6 +253,10 @@ class Block:
     ) -> Operator:
         op = Operator(self, type, inputs=_normalize_io(inputs),
                       outputs=_normalize_io(outputs), attrs=attrs)
+        if OP_CALLSTACK_ATTR not in op.attrs:
+            cs = _capture_callstack()
+            if cs is not None:
+                op.attrs[OP_CALLSTACK_ATTR] = cs
         self.ops.append(op)
         self._post_insert(op, infer)
         return op
@@ -230,9 +266,17 @@ class Block:
         """Insert an op at ``index`` (the AMP rewrite's cast insertion)."""
         op = Operator(self, type, inputs=_normalize_io(inputs),
                       outputs=_normalize_io(outputs), attrs=attrs)
+        if OP_CALLSTACK_ATTR not in op.attrs:
+            cs = _capture_callstack()
+            if cs is not None:
+                op.attrs[OP_CALLSTACK_ATTR] = cs
         self.ops.insert(index, op)
         self._post_insert(op, infer)
         return op
+
+    def _remove_op(self, index: int):
+        del self.ops[index]
+        self.program._bump_version()
 
     def _post_insert(self, op: Operator, infer: bool):
         # ensure output vars exist; infer their shapes/dtypes from the emitter

@@ -15,8 +15,9 @@ convs, mismatched layouts and shared intermediates are left alone;
 ``is_test`` BNs are rewritten too, and the emitter folds them into the
 conv weights.
 
-Not ported: the ``pass_sandwich`` program verification around the pass
-under FLAGS_program_verify (the verifier is ROADMAP A12).
+Under FLAGS_program_verify the rewrite runs pass-sandwiched
+(``fluid/analysis``): the program is verified before and after, and an
+error finding the pass introduced raises attributed to it.
 """
 from __future__ import annotations
 
@@ -130,13 +131,16 @@ def apply_conv_bn_fusion(program) -> int:
     returns the number of fusions.  Unconditional (an explicit call
     states intent); training goes through ``maybe_apply_conv_bn_fusion``,
     which honours FLAGS_conv_bn_fusion."""
+    from .analysis import pass_sandwich
+
     fused = 0
-    for block in program.blocks:
-        i = 0
-        while i < len(block.ops):
-            if _try_fuse_at(block, i):
-                fused += 1
-            i += 1
+    with pass_sandwich(program, "conv_bn_fusion"):
+        for block in program.blocks:
+            i = 0
+            while i < len(block.ops):
+                if _try_fuse_at(block, i):
+                    fused += 1
+                i += 1
     return fused
 
 

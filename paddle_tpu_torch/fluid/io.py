@@ -516,22 +516,29 @@ def load_inference_model(dirname, executor, model_filename=None,
 
 # ---------------------------------------------------------------------------
 # whole-state save/load (reference io.py:1669/1733): Orbax in the JAX
-# package; what replaces it is ROADMAP A5's to decide
+# package, which the card's installation lacks; the port's whole-state
+# checkpointer is fluid.CheckpointManager (fluid/checkpoint.py)
 # ---------------------------------------------------------------------------
 
 
 def save(program, model_path: str):
     raise NotImplementedError(
-        "fluid.io.save (the JAX package's Orbax checkpoint) is not ported; "
-        "checkpoints are ROADMAP A5. save_persistables writes the same "
-        "state as .npy files")
+        "fluid.io.save (the JAX package's Orbax checkpoint) is not ported: "
+        "the port's whole-state checkpointer is fluid.CheckpointManager "
+        "(atomic, verified, resumable; save_persistables writes the "
+        "persistables as .npy files); a sharded layout waits for the "
+        "distributed slices (ROADMAP A4, then the coordinator of ROADMAP "
+        "A6)")
 
 
 def load(program, model_path: str, executor=None):
     raise NotImplementedError(
-        "fluid.io.load (the JAX package's Orbax checkpoint) is not ported; "
-        "checkpoints are ROADMAP A5. load_persistables reads "
-        "save_persistables' files")
+        "fluid.io.load (the JAX package's Orbax checkpoint) is not ported: "
+        "fluid.CheckpointManager.restore reads the port's whole-state "
+        "checkpoints, and either package's (load_persistables reads "
+        "save_persistables' files); a sharded layout waits for the "
+        "distributed slices (ROADMAP A4, then the coordinator of ROADMAP "
+        "A6)")
 
 
 # ---------------------------------------------------------------------------

@@ -244,6 +244,15 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
     return loss
 
 
+def square_error_cost(input, label):
+    helper = LayerHelper("square_error_cost")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="square_error_cost",
+                     inputs={"X": [input], "Y": [label]},
+                     outputs={"Out": [out]})
+    return out
+
+
 def _elementwise(op_type):
     def layer(x, y, axis=-1, act=None, name=None):
         helper = LayerHelper(op_type, act=act, name=name)

@@ -21,9 +21,10 @@ The frozen weights are captured by reference into the FrozenModel's own
 scope: the executor replaces a scope entry after a step and never writes
 into a captured tensor, so serving stays isolated from further training.
 
-Not ported yet (ROADMAP §C): the static verifier the JAX package runs
-around and after the freeze (``pass_sandwich``, ``verify_program``,
-``assert_scope_valid`` — fluid/analysis, A12).
+As in the JAX package, the static verifier (``fluid/analysis``) runs
+around and after the freeze: the prune is pass-sandwiched under
+FLAGS_program_verify, and the frozen program (``verify_program``) and
+its captured scope (``assert_scope_valid``) are verified every time.
 """
 from __future__ import annotations
 
@@ -32,6 +33,8 @@ from typing import Dict, List, Optional, Sequence
 
 from ..fluid import executor as _executor
 from ..fluid import framework
+from ..fluid.analysis import (ERROR, ProgramVerifyError, assert_scope_valid,
+                              pass_sandwich, verify_program)
 from ..fluid.executor import Scope
 from ..fluid.fusion_pass import apply_conv_bn_fusion
 from ..fluid.io import _prune_for_inference, load_inference_model
@@ -122,6 +125,20 @@ def _detect_state_vars(program, feed_names: Sequence[str],
         state |= new
 
 
+def _relink(program) -> None:
+    """Point each var of block 0 at the last op that writes it (None
+    for a var no op writes)."""
+    blk = program.global_block()
+    for v in blk.vars.values():
+        v.op = None
+    for op in blk.ops:
+        for n in op.output_names():
+            v = blk._find_var_recursive(n)
+            if v is not None:
+                v.op = op
+    program._bump_version()
+
+
 def freeze_program(program, scope=None, feed_names: Optional[Sequence[str]]
                    = None, fetch_list: Sequence = ()) -> FrozenModel:
     """Clone ``program`` into a pruned ``is_test`` inference Program and
@@ -141,9 +158,13 @@ def freeze_program(program, scope=None, feed_names: Optional[Sequence[str]]
     state_vars = _detect_state_vars(program, feed_names, fetch_names)
     live_out = set(feed_names) | set(fetch_names) | set(state_vars)
 
-    frozen = _prune_for_inference(program, feed_names, fetch_names,
-                                  state_vars=state_vars)
+    with pass_sandwich(program, "freeze_program", live_out=live_out):
+        frozen = _prune_for_inference(program, feed_names, fetch_names,
+                                      state_vars=state_vars)
     blk = frozen.global_block()
+    # the prune dropped the backward and optimizer ops: relink first, so
+    # the fold's own sandwich does not see their vars' stale writers
+    _relink(frozen)
     # conv+BN fold: is_test is set, so the fused emitter folds the BN into
     # the conv weights
     fused = apply_conv_bn_fusion(frozen)
@@ -156,14 +177,13 @@ def freeze_program(program, scope=None, feed_names: Optional[Sequence[str]]
         used.update(op.output_names())
     for name in [n for n in blk.vars if n not in used]:
         del blk.vars[name]
-    for v in blk.vars.values():
-        v.op = None
-    for op in blk.ops:
-        for n in op.output_names():
-            v = blk._find_var_recursive(n)
-            if v is not None:
-                v.op = op
-    frozen._bump_version()
+    _relink(frozen)
+
+    # a frozen model ships to serving replicas: always worth one verify
+    errors = [f for f in verify_program(frozen, live_out=live_out)
+              if f.severity == ERROR]
+    if errors:
+        raise ProgramVerifyError(errors, where="freeze_program result")
 
     # capture every persistable the frozen ops still read
     param_names = sorted(
@@ -182,6 +202,10 @@ def freeze_program(program, scope=None, feed_names: Optional[Sequence[str]]
             f"freeze_program: {len(missing)} persistable(s) are "
             f"uninitialized in the scope (run the startup program "
             f"first): {missing[:5]}")
+    # the frozen program reads only its captured weights and state vars,
+    # each of the var's shape and dtype
+    assert_scope_valid(frozen, fscope, feed_names=feed_names,
+                       where="freeze_program captured scope")
     return FrozenModel(program=frozen, feed_names=list(feed_names),
                        fetch_names=fetch_names, param_names=param_names,
                        scope=fscope, fused_conv_bn=fused,

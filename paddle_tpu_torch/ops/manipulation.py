@@ -103,16 +103,74 @@ def _fill_value(dtype):
     return info.min if info.min < 0 else info.max
 
 
+# a table with at most this many rows takes its gradient as one masked
+# sum per row: its ids repeat so often that the sorted scatter, which
+# adds the copies of one id one after another, runs long
+_SMALL_TABLE_ROWS = 8
+
+
+def index_sum(shape, axis, idx, g):
+    """The gradient of ``x.index_select(axis, idx)``: ``g``'s slices summed
+    into a zero tensor of ``shape`` at ``idx`` along ``axis``, the copies
+    of a repeated index in a fixed order.  On the CPU ``index_add_``
+    (sequential).  On the card, where ``index_add_`` adds with atomics in
+    whatever order the threads arrive, a table of at most
+    ``_SMALL_TABLE_ROWS`` rows is summed row by row under a mask
+    (``torch.sum``'s fixed-order reduction), and a larger one through
+    ``index_put_(accumulate=True)``, which sorts the ids and adds each
+    one's copies in order."""
+    if g.device.type != "cuda":
+        return g.new_zeros(shape).index_add_(axis, idx, g)
+    return ordered_index_sum(shape, axis, idx, g)
+
+
+def ordered_index_sum(shape, axis, idx, g):
+    """``index_sum``'s card method, on any device: the masked sums of a
+    small table, else the sorted ``index_put_``."""
+    dx = g.new_zeros(shape)
+    out, src = dx.movedim(axis, 0), g.movedim(axis, 0)
+    if shape[axis] <= _SMALL_TABLE_ROWS:
+        mask = idx.view((-1,) + (1,) * (src.dim() - 1))
+        for r in range(shape[axis]):
+            out[r] = torch.where(mask == r, src, 0).sum(0)
+    else:
+        out.index_put_((idx,), src, accumulate=True)
+    return dx
+
+
+class _IndexSelect(torch.autograd.Function):
+    """``x.index_select(axis, idx)`` whose backward sums the rows of a
+    repeated index in a fixed order on the card too (``index_sum``), so
+    two runs of a training step give the same embedding gradient to the
+    bit.  Autograd's own backward adds them with atomics on CUDA."""
+
+    @staticmethod
+    def forward(ctx, x, axis, idx):
+        ctx.save_for_backward(idx)
+        ctx.axis, ctx.shape = axis, x.shape
+        return x.index_select(axis, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        return index_sum(ctx.shape, ctx.axis, idx, g), None, None
+
+
 def take(x, idx, axis=0):
     """``jnp.take(x, idx, axis)`` in its default ``mode="fill"``: an index
     in [-n, 0) wraps, one outside [-n, n) gives the fill value.  The index
     is clamped before the read, so an out-of-range one reads a valid row
     (on the card no device assert) and is masked after; the masked
-    elements take no gradient."""
+    elements take no gradient, and the gradient of a repeated index is
+    summed in a fixed order (``_IndexSelect``)."""
     n = x.shape[axis]
     idx = torch.where(idx < 0, idx + n, idx)
     ok = (idx >= 0) & (idx < n)
-    out = x.index_select(axis, idx.clamp(0, max(n - 1, 0)).reshape(-1))
+    flat = idx.clamp(0, max(n - 1, 0)).reshape(-1)
+    if torch.is_grad_enabled() and x.requires_grad:
+        out = _IndexSelect.apply(x, axis, flat)
+    else:
+        out = x.index_select(axis, flat)
     out = out.reshape(x.shape[:axis] + idx.shape + x.shape[axis + 1:])
     ok = ok.reshape(idx.shape + (1,) * (x.dim() - axis - 1))
     return torch.where(ok, out, _fill_value(x.dtype))

@@ -1,6 +1,7 @@
 """Neural-net ops of the BERT and ResNet paths: conv2d, pool2d,
 batch_norm, fused_conv_bn, layer_norm, lookup_table(_v2), dropout (+
-dropout_grad), softmax_with_cross_entropy.
+dropout_grad), softmax_with_cross_entropy, and square_error_cost (the
+hapi ``Model`` tests' regression loss).
 
 Parity surface: reference conv_op.cc, pool_op.cc, batch_norm_op.cc,
 layer_norm_op.cc, lookup_table_v2_op.cc, dropout_op.cc,
@@ -376,6 +377,12 @@ def lookup_table(ctx, ins, attrs):
 def lookup_table_v2(ctx, ins, attrs):
     w, ids = ins["W"][0], ins["Ids"][0]
     return {"Out": [_lookup(w, ids, attrs.get("padding_idx", -1))]}
+
+
+@register("square_error_cost")
+def square_error_cost(ctx, ins, attrs):
+    x, y = ins["X"][0], ins["Y"][0]
+    return {"Out": [torch.square(x - y)]}
 
 
 @register("softmax_with_cross_entropy")

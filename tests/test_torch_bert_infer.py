@@ -98,7 +98,8 @@ def test_frozen_programs_match(frozen_pair):
     jops = [(op.type, op.inputs, op.outputs,
              {k: v for k, v in op.attrs.items() if not k.startswith("__")})
             for op in jf.program.global_block().ops]
-    tops = [(op.type, op.inputs, op.outputs, op.attrs)
+    tops = [(op.type, op.inputs, op.outputs,
+             {k: v for k, v in op.attrs.items() if not k.startswith("__")})
             for op in tf.program.global_block().ops]
     assert tops == jops
     assert tf.param_names == jf.param_names

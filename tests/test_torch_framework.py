@@ -488,6 +488,35 @@ def test_gather_gradient_past_the_end_matches_jax_vjp():
     np.testing.assert_allclose(xt.grad.numpy(), want, atol=TOL, rtol=0)
 
 
+@pytest.mark.parametrize("rows,axis", [(2, 0), (8, 1), (9, 0), (50, 1)])
+def test_ordered_index_sum_matches_jax_vjp(rows, axis):
+    """The card's fixed-order embedding gradient (masked sums for a table
+    of at most ``_SMALL_TABLE_ROWS`` rows, the sorted ``index_put_``
+    above), run here on CPU tensors: ``jax.vjp`` of the reference
+    ``gather`` within TOL, and the same bits on a second call."""
+    from paddle_tpu_torch.ops import manipulation
+
+    shape = (rows, 3) if axis == 0 else (2, rows, 3)
+    x = _f(*shape)
+    idx = np.random.default_rng(rows).integers(0, rows, 40).astype(np.int32)
+    gshape = list(shape)
+    gshape[axis] = idx.size
+    g = _f(*gshape)
+
+    def jgather(a):
+        return jreg.get("gather").emit(
+            jreg.EmitContext(), {"X": [a], "Index": [jnp.asarray(idx)]},
+            {"axis": axis})["Out"][0]
+
+    _, vjp = jax.vjp(jgather, jnp.asarray(x))
+    want = np.asarray(vjp(jnp.asarray(g))[0])
+    runs = [manipulation.ordered_index_sum(
+        shape, axis, torch.as_tensor(idx, dtype=torch.int64),
+        torch.as_tensor(g)) for _ in range(2)]
+    np.testing.assert_allclose(runs[0].numpy(), want, atol=TOL, rtol=0)
+    assert torch.equal(runs[0], runs[1])
+
+
 def test_uint8_sum_is_uint32_in_the_ir():
     """jnp.sum of uint8 gives uint32; the port's IR carries it both ways.
     torch keeps only casts, views and copies for uint32 (no add, no sum),

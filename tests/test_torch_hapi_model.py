@@ -1,0 +1,322 @@
+"""hapi ``Model`` (``fit`` / ``evaluate`` / ``predict``), its callbacks and
+metrics in the port against the JAX package's, on the CPU.
+
+The same network callable builds the train / eval / test programs in
+both packages; the JAX model's initialized scope is copied into the
+port's, and with dropout off the two give the same losses within 1e-5
+relative in f32 (measured well below: the same math in another
+summation order), the same eval logs and the same predictions, on the
+JAX checkpoint tests' tiny regression net (``tests/test_checkpoint.py``)
+and on tiny BERT pretraining (fused stack) driven through ``Model``.
+The refusals: FLAGS_check_numerics and ``reshard`` raise; a Model wants
+the CUDA card unless given ``device="cpu"``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu.fluid as jfluid
+import paddle_tpu.hapi as jhapi
+from paddle_tpu.models import bert as jbert
+import paddle_tpu_torch.fluid as tfluid
+import paddle_tpu_torch.hapi as thapi
+from paddle_tpu_torch.fluid import flags as tflags
+from paddle_tpu_torch.models import bert as tbert
+
+REL_TOL = 1e-5
+JAX = (jfluid, jhapi, jbert)
+TORCH = (tfluid, thapi, tbert)
+
+
+def _copy_weights(jm, tm):
+    """Every persistable of the JAX model's scope into the port's."""
+    for n, v in jm._scope.vars.items():
+        if v is not None:
+            tm._scope.set_var(n, torch.as_tensor(np.array(v)))
+
+
+def _regression(pkg, p=0.0, metrics=None):
+    fluid, hapi, _ = pkg
+
+    def net(x):
+        L = fluid.layers
+        h = L.dropout(L.fc(x, 16, act="relu"), dropout_prob=p)
+        return L.fc(h, 1)
+
+    kw = {"device": "cpu"} if pkg is TORCH else {}
+    m = hapi.Model(net, hapi.Input("x", [8, 4]), hapi.Input("y", [8, 1]),
+                   **kw)
+    m.prepare(fluid.optimizer.AdamOptimizer(learning_rate=1e-2),
+              lambda q, y: fluid.layers.mean(
+                  fluid.layers.square_error_cost(q, y)), metrics=metrics)
+    return m
+
+
+def _classifier(pkg):
+    fluid, hapi, _ = pkg
+
+    def net(x):
+        return fluid.layers.fc(fluid.layers.fc(x, 16, act="relu"), 3)
+
+    kw = {"device": "cpu"} if pkg is TORCH else {}
+    m = hapi.Model(net, hapi.Input("x", [8, 4]),
+                   hapi.Input("label", [8, 1], "int64"), **kw)
+    m.prepare(fluid.optimizer.SGDOptimizer(learning_rate=0.1),
+              lambda logits, label: fluid.layers.mean(
+                  fluid.layers.softmax_with_cross_entropy(logits, label)),
+              metrics=hapi.Accuracy(topk=2))
+    return m
+
+
+def _data(n=64, seed=0):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(n, 4).astype(np.float32),
+            rng.randn(n, 1).astype(np.float32))
+
+
+class _Rec:
+    def __init__(self):
+        self.out = []
+
+    def __getattr__(self, name):
+        if name.startswith("on_") or name == "set_model":
+            return lambda *a, **k: None
+        raise AttributeError(name)
+
+    def on_batch_end(self, mode, step, logs=None):
+        self.out.append(logs["loss"])
+
+    def on_epoch_end(self, epoch, logs=None):
+        return False
+
+
+def _pair(build):
+    jm, tm = build(JAX), build(TORCH)
+    _copy_weights(jm, tm)
+    return jm, tm
+
+
+def test_fit_evaluate_predict_match_jax():
+    X, Y = _data(64)
+    Xe, Ye = _data(32, seed=1)
+    jm, tm = _pair(_regression)
+    recs = _Rec(), _Rec()
+    hj = jm.fit((X, Y), eval_data=(Xe, Ye), batch_size=8, epochs=3,
+                verbose=0, callbacks=[recs[0]])
+    ht = tm.fit((X, Y), eval_data=(Xe, Ye), batch_size=8, epochs=3,
+                verbose=0, callbacks=[recs[1]])
+    assert len(recs[1].out) == 24
+    np.testing.assert_allclose(recs[1].out, recs[0].out, rtol=REL_TOL,
+                               atol=0)
+    for k in ("loss", "val_loss"):
+        np.testing.assert_allclose(ht[k], hj[k], rtol=REL_TOL, atol=0)
+    ej, et = jm.evaluate((Xe, Ye), batch_size=8), tm.evaluate(
+        (Xe, Ye), batch_size=8)
+    np.testing.assert_allclose(et["loss"], ej["loss"], rtol=REL_TOL)
+    (pj,), (pt,) = jm.predict((Xe,), batch_size=8), tm.predict(
+        (Xe,), batch_size=8)
+    assert pt.shape == (32, 1)
+    np.testing.assert_allclose(pt, pj, rtol=REL_TOL, atol=1e-6)
+    pl = tm.predict((Xe,), batch_size=8, stack_outputs=False)[0]
+    assert len(pl) == 4 and all(p.shape == (8, 1) for p in pl)
+    pj_, pt_ = jm.parameters(), tm.parameters()
+    assert sorted(pt_) == sorted(pj_)
+    for k in pj_:
+        np.testing.assert_allclose(pt_[k], np.asarray(pj_[k]), rtol=1e-4,
+                                   atol=1e-6, err_msg=k)
+
+
+def test_batch_entry_points_and_test_mode():
+    jm, tm = _pair(lambda pkg: _regression(pkg, p=0.5))
+    X, Y = _data(8)
+    for mode in ("eval", "test"):
+        prog = tm._progs[mode][0]
+        assert all(op.attrs["is_test"] for op in prog.global_block().ops
+                   if op.type == "dropout")
+    assert not any(op.attrs["is_test"]
+                   for op in tm._progs["train"][0].global_block().ops
+                   if op.type == "dropout")
+    (lt, ot), (lj, oj) = tm.eval_batch([X], [Y]), jm.eval_batch([X], [Y])
+    np.testing.assert_allclose(lt, lj, rtol=REL_TOL)
+    np.testing.assert_allclose(ot, oj, rtol=REL_TOL, atol=1e-6)
+    (pt,), (pj,) = tm.test_batch([X]), jm.test_batch([X])
+    np.testing.assert_allclose(pt, pj, rtol=REL_TOL, atol=1e-6)
+    # tensors already on the model's device feed as they are
+    (lt2, _) = tm.train_batch([torch.from_numpy(X)], [torch.from_numpy(Y)])
+    assert np.isfinite(lt2).all()
+    with pytest.raises(RuntimeError, match="prepare"):
+        thapi.Model(lambda x: x, thapi.Input("x", [2]),
+                    device="cpu").test_batch([X])
+
+
+def test_accuracy_metric_and_early_stopping_match_jax():
+    rng = np.random.RandomState(2)
+    X = rng.randn(48, 4).astype(np.float32)
+    lab = rng.randint(0, 3, (48, 1)).astype(np.int64)
+    jm, tm = _pair(_classifier)
+    stop_j = jhapi.EarlyStopping(monitor="val_loss", patience=0,
+                                 min_delta=10.0)
+    stop_t = thapi.EarlyStopping(monitor="val_loss", patience=0,
+                                 min_delta=10.0)
+    hj = jm.fit((X, lab), eval_data=(X, lab), batch_size=8, epochs=5,
+                verbose=0, callbacks=[stop_j])
+    ht = tm.fit((X, lab), eval_data=(X, lab), batch_size=8, epochs=5,
+                verbose=0, callbacks=[stop_t])
+    assert len(ht["loss"]) == len(hj["loss"]) == 2  # stopped early
+    np.testing.assert_allclose(ht["loss"], hj["loss"], rtol=REL_TOL)
+    et, ej = tm.evaluate((X, lab), batch_size=8), jm.evaluate(
+        (X, lab), batch_size=8)
+    assert et["acc"] == ej["acc"] and 0.0 < et["acc"] <= 1.0
+    acc = thapi.Accuracy(topk=1)
+    acc.update(np.array([[0.1, 0.9], [0.8, 0.2]]), np.array([1, 1]))
+    assert acc.accumulate() == 0.5 and acc.name() == "acc"
+
+
+def test_progbar_logs_and_save_load(tmp_path, capsys):
+    X, Y = _data(16)
+    m = _regression(TORCH)
+    m.fit((X, Y), batch_size=8, epochs=1, verbose=2, log_freq=1)
+    out = capsys.readouterr().out
+    assert "epoch 0 step 0: loss:" in out and "epoch 0: loss:" in out
+    m.save(str(tmp_path / "m"))
+    before = m.parameters()
+    m.fit((X, Y), batch_size=8, epochs=1, verbose=0)
+    assert any(not np.array_equal(before[k], v)
+               for k, v in m.parameters().items())
+    m.load(str(tmp_path / "m"))
+    for k, v in m.parameters().items():
+        np.testing.assert_array_equal(v, before[k])
+    m.fit((X, Y), batch_size=8, epochs=2, verbose=0,
+          save_dir=str(tmp_path / "ep"))
+    assert sorted(p.name for p in (tmp_path / "ep").iterdir()) == [
+        "epoch_0.pdparams", "epoch_1.pdparams"]
+
+
+def _bert_model(pkg, cfg, b, s, mp):
+    """BERT pretraining (MLM + NSP) through ``Model``: the network takes
+    the five feature inputs and returns the MLM and NSP logits; the loss
+    is ``build_bert_pretrain_program``'s."""
+    fluid, hapi, bert = pkg
+    L = fluid.layers
+    ParamAttr = fluid.ParamAttr
+
+    def network(input_ids, token_type_ids, position_ids, input_mask,
+                mask_positions):
+        seq = bert.bert_encoder(cfg, input_ids, token_type_ids, position_ids,
+                                input_mask, is_test=False)
+        pooled = bert.bert_pooler(cfg, seq)
+        picked = L.gather(L.reshape(seq, [b * s, cfg.hidden_size]),
+                          mask_positions)
+        trans = L.fc(picked, cfg.hidden_size,
+                     param_attr=ParamAttr(
+                         name="mask_lm_trans_fc.w_0",
+                         initializer=bert._winit(cfg).initializer),
+                     bias_attr=ParamAttr(name="mask_lm_trans_fc.b_0"),
+                     act=cfg.hidden_act)
+        trans = L.layer_norm(
+            trans, begin_norm_axis=1,
+            param_attr=ParamAttr(name="mask_lm_trans_ln_scale"),
+            bias_attr=ParamAttr(name="mask_lm_trans_ln_bias"))
+        word_emb = fluid.default_main_program().global_block().var(
+            "word_embedding")
+        logits = L.elementwise_add(
+            L.matmul(trans, word_emb, transpose_y=True),
+            L.create_parameter(
+                shape=[cfg.vocab_size], dtype="float32",
+                name="mask_lm_out_fc.b_0",
+                default_initializer=fluid.initializer.ConstantInitializer(
+                    0.0)))
+        nsp = L.fc(pooled, 2,
+                   param_attr=ParamAttr(
+                       name="next_sent_fc.w_0",
+                       initializer=bert._winit(cfg).initializer),
+                   bias_attr=ParamAttr(name="next_sent_fc.b_0"))
+        return [logits, nsp]
+
+    def loss(logits, nsp, mask_labels, mask_weights, nsp_labels):
+        mlm = L.elementwise_mul(
+            L.softmax_with_cross_entropy(logits, mask_labels), mask_weights)
+        denom = L.elementwise_add(
+            L.reduce_sum(mask_weights),
+            L.fill_constant(shape=[1], dtype="float32", value=1e-5))
+        mlm = L.elementwise_div(L.reduce_sum(mlm), denom)
+        return L.elementwise_add(mlm, L.reduce_mean(
+            L.softmax_with_cross_entropy(nsp, nsp_labels)))
+
+    In = hapi.Input
+    inputs = [In("input_ids", [b, s], "int32"),
+              In("token_type_ids", [b, s], "int32"),
+              In("position_ids", [b, s], "int32"),
+              In("input_mask", [b, s], "float32"),
+              In("mask_positions", [b * mp], "int32")]
+    labels = [In("mask_labels", [b * mp, 1], "int32"),
+              In("mask_weights", [b * mp, 1], "float32"),
+              In("nsp_labels", [b, 1], "int32")]
+    kw = {"device": "cpu"} if pkg is TORCH else {}
+    m = hapi.Model(network, inputs, labels, **kw)
+    m.prepare(fluid.optimizer.AdamOptimizer(learning_rate=1e-3), loss)
+    return m
+
+
+BERT_FEEDS = ("input_ids", "token_type_ids", "position_ids", "input_mask",
+              "mask_positions", "mask_labels", "mask_weights", "nsp_labels")
+
+
+def test_bert_pretraining_through_model_matches_jax():
+    b, s, mp = 2, 16, 3
+    kw = dict(vocab_size=128, hidden_size=32, num_hidden_layers=2,
+              num_attention_heads=4, intermediate_size=64,
+              max_position_embeddings=64, hidden_dropout_prob=0.0,
+              attention_probs_dropout_prob=0.0, fuse_stack=True)
+    jm = _bert_model(JAX, jbert.BertConfig(**kw), b, s, mp)
+    tm = _bert_model(TORCH, tbert.BertConfig(**kw), b, s, mp)
+    types = [op.type for op in tm._progs["train"][0].global_block().ops]
+    assert "fused_encoder_stack" in types and "adam" in types
+    _copy_weights(jm, tm)
+    cfg = jbert.BertConfig(**kw)
+    batches = [[jbert.random_pretrain_batch(cfg, b, s, mp, seed=i)[k]
+                for k in BERT_FEEDS] for i in range(4)]
+    recs = _Rec(), _Rec()
+    jm.fit(batches, epochs=1, verbose=0, callbacks=[recs[0]])
+    tm.fit(batches, epochs=1, verbose=0, callbacks=[recs[1]])
+    assert len(recs[1].out) == 4
+    np.testing.assert_allclose(recs[1].out, recs[0].out, rtol=REL_TOL,
+                               atol=0)
+    et, ej = tm.evaluate(batches), jm.evaluate(batches)
+    np.testing.assert_allclose(et["loss"], ej["loss"], rtol=REL_TOL)
+    pt = tm.predict([bt[:5] for bt in batches])
+    pj = jm.predict([bt[:5] for bt in batches])
+    for a, c in zip(pt, pj):
+        np.testing.assert_allclose(a, c, rtol=1e-4, atol=1e-5)
+
+
+def test_unported_options_raise(monkeypatch):
+    X, Y = _data(16)
+    m = _regression(TORCH)
+    tflags.set_flags({"FLAGS_check_numerics": True})
+    try:
+        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+            m.fit((X, Y), batch_size=8, verbose=0)
+    finally:
+        tflags.set_flags({"FLAGS_check_numerics": False})
+    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+        m.fit((X, Y), batch_size=8, verbose=0, reshard=True)
+    monkeypatch.setenv("PADDLE_ELASTIC_RESHARD", "1")
+    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+        m.fit((X, Y), batch_size=8, verbose=0)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        thapi.Model(lambda x: x, thapi.Input("x", [2]))
+
+
+def test_prepare_lints_the_clone_family_under_the_flag():
+    tflags.set_flags({"FLAGS_program_verify": True})
+    try:
+        m = _regression(TORCH, p=0.3)
+        X, Y = _data(16)
+        h = m.fit((X, Y), batch_size=8, verbose=0)
+        assert np.isfinite(h["loss"]).all()
+    finally:
+        tflags.set_flags({"FLAGS_program_verify": False})

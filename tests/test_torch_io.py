@@ -186,7 +186,7 @@ def test_saved_program_bytes_hold_plain_values(tmp_path):
     """The port's ``__model__`` unpickles with the standard unpickler
     into plain values only (no class of the port), and its var metas
     and op list equal those of the JAX package's save of the same
-    program (but for the JAX package's op-callstack attr)."""
+    program (but for the op-callstack attrs, which hold call stacks)."""
     dirs = {}
     for pkg in (JAX, TORCH):
         main, startup, feeds, fetch = _mlp_infer(pkg)
@@ -208,7 +208,7 @@ def test_saved_program_bytes_hold_plain_values(tmp_path):
         with open(os.path.join(d, "__model__"), "rb") as f:
             payloads[name] = Plain(io.BytesIO(f.read())).load()
         for op in payloads[name]["blocks"][0]["ops"]:
-            # the JAX package's op-callstack diagnostics (not ported)
+            # the op-callstack diagnostics: each package's own call stacks
             op["attrs"].pop("__op_callstack__", None)
         with open(os.path.join(d, "__meta__.json")) as f:
             payloads[name]["meta"] = f.read()

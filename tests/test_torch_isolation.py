@@ -50,7 +50,14 @@ for n in ("fluid", "fluid.layers", "fluid.executor", "fluid.framework",
           "fluid.layers.misc", "fluid.layers.tensor", "hapi", "hapi.text",
           "fluid.io", "fluid.crypto", "inference.server", "inference.client",
           "inference.weight_sync", "distributed.ps_server",
-          "distributed.faults"):
+          "distributed.faults", "fluid.analysis", "fluid.analysis.core",
+          "fluid.analysis.structure", "fluid.analysis.dataflow",
+          "fluid.analysis.typecheck", "fluid.analysis.gradcheck",
+          "fluid.analysis.scopecheck", "fluid.analysis.liverange",
+          "fluid.analysis.crosscheck", "fluid.analysis.fixes",
+          "fluid.analysis.sandwich", "fluid.checkpoint", "fluid.monitor",
+          "fluid.dygraph", "fluid.dygraph.checkpoint", "hapi.callbacks",
+          "hapi.metrics"):
     assert "paddle_tpu_torch." + n in names, n
 """
 
@@ -261,6 +268,66 @@ def test_hapi_nmt_trains_without_jax():
     paddle_tpu."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", _NMT_PROBE], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.startswith("ok")
+
+
+_CKPT_PROBE = r"""
+import sys, tempfile
+import numpy as np
+import torch
+import paddle_tpu_torch.fluid as fluid
+from paddle_tpu_torch.fluid import checkpoint as ckpt
+from paddle_tpu_torch.hapi import Callback, Input, Model
+
+def net(x):
+    h = fluid.layers.fc(x, 8, act="relu")
+    return fluid.layers.fc(fluid.layers.dropout(h, dropout_prob=0.2), 1)
+
+def model():
+    m = Model(net, Input("x", [4, 3]), Input("y", [4, 1]), device="cpu")
+    m.prepare(fluid.optimizer.AdamOptimizer(1e-2), lambda p, y:
+              fluid.layers.mean(fluid.layers.square_error_cost(p, y)))
+    return m
+
+class Stop(Callback):
+    def on_batch_end(self, mode, step, logs=None):
+        if step == 2:
+            ckpt.request_preemption()
+
+rng = np.random.RandomState(0)
+data = (rng.randn(16, 3).astype(np.float32), rng.randn(16, 1).astype(np.float32))
+ref = model().fit(data, batch_size=4, epochs=2, verbose=0)
+d = tempfile.mkdtemp()
+try:
+    model().fit(data, batch_size=4, epochs=2, verbose=0, checkpoint_dir=d,
+                callbacks=[Stop()])
+except ckpt.Preempted:
+    ckpt.clear_preemption()
+got = model().fit(data, batch_size=4, epochs=2, verbose=0, checkpoint_dir=d,
+                  resume=True)
+assert got == ref, (got, ref)
+scope = fluid.Scope()
+scope.set_var("h", torch.ones(3, dtype=torch.bfloat16))
+mgr = ckpt.CheckpointManager(d + "/b", scope=scope, device="cpu")
+mgr.save(1)
+back = fluid.Scope()
+ckpt.CheckpointManager(d + "/b", scope=back, device="cpu").restore()
+assert back.find_var("h").dtype == torch.bfloat16
+bad = sorted(k for k in sys.modules if k.split(".")[0] in
+             ("jax", "jaxlib", "paddle_tpu", "ml_dtypes"))
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_fit_checkpoints_and_resumes_without_jax_or_ml_dtypes():
+    """Model.fit preempted and resumed, and a bf16 checkpoint written and
+    read, in a process that never imports jax, paddle_tpu or ml_dtypes
+    (the card's installation has no ml_dtypes)."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _CKPT_PROBE], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.startswith("ok")

@@ -732,7 +732,7 @@ def test_serve_refuses_unported_environment(tiny_frozen, monkeypatch, env):
 
 
 @pytest.mark.parametrize("spec", ["lease_expire:*:1", "netsplit:*:1:50",
-                                  "oom:run:1", "io_err:ckpt_content:1"])
+                                  "oom:run:1", "bitflip:push_grad:1"])
 def test_fault_spec_naming_an_unported_rule_raises(spec, inject):
     with pytest.raises(ValueError, match="no call site in the port"):
         faults.parse_spec(spec)
