@@ -223,8 +223,36 @@ prints no result):
                (an op reading a var nothing writes) raised as a
                ProgramVerifyError naming this file's line before any op
                runs
+  dist_ring    ring attention at sp 4 (B 8, 12 heads of 64, S 2048, 512
+               a rank), bf16 and f32, a key bias, causal off and on, on
+               four rank processes sharing the card over gloo (NCCL
+               refuses two ranks on one device): every rank's o, dq, dk,
+               dv and key dbias block against the plain version run here
+               over the whole sequence (f32 within 2e-5, dbias 5e-4; bf16
+               within 1e-2 of each tensor's scale); rows 6 and 7 launched
+               4 times a call by every rank, on the wgmma kernels in
+               bf16; each rank's forward + backward ms
+  dist_train   bert_train's program (BertConfig.base(), fuse_stack, bf16
+               AMP, Adam 1e-4, dropout off) under fleet with mesh_axes
+               {"dp": 2, "sp": 2} and sequence_parallel on four ranks
+               sharing the card over gloo, global batch 8 x 512 (4 x 256
+               a rank): 3 steps against the same program and weights in
+               this process without a mesh (within 2e-2), the same at 2
+               layers in f32 (within 1e-4), the four ranks' losses and
+               state bit for bit, every step's launches exact (rows 6
+               and 7 24 a rank, 12 layers x 2 ring steps, on wgmma; rows
+               2 and 3 26); the time, bytes and host-staging time in
+               collectives a step, each rank's step wall, the card's
+               idle share (nvidia-smi utilization over 2 more steps);
+               then 2 steps with dropout 0.1, finite and equal on every
+               rank
+  dist_nccl    one rank: init_parallel_env() picks NCCL on the card; a
+               dp 1 mesh trains the 2-layer f32 program 2 steps equal bit
+               for bit to the run without a mesh; every c_* emitter once
 
-The line before the last is the kernels summary; the last line is
+A dist phase's ranks are ``python3 chip_smoke.py --dist-child ...``
+processes; one that fails or outlives its deadline fails the phase, the
+others killed first.  The line before the last is the kernels summary; the last line is
 ``{"ok": true, "device": {...}}``.  Needs one CUDA card; without one it
 exits 2.  Weights and inputs are random from fixed seeds.
 """
@@ -2090,7 +2118,68 @@ def _kernels_flash_bhsd(torch, F, flush) -> tuple:
         sdpa, nbytes=fa.bound_bytes_bhsd(q, bias),
         flops=fa.bound_flops_bhsd(q), peak_flops=BF16_FLOPS))
     timed["flash_attention"]["mha_key_train"] = t
+    del kw, bwd, q, k, v, bias, do, o, lse, bits, lib_o, qh, kh, vh, args
+    torch.cuda.empty_cache()
+    _ring_block_timed(torch, F, flush, fa, rng, results, timed)
     return results, timed
+
+
+def _ring_block_timed(torch, F, flush, fa, rng, results, timed):
+    """Rows 6 and 7 at one ring step of dist_train: a rank's [4, 12, 256,
+    64] block (DIST_RING_TRAIN), a per-batch key bias [B, 1, 1, S], the
+    lse cotangent the ring's merge gives, dbias asked, no dropout; held
+    against the plain versions in bf16 and f32, then timed in bf16 (the
+    path's AMP).  Row 7's entry reports this timing: dist_train is its
+    main path."""
+    c = DIST_RING_TRAIN
+    b, s = c["b"] // c["mesh"]["dp"], c["s"] // c["mesh"]["sp"]
+    nh, d = c["nh"], c["d"]
+    for dtype in (torch.float32, torch.bfloat16):
+        name = f"dist_train_block_{'bf16' if dtype == torch.bfloat16 else 'f32'}"
+        kw, bwd = _bhsd_case(torch, rng, b, nh, s, d, dtype, "key",
+                             g_lse=True, want_dbias=True)
+        results[name] = _bhsd_check(torch, fa, name, kw, bwd)
+    # kw, bwd: the bf16 case just checked
+    q, k, v, bias, do, g = (kw["q"], kw["k"], kw["v"], kw["bias"],
+                            bwd["do"], bwd["g_lse"])
+    o, lse = fa.flash_attention_fwd(q, k, v, bias)
+    bias_k, mode, dims = fa._classify_bias(bias, b, nh, s)
+    delta = (o.float() * do.float()).sum(-1) - g
+    args = (q, k, v, bias_k, mode, dims, lse, delta, do, 1.0 / math.sqrt(d),
+            False, 0, 0, 0.0, None, None, 0, True)
+    (qh, kh, vh), sdpa = _bhsd_sdpa(torch, F, kw, 0.0)
+    lib_o = sdpa()
+    shape = {"B": b, "nh": nh, "S": s, "D": d, "dtype": "bfloat16",
+             "bias": "per key [B, 1, 1, S] f32, each rank's padding block",
+             "g_lse": True, "dbias": True, "dropout": None,
+             "of": "one ring step of dist_train (dp 2 x sp 2, 8 x 512)"}
+    err = results["dist_train_block_bf16"]
+    t = {"shape": shape, "max_abs_err": max(err["grads"].values()),
+         "library": "autograd backward of SDPA with the key bias as a bf16 "
+                    "attn_mask (dq, dk, dv; no lse cotangent, no dbias)"}
+    n_tc = fa.flash_attention_bwd_fused.launches_tc
+    t.update(_timed(
+        torch, flush, lambda: fa.flash_attention_bwd_fused(*args),
+        lambda: fa.flash_attention_bwd_reference(
+            q, k, v, bias, o, lse, do, g_lse=g, want_dbias=True),
+        lambda: torch.autograd.grad(lib_o, (qh, kh, vh), do,
+                                    retain_graph=True),
+        nbytes=fa.bound_bytes_bhsd(q, bias, "fused", want_dbias=True),
+        flops=fa.bound_flops_bhsd(q, "fused"), peak_flops=BF16_FLOPS))
+    if fa.flash_attention_bwd_fused.launches_tc == n_tc:
+        fail("row 7 at dist_train's ring block ran no wgmma kernel")
+    t["route"] = fa.bhsd_bwd_route(q.dtype, mode)
+    t["mha_key_train"] = timed["flash_attention_bwd_fused"]
+    timed["flash_attention_bwd_fused"] = t
+    t = {"shape": shape, "max_abs_err": err["max_abs_err"],
+         "library": "F.scaled_dot_product_attention, the key bias as a "
+                    "bf16 attn_mask"}
+    t.update(_timed(
+        torch, flush, lambda: fa.flash_attention_fwd(q, k, v, bias),
+        lambda: fa.flash_attention_reference(q, k, v, bias), sdpa,
+        nbytes=fa.bound_bytes_bhsd(q, bias), flops=fa.bound_flops_bhsd(q),
+        peak_flops=BF16_FLOPS))
+    timed["flash_attention"]["dist_train"] = t
 
 
 def phase_kernels(torch) -> dict:
@@ -5664,6 +5753,639 @@ def phase_verify(torch, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# data and sequence parallelism: ranks sharing the one card over gloo
+# ---------------------------------------------------------------------------
+
+# NCCL refuses two ranks on one device, so the multi-rank phases run their
+# ranks as processes sharing the card over gloo (every kernel and model op
+# on the card, the collectives staged through the host); NCCL runs at
+# world size 1 (dist_nccl)
+DIST_WORLD = 4
+DIST_RING = dict(b=8, nh=12, s=2048, d=64, mesh={"sp": 4})
+DIST_TRAIN = dict(batch=8, seq=512, max_preds=76, steps=3, timed=2,
+                  drop_steps=2, mesh={"dp": 2, "sp": 2})
+# dist_train's attention: BERT-base's 12 heads of 64 at 8 x 512 over dp 2
+# x sp 2, so each rank's ring block is [4, 12, 256, 64]
+DIST_RING_TRAIN = dict(b=DIST_TRAIN["batch"], nh=12, s=DIST_TRAIN["seq"],
+                       d=64, mesh=DIST_TRAIN["mesh"])
+DIST_JOIN_S = 420          # one spawn's deadline, its ranks' start included
+DIST_PG_TIMEOUT_S = 240    # every collective's own timeout
+# BERT-base dp 2 x sp 2 against one process, the same program and weights:
+# bf16 AMP rounds at other places once the stack is split (the ring's
+# per-block softmax, the weight gradients summed over sp in bf16), the
+# limit of bert_train_parity's bf16 losses; f32 with TF32 off sums in
+# another order only
+DIST_LOSS_BF16 = 2e-2
+DIST_LOSS_F32 = 1e-4
+# every parameter after the f32 steps against the one-process run's: the
+# limit bert_train_parity holds the card's f32 parameters to
+DIST_PARAM_F32 = TRAIN_PARITY_PARAM
+# the ring's bf16 result against the f32 plain version over the whole
+# sequence: bf16 rounding (ATOL_BF16) at the scale of each tensor
+DIST_RING_BF16_SCALE = ATOL_BF16
+
+
+def _dist_spawn(mode: str, world: int, workdir: str) -> list:
+    """Run ``--dist-child mode`` as ``world`` rank processes on the card and
+    return each rank's result.  A rank that exits nonzero or outlives
+    DIST_JOIN_S fails the phase with its exit code and the tail of its
+    log; every other rank is killed first."""
+    import torch
+
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(
+        os.path.abspath(__file__)))
+    procs, logs = [], []
+    for r in range(world):
+        log = open(os.path.join(workdir, f"rank{r}.log"), "w")
+        logs.append(log)
+        # a session of its own: killing it kills what the rank started
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dist-child", mode,
+             "--dist-rank", str(r), "--dist-world", str(world),
+             "--dist-dir", workdir], env=env, stdout=log, stderr=log,
+            start_new_session=True))
+    deadline = time.monotonic() + DIST_JOIN_S
+    bad = None
+    while bad is None:
+        codes = [p.poll() for p in procs]
+        if all(c == 0 for c in codes):
+            break
+        bad = next(((r, c) for r, c in enumerate(codes)
+                    if c not in (None, 0)), None)
+        if bad is None and time.monotonic() > deadline:
+            bad = (codes.index(None), f"no exit within {DIST_JOIN_S} s")
+        time.sleep(0.2)
+    for p in procs:
+        try:
+            os.killpg(p.pid, 9)     # the rank and anything it started
+        except ProcessLookupError:
+            pass
+        p.wait()
+    for log in logs:
+        log.close()
+    if bad is not None:
+        r, code = bad
+        with open(os.path.join(workdir, f"rank{r}.log")) as f:
+            tail = f.read()[-3000:]
+        fail(f"dist {mode}: rank {r} of {world} failed ({code}):\n{tail}")
+    return [torch.load(os.path.join(workdir, f"out_{r}.pt"))
+            for r in range(world)]
+
+
+def _dist_child(mode: str, rank: int, world: int, workdir: str) -> int:
+    """One rank of a dist phase: the process group, the body, its result
+    written for the parent."""
+    import torch
+    import torch.distributed as dist
+
+    for k, v in (("RANK", rank), ("WORLD_SIZE", world),
+                 ("PADDLE_TRAINER_ID", rank), ("PADDLE_TRAINERS_NUM", world),
+                 ("LOCAL_RANK", rank)):
+        os.environ[k] = str(v)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from paddle_tpu_torch.parallel import env
+
+    if mode == "nccl":
+        env.init_parallel_env()          # the card: NCCL, picked, not named
+    else:
+        # ranks sharing one card: gloo, named (NCCL refuses them)
+        env.init_parallel_env(backend="gloo", device="cuda:0",
+                              init_method=f"file://{workdir}/store",
+                              timeout_s=DIST_PG_TIMEOUT_S)
+    body = {"ring": _dist_ring_child, "train": _dist_train_child,
+            "nccl": _dist_nccl_child}[mode]
+    out = body(torch, rank, world)
+    out["backend"] = dist.get_backend()
+    torch.save(out, os.path.join(workdir, f"out_{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _ring_case(shape: dict, dtype_name: str, causal: bool) -> dict:
+    """The global inputs of a dist_ring case, from a fixed seed (every
+    rank and the parent make the same)."""
+    import torch
+
+    c = shape
+    rng = np.random.default_rng(15 + int(causal) + 2 * (dtype_name == "f32")
+                                + 4 * (c is DIST_RING_TRAIN))
+    dims = (c["b"], c["nh"], c["s"], c["d"])
+    q, k, v, do = (torch.as_tensor(rng.standard_normal(dims),
+                                   dtype=torch.float32) for _ in range(4))
+    lens = rng.integers(c["s"] // 2, c["s"] + 1, c["b"])
+    bias = torch.as_tensor(
+        1e4 * ((np.arange(c["s"])[None, :] < lens[:, None]) - 1.0),
+        dtype=torch.float32)
+    dtype = torch.bfloat16 if dtype_name == "bf16" else torch.float32
+    return dict(q=q.to(dtype), k=k.to(dtype), v=v.to(dtype), do=do.to(dtype),
+                bias=bias, causal=causal, dtype=dtype)
+
+
+def _ring_blocks(shape: dict, rank: int) -> tuple:
+    """(batch slice, sequence slice) rank ``rank`` holds of a dist_ring
+    case: ranks laid out row-major over the case's mesh axes, the batch
+    split over dp, the sequence over sp."""
+    coords, r = {}, rank
+    for a in reversed(list(shape["mesh"])):
+        coords[a] = r % shape["mesh"][a]
+        r //= shape["mesh"][a]
+    bl = shape["b"] // shape["mesh"].get("dp", 1)
+    sl = shape["s"] // shape["mesh"]["sp"]
+    i, j = coords.get("dp", 0), coords["sp"]
+    return slice(i * bl, (i + 1) * bl), slice(j * sl, (j + 1) * sl)
+
+
+# (shape, dtype, causal): sp 4 with and without causal, then dist_train's
+# own attention (dp 2 x sp 2, a per-batch key bias, not causal)
+RING_CASES = tuple((DIST_RING, dt, c) for dt, c in (
+    ("bf16", False), ("bf16", True), ("f32", False), ("f32", True))) + (
+    (DIST_RING_TRAIN, "bf16", False), (DIST_RING_TRAIN, "f32", False))
+
+
+def _dist_ring_child(torch, rank: int, world: int) -> dict:
+    """ring_attention over each case's sp axis on this rank's block of the
+    case: o and the gradients of q, k, v and the key bias, rows 6 and 7
+    counted, and the ring's forward + backward wall time."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.parallel import create_mesh
+    from paddle_tpu_torch.parallel.ring_attention import ring_attention
+
+    meshes = {}
+    for shape, _, _ in RING_CASES:      # every rank, the same order
+        key = tuple(shape["mesh"].items())
+        if key not in meshes:
+            meshes[key] = create_mesh(shape["mesh"])
+    counters = {"row6": fa.flash_attention, "row7": fa.flash_attention_bwd_fused,
+                "row6_tc": _Counter(fa.flash_attention, "launches_tc"),
+                "row7_tc": _Counter(fa.flash_attention_bwd_fused,
+                                    "launches_tc")}
+    out = {"cases": []}
+    for shape, dtype_name, causal in RING_CASES:
+        mesh = meshes[tuple(shape["mesh"].items())]
+        bblk, sblk = _ring_blocks(shape, rank)
+        case = _ring_case(shape, dtype_name, causal)
+        loc = {n: case[n][bblk, :, sblk].contiguous().cuda()
+               for n in ("q", "k", "v", "do")}
+        bias = case["bias"][bblk, sblk].contiguous().cuda()
+
+        def run():
+            qkv = [loc[n].clone().requires_grad_() for n in ("q", "k", "v")]
+            kb = bias.clone().requires_grad_()
+            o = ring_attention(*qkv, "sp", kb, None, causal, mesh=mesh)
+            grads = torch.autograd.grad(o, qkv + [kb], loc["do"])
+            return o, grads
+
+        (o, grads), launches = _count_step(counters, run)
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out["cases"].append({
+            "dtype": dtype_name, "causal": causal, "launches": launches,
+            "block": list(loc["q"].shape), "fwd_bwd_ms": statistics.median(ms),
+            "o": o.detach().cpu(), "dq": grads[0].cpu(), "dk": grads[1].cpu(),
+            "dv": grads[2].cpu(), "dbias": grads[3].cpu()})
+    return out
+
+
+def _ring_call_launches(sp: int, bf16: bool) -> dict:
+    """One ring_attention call's forward and backward: row 6 and row 7 once
+    a ring step, on their wgmma kernels in bf16."""
+    return {"row6": sp, "row7": sp, "row6_tc": sp if bf16 else 0,
+            "row7_tc": sp if bf16 else 0}
+
+
+def phase_dist_ring(torch, card: str, workdir: str) -> dict:
+    """ring_attention on four ranks sharing the card (gloo), bf16 and f32,
+    a per-batch key bias: at sp 4, B 8, nh 12, S 2048 (512 a rank), D 64,
+    causal off and on; and at dist_train's own attention, dp 2 x sp 2,
+    B 8, S 512 ([4, 12, 256, 64] a rank), not causal.  Every rank's o,
+    dq, dk, dv and dbias block against the plain version run by this
+    process over the whole batch and sequence; rows 6 and 7 launched by
+    every rank, sp times a call (on the wgmma kernels in bf16)."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    t0 = time.perf_counter()
+    ranks = _dist_spawn("ring", DIST_WORLD, workdir)
+    spawn_s = time.perf_counter() - t0
+    cases = []
+    for i, (shape, dtype_name, causal) in enumerate(RING_CASES):
+        case = _ring_case(shape, dtype_name, causal)
+        q, k, v, do = (case[n].float().cuda() for n in ("q", "k", "v", "do"))
+        bias4 = case["bias"].cuda()[:, None, None, :]
+        o_ref, lse_ref = fa.flash_attention_reference(q, k, v, bias4,
+                                                      causal=causal)
+        ref = fa.flash_attention_bwd_reference(
+            q, k, v, bias4, o_ref, lse_ref, do, causal=causal,
+            want_dbias=True)
+        refs = {"o": o_ref, "dq": ref[0], "dk": ref[1], "dv": ref[2],
+                "dbias": ref[3].reshape(shape["b"], shape["s"])}
+        del q, k, v, do, ref, lse_ref
+        bf16 = dtype_name == "bf16"
+        limits = {n: (DIST_RING_BF16_SCALE * max(1.0, t.abs().max().item())
+                      if bf16 else (ATOL_DBIAS if n == "dbias" else ATOL_F32))
+                  for n, t in refs.items()}
+        want = _ring_call_launches(shape["mesh"]["sp"], bf16)
+        errs = {n: 0.0 for n in refs}
+        what = f"dist_ring {shape['mesh']} {dtype_name} causal={causal}"
+        for r, res in enumerate(ranks):
+            got = res["cases"][i]
+            if got["launches"] != want:
+                fail(f"{what}: rank {r} launched {got['launches']}, want "
+                     f"{want}")
+            bblk, sblk = _ring_blocks(shape, r)
+            for n, t in refs.items():
+                part = t[bblk, sblk] if n == "dbias" else t[bblk, :, sblk]
+                e = _check(f"{what} rank {r} {n}", got[n].cuda(), part,
+                           limits[n])
+                errs[n] = max(errs[n], e["max_abs_err"])
+        cases.append({"mesh": shape["mesh"], "global": {
+                          k: shape[k] for k in ("b", "nh", "s", "d")},
+                      "block": ranks[0]["cases"][i]["block"],
+                      "dtype": dtype_name, "causal": causal,
+                      "key_bias": "per batch [B, S]", "max_abs_err": errs,
+                      "limits": limits, "launches_per_rank": want,
+                      "fwd_bwd_ms_by_rank": [res["cases"][i]["fwd_bwd_ms"]
+                                             for res in ranks]})
+        del refs
+        torch.cuda.empty_cache()
+    out = {"phase": "dist_ring", "card": card, "world": DIST_WORLD,
+           "backend": ranks[0]["backend"], "cases": cases,
+           "spawn_s": spawn_s, "seconds": time.perf_counter() - t0}
+    emit(out)
+    return out
+
+
+def _fleet_bert_program(cfg, amp: bool, mesh_axes):
+    """bert_train's program under fleet: dp x sp, sequence_parallel."""
+    from paddle_tpu_torch import fleet, fluid
+    from paddle_tpu_torch.contrib import mixed_precision
+    from paddle_tpu_torch.models import bert
+
+    c = DIST_TRAIN
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard():
+        m, st, _, loss = bert.build_bert_pretrain_program(
+            cfg, c["batch"], c["seq"], c["max_preds"], main_program=main,
+            startup_program=startup)
+        with fluid.program_guard(m, st):
+            opt = fluid.optimizer.AdamOptimizer(learning_rate=1e-4)
+            if amp:
+                opt = mixed_precision.decorate(opt, use_bf16=True)
+            strategy = fleet.DistributedStrategy()
+            strategy.mesh_axes = dict(mesh_axes)
+            strategy.sequence_parallel = True
+            fleet.init()
+            fleet.distributed_optimizer(opt, strategy).minimize(loss)
+    return m, st, loss
+
+
+def _state_hash(scope, names) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for n in sorted(names):
+        t = scope.find_var(n)
+        h.update(n.encode())
+        h.update(t.detach().contiguous().view(-1).view(
+            __import__("torch").uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _dist_bert_cfg(layers=None, dropout=0.0):
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.BertConfig.base()
+    cfg.fuse_stack = True
+    cfg.hidden_dropout_prob = cfg.attention_probs_dropout_prob = dropout
+    if layers is not None:
+        cfg.num_hidden_layers = layers
+    return cfg
+
+
+def _ring_launches_per_step(program, sp: int, bf16: bool) -> dict:
+    """_launches_per_step with each sequence-parallel stack's attention on
+    the ring: rows 6 and 7 sp times a layer instead of the BSH kernels."""
+    n = _launches_per_step(program, bf16)
+    block = program.global_block()
+    for op in block.ops:
+        if op.type == "fused_encoder_stack" and op.attr("sequence_parallel"):
+            layers = block.var(op.inputs["QKVW"][0]).shape[0]
+            n["bsh_fwd"] -= layers
+            n["bsh_bwd"] -= 2 * layers
+            n["row6"] += sp * layers
+            n["row7"] += sp * layers
+    for k in ("bsh_fwd", "bsh_bwd", "row6", "row7", "row8", "row9"):
+        n[f"{k}_tc"] = n[k] if bf16 else 0
+    return n
+
+
+class _Utilization:
+    """nvidia-smi's utilization.gpu sampled every 100 ms: the share of
+    each sample period in which a kernel of any process ran on the card
+    (the ranks share it, so no one process's profiler sees it whole)."""
+
+    def __init__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=utilization.gpu",
+             "--format=csv,noheader,nounits", "-lms", "100"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+
+    def stop(self) -> list:
+        self.proc.terminate()
+        out, _ = self.proc.communicate(timeout=30)
+        return [int(x) for x in out.split() if x.strip().isdigit()]
+
+
+def _params(scope, program) -> dict:
+    """Every parameter of ``program`` on the host."""
+    return {p.name: scope.find_var(p.name).detach().cpu()
+            for p in program.all_parameters()}
+
+
+def _dist_train_run(torch, cfg, amp: bool, steps: int, timed: int = 0,
+                    scope=None, keep_params: bool = False) -> dict:
+    """One rank's training under the mesh: startup (rank 0's weights
+    broadcast), ``steps`` steps held to their exact launches, the
+    collective costs a step, then ``timed`` steps with the card's
+    utilization sampled (rank 0); with ``keep_params`` rank 0 returns its
+    parameters after the steps (the ranks' states are compared by
+    hash)."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch import distributed as tdist
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import bert
+
+    c = DIST_TRAIN
+    main, startup, loss = _fleet_bert_program(cfg, amp, c["mesh"])
+    exe = fluid.Executor()
+    out = {}
+    if scope is None:
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        params = [p.name for p in main.all_parameters()]
+        out["init_hash"] = _state_hash(scope, params)
+    want = _ring_launches_per_step(main, c["mesh"]["sp"], amp)
+    feed = bert.random_pretrain_batch(cfg, c["batch"], c["seq"],
+                                      c["max_preds"], seed=0)
+    counters = _counters()
+
+    def step():
+        return float(exe.run(main, feed=feed, fetch_list=[loss],
+                             scope=scope)[0].reshape(-1)[0])
+
+    losses, step_ms, comm = [], [], []
+    total = dict.fromkeys(counters, 0)
+    for i in range(steps):
+        tdist.reset_stats()
+        t0 = time.perf_counter()
+        lv, got = _count_step(counters, step)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        comm.append(dict(tdist.stats))
+        if got != want:
+            raise RuntimeError(f"step {i} launched {got}, the program "
+                               f"needs {want}")
+        total = {k: total[k] + got[k] for k in total}
+        losses.append(lv)
+    if timed:
+        torch.cuda.synchronize()
+        dist.barrier()
+        util = _Utilization() if dist.get_rank() == 0 else None
+        try:
+            t0 = time.perf_counter()
+            for _ in range(timed):
+                losses.append(step())
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        finally:
+            samples = util.stop() if util else None
+        out["window"] = {"steps": timed, "wall_ms": wall,
+                         "utilization": samples}
+    out.update(losses=losses, step_ms=step_ms, comm=comm,
+               launches_per_step=want, launches=total,
+               state_hash=_state_hash(
+                   scope, [v.name for v in main.list_vars()
+                           if v.persistable and scope.find_var(v.name)
+                           is not None]),
+               scope=scope)
+    if keep_params and dist.get_rank() == 0:
+        out["params"] = _params(scope, main)
+    return out
+
+
+def _dist_train_child(torch, rank: int, world: int) -> dict:
+    """BERT-base bf16 (3 + 2 profiled steps), 2 layers f32 (3 steps), then
+    dropout 0.1 (2 steps) on the bf16 run's state."""
+    bf16 = _dist_train_run(torch, _dist_bert_cfg(), True,
+                           DIST_TRAIN["steps"], DIST_TRAIN["timed"])
+    scope = bf16.pop("scope")
+    drop = _dist_train_run(torch, _dist_bert_cfg(dropout=0.1), True,
+                           DIST_TRAIN["drop_steps"], scope=scope)
+    drop.pop("scope")
+    del scope
+    torch.cuda.empty_cache()
+    f32 = _dist_train_run(torch, _dist_bert_cfg(layers=2), False,
+                          DIST_TRAIN["steps"], keep_params=True)
+    f32.pop("scope")
+    return {"bf16": bf16, "f32": f32, "dropout": drop,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def _one_process_run(torch, cfg, amp: bool, steps: int,
+                     keep_params: bool = False) -> dict:
+    """The same program without a mesh, in this process: the reference of
+    dist_train (same seed-0 startup, same global batch); with
+    ``keep_params`` its parameters after ``steps`` steps."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import bert
+
+    c = DIST_TRAIN
+    main, startup, loss = _train_program(cfg, c["batch"], c["seq"],
+                                         c["max_preds"], amp)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    init = _state_hash(scope, [p.name for p in main.all_parameters()])
+    feed = bert.random_pretrain_batch(cfg, c["batch"], c["seq"],
+                                      c["max_preds"], seed=0)
+    losses, step_ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(exe.run(main, feed=feed, fetch_list=[loss],
+                                    scope=scope)[0][0]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    out = {"losses": losses, "init_hash": init,
+           "step_ms_after_first": statistics.median(step_ms[1:])}
+    if keep_params:
+        out["params"] = _params(scope, main)
+    return out
+
+
+def phase_dist_train(torch, card: str, workdir: str) -> dict:
+    """BERT-base pretraining (bert_train's program, dropout off) under
+    fleet at dp 2 x sp 2 on four ranks sharing the card over gloo, global
+    batch 8 x 512 (4 x 256 a rank): 3 steps against the same program and
+    weights in one process without a mesh (bf16 within 2e-2), the same at
+    2 layers in f32 (within 1e-4), the four ranks' losses and state equal
+    bit for bit; 2 profiled steps (each rank's step wall, the card's idle
+    share, time and bytes in collectives); then 2 steps with dropout 0.1,
+    finite."""
+    t0 = time.perf_counter()
+    c = DIST_TRAIN
+    ref_bf16 = _one_process_run(torch, _dist_bert_cfg(), True,
+                                c["steps"] + c["timed"])
+    torch.cuda.empty_cache()
+    ref_f32 = _one_process_run(torch, _dist_bert_cfg(layers=2), False,
+                               c["steps"], keep_params=True)
+    torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t0
+    ranks = _dist_spawn("train", DIST_WORLD, workdir)
+    out = {"phase": "dist_train", "card": card, "world": DIST_WORLD,
+           "mesh": c["mesh"], "backend": ranks[0]["backend"],
+           "batch": c["batch"], "seq": c["seq"],
+           "per_rank_batch": [c["batch"] // c["mesh"]["dp"],
+                              c["seq"] // c["mesh"]["sp"]]}
+    for what, ref, limit in (("bf16", ref_bf16, DIST_LOSS_BF16),
+                             ("f32", ref_f32, DIST_LOSS_F32)):
+        runs = [r[what] for r in ranks]
+        if any(r["init_hash"] != ref["init_hash"] for r in runs):
+            fail(f"dist_train {what}: the ranks did not start from the "
+                 f"one-process run's weights")
+        for r, run in enumerate(runs[1:], 1):
+            if run["losses"] != runs[0]["losses"] \
+                    or run["state_hash"] != runs[0]["state_hash"]:
+                fail(f"dist_train {what}: rank {r} differs from rank 0 "
+                     f"(losses {run['losses']} vs {runs[0]['losses']})")
+        mine = runs[0]["losses"][:c["steps"]]
+        diff = max(abs(a - b) for a, b in zip(mine, ref["losses"][
+            :c["steps"]]))
+        if not math.isfinite(diff) or diff > limit:
+            fail(f"dist_train {what}: losses {mine} vs one process "
+                 f"{ref['losses']}: {diff} > {limit}")
+        params = None
+        if "params" in ref:
+            got_p, want_p = runs[0]["params"], ref["params"]
+            if sorted(got_p) != sorted(want_p):
+                fail(f"dist_train {what}: parameters {sorted(got_p)} vs "
+                     f"{sorted(want_p)}")
+            per = {n: float((got_p[n].float() - want_p[n].float()).abs()
+                            .max()) for n in want_p}
+            worst = max(per, key=per.get)
+            if not math.isfinite(per[worst]) or per[worst] > DIST_PARAM_F32:
+                fail(f"dist_train {what}: parameter {worst} differs from "
+                     f"the one-process run's by {per[worst]} > "
+                     f"{DIST_PARAM_F32}")
+            params = {"max_abs_diff": per[worst], "worst": worst,
+                      "count": len(per), "limit": DIST_PARAM_F32}
+        comm = [st for run in runs for st in run["comm"][1:]]
+        out[what] = {
+            "losses": runs[0]["losses"], "one_process": ref["losses"],
+            "one_process_step_ms": ref["step_ms_after_first"],
+            "loss_diff": diff, "limit": limit, "ranks_bit_equal": True,
+            "params_vs_one_process": params,
+            "step_ms_median_by_rank": [statistics.median(run["step_ms"])
+                                       for run in runs],
+            "step_ms_by_rank": [run["step_ms"] for run in runs],
+            "launches_per_step": runs[0]["launches_per_step"],
+            "launches": runs[0]["launches"],
+            "collectives_per_step": {
+                k: statistics.median(st[k] for st in comm)
+                for k in ("calls", "bytes", "ms", "stage_ms")}}
+    util = ranks[0]["bf16"]["window"]["utilization"]
+    out["bf16"]["window"] = {
+        "steps": c["timed"],
+        "wall_ms_by_rank": [r["bf16"]["window"]["wall_ms"] for r in ranks],
+        "utilization_samples": util,
+        "card_idle_share": (1 - statistics.mean(util) / 100) if util
+        else "not measured",
+        "note": "nvidia-smi utilization.gpu every 100 ms over the window: "
+                "the share of time a kernel of any rank ran"}
+    drop = [r["dropout"]["losses"] for r in ranks]
+    if not all(math.isfinite(x) for x in drop[0]) or any(d != drop[0]
+                                                          for d in drop):
+        fail(f"dist_train dropout 0.1: losses {drop}")
+    out["dropout"] = {"p": 0.1, "losses": drop[0]}
+    out["peak_mem_gb_by_rank"] = [r["peak_mem_gb"] for r in ranks]
+    out["reference_s"] = ref_s
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    return out
+
+
+def _dist_nccl_child(torch, rank: int, world: int) -> dict:
+    """One rank on NCCL: the 2-layer f32 program trained 2 steps in a dp 1
+    mesh and without one, from the same weights; every c_* emitter once."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.ops import registry as treg
+    from paddle_tpu_torch.parallel import create_mesh
+
+    if dist.get_backend() != "nccl":
+        raise RuntimeError(f"init_parallel_env chose {dist.get_backend()}")
+    c = DIST_TRAIN
+    cfg = _dist_bert_cfg(layers=2)
+    feed = bert.random_pretrain_batch(cfg, c["batch"], c["seq"],
+                                      c["max_preds"], seed=0)
+    runs = {}
+    for what in ("mesh", "plain"):
+        if what == "mesh":
+            main, startup, loss = _fleet_bert_program(cfg, False, {"dp": 1})
+        else:
+            main, startup, loss = _train_program(cfg, c["batch"], c["seq"],
+                                                 c["max_preds"], False)
+        exe, scope = fluid.Executor(), fluid.Scope()
+        exe.run(startup, scope=scope)
+        losses = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                                scope=scope)[0].reshape(-1)[0])
+                  for _ in range(2)]
+        runs[what] = {"losses": losses, "ops": len(main.global_block().ops),
+                      "state_hash": _state_hash(
+                          scope, [p.name for p in main.all_parameters()])}
+    mesh = create_mesh({"dp": 1})
+    ctx = treg.EmitContext(device="cuda", mesh=mesh, axis_env=mesh.axis_env)
+    x = torch.arange(12.0, device="cuda").reshape(4, 3) - 5.0
+    emitters = {}
+    for op in ("c_allreduce_sum", "c_allreduce_max", "c_allreduce_min",
+               "c_allreduce_prod", "c_broadcast", "c_allgather",
+               "c_reducescatter", "c_identity", "c_sync_calc_stream",
+               "c_sync_comm_stream", "c_wait_compute", "c_wait_comm"):
+        y = treg.get(op).emit(ctx, {"X": [x]}, {"ring_id": 0})["Out"][0]
+        torch.cuda.synchronize()
+        emitters[op] = bool(torch.equal(y, x))
+    return {"runs": runs, "emitters": emitters,
+            "mesh_groups": sorted(mesh.groups)}
+
+
+def phase_dist_nccl(torch, card: str, workdir: str) -> dict:
+    """init_parallel_env() on the card at world size 1 picks NCCL: a dp 1
+    mesh trains the 2-layer f32 program 2 steps equal bit for bit to the
+    run without a mesh; every c_* emitter runs once on NCCL."""
+    t0 = time.perf_counter()
+    res = _dist_spawn("nccl", 1, workdir)[0]
+    runs = res["runs"]
+    if res["backend"] != "nccl":
+        fail(f"dist_nccl: backend {res['backend']}")
+    if runs["mesh"]["losses"] != runs["plain"]["losses"] \
+            or runs["mesh"]["state_hash"] != runs["plain"]["state_hash"]:
+        fail(f"dist_nccl: the dp 1 mesh differs from the plain run: {runs}")
+    if not all(res["emitters"].values()):
+        fail(f"dist_nccl: emitters at world 1: {res['emitters']}")
+    out = {"phase": "dist_nccl", "card": card, "backend": res["backend"],
+           "mesh_groups": res["mesh_groups"], "runs": runs,
+           "emitters_identity_at_world_1": res["emitters"],
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    return out
+
+
 def _kernel_entry(name, source, replaces, launches, k) -> dict:
     return {"name": name, "route": "cuda",
             "source": f"paddle_tpu_torch/ops/kernels/csrc/{source}",
@@ -5679,9 +6401,18 @@ def main() -> int:
                     help="also write every JSON line to this file")
     ap.add_argument("--fit-child", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--fit-role", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--dist-child", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--dist-rank", type=int, default=0,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--dist-world", type=int, default=1,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--dist-dir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.fit_child:
         return _fit_child(args.fit_child, args.fit_role)
+    if args.dist_child:
+        return _dist_child(args.dist_child, args.dist_rank, args.dist_world,
+                           args.dist_dir)
 
     import torch
 
@@ -5755,13 +6486,32 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_verify(torch, env["card"])
     torch.cuda.empty_cache()
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip-dist-") as tmp:
+        dirs = {}
+        for what in ("ring", "train", "nccl"):
+            dirs[what] = os.path.join(tmp, what)
+            os.makedirs(dirs[what])
+        phase_dist_ring(torch, env["card"], dirs["ring"])
+        torch.cuda.empty_cache()
+        dtrain = phase_dist_train(torch, env["card"], dirs["train"])
+        torch.cuda.empty_cache()
+        phase_dist_nccl(torch, env["card"], dirs["nccl"])
+    dlaunches = dtrain["bf16"]["launches"]
+    dlaunches_f32 = dtrain["f32"]["launches"]
 
     def new_paths(key):
-        """The launches of ``key`` on this slice's two paths."""
+        """The launches of ``key`` on the paths of slices 12 and 14."""
         return {"transformer_train": tlaunches[key],
                 "bert_long_train": llaunches[key],
                 "bert_long_train_flash": flaunches[key],
                 "fit_resume": rlaunches_fit[key]}
+
+    def dist_paths(key):
+        """Rank 0's launches of ``key`` over dist_train's 3 steps."""
+        return {"dist_train": dlaunches[key],
+                "dist_train_f32": dlaunches_f32[key]}
 
     def entry(name, source, replaces, k, path_launches, main="bert_train"):
         e = _kernel_entry(name, source, replaces, path_launches[main], k)
@@ -5785,9 +6535,11 @@ def main() -> int:
         "flash_attention_bsh_bwd": {"bert_train": launches["bsh_bwd_tc"],
                                     "nmt_train": nlaunches["bsh_bwd_tc"],
                                     **new_paths("bsh_bwd_tc")},
-        "flash_attention_bwd_fused": {"mha_key_train": mlaunches["row7_tc"]},
+        "flash_attention_bwd_fused": {"mha_key_train": mlaunches["row7_tc"],
+                                      **dist_paths("row7_tc")},
         "flash_attention": {"nmt_train": nlaunches["row6_tc"],
-                            "mha_key_train": mlaunches["row6_tc"]},
+                            "mha_key_train": mlaunches["row6_tc"],
+                            **dist_paths("row6_tc")},
         "flash_attention_bwd_dq": {"nmt_train": nlaunches["row8_tc"]},
         "flash_attention_bwd_dkv": {"nmt_train": nlaunches["row9_tc"]},
         "conv_stats": {"resnet_train": rlaunches["conv_stats_tc"]},
@@ -5818,20 +6570,24 @@ def main() -> int:
                "bert_infer": infer_launches["ln"],
                "serve": serve["launches"]["ln"],
                "nmt_train": nlaunches["ln_fwd"],
-               "nmt_infer": ninfer["ln_fwd"], **new_paths("ln_fwd")}),
+               "nmt_infer": ninfer["ln_fwd"], **new_paths("ln_fwd"),
+               **dist_paths("ln_fwd")}),
         entry("add_ln_bwd", "add_ln.cu",
               "paddle_tpu/ops/pallas/add_ln.py:175", kern["add_ln_bwd"],
               {"bert_train": launches["ln_bwd"],
-               "nmt_train": nlaunches["ln_bwd"], **new_paths("ln_bwd")}),
+               "nmt_train": nlaunches["ln_bwd"], **new_paths("ln_bwd"),
+               **dist_paths("ln_bwd")}),
         entry("flash_attention", "flash_attention_bhsd.cu",
               "paddle_tpu/ops/pallas/flash_attention.py:392",
               kern["flash_attention"],
               {"nmt_train": nlaunches["row6"], "nmt_infer": ninfer["row6"],
-               "mha_key_train": mlaunches["row6"]}, main="nmt_train"),
+               "mha_key_train": mlaunches["row6"], **dist_paths("row6")},
+              main="nmt_train"),
         entry("flash_attention_bwd_fused", "flash_attention_bhsd.cu",
               "paddle_tpu/ops/pallas/flash_attention.py:790",
               kern["flash_attention_bwd_fused"],
-              {"mha_key_train": mlaunches["row7"]}, main="mha_key_train"),
+              {"mha_key_train": mlaunches["row7"], **dist_paths("row7")},
+              main="dist_train"),
         entry("flash_attention_bwd_dq", "flash_attention_bhsd.cu",
               "paddle_tpu/ops/pallas/flash_attention.py:902",
               kern["flash_attention_bwd_dq"],

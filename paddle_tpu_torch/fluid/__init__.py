@@ -36,3 +36,10 @@ from .framework import (  # noqa: F401
     program_guard,
 )
 from .param_attr import ParamAttr, WeightNormParamAttr  # noqa: F401
+
+
+def data(name, shape, dtype="float32", lod_level=0):
+    """The data layer (fluid.data in 1.8+): ``layers.data`` with the
+    shape as given, no batch dim prepended."""
+    return layers.tensor.data(name, shape, dtype, lod_level,
+                              append_batch_size=False)

@@ -63,6 +63,31 @@ from .flags import flag
 from ..ops import registry
 from ..telemetry import tracing as _tracing
 
+from ..parallel import REGION_AXES
+
+
+def _local_block(value, var, mesh):
+    """This rank's block of a global feed along the data axes its spec
+    names; flat batch indices (``parallel.set_flat_index``) re-based."""
+    spec = getattr(var, "_sharding", None)
+    for d, axis in enumerate(spec or ()):
+        axes = (axis,) if isinstance(axis, str) else tuple(axis or ())
+        axes = [a for a in axes if a not in REGION_AXES and mesh.shape[a] > 1]
+        if not axes:
+            continue
+        n = int(np.prod([mesh.shape[a] for a in axes]))
+        size = value.shape[d]
+        if size % n:
+            raise ValueError(f"feed dim {d} of size {size} does not divide "
+                             f"over mesh axes {axes} ({n} shards)")
+        blk, i = size // n, mesh.shard_index(axes)
+        value = value[(slice(None),) * d + (slice(i * blk, (i + 1) * blk),)]
+        flat = getattr(var, "_flat_index", None)
+        if flat is not None and d == 0:
+            batch, row_len = flat
+            value = value - i * (batch // n) * row_len
+    return value
+
 
 def _to_tensor(value, device, dtype=None) -> torch.Tensor:
     """A numpy array (or array-like) as a tensor of its runtime dtype on
@@ -82,6 +107,25 @@ def _to_tensor(value, device, dtype=None) -> torch.Tensor:
     if not arr.flags.writeable:  # torch.from_numpy wants a writable buffer
         arr = arr.copy()
     return torch.from_numpy(arr).to(device)
+
+
+def _sync_fetch(name, x, mesh):
+    """A fetch under a mesh: a float scalar averaged over the mesh, an
+    integer scalar refused, anything else gathered on dim 0 over the data
+    axes (the JAX package's manual-path contract)."""
+    from .. import distributed as dist
+
+    if x.dim() == 0 or x.numel() == 1:
+        if x.is_floating_point():
+            return dist.all_reduce(x, group=None, mesh=mesh) / mesh.size
+        raise TypeError(
+            f"mesh fetch {name!r} is a non-float scalar: per-shard integer "
+            f"metrics have no canonical global reduction; cast it to "
+            f"float32 in-program (mean semantics) or sum counts in-program "
+            f"before fetching")
+    for a in reversed(mesh.data_axes):
+        x = dist.all_gather(x, a, 0, mesh)
+    return x
 
 
 class Scope:
@@ -203,6 +247,14 @@ class Executor:
                                               scope)
         # advance the step seed even if no op drew from it
         scope._rng_seed = registry.mix_seed(seed, 0x5EED)
+        mesh = getattr(program or framework.default_main_program(),
+                       "_mesh", None)
+        if mesh is not None and not plan.state_in and plan.state_out:
+            # a startup program: every rank takes rank 0's values
+            from .. import distributed as dist
+
+            for n in plan.state_out:
+                env[n] = dist.broadcast(env[n], 0, None, mesh)
         for n in plan.state_out:
             scope.set_var(n, env[n].detach())
         if return_numpy:
@@ -220,12 +272,17 @@ class Executor:
             for v in (fetch_list or []))
         block = program.global_block()
 
+        mesh = getattr(program, "_mesh", None)
         with _tracing.span("data_wait"):
-            feeds = self._prepare_feed(block, dict(feed or {}))
+            feeds = self._prepare_feed(block, dict(feed or {}), mesh)
         plan = self._ensure_plan(program, block, feeds, fetch_names, scope)
         seed = scope._rng_seed
         if seed is None:
             seed = int(program.random_seed or 0)
+        step_seed = seed
+        if mesh is not None and mesh.data_shards > 1 and plan.state_in:
+            step_seed = registry.mix_seed(
+                seed, 0xDA7A0000 + mesh.shard_index(mesh.data_axes))
 
         env: Dict[str, Any] = {}
         for n in plan.state_in:
@@ -244,10 +301,18 @@ class Executor:
         env.update(feeds)
         mode = (torch.inference_mode() if plan.inference
                 else torch.no_grad())
-        with mode, _tracing.span("device"):
-            ctx = registry.EmitContext(seed=seed, device=self.device)
+        from ..parallel import mesh_guard
+
+        with mode, _tracing.span("device"), mesh_guard(mesh):
+            ctx = registry.EmitContext(
+                seed=step_seed, device=self.device, mesh=mesh,
+                axis_env=None if mesh is None else mesh.axis_env)
             registry.emit_ops(ctx, plan.ops, env, plan.free_after)
             fetches = [env[n].detach() for n in fetch_names]
+            if mesh is not None:
+                state = set(plan.state_in) | set(plan.state_out)
+                fetches = [f if n in state else _sync_fetch(n, f, mesh)
+                           for n, f in zip(fetch_names, fetches)]
         return plan, env, fetches, seed
 
     def memory_analysis(self, program=None, feed=None, fetch_list=None,
@@ -354,12 +419,14 @@ class Executor:
                          for n, a in sorted(feeds.items()))
         return (program._serial, program._version, feed_sig, fetch_names)
 
-    def _prepare_feed(self, block, feed):
+    def _prepare_feed(self, block, feed, mesh=None):
         out = {}
         for name, value in feed.items():
             # a tensor already on the device is used as it is: no host
             # round trip
             var = block._find_var_recursive(name)
+            if mesh is not None and var is not None:
+                value = _local_block(value, var, mesh)
             out[name] = _to_tensor(value, self.device,
                                    None if var is None else var.dtype)
         return out

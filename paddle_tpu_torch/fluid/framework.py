@@ -15,8 +15,11 @@ output dim that differs between the two becomes -1.
 Each op records the Python call stack that built it
 (``OP_CALLSTACK_ATTR``, under FLAGS_op_callstack), so the static
 verifier (``fluid/analysis``) names the user's layer call.  Not ported
-yet: ``device_guard`` stage tags (the pipeline slice), dygraph mode, and
-the mesh a fleet pass attaches.
+yet: ``device_guard`` stage tags (the pipeline slice) and dygraph mode.
+``Program._mesh`` (the ``parallel.Mesh`` fleet attaches; None: one
+process, no collectives) and ``Variable._sharding`` (a spec, None:
+replicated; ``parallel.set_var_sharding``) are the hooks of the mesh
+plan; ``clone`` keeps both.
 """
 from __future__ import annotations
 
@@ -83,6 +86,7 @@ class Variable:
         self.stop_gradient = stop_gradient
         self.is_data = is_data
         self.trainable = trainable
+        self._sharding = None  # parallel.set_var_sharding's spec
         # op that produces this var (last writer), for pruning
         self.op: Optional["Operator"] = None
 
@@ -317,6 +321,7 @@ class Program:
         # monotonic identity for the executor's plan cache: id() can be
         # reused by CPython after a Program is collected
         self._serial = next(_program_serial_counter)
+        self._mesh = None  # the parallel.Mesh fleet attaches
 
     def _bump_version(self):
         self._version += 1
@@ -344,6 +349,7 @@ class Program:
         p.random_seed = self.random_seed
         p._version = 0
         p._serial = next(_program_serial_counter)
+        p._mesh = self._mesh
         for b, nb in zip(self.blocks, p.blocks):
             for name, v in b.vars.items():
                 cls = Parameter if isinstance(v, Parameter) else Variable

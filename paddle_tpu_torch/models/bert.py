@@ -20,6 +20,7 @@ from typing import Optional
 
 import numpy as np
 
+from .. import parallel
 from ..fluid import layers
 from ..fluid.framework import Program, program_guard
 from ..fluid.initializer import ConstantInitializer, TruncatedNormalInitializer
@@ -79,8 +80,9 @@ def encoder_layer(cfg: BertConfig, hidden, attn_bias, name: str,
     """
     if cfg.moe_num_experts > 0:
         raise NotImplementedError(
-            "moe_num_experts > 0: the moe_ffn op is not ported yet (the "
-            "distributed slice brings it)")
+            "moe_num_experts > 0: the moe_ffn op is not ported yet "
+            "(ROADMAP A4, next slice item 3: moe_ops.py with ep "
+            "all-to-alls)")
     b, s, h = hidden.shape
     nh = cfg.num_attention_heads
     dh = h // nh
@@ -281,6 +283,8 @@ def build_bert_pretrain_program(cfg: BertConfig, batch_size: int,
         input_mask = data("input_mask", [batch_size, seq_len], "float32")
         mask_positions = data("mask_positions", [batch_size * max_preds],
                               "int32")
+        # flat indices into [B * S]: a data-parallel rank re-bases its block
+        parallel.set_flat_index(mask_positions, batch_size, seq_len)
         mask_labels = data("mask_labels", [batch_size * max_preds, 1],
                            "int32")
         mask_weights = data("mask_weights", [batch_size * max_preds, 1],

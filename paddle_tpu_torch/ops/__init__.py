@@ -7,6 +7,7 @@ CUDA kernels live in ``ops.kernels``.
 from . import registry  # noqa: F401
 from . import (  # noqa: F401
     attention,
+    collective_ops,
     creation,
     encoder_stack,
     manipulation,

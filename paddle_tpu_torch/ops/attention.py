@@ -23,10 +23,17 @@ never the device):
   FLAGS_use_flash_attention off): ``_reference_attention`` in torch, as
   the reference does.
 
-BiasQK gets a zero cotangent on every branch, as in the reference: the
-kernels return none, and the composition detaches the bias.  The
-ring-attention branch (sequence parallel over a mesh) waits for the
-distributed slice.
+* ring — ``sequence_parallel`` under a mesh whose "sp" axis has more
+  than one rank (``parallel.ring_attention.use_ring``): Q, K and V arrive
+  whole on every sp rank (one process per rank; the JAX package's GSPMD
+  holds them as global arrays); the op takes this rank's sequence block
+  of each (``distributed.shard_slice``), runs ``ring_attention`` over
+  "sp" with the [B, 1, 1, S] bias as per-key rows, and all-gathers the
+  result.  The probs dropout runs inside the ring.
+
+BiasQK gets a zero cotangent on every branch but the ring, as in the
+reference: the kernels return none, and the composition detaches the
+bias.  The ring differentiates its key bias, as the JAX package's does.
 """
 from __future__ import annotations
 
@@ -36,6 +43,9 @@ import torch
 
 from .kernels.flash_attention import (bsh_dispatch_ok, flash_attention,
                                       flash_attention_bsh, flash_shapes_ok)
+from .. import distributed as dist
+from ..parallel.ring_attention import (key_bias_from_attn_bias,
+                                       ring_attention, use_ring)
 from .registry import register
 
 
@@ -75,6 +85,20 @@ def fused_multihead_attention(ctx, ins, attrs):
     is_test = bool(attrs.get("is_test", False))
     causal = bool(attrs.get("causal", False))
     train_dropout = not is_test and dropout_prob > 0.0
+
+    if use_ring(ctx, attrs):
+        mesh = ctx.mesh
+        key_bias = key_bias_from_attn_bias(bias, q3.shape[0])
+        ql, kl, vl = (dist.shard_slice(_split_heads(t, nh), "sp", 2, mesh)
+                      for t in (q3, k3, v3))
+        bl = (None if key_bias is None
+              else dist.shard_slice(key_bias, "sp", 1, mesh))
+        seed = (ctx.salted_seed(int(attrs.get("rng_salt", 0)))
+                if train_dropout and q3.device.type != "meta" else None)
+        out = ring_attention(ql, kl, vl, "sp", bl, None, causal,
+                             dropout_prob if train_dropout else 0.0, seed,
+                             mesh=mesh)
+        return {"Out": [_merge_heads(dist.all_gather(out, "sp", 2, mesh))]}
 
     sq, skv, h = q3.shape[1], k3.shape[1], q3.shape[2]
     if bsh_dispatch_ok(sq, skv, h, nh, bias=bias, batch=q3.shape[0],

@@ -58,10 +58,31 @@ once a layer, its backward gets q, k and v recomputed.  ``attn_out``,
 ``ln1_out`` and ``ffn_inter`` are accepted and keep nothing: their
 producers run in the recompute anyway, to rebuild the autograd nodes that
 the backward needs.  The BHSD and composition branches recompute their
-attention too.  Not ported: the GPipe pipeline and the ring
-(sequence-parallel) branches; each raises NotImplementedError (ROADMAP
-A10).  The decoder stack takes ``remat_ffn`` (the JAX package's only remat
-there) and raises on ``sequence_parallel``.
+attention too.  The decoder stack takes ``remat_ffn`` (the JAX package's
+only remat there).  Not ported: the GPipe pipeline (``pipeline``), which
+raises NotImplementedError (ROADMAP A4, the next slice: GPipe and
+pp x sp).
+
+Sequence parallelism (``sequence_parallel`` under a mesh whose "sp" axis
+has more than one rank, ``parallel.ring_attention.use_ring``).  The JAX
+package runs the ring inside a shard_map per layer and lets GSPMD keep
+the activations sequence-sharded between; the port runs one process per
+rank, and the region is the whole stack: the hidden state and the
+per-key bias enter whole on every sp rank and are sliced to this rank's
+token block once (``distributed.shard_slice``: the backward all-gathers
+their cotangents), every layer runs on the local tokens with
+``ring_attention`` over "sp" for its attention, and the output is
+all-gathered once at exit (its backward keeps this rank's block).  Every
+other op of a layer is token-local, so the values are the JAX package's.
+Each weight (and the decoder's encoder output and source bias, read
+whole by every rank) passes through ``distributed.sp_identity``, whose
+backward sums its cotangent over "sp": every parameter gradient is whole
+on each sp rank.  The decoder's causal self-attention is the causal ring
+over trg shards (global positions as q/k offsets); its cross-attention is
+the composition of the local queries over the whole encoder output, as
+the JAX package keeps jnp there.  Dropout inside the region mixes the sp
+index into the layer seeds, and the ring seeds each (rank, source block)
+pair (``ring_attention.block_seed``).
 
 Encoder slots (all stacked on dim 0 = layer):
   Hidden [B,S,H], AttnBias [B,1,1,S],
@@ -80,6 +101,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from .. import distributed as dist
+from ..parallel.ring_attention import (key_bias_from_attn_bias,
+                                       ring_attention, use_ring)
 from .kernels import add_ln as _add_ln_kernel
 from .kernels.flash_attention import (bsh_dispatch_ok, flash_attention,
                                       flash_attention_bsh, flash_shapes_ok)
@@ -192,11 +216,22 @@ class _FlashStash:
 
 
 def _refuse_unported(attrs):
-    for attr in ("pipeline", "sequence_parallel"):
-        if attrs.get(attr, False):
-            raise NotImplementedError(
-                f"fused_encoder_stack {attr}: the GPipe and ring branches "
-                f"wait for the distributed slice (ROADMAP A10)")
+    if attrs.get("pipeline", False):
+        raise NotImplementedError(
+            "fused_encoder_stack pipeline: the GPipe branch (and pp x sp) "
+            "is not ported yet (ROADMAP A4, the next slice: GPipe and "
+            "pp x sp)")
+
+
+def _sp_region(ctx, what, length):
+    """(mesh, sp size, sp index) of a stack's sequence-parallel region,
+    refusing a length the ring cannot split."""
+    mesh = ctx.mesh
+    n = mesh.shape["sp"]
+    if length % n:
+        raise ValueError(f"{what} sequence_parallel: the ring needs the "
+                         f"length {length} divisible by sp = {n}")
+    return mesh, n, mesh.coords["sp"]
 
 
 @register("fused_encoder_stack")
@@ -213,6 +248,18 @@ def fused_encoder_stack(ctx, ins, attrs):
     use_flash = bool(attrs.get("use_flash_attention", True))
     base_seed = ctx.salted_seed(int(attrs.get("rng_salt", 0)))
     shape_only = hidden.device.type == "meta"
+    stacked = [ins[k][0] for k in _PARAM_KEYS]
+    ring = use_ring(ctx, attrs)
+    if ring:
+        # the sp region: this rank's token block in, the whole sequence out
+        mesh, _, sp_idx = _sp_region(ctx, "fused_encoder_stack",
+                                     hidden.shape[1])
+        key_bias = key_bias_from_attn_bias(bias, hidden.shape[0])
+        hidden = dist.shard_slice(hidden, "sp", 1, mesh)
+        bias = (None if key_bias is None
+                else dist.shard_slice(key_bias, "sp", 1, mesh))
+        stacked = [dist.sp_identity(t, "sp", mesh) for t in stacked]
+        base_seed = mix_seed(base_seed, sp_idx)
     remat_policy = _policy_names(attrs.get("remat_policy", ""))
     if remat_policy:
         # the policy checkpoints the whole layer; the blanket flags would
@@ -235,8 +282,8 @@ def fused_encoder_stack(ctx, ins, attrs):
         def seed_of(site):
             return mix_seed(lseed, site)
 
-        use_bsh = use_flash and bsh_dispatch_ok(s, s, h, nh, bias=bias,
-                                                batch=b)
+        use_bsh = (not ring and use_flash
+                   and bsh_dispatch_ok(s, s, h, nh, bias=bias, batch=b))
 
         def project_qkv_flat(hid_, w, bias_):
             qkv = torch.matmul(hid_, w) + bias_
@@ -254,7 +301,16 @@ def fused_encoder_stack(ctx, ins, attrs):
             qkv_heads = functools.partial(_ckpt, project_qkv)
 
         attn_p = 0.0 if is_test else attn_dropout_prob
-        if use_bsh:
+        if ring:
+            # the ring over "sp" on this rank's tokens; bias is the key
+            # bias block [B, S_local]
+            q, k, v = qkv_heads(hid, p["QKVW"], p["QKVB"])
+            ctx_l = ring_attention(
+                q, k, v, "sp", bias, None, False, attn_p,
+                seed_of(_ATTN) if attn_p > 0.0 and not shape_only else None,
+                mesh=mesh)
+            ctx_l = ctx_l.transpose(1, 2).reshape(b, s, h)
+        elif use_bsh:
             q, k, v = qkv_flat(hid, p["QKVW"], p["QKVB"])
             gen = (_generator(seed_of(_ATTN), hid.device)
                    if attn_p > 0.0 and not shape_only else None)
@@ -304,7 +360,7 @@ def fused_encoder_stack(ctx, ins, attrs):
             ffn_out = ffn(*ffn_args)
         return _add_ln(hid, ffn_out, p["Ln2S"], p["Ln2B"], eps)
 
-    per_layer = zip(*(ins[k][0].unbind(0) for k in _PARAM_KEYS))
+    per_layer = zip(*(t.unbind(0) for t in stacked))
     remat_layer = bool(attrs.get("remat_layer", False))
     out = hidden
     for idx, params in enumerate(per_layer):
@@ -318,6 +374,8 @@ def fused_encoder_stack(ctx, ins, attrs):
             out = _ckpt(layer, out, idx, *params)
         else:
             out = layer(out, idx, *params)
+    if ring:
+        out = dist.all_gather(out, "sp", 1, mesh)
     return {"Out": [out]}
 
 
@@ -338,10 +396,6 @@ def fused_decoder_stack(ctx, ins, attrs):
     cross-attention over the encoder output, then the FFN, post-LN) over
     stacked [L, ...] parameters: the NMT counterpart of
     ``fused_encoder_stack``."""
-    if attrs.get("sequence_parallel", False):
-        raise NotImplementedError(
-            "fused_decoder_stack sequence_parallel: the ring branch waits "
-            "for the distributed slice (ROADMAP A10)")
     hidden = ins["Hidden"][0]
     enc_out = ins["EncOut"][0]
     src_bias = ins.get("SrcBias", [None])[0]
@@ -354,6 +408,19 @@ def fused_decoder_stack(ctx, ins, attrs):
     use_flash = bool(attrs.get("use_flash_attention", True))
     base_seed = ctx.salted_seed(int(attrs.get("rng_salt", 0)))
     shape_only = hidden.device.type == "meta"
+    stacked = [ins[k][0] for k in _DEC_PARAM_KEYS]
+    ring = use_ring(ctx, attrs)
+    if ring:
+        # the sp region: trg tokens sharded; the encoder output and the
+        # source bias are read whole by every rank
+        mesh, _, sp_idx = _sp_region(ctx, "fused_decoder_stack",
+                                     hidden.shape[1])
+        hidden = dist.shard_slice(hidden, "sp", 1, mesh)
+        enc_out = dist.sp_identity(enc_out, "sp", mesh)
+        if src_bias is not None:
+            src_bias = dist.sp_identity(src_bias, "sp", mesh)
+        stacked = [dist.sp_identity(t, "sp", mesh) for t in stacked]
+        base_seed = mix_seed(base_seed, sp_idx)
     b, st, h = hidden.shape
     dh = h // nh
     attn_p = 0.0 if is_test else attn_dropout_prob
@@ -368,8 +435,17 @@ def fused_decoder_stack(ctx, ins, attrs):
         when the shapes allow (rectangular cross-attention included),
         else the composition."""
         sq, skv = q3.shape[1], k3.shape[1]
-        if use_flash and bsh_dispatch_ok(sq, skv, h, nh, bias=bias4,
-                                         batch=b, causal=causal):
+        if ring and causal:
+            # trg-sharded causal self-attention over the ring
+            q, k, v = (t.reshape(b, t.shape[1], nh, dh).transpose(1, 2)
+                       for t in (q3, k3, v3))
+            out = ring_attention(
+                q, k, v, "sp", None, None, True, attn_p,
+                seed if attn_p > 0.0 and not shape_only else None,
+                mesh=mesh)
+            return out.transpose(1, 2).reshape(b, sq, h)
+        if not ring and use_flash and bsh_dispatch_ok(
+                sq, skv, h, nh, bias=bias4, batch=b, causal=causal):
             gen = (_generator(seed, hidden.device)
                    if attn_p > 0.0 and not shape_only else None)
             return flash_attention_bsh(q3, k3, v3, bias4, num_heads=nh,
@@ -418,7 +494,9 @@ def fused_decoder_stack(ctx, ins, attrs):
         return _add_ln(hid, ffn_out, p["Ln3S"], p["Ln3B"], eps)
 
     out = hidden
-    per_layer = zip(*(ins[k][0].unbind(0) for k in _DEC_PARAM_KEYS))
+    per_layer = zip(*(t.unbind(0) for t in stacked))
     for idx, params in enumerate(per_layer):
         out = layer(out, idx, *params)
+    if ring:
+        out = dist.all_gather(out, "sp", 1, mesh)
     return {"Out": [out]}

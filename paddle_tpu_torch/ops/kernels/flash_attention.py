@@ -124,6 +124,9 @@ def flash_shapes_ok(s, d) -> bool:
     return d in HEAD_DIMS and s % MIN_BLOCK == 0
 
 
+flash_block_ok = flash_shapes_ok  # the ring's gate (the reference's alias)
+
+
 def bsh_dispatch_ok(sq, skv, h, num_heads, bias=None, batch=None,
                     causal=False) -> bool:
     """The reference's fitness test for the BSH path: the flag, D and

@@ -55,11 +55,16 @@ def mix_seed(seed: int, salt: int) -> int:
 
 class EmitContext:
     """Per-step context handed to emitters: the run's device, its random
-    state and the primal-reuse cache."""
+    state, the primal-reuse cache, and under a mesh the ``Mesh``
+    (``parallel``) and ``axis_env`` (ring_id -> axis name, read by the
+    c_* ops)."""
 
-    def __init__(self, seed: int = 0, device="cpu"):
+    def __init__(self, seed: int = 0, device="cpu", mesh=None,
+                 axis_env=None):
         self.device = torch.device(device)
         self.seed = int(seed)
+        self.mesh = mesh
+        self.axis_env = dict(axis_env or {})
         self._draws = 0
         # forward key -> LIFO of (outs, fwd_ins) awaiting their grad op
         self.vjp_cache: Dict[tuple, list] = {}

@@ -150,6 +150,14 @@ def test_decoder_dropout_is_seeded_per_step_and_remat_safe():
 
 
 def test_decoder_sequence_parallel_raises():
+    """The decoder's ring splits the trg tokens over the sp ranks: a
+    length the sp size does not divide raises before any collective (the
+    ring itself is held against JAX in test_torch_fleet.py)."""
+    from paddle_tpu_torch.parallel import Mesh
+
     ins, cot, attrs = _inputs("composition_h32")
-    with pytest.raises(NotImplementedError, match="ring"):
-        _torch(ins, cot, dict(attrs, sequence_parallel=True))
+    ctx = treg.EmitContext(mesh=Mesh({"sp": 3}))
+    with pytest.raises(ValueError, match="ring"):
+        treg.get("fused_decoder_stack").emit(
+            ctx, {k: [torch.as_tensor(v)] for k, v in ins.items()},
+            dict(attrs, sequence_parallel=True))

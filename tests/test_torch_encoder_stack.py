@@ -174,11 +174,15 @@ def test_cheap_dropout_rescales_by_the_quantized_keep():
 
 
 @pytest.mark.parametrize("attrs", [{"pipeline": True},
-                                   {"sequence_parallel": True}],
+                                   {"pipeline": True,
+                                    "sequence_parallel": True}],
                          ids=["pipeline", "ring"])
 def test_unported_branches_raise(attrs):
+    """GPipe, alone or with the ring inside its stages (pp x sp), is not
+    ported: it raises naming its queue item (the ring alone is, in
+    test_torch_fleet.py and test_torch_ring_attention.py)."""
     ins, cot, base = _inputs("composition_h32")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="GPipe"):
         _torch(ins, cot, dict(base, **attrs))
 
 

@@ -2,7 +2,9 @@
 chip_smoke.py, imports jax or anything of paddle_tpu; entry points run
 on the card unless the caller asks for the CPU (the serving replica,
 the file-based predictor and the server's command line included); the
-CUDA wrapper's input checks refuse what the kernel does not take."""
+CUDA wrapper's input checks refuse what the kernel does not take;
+``init_parallel_env`` picks NCCL for a CUDA device and gloo only for the
+CPU or when named, and never falls back."""
 from __future__ import annotations
 
 import os
@@ -31,6 +33,14 @@ names = [m.name for m in pkgutil.walk_packages(paddle_tpu_torch.__path__,
 for n in names:
     importlib.import_module(n)
 import chip_smoke  # noqa: F401
+sys.path.insert(0, "tests")
+import torch_dist_ranks  # the multi-rank tests' rank bodies
+from paddle_tpu_torch.parallel import create_mesh
+import numpy as np
+z = np.arange(12, dtype=np.float32).reshape(4, 3)
+torch_dist_ranks._collective_cases(create_mesh({"dp": 1}), {
+    "x": z[:2], "xr": z[:2], "xs": z[0], "ct": z[:2], "ct_rs": z[:2],
+    "w": z[:2], "ct_id": z[:2]})
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m.startswith("jaxlib.") or m == "paddle_tpu"
@@ -57,7 +67,10 @@ for n in ("fluid", "fluid.layers", "fluid.executor", "fluid.framework",
           "fluid.analysis.crosscheck", "fluid.analysis.fixes",
           "fluid.analysis.sandwich", "fluid.checkpoint", "fluid.monitor",
           "fluid.dygraph", "fluid.dygraph.checkpoint", "hapi.callbacks",
-          "hapi.metrics"):
+          "hapi.metrics", "parallel", "parallel.env",
+          "parallel.ring_attention", "distributed", "ops.collective_ops",
+          "fleet", "fleet.base.distributed_strategy",
+          "fleet.base.role_maker", "fleet.metrics"):
     assert "paddle_tpu_torch." + n in names, n
 """
 
@@ -457,3 +470,58 @@ def test_cli_replica_serves_and_drains_on_sigterm(tmp_path):
         if proc.poll() is None:
             proc.kill()
             proc.wait()
+
+
+def test_init_parallel_env_picks_nccl_for_cuda_and_never_falls_back(
+        monkeypatch):
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.parallel import env
+
+    assert env.choose_backend("cuda:0") == "nccl"
+    assert env.choose_backend(torch.device("cuda", 1)) == "nccl"
+    assert env.choose_backend("cpu") == "gloo"
+    # no CUDA and no device named: raise, never a silent CPU/gloo group
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(env, "_state", dict(env._state))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        env.init_parallel_env()
+    # a CUDA device gets NCCL (the group itself is only made on the card)
+    seen = []
+    monkeypatch.setattr(dist, "is_initialized", lambda: False)
+    monkeypatch.setattr(dist, "init_process_group",
+                        lambda **kw: seen.append(kw))
+    monkeypatch.setattr(torch.cuda, "set_device", lambda d: None)
+    env.init_parallel_env(device="cuda:0", init_method="file:///x")
+    assert seen[-1]["backend"] == "nccl"
+    monkeypatch.setattr(env, "_state", dict(env._state, initialized=False))
+    env.init_parallel_env(device="cuda:0", backend="gloo",
+                          init_method="file:///x")
+    assert seen[-1]["backend"] == "gloo"   # named by the caller
+    for var in ("PADDLE_HEARTBEAT_DIR", "PADDLE_DEBUGZ_PORT"):
+        monkeypatch.setenv(var, "1")
+        with pytest.raises(NotImplementedError, match="not ported"):
+            env.init_parallel_env(device="cpu")
+        monkeypatch.delenv(var)
+
+
+def test_init_parallel_env_on_the_cpu_is_gloo(tmp_path):
+    """A real rank on the CPU: gloo, and a world-1 mesh with process
+    groups whose collectives run through it."""
+    code = (
+        "import sys, torch, torch.distributed as dist\n"
+        "from paddle_tpu_torch.parallel import env, create_mesh\n"
+        "from paddle_tpu_torch import distributed as d\n"
+        f"dev = env.init_parallel_env(device='cpu', "
+        f"init_method='file://{tmp_path}/store', timeout_s=30)\n"
+        "assert dev.type == 'cpu' and dist.get_backend() == 'gloo'\n"
+        "m = create_mesh({'dp': 1})\n"
+        "assert m.group('dp') is not None\n"
+        "x = torch.arange(4.0)\n"
+        "assert torch.equal(d.all_reduce(x, 'sum', 'dp', mesh=m), x)\n"
+        "dist.destroy_process_group()\n"
+        "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=60)
+    assert out.returncode == 0 and "ok" in out.stdout, out.stderr[-3000:]
