@@ -32,7 +32,9 @@ prints no result):
                wgmma kernels) likewise: its rounded p c and ds against
                the plain version's, and its dq, dk, dv against the plain
                products of them; both timed at BERT's shape, with and
-               without dropout, and at the NMT decoder's two shapes);
+               without dropout, at dist_tp's [4, 512, 6 x 64] (checked
+               there in f32 and bf16 with Philox dropout) and at the NMT
+               decoder's two shapes);
                the f32 forward (the infer path's SIMT kernel) also at
                nmt_infer's two decoder shapes;
                add+LayerNorm, out and stats (the infer and training
@@ -249,6 +251,29 @@ prints no result):
   dist_nccl    one rank: init_parallel_env() picks NCCL on the card; a
                dp 1 mesh trains the 2-layer f32 program 2 steps equal bit
                for bit to the run without a mesh; every c_* emitter once
+  dist_tp      BERT-base unfused (the fused attention op on the flash
+               kernels, 6 of the 12 heads a rank) with
+               tensor_parallel_rules() (Megatron column/row regions, the
+               vocabulary-parallel embedding and tied head) under fleet
+               at {"dp": 2, "tp": 2}, bf16 AMP, Adam, global batch 8 x
+               512, four ranks sharing the card over gloo: 3 steps
+               against the same program and weights in one process
+               (within 2e-2), 2 layers in f32 (losses within 1e-4, every
+               parameter gathered over tp within 2e-5), the ranks'
+               gathered state bit for bit and the dp pair's blocks too,
+               every step's launches exact (rows 4 and 5 once and twice
+               a layer at [4, 512, 6 x 64], rows 2 and 3 26), the
+               collectives, step wall and idle share; then dropout 0.1:
+               finite, the replicated state equal on the tp pair, whose
+               head-shard dropout seeds differ
+  dist_pp      bert_train's program (fuse_stack) under fleet with
+               pipeline at {"dp": 2, "pp": 2}, accumulate_steps 2 (6 of
+               the 12 layers a stage, 2 microbatches of 2 x 512), then at
+               {"pp": 2, "sp": 2} with sequence_parallel (the ring inside
+               each stage) on the same four ranks: the holds of dist_tp
+               (2 layers in f32: one a stage), the GPipe launches exact
+               (rows 4 / 5 or, under pp x sp, 6 / 7 per stage layer and
+               microbatch)
 
 A dist phase's ranks are ``python3 chip_smoke.py --dist-child ...``
 processes; one that fails or outlives its deadline fails the phase, the
@@ -1065,6 +1090,98 @@ def _flash_bwd_check(torch, fa, name, kw, do) -> dict:
     return r
 
 
+def _bsh_pair_timed(torch, F, flush, fa, kw, do, checked, what):
+    """Rows 4 and 5 timed on one checked bf16 case (``kw``, ``do``: a
+    padding bias, Philox dropout) beside the plain versions and SDPA
+    (with the same dropout, on pre-split heads; its autograd backward),
+    and each without dropout: what drawing the Philox bits costs."""
+    q, k, v, bias = kw["q"], kw["k"], kw["v"], kw["bias"]
+    b, s, h = q.shape
+    nh, p = kw["num_heads"], kw["dropout_prob"]
+    o, lse, bits = fa.flash_attention_bsh_fwd(**kw, return_bits=True)
+    keep_div = fa.dropout_quantized_thresh(1.0 - p) / 256.0
+    plain = {k_: kw[k_] for k_ in ("q", "k", "v", "bias", "num_heads")}
+    # library yardstick: SDPA with dropout on pre-split heads and the
+    # additive mask; its autograd backward is timed
+    qh, kh, vh = (t.reshape(b, s, nh, h // nh).transpose(1, 2).contiguous()
+                  .requires_grad_() for t in (q, k, v))
+    dout = do.reshape(b, s, nh, h // nh).transpose(1, 2).contiguous()
+    lib_o = F.scaled_dot_product_attention(qh, kh, vh,
+                                           attn_mask=bias.to(q.dtype),
+                                           dropout_p=p)
+    fwd = {"shape": {"B": b, "S": s, "H": h, "nh": nh, "D": h // nh,
+                     "bias": "per key", "dtype": "bfloat16",
+                     "dropout": f"Philox, p={p}"},
+           "library": f"F.scaled_dot_product_attention with dropout_p={p} "
+                      f"on pre-split heads, additive bf16 mask",
+           "max_abs_err": checked["max_abs_err"]}
+    n_tc = fa.flash_attention_bsh.launches_tc
+    fwd.update(_timed(
+        torch, flush, lambda: fa.flash_attention_bsh_fwd(**kw),
+        lambda: fa.flash_attention_bsh_reference(
+            **plain, dropout_prob=p, mask=bits, keep_div=keep_div),
+        lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=bias.to(q.dtype), dropout_p=p),
+        nbytes=fa.bound_bytes(q, k, v, bias, nh),
+        flops=fa.bound_flops(q, k, nh), peak_flops=BF16_FLOPS))
+    if fa.flash_attention_bsh.launches_tc == n_tc:
+        fail(f"row 4 at {what} ran no wgmma kernel")
+    fwd["route"] = fa.bsh_fwd_route(q.dtype)
+    # without dropout: what drawing the Philox bits costs row 4
+    fwd["no_dropout_ms"] = time_cold_ms(
+        torch, lambda: fa.flash_attention_bsh_fwd(q, k, v, bias, nh),
+        flush)["median"]
+    fwd["no_dropout_library_ms"] = time_cold_ms(
+        torch, lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=bias.to(q.dtype)), flush)["median"]
+    bwd = {"shape": fwd["shape"],
+           "library": f"autograd backward of F.scaled_dot_product_attention "
+                      f"with dropout_p={p} on pre-split heads (dq, dk, dv)",
+           "kernels_a_call": 2,
+           "max_abs_err": max(checked["grads"].values())}
+    bwd.update(_timed(
+        torch, flush,
+        lambda: fa.flash_attention_bsh_bwd(
+            q, k, v, bias, o, lse, do, nh, dropout_prob=p,
+            dropout_seed=kw["dropout_seed"]),
+        lambda: fa.flash_attention_bsh_bwd_reference(
+            q, k, v, bias, o, lse, do, nh, mask=bits, keep_div=keep_div),
+        lambda: torch.autograd.grad(lib_o, (qh, kh, vh), dout,
+                                    retain_graph=True),
+        nbytes=fa.bound_bytes_bwd(q, k, v, bias, nh),
+        flops=fa.bound_flops_bwd(q, k, nh), peak_flops=BF16_FLOPS))
+    # the same backward without dropout: what regenerating the Philox
+    # bits costs the two kernels
+    o0, lse0 = fa.flash_attention_bsh_fwd(q, k, v, bias, nh)
+    bwd["no_dropout_ms"] = time_cold_ms(
+        torch, lambda: fa.flash_attention_bsh_bwd(q, k, v, bias, o0, lse0,
+                                                  do, nh), flush)["median"]
+    del qh, kh, vh, lib_o, dout, o0, lse0
+    return fwd, bwd
+
+
+def _tp_block_timed(torch, F, flush, fa, rng, results, fwd, bwd):
+    """Rows 4 and 5 at dist_tp's shape: a rank's [4, 512, 6 x 64], 6 of
+    BERT-base's 12 heads after the column-parallel q, k, v, the padding
+    bias, dropout 0.1 by Philox; held against the plain versions in f32
+    and bf16, then timed in bf16 (the path's AMP) beside SDPA, into
+    ``fwd["dist_tp"]`` and ``bwd["dist_tp"]``."""
+    c = DIST_TP_BLOCK
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        name = f"dist_tp_block_{tag}"
+        kw, do = _flash_train_case(torch, rng, c["b"], c["s"], c["nh"],
+                                   c["d"], dtype, p=0.1, mode="philox")
+        results[name] = _flash_bwd_check(torch, fa, name, kw, do)
+    f, b = _bsh_pair_timed(torch, F, flush, fa, kw, do,
+                           results["dist_tp_block_bf16"],
+                           "dist_tp's shape")
+    f["shape"]["of"] = b["shape"]["of"] = (
+        "a rank of dist_tp (dp 2 x tp 2 over 8 x 512): 6 of 12 heads")
+    fwd["dist_tp"], bwd["dist_tp"] = f, b
+    del kw, do
+    torch.cuda.empty_cache()
+
+
 def _kernels_flash_train(torch, F, flush) -> tuple:
     """The training path's flash kernels: the backward (and the forward's
     dropout) against the plain versions, then timed at BERT-base's
@@ -1099,69 +1216,13 @@ def _kernels_flash_train(torch, F, flush) -> tuple:
         del kw, do
 
     kw, do = main
-    q, k, v, bias = kw["q"], kw["k"], kw["v"], kw["bias"]
-    b, s, h = q.shape
-    nh, p = kw["num_heads"], kw["dropout_prob"]
-    o, lse, bits = fa.flash_attention_bsh_fwd(**kw, return_bits=True)
-    keep_div = fa.dropout_quantized_thresh(1.0 - p) / 256.0
-    plain = {k_: kw[k_] for k_ in ("q", "k", "v", "bias", "num_heads")}
-    # library yardstick: SDPA with dropout on pre-split heads and the
-    # additive mask; its autograd backward is timed
-    qh, kh, vh = (t.reshape(b, s, nh, h // nh).transpose(1, 2).contiguous()
-                  .requires_grad_() for t in (q, k, v))
-    dout = do.reshape(b, s, nh, h // nh).transpose(1, 2).contiguous()
-    lib_o = F.scaled_dot_product_attention(qh, kh, vh,
-                                           attn_mask=bias.to(q.dtype),
-                                           dropout_p=p)
-    fwd = {"shape": {"B": b, "S": s, "H": h, "nh": nh, "D": h // nh,
-                     "bias": "per key, lengths 128..512",
-                     "dtype": "bfloat16", "dropout": "Philox, p=0.1"},
-           "library": "F.scaled_dot_product_attention with dropout_p=0.1 "
-                      "on pre-split heads, additive bf16 mask",
-           "max_abs_err": results["philox_bf16"]["max_abs_err"]}
-    n_tc = fa.flash_attention_bsh.launches_tc
-    fwd.update(_timed(
-        torch, flush, lambda: fa.flash_attention_bsh_fwd(**kw),
-        lambda: fa.flash_attention_bsh_reference(
-            **plain, dropout_prob=p, mask=bits, keep_div=keep_div),
-        lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, attn_mask=bias.to(q.dtype), dropout_p=p),
-        nbytes=fa.bound_bytes(q, k, v, bias, nh),
-        flops=fa.bound_flops(q, k, nh), peak_flops=BF16_FLOPS))
-    if fa.flash_attention_bsh.launches_tc == n_tc:
-        fail("row 4 at BERT's training shape ran no wgmma kernel")
-    fwd["route"] = fa.bsh_fwd_route(q.dtype)
-    # without dropout: what drawing the Philox bits costs row 4
-    fwd["no_dropout_ms"] = time_cold_ms(
-        torch, lambda: fa.flash_attention_bsh_fwd(q, k, v, bias, nh),
-        flush)["median"]
-    fwd["no_dropout_library_ms"] = time_cold_ms(
-        torch, lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, attn_mask=bias.to(q.dtype)), flush)["median"]
-    bwd = {"shape": fwd["shape"],
-           "library": "autograd backward of F.scaled_dot_product_attention "
-                      "with dropout_p=0.1 on pre-split heads (dq, dk, dv)",
-           "kernels_a_call": 2,
-           "max_abs_err": max(results["philox_bf16"]["grads"].values())}
-    bwd.update(_timed(
-        torch, flush,
-        lambda: fa.flash_attention_bsh_bwd(
-            q, k, v, bias, o, lse, do, nh, dropout_prob=p,
-            dropout_seed=kw["dropout_seed"]),
-        lambda: fa.flash_attention_bsh_bwd_reference(
-            q, k, v, bias, o, lse, do, nh, mask=bits, keep_div=keep_div),
-        lambda: torch.autograd.grad(lib_o, (qh, kh, vh), dout,
-                                    retain_graph=True),
-        nbytes=fa.bound_bytes_bwd(q, k, v, bias, nh),
-        flops=fa.bound_flops_bwd(q, k, nh), peak_flops=BF16_FLOPS))
-    # the same backward without dropout: what regenerating the Philox
-    # bits costs the two kernels
-    o0, lse0 = fa.flash_attention_bsh_fwd(q, k, v, bias, nh)
-    bwd["no_dropout_ms"] = time_cold_ms(
-        torch, lambda: fa.flash_attention_bsh_bwd(q, k, v, bias, o0, lse0,
-                                                  do, nh), flush)["median"]
-    del qh, kh, vh, lib_o, dout, main, kw, do, o0, lse0
+    fwd, bwd = _bsh_pair_timed(torch, F, flush, fa, kw, do,
+                               results["philox_bf16"],
+                               "BERT's training shape")
+    fwd["shape"]["bias"] = "per key, lengths 128..512"
+    del main, kw, do
     torch.cuda.empty_cache()
+    _tp_block_timed(torch, F, flush, fa, rng, results, fwd, bwd)
     bwd["nmt_decoder"] = _time_bwd_nmt(torch, F, flush, fa, rng)
     fwd["nmt_decoder"] = _time_fwd_nmt(torch, F, flush, fa, rng)
     return results, fwd, bwd
@@ -5784,6 +5845,17 @@ DIST_PARAM_F32 = TRAIN_PARITY_PARAM
 # the ring's bf16 result against the f32 plain version over the whole
 # sequence: bf16 rounding (ATOL_BF16) at the scale of each tensor
 DIST_RING_BF16_SCALE = ATOL_BF16
+# tensor parallelism: BERT-base unfused over dp 2 x tp 2, each rank's
+# attention 6 of the 12 heads of [4, 512]; pipeline parallelism: the
+# fused stack over dp 2 x pp 2 (6 layers a stage, 2 microbatches), then
+# pp 2 x sp 2 on the same ranks
+DIST_TP = dict(DIST_TRAIN, mesh={"dp": 2, "tp": 2}, fuse_stack=False,
+               tp=True)
+DIST_PP = dict(DIST_TRAIN, mesh={"dp": 2, "pp": 2}, fuse_stack=True,
+               pipeline=True, acc=2)
+DIST_PP_SP = dict(DIST_PP, mesh={"pp": 2, "sp": 2}, drop_steps=0)
+DIST_TP_BLOCK = dict(b=DIST_TP["batch"] // 2, s=DIST_TP["seq"], nh=12 // 2,
+                     d=64)
 
 
 def _dist_spawn(mode: str, world: int, workdir: str) -> list:
@@ -5855,7 +5927,8 @@ def _dist_child(mode: str, rank: int, world: int, workdir: str) -> int:
                               init_method=f"file://{workdir}/store",
                               timeout_s=DIST_PG_TIMEOUT_S)
     body = {"ring": _dist_ring_child, "train": _dist_train_child,
-            "nccl": _dist_nccl_child}[mode]
+            "nccl": _dist_nccl_child, "tp": _dist_tp_child,
+            "pp": _dist_pp_child}[mode]
     out = body(torch, rank, world)
     out["backend"] = dist.get_backend()
     torch.save(out, os.path.join(workdir, f"out_{rank}.pt"))
@@ -6022,13 +6095,16 @@ def phase_dist_ring(torch, card: str, workdir: str) -> dict:
     return out
 
 
-def _fleet_bert_program(cfg, amp: bool, mesh_axes):
-    """bert_train's program under fleet: dp x sp, sequence_parallel."""
+def _fleet_bert_program(cfg, amp: bool, mesh_axes, plan=None):
+    """bert_train's program under fleet: dp x sp with sequence_parallel;
+    with a ``plan`` (DIST_TP, DIST_PP) its tensor_parallel_rules or its
+    pipeline with accumulate_steps too."""
     from paddle_tpu_torch import fleet, fluid
     from paddle_tpu_torch.contrib import mixed_precision
     from paddle_tpu_torch.models import bert
 
     c = DIST_TRAIN
+    plan = plan or {}
     main, startup = fluid.Program(), fluid.Program()
     with fluid.unique_name.guard():
         m, st, _, loss = bert.build_bert_pretrain_program(
@@ -6040,7 +6116,13 @@ def _fleet_bert_program(cfg, amp: bool, mesh_axes):
                 opt = mixed_precision.decorate(opt, use_bf16=True)
             strategy = fleet.DistributedStrategy()
             strategy.mesh_axes = dict(mesh_axes)
-            strategy.sequence_parallel = True
+            strategy.sequence_parallel = "sp" in mesh_axes
+            if plan.get("tp"):
+                strategy.tensor_parallel = True
+                strategy.tensor_parallel_rules = bert.tensor_parallel_rules()
+            if plan.get("pipeline"):
+                strategy.pipeline = True
+                strategy.pipeline_configs = {"accumulate_steps": plan["acc"]}
             fleet.init()
             fleet.distributed_optimizer(opt, strategy).minimize(loss)
     return m, st, loss
@@ -6058,11 +6140,11 @@ def _state_hash(scope, names) -> str:
     return h.hexdigest()
 
 
-def _dist_bert_cfg(layers=None, dropout=0.0):
+def _dist_bert_cfg(layers=None, dropout=0.0, fuse_stack=True):
     from paddle_tpu_torch.models import bert
 
     cfg = bert.BertConfig.base()
-    cfg.fuse_stack = True
+    cfg.fuse_stack = fuse_stack
     cfg.hidden_dropout_prob = cfg.attention_probs_dropout_prob = dropout
     if layers is not None:
         cfg.num_hidden_layers = layers
@@ -6086,6 +6168,33 @@ def _ring_launches_per_step(program, sp: int, bf16: bool) -> dict:
     return n
 
 
+def _dist_launches_per_step(program, plan, bf16: bool) -> dict:
+    """The launches one rank's step of ``program`` under ``plan`` makes:
+    the sp ring's (``_ring_launches_per_step``) or the program's, and
+    under the pipeline each stack (BERT's: a per-key bias, no remat)
+    runs its L / pp layers once a microbatch, M times, where the program
+    counts L layers once: rows 4 and 5 (under sp the ring's rows 6 and
+    7, sp each) and two LN forwards and backwards a layer."""
+    mesh = plan["mesh"]
+    sp = mesh.get("sp", 1)
+    n = (_ring_launches_per_step(program, sp, bf16) if sp > 1
+         else _launches_per_step(program, bf16))
+    if plan.get("pipeline"):
+        block = program.global_block()
+        per_layer = ({"row6": sp, "row7": sp} if sp > 1
+                     else {"bsh_fwd": 1, "bsh_bwd": 2})
+        per_layer.update(ln_fwd=2, ln_bwd=2)
+        for op in block.ops:
+            if op.type == "fused_encoder_stack":
+                layers = block.var(op.inputs["QKVW"][0]).shape[0]
+                extra = layers * plan["acc"] // mesh["pp"] - layers
+                for k, v in per_layer.items():
+                    n[k] += v * extra
+        for k in ("bsh_fwd", "bsh_bwd", "row6", "row7", "row8", "row9"):
+            n[f"{k}_tc"] = n[k] if bf16 else 0
+    return n
+
+
 class _Utilization:
     """nvidia-smi's utilization.gpu sampled every 100 ms: the share of
     each sample period in which a kernel of any process ran on the card
@@ -6103,36 +6212,70 @@ class _Utilization:
         return [int(x) for x in out.split() if x.strip().isdigit()]
 
 
+def _gathered(scope, program, name):
+    """``name``'s global value: this rank's block gathered over the axes
+    that shard it ("tp", "pp"); a collective under such a program, which
+    every rank calls in the same order."""
+    from paddle_tpu_torch.parallel import gather_shard, get_var_sharding
+
+    t = scope.find_var(name)
+    mesh = getattr(program, "_mesh", None)
+    var = program.global_block()._find_var_recursive(name)
+    spec = None if var is None or mesh is None else get_var_sharding(var)
+    return gather_shard(t, spec, mesh) if spec else t
+
+
 def _params(scope, program) -> dict:
-    """Every parameter of ``program`` on the host."""
-    return {p.name: scope.find_var(p.name).detach().cpu()
+    """Every parameter of ``program`` on the host, gathered to its
+    global value (every rank calls it)."""
+    return {p.name: _gathered(scope, program, p.name).detach().cpu()
             for p in program.all_parameters()}
 
 
+class _GatheredScope:
+    """``scope`` as ``_state_hash`` reads it, each variable gathered."""
+
+    def __init__(self, scope, program):
+        self.scope, self.program = scope, program
+
+    def find_var(self, name):
+        return _gathered(self.scope, self.program, name)
+
+
+def _sharded_names(program) -> set:
+    from paddle_tpu_torch.parallel import get_var_sharding, param_axes
+
+    return {v.name for v in program.list_vars()
+            if param_axes(get_var_sharding(v))}
+
+
 def _dist_train_run(torch, cfg, amp: bool, steps: int, timed: int = 0,
-                    scope=None, keep_params: bool = False) -> dict:
-    """One rank's training under the mesh: startup (rank 0's weights
-    broadcast), ``steps`` steps held to their exact launches, the
-    collective costs a step, then ``timed`` steps with the card's
-    utilization sampled (rank 0); with ``keep_params`` rank 0 returns its
-    parameters after the steps (the ranks' states are compared by
-    hash)."""
+                    scope=None, keep_params: bool = False,
+                    plan=DIST_TRAIN) -> dict:
+    """One rank's training under ``plan``'s mesh: startup (rank 0's
+    weights broadcast, each rank keeping its blocks of what tp or pp
+    shard), ``steps`` steps held to their exact launches, the collective
+    costs a step, then ``timed`` steps with the card's utilization
+    sampled (rank 0); with ``keep_params`` rank 0 returns its parameters
+    after the steps, gathered (the ranks' states are compared by hash:
+    ``state_hash`` of the gathered state, ``local_hash`` of the blocks
+    this rank holds, ``replicated_hash`` of what no axis shards)."""
     import torch.distributed as dist
 
     from paddle_tpu_torch import distributed as tdist
     from paddle_tpu_torch import fluid
     from paddle_tpu_torch.models import bert
 
-    c = DIST_TRAIN
-    main, startup, loss = _fleet_bert_program(cfg, amp, c["mesh"])
+    c = plan
+    main, startup, loss = _fleet_bert_program(cfg, amp, c["mesh"], plan)
     exe = fluid.Executor()
     out = {}
     if scope is None:
         scope = fluid.Scope()
         exe.run(startup, scope=scope)
         params = [p.name for p in main.all_parameters()]
-        out["init_hash"] = _state_hash(scope, params)
-    want = _ring_launches_per_step(main, c["mesh"]["sp"], amp)
+        out["init_hash"] = _state_hash(_GatheredScope(scope, main), params)
+    want = _dist_launches_per_step(main, plan, amp)
     feed = bert.random_pretrain_batch(cfg, c["batch"], c["seq"],
                                       c["max_preds"], seed=0)
     counters = _counters()
@@ -6168,15 +6311,22 @@ def _dist_train_run(torch, cfg, amp: bool, steps: int, timed: int = 0,
             samples = util.stop() if util else None
         out["window"] = {"steps": timed, "wall_ms": wall,
                          "utilization": samples}
+    state = [v.name for v in main.list_vars()
+             if v.persistable and scope.find_var(v.name) is not None]
+    sharded = _sharded_names(main)
+    gathered = _GatheredScope(scope, main)
+    by_var = {n: _state_hash(gathered, [n]) for n in sorted(state)}
     out.update(losses=losses, step_ms=step_ms, comm=comm,
                launches_per_step=want, launches=total,
-               state_hash=_state_hash(
-                   scope, [v.name for v in main.list_vars()
-                           if v.persistable and scope.find_var(v.name)
-                           is not None]),
+               state_hash=_state_hash(gathered, state), var_hashes=by_var,
+               local_hash=_state_hash(scope, state),
+               replicated_hash=_state_hash(
+                   scope, [n for n in state if n not in sharded]),
                scope=scope)
-    if keep_params and dist.get_rank() == 0:
-        out["params"] = _params(scope, main)
+    if keep_params:
+        params = _params(scope, main)
+        if dist.get_rank() == 0:
+            out["params"] = params
     return out
 
 
@@ -6198,11 +6348,76 @@ def _dist_train_child(torch, rank: int, world: int) -> dict:
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
 
 
+def _head_seed(torch, plan) -> int:
+    """The dropout seed this rank's attention draws its heads' masks
+    from, out of one step generator (``head_shard``; the mesh of
+    ``plan`` bound)."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.parallel import create_mesh
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1234)
+    return fa.head_shard(12, gen, create_mesh(plan["mesh"]))[1] \
+        .initial_seed()
+
+
+def _dist_plan_child(torch, plans) -> dict:
+    """Each plan's runs on this rank: BERT-base bf16 (3 + 2 timed
+    steps), 2 layers in f32 (3 steps, parameters gathered), then dropout
+    0.1 on the bf16 run's state (``drop_steps``)."""
+    out = {}
+    for name, plan in plans:
+        fuse = plan["fuse_stack"]
+        bf16 = _dist_train_run(torch, _dist_bert_cfg(fuse_stack=fuse), True,
+                               plan["steps"], plan["timed"], plan=plan)
+        scope = bf16.pop("scope")
+        drop = None
+        if plan["drop_steps"]:
+            drop = _dist_train_run(
+                torch, _dist_bert_cfg(dropout=0.1, fuse_stack=fuse), True,
+                plan["drop_steps"], scope=scope, plan=plan)
+            drop.pop("scope")
+            if plan.get("tp"):
+                drop["head_seed"] = _head_seed(torch, plan)
+        del scope
+        torch.cuda.empty_cache()
+        f32 = _dist_train_run(torch, _dist_bert_cfg(layers=2,
+                                                    fuse_stack=fuse),
+                              False, plan["steps"], keep_params=True,
+                              plan=plan)
+        f32.pop("scope")
+        torch.cuda.empty_cache()
+        out[name] = {"bf16": bf16, "f32": f32, "dropout": drop}
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out
+
+
+def _dist_tp_child(torch, rank: int, world: int) -> dict:
+    return _dist_plan_child(torch, [("tp", DIST_TP)])
+
+
+def _dist_pp_child(torch, rank: int, world: int) -> dict:
+    return _dist_plan_child(torch, [("pp", DIST_PP), ("pp_sp", DIST_PP_SP)])
+
+
+_ONE_PROCESS = {}
+
+
 def _one_process_run(torch, cfg, amp: bool, steps: int,
                      keep_params: bool = False) -> dict:
     """The same program without a mesh, in this process: the reference of
-    dist_train (same seed-0 startup, same global batch); with
-    ``keep_params`` its parameters after ``steps`` steps."""
+    the dist phases (same seed-0 startup, same global batch); with
+    ``keep_params`` its parameters after ``steps`` steps.  Kept for the
+    phases that share it (dist_train and dist_pp: the fused stack)."""
+    key = (cfg.fuse_stack, cfg.num_hidden_layers, amp, steps, keep_params)
+    if key not in _ONE_PROCESS:
+        _ONE_PROCESS[key] = _one_process_train(torch, cfg, amp, steps,
+                                               keep_params)
+    return _ONE_PROCESS[key]
+
+
+def _one_process_train(torch, cfg, amp: bool, steps: int,
+                       keep_params: bool = False) -> dict:
     from paddle_tpu_torch import fluid
     from paddle_tpu_torch.models import bert
 
@@ -6227,58 +6442,62 @@ def _one_process_run(torch, cfg, amp: bool, steps: int,
     return out
 
 
-def phase_dist_train(torch, card: str, workdir: str) -> dict:
-    """BERT-base pretraining (bert_train's program, dropout off) under
-    fleet at dp 2 x sp 2 on four ranks sharing the card over gloo, global
-    batch 8 x 512 (4 x 256 a rank): 3 steps against the same program and
-    weights in one process without a mesh (bf16 within 2e-2), the same at
-    2 layers in f32 (within 1e-4), the four ranks' losses and state equal
-    bit for bit; 2 profiled steps (each rank's step wall, the card's idle
-    share, time and bytes in collectives); then 2 steps with dropout 0.1,
-    finite."""
-    t0 = time.perf_counter()
-    c = DIST_TRAIN
-    ref_bf16 = _one_process_run(torch, _dist_bert_cfg(), True,
-                                c["steps"] + c["timed"])
-    torch.cuda.empty_cache()
-    ref_f32 = _one_process_run(torch, _dist_bert_cfg(layers=2), False,
-                               c["steps"], keep_params=True)
-    torch.cuda.empty_cache()
-    ref_s = time.perf_counter() - t0
-    ranks = _dist_spawn("train", DIST_WORLD, workdir)
-    out = {"phase": "dist_train", "card": card, "world": DIST_WORLD,
-           "mesh": c["mesh"], "backend": ranks[0]["backend"],
-           "batch": c["batch"], "seq": c["seq"],
-           "per_rank_batch": [c["batch"] // c["mesh"]["dp"],
-                              c["seq"] // c["mesh"]["sp"]]}
-    for what, ref, limit in (("bf16", ref_bf16, DIST_LOSS_BF16),
-                             ("f32", ref_f32, DIST_LOSS_F32)):
+def _block_group(mesh: dict, rank: int) -> tuple:
+    """The coordinates of ``rank`` on the mesh's parameter axes ("tp",
+    "pp"): ranks that share them hold the same blocks."""
+    from paddle_tpu_torch.parallel import PARAM_AXES, Mesh
+
+    coords = Mesh(mesh, rank).coords
+    return tuple(coords[a] for a in PARAM_AXES if a in coords)
+
+
+def _dist_holds(phase: str, c: dict, ranks: list, refs: tuple,
+                out: dict) -> None:
+    """The holds every dist training phase makes, into ``out``: for the
+    bf16 and the f32 runs, every rank started from the one-process run's
+    weights (gathered), the ranks' losses and gathered state equal bit
+    for bit and the blocks equal on the ranks that hold the same ones,
+    the losses within the limit of the one-process run's, the f32
+    parameters (gathered) within DIST_PARAM_F32 of its; each rank's step
+    wall, launches and collectives; the card's idle share over the bf16
+    run's timed window."""
+    for what, ref, limit in (("bf16", refs[0], DIST_LOSS_BF16),
+                             ("f32", refs[1], DIST_LOSS_F32)):
         runs = [r[what] for r in ranks]
         if any(r["init_hash"] != ref["init_hash"] for r in runs):
-            fail(f"dist_train {what}: the ranks did not start from the "
+            fail(f"{phase} {what}: the ranks did not start from the "
                  f"one-process run's weights")
         for r, run in enumerate(runs[1:], 1):
             if run["losses"] != runs[0]["losses"] \
                     or run["state_hash"] != runs[0]["state_hash"]:
-                fail(f"dist_train {what}: rank {r} differs from rank 0 "
-                     f"(losses {run['losses']} vs {runs[0]['losses']})")
+                differ = sorted(n for n, h in run["var_hashes"].items()
+                                if runs[0]["var_hashes"].get(n) != h)
+                fail(f"{phase} {what}: rank {r} differs from rank 0 "
+                     f"(losses {run['losses']} vs {runs[0]['losses']}; "
+                     f"state {differ[:8]})")
+        groups = {}
+        for r, run in enumerate(runs):
+            groups.setdefault(_block_group(c["mesh"], r), set()).add(
+                run["local_hash"])
+        if any(len(h) != 1 for h in groups.values()):
+            fail(f"{phase} {what}: ranks holding the same blocks differ")
         mine = runs[0]["losses"][:c["steps"]]
         diff = max(abs(a - b) for a, b in zip(mine, ref["losses"][
             :c["steps"]]))
         if not math.isfinite(diff) or diff > limit:
-            fail(f"dist_train {what}: losses {mine} vs one process "
+            fail(f"{phase} {what}: losses {mine} vs one process "
                  f"{ref['losses']}: {diff} > {limit}")
         params = None
         if "params" in ref:
             got_p, want_p = runs[0]["params"], ref["params"]
             if sorted(got_p) != sorted(want_p):
-                fail(f"dist_train {what}: parameters {sorted(got_p)} vs "
+                fail(f"{phase} {what}: parameters {sorted(got_p)} vs "
                      f"{sorted(want_p)}")
             per = {n: float((got_p[n].float() - want_p[n].float()).abs()
                             .max()) for n in want_p}
             worst = max(per, key=per.get)
             if not math.isfinite(per[worst]) or per[worst] > DIST_PARAM_F32:
-                fail(f"dist_train {what}: parameter {worst} differs from "
+                fail(f"{phase} {what}: parameter {worst} differs from "
                      f"the one-process run's by {per[worst]} > "
                      f"{DIST_PARAM_F32}")
             params = {"max_abs_diff": per[worst], "worst": worst,
@@ -6288,6 +6507,7 @@ def phase_dist_train(torch, card: str, workdir: str) -> dict:
             "losses": runs[0]["losses"], "one_process": ref["losses"],
             "one_process_step_ms": ref["step_ms_after_first"],
             "loss_diff": diff, "limit": limit, "ranks_bit_equal": True,
+            "blocks_equal_by_group": len(groups),
             "params_vs_one_process": params,
             "step_ms_median_by_rank": [statistics.median(run["step_ms"])
                                        for run in runs],
@@ -6306,12 +6526,112 @@ def phase_dist_train(torch, card: str, workdir: str) -> dict:
         else "not measured",
         "note": "nvidia-smi utilization.gpu every 100 ms over the window: "
                 "the share of time a kernel of any rank ran"}
+
+
+def _dist_dropout(phase: str, ranks: list) -> dict:
+    """The dropout 0.1 run: finite losses, equal on every rank."""
     drop = [r["dropout"]["losses"] for r in ranks]
     if not all(math.isfinite(x) for x in drop[0]) or any(d != drop[0]
                                                           for d in drop):
-        fail(f"dist_train dropout 0.1: losses {drop}")
-    out["dropout"] = {"p": 0.1, "losses": drop[0]}
+        fail(f"{phase} dropout 0.1: losses {drop}")
+    return {"p": 0.1, "losses": drop[0]}
+
+
+def _dist_refs(torch, fuse_stack: bool) -> tuple:
+    """The one-process bf16 (steps + timed) and 2-layer f32 runs."""
+    c = DIST_TRAIN
+    ref_bf16 = _one_process_run(torch, _dist_bert_cfg(fuse_stack=fuse_stack),
+                                True, c["steps"] + c["timed"])
+    torch.cuda.empty_cache()
+    ref_f32 = _one_process_run(torch, _dist_bert_cfg(layers=2,
+                                                     fuse_stack=fuse_stack),
+                               False, c["steps"], keep_params=True)
+    torch.cuda.empty_cache()
+    return ref_bf16, ref_f32
+
+
+def _dist_header(phase, card, c, ranks_backend) -> dict:
+    return {"phase": phase, "card": card, "world": DIST_WORLD,
+            "mesh": c["mesh"], "backend": ranks_backend,
+            "batch": c["batch"], "seq": c["seq"],
+            "per_rank_batch": [c["batch"] // c["mesh"].get("dp", 1),
+                               c["seq"] // c["mesh"].get("sp", 1)]}
+
+
+def phase_dist_train(torch, card: str, workdir: str) -> dict:
+    """BERT-base pretraining (bert_train's program, dropout off) under
+    fleet at dp 2 x sp 2 on four ranks sharing the card over gloo, global
+    batch 8 x 512 (4 x 256 a rank): 3 steps against the same program and
+    weights in one process without a mesh (bf16 within 2e-2), the same at
+    2 layers in f32 (within 1e-4), the four ranks' losses and state equal
+    bit for bit; 2 profiled steps (each rank's step wall, the card's idle
+    share, time and bytes in collectives); then 2 steps with dropout 0.1,
+    finite."""
+    t0 = time.perf_counter()
+    c = DIST_TRAIN
+    refs = _dist_refs(torch, True)
+    ref_s = time.perf_counter() - t0
+    ranks = _dist_spawn("train", DIST_WORLD, workdir)
+    out = _dist_header("dist_train", card, c, ranks[0]["backend"])
+    _dist_holds("dist_train", c, ranks, refs, out)
+    out["dropout"] = _dist_dropout("dist_train", ranks)
     out["peak_mem_gb_by_rank"] = [r["peak_mem_gb"] for r in ranks]
+    out["reference_s"] = ref_s
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    return out
+
+
+def phase_dist_tp(torch, card: str, workdir: str) -> dict:
+    """BERT-base unfused with tensor_parallel_rules() at dp 2 x tp 2 on
+    four ranks sharing the card over gloo (``_dist_holds`` against the
+    unfused program in one process); then dropout 0.1: finite, the
+    replicated state equal on every rank, the head-shard dropout seeds
+    different on the two ranks of a tp pair and equal across dp."""
+    t0 = time.perf_counter()
+    c = DIST_TP
+    refs = _dist_refs(torch, False)
+    ref_s = time.perf_counter() - t0
+    raw = _dist_spawn("tp", DIST_WORLD, workdir)
+    ranks = [r["tp"] for r in raw]
+    out = _dist_header("dist_tp", card, c, raw[0]["backend"])
+    _dist_holds("dist_tp", c, ranks, refs, out)
+    out["dropout"] = _dist_dropout("dist_tp", ranks)
+    rep = {r["dropout"]["replicated_hash"] for r in ranks}
+    seeds = [r["dropout"]["head_seed"] for r in ranks]
+    # ranks 0, 1 (and 2, 3) are a tp pair; 0 and 2 share the tp index
+    if len(rep) != 1 or seeds[0] == seeds[1] or seeds[0] != seeds[2] \
+            or seeds[1] != seeds[3]:
+        fail(f"dist_tp dropout: replicated state {len(rep)} ways, head "
+             f"seeds {seeds}")
+    out["dropout"].update(replicated_state_equal=True,
+                          head_seeds_by_rank=seeds)
+    out["peak_mem_gb_by_rank"] = [r["peak_mem_gb"] for r in raw]
+    out["reference_s"] = ref_s
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    return out
+
+
+def phase_dist_pp(torch, card: str, workdir: str) -> dict:
+    """BERT-base with the fused stack and the pipeline at dp 2 x pp 2
+    (accumulate_steps 2, 6 layers a stage), then pp 2 x sp 2, on the same
+    four rank processes (``_dist_holds`` against dist_train's one-process
+    runs; dropout 0.1 at dp 2 x pp 2)."""
+    t0 = time.perf_counter()
+    refs = _dist_refs(torch, True)
+    ref_s = time.perf_counter() - t0
+    raw = _dist_spawn("pp", DIST_WORLD, workdir)
+    out = {"phase": "dist_pp", "card": card}
+    for name, c in (("pp", DIST_PP), ("pp_sp", DIST_PP_SP)):
+        ranks = [r[name] for r in raw]
+        sub = _dist_header(f"dist_pp {name}", card, c, raw[0]["backend"])
+        sub["microbatches"] = c["acc"]
+        _dist_holds(f"dist_pp {name}", c, ranks, refs, sub)
+        if c["drop_steps"]:
+            sub["dropout"] = _dist_dropout(f"dist_pp {name}", ranks)
+        out[name] = sub
+    out["peak_mem_gb_by_rank"] = [r["peak_mem_gb"] for r in raw]
     out["reference_s"] = ref_s
     out["seconds"] = time.perf_counter() - t0
     emit(out)
@@ -6490,7 +6810,7 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory(prefix="chip-dist-") as tmp:
         dirs = {}
-        for what in ("ring", "train", "nccl"):
+        for what in ("ring", "train", "nccl", "tp", "pp"):
             dirs[what] = os.path.join(tmp, what)
             os.makedirs(dirs[what])
         phase_dist_ring(torch, env["card"], dirs["ring"])
@@ -6498,6 +6818,10 @@ def main() -> int:
         dtrain = phase_dist_train(torch, env["card"], dirs["train"])
         torch.cuda.empty_cache()
         phase_dist_nccl(torch, env["card"], dirs["nccl"])
+        dtp = phase_dist_tp(torch, env["card"], dirs["tp"])
+        torch.cuda.empty_cache()
+        dpp = phase_dist_pp(torch, env["card"], dirs["pp"])
+        torch.cuda.empty_cache()
     dlaunches = dtrain["bf16"]["launches"]
     dlaunches_f32 = dtrain["f32"]["launches"]
 
@@ -6512,6 +6836,16 @@ def main() -> int:
         """Rank 0's launches of ``key`` over dist_train's 3 steps."""
         return {"dist_train": dlaunches[key],
                 "dist_train_f32": dlaunches_f32[key]}
+
+    def tp_pp_paths(key):
+        """Rank 0's launches of ``key`` over the 3 bf16 and the 3 f32
+        steps of dist_tp, dist_pp and its pp x sp run."""
+        out = {}
+        for path, runs in (("dist_tp", dtp), ("dist_pp", dpp["pp"]),
+                           ("dist_pp_sp", dpp["pp_sp"])):
+            out[path] = runs["bf16"]["launches"][key]
+            out[f"{path}_f32"] = runs["f32"]["launches"][key]
+        return out
 
     def entry(name, source, replaces, k, path_launches, main="bert_train"):
         e = _kernel_entry(name, source, replaces, path_launches[main], k)
@@ -6531,20 +6865,32 @@ def main() -> int:
                                 "bert_infer": 0,
                                 "serve": serve["launches"]["flash_tc"],
                                 "nmt_infer": ninfer["bsh_fwd_tc"],
-                                **new_paths("bsh_fwd_tc")},
+                                **new_paths("bsh_fwd_tc"),
+                                **tp_pp_paths("bsh_fwd_tc")},
         "flash_attention_bsh_bwd": {"bert_train": launches["bsh_bwd_tc"],
                                     "nmt_train": nlaunches["bsh_bwd_tc"],
-                                    **new_paths("bsh_bwd_tc")},
+                                    **new_paths("bsh_bwd_tc"),
+                                    **tp_pp_paths("bsh_bwd_tc")},
         "flash_attention_bwd_fused": {"mha_key_train": mlaunches["row7_tc"],
-                                      **dist_paths("row7_tc")},
+                                      **dist_paths("row7_tc"),
+                                      **tp_pp_paths("row7_tc")},
         "flash_attention": {"nmt_train": nlaunches["row6_tc"],
                             "mha_key_train": mlaunches["row6_tc"],
-                            **dist_paths("row6_tc")},
+                            **dist_paths("row6_tc"),
+                            **tp_pp_paths("row6_tc")},
         "flash_attention_bwd_dq": {"nmt_train": nlaunches["row8_tc"]},
         "flash_attention_bwd_dkv": {"nmt_train": nlaunches["row9_tc"]},
         "conv_stats": {"resnet_train": rlaunches["conv_stats_tc"]},
         "mm_stats": {"resnet_train": rlaunches["mm_stats_tc"]}}
-    emit({"kernels": [dict(e, launches_tc_by_path=tc_paths[e["name"]])
+    # rows 4 and 5 also at dist_tp's shape, [4, 512, 6 x 64] a rank
+    at_tp = {"flash_attention_bsh": kern["flash_attention_bsh_train"],
+             "flash_attention_bsh_bwd": kern["flash_attention_bsh_bwd"]}
+    at_tp = {name: {k: t["dist_tp"][k] for k in (
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms")} for name, t in at_tp.items()}
+    emit({"kernels": [dict(e, at_dist_tp_shape=at_tp[e["name"]])
+                      if e["name"] in at_tp else e for e in [
+                      dict(e, launches_tc_by_path=tc_paths[e["name"]])
                       if e["name"] in tc_paths else e for e in [
         entry("paged_attention", "paged_attention.cu",
               "paddle_tpu/ops/pallas/paged_attention.py:144",
@@ -6558,12 +6904,14 @@ def main() -> int:
                "bert_infer": infer_launches["flash"],
                "serve": serve["launches"]["flash"],
                "nmt_train": nlaunches["bsh_fwd"],
-               "nmt_infer": ninfer["bsh_fwd"], **new_paths("bsh_fwd")}),
+               "nmt_infer": ninfer["bsh_fwd"], **new_paths("bsh_fwd"),
+               **tp_pp_paths("bsh_fwd")}),
         entry("flash_attention_bsh_bwd", "flash_attention_bsh.cu",
               "paddle_tpu/ops/pallas/flash_attention.py:1697",
               kern["flash_attention_bsh_bwd"],
               {"bert_train": launches["bsh_bwd"],
-               "nmt_train": nlaunches["bsh_bwd"], **new_paths("bsh_bwd")}),
+               "nmt_train": nlaunches["bsh_bwd"], **new_paths("bsh_bwd"),
+               **tp_pp_paths("bsh_bwd")}),
         entry("add_ln", "add_ln.cu", "paddle_tpu/ops/pallas/add_ln.py:145",
               kern["add_ln_train"],
               {"bert_train": launches["ln_fwd"],
@@ -6571,22 +6919,24 @@ def main() -> int:
                "serve": serve["launches"]["ln"],
                "nmt_train": nlaunches["ln_fwd"],
                "nmt_infer": ninfer["ln_fwd"], **new_paths("ln_fwd"),
-               **dist_paths("ln_fwd")}),
+               **dist_paths("ln_fwd"), **tp_pp_paths("ln_fwd")}),
         entry("add_ln_bwd", "add_ln.cu",
               "paddle_tpu/ops/pallas/add_ln.py:175", kern["add_ln_bwd"],
               {"bert_train": launches["ln_bwd"],
                "nmt_train": nlaunches["ln_bwd"], **new_paths("ln_bwd"),
-               **dist_paths("ln_bwd")}),
+               **dist_paths("ln_bwd"), **tp_pp_paths("ln_bwd")}),
         entry("flash_attention", "flash_attention_bhsd.cu",
               "paddle_tpu/ops/pallas/flash_attention.py:392",
               kern["flash_attention"],
               {"nmt_train": nlaunches["row6"], "nmt_infer": ninfer["row6"],
-               "mha_key_train": mlaunches["row6"], **dist_paths("row6")},
+               "mha_key_train": mlaunches["row6"], **dist_paths("row6"),
+               **tp_pp_paths("row6")},
               main="nmt_train"),
         entry("flash_attention_bwd_fused", "flash_attention_bhsd.cu",
               "paddle_tpu/ops/pallas/flash_attention.py:790",
               kern["flash_attention_bwd_fused"],
-              {"mha_key_train": mlaunches["row7"], **dist_paths("row7")},
+              {"mha_key_train": mlaunches["row7"], **dist_paths("row7"),
+               **tp_pp_paths("row7")},
               main="dist_train"),
         entry("flash_attention_bwd_dq", "flash_attention_bhsd.cu",
               "paddle_tpu/ops/pallas/flash_attention.py:902",
@@ -6598,7 +6948,7 @@ def main() -> int:
               {"nmt_train": nlaunches["row9"]}, main="nmt_train")]
         + [entry(name, "conv_bn.cu", replaces, kern[name],
                  {"resnet_train": rlaunches[name]}, main="resnet_train")
-           for name, replaces in conv_bn]]})
+           for name, replaces in conv_bn]]]})
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

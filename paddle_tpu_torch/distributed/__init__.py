@@ -23,10 +23,20 @@ per-rank body:
   same cotangent of the gathered value): its backward keeps this rank's
   block of it;
 * ``reduce_scatter``: its backward all-gathers the cotangent;
-* ``sp_identity`` (the reference's ``c_identity`` around a model
-  parallel region): the identity, whose backward all-reduces (sums) the
-  cotangent over the axis, so a weight used on every rank's tokens gets
-  the whole gradient on each;
+* ``copy_to_region`` (Megatron's "f", the reference's ``c_identity``
+  around a model-parallel region; ``sp_identity`` is its name on "sp"):
+  the identity, whose backward all-reduces (sums) the cotangent over the
+  axis, so a tensor every rank of the axis reads whole (a weight used on
+  every rank's tokens, the input of a column-parallel product) gets the
+  whole gradient on each;
+* ``reduce_from_region`` (Megatron's "g"): the all-reduce (sum) of each
+  rank's partial result, whose backward is the identity.  Every rank
+  computes the same loss from the summed tensor, so each already holds
+  the whole cotangent; all-reducing it again, as ``all_reduce``'s
+  backward does, would multiply the gradient by the axis size;
+* ``broadcast_from_last``: every rank of the axis gets its last rank's
+  tensor (the pipeline's last stage output), and the backward hands
+  each rank its own cotangent once, for the same reason;
 * ``shard_slice``: this rank's block of a replicated tensor, whose
   backward all-gathers the cotangent (the entry of a sequence-parallel
   region; ``all_gather`` is its exit).
@@ -328,7 +338,12 @@ class _PPermute(torch.autograd.Function):
         return _raw_ppermute(g, inv, ctx.ax), None, None
 
 
-class _SpIdentity(torch.autograd.Function):
+class _CopyToRegion(torch.autograd.Function):
+    """f: forward the identity, backward the sum of the cotangent over
+    the axis.  Each rank's region reads the whole input and contributes a
+    partial cotangent (its tokens, its columns): the input's gradient is
+    their sum, whole on every rank."""
+
     @staticmethod
     def forward(ctx, x, ax):
         ctx.ax = ax
@@ -337,6 +352,38 @@ class _SpIdentity(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _raw_all_reduce(g, ctx.ax), None
+
+
+class _ReduceFromRegion(torch.autograd.Function):
+    """g: forward the sum over the axis, backward the identity.  The sum
+    is replicated and every rank computes the same loss from it, so each
+    rank's cotangent already is the whole cotangent of the sum, and so
+    the whole cotangent of its own partial term (unlike
+    ``_AllReduceSum``, whose backward would sum the copies)."""
+
+    @staticmethod
+    def forward(ctx, x, ax):
+        return _fresh(_raw_all_reduce(x, ax), x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _BroadcastFromLast(torch.autograd.Function):
+    """The last rank's tensor on every rank of the axis; the backward
+    hands each rank's own cotangent through once (not summed over the
+    axis), since every rank computes the same loss from the copy.  Only
+    the last rank's input is connected to what produced it (the pipeline's
+    last stage), so only its cotangent reaches a computation."""
+
+    @staticmethod
+    def forward(ctx, x, ax):
+        return _fresh(_raw_broadcast(x, ax.size - 1, ax), x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
 
 
 class _ShardSlice(torch.autograd.Function):
@@ -428,10 +475,28 @@ def send_recv(tensor, perm: Sequence, group: str = "dp", mesh=None):
 ppermute = send_recv
 
 
+def copy_to_region(tensor, group: str, mesh=None):
+    """Megatron's f over ``group``: the identity whose backward sums the
+    cotangent over the axis (the reference's c_identity)."""
+    return _CopyToRegion.apply(tensor, _axis(group, mesh))
+
+
 def sp_identity(tensor, group: str = "sp", mesh=None):
-    """The identity whose backward sums the cotangent over ``group``
-    (the reference's c_identity)."""
-    return _SpIdentity.apply(tensor, _axis(group, mesh))
+    """``copy_to_region`` over "sp": a weight read whole by every rank's
+    tokens."""
+    return copy_to_region(tensor, group, mesh)
+
+
+def reduce_from_region(tensor, group: str, mesh=None):
+    """Megatron's g over ``group``: the sum of every rank's partial
+    tensor, whose backward is the identity."""
+    return _ReduceFromRegion.apply(tensor, _axis(group, mesh))
+
+
+def broadcast_from_last(tensor, group: str = "pp", mesh=None):
+    """The last rank's tensor on every rank of ``group``; the backward
+    passes each rank's own cotangent through once."""
+    return _BroadcastFromLast.apply(tensor, _axis(group, mesh))
 
 
 def shard_slice(tensor, group: str = "sp", axis: int = 1, mesh=None):

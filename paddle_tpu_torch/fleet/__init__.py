@@ -1,4 +1,5 @@
-"""Fleet 2.0-style distributed API: data and sequence parallelism.
+"""Fleet 2.0-style distributed API: data, sequence, tensor and pipeline
+parallelism.
 
 Ported from the JAX package's ``fleet/__init__.py`` (parity surface:
 the reference's python/paddle/fleet/base/fleet_base.py, init:25,
@@ -21,12 +22,44 @@ their sp regions (``ops/encoder_stack.py``, ``ops/attention.py``) make
 every parameter gradient whole on each sp rank, so only dp needs the
 mean.  ``strategy.amp`` decorates the inner optimizer (bf16).
 
-Not ported yet, and refused by name (``_reject_unsupported``; none is
-silently ignored): tensor, pipeline and expert parallelism, ZeRO
+Tensor parallelism (a "tp" axis with ``tensor_parallel_rules``).  The
+rules shard parameters (``apply_tensor_parallel_rules``): a rank holds
+its block of each, and the ops that read them run Megatron's regions
+over "tp" on the blocks: a column-parallel ``mul`` / ``matmul`` (weight
+``(None, "tp")``, its bias ``("tp",)``) reads its input through f (the
+identity, whose backward sums the cotangent over tp) and keeps its
+local output columns; the attention op runs on the local heads; a
+row-parallel product (weight ``("tp", None)``) sums its partial result
+with g (the sum over tp, whose backward is the identity), the bias added
+after it by its own ``elementwise_add``; a vocabulary-parallel
+``lookup_table`` looks the rows it holds up and sums with g; the tied
+MLM head gathers its [N, V/tp] logits along the vocabulary.  The rules
+mark each such op (attr ``tp_region``) before backward, so its grad op
+replays the same region, and the program stays the JAX package's op for
+op.  Inserting ``c_identity`` / ``c_allreduce_sum`` ops around the
+regions instead was not chosen: their generic grad ops would go through
+``_AllReduceSum``'s convention (the backward all-reduces the cotangent),
+which is right for the sp weight sums but would multiply every
+gradient behind a row-parallel sum by tp.  Every other op that reads a
+tensor-parallel value, and every op that sums over a whole sharded
+parameter or its gradient (a global-norm clip's ``squared_l2_norm``),
+raises NotImplementedError.
+
+Pipeline parallelism (a "pp" axis with ``strategy.pipeline``).
+``PipelineOptimizer`` is outermost: it marks each ``fused_encoder_stack``
+for the GPipe schedule (``ops/encoder_stack.py``) before any backward;
+``accumulate_steps <= 1`` becomes pp microbatches.  The stacked layer
+parameters are sharded on their layer dim (``_shard_pipeline_params``):
+stage s holds layers [s L/pp, (s+1) L/pp).  Everything outside the stack
+runs on every pp rank alike.  With ``sequence_parallel`` and an "sp"
+axis the stages' attention is the ring over sp (pp x sp).
+
+Not ported yet, and refused by name (``_reject_unsupported``,
+``_check_axes``; none is silently ignored): expert parallelism, ZeRO
 sharding and the multi-slice (dcn) modes with DGC and LocalSGD (ROADMAP
-A4's next slice); lamb and lars, recompute and gradient merge (A7);
-the parameter-server roles (A6).  elastic and auto raise as in the JAX
-package.
+A4's next slice, items 3-5); tp together with sp or pp (item 6); lamb
+and lars, recompute and gradient merge (A7); the parameter-server roles
+(A6).  elastic and auto raise as in the JAX package.
 """
 from __future__ import annotations
 
@@ -37,15 +70,16 @@ from .base.distributed_strategy import DistributedStrategy  # noqa: F401
 from .base.role_maker import (PaddleCloudRoleMaker,  # noqa: F401
                               UserDefinedRoleMaker)
 from .. import parallel as _parallel
-from ..parallel import create_mesh
+from ..parallel import (check_shardable, create_mesh, get_var_sharding,
+                        param_axes, set_var_sharding)
 from ..parallel.env import get_rank, get_world_size, init_parallel_env
 
 _fleet_state = {"initialized": False, "role_maker": None, "strategy": None}
 
 # the queue item that brings each refused mode
-_TP = "ROADMAP A4, next slice item 1: tensor_parallel_rules as per-rank " \
-      "column/row-parallel layers"
-_PP = "ROADMAP A4, next slice item 2: GPipe and pp x sp"
+_TP_MIX = "ROADMAP A4, next slice item 6: tp together with sp or pp"
+_TP_SLICE = "the tensor-parallel slice of ROADMAP A4 runs Megatron regions " \
+            "only"
 _EP = "ROADMAP A4, next slice item 3: moe_ops.py with ep all-to-alls"
 _ZERO = "ROADMAP A4, next slice item 4: sharding (ZeRO-2)"
 _DCN = "ROADMAP A4, next slice item 5: the executor's (dcn, dp) manual " \
@@ -153,10 +187,17 @@ class DistributedOptimizer:
             _check_axes(mesh.shape)
         sp_active = (strategy.sequence_parallel and "sp" in mesh.axis_names
                      and mesh.shape["sp"] > 1)
+        tp_active = "tp" in mesh.axis_names and mesh.shape["tp"] > 1
+        pp_active = (strategy.pipeline and "pp" in mesh.axis_names
+                     and mesh.shape["pp"] > 1)
         # marks the attention ops BEFORE backward: the grad ops snapshot
         # the forward attrs, so the backward ring is sequence-parallel too
         if sp_active:
             apply_sequence_parallel(program, mesh)
+        # the tp regions likewise, so every grad op replays its region
+        if tp_active:
+            apply_tensor_parallel_rules(program,
+                                        strategy.tensor_parallel_rules, mesh)
         if strategy.amp:
             from ..contrib.mixed_precision import decorate
 
@@ -165,6 +206,17 @@ class DistributedOptimizer:
             inner = decorate(inner, **amp_cfg)
         if "dp" in mesh.axis_names:
             inner = _GradAllReduceOptimizer(inner, mesh)
+        if pp_active:
+            # outermost: its minimize marks the encoder stacks for the
+            # GPipe schedule before backward.  accumulate_steps <= 1 (the
+            # default) would be one microbatch, every stage idle
+            # (pp-1)/pp of the time: pp microbatches instead
+            from ..fluid.optimizer import PipelineOptimizer
+
+            acc = int(strategy.pipeline_configs.get("accumulate_steps", 1))
+            if acc <= 1:
+                acc = mesh.shape["pp"]
+            inner = PipelineOptimizer(inner, num_microbatches=acc)
         result = inner.minimize(loss, startup_program=startup_program,
                                 parameter_list=parameter_list,
                                 no_grad_set=no_grad_set)
@@ -173,8 +225,12 @@ class DistributedOptimizer:
         if sp_active:
             _parallel.shard_program_sequence_parallel(program, mesh,
                                                       axis="sp")
-        program._mesh = mesh
+        if pp_active:
+            _shard_pipeline_params(program, mesh)
         startup = startup_program or framework.default_startup_program()
+        if tp_active or pp_active:
+            _finish_param_sharding(program, startup)
+        program._mesh = mesh
         startup._mesh = mesh
         startup._bump_version()
         return result
@@ -237,23 +293,26 @@ class _GradAllReduceOptimizer:
 
 def _check_axes(axes):
     for name in axes:
-        if name in ("dp", "sp"):
+        if name in ("dp", "sp", "tp", "pp"):
             continue
-        where = {"tp": _TP, "pp": _PP, "ep": _EP, "dcn": _DCN}.get(name)
+        where = {"ep": _EP, "dcn": _DCN}.get(name)
         if where:
             raise NotImplementedError(
                 f"mesh axis {name!r}: not ported yet ({where})")
         raise ValueError(f"unknown mesh axis {name!r} (axes: dp, sp, tp, "
                          f"pp, ep, dcn)")
+    if "tp" in axes:
+        for other in ("sp", "pp"):
+            if other in axes:
+                raise NotImplementedError(
+                    f"mesh axes tp and {other} together: not ported yet "
+                    f"({_TP_MIX})")
 
 
 def _reject_unsupported(strategy):
     """Every strategy field this slice does not run raises, naming the
     queue item that brings it."""
     refused = (
-        (strategy.tensor_parallel or strategy.tensor_parallel_rules,
-         "tensor_parallel", _TP),
-        (strategy.pipeline, "pipeline", _PP),
         (strategy.expert_parallel, "expert_parallel", _EP),
         (strategy.sharding, "sharding", _ZERO),
         (int(strategy.hybrid_dcn or 0) >= 2, "hybrid_dcn", _DCN),
@@ -297,8 +356,185 @@ def apply_sequence_parallel(program, mesh):
     program._bump_version()
 
 
-def apply_tensor_parallel_rules(program, rules):
-    raise NotImplementedError(f"tensor parallel rules: not ported yet ({_TP})")
+# ops that carry a tensor-parallel value through, elementwise
+_TP_ELEMENTWISE = ("gelu", "relu", "tanh", "sigmoid", "silu", "cast",
+                   "scale")
+# ops that sum over every element of their input
+_REDUCTIONS = ("squared_l2_norm", "clip_by_norm", "reduce_sum",
+               "reduce_mean", "reduce_max", "reduce_min", "mean", "p_norm")
+_COLUMN, _ROW, _BIAS = (None, "tp"), ("tp", None), ("tp",)
+_SPLIT = "split"      # an activation whose last dim is this rank's block
+
+
+def apply_tensor_parallel_rules(program, rules, mesh=None):
+    """rules: [(name regex, spec)], the first that matches a parameter's
+    name gives its PartitionSpec (a Megatron layer is a pair of rules:
+    ``models.bert.tensor_parallel_rules``).  Then every op that reads a
+    sharded parameter or a tensor-parallel activation is marked with the
+    region it runs (attr ``tp_region``: "column", "row", "vocab",
+    "vocab_head", "head"; see the module note) or refused.  Must run
+    before append_backward, as ``apply_sequence_parallel``: grad ops
+    snapshot the forward's attrs.  ``mesh`` (else ``program._mesh``)
+    checks that tp divides every sharded dim (ValueError: the JAX package
+    pads, the port does not)."""
+    import re
+
+    if not rules:
+        return
+    block = program.global_block()
+    if any(op.type.endswith("_grad") for op in block.ops):
+        raise RuntimeError(
+            "apply_tensor_parallel_rules must run before backward: the "
+            "grad ops snapshot their forward's tp_region attr")
+    mesh = mesh if mesh is not None else getattr(program, "_mesh", None)
+    layout = {}
+    for p in program.all_parameters():
+        for pattern, spec in rules:
+            if re.search(pattern, p.name):
+                if mesh is not None:
+                    check_shardable(p, spec, mesh)
+                set_var_sharding(p, spec)
+                layout[p.name] = tuple(spec)
+                break
+    for op in block.ops:
+        _mark_tp_op(op, layout)
+    program._bump_version()
+
+
+def _mark_tp_op(op, layout):
+    """Mark ``op``'s region from the layouts of its inputs (a sharded
+    parameter's spec, or _SPLIT) and record its outputs' layout."""
+    seen = {n: layout[n] for n in op.input_names() if n in layout}
+    if not seen:
+        return
+    t = op.type
+
+    def one(slot):
+        names = op.inputs.get(slot) or [None]
+        return layout.get(names[0])
+
+    def out(kind):
+        for names in op.outputs.values():
+            for n in names:
+                if kind is not None:
+                    layout[n] = kind
+
+    region = None
+    if t in ("mul", "matmul"):
+        lx, ly = one("X"), one("Y")
+        ty = t == "matmul" and bool(op.attr("transpose_Y"))
+        tx = t == "matmul" and bool(op.attr("transpose_X"))
+        if not tx and not ty and lx is None and ly == _COLUMN:
+            region, kind = "column", _SPLIT
+        elif not tx and not ty and lx == _SPLIT and ly == _ROW:
+            region, kind = "row", None
+        elif t == "matmul" and ty and not tx and lx is None and ly == _ROW:
+            region, kind = "vocab_head", None     # the tied MLM head
+    elif t in ("lookup_table", "lookup_table_v2"):
+        if one("W") == _ROW and len(seen) == 1:
+            region, kind = "vocab", None
+    elif t == "elementwise_add":
+        if one("X") == _SPLIT and one("Y") in (_SPLIT, _BIAS):
+            region, kind = "", _SPLIT             # local, nothing to run
+    elif t in _TP_ELEMENTWISE:
+        if one("X") in (_SPLIT, _COLUMN, _ROW, _BIAS):
+            region, kind = "", one("X")
+    elif t == "fused_multihead_attention":
+        if (one("Q") == one("K") == one("V") == _SPLIT
+                and one("BiasQK") is None):
+            region, kind = "head", _SPLIT
+    if region is None:
+        raise NotImplementedError(
+            f"op {t!r} reads the tensor-parallel "
+            f"{', '.join(f'{n} ({k})' for n, k in seen.items())}, and it "
+            f"has no tensor-parallel region ({_TP_SLICE}: column- and "
+            f"row-parallel mul/matmul, their biases, elementwise "
+            f"activations, the fused attention on local heads, the "
+            f"vocabulary-parallel lookup_table and tied head)")
+    if region:
+        op._set_attr("tp_region", region)
+    out(kind)
+
+
+def _finish_param_sharding(program, startup):
+    """After minimize: each optimizer state of a parameter sharded on tp
+    or pp (a same-shaped input of its update op: moments, velocity) takes
+    the parameter's spec; an op that sums over a whole sharded parameter
+    or its gradient raises; the startup program's vars take the specs, so
+    the executor keeps each rank's block after it."""
+    block = program.global_block()
+    specs = {v.name: get_var_sharding(v) for v in program.list_vars()
+             if v.persistable and param_axes(get_var_sharding(v))}
+    for op in block.ops:
+        pname = (op.inputs.get("Param") or [None])[0]
+        if pname not in specs:
+            continue
+        pshape = tuple(block._find_var_recursive(pname).shape)
+        for n in op.input_names():
+            v = block._find_var_recursive(n)
+            if (v is not None and v.persistable and n not in specs
+                    and tuple(v.shape) == pshape):
+                set_var_sharding(v, specs[pname])
+                specs[n] = specs[pname]
+    # the sharded tensors and what an elementwise op derives from them
+    derived = set(specs) | {n + "@GRAD" for n in specs}
+    for op in block.ops:
+        ins = [n for n in op.input_names() if n in derived]
+        if not ins:
+            continue
+        if op.type in _REDUCTIONS:
+            axes = sorted({a for n in ins
+                           for _, a in param_axes(
+                               specs.get(n.split("@")[0]))})
+            raise NotImplementedError(
+                f"op {op.type!r} sums over the whole of {ins[0]!r}, which "
+                f"each rank holds a block of (sharded on "
+                f"{', '.join(axes) or 'tp'}); the port does not sum it "
+                f"over those axes ({_TP_SLICE}): leave out the global-"
+                f"norm clip or the per-parameter norm")
+        if op.type in ("cast", "scale", "sum", "elementwise_mul",
+                       "elementwise_div", "c_allreduce_sum"):
+            derived.update(op.output_names())
+    sblock = startup.global_block()
+    for n, spec in specs.items():
+        v = sblock._find_var_recursive(n)
+        if v is not None:
+            set_var_sharding(v, spec)
+
+
+def _cast_source(block, name):
+    """The variable ``name`` is a cast of (through any chain of casts,
+    such as bf16 AMP's before a white op), or ``name`` itself."""
+    producers = {n: op for op in block.ops if op.type == "cast"
+                 for n in op.output_names()}
+    while name in producers:
+        name = producers[name].inputs["X"][0]
+    return name
+
+
+def _shard_pipeline_params(program, mesh):
+    """Shard the stacked layer parameters of every pipelined
+    fused_encoder_stack on their layer dim over "pp" (the JAX package's
+    placement analog of the reference's per-section scopes,
+    pipeline_trainer.cc:212): stage s holds layers [s L/pp, (s+1) L/pp)."""
+    npp = mesh.shape["pp"]
+    for block in program.blocks:
+        for op in block.ops:
+            if op.type != "fused_encoder_stack" or not op.attr("pipeline"):
+                continue
+            for slot, names in op.inputs.items():
+                if slot in ("Hidden", "AttnBias"):
+                    continue
+                for n in names:
+                    v = block._find_var_recursive(_cast_source(block, n))
+                    if v is None or not v.persistable or not v.shape:
+                        continue
+                    if int(v.shape[0]) % npp:
+                        raise ValueError(
+                            f"num layers {v.shape[0]} must divide by "
+                            f"pp={npp}")
+                    set_var_sharding(
+                        v, ("pp",) + (None,) * (len(v.shape) - 1))
 
 
 def apply_expert_parallel(program, mesh, axis: str = "ep"):

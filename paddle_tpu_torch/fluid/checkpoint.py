@@ -72,6 +72,12 @@ package:
              what `Model.fit(resume=...)` needs for an exact loss-trace
              continuation).
 
+Under a program whose mesh shards variables on "tp" or "pp" (each rank
+holds its block), ``save`` gathers each such variable, so the
+checkpoint holds the global values as one process would write them, and
+``restore`` keeps this rank's block of each (``parallel.local_shard``,
+the executor's helper): every rank must call both.
+
 Not ported (raising NotImplementedError where armed): the sharded layout
 (PADDLE_CKPT_SHARDED=1 with a world size above 1: rank shards, the
 commit barrier and the global manifest, ROADMAP A4/A6) and parameter-
@@ -99,6 +105,8 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from .. import parallel as _parallel
 
 try:  # numpy 2
     from numpy._core.multiarray import _reconstruct as _np_reconstruct
@@ -265,6 +273,16 @@ def _rng_state(seed: Optional[int]) -> Optional[dict]:
     seed = int(seed) & _SEED_MASK
     return {"typed": False,
             "data": np.array([seed >> 32, seed & 0xFFFFFFFF], np.uint32)}
+
+
+def _param_specs(program) -> dict:
+    """name -> spec of each var a program under a mesh shards on "tp" or
+    "pp" (a rank holds its block; ``parallel.local_shard``)."""
+    if program is None or getattr(program, "_mesh", None) is None:
+        return {}
+    return {v.name: _parallel.get_var_sharding(v)
+            for v in program.list_vars()
+            if _parallel.param_axes(_parallel.get_var_sharding(v))}
 
 
 def _restore_rng(state: Optional[dict]) -> Optional[int]:
@@ -904,9 +922,14 @@ class CheckpointManager:
                      if scope.find_var(n) is not None]
         else:
             names = [n for n, v in scope.vars.items() if v is not None]
+        specs = _param_specs(program)
         arrays, pinned = {}, []
         for n in names:
             v = scope.find_var(n)
+            if n in specs:
+                # a rank's block of a tp / pp sharded var: the checkpoint
+                # holds the global value (every rank gathers it)
+                v = _parallel.gather_shard(v, specs[n], program._mesh)
             if isinstance(v, torch.Tensor) and v.is_cuda:
                 # queued on the stream after the step's kernels; awaited
                 # once below
@@ -1167,9 +1190,13 @@ class CheckpointManager:
                         "  " + f.format() for f in mismatched),
                     findings=mismatched)
 
+        specs = _param_specs(program)
         tensors = {n: _to_device(a, device)
                    for n, a in state["arrays"].items()}
         for n, t in tensors.items():
+            if n in specs:      # this rank's block of the global value
+                t = _parallel.local_shard(t, specs[n],
+                                          program._mesh).contiguous()
             scope.set_var(n, t)
         scope._rng_seed = _restore_rng(rng)
         return {"step": int(step), "extra": extra, "manifest": manifest}

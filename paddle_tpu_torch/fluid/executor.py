@@ -47,7 +47,17 @@ and ``state_out`` writes it back detached, so no step's graph outlives
 the step.  ``memory_analysis`` measures one trial step (see there).  Not
 ported yet: the step monitor's records, the numerics guards
 (FLAGS_check_nan_inf, FLAGS_check_numerics), the memory OOM doctor, the
-mesh / shard_map paths and the dataset loops (ROADMAP §C).
+(dcn, dp) manual path and the dataset loops (ROADMAP §C).
+
+Under a mesh (``program._mesh``, attached by ``fleet``) every rank runs
+this executor on its own process: a feed keeps the rank's block of its
+data axes (``_local_block``), the step seed is salted by the data shard,
+and the ops run their own regions over "sp", "tp" and "pp".  A startup
+program runs at the global shapes on every rank, unsalted, takes rank
+0's values, and then keeps each rank's block of every persistable that
+its spec shards on "tp" or "pp" (``parallel.local_shard``), so tensor
+and pipeline parallelism start from one process's weights.  A fetch of
+such a variable is gathered back to its global value (``_sync_fetch``).
 """
 from __future__ import annotations
 
@@ -109,12 +119,19 @@ def _to_tensor(value, device, dtype=None) -> torch.Tensor:
     return torch.from_numpy(arr).to(device)
 
 
-def _sync_fetch(name, x, mesh):
-    """A fetch under a mesh: a float scalar averaged over the mesh, an
-    integer scalar refused, anything else gathered on dim 0 over the data
-    axes (the JAX package's manual-path contract)."""
+def _sync_fetch(name, x, mesh, spec=None, state=False):
+    """A fetch under a mesh: a variable sharded on "tp" or "pp" gathered
+    to its global value; other scope state as this rank holds it; a float
+    scalar averaged over the mesh, an integer scalar refused, anything
+    else gathered on dim 0 over the data axes (the JAX package's
+    manual-path contract)."""
     from .. import distributed as dist
+    from ..parallel import gather_shard, param_axes
 
+    if param_axes(spec):
+        return gather_shard(x, spec, mesh)
+    if state:
+        return x
     if x.dim() == 0 or x.numel() == 1:
         if x.is_floating_point():
             return dist.all_reduce(x, group=None, mesh=mesh) / mesh.size
@@ -137,16 +154,27 @@ class Scope:
         self._rng_seed: Optional[int] = None
 
     @classmethod
-    def from_numpy(cls, arrays: Dict[str, np.ndarray], device=None) -> "Scope":
+    def from_numpy(cls, arrays: Dict[str, np.ndarray], device=None,
+                   program=None) -> "Scope":
         """A scope holding ``arrays`` as tensors on ``device`` (None: the
         CUDA card).  It carries weights across from another runtime,
         e.g. the JAX package's initialized scope, since the two packages'
-        startup programs draw different random numbers."""
+        startup programs draw different random numbers.  With a
+        ``program`` under a mesh, each array is the global value and the
+        scope keeps this rank's block of every variable the program
+        shards on "tp" or "pp" (``parallel.local_shard``)."""
         from .. import resolve_device
+        from ..parallel import local_shard
 
         dev = resolve_device(device)
+        mesh = None if program is None else getattr(program, "_mesh", None)
+        block = None if mesh is None else program.global_block()
         scope = cls()
         for name, value in arrays.items():
+            var = None if block is None else block._find_var_recursive(name)
+            spec = getattr(var, "_sharding", None)
+            if spec is not None:
+                value = np.ascontiguousarray(local_shard(value, spec, mesh))
             scope.set_var(name, _to_tensor(value, dev))
         return scope
 
@@ -250,11 +278,20 @@ class Executor:
         mesh = getattr(program or framework.default_main_program(),
                        "_mesh", None)
         if mesh is not None and not plan.state_in and plan.state_out:
-            # a startup program: every rank takes rank 0's values
+            # a startup program: every rank takes rank 0's values, and
+            # keeps its block of what "tp" / "pp" shard
             from .. import distributed as dist
+            from ..parallel import local_shard
 
+            block = (program or framework.default_main_program()) \
+                .global_block()
             for n in plan.state_out:
                 env[n] = dist.broadcast(env[n], 0, None, mesh)
+                var = block._find_var_recursive(n)
+                spec = None if var is None else getattr(var, "_sharding",
+                                                        None)
+                if spec is not None:
+                    env[n] = local_shard(env[n], spec, mesh).contiguous()
         for n in plan.state_out:
             scope.set_var(n, env[n].detach())
         if return_numpy:
@@ -311,8 +348,11 @@ class Executor:
             fetches = [env[n].detach() for n in fetch_names]
             if mesh is not None:
                 state = set(plan.state_in) | set(plan.state_out)
-                fetches = [f if n in state else _sync_fetch(n, f, mesh)
-                           for n, f in zip(fetch_names, fetches)]
+                specs = [getattr(block._find_var_recursive(n), "_sharding",
+                                 None) for n in fetch_names]
+                fetches = [_sync_fetch(n, f, mesh, spec, n in state)
+                           for n, f, spec in zip(fetch_names, fetches,
+                                                 specs)]
         return plan, env, fetches, seed
 
     def memory_analysis(self, program=None, feed=None, fetch_list=None,

@@ -14,8 +14,9 @@ output dim that differs between the two becomes -1.
 
 Each op records the Python call stack that built it
 (``OP_CALLSTACK_ATTR``, under FLAGS_op_callstack), so the static
-verifier (``fluid/analysis``) names the user's layer call.  Not ported
-yet: ``device_guard`` stage tags (the pipeline slice) and dygraph mode.
+verifier (``fluid/analysis``) names the user's layer call; under
+``device_guard(stage)`` each op takes the stage tag as its ``op_device``
+attr (read by ``PipelineOptimizer``).  Not ported yet: dygraph mode.
 ``Program._mesh`` (the ``parallel.Mesh`` fleet attaches; None: one
 process, no collectives) and ``Variable._sharding`` (a spec, None:
 replicated; ``parallel.set_var_sharding``) are the hooks of the mesh
@@ -257,6 +258,9 @@ class Block:
     ) -> Operator:
         op = Operator(self, type, inputs=_normalize_io(inputs),
                       outputs=_normalize_io(outputs), attrs=attrs)
+        dev = _current_op_device()
+        if dev is not None and "op_device" not in op.attrs:
+            op.attrs["op_device"] = dev
         if OP_CALLSTACK_ATTR not in op.attrs:
             cs = _capture_callstack()
             if cs is not None:
@@ -451,6 +455,28 @@ def _normalize_io(io: Optional[Dict[str, Any]]) -> Dict[str, List[str]]:
 
 _main_program_ = Program()
 _startup_program_ = Program()
+
+
+# device_guard: the pipeline-stage tag (the reference's fluid.device_guard;
+# ops get the attr "op_device", which the reference's PipelineOptimizer,
+# optimizer.py:3627, consumes)
+_op_device_stack: List[Optional[str]] = []
+
+
+@contextlib.contextmanager
+def device_guard(device: Optional[str] = None):
+    """Tag the ops appended in this scope with a stage, e.g. "gpu:0".  The
+    tag names a pipeline stage, not a device: placement is the mesh's
+    ("pp", ``ops/encoder_stack.py``)."""
+    _op_device_stack.append(device)
+    try:
+        yield
+    finally:
+        _op_device_stack.pop()
+
+
+def _current_op_device() -> Optional[str]:
+    return _op_device_stack[-1] if _op_device_stack else None
 
 
 def default_main_program() -> Program:

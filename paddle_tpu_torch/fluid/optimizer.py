@@ -4,7 +4,7 @@ Parity surface: python/paddle/fluid/optimizer.py (Optimizer:55 and its
 subclasses :913-5171); ported from the JAX package's
 ``fluid/optimizer.py``: ``Optimizer``, ``SGDOptimizer``,
 ``MomentumOptimizer``, ``AdamOptimizer`` and ``AdamWOptimizer``, with the
-same accumulators, op descs and attrs.  Updates are emitted as ops
+same accumulators, op descs and attrs, and ``PipelineOptimizer``.  Updates are emitted as ops
 (operators/optimizers/ in the reference), so the Executor runs forward,
 backward and update in one step and parameters never leave the device.
 
@@ -318,6 +318,79 @@ class AdamWOptimizer(AdamOptimizer):
         )
 
 
+
+
+class PipelineOptimizer:
+    """Pipeline-parallel training (reference optimizer.py:3627 and its
+    PipelineTrainer / SectionWorker, framework/section_worker.cc:82).
+
+    As in the JAX package, the pipeline lives inside the ops, not in
+    per-device sections on threads: each ``fused_encoder_stack`` takes
+    the GPipe schedule over the "pp" mesh axis (its stacked parameters
+    sharded on the layer dim, microbatches handed stage to stage;
+    ``ops/encoder_stack.py`` ``_gpipe_stack``), and the step stays one
+    program.  ``device_guard`` stage tags (attr "op_device") are
+    accepted; a program tagged with more than one stage raises, since no
+    stage placement is performed, unless
+    FLAGS_pipeline_single_program_fallback accepts running them in one
+    program (with a warning)."""
+
+    def __init__(self, optimizer, num_microbatches=1, start_cpu_core_id=0):
+        self.inner_opt = optimizer
+        self._num_microbatches = int(num_microbatches)
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        program = loss.block.program
+        # mark the stacks BEFORE backward: grad ops copy the attrs
+        for block in program.blocks:
+            for op in block.ops:
+                if op.type == "fused_encoder_stack":
+                    op._set_attr("pipeline", True)
+                    op._set_attr("num_microbatches",
+                                 self._num_microbatches)
+        self._stage_ops = self._collect_stages(program)
+        if len(self._stage_ops) > 1:
+            from .flags import flag
+
+            stages = ", ".join(sorted(self._stage_ops))
+            if not flag("FLAGS_pipeline_single_program_fallback"):
+                raise RuntimeError(
+                    f"PipelineOptimizer: this program tags ops with "
+                    f"{len(self._stage_ops)} device_guard stages "
+                    f"({stages}), but the port runs ONE program and places "
+                    f"no stage: the tags would be silently ignored.  Use "
+                    f"the 'pp' mesh axis (fused_encoder_stack's GPipe "
+                    f"schedule) for pipeline parallelism, or set "
+                    f"FLAGS_pipeline_single_program_fallback=1 to accept "
+                    f"running them co-scheduled in one program.")
+            import warnings
+
+            warnings.warn(
+                f"PipelineOptimizer: device_guard names "
+                f"{len(self._stage_ops)} stages ({stages}); running them "
+                f"co-scheduled in ONE program "
+                f"(FLAGS_pipeline_single_program_fallback=1).  Stage "
+                f"placement is not performed: use the 'pp' mesh axis with "
+                f"fused_encoder_stack for pipeline parallelism.",
+                stacklevel=2)
+        return self.inner_opt.minimize(
+            loss, startup_program=startup_program,
+            parameter_list=parameter_list, no_grad_set=no_grad_set)
+
+    @staticmethod
+    def _collect_stages(program):
+        """The ops of each device_guard tag."""
+        stages = {}
+        for block in program.blocks:
+            for op in block.ops:
+                dev = op.attr("op_device")
+                if dev is not None:
+                    stages.setdefault(dev, []).append(op)
+        return stages
+
+    def __getattr__(self, item):
+        return getattr(self.inner_opt, item)
 
 
 # reference aliases

@@ -339,6 +339,26 @@ def build_bert_pretrain_program(cfg: BertConfig, batch_size: int,
     return main, startup, feed_names, loss
 
 
+def tensor_parallel_rules():
+    """Megatron's PartitionSpec rules for the unfused encoder (the JAX
+    package's): QKV and FFN-in column-parallel (their output dim and bias
+    on "tp"), the attention-output and FFN-out projections row-parallel,
+    and the word embedding sharded by vocabulary (which the tied MLM
+    head reads too).  ``fleet.apply_tensor_parallel_rules`` turns them
+    into the ops' regions."""
+    col_w = (None, "tp")
+    row_w = ("tp", None)
+    return [
+        (r"_(query|key|value)_fc\.w_0$", col_w),
+        (r"_(query|key|value)_fc\.b_0$", ("tp",)),
+        (r"_output_fc\.w_0$", row_w),
+        (r"_ffn_fc_0\.w_0$", col_w),
+        (r"_ffn_fc_0\.b_0$", ("tp",)),
+        (r"_ffn_fc_1\.w_0$", row_w),
+        (r"^word_embedding$", row_w),  # vocab-sharded
+    ]
+
+
 def random_pretrain_batch(cfg: BertConfig, batch_size: int, seq_len: int,
                           max_preds: int, seed: int = 0):
     """Synthetic data batch for benchmarking / tests (the JAX package's

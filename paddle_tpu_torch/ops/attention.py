@@ -31,6 +31,14 @@ never the device):
   "sp" with the [B, 1, 1, S] bias as per-key rows, and all-gathers the
   result.  The probs dropout runs inside the ring.
 
+* head — under a ``tp_region`` attr (``fleet.apply_tensor_parallel_rules``)
+  and a mesh whose "tp" axis has n > 1 ranks, Q, K and V are this
+  rank's column blocks from column-parallel projections, nh / n heads:
+  every branch above runs on those local heads through the flash
+  kernels' mesh form (``flash_attention_bsh(mesh=)``,
+  ``flash_attention(mesh=)``, ``head_shard``), whose dropout seed is
+  salted by the head shard, and Out is the rank's column block.
+
 BiasQK gets a zero cotangent on every branch but the ring, as in the
 reference: the kernels return none, and the composition detaches the
 bias.  The ring differentiates its key bias, as the JAX package's does.
@@ -42,8 +50,10 @@ import math
 import torch
 
 from .kernels.flash_attention import (bsh_dispatch_ok, flash_attention,
-                                      flash_attention_bsh, flash_shapes_ok)
+                                      flash_attention_bsh, flash_shapes_ok,
+                                      head_shard)
 from .. import distributed as dist
+from ..parallel import tp_mesh
 from ..parallel.ring_attention import (key_bias_from_attn_bias,
                                        ring_attention, use_ring)
 from .registry import register
@@ -76,6 +86,15 @@ def _reference_attention(q, k, v, bias, dropout_prob, deterministic,
     return torch.matmul(probs, v)
 
 
+def _head_block(bias, nh, mesh):
+    """This rank's heads of a bias with a head dim of nh (a full
+    [B, nh, S, S] one); a bias shared over the heads as it is."""
+    if bias is None or bias.dim() != 4 or bias.shape[1] != nh:
+        return bias
+    n, i = mesh.shape["tp"], mesh.coords["tp"]
+    return bias[:, i * (nh // n):(i + 1) * (nh // n)]
+
+
 @register("fused_multihead_attention")
 def fused_multihead_attention(ctx, ins, attrs):
     q3, k3, v3 = ins["Q"][0], ins["K"][0], ins["V"][0]
@@ -101,20 +120,22 @@ def fused_multihead_attention(ctx, ins, attrs):
         return {"Out": [_merge_heads(dist.all_gather(out, "sp", 2, mesh))]}
 
     sq, skv, h = q3.shape[1], k3.shape[1], q3.shape[2]
-    if bsh_dispatch_ok(sq, skv, h, nh, bias=bias, batch=q3.shape[0],
+    gen = (ctx.salted_rng(int(attrs.get("rng_salt", 0)))
+           if train_dropout else None)
+    mesh = tp_mesh(ctx, attrs)      # the head region: this rank's heads
+    if mesh is not None:
+        bias = _head_block(bias, nh, mesh)
+    heads, local_gen = head_shard(nh, gen, mesh)
+    if bsh_dispatch_ok(sq, skv, h, heads, bias=bias, batch=q3.shape[0],
                        causal=causal):
-        gen = (ctx.salted_rng(int(attrs.get("rng_salt", 0)))
-               if train_dropout else None)
         out = flash_attention_bsh(
             q3, k3, v3, bias, num_heads=nh, causal=causal,
             dropout_prob=dropout_prob if train_dropout else 0.0,
-            dropout_generator=gen)
+            dropout_generator=gen, mesh=mesh)
         return {"Out": [out]}
 
-    q, k, v = (_split_heads(t, nh) for t in (q3, k3, v3))
-    gen = (ctx.salted_rng(int(attrs.get("rng_salt", 0)))
-           if train_dropout else None)
-    if flash_shapes_ok(sq, h // nh) and sq == skv:
+    q, k, v = (_split_heads(t, heads) for t in (q3, k3, v3))
+    if flash_shapes_ok(sq, h // heads) and sq == skv:
         # full [.., S, S] biases (and per-key ones shared over the batch)
         # on square lengths ride the BHSD kernels; BiasQK keeps its zero
         # cotangent (bias_requires_grad=False)
@@ -122,8 +143,9 @@ def fused_multihead_attention(ctx, ins, attrs):
             q.contiguous(), k.contiguous(), v.contiguous(),
             None if bias is None else bias.contiguous(),
             causal=causal, dropout_prob=dropout_prob if train_dropout
-            else 0.0, dropout_generator=gen)
+            else 0.0, dropout_generator=gen, mesh=mesh)
         return {"Out": [_merge_heads(out)]}
+    gen = local_gen
     if causal:
         s = q.shape[2]
         keep = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()

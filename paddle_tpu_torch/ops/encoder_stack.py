@@ -59,9 +59,23 @@ once a layer, its backward gets q, k and v recomputed.  ``attn_out``,
 producers run in the recompute anyway, to rebuild the autograd nodes that
 the backward needs.  The BHSD and composition branches recompute their
 attention too.  The decoder stack takes ``remat_ffn`` (the JAX package's
-only remat there).  Not ported: the GPipe pipeline (``pipeline``), which
-raises NotImplementedError (ROADMAP A4, the next slice: GPipe and
-pp x sp).
+only remat there).
+
+Pipeline parallelism (``pipeline`` under a mesh whose "pp" axis has more
+than one rank; ``fluid.optimizer.PipelineOptimizer`` sets it and
+``num_microbatches``): the JAX package's GPipe schedule, ``_gpipe_stack``.
+Each rank is one stage and holds its block of the stacked parameters,
+layers [s L/pp, (s+1) L/pp) (``fleet._shard_pipeline_params``); the
+batch is split into M microbatches, microbatch m enters stage 0 at tick
+m, activations move stage to stage with ``_raw_ppermute`` (cotangents by
+the inverse permutation), and the last stage's output reaches every pp
+rank (``distributed.broadcast_from_last``).  The schedule is one
+``torch.autograd.Function`` (``_GPipe``) that keeps each microbatch's
+stage graph and walks the ticks backwards in its backward, so the
+gradients are the sequential stack's.  Dropout seeds mix in the
+microbatch index, and ``remat_*`` / ``remat_policy`` wrap each
+stage-local layer.  With ``sequence_parallel`` the stage's attention is
+the ring over "sp" on the rank's token block (pp x sp).
 
 Sequence parallelism (``sequence_parallel`` under a mesh whose "sp" axis
 has more than one rank, ``parallel.ring_attention.use_ring``).  The JAX
@@ -215,12 +229,181 @@ class _FlashStash:
         self.saved = None
 
 
-def _refuse_unported(attrs):
-    if attrs.get("pipeline", False):
-        raise NotImplementedError(
-            "fused_encoder_stack pipeline: the GPipe branch (and pp x sp) "
-            "is not ported yet (ROADMAP A4, the next slice: GPipe and "
-            "pp x sp)")
+def _use_gpipe(ctx, attrs):
+    mesh = ctx.mesh
+    return (bool(attrs.get("pipeline", False)) and mesh is not None
+            and mesh.shape.get("pp", 1) > 1)
+
+
+# mixed into a layer's seed with the GPipe microbatch index (the JAX
+# package's fold_in of mb_salt)
+_MB_SALT = 0x4D420000
+
+
+def _microbatches(t, batch, M):
+    """``t`` split into M microbatches on dim 0, or M times itself where
+    it does not carry the batch (None stays None)."""
+    if t is None or t.shape[0] != batch:
+        return [t] * M
+    return list(t.chunk(M, dim=0))
+
+
+def _stage_perm(npp, M, t, forward):
+    """The ppermute pairs of GPipe tick ``t``: stage i hands microbatch
+    t - i on (forward: i -> i + 1; backward: i + 1 -> i, its cotangent)
+    while that microbatch exists.  Every rank computes the same list."""
+    return [(i, i + 1) if forward else (i + 1, i) for i in range(npp - 1)
+            if 0 <= t - i < M]
+
+
+class _GPipe(torch.autograd.Function):
+    """The GPipe schedule of one rank's stage, forward and backward.
+
+    forward(sched, hidden, bias, *params): tick t = 0 .. M + pp - 2; at
+    tick t stage s runs microbatch m = t - s (if 0 <= m < M) on what
+    stage s - 1 handed it at tick t - 1 (stage 0: microbatch m of
+    ``hidden``) and hands the result on with ``_raw_ppermute``; stages
+    outside their M ticks idle.  Each microbatch's stage graph is kept.
+    The output is the last stage's microbatches in order (zeros on the
+    other stages; ``broadcast_from_last`` follows).
+
+    backward walks the ticks in reverse: stage s pulls microbatch m's
+    cotangent (the last stage: its block of the output's; the others:
+    what stage s + 1 handed back) through its graph, accumulates the
+    parameter gradients, and hands the input's cotangent to stage s - 1
+    by the inverse permutation.  The schedule drives the collectives
+    explicitly: under autograd a stage whose received tensor goes unused
+    (stage 0 reads ``hidden``) would never run its ppermute's backward,
+    and its peer would wait for it.  ``hidden``'s gradient is stage 0's;
+    the bias gets none (it is data)."""
+
+    @staticmethod
+    def forward(ctx, sched, hidden, bias, *params):
+        with torch.no_grad():
+            leaves = [p.detach().requires_grad_(p.requires_grad)
+                      for p in params]
+        out, graphs = sched.forward(hidden, bias, leaves, True)
+        ctx.sched, ctx.graphs, ctx.leaves = sched, graphs, leaves
+        ctx.hidden_like = (hidden.shape, hidden.dtype, hidden.device)
+        return out
+
+    @staticmethod
+    def backward(ctx, g_out):
+        dx, dparams = ctx.sched.backward(g_out, ctx.graphs, ctx.leaves,
+                                         ctx.hidden_like)
+        ctx.graphs = ctx.leaves = None
+        return (None, dx, None) + tuple(dparams)
+
+
+class _Schedule:
+    """One rank's GPipe stage: ``run_stage(x, bias, mb)`` over its
+    layers, M microbatches, the "pp" axis."""
+
+    def __init__(self, run_stage, mesh, M):
+        self.run_stage = run_stage
+        self.ax = dist._axis("pp", mesh)
+        self.npp, self.s, self.M = mesh.shape["pp"], mesh.coords["pp"], M
+
+    def forward(self, hidden, bias, params, keep_graph):
+        npp, s, M = self.npp, self.s, self.M
+        xs = _microbatches(hidden, hidden.shape[0], M)
+        bs = _microbatches(bias, hidden.shape[0], M)
+        recv = torch.zeros_like(xs[0])
+        outs, graphs = [None] * M, [None] * M
+        for t in range(M + npp - 1):
+            m = t - s
+            send = recv
+            if 0 <= m < M:
+                x = xs[m] if s == 0 else recv
+                if keep_graph:
+                    x = x.detach().requires_grad_(s > 0
+                                                  or hidden.requires_grad)
+                    with torch.enable_grad():
+                        y = self.run_stage(x, params, bs[m], m)
+                    graphs[m] = (x, y)
+                else:
+                    y = self.run_stage(x, params, bs[m], m)
+                send = outs[m] = y.detach()
+            perm = _stage_perm(npp, M, t, True)
+            if perm:
+                recv = dist._raw_ppermute(send, perm, self.ax)
+        if s != npp - 1:
+            return torch.zeros_like(hidden), graphs
+        return torch.cat(outs, dim=0), graphs
+
+    def backward(self, g_out, graphs, params, hidden_like):
+        npp, s, M = self.npp, self.s, self.M
+        gs = list(g_out.chunk(M, dim=0))
+        recv = torch.zeros_like(gs[0])
+        dx = [None] * M
+        dparams = [None] * len(params)
+        wrt = [p for p in params if p.requires_grad]
+        for t in reversed(range(M + npp - 1)):
+            m = t - s
+            send = recv
+            if 0 <= m < M:
+                x, y = graphs[m]
+                g = gs[m] if s == npp - 1 else recv
+                inputs = ([x] if x.requires_grad else []) + wrt
+                with torch.enable_grad():
+                    got = torch.autograd.grad(y, inputs, g.to(y.dtype),
+                                              allow_unused=True)
+                graphs[m] = None
+                if x.requires_grad:
+                    send = dx[m] = (got[0] if got[0] is not None
+                                    else torch.zeros_like(x))
+                    got = got[1:]
+                k = 0
+                for i, p in enumerate(params):
+                    if not p.requires_grad:
+                        continue
+                    if got[k] is not None:
+                        dparams[i] = (got[k] if dparams[i] is None
+                                      else dparams[i] + got[k])
+                    k += 1
+            perm = _stage_perm(npp, M, t - 1, False)
+            if perm and t > 0:
+                recv = dist._raw_ppermute(send, perm, self.ax)
+        shape, dtype, device = hidden_like
+        d_hidden = (torch.cat(dx, dim=0) if s == 0 and dx[0] is not None
+                    else torch.zeros(shape, dtype=dtype, device=device))
+        dparams = [torch.zeros_like(p) if d is None and p.requires_grad
+                   else d for p, d in zip(params, dparams)]
+        return d_hidden, dparams
+
+
+def _gpipe_stack(hidden, stacked, bias, mesh, M, run_layers):
+    """The GPipe schedule over the "pp" axis (the JAX package's
+    ``_gpipe_stack``): stage s holds layers [s L/pp, (s+1) L/pp) as
+    ``stacked`` (its block of the [L, ...] parameters); microbatch m
+    enters stage 0 at tick m and leaves stage pp-1 at tick m + pp - 1;
+    the last stage's output reaches every pp rank through
+    ``broadcast_from_last``.  ``hidden`` enters through f over "pp", so
+    stage 0's gradient of it (the only one) reaches the embeddings of
+    every pp rank.  Under ring attention ``hidden`` and the bias are this
+    sp rank's token block already, and each stage's attention is the
+    ring over "sp" (pp x sp)."""
+    npp = mesh.shape["pp"]
+    dp_size = mesh.shape.get("dp", 1)
+    l_loc = stacked[0].shape[0]
+    batch = hidden.shape[0]
+    if batch % M:
+        raise ValueError(
+            f"per-dp-shard batch {batch * dp_size}//{dp_size} must divide "
+            f"by num_microbatches={M}")
+    first = mesh.coords["pp"] * l_loc
+
+    def run_stage(x, params, bias_mb, mb):
+        return run_layers(x, params, bias_mb, mb, first)
+
+    sched = _Schedule(run_stage, mesh, M)
+    hidden = dist.copy_to_region(hidden, "pp", mesh)
+    if torch.is_grad_enabled() and (hidden.requires_grad or any(
+            t.requires_grad for t in stacked)):
+        out = _GPipe.apply(sched, hidden, bias, *stacked)
+    else:
+        out, _ = sched.forward(hidden, bias, stacked, False)
+    return dist.broadcast_from_last(out, "pp", mesh)
 
 
 def _sp_region(ctx, what, length):
@@ -236,7 +419,6 @@ def _sp_region(ctx, what, length):
 
 @register("fused_encoder_stack")
 def fused_encoder_stack(ctx, ins, attrs):
-    _refuse_unported(attrs)
     hidden = ins["Hidden"][0]
     bias = ins.get("AttnBias", [None])[0]
     nh = int(attrs["num_heads"])
@@ -273,107 +455,128 @@ def fused_encoder_stack(ctx, ins, attrs):
             return x
         return _cheap_dropout(x, prob, seed)
 
-    def layer(hid, idx, *params, stash=None):
-        p = dict(zip(_PARAM_KEYS, params))
-        b, s, h = hid.shape
-        dh = h // nh
-        lseed = mix_seed(base_seed, idx)
+    def make_layer(bias, mb=None):
+        """The layer body over this (micro)batch's attention bias;
+        ``mb`` (the GPipe microbatch) salts its dropout seeds."""
 
-        def seed_of(site):
-            return mix_seed(lseed, site)
+        def layer(hid, idx, *params, stash=None):
+            p = dict(zip(_PARAM_KEYS, params))
+            b, s, h = hid.shape
+            dh = h // nh
+            lseed = mix_seed(base_seed, idx)
+            if mb is not None:
+                lseed = mix_seed(lseed, _MB_SALT + mb)
 
-        use_bsh = (not ring and use_flash
-                   and bsh_dispatch_ok(s, s, h, nh, bias=bias, batch=b))
+            def seed_of(site):
+                return mix_seed(lseed, site)
 
-        def project_qkv_flat(hid_, w, bias_):
-            qkv = torch.matmul(hid_, w) + bias_
-            return tuple(t.contiguous() for t in qkv.split(h, dim=-1))
+            use_bsh = (not ring and use_flash
+                       and bsh_dispatch_ok(s, s, h, nh, bias=bias, batch=b))
 
-        def project_qkv(hid_, w, bias_):
-            return tuple(t.reshape(b, s, nh, dh).transpose(1, 2)
-                         for t in project_qkv_flat(hid_, w, bias_))
+            def project_qkv_flat(hid_, w, bias_):
+                qkv = torch.matmul(hid_, w) + bias_
+                return tuple(t.contiguous() for t in qkv.split(h, dim=-1))
 
-        qkv_flat, qkv_heads = project_qkv_flat, project_qkv
-        if attrs.get("remat_qkv", False):
-            # recompute the q/k/v projections in the backward instead of
-            # keeping three [B, S, H] tensors a layer
-            qkv_flat = functools.partial(_ckpt, project_qkv_flat)
-            qkv_heads = functools.partial(_ckpt, project_qkv)
+            def project_qkv(hid_, w, bias_):
+                return tuple(t.reshape(b, s, nh, dh).transpose(1, 2)
+                             for t in project_qkv_flat(hid_, w, bias_))
 
-        attn_p = 0.0 if is_test else attn_dropout_prob
-        if ring:
-            # the ring over "sp" on this rank's tokens; bias is the key
-            # bias block [B, S_local]
-            q, k, v = qkv_heads(hid, p["QKVW"], p["QKVB"])
-            ctx_l = ring_attention(
-                q, k, v, "sp", bias, None, False, attn_p,
-                seed_of(_ATTN) if attn_p > 0.0 and not shape_only else None,
-                mesh=mesh)
-            ctx_l = ctx_l.transpose(1, 2).reshape(b, s, h)
-        elif use_bsh:
-            q, k, v = qkv_flat(hid, p["QKVW"], p["QKVB"])
-            gen = (_generator(seed_of(_ATTN), hid.device)
-                   if attn_p > 0.0 and not shape_only else None)
-            attend = functools.partial(
-                flash_attention_bsh, q, k, v, bias, num_heads=nh,
-                dropout_prob=attn_p, dropout_generator=gen)
-            if stash is None:
-                ctx_l = attend()
-            elif stash.saved is None:           # the policy's first pass
-                ctx_l, lse = attend(return_lse=True)
-                stash.saved = (ctx_l.detach(), lse)
-            else:                               # its recompute
-                ctx_l = attend(saved=stash.saved)
-        elif use_flash and flash_shapes_ok(s, dh):
-            # streamed BHSD kernels: the biases BSH cannot hold, such as
-            # a full [B, nh, S, S] one
-            q, k, v = (t.contiguous()
-                       for t in qkv_heads(hid, p["QKVW"], p["QKVB"]))
-            gen = (_generator(seed_of(_ATTN), hid.device)
-                   if attn_p > 0.0 and not shape_only else None)
-            ctx_l = flash_attention(
-                q, k, v, None if bias is None else bias.contiguous(),
-                dropout_prob=attn_p, dropout_generator=gen)
-            ctx_l = ctx_l.transpose(1, 2).reshape(b, s, h)
-        else:
-            q, k, v = qkv_heads(hid, p["QKVW"], p["QKVB"])
-            ctx_l = _composition(
-                q, k, v, bias, False,
-                lambda pr: dropout(pr, attn_p, seed_of(_ATTN)))
-            ctx_l = ctx_l.transpose(1, 2).reshape(b, s, h)
+            qkv_flat, qkv_heads = project_qkv_flat, project_qkv
+            if attrs.get("remat_qkv", False):
+                # recompute the q/k/v projections in the backward instead of
+                # keeping three [B, S, H] tensors a layer
+                qkv_flat = functools.partial(_ckpt, project_qkv_flat)
+                qkv_heads = functools.partial(_ckpt, project_qkv)
 
-        attn_out = torch.matmul(ctx_l, p["OutW"]) + p["OutB"]
-        attn_out = dropout(attn_out, dropout_prob, seed_of(_ATTN_OUT))
-        hid = _add_ln(hid, attn_out, p["Ln1S"], p["Ln1B"], eps)
+            attn_p = 0.0 if is_test else attn_dropout_prob
+            if ring:
+                # the ring over "sp" on this rank's tokens; bias is the key
+                # bias block [B, S_local]
+                q, k, v = qkv_heads(hid, p["QKVW"], p["QKVB"])
+                ctx_l = ring_attention(
+                    q, k, v, "sp", bias, None, False, attn_p,
+                    seed_of(_ATTN) if attn_p > 0.0 and not shape_only else None,
+                    mesh=mesh)
+                ctx_l = ctx_l.transpose(1, 2).reshape(b, s, h)
+            elif use_bsh:
+                q, k, v = qkv_flat(hid, p["QKVW"], p["QKVB"])
+                gen = (_generator(seed_of(_ATTN), hid.device)
+                       if attn_p > 0.0 and not shape_only else None)
+                attend = functools.partial(
+                    flash_attention_bsh, q, k, v, bias, num_heads=nh,
+                    dropout_prob=attn_p, dropout_generator=gen)
+                if stash is None:
+                    ctx_l = attend()
+                elif stash.saved is None:           # the policy's first pass
+                    ctx_l, lse = attend(return_lse=True)
+                    stash.saved = (ctx_l.detach(), lse)
+                else:                               # its recompute
+                    ctx_l = attend(saved=stash.saved)
+            elif use_flash and flash_shapes_ok(s, dh):
+                # streamed BHSD kernels: the biases BSH cannot hold, such as
+                # a full [B, nh, S, S] one
+                q, k, v = (t.contiguous()
+                           for t in qkv_heads(hid, p["QKVW"], p["QKVB"]))
+                gen = (_generator(seed_of(_ATTN), hid.device)
+                       if attn_p > 0.0 and not shape_only else None)
+                ctx_l = flash_attention(
+                    q, k, v, None if bias is None else bias.contiguous(),
+                    dropout_prob=attn_p, dropout_generator=gen)
+                ctx_l = ctx_l.transpose(1, 2).reshape(b, s, h)
+            else:
+                q, k, v = qkv_heads(hid, p["QKVW"], p["QKVB"])
+                ctx_l = _composition(
+                    q, k, v, bias, False,
+                    lambda pr: dropout(pr, attn_p, seed_of(_ATTN)))
+                ctx_l = ctx_l.transpose(1, 2).reshape(b, s, h)
 
-        def ffn(h_, w1, b1, w2, b2):
-            inter = act(torch.matmul(h_, w1) + b1)
-            out_ = torch.matmul(inter, w2) + b2
-            return dropout(out_, dropout_prob, seed_of(_FFN))
+            attn_out = torch.matmul(ctx_l, p["OutW"]) + p["OutB"]
+            attn_out = dropout(attn_out, dropout_prob, seed_of(_ATTN_OUT))
+            hid = _add_ln(hid, attn_out, p["Ln1S"], p["Ln1B"], eps)
 
-        ffn_args = (hid, p["FfnW1"], p["FfnB1"], p["FfnW2"], p["FfnB2"])
-        if attrs.get("remat_ffn", False):
-            # recompute `inter` ([B, S, F], the largest activation) in the
-            # backward instead of keeping it
-            ffn_out = _ckpt(ffn, *ffn_args)
-        else:
-            ffn_out = ffn(*ffn_args)
-        return _add_ln(hid, ffn_out, p["Ln2S"], p["Ln2B"], eps)
+            def ffn(h_, w1, b1, w2, b2):
+                inter = act(torch.matmul(h_, w1) + b1)
+                out_ = torch.matmul(inter, w2) + b2
+                return dropout(out_, dropout_prob, seed_of(_FFN))
 
-    per_layer = zip(*(t.unbind(0) for t in stacked))
+            ffn_args = (hid, p["FfnW1"], p["FfnB1"], p["FfnW2"], p["FfnB2"])
+            if attrs.get("remat_ffn", False):
+                # recompute `inter` ([B, S, F], the largest activation) in the
+                # backward instead of keeping it
+                ffn_out = _ckpt(ffn, *ffn_args)
+            else:
+                ffn_out = ffn(*ffn_args)
+            return _add_ln(hid, ffn_out, p["Ln2S"], p["Ln2B"], eps)
+
+        return layer
+
     remat_layer = bool(attrs.get("remat_layer", False))
-    out = hidden
-    for idx, params in enumerate(per_layer):
-        if remat_policy:
-            # keep what the policy names, recompute the rest
-            stash = _FlashStash() if keep_flash else None
-            out = _ckpt(functools.partial(layer, stash=stash), out, idx,
-                        *params)
-        elif remat_layer:
-            # full-layer remat: keep only the hidden between layers
-            out = _ckpt(layer, out, idx, *params)
-        else:
-            out = layer(out, idx, *params)
+
+    def run_layers(x, params_stacked, bias_x, mb=None, first=0):
+        """Layers first, first + 1, ... of ``params_stacked`` on ``x``."""
+        layer = make_layer(bias_x, mb)
+        out = x
+        per_layer = zip(*(t.unbind(0) for t in params_stacked))
+        for j, params in enumerate(per_layer):
+            idx = first + j
+            if remat_policy:
+                # keep what the policy names, recompute the rest
+                stash = _FlashStash() if keep_flash else None
+                out = _ckpt(functools.partial(layer, stash=stash), out, idx,
+                            *params)
+            elif remat_layer:
+                # full-layer remat: keep only the hidden between layers
+                out = _ckpt(layer, out, idx, *params)
+            else:
+                out = layer(out, idx, *params)
+        return out
+
+    if _use_gpipe(ctx, attrs):
+        out = _gpipe_stack(hidden, stacked, bias, ctx.mesh,
+                           int(attrs.get("num_microbatches", 0))
+                           or ctx.mesh.shape["pp"], run_layers)
+    else:
+        out = run_layers(hidden, stacked, bias)
     if ring:
         out = dist.all_gather(out, "sp", 1, mesh)
     return {"Out": [out]}

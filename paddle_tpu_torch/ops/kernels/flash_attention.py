@@ -73,6 +73,17 @@ Two implementations of each direction:
 are differentiable: ``torch.autograd.Function``s whose forward and
 backward are the above.
 
+The mesh form (the JAX package's ``flash_attention(mesh=, batch_axis=,
+head_axis=)`` and ``flash_attention_bsh``'s mesh branch, a shard_map with
+batch on dp and heads on tp): one process per rank already holds its
+block, so ``flash_attention_bsh`` / ``flash_attention`` with a ``mesh``
+whose ``head_axis`` has n > 1 ranks take q, k, v of this rank's heads
+[i nh/n, (i+1) nh/n) of ``num_heads`` and salt the dropout seed with the
+head shard (``head_shard``: the JAX package adds 0x1B873593 x i to its
+seed; the bits differ from the TPU's PRNG by design).  The batch shard
+is already in the executor's step seed, so ``batch_axis`` is accepted
+for parity.
+
 Bounds: ``bound_flops`` / ``bound_flops_bwd`` and ``bound_bytes`` /
 ``bound_bytes_bwd`` for BSH, ``bound_flops_bhsd`` / ``bound_bytes_bhsd``
 per BHSD kernel (flops against the dtype's peak, bytes against 3.35
@@ -98,6 +109,32 @@ HEAD_DIMS = (64, 128, 256)
 KERNEL_ROWS = 64  # the kernels' tile rows (32 at D = 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _NO_DROP, _MASK_DROP, _PHILOX_DROP = 0, 1, 2
+
+
+HEAD_SALT = 0x1B873593   # the JAX package's head-shard seed multiplier
+
+
+def head_shard(num_heads, dropout_generator, mesh, head_axis="tp"):
+    """(local heads, generator) of this rank under ``mesh``: with n > 1
+    ranks on ``head_axis`` it holds nh / n of ``num_heads`` heads, and its
+    dropout generator (when there is one) is re-seeded with the head
+    shard mixed in, so the ranks of one data shard draw different masks
+    for their heads.  Without such an axis both come back unchanged."""
+    from ..registry import mix_seed
+
+    n = 1 if mesh is None else mesh.shape.get(head_axis, 1)
+    if n <= 1:
+        return num_heads, dropout_generator
+    if num_heads % n:
+        raise ValueError(f"{num_heads} heads do not divide over mesh axis "
+                         f"{head_axis!r} of size {n}")
+    gen = dropout_generator
+    if gen is not None:
+        seed = mix_seed(gen.initial_seed(),
+                        HEAD_SALT * (1 + mesh.coords[head_axis]))
+        gen = torch.Generator(device=gen.device)
+        gen.manual_seed(seed)
+    return num_heads // n, gen
 
 
 def prescale_ok(sm_scale) -> bool:
@@ -651,10 +688,11 @@ class _FlashBSHSaved(torch.autograd.Function):
 def flash_attention_bsh(q, k, v, bias=None, num_heads=None, sm_scale=None,
                         causal=False, dropout_prob=0.0,
                         dropout_generator=None, *, mask=None,
-                        dropout_offset=0, return_lse=False, saved=None):
+                        dropout_offset=0, return_lse=False, saved=None,
+                        mesh=None, batch_axis="dp", head_axis="tp"):
     """Transpose-free attention on projection-layout tensors; returns o
-    [B, Sq, H] (the JAX package's signature, without its mesh),
-    differentiable in q, k and v.  Dropout keeps where ``mask`` says, else
+    [B, Sq, H] (the JAX package's signature; ``mesh``: this rank's heads,
+    see the module note), differentiable in q, k and v.  Dropout keeps where ``mask`` says, else
     draws: a mask from ``dropout_generator`` on the CPU, the Philox bits
     of its seed on the card.  ``return_lse`` returns (o, lse [B, nh, Sq]
     f32, not differentiable).  ``saved`` = (o, lse) of an earlier call on
@@ -662,6 +700,8 @@ def flash_attention_bsh(q, k, v, bias=None, num_heads=None, sm_scale=None,
     call's backward (``_FlashBSHSaved``)."""
     if num_heads is None:
         raise ValueError("flash_attention_bsh needs num_heads")
+    num_heads, dropout_generator = head_shard(num_heads, dropout_generator,
+                                              mesh, head_axis)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1] // num_heads)
     seed = None
@@ -1396,9 +1436,11 @@ def _dropout_source(q, dropout_prob, generator, seed, mask):
 def flash_attention(q, k, v, bias=None, sm_scale=None, causal=False,
                     dropout_prob=0.0, dropout_generator=None,
                     bias_requires_grad=False, *, dropout_seed=None,
-                    mask=None, dropout_offset=0):
+                    mask=None, dropout_offset=0, mesh=None,
+                    batch_axis="dp", head_axis="tp"):
     """Flash attention on [B, nh, S, D] (the JAX package's
-    ``flash_attention``, without its mesh): bias additive, [B|1, 1, 1, S]
+    ``flash_attention``; ``mesh``: q, k, v hold this rank's heads, see the
+    module note): bias additive, [B|1, 1, 1, S]
     per key or [B|1, nh|1, S, S] full; returns o [B, nh, S, D],
     differentiable in q, k, v, and in the bias when
     ``bias_requires_grad`` (else its cotangent is zero).  Dropout keeps
@@ -1407,6 +1449,9 @@ def flash_attention(q, k, v, bias=None, sm_scale=None, causal=False,
     of its seed on the card."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    n = 1 if mesh is None else mesh.shape.get(head_axis, 1)
+    _, dropout_generator = head_shard(q.shape[1] * n, dropout_generator,
+                                      mesh, head_axis)
     mask, seed = _dropout_source(q, dropout_prob, dropout_generator,
                                  dropout_seed, mask)
     return _flash_bhsd(q, k, v, bias, sm_scale, causal, dropout_prob, mask,

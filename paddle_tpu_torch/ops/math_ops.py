@@ -7,7 +7,9 @@ Parity surface: reference operators/elementwise/*, matmul_op.cc,
 mul_op.cc, activation_op.cc, softmax_op.cc, clip_op.cc,
 clip_by_norm_op.cc, squared_l2_norm_op.cc; ported from the JAX package's
 ``ops/math_ops.py``.  Matrix products are ``torch.matmul``
-(cuBLAS on the card), as the JAX package left them to XLA.
+(cuBLAS on the card), as the JAX package left them to XLA; under a
+``tp_region`` attr ``mul`` and ``matmul`` run a Megatron region over
+"tp" on this rank's block of the weight (``fleet`` module note).
 """
 from __future__ import annotations
 
@@ -16,6 +18,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from .. import distributed as dist
+from ..parallel import tp_mesh
 from .registry import register
 
 
@@ -61,9 +65,35 @@ def _promoted(x, y):
     return x.to(dt), y.to(dt)
 
 
+def _tp_in(ctx, attrs, x):
+    """A product's input entering its tensor-parallel region: a column-
+    parallel product (and the tied vocabulary head) reads the whole X
+    through f, whose backward sums dX over "tp"."""
+    mesh = tp_mesh(ctx, attrs)
+    if mesh is not None and attrs["tp_region"] in ("column", "vocab_head"):
+        return dist.copy_to_region(x, "tp", mesh)
+    return x
+
+
+def _tp_out(ctx, attrs, out):
+    """A product's output leaving its region: a row-parallel one sums its
+    partial result over "tp" with g (backward the identity); the tied
+    vocabulary head gathers its [.., V/tp] logits along the vocabulary;
+    a column-parallel one keeps its local columns."""
+    mesh = tp_mesh(ctx, attrs)
+    if mesh is None:
+        return out
+    if attrs["tp_region"] == "row":
+        return dist.reduce_from_region(out, "tp", mesh)
+    if attrs["tp_region"] == "vocab_head":
+        return dist.all_gather(out, "tp", out.dim() - 1, mesh)
+    return out
+
+
 @register("matmul")
 def matmul(ctx, ins, attrs):
     x, y = _promoted(ins["X"][0], ins["Y"][0])
+    x = _tp_in(ctx, attrs, x)
     # transpose of a 1-D operand is the identity
     if attrs.get("transpose_X", False) and x.dim() > 1:
         x = x.transpose(-1, -2)
@@ -73,20 +103,24 @@ def matmul(ctx, ins, attrs):
     alpha = attrs.get("alpha", 1.0)
     if alpha != 1.0:
         out = out * alpha
-    return {"Out": [out]}
+    return {"Out": [_tp_out(ctx, attrs, out)]}
 
 
 @register("mul")
 def mul(ctx, ins, attrs):
     """Flattening matmul (reference mul_op.cc): x flattened at
-    x_num_col_dims, y at y_num_col_dims, then one 2-D product."""
+    x_num_col_dims, y at y_num_col_dims, then one 2-D product.  Under a
+    tp_region attr the product runs Megatron's region over "tp" on this
+    rank's block of Y (``fleet`` module note)."""
     x, y = _promoted(ins["X"][0], ins["Y"][0])
+    x = _tp_in(ctx, attrs, x)
     xn = attrs.get("x_num_col_dims", 1)
     yn = attrs.get("y_num_col_dims", 1)
     xs, ys = tuple(x.shape), tuple(y.shape)
     x2 = x.reshape(math.prod(xs[:xn]), math.prod(xs[xn:]))
     y2 = y.reshape(math.prod(ys[:yn]), math.prod(ys[yn:]))
-    return {"Out": [(x2 @ y2).reshape(xs[:xn] + ys[yn:])]}
+    return {"Out": [_tp_out(ctx, attrs,
+                            (x2 @ y2).reshape(xs[:xn] + ys[yn:]))]}
 
 
 def _act(name, fn):
@@ -102,17 +136,37 @@ _act("tanh", lambda x, a: torch.tanh(x))
 _act("sqrt", lambda x, a: torch.sqrt(x))
 _act("exp", lambda x, a: torch.exp(x))
 _act("log", lambda x, a: torch.log(x))
-# jnp.sign keeps NaN and -0.0, where torch.sign gives 0 and +0.0; the kept
-# elements are detached, so the gradient stays zero everywhere
-_act("sign", lambda x, a: torch.where((x == 0) | torch.isnan(x), x.detach(),
-                                      torch.sign(x)))
+
+
+def _sign(x, a):
+    """jnp.sign: NaN and -0.0 kept (torch.sign gives 0 and +0.0; the kept
+    elements are detached, so the gradient stays zero everywhere); a bool
+    X raises, as jnp.sign refuses it."""
+    if x.dtype == torch.bool:
+        raise TypeError("sign does not accept dtype bool")
+    return torch.where((x == 0) | torch.isnan(x), x.detach(), torch.sign(x))
+
+
+_act("sign", _sign)
+# jax.nn.gelu of an integer or bool X computes in float32
 _act("gelu", lambda x, a: F.gelu(
-    x, approximate="tanh" if a.get("approximate", False) else "none"))
+    x if x.is_floating_point() else x.float(),
+    approximate="tanh" if a.get("approximate", False) else "none"))
 
 
 @register("softmax")
 def softmax(ctx, ins, attrs):
-    return {"Out": [torch.softmax(ins["X"][0], dim=attrs.get("axis", -1))]}
+    """jax.nn.softmax: float X as torch.softmax; an integer X gives
+    float32, its x - max taken in X's own dtype first (so a uint8 X wraps
+    there and gives the reference's NaN); a bool X raises, as jnp's
+    subtraction refuses it."""
+    x, axis = ins["X"][0], attrs.get("axis", -1)
+    if x.is_floating_point():
+        return {"Out": [torch.softmax(x, dim=axis)]}
+    if x.dtype == torch.bool:
+        raise TypeError("softmax: sub does not accept dtype bool")
+    e = torch.exp((x - torch.amax(x, dim=axis, keepdim=True)).float())
+    return {"Out": [e / e.sum(dim=axis, keepdim=True)]}
 
 
 class _Clip(torch.autograd.Function):
@@ -154,4 +208,11 @@ def clip_by_norm(ctx, ins, attrs):
 
 @register("squared_l2_norm")
 def squared_l2_norm(ctx, ins, attrs):
-    return {"Out": [torch.sum(torch.square(ins["X"][0])).reshape(1)]}
+    """jnp.sum(jnp.square(x)): the square in X's dtype (a narrow int
+    wraps there, a bool stays itself), the sum of an integer or bool X
+    in int32, and uint32 for uint8 (``reduce_ops._narrow_int_sum``)."""
+    from .reduce_ops import _narrow_int_sum
+
+    x = ins["X"][0]
+    sq = x if x.dtype == torch.bool else torch.square(x)
+    return {"Out": [_narrow_int_sum(torch.sum(sq), x).reshape(1)]}

@@ -25,7 +25,9 @@ import torch.nn.functional as F
 
 from .kernels import add_ln as _add_ln
 from .kernels import conv_bn as _cb
-from .manipulation import take
+from .. import distributed as dist
+from ..parallel import tp_mesh
+from .manipulation import _fill_value, take
 from .registry import register, set_grad_maker
 
 
@@ -365,18 +367,47 @@ def _lookup(w, ids, padding_idx):
     return out
 
 
+def _vocab_lookup(w, ids, padding_idx, mesh):
+    """The vocabulary-parallel lookup (tp_region "vocab"): this rank
+    holds rows [i V/tp, (i+1) V/tp) of the [V, H] table; it looks up the
+    ids among them, zeros elsewhere, and g sums the ranks' rows over
+    "tp".  The global rules hold: a negative id wraps, one past the table
+    gives the fill row (on tp rank 0 only, so the sum keeps it), the
+    padding index gives zeros."""
+    n, i = mesh.shape["tp"], mesh.coords["tp"]
+    rows = w.shape[0]
+    vocab = rows * n
+    glob = torch.where(ids < 0, ids + vocab, ids)
+    ok = (glob >= 0) & (glob < vocab)
+    local = glob - i * rows
+    mine = ok & (local >= 0) & (local < rows)
+    out = take(w, torch.where(mine, local, 0))
+    out = torch.where(mine[..., None], out, 0.0)
+    if i == 0:
+        out = torch.where(ok[..., None], out, _fill_value(w.dtype))
+    if padding_idx is not None and padding_idx >= 0:
+        out = torch.where((ids == padding_idx)[..., None], 0.0, out)
+    return dist.reduce_from_region(out, "tp", mesh)
+
+
+def _lookup_op(ctx, attrs, w, ids):
+    mesh = tp_mesh(ctx, attrs)
+    if mesh is not None:
+        return _vocab_lookup(w, ids, attrs.get("padding_idx", -1), mesh)
+    return _lookup(w, ids, attrs.get("padding_idx", -1))
+
+
 @register("lookup_table")
 def lookup_table(ctx, ins, attrs):
     # v1 ids carry a trailing [, 1] dim (LoD heritage)
     w, ids = ins["W"][0], ins["Ids"][0]
-    return {"Out": [_lookup(w, ids.reshape(ids.shape[:-1]),
-                            attrs.get("padding_idx", -1))]}
+    return {"Out": [_lookup_op(ctx, attrs, w, ids.reshape(ids.shape[:-1]))]}
 
 
 @register("lookup_table_v2")
 def lookup_table_v2(ctx, ins, attrs):
     w, ids = ins["W"][0], ins["Ids"][0]
-    return {"Out": [_lookup(w, ids, attrs.get("padding_idx", -1))]}
+    return {"Out": [_lookup_op(ctx, attrs, w, ids)]}
 
 
 @register("square_error_cost")

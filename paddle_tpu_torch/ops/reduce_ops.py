@@ -33,14 +33,18 @@ def _reduce(name, fn, float_out=False):
             keepdim=keep)
         if out.dim() == 0:
             out = out.reshape(1)  # fluid reductions keep at least rank 1
-        if out.dtype == torch.int64 and x.dtype != torch.int64:
-            # torch widens sums of narrow ints and bools to int64; jnp.sum
-            # gives int32, and uint32 for uint8
-            out = out.to(torch.uint32 if x.dtype == torch.uint8
-                         else torch.int32)
-        return {"Out": [out]}
+        return {"Out": [_narrow_int_sum(out, x)]}
 
     return _emit
+
+
+def _narrow_int_sum(out, x):
+    """torch widens sums of narrow ints and bools to int64; jnp.sum gives
+    int32, and uint32 for uint8."""
+    if out.dtype == torch.int64 and x.dtype != torch.int64:
+        return out.to(torch.uint32 if x.dtype == torch.uint8
+                      else torch.int32)
+    return out
 
 
 _reduce("reduce_sum", torch.sum)

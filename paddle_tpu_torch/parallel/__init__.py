@@ -19,6 +19,16 @@ size raises (the JAX package takes a prefix of the devices; ROADMAP §C).
 
 Axes convention: "dp" (data), "tp" (tensor), "pp" (pipeline), "sp"
 (sequence), "ep" (expert).
+
+Parameters sharded on "tp" or "pp" (``PARAM_AXES``).  Where GSPMD holds
+one global array and places its shards, a rank of the port holds only
+its block of such a parameter: the block its coordinates on the axes of
+the parameter's spec name (``local_shard``; ``set_var_sharding`` /
+``get_var_sharding`` carry the spec).  The startup program runs at the
+global shapes on every rank, and the executor keeps each rank's block;
+a fetch of such a variable gathers it back (``gather_shard``).  A dim
+the axis does not divide raises ValueError, where the JAX package pads
+(BERT-base's vocabulary, 30522, at tp 4; ROADMAP §C).
 """
 from __future__ import annotations
 
@@ -34,7 +44,9 @@ from .env import get_rank, get_world_size, init_parallel_env  # noqa: F401
 # mesh axes whose sharding the ops realise inside their own regions
 # (ops/encoder_stack.py, ops/attention.py): outside them every rank of
 # such an axis holds the whole tensor, so feeds are not sliced on them
-REGION_AXES = ("sp",)
+REGION_AXES = ("sp", "tp", "pp")
+# mesh axes that shard parameters: a rank holds its block of them
+PARAM_AXES = ("tp", "pp")
 
 
 class Mesh:
@@ -186,14 +198,82 @@ def partition_spec(*axes):
 
 def set_var_sharding(var, spec: Optional[Sequence[Optional[str]]]):
     """Annotate a program Variable with a spec (mesh axis name / None per
-    dim).  The executor slices a fed variable's batch block by it;
-    unannotated vars are replicated."""
+    dim).  The executor slices a fed variable's batch block by it, and a
+    rank holds its block of a persistable sharded on "tp" or "pp"
+    (``local_shard``); unannotated vars are replicated."""
     var._sharding = None if spec is None else PartitionSpec(*spec)
     var.block.program._bump_version()  # invalidate the executor's plans
 
 
 def get_var_sharding(var):
     return getattr(var, "_sharding", None)
+
+
+def param_axes(spec):
+    """[(dim, axis)] of the parameter-sharding axes ``spec`` names."""
+    out = []
+    for d, axis in enumerate(spec or ()):
+        for a in ((axis,) if isinstance(axis, str) else (axis or ())):
+            if a in PARAM_AXES:
+                out.append((d, a))
+    return out
+
+
+def local_shard(value, spec, mesh):
+    """This rank's block of the global ``value`` (a tensor or an array)
+    along each dim that ``spec`` shards on a parameter axis of ``mesh``
+    ("tp", "pp"); ValueError where the axis does not divide the dim.
+    The executor (after a startup program), the checkpoint restore and
+    the tests share it."""
+    for d, a in param_axes(spec):
+        n = mesh.shape.get(a, 1)
+        if n <= 1:
+            continue
+        size = value.shape[d]
+        if size % n:
+            raise ValueError(
+                f"dim {d} of size {size} is not divisible by mesh axis "
+                f"{a!r} of size {n}: the port shards a parameter into "
+                f"equal blocks and pads nothing")
+        blk, i = size // n, mesh.coords[a]
+        value = value[(slice(None),) * d + (slice(i * blk, (i + 1) * blk),)]
+    return value
+
+
+def gather_shard(x, spec, mesh):
+    """The global value of a tensor this rank holds its ``local_shard``
+    of: all-gathered over each parameter axis of ``spec`` (a collective:
+    every rank of those axes calls it)."""
+    from .. import distributed as dist
+
+    for d, a in reversed(param_axes(spec)):
+        if mesh.shape.get(a, 1) > 1:
+            x = dist.all_gather(x, a, d, mesh)
+    return x
+
+
+def check_shardable(var, spec, mesh):
+    """ValueError unless every parameter axis of ``spec`` divides its dim
+    of ``var``'s (global) shape."""
+    for d, a in param_axes(spec):
+        n = mesh.shape.get(a, 1)
+        if d >= len(var.shape) or (n > 1 and int(var.shape[d]) % n):
+            raise ValueError(
+                f"{var.name}: dim {d} of shape {list(var.shape)} is not "
+                f"divisible by mesh axis {a!r} of size {n}; the port "
+                f"shards a parameter into equal blocks and pads nothing "
+                f"(the JAX package pads)")
+
+
+def tp_mesh(ctx, attrs):
+    """The mesh of an op's tensor-parallel region (its ``tp_region`` attr,
+    set by ``fleet.apply_tensor_parallel_rules``) when the mesh's "tp"
+    axis has more than one rank; else None (the op runs whole)."""
+    mesh = ctx.mesh
+    if (not attrs.get("tp_region") or mesh is None
+            or mesh.shape.get("tp", 1) <= 1):
+        return None
+    return mesh
 
 
 def set_flat_index(var, batch_size: int, row_len: int):

@@ -178,12 +178,22 @@ def test_cheap_dropout_rescales_by_the_quantized_keep():
                                     "sequence_parallel": True}],
                          ids=["pipeline", "ring"])
 def test_unported_branches_raise(attrs):
-    """GPipe, alone or with the ring inside its stages (pp x sp), is not
-    ported: it raises naming its queue item (the ring alone is, in
-    test_torch_fleet.py and test_torch_ring_attention.py)."""
+    """GPipe, alone or with the ring inside its stages (pp x sp), runs
+    since the pipeline slice (test_torch_pipeline.py); what it refuses is
+    the reference's: a batch of 2 that 3 microbatches do not divide
+    raises ValueError, before any collective (a Mesh without a process
+    group stands for the ranks)."""
+    from paddle_tpu_torch.parallel import Mesh
+
     ins, cot, base = _inputs("composition_h32")
-    with pytest.raises(NotImplementedError, match="GPipe"):
-        _torch(ins, cot, dict(base, **attrs))
+    mesh = Mesh({"pp": 2, "sp": 2})
+    leaves = {k: torch.as_tensor(v if k in ("Hidden", "AttnBias")
+                                 else v[:1]) for k, v in ins.items()}
+    with pytest.raises(ValueError, match="num_microbatches=3"):
+        treg.get("fused_encoder_stack").emit(
+            treg.EmitContext(device="cpu", mesh=mesh),
+            {k: [v] for k, v in leaves.items()},
+            dict(base, num_microbatches=3, **attrs))
 
 
 BHSD_BIASES = {"full": (2, 2, 128, 128), "full_b1": (2, 1, 128, 128),

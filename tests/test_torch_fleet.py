@@ -23,7 +23,8 @@ JAX package's startup scope copied in (``Scope.from_numpy``).
   JAX package's functions on the combined values.
 * Refusals: every unported strategy field and mesh axis raises naming
   its queue item, as do the parameter-server roles; a mesh whose size is
-  not the world size raises.
+  not the world size raises.  (Tensor and pipeline parallelism are held
+  in test_torch_tensor_parallel.py and test_torch_pipeline.py.)
 """
 from __future__ import annotations
 
@@ -228,10 +229,21 @@ def test_fetch_startup_and_metrics_over_two_ranks(tmp_path):
                                        atol=0, err_msg=k)
 
 
-REFUSED = {"tensor_parallel": ("tensor_parallel", True, "item 1"),
+# field: (name, value, the refusal's text, other strategy fields).
+# tensor_parallel, tensor_parallel_rules and pipeline run since the
+# tensor- and pipeline-parallel slice: their cases hold what stays
+# refused with them, tp together with sp or pp, and an op with no
+# tensor-parallel region (a Mesh without a process group stands for the
+# ranks)
+REFUSED = {"tensor_parallel": ("tensor_parallel", True, "item 6",
+                               {"mesh_axes": {"dp": 1, "tp": 1, "sp": 1},
+                                "sequence_parallel": True}),
            "tensor_parallel_rules": ("tensor_parallel_rules",
-                                     [("w", (None, "tp"))], "item 1"),
-           "pipeline": ("pipeline", True, "item 2"),
+                                     [(r"\.w_0$", (None, "tp"))],
+                                     "no tensor-parallel region",
+                                     {"mesh": ("dp", 1, "tp", 2)}),
+           "pipeline": ("pipeline", True, "item 6",
+                        {"mesh_axes": {"dp": 1, "tp": 1, "pp": 1}}),
            "expert_parallel": ("expert_parallel", True, "item 3"),
            "sharding": ("sharding", True, "item 4"),
            "hybrid_dcn": ("hybrid_dcn", 2, "item 5"),
@@ -259,27 +271,37 @@ def _tiny_loss(fluid, layers):
 def test_unported_strategy_fields_raise(field):
     from paddle_tpu_torch import fleet, fluid
     from paddle_tpu_torch.fluid import layers
+    from paddle_tpu_torch.parallel import Mesh
 
-    name, value, where = REFUSED[field]
+    name, value, where, *extra = REFUSED[field]
     main, startup, loss = _tiny_loss(fluid, layers)
     strategy = fleet.DistributedStrategy()
     assert hasattr(strategy, name)
     setattr(strategy, name, value)
+    for k, v in (extra[0] if extra else {}).items():
+        if k == "mesh":
+            v = Mesh(dict(zip(v[::2], v[1::2])))
+        setattr(strategy, k, v)
     with fluid.program_guard(main, startup), \
             pytest.raises(NotImplementedError, match=where):
         fleet.distributed_optimizer(fluid.optimizer.SGDOptimizer(0.1),
                                     strategy).minimize(loss)
 
 
-@pytest.mark.parametrize("axis,where", [("tp", "item 1"), ("pp", "item 2"),
-                                        ("ep", "item 3"), ("dcn", "item 5")])
-def test_unported_mesh_axes_raise(axis, where):
+@pytest.mark.parametrize("axes,where", [
+    # tp and pp run since their slice; with them, tp x sp and tp x pp stay
+    # refused
+    pytest.param({"tp": 1, "sp": 1}, "item 6", id="tp-item 1"),
+    pytest.param({"tp": 1, "pp": 1}, "item 6", id="pp-item 2"),
+    pytest.param({"ep": 1}, "item 3", id="ep-item 3"),
+    pytest.param({"dcn": 1}, "item 5", id="dcn-item 5")])
+def test_unported_mesh_axes_raise(axes, where):
     from paddle_tpu_torch import fleet, fluid
     from paddle_tpu_torch.fluid import layers
 
     main, startup, loss = _tiny_loss(fluid, layers)
     strategy = fleet.DistributedStrategy()
-    strategy.mesh_axes = {"dp": 1, axis: 1}
+    strategy.mesh_axes = {"dp": 1, **axes}
     with fluid.program_guard(main, startup), \
             pytest.raises(NotImplementedError, match=where):
         fleet.distributed_optimizer(fluid.optimizer.SGDOptimizer(0.1),

@@ -316,6 +316,16 @@ EMIT = {
         [3e9, -3e9, np.nan, 300.7, -300.7, 2.5, -2.5, np.inf, -np.inf],
         np.float32)}, {"out_dtype": np.dtype(dt)})
        for dt in ("int8", "int16", "int32", "int64", "uint8")},
+    # the next re-anchor probe's four faults, on its inputs
+    "gelu_int": ("gelu", {"X": np.array([0, 1, -3, 7], np.int32)},
+                 {"approximate": False}),
+    "gelu_bool": ("gelu", {"X": np.array([True, False, True])}, {}),
+    **{f"softmax_{dt}": ("softmax", {"X": np.array(
+        [[0, 1, 3, 7], [2, 200 if dt == "uint8" else 2, 0, 1]], dt)},
+        {"axis": -1}) for dt in ("int8", "int32", "uint8")},
+    **{f"squared_l2_norm_{dt}": ("squared_l2_norm", {"X": np.array(
+        [[0, 1, 3, 7], [2, 200 if dt == "uint8" else 12, 0, 1]], dt)}, {})
+       for dt in ("int8", "int32", "uint8", "bool")},
     # the Transformer NMT's label-smoothing chain: reduce_max, exp, log
     **{f"reduce_max_{k}": ("reduce_max", {"X": x}, a)
        for k, (x, a) in _MAX_CASES.items()},
@@ -364,7 +374,10 @@ def test_emitter_matches_jax(name):
                                   "gather_axis1_fill", "cast_saturate_int8",
                                   "lookup_table_v2_past_table",
                                   "reduce_max_all_keep", "reduce_max_int",
-                                  "exp_int", "log_f32"])
+                                  "exp_int", "log_f32",
+                                  "squared_l2_norm_uint8",
+                                  "squared_l2_norm_bool", "softmax_uint8",
+                                  "gelu_int"])
 def test_shape_inference_matches_jax(name):
     op, ins, attrs = EMIT[name]
     metas = {k: [(a.shape, a.dtype) for a in v]
@@ -423,6 +436,18 @@ def test_max_exp_log_gradients_match_jax_vjp(case):
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(out),
                                atol=TOL, rtol=0)
     np.testing.assert_allclose(xt.grad.numpy(), want, atol=TOL, rtol=1e-6)
+
+
+@pytest.mark.parametrize("op", ["sign", "softmax"])
+def test_bool_input_raises_type_error_as_in_jax(op):
+    """jnp.sign refuses a bool X, and so does jax.nn.softmax's x - max:
+    the port raises TypeError where the reference does."""
+    x = np.array([[True, False, True]])
+    with pytest.raises(TypeError):
+        jreg.get(op).emit(jreg.EmitContext(), {"X": [jnp.asarray(x)]}, {})
+    with pytest.raises(TypeError, match="bool"):
+        treg.get(op).emit(treg.EmitContext(), {"X": [torch.as_tensor(x)]},
+                          {})
 
 
 def test_sign_keeps_negative_zero_and_has_a_zero_gradient():

@@ -41,6 +41,30 @@ z = np.arange(12, dtype=np.float32).reshape(4, 3)
 torch_dist_ranks._collective_cases(create_mesh({"dp": 1}), {
     "x": z[:2], "xr": z[:2], "xs": z[0], "ct": z[:2], "ct_rs": z[:2],
     "w": z[:2], "ct_id": z[:2]})
+# the tensor- and pipeline-parallel paths on meshes without a process
+# group (every collective the identity): the regions, GPipe, fleet
+from paddle_tpu_torch.parallel import Mesh
+rng = np.random.default_rng(0)
+f = lambda *s: rng.standard_normal(s).astype(np.float32)
+torch_dist_ranks._tp_op_cases(Mesh({"dp": 2, "tp": 2}), {
+    "table": f(12, 6), "ids": np.array([[3, 0, 11, -2]], np.int32),
+    "padding_idx": 5, "ct_lookup": f(1, 4, 6), "trans": f(5, 6),
+    "ct_head": f(5, 6), "c": f(3, 4), "c_rank": f(2, 3, 4)})
+import torch
+from paddle_tpu_torch.ops import encoder_stack, registry
+stack = {k: torch.as_tensor(f(1, *s)).requires_grad_() for k, s in (
+    ("QKVW", (16, 48)), ("QKVB", (48,)), ("OutW", (16, 16)), ("OutB", (16,)),
+    ("Ln1S", (16,)), ("Ln1B", (16,)), ("FfnW1", (16, 32)), ("FfnB1", (32,)),
+    ("FfnW2", (32, 16)), ("FfnB2", (16,)), ("Ln2S", (16,)),
+    ("Ln2B", (16,)))}
+hid = torch.as_tensor(f(4, 8, 16)).requires_grad_()
+out = registry.get("fused_encoder_stack").emit(
+    registry.EmitContext(device="cpu", mesh=Mesh({"pp": 2})),
+    {"Hidden": [hid], **{k: [v] for k, v in stack.items()}},
+    {"num_heads": 4, "is_test": True, "use_flash_attention": False,
+     "pipeline": True, "num_microbatches": 2})["Out"][0]
+out.sum().backward()
+assert stack["QKVW"].grad is not None
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m.startswith("jaxlib.") or m == "paddle_tpu"

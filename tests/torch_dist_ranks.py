@@ -264,11 +264,13 @@ def body_fleet_attn(rank, world, p):
     return fleet_attn_run(p)
 
 
-def build_bert(fluid, nn, bert, kw, b, s, mpn):
-    """Tiny BERT pretraining (fuse_stack, dropout 0) and its loss."""
+def build_bert(fluid, nn, bert, kw, b, s, mpn, fuse_stack=True):
+    """Tiny BERT pretraining (dropout 0; fuse_stack, or the unfused
+    encoder on the fused attention op) and its loss."""
     nn._rng_salt_counter[0] = 0
     cfg = bert.BertConfig(**kw, hidden_dropout_prob=0.0,
-                          attention_probs_dropout_prob=0.0, fuse_stack=True)
+                          attention_probs_dropout_prob=0.0,
+                          fuse_stack=fuse_stack, use_flash_attention=True)
     main, startup = fluid.Program(), fluid.Program()
     with fluid.unique_name.guard():
         m, st, _, loss = bert.build_bert_pretrain_program(
@@ -302,6 +304,189 @@ def body_fleet_bert(rank, world, p):
                     for op in main.global_block().ops],
             "sp_ops": sorted(op.type for op in main.global_block().ops
                              if op.attrs.get("sequence_parallel"))}
+
+
+def fleet_bert_parallel(p):
+    """Tiny BERT through fleet with p's mesh axes and strategy (tensor
+    parallel rules, pipeline, sequence parallel, bf16 AMP): the JAX package's
+    global startup state handed in (each rank keeps its blocks), the loss
+    trace, and every scope variable gathered back to its global value."""
+    from paddle_tpu_torch import fleet, fluid
+    from paddle_tpu_torch.fluid.layers import nn
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.parallel import gather_shard, get_var_sharding
+
+    cfg, main, startup, loss = build_bert(fluid, nn, bert, *p["bert"],
+                                          fuse_stack=p["fuse_stack"])
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        strategy = fleet.DistributedStrategy()
+        strategy.mesh_axes = dict(p["mesh_axes"])
+        strategy.sequence_parallel = "sp" in p["mesh_axes"]
+        if p.get("tp"):
+            strategy.tensor_parallel_rules = bert.tensor_parallel_rules()
+        if p.get("pipeline"):
+            strategy.pipeline = True
+            strategy.pipeline_configs = {
+                "accumulate_steps": p.get("accumulate_steps", 1)}
+        opt = fluid.optimizer.AdamOptimizer(1e-3)
+        if p.get("amp"):
+            from paddle_tpu_torch.contrib import mixed_precision
+
+            opt = mixed_precision.decorate(opt, use_bf16=True)
+        fleet.init()
+        fleet.distributed_optimizer(opt, strategy).minimize(loss)
+    scope = fluid.Scope.from_numpy(p["state"], device="cpu", program=main)
+    exe = fluid.Executor(device="cpu")
+    losses = [exe.run(main, feed=p["feed"], fetch_list=[loss],
+                      scope=scope)[0] for _ in range(p["steps"])]
+    block = main.global_block()
+    state, local = {}, {}
+    for n in sorted(scope.vars):
+        v = scope.find_var(n)
+        local[n] = _np(v)
+        var = block._find_var_recursive(n)
+        spec = None if var is None else get_var_sharding(var)
+        state[n] = _np(gather_shard(v, spec, main._mesh) if spec else v)
+    return {"losses": losses, "state": state, "local": local,
+            "ops": [(op.type, op.inputs, op.outputs,
+                     bool(op.attrs.get("grad_sync")),
+                     op.attrs.get("tp_region"))
+                    for op in main.global_block().ops]}
+
+
+def body_fleet_bert_parallel(rank, world, p):
+    return [fleet_bert_parallel(dict(p, **case)) for case in p["cases"]]
+
+
+def two_fc_model(fluid, layers, seed):
+    """The JAX package's two-fc regression model (tests/test_fleet.py):
+    fc 8 -> 32 relu, fc 32 -> 1, a square-error loss."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.data("x", [16, 8], "float32")
+        y = fluid.data("y", [16, 1], "float32")
+        h = layers.fc(x, 32, act="relu")
+        pred = layers.fc(h, 1)
+        loss = layers.reduce_mean(layers.square_error_cost(pred, y))
+    return main, startup, loss
+
+
+TWO_FC_RULES = [(r"^fc_0\.w_0$", (None, "tp")), (r"^fc_0\.b_0$", ("tp",)),
+                (r"^fc_1\.w_0$", ("tp", None))]
+
+
+def _two_fc_tp(p):
+    from paddle_tpu_torch import fleet, fluid
+    from paddle_tpu_torch.fluid import layers
+
+    main, startup, loss = two_fc_model(fluid, layers, seed=7)
+    with fluid.program_guard(main, startup):
+        strategy = fleet.DistributedStrategy()
+        strategy.mesh_axes = dict(p["mesh_axes"])
+        strategy.tensor_parallel = True
+        strategy.tensor_parallel_rules = TWO_FC_RULES
+        fleet.init()
+        fleet.distributed_optimizer(fluid.optimizer.AdamOptimizer(1e-2),
+                                    strategy).minimize(loss)
+    scope = fluid.Scope.from_numpy(p["state"], device="cpu", program=main)
+    exe = fluid.Executor(device="cpu")
+    losses = [float(exe.run(main, feed=f, fetch_list=[loss],
+                            scope=scope)[0].reshape(()))
+              for f in p["feeds"][:-1]]
+    # the last step also fetches a sharded parameter: gathered
+    lv, w = exe.run(main, feed=p["feeds"][-1],
+                    fetch_list=[loss, "fc_0.w_0"], scope=scope)
+    losses.append(float(lv.reshape(())))
+    from paddle_tpu_torch.parallel import gather_shard, get_var_sharding
+
+    w_var = main.global_block().var("fc_0.w_0")
+    w_gathered = _np(gather_shard(scope.find_var("fc_0.w_0"),
+                                  get_var_sharding(w_var), main._mesh))
+    # a checkpoint holds the global values; a restore keeps the blocks
+    import torch.distributed as dist
+
+    root = os.path.join(p["ckpt"], f"rank{dist.get_rank()}")
+    fluid.CheckpointManager(root, program=main, scope=scope,
+                            device="cpu").save(5)
+    back, whole = fluid.Scope(), fluid.Scope()
+    fluid.CheckpointManager(root, program=main, scope=back,
+                            device="cpu").restore()
+    fluid.CheckpointManager(root, scope=whole, device="cpu").restore()
+    return {"losses": losses, "fetched_w": w, "gathered_w": w_gathered,
+            "regions": [op.attrs.get("tp_region")
+                        for op in main.global_block().ops],
+            "restored_equal": sorted(
+                n for n, v in scope.vars.items()
+                if back.find_var(n) is not None
+                and bool((back.find_var(n) == v).all())),
+            "state_names": sorted(scope.vars),
+            "saved_shapes": {n: tuple(v.shape)
+                             for n, v in whole.vars.items()}}
+
+
+def _tp_op_cases(mesh, p):
+    """The vocabulary-parallel lookup and the tied MLM head on this
+    rank's block of the table, and the gradients of f, g and the
+    last-rank broadcast over "tp"."""
+    import torch
+
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.ops import registry as treg
+    from paddle_tpu_torch.parallel import local_shard
+
+    ctx = treg.EmitContext(device="cpu", mesh=mesh, axis_env=mesh.axis_env)
+    out = {}
+    w = local_shard(torch.as_tensor(p["table"]), ("tp", None), mesh)
+    w = w.clone().requires_grad_()
+    for op, ids in (("lookup_table_v2", p["ids"]),
+                    ("lookup_table", p["ids"][..., None])):
+        o = treg.get(op).emit(ctx, {"W": [w], "Ids": [torch.as_tensor(ids)]},
+                              {"padding_idx": p["padding_idx"],
+                               "tp_region": "vocab"})["Out"][0]
+        (g,) = torch.autograd.grad(o, w, torch.as_tensor(p["ct_lookup"]),
+                                   allow_unused=True)
+        out[op] = {"out": _np(o),
+                   "dw": _np(dist.all_gather(g, "tp", 0, mesh))}
+    x = torch.as_tensor(p["trans"]).requires_grad_()
+    o = treg.get("matmul").emit(
+        ctx, {"X": [x], "Y": [w]},
+        {"transpose_X": False, "transpose_Y": True, "alpha": 1.0,
+         "tp_region": "vocab_head"})["Out"][0]
+    dx, dw = torch.autograd.grad(o, [x, w], torch.as_tensor(p["ct_head"]))
+    out["head"] = {"out": _np(o), "dx": _np(dx),
+                   "dw": _np(dist.all_gather(dw, "tp", 0, mesh))}
+    # f, g and the last-rank broadcast: x differs by rank where the
+    # region's input does, the loss is sum(y * c) with c on every rank
+    i = mesh.coords["tp"]
+    for name, fn, xin, cot in (
+            ("f", dist.copy_to_region, p["c"], p["c_rank"][i]),
+            ("g", dist.reduce_from_region, p["c_rank"][i], p["c"]),
+            ("broadcast", dist.broadcast_from_last, p["c_rank"][i],
+             p["c"])):
+        leaf = torch.as_tensor(xin).clone().requires_grad_()
+        y = fn(leaf, "tp", mesh)
+        (g,) = torch.autograd.grad((y * torch.as_tensor(cot)).sum(), leaf)
+        out[name] = {"y": _np(y), "dx": _np(g)}
+    return out
+
+
+def body_tp(rank, world, p):
+    """Every tensor-parallel case of tests/test_torch_tensor_parallel.py
+    on one set of dp 2 x tp 2 ranks."""
+    from paddle_tpu_torch.parallel import create_mesh
+
+    return {"two_fc": _two_fc_tp(p["two_fc"]),
+            "bert": fleet_bert_parallel(p["bert"]),
+            "bert_bf16": fleet_bert_parallel(p["bert_bf16"]),
+            "ops": _tp_op_cases(create_mesh({"dp": 2, "tp": 2}), p["ops"])}
+
+
+def body_pipeline(rank, world, p):
+    """Every multi-rank case of tests/test_torch_pipeline.py on one set
+    of 4 ranks: the GPipe stacks, then tiny BERT through fleet."""
+    return {"gpipe": body_gpipe(rank, world, p["gpipe"]),
+            "bert": body_fleet_bert_parallel(rank, world, p["bert"])}
 
 
 def body_decoder_ring(rank, world, p):
@@ -372,10 +557,60 @@ def body_fetch_startup(rank, world, p):
                        fleet.is_first_worker())}
 
 
+def body_gpipe(rank, world, p):
+    """fused_encoder_stack under each case's mesh (pipeline, and the ring
+    for pp x sp), this rank's block of the stacked [L, ...] parameters:
+    Out, the gradient of Hidden, and every parameter gradient gathered
+    over "pp" back to [L, ...]; how many layers this stage ran."""
+    import torch
+
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.ops import encoder_stack as es
+    from paddle_tpu_torch.ops import registry as treg
+    from paddle_tpu_torch.parallel import create_mesh, local_shard
+
+    out = []
+    for case in p["cases"]:
+        mesh = create_mesh(case["mesh"])
+        hidden = torch.as_tensor(case["ins"]["Hidden"]).requires_grad_()
+        ins = {"Hidden": [hidden]}
+        if case["ins"].get("AttnBias") is not None:
+            ins["AttnBias"] = [torch.as_tensor(case["ins"]["AttnBias"])]
+        spec = ("pp", None, None)
+        leaves = {k: local_shard(torch.as_tensor(case["ins"][k]), spec, mesh)
+                  .clone().requires_grad_() for k in es._PARAM_KEYS}
+        ins.update({k: [v] for k, v in leaves.items()})
+        ctx = treg.EmitContext(device="cpu", mesh=mesh,
+                               axis_env=mesh.axis_env)
+        calls = []
+        run = es._Schedule.forward
+
+        def counted(self, *a, run=run):
+            calls.append(1)
+            return run(self, *a)
+
+        es._Schedule.forward = counted
+        try:
+            o = treg.get("fused_encoder_stack").emit(
+                ctx, ins, dict(case["attrs"]))["Out"][0]
+            wrt = [hidden] + list(leaves.values())
+            grads = torch.autograd.grad(o, wrt, torch.as_tensor(case["cot"]))
+        finally:
+            es._Schedule.forward = run
+        res = {"out": _np(o), "dhidden": _np(grads[0]),
+               "layers": int(leaves["QKVW"].shape[0]),
+               "schedules": len(calls), "grads": {}}
+        for k, g in zip(leaves, grads[1:]):
+            res["grads"][k] = _np(dist.all_gather(g, "pp", 0, mesh))
+        out.append(res)
+    return out
+
+
 BODIES = {"collectives": body_collectives, "ring": body_ring,
           "fleet_attn": body_fleet_attn, "fleet_bert": body_fleet_bert,
           "decoder_ring": body_decoder_ring,
-          "fetch_startup": body_fetch_startup}
+          "fetch_startup": body_fetch_startup, "tp": body_tp,
+          "pipeline": body_pipeline}
 
 
 def main(argv) -> int:
