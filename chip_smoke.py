@@ -284,7 +284,9 @@ exits 2.  Weights and inputs are random from fixed seeds.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -5824,8 +5826,12 @@ def phase_verify(torch, card: str) -> dict:
 # world size 1 (dist_nccl)
 DIST_WORLD = 4
 DIST_RING = dict(b=8, nh=12, s=2048, d=64, mesh={"sp": 4})
+# ``layers``: the depth of a plan's bf16 runs.  dist_train, dist_tp and
+# dist_pp run 4 of BERT-base's 12 layers (at full width), so that the
+# script stays well inside its time limit; dist_ep, dist_zero and
+# dist_dcn take all 12
 DIST_TRAIN = dict(batch=8, seq=512, max_preds=76, steps=3, timed=2,
-                  drop_steps=2, mesh={"dp": 2, "sp": 2})
+                  drop_steps=2, mesh={"dp": 2, "sp": 2}, layers=4)
 # dist_train's attention: BERT-base's 12 heads of 64 at 8 x 512 over dp 2
 # x sp 2, so each rank's ring block is [4, 12, 256, 64]
 DIST_RING_TRAIN = dict(b=DIST_TRAIN["batch"], nh=12, s=DIST_TRAIN["seq"],
@@ -5856,6 +5862,76 @@ DIST_PP = dict(DIST_TRAIN, mesh={"dp": 2, "pp": 2}, fuse_stack=True,
 DIST_PP_SP = dict(DIST_PP, mesh={"pp": 2, "sp": 2}, drop_steps=0)
 DIST_TP_BLOCK = dict(b=DIST_TP["batch"] // 2, s=DIST_TP["seq"], nh=12 // 2,
                      d=64)
+# expert parallelism: BERT-base unfused with a moe_ffn of 8 experts of
+# 3072 in every layer (top-2, capacity factor 1.25, aux weight 0.01) over
+# dp 2 x ep 2, then dp 1 x ep 4 on the same ranks; ZeRO-2 at dp 4 (the
+# fused stack, sharding on, then off); the multi-slice modes at dcn 2 x
+# dp 2 (the fused stack: dense, DGC at sparsity 0.9 after one dense
+# step, LocalSGD averaging every 2 steps), all of BERT-base's 12 layers
+DIST_MOE = dict(moe_num_experts=8, moe_top_k=2, moe_capacity_factor=1.25,
+                moe_aux_weight=0.01)
+DIST_EP = dict(DIST_TRAIN, mesh={"dp": 2, "ep": 2}, fuse_stack=False,
+               moe=True, drop_steps=0, gather_state=False, layers=12)
+DIST_EP4 = dict(DIST_EP, mesh={"dp": 1, "ep": 4})
+DIST_ZERO = dict(DIST_TRAIN, mesh={"dp": 4}, fuse_stack=True, drop_steps=0,
+                 layers=12)
+DIST_DCN = dict(DIST_TRAIN, mesh={"dcn": 2, "dp": 2}, fuse_stack=True,
+                drop_steps=0, dcn=2, layers=12)
+DIST_DGC = dict(DIST_DCN, timed=0, gather_state=False,
+                dgc={"sparsity": 0.9, "rampup_begin_step": 1})
+DIST_LSGD = dict(DIST_DCN, steps=2, timed=0, gather_state=False,
+                 localsgd={"k_steps": 2})
+# the gradient whose DGC sync dist_dcn recomputes on the host: the stacked
+# attention output weight encoder_stack.out_w, [12, 768, 768] (7,077,888
+# entries, k 707,789), the one gradient of that shape
+DIST_DGC_PROBE = (12, 768, 768)
+
+
+@contextlib.contextmanager
+def _watch_op(op_type: str, seen):
+    """While open, each emission of ``op_type`` on real tensors calls
+    ``seen(ins, attrs, outs)`` after the op: the registry's emitter
+    wrapped, nothing of the port changed (shape inference on meta
+    tensors is not watched)."""
+    from paddle_tpu_torch.ops import registry as treg
+
+    spec = treg.get(op_type)
+    real = spec.emit
+
+    def emit(ctx, ins, attrs):
+        outs = real(ctx, ins, attrs)
+        if next(iter(ins.values()))[0].device.type != "meta":
+            seen(ins, attrs, outs)
+        return outs
+
+    spec.emit = emit
+    try:
+        yield
+    finally:
+        spec.emit = real
+
+
+def _moe_routing(log: list):
+    """A ``_watch_op`` callback for ``moe_ffn``: each call's top-k picks
+    (the op's own slot-by-slot argmax over the f32 router), the f32 logit
+    margin of each token (its k-th choice's logit less the next one's)
+    and the aux loss it gave, appended to ``log``."""
+    import torch
+
+    from paddle_tpu_torch.ops import moe_ops
+
+    def seen(ins, attrs, outs):
+        with torch.no_grad():
+            x = ins["X"][0]
+            logits = (x.reshape(-1, x.shape[-1]).float()
+                      @ ins["GateW"][0].float())
+            k = int(attrs.get("top_k", 2))
+            idx, _ = moe_ops._route(torch.softmax(logits, dim=-1), k)
+            top = torch.topk(logits, k + 1, dim=-1).values
+            log.append({"picks": torch.stack(idx, 1).to(torch.int16).cpu(),
+                        "margin": (top[:, k - 1] - top[:, k]).cpu(),
+                        "aux": float(outs["AuxLoss"][0])})
+    return seen
 
 
 def _dist_spawn(mode: str, world: int, workdir: str) -> list:
@@ -5928,7 +6004,8 @@ def _dist_child(mode: str, rank: int, world: int, workdir: str) -> int:
                               timeout_s=DIST_PG_TIMEOUT_S)
     body = {"ring": _dist_ring_child, "train": _dist_train_child,
             "nccl": _dist_nccl_child, "tp": _dist_tp_child,
-            "pp": _dist_pp_child}[mode]
+            "pp": _dist_pp_child,
+            "ep_zero_dcn": _dist_ep_zero_dcn_child}[mode]
     out = body(torch, rank, world)
     out["backend"] = dist.get_backend()
     torch.save(out, os.path.join(workdir, f"out_{rank}.pt"))
@@ -6097,8 +6174,9 @@ def phase_dist_ring(torch, card: str, workdir: str) -> dict:
 
 def _fleet_bert_program(cfg, amp: bool, mesh_axes, plan=None):
     """bert_train's program under fleet: dp x sp with sequence_parallel;
-    with a ``plan`` (DIST_TP, DIST_PP) its tensor_parallel_rules or its
-    pipeline with accumulate_steps too."""
+    with a ``plan`` (DIST_TP, DIST_PP, DIST_EP, DIST_ZERO, DIST_DCN...)
+    its tensor_parallel_rules, its pipeline with accumulate_steps, expert
+    parallelism, ZeRO or the multi-slice mode too."""
     from paddle_tpu_torch import fleet, fluid
     from paddle_tpu_torch.contrib import mixed_precision
     from paddle_tpu_torch.models import bert
@@ -6112,9 +6190,12 @@ def _fleet_bert_program(cfg, amp: bool, mesh_axes, plan=None):
             startup_program=startup)
         with fluid.program_guard(m, st):
             opt = fluid.optimizer.AdamOptimizer(learning_rate=1e-4)
-            if amp:
-                opt = mixed_precision.decorate(opt, use_bf16=True)
             strategy = fleet.DistributedStrategy()
+            if amp and plan.get("dcn"):
+                # strategy.amp: the sync ops' bf16 wire is its default
+                strategy.amp = True
+            elif amp:
+                opt = mixed_precision.decorate(opt, use_bf16=True)
             strategy.mesh_axes = dict(mesh_axes)
             strategy.sequence_parallel = "sp" in mesh_axes
             if plan.get("tp"):
@@ -6123,14 +6204,20 @@ def _fleet_bert_program(cfg, amp: bool, mesh_axes, plan=None):
             if plan.get("pipeline"):
                 strategy.pipeline = True
                 strategy.pipeline_configs = {"accumulate_steps": plan["acc"]}
+            strategy.expert_parallel = bool(plan.get("moe"))
+            strategy.sharding = bool(plan.get("sharding"))
+            if plan.get("dcn"):
+                strategy.hybrid_dcn = plan["dcn"]
+                strategy.dgc = bool(plan.get("dgc"))
+                strategy.dgc_configs = dict(plan.get("dgc") or {})
+                strategy.localsgd = bool(plan.get("localsgd"))
+                strategy.localsgd_configs = dict(plan.get("localsgd") or {})
             fleet.init()
             fleet.distributed_optimizer(opt, strategy).minimize(loss)
     return m, st, loss
 
 
 def _state_hash(scope, names) -> str:
-    import hashlib
-
     h = hashlib.sha256()
     for n in sorted(names):
         t = scope.find_var(n)
@@ -6140,7 +6227,7 @@ def _state_hash(scope, names) -> str:
     return h.hexdigest()
 
 
-def _dist_bert_cfg(layers=None, dropout=0.0, fuse_stack=True):
+def _dist_bert_cfg(layers=None, dropout=0.0, fuse_stack=True, moe=False):
     from paddle_tpu_torch.models import bert
 
     cfg = bert.BertConfig.base()
@@ -6148,6 +6235,9 @@ def _dist_bert_cfg(layers=None, dropout=0.0, fuse_stack=True):
     cfg.hidden_dropout_prob = cfg.attention_probs_dropout_prob = dropout
     if layers is not None:
         cfg.num_hidden_layers = layers
+    if moe:
+        for k, v in DIST_MOE.items():
+            setattr(cfg, k, v)
     return cfg
 
 
@@ -6242,16 +6332,19 @@ class _GatheredScope:
         return _gathered(self.scope, self.program, name)
 
 
-def _sharded_names(program) -> set:
+def _sharded_names(program) -> dict:
+    """name -> the mesh axes that shard it, for each persistable a rank
+    holds a block of."""
     from paddle_tpu_torch.parallel import get_var_sharding, param_axes
 
-    return {v.name for v in program.list_vars()
-            if param_axes(get_var_sharding(v))}
+    return {v.name: {a for _, a in param_axes(get_var_sharding(v))}
+            for v in program.list_vars()
+            if v.persistable and param_axes(get_var_sharding(v))}
 
 
 def _dist_train_run(torch, cfg, amp: bool, steps: int, timed: int = 0,
                     scope=None, keep_params: bool = False,
-                    plan=DIST_TRAIN) -> dict:
+                    plan=DIST_TRAIN, probe=None) -> dict:
     """One rank's training under ``plan``'s mesh: startup (rank 0's
     weights broadcast, each rank keeping its blocks of what tp or pp
     shard), ``steps`` steps held to their exact launches, the collective
@@ -6259,7 +6352,10 @@ def _dist_train_run(torch, cfg, amp: bool, steps: int, timed: int = 0,
     sampled (rank 0); with ``keep_params`` rank 0 returns its parameters
     after the steps, gathered (the ranks' states are compared by hash:
     ``state_hash`` of the gathered state, ``local_hash`` of the blocks
-    this rank holds, ``replicated_hash`` of what no axis shards)."""
+    this rank holds, ``replicated_hash`` of what no axis shards); a MoE
+    program gives its first step's routing (``routing``, ``_moe_routing``
+    a layer); ``probe(i, scope, main)``, called after each of the
+    ``steps``, gives ``probes``."""
     import torch.distributed as dist
 
     from paddle_tpu_torch import distributed as tdist
@@ -6267,6 +6363,7 @@ def _dist_train_run(torch, cfg, amp: bool, steps: int, timed: int = 0,
     from paddle_tpu_torch.models import bert
 
     c = plan
+    t_run = time.perf_counter()
     main, startup, loss = _fleet_bert_program(cfg, amp, c["mesh"], plan)
     exe = fluid.Executor()
     out = {}
@@ -6275,6 +6372,7 @@ def _dist_train_run(torch, cfg, amp: bool, steps: int, timed: int = 0,
         exe.run(startup, scope=scope)
         params = [p.name for p in main.all_parameters()]
         out["init_hash"] = _state_hash(_GatheredScope(scope, main), params)
+    out["setup_s"] = time.perf_counter() - t_run
     want = _dist_launches_per_step(main, plan, amp)
     feed = bert.random_pretrain_batch(cfg, c["batch"], c["seq"],
                                       c["max_preds"], seed=0)
@@ -6284,19 +6382,27 @@ def _dist_train_run(torch, cfg, amp: bool, steps: int, timed: int = 0,
         return float(exe.run(main, feed=feed, fetch_list=[loss],
                              scope=scope)[0].reshape(-1)[0])
 
-    losses, step_ms, comm = [], [], []
+    losses, step_ms, comm, probes, routing = [], [], [], [], []
     total = dict.fromkeys(counters, 0)
     for i in range(steps):
         tdist.reset_stats()
         t0 = time.perf_counter()
-        lv, got = _count_step(counters, step)
+        with (_watch_op("moe_ffn", _moe_routing(routing))
+              if i == 0 and cfg.moe_num_experts else contextlib.nullcontext()):
+            lv, got = _count_step(counters, step)
         step_ms.append((time.perf_counter() - t0) * 1e3)
-        comm.append(dict(tdist.stats))
+        # this step's own: later collectives add to the live stats
+        comm.append(dict(tdist.stats, by={k: dict(v) for k, v in
+                                          tdist.stats["by"].items()}))
+        if routing:
+            out["routing"] = routing[:cfg.num_hidden_layers]
         if got != want:
             raise RuntimeError(f"step {i} launched {got}, the program "
                                f"needs {want}")
         total = {k: total[k] + got[k] for k in total}
         losses.append(lv)
+        if probe is not None:
+            probes.append(probe(i, scope, main))
     if timed:
         torch.cuda.synchronize()
         dist.barrier()
@@ -6311,33 +6417,46 @@ def _dist_train_run(torch, cfg, amp: bool, steps: int, timed: int = 0,
             samples = util.stop() if util else None
         out["window"] = {"steps": timed, "wall_ms": wall,
                          "utilization": samples}
+    t_hash = time.perf_counter()
     state = [v.name for v in main.list_vars()
              if v.persistable and scope.find_var(v.name) is not None]
     sharded = _sharded_names(main)
     gathered = _GatheredScope(scope, main)
-    by_var = {n: _state_hash(gathered, [n]) for n in sorted(state)}
+    # each variable gathered once, the state's hash of theirs; without
+    # ``gather_state`` the replicated ones only (the ranks holding the
+    # same blocks are held equal by ``local_hash``, which implies the
+    # gathered state's equality)
+    if c.get("gather_state", True):
+        by_var = {n: _state_hash(gathered, [n]) for n in sorted(state)}
+    else:
+        by_var = {n: _state_hash(scope, [n]) for n in sorted(state)
+                  if n not in sharded}
     out.update(losses=losses, step_ms=step_ms, comm=comm,
                launches_per_step=want, launches=total,
-               state_hash=_state_hash(gathered, state), var_hashes=by_var,
+               state_hash=hashlib.sha256(json.dumps(by_var).encode())
+               .hexdigest(), var_hashes=by_var,
                local_hash=_state_hash(scope, state),
                replicated_hash=_state_hash(
                    scope, [n for n in state if n not in sharded]),
-               scope=scope)
+               block_axes=sorted(set().union(*sharded.values())),
+               probes=probes, scope=scope)
     if keep_params:
         params = _params(scope, main)
         if dist.get_rank() == 0:
             out["params"] = params
+    out["hash_s"] = time.perf_counter() - t_hash
     return out
 
 
 def _dist_train_child(torch, rank: int, world: int) -> dict:
     """BERT-base bf16 (3 + 2 profiled steps), 2 layers f32 (3 steps), then
     dropout 0.1 (2 steps) on the bf16 run's state."""
-    bf16 = _dist_train_run(torch, _dist_bert_cfg(), True,
+    depth = DIST_TRAIN["layers"]
+    bf16 = _dist_train_run(torch, _dist_bert_cfg(layers=depth), True,
                            DIST_TRAIN["steps"], DIST_TRAIN["timed"])
     scope = bf16.pop("scope")
-    drop = _dist_train_run(torch, _dist_bert_cfg(dropout=0.1), True,
-                           DIST_TRAIN["drop_steps"], scope=scope)
+    drop = _dist_train_run(torch, _dist_bert_cfg(layers=depth, dropout=0.1),
+                           True, DIST_TRAIN["drop_steps"], scope=scope)
     drop.pop("scope")
     del scope
     torch.cuda.empty_cache()
@@ -6365,16 +6484,20 @@ def _dist_plan_child(torch, plans) -> dict:
     """Each plan's runs on this rank: BERT-base bf16 (3 + 2 timed
     steps), 2 layers in f32 (3 steps, parameters gathered), then dropout
     0.1 on the bf16 run's state (``drop_steps``)."""
-    out = {}
+    out, peak = {}, 0.0
     for name, plan in plans:
-        fuse = plan["fuse_stack"]
-        bf16 = _dist_train_run(torch, _dist_bert_cfg(fuse_stack=fuse), True,
+        torch.cuda.reset_peak_memory_stats()
+        fuse, moe = plan["fuse_stack"], bool(plan.get("moe"))
+        bf16 = _dist_train_run(torch, _dist_bert_cfg(plan["layers"],
+                                                     fuse_stack=fuse,
+                                                     moe=moe), True,
                                plan["steps"], plan["timed"], plan=plan)
         scope = bf16.pop("scope")
         drop = None
         if plan["drop_steps"]:
             drop = _dist_train_run(
-                torch, _dist_bert_cfg(dropout=0.1, fuse_stack=fuse), True,
+                torch, _dist_bert_cfg(plan["layers"], dropout=0.1,
+                                      fuse_stack=fuse), True,
                 plan["drop_steps"], scope=scope, plan=plan)
             drop.pop("scope")
             if plan.get("tp"):
@@ -6382,13 +6505,17 @@ def _dist_plan_child(torch, plans) -> dict:
         del scope
         torch.cuda.empty_cache()
         f32 = _dist_train_run(torch, _dist_bert_cfg(layers=2,
-                                                    fuse_stack=fuse),
+                                                    fuse_stack=fuse,
+                                                    moe=moe),
                               False, plan["steps"], keep_params=True,
                               plan=plan)
         f32.pop("scope")
         torch.cuda.empty_cache()
-        out[name] = {"bf16": bf16, "f32": f32, "dropout": drop}
-    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        plan_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        peak = max(peak, plan_peak)
+        out[name] = {"bf16": bf16, "f32": f32, "dropout": drop,
+                     "peak_mem_gb": plan_peak}
+    out["peak_mem_gb"] = peak
     return out
 
 
@@ -6409,7 +6536,8 @@ def _one_process_run(torch, cfg, amp: bool, steps: int,
     the dist phases (same seed-0 startup, same global batch); with
     ``keep_params`` its parameters after ``steps`` steps.  Kept for the
     phases that share it (dist_train and dist_pp: the fused stack)."""
-    key = (cfg.fuse_stack, cfg.num_hidden_layers, amp, steps, keep_params)
+    key = (cfg.fuse_stack, cfg.num_hidden_layers, cfg.moe_num_experts, amp,
+           steps, keep_params)
     if key not in _ONE_PROCESS:
         _ONE_PROCESS[key] = _one_process_train(torch, cfg, amp, steps,
                                                keep_params)
@@ -6429,26 +6557,29 @@ def _one_process_train(torch, cfg, amp: bool, steps: int,
     init = _state_hash(scope, [p.name for p in main.all_parameters()])
     feed = bert.random_pretrain_batch(cfg, c["batch"], c["seq"],
                                       c["max_preds"], seed=0)
-    losses, step_ms = [], []
-    for _ in range(steps):
+    losses, step_ms, routing = [], [], []
+    for i in range(steps):
         t0 = time.perf_counter()
-        losses.append(float(exe.run(main, feed=feed, fetch_list=[loss],
-                                    scope=scope)[0][0]))
+        with (_watch_op("moe_ffn", _moe_routing(routing))   # the first step's
+              if i == 0 and cfg.moe_num_experts else contextlib.nullcontext()):
+            losses.append(float(exe.run(main, feed=feed, fetch_list=[loss],
+                                        scope=scope)[0][0]))
         step_ms.append((time.perf_counter() - t0) * 1e3)
     out = {"losses": losses, "init_hash": init,
+           "routing": routing[:cfg.num_hidden_layers] or None,
            "step_ms_after_first": statistics.median(step_ms[1:])}
     if keep_params:
         out["params"] = _params(scope, main)
     return out
 
 
-def _block_group(mesh: dict, rank: int) -> tuple:
-    """The coordinates of ``rank`` on the mesh's parameter axes ("tp",
-    "pp"): ranks that share them hold the same blocks."""
-    from paddle_tpu_torch.parallel import PARAM_AXES, Mesh
+def _block_group(mesh: dict, rank: int, axes) -> tuple:
+    """The coordinates of ``rank`` on ``axes``, the mesh axes that shard
+    the run's state: ranks that share them hold the same blocks."""
+    from paddle_tpu_torch.parallel import Mesh
 
     coords = Mesh(mesh, rank).coords
-    return tuple(coords[a] for a in PARAM_AXES if a in coords)
+    return tuple(coords[a] for a in sorted(axes) if a in coords)
 
 
 def _dist_holds(phase: str, c: dict, ranks: list, refs: tuple,
@@ -6477,7 +6608,8 @@ def _dist_holds(phase: str, c: dict, ranks: list, refs: tuple,
                      f"state {differ[:8]})")
         groups = {}
         for r, run in enumerate(runs):
-            groups.setdefault(_block_group(c["mesh"], r), set()).add(
+            groups.setdefault(_block_group(c["mesh"], r,
+                                           run["block_axes"]), set()).add(
                 run["local_hash"])
         if any(len(h) != 1 for h in groups.values()):
             fail(f"{phase} {what}: ranks holding the same blocks differ")
@@ -6516,7 +6648,8 @@ def _dist_holds(phase: str, c: dict, ranks: list, refs: tuple,
             "launches": runs[0]["launches"],
             "collectives_per_step": {
                 k: statistics.median(st[k] for st in comm)
-                for k in ("calls", "bytes", "ms", "stage_ms")}}
+                for k in ("calls", "bytes", "ms", "stage_ms")},
+            "collectives_per_step_by": _comm_by(runs[0]["comm"][1:])}
     util = ranks[0]["bf16"]["window"]["utilization"]
     out["bf16"]["window"] = {
         "steps": c["timed"],
@@ -6537,14 +6670,19 @@ def _dist_dropout(phase: str, ranks: list) -> dict:
     return {"p": 0.1, "losses": drop[0]}
 
 
-def _dist_refs(torch, fuse_stack: bool) -> tuple:
-    """The one-process bf16 (steps + timed) and 2-layer f32 runs."""
+def _dist_refs(torch, fuse_stack: bool, plan: dict) -> tuple:
+    """The one-process bf16 (steps + timed, at ``plan``'s depth) and
+    2-layer f32 runs of ``plan``'s model."""
     c = DIST_TRAIN
-    ref_bf16 = _one_process_run(torch, _dist_bert_cfg(fuse_stack=fuse_stack),
+    moe = bool(plan.get("moe"))
+    ref_bf16 = _one_process_run(torch, _dist_bert_cfg(plan["layers"],
+                                                      fuse_stack=fuse_stack,
+                                                      moe=moe),
                                 True, c["steps"] + c["timed"])
     torch.cuda.empty_cache()
     ref_f32 = _one_process_run(torch, _dist_bert_cfg(layers=2,
-                                                     fuse_stack=fuse_stack),
+                                                     fuse_stack=fuse_stack,
+                                                     moe=moe),
                                False, c["steps"], keep_params=True)
     torch.cuda.empty_cache()
     return ref_bf16, ref_f32
@@ -6553,13 +6691,16 @@ def _dist_refs(torch, fuse_stack: bool) -> tuple:
 def _dist_header(phase, card, c, ranks_backend) -> dict:
     return {"phase": phase, "card": card, "world": DIST_WORLD,
             "mesh": c["mesh"], "backend": ranks_backend,
+            "bf16_layers": c["layers"],
             "batch": c["batch"], "seq": c["seq"],
-            "per_rank_batch": [c["batch"] // c["mesh"].get("dp", 1),
+            "per_rank_batch": [c["batch"] // c["mesh"].get("dp", 1)
+                               // c["mesh"].get("dcn", 1),
                                c["seq"] // c["mesh"].get("sp", 1)]}
 
 
 def phase_dist_train(torch, card: str, workdir: str) -> dict:
-    """BERT-base pretraining (bert_train's program, dropout off) under
+    """BERT-base pretraining (bert_train's program at BERT-base widths,
+    ``DIST_TRAIN["layers"]`` layers, dropout off) under
     fleet at dp 2 x sp 2 on four ranks sharing the card over gloo, global
     batch 8 x 512 (4 x 256 a rank): 3 steps against the same program and
     weights in one process without a mesh (bf16 within 2e-2), the same at
@@ -6569,7 +6710,7 @@ def phase_dist_train(torch, card: str, workdir: str) -> dict:
     finite."""
     t0 = time.perf_counter()
     c = DIST_TRAIN
-    refs = _dist_refs(torch, True)
+    refs = _dist_refs(torch, True, c)
     ref_s = time.perf_counter() - t0
     ranks = _dist_spawn("train", DIST_WORLD, workdir)
     out = _dist_header("dist_train", card, c, ranks[0]["backend"])
@@ -6583,14 +6724,15 @@ def phase_dist_train(torch, card: str, workdir: str) -> dict:
 
 
 def phase_dist_tp(torch, card: str, workdir: str) -> dict:
-    """BERT-base unfused with tensor_parallel_rules() at dp 2 x tp 2 on
+    """BERT-base (its widths, ``DIST_TP["layers"]`` layers) unfused with
+    tensor_parallel_rules() at dp 2 x tp 2 on
     four ranks sharing the card over gloo (``_dist_holds`` against the
     unfused program in one process); then dropout 0.1: finite, the
     replicated state equal on every rank, the head-shard dropout seeds
     different on the two ranks of a tp pair and equal across dp."""
     t0 = time.perf_counter()
     c = DIST_TP
-    refs = _dist_refs(torch, False)
+    refs = _dist_refs(torch, False, c)
     ref_s = time.perf_counter() - t0
     raw = _dist_spawn("tp", DIST_WORLD, workdir)
     ranks = [r["tp"] for r in raw]
@@ -6614,12 +6756,13 @@ def phase_dist_tp(torch, card: str, workdir: str) -> dict:
 
 
 def phase_dist_pp(torch, card: str, workdir: str) -> dict:
-    """BERT-base with the fused stack and the pipeline at dp 2 x pp 2
-    (accumulate_steps 2, 6 layers a stage), then pp 2 x sp 2, on the same
+    """BERT-base (its widths, ``DIST_PP["layers"]`` layers) with the
+    fused stack and the pipeline at dp 2 x pp 2 (accumulate_steps 2,
+    half the layers a stage), then pp 2 x sp 2, on the same
     four rank processes (``_dist_holds`` against dist_train's one-process
     runs; dropout 0.1 at dp 2 x pp 2)."""
     t0 = time.perf_counter()
-    refs = _dist_refs(torch, True)
+    refs = _dist_refs(torch, True, DIST_PP)
     ref_s = time.perf_counter() - t0
     raw = _dist_spawn("pp", DIST_WORLD, workdir)
     out = {"phase": "dist_pp", "card": card}
@@ -6633,6 +6776,413 @@ def phase_dist_pp(torch, card: str, workdir: str) -> dict:
         out[name] = sub
     out["peak_mem_gb_by_rank"] = [r["peak_mem_gb"] for r in raw]
     out["reference_s"] = ref_s
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    return out
+
+
+def _comm_by(comm: list) -> dict:
+    """Rank 0's calls, bytes and ms a step of each "collective:axis",
+    the median over ``comm`` (``distributed.stats`` a step)."""
+    keys = sorted({k for st in comm for k in st.get("by", {})})
+    zero = {"calls": 0, "bytes": 0, "ms": 0.0}
+    return {k: {f: statistics.median(st.get("by", {}).get(k, zero)[f]
+                                     for st in comm)
+                for f in ("calls", "bytes", "ms")} for k in keys} \
+        if comm else {}
+
+
+def _dist_ep_zero_dcn_child(torch, rank: int, world: int) -> dict:
+    """dist_ep's, dist_zero's and dist_dcn's bodies in one set of ranks
+    (one process start instead of three)."""
+    out = {}
+    for name, body in (
+            ("ep", lambda: _dist_plan_child(
+                torch, [("ep", DIST_EP), ("ep4", DIST_EP4)])),
+            ("zero", lambda: _dist_zero_child(torch, rank, world)),
+            ("dcn", lambda: _dist_dcn_child(torch, rank, world))):
+        torch.cuda.reset_peak_memory_stats()
+        out[name] = body()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_dist_ep_zero_dcn(torch, card: str, workdir: str) -> tuple:
+    """One spawn of four ranks for dist_ep, dist_zero and dist_dcn, then
+    each phase's checks on its part of their results."""
+    t_spawn = time.perf_counter()
+    raw = _dist_spawn("ep_zero_dcn", DIST_WORLD, workdir)
+    emit({"phase": "dist_ep_zero_dcn_ranks",
+          "seconds": time.perf_counter() - t_spawn})
+    part = {k: [dict(r[k], backend=r["backend"]) for r in raw]
+            for k in ("ep", "zero", "dcn")}
+    del raw
+    dep = phase_dist_ep(torch, card, part["ep"])
+    torch.cuda.empty_cache()
+    dzero = phase_dist_zero(torch, card, part["zero"])
+    torch.cuda.empty_cache()
+    ddcn = phase_dist_dcn(torch, card, part["dcn"], dzero["dp"]["losses"])
+    torch.cuda.empty_cache()
+    return dep, dzero, ddcn
+
+
+def _load_of(picks: np.ndarray, n_exp: int) -> dict:
+    """The global routing of one layer from every token's top-k picks
+    ([T, k], the data shards' tokens in order): the capacity, the share
+    of (token, slot) pairs over it (slot 0's queue first, as the op
+    places them) and the max / mean expert load."""
+    from paddle_tpu_torch.ops.moe_ops import moe_capacity
+
+    t, k = picks.shape
+    totals = np.stack([np.bincount(picks[:, j], minlength=n_exp)
+                       for j in range(k)])
+    cap = moe_capacity(t, n_exp, k, DIST_MOE["moe_capacity_factor"])
+    before = np.cumsum(totals, 0) - totals
+    kept = np.minimum(totals, np.clip(cap - before, 0, None))
+    load = totals.sum(0)
+    return {"capacity": cap, "dropped_share": float((totals - kept).sum()
+                                                    / totals.sum()),
+            "max_over_mean_load": float(load.max() / load.mean())}
+
+
+def _routing_stats(ranks: list, ref: list, mesh: dict) -> list:
+    """Each MoE layer's first bf16 step: the (token, slot) pairs over
+    capacity, the max / mean expert load and the aux loss, on the ranks
+    (their picks joined over the data shards) and in one process; the
+    share of tokens whose top-k picks equal the one process's, and the
+    one process's f32 logit margin (k-th choice less the next) of each
+    that does not."""
+    from paddle_tpu_torch.parallel import Mesh
+
+    n_exp = DIST_MOE["moe_num_experts"]
+    shards = sorted((Mesh(mesh, r).coords.get("dp", 0), r)
+                    for r in range(len(ranks))
+                    if Mesh(mesh, r).coords.get("ep", 0) == 0)
+    out = []
+    for layer, want in enumerate(ref):
+        got = [ranks[r][layer] for _, r in shards]
+        picks = np.concatenate([g["picks"].numpy() for g in got])
+        ref_picks = want["picks"].numpy()
+        same = (picks == ref_picks).all(-1)
+        margins = want["margin"].numpy()[~same]
+        load, ref_load = _load_of(picks, n_exp), _load_of(ref_picks, n_exp)
+        out.append({
+            "capacity": load["capacity"],
+            "dropped_share": load["dropped_share"],
+            "dropped_share_one_process": ref_load["dropped_share"],
+            "max_over_mean_load": load["max_over_mean_load"],
+            "max_over_mean_load_one_process": ref_load["max_over_mean_load"],
+            "aux": got[0]["aux"], "aux_one_process": want["aux"],
+            "top_k_match_share": float(same.mean()),
+            "flips": int((~same).sum()),
+            "flip_margins_f32": sorted(float(m) for m in margins)[:8]})
+    return out
+
+
+def _first_flips(routing: list) -> dict:
+    """The first layer whose top-k picks differ from the one process's,
+    and those flips' f32 logit margins: no earlier flip moved that
+    layer's inputs, so only the bf16 rounding of its own inputs
+    explains them."""
+    for layer, r in enumerate(routing):
+        if r["flips"]:
+            return {"layer": layer, "flips": r["flips"],
+                    "margins_f32": r["flip_margins_f32"]}
+    return {"layer": None, "flips": 0, "margins_f32": []}
+
+
+def phase_dist_ep(torch, card: str, raw: list) -> dict:
+    """BERT-base unfused with a moe_ffn of 8 experts in every layer
+    (top-2, capacity factor 1.25) at dp 2 x ep 2, then dp 1 x ep 4, on
+    four ranks sharing the card over gloo (``raw``: the ranks' results;
+    ``_dist_holds`` against the same program in one process: bf16
+    losses, 2 layers f32 with every parameter gathered); each layer's
+    routing on the first step against the one process's."""
+    t0 = time.perf_counter()
+    refs = _dist_refs(torch, False, DIST_EP)
+    ref_s = time.perf_counter() - t0
+    out = {"phase": "dist_ep", "card": card, "moe": DIST_MOE}
+    for name, c in (("ep", DIST_EP), ("ep4", DIST_EP4)):
+        ranks = [r[name] for r in raw]
+        sub = _dist_header(f"dist_ep {name}", card, c, raw[0]["backend"])
+        _dist_holds(f"dist_ep {name}", c, ranks, refs, sub)
+        sub["routing"] = _routing_stats(
+            [r["bf16"]["routing"] for r in ranks], refs[0]["routing"],
+            c["mesh"])
+        sub["first_flips"] = _first_flips(sub["routing"])
+        sub["peak_mem_gb_by_rank"] = [r["peak_mem_gb"] for r in ranks]
+        out[name] = sub
+    out["reference_s"] = ref_s
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    return out
+
+
+def _dist_zero_child(torch, rank: int, world: int) -> dict:
+    """BERT-base with the fused stack, bf16 AMP, at dp 4: ZeRO-2
+    (``strategy.sharding``), then the unsharded run; each with its
+    Adam-moment bytes on this rank and its peak memory."""
+    out = {}
+    for name, plan in (("zero", dict(DIST_ZERO, sharding=True)),
+                       ("dp", DIST_ZERO)):
+        torch.cuda.reset_peak_memory_stats()
+        run = _dist_train_run(torch, _dist_bert_cfg(plan["layers"]), True,
+                              plan["steps"], plan["timed"], plan=plan)
+        scope = run.pop("scope")
+        run["moment_bytes"] = sum(t.numel() * t.element_size()
+                                  for n, t in scope.vars.items()
+                                  if "_moment" in n)
+        run["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        del scope
+        torch.cuda.empty_cache()
+        out[name] = run
+    return out
+
+
+def _same_runs(phase: str, runs: list) -> None:
+    """Every rank's losses and gathered state equal bit for bit."""
+    for r, run in enumerate(runs[1:], 1):
+        if run["losses"] != runs[0]["losses"] \
+                or run["state_hash"] != runs[0]["state_hash"]:
+            fail(f"{phase}: rank {r} differs from rank 0 (losses "
+                 f"{run['losses']} vs {runs[0]['losses']})")
+
+
+def _loss_diff(phase: str, got: list, want: list, limit: float) -> float:
+    diff = max(abs(a - b) for a, b in zip(got, want))
+    if not math.isfinite(diff) or diff > limit:
+        fail(f"{phase}: losses {got} vs {want}: {diff} > {limit}")
+    return diff
+
+
+def _window(run: dict) -> dict:
+    util = run["window"]["utilization"]
+    return {"steps": run["window"]["steps"], "wall_ms": run["window"]
+            ["wall_ms"], "card_idle_share": (1 - statistics.mean(util) / 100)
+            if util else "not measured"}
+
+
+def phase_dist_zero(torch, card: str, raw: list) -> dict:
+    """BERT-base (fused stack, bf16 AMP, Adam) at dp 4 with
+    ``strategy.sharding`` and without (``raw``: the ranks' results), 3 +
+    2 timed steps each: every
+    master parameter and every moment (gathered) after the steps equal
+    bit for bit between the two, the losses too; the losses within
+    DIST_LOSS_BF16 of one process; each rank's Adam-moment bytes, peak
+    memory, and the parameters' all-gather a step."""
+    t0 = time.perf_counter()
+    c = DIST_ZERO
+    ref = _dist_refs(torch, True, c)[0]
+    out = _dist_header("dist_zero", card, c, raw[0]["backend"])
+    for name in ("zero", "dp"):
+        runs = [r[name] for r in raw]
+        if any(r["init_hash"] != ref["init_hash"] for r in runs):
+            fail(f"dist_zero {name}: the ranks did not start from the "
+                 f"one-process run's weights")
+        _same_runs(f"dist_zero {name}", runs)
+        comm = runs[0]["comm"][1:]
+        out[name] = {
+            "losses": runs[0]["losses"],
+            "loss_diff": _loss_diff(f"dist_zero {name}",
+                                    runs[0]["losses"][:c["steps"]],
+                                    ref["losses"][:c["steps"]],
+                                    DIST_LOSS_BF16),
+            "step_ms_median_by_rank": [statistics.median(r["step_ms"])
+                                       for r in runs],
+            "moment_bytes_by_rank": [r["moment_bytes"] for r in runs],
+            "peak_mem_gb_by_rank": [r["peak_mem_gb"] for r in runs],
+            "collectives_per_step_by": _comm_by(comm),
+            "launches_per_step": runs[0]["launches_per_step"],
+            "launches": runs[0]["launches"], "window": _window(runs[0])}
+    differ = []
+    for r in raw:
+        z, d = r["zero"], r["dp"]
+        if z["losses"] != d["losses"]:
+            fail(f"dist_zero: losses {z['losses']} sharded vs "
+                 f"{d['losses']} unsharded")
+        differ += [n for n, h in d["var_hashes"].items()
+                   if z["var_hashes"].get(n) != h]
+    if differ:
+        fail(f"dist_zero: the sharded run's state differs from the "
+             f"unsharded one's: {sorted(set(differ))[:8]}")
+    out.update(one_process=ref["losses"], limit=DIST_LOSS_BF16,
+               state_bit_equal_vars=len(raw[0]["dp"]["var_hashes"]),
+               moment_bytes_ratio=raw[0]["zero"]["moment_bytes"]
+               / raw[0]["dp"]["moment_bytes"],
+               seconds=time.perf_counter() - t0)
+    emit(out)
+    return out
+
+
+def _dist_dcn_child(torch, rank: int, world: int) -> dict:
+    """BERT-base (fused stack, bf16 AMP) at dcn 2 x dp 2: the dense
+    two-level sync (3 + 2 timed steps), its 2-layer f32 run and flat dp
+    4's; DGC (sparsity 0.9, one dense step) with the probe gradient's
+    sync captured at its first sparse step; LocalSGD (k 2), this slice's
+    parameters hashed after each step; all at 12 layers but the f32
+    runs."""
+    c = DIST_DCN
+    out = {}
+    for name, cfg, amp, plan, timed, keep in (
+            ("dense", _dist_bert_cfg(c["layers"]), True, c, c["timed"],
+             False),
+            ("f32", _dist_bert_cfg(layers=2), False, c, 0, True),
+            ("flat_f32", _dist_bert_cfg(layers=2), False, DIST_ZERO, 0,
+             True)):
+        run = _dist_train_run(torch, cfg, amp, plan["steps"], timed,
+                              keep_params=keep, plan=plan)
+        run.pop("scope")
+        torch.cuda.empty_cache()
+        out[name] = run
+    seen = {}
+
+    def probe(ins, attrs, outs):
+        x, step = ins["X"][0], ins.get("Step")
+        if tuple(x.shape) == DIST_DGC_PROBE and step is not None \
+                and float(step[0].reshape(-1)[0]) == 1.0:
+            seen.update(x=x.cpu(), ef=ins["ErrorFeedback"][0].cpu(),
+                        out=outs["Out"][0].cpu(),
+                        ef_out=outs["ErrorFeedback"][0].cpu(),
+                        sparsity=attrs["sparsity"],
+                        wire=attrs["wire_dtype"])
+
+    with _watch_op("c_dcn_grad_sync", probe):
+        dgc = _dist_train_run(torch, _dist_bert_cfg(DIST_DGC["layers"]), True,
+                              DIST_DGC["steps"], plan=DIST_DGC)
+    dgc.pop("scope")
+    dgc["probe"] = seen
+    torch.cuda.empty_cache()
+
+    def slice_params(i, scope, main):
+        return _state_hash(scope, [p.name for p in main.all_parameters()])
+
+    lsgd = _dist_train_run(torch, _dist_bert_cfg(DIST_LSGD["layers"]), True,
+                           DIST_LSGD["steps"], plan=DIST_LSGD,
+                           probe=slice_params)
+    lsgd.pop("scope")
+    out.update(dgc=dgc, lsgd=lsgd,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+    return out
+
+
+def _dgc_recompute(probes: list, mesh: dict) -> dict:
+    """c_dcn_grad_sync's DGC on the host from the ranks' captured inputs
+    (each rank's gradient, each slice's error feedback): the mean over
+    dp, g + e, the top k by magnitude (the lower index on a tie), the
+    sent values on the wire dtype, the feedback kept, the pairs of both
+    slices scatter-added and divided by n_dcn; against what the card
+    gave each rank."""
+    import torch
+
+    from paddle_tpu_torch.fluid.dtypes import to_torch_dtype
+    from paddle_tpu_torch.parallel import Mesh
+
+    n_dcn, dp = mesh["dcn"], mesh["dp"]
+    coords = [Mesh(mesh, r).coords for r in range(len(probes))]
+    wire = probes[0]["wire"]
+    sent, want_ef = [], {}
+    for sl in range(n_dcn):
+        mine = [p for p, c in zip(probes, coords) if c["dcn"] == sl]
+        g = mine[0]["x"]
+        for p in mine[1:]:
+            g = g + p["x"]
+        g = g / dp
+        acc = (g + mine[0]["ef"][0]).float()
+        flat = acc.reshape(-1)
+        k = max(1, int(round(flat.numel() * (1.0 - mine[0]["sparsity"]))))
+        top = torch.sort(-flat.abs(), stable=True).indices[:k]
+        vals = flat[top]
+        if wire:
+            vals = vals.to(to_torch_dtype(wire))
+        put = torch.zeros_like(flat).index_put_((top,), vals.float())
+        want_ef[sl] = (flat - put).reshape(acc.shape)[None]
+        sent.append((top, vals))
+    flat = torch.zeros(probes[0]["x"].numel(), dtype=torch.float32)
+    for top, vals in sent:
+        flat = flat.index_add_(0, top, vals.float())
+    synced = (flat.reshape(probes[0]["x"].shape) / n_dcn).to(
+        probes[0]["x"].dtype)
+    out_diff = max(float((p["out"].float() - synced.float()).abs().max())
+                   for p in probes)
+    ef_diff = max(float((p["ef_out"] - want_ef[c["dcn"]]).abs().max())
+                  for p, c in zip(probes, coords))
+    return {"k": int(sent[0][0].numel()), "numel": probes[0]["x"].numel(),
+            "wire": wire, "synced_max_abs_diff": out_diff,
+            "error_feedback_max_abs_diff": ef_diff}
+
+
+def phase_dist_dcn(torch, card: str, raw: list, flat: list) -> dict:
+    """BERT-base (fused stack, bf16 AMP, the bf16 wire on the dcn hop) at
+    dcn 2 x dp 2 on four ranks sharing the card over gloo (``raw``: the
+    ranks' results): the dense two-level sync held as ``_dist_holds``
+    against one process, its bf16 losses against flat dp 4's (``flat``:
+    dist_zero's unsharded run) and its 2-layer f32 parameters against
+    flat dp 4's; DGC (sparsity 0.9 after one dense step): finite losses,
+    the two dp ranks of a slice bit for bit, the synced gradient and
+    error feedback of DIST_DGC_PROBE's 7.1M-entry gradient equal to the
+    host's recomputation from the ranks' inputs; LocalSGD (k 2): the
+    slices differ after the off step and are equal after the sync step.
+    Bytes on the dcn hop a step, dense and DGC's k pairs."""
+    t0 = time.perf_counter()
+    c = DIST_DCN
+    refs = _dist_refs(torch, True, c)
+    out = _dist_header("dist_dcn", card, c, raw[0]["backend"])
+    _dist_holds("dist_dcn", c, [{"bf16": r["dense"], "f32": r["f32"]}
+                                for r in raw], refs, out)
+    out["bf16"]["flat_dp4"] = flat
+    out["bf16"]["flat_dp4_diff"] = _loss_diff(
+        "dist_dcn vs flat dp 4", raw[0]["dense"]["losses"][:c["steps"]],
+        flat[:c["steps"]], DIST_LOSS_BF16)
+    got_p, want_p = raw[0]["f32"]["params"], raw[0]["flat_f32"]["params"]
+    per = {n: float((got_p[n] - want_p[n]).abs().max()) for n in want_p}
+    worst = max(per, key=per.get)
+    if per[worst] > DIST_PARAM_F32:
+        fail(f"dist_dcn f32: parameter {worst} differs from flat dp 4's by "
+             f"{per[worst]} > {DIST_PARAM_F32}")
+    out["f32"]["params_vs_flat_dp4"] = {"max_abs_diff": per[worst],
+                                        "worst": worst}
+    dgc = [r["dgc"] for r in raw]
+    if not all(math.isfinite(x) for x in dgc[0]["losses"]):
+        fail(f"dist_dcn dgc: losses {dgc[0]['losses']}")
+    _same_runs("dist_dcn dgc", dgc)
+    if dgc[0]["local_hash"] != dgc[1]["local_hash"] \
+            or dgc[2]["local_hash"] != dgc[3]["local_hash"]:
+        fail("dist_dcn dgc: the dp ranks of a slice differ")
+    if any(not d["probe"] for d in dgc):
+        fail("dist_dcn dgc: the probe parameter's sync was not captured")
+    check = _dgc_recompute([d["probe"] for d in dgc], c["mesh"])
+    if check["synced_max_abs_diff"] != 0 \
+            or check["error_feedback_max_abs_diff"] != 0:
+        fail(f"dist_dcn dgc: the card's sync differs from the host's "
+             f"recomputation: {check}")
+    lsgd = [r["lsgd"] for r in raw]
+    after = [[r["probes"][i] for r in lsgd] for i in range(2)]
+    if not (after[0][0] == after[0][1] and after[0][2] == after[0][3]
+            and after[0][0] != after[0][2]):
+        fail("dist_dcn localsgd: after the off step the slices should "
+             "differ and the dp ranks of a slice agree")
+    if len(set(after[1])) != 1:
+        fail("dist_dcn localsgd: after the sync step the slices differ")
+    dense_by = out["bf16"]["collectives_per_step_by"]
+    dgc_by = [st.get("by", {}) for st in dgc[0]["comm"]]
+    out["dgc"] = {
+        "sparsity": DIST_DGC["dgc"]["sparsity"],
+        "rampup_begin_step": DIST_DGC["dgc"]["rampup_begin_step"],
+        "losses": dgc[0]["losses"],
+        "step_ms_by_rank": [d["step_ms"] for d in dgc],
+        "slice_ranks_bit_equal": True, "probe": check,
+        "dcn_bytes_by_step": [
+            {k: v["bytes"] for k, v in by.items() if k.endswith(":dcn")}
+            for by in dgc_by],
+        "launches": dgc[0]["launches"]}
+    out["dense_dcn_bytes_per_step"] = {
+        k: v["bytes"] for k, v in dense_by.items() if k.endswith(":dcn")}
+    out["localsgd"] = {"k_steps": DIST_LSGD["localsgd"]["k_steps"],
+                       "losses": lsgd[0]["losses"],
+                       "slices_differ_after_off_step": True,
+                       "slices_equal_after_sync_step": True,
+                       "step_ms_by_rank": [r["step_ms"] for r in lsgd]}
+    out["peak_mem_gb_by_rank"] = [r["peak_mem_gb"] for r in raw]
     out["seconds"] = time.perf_counter() - t0
     emit(out)
     return out
@@ -6810,7 +7360,7 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory(prefix="chip-dist-") as tmp:
         dirs = {}
-        for what in ("ring", "train", "nccl", "tp", "pp"):
+        for what in ("ring", "train", "nccl", "tp", "pp", "ep_zero_dcn"):
             dirs[what] = os.path.join(tmp, what)
             os.makedirs(dirs[what])
         phase_dist_ring(torch, env["card"], dirs["ring"])
@@ -6822,6 +7372,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         dpp = phase_dist_pp(torch, env["card"], dirs["pp"])
         torch.cuda.empty_cache()
+        dep, dzero, ddcn = phase_dist_ep_zero_dcn(torch, env["card"],
+                                                  dirs["ep_zero_dcn"])
     dlaunches = dtrain["bf16"]["launches"]
     dlaunches_f32 = dtrain["f32"]["launches"]
 
@@ -6839,12 +7391,19 @@ def main() -> int:
 
     def tp_pp_paths(key):
         """Rank 0's launches of ``key`` over the 3 bf16 and the 3 f32
-        steps of dist_tp, dist_pp and its pp x sp run."""
+        steps of dist_tp, dist_pp and its pp x sp run, dist_ep's two
+        layouts and dist_dcn; dist_zero's 3 bf16 steps sharded and not,
+        dist_dcn's 3 DGC steps."""
         out = {}
         for path, runs in (("dist_tp", dtp), ("dist_pp", dpp["pp"]),
-                           ("dist_pp_sp", dpp["pp_sp"])):
+                           ("dist_pp_sp", dpp["pp_sp"]),
+                           ("dist_ep", dep["ep"]), ("dist_ep4", dep["ep4"]),
+                           ("dist_dcn", ddcn)):
             out[path] = runs["bf16"]["launches"][key]
             out[f"{path}_f32"] = runs["f32"]["launches"][key]
+        out["dist_zero"] = dzero["zero"]["launches"][key]
+        out["dist_zero_unsharded"] = dzero["dp"]["launches"][key]
+        out["dist_dcn_dgc"] = ddcn["dgc"]["launches"][key]
         return out
 
     def entry(name, source, replaces, k, path_launches, main="bert_train"):

@@ -80,18 +80,20 @@ class ReduceOp:
 # calls, bytes handed to the backend, and on gloo the host wall time
 # inside the collective layer (``ms``, the stream synchronised first, so
 # it holds no compute) and the part of it spent copying CUDA tensors to
-# the host and back (``stage_ms``); chip_smoke.py reads them a step
-stats = {"calls": 0, "bytes": 0, "ms": 0.0, "stage_ms": 0.0}
+# the host and back (``stage_ms``); ``by`` splits calls, bytes and ms by
+# "collective:axis"; chip_smoke.py reads them a step
+stats = {"calls": 0, "bytes": 0, "ms": 0.0, "stage_ms": 0.0, "by": {}}
 
 
 def reset_stats():
-    stats.update(calls=0, bytes=0, ms=0.0, stage_ms=0.0)
+    stats.update(calls=0, bytes=0, ms=0.0, stage_ms=0.0, by={})
 
 
 class _Axis:
     """One axis of a mesh as a collective sees it."""
 
     def __init__(self, group, mesh):
+        self.name = group or "world"
         if group is None:                        # the whole mesh
             self.pg = mesh.world_group if mesh.groups else None
             self.size = mesh.size
@@ -126,10 +128,12 @@ def _backend(ax) -> str:
 
 
 class _Clock:
-    """Times one gloo collective of a CUDA tensor into ``stats``."""
+    """Times one gloo collective of a CUDA tensor into ``stats`` (and its
+    ``key``'s entry of ``stats["by"]``)."""
 
-    def __init__(self):
+    def __init__(self, key: str):
         self.t0 = None
+        self.key = key
 
     def start(self, t, ax):
         if t.is_cuda and _backend(ax) == "gloo":
@@ -148,7 +152,9 @@ class _Clock:
 
     def stop(self):
         if self.t0 is not None:
-            stats["ms"] += (time.perf_counter() - self.t0) * 1e3
+            ms = (time.perf_counter() - self.t0) * 1e3
+            stats["ms"] += ms
+            _entry(self.key)["ms"] += ms
 
 
 def _to_backend(t, ax, clock):
@@ -166,9 +172,17 @@ def _back(buf, x, staged, clock):
     return out
 
 
-def _count(t):
+def _entry(key):
+    return stats["by"].setdefault(key, {"calls": 0, "bytes": 0, "ms": 0.0})
+
+
+def _count(t, key):
+    n = t.numel() * t.element_size()
     stats["calls"] += 1
-    stats["bytes"] += t.numel() * t.element_size()
+    stats["bytes"] += n
+    e = _entry(key)
+    e["calls"] += 1
+    e["bytes"] += n
 
 
 # ---------------------------------------------------------------------------
@@ -184,11 +198,11 @@ def _raw_all_reduce(x, ax, op=ReduceOp.SUM):
 
     if not ax.live or x.device.type == "meta":
         return x
-    clock = _Clock().start(x, ax)
+    clock = _Clock(f"all_reduce:{ax.name}").start(x, ax)
     buf, staged = _to_backend(x, ax, clock)
     if not staged:            # the backend works in place
         buf = buf.clone()
-    _count(buf)
+    _count(buf, clock.key)
     dist.all_reduce(buf, op=getattr(dist.ReduceOp, _TORCH_OPS[op]),
                     group=ax.pg)
     return _back(buf, x, staged, clock)
@@ -203,10 +217,10 @@ def _raw_all_gather(x, ax, dim=0):
         return x.new_empty(shape)
     if not ax.live:
         return x
-    clock = _Clock().start(x, ax)
+    clock = _Clock(f"all_gather:{ax.name}").start(x, ax)
     buf, staged = _to_backend(x, ax, clock)
     parts = [torch.empty_like(buf) for _ in range(ax.size)]
-    _count(buf)
+    _count(buf, clock.key)
     dist.all_gather(parts, buf, group=ax.pg)
     return _back(torch.cat(parts, dim=dim), x, staged, clock)
 
@@ -237,7 +251,7 @@ def _raw_reduce_scatter(x, ax, dim=0):
         raise ValueError(f"dim {dim} of size {x.shape[dim]} is not "
                          f"divisible by the group size {ax.size}")
     out = torch.empty_like(blocks[0])
-    _count(x)
+    _count(x, f"reduce_scatter:{ax.name}")
     dist.reduce_scatter(out, blocks, op=dist.ReduceOp.SUM, group=ax.pg)
     return out
 
@@ -253,7 +267,7 @@ def _raw_ppermute(x, perm, ax):
     recv_from = [s for s, d in perm if d == ax.index]
     if not ax.live:
         return x.clone() if recv_from else torch.zeros_like(x)
-    clock = _Clock().start(x, ax)
+    clock = _Clock(f"ppermute:{ax.name}").start(x, ax)
     buf, staged = _to_backend(x, ax, clock)
     out = torch.zeros_like(buf)
     ops = [dist.P2POp(dist.isend, buf, ax.ranks[d], ax.pg)
@@ -261,7 +275,7 @@ def _raw_ppermute(x, perm, ax):
     ops += [dist.P2POp(dist.irecv, out, ax.ranks[s], ax.pg)
             for s in recv_from]
     if ops:
-        _count(buf)
+        _count(buf, clock.key)
         for w in dist.batch_isend_irecv(ops):
             w.wait()
     return _back(out, x, staged, clock)
@@ -272,11 +286,11 @@ def _raw_broadcast(x, src, ax):
 
     if not ax.live or x.device.type == "meta":
         return x
-    clock = _Clock().start(x, ax)
+    clock = _Clock(f"broadcast:{ax.name}").start(x, ax)
     buf, staged = _to_backend(x, ax, clock)
     if not staged:            # the backend works in place
         buf = buf.clone()
-    _count(buf)
+    _count(buf, clock.key)
     dist.broadcast(buf, src=ax.ranks[src], group=ax.pg)
     return _back(buf, x, staged, clock)
 

@@ -1,5 +1,5 @@
-"""Fleet 2.0-style distributed API: data, sequence, tensor and pipeline
-parallelism.
+"""Fleet 2.0-style distributed API: data, sequence, tensor, pipeline and
+expert parallelism, ZeRO-2 and the multi-slice (dcn) modes.
 
 Ported from the JAX package's ``fleet/__init__.py`` (parity surface:
 the reference's python/paddle/fleet/base/fleet_base.py, init:25,
@@ -54,12 +54,36 @@ stage s holds layers [s L/pp, (s+1) L/pp).  Everything outside the stack
 runs on every pp rank alike.  With ``sequence_parallel`` and an "sp"
 axis the stages' attention is the ring over sp (pp x sp).
 
-Not ported yet, and refused by name (``_reject_unsupported``,
-``_check_axes``; none is silently ignored): expert parallelism, ZeRO
-sharding and the multi-slice (dcn) modes with DGC and LocalSGD (ROADMAP
-A4's next slice, items 3-5); tp together with sp or pp (item 6); lamb
+Expert parallelism (``strategy.expert_parallel`` and an "ep" axis):
+``apply_expert_parallel`` shards every ``moe_ffn``'s expert weights on
+their expert dim; the tokens stay dp-sharded and the router replicated,
+and the op exchanges over "ep" through Megatron's f and g
+(``ops/moe_ops.py``).
+
+ZeRO-2 (``strategy.sharding``, ``_shard_optimizer_states``): each
+optimizer moment whose leading dim dp divides is held as this rank's
+[d0/dp, ...] block; its update op (attr ``zero_axis``) updates the
+matching rows of the parameter from the dp-averaged gradient and
+all-gathers them over "dp", so the parameters stay bit for bit those of
+the unsharded run.  The moments of a parameter that tp, pp or ep already
+shard keep its spec.
+
+The multi-slice modes (``strategy.hybrid_dcn = n``, a (dcn, dp) mesh):
+as the JAX package's manual path, a ``c_dcn_grad_sync`` op per
+parameter gradient (``_DCNGradSyncOptimizer``: a mean over "dp", then
+over "dcn", dense, on a bf16 wire under AMP unless
+``amp_configs["bf16_grad_sync"]`` is off, or DGC with its error
+feedback), or LocalSGD (``_DCNLocalSGDOptimizer``: the mean over "dp"
+only, per-slice parameters and accumulators averaged over "dcn" every
+k steps); no ``c_allreduce_sum`` of fleet's own.
+
+Refused by name (``_reject_unsupported``, ``_check_axes``; none is
+silently ignored): tp together with sp or pp (ROADMAP A4 item 6); lamb
 and lars, recompute and gradient merge (A7); the parameter-server roles
-(A6).  elastic and auto raise as in the JAX package.
+(A6); and what the JAX package refuses: dgc or localsgd without
+hybrid_dcn, hybrid_dcn with tp, pp, sp, ep, sharding or gradient merge,
+a mesh whose "dcn" axis does not match hybrid_dcn.  elastic and auto
+raise as in the JAX package.
 """
 from __future__ import annotations
 
@@ -80,10 +104,6 @@ _fleet_state = {"initialized": False, "role_maker": None, "strategy": None}
 _TP_MIX = "ROADMAP A4, next slice item 6: tp together with sp or pp"
 _TP_SLICE = "the tensor-parallel slice of ROADMAP A4 runs Megatron regions " \
             "only"
-_EP = "ROADMAP A4, next slice item 3: moe_ops.py with ep all-to-alls"
-_ZERO = "ROADMAP A4, next slice item 4: sharding (ZeRO-2)"
-_DCN = "ROADMAP A4, next slice item 5: the executor's (dcn, dp) manual " \
-       "path and c_dcn_*"
 _PS = "ROADMAP A6: the parameter server and the job control plane"
 _A7 = "ROADMAP A7: training breadth"
 
@@ -177,19 +197,33 @@ class DistributedOptimizer:
         inner = self.inner_opt
         program = loss.block.program
         _reject_unsupported(strategy)
+        dcn = int(strategy.hybrid_dcn or 0)
         mesh = strategy.mesh
         if mesh is None:
-            axes = dict(strategy.mesh_axes) if strategy.mesh_axes \
-                else {"dp": -1}
-            _check_axes(axes)
+            axes = dict(strategy.mesh_axes) if strategy.mesh_axes else {}
+            if dcn >= 2 and "dcn" not in axes:
+                axes = {"dcn": dcn, **(axes or {"dp": -1})}
+            axes = axes or {"dp": -1}
+            _check_axes(axes, dcn)
             mesh = create_mesh(axes)
         else:
-            _check_axes(mesh.shape)
+            _check_axes(mesh.shape, dcn)
+        if dcn >= 2 and mesh.shape.get("dcn") != dcn:
+            # without the outer axis c_dcn_grad_sync would be the
+            # identity: slices that silently diverge
+            raise ValueError(
+                f"strategy.hybrid_dcn={dcn} but the resolved mesh "
+                f"{dict(mesh.shape)} has no matching 'dcn' axis; give the "
+                f"mesh a 'dcn' axis of exactly that size (or drop "
+                f"strategy.mesh/mesh_axes and let fleet build it)")
         sp_active = (strategy.sequence_parallel and "sp" in mesh.axis_names
                      and mesh.shape["sp"] > 1)
         tp_active = "tp" in mesh.axis_names and mesh.shape["tp"] > 1
         pp_active = (strategy.pipeline and "pp" in mesh.axis_names
                      and mesh.shape["pp"] > 1)
+        ep_active = (strategy.expert_parallel and "ep" in mesh.axis_names
+                     and mesh.shape["ep"] > 1)
+        dp = mesh.shape.get("dp", 1)
         # marks the attention ops BEFORE backward: the grad ops snapshot
         # the forward attrs, so the backward ring is sequence-parallel too
         if sp_active:
@@ -204,7 +238,13 @@ class DistributedOptimizer:
             amp_cfg = dict(strategy.amp_configs or {})
             amp_cfg.pop("bf16_grad_sync", None)  # a dcn-mode knob
             inner = decorate(inner, **amp_cfg)
-        if "dp" in mesh.axis_names:
+        if dcn >= 2:
+            # the JAX package's manual path: the c_dcn_* ops do the whole
+            # gradient sync, dp mean included
+            inner = (_DCNLocalSGDOptimizer(inner, strategy)
+                     if strategy.localsgd
+                     else _DCNGradSyncOptimizer(inner, strategy))
+        elif "dp" in mesh.axis_names:
             inner = _GradAllReduceOptimizer(inner, mesh)
         if pp_active:
             # outermost: its minimize marks the encoder stacks for the
@@ -220,16 +260,26 @@ class DistributedOptimizer:
         result = inner.minimize(loss, startup_program=startup_program,
                                 parameter_list=parameter_list,
                                 no_grad_set=no_grad_set)
-        if "dp" in mesh.axis_names:
+        startup = startup_program or framework.default_startup_program()
+        if dcn >= 2:
+            program._manual_axes = tuple(a for a in ("dcn", "dp")
+                                         if a in mesh.axis_names)
+            _parallel.shard_program_data_parallel(
+                program, mesh, axis=program._manual_axes)
+        elif "dp" in mesh.axis_names:
             _parallel.shard_program_data_parallel(program, mesh, axis="dp")
         if sp_active:
             _parallel.shard_program_sequence_parallel(program, mesh,
                                                       axis="sp")
         if pp_active:
             _shard_pipeline_params(program, mesh)
-        startup = startup_program or framework.default_startup_program()
-        if tp_active or pp_active:
+        if ep_active:
+            apply_expert_parallel(program, mesh)
+        zero = strategy.sharding and dp > 1      # refused under dcn
+        if tp_active or pp_active or ep_active or zero or dcn >= 2:
             _finish_param_sharding(program, startup)
+        if zero:
+            _shard_optimizer_states(inner, mesh, program, startup)
         program._mesh = mesh
         startup._mesh = mesh
         startup._bump_version()
@@ -255,9 +305,158 @@ def _backward_params_grads(inner, loss, startup_program, parameter_list,
     return res
 
 
+class _DCNGradSyncOptimizer:
+    """backward, then a c_dcn_grad_sync op per parameter gradient (its
+    output a new variable, as in the JAX package), then the inner update
+    of the synced gradients.  DGC adds each parameter's error feedback,
+    [n_dcn, *shape] sharded on "dcn" (each slice its own), and with
+    ``rampup_begin_step`` a step counter incremented after the syncs."""
+
+    def __init__(self, inner, strategy):
+        self.inner_opt = inner
+        self._strategy = strategy
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        from ..fluid import unique_name
+        from ..fluid.optimizer import _create_persistable_var
+
+        strategy = self._strategy
+        n_dcn = int(strategy.hybrid_dcn)
+        params_grads = _backward_params_grads(
+            self.inner_opt, loss, startup_program, parameter_list,
+            no_grad_set)
+        block = loss.block.program.global_block()
+        use_dgc = bool(strategy.dgc)
+        cfgs = strategy.dgc_configs or {}
+        sparsity = float(cfgs.get("sparsity", 0.999))
+        rampup = int(cfgs.get("rampup_begin_step", 0))
+        # under AMP the slow dcn hop carries bf16 (the reference's
+        # fp16_allreduce) unless amp_configs["bf16_grad_sync"] is off
+        wire = ("bfloat16" if strategy.amp and (strategy.amp_configs or {})
+                .get("bf16_grad_sync", True) else "")
+        step_var = None
+        if use_dgc and rampup > 0:
+            # incremented after the syncs: step i reads i, so exactly
+            # rampup steps are dense
+            step_var = _create_persistable_var(
+                unique_name.generate("dcn_dgc_step"), [1], "float32", 0.0)
+        synced = []
+        for p, g in params_grads:
+            if g is None:
+                synced.append((p, g))
+                continue
+            inputs, outputs = {"X": [g]}, {}
+            if use_dgc:
+                ef = _create_persistable_var(
+                    p.name + "@DGCErrorFeedback",
+                    (n_dcn,) + tuple(p.shape), "float32", 0.0)
+                set_var_sharding(ef, ("dcn",) + (None,) * len(p.shape))
+                inputs["ErrorFeedback"] = [ef]
+                outputs["ErrorFeedback"] = [ef]
+                if step_var is not None:
+                    inputs["Step"] = [step_var]
+            out_name = unique_name.generate(g.name + "@DCNSync")
+            block.append_op(
+                type="c_dcn_grad_sync", inputs=inputs,
+                outputs={"Out": [out_name], **outputs},
+                attrs={"use_dgc": use_dgc, "sparsity": sparsity,
+                       "rampup_begin_step": rampup, "dcn_axis": "dcn",
+                       "wire_dtype": wire})
+            synced.append((p, block.var(out_name)))
+        if step_var is not None:
+            block.append_op(type="scale", inputs={"X": [step_var]},
+                            outputs={"Out": [step_var]},
+                            attrs={"scale": 1.0, "bias": 1.0})
+        opt_ops = self.inner_opt.apply_optimize(loss, startup_program,
+                                                synced)
+        return opt_ops, params_grads
+
+    def __getattr__(self, item):
+        return getattr(self.inner_opt, item)
+
+
+class _DCNLocalSGDOptimizer:
+    """LocalSGD across "dcn" (the reference's transpiler/collective.py:270
+    LocalSGD transpile): gradients averaged over "dp" only (an
+    ``intra_only`` c_dcn_grad_sync), the inner update of per-slice
+    parameters, and every k_steps a c_dcn_localsgd_sync averaging each
+    parameter over "dcn".  Parameters and accumulators are divergent:
+    [n_dcn, *shape] sharded on "dcn" (``dcn_expand_param`` in startup),
+    each rank holding its slice's."""
+
+    def __init__(self, inner, strategy):
+        self.inner_opt = inner
+        self._strategy = strategy
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        from ..fluid import framework, unique_name
+        from ..fluid.optimizer import _create_persistable_var
+
+        strategy = self._strategy
+        n_dcn = int(strategy.hybrid_dcn)
+        k_steps = max(1, int((strategy.localsgd_configs or {})
+                             .get("k_steps", 1)))
+        params_grads = _backward_params_grads(
+            self.inner_opt, loss, startup_program, parameter_list,
+            no_grad_set)
+        program = loss.block.program
+        block = program.global_block()
+        synced = []
+        for p, g in params_grads:
+            if g is None:
+                synced.append((p, g))
+                continue
+            out_name = unique_name.generate(g.name + "@DPSync")
+            block.append_op(type="c_dcn_grad_sync", inputs={"X": [g]},
+                            outputs={"Out": [out_name]},
+                            attrs={"intra_only": True, "dcn_axis": "dcn"})
+            synced.append((p, block.var(out_name)))
+        opt_ops = self.inner_opt.apply_optimize(loss, startup_program,
+                                                synced)
+        # int32, incremented after the syncs: step i reads i, so the
+        # first average follows exactly k local updates
+        step_var = _create_persistable_var(
+            unique_name.generate("localsgd_step"), [1], "int32", 0.0)
+        divergent = set(getattr(program, "_dcn_divergent_names", ()))
+        for p, g in params_grads:
+            if g is None:
+                continue
+            block.append_op(type="c_dcn_localsgd_sync",
+                            inputs={"X": [p], "Step": [step_var]},
+                            outputs={"Out": [p]},
+                            attrs={"k_steps": k_steps, "dcn_axis": "dcn"})
+            divergent.add(p.name)
+            set_var_sharding(p, ("dcn",) + (None,) * len(p.shape))
+        block.append_op(type="increment", inputs={"X": [step_var]},
+                        outputs={"Out": [step_var]}, attrs={"step": 1})
+        # the accumulators follow their slice's gradients
+        for slot in getattr(self.inner_opt, "_accumulators", {}).values():
+            for acc_var in slot.values():
+                divergent.add(acc_var.name)
+                set_var_sharding(acc_var,
+                                 ("dcn",) + (None,) * len(acc_var.shape))
+        program._dcn_divergent_names = divergent
+        startup = startup_program or framework.default_startup_program()
+        sblock = startup.global_block()
+        for name in sorted(divergent):
+            if name in sblock.vars:
+                sv = sblock.var(name)
+                sblock.append_op(type="dcn_expand_param", inputs={"X": [sv]},
+                                 outputs={"Out": [sv]},
+                                 attrs={"n_dcn": n_dcn,
+                                        "param_rank": len(sv.shape)})
+        return opt_ops, params_grads
+
+    def __getattr__(self, item):
+        return getattr(self.inner_opt, item)
+
+
 class _GradAllReduceOptimizer:
     """backward, then per parameter gradient g: c_allreduce_sum(g) -> g
-    over the "dp" ring and scale(g, 1/dp) -> g, then the inner update."""
+    over the "dp" ring and scale(g, 1/dp) -> g (none at dp 1), then the
+    inner update."""
 
     def __init__(self, inner, mesh):
         self.inner_opt = inner
@@ -272,7 +471,7 @@ class _GradAllReduceOptimizer:
         dp = self._mesh.shape["dp"]
         ring = self._mesh.ring_id("dp")
         for _, g in params_grads:
-            if g is None:
+            if g is None or dp == 1:      # a dp of 1 has nothing to sum
                 continue
             block.append_op(type="c_allreduce_sum", inputs={"X": [g]},
                             outputs={"Out": [g]},
@@ -291,33 +490,35 @@ class _GradAllReduceOptimizer:
         return getattr(self.inner_opt, item)
 
 
-def _check_axes(axes):
+def _check_axes(axes, dcn: int = 0):
     for name in axes:
-        if name in ("dp", "sp", "tp", "pp"):
-            continue
-        where = {"ep": _EP, "dcn": _DCN}.get(name)
-        if where:
-            raise NotImplementedError(
-                f"mesh axis {name!r}: not ported yet ({where})")
-        raise ValueError(f"unknown mesh axis {name!r} (axes: dp, sp, tp, "
-                         f"pp, ep, dcn)")
+        if name not in ("dp", "sp", "tp", "pp", "ep", "dcn"):
+            raise ValueError(f"unknown mesh axis {name!r} (axes: dp, sp, "
+                             f"tp, pp, ep, dcn)")
     if "tp" in axes:
         for other in ("sp", "pp"):
             if other in axes:
                 raise NotImplementedError(
                     f"mesh axes tp and {other} together: not ported yet "
                     f"({_TP_MIX})")
+    if "dcn" in axes and dcn < 2:
+        raise NotImplementedError(
+            "mesh axis 'dcn' is the slices of a multi-slice job: set "
+            "strategy.hybrid_dcn to its size, so that the gradients sync "
+            "over it (c_dcn_grad_sync)")
+    if dcn >= 2:
+        other = [a for a in axes if a not in ("dcn", "dp")]
+        if other:
+            raise NotImplementedError(
+                f"strategy.hybrid_dcn composes with data parallelism and "
+                f"amp for now; the mesh also has {other}")
 
 
 def _reject_unsupported(strategy):
-    """Every strategy field this slice does not run raises, naming the
-    queue item that brings it."""
+    """Every strategy field the port does not run raises, naming the
+    queue item that brings it, and so does every combination the JAX
+    package refuses, with its reason."""
     refused = (
-        (strategy.expert_parallel, "expert_parallel", _EP),
-        (strategy.sharding, "sharding", _ZERO),
-        (int(strategy.hybrid_dcn or 0) >= 2, "hybrid_dcn", _DCN),
-        (strategy.dgc, "dgc", _DCN),
-        (strategy.localsgd, "localsgd", _DCN),
         (strategy.lamb, "lamb", _A7 + " (the lamb update op)"),
         (strategy.lars, "lars", _A7 + " (the lars_momentum update op)"),
         (strategy.recompute, "recompute",
@@ -327,12 +528,48 @@ def _reject_unsupported(strategy):
         (int(strategy.nccl_comm_num) != 1, "nccl_comm_num",
          "one communicator an axis; bucketing is perf_opt work"),
         (int(strategy.hierarchical_allreduce_inter_nranks) != 1,
-         "hierarchical_allreduce_inter_nranks", _DCN),
+         "hierarchical_allreduce_inter_nranks",
+         "the two-level sync is strategy.hybrid_dcn's (c_dcn_grad_sync)"),
     )
     for on, name, where in refused:
         if on:
             raise NotImplementedError(
                 f"strategy.{name}: not ported yet ({where})")
+    dcn = int(strategy.hybrid_dcn or 0)
+    if strategy.dgc and dcn < 2:
+        raise NotImplementedError(
+            "strategy.dgc: deep gradient compression exists to survive "
+            "slow interconnects (the reference's details/"
+            "sparse_all_reduce_op_handle.cc); without a slow axis to "
+            "cross, compression only costs accuracy: set "
+            "strategy.hybrid_dcn to the slice count to apply DGC across "
+            "the slow dcn axis, where it belongs")
+    if dcn >= 2:
+        for flag, name in ((strategy.tensor_parallel, "tensor_parallel"),
+                           (strategy.pipeline, "pipeline"),
+                           (strategy.sequence_parallel, "sequence_parallel"),
+                           (strategy.expert_parallel, "expert_parallel")):
+            if flag:
+                raise NotImplementedError(
+                    f"strategy.hybrid_dcn composes with data parallelism "
+                    f"and amp for now; unset strategy.{name}")
+        if strategy.sharding:
+            raise NotImplementedError(
+                "strategy.sharding + hybrid_dcn: the multi-slice step runs "
+                "manually sharded over (dcn, dp), where the JAX package "
+                "cannot meet a dp-sharded accumulator with its replicated "
+                "parameter; use sharding on single-slice meshes")
+    if strategy.localsgd:
+        if dcn < 2:
+            raise NotImplementedError(
+                "strategy.localsgd: LocalSGD's infrequent sync is for the "
+                "slow dcn axis: set strategy.hybrid_dcn to the slice count "
+                "(per-slice divergent weights, k-step consensus)")
+        if strategy.dgc:
+            raise NotImplementedError(
+                "strategy.localsgd + strategy.dgc: pick ONE dcn-axis sync "
+                "model: k-step parameter averaging (localsgd) or per-step "
+                "compressed gradients (dgc)")
     if strategy.elastic:
         raise NotImplementedError(
             "strategy.elastic: a dead flag in the reference too "
@@ -457,17 +694,24 @@ def _mark_tp_op(op, layout):
 
 
 def _finish_param_sharding(program, startup):
-    """After minimize: each optimizer state of a parameter sharded on tp
-    or pp (a same-shaped input of its update op: moments, velocity) takes
-    the parameter's spec; an op that sums over a whole sharded parameter
-    or its gradient raises; the startup program's vars take the specs, so
-    the executor keeps each rank's block after it."""
+    """After minimize: each optimizer state of a parameter sharded on tp,
+    pp or ep (a same-shaped input of its update op: moments, velocity)
+    takes the parameter's spec; an op that sums over a whole parameter
+    such an axis splits, or its gradient, raises; the startup program's
+    vars take every persistable's spec, so the executor keeps each
+    rank's block after it."""
+    from ..parallel import SPLIT_AXES
+
     block = program.global_block()
     specs = {v.name: get_var_sharding(v) for v in program.list_vars()
              if v.persistable and param_axes(get_var_sharding(v))}
+
+    def split(spec):
+        return sorted({a for _, a in param_axes(spec) if a in SPLIT_AXES})
+
     for op in block.ops:
         pname = (op.inputs.get("Param") or [None])[0]
-        if pname not in specs:
+        if pname not in specs or not split(specs[pname]):
             continue
         pshape = tuple(block._find_var_recursive(pname).shape)
         for n in op.input_names():
@@ -476,16 +720,15 @@ def _finish_param_sharding(program, startup):
                     and tuple(v.shape) == pshape):
                 set_var_sharding(v, specs[pname])
                 specs[n] = specs[pname]
-    # the sharded tensors and what an elementwise op derives from them
-    derived = set(specs) | {n + "@GRAD" for n in specs}
+    # the split tensors and what an elementwise op derives from them
+    roots = {n for n, spec in specs.items() if split(spec)}
+    derived = roots | {n + "@GRAD" for n in roots}
     for op in block.ops:
         ins = [n for n in op.input_names() if n in derived]
         if not ins:
             continue
         if op.type in _REDUCTIONS:
-            axes = sorted({a for n in ins
-                           for _, a in param_axes(
-                               specs.get(n.split("@")[0]))})
+            axes = split(specs.get(ins[0].split("@")[0]))
             raise NotImplementedError(
                 f"op {op.type!r} sums over the whole of {ins[0]!r}, which "
                 f"each rank holds a block of (sharded on "
@@ -538,4 +781,73 @@ def _shard_pipeline_params(program, mesh):
 
 
 def apply_expert_parallel(program, mesh, axis: str = "ep"):
-    raise NotImplementedError(f"expert parallelism: not ported yet ({_EP})")
+    """Shard every moe_ffn op's expert-indexed parameters (W1/B1/W2/B2,
+    dim 0 = expert) over ``axis``: a rank holds E/ep experts.  The tokens
+    stay dp-sharded and the router (GateW) replicated; the op runs its
+    own experts and exchanges over ``axis`` through f and g
+    (ops/moe_ops.py)."""
+    ep = mesh.shape[axis]
+    for block in program.blocks:
+        for op in block.ops:
+            if op.type != "moe_ffn":
+                continue
+            for slot in ("W1", "B1", "W2", "B2"):
+                for n in op.inputs.get(slot, []):
+                    v = block._find_var_recursive(_cast_source(block, n))
+                    if v is None or not v.shape:
+                        continue
+                    if v.shape[0] % ep != 0:
+                        raise ValueError(
+                            f"moe_ffn param {v.name}: num_experts "
+                            f"{v.shape[0]} not divisible by ep axis size "
+                            f"{ep}")
+                    set_var_sharding(v, (axis,) + (None,) *
+                                     (len(v.shape) - 1))
+    program._bump_version()
+
+
+def _unwrap_optimizer(opt):
+    while True:
+        for attr in ("inner_opt", "_optimizer"):
+            nxt = getattr(opt, attr, None)
+            if nxt is not None:
+                opt = nxt
+                break
+        else:
+            return opt
+
+
+def _shard_optimizer_states(inner, mesh, program, startup):
+    """ZeRO-2 (``strategy.sharding``): each moment accumulator of a
+    parameter no other axis shards, whose leading dim dp divides, is
+    held as this rank's [d0/dp, ...] block (the JAX package's
+    ``("dp", None, ...)`` spec); its update op updates the matching rows
+    of the parameter and all-gathers them over "dp" (attr ``zero_axis``,
+    ops/optimizer_ops.py).  The parameters stay replicated, Adam's [1]
+    beta powers too."""
+    opt = _unwrap_optimizer(inner)
+    accs = getattr(opt, "_accumulators", None)
+    if not accs:
+        return
+    dp = mesh.shape["dp"]
+    block = program.global_block()
+    sblock = startup.global_block()
+    sharded = set()
+    for by_param in accs.values():
+        for pname, v in by_param.items():
+            pvar = block._find_var_recursive(pname)
+            if param_axes(get_var_sharding(pvar)) or param_axes(
+                    get_var_sharding(v)):
+                continue
+            if v.shape and v.shape[0] % dp == 0 and v.shape[0] >= dp:
+                spec = ("dp",) + (None,) * (len(v.shape) - 1)
+                set_var_sharding(v, spec)
+                sv = sblock._find_var_recursive(v.name)
+                if sv is not None:
+                    set_var_sharding(sv, spec)
+                sharded.add(v.name)
+    for op in block.ops:
+        if (op.inputs.get("Param")
+                and any(n in sharded for n in op.input_names())):
+            op._set_attr("zero_axis", "dp")
+    program._bump_version()

@@ -72,11 +72,13 @@ package:
              what `Model.fit(resume=...)` needs for an exact loss-trace
              continuation).
 
-Under a program whose mesh shards variables on "tp" or "pp" (each rank
-holds its block), ``save`` gathers each such variable, so the
-checkpoint holds the global values as one process would write them, and
-``restore`` keeps this rank's block of each (``parallel.local_shard``,
-the executor's helper): every rank must call both.
+Under a program whose mesh shards variables (each rank holds its
+block: tp, pp and ep parameters, ZeRO's moments on "dp", the
+multi-slice modes' [n_dcn, ...] state on "dcn"), ``save`` gathers each
+such variable, so the checkpoint holds the global values as one process
+of the JAX package would write them, and ``restore`` keeps this rank's
+block of each (``parallel.local_shard``, the executor's helper): every
+rank must call both.
 
 Not ported (raising NotImplementedError where armed): the sharded layout
 (PADDLE_CKPT_SHARDED=1 with a world size above 1: rank shards, the
@@ -276,8 +278,9 @@ def _rng_state(seed: Optional[int]) -> Optional[dict]:
 
 
 def _param_specs(program) -> dict:
-    """name -> spec of each var a program under a mesh shards on "tp" or
-    "pp" (a rank holds its block; ``parallel.local_shard``)."""
+    """name -> spec of each var a program under a mesh shards (a rank
+    holds its block; ``parallel.local_shard``): tp, pp and ep
+    parameters, ZeRO's moments, the multi-slice per-slice state."""
     if program is None or getattr(program, "_mesh", None) is None:
         return {}
     return {v.name: _parallel.get_var_sharding(v)
@@ -927,8 +930,8 @@ class CheckpointManager:
         for n in names:
             v = scope.find_var(n)
             if n in specs:
-                # a rank's block of a tp / pp sharded var: the checkpoint
-                # holds the global value (every rank gathers it)
+                # a rank's block of a sharded var: the checkpoint holds
+                # the global value (every rank gathers it)
                 v = _parallel.gather_shard(v, specs[n], program._mesh)
             if isinstance(v, torch.Tensor) and v.is_cuda:
                 # queued on the stream after the step's kernels; awaited
@@ -1177,8 +1180,13 @@ class CheckpointManager:
             from .analysis import ERROR as _AN_ERROR
             from .analysis import verify_scope as _verify_scope
 
+            # LocalSGD's per-slice variables are saved [n_dcn, *shape]
+            # (the JAX package's layout) for a program var of [*shape]
+            divergent = getattr(program, "_dcn_divergent_names", ())
+            checked = {n: (a[0] if n in divergent else a)
+                       for n, a in state["arrays"].items()}
             mismatched = [
-                f for f in _verify_scope(program, state["arrays"],
+                f for f in _verify_scope(program, checked,
                                          check_orphans=False)
                 if f.severity == _AN_ERROR and f.check in
                 ("scope-shape-mismatch", "scope-dtype-mismatch")]

@@ -46,18 +46,29 @@ one for the backward of a later training step.  The optimizer ops write
 and ``state_out`` writes it back detached, so no step's graph outlives
 the step.  ``memory_analysis`` measures one trial step (see there).  Not
 ported yet: the step monitor's records, the numerics guards
-(FLAGS_check_nan_inf, FLAGS_check_numerics), the memory OOM doctor, the
-(dcn, dp) manual path and the dataset loops (ROADMAP §C).
+(FLAGS_check_nan_inf, FLAGS_check_numerics), the memory OOM doctor and
+the dataset loops (ROADMAP §C).
 
 Under a mesh (``program._mesh``, attached by ``fleet``) every rank runs
 this executor on its own process: a feed keeps the rank's block of its
 data axes (``_local_block``), the step seed is salted by the data shard,
 and the ops run their own regions over "sp", "tp" and "pp".  A startup
 program runs at the global shapes on every rank, unsalted, takes rank
-0's values, and then keeps each rank's block of every persistable that
-its spec shards on "tp" or "pp" (``parallel.local_shard``), so tensor
-and pipeline parallelism start from one process's weights.  A fetch of
-such a variable is gathered back to its global value (``_sync_fetch``).
+0's values (broadcast, but for the constants every rank computes
+alike), and then keeps each rank's block of every persistable that
+its spec shards (``parallel.local_shard``: tp, pp and ep parameters,
+ZeRO's moments, the multi-slice state), so every layout starts from one
+process's weights.  A fetch of such a variable is gathered back to its
+global value (``_sync_fetch``).
+
+The JAX package's manual (dcn, dp) path (fleet's ``hybrid_dcn``:
+``program._manual_axes``) is the same per-rank step: the feeds split
+over both axes, the ops' ``EmitContext.manual_axes`` set, so the
+program's c_dcn_grad_sync ops do the two-level gradient sync and
+``moe_ffn`` routes each shard's tokens alone, as inside its shard_map.
+LocalSGD's divergent parameters and accumulators
+(``program._dcn_divergent_names``) are held as the slice's [1, *shape]
+block of [n_dcn, *shape] and read by the ops as [*shape].
 """
 from __future__ import annotations
 
@@ -74,6 +85,10 @@ from ..ops import registry
 from ..telemetry import tracing as _tracing
 
 from ..parallel import REGION_AXES
+
+
+# startup ops whose output is the same on every rank, whatever its seed
+_CONSTANT_OPS = ("fill_constant", "assign_value")
 
 
 def _local_block(value, var, mesh):
@@ -120,7 +135,7 @@ def _to_tensor(value, device, dtype=None) -> torch.Tensor:
 
 
 def _sync_fetch(name, x, mesh, spec=None, state=False):
-    """A fetch under a mesh: a variable sharded on "tp" or "pp" gathered
+    """A fetch under a mesh: scope state sharded on a mesh axis gathered
     to its global value; other scope state as this rank holds it; a float
     scalar averaged over the mesh, an integer scalar refused, anything
     else gathered on dim 0 over the data axes (the JAX package's
@@ -128,7 +143,7 @@ def _sync_fetch(name, x, mesh, spec=None, state=False):
     from .. import distributed as dist
     from ..parallel import gather_shard, param_axes
 
-    if param_axes(spec):
+    if state and param_axes(spec):
         return gather_shard(x, spec, mesh)
     if state:
         return x
@@ -278,15 +293,19 @@ class Executor:
         mesh = getattr(program or framework.default_main_program(),
                        "_mesh", None)
         if mesh is not None and not plan.state_in and plan.state_out:
-            # a startup program: every rank takes rank 0's values, and
-            # keeps its block of what "tp" / "pp" shard
+            # a startup program: every rank takes rank 0's values (a
+            # constant, such as a zeroed moment, is every rank's alike),
+            # and keeps its block of what the mesh shards
             from .. import distributed as dist
             from ..parallel import local_shard
 
             block = (program or framework.default_main_program()) \
                 .global_block()
+            drawn = {n for op in plan.ops if op.type not in _CONSTANT_OPS
+                     for n in op.output_names()}
             for n in plan.state_out:
-                env[n] = dist.broadcast(env[n], 0, None, mesh)
+                if n in drawn:
+                    env[n] = dist.broadcast(env[n], 0, None, mesh)
                 var = block._find_var_recursive(n)
                 spec = None if var is None else getattr(var, "_sharding",
                                                         None)
@@ -336,6 +355,13 @@ class Executor:
                     f"runs on {self.device}")
             env[n] = v
         env.update(feeds)
+        # LocalSGD's per-slice state: held as this slice's [1, *shape]
+        # block of the JAX package's [n_dcn, *shape], read by the ops as
+        # [*shape]
+        divergent = [n for n in getattr(program, "_dcn_divergent_names", ())
+                     if n in env]
+        for n in divergent:
+            env[n] = env[n][0]
         mode = (torch.inference_mode() if plan.inference
                 else torch.no_grad())
         from ..parallel import mesh_guard
@@ -343,8 +369,11 @@ class Executor:
         with mode, _tracing.span("device"), mesh_guard(mesh):
             ctx = registry.EmitContext(
                 seed=step_seed, device=self.device, mesh=mesh,
-                axis_env=None if mesh is None else mesh.axis_env)
+                axis_env=None if mesh is None else mesh.axis_env,
+                manual_axes=getattr(program, "_manual_axes", ()))
             registry.emit_ops(ctx, plan.ops, env, plan.free_after)
+            for n in divergent:
+                env[n] = env[n][None]
             fetches = [env[n].detach() for n in fetch_names]
             if mesh is not None:
                 state = set(plan.state_in) | set(plan.state_out)

@@ -416,3 +416,47 @@ def fused_multihead_attention(q, k, v, attn_bias=None, num_heads=1,
                "rng_salt": _rng_salt_counter[0]},
     )
     return out
+
+
+def moe_ffn(input, num_experts, expert_hidden, top_k=2, capacity_factor=1.25,
+            act="gelu", param_attr=None, name=None):
+    """Mixture-of-Experts FFN (ops/moe_ops.py): top-k router, capacity-
+    bounded dispatch, a two-layer FFN per expert; the expert dim of its
+    weights shards over an "ep" mesh axis
+    (DistributedStrategy.expert_parallel).
+
+    input: [B, S, H].  Returns (out [B, S, H], aux_loss [] scalar); add
+    ``aux_weight * aux_loss`` to the training loss to keep experts
+    balanced."""
+    helper = LayerHelper("moe_ffn", input=input, param_attr=param_attr,
+                         name=name)
+    dtype = helper.input_dtype()
+    h = input.shape[-1]
+    e, f = num_experts, expert_hidden
+
+    def _param(suffix, shape, is_bias=False):
+        attr = ParamAttr._to_attr(param_attr)
+        # biases stay zero-initialised whatever the weights' initializer,
+        # as the dense FFN's fc biases
+        init = attr.initializer if (attr and not is_bias) else None
+        attr = ParamAttr(name=f"{name or helper.name}_{suffix}",
+                         initializer=init)
+        return helper.create_parameter(attr, shape=shape, dtype=dtype,
+                                       is_bias=is_bias)
+
+    gate_w = _param("gate.w_0", [h, e])
+    w1 = _param("expert.w1", [e, h, f])
+    b1 = _param("expert.b1", [e, f], is_bias=True)
+    w2 = _param("expert.w2", [e, f, h])
+    b2 = _param("expert.b2", [e, h], is_bias=True)
+
+    out = helper.create_variable_for_type_inference(dtype)
+    aux = helper.create_variable_for_type_inference("float32")
+    helper.append_op(
+        type="moe_ffn",
+        inputs={"X": [input], "GateW": [gate_w], "W1": [w1], "B1": [b1],
+                "W2": [w2], "B2": [b2]},
+        outputs={"Out": [out], "AuxLoss": [aux]},
+        attrs={"top_k": int(top_k), "capacity_factor": float(capacity_factor),
+               "activation": act})
+    return out, aux

@@ -186,6 +186,21 @@ class Optimizer:
         raise NotImplementedError
 
 
+def _create_persistable_var(name, shape, dtype, fill_value=0.0):
+    """A persistable main-program var and its constant startup init (the
+    pattern of ``Optimizer._add_accumulator``); an existing one as it is."""
+    main_block = framework.default_main_program().global_block()
+    if name in main_block.vars:
+        return main_block.vars[name]
+    v = main_block.create_var(name=name, shape=tuple(shape), dtype=dtype,
+                              persistable=True, stop_gradient=True)
+    startup_block = framework.default_startup_program().global_block()
+    sv = startup_block.create_var(name=name, shape=tuple(shape), dtype=dtype,
+                                  persistable=True)
+    ConstantInitializer(float(fill_value))(sv, startup_block)
+    return v
+
+
 class SGDOptimizer(Optimizer):
     type = "sgd"
 

@@ -8,9 +8,10 @@ op (flash-attention kernel on the card) when
 the add+LN kernel.  ``fuse_stack=True`` builds the whole encoder as one
 ``fused_encoder_stack`` op over stacked ``encoder_stack.*`` parameters
 (the same names as the JAX package's), as its bench trains BERT.
-
-Not ported yet: ``moe_num_experts > 0`` (``moe_ffn``, the distributed
-slice; raises).
+``moe_num_experts > 0`` replaces every dense FFN of the unfused encoder
+with a ``moe_ffn`` of that many experts (``ops/moe_ops.py``) and adds
+their load-balancing losses, scaled by ``moe_aux_weight``, to the
+pretraining loss.
 """
 from __future__ import annotations
 
@@ -52,8 +53,13 @@ class BertConfig:
     remat_policy: str = ""
     # one fused_encoder_stack op over stacked layer params
     fuse_stack: bool = False
-    # the MoE FFN of the JAX package: raises until its slice lands
+    # Mixture-of-Experts FFN (ops/moe_ops.py): > 0 replaces every dense
+    # FFN with a moe_ffn of that many experts; shard them over "ep" with
+    # DistributedStrategy.expert_parallel
     moe_num_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01
 
     @staticmethod
     def base() -> "BertConfig":
@@ -78,11 +84,6 @@ def encoder_layer(cfg: BertConfig, hidden, attn_bias, name: str,
 
     hidden: [B, S, H]; attn_bias: [B, 1, 1, S] additive (-1e4 * (1-mask)).
     """
-    if cfg.moe_num_experts > 0:
-        raise NotImplementedError(
-            "moe_num_experts > 0: the moe_ffn op is not ported yet "
-            "(ROADMAP A4, next slice item 3: moe_ops.py with ep "
-            "all-to-alls)")
     b, s, h = hidden.shape
     nh = cfg.num_attention_heads
     dh = h // nh
@@ -133,9 +134,17 @@ def encoder_layer(cfg: BertConfig, hidden, attn_bias, name: str,
         param_attr=ParamAttr(name=f"{name}_post_att_ln_scale"),
         bias_attr=ParamAttr(name=f"{name}_post_att_ln_bias"))
 
-    inter = _fc3(attn_out, cfg.intermediate_size, f"{name}_ffn_fc_0",
-                 act=cfg.hidden_act)
-    ffn_out = _fc3(inter, h, f"{name}_ffn_fc_1")
+    if cfg.moe_num_experts > 0:
+        ffn_out, _aux = layers.moe_ffn(
+            attn_out, num_experts=cfg.moe_num_experts,
+            expert_hidden=cfg.intermediate_size, top_k=cfg.moe_top_k,
+            capacity_factor=cfg.moe_capacity_factor, act=cfg.hidden_act,
+            param_attr=ParamAttr(initializer=_winit(cfg).initializer),
+            name=f"{name}_moe")
+    else:
+        inter = _fc3(attn_out, cfg.intermediate_size, f"{name}_ffn_fc_0",
+                     act=cfg.hidden_act)
+        ffn_out = _fc3(inter, h, f"{name}_ffn_fc_1")
     if not is_test and cfg.hidden_dropout_prob > 0:
         ffn_out = layers.dropout(ffn_out, cfg.hidden_dropout_prob,
                                  dropout_implementation="upscale_in_train")
@@ -332,6 +341,17 @@ def build_bert_pretrain_program(cfg: BertConfig, batch_size: int,
         nsp_loss = layers.reduce_mean(
             layers.softmax_with_cross_entropy(nsp_logits, nsp_labels))
         loss = layers.elementwise_add(mlm_loss, nsp_loss)
+
+        # ---- the MoE load-balancing losses (one a moe_ffn op) ----
+        block = main.global_block()
+        aux_names = [n for op in block.ops if op.type == "moe_ffn"
+                     for n in op.outputs.get("AuxLoss", [])]
+        if aux_names:
+            aux_total = block.var(aux_names[0])
+            for n in aux_names[1:]:
+                aux_total = layers.elementwise_add(aux_total, block.var(n))
+            loss = layers.elementwise_add(
+                loss, layers.scale(aux_total, scale=cfg.moe_aux_weight))
 
     feed_names = ["input_ids", "token_type_ids", "position_ids", "input_mask",
                   "mask_positions", "mask_labels", "mask_weights",

@@ -12,6 +12,7 @@ from . import (  # noqa: F401
     encoder_stack,
     manipulation,
     math_ops,
+    moe_ops,
     nn_ops,
     optimizer_ops,
     reduce_ops,

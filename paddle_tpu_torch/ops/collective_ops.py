@@ -15,12 +15,30 @@ the ``nranks`` attr when it is given (the reference's InferShape).
 
 The stream-sync and bootstrap ops (c_sync_*, c_wait_*, c_gen_nccl_id,
 c_comm_init*) are no-ops: ``init_parallel_env`` makes the process groups
-and torch orders a rank's collectives on its stream.  The multi-slice
-ops c_dcn_grad_sync, dcn_expand_param and c_dcn_localsgd_sync raise:
-they come with the executor's (dcn, dp) manual path (ROADMAP A4, the next
-slice).
+and torch orders a rank's collectives on its stream.
+
+The multi-slice ops (fleet's ``hybrid_dcn``) run in the executor's
+manual (dcn, dp) path (``EmitContext.manual_axes``); outside it each is
+the identity, as in the JAX package.  ``c_dcn_grad_sync`` is the
+two-level gradient sync (the reference's hierarchical all-reduce,
+platform/nccl_helper.h:185, and DGC's sparse all-reduce,
+details/sparse_all_reduce_op_handle.cc): a mean over the inner axes,
+then a dense mean over "dcn" (on the ``wire_dtype`` under AMP) or DGC:
+the top-k entries by magnitude of gradient + error feedback, their
+(value, index) pairs all-gathered over "dcn" and scatter-added, what
+was not sent (the bf16 quantisation error included) kept as the next
+step's feedback, and a dense step before ``rampup_begin_step``.  The
+top-k keeps the lower index among equal magnitudes, as ``lax.top_k``
+does (a stable sort; ``torch.topk`` promises no order).
+``dcn_expand_param`` tiles a parameter to [n_dcn, *shape] in startup;
+``c_dcn_localsgd_sync`` averages LocalSGD's per-slice parameter over
+"dcn" on the steps where step % k == k - 1.  The step counters are read
+on the host: every rank holds the same one, so all take the same branch
+of the collectives.
 """
 from __future__ import annotations
+
+import torch
 
 from .registry import register
 
@@ -112,15 +130,94 @@ register("c_comm_init", no_vjp_grad=True)(lambda ctx, ins, attrs: {})
 register("c_comm_init_all", no_vjp_grad=True)(lambda ctx, ins, attrs: {})
 
 
-def _next_slice(name):
-    def emit(ctx, ins, attrs):
-        raise NotImplementedError(
-            f"{name}: the multi-slice (dcn, dp) manual path is not ported "
-            f"yet (ROADMAP A4, the next slice: the executor's (dcn, dp) "
-            f"path and c_dcn_*)")
+def _pmean(x, axes, ctx):
+    from .. import distributed as dist
 
-    return emit
+    n = 1
+    for a in axes:
+        x = dist.all_reduce(x, "sum", a, ctx.mesh)
+        n *= ctx.mesh.shape[a]
+    return x / n if n > 1 else x
 
 
-for _name in ("c_dcn_grad_sync", "dcn_expand_param", "c_dcn_localsgd_sync"):
-    register(_name, no_vjp_grad=True)(_next_slice(_name))
+def _top_k_lower_index(flat, k):
+    """The indices of the k largest |flat|, the lower index first among
+    equal magnitudes (``lax.top_k``'s rule)."""
+    return torch.sort(-flat.abs(), stable=True).indices[:k]
+
+
+def _wire(attrs):
+    from ..fluid.dtypes import to_torch_dtype
+
+    w = attrs.get("wire_dtype", "") or ""
+    return to_torch_dtype(w) if w else None
+
+
+@register("c_dcn_grad_sync", no_vjp_grad=True)
+def c_dcn_grad_sync(ctx, ins, attrs):
+    from .. import distributed as dist
+
+    g = ins["X"][0]
+    manual = ctx.manual_axes
+    dcn = attrs.get("dcn_axis", "dcn")
+    ef = ins.get("ErrorFeedback")
+    if dcn not in manual:
+        return {"Out": [g], **({"ErrorFeedback": [ef[0]]} if ef else {})}
+    inner = [a for a in manual if a != dcn]
+    g = _pmean(g, inner, ctx)
+    if attrs.get("intra_only", False):
+        return {"Out": [g]}      # LocalSGD: gradients sync in the slice
+    wire = _wire(attrs)
+    if not attrs.get("use_dgc", False):
+        gw = g.to(wire) if wire is not None else g
+        out = {"Out": [_pmean(gw, [dcn], ctx).to(g.dtype)]}
+        if ef:
+            out["ErrorFeedback"] = [ef[0]]
+        return out
+    n_dcn = ctx.mesh.shape[dcn]
+    e3 = ef[0]                                    # this slice's [1, *shape]
+    acc = (g + e3[0]).float()
+    rampup = int(attrs.get("rampup_begin_step", 0))
+    if rampup > 0 and "Step" in ins \
+            and float(ins["Step"][0].reshape(-1)[0]) < rampup:
+        # DGC's warm-up: dense, and no residual
+        return {"Out": [_pmean(acc, [dcn], ctx).to(g.dtype)],
+                "ErrorFeedback": [torch.zeros_like(e3)]}
+    flat = acc.reshape(-1)
+    k = max(1, int(round(flat.numel() * (1.0 - float(
+        attrs.get("sparsity", 0.999))))))
+    top = _top_k_lower_index(flat, k)
+    vals = flat[top]
+    if wire is not None:
+        vals = vals.to(wire)
+    sent = torch.zeros_like(flat).index_put_((top,), vals.to(flat.dtype))
+    e_new = (flat - sent).reshape(acc.shape)
+    # k values and k int32 indices a slice on the wire (lax.top_k's)
+    all_vals = dist.all_gather(vals, dcn, 0, ctx.mesh)       # n_dcn * k
+    all_idx = dist.all_gather(top.to(torch.int32), dcn, 0,
+                              ctx.mesh).long()
+    synced = torch.zeros_like(flat).index_add_(
+        0, all_idx, all_vals.to(flat.dtype)).reshape(acc.shape) / n_dcn
+    return {"Out": [synced.to(g.dtype)],
+            "ErrorFeedback": [e_new[None].to(e3.dtype)]}
+
+
+@register("dcn_expand_param", no_vjp_grad=True)
+def dcn_expand_param(ctx, ins, attrs):
+    """[n_dcn, *shape] copies of a parameter (idempotent)."""
+    x = ins["X"][0]
+    n = int(attrs["n_dcn"])
+    if x.dim() == int(attrs["param_rank"]) + 1 and x.shape[0] == n:
+        return {"Out": [x]}
+    return {"Out": [x[None].repeat((n,) + (1,) * x.dim())]}
+
+
+@register("c_dcn_localsgd_sync", no_vjp_grad=True)
+def c_dcn_localsgd_sync(ctx, ins, attrs):
+    p = ins["X"][0]
+    dcn = attrs.get("dcn_axis", "dcn")
+    if dcn not in ctx.manual_axes:
+        return {"Out": [p]}
+    k = max(1, int(attrs.get("k_steps", 1)))
+    step = int(ins["Step"][0].reshape(-1)[0])
+    return {"Out": [_pmean(p, [dcn], ctx) if step % k == k - 1 else p]}

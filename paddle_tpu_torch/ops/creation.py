@@ -112,3 +112,10 @@ def scale(ctx, ins, attrs):
     if attrs.get("bias_after_scale", True):
         return {"Out": [x * s + b]}
     return {"Out": [(x + b) * s]}
+
+
+@register("increment")
+def increment(ctx, ins, attrs):
+    x = ins["X"][0]
+    return {"Out": [x + torch.tensor(attrs.get("step", 1.0), dtype=x.dtype,
+                                     device=x.device)]}

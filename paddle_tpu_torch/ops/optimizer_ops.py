@@ -10,25 +10,64 @@ tensor (the JAX package's functional update); the Executor writes
 The other eight update ops of the JAX package (adamax, adagrad,
 decayed_adagrad, rmsprop, lamb, lars_momentum, ftrl, dpsgd) are not
 ported yet (ROADMAP A6).
+
+ZeRO-2 (fleet's ``strategy.sharding``): an update op with the attr
+``zero_axis`` reads its moments as this rank's block of rows (dim 0
+split over the axis) and updates only those rows of the parameter, from
+the same rows of the (already averaged) gradient; the new rows are
+all-gathered over the axis into the whole parameter.  The update is
+elementwise, so every element is the unsharded update's, bit for bit.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from .registry import register
 
 
+def _zero(update):
+    """``update`` on this rank's rows when the op is ZeRO-sharded."""
+
+    @functools.wraps(update)
+    def emit(ctx, ins, attrs):
+        axis = attrs.get("zero_axis")
+        mesh = ctx.mesh
+        if not axis or mesh is None or mesh.shape.get(axis, 1) <= 1:
+            return update(ctx, ins, attrs)
+        from .. import distributed as dist
+
+        p = ins["Param"][0]
+        n = mesh.shape[axis]
+        blk = p.shape[0] // n
+        rows = slice(mesh.coords[axis] * blk, (mesh.coords[axis] + 1) * blk)
+        for slot, vals in ins.items():
+            v = vals[0]
+            if (slot not in ("Param", "Grad") and v.dim() == p.dim()
+                    and v.shape[0] not in (blk, 1)):
+                raise ValueError(
+                    f"ZeRO update: {slot} holds {v.shape[0]} rows, this "
+                    f"rank's block of the {p.shape[0]} over {axis!r} is "
+                    f"{blk}")
+        ins = dict(ins, Param=[p[rows]], Grad=[ins["Grad"][0][rows]])
+        out = update(ctx, ins, attrs)
+        out["ParamOut"] = [dist.all_gather(out["ParamOut"][0].contiguous(),
+                                           axis, 0, mesh)]
+        return out
+
+    return emit
+
+
 def _lr(ins):
     return ins["LearningRate"][0].reshape(())
 
 
-@register("sgd", no_vjp_grad=True)
 def sgd(ctx, ins, attrs):
     p, g = ins["Param"][0], ins["Grad"][0]
     return {"ParamOut": [p - _lr(ins) * g.to(p.dtype)]}
 
 
-@register("momentum", no_vjp_grad=True)
 def momentum(ctx, ins, attrs):
     p, g, v = ins["Param"][0], ins["Grad"][0], ins["Velocity"][0]
     mu = attrs.get("mu", 0.9)
@@ -43,7 +82,6 @@ def momentum(ctx, ins, attrs):
     return {"ParamOut": [p_out], "VelocityOut": [v_out]}
 
 
-@register("adam", no_vjp_grad=True)
 def adam(ctx, ins, attrs):
     p, g = ins["Param"][0], ins["Grad"][0]
     m1, m2 = ins["Moment1"][0], ins["Moment2"][0]
@@ -66,7 +104,6 @@ def adam(ctx, ins, attrs):
     }
 
 
-@register("adamw", no_vjp_grad=True)
 def adamw(ctx, ins, attrs):
     coeff = attrs.get("coeff", 0.01)
     lr = _lr(ins)
@@ -76,3 +113,8 @@ def adamw(ctx, ins, attrs):
     if attrs.get("with_decay", True):
         out["ParamOut"] = [out["ParamOut"][0] - lr * coeff * p]
     return out
+
+
+for _name, _fn in (("sgd", sgd), ("momentum", momentum), ("adam", adam),
+                   ("adamw", adamw)):
+    register(_name, no_vjp_grad=True)(_zero(_fn))

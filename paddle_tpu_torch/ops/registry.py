@@ -56,15 +56,19 @@ def mix_seed(seed: int, salt: int) -> int:
 class EmitContext:
     """Per-step context handed to emitters: the run's device, its random
     state, the primal-reuse cache, and under a mesh the ``Mesh``
-    (``parallel``) and ``axis_env`` (ring_id -> axis name, read by the
-    c_* ops)."""
+    (``parallel``), ``axis_env`` (ring_id -> axis name, read by the c_*
+    ops) and ``manual_axes``."""
 
     def __init__(self, seed: int = 0, device="cpu", mesh=None,
-                 axis_env=None):
+                 axis_env=None, manual_axes=()):
         self.device = torch.device(device)
         self.seed = int(seed)
         self.mesh = mesh
         self.axis_env = dict(axis_env or {})
+        # the executor's manual (dcn, dp) path: each rank a shard of the
+        # JAX package's shard_map body, collectives only where an op
+        # names one (c_dcn_*)
+        self.manual_axes = tuple(manual_axes or ())
         self._draws = 0
         # forward key -> LIFO of (outs, fwd_ins) awaiting their grad op
         self.vjp_cache: Dict[tuple, list] = {}

@@ -18,17 +18,22 @@ collectives run on its backend.  A mesh whose size differs from the world
 size raises (the JAX package takes a prefix of the devices; ROADMAP §C).
 
 Axes convention: "dp" (data), "tp" (tensor), "pp" (pipeline), "sp"
-(sequence), "ep" (expert).
+(sequence), "ep" (expert), "dcn" (the slices of a multi-slice job).
 
-Parameters sharded on "tp" or "pp" (``PARAM_AXES``).  Where GSPMD holds
-one global array and places its shards, a rank of the port holds only
-its block of such a parameter: the block its coordinates on the axes of
-the parameter's spec name (``local_shard``; ``set_var_sharding`` /
+Persistable state sharded on a mesh axis (``PARAM_AXES``): parameters on
+"tp", "pp" or "ep", ZeRO's optimizer moments on "dp", the multi-slice
+modes' per-slice state ([n_dcn, ...] on "dcn").  Where GSPMD holds one
+global array and places its shards, a rank of the port holds only its
+block of such a variable: the block its coordinates on the axes of the
+variable's spec name (``local_shard``; ``set_var_sharding`` /
 ``get_var_sharding`` carry the spec).  The startup program runs at the
 global shapes on every rank, and the executor keeps each rank's block;
-a fetch of such a variable gathers it back (``gather_shard``).  A dim
-the axis does not divide raises ValueError, where the JAX package pads
-(BERT-base's vocabulary, 30522, at tp 4; ROADMAP §C).
+a fetch, a checkpoint, gathers it back to the global layout
+(``gather_shard``).  A dim the axis does not divide raises ValueError,
+where the JAX package pads (BERT-base's vocabulary, 30522, at tp 4;
+ROADMAP §C).  The specs of feed variables name the data axes too; the
+executor slices a feed by them (``_local_block``), and only persistable
+variables are held as blocks.
 """
 from __future__ import annotations
 
@@ -42,11 +47,16 @@ from .env import get_rank, get_world_size, init_parallel_env  # noqa: F401
 
 
 # mesh axes whose sharding the ops realise inside their own regions
-# (ops/encoder_stack.py, ops/attention.py): outside them every rank of
-# such an axis holds the whole tensor, so feeds are not sliced on them
-REGION_AXES = ("sp", "tp", "pp")
-# mesh axes that shard parameters: a rank holds its block of them
-PARAM_AXES = ("tp", "pp")
+# (ops/encoder_stack.py, ops/attention.py, ops/moe_ops.py): outside them
+# every rank of such an axis holds the whole tensor, so feeds are not
+# sliced on them
+REGION_AXES = ("sp", "tp", "pp", "ep")
+# mesh axes that shard persistable state: a rank holds its block of it
+PARAM_AXES = ("tp", "pp", "ep", "dp", "dcn")
+# the axes on which an op reads a parameter block inside the step (the
+# others' blocks are whole there: ZeRO's moments meet their rows of the
+# parameter, a slice's state is its own)
+SPLIT_AXES = ("tp", "pp", "ep")
 
 
 class Mesh:
@@ -210,7 +220,7 @@ def get_var_sharding(var):
 
 
 def param_axes(spec):
-    """[(dim, axis)] of the parameter-sharding axes ``spec`` names."""
+    """[(dim, axis)] of the state-sharding axes ``spec`` names."""
     out = []
     for d, axis in enumerate(spec or ()):
         for a in ((axis,) if isinstance(axis, str) else (axis or ())):
@@ -221,8 +231,8 @@ def param_axes(spec):
 
 def local_shard(value, spec, mesh):
     """This rank's block of the global ``value`` (a tensor or an array)
-    along each dim that ``spec`` shards on a parameter axis of ``mesh``
-    ("tp", "pp"); ValueError where the axis does not divide the dim.
+    along each dim that ``spec`` shards on a state axis of ``mesh``
+    (``PARAM_AXES``); ValueError where the axis does not divide the dim.
     The executor (after a startup program), the checkpoint restore and
     the tests share it."""
     for d, a in param_axes(spec):
@@ -360,17 +370,20 @@ def _localize_reshapes(program, axis: str, shards: int):
                     dims[n] = d
 
 
-def shard_program_data_parallel(program, mesh, axis: str = "dp"):
+def shard_program_data_parallel(program, mesh, axis="dp"):
     """Mark every data (feed) variable as batch-sharded along ``axis``
-    (the JAX package's annotation, the reference's GradAllReduce
-    transpile, the reference's python/paddle/fluid/transpiler/
-    collective.py:178, in spirit: fleet inserts the gradient all-reduce
-    the JAX package leaves to GSPMD)."""
+    (an axis name, or a tuple of them: the multi-slice (dcn, dp)) (the
+    JAX package's annotation, the reference's GradAllReduce transpile,
+    the reference's python/paddle/fluid/transpiler/collective.py:178, in
+    spirit: fleet inserts the gradient all-reduce the JAX package leaves
+    to GSPMD)."""
     for v in program.list_vars():
         if getattr(v, "is_data", False) and v.shape:
             set_var_sharding(v, (axis,) + (None,) * (len(v.shape) - 1))
-    if mesh.shape[axis] > 1 and getattr(program, "_mesh", None) is None:
-        _localize_reshapes(program, axis, mesh.shape[axis])
+    shards = math.prod(mesh.shape[a] for a in (
+        (axis,) if isinstance(axis, str) else axis))
+    if shards > 1 and getattr(program, "_mesh", None) is None:
+        _localize_reshapes(program, axis, shards)
     program._mesh = mesh
 
 

@@ -185,9 +185,30 @@ def test_pretrain_loss_matches_jax():
 
 @pytest.mark.parametrize("kw", [dict(moe_num_experts=2)], ids=["kw1"])
 def test_unported_bert_options_raise(kw):
-    cfg = tbert.BertConfig(**dict(CONFIGS["d64_s128_pallas"][0], **kw))
-    with pytest.raises(NotImplementedError):
-        _build(tfluid, tnn, tbert, cfg, 2, 16)
+    """moe_num_experts raised until the MoE slice was ported: the encoder
+    now holds a moe_ffn a layer, op for op the JAX package's, and the
+    frozen model serves the JAX package's outputs within TOL."""
+    b, s = 2, 16
+    jcfg = jbert.BertConfig(**dict(CONFIGS["d64_s128_pallas"][0], **kw))
+    tcfg = tbert.BertConfig(**dict(CONFIGS["d64_s128_pallas"][0], **kw))
+    jm, js, jseq, jpool = _build(jfluid, jnn, jbert, jcfg, b, s)
+    tm, _, tseq, tpool = _build(tfluid, tnn, tbert, tcfg, b, s)
+    jscope = jfluid.Scope()
+    jfluid.Executor().run(js, scope=jscope)
+    tscope = tfluid.Scope.from_numpy(
+        {n: np.asarray(v) for n, v in jscope.vars.items() if v is not None},
+        device="cpu")
+    jf = jax_freeze(jm, scope=jscope, fetch_list=[jseq, jpool])
+    tf = freeze_program(tm, scope=tscope, fetch_list=[tseq, tpool])
+    ops = [(op.type, op.inputs, op.outputs)
+           for op in tf.program.global_block().ops]
+    assert ops == [(op.type, op.inputs, op.outputs)
+                   for op in jf.program.global_block().ops]
+    assert [o[0] for o in ops].count("moe_ffn") == 2
+    feed = _batch(tcfg, b, s)
+    for a, b_ in zip(JaxPredictor(jf).run(feed),
+                     ServingPredictor(tf, device="cpu").run(feed)):
+        np.testing.assert_allclose(b_, a, atol=TOL, rtol=0)
 
 
 def test_frozen_weights_are_captured_from_the_scope():

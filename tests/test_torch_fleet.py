@@ -63,8 +63,9 @@ def _attn_feeds():
 
 
 def _jax_fleet(main, startup, loss, mesh_axes, sp, opt):
-    """minimize under the JAX package's fleet; the startup scope."""
-    with jfluid.program_guard(main, startup):
+    """minimize under the JAX package's fleet (the optimizer's names
+    those of a fresh process); the startup scope."""
+    with jfluid.unique_name.guard(), jfluid.program_guard(main, startup):
         strategy = jfleet.DistributedStrategy()
         strategy.mesh_axes = dict(mesh_axes)
         strategy.sequence_parallel = sp
@@ -83,10 +84,9 @@ def _jax_fleet(main, startup, loss, mesh_axes, sp, opt):
                          ids=["dp2_sp2", "dp4", "dp1"])
 def test_attention_model_loss_trace_matches_jax(mesh_axes, tmp_path):
     main, startup, loss = attn_model(jfluid, jlayers, *ATTN_DIMS, seed=11)
-    with jfluid.unique_name.guard():
-        exe, scope, state = _jax_fleet(
-            main, startup, loss, mesh_axes, "sp" in mesh_axes,
-            jfluid.optimizer.AdamOptimizer(1e-2))
+    exe, scope, state = _jax_fleet(
+        main, startup, loss, mesh_axes, "sp" in mesh_axes,
+        jfluid.optimizer.AdamOptimizer(1e-2))
     feeds = _attn_feeds()
     payload = {"dims": ATTN_DIMS, "mesh_axes": mesh_axes, "state": state,
                "feeds": feeds}
@@ -108,10 +108,9 @@ def test_attention_model_loss_trace_matches_jax(mesh_axes, tmp_path):
 def test_tiny_bert_dp2_sp2_matches_jax(tmp_path):
     mesh_axes, steps = {"dp": 2, "sp": 2}, 3
     cfg, main, startup, loss = build_bert(jfluid, jnn, jbert, *BERT)
-    with jfluid.unique_name.guard():
-        exe, scope, state = _jax_fleet(
-            main, startup, loss, mesh_axes, True,
-            jfluid.optimizer.AdamOptimizer(1e-3))
+    exe, scope, state = _jax_fleet(
+        main, startup, loss, mesh_axes, True,
+        jfluid.optimizer.AdamOptimizer(1e-3))
     _, b, s, mpn = BERT
     feed = jbert.random_pretrain_batch(cfg, b, s, mpn, seed=1)
     started = torch_dist_ranks.Ranks(
@@ -231,10 +230,11 @@ def test_fetch_startup_and_metrics_over_two_ranks(tmp_path):
 
 # field: (name, value, the refusal's text, other strategy fields).
 # tensor_parallel, tensor_parallel_rules and pipeline run since the
-# tensor- and pipeline-parallel slice: their cases hold what stays
-# refused with them, tp together with sp or pp, and an op with no
-# tensor-parallel region (a Mesh without a process group stands for the
-# ranks)
+# tensor- and pipeline-parallel slice, expert_parallel, sharding,
+# hybrid_dcn, dgc and localsgd since the ep / ZeRO / dcn slice: their
+# cases hold what stays refused with them (tp together with sp or pp, an
+# op with no tensor-parallel region, the combinations the JAX package
+# refuses; a Mesh without a process group stands for the ranks)
 REFUSED = {"tensor_parallel": ("tensor_parallel", True, "item 6",
                                {"mesh_axes": {"dp": 1, "tp": 1, "sp": 1},
                                 "sequence_parallel": True}),
@@ -244,17 +244,22 @@ REFUSED = {"tensor_parallel": ("tensor_parallel", True, "item 6",
                                      {"mesh": ("dp", 1, "tp", 2)}),
            "pipeline": ("pipeline", True, "item 6",
                         {"mesh_axes": {"dp": 1, "tp": 1, "pp": 1}}),
-           "expert_parallel": ("expert_parallel", True, "item 3"),
-           "sharding": ("sharding", True, "item 4"),
-           "hybrid_dcn": ("hybrid_dcn", 2, "item 5"),
-           "dgc": ("dgc", True, "item 5"),
-           "localsgd": ("localsgd", True, "item 5"),
+           "expert_parallel": ("expert_parallel", True,
+                               "unset strategy.expert_parallel",
+                               {"hybrid_dcn": 2,
+                                "mesh": ("dcn", 2, "dp", 1)}),
+           "sharding": ("sharding", True, "sharding \\+ hybrid_dcn",
+                        {"hybrid_dcn": 2}),
+           "hybrid_dcn": ("hybrid_dcn", 2, "the mesh also has",
+                          {"mesh_axes": {"dcn": 2, "sp": 1}}),
+           "dgc": ("dgc", True, "hybrid_dcn"),
+           "localsgd": ("localsgd", True, "hybrid_dcn"),
            "lamb": ("lamb", True, "A7"), "lars": ("lars", True, "A7"),
            "recompute": ("recompute", True, "A7"),
            "gradient_merge": ("gradient_merge", True, "A7"),
            "nccl_comm_num": ("nccl_comm_num", 2, "perf_opt"),
            "hierarchical_allreduce": ("hierarchical_allreduce_inter_nranks",
-                                      2, "item 5"),
+                                      2, "hybrid_dcn"),
            "elastic": ("elastic", True, "dead flag"),
            "auto": ("auto", True, "strategy search")}
 
@@ -290,11 +295,12 @@ def test_unported_strategy_fields_raise(field):
 
 @pytest.mark.parametrize("axes,where", [
     # tp and pp run since their slice; with them, tp x sp and tp x pp stay
-    # refused
+    # refused.  "ep" runs since the ep slice (where None: accepted); a
+    # "dcn" axis runs only under strategy.hybrid_dcn
     pytest.param({"tp": 1, "sp": 1}, "item 6", id="tp-item 1"),
     pytest.param({"tp": 1, "pp": 1}, "item 6", id="pp-item 2"),
-    pytest.param({"ep": 1}, "item 3", id="ep-item 3"),
-    pytest.param({"dcn": 1}, "item 5", id="dcn-item 5")])
+    pytest.param({"ep": 1}, None, id="ep-item 3"),
+    pytest.param({"dcn": 1}, "hybrid_dcn", id="dcn-item 5")])
 def test_unported_mesh_axes_raise(axes, where):
     from paddle_tpu_torch import fleet, fluid
     from paddle_tpu_torch.fluid import layers
@@ -302,10 +308,15 @@ def test_unported_mesh_axes_raise(axes, where):
     main, startup, loss = _tiny_loss(fluid, layers)
     strategy = fleet.DistributedStrategy()
     strategy.mesh_axes = {"dp": 1, **axes}
-    with fluid.program_guard(main, startup), \
-            pytest.raises(NotImplementedError, match=where):
-        fleet.distributed_optimizer(fluid.optimizer.SGDOptimizer(0.1),
-                                    strategy).minimize(loss)
+    opt = fleet.distributed_optimizer(fluid.optimizer.SGDOptimizer(0.1),
+                                      strategy)
+    with fluid.program_guard(main, startup):
+        if where is None:
+            opt.minimize(loss)
+            assert main._mesh.shape == {"dp": 1, **axes}
+            return
+        with pytest.raises(NotImplementedError, match=where):
+            opt.minimize(loss)
 
 
 @pytest.mark.parametrize("name", ["init_worker", "init_server", "run_server",

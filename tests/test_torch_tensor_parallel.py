@@ -71,7 +71,10 @@ def _jax_run(main, startup, loss, mesh_axes, feeds, opt, rules=None):
     """minimize under the JAX package's fleet, the startup state and
     the loss trace (and the scope after it)."""
     scope = jfluid.executor.Scope()
-    with jfluid.scope_guard(scope):
+    # the optimizer's names (learning_rate_0, ..._moment1_0) as a fresh
+    # process, such as a port rank, gives them, whatever this process
+    # built before
+    with jfluid.unique_name.guard(), jfluid.scope_guard(scope):
         with jfluid.program_guard(main, startup):
             strategy = jfleet.DistributedStrategy()
             strategy.mesh_axes = dict(mesh_axes)
@@ -100,10 +103,9 @@ def _jax_bert(amp=False):
         from paddle_tpu.contrib import mixed_precision
 
         opt = mixed_precision.decorate(opt, use_bf16=True)
-    with jfluid.unique_name.guard():
-        state, losses, scope = _jax_run(
-            main, startup, loss, MESH, [feed] * STEPS, opt,
-            jbert.tensor_parallel_rules())
+    state, losses, scope = _jax_run(main, startup, loss, MESH,
+                                    [feed] * STEPS, opt,
+                                    jbert.tensor_parallel_rules())
     return main, feed, state, losses, scope
 
 
@@ -375,3 +377,27 @@ def test_head_shard_salts_dropout_inside_the_region_only():
              "BiasQK": [bias[:, 2 * rank:2 * rank + 2]]},
             {"num_heads": 2, "is_test": True})["Out"][0]
         assert torch.equal(got, want)
+
+
+def test_two_fc_dp2_tp2_after_a_jax_minimize_in_this_process(tmp_path):
+    """The JAX side names the optimizer's state as a fresh process does
+    even after this process built another optimizer (the xdist worker's
+    earlier files): its scope, handed to the port's ranks, holds
+    ``learning_rate_0``, and the dp x tp run matches the JAX package's."""
+    main, startup = jfluid.Program(), jfluid.Program()
+    with jfluid.program_guard(main, startup):
+        x = jfluid.data("x", [4, 3], "float32")
+        jfluid.optimizer.AdamOptimizer(1e-3).minimize(
+            jlayers.reduce_mean(jlayers.fc(x, 2)))
+    feeds = [_two_fc_feed(i) for i in range(5)]
+    main, startup, loss = two_fc_model(jfluid, jlayers, seed=7)
+    state, want, _ = _jax_run(main, startup, loss, MESH, feeds,
+                              jfluid.optimizer.AdamOptimizer(1e-2),
+                              TWO_FC_RULES)
+    assert "learning_rate_0" in state
+    ranks = torch_dist_ranks.spawn(
+        "two_fc_tp", 4, tmp_path / "ranks",
+        {"mesh_axes": MESH, "state": state, "feeds": feeds,
+         "ckpt": str(tmp_path / "ckpt")}, timeout=60.0)
+    for r in ranks:
+        np.testing.assert_allclose(r["losses"], want, atol=LOSS_TOL, rtol=0)

@@ -245,7 +245,8 @@ def fleet_attn_run(p):
     from paddle_tpu_torch.fluid import layers
 
     main, startup, loss = attn_model(fluid, layers, *p["dims"], seed=11)
-    with fluid.program_guard(main, startup):
+    # at dp 1 this runs in the test's process: names as a fresh one's
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
         strategy = fleet.DistributedStrategy()
         strategy.mesh_axes = dict(p["mesh_axes"])
         strategy.sequence_parallel = "sp" in p["mesh_axes"]
@@ -381,7 +382,7 @@ def _two_fc_tp(p):
     from paddle_tpu_torch.fluid import layers
 
     main, startup, loss = two_fc_model(fluid, layers, seed=7)
-    with fluid.program_guard(main, startup):
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
         strategy = fleet.DistributedStrategy()
         strategy.mesh_axes = dict(p["mesh_axes"])
         strategy.tensor_parallel = True
@@ -423,6 +424,10 @@ def _two_fc_tp(p):
             "state_names": sorted(scope.vars),
             "saved_shapes": {n: tuple(v.shape)
                              for n, v in whole.vars.items()}}
+
+
+def body_two_fc_tp(rank, world, p):
+    return _two_fc_tp(p)
 
 
 def _tp_op_cases(mesh, p):
@@ -606,10 +611,177 @@ def body_gpipe(rank, world, p):
     return out
 
 
+def linear_model(fluid, layers, seed):
+    """The JAX package's LocalSGD model (tests/test_dcn.py): one fc 8 -> 1
+    without a bias, its weight named lsgd_w, a square-error loss."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.data("x", [16, 8], "float32")
+        y = fluid.data("y", [16, 1], "float32")
+        pred = layers.fc(x, 1, bias_attr=False,
+                         param_attr=fluid.ParamAttr(name="lsgd_w"))
+        loss = layers.reduce_mean(layers.square_error_cost(pred, y))
+    return main, startup, loss
+
+
+def make_optimizer(fluid, spec):
+    """("sgd", lr), ("adam", lr) or ("momentum", lr, mu)."""
+    kind = spec[0]
+    if kind == "sgd":
+        return fluid.optimizer.SGDOptimizer(learning_rate=spec[1])
+    if kind == "adam":
+        return fluid.optimizer.AdamOptimizer(spec[1])
+    return fluid.optimizer.MomentumOptimizer(spec[1], momentum=spec[2])
+
+
+def build_model(fluid, layers, nn, bert, p):
+    """p["model"]: "two_fc", "linear" or ("bert", kw, b, s, mpn,
+    fuse_stack) (``build_bert``'s arguments)."""
+    model = p["model"]
+    if model == "two_fc":
+        return two_fc_model(fluid, layers, seed=7)
+    if model == "linear":
+        return linear_model(fluid, layers, seed=0)
+    return build_bert(fluid, nn, bert, *model[1:])[1:]
+
+
+def set_strategy(strategy, fields):
+    for k, v in fields.items():
+        setattr(strategy, k, v)
+    return strategy
+
+
+def fleet_run(p):
+    """One rank's run of p's model through fleet with p["strategy"]'s
+    fields and p["opt"]: the JAX package's global startup state handed
+    in (each rank keeps its blocks), the loss trace over p["feeds"], the
+    p["fetch"] variables fetched at the last step, every scope variable
+    gathered to its global value and as this rank holds it, and with
+    p["ckpt"] a CheckpointManager save (its arrays as saved) and restore
+    (the blocks back, bit for bit)."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch import fleet, fluid
+    from paddle_tpu_torch.fluid import layers
+    from paddle_tpu_torch.fluid.layers import nn
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.parallel import gather_shard, get_var_sharding
+
+    main, startup, loss = build_model(fluid, layers, nn, bert, p)
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        strategy = set_strategy(fleet.DistributedStrategy(), p["strategy"])
+        fleet.init()
+        fleet.distributed_optimizer(make_optimizer(fluid, p["opt"]),
+                                    strategy).minimize(loss)
+    scope = fluid.Scope.from_numpy(p["state"], device="cpu", program=main)
+    exe = fluid.Executor(device="cpu")
+    fetch = list(p.get("fetch", ()))
+    losses, fetched = [], {}
+    for i, f in enumerate(p["feeds"]):
+        last = i == len(p["feeds"]) - 1
+        out = exe.run(main, feed=f, fetch_list=[loss] + (fetch if last
+                                                         else []),
+                      scope=scope)
+        losses.append(float(out[0].reshape(-1)[0]))
+        if last:
+            fetched = dict(zip(fetch, out[1:]))
+    block = main.global_block()
+    state, local = {}, {}
+    for n in sorted(scope.vars):
+        v = scope.find_var(n)
+        local[n] = _np(v)
+        var = block._find_var_recursive(n)
+        spec = None if var is None else get_var_sharding(var)
+        state[n] = _np(gather_shard(v, spec, main._mesh) if spec else v)
+    res = {"losses": losses, "state": state, "local": local,
+           "fetched": fetched,
+           "ops": [(op.type, op.inputs, op.outputs, dict(op.attrs))
+                   for op in block.ops
+                   if op.type.startswith(("c_", "dcn_", "adam", "sgd",
+                                          "momentum"))]}
+    if p.get("ckpt"):
+        root = os.path.join(p["ckpt"], f"rank{dist.get_rank()}")
+        fluid.CheckpointManager(root, program=main, scope=scope,
+                                device="cpu").save(len(p["feeds"]))
+        back, whole = fluid.Scope(), fluid.Scope()
+        fluid.CheckpointManager(root, program=main, scope=back,
+                                device="cpu").restore()
+        fluid.CheckpointManager(root, scope=whole, device="cpu").restore()
+        res["saved"] = {n: _np(v) for n, v in whole.vars.items()}
+        res["restored_equal"] = sorted(
+            n for n, v in scope.vars.items()
+            if back.find_var(n) is not None
+            and back.find_var(n).shape == v.shape
+            and bool((back.find_var(n) == v).all()))
+        res["state_names"] = sorted(scope.vars)
+    return res
+
+
+def body_fleet_runs(rank, world, p):
+    """Each case of p["cases"] (over p["common"]) through ``fleet_run``
+    on this rank; with p["moe_op"] the moe_ffn op cases first."""
+    out = {}
+    if p.get("moe_op"):
+        out["moe_op"] = _moe_op_cases(p["moe_op"])
+    out["runs"] = [fleet_run(dict(p["common"], **case))
+                   for case in p["cases"]]
+    return out
+
+
+def _moe_op_cases(p):
+    """moe_ffn on this rank's rows of a global batch: over dp 4 with the
+    experts whole, then over dp 2 x ep 2 with this rank's expert block.
+    Out, and the gradients of X and of every weight for a cotangent of
+    Out alone and one of AuxLoss alone."""
+    import torch
+
+    from paddle_tpu_torch.ops import registry as treg
+    from paddle_tpu_torch.parallel import create_mesh, local_shard
+
+    out = {}
+    spec = {"W1": ("ep", None, None), "B1": ("ep", None),
+            "W2": ("ep", None, None), "B2": ("ep", None)}
+    for name, axes, weights in (("dp4", {"dp": 4}, p["dp4"]),
+                                ("dp2_ep2", {"dp": 2, "ep": 2},
+                                 p["dp2_ep2"])):
+        mesh = create_mesh(axes)
+        dp = mesh.shape["dp"]
+        rows = weights["X"].shape[0] // dp
+        r0 = mesh.coords["dp"] * rows
+        case = {}
+        for what, (c_out, c_aux) in (("out", (1.0, 0.0)),
+                                     ("aux", (0.0, 1.0))):
+            leaves = {}
+            for k, v in weights.items():
+                t = torch.as_tensor(v)
+                if k == "X":
+                    t = t[r0:r0 + rows]
+                elif k in spec:
+                    t = local_shard(t, spec[k], mesh)
+                leaves[k] = t.clone().requires_grad_()
+            ctx = treg.EmitContext(device="cpu", mesh=mesh,
+                                   axis_env=mesh.axis_env)
+            res = treg.get("moe_ffn").emit(
+                ctx, {k: [v] for k, v in leaves.items()},
+                p[f"attrs_{name}"])
+            o, aux = res["Out"][0], res["AuxLoss"][0]
+            ct = torch.as_tensor(p["cot"][r0:r0 + rows]) * c_out
+            grads = torch.autograd.grad(
+                [o, aux], list(leaves.values()),
+                [ct, torch.tensor(p["cot_aux"] * c_aux)])
+            case[what] = {"out": _np(o), "aux": float(aux),
+                          "grads": {k: _np(g) for k, g in
+                                    zip(leaves, grads)}}
+        out[name] = case
+    return out
+
+
 BODIES = {"collectives": body_collectives, "ring": body_ring,
           "fleet_attn": body_fleet_attn, "fleet_bert": body_fleet_bert,
           "decoder_ring": body_decoder_ring,
           "fetch_startup": body_fetch_startup, "tp": body_tp,
+          "two_fc_tp": body_two_fc_tp, "fleet_runs": body_fleet_runs,
           "pipeline": body_pipeline}
 
 
