@@ -69,7 +69,10 @@ prints no result):
                fill mode in gather and lookup_table_v2, cast's saturation,
                sign, scale, narrow-int sums, the int mean) on the card
                against the CPU, ids past the end included (NaN rows, no
-               device assert), and the lookup's gradient
+               device assert), and the lookup's gradient; the eight
+               training-breadth update ops, where, the comparisons and
+               the elementwise min / max / mod / floordiv, card against
+               CPU within 1e-6 of each tensor's largest element
   engine       GenerationEngine over TinyDecoderLM at GPT-2-small widths
                (d 768, 12 layers x 12 heads, FFN 3072, vocab 50257, 1024
                positions): 8 requests, one sampled, two sharing a prefix;
@@ -274,6 +277,31 @@ prints no result):
                (2 layers in f32: one a stage), the GPipe launches exact
                (rows 4 / 5 or, under pp x sp, 6 / 7 per stage layer and
                microbatch)
+
+  bert_lamb_recompute
+               BERT-base pretraining (unfused, dropout 0.1, 8 x 512, 76
+               masked) through fleet at world size 1 as a large-batch
+               recipe trains it: Adam swapped for LAMB (strategy.lamb,
+               weight decay 0.01), bf16 AMP, linear_lr_warmup(
+               polynomial_decay(1e-4, 8, 0), 3, 0, 1e-4) in the program,
+               and strategy.recompute with a checkpoint at every encoder
+               layer's output; 8 steps with recompute and 8 without from
+               the same weights and seed: every step's launches exact
+               (rows 4 / 5 / 2 / 3 24 / 24 / 52 / 26 a step with
+               recompute, 12 / 24 / 26 / 26 without, all flash ones on
+               wgmma), the fetched learning rates within 1e-9 of the
+               closed form, step 1's loss identical and every loss within
+               one bf16 ulp of the run without recompute, the last step's
+               peak memory above the state lower with recompute; step
+               medians after 2 warm steps and 2 profiled steps each
+               (device busy, idle share); then strategy.gradient_merge
+               at k_steps 2 for 4 steps (the parameters bit for bit
+               unchanged after steps 1 and 3, all changed after 2 and 4),
+               and ExponentialMovingAverage / ModelAverage apply() and
+               restore() on a CUDA scope (the values stay CUDA tensors and
+               come back as the very tensors); ``emitters`` holds the
+               slice's update ops, where and comparisons on the card
+               against the CPU
 
 A dist phase's ranks are ``python3 chip_smoke.py --dist-child ...``
 processes; one that fails or outlives its deadline fails the phase, the
@@ -2688,8 +2716,95 @@ def phase_emitters(torch) -> dict:
         fail(f"lookup_table_v2 gradient: card {grads['cuda'].tolist()} vs "
              f"CPU {grads['cpu'].tolist()}")
     results["lookup_grad_past_table"] = {"grad": grads["cuda"].tolist()}
-    out = {"phase": "emitters", "cases": results}
+    out = {"phase": "emitters", "cases": results,
+           "training_breadth": _emitters_training_breadth(torch)}
     emit(out)
+    return out
+
+
+def _emitters_training_breadth(torch) -> dict:
+    """The update ops, where and the comparisons of the training-breadth
+    slice on CUDA tensors against the same emitters on CPU tensors, f32,
+    within 1e-6 relative (dpsgd at sigma 0: the noise is drawn from each
+    device's own generator)."""
+    from paddle_tpu_torch.ops import registry as reg
+
+    rng = np.random.default_rng(5)
+
+    def f(*shape, pos=False):
+        a = rng.standard_normal(shape).astype(np.float32)
+        return np.abs(a) + 0.1 if pos else a
+
+    p, g = f(64, 32), f(64, 32)
+    lr = np.array([0.01], np.float32)
+    b1p, b2p = np.array([0.81], np.float32), np.array([0.998], np.float32)
+    cases = {
+        "adamax": ("adamax", {"Param": p, "Grad": g, "Moment": f(64, 32),
+                              "InfNorm": f(64, 32, pos=True),
+                              "Beta1Pow": b1p, "LearningRate": lr}, {}),
+        "adagrad": ("adagrad", {"Param": p, "Grad": g,
+                                "Moment": f(64, 32, pos=True),
+                                "LearningRate": lr}, {"epsilon": 1e-6}),
+        "decayed_adagrad": ("decayed_adagrad", {
+            "Param": p, "Grad": g, "Moment": f(64, 32, pos=True),
+            "LearningRate": lr}, {"decay": 0.9}),
+        "rmsprop_centered": ("rmsprop", {
+            "Param": p, "Grad": g, "MeanSquare": f(64, 32, pos=True) + 2,
+            "Moment": f(64, 32), "MeanGrad": f(64, 32) * 0.1,
+            "LearningRate": lr}, {"momentum": 0.9, "centered": True}),
+        "lamb": ("lamb", {"Param": p, "Grad": g, "Moment1": f(64, 32),
+                          "Moment2": f(64, 32, pos=True), "Beta1Pow": b1p,
+                          "Beta2Pow": b2p, "LearningRate": lr},
+                 {"weight_decay": 0.01}),
+        "lars_momentum": ("lars_momentum", {
+            "Param": p, "Grad": g, "Velocity": f(64, 32),
+            "LearningRate": lr}, {"mu": 0.9}),
+        "ftrl": ("ftrl", {"Param": p, "Grad": g,
+                          "SquaredAccumulator": f(64, 32, pos=True),
+                          "LinearAccumulator": f(64, 32),
+                          "LearningRate": lr}, {"l1": 0.1, "l2": 0.01}),
+        "ftrl_power": ("ftrl", {"Param": p, "Grad": g,
+                                "SquaredAccumulator": f(64, 32, pos=True),
+                                "LinearAccumulator": f(64, 32),
+                                "LearningRate": lr}, {"lr_power": -0.25}),
+        "dpsgd": ("dpsgd", {"Param": p, "Grad": g, "LearningRate": lr},
+                  {"sigma": 0.0, "clip": 1.0}),
+        "where": ("where", {"Condition": np.array([True]), "X": p,
+                            "Y": g}, {}),
+        "where_mask": ("where", {"Condition": f(64, 32) > 0, "X": p,
+                                 "Y": g}, {}),
+        **{op: (op, {"X": p, "Y": g}, {}) for op in (
+            "equal", "not_equal", "less_than", "less_equal",
+            "greater_than", "greater_equal", "logical_and", "logical_or",
+            "logical_xor", "elementwise_min", "elementwise_max",
+            "elementwise_mod", "elementwise_floordiv")},
+    }
+    out = {}
+    for name, (op, ins, attrs) in cases.items():
+        got = {}
+        for dev in ("cpu", "cuda"):
+            t_ins = {k: [torch.as_tensor(v, device=dev)]
+                     for k, v in ins.items()}
+            got[dev] = reg.get(op).emit(reg.EmitContext(seed=3, device=dev),
+                                        t_ins, dict(attrs))
+        torch.cuda.synchronize()
+        worst = 0.0
+        for slot, vals in got["cpu"].items():
+            a, b = vals[0], got["cuda"][slot][0].cpu()
+            if a.dtype != b.dtype or a.shape != b.shape:
+                fail(f"emitter {name} {slot}: card {b.dtype} "
+                     f"{tuple(b.shape)} vs CPU {a.dtype} {tuple(a.shape)}")
+            if not a.is_floating_point():
+                if not torch.equal(a, b):
+                    fail(f"emitter {name} {slot}: card and CPU differ")
+                continue
+            # relative to the tensor's largest element
+            rel = float((a.double() - b.double()).abs().max()
+                        / a.double().abs().max().clamp_min(1e-30))
+            if rel > 1e-6:
+                fail(f"emitter {name} {slot}: card vs CPU {rel} relative")
+            worst = max(worst, rel)
+        out[name] = {"max_rel_err": worst}
     return out
 
 
@@ -3413,7 +3528,8 @@ def _counters():
             "ln_fwd": add_ln.fused_add_ln, "ln_bwd": add_ln.fused_add_ln_bwd}
 
 
-def _launches_per_step(program, bf16: bool = False) -> dict:
+def _launches_per_step(program, bf16: bool = False, ops=None,
+                       train=None) -> dict:
     """The flash and LayerNorm kernel launches one run of ``program`` must
     make, counted from its ops and their bias shapes: an encoder stack
     layer with a full [.., S, S] bias runs row 6 (rows 8 and 9 in the
@@ -3430,18 +3546,21 @@ def _launches_per_step(program, bf16: bool = False) -> dict:
     again, and its flash forward again unless the policy keeps the
     forward's o and lse (both ``flash_o`` and ``flash_lse``, as "flash"
     does) on the BSH branch; ``remat_ffn`` and ``remat_qkv`` recompute
-    neither."""
+    neither.  ``ops`` (default: the block's) and ``train`` (default:
+    whether the block holds a grad op) count a part of the program."""
     from paddle_tpu_torch.ops.encoder_stack import _policy_names
 
     block = program.global_block()
+    ops = block.ops if ops is None else ops
     n = dict.fromkeys(KERNEL_COUNTERS, 0)
-    train = any(op.type.endswith("_grad") for op in block.ops)
+    if train is None:
+        train = any(op.type.endswith("_grad") for op in block.ops)
 
     def shape(op, slot):
         names = op.inputs.get(slot) or []
         return tuple(block.var(names[0]).shape) if names else None
 
-    for op in block.ops:
+    for op in ops:
         if op.type == "fused_encoder_stack":
             layers = shape(op, "QKVW")[0]
             bias = shape(op, "AttnBias")
@@ -5677,6 +5796,301 @@ def _verify_program(what, build, run, findings):
                       "checks": sorted({f.check for f in fs})}
 
 
+LAMB_RC = dict(batch=8, seq=512, max_preds=76, steps=8, warm=2, lr=1e-4,
+               warmup=3, decay_steps=8, weight_decay=0.01, gm_steps=4)
+
+
+def _lamb_rc_program(cfg, c, *, recompute: bool, k_steps: int = 0):
+    """BERT pretraining through fleet at world size 1 as a large-batch
+    recipe trains it: Adam swapped for LAMB (``strategy.lamb``), bf16 AMP,
+    an in-graph linear_lr_warmup(polynomial_decay) learning rate, with
+    ``strategy.recompute`` checkpointing every encoder layer's output, or
+    ``strategy.gradient_merge`` over ``k_steps``.  Returns the programs,
+    the loss and the learning-rate var."""
+    from paddle_tpu_torch import fleet, fluid
+    from paddle_tpu_torch.fluid.layers import nn as lnn
+    from paddle_tpu_torch.models import bert
+
+    lnn._rng_salt_counter[0] = 0
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard():
+        m, st, _, loss = bert.build_bert_pretrain_program(
+            cfg, c["batch"], c["seq"], c["max_preds"], main_program=main,
+            startup_program=startup)
+        with fluid.program_guard(m, st):
+            L = fluid.layers
+            lr = L.linear_lr_warmup(
+                L.polynomial_decay(c["lr"], decay_steps=c["decay_steps"],
+                                   end_learning_rate=0.0),
+                warmup_steps=c["warmup"], start_lr=0.0, end_lr=c["lr"])
+            strategy = fleet.DistributedStrategy()
+            strategy.lamb = True
+            strategy.lamb_configs = {"lamb_weight_decay": c["weight_decay"]}
+            strategy.amp = True
+            if recompute:
+                strategy.recompute = True
+                strategy.recompute_configs = {"checkpoints": [
+                    op.output("Y")[0] for op in m.global_block().ops
+                    if op.type == "layer_norm" and op.input("Scale")[0]
+                    .endswith("_post_ffn_ln_scale")]}
+            if k_steps:
+                strategy.gradient_merge = True
+                strategy.gradient_merge_configs = {"k_steps": k_steps}
+            fleet.init()
+            fleet.distributed_optimizer(
+                fluid.optimizer.AdamOptimizer(lr), strategy).minimize(loss)
+    return m, st, loss, lr
+
+
+def _recompute_launches_per_step(program) -> dict:
+    """The launches of a bf16 program whose recompute segments each run
+    their forward twice (the forward, and again in the grad op) and their
+    backward once."""
+    block = program.global_block()
+    top = [op for op in block.ops if op.type != "recompute_segment"]
+    subs = [sop for op in block.ops if op.type == "recompute_segment"
+            for sop in op.attr("recompute_sub_ops")]
+    parts = (_launches_per_step(program, True, ops=top, train=True),
+             _launches_per_step(program, True, ops=subs, train=True),
+             _launches_per_step(program, True, ops=subs, train=False))
+    return {k: sum(p[k] for p in parts) for k in KERNEL_COUNTERS}
+
+
+def _lamb_lr_closed_form(c, steps: int) -> list:
+    """linear_lr_warmup(polynomial_decay(lr, decay_steps, 0), warmup, 0,
+    lr) at steps 0..steps-1, in float64."""
+    out = []
+    for t in range(steps):
+        if t < c["warmup"]:
+            out.append(c["lr"] * t / c["warmup"])
+        else:
+            out.append(c["lr"] * (1.0 - min(t, c["decay_steps"])
+                                  / c["decay_steps"]))
+    return out
+
+
+def _lamb_rc_run(torch, cfg, c, recompute: bool) -> dict:
+    """``c["steps"]`` steps of the program on one fixed batch: the loss
+    and the fetched learning rate of each, each step's launches held to
+    the program's, the step wall of the steps after ``c["warm"]``, and
+    the peak memory of the last step (from a reset just before it)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import bert
+
+    t0 = time.perf_counter()
+    main, startup, loss, lr = _lamb_rc_program(cfg, c, recompute=recompute)
+    build_s = time.perf_counter() - t0
+    want = (_recompute_launches_per_step(main) if recompute
+            else _launches_per_step(main, bf16=True))
+    scope = fluid.Scope()
+    exe = fluid.Executor()
+    exe.run(startup, scope=scope)
+    feed = {k: torch.as_tensor(v, device=exe.device) for k, v in
+            bert.random_pretrain_batch(cfg, c["batch"], c["seq"],
+                                       c["max_preds"], seed=0).items()}
+    counters = _counters()
+    losses, lrs, step_ms, total = [], [], [], dict.fromkeys(counters, 0)
+    peak = None
+    for i in range(c["steps"]):
+        if i == c["steps"] - 1:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        t1 = time.perf_counter()
+        (lv, rv), got = _count_step(counters, lambda: exe.run(
+            main, feed=feed, fetch_list=[loss, lr], scope=scope))
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        if i == c["steps"] - 1:
+            peak = torch.cuda.max_memory_allocated()
+        if got != want:
+            fail(f"bert_lamb_recompute (recompute={recompute}) step {i} "
+                 f"launched {got}, the program needs {want}")
+        for k in total:
+            total[k] += got[k]
+        losses.append(float(np.asarray(lv).reshape(-1)[0]))
+        lrs.append(float(np.asarray(rv).reshape(-1)[0]))
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"bert_lamb_recompute losses not finite: {losses}")
+    prof = _step_profile(torch, exe, main, scope, feed, loss, 2,
+                         "window = 2 more steps after the checked ones")
+    params = [p.name for p in main.all_parameters()]
+    return {"main": main, "scope": scope, "params": params,
+            "profile": dict(prof, top_kernels=prof["top_kernels"][:6]),
+            "losses": losses, "lrs": lrs, "build_s": build_s,
+            "step_ms": step_ms[c["warm"]:], "launches_per_step": want,
+            "launches": total, "peak_bytes": peak,
+            "peak_above_state_bytes": peak - base,
+            "segments": sum(op.type == "recompute_segment"
+                            for op in main.global_block().ops)}
+
+
+def _lamb_gradient_merge(torch, cfg, c, state) -> dict:
+    """``strategy.gradient_merge`` k_steps 2 over the same recipe: after
+    each odd step every parameter equals its value before the step bit
+    for bit; after each even step they have moved."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import bert
+
+    main, startup, loss, _ = _lamb_rc_program(cfg, c, recompute=False,
+                                              k_steps=2)
+    scope = fluid.Scope()
+    exe = fluid.Executor()
+    exe.run(startup, scope=scope)
+    for n, v in state.items():
+        scope.set_var(n, v.clone())
+    names = [p.name for p in main.all_parameters()]
+    feeds = [{k: torch.as_tensor(v, device=exe.device) for k, v in
+              bert.random_pretrain_batch(cfg, c["batch"], c["seq"],
+                                         c["max_preds"], seed=i).items()}
+             for i in range(c["gm_steps"])]
+    steps = []
+    for i, feed in enumerate(feeds, start=1):
+        before = {n: scope.find_var(n).clone() for n in names}
+        lv = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)[0]
+        same = [n for n in names if torch.equal(before[n],
+                                                scope.find_var(n))]
+        boundary = i % 2 == 0
+        if boundary and len(same) == len(names):
+            fail(f"gradient merge: step {i} (a boundary) left every "
+                 f"parameter unchanged")
+        if not boundary and len(same) != len(names):
+            fail(f"gradient merge: step {i} (not a boundary) changed "
+                 f"{sorted(set(names) - set(same))[:5]}")
+        steps.append({"step": i, "boundary": boundary,
+                      "loss": float(np.asarray(lv).reshape(-1)[0]),
+                      "params_unchanged": len(same),
+                      "params": len(names)})
+    return {"k_steps": 2, "steps": steps}
+
+
+def _ema_model_average_on_card(torch) -> dict:
+    """ExponentialMovingAverage and ModelAverage over a small fc net
+    trained 3 SGD steps on the card: apply() puts the debiased EMA / the
+    window average in the scope as CUDA tensors, restore() puts back the
+    very tensors it took out."""
+    from paddle_tpu_torch import fluid
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        L = fluid.layers
+        x = L.data("x", [8], "float32")
+        y = L.data("y", [1], "int32")
+        loss = L.reduce_mean(L.softmax_with_cross_entropy(
+            L.fc(L.fc(x, 16, act="relu"), 4), y))
+        fluid.optimizer.SGDOptimizer(0.1).minimize(loss)
+        ema = fluid.optimizer.ExponentialMovingAverage(0.9)
+        ema.update()
+        ma = fluid.optimizer.ModelAverage(0.15, min_average_window=10,
+                                          max_average_window=100)
+    scope = fluid.Scope()
+    exe = fluid.Executor()
+    rng = np.random.default_rng(0)
+    out = {}
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        pname = main.all_parameters()[0].name
+        snaps = []
+        for _ in range(3):
+            exe.run(main, feed={
+                "x": rng.standard_normal((16, 8)).astype(np.float32),
+                "y": rng.integers(0, 4, (16, 1)).astype(np.int32)},
+                fetch_list=[loss])
+            snaps.append(scope.find_var(pname).cpu().double().numpy())
+        raw = scope.find_var(pname)
+        ema_np = np.zeros_like(snaps[0])
+        for sn in snaps:
+            ema_np = 0.9 * ema_np + 0.1 * sn
+        for what, avg, want in (("ema", ema, ema_np / (1 - 0.9 ** 3)),
+                                ("model_average", ma,
+                                 np.mean(snaps, axis=0))):
+            with avg.apply():
+                t = scope.find_var(pname)
+                if t.device.type != "cuda":
+                    fail(f"{what}.apply() left {pname} on {t.device}")
+                err = float(np.abs(t.cpu().double().numpy() - want).max())
+                if err > 1e-5:
+                    fail(f"{what}.apply(): {pname} off by {err}")
+            if scope.find_var(pname) is not raw:
+                fail(f"{what}.restore() did not put back the parameter")
+            out[what] = {"max_abs_err": err, "device": str(t.device)}
+    return out
+
+
+def phase_bert_lamb_recompute(torch, card: str) -> dict:
+    """BERT-base pretraining through fleet with LAMB, warmup then
+    polynomial decay, bf16 AMP and recompute (a checkpoint at every
+    encoder layer's output), unfused, dropout 0.1, 8 x 512, against the
+    same recipe without recompute from the same weights and seed; then
+    gradient merge at k_steps 2 and EMA / ModelAverage on the card."""
+    from paddle_tpu_torch.models import bert
+
+    t_phase = time.perf_counter()
+    c = LAMB_RC
+    cfg = bert.BertConfig.base()
+    cfg.fuse_stack = False
+    plain = _lamb_rc_run(torch, cfg, c, recompute=False)
+    # the same startup program and seed give both runs the same weights,
+    # which step 1's losses check
+    rc = _lamb_rc_run(torch, cfg, c, recompute=True)
+    want_lr = _lamb_lr_closed_form(c, c["steps"])
+    for what, r in (("plain", plain), ("recompute", rc)):
+        err = max(abs(a - b) for a, b in zip(r["lrs"], want_lr))
+        if err > 1e-9:
+            fail(f"bert_lamb_recompute {what}: learning rates {r['lrs']} "
+                 f"vs the closed form {want_lr} (max diff {err})")
+    if rc["losses"][0] != plain["losses"][0]:
+        fail(f"bert_lamb_recompute: step 1's loss {rc['losses'][0]!r} with "
+             f"recompute vs {plain['losses'][0]!r} without")
+    # one bf16 ulp of the run's largest loss: the two runs' gradients are
+    # sums taken in another order (one autograd pass a segment against a
+    # grad op an op), which moves later losses by a bf16 rounding or so
+    top = max(abs(x) for x in plain["losses"])
+    tol = 2.0 ** (math.floor(math.log2(top)) - 7)
+    diff = max(abs(a - b) for a, b in zip(rc["losses"], plain["losses"]))
+    if diff > tol:
+        fail(f"bert_lamb_recompute: losses {rc['losses']} with recompute "
+             f"vs {plain['losses']} without, {diff} > {tol}")
+    if not rc["peak_above_state_bytes"] < plain["peak_above_state_bytes"]:
+        fail(f"bert_lamb_recompute: recompute's peak "
+             f"{rc['peak_above_state_bytes']} is not below "
+             f"{plain['peak_above_state_bytes']}")
+    for k in ("bsh_fwd", "bsh_fwd_tc"):
+        if rc["launches_per_step"][k] != 2 * plain["launches_per_step"][k]:
+            fail(f"bert_lamb_recompute: {k} {rc['launches_per_step'][k]} a "
+                 f"step with recompute vs {plain['launches_per_step'][k]}")
+    gm = _lamb_gradient_merge(torch, cfg, c, {
+        n: plain["scope"].find_var(n) for n in plain["params"]})
+    avg = _ema_model_average_on_card(torch)
+    runs = {}
+    for what, r in (("plain", plain), ("recompute", rc)):
+        runs[what] = {k: r[k] for k in (
+            "losses", "lrs", "build_s", "step_ms", "launches_per_step",
+            "launches", "peak_bytes", "peak_above_state_bytes", "segments",
+            "profile")}
+        runs[what]["step_ms_median"] = statistics.median(r["step_ms"])
+        runs[what]["peak_gb"] = r["peak_bytes"] / 2 ** 30
+    out = {"phase": "bert_lamb_recompute", "card": card,
+           "config": {"vocab": cfg.vocab_size, "hidden": cfg.hidden_size,
+                      "layers": cfg.num_hidden_layers,
+                      "heads": cfg.num_attention_heads,
+                      "fuse_stack": False, "dropout": 0.1, "amp": "bf16",
+                      "optimizer": "fleet: Adam -> strategy.lamb, "
+                                   f"weight decay {c['weight_decay']}",
+                      "lr": f"linear_lr_warmup(polynomial_decay({c['lr']}, "
+                            f"{c['decay_steps']}, 0), {c['warmup']}, 0, "
+                            f"{c['lr']})",
+                      "recompute": "a checkpoint at every encoder layer",
+                      "batch": c["batch"], "seq": c["seq"],
+                      "max_preds": c["max_preds"], "steps": c["steps"],
+                      "warm_steps": c["warm"]},
+           "runs": runs, "lr_closed_form": want_lr,
+           "loss_tol": tol, "loss_max_diff": diff,
+           "gradient_merge": gm, "ema_model_average": avg,
+           "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
 def phase_verify(torch, card: str) -> dict:
     """FLAGS_program_verify=1 and FLAGS_op_callstack=1 on the card's
     programs: BERT-base training (fused, AMP), the frozen BERT-base infer
@@ -7356,6 +7770,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_verify(torch, env["card"])
     torch.cuda.empty_cache()
+    lamb_rc = phase_bert_lamb_recompute(torch, env["card"])["runs"]
+    torch.cuda.empty_cache()
     import tempfile
 
     with tempfile.TemporaryDirectory(prefix="chip-dist-") as tmp:
@@ -7378,11 +7794,14 @@ def main() -> int:
     dlaunches_f32 = dtrain["f32"]["launches"]
 
     def new_paths(key):
-        """The launches of ``key`` on the paths of slices 12 and 14."""
+        """The launches of ``key`` on the paths of slices 12, 14 and 18
+        (bert_lamb_recompute's 8 steps with recompute and without)."""
         return {"transformer_train": tlaunches[key],
                 "bert_long_train": llaunches[key],
                 "bert_long_train_flash": flaunches[key],
-                "fit_resume": rlaunches_fit[key]}
+                "fit_resume": rlaunches_fit[key],
+                "bert_lamb_recompute": lamb_rc["recompute"]["launches"][key],
+                "bert_lamb_no_recompute": lamb_rc["plain"]["launches"][key]}
 
     def dist_paths(key):
         """Rank 0's launches of ``key`` over dist_train's 3 steps."""

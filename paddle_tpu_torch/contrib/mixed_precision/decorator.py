@@ -6,10 +6,15 @@ the JAX package's ``contrib/mixed_precision/decorator.py``.
 
 bfloat16 (the default): the loss scale is 1.0 and there is no found_inf
 pass (bf16 has the f32 exponent range); the f32 gradients go straight to
-the optimizer.  The float16 branch (dynamic loss scaling, found_inf,
-``where(isfinite(g), g, 0)``) needs the isfinite_v2, where, logical_*,
-reduce_all, increment and greater_equal emitters, which the port does not
-have yet: ``use_bf16=False`` raises NotImplementedError (ROADMAP A6).
+the optimizer, whose update runs on the f32 master parameters.  It
+composes as the JAX package's does: inside ``RecomputeOptimizer``
+(fleet's order: AMP, then recompute), whose ``backward`` fuses the
+segments first, so ``rewrite_program`` places the casts among a fused
+segment's own ops (``fp16_utils``); and around any update, LAMB's
+included.  The float16 branch (dynamic loss scaling, found_inf,
+``where(isfinite(g), g, 0)``) still needs the isfinite_v2 and
+reduce_all emitters: ``use_bf16=False`` raises NotImplementedError
+(ROADMAP A7).
 """
 from __future__ import annotations
 
@@ -38,9 +43,8 @@ class OptimizerWithMixedPrecision:
         if not use_bf16:
             raise NotImplementedError(
                 "float16 AMP (loss scaling with found_inf) needs the "
-                "isfinite_v2, where, logical_*, reduce_all, increment and "
-                "greater_equal emitters, which are not ported yet; use "
-                "use_bf16=True")
+                "isfinite_v2 and reduce_all emitters, which are not ported "
+                "yet (ROADMAP A7); use use_bf16=True")
         self._optimizer = optimizer
         self._amp_lists = amp_lists or AutoMixedPrecisionLists()
         self._dest_dtype = "bfloat16"

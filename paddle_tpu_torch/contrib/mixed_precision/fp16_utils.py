@@ -22,9 +22,13 @@ def rewrite_program(program, amp_lists, dest_dtype="bfloat16"):
     inputs back to float32.  Shapes/dtypes of downstream vars are
     re-inferred op by op as the rewrite proceeds."""
     block = program.global_block()
-    dest = convert_dtype(dest_dtype)
-    f32 = convert_dtype("float32")
+    _rewrite_ops(block, amp_lists, convert_dtype(dest_dtype),
+                 convert_dtype("float32"))
+    program._amp_enabled = True
+    program._bump_version()
 
+
+def _rewrite_ops(block, amp_lists, dest, f32):
     # walk in program order, re-inferring each op after its (possible)
     # input rewiring: downstream cast decisions then see current dtypes
     # (a white op's bf16 output decides where black-op casts fire)
@@ -34,14 +38,34 @@ def rewrite_program(program, amp_lists, dest_dtype="bfloat16"):
         if op.type == "cast":
             i += 1
             continue
+        if op.type == "recompute_segment":
+            _rewrite_segment(block, op, amp_lists, dest, f32)
+            i += 1
+            continue
         if op.type in amp_lists.white_list:
             i += _cast_op_inputs(block, i, op, want=dest, source_kind=f32)
         elif op.type in amp_lists.black_list:
             i += _cast_op_inputs(block, i, op, want=f32, source_kind=dest)
         framework.infer_op_outputs(block, op)
         i += 1
-    program._amp_enabled = True
-    program._bump_version()
+
+
+def _rewrite_segment(block, op, amp_lists, dest, f32):
+    """The same walk inside a fused recompute segment (RecomputeOptimizer
+    fuses before the AMP decorator's backward rewrites): the casts land
+    among the segment's own ops, so they are recomputed with it and the
+    segment computes what the unfused program does.  (The JAX package's
+    walk passes a segment by, leaving its ops in float32.)"""
+    outer = block.ops
+    block.ops = list(op.attrs["recompute_sub_ops"])
+    try:
+        _rewrite_ops(block, amp_lists, dest, f32)
+        op.attrs["recompute_sub_ops"] = block.ops
+    finally:
+        block.ops = outer
+    op.attrs["recompute_out_metas"] = [
+        (tuple(block.var(n).shape), block.var(n).dtype)
+        for n in op.attrs["recompute_out_names"]]
 
 
 # input slots AMP must NEVER down-cast on white-listed ops: running

@@ -77,13 +77,25 @@ feedback), or LocalSGD (``_DCNLocalSGDOptimizer``: the mean over "dp"
 only, per-slice parameters and accumulators averaged over "dcn" every
 k steps); no ``c_allreduce_sum`` of fleet's own.
 
+The training-breadth strategies, as the JAX package composes them:
+``strategy.lamb`` / ``strategy.lars`` swap the inner optimizer for
+``LambOptimizer`` / ``LarsMomentumOptimizer`` (its learning rate, a
+schedule's Variable too, carried over); then AMP decorates it,
+``strategy.recompute`` wraps it in ``RecomputeOptimizer`` (the
+checkpoints of ``recompute_configs``) and ``strategy.gradient_merge``
+in ``GradientMergeOptimizer``, with the gradient sync around them and
+the pipeline outermost.  LAMB and LARS take norms of the whole
+parameter: under ZeRO their ops sum the rows' squares over "dp"
+(``ops/optimizer_ops.py``); a parameter tp, pp or ep split is refused
+for them (``_finish_param_sharding``), and so is gradient merge with tp,
+pp or ep.
+
 Refused by name (``_reject_unsupported``, ``_check_axes``; none is
-silently ignored): tp together with sp or pp (ROADMAP A4 item 6); lamb
-and lars, recompute and gradient merge (A7); the parameter-server roles
-(A6); and what the JAX package refuses: dgc or localsgd without
-hybrid_dcn, hybrid_dcn with tp, pp, sp, ep, sharding or gradient merge,
-a mesh whose "dcn" axis does not match hybrid_dcn.  elastic and auto
-raise as in the JAX package.
+silently ignored): tp together with sp or pp (ROADMAP A4 item 6); the
+parameter-server roles (A6); and what the JAX package refuses: dgc or
+localsgd without hybrid_dcn, hybrid_dcn with tp, pp, sp, ep, sharding
+or gradient merge, a mesh whose "dcn" axis does not match hybrid_dcn.
+elastic and auto raise as in the JAX package.
 """
 from __future__ import annotations
 
@@ -105,7 +117,6 @@ _TP_MIX = "ROADMAP A4, next slice item 6: tp together with sp or pp"
 _TP_SLICE = "the tensor-parallel slice of ROADMAP A4 runs Megatron regions " \
             "only"
 _PS = "ROADMAP A6: the parameter server and the job control plane"
-_A7 = "ROADMAP A7: training breadth"
 
 
 def _distributed():
@@ -224,6 +235,12 @@ class DistributedOptimizer:
         ep_active = (strategy.expert_parallel and "ep" in mesh.axis_names
                      and mesh.shape["ep"] > 1)
         dp = mesh.shape.get("dp", 1)
+        if strategy.gradient_merge and (tp_active or pp_active
+                                        or ep_active):
+            raise NotImplementedError(
+                "strategy.gradient_merge with tp, pp or ep: its "
+                "accumulators are whole parameters, the gradients a "
+                "rank's blocks; not ported (ROADMAP A7)")
         # marks the attention ops BEFORE backward: the grad ops snapshot
         # the forward attrs, so the backward ring is sequence-parallel too
         if sp_active:
@@ -232,12 +249,26 @@ class DistributedOptimizer:
         if tp_active:
             apply_tensor_parallel_rules(program,
                                         strategy.tensor_parallel_rules, mesh)
+        inner = _swap_optimizer(inner, strategy)
         if strategy.amp:
             from ..contrib.mixed_precision import decorate
 
             amp_cfg = dict(strategy.amp_configs or {})
             amp_cfg.pop("bf16_grad_sync", None)  # a dcn-mode knob
             inner = decorate(inner, **amp_cfg)
+        if strategy.recompute and strategy.recompute_configs.get(
+                "checkpoints"):
+            from ..fluid.optimizer import RecomputeOptimizer
+
+            inner = RecomputeOptimizer(inner)
+            inner._set_checkpoints(strategy.recompute_configs["checkpoints"])
+        if strategy.gradient_merge:
+            from ..fluid.optimizer import GradientMergeOptimizer
+
+            cfg = strategy.gradient_merge_configs
+            inner = GradientMergeOptimizer(inner,
+                                           k_steps=cfg.get("k_steps", 1),
+                                           avg=cfg.get("avg", True))
         if dcn >= 2:
             # the JAX package's manual path: the c_dcn_* ops do the whole
             # gradient sync, dp mean included
@@ -294,15 +325,41 @@ def distributed_optimizer(optimizer, strategy: Optional[DistributedStrategy]
     return DistributedOptimizer(optimizer, strategy)
 
 
+def _swap_optimizer(inner, strategy):
+    """strategy.lamb / strategy.lars: the inner optimizer replaced, as the
+    reference's fleet/meta_optimizers/{lamb,lars}_optimizer.py do; its
+    learning rate (a float or a schedule's Variable) carries over."""
+    lr = getattr(inner, "_learning_rate", 0.001)
+    if strategy.lamb:
+        from ..fluid.optimizer import LambOptimizer
+
+        cfg = strategy.lamb_configs or {}
+        return LambOptimizer(
+            learning_rate=lr,
+            lamb_weight_decay=cfg.get("lamb_weight_decay", 0.01),
+            beta1=cfg.get("beta1", 0.9), beta2=cfg.get("beta2", 0.999),
+            epsilon=cfg.get("epsilon", 1e-6))
+    if strategy.lars:
+        from ..fluid.optimizer import LarsMomentumOptimizer
+
+        cfg = strategy.lars_configs or {}
+        return LarsMomentumOptimizer(
+            learning_rate=lr,
+            momentum=cfg.get("momentum", getattr(inner, "_momentum", 0.9)),
+            lars_coeff=cfg.get("lars_coeff", 0.001),
+            lars_weight_decay=cfg.get("lars_weight_decay", 0.0005),
+            epsilon=cfg.get("epsilon", 0))
+    return inner
+
+
 def _backward_params_grads(inner, loss, startup_program, parameter_list,
                            no_grad_set):
     """backward() across inner-optimizer flavors: the AMP decorator
     returns (scaled_loss, params_grads), a plain optimizer params_grads."""
-    res = inner.backward(loss, startup_program, parameter_list, no_grad_set)
-    if (isinstance(res, tuple) and len(res) == 2
-            and isinstance(res[1], list)):
-        return res[1]
-    return res
+    from ..fluid.optimizer import _params_grads
+
+    return _params_grads(inner.backward(loss, startup_program,
+                                        parameter_list, no_grad_set))
 
 
 class _DCNGradSyncOptimizer:
@@ -519,12 +576,6 @@ def _reject_unsupported(strategy):
     queue item that brings it, and so does every combination the JAX
     package refuses, with its reason."""
     refused = (
-        (strategy.lamb, "lamb", _A7 + " (the lamb update op)"),
-        (strategy.lars, "lars", _A7 + " (the lars_momentum update op)"),
-        (strategy.recompute, "recompute",
-         _A7 + " (RecomputeOptimizer)"),
-        (strategy.gradient_merge, "gradient_merge",
-         _A7 + " (GradientMergeOptimizer)"),
         (int(strategy.nccl_comm_num) != 1, "nccl_comm_num",
          "one communicator an axis; bucketing is perf_opt work"),
         (int(strategy.hierarchical_allreduce_inter_nranks) != 1,
@@ -548,7 +599,8 @@ def _reject_unsupported(strategy):
         for flag, name in ((strategy.tensor_parallel, "tensor_parallel"),
                            (strategy.pipeline, "pipeline"),
                            (strategy.sequence_parallel, "sequence_parallel"),
-                           (strategy.expert_parallel, "expert_parallel")):
+                           (strategy.expert_parallel, "expert_parallel"),
+                           (strategy.gradient_merge, "gradient_merge")):
             if flag:
                 raise NotImplementedError(
                     f"strategy.hybrid_dcn composes with data parallelism "
@@ -600,6 +652,8 @@ _TP_ELEMENTWISE = ("gelu", "relu", "tanh", "sigmoid", "silu", "cast",
 _REDUCTIONS = ("squared_l2_norm", "clip_by_norm", "reduce_sum",
                "reduce_mean", "reduce_max", "reduce_min", "mean", "p_norm")
 _COLUMN, _ROW, _BIAS = (None, "tp"), ("tp", None), ("tp",)
+# update ops that take norms over a whole parameter or its gradient
+_NORM_UPDATES = ("lamb", "lars_momentum", "dpsgd")
 _SPLIT = "split"      # an activation whose last dim is this rank's block
 
 
@@ -713,6 +767,13 @@ def _finish_param_sharding(program, startup):
         pname = (op.inputs.get("Param") or [None])[0]
         if pname not in specs or not split(specs[pname]):
             continue
+        if op.type in _NORM_UPDATES:
+            raise NotImplementedError(
+                f"op {op.type!r} takes norms of the whole of {pname!r}, "
+                f"which each rank holds a block of (sharded on "
+                f"{', '.join(split(specs[pname]))}); the port sums them "
+                f"over dp for ZeRO only: use another optimizer with tp, pp "
+                f"or ep")
         pshape = tuple(block._find_var_recursive(pname).shape)
         for n in op.input_names():
             v = block._find_var_recursive(n)

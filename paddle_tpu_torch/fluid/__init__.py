@@ -4,7 +4,8 @@ Parity surface: python/paddle/fluid/__init__.py in the reference, ported
 from the JAX package's ``fluid``: the same Program / layers / Executor
 API, executing op by op in torch on one device (the CUDA card unless the
 Executor is given ``device="cpu"``), with ``append_backward``, the
-SGD / Momentum / Adam / AdamW optimizers, the static verifier
+optimizers and meta-optimizers, the in-graph learning-rate schedules
+(exported into ``layers`` as the reference does), the static verifier
 (``analysis``) and preemption-safe checkpoints (``CheckpointManager``).
 Dygraph mode (only ``dygraph.save_dygraph`` / ``load_dygraph`` so far)
 and the dataset / reader front ends wait for later slices (ROADMAP).
@@ -18,6 +19,7 @@ from . import (  # noqa: F401
     initializer,
     io,
     layers,
+    learning_rate_scheduler,
     optimizer,
     param_attr,
     regularizer,
@@ -25,6 +27,12 @@ from . import (  # noqa: F401
 )
 from . import analysis, checkpoint, dygraph, monitor  # noqa: F401
 from .checkpoint import CheckpointManager  # noqa: F401
+
+for _n in ("noam_decay", "exponential_decay", "natural_exp_decay",
+           "inverse_time_decay", "polynomial_decay", "piecewise_decay",
+           "cosine_decay", "linear_lr_warmup"):
+    setattr(layers, _n, getattr(learning_rate_scheduler, _n))
+del _n
 from .backward import append_backward, calc_gradient, gradients  # noqa: F401
 from .executor import Executor, Scope, global_scope, scope_guard  # noqa: F401
 from .flags import get_flags, set_flags  # noqa: F401

@@ -345,8 +345,8 @@ class Program:
 
     def clone(self, for_test: bool = False) -> "Program":
         """Deep-copy the program. for_test=True marks test mode: every op
-        holding an ``is_test`` attr (dropout, fused attention) gets
-        ``is_test=True``."""
+        holding an ``is_test`` attr (dropout, fused attention), inside a
+        fused recompute segment too, gets ``is_test=True``."""
         p = Program.__new__(Program)
         p.blocks = [Block(p, b.idx, b.parent_idx) for b in self.blocks]
         p.current_block_idx = 0
@@ -366,10 +366,13 @@ class Program:
             for op in b.ops:
                 attrs = {k: (v if not isinstance(v, Block) else p.blocks[v.idx])
                          for k, v in op.attrs.items()}
-                nop = Operator(nb, op.type, inputs=copy.deepcopy(op.inputs),
-                               outputs=copy.deepcopy(op.outputs), attrs=attrs)
-                if for_test and "is_test" in nop.attrs:
-                    nop.attrs["is_test"] = True
+                nop = _clone_op(nb, op, attrs, for_test)
+                if "recompute_sub_ops" in attrs:
+                    # a fused recompute segment's own ops: copied (no
+                    # aliasing with the source program), is_test inside too
+                    nop.attrs["recompute_sub_ops"] = [
+                        _clone_op(nb, sop, dict(sop.attrs), for_test)
+                        for sop in attrs["recompute_sub_ops"]]
                 nb.ops.append(nop)
                 for n in nop.output_names():
                     fv = nb._find_var_recursive(n)
@@ -380,6 +383,14 @@ class Program:
 
     def __repr__(self):
         return "\n".join(repr(b) for b in self.blocks)
+
+
+def _clone_op(block, op, attrs, for_test):
+    nop = Operator(block, op.type, inputs=copy.deepcopy(op.inputs),
+                   outputs=copy.deepcopy(op.outputs), attrs=attrs)
+    if for_test and "is_test" in nop.attrs:
+        nop.attrs["is_test"] = True
+    return nop
 
 
 # ---------------------------------------------------------------------------
@@ -400,6 +411,8 @@ def compute_op_output_metas(block: Block, op: Operator):
         slot: [_var_meta(block, n) for n in names]
         for slot, names in op.inputs.items()
     }
+    if spec.infer_shape is not None:
+        return spec.infer_shape(in_metas, op.attrs)
     has_dynamic = any(
         (m[0] is not None and -1 in m[0]) for ms in in_metas.values() for m in ms
     )

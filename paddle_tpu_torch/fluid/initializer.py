@@ -3,7 +3,7 @@
 TruncatedNormalInitializer, XavierInitializer, NumpyArrayInitializer),
 ported from the JAX package's ``fluid/initializer.py``.  Each appends an
 init op to the startup program; the Executor runs it once and the value
-lives in the Scope.  MSRA and Bilinear wait for the ResNet slice.
+lives in the Scope.  MSRA and Bilinear are not ported yet (ROADMAP A7).
 """
 from __future__ import annotations
 

@@ -269,6 +269,21 @@ elementwise_add = _elementwise("elementwise_add")
 elementwise_sub = _elementwise("elementwise_sub")
 elementwise_mul = _elementwise("elementwise_mul")
 elementwise_div = _elementwise("elementwise_div")
+elementwise_min = _elementwise("elementwise_min")
+elementwise_max = _elementwise("elementwise_max")
+elementwise_pow = _elementwise("elementwise_pow")
+elementwise_mod = _elementwise("elementwise_mod")
+elementwise_floordiv = _elementwise("elementwise_floordiv")
+
+
+def where(condition, x=None, y=None):
+    """paddle.where / fluid.layers.where: the elementwise select."""
+    helper = LayerHelper("where")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="where",
+                     inputs={"Condition": [condition], "X": [x], "Y": [y]},
+                     outputs={"Out": [out]})
+    return out
 
 
 def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):

@@ -1,5 +1,6 @@
 """Tensor-creation layers: data, create_parameter, fill_constant, cast,
-assign.
+assign; and the comparison and logical layers and increment, which the
+learning-rate schedules and the meta-optimizers build with.
 
 Parity surface: python/paddle/fluid/layers/tensor.py in the reference;
 ported from the JAX package's ``fluid/layers/tensor.py``.
@@ -77,3 +78,71 @@ def assign(input, output=None):
     helper.append_op(type="assign", inputs={"X": [input]},
                      outputs={"Out": [output]})
     return output
+
+
+# -- comparisons (reference layers/control_flow.py less_than etc.) ----------
+
+
+def _compare(op_type, x, y, cond=None):
+    helper = LayerHelper(op_type)
+    if cond is None:
+        cond = helper.create_variable_for_type_inference(dtype="bool")
+    helper.append_op(type=op_type, inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [cond]})
+    cond.stop_gradient = True
+    return cond
+
+
+def less_than(x, y, cond=None, name=None):
+    return _compare("less_than", x, y, cond)
+
+
+def less_equal(x, y, cond=None, name=None):
+    return _compare("less_equal", x, y, cond)
+
+
+def greater_than(x, y, cond=None, name=None):
+    return _compare("greater_than", x, y, cond)
+
+
+def greater_equal(x, y, cond=None, name=None):
+    return _compare("greater_equal", x, y, cond)
+
+
+def equal(x, y, cond=None, name=None):
+    return _compare("equal", x, y, cond)
+
+
+def not_equal(x, y, cond=None, name=None):
+    return _compare("not_equal", x, y, cond)
+
+
+def logical_and(x, y, out=None, name=None):
+    return _compare("logical_and", x, y, out)
+
+
+def logical_or(x, y, out=None, name=None):
+    return _compare("logical_or", x, y, out)
+
+
+def logical_xor(x, y, out=None, name=None):
+    return _compare("logical_xor", x, y, out)
+
+
+def logical_not(x, out=None, name=None):
+    helper = LayerHelper("logical_not")
+    if out is None:
+        out = helper.create_variable_for_type_inference(dtype="bool")
+    helper.append_op(type="logical_not", inputs={"X": [x]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def increment(x, value=1.0, in_place=True):
+    """reference layers/control_flow.py increment: the step bump."""
+    helper = LayerHelper("increment")
+    out = x if in_place else helper.create_variable_for_type_inference(
+        x.dtype)
+    helper.append_op(type="increment", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"step": float(value)})
+    return out

@@ -14,7 +14,7 @@ Executor on the model's device (the CUDA card unless ``device="cpu"``).
 ``FFN``, ``PrePostProcessLayer``, ``TransformerEncoder``,
 ``TransformerDecoder``).  Not ported yet: ``hapi.datasets``,
 ``hapi.vision``, the RNN cells, ``TransformerCell``, beam search and the
-CRF (ROADMAP A9/A11); ``fit``'s elastic ``reshard`` (ROADMAP A4/A6) and
+CRF (ROADMAP A9); ``fit``'s elastic ``reshard`` (ROADMAP A4/A6) and
 the numerics guards (FLAGS_check_numerics, ROADMAP A8) raise where they
 are asked for.
 """

@@ -8,6 +8,7 @@ from . import registry  # noqa: F401
 from . import (  # noqa: F401
     attention,
     collective_ops,
+    compare_ops,
     creation,
     encoder_stack,
     manipulation,
@@ -15,6 +16,7 @@ from . import (  # noqa: F401
     moe_ops,
     nn_ops,
     optimizer_ops,
+    recompute,
     reduce_ops,
 )
 from .registry import EmitContext, get, register  # noqa: F401

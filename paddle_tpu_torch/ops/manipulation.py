@@ -1,5 +1,6 @@
 """Tensor manipulation ops that BERT uses: reshape, transpose, slice,
-unsqueeze, gather.
+unsqueeze, gather; and where, the select of the meta-optimizers' masked
+updates.
 
 Parity surface: reference reshape_op.cc, transpose_op.cc, slice_op.cc,
 unsqueeze_op.cc, gather_op.cc; ported from the JAX package's
@@ -180,3 +181,15 @@ def take(x, idx, axis=0):
 def gather(ctx, ins, attrs):
     x, idx = ins["X"][0], ins["Index"][0]
     return {"Out": [take(x, idx.reshape(-1), attrs.get("axis", 0) % x.dim())]}
+
+
+@register("where")
+def where(ctx, ins, attrs):
+    """jnp.where(cond, x, y): X and Y promoted, a non-bool condition true
+    where nonzero, every operand broadcast (GradientMerge's (1,) step
+    condition against a parameter of any shape)."""
+    cond, x, y = ins["Condition"][0], ins["X"][0], ins["Y"][0]
+    if cond.dtype != torch.bool:
+        cond = cond != 0
+    dt = torch.promote_types(x.dtype, y.dtype)
+    return {"Out": [torch.where(cond, x.to(dt), y.to(dt))]}

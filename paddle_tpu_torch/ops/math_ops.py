@@ -1,7 +1,9 @@
 """Dense math ops: elementwise (with paddle axis-broadcast), the matmul
 family, the activations and softmax that BERT and ResNet use (exp and
-log for the Transformer NMT's label smoothing), and the
-clip / norm ops the optimizer's gradient clipping and regularizers emit.
+log for the Transformer NMT's label smoothing), the unary and binary
+ops the learning-rate schedules and the meta-optimizers emit (min, max,
+mod, pow, floor, cos, ...), and the clip / norm ops the optimizer's
+gradient clipping and regularizers emit.
 
 Parity surface: reference operators/elementwise/*, matmul_op.cc,
 mul_op.cc, activation_op.cc, softmax_op.cc, clip_op.cc,
@@ -43,10 +45,69 @@ def _ew(name, fn):
     return _emit
 
 
+def _promoted(x, y):
+    """Both operands in their promoted dtype (bf16 x f32 -> f32, int32 x
+    f32 -> f32, int8 x uint8 -> int16), as jnp promotes before a binary
+    op or a product."""
+    dt = torch.promote_types(x.dtype, y.dtype)
+    return x.to(dt), y.to(dt)
+
+
+def _binary(fn):
+    return lambda x, y: fn(*_promoted(x, y))
+
+
+def _unbroadcast(g, shape):
+    """``g`` summed down to ``shape`` over the dims a broadcast grew."""
+    lead = g.dim() - len(shape)
+    g = g.sum(dim=tuple(range(lead))) if lead else g
+    dims = tuple(i for i, n in enumerate(shape) if n == 1 and g.shape[i] != 1)
+    return g.sum(dim=dims, keepdim=True) if dims else g
+
+
+class _MinMax(torch.autograd.Function):
+    """torch.minimum / maximum whose gradient follows lax.min / lax.max:
+    an operand gets the cotangent where it equals the result, half of it
+    where both do (a tie, -0.0 against 0.0 included), and none where the
+    result is NaN (torch would pass it to the NaN operand)."""
+
+    @staticmethod
+    def forward(ctx, x, y, fn):
+        z = fn(x, y)
+        ctx.save_for_backward(x, y, z)
+        return z
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y, z = ctx.saved_tensors
+        xz, yz = x == z, y == z
+        half = torch.where(xz & yz, 0.5, 1.0).to(g.dtype)
+        zero = torch.zeros((), dtype=g.dtype, device=g.device)
+        return (_unbroadcast(torch.where(xz, g * half, zero), x.shape),
+                _unbroadcast(torch.where(yz, g * half, zero), y.shape), None)
+
+
+def _min_max(fn):
+    def op(x, y):
+        x, y = _promoted(x, y)
+        if x.is_floating_point() and (x.requires_grad or y.requires_grad):
+            return _MinMax.apply(x, y, fn)
+        return fn(x, y)
+
+    return op
+
+
 _ew("elementwise_add", torch.add)
 _ew("elementwise_sub", torch.sub)
 _ew("elementwise_mul", torch.mul)
 _ew("elementwise_div", torch.true_divide)
+# jnp.minimum / maximum (NaN wins; the gradient lax.min's), jnp.mod and
+# floor_divide (the divisor's sign, floor rounding), jnp.power
+_ew("elementwise_min", _min_max(torch.minimum))
+_ew("elementwise_max", _min_max(torch.maximum))
+_ew("elementwise_mod", _binary(torch.remainder))
+_ew("elementwise_floordiv", _binary(torch.floor_divide))
+_ew("elementwise_pow", _binary(torch.pow))
 
 
 @register("sum")
@@ -56,13 +117,6 @@ def sum_op(ctx, ins, attrs):
     for x in ins["X"][1:]:
         out = out + x
     return {"Out": [out]}
-
-
-def _promoted(x, y):
-    """Both operands in their promoted dtype (bf16 x f32 -> f32), as
-    jnp.matmul promotes before the product."""
-    dt = torch.promote_types(x.dtype, y.dtype)
-    return x.to(dt), y.to(dt)
 
 
 def _tp_in(ctx, attrs, x):
@@ -148,6 +202,53 @@ def _sign(x, a):
 
 
 _act("sign", _sign)
+
+
+def _inexact(x):
+    """An integer or bool X in float32, as jnp's inexact-only functions
+    (cos, sin) take it."""
+    return x if x.is_floating_point() else x.float()
+
+
+def _integral_kept(fn, name):
+    """jnp.floor / ceil / round: an integer X is returned as it is (a
+    bool one too, but round refuses it with ValueError)."""
+
+    def op(x, a):
+        if x.is_floating_point():
+            return fn(x)
+        if x.dtype == torch.bool and name == "round":
+            raise ValueError("round does not accept dtype bool")
+        return x
+
+    return op
+
+
+def _rsqrt(x, a):
+    """lax.rsqrt refuses an integer or bool X (TypeError)."""
+    if not x.is_floating_point():
+        raise TypeError(f"rsqrt does not accept dtype {x.dtype}")
+    return torch.rsqrt(x)
+
+
+_act("abs", lambda x, a: x if x.dtype == torch.bool else torch.abs(x))
+_act("floor", _integral_kept(torch.floor, "floor"))
+_act("ceil", _integral_kept(torch.ceil, "ceil"))
+_act("round", _integral_kept(torch.round, "round"))  # half to even
+_act("cos", lambda x, a: torch.cos(_inexact(x)))
+_act("sin", lambda x, a: torch.sin(_inexact(x)))
+_act("reciprocal", lambda x, a: torch.reciprocal(_inexact(x)))
+_act("rsqrt", _rsqrt)
+# jnp.square of a bool X is int32
+_act("square", lambda x, a: torch.square(
+    x.to(torch.int32) if x.dtype == torch.bool else x))
+
+
+@register("pow")
+def pow_op(ctx, ins, attrs):
+    """jnp.power(x, factor): an integer X with a float factor gives
+    float32, with an int factor stays integer."""
+    return {"Out": [torch.pow(ins["X"][0], attrs.get("factor", 1.0))]}
 # jax.nn.gelu of an integer or bool X computes in float32
 _act("gelu", lambda x, a: F.gelu(
     x if x.is_floating_point() else x.float(),

@@ -72,6 +72,9 @@ class EmitContext:
         self._draws = 0
         # forward key -> LIFO of (outs, fwd_ins) awaiting their grad op
         self.vjp_cache: Dict[tuple, list] = {}
+        # recompute segment key -> the draw counter its first run began
+        # at, where its replay begins again (ops/recompute.py)
+        self.segment_draws: Dict[int, int] = {}
 
     def _generator(self, seed: int) -> Optional[torch.Generator]:
         if self.device.type == "meta":
@@ -109,19 +112,30 @@ class OpSpec:
     stop_gradient: bool = False
     # True for lazily synthesized "<base>_grad" specs (generic vjp)
     generic_vjp: bool = False
+    # a forward the primal-reuse capture skips (and its grad op): the
+    # forward runs without autograd and the grad op re-runs it
+    # (recompute_segment: keeping the forward's graph would keep every
+    # activation the recompute exists to drop)
+    no_capture: bool = False
+    # optional fn(in_metas, attrs) -> {slot: [(shape, dtype)]} in place of
+    # running the emitter on meta tensors
+    infer_shape: Optional[Callable] = None
 
 
 _REGISTRY: Dict[str, OpSpec] = {}
 
 
-def register(type: str, *, no_vjp_grad=False, stop_gradient=False):
+def register(type: str, *, no_vjp_grad=False, stop_gradient=False,
+             no_capture=False, infer_shape=None):
     """Decorator: register ``emit`` for op ``type`` (a grad maker is set
     after, by ``set_grad_maker``)."""
 
     def deco(emit_fn):
         _REGISTRY[type] = OpSpec(type=type, emit=emit_fn,
                                  no_vjp_grad=no_vjp_grad,
-                                 stop_gradient=stop_gradient)
+                                 stop_gradient=stop_gradient,
+                                 no_capture=no_capture,
+                                 infer_shape=infer_shape)
         return emit_fn
 
     return deco
@@ -140,7 +154,7 @@ def get(type: str) -> Optional[OpSpec]:
         base = _REGISTRY.get(type[: -len("_grad")])
         if base is not None and not base.no_vjp_grad:
             spec = OpSpec(type=type, emit=_make_generic_grad_emit(base),
-                          generic_vjp=True)
+                          generic_vjp=True, no_capture=base.no_capture)
             _REGISTRY[type] = spec
             return spec
     return None
@@ -263,12 +277,14 @@ def emit_ops(ctx: EmitContext, ops, env: Dict[str, Any],
     The caller runs the list under ``torch.no_grad()`` (or inference
     mode when it holds no grad op); autograd is switched on here only for
     the forward ops whose generic grad op appears later in the list
-    (primal reuse, see the module note) and inside the grad ops."""
+    (primal reuse, see the module note; a ``no_capture`` op is never
+    captured) and inside the grad ops."""
     wanted: Dict[tuple, int] = {}
     for op in ops:
         if op.type.endswith("_grad"):
             spec = get(op.type)
-            if spec is not None and spec.generic_vjp:
+            if spec is not None and spec.generic_vjp \
+                    and not spec.no_capture:
                 k = _fwd_key_from_grad(op)
                 wanted[k] = wanted.get(k, 0) + 1
 
@@ -288,13 +304,13 @@ def emit_ops(ctx: EmitContext, ops, env: Dict[str, Any],
             if vals:
                 ins[slot] = vals
         outs = None
-        if spec.generic_vjp:
+        if spec.generic_vjp and not spec.no_capture:
             cached = ctx.vjp_cache.get(_fwd_key_from_grad(op))
             if cached:
                 f_outs, fwd_ins = cached.pop()
                 outs = _apply_vjp(ins, f_outs, fwd_ins)
         elif (not spec.no_vjp_grad and not spec.stop_gradient
-              and spec.grad_maker is None
+              and spec.grad_maker is None and not spec.no_capture
               and wanted.get(_fwd_key_from_fwd(op), 0) > 0):
             key = _fwd_key_from_fwd(op)
             fwd_ins = _leaf_inputs(ins)

@@ -24,7 +24,9 @@ JAX package's startup scope copied in (``Scope.from_numpy``).
 * Refusals: every unported strategy field and mesh axis raises naming
   its queue item, as do the parameter-server roles; a mesh whose size is
   not the world size raises.  (Tensor and pipeline parallelism are held
-  in test_torch_tensor_parallel.py and test_torch_pipeline.py.)
+  in test_torch_tensor_parallel.py and test_torch_pipeline.py; lamb,
+  lars, recompute and gradient merge, refused until the training-breadth
+  slice, in test_torch_fleet_breadth.py and test_torch_meta_optimizers.py.)
 """
 from __future__ import annotations
 
@@ -254,9 +256,6 @@ REFUSED = {"tensor_parallel": ("tensor_parallel", True, "item 6",
                           {"mesh_axes": {"dcn": 2, "sp": 1}}),
            "dgc": ("dgc", True, "hybrid_dcn"),
            "localsgd": ("localsgd", True, "hybrid_dcn"),
-           "lamb": ("lamb", True, "A7"), "lars": ("lars", True, "A7"),
-           "recompute": ("recompute", True, "A7"),
-           "gradient_merge": ("gradient_merge", True, "A7"),
            "nccl_comm_num": ("nccl_comm_num", 2, "perf_opt"),
            "hierarchical_allreduce": ("hierarchical_allreduce_inter_nranks",
                                       2, "hybrid_dcn"),

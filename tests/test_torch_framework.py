@@ -331,6 +331,90 @@ EMIT = {
        for k, (x, a) in _MAX_CASES.items()},
     **{f"{op}_{k}": (op, {"X": x}, {})
        for op in ("exp", "log") for k, x in _UNARY_CASES.items()},
+    # the training-breadth slice: what the learning-rate schedules and
+    # the meta-optimizers emit, over f32 (NaN, infinities, -0.0), int32,
+    # bool and bf16 inputs, jnp's promotions between them
+    **{f"{op}_{k}": (op, {"X": x}, {})
+       for op in ("abs", "floor", "ceil", "round", "cos", "sin",
+                  "reciprocal", "rsqrt", "square")
+       for k, x in _UNARY_CASES.items() if (op, k) != ("rsqrt", "int")},
+    **{f"{op}_bool": (op, {"X": np.array([True, False, True])}, {})
+       for op in ("abs", "floor", "ceil", "cos", "square", "reciprocal")},
+    "pow_half": ("pow", {"X": np.abs(_f(3, 4)) + 0.1}, {"factor": 0.5}),
+    "pow_neg": ("pow", {"X": np.abs(_f(3, 4)) + 0.1}, {"factor": -0.5}),
+    "pow_int_float_factor": ("pow", {"X": np.array([1, 2, -3], np.int32)},
+                             {"factor": 2.0}),
+    "pow_int_int_factor": ("pow", {"X": np.array([1, 2, -3], np.int32)},
+                           {"factor": 3}),
+    "pow_bf16": ("pow", {"X": _Bf16(np.abs(_f(3, 4)))}, {"factor": 2.0}),
+    **{f"{op}_{k}": (op, ins, {"axis": -1})
+       for op in ("elementwise_min", "elementwise_max", "elementwise_mod",
+                  "elementwise_floordiv", "elementwise_pow")
+       for k, ins in {
+           "f32": {"X": _f(3, 4), "Y": np.abs(_f(3, 4)) + 0.5},
+           "neg_divisor": {"X": _f(3, 4) * 4, "Y": -np.abs(_f(4)) - 0.5},
+           "int": {"X": np.array([[7, -7, 3], [0, 5, -9]], np.int32),
+                   "Y": np.array([[2, 3, -4], [5, 2, 2]], np.int32)},
+           "int_f32": {"X": np.array([3, -7, 2], np.int32),
+                       "Y": np.array([1.5, 2.0, 0.5], np.float32)},
+           "bf16": {"X": _bf16(2, 3), "Y": _Bf16(np.abs(_f(2, 3)) + 0.5)},
+           "bf16_f32": {"X": _bf16(2, 3), "Y": np.abs(_f(2, 3)) + 0.5},
+       }.items() if not (op == "elementwise_pow"
+                         and k in ("neg_divisor", "int"))},
+    # an int to a negative int power is undefined in jnp
+    "elementwise_pow_int": ("elementwise_pow", {
+        "X": np.array([[7, -7, 3], [0, 5, -9]], np.int32),
+        "Y": np.array([[2, 3, 0], [5, 1, 2]], np.int32)}, {}),
+    "elementwise_min_nan_ties": ("elementwise_min", {
+        "X": np.array([1.0, np.nan, 2.0, -0.0], np.float32),
+        "Y": np.array([1.0, 0.0, np.nan, 0.0], np.float32)}, {}),
+    "elementwise_max_axis": ("elementwise_max",
+                             {"X": _f(2, 3, 4), "Y": _f(3)}, {"axis": 1}),
+    **{f"{op}_{k}": (op, ins, {})
+       for op in ("equal", "not_equal", "less_than", "less_equal",
+                  "greater_than", "greater_equal", "maximum", "minimum")
+       for k, ins in {
+           "f32": {"X": np.array([1.0, 2.0, np.nan, -0.0, 3.0], np.float32),
+                   "Y": np.array([1.0, 3.0, np.nan, 0.0, 2.0], np.float32)},
+           "int_f32": {"X": np.array([1, 2, 3], np.int32),
+                       "Y": np.array([1.0, 2.5, 2.5], np.float32)},
+           "bf16": {"X": _bf16(3, 4), "Y": _bf16(3, 4)},
+           "broadcast": {"X": np.array([[1, 2], [3, 4]], np.int32),
+                         "Y": np.array([2], np.int32)},
+       }.items()},
+    **{f"{op}_{k}": (op, ins, {})
+       for op in ("logical_and", "logical_or", "logical_xor")
+       for k, ins in {
+           "bool": {"X": np.array([True, True, False, False]),
+                    "Y": np.array([True, False, True, False])},
+           "f32": {"X": np.array([1.0, 0.0, -2.0, 0.0], np.float32),
+                   "Y": np.array([3.0, 0.0, 0.0, np.nan], np.float32)},
+       }.items()},
+    "logical_not_bool": ("logical_not", {"X": np.array([True, False])}, {}),
+    "logical_not_int": ("logical_not", {"X": np.array([0, 3, -1],
+                                                      np.int32)}, {}),
+    "allclose_true": ("allclose", {"Input": np.array([1.0, 2.0], np.float32),
+                                   "Other": np.array([1.0, 2.0 + 1e-6],
+                                                     np.float32)}, {}),
+    "allclose_false_nan": ("allclose", {
+        "Input": np.array([1.0, np.nan], np.float32),
+        "Other": np.array([1.0, np.nan], np.float32)},
+        {"rtol": 1e-5, "atol": 1e-8}),
+    "allclose_equal_nan": ("allclose", {
+        "Input": np.array([1.0, np.nan], np.float32),
+        "Other": np.array([1.0, np.nan], np.float32)}, {"equal_nan": True}),
+    "where_step_cond": ("where", {"Condition": np.array([True]),
+                                  "X": _f(3, 4), "Y": _f(3, 4)}, {}),
+    "where_step_cond_false": ("where", {"Condition": np.array([False]),
+                                        "X": _bf16(2, 4), "Y": _bf16(2, 4)},
+                              {}),
+    "where_mask_mixed": ("where", {"Condition": _f(3, 4) > 0,
+                                   "X": _bf16(3, 4), "Y": _f(3, 4)}, {}),
+    "where_int_cond": ("where", {"Condition": np.array([0, 2, -1],
+                                                       np.int32),
+                                 "X": np.array([1, 2, 3], np.int32),
+                                 "Y": np.array([7.0, 8.0, 9.0],
+                                               np.float32)}, {}),
 }
 
 
@@ -377,7 +461,12 @@ def test_emitter_matches_jax(name):
                                   "exp_int", "log_f32",
                                   "squared_l2_norm_uint8",
                                   "squared_l2_norm_bool", "softmax_uint8",
-                                  "gelu_int"])
+                                  "gelu_int", "cos_int", "square_bool",
+                                  "pow_int_float_factor",
+                                  "elementwise_mod_int_f32",
+                                  "elementwise_max_axis",
+                                  "less_than_broadcast", "logical_or_f32",
+                                  "allclose_true", "where_mask_mixed"])
 def test_shape_inference_matches_jax(name):
     op, ins, attrs = EMIT[name]
     metas = {k: [(a.shape, a.dtype) for a in v]
@@ -448,6 +537,53 @@ def test_bool_input_raises_type_error_as_in_jax(op):
     with pytest.raises(TypeError, match="bool"):
         treg.get(op).emit(treg.EmitContext(), {"X": [torch.as_tensor(x)]},
                           {})
+
+
+@pytest.mark.parametrize("op,x,err", [
+    ("rsqrt", np.array([1, 4], np.int32), TypeError),
+    ("rsqrt", np.array([True, False]), TypeError),
+    ("round", np.array([True, False]), ValueError)])
+def test_integer_rsqrt_and_bool_round_raise_as_in_jax(op, x, err):
+    with pytest.raises(err):
+        jreg.get(op).emit(jreg.EmitContext(), {"X": [jnp.asarray(x)]}, {})
+    with pytest.raises(err):
+        treg.get(op).emit(treg.EmitContext(), {"X": [torch.as_tensor(x)]},
+                          {})
+
+
+@pytest.mark.parametrize("case", [
+    "cos_f32", "sin_rand", "reciprocal_rand", "rsqrt_rand", "square_f32",
+    "abs_rand", "floor_rand", "round_rand", "pow_half", "pow_neg",
+    "elementwise_min_nan_ties", "elementwise_max_axis",
+    "elementwise_min_f32", "elementwise_pow_f32", "elementwise_mod_f32",
+    "elementwise_mod_neg_divisor", "maximum_f32", "minimum_f32",
+    "where_step_cond", "where_mask_mixed"])
+def test_training_breadth_gradients_match_jax_vjp(case):
+    """The gradients of the schedule and meta-optimizer math (min / max
+    split at a tie, NaN and -0.0 included; pow, mod, where) against
+    jax.vjp of the JAX emitters, with respect to every float input."""
+    op, ins, attrs = EMIT[case]
+    names = sorted(k for k, v in ins.items()
+                   if not isinstance(v, _Bf16) and v.dtype.kind == "f")
+    jins = _as(ins, jnp.asarray)
+
+    def jfn(*args):
+        return jreg.get(op).emit(jreg.EmitContext(),
+                                 dict(jins, **{n: [a] for n, a in
+                                               zip(names, args)}),
+                                 dict(attrs))["Out"][0]
+
+    out, vjp = jax.vjp(jfn, *[jins[n][0] for n in names])
+    g = np.random.default_rng(4).standard_normal(out.shape).astype(
+        np.float32)
+    want = vjp(jnp.asarray(g, out.dtype))
+    tins = _as(ins, torch.as_tensor)
+    leaves = {n: tins[n][0].requires_grad_() for n in names}
+    got = treg.get(op).emit(treg.EmitContext(), tins, dict(attrs))["Out"][0]
+    got.backward(torch.as_tensor(g).to(got.dtype))
+    for n, w in zip(names, want):
+        np.testing.assert_allclose(leaves[n].grad.numpy(), np.asarray(w),
+                                   atol=TOL, rtol=1e-6, err_msg=n)
 
 
 def test_sign_keeps_negative_zero_and_has_a_zero_gradient():

@@ -22,6 +22,12 @@ fed the JAX package's global startup scope.
 * A ``CheckpointManager`` save of the sharded run holds the moments in
   the global layout, the bytes of the unsharded run's; a restore slices
   each rank's rows back, bit for bit.
+* LAMB (``strategy.lamb``, the same ranks and batch): its trust ratio
+  takes norms of the whole parameter and update, which each rank holds
+  a block of rows of; the lamb op sums the rows' squares over "dp", so
+  the sharded run matches the unsharded one within 1e-5 (the squares
+  summed in another order) and the JAX package's sharded run within
+  1e-4, and every sharded lamb op carries ``zero_axis``.
 """
 from __future__ import annotations
 
@@ -45,7 +51,7 @@ BERT = (KW, 4, 16, 3, True)
 STEPS = 3
 
 
-def _jax_run(sharding, amp=False):
+def _jax_run(sharding, amp=False, lamb=False):
     """The JAX package's dp 4 run of tiny BERT: its startup state, loss
     trace and the scope after it."""
     cfg, main, startup, loss = build_bert(jfluid, jnn, jbert, *BERT)
@@ -58,6 +64,7 @@ def _jax_run(sharding, amp=False):
             strategy.mesh_axes = {"dp": 4}
             strategy.sharding = sharding
             strategy.amp = amp
+            strategy.lamb = lamb
             jfleet.init()
             jfleet.distributed_optimizer(jfluid.optimizer.AdamOptimizer(1e-3),
                                          strategy).minimize(loss)
@@ -73,19 +80,22 @@ def _jax_run(sharding, amp=False):
     return feed, state, losses, final
 
 
-CASES = {"zero": (True, False), "dp": (False, False),
-         "zero_bf16": (True, True), "dp_bf16": (False, True)}
+CASES = {"zero": (True, False, False), "dp": (False, False, False),
+         "zero_bf16": (True, True, False), "dp_bf16": (False, True, False),
+         "zero_lamb": (True, False, True), "dp_lamb": (False, False, True)}
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     feed, state, f32_losses, f32_final = _jax_run(True)
     _, bf16_state, bf16_losses, _ = _jax_run(True, amp=True)
+    _, lamb_state, lamb_losses, lamb_final = _jax_run(True, lamb=True)
     cases = []
-    for name, (sharding, amp) in CASES.items():
+    for name, (sharding, amp, lamb) in CASES.items():
         case = {"strategy": {"mesh_axes": {"dp": 4}, "sharding": sharding,
-                             "amp": amp},
-                "state": bf16_state if amp else state}
+                             "amp": amp, "lamb": lamb},
+                "state": (bf16_state if amp else lamb_state if lamb
+                          else state)}
         if name == "zero":
             case["ckpt"] = str(tmp_path_factory.mktemp("ckpt"))
         cases.append(case)
@@ -95,8 +105,9 @@ def runs(tmp_path_factory):
                     "feeds": [feed] * STEPS},
          "cases": cases}, timeout=120.0)
     return {"ranks": [dict(zip(CASES, r["runs"])) for r in ranks],
-            "jax": {"f32": (f32_losses, f32_final), "bf16": bf16_losses},
-            "state": state}
+            "jax": {"f32": (f32_losses, f32_final), "bf16": bf16_losses,
+                    "lamb": (lamb_losses, lamb_final)},
+            "state": state, "lamb_state": lamb_state}
 
 
 def _moments(state):
@@ -162,3 +173,34 @@ def test_zero_checkpoint_holds_the_global_layout(runs):
             # the bytes of the unsharded run's moments
             np.testing.assert_array_equal(z["saved"][n], r["dp"]["state"][n],
                                           err_msg=n)
+
+
+def test_zero_lamb_takes_the_whole_parameters_norms(runs):
+    """LAMB under ZeRO: the trust ratio's norms are the whole
+    parameter's, summed over "dp" from each rank's rows, so the sharded
+    run stays within 1e-5 of the unsharded one (a norm taken over a
+    block would move the update by the block's share of the norm), and
+    within 1e-4 of the JAX package's sharded run."""
+    want_losses, want = runs["jax"]["lamb"]
+    for r in runs["ranks"]:
+        z, d = r["zero_lamb"], r["dp_lamb"]
+        np.testing.assert_allclose(z["losses"], d["losses"], atol=1e-5,
+                                   rtol=0)
+        assert sorted(z["state"]) == sorted(d["state"])
+        for n, v in d["state"].items():
+            np.testing.assert_allclose(z["state"][n], v, atol=1e-5, rtol=0,
+                                       err_msg=n)
+    z = runs["ranks"][0]["zero_lamb"]
+    np.testing.assert_allclose(z["losses"], want_losses, atol=BERT_TOL,
+                               rtol=0)
+    for n, v in want.items():
+        np.testing.assert_allclose(z["state"][n].astype(np.float64),
+                                   v.astype(np.float64), atol=BERT_TOL,
+                                   rtol=0, err_msg=n)
+    moments = [n for n in _moments(runs["lamb_state"]) if "moment1" in n]
+    lamb_ops = [o for o in z["ops"] if o[0] == "lamb"]
+    assert len(lamb_ops) == len(moments)
+    assert sum(o[3].get("zero_axis") == "dp" for o in lamb_ops) == sum(
+        runs["lamb_state"][n].shape[0] % 4 == 0 for n in moments) > 0
+    # the run moved: the update is not a no-op that would hide a norm
+    assert not np.allclose(z["losses"][0], z["losses"][-1])

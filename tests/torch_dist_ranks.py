@@ -699,7 +699,7 @@ def fleet_run(p):
            "ops": [(op.type, op.inputs, op.outputs, dict(op.attrs))
                    for op in block.ops
                    if op.type.startswith(("c_", "dcn_", "adam", "sgd",
-                                          "momentum"))]}
+                                          "momentum", "lamb"))]}
     if p.get("ckpt"):
         root = os.path.join(p["ckpt"], f"rank{dist.get_rank()}")
         fluid.CheckpointManager(root, program=main, scope=scope,
