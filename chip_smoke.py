@@ -303,9 +303,32 @@ prints no result):
                slice's update ops, where and comparisons on the card
                against the CPU
 
+  dist_ep, dist_zero, dist_dcn
+               BERT-base with a moe_ffn of 8 experts at dp 2 x ep 2 and
+               dp 1 x ep 4, ZeRO-2 at dp 4 against unsharded dp, and the
+               dense, DGC and LocalSGD multi-slice modes at dcn 2 x dp 2,
+               on one set of four ranks, at 4 of BERT-base's layers
+  dist_elastic BERT-base (12 layers, the fused stack, bf16 AMP, Adam,
+               dropout 0.1, ZeRO-2) started at dp 4 by ``python -m
+               paddle_tpu_torch.distributed.launch`` with the lease plane
+               armed and sharded checkpoints every 2 steps (global batch
+               12 x 512): a clean run of 4 steps; (a) trainer1 killed
+               between its shard commit and the global commit of step 4,
+               relaunched from step 2, steps 3-4 and the step-4
+               checkpoint bit for bit the clean run's; (b) trainer3 lost
+               for good at step 5, evicted, the job resumed at dp 3
+               from the clean step-4 checkpoint, steps 5-6 and the
+               step-6 checkpoint bit for bit a clean dp-3 launch's; the
+               launchers' exit codes and restarts held; each attempt's
+               start-up by stage, step ms a rank, save ms and bytes a
+               shard, detect-to-relaunch seconds, each rank's largest
+               gap between answered lease renewals, rows 2-5 a step a
+               rank, and beside each attempt the jobs that ran with it
+
 A dist phase's ranks are ``python3 chip_smoke.py --dist-child ...``
-processes; one that fails or outlives its deadline fails the phase, the
-others killed first.  The line before the last is the kernels summary; the last line is
+processes (dist_elastic's, ``--elastic-child`` processes under the
+port's launcher); one that fails or outlives its deadline fails the
+phase, the others killed first.  The line before the last is the kernels summary; the last line is
 ``{"ok": true, "device": {...}}``.  Needs one CUDA card; without one it
 exits 2.  Weights and inputs are random from fixed seeds.
 """
@@ -324,6 +347,10 @@ import sys
 import time
 
 import numpy as np
+
+# this process's start on the host clock: an elastic child's start-up
+# seconds are counted from here
+_T_PROC0 = time.time()
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 F32_FLOPS = 67e12           # H100 SXM float32 outside the tensor cores
@@ -365,6 +392,8 @@ _lines = []
 
 
 def emit(obj) -> None:
+    if isinstance(obj, dict) and "phase" in obj:   # where the time goes
+        obj = dict(obj, elapsed_s=time.time() - _T_PROC0)
     line = json.dumps(obj) if not isinstance(obj, str) else obj
     _lines.append(line)
     print(line, flush=True)
@@ -6240,10 +6269,10 @@ def phase_verify(torch, card: str) -> dict:
 # world size 1 (dist_nccl)
 DIST_WORLD = 4
 DIST_RING = dict(b=8, nh=12, s=2048, d=64, mesh={"sp": 4})
-# ``layers``: the depth of a plan's bf16 runs.  dist_train, dist_tp and
-# dist_pp run 4 of BERT-base's 12 layers (at full width), so that the
-# script stays well inside its time limit; dist_ep, dist_zero and
-# dist_dcn take all 12
+# ``layers``: the depth of a plan's bf16 runs.  dist_train, dist_tp,
+# dist_pp, dist_ep, dist_zero and dist_dcn run 4 of BERT-base's 12
+# layers (at full width), so that the script stays inside its time limit
+# beside dist_elastic, which takes all 12
 DIST_TRAIN = dict(batch=8, seq=512, max_preds=76, steps=3, timed=2,
                   drop_steps=2, mesh={"dp": 2, "sp": 2}, layers=4)
 # dist_train's attention: BERT-base's 12 heads of 64 at 8 x 512 over dp 2
@@ -6281,24 +6310,23 @@ DIST_TP_BLOCK = dict(b=DIST_TP["batch"] // 2, s=DIST_TP["seq"], nh=12 // 2,
 # dp 2 x ep 2, then dp 1 x ep 4 on the same ranks; ZeRO-2 at dp 4 (the
 # fused stack, sharding on, then off); the multi-slice modes at dcn 2 x
 # dp 2 (the fused stack: dense, DGC at sparsity 0.9 after one dense
-# step, LocalSGD averaging every 2 steps), all of BERT-base's 12 layers
+# step, LocalSGD averaging every 2 steps), 4 of BERT-base's layers
 DIST_MOE = dict(moe_num_experts=8, moe_top_k=2, moe_capacity_factor=1.25,
                 moe_aux_weight=0.01)
 DIST_EP = dict(DIST_TRAIN, mesh={"dp": 2, "ep": 2}, fuse_stack=False,
-               moe=True, drop_steps=0, gather_state=False, layers=12)
+               moe=True, drop_steps=0, gather_state=False)
 DIST_EP4 = dict(DIST_EP, mesh={"dp": 1, "ep": 4})
-DIST_ZERO = dict(DIST_TRAIN, mesh={"dp": 4}, fuse_stack=True, drop_steps=0,
-                 layers=12)
+DIST_ZERO = dict(DIST_TRAIN, mesh={"dp": 4}, fuse_stack=True, drop_steps=0)
 DIST_DCN = dict(DIST_TRAIN, mesh={"dcn": 2, "dp": 2}, fuse_stack=True,
-                drop_steps=0, dcn=2, layers=12)
+                drop_steps=0, dcn=2)
 DIST_DGC = dict(DIST_DCN, timed=0, gather_state=False,
                 dgc={"sparsity": 0.9, "rampup_begin_step": 1})
 DIST_LSGD = dict(DIST_DCN, steps=2, timed=0, gather_state=False,
                  localsgd={"k_steps": 2})
 # the gradient whose DGC sync dist_dcn recomputes on the host: the stacked
-# attention output weight encoder_stack.out_w, [12, 768, 768] (7,077,888
-# entries, k 707,789), the one gradient of that shape
-DIST_DGC_PROBE = (12, 768, 768)
+# attention output weight encoder_stack.out_w, [4, 768, 768] (2,359,296
+# entries at 4 layers), the one gradient of that shape
+DIST_DGC_PROBE = (DIST_DCN["layers"], 768, 768)
 
 
 @contextlib.contextmanager
@@ -6348,26 +6376,84 @@ def _moe_routing(log: list):
     return seen
 
 
-def _dist_spawn(mode: str, world: int, workdir: str) -> list:
-    """Run ``--dist-child mode`` as ``world`` rank processes on the card and
-    return each rank's result.  A rank that exits nonzero or outlives
-    DIST_JOIN_S fails the phase with its exit code and the tail of its
-    log; every other rank is killed first."""
-    import torch
+def _dist_spawn(groups: dict, workdir: str) -> dict:
+    """Start every group at once, ``name: (modes, world)`` as ``world``
+    rank processes that run each mode's body in turn (one process start
+    for all of them), then join them all.  Returns each mode's per-rank
+    results; each carries ``concurrent_with``, the modes of the other
+    groups whose bodies ran while its own did (their times shared the
+    card and the host; a group's first body counts from its ranks'
+    process start).  A group that fails kills every other group's
+    ranks too."""
+    t0 = time.time()
+    started = {}
+    try:
+        for name, (modes, world) in groups.items():
+            d = os.path.join(workdir, name)
+            os.makedirs(d, exist_ok=True)
+            started[name] = (modes, d, _dist_start(",".join(modes), world, d))
+        raw, group_of = {}, {}
+        for name, (modes, d, st) in started.items():
+            ranks = _dist_join(",".join(modes), st, d,
+                               DIST_JOIN_S * len(modes))
+            for m in modes:
+                raw[m] = [dict(r[m], backend=r["backend"]) for r in ranks]
+                group_of[m] = name
+    except BaseException:
+        for _, _, (procs, _) in started.values():
+            for p in procs:
+                try:
+                    os.killpg(p.pid, 9)
+                except ProcessLookupError:
+                    pass
+                p.wait()
+        raise
+    # each mode's window on the host clock: its first rank's start to
+    # its last rank's end
+    win = {m: (min(r["body_window"][0] for r in ranks),
+               max(r["body_window"][1] for r in ranks))
+           for m, ranks in raw.items()}
+    for m, ranks in raw.items():
+        beside = [o for o in raw if group_of[o] != group_of[m]
+                  and win[o][0] < win[m][1] and win[m][0] < win[o][1]]
+        for r in ranks:
+            r["concurrent_with"] = beside
+    emit({"phase": "dist_ranks", "groups": {
+              name: {"modes": list(modes), "world": world}
+              for name, (modes, world) in groups.items()},
+          "body_windows_s": {m: [a - t0, b - t0] for m, (a, b) in
+                             win.items()},
+          "seconds": time.time() - t0})
+    return raw
 
+
+def _dist_start(mode: str, world: int, workdir: str) -> tuple:
+    """``--dist-child mode`` started as ``world`` rank processes on the
+    card, each in a session of its own (killing it kills what the rank
+    started); (processes, logs)."""
     env = dict(os.environ, PYTHONPATH=os.path.dirname(
         os.path.abspath(__file__)))
     procs, logs = [], []
     for r in range(world):
         log = open(os.path.join(workdir, f"rank{r}.log"), "w")
         logs.append(log)
-        # a session of its own: killing it kills what the rank started
         procs.append(subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--dist-child", mode,
              "--dist-rank", str(r), "--dist-world", str(world),
              "--dist-dir", workdir], env=env, stdout=log, stderr=log,
             start_new_session=True))
-    deadline = time.monotonic() + DIST_JOIN_S
+    return procs, logs
+
+
+def _dist_join(mode: str, started: tuple, workdir: str,
+               join_s: float) -> list:
+    """Each rank's result of a ``_dist_start``.  A rank that exits
+    nonzero or outlives ``join_s`` fails the phase with its exit code and
+    the tail of its log; every other rank is killed first."""
+    import torch
+
+    procs, logs = started
+    deadline = time.monotonic() + join_s
     bad = None
     while bad is None:
         codes = [p.poll() for p in procs]
@@ -6376,7 +6462,7 @@ def _dist_spawn(mode: str, world: int, workdir: str) -> list:
         bad = next(((r, c) for r, c in enumerate(codes)
                     if c not in (None, 0)), None)
         if bad is None and time.monotonic() > deadline:
-            bad = (codes.index(None), f"no exit within {DIST_JOIN_S} s")
+            bad = (codes.index(None), f"no exit within {join_s} s")
         time.sleep(0.2)
     for p in procs:
         try:
@@ -6390,9 +6476,10 @@ def _dist_spawn(mode: str, world: int, workdir: str) -> list:
         r, code = bad
         with open(os.path.join(workdir, f"rank{r}.log")) as f:
             tail = f.read()[-3000:]
-        fail(f"dist {mode}: rank {r} of {world} failed ({code}):\n{tail}")
+        fail(f"dist {mode}: rank {r} of {len(procs)} failed ({code}):\n"
+             f"{tail}")
     return [torch.load(os.path.join(workdir, f"out_{r}.pt"))
-            for r in range(world)]
+            for r in range(len(procs))]
 
 
 def _dist_child(mode: str, rank: int, world: int, workdir: str) -> int:
@@ -6416,11 +6503,18 @@ def _dist_child(mode: str, rank: int, world: int, workdir: str) -> int:
         env.init_parallel_env(backend="gloo", device="cuda:0",
                               init_method=f"file://{workdir}/store",
                               timeout_s=DIST_PG_TIMEOUT_S)
-    body = {"ring": _dist_ring_child, "train": _dist_train_child,
-            "nccl": _dist_nccl_child, "tp": _dist_tp_child,
-            "pp": _dist_pp_child,
-            "ep_zero_dcn": _dist_ep_zero_dcn_child}[mode]
-    out = body(torch, rank, world)
+    bodies = {"ring": _dist_ring_child, "train": _dist_train_child,
+              "nccl": _dist_nccl_child, "tp": _dist_tp_child,
+              "pp": _dist_pp_child, "ep": _dist_ep_child,
+              "zero": _dist_zero_child, "dcn": _dist_dcn_child}
+    out = {}
+    t0 = _T_PROC0       # the first body's window holds the rank's start
+    for m in mode.split(","):       # each mode's body in turn
+        torch.cuda.reset_peak_memory_stats()
+        out[m] = bodies[m](torch, rank, world)
+        out[m]["body_window"] = (t0, time.time())
+        t0 = out[m]["body_window"][1]
+        torch.cuda.empty_cache()
     out["backend"] = dist.get_backend()
     torch.save(out, os.path.join(workdir, f"out_{rank}.pt"))
     dist.barrier()
@@ -6525,19 +6619,18 @@ def _ring_call_launches(sp: int, bf16: bool) -> dict:
             "row7_tc": sp if bf16 else 0}
 
 
-def phase_dist_ring(torch, card: str, workdir: str) -> dict:
+def phase_dist_ring(torch, card: str, ranks: list) -> dict:
     """ring_attention on four ranks sharing the card (gloo), bf16 and f32,
     a per-batch key bias: at sp 4, B 8, nh 12, S 2048 (512 a rank), D 64,
     causal off and on; and at dist_train's own attention, dp 2 x sp 2,
     B 8, S 512 ([4, 12, 256, 64] a rank), not causal.  Every rank's o,
     dq, dk, dv and dbias block against the plain version run by this
     process over the whole batch and sequence; rows 6 and 7 launched by
-    every rank, sp times a call (on the wgmma kernels in bf16)."""
+    every rank, sp times a call (on the wgmma kernels in bf16).
+    ``ranks``: the ranks' results."""
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
 
     t0 = time.perf_counter()
-    ranks = _dist_spawn("ring", DIST_WORLD, workdir)
-    spawn_s = time.perf_counter() - t0
     cases = []
     for i, (shape, dtype_name, causal) in enumerate(RING_CASES):
         case = _ring_case(shape, dtype_name, causal)
@@ -6581,21 +6674,23 @@ def phase_dist_ring(torch, card: str, workdir: str) -> dict:
         torch.cuda.empty_cache()
     out = {"phase": "dist_ring", "card": card, "world": DIST_WORLD,
            "backend": ranks[0]["backend"], "cases": cases,
-           "spawn_s": spawn_s, "seconds": time.perf_counter() - t0}
+           "concurrent_with": ranks[0]["concurrent_with"],
+           "seconds": time.perf_counter() - t0}
     emit(out)
     return out
 
 
-def _fleet_bert_program(cfg, amp: bool, mesh_axes, plan=None):
+def _fleet_bert_program(cfg, amp: bool, mesh_axes, plan=None, shape=None):
     """bert_train's program under fleet: dp x sp with sequence_parallel;
     with a ``plan`` (DIST_TP, DIST_PP, DIST_EP, DIST_ZERO, DIST_DCN...)
     its tensor_parallel_rules, its pipeline with accumulate_steps, expert
-    parallelism, ZeRO or the multi-slice mode too."""
+    parallelism, ZeRO or the multi-slice mode too.  ``shape`` (batch,
+    seq, max_preds) defaults to DIST_TRAIN's."""
     from paddle_tpu_torch import fleet, fluid
     from paddle_tpu_torch.contrib import mixed_precision
     from paddle_tpu_torch.models import bert
 
-    c = DIST_TRAIN
+    c = shape or DIST_TRAIN
     plan = plan or {}
     main, startup = fluid.Program(), fluid.Program()
     with fluid.unique_name.guard():
@@ -6941,6 +7036,10 @@ def _dist_pp_child(torch, rank: int, world: int) -> dict:
     return _dist_plan_child(torch, [("pp", DIST_PP), ("pp_sp", DIST_PP_SP)])
 
 
+def _dist_ep_child(torch, rank: int, world: int) -> dict:
+    return _dist_plan_child(torch, [("ep", DIST_EP), ("ep4", DIST_EP4)])
+
+
 _ONE_PROCESS = {}
 
 
@@ -7112,7 +7211,7 @@ def _dist_header(phase, card, c, ranks_backend) -> dict:
                                c["seq"] // c["mesh"].get("sp", 1)]}
 
 
-def phase_dist_train(torch, card: str, workdir: str) -> dict:
+def phase_dist_train(torch, card: str, ranks: list) -> dict:
     """BERT-base pretraining (bert_train's program at BERT-base widths,
     ``DIST_TRAIN["layers"]`` layers, dropout off) under
     fleet at dp 2 x sp 2 on four ranks sharing the card over gloo, global
@@ -7121,34 +7220,34 @@ def phase_dist_train(torch, card: str, workdir: str) -> dict:
     2 layers in f32 (within 1e-4), the four ranks' losses and state equal
     bit for bit; 2 profiled steps (each rank's step wall, the card's idle
     share, time and bytes in collectives); then 2 steps with dropout 0.1,
-    finite."""
+    finite.  ``ranks``: the ranks' results."""
     t0 = time.perf_counter()
     c = DIST_TRAIN
     refs = _dist_refs(torch, True, c)
     ref_s = time.perf_counter() - t0
-    ranks = _dist_spawn("train", DIST_WORLD, workdir)
     out = _dist_header("dist_train", card, c, ranks[0]["backend"])
     _dist_holds("dist_train", c, ranks, refs, out)
     out["dropout"] = _dist_dropout("dist_train", ranks)
     out["peak_mem_gb_by_rank"] = [r["peak_mem_gb"] for r in ranks]
     out["reference_s"] = ref_s
+    out["concurrent_with"] = ranks[0]["concurrent_with"]
     out["seconds"] = time.perf_counter() - t0
     emit(out)
     return out
 
 
-def phase_dist_tp(torch, card: str, workdir: str) -> dict:
+def phase_dist_tp(torch, card: str, raw: list) -> dict:
     """BERT-base (its widths, ``DIST_TP["layers"]`` layers) unfused with
     tensor_parallel_rules() at dp 2 x tp 2 on
     four ranks sharing the card over gloo (``_dist_holds`` against the
     unfused program in one process); then dropout 0.1: finite, the
     replicated state equal on every rank, the head-shard dropout seeds
-    different on the two ranks of a tp pair and equal across dp."""
+    different on the two ranks of a tp pair and equal across dp.
+    ``raw``: the ranks' results."""
     t0 = time.perf_counter()
     c = DIST_TP
     refs = _dist_refs(torch, False, c)
     ref_s = time.perf_counter() - t0
-    raw = _dist_spawn("tp", DIST_WORLD, workdir)
     ranks = [r["tp"] for r in raw]
     out = _dist_header("dist_tp", card, c, raw[0]["backend"])
     _dist_holds("dist_tp", c, ranks, refs, out)
@@ -7164,21 +7263,21 @@ def phase_dist_tp(torch, card: str, workdir: str) -> dict:
                           head_seeds_by_rank=seeds)
     out["peak_mem_gb_by_rank"] = [r["peak_mem_gb"] for r in raw]
     out["reference_s"] = ref_s
+    out["concurrent_with"] = raw[0]["concurrent_with"]
     out["seconds"] = time.perf_counter() - t0
     emit(out)
     return out
 
 
-def phase_dist_pp(torch, card: str, workdir: str) -> dict:
+def phase_dist_pp(torch, card: str, raw: list) -> dict:
     """BERT-base (its widths, ``DIST_PP["layers"]`` layers) with the
     fused stack and the pipeline at dp 2 x pp 2 (accumulate_steps 2,
     half the layers a stage), then pp 2 x sp 2, on the same
     four rank processes (``_dist_holds`` against dist_train's one-process
-    runs; dropout 0.1 at dp 2 x pp 2)."""
+    runs; dropout 0.1 at dp 2 x pp 2; ``raw``: the ranks' results)."""
     t0 = time.perf_counter()
     refs = _dist_refs(torch, True, DIST_PP)
     ref_s = time.perf_counter() - t0
-    raw = _dist_spawn("pp", DIST_WORLD, workdir)
     out = {"phase": "dist_pp", "card": card}
     for name, c in (("pp", DIST_PP), ("pp_sp", DIST_PP_SP)):
         ranks = [r[name] for r in raw]
@@ -7190,6 +7289,7 @@ def phase_dist_pp(torch, card: str, workdir: str) -> dict:
         out[name] = sub
     out["peak_mem_gb_by_rank"] = [r["peak_mem_gb"] for r in raw]
     out["reference_s"] = ref_s
+    out["concurrent_with"] = raw[0]["concurrent_with"]
     out["seconds"] = time.perf_counter() - t0
     emit(out)
     return out
@@ -7204,40 +7304,6 @@ def _comm_by(comm: list) -> dict:
                                      for st in comm)
                 for f in ("calls", "bytes", "ms")} for k in keys} \
         if comm else {}
-
-
-def _dist_ep_zero_dcn_child(torch, rank: int, world: int) -> dict:
-    """dist_ep's, dist_zero's and dist_dcn's bodies in one set of ranks
-    (one process start instead of three)."""
-    out = {}
-    for name, body in (
-            ("ep", lambda: _dist_plan_child(
-                torch, [("ep", DIST_EP), ("ep4", DIST_EP4)])),
-            ("zero", lambda: _dist_zero_child(torch, rank, world)),
-            ("dcn", lambda: _dist_dcn_child(torch, rank, world))):
-        torch.cuda.reset_peak_memory_stats()
-        out[name] = body()
-        torch.cuda.empty_cache()
-    return out
-
-
-def phase_dist_ep_zero_dcn(torch, card: str, workdir: str) -> tuple:
-    """One spawn of four ranks for dist_ep, dist_zero and dist_dcn, then
-    each phase's checks on its part of their results."""
-    t_spawn = time.perf_counter()
-    raw = _dist_spawn("ep_zero_dcn", DIST_WORLD, workdir)
-    emit({"phase": "dist_ep_zero_dcn_ranks",
-          "seconds": time.perf_counter() - t_spawn})
-    part = {k: [dict(r[k], backend=r["backend"]) for r in raw]
-            for k in ("ep", "zero", "dcn")}
-    del raw
-    dep = phase_dist_ep(torch, card, part["ep"])
-    torch.cuda.empty_cache()
-    dzero = phase_dist_zero(torch, card, part["zero"])
-    torch.cuda.empty_cache()
-    ddcn = phase_dist_dcn(torch, card, part["dcn"], dzero["dp"]["losses"])
-    torch.cuda.empty_cache()
-    return dep, dzero, ddcn
 
 
 def _load_of(picks: np.ndarray, n_exp: int) -> dict:
@@ -7327,6 +7393,7 @@ def phase_dist_ep(torch, card: str, raw: list) -> dict:
         sub["peak_mem_gb_by_rank"] = [r["peak_mem_gb"] for r in ranks]
         out[name] = sub
     out["reference_s"] = ref_s
+    out["concurrent_with"] = raw[0]["concurrent_with"]
     out["seconds"] = time.perf_counter() - t0
     emit(out)
     return out
@@ -7423,6 +7490,7 @@ def phase_dist_zero(torch, card: str, raw: list) -> dict:
                state_bit_equal_vars=len(raw[0]["dp"]["var_hashes"]),
                moment_bytes_ratio=raw[0]["zero"]["moment_bytes"]
                / raw[0]["dp"]["moment_bytes"],
+               concurrent_with=raw[0]["concurrent_with"],
                seconds=time.perf_counter() - t0)
     emit(out)
     return out
@@ -7433,8 +7501,8 @@ def _dist_dcn_child(torch, rank: int, world: int) -> dict:
     two-level sync (3 + 2 timed steps), its 2-layer f32 run and flat dp
     4's; DGC (sparsity 0.9, one dense step) with the probe gradient's
     sync captured at its first sparse step; LocalSGD (k 2), this slice's
-    parameters hashed after each step; all at 12 layers but the f32
-    runs."""
+    parameters hashed after each step; all at ``DIST_DCN["layers"]``
+    layers but the f32 runs."""
     c = DIST_DCN
     out = {}
     for name, cfg, amp, plan, timed, keep in (
@@ -7533,7 +7601,7 @@ def phase_dist_dcn(torch, card: str, raw: list, flat: list) -> dict:
     dist_zero's unsharded run) and its 2-layer f32 parameters against
     flat dp 4's; DGC (sparsity 0.9 after one dense step): finite losses,
     the two dp ranks of a slice bit for bit, the synced gradient and
-    error feedback of DIST_DGC_PROBE's 7.1M-entry gradient equal to the
+    error feedback of DIST_DGC_PROBE's gradient equal to the
     host's recomputation from the ranks' inputs; LocalSGD (k 2): the
     slices differ after the off step and are equal after the sync step.
     Bytes on the dcn hop a step, dense and DGC's k pairs."""
@@ -7597,6 +7665,7 @@ def phase_dist_dcn(torch, card: str, raw: list, flat: list) -> dict:
                        "slices_equal_after_sync_step": True,
                        "step_ms_by_rank": [r["step_ms"] for r in lsgd]}
     out["peak_mem_gb_by_rank"] = [r["peak_mem_gb"] for r in raw]
+    out["concurrent_with"] = raw[0]["concurrent_with"]
     out["seconds"] = time.perf_counter() - t0
     emit(out)
     return out
@@ -7648,12 +7717,13 @@ def _dist_nccl_child(torch, rank: int, world: int) -> dict:
             "mesh_groups": sorted(mesh.groups)}
 
 
-def phase_dist_nccl(torch, card: str, workdir: str) -> dict:
+def phase_dist_nccl(torch, card: str, ranks: list) -> dict:
     """init_parallel_env() on the card at world size 1 picks NCCL: a dp 1
     mesh trains the 2-layer f32 program 2 steps equal bit for bit to the
-    run without a mesh; every c_* emitter runs once on NCCL."""
+    run without a mesh; every c_* emitter runs once on NCCL.  ``ranks``:
+    the one rank's result."""
     t0 = time.perf_counter()
-    res = _dist_spawn("nccl", 1, workdir)[0]
+    res = ranks[0]
     runs = res["runs"]
     if res["backend"] != "nccl":
         fail(f"dist_nccl: backend {res['backend']}")
@@ -7665,7 +7735,519 @@ def phase_dist_nccl(torch, card: str, workdir: str) -> dict:
     out = {"phase": "dist_nccl", "card": card, "backend": res["backend"],
            "mesh_groups": res["mesh_groups"], "runs": runs,
            "emitters_identity_at_world_1": res["emitters"],
+           "concurrent_with": res["concurrent_with"],
            "seconds": time.perf_counter() - t0}
+    emit(out)
+    return out
+
+
+# the job control plane (dist_elastic): BERT-base with the fused stack,
+# bf16 AMP, Adam and dropout 0.1 under ZeRO-2 at dp 4, started by the
+# port's launcher; global batch 12 x 512 (3 sequences a rank at dp 4, 4
+# at dp 3), sharded checkpoints every 2 steps, written without fsync
+# (PADDLE_CKPT_FSYNC=0: the page cache holds them, the reads are warm)
+ELASTIC = dict(batch=12, seq=512, max_preds=76, freq=2, world=4, keep=5,
+               lease_secs=10.0, device="cuda:0", bf16=True, dropout=0.1,
+               bert={}, join_s=420)
+# drill (a): trainer1 dies at its second save (step 4's) between its
+# shard commit and the global commit
+ELASTIC_FAULT = ("crash:ckpt_shard_committed:2", "trainer1")
+# drill (b): trainer3 is lost for good at the start of step 5
+ELASTIC_DIE = ("trainer3", 5)
+ELASTIC_ROWS = ("bsh_fwd", "bsh_fwd_tc", "bsh_bwd", "bsh_bwd_tc", "ln_fwd",
+                "ln_bwd")
+
+
+def _elastic_child(cfg_path: str) -> int:
+    """One rank of a dist_elastic job, started by the port's launcher
+    (``python -m paddle_tpu_torch.distributed.launch ... chip_smoke.py
+    --elastic-child CFG``): the launcher's rendezvous, heartbeat and lease,
+    BERT pretraining under fleet at dp = the launcher's world with ZeRO-2,
+    the newest globally committed sharded checkpoint restored (a resized
+    world needs PADDLE_ELASTIC_RESHARD, which the launcher's resize
+    exports), then the steps up to ``steps``: global batch g drawn from
+    seed 1000 + g, each rank its dp block of it; a sharded save every
+    ``freq`` steps.  Each step's launches of rows 2-5 are held to the
+    program's on the card.  Every event goes to
+    ``trace_dir/trace.<tag>.jsonl`` (appended across attempts).  A
+    relaunched attempt drops PADDLE_PS_FAULT_SPEC: a crash rule kills one
+    save, not every attempt's."""
+    with open(cfg_path) as f:
+        c = json.load(f)
+    attempt = int(os.environ.get("PADDLE_ELASTIC_RESTART", "0"))
+    if attempt > 0:
+        os.environ.pop("PADDLE_PS_FAULT_SPEC", None)
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.distributed import coordinator
+    from paddle_tpu_torch.fluid import checkpoint as ckpt
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.parallel import env
+
+    tag = os.environ["PADDLE_TRAINER_TAG"]
+    trace = open(os.path.join(c["trace_dir"], f"trace.{tag}.jsonl"), "a")
+
+    def note(**rec):
+        trace.write(json.dumps(rec) + "\n")
+        trace.flush()
+
+    # the lease renewals this rank sends (its heartbeat thread's), each
+    # timed when the coordinator has answered it
+    renewals = []
+    real_renew = coordinator.CoordinatorClient.renew
+
+    def renew(self, *args, **kwargs):
+        out = real_renew(self, *args, **kwargs)
+        renewals.append(time.time())
+        return out
+
+    coordinator.CoordinatorClient.renew = renew
+    # where a rank's start-up goes: host clock at each stage's end
+    marks = {"imports": time.time()}
+    device = env.init_parallel_env(backend="gloo", device=c["device"],
+                                   timeout_s=DIST_PG_TIMEOUT_S)
+    marks["process_group"] = time.time()
+    rank, world = env.get_rank(), env.get_world_size()
+    cfg = _dist_bert_cfg(dropout=c["dropout"])
+    for k, v in c["bert"].items():
+        setattr(cfg, k, v)
+    plan = {"mesh": {"dp": world}, "sharding": True}
+    main, startup, loss = _fleet_bert_program(cfg, c["bf16"], plan["mesh"],
+                                              plan, shape=c)
+    marks["program"] = time.time()
+    exe = fluid.Executor(device=device)
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    marks["startup_program"] = time.time()
+    mgr = ckpt.CheckpointManager(c["root"], keep_last_n=c["keep"],
+                                 program=main, scope=scope, device=device)
+    committed = mgr.steps()
+    st = mgr.restore()
+    marks["restore"] = time.time()
+    g0 = st["extra"]["global_step"] if st else 0
+    note(ev="start", attempt=attempt, rank=rank, world=world,
+         epoch=coordinator.membership_epoch_from_env(),
+         sharded=mgr.sharded, restored=g0, committed=committed,
+         restore_ms=st["restore_ms"] if st else None,
+         t_proc0=_T_PROC0, t_ready=time.time(), marks=marks)
+    want = _dist_launches_per_step(main, plan, c["bf16"])
+    counters = _counters()
+    for g in range(g0, c["steps"]):
+        if (tag, g + 1) == (c.get("die_tag"), c.get("die_at")):
+            note(ev="die", gs=g + 1, t=time.time())
+            os._exit(9)     # the lost host: every attempt, before the step
+        feed = bert.random_pretrain_batch(cfg, c["batch"], c["seq"],
+                                          c["max_preds"], seed=1000 + g)
+        t0 = time.perf_counter()
+        lv, got = _count_step(counters, lambda: float(exe.run(
+            main, feed=feed, fetch_list=[loss], scope=scope)[0]
+            .reshape(-1)[0]))
+        ms = (time.perf_counter() - t0) * 1e3
+        if device.type == "cuda" and got != want:
+            raise RuntimeError(f"step {g + 1} launched {got}, the program "
+                               f"needs {want}")
+        note(ev="step", gs=g + 1, loss=lv, ms=ms,
+             launches={k: got[k] for k in ELASTIC_ROWS},
+             want={k: want[k] for k in ELASTIC_ROWS})
+        if (g + 1) % c["freq"] == 0:
+            mgr.save(g + 1, extra_state={"global_step": g + 1})
+            note(ev="save", gs=g + 1, **mgr.last_save)
+    gaps = np.diff(renewals)
+    lease = coordinator.lease_secs_from_env()
+    note(ev="end", t=time.time(), lease={
+        "lease_secs": lease,
+        "expiry_s": lease * coordinator.EXPIRE_PERIODS,
+        "renewals": len(renewals),
+        "max_gap_s": float(gaps.max()) if gaps.size else None})
+    trace.close()
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _elastic_launch(c: dict, name: str, workdir: str, world: int,
+                    flags=(), env=None):
+    """Start one dist_elastic job under the port's launcher: its config
+    file, its log directory, the launcher's stderr in a file of its own.
+    Returns the launcher process and the job's record."""
+    cfg_path = os.path.join(workdir, f"{name}.json")
+    with open(cfg_path, "w") as f:
+        json.dump(c, f)
+    logs = os.path.join(workdir, f"{name}.logs")
+    os.makedirs(c["trace_dir"], exist_ok=True)
+    here = os.path.dirname(os.path.abspath(__file__))
+    full = dict(os.environ, PYTHONPATH=here, PADDLE_CKPT_SHARDED="1",
+                PADDLE_CKPT_FSYNC="0", **(env or {}))
+    for k in ("PADDLE_ELASTIC_RESHARD", "PADDLE_PS_FAULT_SPEC",
+              "PADDLE_PS_FAULT_TAGS", "PADDLE_TRACING"):
+        if k not in (env or {}):
+            full.pop(k, None)
+    err = open(os.path.join(workdir, f"{name}.launcher.log"), "w")
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           "--nproc_per_node", str(world), "--log_dir", logs,
+           "--lease_secs", str(c["lease_secs"]), *flags,
+           os.path.abspath(__file__), "--elastic-child", cfg_path]
+    # a session of its own: a deadline kills the launcher and its ranks
+    proc = subprocess.Popen(cmd, env=full, stdout=err, stderr=err,
+                            start_new_session=True, cwd=here)
+    return proc, {"name": name, "err": err, "logs": logs, "c": c,
+                  "t0": time.time()}
+
+
+def _elastic_join(c: dict, proc, job: dict, deadline: float) -> dict:
+    """Wait for one launcher; kill its whole session past ``deadline``.
+    The job's record gains its exit code, the launcher's log and each
+    tag's trace events."""
+    while proc.poll() is None and time.monotonic() < deadline:
+        time.sleep(0.2)
+    if proc.poll() is None:
+        os.killpg(proc.pid, 9)
+        proc.wait()
+        job["rc"] = f"no exit within {c['join_s']} s"
+    else:
+        job["rc"] = proc.returncode
+    job["err"].close()
+    job["seconds"] = time.time() - job["t0"]
+    with open(job["err"].name) as f:
+        job["launcher_log"] = f.read()
+    job["traces"] = {}
+    for fn in sorted(os.listdir(c["trace_dir"])):
+        if fn.startswith("trace.") and fn.endswith(".jsonl"):
+            with open(os.path.join(c["trace_dir"], fn)) as f:
+                job["traces"][fn[6:-6]] = [json.loads(ln) for ln in f]
+    return job
+
+
+def _elastic_check(job: dict, restarts: list) -> None:
+    """The launcher exited 0 after exactly ``restarts`` (the culprit tag
+    and reason of each elastic restart, in order): any other failure of
+    any rank fails the phase."""
+    log = job["launcher_log"]
+    seen = [ln for ln in log.splitlines() if "elastic restart" in ln]
+    ok = job["rc"] == 0 and len(seen) == len(restarts) and all(
+        f": {tag} (rank" in ln and why in ln
+        for ln, (tag, why) in zip(seen, restarts))
+    if not ok:
+        tail = ""
+        for fn in sorted(os.listdir(job["logs"])):
+            with open(os.path.join(job["logs"], fn)) as f:
+                tail += f"--- {fn}\n{f.read()[-1500:]}\n"
+        fail(f"dist_elastic {job['name']}: launcher exit {job['rc']}, "
+             f"restarts {seen} (wanted {restarts})\n{log[-3000:]}\n{tail}")
+
+
+def _elastic_attempts(job: dict) -> list:
+    """Per attempt: each rank's start event and its step / save / end
+    events, in the order written."""
+    out = {}
+    for tag, evs in job["traces"].items():
+        att = None
+        for ev in evs:
+            if ev["ev"] == "start":
+                att = ev["attempt"]
+                out.setdefault(att, {})[tag] = {"start": ev, "steps": [],
+                                                "saves": [], "end": None}
+            elif ev["ev"] in ("step", "save"):
+                out[att][tag][ev["ev"] + "s"].append(ev)
+            elif ev["ev"] in ("end", "die"):
+                out[att][tag]["end"] = ev
+    return [out[k] for k in sorted(out)]
+
+
+def _elastic_losses(attempt: dict) -> dict:
+    """gs -> loss of an attempt, held equal on every rank."""
+    by = {tag: {s["gs"]: s["loss"] for s in a["steps"]}
+          for tag, a in attempt.items()}
+    first = next(iter(by.values()))
+    for tag, losses in by.items():
+        if losses != first:
+            fail(f"dist_elastic: {tag}'s losses {losses} differ from "
+                 f"another rank's {first}")
+    return first
+
+
+def _elastic_state(root: str, step: int) -> dict:
+    """Every array of rank 0's shard of a step's checkpoint."""
+    from paddle_tpu_torch.fluid import checkpoint as ckpt
+
+    with open(os.path.join(root, f"ckpt-{step:08d}", "rank0",
+                           "state.pkl"), "rb") as f:
+        return ckpt._loads(f.read())["arrays"]
+
+
+def _elastic_same_state(what: str, got: dict, want: dict) -> dict:
+    """Bit for bit, every array; the f32 master parameters and Adam
+    moments counted."""
+    from paddle_tpu_torch.fluid import checkpoint as ckpt
+
+    if sorted(got) != sorted(want):
+        fail(f"dist_elastic {what}: the checkpoints hold other variables")
+    differ, params, moments = [], 0, 0
+    for n in sorted(want):
+        a, b = got[n], want[n]
+        if isinstance(a, ckpt.BF16Array) or isinstance(b, ckpt.BF16Array):
+            same = a == b
+        else:
+            a, b = np.asarray(a), np.asarray(b)
+            same = (a.dtype == b.dtype and a.shape == b.shape
+                    and a.tobytes() == b.tobytes())
+        if not same:
+            differ.append(n)
+        moments += "_moment" in n
+        params += ("_moment" not in n and "_pow_acc" not in n
+                   and np.asarray(want[n]).dtype == np.float32
+                   and np.asarray(want[n]).ndim > 0)
+    if differ:
+        fail(f"dist_elastic {what}: {len(differ)} variables differ, "
+             f"{differ[:8]}")
+    return {"vars_bit_equal": len(want), "f32_arrays_not_moments": params,
+            "adam_moments": moments}
+
+
+def _elastic_restart_gap(job: dict) -> dict:
+    """The launcher's restart line: when the failure was detected and
+    when the new group was spawned; and when the new attempt's ranks
+    were ready (restored, about to step)."""
+    line = next(ln for ln in job["launcher_log"].splitlines()
+                if "failure detected at" in ln)
+    detect = float(line.split("failure detected at ")[1].split(",")[0])
+    respawn = float(line.split("group respawned at ")[1].split(" ")[0])
+    ready = max(a["start"]["t_ready"]
+                for a in _elastic_attempts(job)[1].values())
+    return {"detect_to_respawn_s": respawn - detect,
+            "detect_to_ready_s": ready - detect}
+
+
+def _elastic_stages(start: dict) -> dict:
+    """A rank's start-up by stage: seconds from the stage before (the
+    process's start for the imports)."""
+    t, out = start["t_proc0"], {}
+    for k, v in start["marks"].items():
+        out[k], t = v - t, v
+    return out
+
+
+def _elastic_windows(jobs: dict) -> dict:
+    """(job, attempt) -> its window on the host clock: its ranks' first
+    process start to the next attempt's (or the launcher's exit)."""
+    out = {}
+    for name, job in jobs.items():
+        starts = [min(a["start"]["t_proc0"] for a in att.values())
+                  for att in _elastic_attempts(job)]
+        ends = starts[1:] + [job["t0"] + job["seconds"]]
+        for i, w in enumerate(zip(starts, ends)):
+            out[name, i] = w
+    return out
+
+
+def _elastic_costs(name: str, jobs: dict) -> dict:
+    """Per attempt of job ``name``: each rank's start-up seconds (process
+    start to ready to step, restore included), its step ms (median), save
+    ms and bytes of its shard, each rank's lease renewals and their
+    largest gap as the rank saw them answered, and the jobs whose
+    attempts ran beside it (their ranks shared the card and the host)."""
+    job, win = jobs[name], _elastic_windows(jobs)
+    out = []
+    for i, att in enumerate(_elastic_attempts(job)):
+        t0, t1 = win[name, i]
+        steps = [s["ms"] for a in att.values() for s in a["steps"][1:]]
+        saves = [s for a in att.values() for s in a["saves"]]
+        out.append({
+            "world": len(att),
+            "startup_s_max": max(a["start"]["t_ready"] - a["start"]
+                                 ["t_proc0"] for a in att.values()),
+            "restore_ms_max": max((a["start"]["restore_ms"] or 0.0)
+                                  for a in att.values()),
+            # each stage's seconds, the slowest rank's
+            "startup_stages_s_max": {
+                k: max(_elastic_stages(a["start"])[k] for a in att.values())
+                for k in _elastic_stages(next(iter(att.values()))["start"])},
+            "restored_step": next(iter(att.values()))["start"]["restored"],
+            "step_ms_median": statistics.median(steps) if steps else None,
+            "first_step_ms_max": max((a["steps"][0]["ms"] for a in
+                                      att.values() if a["steps"]),
+                                     default=None),
+            "save_ms_median": statistics.median(
+                s["save"] for s in saves) if saves else None,
+            "save_snapshot_ms_median": statistics.median(
+                s["snapshot"] for s in saves) if saves else None,
+            "save_write_ms_median": statistics.median(
+                s["write"] for s in saves) if saves else None,
+            "shard_bytes": sorted({s["bytes"] for s in saves}),
+            "lease": {tag: a["end"]["lease"] for tag, a in att.items()
+                      if a["end"] and "lease" in a["end"]},
+            "concurrent_with": sorted({
+                n for (n, _), (a, b) in win.items()
+                if n != name and a < t1 and t0 < b})})
+    return {"attempts": out, "launch_seconds": job["seconds"]}
+
+
+def _elastic_launches(job: dict) -> dict:
+    """Rows 2-5 a step a rank, the same on every step of every rank of
+    the job (each child held its steps to the program's count)."""
+    seen = {json.dumps(s["launches"], sort_keys=True)
+            for att in _elastic_attempts(job) for a in att.values()
+            for s in a["steps"]}
+    if len(seen) != 1:
+        fail(f"dist_elastic {job['name']}: launches a step {seen}")
+    return json.loads(seen.pop())
+
+
+def phase_dist_elastic(torch, card: str, workdir: str, c=None) -> dict:
+    """The job control plane on the card: BERT-base (ELASTIC) started by
+    ``python -m paddle_tpu_torch.distributed.launch`` at dp 4 with the
+    lease plane armed, every rank checkpointing sharded; then
+
+      clean  steps 1-4, saves at 2 and 4;
+      (a)    the same job with ``crash:ckpt_shard_committed:2`` in
+             trainer1 and --elastic_retries 1: step 4's save is torn
+             (no global manifest), the relaunch restores step 2 and runs
+             3-4, whose losses and step-4 checkpoint (every f32 master
+             parameter and Adam moment) equal the clean run's bit for
+             bit; the torn step was never restored;
+      (b)    from the clean step-4 checkpoint, trainer3 lost for good at
+             the start of step 5 under --elastic_retries 2
+             --elastic_retries_per_rank 0 --min_world_size 3: the
+             coordinator evicts it (membership epoch 1), the launcher
+             restarts 3 ranks with PADDLE_ELASTIC_RESHARD=1, ZeRO's
+             moments split again for dp 3, steps 5-6 equal bit for bit a
+             clean dp-3 launch restored from the same checkpoint.
+
+    (a) runs beside the clean run, and (b) and its reference beside
+    (a)'s relaunch.  Each launcher's exit code and restarts are held; a
+    rank failing for any other reason fails the phase.  Reports each attempt's
+    start-up seconds, step ms a rank, save ms and bytes a shard, the
+    jobs that ran beside it, the detect-to-relaunch seconds of (a) and
+    (b), each rank's largest gap between answered lease renewals, and
+    rows 2-5's launches a step a rank (held to the program's on the card,
+    rows 4-5 on wgmma)."""
+    import shutil
+
+    t0 = time.perf_counter()
+    c = dict(ELASTIC, **(c or {}))
+    on_card = c["device"].startswith("cuda")
+    jobs = {}
+
+    def spec(name, root, steps, **kw):
+        return dict(c, root=os.path.join(workdir, root), steps=steps,
+                    trace_dir=os.path.join(workdir, f"{name}.traces"), **kw)
+
+    def start(name, conf, world, flags=(), env=None):
+        return name, _elastic_launch(conf, name, workdir, world, flags, env)
+
+    def join(started):
+        deadline = time.monotonic() + c["join_s"]
+        for name, (proc, job) in started:
+            jobs[name] = _elastic_join(job["c"], proc, job, deadline)
+
+    fault, fault_tag = ELASTIC_FAULT
+    a_env = {"FLAGS_ps_fault_injection": "1", "PADDLE_PS_FAULT_SPEC": fault,
+             "PADDLE_PS_FAULT_TAGS": fault_tag}
+    W = c["world"]
+    # (a) runs beside the clean run; (b) and its reference start once the
+    # clean step-4 checkpoint is committed, beside (a)'s relaunch (the
+    # card holds 11 ranks at once: ~4 GB each at these shapes)
+    clean = start("clean", spec("clean", "clean", 4), W)
+    a_job = start("a", spec("a", "a", 4), W, ("--elastic_retries", "1"),
+                  a_env)
+    join([clean])
+    _elastic_check(jobs["clean"], [])
+    clean_root = jobs["clean"]["c"]["root"]
+    # (b) and its reference start from the clean step-4 checkpoint
+    for root in ("b", "b3"):
+        shutil.copytree(os.path.join(clean_root, "ckpt-00000004"),
+                        os.path.join(workdir, root, "ckpt-00000004"),
+                        copy_function=os.link)
+    die_tag, die_at = ELASTIC_DIE
+    b_run = ("b", spec("b", "b", 6, die_tag=die_tag, die_at=die_at), W,
+             ("--elastic_retries", "2", "--elastic_retries_per_rank", "0",
+              "--min_world_size", str(W - 1)))
+    ref_run = ("b3", spec("b3", "b3", 6), W - 1, (),
+               {"PADDLE_ELASTIC_RESHARD": "1"})
+    join([a_job, start(*b_run), start(*ref_run)])
+    _elastic_check(jobs["a"], [(fault_tag, "nonzero exit (code 1)")])
+    with open(os.path.join(jobs["a"]["logs"], "workerlog.1")) as f:
+        if "at phase 'ckpt_shard_committed'" not in f.read():
+            fail("dist_elastic (a): trainer1 exited 1 without the "
+                 "injected crash")
+    _elastic_check(jobs["b"], [(die_tag, "nonzero exit (code 9)")])
+    _elastic_check(jobs["b3"], [])
+
+    # clean: one attempt, steps 1-4, every rank's shard the same bytes
+    cl = _elastic_attempts(jobs["clean"])
+    clean_losses = _elastic_losses(cl[0])
+    if sorted(clean_losses) != [1, 2, 3, 4] or not all(
+            math.isfinite(v) for v in clean_losses.values()):
+        fail(f"dist_elastic clean: losses {clean_losses}")
+    shas = set()
+    for r in range(W):
+        with open(os.path.join(clean_root, "ckpt-00000004", f"rank{r}",
+                               "manifest.json")) as f:
+            shas.add(json.load(f)["files"]["state.pkl"]["sha256"])
+    if len(shas) != 1:
+        fail("dist_elastic clean: the ranks' step-4 shards differ")
+    # (a): attempt 0 tore step 4, attempt 1 restored step 2
+    att = _elastic_attempts(jobs["a"])
+    a_root = jobs["a"]["c"]["root"]
+    if len(att) != 2:
+        fail(f"dist_elastic (a): {len(att)} attempts, wanted 2")
+    first = next(iter(att[1].values()))["start"]
+    if first["restored"] != 2 or 4 in first["committed"] \
+            or 2 not in first["committed"]:
+        fail(f"dist_elastic (a): the relaunch saw committed steps "
+             f"{first['committed']} and restored {first['restored']}, "
+             f"wanted step 2 restored and step 4 torn")
+    torn_shards = sorted(
+        d for d in os.listdir(os.path.join(a_root, "ckpt-00000004"))
+        if d.startswith("rank"))
+    relaunch = _elastic_losses(att[1])
+    if relaunch != {3: clean_losses[3], 4: clean_losses[4]}:
+        fail(f"dist_elastic (a): relaunch losses {relaunch} vs the clean "
+             f"run's {clean_losses}")
+    a_state = _elastic_same_state("(a) step 4", _elastic_state(a_root, 4),
+                                  _elastic_state(clean_root, 4))
+    # (b): attempt 0 at dp 4 from step 4, trainer3 lost at step 5;
+    # attempt 1 at dp 3, epoch 1, re-sharded
+    att_b = _elastic_attempts(jobs["b"])
+    if len(att_b) != 2 or sorted(att_b[1]) != ["trainer0", "trainer1",
+                                               "trainer2"]:
+        fail(f"dist_elastic (b): attempts {[sorted(a) for a in att_b]}")
+    st_b = next(iter(att_b[1].values()))["start"]
+    if st_b["world"] != W - 1 or st_b["epoch"] != 1 \
+            or st_b["restored"] != 4:
+        fail(f"dist_elastic (b): the resized attempt {st_b}")
+    b_losses = _elastic_losses(att_b[1])
+    ref_losses = _elastic_losses(_elastic_attempts(jobs["b3"])[0])
+    if b_losses != ref_losses or sorted(b_losses) != [5, 6]:
+        fail(f"dist_elastic (b): losses {b_losses} vs the clean dp-3 "
+             f"run's {ref_losses}")
+    b_state = _elastic_same_state(
+        "(b) step 6", _elastic_state(jobs["b"]["c"]["root"], 6),
+        _elastic_state(jobs["b3"]["c"]["root"], 6))
+    launches = ({n: _elastic_launches(j) for n, j in jobs.items()}
+                if on_card else "not counted (the CPU runs plain versions)")
+    out = {"phase": "dist_elastic", "card": card, "world": W,
+           "resized_world": W - 1, "bf16_layers":
+               c["bert"].get("num_hidden_layers", 12),
+           "batch": c["batch"], "seq": c["seq"], "lease_secs":
+               c["lease_secs"], "fsync": False, "fault": fault,
+           "fault_tag": fault_tag, "lost": [die_tag, die_at],
+           "clean_losses": clean_losses,
+           "a": {"relaunch_losses": relaunch, "torn_step_shards":
+                 torn_shards, "committed_at_relaunch":
+                 first["committed"], "state": a_state,
+                 **_elastic_restart_gap(jobs["a"])},
+           "b": {"losses": b_losses, "dp3_reference": ref_losses,
+                 "state": b_state, **_elastic_restart_gap(jobs["b"])},
+           "costs": {n: _elastic_costs(n, jobs) for n in jobs},
+           "launches_per_step_per_rank": launches,
+           "seconds": time.perf_counter() - t0}
+    for root in ("clean", "a", "b", "b3"):
+        shutil.rmtree(os.path.join(workdir, root), ignore_errors=True)
     emit(out)
     return out
 
@@ -7691,7 +8273,10 @@ def main() -> int:
     ap.add_argument("--dist-world", type=int, default=1,
                     help=argparse.SUPPRESS)
     ap.add_argument("--dist-dir", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--elastic-child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.elastic_child:
+        return _elastic_child(args.elastic_child)
     if args.fit_child:
         return _fit_child(args.fit_child, args.fit_role)
     if args.dist_child:
@@ -7775,21 +8360,32 @@ def main() -> int:
     import tempfile
 
     with tempfile.TemporaryDirectory(prefix="chip-dist-") as tmp:
-        dirs = {}
-        for what in ("ring", "train", "nccl", "tp", "pp", "ep_zero_dcn"):
-            dirs[what] = os.path.join(tmp, what)
-            os.makedirs(dirs[what])
-        phase_dist_ring(torch, env["card"], dirs["ring"])
+        # the gloo phases' four ranks start once for all their bodies,
+        # the NCCL rank beside them
+        raw = _dist_spawn({"nccl": (("nccl",), 1), "gloo": (
+            ("ring", "train", "tp", "pp", "ep", "zero", "dcn"),
+            DIST_WORLD)}, tmp)
         torch.cuda.empty_cache()
-        dtrain = phase_dist_train(torch, env["card"], dirs["train"])
+        phase_dist_ring(torch, env["card"], raw.pop("ring"))
         torch.cuda.empty_cache()
-        phase_dist_nccl(torch, env["card"], dirs["nccl"])
-        dtp = phase_dist_tp(torch, env["card"], dirs["tp"])
+        dtrain = phase_dist_train(torch, env["card"], raw.pop("train"))
         torch.cuda.empty_cache()
-        dpp = phase_dist_pp(torch, env["card"], dirs["pp"])
+        phase_dist_nccl(torch, env["card"], raw.pop("nccl"))
+        dtp = phase_dist_tp(torch, env["card"], raw.pop("tp"))
         torch.cuda.empty_cache()
-        dep, dzero, ddcn = phase_dist_ep_zero_dcn(torch, env["card"],
-                                                  dirs["ep_zero_dcn"])
+        dpp = phase_dist_pp(torch, env["card"], raw.pop("pp"))
+        torch.cuda.empty_cache()
+        dep = phase_dist_ep(torch, env["card"], raw.pop("ep"))
+        torch.cuda.empty_cache()
+        dzero = phase_dist_zero(torch, env["card"], raw.pop("zero"))
+        torch.cuda.empty_cache()
+        ddcn = phase_dist_dcn(torch, env["card"], raw.pop("dcn"),
+                              dzero["dp"]["losses"])
+        del raw
+        torch.cuda.empty_cache()
+        os.makedirs(os.path.join(tmp, "elastic"))
+        delastic = phase_dist_elastic(torch, env["card"],
+                                      os.path.join(tmp, "elastic"))
     dlaunches = dtrain["bf16"]["launches"]
     dlaunches_f32 = dtrain["f32"]["launches"]
 
@@ -7812,7 +8408,7 @@ def main() -> int:
         """Rank 0's launches of ``key`` over the 3 bf16 and the 3 f32
         steps of dist_tp, dist_pp and its pp x sp run, dist_ep's two
         layouts and dist_dcn; dist_zero's 3 bf16 steps sharded and not,
-        dist_dcn's 3 DGC steps."""
+        dist_dcn's 3 DGC steps, the clean dist_elastic run's 4 steps."""
         out = {}
         for path, runs in (("dist_tp", dtp), ("dist_pp", dpp["pp"]),
                            ("dist_pp_sp", dpp["pp_sp"]),
@@ -7823,6 +8419,9 @@ def main() -> int:
         out["dist_zero"] = dzero["zero"]["launches"][key]
         out["dist_zero_unsharded"] = dzero["dp"]["launches"][key]
         out["dist_dcn_dgc"] = ddcn["dgc"]["launches"][key]
+        # rank 0 over the clean dist_elastic run's 4 steps
+        out["dist_elastic"] = 4 * delastic["launches_per_step_per_rank"][
+            "clean"].get(key, 0)
         return out
 
     def entry(name, source, replaces, k, path_launches, main="bert_train"):

@@ -25,7 +25,10 @@ kernels (``ops.kernels.conv_bn``), with the fold of a frozen ResNet;
 the hapi and Transformer NMTs, the RPC serving replica; and
 preemption-safe training: the static verifier (``fluid.analysis``),
 checkpoints (``fluid.checkpoint``) and ``hapi.Model.fit`` with
-``checkpoint_dir``/``resume``.
+``checkpoint_dir``/``resume``; and the job control plane: the launcher
+(``distributed.launch``), heartbeats, the lease coordinator and the
+sharded checkpoint with its commit barrier, with ``Model.fit``'s
+elastic ``reshard``.
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; see :func:`resolve_device`.

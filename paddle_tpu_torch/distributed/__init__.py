@@ -56,6 +56,12 @@ through host memory too.  gloo has no reduce-scatter, so on gloo it is
 an all-reduce followed by this rank's block (twice the bytes), and
 all-gather is gloo's list all-gather.  NCCL never becomes gloo: the
 backend is the process group's, chosen at ``init_parallel_env``.
+
+The job control plane is in submodules, as in the JAX package, whose
+``distributed/__init__.py`` exports none of it: ``launch`` (``python -m
+paddle_tpu_torch.distributed.launch``), ``coordinator`` (leases,
+per-rank budgets, eviction, the sharded checkpoints' commit barrier,
+durable state and the warm standby), ``heartbeat`` and ``faults``.
 """
 from __future__ import annotations
 

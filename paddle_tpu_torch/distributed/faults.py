@@ -1,9 +1,11 @@
 """Deterministic fault injection: the part of the JAX package's
 ``distributed/faults.py`` that the port's call sites reach — the RPC
 transport (``distributed/ps_server.py``'s ``_Conn`` and the serving
-replica's ``handle``), the named code phases of the generation engine,
-the atomic writes of ``fluid/io.py`` and the commit protocol of
-``fluid/checkpoint.py``.
+replica's ``handle``), the job coordinator (``distributed/
+coordinator.py``: its verb dispatch and the member-side lease
+renewals), the named code phases of the generation engine, the atomic
+writes of ``fluid/io.py`` and the commit protocol of
+``fluid/checkpoint.py``, sharded layout included.
 
 Gate: the layer is active only when BOTH the FLAGS_ps_fault_injection
 flag is on AND PADDLE_PS_FAULT_SPEC is non-empty. Flag-off behavior is
@@ -49,24 +51,49 @@ Spec grammar (PADDLE_PS_FAULT_SPEC) — semicolon-separated rules:
                     yet renamed in), "ckpt_before_commit" (step dir in
                     place, manifest not yet written),
                     "ckpt_manifest_tmp_written" (manifest tmp written,
-                    not yet renamed) and "ckpt_writer" (inside the async
-                    writer thread, before it touches the disk))
+                    not yet renamed), "ckpt_writer" (inside the async
+                    writer thread, before it touches the disk),
+                    "ckpt_shard_committed" (a rank's shard manifest
+                    landed, its commit-barrier report not yet sent) and
+                    "ckpt_before_global_commit" (every shard confirmed,
+                    the global manifest not yet written); and the
+                    control-plane phase "coord_verb" (the entry of every
+                    coordinator verb dispatch: kills a process-hosted
+                    coordinator after it handled N verbs; scope it with
+                    PADDLE_PS_FAULT_TAGS=coord))
             io_err  phase side: raise OSError(EIO) at the Nth arrival at
                     a named WRITE phase (io_point(phase) call sites:
-                    "ckpt_content", "ckpt_manifest")
+                    "ckpt_content", "ckpt_manifest",
+                    "ckpt_global_manifest")
             short_write  phase side: the Nth write at the matching phase
                     lands TRUNCATED (half the intended bytes) while the
                     writer believes it succeeded
             diskfull  phase side, LATCHING: from the Nth arrival at the
                     matching phase on, EVERY io_point write phase in
                     this process raises OSError(ENOSPC)
+            lease_expire  member side, LATCHING: once this process has
+                    attempted <nth> coordinator lease renewals, ALL
+                    further renewals are swallowed client-side (the
+                    coordinator never sees them and the lease runs out
+                    as a silently dead host's does). The <method> field
+                    names the process tag to starve ("trainer1") or
+                    "*"; the process itself keeps running
+            netsplit  member side, WINDOWED: once this process has
+                    issued <nth> outgoing RPCs, ALL outgoing RPCs are
+                    dropped (FaultError before send) for <arg>
+                    MILLISECONDS, then the split heals. Lease renewals
+                    ride the same client path, so a long enough window
+                    also expires the member's lease. The <method> field
+                    names the process tag or "*"
     method  an RPC verb name (infer, generate, ...), a phase name, or "*"
     nth     1-based index of the matching call AT THE INJECTION SITE;
             each one-shot rule fires exactly once, on its Nth match
 
-The JAX package's lease, netsplit, bitflip and OOM rules have no call
-site in the port yet; they come with the code that calls them (ROADMAP
-A6), and a spec naming one is refused here.
+The JAX package's bitflip rule (its call sites are the parameter
+server's gradient push, the PS half of ROADMAP A6, and the SDC drill's
+merged-gradient apply, ROADMAP A8) and its oom rule (the executor's OOM
+doctor, ROADMAP A8) have no call site in the port yet, and a spec
+naming one is refused here.
 
 Counting is per-process and per-rule, so the schedule is a pure function
 of the arrival sequence — reruns inject the same faults at the same
@@ -74,7 +101,9 @@ points.
 
 Process scoping: PADDLE_PS_FAULT_TAGS (comma-separated) arms the layer
 only in processes whose PADDLE_PS_RANK_TAG ("ps0") or trainer id
-("trainer1") is listed.
+("trainer1") is listed. The tag rules (lease_expire, netsplit) match
+the process's tags: its PADDLE_PS_RANK_TAG, its launcher-stable
+PADDLE_TRAINER_TAG and "trainer<PADDLE_TRAINER_ID>".
 """
 from __future__ import annotations
 
@@ -92,9 +121,30 @@ _PHASE_ACTIONS = ("crash",)
 # disk-fault rules: fire at named WRITE phases (io_point call sites in
 # the checkpoint commit protocol)
 _IO_ACTIONS = ("io_err", "short_write", "diskfull")
-_KNOWN = _CLIENT_ACTIONS + _SERVER_ACTIONS + _PHASE_ACTIONS + _IO_ACTIONS
-# rules of the JAX package whose call sites the port does not have yet
-_NOT_PORTED = ("oom", "bitflip", "lease_expire", "netsplit")
+# member-side rules matched against this process's tags, not a verb
+_TAG_ACTIONS = ("lease_expire", "netsplit")
+_KNOWN = (_CLIENT_ACTIONS + _SERVER_ACTIONS + _PHASE_ACTIONS + _IO_ACTIONS
+          + _TAG_ACTIONS)
+# rules of the JAX package whose call sites the port does not have yet,
+# and the queue item that brings each
+_NOT_PORTED = {
+    "bitflip": "its call sites are the parameter server's push_grad (the "
+               "PS half of ROADMAP A6) and the SDC drill's sdc_apply "
+               "(ROADMAP A8)",
+    "oom": "its call site is the executor's OOM doctor (ROADMAP A8)",
+}
+
+
+def _process_tags() -> set:
+    """The identities this process answers to for tag-matched rules:
+    its pserver tag ("ps0"), its launcher-stable trainer tag
+    ("trainer2", PADDLE_TRAINER_TAG), and the rank-derived fallback."""
+    tags = {os.environ.get("PADDLE_PS_RANK_TAG") or "",
+            os.environ.get("PADDLE_TRAINER_TAG") or "",
+            "trainer" + os.environ.get("PADDLE_TRAINER_ID", "")}
+    tags.discard("")
+    tags.discard("trainer")
+    return tags
 
 
 class FaultError(ConnectionError):
@@ -134,9 +184,9 @@ def parse_spec(spec: str) -> List[_Rule]:
                 f"bad fault rule {raw!r}: want action:method:nth[:arg]")
         action, method, nth = parts[0], parts[1], parts[2]
         if action in _NOT_PORTED:
-            raise ValueError(
-                f"bad fault rule {raw!r}: the {action!r} rule has no call "
-                f"site in the port yet (ROADMAP A6)")
+            raise NotImplementedError(
+                f"fault rule {raw!r}: the {action!r} rule is not ported: "
+                f"{_NOT_PORTED[action]}")
         if action not in _KNOWN:
             raise ValueError(
                 f"bad fault rule {raw!r}: unknown action {action!r} "
@@ -148,6 +198,10 @@ def parse_spec(spec: str) -> List[_Rule]:
         if n < 1:
             raise ValueError(f"bad fault rule {raw!r}: nth is 1-based")
         arg = float(parts[3]) if len(parts) == 4 else 0.0
+        if action == "netsplit" and arg <= 0:
+            raise ValueError(
+                f"bad fault rule {raw!r}: netsplit needs a window — "
+                f"netsplit:<tag>:<nth>:<ms>")
         if action == "stall" and arg <= 0:
             raise ValueError(
                 f"bad fault rule {raw!r}: stall needs a duration — "
@@ -160,8 +214,8 @@ class FaultInjector:
     """One injection schedule, shared by every caller in a process.
 
     Client hooks (called by ps_server._Conn.call):
-      before_send(method)  — fires refuse (raises FaultError), delay and
-                             the repeating stall
+      before_send(method)  — fires refuse (raises FaultError), delay, the
+                             repeating stall and the netsplit window
       drop_after_send(method) -> bool — True: close the socket now
 
     Server hook (called by the serving replica's handle):
@@ -173,6 +227,9 @@ class FaultInjector:
       at_phase(phase)       — fires crash (os._exit) on the Nth arrival
       at_stall_phase(phase) — sleeps on every nth-th arrival
       at_io_phase(phase)    — the disk faults of a write phase
+
+    Lease hook (called by coordinator.CoordinatorClient.renew):
+      on_lease_renew() -> bool — True once a lease_expire rule latched
     """
 
     def __init__(self, spec: str):
@@ -181,6 +238,8 @@ class FaultInjector:
         self._lock = threading.Lock()
         self.partitioned = False  # latched by a fired `partition` rule
         self.disk_full = False  # latched by a fired `diskfull` rule
+        self.lease_blocked = False  # latched by a fired `lease_expire`
+        self.netsplit_until = 0.0  # wall time the split heals
 
     def _take(self, site_actions, method: str) -> List[_Rule]:
         """Advance matching rules' counters; return the rules firing NOW."""
@@ -213,8 +272,42 @@ class FaultInjector:
                     firing.append(r)
         return firing
 
+    def _take_tagged(self, action: str) -> List[_Rule]:
+        """Advance rules whose <method> field names one of THIS
+        process's tags (or "*") — each rule counted at most once per
+        arrival even when several tags match."""
+        tags = _process_tags()
+        firing = []
+        with self._lock:
+            for r in self._rules:
+                if r.action != action or r.fired:
+                    continue
+                if not (r.method == "*" or r.method in tags):
+                    continue
+                r.count += 1
+                if r.count == r.nth:
+                    r.fired = True
+                    firing.append(r)
+        return firing
+
     # -- client side -----------------------------------------------------
     def before_send(self, method: str) -> None:
+        # netsplit rules count every outgoing RPC from a tagged process;
+        # firing opens a drop window during which ALL sends fail the way
+        # a severed link fails them (the renewal path included)
+        now = time.time()
+        for r in self._take_tagged("netsplit"):
+            with self._lock:
+                self.netsplit_until = max(self.netsplit_until,
+                                          now + r.arg / 1000.0)
+            os.write(2, (f"[faults] netsplit: pid {os.getpid()} dropping "
+                         f"all RPCs for {r.arg:.0f}ms (rule netsplit:"
+                         f"{r.method}:{r.nth})\n").encode())
+        if now < self.netsplit_until:
+            raise FaultError(
+                f"fault injection: netsplit — {method!r} RPC dropped "
+                f"({self.netsplit_until - now:.3f}s until the window "
+                f"heals)")
         for r in self._take_every(("stall",), method):
             time.sleep(r.arg / 1000.0)  # arg is MILLISECONDS, repeating
         for r in self._take(("refuse", "delay"), method):
@@ -248,6 +341,21 @@ class FaultInjector:
                          f"{r.nth})\n").encode())
             with self._lock:
                 self.partitioned = True
+
+    # -- lease side ------------------------------------------------------
+    def on_lease_renew(self) -> bool:
+        """Counts one coordinator lease-renewal ATTEMPT from this
+        process; True once a matching `lease_expire` rule has latched —
+        the caller (CoordinatorClient.renew) then swallows the renewal
+        so the lease expires while the process stays alive."""
+        for r in self._take_tagged("lease_expire"):
+            os.write(2, (f"[faults] lease_expire: pid {os.getpid()} "
+                         f"swallowing all lease renewals from now on "
+                         f"(rule lease_expire:{r.method}:{r.nth})\n"
+                         ).encode())
+            with self._lock:
+                self.lease_blocked = True
+        return self.lease_blocked
 
     @staticmethod
     def _flight(reason: str) -> None:

@@ -18,7 +18,7 @@ faults with jittered exponential backoff (bounded by attempts or by a
 deadline), marks replays of dedup'd verbs with ``retry=True``, and
 consults the fault injector (``faults.py``: drop/refuse/delay/stall).
 
-Not ported yet (ROADMAP A6, the distributed job part): the parameter
+Not ported yet (the PS half of ROADMAP A6): the parameter
 server itself — ``PSServer`` (tables, sync barriers, snapshots,
 replication), ``RemoteTable``, and this module's ``serve``/``main``.
 """

@@ -116,7 +116,7 @@ _fleet_state = {"initialized": False, "role_maker": None, "strategy": None}
 _TP_MIX = "ROADMAP A4, next slice item 6: tp together with sp or pp"
 _TP_SLICE = "the tensor-parallel slice of ROADMAP A4 runs Megatron regions " \
             "only"
-_PS = "ROADMAP A6: the parameter server and the job control plane"
+_PS = "the PS half of ROADMAP A6: the parameter server"
 
 
 def _distributed():

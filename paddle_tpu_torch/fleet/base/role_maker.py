@@ -4,7 +4,7 @@ A copy of the JAX package's ``fleet/base/role_maker.py`` (parity:
 the reference's python/paddle/fleet/base/role_maker.py): the PaddleCloud
 env-var protocol, so launch scripts port unchanged.  The server role
 (TRAINING_ROLE=PSERVER) is recognised; the parameter server it would run
-comes with ROADMAP A6.
+comes with the PS half of ROADMAP A6.
 """
 from __future__ import annotations
 

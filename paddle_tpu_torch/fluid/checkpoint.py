@@ -1,9 +1,7 @@
-"""Preemption-safe checkpointing: atomic, manifest-verified, resumable and
-asynchronous.
+"""Preemption-safe checkpointing: atomic, manifest-verified, resumable,
+asynchronous and sharded.
 
-Ported from the JAX package's ``fluid/checkpoint.py`` (single-writer
-layout; the sharded layout waits for the distributed slices): step-
-numbered checkpoint directories committed atomically, verified by
+Ported from the JAX package's ``fluid/checkpoint.py``: step-numbered checkpoint directories committed atomically, verified by
 checksum on load, with automatic fallback to the newest *valid*
 checkpoint when the latest was torn by a crash.  The two packages write
 and read the same files: a checkpoint either one writes restores in the
@@ -42,12 +40,28 @@ drain(); SIGTERM-driven final saves go through the synchronous path
 (which waits out any in-flight write first) and an atexit hook drains
 the queue, so the final checkpoint is never lost.
 
+Sharded jobs (`PADDLE_CKPT_SHARDED=1` with world_size > 1): every rank
+writes its own `rank<k>/` shard dir (contents + per-shard manifest,
+committed exactly like a single-writer checkpoint) under the SAME step
+dir, then reports the shard-manifest sha256 to a commit barrier — the
+launcher-hosted `CkptBarrier` over the ps_server RPC transport
+(PADDLE_CKPT_BARRIER_ENDPOINT, an ordered list when a standby
+coordinator is armed), or a shared-filesystem poll when no barrier is
+armed. Rank 0 waits for every rank's report and only then commits
+`global_manifest.json` (step, world_size, membership_epoch, per-shard
+manifest sha256s) — THE global commit point. `restore()` only considers
+steps with a complete global manifest, so a crash between two ranks'
+shard commits leaves a checkpoint that is INVISIBLE by construction
+(and GC'd as torn once a newer step commits). Rank 0 owns retention.
+
 `distributed/faults.py` rules drill every phase deterministically:
 `crash:<phase>:<nth>` kills at `ckpt_tmp_written`, `ckpt_before_commit`,
-`ckpt_manifest_tmp_written` (mid manifest rename) and `ckpt_writer`
-(inside the async writer thread); `io_err:<phase>`, `short_write:<phase>`
-and `diskfull:<phase>` inject disk faults at the `ckpt_content` and
-`ckpt_manifest` write phases. `tools/ckpt_doctor.py` is the offline
+`ckpt_manifest_tmp_written` (mid manifest rename), `ckpt_writer`
+(inside the async writer thread), `ckpt_shard_committed` (post-shard,
+pre-barrier-report) and `ckpt_before_global_commit`; `io_err:<phase>`,
+`short_write:<phase>` and `diskfull:<phase>` inject disk faults at the
+`ckpt_content`, `ckpt_manifest` and `ckpt_global_manifest` write
+phases. `tools/ckpt_doctor.py` is the offline
 fsck of either package's checkpoints.
 
 What a checkpoint holds, and where the port differs from the JAX
@@ -78,12 +92,14 @@ multi-slice modes' [n_dcn, ...] state on "dcn"), ``save`` gathers each
 such variable, so the checkpoint holds the global values as one process
 of the JAX package would write them, and ``restore`` keeps this rank's
 block of each (``parallel.local_shard``, the executor's helper): every
-rank must call both.
+rank must call both.  In the sharded layout every rank's shard holds
+those global values, as a rank of the JAX package writes its scope; a
+restore at another world size (an elastic resize) takes this rank's
+block of them under the program's new mesh, so ZeRO's moments are split
+again for the new dp.
 
-Not ported (raising NotImplementedError where armed): the sharded layout
-(PADDLE_CKPT_SHARDED=1 with a world size above 1: rank shards, the
-commit barrier and the global manifest, ROADMAP A4/A6) and parameter-
-server tables in a checkpoint (ROADMAP A6).
+Not ported (raising NotImplementedError where armed): parameter-server
+tables in a checkpoint (the PS half of ROADMAP A6).
 """
 from __future__ import annotations
 
@@ -125,12 +141,15 @@ from ..telemetry import get_registry
 _REG = get_registry()
 
 MANIFEST = "manifest.json"
+GLOBAL_MANIFEST = "global_manifest.json"
 MANIFEST_FORMAT = 1
 _DIR_RE = re.compile(r"^ckpt-(\d+)$")
 _TMP_RE = re.compile(r"^\.tmp-ckpt-(\d+)-(?:r\d+-)?(\d+)$")
 
 ENV_ASYNC = "PADDLE_CKPT_ASYNC"
 ENV_SHARDED = "PADDLE_CKPT_SHARDED"
+ENV_BARRIER = "PADDLE_CKPT_BARRIER_ENDPOINT"
+ENV_BARRIER_TIMEOUT = "PADDLE_CKPT_BARRIER_TIMEOUT"
 ENV_DRAIN_TIMEOUT = "PADDLE_CKPT_DRAIN_TIMEOUT"
 
 # sysexits EX_TEMPFAIL: the conventional "retry me" code — a preempted
@@ -179,6 +198,12 @@ class RestoreMismatchError(CheckpointError):
     def __init__(self, message: str, findings=()):
         super().__init__(message)
         self.findings = list(findings)
+
+
+class CommitBarrierError(CheckpointError):
+    """Rank 0 gave up waiting for every rank's shard-commit report:
+    the step's checkpoint stays torn (no global manifest) and restore()
+    keeps serving the previous fully-committed step."""
 
 
 def _env_true(name: str, default: str = "") -> bool:
@@ -697,12 +722,159 @@ class _AsyncWriter:
 
 # ---------------------------------------------------------------------------
 # manager
+
+
+# ---------------------------------------------------------------------------
+# commit-barrier handles (sharded global commit)
+# ---------------------------------------------------------------------------
+
+
+class _LocalBarrier:
+    """Direct in-process handle on a coordinator.CkptBarrier (tests,
+    and the launcher process itself)."""
+
+    def __init__(self, barrier):
+        self.barrier = barrier
+
+    def shard_commit(self, step, rank, world, info) -> None:
+        self.barrier.shard_commit(step=int(step), rank=int(rank),
+                                  world_size=int(world), info=info)
+
+    def wait_full(self, step, world, timeout) -> Optional[dict]:
+        out = self.barrier.wait_full(step=int(step),
+                                     world_size=int(world),
+                                     timeout=float(timeout))
+        if not out.get("complete"):
+            return None
+        return {int(r): dict(i) for r, i in out["shards"].items()}
+
+
+class _RPCBarrier:
+    """Commit barrier over the ps_server RPC transport (the launcher
+    hosts coordinator.CkptBarrier and exports
+    PADDLE_CKPT_BARRIER_ENDPOINT). Rank 0 POLLS ckpt_status instead of
+    holding a handler thread in a long blocking wait.
+
+    The endpoint may be a comma-separated ordered list (durable
+    coordinator + warm standby): verbs rotate to the next endpoint on
+    transport failure AND on a ``{"standby": True}`` refusal — an
+    unpromoted standby or a stale-latched deposed primary must never
+    swallow a commit report."""
+
+    def __init__(self, endpoint: str):
+        self.endpoints = [e.strip() for e in str(endpoint).split(",")
+                          if e.strip()]
+        self.endpoint = self.endpoints[0]
+        self._idx = 0
+        self._conn = None
+
+    def _c(self):
+        if self._conn is None:
+            from ..distributed.ps_server import _Conn
+
+            self._conn = _Conn(self.endpoints[self._idx], deadline=10.0,
+                               io_timeout=30.0)
+        return self._conn
+
+    def _rotate(self) -> None:
+        if self._conn is not None:
+            try:
+                self._conn.close()
+            except Exception:  # noqa: BLE001 — best-effort close
+                pass
+        self._conn = None
+        self._idx = (self._idx + 1) % len(self.endpoints)
+        self.endpoint = self.endpoints[self._idx]
+
+    def _call(self, verb: str, **kw) -> dict:
+        last: Optional[BaseException] = None
+        for _ in range(max(2, len(self.endpoints) * 2)):
+            try:
+                out = self._c().call(verb, **kw)
+            except ConnectionError as e:
+                last = e
+                self._rotate()
+                time.sleep(0.05)
+                continue
+            if isinstance(out, dict) and out.get("standby"):
+                last = ConnectionError(
+                    f"barrier endpoint {self.endpoint} is not the "
+                    f"authoritative coordinator")
+                self._rotate()
+                time.sleep(0.05)
+                continue
+            return out
+        raise last if last is not None else ConnectionError(
+            "ckpt barrier unreachable")
+
+    def shard_commit(self, step, rank, world, info) -> None:
+        self._call("ckpt_shard_commit", step=int(step), rank=int(rank),
+                   world_size=int(world), info=info)
+
+    def wait_full(self, step, world, timeout) -> Optional[dict]:
+        deadline = time.monotonic() + float(timeout)
+        while True:
+            try:
+                out = self._call("ckpt_status", step=int(step))
+            except ConnectionError:
+                if time.monotonic() > deadline:
+                    return None
+                time.sleep(0.2)
+                continue
+            shards = {int(r): dict(i)
+                      for r, i in (out.get("shards") or {}).items()}
+            if len(shards) >= int(world):
+                return shards
+            if time.monotonic() > deadline:
+                return None
+            time.sleep(0.1)
+
+
+class _FSBarrier:
+    """Shared-filesystem fallback when no barrier endpoint is armed: a
+    landed, parseable shard manifest IS the rank's commit report; rank 0
+    polls for every rank's and derives the manifest sha256s itself."""
+
+    def __init__(self, mgr: "CheckpointManager"):
+        self.mgr = mgr
+
+    def shard_commit(self, step, rank, world, info) -> None:
+        pass  # the shard manifest on the shared FS is the report
+
+    def wait_full(self, step, world, timeout) -> Optional[dict]:
+        deadline = time.monotonic() + float(timeout)
+        stepdir = self.mgr._dir(step)
+        while True:
+            shards: Optional[dict] = {}
+            for r in range(int(world)):
+                p = os.path.join(stepdir, f"rank{r}", MANIFEST)
+                try:
+                    with open(p, "rb") as f:
+                        blob = f.read()
+                    m = json.loads(blob.decode())
+                    if m.get("format") != MANIFEST_FORMAT:
+                        raise ValueError("format")
+                except (OSError, ValueError):
+                    shards = None
+                    break
+                shards[r] = {
+                    "manifest_sha256": hashlib.sha256(blob).hexdigest()}
+            if shards is not None:
+                return shards
+            if time.monotonic() > deadline:
+                return None
+            time.sleep(0.05)
+
+
+# ---------------------------------------------------------------------------
+# manager
 # ---------------------------------------------------------------------------
 
 
 class CheckpointManager:
     """Step-numbered atomic checkpoints with retention and verified,
-    fall-back-to-newest-valid restore; optional async background writes.
+    fall-back-to-newest-valid restore; optional async background writes
+    and sharded multi-rank layouts with a single global commit point.
 
     program/scope given at construction are the defaults for save() and
     restore(); both can be overridden per call. With program=None the
@@ -711,9 +883,13 @@ class CheckpointManager:
     async_save (default: PADDLE_CKPT_ASYNC) hands serialization + the
     two-phase commit to a background writer.  ``device`` is where a
     restore places the arrays (None: the CUDA card, resolved when a
-    restore needs it).  The sharded layout (``sharded``, or
-    PADDLE_CKPT_SHARDED with a world size above 1) and a commit
-    ``barrier`` raise NotImplementedError (ROADMAP A4/A6).
+    restore needs it).  sharded (default: PADDLE_CKPT_SHARDED, only with
+    world_size > 1) writes `rank<k>/` shard dirs (``rank``: default
+    PADDLE_TRAINER_ID) and gates restore on rank 0's
+    global_manifest.json; ``barrier`` injects an in-process
+    coordinator.CkptBarrier (tests); launched ranks reach the
+    launcher's over PADDLE_CKPT_BARRIER_ENDPOINT, falling back to
+    shared-FS polling.
 
     ``last_save`` holds the newest save's times in ms: ``snapshot``
     (device to host), ``serialize`` (pickle + sha256: the streaming time
@@ -723,6 +899,7 @@ class CheckpointManager:
 
     def __init__(self, root: str, keep_last_n: int = 3, program=None,
                  scope=None, world_size: Optional[int] = None,
+                 rank: Optional[int] = None,
                  sharded: Optional[bool] = None,
                  async_save: Optional[bool] = None,
                  barrier=None, device=None):
@@ -736,14 +913,14 @@ class CheckpointManager:
         # mismatch unless the caller opted into re-sharding
         self.world_size = (int(world_size) if world_size is not None
                            else _world_size_from_env())
+        self.rank = (int(rank) if rank is not None
+                     else int(os.environ.get("PADDLE_TRAINER_ID", "0")
+                              or 0))
         if sharded is None:
             sharded = _env_true(ENV_SHARDED) and (self.world_size or 1) > 1
-        if sharded or barrier is not None:
-            raise NotImplementedError(
-                "CheckpointManager: the sharded layout (rank shards, the "
-                "commit barrier and the global manifest) waits for the "
-                "distributed slices (ROADMAP A4, then the coordinator of "
-                "ROADMAP A6)")
+        self.sharded = bool(sharded)
+        self.barrier = barrier
+        self._bar_handle = None
         if async_save is None:
             async_save = _env_true(ENV_ASYNC)
         self.async_save = bool(async_save)
@@ -756,6 +933,12 @@ class CheckpointManager:
     def _dir(self, step: int) -> str:
         return os.path.join(self.root, f"ckpt-{int(step):08d}")
 
+    def _data_dir(self, step: int) -> str:
+        """Where THIS writer's content lives: the step dir itself, or
+        this rank's shard dir under it."""
+        d = self._dir(step)
+        return os.path.join(d, f"rank{self.rank}") if self.sharded else d
+
     def _scan(self) -> List[Tuple[int, str]]:
         out = []
         for name in os.listdir(self.root):
@@ -765,18 +948,33 @@ class CheckpointManager:
         return sorted(out)
 
     def manifest(self, step: int) -> Optional[dict]:
-        """Parsed manifest of a COMMITTED checkpoint, else None (missing
-        or unparseable manifest == torn == not a checkpoint)."""
+        """Parsed manifest of a COMMITTED checkpoint — this rank's shard
+        manifest in sharded mode — else None (missing or unparseable
+        manifest == torn == not a checkpoint)."""
         try:
-            with open(os.path.join(self._dir(step), MANIFEST)) as f:
+            with open(os.path.join(self._data_dir(step), MANIFEST)) as f:
+                m = json.load(f)
+            return m if m.get("format") == MANIFEST_FORMAT else None
+        except (OSError, ValueError):
+            return None
+
+    def global_manifest(self, step: int) -> Optional[dict]:
+        """Parsed global manifest of a sharded checkpoint (None = torn,
+        absent, or a non-sharded layout)."""
+        try:
+            with open(os.path.join(self._dir(step), GLOBAL_MANIFEST)) as f:
                 m = json.load(f)
             return m if m.get("format") == MANIFEST_FORMAT else None
         except (OSError, ValueError):
             return None
 
     def steps(self) -> List[int]:
-        """COMMITTED steps, ascending. The commit marker is the
-        manifest."""
+        """COMMITTED steps, ascending. The commit marker is the manifest
+        — the GLOBAL manifest for sharded layouts, so a step some ranks
+        finished and others did not is not a checkpoint at all."""
+        if self.sharded:
+            return [s for s, _ in self._scan()
+                    if self.global_manifest(s) is not None]
         return [s for s, _ in self._scan() if self.manifest(s) is not None]
 
     def latest_step(self) -> Optional[int]:
@@ -798,11 +996,33 @@ class CheckpointManager:
 
     def verify(self, step: int) -> bool:
         """Full integrity check: manifest present and every listed file
-        exists with matching size and sha256."""
+        exists with matching size and sha256. Sharded: the global
+        manifest must list world_size shards whose manifest files hash
+        to the recorded sha256s, and THIS rank's shard contents are
+        checksummed in full (tools/ckpt_doctor.py cross-checks every
+        shard's contents offline)."""
+        if self.sharded:
+            gm = self.global_manifest(step)
+            if gm is None:
+                return False
+            shards = gm.get("shards") or {}
+            if len(shards) != int(gm.get("world_size") or 0):
+                return False
+            d = self._dir(step)
+            for rname, info in shards.items():
+                p = os.path.join(d, rname, MANIFEST)
+                try:
+                    with open(p, "rb") as f:
+                        blob = f.read()
+                except OSError:
+                    return False
+                if hashlib.sha256(blob).hexdigest() != \
+                        info.get("manifest_sha256"):
+                    return False
         m = self.manifest(step)
         if m is None:
             return False
-        return self._verify_files(self._dir(step), m["files"])
+        return self._verify_files(self._data_dir(step), m["files"])
 
     # -- async plumbing --------------------------------------------------
     def _writer(self) -> _AsyncWriter:
@@ -815,6 +1035,19 @@ class CheckpointManager:
 
     def _drain_timeout(self) -> float:
         return _float_env(ENV_DRAIN_TIMEOUT, 120.0)
+
+    def _barrier_timeout(self) -> float:
+        return _float_env(ENV_BARRIER_TIMEOUT, 120.0)
+
+    def _barrier_handle(self):
+        if self._bar_handle is None:
+            if self.barrier is not None:
+                self._bar_handle = _LocalBarrier(self.barrier)
+            elif os.environ.get(ENV_BARRIER):
+                self._bar_handle = _RPCBarrier(os.environ[ENV_BARRIER])
+            else:
+                self._bar_handle = _FSBarrier(self)
+        return self._bar_handle
 
     def raise_if_async_failed(self) -> None:
         """Surface a latched background-writer failure (no-op when the
@@ -884,7 +1117,7 @@ class CheckpointManager:
                 job.save_ctx = (sp.trace_id, sp.span_id)
             if async_:
                 self._writer().submit(job)
-                out = self._dir(step)
+                out = self._data_dir(step)
             else:
                 w = self._async
                 if w is not None:
@@ -919,8 +1152,8 @@ class CheckpointManager:
                 raise NotImplementedError(
                     f"CheckpointManager.save: the program reads "
                     f"parameter-server tables {tables}; checkpointing them "
-                    f"waits for the port of the parameter server (ROADMAP "
-                    f"A6), and the checkpoint will not leave them out")
+                    f"waits for the port of the parameter server (the PS "
+                    f"half of ROADMAP A6), and the checkpoint will not leave them out")
             names = [n for n in _persistable_names(program)
                      if scope.find_var(n) is not None]
         else:
@@ -979,7 +1212,10 @@ class CheckpointManager:
                                 attrs={"step": job.step,
                                        "mode": ("async" if job.async_
                                                 else "sync")}):
-            out = self._write_single(job, contents)
+            if self.sharded:
+                out = self._write_shard(job, contents)
+            else:
+                out = self._write_single(job, contents)
         _REG.histogram("checkpoint_write_ms",
                        help="serialize+commit durations (writer side)"
                        ).observe((time.perf_counter() - t0) * 1e3)
@@ -1006,11 +1242,12 @@ class CheckpointManager:
                      ).inc(len(data))
         return hashlib.sha256(blob).hexdigest()
 
-    def _write_single(self, job: _Snapshot, contents: dict) -> str:
-        step = job.step
-        t0 = time.perf_counter()
-        tmp = os.path.join(self.root,
-                           f".tmp-ckpt-{step:08d}-{os.getpid()}")
+    def _write_dir(self, tmp: str, final: str, contents: dict,
+                   job: _Snapshot, t0: float) -> dict:
+        """Phases 1-2 of the commit: every content file into ``tmp``
+        (fsynced, then the directory), then ``tmp`` renamed to ``final``.
+        Returns the manifest's file table; the serialize time lands in
+        the job's timings."""
         if os.path.exists(tmp):
             shutil.rmtree(tmp)
         os.makedirs(tmp)
@@ -1021,37 +1258,104 @@ class CheckpointManager:
                 files[rel] = {"sha256": w.sha.hexdigest(),
                               "bytes": w.nbytes}
                 write_ms += w.write_ms
-            serialize_ms = (time.perf_counter() - t0) * 1e3 - write_ms
+            job.timings["serialize"] = \
+                (time.perf_counter() - t0) * 1e3 - write_ms
             io_lib._fsync_dir(tmp)
             _crash_point("ckpt_tmp_written")
-
-            final = self._dir(step)
             if os.path.exists(final):  # stale same-step dir (torn or old)
                 shutil.rmtree(final)
             os.rename(tmp, final)
         except BaseException:
             shutil.rmtree(tmp, ignore_errors=True)
             raise
-        io_lib._fsync_dir(self.root)
+        io_lib._fsync_dir(os.path.dirname(final))
         _crash_point("ckpt_before_commit")
+        job.timings["bytes"] = sum(m["bytes"] for m in files.values())
+        return files
 
+    @staticmethod
+    def _ps_section() -> dict:
+        return {"tables": [],
+                "generation": int(
+                    os.environ.get("PADDLE_ELASTIC_RESTART", "0") or 0)}
+
+    def _write_single(self, job: _Snapshot, contents: dict) -> str:
+        step = job.step
+        t0 = time.perf_counter()
+        final = self._dir(step)
+        files = self._write_dir(
+            os.path.join(self.root, f".tmp-ckpt-{step:08d}-{os.getpid()}"),
+            final, contents, job, t0)
         manifest = {
             "format": MANIFEST_FORMAT,
             "step": step,
             "files": files,
-            "ps": {"tables": [],
-                   "generation": int(
-                       os.environ.get("PADDLE_ELASTIC_RESTART", "0") or 0)},
+            "ps": self._ps_section(),
         }
         if self.world_size is not None:
             manifest["world_size"] = int(self.world_size)
             manifest["membership_epoch"] = _membership_epoch()
         self._commit_manifest(os.path.join(final, MANIFEST), manifest,
                               "ckpt_manifest")
-        job.timings["serialize"] = serialize_ms
-        job.timings["write"] = (time.perf_counter() - t0) * 1e3 - serialize_ms
-        job.timings["bytes"] = sum(m["bytes"] for m in files.values())
+        job.timings["write"] = ((time.perf_counter() - t0) * 1e3
+                                - job.timings["serialize"])
         self._retain()
+        return final
+
+    def _write_shard(self, job: _Snapshot, contents: dict) -> str:
+        """Sharded commit: shard contents + shard manifest exactly like
+        a single-writer checkpoint, then the commit barrier, then (rank
+        0 only) the global manifest — the ONLY marker restore trusts."""
+        step = job.step
+        t0 = time.perf_counter()
+        stepdir = self._dir(step)
+        os.makedirs(stepdir, exist_ok=True)
+        final = os.path.join(stepdir, f"rank{self.rank}")
+        files = self._write_dir(
+            os.path.join(self.root, f".tmp-ckpt-{step:08d}-r{self.rank}-"
+                                    f"{os.getpid()}"),
+            final, contents, job, t0)
+        manifest = {
+            "format": MANIFEST_FORMAT,
+            "step": step,
+            "rank": int(self.rank),
+            "files": files,
+            "ps": self._ps_section(),
+        }
+        man_sha = self._commit_manifest(os.path.join(final, MANIFEST),
+                                        manifest, "ckpt_manifest")
+        # the shard is committed but INVISIBLE: without the global
+        # manifest no restore anywhere considers this step
+        _crash_point("ckpt_shard_committed")
+
+        world = int(self.world_size or 1)
+        barrier = self._barrier_handle()
+        barrier.shard_commit(step, int(self.rank), world,
+                             {"manifest_sha256": man_sha})
+        if int(self.rank) == 0:
+            shards = barrier.wait_full(step, world, self._barrier_timeout())
+            if shards is None:
+                raise CommitBarrierError(
+                    f"commit barrier for step {step} incomplete after "
+                    f"{self._barrier_timeout():.0f}s — the step stays torn "
+                    f"(no global manifest); restore() keeps serving the "
+                    f"previous fully-committed step")
+            _crash_point("ckpt_before_global_commit")
+            gm = {
+                "format": MANIFEST_FORMAT,
+                "step": step,
+                "world_size": world,
+                "membership_epoch": _membership_epoch(),
+                "shards": {f"rank{r}": dict(info)
+                           for r, info in sorted(shards.items())},
+            }
+            self._commit_manifest(
+                os.path.join(stepdir, GLOBAL_MANIFEST), gm,
+                "ckpt_global_manifest",
+                crash_phase="ckpt_global_manifest_tmp_written")
+            self._retain()
+        job.timings["write"] = ((time.perf_counter() - t0) * 1e3
+                                - job.timings["serialize"])
         return final
 
     def _retain(self) -> None:
@@ -1061,7 +1365,10 @@ class CheckpointManager:
         newer torn dirs exist. Torn dirs BELOW the newest committed step
         can never complete (a newer commit exists) and are GC'd; a torn
         dir at/above it may be a save in flight and is left for the next
-        save at that step (or tools/ckpt_doctor.py --gc) to clear."""
+        save at that step (or tools/ckpt_doctor.py --gc) to clear. In
+        sharded mode rank 0 owns retention."""
+        if self.sharded and int(self.rank) != 0:
+            return
         valid = self.steps()
         if not valid:
             return
@@ -1084,8 +1391,9 @@ class CheckpointManager:
                 continue
             t_step, t_pid = int(m.group(1)), int(m.group(2))
             # another pid's tmp dir at a step NEWER than the newest
-            # commit may be a live writer's save in flight; it only
-            # becomes provable trash once that step commits
+            # commit may be a live writer's save in flight (sharded
+            # ranks share the root); it only becomes provable trash once
+            # that step commits
             if t_step < cutoff or (t_pid != os.getpid()
                                    and t_step <= newest):
                 shutil.rmtree(os.path.join(self.root, name),
@@ -1097,16 +1405,22 @@ class CheckpointManager:
                 ) -> Optional[dict]:
         """Restore the given step, or the newest checkpoint that passes
         full verification — a torn or corrupted newer directory is
-        skipped with a warning, never trusted. Returns {"step", "extra",
-        "manifest", "world_size"} or None when no valid checkpoint
+        skipped with a warning, never trusted. A sharded step without a
+        complete global manifest is invisible by construction. Returns
+        {"step", "extra", "manifest", "world_size"} (and
+        "global_manifest" when sharded) or None when no valid checkpoint
         exists. On success the scope holds the checkpointed persistables
         (on the manager's device) and the step seed.
 
         Elastic gate: a manifest written at a DIFFERENT world size is
         refused (WorldSizeMismatchError — never a silent fallback, the
         older checkpoints have the same world size) unless
-        `allow_reshard` (default: PADDLE_ELASTIC_RESHARD env) is true.
-        Manifests that carry no world size skip the check."""
+        `allow_reshard` (default: PADDLE_ELASTIC_RESHARD env) is true;
+        then the caller owns re-splitting its data positions across the
+        new dp group and the returned "world_size" says what to re-split
+        FROM, while each sharded variable takes this rank's block under
+        the program's mesh. Manifests that carry no world size skip the
+        check."""
         from .. import resolve_device
 
         program = program if program is not None else self.program
@@ -1125,7 +1439,9 @@ class CheckpointManager:
                     f"back to the previous checkpoint",
                     RuntimeWarning, stacklevel=2)
                 continue
-            ckpt_ws = (self.manifest(s) or {}).get("world_size")
+            src = self.global_manifest(s) if self.sharded \
+                else self.manifest(s)
+            ckpt_ws = (src or {}).get("world_size")
             if (ckpt_ws is not None and self.world_size is not None
                     and int(ckpt_ws) != int(self.world_size)
                     and not allow_reshard):
@@ -1153,18 +1469,14 @@ class CheckpointManager:
         return None
 
     def _load(self, step: int, program, scope, device) -> dict:
-        d = self._dir(step)
+        d = self._data_dir(step)
         manifest = self.manifest(step)
         tables = (manifest or {}).get("ps", {}).get("tables", ())
         if tables:
             raise NotImplementedError(
                 f"checkpoint ckpt-{step:08d} holds parameter-server tables "
                 f"{list(tables)}; restoring them waits for the port of the "
-                f"parameter server (ROADMAP A6)")
-        if (manifest or {}).get("rank") is not None:
-            raise NotImplementedError(
-                f"checkpoint ckpt-{step:08d} is a rank shard of the sharded "
-                f"layout (ROADMAP A4, then the coordinator of ROADMAP A6)")
+                f"parameter server (the PS half of ROADMAP A6)")
         loaded = {}
         for name in ("state", "rng", "extra"):
             with open(os.path.join(d, f"{name}.pkl"), "rb") as f:
@@ -1207,4 +1519,7 @@ class CheckpointManager:
                                           program._mesh).contiguous()
             scope.set_var(n, t)
         scope._rng_seed = _restore_rng(rng)
-        return {"step": int(step), "extra": extra, "manifest": manifest}
+        out = {"step": int(step), "extra": extra, "manifest": manifest}
+        if self.sharded:
+            out["global_manifest"] = self.global_manifest(step)
+        return out

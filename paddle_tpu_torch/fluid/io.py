@@ -259,13 +259,13 @@ def _ps_table_names(program) -> List[str]:
 def _save_ps_tables(dirname: str, program) -> None:
     raise NotImplementedError(
         "saving parameter-server tables beside the persistables waits "
-        "for the port of the parameter server (ROADMAP A6)")
+        "for the port of the parameter server (the PS half of ROADMAP A6)")
 
 
 def _load_ps_tables(dirname: str, program) -> None:
     raise NotImplementedError(
         "restoring parameter-server tables waits for the port of the "
-        "parameter server (ROADMAP A6)")
+        "parameter server (the PS half of ROADMAP A6)")
 
 
 def _refuse_ps_tables(program, what: str) -> None:
@@ -275,7 +275,7 @@ def _refuse_ps_tables(program, what: str) -> None:
             f"{what}: the program reads parameter-server tables {tables} "
             f"(distributed_lookup_table); the port cannot "
             f"{'save' if what.startswith('save') else 'restore'} them "
-            f"until the parameter server is ported (ROADMAP A6), and "
+            f"until the parameter server is ported (the PS half of ROADMAP A6), and "
             f"will not leave them out")
 
 
@@ -526,9 +526,8 @@ def save(program, model_path: str):
         "fluid.io.save (the JAX package's Orbax checkpoint) is not ported: "
         "the port's whole-state checkpointer is fluid.CheckpointManager "
         "(atomic, verified, resumable; save_persistables writes the "
-        "persistables as .npy files); a sharded layout waits for the "
-        "distributed slices (ROADMAP A4, then the coordinator of ROADMAP "
-        "A6)")
+        "persistables as .npy files; its sharded layout, ROADMAP A6, "
+        "under PADDLE_CKPT_SHARDED)")
 
 
 def load(program, model_path: str, executor=None):
@@ -536,9 +535,8 @@ def load(program, model_path: str, executor=None):
         "fluid.io.load (the JAX package's Orbax checkpoint) is not ported: "
         "fluid.CheckpointManager.restore reads the port's whole-state "
         "checkpoints, and either package's (load_persistables reads "
-        "save_persistables' files); a sharded layout waits for the "
-        "distributed slices (ROADMAP A4, then the coordinator of ROADMAP "
-        "A6)")
+        "save_persistables' files; its sharded layout, ROADMAP A6, "
+        "under PADDLE_CKPT_SHARDED)")
 
 
 # ---------------------------------------------------------------------------

@@ -8,15 +8,16 @@ Input:50, StaticGraphAdapter:84); ported from the JAX package's
 user network callable over symbolic inputs and run by the port's
 Executor on the model's device (the CUDA card unless ``device="cpu"``).
 ``fit(checkpoint_dir=..., resume=...)`` checkpoints through
-``fluid/checkpoint.py`` and resumes with a bit-identical loss trace.
+``fluid/checkpoint.py`` and resumes with a bit-identical loss trace;
+``fit(reshard=...)`` (or PADDLE_ELASTIC_RESHARD) resumes a checkpoint
+written at another world size, as the launcher's elastic resize asks.
 
 ``hapi.text`` holds the transformer blocks (``MultiHeadAttention``,
 ``FFN``, ``PrePostProcessLayer``, ``TransformerEncoder``,
 ``TransformerDecoder``).  Not ported yet: ``hapi.datasets``,
 ``hapi.vision``, the RNN cells, ``TransformerCell``, beam search and the
-CRF (ROADMAP A9); ``fit``'s elastic ``reshard`` (ROADMAP A4/A6) and
-the numerics guards (FLAGS_check_numerics, ROADMAP A8) raise where they
-are asked for.
+CRF (ROADMAP A9); the numerics guards (FLAGS_check_numerics, ROADMAP
+A8) raise where they are asked for.
 """
 from __future__ import annotations
 
@@ -301,11 +302,16 @@ class Model:
                          then checkpoint.Preempted is raised — exit with
                          checkpoint.PREEMPTED_EXIT_CODE so a supervisor
                          respawns + auto-resumes.
-        reshard          elastic resume across a world-size change: not
-                         ported (ROADMAP A4/A6), raises when asked for
-                         (True, or None with PADDLE_ELASTIC_RESHARD set);
-                         a checkpoint from another world size is refused
-                         (checkpoint.WorldSizeMismatchError).
+        reshard          elastic resume across a world-size change
+                         (launcher resize): None defaults to
+                         PADDLE_ELASTIC_RESHARD. False (and env unset):
+                         a checkpoint from a different world size is
+                         REFUSED (checkpoint.WorldSizeMismatchError).
+                         True: resume proceeds and the mid-epoch
+                         position is re-split — the per-rank step is
+                         scaled by old_world/new_world so the global
+                         sample offset carries over (exact when the
+                         global batch divides both world sizes).
 
         FLAGS_check_numerics (the JAX package's bad-step skip and
         rollback) raises: the port's executor has no numerics guard yet
@@ -318,11 +324,6 @@ class Model:
             raise NotImplementedError(
                 "Model.fit under FLAGS_check_numerics: the bad-step guard "
                 "waits for the executor's numerics guards (ROADMAP A8)")
-        if reshard or (reshard is None
-                       and ckpt_mod._reshard_allowed_from_env()):
-            raise NotImplementedError(
-                "Model.fit(reshard=...): elastic resume across a world-size "
-                "change waits for the distributed slices (ROADMAP A4/A6)")
         if isinstance(resume, str):
             checkpoint_dir = checkpoint_dir or resume
         mgr = (self._checkpoint_manager(checkpoint_dir, checkpoint_keep)
@@ -350,7 +351,7 @@ class Model:
 
         epoch, resume_step, pending_losses, global_step = 0, 0, [], 0
         if mgr is not None and resume:
-            st = mgr.restore(allow_reshard=False)
+            st = mgr.restore(allow_reshard=reshard)
             if st is not None:
                 ex = st["extra"]
                 epoch = int(ex.get("epoch", 0))
@@ -359,6 +360,32 @@ class Model:
                 history = {k: list(v)
                            for k, v in ex.get("history", history).items()}
                 global_step = int(ex.get("global_step", 0))
+                ckpt_ws = st.get("world_size")
+                if (ckpt_ws and mgr.world_size
+                        and int(ckpt_ws) != int(mgr.world_size)):
+                    # elastic resize: preserve the GLOBAL sample offset
+                    # by scaling the per-rank position; the per-rank
+                    # loss history from the old split is not comparable
+                    # to the new shard, so the epoch restarts its
+                    # running-mean bookkeeping at the re-split point
+                    import warnings as _warnings
+
+                    scaled = (resume_step * int(ckpt_ws)) // int(
+                        mgr.world_size)
+                    if (resume_step * int(ckpt_ws)) % int(mgr.world_size):
+                        _warnings.warn(
+                            f"elastic resume: per-rank step "
+                            f"{resume_step}x{ckpt_ws} does not divide "
+                            f"the new world {mgr.world_size}; rounding "
+                            f"the resume position down", RuntimeWarning,
+                            stacklevel=2)
+                    _warnings.warn(
+                        f"elastic resume: checkpoint world size "
+                        f"{ckpt_ws} -> {mgr.world_size}; resuming epoch "
+                        f"{epoch} at re-split step {scaled} (was "
+                        f"{resume_step})", RuntimeWarning, stacklevel=2)
+                    resume_step = scaled
+                    pending_losses = []
 
         def _position(step, losses):
             return {"epoch": epoch, "step": step,

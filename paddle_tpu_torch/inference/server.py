@@ -763,8 +763,8 @@ _NOT_PORTED_ENV = (
      "(telemetry/export.py, ROADMAP A8)"),
     ("PADDLE_DEBUGZ_PORT", "the debugz pages (telemetry/debugz.py, "
      "ROADMAP A8)"),
-    ("PADDLE_COORDINATOR_ENDPOINT", "the coordinator lease "
-     "(distributed/coordinator.py, ROADMAP A6)"),
+    ("PADDLE_COORDINATOR_ENDPOINT", "serve()'s coordinator lease "
+     "(the PS half of ROADMAP A6, with weight sync)"),
 )
 
 
@@ -778,8 +778,8 @@ def _refuse_unported_env() -> None:
         "PADDLE_PS_RANK_TAG")
     if os.environ.get("PADDLE_HEARTBEAT_DIR") and hb_tag:
         raise NotImplementedError(
-            "PADDLE_HEARTBEAT_DIR is set with a trainer tag, but the "
-            "heartbeat worker (distributed/heartbeat.py, ROADMAP A6) is "
+            "PADDLE_HEARTBEAT_DIR is set with a trainer tag, but serve()'s "
+            "heartbeat (the PS half of ROADMAP A6, with weight sync) is "
             "not ported yet; unset it to serve without it")
 
 

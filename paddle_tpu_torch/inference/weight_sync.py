@@ -13,7 +13,7 @@ and bumps the weight epoch.
                 trainer and replicas agree without a manifest exchange).
 
 Not ported yet: ``WeightPublisher`` and ``WeightSubscriber`` need the
-parameter server's tables and ``RemoteTable`` (ROADMAP A6).  So where
+parameter server's tables and ``RemoteTable`` (the PS half of ROADMAP A6).  So where
 PADDLE_SERVE_WEIGHT_TABLE and endpoints are both set,
 ``maybe_start_subscriber`` raises instead of serving static weights the
 caller asked to keep fresh.
@@ -137,7 +137,7 @@ def maybe_start_subscriber(frozen, on_adopt):
     (PADDLE_SERVE_WEIGHT_ENDPOINTS, falling back to the PS list), unless
     PADDLE_SERVE_WEIGHT_SYNC is 0.  Returns None when not armed; raises
     when armed, since the subscriber waits for the parameter server's
-    port (ROADMAP A6)."""
+    port (the PS half of ROADMAP A6)."""
     if not sync_enabled():
         return None
     name = os.environ.get(ENV_TABLE)
@@ -151,5 +151,5 @@ def maybe_start_subscriber(frozen, on_adopt):
     raise NotImplementedError(
         f"live weight sync from table {name!r} at {endpoints} needs the "
         f"WeightSubscriber, which waits for the parameter server's port "
-        f"(ROADMAP A6); unset {ENV_TABLE} or set {ENV_SYNC}=0 to serve "
+        f"(the PS half of ROADMAP A6); unset {ENV_TABLE} or set {ENV_SYNC}=0 to serve "
         f"the loaded weights")

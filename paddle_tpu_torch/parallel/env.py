@@ -14,25 +14,34 @@ Each rank's device is explicit: ``cuda:{local_rank % device_count}``
 unless the caller asks for the CPU.
 
 The rendezvous is ``init_method`` when given (``file://`` or ``tcp://``),
-else ``tcp://`` the first endpoint of PADDLE_TRAINER_ENDPOINTS, else for
-a lone rank a FileStore in a new temporary directory, else torch's
-``env://`` (MASTER_ADDR / MASTER_PORT).
+else PADDLE_DIST_RENDEZVOUS (the port's launcher exports a FileStore
+of its own for every attempt, so a relaunched group never meets the
+store of the attempt before it, its dead ranks or a port still in
+TIME_WAIT), else ``tcp://`` the first endpoint of
+PADDLE_TRAINER_ENDPOINTS, else for a lone rank a FileStore in a new
+temporary directory, else torch's ``env://`` (MASTER_ADDR /
+MASTER_PORT).
 
-The hooks the JAX version arms here (heartbeat, trace collection,
-debugz, the metrics push exporter) are not ported: where their variables
-are set, ``init_parallel_env`` raises instead of running without them.
+As the JAX version does, ``init_parallel_env`` first starts this rank's
+liveness reporting for the launcher (``distributed.heartbeat.
+start_heartbeat``: heartbeat stamps under PADDLE_HEARTBEAT_DIR, and
+coordinator lease renewals where PADDLE_COORDINATOR_ENDPOINT and
+PADDLE_LEASE_SECS arm them).  Its other hooks (trace collection, debugz,
+the metrics push exporter) are not ported: where their variables are
+set, ``init_parallel_env`` raises instead of running without them.
 """
 from __future__ import annotations
 
 import datetime
 import os
 
-_state = {"initialized": False, "device": None}
+_state = {"initialized": False, "device": None, "liveness": None}
+
+ENV_RENDEZVOUS = "PADDLE_DIST_RENDEZVOUS"
 
 # the launcher hooks the JAX package arms in init_parallel_env, and the
-# queue item that brings each (ROADMAP A6, A8)
+# queue item that brings each (ROADMAP A8)
 _UNPORTED_HOOKS = {
-    "PADDLE_HEARTBEAT_DIR": "the launcher heartbeat (ROADMAP A6)",
     "PADDLE_TRACE_DIR": "per-rank trace collection (ROADMAP A8)",
     "PADDLE_DEBUGZ_PORT": "the debugz server (ROADMAP A8)",
     "PADDLE_METRICS_PUSH_URL": "the metrics push exporter (ROADMAP A8)",
@@ -109,13 +118,21 @@ def init_parallel_env(backend=None, device=None, init_method=None,
     if _state["initialized"] or dist.is_initialized():
         _state["initialized"] = True
         return _state["device"] or rank_device(device)
+    if _state["liveness"] is None:
+        # heartbeat stamps / lease renewals for the launcher (None when
+        # it armed neither)
+        from ..distributed.heartbeat import start_heartbeat
+
+        _state["liveness"] = start_heartbeat()
     dev = rank_device(device)
     backend = backend or choose_backend(dev)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     if init_method is None:
         eps = get_endpoints()
-        if eps:
+        if os.environ.get(ENV_RENDEZVOUS):
+            init_method = os.environ[ENV_RENDEZVOUS]
+        elif eps:
             init_method = f"tcp://{eps[0]}"
         elif get_world_size() == 1 and "MASTER_ADDR" not in os.environ:
             # one rank with no rendezvous: a FileStore of its own

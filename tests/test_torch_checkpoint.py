@@ -22,7 +22,7 @@ CPU, against the JAX package's checkpoints.
                     1e-5 relative, and the reverse; bf16 arrays bit for bit
                     both ways; the step seed <-> PRNG key rule; the
                     ``save_dygraph`` files byte for byte
-  refusals        — the sharded layout and parameter-server tables raise
+  refusals        — parameter-server tables raise
                     NotImplementedError naming the ROADMAP slice
 """
 from __future__ import annotations
@@ -903,12 +903,13 @@ def test_save_dygraph_files_match_byte_for_byte(tmp_path):
 
 
 def test_sharded_layout_and_ps_tables_raise(tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        CheckpointManager(str(tmp_path), sharded=True)
+    # the sharded layout is ported: PADDLE_CKPT_SHARDED with a world size
+    # above 1 arms it (tests/test_torch_sharded_checkpoint.py holds it
+    # against the JAX package); parameter-server tables still raise
     monkeypatch.setenv("PADDLE_CKPT_SHARDED", "1")
     monkeypatch.setenv("PADDLE_TRAINERS_NUM", "2")
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        CheckpointManager(str(tmp_path))
+    assert CheckpointManager(str(tmp_path / "sharded")).sharded
+    assert not CheckpointManager(str(tmp_path / "one"), world_size=1).sharded
     monkeypatch.delenv("PADDLE_CKPT_SHARDED")
     mgr = CheckpointManager(str(tmp_path), scope=_scope_with(np.ones(2)),
                             device="cpu")

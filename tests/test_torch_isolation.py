@@ -4,7 +4,8 @@ on the card unless the caller asks for the CPU (the serving replica,
 the file-based predictor and the server's command line included); the
 CUDA wrapper's input checks refuse what the kernel does not take;
 ``init_parallel_env`` picks NCCL for a CUDA device and gloo only for the
-CPU or when named, and never falls back."""
+CPU or when named, and never falls back; the launcher and the ranks it
+starts import neither jax nor paddle_tpu."""
 from __future__ import annotations
 
 import os
@@ -522,7 +523,9 @@ def test_init_parallel_env_picks_nccl_for_cuda_and_never_falls_back(
     env.init_parallel_env(device="cuda:0", backend="gloo",
                           init_method="file:///x")
     assert seen[-1]["backend"] == "gloo"   # named by the caller
-    for var in ("PADDLE_HEARTBEAT_DIR", "PADDLE_DEBUGZ_PORT"):
+    # the heartbeat hook is ported (PADDLE_HEARTBEAT_DIR starts stamping);
+    # the A8 hooks still raise
+    for var in ("PADDLE_TRACE_DIR", "PADDLE_DEBUGZ_PORT"):
         monkeypatch.setenv(var, "1")
         with pytest.raises(NotImplementedError, match="not ported"):
             env.init_parallel_env(device="cpu")
@@ -549,3 +552,52 @@ def test_init_parallel_env_on_the_cpu_is_gloo(tmp_path):
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=60)
     assert out.returncode == 0 and "ok" in out.stdout, out.stderr[-3000:]
+
+
+_LAUNCHED_CHILD = r"""
+import os, sys
+import paddle_tpu_torch.distributed.coordinator
+import paddle_tpu_torch.distributed.heartbeat
+import paddle_tpu_torch.distributed.launch
+from paddle_tpu_torch.fluid import checkpoint
+from paddle_tpu_torch.parallel import env
+import torch.distributed as dist
+env.init_parallel_env(device="cpu", timeout_s=30)
+assert env._state["liveness"] is not None      # stamps and renewals
+dist.barrier()
+bad = sorted(m for m in sys.modules if m.split(".")[0] in
+             ("jax", "jaxlib", "paddle_tpu"))
+assert not bad, bad
+open(os.path.join(sys.argv[1], "ok.%s" % env.get_rank()), "w").close()
+dist.destroy_process_group()
+"""
+
+_LAUNCHER = r"""
+import sys
+from paddle_tpu_torch.distributed import launch
+rc = launch.launch(sys.argv[1:])
+bad = sorted(m for m in sys.modules if m.split(".")[0] in
+             ("jax", "jaxlib", "paddle_tpu"))
+print("LAUNCHER", rc, bad)
+sys.exit(rc if not bad else 99)
+"""
+
+
+def test_the_launcher_and_its_children_import_no_jax(tmp_path):
+    """The port's launcher (lease plane armed) and a rank it starts
+    (process group over the launcher's rendezvous, heartbeat and lease
+    renewals) import neither jax nor paddle_tpu."""
+    child = tmp_path / "child.py"
+    child.write_text(_LAUNCHED_CHILD)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    env.pop("JAX_PLATFORMS", None)
+    r = subprocess.run(
+        [sys.executable, "-c", _LAUNCHER, "--nproc_per_node", "2",
+         "--lease_secs", "5", "--log_dir", str(tmp_path / "logs"),
+         str(child), str(tmp_path)], env=env, capture_output=True,
+        text=True, timeout=120, cwd=REPO)
+    logs = "".join((tmp_path / "logs" / f).read_text()
+                   for f in sorted(os.listdir(tmp_path / "logs")))
+    assert r.returncode == 0, r.stdout + r.stderr + logs
+    assert "LAUNCHER 0 []" in r.stdout
+    assert (tmp_path / "ok.0").exists() and (tmp_path / "ok.1").exists()

@@ -71,7 +71,7 @@ def test_fault_specs_parse_like_reference(spec):
 
 
 @pytest.mark.parametrize("spec", [
-    "lease_expire:*:1",           # no lease call site in the port
+    "netsplit:*:1",               # netsplit without a window
     "stall:gen_decode_step:1",    # stall without a duration
     "crash:gen_decode_step:0",    # nth is 1-based
     "crash:gen_decode_step",      # too few fields
