@@ -325,9 +325,34 @@ prints no result):
                gap between answered lease renewals, rows 2-5 a step a
                rank, and beside each attempt the jobs that ran with it
 
+  ps_train     the parameter server, no kernel on its path (rows 1-14:
+               0 launches): (a) examples/ps_embedding_training.py's
+               model (a 1,000,000 x 64 f32 table in host memory through
+               DistributeTranspiler, a 20-way fc, Adam 1e-3, batch 64),
+               30 steps on the card and on the CPU from the same weights,
+               TF32 off: losses and touched rows within 1e-5; a step's
+               split (the ids' and the gradient's device-to-host copies,
+               the gather, the rows' host-to-device copy, the push, each
+               timed alone) and the idle share of a profiled window; (b)
+               ps_ref: ``python -m paddle_tpu_torch.distributed.launch
+               --nproc_per_node 2 --server_num 2 --ps_replication 2``,
+               two trainers on the card (tests/dist_ps_worker.py's
+               contract at the example's widths: global batch 128, 12
+               sync steps, server SGD 0.5, a frozen projection) against
+               one process with an in-process table: mean loss within
+               1e-5, table sums within 1e-5, both ranks' tables equal;
+               (c) ps_kill: the same with pserver ps0 killed at its 30th
+               RPC, bit for bit (b), a failover, and the ms from the
+               kill to the promoted backup's first answer; no pserver
+               sees the card (CUDA_VISIBLE_DEVICES empty, none among
+               ``nvidia-smi --query-compute-apps``).  (b), (c) and the
+               one process start before the gloo spawn and are joined
+               after it; each job's and each gloo line's
+               ``concurrent_with`` name what ran beside it
+
 A dist phase's ranks are ``python3 chip_smoke.py --dist-child ...``
 processes (dist_elastic's, ``--elastic-child`` processes under the
-port's launcher); one that fails or outlives its deadline fails the
+port's launcher; ps_train's, ``--ps-child``); one that fails or outlives its deadline fails the
 phase, the others killed first.  The line before the last is the kernels summary; the last line is
 ``{"ok": true, "device": {...}}``.  Needs one CUDA card; without one it
 exits 2.  Weights and inputs are random from fixed seeds.
@@ -408,7 +433,13 @@ def fail(msg: str) -> None:
 # ---------------------------------------------------------------------------
 
 
-def time_cold_ms(torch, fn, flush, reps: int = 40, warm: int = 3) -> dict:
+# L2-flushed calls a kernel timing takes its median over (40 through
+# PR 19's script; 20 leave the script room for the parameter-server jobs)
+KERNEL_REPS = 20
+
+
+def time_cold_ms(torch, fn, flush, reps: int = KERNEL_REPS,
+                 warm: int = 3) -> dict:
     """Device time of ``fn`` with the 50 MB L2 flushed before each call
     (the decode step finds the pool cold: eleven other layers and their
     weights pass through the cache between two calls).
@@ -620,7 +651,7 @@ def _timed(torch, flush, kernel_fn, plain_fn, library_fn, *, nbytes,
                                "library": lib_t["enqueue_ms_max"]},
             "held": {"kernel": ker_t["held"], "plain": plain_t["held"],
                      "library": lib_t["held"]},
-            "timing": "CUDA events, median of 40 calls, L2 flushed and "
+            "timing": f"CUDA events, median of {KERNEL_REPS} calls, L2 flushed and "
                       "the stream held by a spin kernel before each, so "
                       "the window is device time"}
 
@@ -5612,8 +5643,9 @@ def _embedding_grad_ms(torch, flush, rows: int, ids: int,
            "port_runs_equal": same["port"],
            "port_max_abs_diff": float((runs[port][0]
                                        - runs[atomic][0]).abs().max()),
-           "atomic_ms": time_cold_ms(torch, atomic, flush)["median"],
-           "port_ms": time_cold_ms(torch, port, flush)["median"]}
+           "atomic_ms": time_cold_ms(torch, atomic, flush,
+                                     reps=40)["median"],
+           "port_ms": time_cold_ms(torch, port, flush, reps=40)["median"]}
     if not same["port"]:
         fail(f"the port's embedding gradient differs between runs: {out}")
     return out
@@ -6418,6 +6450,7 @@ def _dist_spawn(groups: dict, workdir: str) -> dict:
                   and win[o][0] < win[m][1] and win[m][0] < win[o][1]]
         for r in ranks:
             r["concurrent_with"] = beside
+            r["window"] = win[m]
     emit({"phase": "dist_ranks", "groups": {
               name: {"modes": list(modes), "world": world}
               for name, (modes, world) in groups.items()},
@@ -8261,6 +8294,569 @@ def _kernel_entry(name, source, replaces, launches, k) -> dict:
             "bound_by": k["bound_by"], "library_ms": k["library_ms"]}
 
 
+# ---------------------------------------------------------------------------
+# the parameter server: ps_train
+# ---------------------------------------------------------------------------
+
+# examples/ps_embedding_training.py's model: a 1,000,000 x 64 f32 table in
+# host memory, a 20-way fc, Adam 1e-3, batch 64; 30 steps held against the
+# CPU, then 5 steps with each copy and host call timed alone and 5 under
+# torch.profiler
+PS_TRAIN = {"rows": 1_000_000, "dim": 64, "ncls": 20, "batch": 64,
+            "steps": 30, "timing_steps": 5, "profile_steps": 5}
+# tests/dist_ps_worker.py's contract at those widths: sync mode, a frozen
+# projection, server SGD at 0.5, table seed 7, global batch 128 (64 a
+# trainer), 12 steps; two trainers on the card over two pservers with
+# every row partition replicated on both
+PS_JOB = {"rows": 1_000_000, "dim": 64, "ncls": 20, "global_batch": 128,
+          "steps": 12, "join_s": 480}
+PS_KILL_ENV = {"FLAGS_ps_fault_injection": "1",
+               "PADDLE_PS_FAULT_SPEC": "kill:*:30",
+               "PADDLE_PS_FAULT_TAGS": "ps0",
+               "PADDLE_PS_CALL_DEADLINE_SECS": "2"}
+# card vs CPU (f32, TF32 off) and two trainers vs one process: the same
+# float32 math summed in another order, ~1e-7 relative; TF32 would move
+# the losses by ~1e-4
+PS_RTOL = 1e-5
+PS_ATOL = 1e-6
+PS_ROWS_ATOL = 1e-7
+
+
+def _all_kernel_launches(reset: bool = False) -> dict:
+    """Every one of the 14 kernels' launch counters (the tensor-core
+    routes' too), set to 0 first when ``reset``."""
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+
+    counters = dict(_counters(), paged=pa.paged_attention)
+    if reset:
+        for c in counters.values():
+            c.launches = 0
+    got = {k: c.launches for k, c in counters.items()}
+    conv = _conv_bn_counts(reset=reset)
+    conv.pop("reference_routes")
+    return dict(got, **conv)
+
+
+def _ps_example_program(c: dict):
+    """The example's program built with the port: a plain embedding
+    transpiled onto an in-process host table (``giant_table``), then Adam
+    over the dense rest."""
+    import warnings
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.distributed import ps
+
+    L = fluid.layers
+    ps.drop_table("giant_table")
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        ids = L.data("ids", [c["batch"]], dtype="int64",
+                     append_batch_size=False)
+        y = L.data("y", [c["batch"], 1], dtype="int64",
+                   append_batch_size=False)
+        emb = L.embedding(ids, size=[c["rows"], c["dim"]],
+                          param_attr=fluid.ParamAttr(name="giant_table"))
+        logits = L.fc(emb, c["ncls"])
+        loss = L.mean(L.softmax_with_cross_entropy(logits, y))
+        with warnings.catch_warnings():
+            # the embedding's uniform init has no host-table form: the
+            # table takes its normal(0, 1/sqrt(dim)) init from seed 0
+            warnings.simplefilter("ignore", RuntimeWarning)
+            tables = fluid.DistributeTranspiler().transpile(
+                trainer_id=0, program=main, startup_program=startup)
+        fluid.optimizer.AdamOptimizer(learning_rate=1e-3).minimize(loss)
+    if tables != ["giant_table"]:
+        fail(f"ps_train: the transpile moved {tables}")
+    return main, startup, loss
+
+
+def _ps_example_run(torch, c: dict, device: str, state) -> dict:
+    """``c["steps"]`` steps of the example on ``device`` from ``state``
+    (None: take the startup's and return it), the table fresh from its
+    seed: each step's loss and host wall, every kernel's launches over
+    the steps, and the touched rows of the table after them."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.distributed import ps
+    from paddle_tpu_torch.ops import ps_ops
+
+    t0 = time.perf_counter()
+    main, startup, loss = _ps_example_program(c)
+    build_s = time.perf_counter() - t0
+    exe = fluid.Executor(device=device)
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    if state is None:
+        state = {n: v.detach().cpu().clone() for n, v in scope.vars.items()
+                 if v is not None}
+    for n, v in state.items():
+        scope.set_var(n, v.to(exe.device).clone())
+    rng = np.random.RandomState(0)
+    feeds = []
+    for _ in range(c["steps"]):
+        ids = rng.randint(0, c["rows"], (c["batch"],)).astype(np.int64)
+        feeds.append({"ids": ids, "y": (ids % c["ncls"])[:, None]})
+    _all_kernel_launches(reset=True)
+    ps_ops.reset_stats()
+    losses, step_ms = [], []
+    for feed in feeds:
+        t1 = time.perf_counter()
+        lv = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)[0]
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float(np.asarray(lv).reshape(())))
+    launches = _all_kernel_launches()
+    if (ps_ops.stats["lookups"], ps_ops.stats["pushes"]) != (
+            c["steps"], c["steps"]):
+        fail(f"ps_train ({device}): {ps_ops.stats['lookups']} lookups and "
+             f"{ps_ops.stats['pushes']} pushes in {c['steps']} steps")
+    touched = np.unique(np.concatenate([f["ids"] for f in feeds]))
+    table = ps.get_table("giant_table")
+    if any(tuple(v.shape) == (c["rows"], c["dim"])
+           for v in scope.vars.values() if v is not None):
+        fail(f"ps_train ({device}): the table is in the scope")
+    return {"exe": exe, "main": main, "scope": scope, "loss": loss,
+            "feed": feeds[-1], "state": state, "losses": losses,
+            "step_ms": step_ms, "launches": launches, "build_s": build_s,
+            "touched": touched, "rows": table.gather(touched),
+            "table_push_calls": table.push_calls}
+
+
+def _ps_example(torch) -> dict:
+    """(a): the example at its widths on the card and on the port's CPU
+    path from the same weights and table seed, TF32 off: the 30 losses
+    and the touched rows within PS_RTOL; no kernel launched on the card;
+    then the split of a step (each copy and host call timed alone) and
+    the device's idle share over a profiled window."""
+    from paddle_tpu_torch.ops import ps_ops
+
+    c = PS_TRAIN
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        cpu = _ps_example_run(torch, c, "cpu", None)
+        card = _ps_example_run(torch, c, "cuda", cpu["state"])
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    if any(card["launches"].values()):
+        fail(f"ps_train: kernels launched on the PS path: "
+             f"{card['launches']}")
+    loss_err = max(abs(a - b) / max(abs(b), 1e-30)
+                   for a, b in zip(card["losses"], cpu["losses"]))
+    if not np.allclose(card["losses"], cpu["losses"], rtol=PS_RTOL,
+                       atol=PS_ATOL):
+        fail(f"ps_train: the card's losses {card['losses']} are not the "
+             f"CPU's {cpu['losses']} within rtol {PS_RTOL}")
+    if not np.allclose(card["rows"], cpu["rows"], rtol=PS_RTOL,
+                       atol=PS_ROWS_ATOL):
+        fail(f"ps_train: touched rows off by "
+             f"{float(np.abs(card['rows'] - cpu['rows']).max())}")
+    # the split: each copy and host call timed alone (the card
+    # synchronized around it); what is left of the step is device work
+    # and the executor's own host time
+    exe, main, scope = card["exe"], card["main"], card["scope"]
+    ps_ops.reset_stats()
+    ps_ops.TIMING = True
+    walls = []
+    try:
+        for _ in range(c["timing_steps"]):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            exe.run(main, feed=card["feed"], fetch_list=[card["loss"]],
+                    scope=scope)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t1) * 1e3)
+    finally:
+        ps_ops.TIMING = False
+    n = c["timing_steps"]
+    split = {k: ps_ops.stats[k] / n for k in (
+        "d2h_ids_ms", "gather_ms", "h2d_ms", "d2h_grad_ms", "push_ms")}
+    step_timed = statistics.median(walls)
+    split["rest_ms"] = step_timed - sum(split.values())
+    prof = _step_profile(torch, exe, main, scope, card["feed"],
+                         card["loss"], c["profile_steps"],
+                         f"window = {c['profile_steps']} steps after the "
+                         f"timed ones (untimed)")
+    return {"config": {k: c[k] for k in ("rows", "dim", "ncls", "batch",
+                                          "steps")},
+            "losses": card["losses"], "cpu_losses": cpu["losses"],
+            "loss_max_rel_err": loss_err,
+            "rows_touched": int(card["touched"].shape[0]),
+            "rows_max_abs_err": float(np.abs(card["rows"]
+                                             - cpu["rows"]).max()),
+            "step_ms_median": statistics.median(card["step_ms"][2:]),
+            "cpu_step_ms_median": statistics.median(cpu["step_ms"][2:]),
+            "timed_step_ms_median": step_timed,
+            "timed_split_ms": split,
+            "launches": card["launches"],
+            "profile": dict(prof, top_kernels=prof["top_kernels"][:6]),
+            "build_s": card["build_s"]}
+
+
+def _ps_hosted_init(c: dict, n_servers: int) -> dict:
+    """The state an in-process table needs to start from the rows a table
+    hosted on ``n_servers`` pservers starts from (partition s, seeded
+    seed + s, holds the rows r with r % n == s at r // n; each table
+    keeps row r in shard r % 4 at r // 4)."""
+    from paddle_tpu_torch.distributed import ps
+
+    dense = np.empty((c["rows"], c["dim"]), np.float32)
+    for s in range(n_servers):
+        part = ps.ShardedHostTable(
+            "init", ((c["rows"] - s + n_servers - 1) // n_servers, c["dim"]),
+            num_shards=4, optimizer="sgd", learning_rate=0.5, seed=7 + s)
+        dense[s::n_servers] = part.to_dense()
+    return {"shards": [dense[k::4].copy() for k in range(4)],
+            "accum": [None] * 4, "optimizer": "sgd", "learning_rate": 0.5}
+
+
+def _ps_child(cfg_path: str) -> int:
+    """One trainer of a ps_train job (the contract of
+    tests/dist_ps_worker.py at the example's widths), on the card: under
+    the launcher a RemoteTable over its pservers; alone an in-process
+    table.  Writes ``trace.<rank>.json`` to the config's trace_dir."""
+    with open(cfg_path) as f:
+        c = json.load(f)
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from paddle_tpu_torch import fluid, telemetry
+    from paddle_tpu_torch.distributed import ps
+    from paddle_tpu_torch.ops import ps_ops
+
+    t_import = time.time()
+    rank = int(os.environ.get("PADDLE_TRAINER_ID", 0))
+    world = int(os.environ.get("PADDLE_TRAINERS_NUM", 1))
+    rng = np.random.RandomState(0)
+    all_ids = rng.randint(0, c["rows"], (c["global_batch"],)).astype(
+        np.int64)
+    all_labels = (all_ids % c["ncls"]).astype(np.int64)[:, None]
+    per = c["global_batch"] // world
+    ids = all_ids[rank * per:(rank + 1) * per]
+    labels = all_labels[rank * per:(rank + 1) * per]
+    table = ps.create_table("ps_dist_table", shape=(c["rows"], c["dim"]),
+                            mode="sync", num_shards=4, optimizer="sgd",
+                            learning_rate=0.5, seed=7)
+    if c.get("hosted_init"):
+        # one process: start from the rows the launched jobs' two pservers
+        # start from
+        table.load_state_dict(_ps_hosted_init(c, c["hosted_init"]))
+    t_table = time.time()
+    L = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        w = L.data("ids", [per], dtype="int64", append_batch_size=False)
+        y = L.data("y", [per, 1], dtype="int64", append_batch_size=False)
+        emb = L.distributed_embedding(w, "ps_dist_table")
+        proj = L.fc(emb, c["ncls"], param_attr=fluid.ParamAttr(
+            name="proj_w", trainable=False), bias_attr=False)
+        loss = L.mean(L.softmax_with_cross_entropy(proj, y))
+        fluid.optimizer.SGDOptimizer(learning_rate=0.1).minimize(loss)
+    exe = fluid.Executor(device=c.get("device"))   # None: the card
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    # the frozen projection from a seed of its own, the same in every
+    # process
+    scope.set_var("proj_w", torch.as_tensor(np.random.RandomState(
+        11).uniform(-0.3, 0.3, (c["dim"], c["ncls"])).astype(np.float32),
+        device=exe.device))
+    t_ready = time.time()
+    _all_kernel_launches(reset=True)
+    losses, step_ms = [], []
+    for _ in range(c["steps"]):
+        t1 = time.perf_counter()
+        lv = exe.run(main, feed={"ids": ids, "y": labels},
+                     fetch_list=[loss], scope=scope)[0]
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float(np.asarray(lv).reshape(())))
+    launches = _all_kernel_launches()
+    t_steps = time.time()
+    dense = table.to_dense()
+    touched = np.unique(all_ids)
+    reg = telemetry.get_registry()
+    rec = {"rank": rank, "world": world, "pid": os.getpid(),
+           "losses": losses,
+           "step_ms": step_ms,
+           "table_sum": float(np.float64(dense.sum())),
+           "touched_rows": dense[touched].tolist(),
+           "failovers": reg.counter("ps_client_failovers_total").value,
+           "failover_log": list(getattr(table, "failover_log", [])),
+           "lookups": ps_ops.stats["lookups"],
+           "pushes": ps_ops.stats["pushes"], "launches": launches,
+           "t_proc0": _T_PROC0, "t_ready": t_ready, "t_end": time.time(),
+           "startup_s": {"imports": t_import - _T_PROC0,
+                         "table": t_table - t_import,
+                         "program": t_ready - t_table},
+           "to_dense_s": time.time() - t_steps}
+    with open(os.path.join(c["trace_dir"], f"trace.{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def _ps_job_start(name: str, workdir: str, launched: bool,
+                  env=None, flags=(), cfg=None) -> dict:
+    """Start one ps_train job in the background: under the port's
+    launcher (two trainers, two pservers, every partition on both) or
+    one process alone.  Its stdout and stderr go to a file."""
+    c = dict(PS_JOB, trace_dir=os.path.join(workdir, name), **(cfg or {}))
+    os.makedirs(c["trace_dir"], exist_ok=True)
+    cfg_path = os.path.join(workdir, f"{name}.json")
+    with open(cfg_path, "w") as f:
+        json.dump(c, f)
+    here = os.path.dirname(os.path.abspath(__file__))
+    full = dict(os.environ, PYTHONPATH=here, **(env or {}))
+    for k in ("PADDLE_PS_FAULT_SPEC", "PADDLE_PS_FAULT_TAGS",
+              "FLAGS_ps_fault_injection", "PADDLE_PS_CALL_DEADLINE_SECS",
+              "PADDLE_TRACING", "PADDLE_PSERVERS_IP_PORT_LIST",
+              "PADDLE_TRAINERS_NUM", "PADDLE_TRAINER_ID"):
+        if k not in (env or {}):
+            full.pop(k, None)
+    logs = os.path.join(workdir, f"{name}.logs")
+    child = [os.path.abspath(__file__), "--ps-child", cfg_path]
+    if launched:
+        cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+               "--nproc_per_node", "2", "--server_num", "2",
+               "--ps_replication", "2", "--log_dir", logs, *flags, *child]
+    else:
+        cmd = [sys.executable, *child]
+    err = open(os.path.join(workdir, f"{name}.launcher.log"), "w")
+    proc = subprocess.Popen(cmd, env=full, stdout=err, stderr=err,
+                            start_new_session=True, cwd=here)
+    return {"name": name, "proc": proc, "err": err, "logs": logs, "c": c,
+            "t0": time.time(), "world": 2 if launched else 1}
+
+
+class _PsWatch:
+    """Polls, once a second while any of ``procs`` (the ps_train jobs)
+    runs, the pservers' pids (their command line), whether each sees the
+    card (CUDA_VISIBLE_DEVICES in its environment) and the card's compute
+    processes (``nvidia-smi --query-compute-apps=pid``)."""
+
+    def __init__(self, procs):
+        import threading
+
+        self.procs = procs
+        self.ended = {}   # proc -> host time its exit was first seen
+        self.pservers, self.visible, self.compute = set(), {}, set()
+        self.smi_error = None
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    def _poll(self):
+        for pid in os.listdir("/proc"):
+            if not pid.isdigit():
+                continue
+            try:
+                with open(f"/proc/{pid}/cmdline", "rb") as f:
+                    cmd = f.read()
+                if b"paddle_tpu_torch.distributed.ps_server" not in cmd:
+                    continue
+                with open(f"/proc/{pid}/environ", "rb") as f:
+                    env = dict(kv.split(b"=", 1) for kv in
+                               f.read().split(b"\0") if b"=" in kv)
+            except OSError:
+                continue
+            self.pservers.add(int(pid))
+            self.visible[int(pid)] = env.get(b"CUDA_VISIBLE_DEVICES",
+                                             b"<unset>").decode()
+        try:
+            smi = subprocess.run(
+                ["nvidia-smi", "--query-compute-apps=pid",
+                 "--format=csv,noheader"], capture_output=True, text=True,
+                timeout=20)
+        except (OSError, subprocess.TimeoutExpired) as e:
+            self.smi_error = str(e)[:200]
+            return
+        if smi.returncode != 0:
+            self.smi_error = smi.stderr.strip()[:200]
+        self.compute |= {int(x) for x in smi.stdout.split() if x.isdigit()}
+
+    def _loop(self):
+        while not self._stop.wait(0.5):
+            for p in self.procs:
+                if p not in self.ended and p.poll() is not None:
+                    self.ended[p] = time.time()
+            if len(self.ended) == len(self.procs):
+                return
+            self._poll()
+
+    def stop(self) -> dict:
+        self._stop.set()
+        self._thread.join(timeout=10)
+        return {"pserver_pids": sorted(self.pservers),
+                "pserver_cuda_visible_devices": sorted(
+                    set(self.visible.values())),
+                "compute_app_pids_seen": len(self.compute),
+                "pservers_among_compute_apps": sorted(
+                    self.pservers & self.compute),
+                "nvidia_smi_error": self.smi_error}
+
+
+def _ps_jobs_start(workdir: str) -> dict:
+    """(b) ps_ref, (c) ps_kill and the one-process reference, started
+    together in the background (before the gloo spawn), with the
+    pserver watch."""
+    jobs = {"ps_single": _ps_job_start("ps_single", workdir, False,
+                                       cfg={"hosted_init": 2}),
+            "ps_ref": _ps_job_start("ps_ref", workdir, True),
+            "ps_kill": _ps_job_start("ps_kill", workdir, True, PS_KILL_ENV,
+                                     ("--elastic_retries", "1"))}
+    return {"jobs": jobs,
+            "watch": _PsWatch([j["proc"] for j in jobs.values()])}
+
+
+def _ps_jobs_kill(started: dict) -> dict:
+    """Kill whatever of the jobs still runs; stop the watch and return
+    what it saw."""
+    for job in started["jobs"].values():
+        if job["proc"].poll() is None:
+            try:
+                os.killpg(job["proc"].pid, 9)
+            except ProcessLookupError:
+                pass
+            job["proc"].wait()
+    return started["watch"].stop()
+
+
+def _ps_job_join(job: dict, deadline: float) -> dict:
+    proc = job["proc"]
+    while proc.poll() is None and time.monotonic() < deadline:
+        time.sleep(0.2)
+    if proc.poll() is None:
+        os.killpg(proc.pid, 9)
+        proc.wait()
+        job["rc"] = f"no exit within {job['c']['join_s']} s"
+    else:
+        job["rc"] = proc.returncode
+    job["err"].close()
+    job["seconds"] = time.time() - job["t0"]
+    with open(job["err"].name) as f:
+        job["launcher_log"] = f.read()
+    job["logs_text"] = ""
+    if os.path.isdir(job["logs"]):
+        for fn in sorted(os.listdir(job["logs"])):
+            p = os.path.join(job["logs"], fn)
+            if os.path.isfile(p):
+                with open(p) as f:
+                    job["logs_text"] += f"--- {fn}\n{f.read()}\n"
+    if job["rc"] != 0:
+        fail(f"ps_train {job['name']}: exit {job['rc']}\n"
+             f"{job['launcher_log'][-3000:]}\n{job['logs_text'][-6000:]}")
+    job["traces"] = []
+    for r in range(job["world"]):
+        with open(os.path.join(job["c"]["trace_dir"],
+                               f"trace.{r}.json")) as f:
+            job["traces"].append(json.load(f))
+    return job
+
+
+def _ps_kill_to_answer_ms(job: dict) -> float:
+    """From the kill rule's stamp in the killed pserver's log to the
+    promoted backup's first answered call (a trainer's promote)."""
+    kills = [float(ln.split(" at ")[1].split(" ")[0])
+             for ln in job["logs_text"].splitlines()
+             if "[faults] killing server pid" in ln]
+    answers = [e["answered_at"] for t in job["traces"]
+               for e in t["failover_log"]]
+    if len(kills) != 1 or not answers:
+        fail(f"ps_train ps_kill: kill stamps {kills}, promotions "
+             f"{[t['failover_log'] for t in job['traces']]}")
+    return (min(answers) - kills[0]) * 1e3
+
+
+def _ps_job_line(job: dict, windows: dict) -> dict:
+    t0, t1 = windows[job["name"]]
+    return {"launch_seconds": t1 - t0,
+            "startup_s": [t["t_ready"] - t["t_proc0"]
+                          for t in job["traces"]],
+            "startup_stages_s": [t["startup_s"] for t in job["traces"]],
+            "step_ms_median": [statistics.median(t["step_ms"][1:])
+                               for t in job["traces"]],
+            "to_dense_s": [t["to_dense_s"] for t in job["traces"]],
+            "losses": [t["losses"] for t in job["traces"]],
+            "table_sum": job["traces"][0]["table_sum"],
+            "concurrent_with": sorted(
+                n for n, (a, b) in windows.items()
+                if n != job["name"] and a < t1 and t0 < b)}
+
+
+def _ps_jobs(torch, started: dict, dist_windows: dict) -> tuple:
+    """Join (b), (c) and the one-process reference and hold them: (b)'s
+    mean loss within PS_RTOL / PS_ATOL of one process, its table_sum
+    within PS_RTOL, both ranks' views equal; (c) bit for bit (b), with a
+    failover and "promoting" in its logs; no pserver on the card.
+    Returns the jobs' lines and their windows on the host clock."""
+    deadline = time.monotonic() + PS_JOB["join_s"]
+    try:
+        jobs = {n: _ps_job_join(j, deadline)
+                for n, j in started["jobs"].items()}
+    finally:
+        watch = _ps_jobs_kill(started)
+    one, ref, kill = (jobs["ps_single"]["traces"][0],
+                      jobs["ps_ref"]["traces"], jobs["ps_kill"]["traces"])
+    for t in one, *ref, *kill:
+        if any(t["launches"].values()) or t["pushes"] != PS_JOB["steps"]:
+            fail(f"ps_train: a trainer launched {t['launches']} and "
+                 f"pushed {t['pushes']} times")
+    mean = (np.asarray(ref[0]["losses"]) + np.asarray(ref[1]["losses"])) / 2
+    if not np.allclose(mean, one["losses"], rtol=PS_RTOL, atol=PS_ATOL):
+        fail(f"ps_train ps_ref: mean losses {mean.tolist()} vs one "
+             f"process {one['losses']}")
+    if not np.isclose(ref[0]["table_sum"], one["table_sum"], rtol=PS_RTOL,
+                      atol=0):
+        fail(f"ps_train ps_ref: table_sum {ref[0]['table_sum']} vs one "
+             f"process {one['table_sum']}")
+    for t in ref, kill:
+        if (t[0]["table_sum"] != t[1]["table_sum"]
+                or t[0]["touched_rows"] != t[1]["touched_rows"]):
+            fail("ps_train: the two ranks see different tables")
+    for a, b in zip(kill, ref):
+        if (a["losses"] != b["losses"] or a["table_sum"] != b["table_sum"]
+                or a["touched_rows"] != b["touched_rows"]):
+            fail(f"ps_train ps_kill: rank {a['rank']} is not ps_ref's bit "
+                 f"for bit: {a['losses']} vs {b['losses']}")
+    failovers = sum(t["failovers"] for t in kill)
+    if failovers <= 0 or "promoting" not in jobs["ps_kill"]["logs_text"]:
+        fail(f"ps_train ps_kill: no failover ({failovers})")
+    if watch["pservers_among_compute_apps"] or not watch["pserver_pids"] \
+            or watch["pserver_cuda_visible_devices"] != [""]:
+        fail(f"ps_train: pservers and the card: {watch}")
+    # a job's window ends when the watch saw its process exit (it was
+    # joined only after the gloo spawn)
+    ended = started["watch"].ended
+    ps_windows = {n: (j["t0"], ended.get(j["proc"], j["t0"] + j["seconds"]))
+                  for n, j in jobs.items()}
+    windows = dict(dist_windows, **ps_windows)
+    out = {n: _ps_job_line(j, windows) for n, j in jobs.items()}
+    out["ps_ref"]["mean_loss_max_rel_err"] = float(np.max(
+        np.abs(mean - one["losses"]) / np.abs(one["losses"])))
+    out["ps_ref"]["table_sum_rel_err"] = abs(
+        ref[0]["table_sum"] - one["table_sum"]) / abs(one["table_sum"])
+    out["ps_kill"]["failovers"] = failovers
+    out["ps_kill"]["kill_to_answer_ms"] = _ps_kill_to_answer_ms(
+        jobs["ps_kill"])
+    out["ps_kill"]["bit_equal_to_ps_ref"] = True
+    # nvidia-smi may number processes in another pid namespace: the
+    # trainers (which hold a context on the card) show whether it does
+    watch["trainer_pids_among_compute_apps"] = sum(
+        t["pid"] in started["watch"].compute for t in (one, *ref, *kill))
+    out["pservers"] = watch
+    out["launches"] = {k: sum(t["launches"][k] for t in (one, *ref, *kill))
+                       for k in one["launches"]}
+    return out, ps_windows
+
+
+def phase_ps_train(torch, card: str, example: dict, jobs: dict) -> dict:
+    """One line for the parameter server: (a) the example in process,
+    (b) and (c) under the launcher."""
+    out = {"phase": "ps_train", "card": card, "example": example, **jobs}
+    emit(out)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -8274,7 +8870,10 @@ def main() -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument("--dist-dir", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--elastic-child", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--ps-child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.ps_child:
+        return _ps_child(args.ps_child)
     if args.elastic_child:
         return _elastic_child(args.elastic_child)
     if args.fit_child:
@@ -8357,14 +8956,32 @@ def main() -> int:
     torch.cuda.empty_cache()
     lamb_rc = phase_bert_lamb_recompute(torch, env["card"])["runs"]
     torch.cuda.empty_cache()
+    ps_example = _ps_example(torch)
+    torch.cuda.empty_cache()
     import tempfile
 
     with tempfile.TemporaryDirectory(prefix="chip-dist-") as tmp:
-        # the gloo phases' four ranks start once for all their bodies,
-        # the NCCL rank beside them
-        raw = _dist_spawn({"nccl": (("nccl",), 1), "gloo": (
-            ("ring", "train", "tp", "pp", "ep", "zero", "dcn"),
-            DIST_WORLD)}, tmp)
+        # the parameter-server jobs run beside the dist ranks
+        os.makedirs(os.path.join(tmp, "ps"))
+        ps_started = _ps_jobs_start(os.path.join(tmp, "ps"))
+        try:
+            # the gloo phases' four ranks start once for all their
+            # bodies, the NCCL rank beside them
+            raw = _dist_spawn({"nccl": (("nccl",), 1), "gloo": (
+                ("ring", "train", "tp", "pp", "ep", "zero", "dcn"),
+                DIST_WORLD)}, tmp)
+        except BaseException:
+            _ps_jobs_kill(ps_started)
+            raise
+        ps_jobs, ps_windows = _ps_jobs(
+            torch, ps_started, {m: r[0]["window"] for m, r in raw.items()})
+        for m, ranks in raw.items():
+            a, b = ranks[0]["window"]
+            for r in ranks:
+                r["concurrent_with"] = r["concurrent_with"] + sorted(
+                    n for n, (c0, c1) in ps_windows.items()
+                    if c0 < b and a < c1)
+        ps = phase_ps_train(torch, env["card"], ps_example, ps_jobs)
         torch.cuda.empty_cache()
         phase_dist_ring(torch, env["card"], raw.pop("ring"))
         torch.cuda.empty_cache()
@@ -8424,9 +9041,21 @@ def main() -> int:
             "clean"].get(key, 0)
         return out
 
+    # the parameter-server path: (a)'s 30 steps on the card and every
+    # trainer of (b), (c) and their one-process reference; no kernel
+    ps_launches = {k: ps_example["launches"][k] + ps["launches"][k]
+                   for k in ps_example["launches"]}
+    ps_key = {"paged_attention": "paged", "flash_attention_bsh": "bsh_fwd",
+              "flash_attention_bsh_bwd": "bsh_bwd", "add_ln": "ln_fwd",
+              "add_ln_bwd": "ln_bwd", "flash_attention": "row6",
+              "flash_attention_bwd_fused": "row7",
+              "flash_attention_bwd_dq": "row8",
+              "flash_attention_bwd_dkv": "row9"}
+
     def entry(name, source, replaces, k, path_launches, main="bert_train"):
         e = _kernel_entry(name, source, replaces, path_launches[main], k)
-        e["launches_by_path"] = path_launches
+        e["launches_by_path"] = dict(
+            path_launches, ps_train=ps_launches[ps_key.get(name, name)])
         return e
 
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

@@ -28,7 +28,11 @@ checkpoints (``fluid.checkpoint``) and ``hapi.Model.fit`` with
 ``checkpoint_dir``/``resume``; and the job control plane: the launcher
 (``distributed.launch``), heartbeats, the lease coordinator and the
 sharded checkpoint with its commit barrier, with ``Model.fit``'s
-elastic ``reshard``.
+elastic ``reshard``; and the parameter server: host-memory embedding
+tables (``distributed.ps``), the PS server with its sync barrier,
+snapshots and replication (``distributed.ps_server``), the
+``distributed_lookup_table`` op (``ops.ps_ops``), the
+``DistributeTranspiler`` and the launcher's pserver mode.
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; see :func:`resolve_device`.

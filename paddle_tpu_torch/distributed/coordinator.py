@@ -9,9 +9,8 @@ Where the port differs: the cross-replica SDC verbs (``numerics_report``
 (``fleet_status`` / ``fleet_metrics``, telemetry/goodput.py's fleet
 half) wait for ROADMAP A8 and raise NotImplementedError; renewals carry
 no fleet payload.  The pserver side of the leases (``sweep``'s primary
-election and its ``promote`` RPC, pserver replica summaries) is copied,
-but the port has no parameter server to promote until the PS half of
-ROADMAP A6.
+election and its ``promote`` RPC to the port's ``ps_server.PSServer``,
+pserver replica summaries) is the JAX package's.
 
 The launcher hosts a tiny membership service — the `Coordinator` — and
 every process in the job (trainers AND pservers) holds a renewable

@@ -40,7 +40,9 @@ Spec grammar (PADDLE_PS_FAULT_SPEC) — semicolon-separated rules:
                     being served — the slow-tail hedge drill
             partition  server side, LATCHING: once this server has
                     handled <nth> RPCs it latches `partitioned`, which
-                    the parameter server's replication (ROADMAP A6) reads;
+                    the parameter server's replication reads
+                    (``blocks_replication``: its ``replicate`` verb
+                    refuses forwards);
                     the <method> field names the server's tag
                     (PADDLE_PS_RANK_TAG) or "*"
             crash   phase side: os._exit(1) at the Nth arrival at a
@@ -61,6 +63,13 @@ Spec grammar (PADDLE_PS_FAULT_SPEC) — semicolon-separated rules:
                     coordinator verb dispatch: kills a process-hosted
                     coordinator after it handled N verbs; scope it with
                     PADDLE_PS_FAULT_TAGS=coord))
+            bitflip phase side, DATA-corrupting: at the Nth arrival at a
+                    named data phase (bitflip_point(phase, array) call
+                    sites: "push_grad" in the PS client's push path)
+                    flip ONE BIT of one element of the array flowing
+                    through — the deterministic stand-in for a silent
+                    data corruption. The optional <arg> is the flat
+                    element index to corrupt (default 0)
             io_err  phase side: raise OSError(EIO) at the Nth arrival at
                     a named WRITE phase (io_point(phase) call sites:
                     "ckpt_content", "ckpt_manifest",
@@ -89,11 +98,9 @@ Spec grammar (PADDLE_PS_FAULT_SPEC) — semicolon-separated rules:
     nth     1-based index of the matching call AT THE INJECTION SITE;
             each one-shot rule fires exactly once, on its Nth match
 
-The JAX package's bitflip rule (its call sites are the parameter
-server's gradient push, the PS half of ROADMAP A6, and the SDC drill's
-merged-gradient apply, ROADMAP A8) and its oom rule (the executor's OOM
-doctor, ROADMAP A8) have no call site in the port yet, and a spec
-naming one is refused here.
+The JAX package's oom rule (the executor's OOM doctor, ROADMAP A8)
+has no call site in the port yet, and a spec naming it is refused here;
+the SDC drill's ``sdc_apply`` bitflip site waits for ROADMAP A8 too.
 
 Counting is per-process and per-rule, so the schedule is a pure function
 of the arrival sequence — reruns inject the same faults at the same
@@ -118,19 +125,20 @@ ENV_TAGS = "PADDLE_PS_FAULT_TAGS"
 _CLIENT_ACTIONS = ("drop", "refuse", "delay", "stall")
 _SERVER_ACTIONS = ("kill", "slow", "partition")
 _PHASE_ACTIONS = ("crash",)
+# data-corruption rules: fire at named DATA phases (bitflip_point call
+# sites) and perturb the array flowing through instead of failing
+_DATA_ACTIONS = ("bitflip",)
 # disk-fault rules: fire at named WRITE phases (io_point call sites in
 # the checkpoint commit protocol)
 _IO_ACTIONS = ("io_err", "short_write", "diskfull")
 # member-side rules matched against this process's tags, not a verb
 _TAG_ACTIONS = ("lease_expire", "netsplit")
-_KNOWN = (_CLIENT_ACTIONS + _SERVER_ACTIONS + _PHASE_ACTIONS + _IO_ACTIONS
+_KNOWN = (_CLIENT_ACTIONS + _SERVER_ACTIONS + _PHASE_ACTIONS
+          + _DATA_ACTIONS + _IO_ACTIONS
           + _TAG_ACTIONS)
 # rules of the JAX package whose call sites the port does not have yet,
 # and the queue item that brings each
 _NOT_PORTED = {
-    "bitflip": "its call sites are the parameter server's push_grad (the "
-               "PS half of ROADMAP A6) and the SDC drill's sdc_apply "
-               "(ROADMAP A8)",
     "oom": "its call site is the executor's OOM doctor (ROADMAP A8)",
 }
 
@@ -327,6 +335,7 @@ class FaultInjector:
             # hard death, no cleanup: the supervision + failover story
             # must recover from exactly this
             os.write(2, (f"[faults] killing server pid {os.getpid()} "
+                         f"at {time.time():.6f} "
                          f"(rule kill:{r.method}:{r.nth})\n").encode())
             self._flight("kill")
             os._exit(1)
@@ -343,6 +352,47 @@ class FaultInjector:
                 self.partitioned = True
 
     # -- lease side ------------------------------------------------------
+    def blocks_replication(self) -> bool:
+        """True once a `partition` rule fired: this server must reject
+        `replicate` forwards (reachable-but-stale backup)."""
+        return self.partitioned
+
+    # -- data-corruption side ----------------------------------------------
+    def at_bitflip_phase(self, phase: str, array):
+        """Consulted at named DATA phases (bitflip_point call sites):
+        a `bitflip:<phase>:<nth>[:<elem>]` rule returns a COPY of the
+        array with one bit of one element flipped (float32/float64: the
+        high exponent bit, so the corruption is loud in any norm;
+        integer dtypes: the low bit). No matching rule: the array is
+        returned untouched, same object."""
+        rules = self._take(("bitflip",), phase)
+        if not rules:
+            return array
+        import numpy as np
+
+        a = np.array(array, copy=True)
+        flat = a.reshape(-1)
+        for r in rules:
+            if flat.size == 0:
+                continue
+            idx = int(r.arg) % flat.size
+            if a.dtype == np.float32:
+                u = flat.view(np.uint32)
+                u[idx] ^= np.uint32(1 << 30)
+            elif a.dtype == np.float64:
+                u = flat.view(np.uint64)
+                u[idx] ^= np.uint64(1 << 62)
+            else:
+                # any other dtype: flip the low bit of the element's
+                # first byte through the raw view
+                b = a.view(np.uint8).reshape(a.size, a.itemsize)
+                b[idx, 0] ^= np.uint8(1)
+            os.write(2, (f"[faults] bitflip at phase {phase!r}: "
+                         f"element {idx} corrupted in pid "
+                         f"{os.getpid()} (rule bitflip:{r.method}:"
+                         f"{r.nth})\n").encode())
+        return a
+
     def on_lease_renew(self) -> bool:
         """Counts one coordinator lease-renewal ATTEMPT from this
         process; True once a matching `lease_expire` rule has latched —
@@ -474,6 +524,18 @@ def io_point(phase: str) -> bool:
     if inj is None:
         return False
     return inj.at_io_phase(phase)
+
+
+def bitflip_point(phase: str, array):
+    """Deterministic data-corruption site at a named data phase: a
+    matching `bitflip:<phase>:<nth>[:<elem>]` rule returns a copy of
+    `array` with one bit of one element flipped; otherwise the array
+    passes through untouched. One flag read when the layer is off —
+    the data plane pays nothing in production."""
+    inj = injector()
+    if inj is None:
+        return array
+    return inj.at_bitflip_phase(phase, array)
 
 
 def reset() -> None:

@@ -23,6 +23,7 @@ and renewals carry the stamp alone.
 """
 from __future__ import annotations
 
+import atexit
 import json
 import os
 import threading
@@ -112,8 +113,10 @@ class HeartBeatWorker:
         self._thread: Optional[threading.Thread] = None
         os.makedirs(directory, exist_ok=True)
 
-    def _beat(self):
+    def _beat(self, exiting: bool = False):
         stamp = {"t": time.time()}
+        if exiting:
+            stamp["exiting"] = True
         if self.epoch:
             stamp["epoch"] = self.epoch
         if _step_provider is not None:
@@ -141,7 +144,7 @@ class HeartBeatWorker:
         with open(tmp, "w") as f:
             f.write(json.dumps(stamp))
         os.replace(tmp, self.path)  # atomic: monitor never reads a torn file
-        if self.renew_cb is not None:
+        if self.renew_cb is not None and not exiting:
             try:
                 self.renew_cb(stamp)
             except Exception:  # noqa: BLE001 — a flapping coordinator
@@ -151,6 +154,13 @@ class HeartBeatWorker:
         if self._thread is not None:
             return self
         self._beat()
+        # a clean exit stops the stamping thread before the interpreter's
+        # teardown, which takes ~0.7 s with torch loaded and several
+        # seconds on a loaded host: the last stamp says so, and the
+        # monitor gives such a rank its startup grace instead of the hang
+        # timeout.  atexit runs handlers last-in first-out, so this one
+        # runs before those of the modules imported before it.
+        atexit.register(self._on_exit)
 
         def loop():
             while not self._stop.wait(self.interval):
@@ -160,11 +170,24 @@ class HeartBeatWorker:
         self._thread.start()
         return self
 
-    def stop(self):
+    def _halt(self):
         self._stop.set()
         if self._thread is not None:
             self._thread.join(timeout=2)
             self._thread = None
+
+    def stop(self):
+        self._halt()
+        atexit.unregister(self._on_exit)
+
+    def _on_exit(self):
+        if self._stop.is_set():
+            return  # stopped on purpose: a silent rank reads as hung
+        self._halt()
+        try:
+            self._beat(exiting=True)
+        except OSError:
+            pass
 
 
 def start_heartbeat(interval: float = 1.0):
@@ -220,6 +243,11 @@ class StragglerMonitor:
 class HeartBeatMonitor:
     """Launcher-side: which ranks have not stamped within `timeout`?
 
+    A rank whose last stamp says it is exiting (a clean exit's atexit
+    stamp, HeartBeatWorker) is in its interpreter's teardown, not hung:
+    it is flagged only once the startup grace has passed since that
+    stamp.
+
     A rank is only considered once it stamps AFTER this monitor was
     created: startup (imports, the first step's kernel loads) can exceed
     the window, and a leftover stamp from a previous job in a reused
@@ -272,5 +300,9 @@ class HeartBeatMonitor:
                     stale.append(r)  # future-epoch stamp: we are stale
                     continue
             if now - mtime > self.timeout:
+                stamp = read_stamp(self.directory, r)
+                if (stamp and stamp.get("exiting")
+                        and now - mtime <= self.startup_grace):
+                    continue  # tearing down after a clean exit
                 stale.append(r)
         return stale

@@ -40,10 +40,21 @@ checkpointed exits with PREEMPTED_EXIT_CODE (75); like any nonzero exit
 it consumes one --elastic_retries attempt, and the respawned trainer
 auto-resumes from the latest valid checkpoint (Model.fit(resume=...)).
 
+Parameter servers (reference launch_ps.py): --server_num N spawns N
+pserver processes (``python -m paddle_tpu_torch.distributed.ps_server``,
+host memory only: each runs with CUDA_VISIBLE_DEVICES empty, so it can
+never initialize the card) on free ports, or --servers names them, and
+PADDLE_PSERVERS_IP_PORT_LIST carries the list to the trainers.  They
+outlive elastic restarts, snapshot their tables (--ps_snapshot_secs,
+--ps_snapshot_mode; PADDLE_PS_SNAPSHOT_DIR adopts a previous job's), are
+respawned in place from the snapshots by ``PServerSupervisor`` within
+the --elastic_retries budget, and with --ps_replication R keep R copies
+of every row partition; under --lease_secs each pserver holds a lease
+whose expiry makes the coordinator promote a caught-up backup.
+
 Not ported yet, refused with NotImplementedError naming the queue item:
-the parameter-server flags (--server_num, --servers, the --ps_* flags,
-PADDLE_PSERVERS_IP_PORT_LIST) and --serve with its --serve_kv_* flags
-(the PS half of ROADMAP A6); --fleetz_port, --debugz_port, --trace_dir,
+--serve with its --serve_kv_* flags (serving under the launcher, the
+next item of ROADMAP A6); --fleetz_port, --debugz_port, --trace_dir,
 --straggler_factor and --straggler_eject_factor, and the goodput ledger
 PADDLE_GOODPUT arms (ROADMAP A8: telemetry/debugz, export, timeline,
 straggler and goodput's launcher ledger).
@@ -67,8 +78,7 @@ from ..parallel.env import ENV_RENDEZVOUS
 # exits with it (sysexits EX_TEMPFAIL, "retry me")
 PREEMPTED_EXIT_CODE = 75
 
-_PS_HALF = "the parameter server, the PS half of ROADMAP A6"
-_SERVE = "serving under the launcher, with the PS half of ROADMAP A6"
+_SERVE = "serving under the launcher, the next item of ROADMAP A6"
 
 
 class Trainer:
@@ -85,6 +95,24 @@ class Trainer:
         # dies its peers fail in their next collective a moment later,
         # and the first to exit is the culprit
         self.exit_ts: Optional[float] = None
+
+
+class PServer:
+    """One supervised pserver child: the respawn identity (idx, host,
+    bound port) needed to restart it in place."""
+
+    def __init__(self, idx: int, host: str, port: int,
+                 proc: subprocess.Popen):
+        self.idx = idx
+        self.host = host
+        self.port = port  # bound port — respawns MUST rebind it
+        self.proc = proc
+
+    @property
+    def tag(self) -> str:
+        # heartbeat identity (distributed/heartbeat.py: pservers stamp
+        # as "ps<idx>", never colliding with integer trainer ranks)
+        return f"ps{self.idx}"
 
 
 def _reap(t: Trainer) -> None:
@@ -298,13 +326,6 @@ def _refuse_unported(args) -> None:
     """The flags and environment of the JAX launcher whose machinery the
     port has not yet: NotImplementedError naming the queue item."""
     armed = []
-    if args.server_num or args.servers:
-        armed.append(f"--server_num/--servers ({_PS_HALF})")
-    if os.environ.get("PADDLE_PSERVERS_IP_PORT_LIST"):
-        armed.append(f"PADDLE_PSERVERS_IP_PORT_LIST ({_PS_HALF})")
-    for flag in ("ps_snapshot_secs", "ps_snapshot_mode", "ps_replication"):
-        if getattr(args, flag) is not None:
-            armed.append(f"--{flag} ({_PS_HALF})")
     if args.serve or args.serve_kv_cache is not None \
             or args.serve_kv_pages is not None:
         armed.append(f"--serve ({_SERVE})")
@@ -326,6 +347,200 @@ def _refuse_unported(args) -> None:
         raise NotImplementedError(
             "launch: not ported yet: " + "; ".join(armed))
 
+
+
+def _spawn_pserver(idx: int, host: str, port: int,
+                   log_dir: Optional[str] = None,
+                   snapshot_root: Optional[str] = None,
+                   snapshot_secs: float = 0.0,
+                   preload_snapshots: bool = False,
+                   heartbeat_dir: Optional[str] = None,
+                   log_mode: str = "w",
+                   clear_fault_spec: bool = False) -> subprocess.Popen:
+    """Fork one pserver child and wait for its bound-port banner; the
+    caller learns the bound port via proc.ps_bound_port. Snapshots live
+    in a PER-SERVER subdir of snapshot_root — each server hosts its own
+    row PARTITION of a table under the same name, and a shared dir would
+    let server 1's respawn silently preload server 0's rows whenever the
+    partition geometries coincide. Respawns pass the original port and
+    preload_snapshots=True (recovery)."""
+    env = dict(os.environ)
+    env["PADDLE_TRAINING_ROLE"] = "PSERVER"
+    env["PADDLE_PS_RANK_TAG"] = f"ps{idx}"
+    # a pserver holds its tables in host memory by design: it never sees
+    # the card, so it can never initialize CUDA there
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    if clear_fault_spec:
+        # a RESPAWNED pserver must not replay the deterministic fault
+        # schedule from RPC-count zero — a `kill:*:N` drill means "kill
+        # this server once", not "kill every incarnation", which would
+        # burn the whole restart budget on one rule
+        env.pop("PADDLE_PS_FAULT_SPEC", None)
+    if heartbeat_dir:
+        env["PADDLE_HEARTBEAT_DIR"] = heartbeat_dir
+    snap = os.path.join(snapshot_root, f"ps{idx}") if snapshot_root else None
+    cmd = [sys.executable, "-u", "-m",
+           "paddle_tpu_torch.distributed.ps_server",
+           "--port", str(port), "--host", host]
+    if preload_snapshots and snap:
+        cmd += ["--preload_dir", snap]
+    if snap and snapshot_secs > 0:
+        cmd += ["--snapshot_dir", snap,
+                "--snapshot_secs", str(snapshot_secs)]
+    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    line = proc.stdout.readline()  # "[ps_server] listening on h:p"
+    if "listening on" not in line:
+        proc.kill()
+        raise RuntimeError(f"pserver {idx} failed to start: {line!r}")
+    proc.ps_bound_port = int(line.rsplit(":", 1)[1])
+    if log_dir:
+        os.makedirs(log_dir, exist_ok=True)
+        log = open(os.path.join(log_dir, f"serverlog.{idx}"), log_mode)
+        log.write(line)
+
+        def drain(p=proc, f=log):
+            for ln in p.stdout:
+                f.write(ln)
+            f.close()
+    else:
+        def drain(p=proc):
+            for _ in p.stdout:
+                pass
+
+    threading.Thread(target=drain, daemon=True).start()
+    return proc
+
+
+def start_pservers(server_num: int, servers: str, node_ip: str,
+                   log_dir: Optional[str] = None,
+                   snapshot_dir: Optional[str] = None,
+                   snapshot_secs: float = 0.0,
+                   heartbeat_dir: Optional[str] = None,
+                   adopt_snapshots: bool = False):
+    """Spawn this node's pserver processes (reference launch_ps.py
+    start_procs). Returns (List[PServer], full_endpoint_list).
+    --server_num spawns on launcher-chosen free ports (the child binds
+    port 0 and reports the bound port on stdout, so there is no
+    pick-then-bind race); --servers spawns the endpoints whose host is
+    this node. adopt_snapshots (stable PADDLE_PS_SNAPSHOT_DIR): preload
+    each server's snapshot partition on FIRST spawn, not just respawn —
+    a new job adopts a previous job's tables."""
+    pservers: List[PServer] = []
+
+    def spawn(port: int, host: str, idx: int) -> int:
+        proc = _spawn_pserver(idx, host, port, log_dir=log_dir,
+                              snapshot_root=snapshot_dir,
+                              snapshot_secs=snapshot_secs,
+                              preload_snapshots=adopt_snapshots,
+                              heartbeat_dir=heartbeat_dir)
+        pservers.append(PServer(idx, host, proc.ps_bound_port, proc))
+        return proc.ps_bound_port
+
+    try:
+        if servers:
+            eps = [e.strip() for e in servers.split(",") if e.strip()]
+            for i, ep in enumerate(eps):
+                host, port = ep.rsplit(":", 1)
+                if host in (node_ip, "127.0.0.1", "localhost"):
+                    spawn(int(port), host, i)
+            endpoints = eps
+        else:
+            endpoints = []
+            for i in range(server_num):
+                bound = spawn(0, "127.0.0.1", i)
+                endpoints.append(f"127.0.0.1:{bound}")
+    except BaseException:
+        # partial startup must not orphan the servers already running
+        terminate_pservers(pservers)
+        raise
+    return pservers, endpoints
+
+
+def terminate_pservers(pservers: List[PServer]):
+    for p in pservers:
+        if p.proc.poll() is None:
+            p.proc.terminate()
+    for p in pservers:
+        try:
+            p.proc.wait(timeout=5)
+        except subprocess.TimeoutExpired:
+            p.proc.kill()
+
+
+class PServerSupervisor:
+    """Poll pserver children and respawn the dead ones in place (same
+    host:port — trainers hold the endpoint list; their RPC retry loop
+    rides out the gap). Recovery state comes from the snapshot dir: the
+    respawn preloads the latest atomic snapshot, and trainers that find
+    their table missing re-create it (RemoteTable._call), restoring the
+    Downpour bounded-staleness contract instead of losing the job.
+
+    A shared restart budget (--elastic_retries) bounds flapping; with
+    heartbeats enabled, a pserver process that freezes (stamps stale) is
+    killed and handled through the same respawn path."""
+
+    def __init__(self, pservers: List[PServer], retries: int,
+                 log_dir: Optional[str], snapshot_dir: Optional[str],
+                 snapshot_secs: float, heartbeat_dir: Optional[str] = None,
+                 heartbeat_timeout: float = 0.0):
+        self.pservers = pservers
+        self.retries_left = int(retries)
+        self.log_dir = log_dir
+        self.snapshot_dir = snapshot_dir
+        self.snapshot_secs = snapshot_secs
+        self.heartbeat_dir = heartbeat_dir
+        self.aborted = False  # budget gone: no point restarting trainers
+        self.monitor = None
+        if heartbeat_dir and heartbeat_timeout > 0:
+            from .heartbeat import HeartBeatMonitor
+
+            self.monitor = HeartBeatMonitor(
+                heartbeat_dir, [p.tag for p in pservers], heartbeat_timeout)
+
+    def check(self) -> Optional[int]:
+        """None = all healthy (possibly after respawns); an int = abort
+        the job with that exit code (restart budget exhausted)."""
+        if self.monitor is not None:
+            running = [p for p in self.pservers if p.proc.poll() is None]
+            stale = set(self.monitor.stale_ranks(
+                ranks=[p.tag for p in running]))
+            for p in running:
+                if p.tag in stale:
+                    print(f"[launch] pserver {p.idx} ({p.host}:{p.port}) "
+                          f"stopped heartbeating (frozen?); killing it "
+                          f"for respawn", file=sys.stderr)
+                    p.proc.kill()
+                    p.proc.wait()
+        for p in self.pservers:
+            rc = p.proc.poll()
+            if rc is None:
+                continue
+            if self.retries_left <= 0:
+                print(f"[launch] pserver {p.idx} ({p.host}:{p.port}) "
+                      f"exited with {rc} and no restarts remain; "
+                      f"aborting the job", file=sys.stderr)
+                self.aborted = True
+                return rc if rc != 0 else 1
+            self.retries_left -= 1
+            print(f"[launch] pserver {p.idx} ({p.host}:{p.port}) exited "
+                  f"with {rc}; restarting it on the same port "
+                  f"(snapshot recovery, {self.retries_left} restarts "
+                  f"left)", file=sys.stderr)
+            try:
+                p.proc = _spawn_pserver(
+                    p.idx, p.host, p.port, log_dir=self.log_dir,
+                    snapshot_root=self.snapshot_dir,
+                    snapshot_secs=self.snapshot_secs,
+                    preload_snapshots=True,
+                    heartbeat_dir=self.heartbeat_dir, log_mode="a",
+                    clear_fault_spec=True)
+            except RuntimeError as e:
+                print(f"[launch] pserver {p.idx} respawn failed: {e}; "
+                      f"aborting the job", file=sys.stderr)
+                self.aborted = True
+                return 1
+        return None
 
 
 def _spawn_coordinator(host: str, port: int, state_dir: Optional[str],
@@ -552,7 +767,7 @@ def terminate_local_trainers(trainers: List[Trainer],
 
 
 def watch_local_trainers(trainers: List[Trainer], poll_interval=0.2,
-                         monitor=None,
+                         monitor=None, ps_supervisor=None,
                          grace: Optional[SigtermGrace] = None,
                          failure: Optional[dict] = None,
                          coordinator=None, coord_supervisor=None) -> int:
@@ -572,8 +787,12 @@ def watch_local_trainers(trainers: List[Trainer], poll_interval=0.2,
     names the culprit in the restart line. `coordinator`
     (coordinator.Coordinator) is swept on the poll cadence: an expired
     TRAINER lease is treated like a hang (kill + reason "lease
-    expired"). A `coord_supervisor` respawns a dead process-hosted
-    coordinator on the same cadence."""
+    expired"); the sweep also elects a new primary for the partitions
+    of a pserver whose lease expired. `ps_supervisor`
+    (PServerSupervisor) is polled on the same cadence: it respawns dead
+    pservers in place, or returns an exit code to abort the job. A
+    `coord_supervisor` respawns a dead process-hosted coordinator on
+    the same cadence."""
 
     def _fail(t: Optional[Trainer], reason: str) -> None:
         if failure is not None and t is not None:
@@ -645,6 +864,11 @@ def watch_local_trainers(trainers: List[Trainer], poll_interval=0.2,
                               f"the group", file=sys.stderr)
                         terminate_local_trainers(trainers)
                         return 124
+            if ps_supervisor is not None:
+                rc = ps_supervisor.check()
+                if rc is not None:
+                    terminate_local_trainers(trainers)
+                    return rc
             if coord_supervisor is not None:
                 # durable control plane: respawn a dead coordinator in
                 # place; never aborts the job
@@ -680,6 +904,27 @@ def launch(argv=None) -> int:
     if args.heartbeat_timeout > 0 or lease_secs > 0:
         heartbeat_dir = (os.environ.get("PADDLE_HEARTBEAT_DIR")
                          or os.path.join(job_dir, "heartbeat"))
+
+    # pserver snapshot interval: explicit flag > env > supervision-implied
+    # default
+    snapshot_secs = args.ps_snapshot_secs
+    if snapshot_secs is None:
+        env_secs = os.environ.get("PADDLE_PS_SNAPSHOT_SECS")
+        if env_secs:
+            snapshot_secs = float(env_secs)
+        else:
+            snapshot_secs = 1.0 if args.elastic_retries > 0 else 0.0
+    if args.ps_replication is not None and args.ps_replication > 1:
+        if args.servers:
+            n_ps = len([e for e in args.servers.split(",") if e.strip()])
+        else:
+            n_ps = args.server_num
+        if n_ps < args.ps_replication:
+            print(f"[launch] --ps_replication {args.ps_replication} "
+                  f"needs at least that many pservers, got {n_ps} "
+                  f"(--server_num / --servers)", file=sys.stderr)
+            shutil.rmtree(job_dir, ignore_errors=True)
+            return 2
 
     grace = SigtermGrace(args.sigterm_grace)
     grace.install()
@@ -717,6 +962,7 @@ def launch(argv=None) -> int:
     coord_children = None
     coord_ep = None
     ckpt_barrier_server = None
+    pservers: List[PServer] = []
     try:
         if durable_coord:
             snap_secs = (durable_snap_secs
@@ -785,6 +1031,46 @@ def launch(argv=None) -> int:
                     coord.ckpt_barrier)
                 os.environ["PADDLE_CKPT_BARRIER_ENDPOINT"] = bar_ep
 
+        # parameter servers: started after the coordinator, so their
+        # lease workers (ps_server.serve) find its endpoint in the env
+        ps_supervisor = None
+        if args.ps_snapshot_mode:
+            # pservers inherit it through _spawn_pserver's env copy
+            os.environ["PADDLE_PS_SNAPSHOT_MODE"] = args.ps_snapshot_mode
+        if args.ps_replication is not None:
+            # trainers inherit it through start_local_trainers' env
+            # copy; RemoteTable reads it as the default replication
+            os.environ["PADDLE_PS_REPLICATION"] = str(args.ps_replication)
+        if args.server_num or args.servers:
+            snapshot_dir = None
+            adopt_snapshots = False
+            if snapshot_secs > 0:
+                snapshot_dir = os.environ.get("PADDLE_PS_SNAPSHOT_DIR")
+                if snapshot_dir:
+                    # stable cross-job dir: a previous job's snapshots
+                    # (+ manifest) are adopted on first spawn
+                    adopt_snapshots = True
+                else:
+                    snapshot_dir = os.path.join(
+                        args.log_dir or job_dir, "ps_snapshots")
+                os.makedirs(snapshot_dir, exist_ok=True)
+            pservers, endpoints = start_pservers(
+                args.server_num, args.servers, node_ip, args.log_dir,
+                snapshot_dir=snapshot_dir, snapshot_secs=snapshot_secs,
+                heartbeat_dir=heartbeat_dir,
+                adopt_snapshots=adopt_snapshots)
+            # trainers inherit the list through start_local_trainers' env
+            os.environ["PADDLE_PSERVERS_IP_PORT_LIST"] = ",".join(endpoints)
+            os.environ.setdefault("PADDLE_TRAINING_ROLE", "TRAINER")
+            print(f"[launch] {len(pservers)} pserver(s) on "
+                  f"{','.join(endpoints)}", file=sys.stderr)
+            if args.elastic_retries > 0:
+                ps_supervisor = PServerSupervisor(
+                    pservers, args.elastic_retries, args.log_dir,
+                    snapshot_dir, snapshot_secs,
+                    heartbeat_dir=heartbeat_dir,
+                    heartbeat_timeout=args.heartbeat_timeout)
+
         coord_supervisor = None
         if coord_children is not None:
             coord_supervisor = CoordinatorSupervisor(
@@ -792,8 +1078,10 @@ def launch(argv=None) -> int:
         return _launch_attempts(args, ips, node_ip, cluster, heartbeat_dir,
                                 job_dir, grace, coord=coord,
                                 lease_armed=lease_secs > 0,
-                                coord_supervisor=coord_supervisor)
+                                coord_supervisor=coord_supervisor,
+                                ps_supervisor=ps_supervisor)
     finally:
+        terminate_pservers(pservers)
         if coord_server is not None:
             stop_coordinator(coord_server)
         if ckpt_barrier_server is not None:
@@ -820,14 +1108,15 @@ def launch(argv=None) -> int:
 
 def _launch_attempts(args, ips, node_ip, cluster, heartbeat_dir, job_dir,
                      grace=None, coord=None, lease_armed=False,
-                     coord_supervisor=None) -> int:
+                     coord_supervisor=None, ps_supervisor=None) -> int:
     """Supervision loop with per-rank budgets and elastic resize.
 
     Failure accounting lives in the coordinator: every group-ending
     trainer failure (nonzero exit, stale heartbeat, expired lease) is
     charged to THAT member's per-rank budget
     (coordinator.report_failure). Within budget, the group restarts at
-    the same world size; past budget the member is EVICTED — the
+    the same world size (the sync-PS barrier demands a group restart
+    either way); past budget the member is EVICTED — the
     membership epoch bumps and the survivors restart at world-1 from the
     last checkpoint (PADDLE_ELASTIC_RESHARD=1 is exported so their
     CheckpointManagers accept the resized resume). --elastic_retries
@@ -892,13 +1181,15 @@ def _launch_attempts(args, ips, node_ip, cluster, heartbeat_dir, job_dir,
             )
         failure: dict = {}
         rc = watch_local_trainers(
-            local, monitor=monitor, grace=grace, failure=failure,
+            local, monitor=monitor, ps_supervisor=ps_supervisor,
+            grace=grace, failure=failure,
             coordinator=coord if lease_armed else None,
             coord_supervisor=coord_supervisor)
         detect_ts = failure.get("detect_ts", time.time())
         if (rc == 0
                 or rc == 128 + signal.SIGINT
                 or rc == 128 + signal.SIGTERM  # whole-job preemption
+                or (ps_supervisor is not None and ps_supervisor.aborted)
                 or not elastic_enabled):
             return rc
         # charge the failure to the culprit's per-rank budget; the

@@ -91,8 +91,8 @@ for them (``_finish_param_sharding``), and so is gradient merge with tp,
 pp or ep.
 
 Refused by name (``_reject_unsupported``, ``_check_axes``; none is
-silently ignored): tp together with sp or pp (ROADMAP A4 item 6); the
-parameter-server roles (A6); and what the JAX package refuses: dgc or
+silently ignored): tp together with sp or pp (ROADMAP A4 item 6); and
+what the JAX package refuses: dgc or
 localsgd without hybrid_dcn, hybrid_dcn with tp, pp, sp, ep, sharding
 or gradient merge, a mesh whose "dcn" axis does not match hybrid_dcn.
 elastic and auto raise as in the JAX package.
@@ -116,7 +116,6 @@ _fleet_state = {"initialized": False, "role_maker": None, "strategy": None}
 _TP_MIX = "ROADMAP A4, next slice item 6: tp together with sp or pp"
 _TP_SLICE = "the tensor-parallel slice of ROADMAP A4 runs Megatron regions " \
             "only"
-_PS = "the PS half of ROADMAP A6: the parameter server"
 
 
 def _distributed():
@@ -172,22 +171,148 @@ def barrier_worker():
     dist.barrier()
 
 
-def _ps_refused(name):
-    def fn(*args, **kwargs):
-        raise NotImplementedError(f"fleet.{name}: not ported yet ({_PS})")
-
-    fn.__name__ = name
-    return fn
+# -- PS-role lifecycle (reference fleet_base.py:235-249) -------------------
 
 
-# parameter-server and control-plane roles (reference fleet_base.py:235-249)
-init_worker = _ps_refused("init_worker")
-init_server = _ps_refused("init_server")
-run_server = _ps_refused("run_server")
-stop_worker = _ps_refused("stop_worker")
-membership = _ps_refused("membership")
-ps_snapshot_manifest = _ps_refused("ps_snapshot_manifest")
-ps_stats = _ps_refused("ps_stats")
+def init_worker(device=None) -> None:
+    """Trainer-side PS bootstrap (reference fleet_base.init_worker).
+    RemoteTable clients connect lazily on create_table, so this only
+    bootstraps the coordination env: the process group (and with it the
+    launcher's heartbeat / lease) when the job has more than one rank,
+    as ``init`` does; launched trainer scripts can call it
+    unconditionally."""
+    if get_world_size() > 1 and not _distributed():
+        init_parallel_env(device=device)
+
+
+def init_server(model_dir: Optional[str] = None,
+                snapshot_dir: Optional[str] = None,
+                snapshot_secs: Optional[float] = None, **kwargs) -> None:
+    """Server-side init (reference fleet_base.init_server): record the
+    checkpoint directory whose `<table>.pkl` state_dicts preload each
+    table on first creation (saved via `ps.get_table(n).state_dict()`).
+
+    snapshot_secs > 0 makes run_server() checkpoint every table
+    atomically on that interval (ps_server.PSServer.snapshot), into
+    snapshot_dir — defaulting to model_dir, so a crashed-and-restarted
+    server resumes from its own latest snapshot through the same preload
+    path (bounded-staleness recovery; env fallbacks:
+    PADDLE_PS_SNAPSHOT_DIR / PADDLE_PS_SNAPSHOT_SECS).
+
+    Cross-job adoption: each snapshot dir carries a `manifest.json`
+    (snapshot epoch, trainer-group generation, table geometries) written
+    atomically AFTER the table pickles. Point a NEW job's model_dir — or
+    its launcher's stable PADDLE_PS_SNAPSHOT_DIR — at a previous job's
+    snapshot dir (of either package) and the tables are adopted;
+    inspect what will be adopted with fleet.ps_snapshot_manifest(dir)."""
+    _fleet_state["ps_model_dir"] = model_dir
+    _fleet_state["ps_snapshot_dir"] = snapshot_dir or model_dir
+    _fleet_state["ps_snapshot_secs"] = snapshot_secs
+
+
+def membership() -> Optional[dict]:
+    """The job control plane's membership table: epoch, world size, and
+    each member's lease state, straight from the launcher's coordinator
+    (PADDLE_COORDINATOR_ENDPOINT). None when no control plane is armed
+    — single-process runs and lease-less launches."""
+    from ..distributed import coordinator
+
+    return coordinator.query_membership()
+
+
+def ps_snapshot_manifest(dirname: str) -> Optional[dict]:
+    """Parsed manifest.json of a PS snapshot directory (snapshot epoch,
+    generation, tables), or None for absent/pre-manifest dirs."""
+    from ..distributed.ps_server import read_snapshot_manifest
+
+    return read_snapshot_manifest(dirname)
+
+
+def ps_stats(table_name: Optional[str] = None) -> dict:
+    """PS data-plane telemetry through the idempotent `stats` verb:
+    per-verb latency summaries, retry / replay-dedup counters and bytes
+    in/out from each pserver process, plus per-table traffic counters.
+    Replicated tables (PADDLE_PS_REPLICATION > 1) add a "replication"
+    section — factor plus each partition's replica roles, epochs,
+    last-applied seqs and lag. Every table also carries a "memory"
+    section: per-partition resident bytes (rows x row width + optimizer
+    accumulators + the replication log ring).
+
+    table_name names one registered table; None reports every table
+    this process created. Hosted tables (RemoteTable) fan the verb out
+    to their pservers; in-process tables report their local counters.
+    Returns {table_name: stats_dict}."""
+    from ..distributed import ps
+
+    names = [table_name] if table_name else sorted(ps._tables)
+    out = {}
+    for n in names:
+        t = ps.get_table(n)
+        # GeoSGDClient wraps either table kind: unwrap to whatever can
+        # actually report (RemoteTable.stats or the local counters)
+        target = t if hasattr(t, "stats") else getattr(t, "server", t)
+        if hasattr(target, "stats"):
+            out[n] = target.stats()
+        else:  # in-process ShardedHostTable
+            mem = target.memory_stats()
+            out[n] = {"push_calls": target.push_calls,
+                      "pushed_bytes": target.pushed_bytes,
+                      "servers": [],
+                      "memory": {"partitions": {n: mem},
+                                 "resident_bytes": mem["resident_bytes"]}}
+    return out
+
+
+def run_server() -> None:
+    """Run the pserver event loop on PADDLE_PORT (blocks until a client
+    sends shutdown — the listen_and_serv analog, distributed/
+    ps_server.py; host memory only, the card is never touched). The
+    process role contract matches the reference: TRAINING_ROLE=PSERVER
+    processes call init_server() + run_server(), trainers call
+    init_worker() and train. PADDLE_PORT is required: trainers resolve a
+    FIXED port from PADDLE_PSERVERS_IP_PORT_LIST, so binding an
+    ephemeral one would wedge the job undiscoverably."""
+    import os as _os
+
+    from ..distributed import ps_server
+
+    port = int(_os.environ.get("PADDLE_PORT", 0))
+    if port <= 0:
+        raise RuntimeError(
+            "fleet.run_server: PADDLE_PORT is not set; the pserver must "
+            "bind the port trainers were told about "
+            "(PADDLE_PSERVERS_IP_PORT_LIST). For an OS-assigned port use "
+            "`python -m paddle_tpu_torch.distributed.ps_server --port 0`, "
+            "which prints the bound port")
+
+    def ready(addr):
+        print(f"[fleet.run_server] listening on {addr[0]}:{addr[1]}",
+              flush=True)
+
+    ps_server.serve(
+        port=port,
+        preload_dir=_fleet_state.get("ps_model_dir"),
+        snapshot_dir=_fleet_state.get("ps_snapshot_dir"),
+        snapshot_secs=_fleet_state.get("ps_snapshot_secs"),
+        ready_cb=ready,
+    )
+
+
+def stop_worker() -> None:
+    """Trainer-side teardown (reference fleet_base.stop_worker): flush
+    pending Geo deltas, close RemoteTable connections, and drop the
+    tables from the process-local registry so a restarted training
+    phase can create_table again."""
+    from ..distributed import ps
+
+    for name, t in list(ps._tables.items()):
+        if hasattr(t, "flush"):
+            t.flush()
+        closer = getattr(t, "close", None) or getattr(
+            getattr(t, "server", None), "close", None)
+        if closer:
+            closer()
+        ps.drop_table(name)
 
 
 class DistributedOptimizer:

@@ -2,9 +2,9 @@
 
 A copy of the JAX package's ``fleet/base/role_maker.py`` (parity:
 the reference's python/paddle/fleet/base/role_maker.py): the PaddleCloud
-env-var protocol, so launch scripts port unchanged.  The server role
-(TRAINING_ROLE=PSERVER) is recognised; the parameter server it would run
-comes with the PS half of ROADMAP A6.
+env-var protocol, so launch scripts port unchanged.  A server-role
+process (TRAINING_ROLE=PSERVER) runs ``fleet.init_server`` +
+``fleet.run_server`` (distributed/ps_server.py).
 """
 from __future__ import annotations
 

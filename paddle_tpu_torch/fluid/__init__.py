@@ -6,7 +6,9 @@ API, executing op by op in torch on one device (the CUDA card unless the
 Executor is given ``device="cpu"``), with ``append_backward``, the
 optimizers and meta-optimizers, the in-graph learning-rate schedules
 (exported into ``layers`` as the reference does), the static verifier
-(``analysis``) and preemption-safe checkpoints (``CheckpointManager``).
+(``analysis``), preemption-safe checkpoints (``CheckpointManager``) and
+the ``DistributeTranspiler`` that moves lookup tables onto the parameter
+server.
 Dygraph mode (only ``dygraph.save_dygraph`` / ``load_dygraph`` so far)
 and the dataset / reader front ends wait for later slices (ROADMAP).
 """
@@ -25,8 +27,9 @@ from . import (  # noqa: F401
     regularizer,
     unique_name,
 )
-from . import analysis, checkpoint, dygraph, monitor  # noqa: F401
+from . import analysis, checkpoint, dygraph, monitor, transpiler  # noqa: F401
 from .checkpoint import CheckpointManager  # noqa: F401
+from .transpiler import DistributeTranspiler, DistributeTranspilerConfig  # noqa: F401
 
 for _n in ("noam_decay", "exponential_decay", "natural_exp_decay",
            "inverse_time_decay", "polynomial_decay", "piecewise_decay",

@@ -25,7 +25,7 @@ Entry points: the check_* functions return verifier findings;
 `verify_pair` bundles them; `assert_pair_valid` raises
 ProgramVerifyError on error findings. Wired (flag-armed) into
 hapi.Model.prepare (the fit/evaluate clones) and
-DistributeTranspiler.transpile (not ported).
+DistributeTranspiler.transpile.
 """
 from __future__ import annotations
 
@@ -212,14 +212,44 @@ def check_ps_geometry(program) -> List[Finding]:
     """Every distributed_lookup_table op must name a table registered in
     this process whose embedding dim matches the op's output var shape
     (ps-table-missing / ps-table-geometry, both ERROR). Programs with no
-    distributed ops return []; the parameter server is not ported
-    (ROADMAP A6), so a program with one raises NotImplementedError."""
-    if not any(op.type == "distributed_lookup_table"
-               for b in program.blocks for op in b.ops):
-        return []
-    raise NotImplementedError(
-        "check_ps_geometry: the program holds distributed_lookup_table "
-        "ops, whose parameter-server tables are not ported (ROADMAP A6)")
+    distributed ops return [] without importing the PS layer."""
+    findings: List[Finding] = []
+    ops = [(b, i, op) for b in program.blocks
+           for i, op in enumerate(b.ops)
+           if op.type == "distributed_lookup_table"]
+    if not ops:
+        return findings
+    from ...distributed import ps
+
+    for b, i, op in ops:
+        names = op.attr("table_names", []) or (
+            [op.attr("table_name")] if op.attr("table_name") else [])
+        for name in names:
+            try:
+                table = ps.get_table(name)
+            except KeyError:
+                findings.append(Finding(
+                    check="ps-table-missing", severity=ERROR,
+                    message=f"op references PS table {name!r}, but no "
+                            f"such table is registered in this process "
+                            f"(create_table/transpile before running)",
+                    block_idx=b.idx, op_index=i, op_type=op.type,
+                    var=name, callstack=_cs(op)))
+                continue
+            dim = getattr(table, "dim", None)
+            for out in op.outputs.get("Outputs") or op.output_names():
+                v = b._find_var_recursive(out)
+                if (v is not None and v.shape and dim is not None
+                        and int(v.shape[-1]) not in (-1, int(dim))):
+                    findings.append(Finding(
+                        check="ps-table-geometry", severity=ERROR,
+                        message=f"PS table {name!r} has embedding dim "
+                                f"{dim}, but output {out!r} expects "
+                                f"{v.shape[-1]} (stale table from a "
+                                f"previous transpile?)",
+                        block_idx=b.idx, op_index=i, op_type=op.type,
+                        var=name, callstack=_cs(op)))
+    return findings
 
 
 # ---------------------------------------------------------------------------

@@ -98,8 +98,11 @@ restore at another world size (an elastic resize) takes this rank's
 block of them under the program's new mesh, so ZeRO's moments are split
 again for the new dp.
 
-Not ported (raising NotImplementedError where armed): parameter-server
-tables in a checkpoint (the PS half of ROADMAP A6).
+Parameter-server tables: a program's ``distributed_lookup_table``
+tables ride in the checkpoint as ``<table>.pkl`` (each table's
+``state_dict``, the format ``fleet.init_server`` and a pserver's preload
+read), listed under the manifest's ``ps`` section; restore loads them
+back into the tables registered in this process.
 """
 from __future__ import annotations
 
@@ -597,20 +600,70 @@ class _PinnedPool:
                                       []).append(b)
 
 
+def _ps_states(program) -> dict:
+    """{table: state_dict} of every PS table the program reads, taken
+    now (state_dict deep-copies under the table locks: consistent even
+    while pushes continue).  A table the program names but this process
+    never registered is warned about here, not at the far-away restore."""
+    from ..distributed import ps
+
+    states = {}
+    for name in _ps_table_names(program):
+        try:
+            t = ps.get_table(name)
+        except KeyError:
+            warnings.warn(
+                f"save: program references PS table {name!r} but no such "
+                f"table is registered in this process — the checkpoint "
+                f"will NOT contain it and load_persistables will reject "
+                f"it. create_table before saving (or drop the lookup op)",
+                RuntimeWarning, stacklevel=4)
+            continue
+        states[name] = t.state_dict()
+    return states
+
+
+def _restore_ps_tables(d: str, manifest: Optional[dict]) -> None:
+    """Load each table the manifest lists from ``<d>/<table>.pkl`` into
+    the table registered in this process (one not registered is warned
+    about and left alone)."""
+    from ..distributed import ps
+
+    for name in (manifest or {}).get("ps", {}).get("tables", ()):
+        path = os.path.join(d, f"{name}.pkl")
+        if not os.path.exists(path):
+            raise RuntimeError(
+                f"manifest lists PS table {name!r} but {name}.pkl is "
+                f"missing")
+        try:
+            table = ps.get_table(name)
+        except KeyError:
+            warnings.warn(
+                f"checkpoint holds PS table {name!r} but no such table is "
+                f"registered in this process; create it before restore to "
+                f"roll it back", RuntimeWarning, stacklevel=4)
+            continue
+        with open(path, "rb") as f:
+            table.load_state_dict(_loads(f.read()))
+
+
 class _Snapshot:
     """Everything a checkpoint commit needs, captured at the step
-    boundary: host copies of the arrays, the RNG state and the caller's
-    extra state. Hand it to the writer and the live scope is free to
-    move on."""
+    boundary: host copies of the arrays, the RNG state, the caller's
+    extra state and the PS tables' state dicts. Hand it to the writer
+    and the live scope is free to move on."""
 
-    __slots__ = ("step", "arrays", "rng", "extra", "snap_global_step",
-                 "save_ctx", "async_", "timings", "pinned")
+    __slots__ = ("step", "arrays", "rng", "extra", "ps_states",
+                 "snap_global_step", "save_ctx", "async_", "timings",
+                 "pinned")
 
-    def __init__(self, step: int, arrays: dict, rng, extra: dict):
+    def __init__(self, step: int, arrays: dict, rng, extra: dict,
+                 ps_states: Optional[dict] = None):
         self.step = int(step)
         self.arrays = arrays
         self.rng = rng
         self.extra = extra
+        self.ps_states = dict(ps_states or {})
         self.snap_global_step = 0
         self.save_ctx: Optional[Tuple[str, str]] = None
         self.async_ = False
@@ -1147,13 +1200,6 @@ class CheckpointManager:
         scope = scope if scope is not None else (self.scope or global_scope())
         t0 = time.perf_counter()
         if program is not None:
-            tables = _ps_table_names(program)
-            if tables:
-                raise NotImplementedError(
-                    f"CheckpointManager.save: the program reads "
-                    f"parameter-server tables {tables}; checkpointing them "
-                    f"waits for the port of the parameter server (the PS "
-                    f"half of ROADMAP A6), and the checkpoint will not leave them out")
             names = [n for n in _persistable_names(program)
                      if scope.find_var(n) is not None]
         else:
@@ -1183,7 +1229,8 @@ class CheckpointManager:
         rng = _rng_state(scope._rng_seed)
         extra = (copy.deepcopy(dict(extra_state or {})) if deep
                  else dict(extra_state or {}))
-        job = _Snapshot(step, arrays, rng, extra)
+        job = _Snapshot(step, arrays, rng, extra,
+                        _ps_states(program) if program is not None else {})
         job.pinned = pinned
         job.snap_global_step = monitor.global_step()
         job.timings["snapshot"] = (time.perf_counter() - t0) * 1e3
@@ -1205,6 +1252,9 @@ class CheckpointManager:
         t0 = time.perf_counter()
         contents = {"state.pkl": {"arrays": job.arrays}, "rng.pkl": job.rng,
                     "extra.pkl": job.extra}
+        for name, st in sorted(job.ps_states.items()):
+            # the file fleet.init_server / a pserver's preload reads
+            contents[f"{name}.pkl"] = st
         # the write span parents under the save span that captured the
         # snapshot, even though an async write runs later on another
         # thread
@@ -1274,8 +1324,8 @@ class CheckpointManager:
         return files
 
     @staticmethod
-    def _ps_section() -> dict:
-        return {"tables": [],
+    def _ps_section(job: _Snapshot) -> dict:
+        return {"tables": sorted(job.ps_states),
                 "generation": int(
                     os.environ.get("PADDLE_ELASTIC_RESTART", "0") or 0)}
 
@@ -1290,7 +1340,7 @@ class CheckpointManager:
             "format": MANIFEST_FORMAT,
             "step": step,
             "files": files,
-            "ps": self._ps_section(),
+            "ps": self._ps_section(job),
         }
         if self.world_size is not None:
             manifest["world_size"] = int(self.world_size)
@@ -1320,7 +1370,7 @@ class CheckpointManager:
             "step": step,
             "rank": int(self.rank),
             "files": files,
-            "ps": self._ps_section(),
+            "ps": self._ps_section(job),
         }
         man_sha = self._commit_manifest(os.path.join(final, MANIFEST),
                                         manifest, "ckpt_manifest")
@@ -1471,12 +1521,6 @@ class CheckpointManager:
     def _load(self, step: int, program, scope, device) -> dict:
         d = self._data_dir(step)
         manifest = self.manifest(step)
-        tables = (manifest or {}).get("ps", {}).get("tables", ())
-        if tables:
-            raise NotImplementedError(
-                f"checkpoint ckpt-{step:08d} holds parameter-server tables "
-                f"{list(tables)}; restoring them waits for the port of the "
-                f"parameter server (the PS half of ROADMAP A6)")
         loaded = {}
         for name in ("state", "rng", "extra"):
             with open(os.path.join(d, f"{name}.pkl"), "rb") as f:
@@ -1519,6 +1563,7 @@ class CheckpointManager:
                                           program._mesh).contiguous()
             scope.set_var(n, t)
         scope._rng_seed = _restore_rng(rng)
+        _restore_ps_tables(d, manifest)
         out = {"step": int(step), "extra": extra, "manifest": manifest}
         if self.sharded:
             out["global_manifest"] = self.global_manifest(step)

@@ -26,12 +26,13 @@ Loaded arrays become torch tensors in the scope, as
 to 32 bits), on the device of the executor passed in (a Predictor moves
 them to its own).
 
-Not ported (they raise NotImplementedError): the Orbax-backed
-whole-state ``save``/``load`` (ROADMAP A5, checkpoints) and the PS-table
-riders that save and restore ``distributed_lookup_table`` tables beside
-the persistables (A6, the parameter server); ``save_persistables`` and
-``load_persistables`` refuse a program that carries such a table rather
-than skip it.
+Parameter-server tables ride beside the persistables:
+``save_persistables`` pickles each ``distributed_lookup_table`` table's
+``state_dict`` to ``<table>.pkl`` (the format ``fleet.init_server`` and
+a pserver's preload read) and ``load_persistables`` restores it.
+
+Not ported (it raises NotImplementedError): the Orbax-backed
+whole-state ``save``/``load`` (ROADMAP A5, checkpoints).
 """
 from __future__ import annotations
 
@@ -257,26 +258,44 @@ def _ps_table_names(program) -> List[str]:
 
 
 def _save_ps_tables(dirname: str, program) -> None:
-    raise NotImplementedError(
-        "saving parameter-server tables beside the persistables waits "
-        "for the port of the parameter server (the PS half of ROADMAP A6)")
+    """Checkpoint host/pserver tables alongside the scope persistables
+    (the reference pulls parameter blocks back from pservers at save —
+    io.py:1019 + checkpoint_notify_op; here the table's state_dict is
+    pickled to `<dirname>/<table>.pkl`, the SAME format
+    fleet.init_server(model_dir)/ps_server preload restores from)."""
+    import warnings
+
+    from ..distributed import ps
+
+    for name in _ps_table_names(program):
+        try:
+            t = ps.get_table(name)
+        except KeyError:
+            # surface NOW, not at the far-away restore: loading this
+            # "successful" checkpoint would fail on the missing .pkl
+            warnings.warn(
+                f"save: program references PS table {name!r} but no such "
+                f"table is registered in this process — the checkpoint "
+                f"will NOT contain it and load_persistables will reject "
+                f"it. create_table before saving (or drop the lookup op)",
+                RuntimeWarning, stacklevel=3)
+            continue
+        _atomic_write_bytes(os.path.join(dirname, f"{name}.pkl"),
+                            pickle.dumps(t.state_dict()))
 
 
 def _load_ps_tables(dirname: str, program) -> None:
-    raise NotImplementedError(
-        "restoring parameter-server tables waits for the port of the "
-        "parameter server (the PS half of ROADMAP A6)")
+    for name in _ps_table_names(program):
+        path = os.path.join(dirname, f"{name}.pkl")
+        if not os.path.exists(path):
+            raise RuntimeError(
+                f"checkpoint at {dirname!r} is missing PS table "
+                f"{name!r} ({name}.pkl); the program's "
+                f"distributed_lookup_table ops cannot resume without it")
+        from ..distributed import ps
 
-
-def _refuse_ps_tables(program, what: str) -> None:
-    tables = _ps_table_names(program)
-    if tables:
-        raise NotImplementedError(
-            f"{what}: the program reads parameter-server tables {tables} "
-            f"(distributed_lookup_table); the port cannot "
-            f"{'save' if what.startswith('save') else 'restore'} them "
-            f"until the parameter server is ported (the PS half of ROADMAP A6), and "
-            f"will not leave them out")
+        with open(path, "rb") as f:
+            ps.get_table(name).load_state_dict(pickle.load(f))
 
 
 def save_params(executor, dirname, main_program=None, filename=None):
@@ -286,10 +305,11 @@ def save_params(executor, dirname, main_program=None, filename=None):
 
 
 def save_persistables(executor, dirname, main_program=None, filename=None):
-    """reference io.py:598 — params + optimizer moments + LR etc."""
+    """reference io.py:598 — params + optimizer moments + LR etc.;
+    host/pserver embedding tables ride along as <table>.pkl."""
     program = main_program or framework.default_main_program()
-    _refuse_ps_tables(program, "save_persistables")
     _save_arrays(dirname, _persistable_names(program), global_scope(), filename)
+    _save_ps_tables(dirname, program)
 
 
 def load_params(executor, dirname, main_program=None, filename=None):
@@ -301,10 +321,10 @@ def load_params(executor, dirname, main_program=None, filename=None):
 
 def load_persistables(executor, dirname, main_program=None, filename=None):
     program = main_program or framework.default_main_program()
-    _refuse_ps_tables(program, "load_persistables")
     _load_arrays(dirname, _persistable_names(program), global_scope(),
                  filename, dtypes=_var_dtypes(program),
                  device=_executor_device(executor))
+    _load_ps_tables(dirname, program)
 
 
 # ---------------------------------------------------------------------------

@@ -52,8 +52,9 @@ start where the environment arms a module the port does not have — the
 metrics/traces push exporters (PADDLE_METRICS_PUSH_URL,
 PADDLE_TRACES_PUSH_URL) and debugz (PADDLE_DEBUGZ_PORT), ROADMAP A8; the
 heartbeat (PADDLE_HEARTBEAT_DIR with a trainer tag) and the coordinator
-lease (PADDLE_COORDINATOR_ENDPOINT), A6.  The live weight subscriber is
-A6 too (`weight_sync.maybe_start_subscriber`).
+lease (PADDLE_COORDINATOR_ENDPOINT), serving under the launcher, the
+next item of ROADMAP A6.  The live weight subscriber comes with it
+(`weight_sync.maybe_start_subscriber`).
 """
 from __future__ import annotations
 
@@ -764,7 +765,7 @@ _NOT_PORTED_ENV = (
     ("PADDLE_DEBUGZ_PORT", "the debugz pages (telemetry/debugz.py, "
      "ROADMAP A8)"),
     ("PADDLE_COORDINATOR_ENDPOINT", "serve()'s coordinator lease "
-     "(the PS half of ROADMAP A6, with weight sync)"),
+     "(serving under the launcher, the next item of ROADMAP A6)"),
 )
 
 
@@ -779,8 +780,8 @@ def _refuse_unported_env() -> None:
     if os.environ.get("PADDLE_HEARTBEAT_DIR") and hb_tag:
         raise NotImplementedError(
             "PADDLE_HEARTBEAT_DIR is set with a trainer tag, but serve()'s "
-            "heartbeat (the PS half of ROADMAP A6, with weight sync) is "
-            "not ported yet; unset it to serve without it")
+            "heartbeat (serving under the launcher, the next item of "
+            "ROADMAP A6) is not ported yet; unset it to serve without it")
 
 
 def serve(frozen: FrozenModel, port: int = 0, host: str = "0.0.0.0",

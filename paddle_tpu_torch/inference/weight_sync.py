@@ -12,8 +12,9 @@ and bumps the weight epoch.
                 (sorted names, row offsets derived only from shapes, so
                 trainer and replicas agree without a manifest exchange).
 
-Not ported yet: ``WeightPublisher`` and ``WeightSubscriber`` need the
-parameter server's tables and ``RemoteTable`` (the PS half of ROADMAP A6).  So where
+Not ported yet: ``WeightPublisher`` and ``WeightSubscriber``, which
+ride the parameter server's tables and ``RemoteTable``, come with
+serving under the launcher (the next item of ROADMAP A6).  So where
 PADDLE_SERVE_WEIGHT_TABLE and endpoints are both set,
 ``maybe_start_subscriber`` raises instead of serving static weights the
 caller asked to keep fresh.
@@ -136,8 +137,8 @@ def maybe_start_subscriber(frozen, on_adopt):
     """Env-driven arming: PADDLE_SERVE_WEIGHT_TABLE plus endpoints
     (PADDLE_SERVE_WEIGHT_ENDPOINTS, falling back to the PS list), unless
     PADDLE_SERVE_WEIGHT_SYNC is 0.  Returns None when not armed; raises
-    when armed, since the subscriber waits for the parameter server's
-    port (the PS half of ROADMAP A6)."""
+    when armed, since the subscriber comes with serving under the
+    launcher (the next item of ROADMAP A6)."""
     if not sync_enabled():
         return None
     name = os.environ.get(ENV_TABLE)
@@ -150,6 +151,6 @@ def maybe_start_subscriber(frozen, on_adopt):
         return None
     raise NotImplementedError(
         f"live weight sync from table {name!r} at {endpoints} needs the "
-        f"WeightSubscriber, which waits for the parameter server's port "
-        f"(the PS half of ROADMAP A6); unset {ENV_TABLE} or set {ENV_SYNC}=0 to serve "
-        f"the loaded weights")
+        f"WeightSubscriber, which is not ported yet (serving under the "
+        f"launcher, the next item of ROADMAP A6); unset {ENV_TABLE} or "
+        f"set {ENV_SYNC}=0 to serve the loaded weights")

@@ -16,6 +16,7 @@ from . import (  # noqa: F401
     moe_ops,
     nn_ops,
     optimizer_ops,
+    ps_ops,
     recompute,
     reduce_ops,
 )

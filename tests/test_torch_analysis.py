@@ -474,15 +474,33 @@ def test_pair_findings_match_jax():
 
 
 def test_ps_program_raises_naming_the_parameter_server_slice():
-    prog = tfluid.Program()
-    blk = prog.global_block()
-    blk.create_var(name="ids", shape=(4, 1), dtype="int64")
-    blk.create_var(name="emb", shape=(4, 8), dtype="float32")
-    blk.append_op(type="distributed_lookup_table", inputs={"Ids": ["ids"]},
-                  outputs={"Outputs": ["emb"]},
-                  attrs={"table_names": ["emb_table"]}, infer=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        tan.verify_pair(prog)
+    """The parameter server is ported, so a program with a
+    distributed_lookup_table op is checked, not refused: a missing table
+    and a table of another dim are the JAX package's ERROR findings."""
+    from paddle_tpu.distributed import ps as jps
+    from paddle_tpu_torch.distributed import ps as tps
+
+    progs = {}
+    for fluid in (jfluid, tfluid):
+        prog = fluid.Program()
+        blk = prog.global_block()
+        blk.create_var(name="ids", shape=(4, 1), dtype="int64")
+        blk.create_var(name="emb", shape=(4, 8), dtype="float32")
+        blk.append_op(type="distributed_lookup_table",
+                      inputs={"Ids": ["ids"]}, outputs={"Outputs": ["emb"]},
+                      attrs={"table_names": ["emb_table"]}, infer=False)
+        progs[fluid] = prog
+    for dim, want in ((None, ["ps-table-missing"]),
+                      (7, ["ps-table-geometry"]), (8, [])):
+        for mod in (jps, tps):
+            mod.drop_table("emb_table")
+            if dim is not None:
+                mod.create_table("emb_table", shape=(10, dim))
+        got = tan.verify_pair(progs[tfluid])
+        assert [f.check for f in got] == want
+        assert _key(got) == _key(jan.verify_pair(progs[jfluid]))
+    for mod in (jps, tps):
+        mod.drop_table("emb_table")
     assert tan.check_ps_geometry(tfluid.Program()) == []
 
 

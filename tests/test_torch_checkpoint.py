@@ -905,7 +905,9 @@ def test_save_dygraph_files_match_byte_for_byte(tmp_path):
 def test_sharded_layout_and_ps_tables_raise(tmp_path, monkeypatch):
     # the sharded layout is ported: PADDLE_CKPT_SHARDED with a world size
     # above 1 arms it (tests/test_torch_sharded_checkpoint.py holds it
-    # against the JAX package); parameter-server tables still raise
+    # against the JAX package); parameter-server tables are ported too:
+    # they ride the checkpoint as <table>.pkl, listed in the manifest's
+    # "ps" section, and each package restores the other's
     monkeypatch.setenv("PADDLE_CKPT_SHARDED", "1")
     monkeypatch.setenv("PADDLE_TRAINERS_NUM", "2")
     assert CheckpointManager(str(tmp_path / "sharded")).sharded
@@ -920,8 +922,33 @@ def test_sharded_layout_and_ps_tables_raise(tmp_path, monkeypatch):
     blk.append_op(type="distributed_lookup_table", inputs={"Ids": ["ids"]},
                   outputs={"Outputs": ["emb"]},
                   attrs={"table_names": ["emb_table"]}, infer=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+    from paddle_tpu.distributed import ps as jps
+    from paddle_tpu_torch.distributed import ps as tps
+
+    tabs = {}
+    for mod in (jps, tps):
+        mod.drop_table("emb_table")
+        tabs[mod] = mod.create_table("emb_table", shape=(4, 8), seed=5)
+    try:
+        tabs[tps].push_gradients(np.arange(4), np.ones((4, 8), np.float32))
+        want = tabs[tps].to_dense().copy()
         mgr.save(1, program=prog)
+        assert mgr.manifest(1)["ps"]["tables"] == ["emb_table"]
+        tabs[tps].push_gradients(np.arange(4), np.ones((4, 8), np.float32))
+        assert mgr.restore(program=prog)["step"] == 1
+        np.testing.assert_array_equal(tabs[tps].to_dense(), want)
+        # the JAX package's manager restores the port's table file
+        jmgr = jckpt.CheckpointManager(str(tmp_path))
+        with jfluid.scope_guard(jfluid.Scope()):
+            jmgr.restore(program=prog)
+        np.testing.assert_array_equal(tabs[jps].to_dense(), want)
+    finally:
+        for mod in (jps, tps):
+            mod.drop_table("emb_table")
+    for s in mgr.steps():
+        import shutil
+
+        shutil.rmtree(mgr._dir(s))
     assert mgr.steps() == []
     # a world-size mismatch is refused, never resharded
     mgr.save(2)

@@ -22,8 +22,8 @@ JAX package's startup scope copied in (``Scope.from_numpy``).
   holding rank 0's parameters; ``fleet.metrics`` at 2 ranks against the
   JAX package's functions on the combined values.
 * Refusals: every unported strategy field and mesh axis raises naming
-  its queue item, as do the parameter-server roles; a mesh whose size is
-  not the world size raises.  (Tensor and pipeline parallelism are held
+  its queue item; a mesh whose size is not the world size raises.  The
+  parameter-server roles, bare, behave as the JAX package's.  (Tensor and pipeline parallelism are held
   in test_torch_tensor_parallel.py and test_torch_pipeline.py; lamb,
   lars, recompute and gradient merge, refused until the training-breadth
   slice, in test_torch_fleet_breadth.py and test_torch_meta_optimizers.py.)
@@ -321,11 +321,31 @@ def test_unported_mesh_axes_raise(axes, where):
 @pytest.mark.parametrize("name", ["init_worker", "init_server", "run_server",
                                   "stop_worker", "membership",
                                   "ps_snapshot_manifest", "ps_stats"])
-def test_ps_roles_raise(name):
+def test_ps_roles_raise(name, monkeypatch):
+    """The parameter-server roles are ported (their lifecycle is held in
+    tests/test_torch_ps_dist.py): called bare in a process with no
+    launcher environment, each returns what the JAX package's returns or
+    raises the same exception type (run_server without PADDLE_PORT,
+    ps_snapshot_manifest without a directory, ps_stats of an unknown
+    table)."""
     from paddle_tpu_torch import fleet
 
-    with pytest.raises(NotImplementedError, match="A6"):
-        getattr(fleet, name)()
+    for var in ("PADDLE_PORT", "PADDLE_COORDINATOR_ENDPOINT",
+                "PADDLE_TRAINERS_NUM", "PADDLE_HEARTBEAT_DIR"):
+        monkeypatch.delenv(var, raising=False)
+    args = ("no_such_table",) if name == "ps_stats" else ()
+
+    def outcome(fn):
+        try:
+            return "value", fn(*args)
+        except Exception as e:  # noqa: BLE001 — compared across packages
+            return "raises", type(e).__name__
+
+    got = outcome(getattr(fleet, name))
+    assert got == outcome(getattr(jfleet, name))
+    assert got[0] == ("raises" if name in ("run_server",
+                                           "ps_snapshot_manifest",
+                                           "ps_stats") else "value")
 
 
 def test_mesh_must_cover_the_world():

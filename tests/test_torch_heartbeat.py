@@ -206,3 +206,40 @@ def test_start_heartbeat_renews_a_lease(tmp_path, monkeypatch):
 def test_straggler_monitor_raises_naming_a8(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         thb.StragglerMonitor(str(tmp_path), [0, 1])
+
+
+def test_exiting_stamp_gets_the_startup_grace_not_the_timeout(tmp_path):
+    """A clean exit's last stamp says ``exiting``: the rank is in its
+    interpreter's teardown (torch's takes ~0.7 s, seconds on a loaded
+    host) and is flagged only once the startup grace has passed since
+    that stamp.  The same stamp without the mark is a hang."""
+    mon = thb.HeartBeatMonitor(str(tmp_path), [0, 1], timeout=1.0,
+                               startup_grace=10.0)
+    now = time.time()
+    _stamp(tmp_path, 0, mtime=now - 3.0, payload={"exiting": True})
+    _stamp(tmp_path, 1, mtime=now - 3.0)
+    mon._t0 = now - 5.0
+    assert mon.stale_ranks(now=now) == [1]
+    assert mon.stale_ranks(now=now + 8.0) == [0, 1]
+
+
+def test_clean_exit_writes_an_exiting_stamp_and_stop_does_not(tmp_path):
+    """The worker's atexit hook writes the ``exiting`` stamp; a worker
+    stopped on purpose (a rank that goes silent) writes none."""
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    body = ("import sys\n"
+            "from paddle_tpu_torch.distributed.heartbeat import "
+            "HeartBeatWorker\n"
+            "w = HeartBeatWorker(sys.argv[1], int(sys.argv[2]), 0.05)"
+            ".start()\n"
+            "if sys.argv[2] == '1':\n"
+            "    w.stop()\n")
+    for rank in (0, 1):
+        subprocess.run([sys.executable, "-c", body, str(tmp_path),
+                        str(rank)], check=True, timeout=60,
+                       env=dict(os.environ, PYTHONPATH=repo))
+    assert thb.read_stamp(str(tmp_path), 0).get("exiting") is True
+    assert "exiting" not in thb.read_stamp(str(tmp_path), 1)

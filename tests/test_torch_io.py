@@ -518,14 +518,57 @@ REFUSED = {
     "save_persistables_ps": lambda d: tio.save_persistables(
         None, d, main_program=_ps_program()),
     "load_persistables_ps": lambda d: tio.load_persistables(
-        None, d, main_program=_ps_program()),
+        tfluid.Executor(device="cpu"), d, main_program=_ps_program()),
     "save_ps_tables": lambda d: tio._save_ps_tables(d, _ps_program()),
     "load_ps_tables": lambda d: tio._load_ps_tables(d, _ps_program()),
 }
 
 
+def _ps_paths_as_the_jax_package(tmp_path, name):
+    """The PS-table riders are ported: with ``emb_table`` registered in
+    both packages and 4 pushes applied, the port's save writes the JAX
+    package's ``emb_table.pkl``, each package loads the other's, and a
+    load from a directory without it raises as the JAX package's does."""
+    from paddle_tpu.distributed import ps as jps
+    from paddle_tpu.fluid import io as jio
+    from paddle_tpu_torch.distributed import ps as tps
+
+    d = str(tmp_path / "x")
+    os.makedirs(d)
+    tabs = {}
+    for mod in (jps, tps):
+        mod.drop_table("emb_table")
+        tabs[mod] = mod.create_table("emb_table", shape=(4, 8), seed=3)
+    try:
+        for t in tabs.values():
+            t.push_gradients(np.arange(4), np.ones((4, 8), np.float32))
+        if name.startswith("load"):
+            with pytest.raises(RuntimeError, match="missing PS table"):
+                REFUSED[name](d)
+            jio._save_ps_tables(d, _ps_program())
+            tabs[tps].push_gradients(np.arange(4), np.ones((4, 8),
+                                                           np.float32))
+            with tfluid.scope_guard(tfluid.Scope()):
+                REFUSED[name](d)
+        else:
+            with tfluid.scope_guard(tfluid.Scope()):
+                REFUSED[name](d)
+            tabs[jps].push_gradients(np.arange(4), np.ones((4, 8),
+                                                           np.float32))
+            jio._load_ps_tables(d, _ps_program())
+        np.testing.assert_array_equal(tabs[tps].to_dense(),
+                                      tabs[jps].to_dense())
+        assert os.path.exists(os.path.join(d, "emb_table.pkl"))
+    finally:
+        for mod in (jps, tps):
+            mod.drop_table("emb_table")
+
+
 @pytest.mark.parametrize("name", sorted(REFUSED))
 def test_unported_save_paths_raise(tmp_path, name):
+    if "ps" in name:
+        _ps_paths_as_the_jax_package(tmp_path, name)
+        return
     with pytest.raises(NotImplementedError, match=r"ROADMAP A[56]"):
         REFUSED[name](str(tmp_path / "x"))
     assert not os.path.exists(tmp_path / "x")

@@ -5,7 +5,8 @@ the file-based predictor and the server's command line included); the
 CUDA wrapper's input checks refuse what the kernel does not take;
 ``init_parallel_env`` picks NCCL for a CUDA device and gloo only for the
 CPU or when named, and never falls back; the launcher and the ranks it
-starts import neither jax nor paddle_tpu."""
+starts import neither jax nor paddle_tpu, and a pserver it starts sees
+no card."""
 from __future__ import annotations
 
 import os
@@ -95,7 +96,10 @@ for n in ("fluid", "fluid.layers", "fluid.executor", "fluid.framework",
           "hapi.metrics", "parallel", "parallel.env",
           "parallel.ring_attention", "distributed", "ops.collective_ops",
           "fleet", "fleet.base.distributed_strategy",
-          "fleet.base.role_maker", "fleet.metrics"):
+          "fleet.base.role_maker", "fleet.metrics", "distributed.ps",
+          "distributed.launch", "distributed.heartbeat",
+          "distributed.coordinator", "ops.ps_ops", "fluid.layers.sequence",
+          "fluid.transpiler"):
     assert "paddle_tpu_torch." + n in names, n
 """
 
@@ -601,3 +605,29 @@ def test_the_launcher_and_its_children_import_no_jax(tmp_path):
     assert r.returncode == 0, r.stdout + r.stderr + logs
     assert "LAUNCHER 0 []" in r.stdout
     assert (tmp_path / "ok.0").exists() and (tmp_path / "ok.1").exists()
+
+
+def test_a_launched_pserver_sees_no_card_and_imports_no_jax():
+    """A pserver the launcher starts (``python -m paddle_tpu_torch.
+    distributed.ps_server``) holds its tables in host memory: it runs
+    with CUDA_VISIBLE_DEVICES empty, maps no CUDA driver and no jax
+    library, and answers on the port it reported."""
+    from paddle_tpu_torch.distributed import launch as tlaunch
+    from paddle_tpu_torch.distributed import ps_server
+
+    pservers, eps = tlaunch.start_pservers(1, "", "127.0.0.1")
+    try:
+        (p,) = pservers
+        assert eps == [f"127.0.0.1:{p.port}"]
+        assert ps_server._Conn(eps[0], deadline=10.0).call("ping") == "pong"
+        with open(f"/proc/{p.proc.pid}/environ", "rb") as f:
+            env = dict(kv.split(b"=", 1) for kv in f.read().split(b"\0")
+                       if b"=" in kv)
+        assert env[b"CUDA_VISIBLE_DEVICES"] == b""
+        assert env[b"PADDLE_TRAINING_ROLE"] == b"PSERVER"
+        with open(f"/proc/{p.proc.pid}/maps") as f:
+            maps = f.read()
+        for lib in ("libcuda.so", "jaxlib", "xla_extension"):
+            assert lib not in maps, lib
+    finally:
+        tlaunch.terminate_pservers(pservers)

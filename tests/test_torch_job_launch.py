@@ -92,6 +92,21 @@ SCRIPTS = {
         start_heartbeat(interval=0.2)
         time.sleep(1 if os.environ["PADDLE_TRAINER_ID"] == "0" else 6)
         """,
+    "slow_exit": """
+        import os, sys, time
+        from paddle_tpu_torch.distributed.heartbeat import start_heartbeat
+        start_heartbeat(interval=0.2)
+
+        class _SlowTeardown:
+            # runs while the interpreter clears __main__, after the
+            # stamping thread has stopped: a teardown 1 s longer than
+            # the heartbeat timeout, as a loaded host gives torch's
+            def __del__(self, _sleep=time.sleep):
+                _sleep(3.0)
+
+        _keep = _SlowTeardown()
+        time.sleep(1 if os.environ["PADDLE_TRAINER_ID"] == "0" else 8)
+        """,
     "evict": """
         import os, sys
         out = sys.argv[1]
@@ -162,6 +177,8 @@ JOBS = {
              "paddle_tpu_torch"),
     "clean_exit": ("clean_exit", 2, ("--heartbeat_timeout", "2.0"),
                    {"hb": True, "leftover": True}, "paddle_tpu_torch"),
+    "slow_exit": ("slow_exit", 2, ("--heartbeat_timeout", "2.0"),
+                  {"hb": True}, "paddle_tpu_torch"),
     "evict": ("evict", 3, ("--elastic_retries_per_rank", "0",
                            "--elastic_retries", "3"), {},
               "paddle_tpu_torch"),
@@ -295,6 +312,15 @@ def test_launch_heartbeat_ignores_clean_exit_and_stale_leftovers(jobs):
     assert job.wait() == 0, job.stderr
 
 
+def test_launch_heartbeat_ignores_a_slow_teardown_after_a_clean_exit(jobs):
+    """Rank 0 exits 0 and its interpreter then takes 3 s to tear down
+    with the stamps stopped; the monitor reads its ``exiting`` stamp
+    and does not call it hung."""
+    job = jobs["slow_exit"]
+    assert job.wait() == 0, job.stderr
+    assert "stopped heartbeating" not in job.stderr
+
+
 def test_launch_per_rank_budget_evicts_and_resizes(jobs):
     job = jobs["evict"]
     assert job.wait() == 0, job.stderr
@@ -364,28 +390,25 @@ def test_launch_hosts_a_durable_coordinator_process(jobs):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--server_num", "2"], "PS half of ROADMAP A6"),
-    (["--servers", "127.0.0.1:6001"], "PS half of ROADMAP A6"),
-    (["--ps_replication", "2"], "PS half of ROADMAP A6"),
-    (["--serve"], "PS half of ROADMAP A6"),
+    (["--serve"], "serving under the launcher"),
     (["--fleetz_port", "0"], "ROADMAP A8"),
     (["--debugz_port", "0"], "ROADMAP A8"),
     (["--trace_dir", "t"], "ROADMAP A8"),
     (["--straggler_factor", "3"], "ROADMAP A8"),
     (["--straggler_eject_factor", "3"], "ROADMAP A8"),
-], ids=["server_num", "servers", "ps_replication", "serve", "fleetz_port",
-        "debugz_port", "trace_dir", "straggler_factor",
-        "straggler_eject_factor"])
+], ids=["serve", "fleetz_port", "debugz_port", "trace_dir",
+        "straggler_factor", "straggler_eject_factor"])
 def test_refused_flags_name_their_roadmap_item(argv, item):
+    # the pserver flags are ported (tests/test_torch_ps_dist.py,
+    # test_torch_ps_replication.py); --serve waits for the next A6 item
     with pytest.raises(NotImplementedError, match=item):
         tlaunch.launch(argv + ["worker.py"])
 
 
-@pytest.mark.parametrize("var", ["PADDLE_PSERVERS_IP_PORT_LIST",
-                                 "PADDLE_GOODPUT"])
+@pytest.mark.parametrize("var", ["PADDLE_GOODPUT"])
 def test_refused_environment_names_its_roadmap_item(var, monkeypatch):
-    monkeypatch.setenv(var, "127.0.0.1:6001" if "PSERVERS" in var else "1")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A[68]"):
+    monkeypatch.setenv(var, "1")
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A8"):
         tlaunch.launch(["worker.py"])
 
 

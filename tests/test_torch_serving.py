@@ -732,9 +732,10 @@ def test_serve_refuses_unported_environment(tiny_frozen, monkeypatch, env):
 
 
 # lease_expire and netsplit are ported with the coordinator
-# (tests/test_torch_coordinator.py); bitflip and oom still have no call
-# site in the port
-@pytest.mark.parametrize("spec", ["oom:run:1", "bitflip:push_grad:1"])
+# (tests/test_torch_coordinator.py) and bitflip with the parameter
+# server (tests/test_torch_ps_faults.py); oom still has no call site in
+# the port
+@pytest.mark.parametrize("spec", ["oom:run:1"])
 def test_fault_spec_naming_an_unported_rule_raises(spec, inject):
     with pytest.raises(NotImplementedError, match="is not ported"):
         faults.parse_spec(spec)
