@@ -67,9 +67,12 @@ prints no result):
                function
   emitters     the emitters repaired against the JAX package (take's
                fill mode in gather and lookup_table_v2, cast's saturation,
-               sign, scale, narrow-int sums, the int mean) on the card
-               against the CPU, ids past the end included (NaN rows, no
-               device assert), and the lookup's gradient; the eight
+               sign, scale, narrow-int sums, the int mean; ROADMAP C1-C5:
+               zero divisors of floats, ints and uint8, two bools,
+               matmul's alpha in Out's dtype, bool and int8 products) on
+               the card against the CPU, bit for bit, ids past the end
+               included (NaN rows, no device assert), and the lookup's
+               gradient; the eight
                training-breadth update ops, where, the comparisons and
                the elementwise min / max / mod / floordiv, card against
                CPU within 1e-6 of each tensor's largest element
@@ -349,10 +352,36 @@ prints no result):
                one process start before the gloo spawn and are joined
                after it; each job's and each gloo line's
                ``concurrent_with`` name what ran beside it
+  serve_launch a serving fleet under the port's launcher, beside the gloo
+               spawn: ``python -m paddle_tpu_torch.distributed.launch
+               --serve --nproc_per_node 2 --elastic_retries 2 --lease_secs
+               5 --heartbeat_timeout 10 --serve_kv_cache 1
+               --serve_kv_pages 64 --servers (two loopback ports)
+               --ps_replication 2`` over the serve phase's BERT-base f32
+               export (--max_batch 8), each replica with a 2-layer decoder
+               of head_dim 64 (row 1); two BERT-base parameter sets (v1, v2: the export's
+               program at seeds 1 and 2, 418 MB of f32 rows) published
+               into the job's replicated weight table: both replicas adopt
+               v1 bit for bit an in-process oracle's replies (else within
+               BERT_PARITY_LIMIT, and the line says which held); four
+               client threads stream the serve phase's requests, replica
+               0 is SIGKILLed mid-stream: no request error, the
+               survivor's uptime spans the kill, the respawn re-adopts v1
+               and answers bit for bit like the survivor; v2 published
+               mid-stream moves each replica's fence once; generate
+               against the in-process engine, the pools' pages, the
+               coordinator's members, fresh heartbeat stamps; SIGTERM
+               drains the job to exit 0.  Numbers: launch and publish
+               seconds, publish to each replica's first reply at v2, the
+               wire bytes of a full fetch and of a steady poll, kill to
+               detected / respawned / listening / re-adopted, client p50
+               / p99, the replies at the export's weights before the
+               respawn's first adoption, the wall time
 
 A dist phase's ranks are ``python3 chip_smoke.py --dist-child ...``
 processes (dist_elastic's, ``--elastic-child`` processes under the
-port's launcher; ps_train's, ``--ps-child``); one that fails or outlives its deadline fails the
+port's launcher; ps_train's, ``--ps-child``; serve_launch's child,
+``--serve-launch-child``); one that fails or outlives its deadline fails the
 phase, the others killed first.  The line before the last is the kernels summary; the last line is
 ``{"ok": true, "device": {...}}``.  Needs one CUDA card; without one it
 exits 2.  Weights and inputs are random from fixed seeds.
@@ -360,6 +389,7 @@ exits 2.  Weights and inputs are random from fixed seeds.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import dataclasses
 import hashlib
@@ -436,6 +466,10 @@ def fail(msg: str) -> None:
 # L2-flushed calls a kernel timing takes its median over (40 through
 # PR 19's script; 20 leave the script room for the parameter-server jobs)
 KERNEL_REPS = 20
+# and a plain version's, after one warm call: its time is no yardstick,
+# and the script's time is nearly spent (every hold of a kernel against
+# its plain version is kept)
+PLAIN_REPS = 3
 
 
 def time_cold_ms(torch, fn, flush, reps: int = KERNEL_REPS,
@@ -627,8 +661,8 @@ def _timed(torch, flush, kernel_fn, plain_fn, library_fn, *, nbytes,
     none = {"median": None, "min": None, "max": None, "hold_ms": None,
             "enqueue_ms_max": None, "held": None}
     ker_t = time_cold_ms(torch, kernel_fn, flush)
-    plain_t = none if plain_fn is None else time_cold_ms(torch, plain_fn,
-                                                         flush)
+    plain_t = none if plain_fn is None else time_cold_ms(
+        torch, plain_fn, flush, reps=PLAIN_REPS, warm=1)
     lib_t = time_cold_ms(torch, library_fn, flush)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak_flops * 1e3
@@ -651,9 +685,10 @@ def _timed(torch, flush, kernel_fn, plain_fn, library_fn, *, nbytes,
                                "library": lib_t["enqueue_ms_max"]},
             "held": {"kernel": ker_t["held"], "plain": plain_t["held"],
                      "library": lib_t["held"]},
-            "timing": f"CUDA events, median of {KERNEL_REPS} calls, L2 flushed and "
-                      "the stream held by a spin kernel before each, so "
-                      "the window is device time"}
+            "timing": f"CUDA events, median of {KERNEL_REPS} calls "
+                      f"({PLAIN_REPS} for the plain version), L2 flushed "
+                      "and the stream held by a spin kernel before each, "
+                      "so the window is device time"}
 
 
 def _check(name, ker, ref, atol, rtol=0.0) -> dict:
@@ -2705,8 +2740,9 @@ def phase_decode_sync(torch, cfg, model) -> dict:
 def phase_emitters(torch) -> dict:
     """The emitters repaired against the JAX package's (take's fill mode,
     cast's saturation, sign's NaN and -0.0, scale's integer bias, the
-    narrow-int sums, the int mean) on the card against the same emitters
-    on the CPU, bit for bit and dtype for dtype; gather and
+    narrow-int sums, the int mean; C1-C5's zero divisors, bool operands,
+    matmul's alpha and bool products) on the card against the same
+    emitters on the CPU, bit for bit and dtype for dtype; gather and
     lookup_table_v2 with ids past the end give NaN rows, and no device
     assert; the lookup's gradient through them is zero."""
     from paddle_tpu_torch.ops import registry as reg
@@ -2739,6 +2775,7 @@ def phase_emitters(torch) -> dict:
             "X": np.full((2, 300), 255, np.uint8)}, {"dim": [1]}),
         "mean_int": ("mean", {"X": np.array([[1, 2], [3, 4]], np.int32)},
                      {}),
+        **_emitters_c1_c5(torch),
     }
     results = {}
     for name, (op, ins, attrs) in cases.items():
@@ -2780,6 +2817,58 @@ def phase_emitters(torch) -> dict:
            "training_breadth": _emitters_training_breadth(torch)}
     emit(out)
     return out
+
+
+def _emitters_c1_c5(torch) -> dict:
+    """ROADMAP C1-C5's cases (tests/test_torch_framework.py EDGE): zero
+    divisors of floats, ints and uint8, two bools, matmul's alpha in
+    Out's dtype, bool and int8 products, written out explicitly so that
+    the card gives the CPU's (the JAX package's) values."""
+    i32 = np.array([5, -5, 0, 7], np.int32)
+    by0 = np.array([0, 0, 0, 2], np.int32)
+    rng = np.random.default_rng(21)
+    bf = lambda a: torch.as_tensor(a).to(torch.bfloat16)  # noqa: E731
+    cases = {
+        "c1_floordiv_f32_by_zero": ("elementwise_floordiv", {
+            "X": np.array([5, -5, 0, np.inf, 3], np.float32),
+            "Y": np.array([0, -0.0, 0, 0, 2], np.float32)}, {}),
+        "c1_floordiv_bf16_by_zero": ("elementwise_floordiv", {
+            "X": bf(np.array([5, -5, 0, 3], np.float32)),
+            "Y": bf(np.array([0, 0, 0, 2], np.float32))}, {}),
+        "c3_mod_bool": ("elementwise_mod", {
+            "X": np.array([True, False, True, True]),
+            "Y": np.array([True, True, False, True])}, {}),
+        "c3_floordiv_bool": ("elementwise_floordiv", {
+            "X": np.array([True, False, True, True]),
+            "Y": np.array([True, True, False, True])}, {}),
+        "c4_matmul_int_alpha": ("matmul", {
+            "X": np.arange(6, dtype=np.int32).reshape(2, 3),
+            "Y": np.arange(6, dtype=np.int32).reshape(3, 2) - 2},
+            {"alpha": 0.5}),
+        "c4_matmul_bf16_alpha": ("matmul", {
+            "X": bf(rng.integers(-3, 4, (4, 8, 64)).astype(np.float32)),
+            "Y": bf(rng.integers(-3, 4, (4, 64, 8)).astype(np.float32))},
+            {"alpha": 0.3}),
+        "c5_matmul_bool": ("matmul", {"X": np.ones((2, 3), bool),
+                                      "Y": np.ones((3, 2), bool)}, {}),
+        "c5_mul_bool": ("mul", {
+            "X": np.array([[True, False], [False, True]]),
+            "Y": np.array([[False, True, True], [True, False, True]])}, {}),
+        "c5_mul_int8_wraps": ("mul", {"X": np.full((2, 64), 5, np.int8),
+                                      "Y": np.full((64, 3), 3, np.int8)},
+                              {}),
+    }
+    for t in ("int32", "int8", "uint8"):
+        x = i32.astype(t) if t != "uint8" else np.array([5, 0, 255, 7],
+                                                        np.uint8)
+        for op in ("mod", "floordiv"):
+            cases[f"c2_{op}_{t}_by_zero"] = (
+                f"elementwise_{op}", {"X": x, "Y": by0.astype(t)}, {})
+    for op in ("mod", "floordiv"):   # uint8's 255 is no -1
+        cases[f"c2_{op}_uint8_by_255"] = (f"elementwise_{op}", {
+            "X": np.array([5, 254, 255], np.uint8),
+            "Y": np.array([255, 255, 255], np.uint8)}, {})
+    return cases
 
 
 def _emitters_training_breadth(torch) -> dict:
@@ -3200,12 +3289,11 @@ def _serve_cli_replica(model_dir: str, reqs: list, fetch: list) -> dict:
             "num_ops": info["num_ops"]}
 
 
-def phase_serve(torch, card: str, dec_cfg) -> dict:
-    """The RPC replica: a BERT-base export served by the CLI replica and
-    by an in-process replica that also answers generate, every reply held
-    against the direct predictor or engine, the kernels' launches exact."""
-    import shutil
-    import tempfile
+def phase_serve(torch, card: str, dec_cfg, model_dir: str) -> dict:
+    """The RPC replica: a BERT-base export (saved into ``model_dir``, kept
+    for serve_launch) served by the CLI replica and by an in-process
+    replica that also answers generate, every reply held against the
+    direct predictor or engine, the kernels' launches exact."""
     import threading
 
     from paddle_tpu_torch.distributed.ps_server import _Conn
@@ -3219,238 +3307,234 @@ def phase_serve(torch, card: str, dec_cfg) -> dict:
     from paddle_tpu_torch.telemetry import get_registry
 
     reg = get_registry()
-    model_dir = tempfile.mkdtemp(prefix="serve_bert_")
-    try:
-        cfg, fetch, save_s = _serve_save_bert(model_dir)
-        disk_mb = sum(os.path.getsize(os.path.join(model_dir, f))
-                      for f in os.listdir(model_dir)) / 2 ** 20
-        reqs = _serve_requests(cfg, 32, seed=0)
-        ref = ServingPredictor(load_frozen(model_dir))
-        ref.run(_pad_rows(reqs[0], SERVE_MAX_BATCH))   # warm
-        direct, direct_ms = [], []
-        for feed in reqs:
-            t = time.perf_counter()
-            outs = ref.run(_pad_rows(feed, SERVE_MAX_BATCH))
-            direct_ms.append((time.perf_counter() - t) * 1e3)
-            direct.append([o[:len(feed["input_ids"])] for o in outs])
+    cfg, fetch, save_s = _serve_save_bert(model_dir)
+    disk_mb = sum(os.path.getsize(os.path.join(model_dir, f))
+                  for f in os.listdir(model_dir)) / 2 ** 20
+    reqs = _serve_requests(cfg, 32, seed=0)
+    ref = ServingPredictor(load_frozen(model_dir))
+    ref.run(_pad_rows(reqs[0], SERVE_MAX_BATCH))   # warm
+    direct, direct_ms = [], []
+    for feed in reqs:
+        t = time.perf_counter()
+        outs = ref.run(_pad_rows(feed, SERVE_MAX_BATCH))
+        direct_ms.append((time.perf_counter() - t) * 1e3)
+        direct.append([o[:len(feed["input_ids"])] for o in outs])
 
-        cli_rep = _serve_cli_replica(model_dir, reqs[:8], fetch)
-        cli_diff = _serve_diff(cli_rep["outputs"], direct[:8])
-        if not cli_diff <= SERVE_LIMIT:
-            fail(f"the CLI replica's infer replies differ from the direct "
-                 f"predictor by {cli_diff} > {SERVE_LIMIT}")
+    cli_rep = _serve_cli_replica(model_dir, reqs[:8], fetch)
+    cli_diff = _serve_diff(cli_rep["outputs"], direct[:8])
+    if not cli_diff <= SERVE_LIMIT:
+        fail(f"the CLI replica's infer replies differ from the direct "
+             f"predictor by {cli_diff} > {SERVE_LIMIT}")
 
-        # the direct engine run: the same seed-0 decoder and 8 greedy
-        # requests submitted in order
-        prompts = _engine_traffic(np.random.default_rng(0), dec_cfg.vocab)
-        new_tokens = 64
-        model = TinyDecoderLM(dec_cfg, seed=0)       # device=None: the card
-        geom = dict(max_slots=8, page_size=16, n_pages=513)
-        # warm cuBLAS at these prompts' prefill shapes on a throwaway
-        # engine, so neither measured run pays a cold start
-        eng = GenerationEngine(model, **geom)
-        for r in [eng.submit(p, max_new_tokens=2) for p in prompts]:
-            eng.result(r, timeout=900)
-        eng.stop()
-        step_h = reg.histogram("serve_decode_step_ms")
-        h0 = step_h.sum
-        eng = GenerationEngine(model, **geom)
-        t0 = time.perf_counter()
-        dreqs = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts]
-        dreps = [eng.result(r, timeout=900) for r in dreqs]
-        direct_gen_s = time.perf_counter() - t0
-        dc = dict(eng.counters)
-        eng.stop()
-        direct_step_ms = step_h.sum - h0
+    # the direct engine run: the same seed-0 decoder and 8 greedy
+    # requests submitted in order
+    prompts = _engine_traffic(np.random.default_rng(0), dec_cfg.vocab)
+    new_tokens = 64
+    model = TinyDecoderLM(dec_cfg, seed=0)       # device=None: the card
+    geom = dict(max_slots=8, page_size=16, n_pages=513)
+    # warm cuBLAS at these prompts' prefill shapes on a throwaway
+    # engine, so neither measured run pays a cold start
+    eng = GenerationEngine(model, **geom)
+    for r in [eng.submit(p, max_new_tokens=2) for p in prompts]:
+        eng.result(r, timeout=900)
+    eng.stop()
+    step_h = reg.histogram("serve_decode_step_ms")
+    h0 = step_h.sum
+    eng = GenerationEngine(model, **geom)
+    t0 = time.perf_counter()
+    dreqs = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts]
+    dreps = [eng.result(r, timeout=900) for r in dreqs]
+    direct_gen_s = time.perf_counter() - t0
+    dc = dict(eng.counters)
+    eng.stop()
+    direct_step_ms = step_h.sum - h0
 
-        # the in-process replica: both paths, counters set to 0 just
-        # before it is driven
-        frozen = load_frozen(model_dir)
-        eng = GenerationEngine(model, **geom)
-        order = []
-        submit = eng.submit
+    # the in-process replica: both paths, counters set to 0 just
+    # before it is driven
+    frozen = load_frozen(model_dir)
+    eng = GenerationEngine(model, **geom)
+    order = []
+    submit = eng.submit
 
-        def submit_in_order(*a, **kw):
-            req = submit(*a, **kw)
-            order.append(req)
-            return req
+    def submit_in_order(*a, **kw):
+        req = submit(*a, **kw)
+        order.append(req)
+        return req
 
-        eng.submit = submit_in_order
-        ready = threading.Event()
-        addr = {}
+    eng.submit = submit_in_order
+    ready = threading.Event()
+    addr = {}
 
-        def on_ready(a):
-            addr["ep"] = f"127.0.0.1:{a[1]}"
+    def on_ready(a):
+        addr["ep"] = f"127.0.0.1:{a[1]}"
+        ready.set()
+
+    serve_err = []
+
+    def run_server():
+        try:
+            srv_mod.serve(frozen, port=0, host="127.0.0.1",
+                          ready_cb=on_ready, max_batch=SERVE_MAX_BATCH,
+                          engine=eng)
+        except BaseException as e:  # noqa: BLE001 — reported below
+            serve_err.append(f"{type(e).__name__}: {e}")
             ready.set()
 
-        serve_err = []
+    server = threading.Thread(target=run_server, daemon=True)
+    server.start()
+    if not ready.wait(300) or serve_err:
+        fail(f"the in-process replica did not start: {serve_err}")
+    ep = addr["ep"]
+    inf = srv_mod._ACTIVE
+    batch_ms = []
+    run = inf.predictor.run
 
-        def run_server():
+    def timed_run(feed):
+        t = time.perf_counter()
+        try:
+            return run(feed)
+        finally:
+            batch_ms.append((time.perf_counter() - t) * 1e3)
+
+    inf.predictor.run = timed_run
+    torch.cuda.synchronize()
+    b0 = reg.counter("serve_batches_total").value
+    r0 = reg.counter("serve_batch_rows_total").value
+    fa.flash_attention_bsh.launches = 0
+    fa.flash_attention_bsh.launches_tc = 0
+    add_ln.fused_add_ln.launches = 0
+    pa.paged_attention.launches = 0
+
+    errors = []
+
+    def infer_threads(idx, n_threads=4):
+        """Threads sending reqs[i] for i in idx from n_threads
+        clients; (threads, {i: outputs}, {i: client ms})."""
+        outs, ms = {}, {}
+
+        def worker(part):
+            c = InferenceClient([ep], deadline_secs=300)
             try:
-                srv_mod.serve(frozen, port=0, host="127.0.0.1",
-                              ready_cb=on_ready, max_batch=SERVE_MAX_BATCH,
-                              engine=eng)
-            except BaseException as e:  # noqa: BLE001 — reported below
-                serve_err.append(f"{type(e).__name__}: {e}")
-                ready.set()
-
-        server = threading.Thread(target=run_server, daemon=True)
-        server.start()
-        if not ready.wait(300) or serve_err:
-            fail(f"the in-process replica did not start: {serve_err}")
-        ep = addr["ep"]
-        inf = srv_mod._ACTIVE
-        batch_ms = []
-        run = inf.predictor.run
-
-        def timed_run(feed):
-            t = time.perf_counter()
-            try:
-                return run(feed)
-            finally:
-                batch_ms.append((time.perf_counter() - t) * 1e3)
-
-        inf.predictor.run = timed_run
-        torch.cuda.synchronize()
-        b0 = reg.counter("serve_batches_total").value
-        r0 = reg.counter("serve_batch_rows_total").value
-        fa.flash_attention_bsh.launches = 0
-        fa.flash_attention_bsh.launches_tc = 0
-        add_ln.fused_add_ln.launches = 0
-        pa.paged_attention.launches = 0
-
-        errors = []
-
-        def infer_threads(idx, n_threads=4):
-            """Threads sending reqs[i] for i in idx from n_threads
-            clients; (threads, {i: outputs}, {i: client ms})."""
-            outs, ms = {}, {}
-
-            def worker(part):
-                c = InferenceClient([ep], deadline_secs=300)
-                try:
-                    for i in part:
-                        t1 = time.perf_counter()
-                        res = c.infer(reqs[i], deadline_ms=300000)
-                        ms[i] = (time.perf_counter() - t1) * 1e3
-                        outs[i] = res.outputs
-                except BaseException as e:  # noqa: BLE001
-                    errors.append(f"infer: {type(e).__name__}: {e}")
-                finally:
-                    c.close()
-
-            return ([threading.Thread(target=worker,
-                                      args=(idx[t::n_threads],))
-                     for t in range(n_threads)], outs, ms)
-
-        def gen_worker(i, n_new, out):
-            c = InferenceClient([ep], deadline_secs=600)
-            try:
-                if i % 2:
-                    timings, toks = {}, []
-                    for chunk in c.generate_stream(
-                            prompts[i], max_new_tokens=n_new,
-                            timings=timings):
-                        toks.extend(chunk)
-                    out[i] = {"tokens": toks, "stream": True,
-                              "ttft_ms_client": timings["ttft_ms"]}
-                else:
-                    res = c.generate(prompts[i], max_new_tokens=n_new)
-                    out[i] = {"tokens": res.tokens, "stream": False,
-                              "ttft_ms": res.ttft_ms}
+                for i in part:
+                    t1 = time.perf_counter()
+                    res = c.infer(reqs[i], deadline_ms=300000)
+                    ms[i] = (time.perf_counter() - t1) * 1e3
+                    outs[i] = res.outputs
             except BaseException as e:  # noqa: BLE001
-                errors.append(f"generate {i}: {type(e).__name__}: {e}")
+                errors.append(f"infer: {type(e).__name__}: {e}")
             finally:
                 c.close()
 
-        def window(name, idx, gen_idx=(), n_new=new_tokens):
-            """Drive reqs[idx] and, submitted in order after them, the
-            generate requests gen_idx; returns the window's record."""
-            nb0 = len(batch_ms)
-            b1 = reg.counter("serve_batches_total").value
-            r1 = reg.counter("serve_batch_rows_total").value
-            s1, d1 = step_h.sum, eng.counters["decode_positions"]
-            threads, outs, ms = infer_threads(list(idx))
-            gen_out, n_order = {}, len(order)
-            t0 = time.perf_counter()
-            for th in threads:
-                th.start()
-            # one thread submits the generate requests in order: each
-            # next one only after the engine took the last
-            for k, i in enumerate(gen_idx):
-                th = threading.Thread(target=gen_worker,
-                                      args=(i, n_new, gen_out))
-                th.start()
-                threads.append(th)
-                limit = time.monotonic() + 60
-                while len(order) <= n_order + k and not errors \
-                        and time.monotonic() < limit:
-                    time.sleep(0.0005)
-                if len(order) <= n_order + k:
-                    fail(f"generate request {i} never reached the "
-                         f"engine: {errors}")
-            done = sum(r.event.is_set() for r in order[n_order:])
-            for th in threads:
-                th.join(900)
-            rec = {"window": name, "wall_s": time.perf_counter() - t0,
-                   "infer_requests": len(idx),
-                   "generate_requests": len(gen_idx)}
-            if idx:
-                nb = reg.counter("serve_batches_total").value - b1
-                rec.update(
-                    batches=nb, rows_per_batch=(
-                        reg.counter("serve_batch_rows_total").value - r1)
-                    / max(1, nb),
-                    client_ms=_pcts(list(ms.values())),
-                    serve_batch_ms_exact=_pcts(batch_ms[nb0:]))
-            if gen_idx:
-                rec.update(done_at_last_submit=done,
-                           decode_tokens_per_s=(
-                               eng.counters["decode_positions"] - d1)
-                           / ((step_h.sum - s1) / 1e3))
-            return rec, outs, gen_out
+        return ([threading.Thread(target=worker,
+                                  args=(idx[t::n_threads],))
+                 for t in range(n_threads)], outs, ms)
 
-        # 1: infer alone through the replica; 2: infer beside the 8
-        # generate requests (the run held against the direct engine);
-        # 3: a short mixed replay under torch.profiler
-        alone, alone_out, _ = window("infer_alone", range(len(reqs)))
-        mixed, infer_out, gen_out = window("mixed", range(len(reqs)),
-                                           range(len(prompts)))
-        from torch.profiler import ProfilerActivity, profile
+    def gen_worker(i, n_new, out):
+        c = InferenceClient([ep], deadline_secs=600)
+        try:
+            if i % 2:
+                timings, toks = {}, []
+                for chunk in c.generate_stream(
+                        prompts[i], max_new_tokens=n_new,
+                        timings=timings):
+                    toks.extend(chunk)
+                out[i] = {"tokens": toks, "stream": True,
+                          "ttft_ms_client": timings["ttft_ms"]}
+            else:
+                res = c.generate(prompts[i], max_new_tokens=n_new)
+                out[i] = {"tokens": res.tokens, "stream": False,
+                          "ttft_ms": res.ttft_ms}
+        except BaseException as e:  # noqa: BLE001
+            errors.append(f"generate {i}: {type(e).__name__}: {e}")
+        finally:
+            c.close()
 
+    def window(name, idx, gen_idx=(), n_new=new_tokens):
+        """Drive reqs[idx] and, submitted in order after them, the
+        generate requests gen_idx; returns the window's record."""
+        nb0 = len(batch_ms)
+        b1 = reg.counter("serve_batches_total").value
+        r1 = reg.counter("serve_batch_rows_total").value
+        s1, d1 = step_h.sum, eng.counters["decode_positions"]
+        threads, outs, ms = infer_threads(list(idx))
+        gen_out, n_order = {}, len(order)
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        # one thread submits the generate requests in order: each
+        # next one only after the engine took the last
+        for k, i in enumerate(gen_idx):
+            th = threading.Thread(target=gen_worker,
+                                  args=(i, n_new, gen_out))
+            th.start()
+            threads.append(th)
+            limit = time.monotonic() + 60
+            while len(order) <= n_order + k and not errors \
+                    and time.monotonic() < limit:
+                time.sleep(0.0005)
+            if len(order) <= n_order + k:
+                fail(f"generate request {i} never reached the "
+                     f"engine: {errors}")
+        done = sum(r.event.is_set() for r in order[n_order:])
+        for th in threads:
+            th.join(900)
+        rec = {"window": name, "wall_s": time.perf_counter() - t0,
+               "infer_requests": len(idx),
+               "generate_requests": len(gen_idx)}
+        if idx:
+            nb = reg.counter("serve_batches_total").value - b1
+            rec.update(
+                batches=nb, rows_per_batch=(
+                    reg.counter("serve_batch_rows_total").value - r1)
+                / max(1, nb),
+                client_ms=_pcts(list(ms.values())),
+                serve_batch_ms_exact=_pcts(batch_ms[nb0:]))
+        if gen_idx:
+            rec.update(done_at_last_submit=done,
+                       decode_tokens_per_s=(
+                           eng.counters["decode_positions"] - d1)
+                       / ((step_h.sum - s1) / 1e3))
+        return rec, outs, gen_out
+
+    # 1: infer alone through the replica; 2: infer beside the 8
+    # generate requests (the run held against the direct engine);
+    # 3: a short mixed replay under torch.profiler
+    alone, alone_out, _ = window("infer_alone", range(len(reqs)))
+    mixed, infer_out, gen_out = window("mixed", range(len(reqs)),
+                                       range(len(prompts)))
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prof_rec, prof_out, _ = window("profiled", range(8), range(4),
+                                       n_new=16)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            prof_rec, prof_out, _ = window("profiled", range(8), range(4),
-                                           n_new=16)
-            torch.cuda.synchronize()
-        rows_dev = _device_rows(torch, prof)
-        busy_ms = sum(r[0] for r in rows_dev)
-        prof_rec.update(device_busy_ms=busy_ms, device_idle_share=max(
-            0.0, 1 - busy_ms / (prof_rec["wall_s"] * 1e3)),
-            top_kernels=[{"ms": ms, "calls": n, "name": k[:90]}
-                         for ms, n, k in rows_dev[:10]])
-        torch.cuda.synchronize()
-        launches = {"flash": fa.flash_attention_bsh.launches,
-                    "flash_tc": fa.flash_attention_bsh.launches_tc,
-                    "ln": add_ln.fused_add_ln.launches,
-                    "paged": pa.paged_attention.launches}
-        batches = reg.counter("serve_batches_total").value - b0
-        rows = reg.counter("serve_batch_rows_total").value - r0
-        sc = dict(eng.counters)
-        cli = InferenceClient([ep], deadline_secs=60)
-        stats = cli.stats()
-        health = cli.health()
-        cli.close()
-        ctl = _Conn(ep, deadline=60.0)
-        drained = ctl.call("drain", timeout=60.0)
-        ctl.call("shutdown")
-        ctl.close()
-        server.join(120)
-        if server.is_alive() or serve_err:
-            fail(f"the in-process replica did not shut down: {serve_err}")
-    finally:
-        shutil.rmtree(model_dir, ignore_errors=True)
+    rows_dev = _device_rows(torch, prof)
+    busy_ms = sum(r[0] for r in rows_dev)
+    prof_rec.update(device_busy_ms=busy_ms, device_idle_share=max(
+        0.0, 1 - busy_ms / (prof_rec["wall_s"] * 1e3)),
+        top_kernels=[{"ms": ms, "calls": n, "name": k[:90]}
+                     for ms, n, k in rows_dev[:10]])
+    torch.cuda.synchronize()
+    launches = {"flash": fa.flash_attention_bsh.launches,
+                "flash_tc": fa.flash_attention_bsh.launches_tc,
+                "ln": add_ln.fused_add_ln.launches,
+                "paged": pa.paged_attention.launches}
+    batches = reg.counter("serve_batches_total").value - b0
+    rows = reg.counter("serve_batch_rows_total").value - r0
+    sc = dict(eng.counters)
+    cli = InferenceClient([ep], deadline_secs=60)
+    stats = cli.stats()
+    health = cli.health()
+    cli.close()
+    ctl = _Conn(ep, deadline=60.0)
+    drained = ctl.call("drain", timeout=60.0)
+    ctl.call("shutdown")
+    ctl.close()
+    server.join(120)
+    if server.is_alive() or serve_err:
+        fail(f"the in-process replica did not shut down: {serve_err}")
 
     if errors:
         fail(f"error replies from the in-process replica: {errors[:4]}")
@@ -8857,6 +8941,696 @@ def phase_ps_train(torch, card: str, example: dict, jobs: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# serve_launch: BERT-base replicas under the port's launcher, with live
+# weights from two pservers of the same job
+# ---------------------------------------------------------------------------
+
+# GPT-2 small's published widths: the engine phase's decoder, and the
+# decoder each serve_launch replica attaches (PADDLE_SERVE_GEN_CONFIG)
+GPT2_SMALL = dict(vocab=50257, d_model=768, n_layers=12, n_heads=12,
+                  ffn=3072, max_seq=1024)
+SERVE_LAUNCH = dict(retries=2, lease_secs=5.0, hb_timeout=10.0,
+                    kv_pages=64, poll_secs=0.5, table="serve_bert_w",
+                    seeds=(1, 2), threads=4, before_kill_s=3.0,
+                    after_v2_s=3.0, gen_tokens=16, join_s=600,
+                    device=None)
+
+
+def _free_port_run(n: int) -> int:
+    """A base port with ``n`` free loopback ports from it on."""
+    import socket
+
+    for _ in range(100):
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        base = s.getsockname()[1]
+        s.close()
+        if base + n > 65000:
+            continue
+        socks = []
+        try:
+            for p in range(base, base + n):
+                t = socket.socket()
+                socks.append(t)
+                t.bind(("127.0.0.1", p))
+            return base
+        except OSError:
+            continue
+        finally:
+            for t in socks:
+                t.close()
+    fail("serve_launch: no run of free loopback ports")
+
+
+def _proc_children(pid: int) -> list:
+    out = []
+    try:
+        for task in os.listdir(f"/proc/{pid}/task"):
+            try:
+                with open(f"/proc/{pid}/task/{task}/children") as f:
+                    out += [int(x) for x in f.read().split()]
+            except OSError:
+                pass
+    except OSError:
+        pass
+    return out
+
+
+def _proc_environ(pid: int) -> dict:
+    try:
+        with open(f"/proc/{pid}/environ", "rb") as f:
+            raw = f.read()
+    except OSError:
+        return {}
+    return dict(kv.split("=", 1) for kv in raw.decode(errors="replace")
+                .split("\0") if "=" in kv)
+
+
+def _proc_cmdline(pid: int) -> bytes:
+    try:
+        with open(f"/proc/{pid}/cmdline", "rb") as f:
+            return f.read()
+    except OSError:
+        return b""
+
+
+def _replica_pids(launcher_pid: int) -> dict:
+    """rank -> pid of the launcher's serving replicas (its pservers are
+    children too)."""
+    out = {}
+    for pid in _proc_children(launcher_pid):
+        if b"paddle_tpu_torch.inference.server" in _proc_cmdline(pid):
+            rank = _proc_environ(pid).get("PADDLE_TRAINER_ID")
+            if rank is not None:
+                out[int(rank)] = pid
+    return out
+
+
+def _kill_tree(pid: int) -> None:
+    for kid in _proc_children(pid):
+        _kill_tree(kid)
+    try:
+        os.kill(pid, 9)
+    except OSError:
+        pass
+
+
+def _serve_weights(cfg, seed: int, names, device=None) -> dict:
+    """One BERT-base parameter set: the export's startup program
+    (``_bert_program``) run on ``device`` (None: the card) at ``seed``,
+    as float32 numpy."""
+    from paddle_tpu_torch import fluid
+
+    _, startup, _, _ = _bert_program(cfg, SERVE_MAX_BATCH, 512)
+    startup.random_seed = seed
+    scope = fluid.Scope()
+    fluid.Executor(device=device).run(startup, scope=scope)
+    return {n: scope.find_var(n).detach().float().cpu().numpy()
+            for n in names}
+
+
+def _same(got, want) -> tuple:
+    """(bit for bit, largest |got - want|) over a reply's fetches."""
+    bit, worst = True, 0.0
+    for g, w in zip(got, want):
+        g = np.asarray(g)
+        if g.shape != w.shape or not np.isfinite(g).all():
+            return False, float("inf")
+        bit = bit and np.array_equal(g.view(np.int32), w.view(np.int32))
+        worst = max(worst, float(np.abs(g - w).max()))
+    return bit, worst
+
+
+def _serve_launch_child(cfg_path: str) -> int:
+    """The serve_launch job, driven from a child of the script
+    (``--serve-launch-child CFG``): ``python -m
+    paddle_tpu_torch.distributed.launch --serve`` with two BERT-base
+    replicas (heartbeats, leases, the paged KV pool, the GPT-2-small
+    decoder) and two pservers of the same launcher holding the weight
+    table at replication 2; v1 published, adopted by both replicas and
+    held against an in-process oracle; a client fleet of 4 threads,
+    replica 0 SIGKILLed mid-stream and respawned; v2 published
+    mid-stream; SIGTERM drains the job.  Writes the result to the
+    config's ``out`` path."""
+    import signal
+
+    with open(cfg_path) as f:
+        c = json.load(f)
+    res = {"t0": time.time()}
+    try:
+        _serve_launch_run(c, res)
+    except Exception as e:  # noqa: BLE001 — the parent reports it
+        res["error"] = f"{type(e).__name__}: {e}"
+    finally:
+        launcher = res.pop("_launcher", None)
+        if launcher is not None and launcher.poll() is None:
+            for pid in _replica_pids(launcher.pid).values():
+                try:
+                    os.kill(pid, signal.SIGTERM)
+                except OSError:
+                    pass
+            try:
+                launcher.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                _kill_tree(launcher.pid)
+                launcher.wait()
+        res["t_end"] = time.time()
+        with open(c["out"], "w") as f:
+            json.dump(res, f)
+    return 1 if "error" in res else 0
+
+
+def _serve_launch_run(c: dict, res: dict) -> None:
+    import signal
+    import threading
+
+    import torch
+
+    from paddle_tpu_torch.distributed import ps_server as tps
+    from paddle_tpu_torch.distributed.coordinator import CoordinatorClient
+    from paddle_tpu_torch.distributed.ps_server import _Conn
+    from paddle_tpu_torch.inference import (DecoderConfig, GenerationEngine,
+                                            ServingPredictor, TinyDecoderLM,
+                                            load_frozen)
+    from paddle_tpu_torch.inference import weight_sync as ws
+    from paddle_tpu_torch.inference.client import InferenceClient
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.telemetry import get_registry
+
+    reg = get_registry()
+    dev = c["device"]   # None: the card
+
+    # the job: two replicas on base, base + 1; two pservers on base + 2,
+    # base + 3
+    base = _free_port_run(4)
+    eps = [f"127.0.0.1:{base + r}" for r in range(2)]
+    ps_eps = [f"127.0.0.1:{base + 2 + s}" for s in range(2)]
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here, PADDLE_SERVE_GEN="1",
+               PADDLE_SERVE_GEN_CONFIG=json.dumps(c["decoder"]),
+               PADDLE_SERVE_WEIGHT_TABLE=c["table"],
+               PADDLE_SERVE_WEIGHT_POLL_SECS=str(c["poll_secs"]))
+    for k in ("PADDLE_TRACING", "PADDLE_SERVE_KV_PAGES",
+              "PADDLE_SERVE_KV_CACHE", "PADDLE_SERVE_WEIGHT_ENDPOINTS",
+              "PADDLE_PS_FAULT_SPEC", "PADDLE_PSERVERS_IP_PORT_LIST"):
+        env.pop(k, None)
+    cmd = [sys.executable, "-u", "-m", "paddle_tpu_torch.distributed.launch",
+           "--serve", "--nproc_per_node", "2", "--started_port", str(base),
+           "--elastic_retries", str(c["retries"]),
+           "--lease_secs", str(c["lease_secs"]),
+           "--heartbeat_timeout", str(c["hb_timeout"]),
+           "--serve_kv_cache", "1", "--serve_kv_pages", str(c["kv_pages"]),
+           "--servers", ",".join(ps_eps), "--ps_replication", "2",
+           "--ps_snapshot_secs", "0", "--log_dir", c["logs"],
+           c["model_dir"], "--max_batch", str(SERVE_MAX_BATCH)]
+    if dev is not None:
+        cmd += ["--device", dev]
+    res["command"] = " ".join(cmd[2:])
+    t_launch = time.time()
+    launcher = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True,
+                                cwd=here)
+    res["_launcher"] = launcher
+    lines = []   # (host time, line) of the launcher's output
+
+    def read():
+        for ln in launcher.stdout:
+            lines.append((time.time(), ln.rstrip()))
+
+    threading.Thread(target=read, daemon=True).start()
+
+    def until(what, pred, timeout, every=0.1):
+        deadline = time.time() + timeout
+        while time.time() < deadline:
+            if launcher.poll() is not None:
+                raise RuntimeError(
+                    f"{what}: the launcher exited {launcher.returncode}: "
+                    + "\n".join(ln for _, ln in lines[-20:]))
+            try:
+                got = pred()
+            except Exception:  # noqa: BLE001 — not up yet
+                got = None
+            if got:
+                return got
+            time.sleep(every)
+        raise RuntimeError(f"{what}: not within {timeout} s")
+
+    def call(ep, verb, timeout=30.0, **kw):
+        conn = _Conn(ep, deadline=timeout, io_timeout=timeout + 300.0)
+        try:
+            return conn.call(verb, **kw)
+        finally:
+            conn.close()
+
+    # this child's own references, built while the job starts
+    t_setup = time.time()
+    cfg = bert.BertConfig.base()
+    frozen = load_frozen(c["model_dir"], device=dev)
+    plan = ws.plan_for_frozen(frozen)
+    sets = {f"v{k + 1}": _serve_weights(cfg, seed, plan.names(), dev)
+            for k, seed in enumerate(c["seeds"])}
+    reqs = _serve_requests(cfg, 32, seed=0)
+    # the oracle: the same frozen program in this process, with v1 and
+    # v2, at the replicas' padded batch
+    oracle = ServingPredictor(frozen, device=dev)
+    want = {}
+    for v in ("v1", "v2"):
+        oracle.adopt_weights(sets[v])
+        want[v] = [[o[:len(r["input_ids"])] for o in
+                    oracle.run(_pad_rows(r, SERVE_MAX_BATCH))] for r in reqs]
+    del oracle
+    # the in-process engine the replicas' generate is held against: the
+    # same decoder, seed and pool
+    os.environ["PADDLE_SERVE_KV_PAGES"] = str(c["kv_pages"])
+    os.environ["PADDLE_SERVE_KV_CACHE"] = "1"
+    prompt = _engine_traffic(np.random.default_rng(0),
+                             c["decoder"]["vocab"])[2]
+    eng = GenerationEngine(TinyDecoderLM(DecoderConfig(**c["decoder"]),
+                                         seed=0, device=dev))
+    gen_want = eng.result(eng.submit(prompt,
+                                     max_new_tokens=c["gen_tokens"]),
+                          timeout=600)["tokens"]
+    eng.stop()
+    del eng
+    torch.cuda.empty_cache()
+    res["setup_s"] = time.time() - t_setup
+    res["decoder"] = c["decoder"]
+    res["table_bytes"] = int(plan.total_rows * plan.dim * 4)
+
+    until("the pservers answer", lambda: all(
+        call(e, "ping", 1.0) == "pong" for e in ps_eps), 180)
+    res["pservers_answer_s"] = time.time() - t_launch
+    table = tps.RemoteTable(c["table"], ws.table_shape(plan), ps_eps,
+                            replication=2, **ws.table_kwargs(plan))
+    pub = ws.WeightPublisher(table, plan)
+    t_pub1 = time.time()
+    pub.publish(sets["v1"])
+    res["publish_s"] = {"v1": time.time() - t_pub1}
+
+    def epoch(ep):
+        return int(call(ep, "health", 5.0).get("weight_epoch", 0))
+
+    first_v1 = {}
+    for r, ep in enumerate(eps):
+        until(f"replica {r} adopts v1", lambda: epoch(ep) >= 1, 600, 0.1)
+        first_v1[r] = time.time() - t_pub1
+    res["publish_to_v1_adopted_s"] = first_v1
+    res["launch_to_v1_adopted_s"] = time.time() - t_launch
+    pids = _replica_pids(launcher.pid)
+    renv = {r: _proc_environ(pid) for r, pid in pids.items()}
+    # the kernels' launch counts, read from each replica's stats: a
+    # replica process starts at 0; replica 0's first incarnation is read
+    # just before its SIGKILL, every other one at the job's end
+    launches = {}
+
+    def kernel_launches(ep):
+        return call(ep, "stats", 30.0)["kernel_launches"]
+
+    res["pserver_cuda_visible_devices"] = sorted({
+        _proc_environ(pid).get("CUDA_VISIBLE_DEVICES", "<unset>")
+        for pid in _proc_children(launcher.pid)
+        if b"distributed.ps_server" in _proc_cmdline(pid)})
+
+    # v1 on both replicas against the oracle; generate against the
+    # in-process engine; the pool, the coordinator, the stamps
+    adopt = {}
+    for r, ep in enumerate(eps):
+        bits, worst = True, 0.0
+        for i in range(4):
+            out = call(ep, "infer", 300.0, feed=reqs[i],
+                       deadline_ms=300000.0)
+            if out["weight_epoch"] != 1:
+                raise RuntimeError(f"replica {r}: epoch {out['weight_epoch']}")
+            b, w = _same(out["outputs"], want["v1"][i])
+            bits, worst = bits and b, max(worst, w)
+        adopt[r] = {"bit_equal": bits, "max_abs_diff": worst}
+    res["adopt_v1"] = adopt
+    gen = {r: call(ep, "generate", 600.0, prompt=prompt,
+                   max_new_tokens=c["gen_tokens"])["tokens"]
+           for r, ep in enumerate(eps)}
+    res["generate"] = {"want": gen_want, "got": gen}
+    stats = {r: call(ep, "stats", 30.0) for r, ep in enumerate(eps)}
+    res["kv_pool"] = {r: s["generation"]["kv_pool"] for r, s in
+                      stats.items()}
+    res["weight_sync"] = {r: s["weight_sync"] for r, s in stats.items()}
+    coord = CoordinatorClient(renv[0]["PADDLE_COORDINATOR_ENDPOINT"],
+                              deadline=10.0)
+    try:
+        members = coord.call("membership")["members"]
+    finally:
+        coord.close()
+    res["members"] = {t: {"kind": m["kind"], "endpoint": m.get("endpoint"),
+                          "alive": m.get("alive")}
+                      for t, m in members.items()}
+    hb_dir = renv[0]["PADDLE_HEARTBEAT_DIR"]
+    now = time.time()
+    res["stamp_age_s"] = {r: now - os.path.getmtime(
+        os.path.join(hb_dir, f"heartbeat.{r}")) for r in range(2)}
+    res["replica_env"] = {r: {k: v for k, v in e.items()
+                              if k.startswith("PADDLE_SERVE")
+                              or k in ("PADDLE_PSERVERS_IP_PORT_LIST",
+                                       "PADDLE_CURRENT_ENDPOINT",
+                                       "PADDLE_TRAINER_TAG",
+                                       "CUDA_VISIBLE_DEVICES")}
+                          for r, e in renv.items()}
+
+    # the weight table's bytes on the wire: a full fetch, then a
+    # steady-state poll, from a subscriber of this process's own
+    def rx():
+        return sum(reg.counter("ps_client_bytes_received_total",
+                               verb=v).value
+                   for v in ("fetch_replica_state", "replica_status"))
+
+    sub = ws.WeightSubscriber(ps_eps, c["table"], plan, lambda w, v: None)
+    wire = {}
+    for what in ("full_fetch", "steady_poll"):
+        b0 = rx()
+        sub.poll_once()
+        wire[what] = rx() - b0
+
+    # the fleet: 4 client threads over both replicas, a probe of each
+    # replica with request 0
+    stop = threading.Event()
+    records, errors, probes, probe_errors = [], [], [], []
+
+    def client(k):
+        order = eps if k % 2 == 0 else eps[::-1]
+        cli = InferenceClient(order, deadline_secs=120.0, hedge_quantile=0)
+        i = k
+        try:
+            while not stop.is_set():
+                t1 = time.time()
+                try:
+                    out = cli.infer(reqs[i % len(reqs)], deadline_ms=120000)
+                except Exception as e:  # noqa: BLE001 — held below
+                    errors.append(f"{type(e).__name__}: {e}")
+                    continue
+                t2 = time.time()
+                v = f"v{out.weight_epoch}"
+                b, w = _same(out.outputs, want[v][i % len(reqs)]) \
+                    if v in want else (False, float("inf"))
+                records.append({"t": t2, "ms": (t2 - t1) * 1e3,
+                                "replica": eps.index(out.replica),
+                                "epoch": out.weight_epoch, "bit": b,
+                                "diff": w})
+                i += c["threads"]
+        finally:
+            cli.close()
+
+    def probe():
+        while not stop.is_set():
+            for r, ep in enumerate(eps):
+                try:
+                    out = call(ep, "infer", 5.0, feed=reqs[0],
+                               deadline_ms=60000.0)
+                except Exception as e:  # noqa: BLE001 — the kill window
+                    probe_errors.append({"t": time.time(), "replica": r,
+                                         "error": type(e).__name__})
+                    continue
+                v = f"v{out['weight_epoch']}"
+                b, w = _same(out["outputs"], want[v][0]) \
+                    if v in want else (False, float("inf"))
+                probes.append({"t": time.time(), "replica": r,
+                               "epoch": out["weight_epoch"], "bit": b,
+                               "diff": w})
+            time.sleep(0.2)
+
+    threads = [threading.Thread(target=client, args=(k,), daemon=True)
+               for k in range(c["threads"])]
+    threads.append(threading.Thread(target=probe, daemon=True))
+    t_stream = time.time()
+    for th in threads:
+        th.start()
+    time.sleep(c["before_kill_s"])
+    victim = pids[0]
+    launches["replica0"] = kernel_launches(eps[0])
+    t_kill = time.time()
+    os.kill(victim, signal.SIGKILL)
+    newpid = until("replica 0 respawned", lambda: (
+        _replica_pids(launcher.pid).get(0) not in (None, victim)
+        and _replica_pids(launcher.pid)[0]), 120, 0.05)
+    t_respawned = time.time()
+    until("replica 0 listening", lambda: call(eps[0], "health", 1.0)["ok"],
+          300, 0.1)
+    t_listening = time.time()
+    until("replica 0 re-adopts v1", lambda: epoch(eps[0]) >= 1, 300, 0.1)
+    t_readopted = time.time()
+    detected = [t for t, ln in lines if "respawning in place" in ln]
+    res["respawn"] = {
+        "kill_to_detected_s": (detected[0] - t_kill) if detected else None,
+        "kill_to_respawned_s": t_respawned - t_kill,
+        "kill_to_listening_s": t_listening - t_kill,
+        "kill_to_readopted_s": t_readopted - t_kill,
+        "old_pid": victim, "new_pid": newpid,
+        "new_env_fault_spec": "PADDLE_PS_FAULT_SPEC" in _proc_environ(
+            newpid)}
+    a = call(eps[0], "infer", 300.0, feed=reqs[1], deadline_ms=300000.0)
+    b = call(eps[1], "infer", 300.0, feed=reqs[1], deadline_ms=300000.0)
+    res["respawned_vs_survivor"] = {
+        "epochs": [a["weight_epoch"], b["weight_epoch"]],
+        "bit_equal": _same(a["outputs"], [np.asarray(o) for o in
+                                          b["outputs"]])[0]}
+    survivor = call(eps[1], "health", 5.0)
+    res["survivor_uptime_s"] = survivor["uptime_s"]
+    res["survivor_uptime_spans_kill"] = \
+        survivor["uptime_s"] > time.time() - t_kill
+    time.sleep(1.0)
+    # v2, mid-stream
+    t_pub2 = time.time()
+    pub.publish(sets["v2"])
+    res["publish_s"]["v2"] = time.time() - t_pub2
+    for r, ep in enumerate(eps):
+        until(f"replica {r} adopts v2", lambda: epoch(ep) >= 2, 300, 0.1)
+    time.sleep(c["after_v2_s"])
+    stop.set()
+    for th in threads:
+        th.join(300)
+    t_stream_end = time.time()
+    launches["replica0_respawn"] = kernel_launches(eps[0])
+    launches["replica1"] = kernel_launches(eps[1])
+    res["launches"] = launches
+    for what in ("v2_poll", "steady_poll_after_v2"):
+        b0 = rx()
+        sub.poll_once()
+        wire[what] = rx() - b0
+    sub.stop()
+    res["wire_bytes"] = wire
+    table.close()
+
+    res["stream"] = {
+        "seconds": t_stream_end - t_stream, "requests": len(records),
+        "errors": errors, "client_ms": _pcts([r["ms"] for r in records]),
+        "by_replica": {r: sum(x["replica"] == r for x in records)
+                       for r in range(2)},
+        "by_epoch": {e: sum(x["epoch"] == e for x in records)
+                     for e in (1, 2)},
+        "bit_equal": all(x["bit"] for x in records),
+        "max_abs_diff": max([x["diff"] for x in records] or [0.0])}
+    res["probes"] = {"n": len(probes), "errors": probe_errors,
+                     "bit_equal": all(p["bit"] for p in probes),
+                     "max_abs_diff": max([p["diff"] for p in probes]
+                                         or [0.0])}
+    # a replica binds its port only after its first adoption: no reply,
+    # the respawn's included, at the export's weights (epoch 0)
+    res["stream"]["epoch0_replies"] = sum(
+        1 for x in records + probes if x["epoch"] == 0)
+    # each replica's fence: one change of epoch (1 -> 2) in each
+    # incarnation, its outputs the epoch's weights' throughout
+    fences = {}
+    for r in range(2):
+        seq = [(p["t"], p["epoch"]) for p in probes if p["replica"] == r]
+        if r == 0:   # the respawned incarnation, from its re-adoption
+            seq = [x for x in seq if x[0] > t_readopted]
+        eps_seen = [e for _, e in seq]
+        changes = sum(1 for x, y in zip(eps_seen, eps_seen[1:]) if x != y)
+        first2 = min([t for t, e in seq if e == 2] + [
+            x["t"] for x in records if x["replica"] == r and x["epoch"] == 2
+            and x["t"] > t_pub2] or [float("nan")])
+        fences[r] = {"epochs_seen": sorted(set(eps_seen)),
+                     "changes": changes,
+                     "monotone": eps_seen == sorted(eps_seen),
+                     "publish_to_first_v2_reply_s": first2 - t_pub2}
+    res["fences"] = fences
+
+    # SIGTERM drains each replica; a drained job exits 0
+    t_term = time.time()
+    for pid in _replica_pids(launcher.pid).values():
+        os.kill(pid, signal.SIGTERM)
+    res["rc"] = launcher.wait(timeout=180)
+    res["drain_s"] = time.time() - t_term
+    res.pop("_launcher")
+    # each launcher line with its seconds from the launch ("2 pserver(s)
+    # on ...": the pservers up; "serving replicas": the replicas spawned)
+    res["launcher_lines"] = [[round(t - t_launch, 3), ln] for t, ln in lines
+                             if ln.startswith("[launch]")]
+    logs = {}
+    for fn in sorted(os.listdir(c["logs"])):
+        with open(os.path.join(c["logs"], fn), errors="replace") as f:
+            logs[fn] = f.read()
+    res["drained"] = {fn: "SIGTERM: draining" in t
+                      for fn, t in logs.items() if fn.startswith("worker")}
+    res["tracebacks"] = [fn for fn, t in logs.items() if "Traceback" in t]
+    res["times"] = {"launch_to_end_s": time.time() - t_launch}
+
+
+def _serve_launch_start(workdir: str, model_dir: str) -> dict:
+    """Start the serve_launch child in the background (before the gloo
+    spawn, beside the parameter-server jobs)."""
+    os.makedirs(workdir, exist_ok=True)
+    c = dict(SERVE_LAUNCH, model_dir=model_dir,
+             decoder=GPT2_SMALL,
+             logs=os.path.join(workdir, "logs"),
+             out=os.path.join(workdir, "result.json"))
+    cfg_path = os.path.join(workdir, "cfg.json")
+    with open(cfg_path, "w") as f:
+        json.dump(c, f)
+    here = os.path.dirname(os.path.abspath(__file__))
+    err = open(os.path.join(workdir, "child.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--serve-launch-child",
+         cfg_path], env=dict(os.environ, PYTHONPATH=here), stdout=err,
+        stderr=err, start_new_session=True, cwd=here)
+    return {"proc": proc, "err": err, "c": c, "t0": time.time()}
+
+
+def _serve_launch_kill(started: dict) -> None:
+    """Stop the child and everything it started (its process group)."""
+    try:
+        os.killpg(started["proc"].pid, 9)
+    except ProcessLookupError:
+        pass
+    started["proc"].wait()
+
+
+def _serve_launch_join(started: dict) -> dict:
+    proc = started["proc"]
+    deadline = started["t0"] + started["c"]["join_s"]
+    while proc.poll() is None and time.time() < deadline:
+        time.sleep(0.2)
+    t_end = time.time()
+    rc = proc.poll()
+    _serve_launch_kill(started)
+    started["err"].close()
+    with open(started["err"].name, errors="replace") as f:
+        tail = f.read()[-4000:]
+    if rc is None:
+        fail(f"serve_launch: no exit within {started['c']['join_s']} s: "
+             f"{tail}")
+    try:
+        with open(started["c"]["out"]) as f:
+            res = json.load(f)
+    except (OSError, ValueError):
+        fail(f"serve_launch: exit {rc}, no result: {tail}")
+    if rc != 0 or "error" in res:
+        fail(f"serve_launch: {res.get('error')} (exit {rc}): {tail}")
+    # the child's own end: it is joined only after the gloo spawn
+    res["window"] = (started["t0"], res.get("t_end", t_end))
+    return res
+
+
+def phase_serve_launch(card: str, res: dict, windows: dict) -> dict:
+    """The holds of the serve_launch job and its line: both replicas adopt
+    v1 (bit for bit the oracle's, else within the infer phase's f32
+    limit), a kill costs no request, the respawn re-adopts and answers
+    like the survivor, v2 moves each replica's fence once, generate,
+    the pool, the coordinator, the stamps, the drain."""
+    c = SERVE_LAUNCH
+    if res["stream"]["epoch0_replies"]:
+        fail(f"serve_launch: {res['stream']['epoch0_replies']} replies at "
+             f"the export's weights, before a replica's first adoption")
+    bits = all(a["bit_equal"] for a in res["adopt_v1"].values()) \
+        and res["stream"]["bit_equal"] and res["probes"]["bit_equal"]
+    worst = max([a["max_abs_diff"] for a in res["adopt_v1"].values()]
+                + [res["stream"]["max_abs_diff"],
+                   res["probes"]["max_abs_diff"]])
+    if not (bits or worst <= BERT_PARITY_LIMIT):
+        fail(f"serve_launch: replies differ from the oracle by {worst} > "
+             f"{BERT_PARITY_LIMIT}")
+    if res["stream"]["errors"]:
+        fail(f"serve_launch: request errors {res['stream']['errors'][:4]}")
+    if not res["survivor_uptime_spans_kill"]:
+        fail(f"serve_launch: the survivor restarted "
+             f"(uptime {res['survivor_uptime_s']} s)")
+    rv = res["respawned_vs_survivor"]
+    if rv["epochs"] != [1, 1] or not rv["bit_equal"]:
+        fail(f"serve_launch: the respawned replica against the survivor "
+             f"{rv}")
+    if res["respawn"]["new_env_fault_spec"]:
+        fail("serve_launch: the respawn inherited the fault schedule")
+    for r, f in res["fences"].items():
+        if f["epochs_seen"] != [1, 2] or f["changes"] != 1 \
+                or not f["monotone"]:
+            fail(f"serve_launch: replica {r}'s fence {f}")
+    if any(g != res["generate"]["want"]
+           for g in res["generate"]["got"].values()):
+        fail(f"serve_launch: generate {res['generate']}")
+    if any(p["n_pages"] != c["kv_pages"] for p in res["kv_pool"].values()):
+        fail(f"serve_launch: pools {res['kv_pool']}")
+    kinds = {t: m["kind"] for t, m in res["members"].items()}
+    if kinds.get("trainer0") != "inference" \
+            or kinds.get("trainer1") != "inference":
+        fail(f"serve_launch: coordinator members {res['members']}")
+    if res["pserver_cuda_visible_devices"] != [""]:
+        fail(f"serve_launch: pservers see "
+             f"{res['pserver_cuda_visible_devices']}")
+    if max(res["stamp_age_s"].values()) >= c["hb_timeout"]:
+        fail(f"serve_launch: heartbeat stamps {res['stamp_age_s']} s old")
+    wire = res["wire_bytes"]
+    steady = max(wire["steady_poll"], wire["steady_poll_after_v2"])
+    if steady >= 2 ** 20 or wire["full_fetch"] < res["table_bytes"]:
+        fail(f"serve_launch: weight-table bytes {wire}")
+    if res["rc"] != 0 or not all(res["drained"].values()) \
+            or res["tracebacks"]:
+        fail(f"serve_launch: after SIGTERM: exit {res['rc']}, drained "
+             f"{res['drained']}, tracebacks in {res['tracebacks']}")
+    total = {k: sum(n[k] for n in res["launches"].values())
+             for k in res["launches"]["replica1"]}
+    ran = {k: total[k] for k in ("paged_attention", "add_ln",
+                                 "flash_attention_bsh")}
+    if not all(ran.values()):
+        fail(f"serve_launch: rows 1, 2 and 4 launched {ran} in the replicas")
+    a, b = res["window"]
+    out = {"phase": "serve_launch", "card": card,
+           "command": res["command"],
+           "model": "BertConfig.base() f32 (the serve phase's export); "
+                    "v1, v2 from seeds " + str(list(c["seeds"])),
+           "decoder": res["decoder"], "table_bytes": res["table_bytes"],
+           "pserver_cuda_visible_devices":
+               res["pserver_cuda_visible_devices"],
+           "bit_equal_to_oracle": bits, "max_abs_diff": worst,
+           "limit_if_not_bit_equal": BERT_PARITY_LIMIT,
+           "adopt_v1": res["adopt_v1"],
+           "publish_to_v1_adopted_s": res["publish_to_v1_adopted_s"],
+           "launch_to_v1_adopted_s": res["launch_to_v1_adopted_s"],
+           "pservers_answer_s_after_setup": res["pservers_answer_s"],
+           "publish_s": res["publish_s"],
+           "publish_to_first_v2_reply_s": {
+               r: f["publish_to_first_v2_reply_s"]
+               for r, f in res["fences"].items()},
+           "fences": res["fences"], "wire_bytes": wire,
+           "respawn": res["respawn"],
+           "survivor_uptime_s": res["survivor_uptime_s"],
+           "stream": res["stream"],
+           "probes": {k: v for k, v in res["probes"].items()
+                      if k != "errors"},
+           "probe_errors_in_kill_window": len(res["probes"]["errors"]),
+           "generate_tokens_equal": True,
+           "kv_pool": res["kv_pool"], "members": res["members"],
+           "stamp_age_s": res["stamp_age_s"],
+           "replica_env": res["replica_env"],
+           "launcher_lines": res["launcher_lines"],
+           "drain_s": res["drain_s"], "rc": res["rc"],
+           "setup_s": res["setup_s"],
+           "launches": total,
+           "launches_by_replica": res["launches"],
+           "wall_s": b - a,
+           "concurrent_with": sorted(n for n, (x, y) in windows.items()
+                                     if x < b and a < y)}
+    emit(out)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -8871,7 +9645,11 @@ def main() -> int:
     ap.add_argument("--dist-dir", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--elastic-child", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--ps-child", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--serve-launch-child", default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.serve_launch_child:
+        return _serve_launch_child(args.serve_launch_child)
     if args.ps_child:
         return _ps_child(args.ps_child)
     if args.elastic_child:
@@ -8899,8 +9677,7 @@ def main() -> int:
 
     # GPT-2 small's published widths (BERT-base's too), 50257-token
     # vocabulary and 1024 positions; random weights from seed 0
-    cfg = DecoderConfig(vocab=50257, d_model=768, n_layers=12, n_heads=12,
-                        ffn=3072, max_seq=1024)
+    cfg = DecoderConfig(**GPT2_SMALL)
     model = TinyDecoderLM(cfg, seed=0, device="cuda")
     eng = phase_engine(torch, cfg, model, env["card"])
     phase_parity(torch, cfg, model)
@@ -8911,7 +9688,13 @@ def main() -> int:
 
     infer = phase_bert_infer(torch, env["card"])
     phase_bert_parity(torch, infer)
-    serve = phase_serve(torch, env["card"], cfg)
+    import shutil
+    import tempfile
+
+    # the serve phase's BERT-base export, kept for serve_launch
+    serve_model = tempfile.mkdtemp(prefix="serve_bert_")
+    atexit.register(shutil.rmtree, serve_model, True)
+    serve = phase_serve(torch, env["card"], cfg, serve_model)
     phase_bert_profile(torch, infer)
     infer_launches = {"flash": infer["flash_launches"],
                       "ln": infer["ln_launches"]}
@@ -8958,29 +9741,37 @@ def main() -> int:
     torch.cuda.empty_cache()
     ps_example = _ps_example(torch)
     torch.cuda.empty_cache()
-    import tempfile
 
     with tempfile.TemporaryDirectory(prefix="chip-dist-") as tmp:
-        # the parameter-server jobs run beside the dist ranks
+        # the parameter-server jobs and the serve_launch job run beside
+        # the dist ranks
         os.makedirs(os.path.join(tmp, "ps"))
         ps_started = _ps_jobs_start(os.path.join(tmp, "ps"))
+        sl_started = _serve_launch_start(os.path.join(tmp, "serve_launch"),
+                                         serve_model)
         try:
             # the gloo phases' four ranks start once for all their
             # bodies, the NCCL rank beside them
             raw = _dist_spawn({"nccl": (("nccl",), 1), "gloo": (
                 ("ring", "train", "tp", "pp", "ep", "zero", "dcn"),
                 DIST_WORLD)}, tmp)
+            served = _serve_launch_join(sl_started)
         except BaseException:
             _ps_jobs_kill(ps_started)
+            _serve_launch_kill(sl_started)
             raise
-        ps_jobs, ps_windows = _ps_jobs(
-            torch, ps_started, {m: r[0]["window"] for m, r in raw.items()})
+        windows = {m: r[0]["window"] for m, r in raw.items()}
+        windows["serve_launch"] = served["window"]
+        ps_jobs, ps_windows = _ps_jobs(torch, ps_started, windows)
+        windows.update(ps_windows)
         for m, ranks in raw.items():
             a, b = ranks[0]["window"]
             for r in ranks:
                 r["concurrent_with"] = r["concurrent_with"] + sorted(
-                    n for n, (c0, c1) in ps_windows.items()
-                    if c0 < b and a < c1)
+                    n for n, (c0, c1) in windows.items()
+                    if n not in raw and c0 < b and a < c1)
+        serve_launch = phase_serve_launch(env["card"], served, {
+            n: w for n, w in windows.items() if n != "serve_launch"})
         ps = phase_ps_train(torch, env["card"], ps_example, ps_jobs)
         torch.cuda.empty_cache()
         phase_dist_ring(torch, env["card"], raw.pop("ring"))
@@ -9055,7 +9846,9 @@ def main() -> int:
     def entry(name, source, replaces, k, path_launches, main="bert_train"):
         e = _kernel_entry(name, source, replaces, path_launches[main], k)
         e["launches_by_path"] = dict(
-            path_launches, ps_train=ps_launches[ps_key.get(name, name)])
+            path_launches, ps_train=ps_launches[ps_key.get(name, name)],
+            # summed over the replicas' processes (their stats)
+            serve_launch=serve_launch["launches"][name])
         return e
 
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

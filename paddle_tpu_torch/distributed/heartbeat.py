@@ -176,9 +176,16 @@ class HeartBeatWorker:
             self._thread.join(timeout=2)
             self._thread = None
 
-    def stop(self):
+    def stop(self, exiting: bool = False):
+        """Stop stamping; ``exiting`` leaves a last stamp that says so
+        (a clean exit on the way, as the atexit hook writes)."""
         self._halt()
         atexit.unregister(self._on_exit)
+        if exiting:
+            try:
+                self._beat(exiting=True)
+            except OSError:
+                pass
 
     def _on_exit(self):
         if self._stop.is_set():
@@ -275,6 +282,13 @@ class HeartBeatMonitor:
         # supervisor must not keep making liveness calls on its basis
         self.epoch = epoch
         self._t0 = time.time()
+        self._since: dict = {}  # rank -> its own start, after a respawn
+
+    def rearm(self, rank: Rank) -> None:
+        """``rank``'s process was replaced (a serving replica respawned in
+        place): judge it as a new member, from now, with the startup
+        grace for its first stamp."""
+        self._since[rank] = time.time()
 
     def stale_ranks(self, now: Optional[float] = None,
                     ranks: Optional[List[Rank]] = None) -> List[Rank]:
@@ -284,14 +298,15 @@ class HeartBeatMonitor:
         now = time.time() if now is None else now
         stale = []
         for r in self.ranks if ranks is None else ranks:
+            t0 = self._since.get(r, self._t0)
             try:
                 mtime = os.path.getmtime(_stamp_path(self.directory, r))
             except OSError:
                 mtime = None  # no stamp file yet
-            if mtime is None or mtime < self._t0:
+            if mtime is None or mtime < t0:
                 # never stamped under THIS monitor: flag only after the
                 # (long) startup grace window
-                if now - self._t0 > self.startup_grace:
+                if now - t0 > self.startup_grace:
                     stale.append(r)
                 continue
             if self.epoch is not None:

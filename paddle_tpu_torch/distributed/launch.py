@@ -52,12 +52,22 @@ the --elastic_retries budget, and with --ps_replication R keep R copies
 of every row partition; under --lease_secs each pserver holds a lease
 whose expiry makes the coordinator promote a caught-up backup.
 
+Serving (--serve): the positional argument is a saved inference-model
+directory and each trainer slot runs one replica, ``python -m
+paddle_tpu_torch.inference.server --model_dir DIR ARGS...``, bound to
+the port of its PADDLE_CURRENT_ENDPOINT (--serve_kv_cache and
+--serve_kv_pages ride in as PADDLE_SERVE_KV_CACHE / _PAGES).  Replicas
+are independent, so a dead one is respawned IN PLACE on its endpoint by
+``ServeRespawner`` within the per-replica budget while the others keep
+serving; past it the death takes the group-abort path above.  The
+respawn never inherits the fault schedule (PADDLE_PS_FAULT_SPEC) or
+its dead predecessor's heartbeat stamp.
+
 Not ported yet, refused with NotImplementedError naming the queue item:
---serve with its --serve_kv_* flags (serving under the launcher, the
-next item of ROADMAP A6); --fleetz_port, --debugz_port, --trace_dir,
---straggler_factor and --straggler_eject_factor, and the goodput ledger
-PADDLE_GOODPUT arms (ROADMAP A8: telemetry/debugz, export, timeline,
-straggler and goodput's launcher ledger).
+--fleetz_port, --debugz_port, --trace_dir, --straggler_factor and
+--straggler_eject_factor, and the goodput ledger PADDLE_GOODPUT arms
+(ROADMAP A8: telemetry/debugz, timeline, straggler and goodput's
+launcher ledger with its fleet exporter).
 """
 from __future__ import annotations
 
@@ -78,7 +88,7 @@ from ..parallel.env import ENV_RENDEZVOUS
 # exits with it (sysexits EX_TEMPFAIL, "retry me")
 PREEMPTED_EXIT_CODE = 75
 
-_SERVE = "serving under the launcher, the next item of ROADMAP A6"
+SERVE_MODULE = "paddle_tpu_torch.inference.server"
 
 
 class Trainer:
@@ -326,9 +336,6 @@ def _refuse_unported(args) -> None:
     """The flags and environment of the JAX launcher whose machinery the
     port has not yet: NotImplementedError naming the queue item."""
     armed = []
-    if args.serve or args.serve_kv_cache is not None \
-            or args.serve_kv_pages is not None:
-        armed.append(f"--serve ({_SERVE})")
     a8 = (("fleetz_port", "the fleet view, telemetry/debugz.py"),
           ("debugz_port", "telemetry/debugz.py"),
           ("trace_dir", "per-rank traces, telemetry/timeline.py"))
@@ -346,7 +353,6 @@ def _refuse_unported(args) -> None:
     if armed:
         raise NotImplementedError(
             "launch: not ported yet: " + "; ".join(armed))
-
 
 
 def _spawn_pserver(idx: int, host: str, port: int,
@@ -704,15 +710,23 @@ def start_local_trainers(cluster: List[Trainer], node_ip: str, script: str,
                          restart_count: int = 0,
                          heartbeat_dir: Optional[str] = None,
                          membership_epoch: int = 0,
-                         rendezvous: Optional[str] = None):
+                         rendezvous: Optional[str] = None,
+                         module: Optional[str] = None,
+                         only_tags=None, clear_fault_spec: bool = False):
     """Fork this node's trainers with the env protocol (reference
     utils.start_local_trainers:340). PADDLE_TRAINER_TAG carries the
     stable membership identity and PADDLE_MEMBERSHIP_EPOCH the
     coordinator's membership epoch — both survive resizes where the rank
     numbering does not; ``rendezvous`` (PADDLE_DIST_RENDEZVOUS) is this
-    attempt's own process-group store."""
+    attempt's own process-group store.  ``module`` runs ``-m module``
+    instead of a script file (launch --serve); ``only_tags`` spawns only
+    the named members, the env protocol still derived from the whole
+    cluster (a replica's respawn in place), and ``clear_fault_spec``
+    keeps PADDLE_PS_FAULT_SPEC from the spawned children."""
     endpoints = ",".join(t.endpoint for t in cluster)
     local = [t for t in cluster if t.endpoint.split(":")[0] == node_ip]
+    if only_tags is not None:
+        local = [t for t in local if t.tag in only_tags]
     if log_dir:
         os.makedirs(log_dir, exist_ok=True)
     for t in local:
@@ -730,7 +744,14 @@ def start_local_trainers(cluster: List[Trainer], node_ip: str, script: str,
             env["PADDLE_HEARTBEAT_DIR"] = heartbeat_dir
         if rendezvous:
             env[ENV_RENDEZVOUS] = rendezvous
-        cmd = [sys.executable, "-u", script] + list(script_args)
+        if clear_fault_spec:
+            # a `kill:*:N` drill means "kill this replica once", not
+            # every incarnation of it
+            env.pop("PADDLE_PS_FAULT_SPEC", None)
+        if module is not None:
+            cmd = [sys.executable, "-u", "-m", module] + list(script_args)
+        else:
+            cmd = [sys.executable, "-u", script] + list(script_args)
         if log_dir:
             mode = "a" if restart_count else "w"
             t.log = open(os.path.join(log_dir, f"workerlog.{t.rank}"), mode)
@@ -766,11 +787,73 @@ def terminate_local_trainers(trainers: List[Trainer],
             t.log.close()
 
 
+class ServeRespawner:
+    """Per-replica supervision for launch --serve: serving replicas are
+    INDEPENDENT — one dying must never blip the rest of the fleet, so
+    (unlike sync training, where the barrier demands a group restart) a
+    dead replica is respawned IN PLACE on its original endpoint, budget
+    ``retries`` per replica.  Past budget the death falls through to the
+    group-abort path so the job still ends loudly.
+
+    Only a replica whose process has exited is respawned, so no second
+    process ever binds a live replica's endpoint.  The respawn runs
+    without the fault schedule, and the monitor is re-armed for it
+    (``HeartBeatMonitor.rearm``): a stamp older than the respawn counts
+    as none, so the new process gets the startup grace for its first
+    stamp instead of being read as hung on the one that died."""
+
+    def __init__(self, cluster: List[Trainer], node_ip: str, script: str,
+                 script_args: List[str], log_dir: Optional[str],
+                 retries: int, heartbeat_dir: Optional[str] = None,
+                 membership_epoch: int = 0,
+                 module: Optional[str] = None,
+                 rendezvous: Optional[str] = None, monitor=None):
+        self.cluster = cluster
+        self.node_ip = node_ip
+        self.script = script
+        self.script_args = list(script_args)
+        self.log_dir = log_dir
+        self.retries = int(retries)
+        self.heartbeat_dir = heartbeat_dir
+        self.membership_epoch = membership_epoch
+        self.module = module
+        self.rendezvous = rendezvous
+        self.monitor = monitor
+        self._counts: dict = {}
+
+    def respawn(self, t: Trainer) -> bool:
+        if t.proc is None or t.proc.poll() is None:
+            return False
+        n = self._counts.get(t.tag, 0)
+        if n >= self.retries:
+            return False
+        self._counts[t.tag] = n + 1
+        print(f"[launch] serving replica {t.rank} ({t.tag}, "
+              f"{t.endpoint}) died; respawning in place "
+              f"({n + 1}/{self.retries}); the rest of the fleet keeps "
+              f"serving", file=sys.stderr, flush=True)
+        if t.log:
+            t.log.close()
+            t.log = None
+        if self.monitor is not None:
+            self.monitor.rearm(t.rank)
+        start_local_trainers(
+            self.cluster, self.node_ip, self.script, self.script_args,
+            self.log_dir, restart_count=n + 1,
+            heartbeat_dir=self.heartbeat_dir,
+            membership_epoch=self.membership_epoch,
+            rendezvous=self.rendezvous, module=self.module,
+            only_tags={t.tag}, clear_fault_spec=True)
+        return True
+
+
 def watch_local_trainers(trainers: List[Trainer], poll_interval=0.2,
                          monitor=None, ps_supervisor=None,
                          grace: Optional[SigtermGrace] = None,
                          failure: Optional[dict] = None,
-                         coordinator=None, coord_supervisor=None) -> int:
+                         coordinator=None, coord_supervisor=None,
+                         serve_respawner: Optional[ServeRespawner] = None,
+                         ) -> int:
     """Block until all trainers exit. Any nonzero exit — or a stale
     heartbeat when `monitor` (heartbeat.HeartBeatMonitor) is given —
     aborts the whole local group (reference watch_local_trainers:407:
@@ -792,7 +875,8 @@ def watch_local_trainers(trainers: List[Trainer], poll_interval=0.2,
     (PServerSupervisor) is polled on the same cadence: it respawns dead
     pservers in place, or returns an exit code to abort the job. A
     `coord_supervisor` respawns a dead process-hosted coordinator on
-    the same cadence."""
+    the same cadence; a `serve_respawner` respawns a dead serving
+    replica in place, within its budget, instead of aborting."""
 
     def _fail(t: Optional[Trainer], reason: str) -> None:
         if failure is not None and t is not None:
@@ -810,9 +894,13 @@ def watch_local_trainers(trainers: List[Trainer], poll_interval=0.2,
                 terminate_local_trainers(trainers)
                 return 128 + signal.SIGTERM
             codes = [t.proc.poll() for t in trainers]
-            alive = None in codes
             dead = [t for t, rc in zip(trainers, codes)
                     if rc not in (None, 0)]
+            if dead and serve_respawner is not None:
+                # replaced in place: the fleet serves on
+                dead = [t for t in dead if not serve_respawner.respawn(t)]
+                codes = [t.proc.poll() for t in trainers]
+            alive = None in codes
             if dead:
                 # the first to exit: its peers fail after it, in the
                 # collective it left
@@ -1122,7 +1210,25 @@ def _launch_attempts(args, ips, node_ip, cluster, heartbeat_dir, job_dir,
     CheckpointManagers accept the resized resume). --elastic_retries
     stays the JOB-LEVEL restart cap. Each restart prints when the
     failure was detected and when the new group was spawned (the JAX
-    launcher's goodput `restart` event)."""
+    launcher's goodput `restart` event).  Under --serve each rank is one
+    serving replica, respawned in place by a ServeRespawner."""
+    # serving mode: each rank is one inference replica; the positional
+    # arg is the model dir, extra args pass through to the server
+    serve_module = None
+    serve_args: List[str] = []
+    if args.serve:
+        serve_module = SERVE_MODULE
+        serve_args = (["--model_dir", args.training_script]
+                      + list(args.training_script_args))
+        # KV-pool knobs ride the env protocol into every replica (the
+        # same PADDLE_SERVE_* envs an operator would set by hand)
+        if args.serve_kv_cache is not None:
+            os.environ["PADDLE_SERVE_KV_CACHE"] = args.serve_kv_cache
+        if args.serve_kv_pages is not None:
+            os.environ["PADDLE_SERVE_KV_PAGES"] = str(args.serve_kv_pages)
+        print(f"[launch] serving replicas: "
+              f"{','.join(t.endpoint for t in cluster)}",
+              file=sys.stderr)
     elastic_enabled = (args.elastic_retries > 0
                        or args.elastic_retries_per_rank is not None)
     # job-level cap: --elastic_retries when given; with only per-rank
@@ -1141,9 +1247,10 @@ def _launch_attempts(args, ips, node_ip, cluster, heartbeat_dir, job_dir,
         rendezvous = "file://" + os.path.join(job_dir, f"store.{attempt}")
         local = start_local_trainers(
             trainers, node_ip, args.training_script,
-            args.training_script_args, args.log_dir,
-            restart_count=attempt, heartbeat_dir=heartbeat_dir,
-            membership_epoch=epoch, rendezvous=rendezvous,
+            serve_args if serve_module else args.training_script_args,
+            args.log_dir, restart_count=attempt,
+            heartbeat_dir=heartbeat_dir, membership_epoch=epoch,
+            rendezvous=rendezvous, module=serve_module,
         )
         if pending_restart is not None:
             pending_restart["respawn_ts"] = round(time.time(), 6)
@@ -1179,12 +1286,21 @@ def _launch_attempts(args, ips, node_ip, cluster, heartbeat_dir, job_dir,
                 heartbeat_dir, [t.rank for t in local],
                 args.heartbeat_timeout, epoch=epoch,
             )
+        serve_respawner = None
+        if serve_module is not None and elastic_enabled:
+            serve_respawner = ServeRespawner(
+                trainers, node_ip, args.training_script, serve_args,
+                args.log_dir, retries=per_rank,
+                heartbeat_dir=heartbeat_dir, membership_epoch=epoch,
+                module=serve_module, rendezvous=rendezvous,
+                monitor=monitor)
         failure: dict = {}
         rc = watch_local_trainers(
             local, monitor=monitor, ps_supervisor=ps_supervisor,
             grace=grace, failure=failure,
             coordinator=coord if lease_armed else None,
-            coord_supervisor=coord_supervisor)
+            coord_supervisor=coord_supervisor,
+            serve_respawner=serve_respawner)
         detect_ts = failure.get("detect_ts", time.time())
         if (rc == 0
                 or rc == 128 + signal.SIGINT

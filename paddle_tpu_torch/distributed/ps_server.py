@@ -73,10 +73,6 @@ Framing: 8-byte big-endian length + pickle (trusted cluster transport).
 A request is ``(method, kwargs)``; a reply is ``(True, result)`` or
 ``(False, "Type: message")``; results hold numpy arrays and plain
 Python values, never torch tensors.
-
-Not ported (ROADMAP A8): the span and metrics push exporters
-(telemetry/export.py); a pserver armed with PADDLE_TRACES_PUSH_URL or
-PADDLE_METRICS_PUSH_URL refuses to start.
 """
 from __future__ import annotations
 
@@ -1517,24 +1513,6 @@ class _TCPServer(socketserver.ThreadingTCPServer):
                 pass
 
 
-# environment that arms an exporter the port does not have yet: the
-# pserver refuses to start rather than run without it
-_NOT_PORTED_ENV = (
-    ("PADDLE_METRICS_PUSH_URL", "the metrics push exporter "
-     "(telemetry/export.py, ROADMAP A8)"),
-    ("PADDLE_TRACES_PUSH_URL", "the span push exporter "
-     "(telemetry/export.py, ROADMAP A8)"),
-)
-
-
-def _refuse_unported_env() -> None:
-    for env, what in _NOT_PORTED_ENV:
-        if os.environ.get(env):
-            raise NotImplementedError(
-                f"{env} is set, but {what} is not ported yet; unset it to "
-                f"run the pserver without it")
-
-
 def serve(port: int = 0, host: str = "0.0.0.0", ready_cb=None,
           preload_dir: Optional[str] = None,
           snapshot_dir: Optional[str] = None,
@@ -1551,11 +1529,17 @@ def serve(port: int = 0, host: str = "0.0.0.0", ready_cb=None,
     if snapshot_secs is None:
         snapshot_secs = float(
             os.environ.get("PADDLE_PS_SNAPSHOT_SECS", 0) or 0)
-    _refuse_unported_env()
     _arm_metrics_sink()
     # step tracing: arm the flight-recorder triggers (SIGTERM, crash,
-    # exit); a no-op unless PADDLE_TRACING armed them
+    # exit) and the span push exporter; both are no-ops unless
+    # PADDLE_TRACING / PADDLE_TRACES_PUSH_URL armed them
     _tracing.maybe_install_hooks()
+    try:
+        from ..telemetry import export as _export
+
+        _export.maybe_start_traces()
+    except Exception:  # noqa: BLE001 — telemetry must not stop serving
+        pass
     srv = _TCPServer((host, port), _Handler)
     srv.ps = PSServer(preload_dir=preload_dir,  # type: ignore[attr-defined]
                       snapshot_dir=snapshot_dir,

@@ -47,18 +47,18 @@ exceeded|error}, serve_request_ms / serve_batch_ms histograms (p50/p99
 via the registry), serve_queue_depth gauge, serve_weight_epoch gauge —
 all on the `stats` verb.
 
-Not ported yet, and refused rather than ignored: `serve()` raises at
-start where the environment arms a module the port does not have — the
-metrics/traces push exporters (PADDLE_METRICS_PUSH_URL,
-PADDLE_TRACES_PUSH_URL) and debugz (PADDLE_DEBUGZ_PORT), ROADMAP A8; the
-heartbeat (PADDLE_HEARTBEAT_DIR with a trainer tag) and the coordinator
-lease (PADDLE_COORDINATOR_ENDPOINT), serving under the launcher, the
-next item of ROADMAP A6.  The live weight subscriber comes with it
-(`weight_sync.maybe_start_subscriber`).
+Under the launcher (``launch --serve``), ``serve()`` stamps heartbeats
+(PADDLE_HEARTBEAT_DIR with a trainer tag), renews a coordinator lease
+of kind "inference" (PADDLE_COORDINATOR_ENDPOINT), pushes metrics and
+spans (PADDLE_METRICS_PUSH_URL, PADDLE_TRACES_PUSH_URL) and follows the
+live weight table (`weight_sync.maybe_start_subscriber`).  Not ported
+yet, and refused rather than ignored: debugz (PADDLE_DEBUGZ_PORT),
+ROADMAP A8.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import signal
 import sys
@@ -611,6 +611,7 @@ class InferenceServer:
 
     def stats(self) -> dict:
         from ..distributed.ps_server import server_telemetry
+        from ..ops.kernels import launch_counts
 
         out = {
             "serving": self.batcher.stats(),
@@ -621,6 +622,9 @@ class InferenceServer:
                 "version": (self.subscriber.version
                             if self.subscriber else None),
             },
+            # the kernel wrappers' counts in this process: a caller in
+            # another one reads which kernels its requests launched
+            "kernel_launches": launch_counts(),
         }
         if self.engine is not None:
             out["generation"] = self.engine.stats()
@@ -744,13 +748,17 @@ def _maybe_build_engine(device=None):
     """PADDLE_SERVE_GEN=1 attaches a generation engine to the replica
     (the tiny decoder, on ``device``; real deployments construct their
     own engine and pass it to InferenceServer).  Sized by the
-    PADDLE_SERVE_KV_* envs."""
+    PADDLE_SERVE_KV_* envs.  PADDLE_SERVE_GEN_CONFIG, a JSON object of
+    ``DecoderConfig`` fields, widens the decoder: the tiny default's
+    head_dim of 16 is not one the card's paged-attention kernel takes
+    (64, 128, 256)."""
     if os.environ.get("PADDLE_SERVE_GEN", "") in ("", "0", "false"):
         return None
     from . import decode_model as _dm
     from .engine import GenerationEngine
 
-    cfg = _dm.DecoderConfig()
+    cfg = _dm.DecoderConfig(**json.loads(
+        os.environ.get("PADDLE_SERVE_GEN_CONFIG") or "{}"))
     seed = int(os.environ.get("PADDLE_SERVE_GEN_SEED", "0"))
     return GenerationEngine(_dm.TinyDecoderLM(cfg, seed=seed, device=device))
 
@@ -758,14 +766,8 @@ def _maybe_build_engine(device=None):
 # environment that arms a module the port does not have yet: serve()
 # refuses to start rather than run without it
 _NOT_PORTED_ENV = (
-    ("PADDLE_METRICS_PUSH_URL", "the metrics push exporter "
-     "(telemetry/export.py, ROADMAP A8)"),
-    ("PADDLE_TRACES_PUSH_URL", "the span push exporter "
-     "(telemetry/export.py, ROADMAP A8)"),
     ("PADDLE_DEBUGZ_PORT", "the debugz pages (telemetry/debugz.py, "
      "ROADMAP A8)"),
-    ("PADDLE_COORDINATOR_ENDPOINT", "serve()'s coordinator lease "
-     "(serving under the launcher, the next item of ROADMAP A6)"),
 )
 
 
@@ -775,13 +777,6 @@ def _refuse_unported_env() -> None:
             raise NotImplementedError(
                 f"{env} is set, but {what} is not ported yet; unset it to "
                 f"serve without it")
-    hb_tag = os.environ.get("PADDLE_TRAINER_TAG") or os.environ.get(
-        "PADDLE_PS_RANK_TAG")
-    if os.environ.get("PADDLE_HEARTBEAT_DIR") and hb_tag:
-        raise NotImplementedError(
-            "PADDLE_HEARTBEAT_DIR is set with a trainer tag, but serve()'s "
-            "heartbeat (serving under the launcher, the next item of "
-            "ROADMAP A6) is not ported yet; unset it to serve without it")
 
 
 def serve(frozen: FrozenModel, port: int = 0, host: str = "0.0.0.0",
@@ -789,17 +784,42 @@ def serve(frozen: FrozenModel, port: int = 0, host: str = "0.0.0.0",
           queue_depth: int = DEFAULT_QUEUE_DEPTH,
           drain_grace: float = 30.0, engine=None, device=None):
     """Run one serving replica (blocks) on ``device`` (None: the CUDA
-    card). The _TCPServer/_Handler transport; SIGTERM -> graceful
-    drain -> return (exit 0 from ``main``)."""
+    card). Mirrors ps_server.serve: the same _TCPServer/_Handler
+    transport, the heartbeat stamps (PADDLE_HEARTBEAT_DIR with a trainer
+    or PS tag) and a coordinator lease of kind "inference" carrying the
+    batcher's stats (PADDLE_COORDINATOR_ENDPOINT), the push exporters
+    (PADDLE_METRICS_PUSH_URL, PADDLE_TRACES_PUSH_URL); with live weights
+    the port is bound after the first round of the weight table is
+    installed; SIGTERM -> graceful drain -> every thread stopped ->
+    return (exit 0 from ``main``)."""
     from ..distributed.ps_server import _Handler, _TCPServer
 
     _refuse_unported_env()
     _tracing.maybe_install_hooks()
+    # span/metrics export off the replica (ps_server.serve pattern):
+    # serving spans land in the same ring as training spans and leave
+    # through the OTLP push exporter.  Env unset = zero network, zero
+    # threads.
+    try:
+        from ..telemetry import export as _export
+
+        _export.maybe_start()
+        _export.maybe_start_traces()
+    except Exception:  # noqa: BLE001 — telemetry must not stop serving
+        _export = None
     if engine is None:
         engine = _maybe_build_engine(device)
     inf = InferenceServer(frozen, max_batch=max_batch,
                           queue_depth=queue_depth, engine=engine,
                           device=device)
+    if inf.subscriber is not None:
+        # live weights: the port is bound only once the subscriber's
+        # first round of the table is in and installed, so a replica
+        # (a respawn above all) never answers with the export's weights
+        # where the table holds newer ones.  The JAX package binds first
+        # and serves them until its first poll lands (ROADMAP section C).
+        inf.subscriber.first_round.wait()
+        inf.batcher._maybe_adopt_weights()
     try:
         srv = _TCPServer((host, port), _Handler)
     except BaseException:
@@ -829,14 +849,56 @@ def serve(frozen: FrozenModel, port: int = 0, host: str = "0.0.0.0",
     except ValueError:
         pass  # not the main thread (in-process tests drive drain directly)
 
+    hb = None
+    hb_dir = os.environ.get("PADDLE_HEARTBEAT_DIR")
+    hb_tag = os.environ.get("PADDLE_TRAINER_TAG") or os.environ.get(
+        "PADDLE_PS_RANK_TAG")
+    if hb_dir and hb_tag:
+        from ..distributed.heartbeat import HeartBeatWorker
+
+        # a replica in a launcher's trainer slot stamps under its rank,
+        # the name the launcher's HeartBeatMonitor reads (the JAX
+        # package stamps under the tag, which the monitor never reads:
+        # its serving jobs abort once the startup grace runs out)
+        rank = os.environ.get("PADDLE_TRAINER_ID")
+        who = int(rank) if os.environ.get("PADDLE_TRAINER_TAG") and \
+            rank is not None else hb_tag
+        hb = HeartBeatWorker(hb_dir, who).start()
+    bound_host, bound_port = srv.server_address[0], srv.server_address[1]
+    if bound_host in ("0.0.0.0", ""):
+        bound_host = "127.0.0.1"
+    lease_worker = None
+    try:
+        from ..distributed import coordinator as _coord
+
+        lease_worker = _coord.maybe_start_lease_worker(
+            kind="inference", tag=hb_tag,
+            self_endpoint=f"{bound_host}:{bound_port}",
+            payload_fn=lambda: {"serving": inf.batcher.stats()})
+    except Exception as e:  # noqa: BLE001 — leases are advisory here
+        print(f"[inference_server] lease worker failed to start: {e}",
+              file=sys.stderr, flush=True)
     if ready_cb is not None:
         ready_cb(srv.server_address)
     try:
         srv.serve_forever(poll_interval=0.1)
     finally:
+        if hb is not None:
+            # the last stamp says the replica is exiting: its teardown
+            # is not read as a hang by the launcher's monitor
+            hb.stop(exiting=True)
+        if lease_worker is not None:
+            lease_worker.stop()
         srv.close_all_connections()
         srv.server_close()
         inf.close()
+        try:
+            # final synchronous flush: spans from the last requests
+            # leave the replica before the process does
+            if _export is not None and _export.active_traces():
+                _export.active_traces().flush()
+        except Exception:  # noqa: BLE001 — best-effort on the way out
+            pass
         _tracing.shutdown_dump()
 
 

@@ -1,42 +1,58 @@
-"""Live weight sync: the deterministic packing of a parameter set into
-the rows of a PS weight table, and the arming gate of the subscriber.
+"""Live weight sync: serving replicas subscribe to a PS-hosted weight
+table and adopt fresh parameters under an epoch fence.
 
 Ported from the JAX package's ``inference/weight_sync.py``.  A trainer
 (or a publisher sidecar) packs the model's parameters into rows of an
-ordinary PS table; each serving replica subscribes and hands every
-fresh set to ``on_adopt(weights, version)`` — the serving scheduler
-(``server.MicroBatcher.stage_weights``) installs it between micro-batches
-and bumps the weight epoch.
+ordinary PS table — the same replicated, snapshotted, failover-capable
+tables of ``distributed/ps_server.py``, whose bytes on the wire are the
+JAX package's — and each serving replica subscribes:
 
-  PackPlan / pack / unpack — the [total_rows, dim] float32 layout
-                (sorted names, row offsets derived only from shapes, so
-                trainer and replicas agree without a manifest exchange).
+  publisher   — ``pack()`` flattens every parameter into a deterministic
+                [total_rows, dim] float32 layout (PackPlan: sorted
+                names, row offsets derived only from shapes, so trainer
+                and replicas agree without a manifest exchange) and
+                pushes it with ``load_state_dict`` — a REPLACE, so
+                adoption is value-exact, and a replicated op the
+                primary forwards and logs like any other write.
+  subscriber  — a replica polls the table: on a REPLICATED partition it
+                calls ``fetch_replica_state(have_seq=...)`` exactly like
+                a rejoining backup (full state first, then applied-op
+                tails); on a plain table it falls back to
+                ``state_dict`` + a sha256 digest compare.  Every observed
+                change is handed to ``on_adopt(weights, version)`` — the
+                serving scheduler (``server.MicroBatcher.stage_weights``)
+                installs it between micro-batches and bumps the weight
+                epoch.
 
-Not ported yet: ``WeightPublisher`` and ``WeightSubscriber``, which
-ride the parameter server's tables and ``RemoteTable``, come with
-serving under the launcher (the next item of ROADMAP A6).  So where
-PADDLE_SERVE_WEIGHT_TABLE and endpoints are both set,
-``maybe_start_subscriber`` raises instead of serving static weights the
-caller asked to keep fresh.
-
-Gate: PADDLE_SERVE_WEIGHT_SYNC=0 disables the subscriber entirely.
+Gate: PADDLE_SERVE_WEIGHT_SYNC=0 disables the subscriber entirely —
+serving is then byte-identical to a static frozen model.
 """
 from __future__ import annotations
 
+import hashlib
 import os
+import pickle
+import sys
+import threading
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..distributed.ps import ShardedHostTable
 from ..fluid.dtypes import dtype_name
+from ..telemetry import get_registry
+
+_REG = get_registry()
 
 ENV_SYNC = "PADDLE_SERVE_WEIGHT_SYNC"
 ENV_TABLE = "PADDLE_SERVE_WEIGHT_TABLE"
 ENV_ENDPOINTS = "PADDLE_SERVE_WEIGHT_ENDPOINTS"
+ENV_POLL = "PADDLE_SERVE_WEIGHT_POLL_SECS"
 
 DEFAULT_DIM = 64
+DEFAULT_NUM_SHARDS = 4
 
 
 # ---------------------------------------------------------------------------
@@ -120,25 +136,266 @@ def unpack(plan: PackPlan, rows: np.ndarray) -> Dict[str, np.ndarray]:
     return out
 
 
+# ---------------------------------------------------------------------------
+# publisher (trainer side)
+# ---------------------------------------------------------------------------
+
+
 def table_shape(plan: PackPlan) -> tuple:
     return (plan.total_rows, plan.dim)
 
 
+def table_kwargs(plan: PackPlan) -> dict:
+    """The weight table's creation kwargs (pair with table_shape).
+    SGD/lr are inert — the publisher only ever replaces state — but the
+    spec is table identity on the server, so every party must build the
+    same one: ``RemoteTable(name, table_shape(p), eps, **table_kwargs(p))``."""
+    return {"dtype": "float32", "num_shards": DEFAULT_NUM_SHARDS,
+            "optimizer": "sgd", "learning_rate": 0.0, "seed": 0}
+
+
+def _server_states(packed: np.ndarray, n_servers: int,
+                   num_shards: int = DEFAULT_NUM_SHARDS) -> List[dict]:
+    """Split packed rows into per-server ShardedHostTable state_dicts
+    matching RemoteTable's row placement (global row r -> server r % n,
+    local r // n; within a server, shard s holds local % num_shards ==
+    s at local // num_shards)."""
+    states = []
+    for s in range(n_servers):
+        rows_s = packed[s::n_servers]
+        shards = [np.ascontiguousarray(rows_s[k::num_shards])
+                  for k in range(num_shards)]
+        states.append({"shards": shards, "accum": [None] * num_shards,
+                       "optimizer": "sgd", "learning_rate": 0.0})
+    return states
+
+
+class WeightPublisher:
+    """Push a scope's parameters into the weight table.  ``table`` is any
+    ShardedHostTable duck type (in-process table or RemoteTable)."""
+
+    def __init__(self, table, plan: PackPlan):
+        self.table = table
+        self.plan = plan
+        self.pushes = 0
+
+    def publish(self, scope_or_values) -> int:
+        values = scope_or_values
+        if hasattr(scope_or_values, "find_var"):
+            values = {n: scope_or_values.find_var(n)
+                      for n in self.plan.names()}
+        packed = pack(self.plan, values)
+        n = getattr(self.table, "_n", None)
+        if n is None:  # in-process ShardedHostTable
+            k = self.table.num_shards
+            self.table.load_state_dict(_server_states(packed, 1, k)[0])
+        else:
+            k = self.table._specs[0]["num_shards"]
+            self.table.load_state_dict(
+                {"servers": _server_states(packed, n, k)})
+        self.pushes += 1
+        _REG.counter("serve_weight_pushes_total").inc()
+        return self.pushes
+
+
 # ---------------------------------------------------------------------------
-# subscriber arming (replica side)
+# subscriber (replica side)
 # ---------------------------------------------------------------------------
+
+
+class WeightSubscriber:
+    """Poll the weight table and deliver fresh parameter sets.
+
+    Replicated partitions are followed like a rejoining backup follows
+    its primary: ``fetch_replica_state(have_seq)`` hands back either the
+    applied-op tail since have_seq (cheap steady state) or a full state
+    transfer (first contact / ring overrun), applied to a local mirror
+    table with the server's own arithmetic — the mirror is bit-identical
+    to the primary's copy by construction.  Plain tables fall back to
+    polled ``state_dict`` + sha256 digest compare.
+
+    on_adopt(weights, version) runs on the poll thread; the consumer
+    (server.py) stages the delivery and installs it under its own epoch
+    fence.
+    """
+
+    def __init__(self, endpoints: Sequence[str], name: str, plan: PackPlan,
+                 on_adopt: Callable[[Dict[str, np.ndarray], int], None],
+                 poll_secs: float = 2.0, create: bool = False):
+        from ..distributed.ps_server import _Conn
+
+        self.endpoints = list(endpoints)
+        self.name = name
+        self.plan = plan
+        self.on_adopt = on_adopt
+        self.poll_secs = float(poll_secs)
+        self._n = len(self.endpoints)
+        self._conns = [_Conn(ep, deadline=5.0, io_timeout=15.0)
+                       for ep in self.endpoints]
+        self._create = bool(create)
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self.version = 0
+        self._seq: Dict[int, int] = {}       # partition -> last seq
+        self._mirrors: Dict[int, ShardedHostTable] = {}
+        self._digest: Optional[str] = None   # plain-table mode
+        self._replicated: Optional[bool] = None
+        # set once the poll thread's first round has ended, adopted or
+        # not (serve() binds its port only then)
+        self.first_round = threading.Event()
+
+    # -- partition plumbing ----------------------------------------------
+    def _part_rows(self, p: int) -> int:
+        return (self.plan.total_rows - p + self._n - 1) // self._n
+
+    def _mirror(self, p: int) -> ShardedHostTable:
+        m = self._mirrors.get(p)
+        if m is None:
+            kw = table_kwargs(self.plan)
+            kw.pop("dtype", None)
+            m = ShardedHostTable(self.name,
+                                 (self._part_rows(p), self.plan.dim),
+                                 **kw)
+            self._mirrors[p] = m
+        return m
+
+    def _probe_replicated(self) -> Optional[bool]:
+        """True: follow replicated partitions; False: plain polling;
+        None: the table does not exist YET — decide on a later poll
+        (latching a mode before the publisher created the table would
+        pin the subscriber to the wrong key shape forever)."""
+        # the replicated key first; missing replica state on an
+        # existing table reports role None, a missing table raises
+        try:
+            st = self._conns[0].call("replica_status", name=self.name,
+                                     partition=0)
+            return st.get("role") is not None
+        except Exception:  # noqa: BLE001 — fall back to the plain key
+            try:
+                st = self._conns[0].call("replica_status", name=self.name)
+                return st.get("role") is not None
+            except Exception:  # noqa: BLE001
+                return None
+
+    def _fetch_partition(self, p: int) -> bool:
+        """Pull partition p up to date; True when new writes landed."""
+        from ..distributed.ps_server import NotPrimaryError, \
+            StalePrimaryError, _table_key
+
+        key = _table_key(self.name, p)
+        mirror = self._mirror(p)
+        have = self._seq.get(p, -1)
+        last_err: Optional[BaseException] = None
+        # primary discovery: partition p's chain starts at server p
+        for off in range(self._n):
+            j = (p + off) % self._n
+            try:
+                out = self._conns[j].call("fetch_replica_state", key=key,
+                                          have_seq=have)
+            except (NotPrimaryError, StalePrimaryError, ConnectionError,
+                    KeyError) as e:
+                last_err = e
+                continue
+            if "state" in out:
+                state = dict(out["state"])
+                state.pop("replica_meta", None)
+                mirror.load_state_dict(state)
+            else:
+                for _seq, op, ids, payload, _dedup in out["tail"]:
+                    if op == "push_gradients":
+                        mirror.push_gradients(ids, payload)
+                    elif op == "push_delta":
+                        mirror.push_delta(ids, payload)
+                    elif op == "load_state":
+                        mirror.load_state_dict(dict(payload))
+                    else:
+                        raise ValueError(
+                            f"weight sync: unknown replicated op {op!r}")
+            new_seq = int(out["seq"])
+            changed = new_seq != have
+            self._seq[p] = new_seq
+            return changed
+        raise ConnectionError(
+            f"weight table {self.name!r} partition {p}: no replica "
+            f"answered fetch_replica_state: {last_err}")
+
+    def _poll_plain(self) -> bool:
+        """Unreplicated fallback: full state_dict per server + digest."""
+        states = [self._conns[s].call("state_dict", name=self.name)
+                  for s in range(self._n)]
+        blob = pickle.dumps(states, protocol=pickle.HIGHEST_PROTOCOL)
+        digest = hashlib.sha256(blob).hexdigest()
+        if digest == self._digest:
+            return False
+        self._digest = digest
+        for s, st in enumerate(states):
+            st = dict(st)
+            st.pop("replica_meta", None)
+            self._mirror(s).load_state_dict(st)
+        return True
+
+    # -- the poll --------------------------------------------------------
+    def poll_once(self) -> bool:
+        """One subscription round; True when fresh weights were adopted
+        (on_adopt ran).  Deterministic — tests drive it directly."""
+        if self._replicated is None:
+            self._replicated = self._probe_replicated()
+            if self._replicated is None:
+                return False  # table not created yet; retry next poll
+        if self._replicated:
+            changed = False
+            for p in range(self._n):
+                changed |= self._fetch_partition(p)
+        else:
+            changed = self._poll_plain()
+        if not changed:
+            return False
+        packed = np.empty((self.plan.total_rows, self.plan.dim),
+                          np.float32)
+        for p in range(self._n):
+            packed[p::self._n] = self._mirrors[p].to_dense()
+        self.version += 1
+        _REG.counter("serve_weight_adoptions_total").inc()
+        self.on_adopt(unpack(self.plan, packed), self.version)
+        return True
+
+    # -- thread lifecycle ------------------------------------------------
+    def start(self) -> "WeightSubscriber":
+        def loop():
+            while not self._stop.is_set():
+                try:
+                    self.poll_once()
+                except Exception as e:  # noqa: BLE001 — serving survives
+                    _REG.counter("serve_weight_poll_errors_total").inc()
+                    print(f"[weight_sync] poll failed: {e}",
+                          file=sys.stderr, flush=True)
+                finally:
+                    self.first_round.set()
+                self._stop.wait(self.poll_secs)
+            self.first_round.set()
+
+        self._thread = threading.Thread(target=loop, daemon=True,
+                                        name="serve-weight-sync")
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5.0)
+        for c in self._conns:
+            c.close()
 
 
 def sync_enabled() -> bool:
     return os.environ.get(ENV_SYNC, "1") not in ("0", "false", "off")
 
 
-def maybe_start_subscriber(frozen, on_adopt):
-    """Env-driven arming: PADDLE_SERVE_WEIGHT_TABLE plus endpoints
-    (PADDLE_SERVE_WEIGHT_ENDPOINTS, falling back to the PS list), unless
-    PADDLE_SERVE_WEIGHT_SYNC is 0.  Returns None when not armed; raises
-    when armed, since the subscriber comes with serving under the
-    launcher (the next item of ROADMAP A6)."""
+def maybe_start_subscriber(frozen, on_adopt) -> Optional[WeightSubscriber]:
+    """Env-driven arming: needs PADDLE_SERVE_WEIGHT_TABLE plus endpoints
+    (PADDLE_SERVE_WEIGHT_ENDPOINTS, falling back to the PS list), and
+    PADDLE_SERVE_WEIGHT_SYNC must not be 0.  Returns the started
+    subscriber or None."""
     if not sync_enabled():
         return None
     name = os.environ.get(ENV_TABLE)
@@ -149,8 +406,7 @@ def maybe_start_subscriber(frozen, on_adopt):
     endpoints = [e.strip() for e in raw.split(",") if e.strip()]
     if not endpoints:
         return None
-    raise NotImplementedError(
-        f"live weight sync from table {name!r} at {endpoints} needs the "
-        f"WeightSubscriber, which is not ported yet (serving under the "
-        f"launcher, the next item of ROADMAP A6); unset {ENV_TABLE} or "
-        f"set {ENV_SYNC}=0 to serve the loaded weights")
+    poll = float(os.environ.get(ENV_POLL, 2.0) or 2.0)
+    plan = plan_for_frozen(frozen)
+    return WeightSubscriber(endpoints, name, plan, on_adopt,
+                            poll_secs=poll).start()

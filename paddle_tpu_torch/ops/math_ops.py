@@ -57,6 +57,74 @@ def _binary(fn):
     return lambda x, y: fn(*_promoted(x, y))
 
 
+def _promoted_numeric(x, y):
+    """``_promoted``, then two bools to int32, as jnp's numeric ops
+    promote them (``promote_dtypes_numeric``)."""
+    x, y = _promoted(x, y)
+    if x.dtype == torch.bool:
+        return x.to(torch.int32), y.to(torch.int32)
+    return x, y
+
+
+def _mod(x, y):
+    """jnp.mod: an integer divisor of 0 (and a signed -1, which torch may
+    trap on at the type's minimum) is taken as 1, so the remainder is 0;
+    a float divisor of 0 gives NaN.  uint8 has no -1: torch compares its
+    255 equal to -1, so the rule stays off it."""
+    if x.is_floating_point():
+        return torch.remainder(x, y)
+    one = y == 0
+    if x.dtype != torch.uint8:
+        one = one | (y == -1)
+    return torch.remainder(x, torch.where(one, 1, y))
+
+
+def _floordiv(x, y):
+    """jnp.floor_divide, its zero rules written out so that the CPU and the
+    card agree: a float divisor of 0 gives NaN (its float_divmod takes
+    fmod(x, 0)); an integer one gives XLA's quotient -1 (all ones
+    unsigned) less 1 where the dividend is not 0, as the sign test
+    then fires; a divisor of -1 negates, wrapping the type's minimum."""
+    zero = y == 0
+    if x.is_floating_point():
+        return torch.where(zero, float("nan"), torch.floor_divide(x, y))
+    if x.dtype == torch.uint8:
+        return torch.where(zero, 255, torch.floor_divide(
+            x, torch.where(zero, 1, y)))
+    neg1 = y == -1
+    q = torch.floor_divide(x, torch.where(zero | neg1, 1, y))
+    q = torch.where(neg1, -x, q)
+    return torch.where(zero, torch.where(x != 0, -2, -1).to(x.dtype), q)
+
+
+def _int_product(x, y):
+    """An integer or bool matmul computed the same way on the CPU and on
+    the card (cuBLAS has no integer or bool product): int64 products
+    summed over K in chunks, then wrapped to the operands' dtype as jnp's
+    integer dot wraps; a bool product is True where any AND is."""
+    x64 = x.to(torch.int64) if x.dim() > 1 else x.to(torch.int64)[None]
+    y64 = y.to(torch.int64) if y.dim() > 1 else y.to(torch.int64)[:, None]
+    m, k, n = x64.shape[-2], x64.shape[-1], y64.shape[-1]
+    acc = torch.zeros(torch.broadcast_shapes(x64.shape[:-2], y64.shape[:-2])
+                      + (m, n), dtype=torch.int64, device=x.device)
+    step = max(1, (1 << 24) // max(1, acc.numel()))
+    for i in range(0, k, step):
+        acc += (x64[..., i:i + step, None]
+                * y64[..., i:i + step, :].unsqueeze(-3)).sum(-2)
+    if x.dim() == 1:
+        acc = acc.squeeze(-2)
+    if y.dim() == 1:
+        acc = acc.squeeze(-1)
+    return acc != 0 if x.dtype == torch.bool else acc.to(x.dtype)
+
+
+def _product(x, y):
+    """``torch.matmul``, but for integer and bool operands."""
+    if x.is_floating_point():
+        return torch.matmul(x, y)
+    return _int_product(x, y)
+
+
 def _unbroadcast(g, shape):
     """``g`` summed down to ``shape`` over the dims a broadcast grew."""
     lead = g.dim() - len(shape)
@@ -105,8 +173,9 @@ _ew("elementwise_div", torch.true_divide)
 # floor_divide (the divisor's sign, floor rounding), jnp.power
 _ew("elementwise_min", _min_max(torch.minimum))
 _ew("elementwise_max", _min_max(torch.maximum))
-_ew("elementwise_mod", _binary(torch.remainder))
-_ew("elementwise_floordiv", _binary(torch.floor_divide))
+_ew("elementwise_mod", lambda x, y: _mod(*_promoted_numeric(x, y)))
+_ew("elementwise_floordiv",
+    lambda x, y: _floordiv(*_promoted_numeric(x, y)))
 _ew("elementwise_pow", _binary(torch.pow))
 
 
@@ -153,10 +222,10 @@ def matmul(ctx, ins, attrs):
         x = x.transpose(-1, -2)
     if attrs.get("transpose_Y", False) and y.dim() > 1:
         y = y.transpose(-1, -2)
-    out = torch.matmul(x, y)
+    out = _product(x, y)
     alpha = attrs.get("alpha", 1.0)
-    if alpha != 1.0:
-        out = out * alpha
+    if alpha != 1.0:  # alpha in Out's dtype first, as jnp.asarray casts it
+        out = out * torch.tensor(alpha, device=out.device).to(out.dtype)
     return {"Out": [_tp_out(ctx, attrs, out)]}
 
 
@@ -174,7 +243,7 @@ def mul(ctx, ins, attrs):
     x2 = x.reshape(math.prod(xs[:xn]), math.prod(xs[xn:]))
     y2 = y.reshape(math.prod(ys[:yn]), math.prod(ys[yn:]))
     return {"Out": [_tp_out(ctx, attrs,
-                            (x2 @ y2).reshape(xs[:xn] + ys[yn:]))]}
+                            _product(x2, y2).reshape(xs[:xn] + ys[yn:]))]}
 
 
 def _act(name, fn):

@@ -26,8 +26,9 @@ As the JAX version does, ``init_parallel_env`` first starts this rank's
 liveness reporting for the launcher (``distributed.heartbeat.
 start_heartbeat``: heartbeat stamps under PADDLE_HEARTBEAT_DIR, and
 coordinator lease renewals where PADDLE_COORDINATOR_ENDPOINT and
-PADDLE_LEASE_SECS arm them).  Its other hooks (trace collection, debugz,
-the metrics push exporter) are not ported: where their variables are
+PADDLE_LEASE_SECS arm them), then the metrics push exporter
+(PADDLE_METRICS_PUSH_URL, ``telemetry/export.py``).  Its other hooks
+(trace collection, debugz) are not ported: where their variables are
 set, ``init_parallel_env`` raises instead of running without them.
 """
 from __future__ import annotations
@@ -44,8 +45,6 @@ ENV_RENDEZVOUS = "PADDLE_DIST_RENDEZVOUS"
 _UNPORTED_HOOKS = {
     "PADDLE_TRACE_DIR": "per-rank trace collection (ROADMAP A8)",
     "PADDLE_DEBUGZ_PORT": "the debugz server (ROADMAP A8)",
-    "PADDLE_METRICS_PUSH_URL": "the metrics push exporter (ROADMAP A8)",
-    "PADDLE_TRACES_PUSH_URL": "the traces push exporter (ROADMAP A8)",
 }
 
 
@@ -124,6 +123,11 @@ def init_parallel_env(backend=None, device=None, init_method=None,
         from ..distributed.heartbeat import start_heartbeat
 
         _state["liveness"] = start_heartbeat()
+    # the metrics push exporter (a no-op unless PADDLE_METRICS_PUSH_URL
+    # is set; resolved once a process)
+    from ..telemetry import export
+
+    export.maybe_start()
     dev = rank_device(device)
     backend = backend or choose_backend(dev)
     if dev.type == "cuda":

@@ -9,13 +9,15 @@ causal request tracing, the goodput ledger and the /memz registry.
   telemetry.goodput    goodput/badput ledger (PADDLE_GOODPUT); the
                        generation engine charges serving badput here
   telemetry.memory     PADDLE_HBM_BUDGET_BYTES and the /memz sections
+  telemetry.export     the metrics and span push exporters
+                       (PADDLE_METRICS_PUSH_URL, PADDLE_TRACES_PUSH_URL)
 
 All stdlib-only copies of the JAX package's modules of the same names
 (memory.py keeps only its framework-neutral part).
 """
 from __future__ import annotations
 
-from . import goodput, memory, sink, tracing  # noqa: F401
+from . import export, goodput, memory, sink, tracing  # noqa: F401
 from .registry import (  # noqa: F401
     BYTE_BUCKETS,
     DEFAULT_MS_BUCKETS,

@@ -417,6 +417,69 @@ EMIT = {
                                                np.float32)}, {}),
 }
 
+# ROADMAP C1-C5, the five faults of the edge-case probe: zero divisors, bool
+# operands, matmul's alpha in Out's dtype, bool products
+_I32 = np.array([5, -5, 0, 7], np.int32)
+_BOOL = np.array([True, False, True, True])
+_SMALL = np.random.default_rng(21)
+EDGE = {
+    "elementwise_floordiv_f32_by_zero": ("elementwise_floordiv", {
+        "X": np.array([5.0, -5.0, 0.0, np.inf, -np.inf, 3.0], np.float32),
+        "Y": np.array([0.0, -0.0, 0.0, 0.0, -0.0, 2.0], np.float32)}, {}),
+    "elementwise_floordiv_bf16_by_zero": ("elementwise_floordiv", {
+        "X": _Bf16(np.array([5.0, -5.0, 0.0, 3.0], np.float32)),
+        "Y": _Bf16(np.array([0.0, 0.0, 0.0, 2.0], np.float32))}, {}),
+    **{f"elementwise_{op}_{t}_by_zero": (f"elementwise_{op}", {
+        "X": _I32.astype(t), "Y": np.array([0, 0, 0, 2], t)}, {})
+       for op in ("mod", "floordiv") for t in ("int32", "int8")},
+    **{f"elementwise_{op}_uint8_by_zero": (f"elementwise_{op}", {
+        "X": np.array([5, 0, 255, 7], np.uint8),
+        "Y": np.array([0, 0, 0, 2], np.uint8)}, {})
+       for op in ("mod", "floordiv")},
+    **{f"elementwise_{op}_bool": (f"elementwise_{op}", {
+        "X": _BOOL, "Y": np.array([True, True, False, True])}, {})
+       for op in ("mod", "floordiv")},
+    "matmul_int_alpha_half": ("matmul", {
+        "X": np.arange(6, dtype=np.int32).reshape(2, 3),
+        "Y": np.arange(6, dtype=np.int32).reshape(3, 2) - 2},
+        {"alpha": 0.5}),
+    "matmul_int_alpha_neg": ("matmul", {
+        "X": np.arange(6, dtype=np.int32).reshape(2, 3),
+        "Y": np.ones((3, 2), np.int32)}, {"alpha": -1.5}),
+    # integer-valued bf16: every sum is exact, only alpha's rounding shows
+    **{f"matmul_bf16_alpha_{a}": ("matmul", {
+        "X": _Bf16(_SMALL.integers(-3, 4, (4, 8, 64)).astype(np.float32)),
+        "Y": _Bf16(_SMALL.integers(-3, 4, (4, 64, 8)).astype(np.float32))},
+        {"alpha": a}) for a in (0.3, 0.1)},
+    "matmul_bool": ("matmul", {"X": np.ones((2, 3), bool),
+                               "Y": np.ones((3, 2), bool)}, {}),
+    "matmul_bool_t": ("matmul", {
+        "X": np.array([[True, False, True], [False, False, False]]),
+        "Y": np.array([[True, False, False], [False, True, False]])},
+        {"transpose_Y": True}),
+    "mul_bool": ("mul", {
+        "X": np.array([[[True, False], [False, False]],
+                       [[False, True], [True, True]]]),
+        "Y": np.array([[False, True, True], [True, False, True]])},
+        {"x_num_col_dims": 2, "y_num_col_dims": 1}),
+}
+# paths the repairs rewrote, which the parent already got right
+EDGE_KEPT = {
+    **{f"elementwise_{op}_int_min_by_minus_one": (f"elementwise_{op}", {
+        "X": np.array([-2 ** 31, 7, -7], np.int32),
+        "Y": np.array([-1, -1, -1], np.int32)}, {})
+       for op in ("mod", "floordiv")},
+    # uint8 has no -1 for the signed rule to catch (torch reads 255 as -1)
+    **{f"elementwise_{op}_uint8_by_255": (f"elementwise_{op}", {
+        "X": np.array([5, 254, 255], np.uint8),
+        "Y": np.array([255, 255, 255], np.uint8)}, {})
+       for op in ("mod", "floordiv")},
+    "mul_int8_wraps":("mul", {"X": np.full((2, 64), 5, np.int8),
+                               "Y": np.full((64, 3), 3, np.int8)}, {}),
+}
+EMIT.update(EDGE)
+EMIT.update(EDGE_KEPT)
+
 
 def _as(ins, conv):
     def one(a):
@@ -449,6 +512,28 @@ def test_emitter_matches_jax(name):
                 a, b = a.astype(np.float32), b.float()
             assert tdtypes.from_torch_dtype(b.dtype) == a.dtype, slot
             np.testing.assert_allclose(b.numpy(), a, atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("name", sorted(EDGE) + sorted(EDGE_KEPT))
+def test_edge_case_emitters_match_jax_exactly(name):
+    """C1-C5: dtype, shape and every value equal to the JAX emitter's,
+    bf16 bit for bit, NaN where it has NaN (of any sign)."""
+    op, ins, attrs = {**EDGE, **EDGE_KEPT}[name]
+    j = jreg.get(op).emit(jreg.EmitContext(), _as(ins, jnp.asarray),
+                          dict(attrs))["Out"][0]
+    t = treg.get(op).emit(treg.EmitContext(), _as(ins, torch.as_tensor),
+                          dict(attrs))["Out"][0]
+    a = np.asarray(j)
+    assert tuple(t.shape) == a.shape
+    if t.dtype == torch.bfloat16:  # NaN's sign and payload are the host's
+        assert a.dtype == jnp.bfloat16
+        nan = np.isnan(a.astype(np.float32))
+        np.testing.assert_array_equal(t.isnan().numpy(), nan)
+        np.testing.assert_array_equal(t.view(torch.int16).numpy()[~nan],
+                                      a.view(np.int16)[~nan])
+        return
+    assert tdtypes.from_torch_dtype(t.dtype) == a.dtype
+    np.testing.assert_array_equal(t.numpy(), a)
 
 
 @pytest.mark.parametrize("name", ["elementwise_add_axis", "mul", "slice",

@@ -223,6 +223,27 @@ def test_exiting_stamp_gets_the_startup_grace_not_the_timeout(tmp_path):
     assert mon.stale_ranks(now=now + 8.0) == [0, 1]
 
 
+def test_rearm_gives_a_respawned_rank_the_startup_grace(tmp_path):
+    """A replica respawned in place: its predecessor's stamp, left on
+    disk and older than the re-arm, counts as none, so the new process
+    gets the startup grace for its first stamp; once it stamps, the
+    timeout applies again."""
+    mon = thb.HeartBeatMonitor(str(tmp_path), [0, 1], timeout=1.0,
+                               startup_grace=10.0)
+    now = time.time()
+    mon._t0 = now - 20.0
+    _stamp(tmp_path, 0, mtime=now - 3.0)
+    _stamp(tmp_path, 1, mtime=now - 3.0)
+    assert mon.stale_ranks(now=now) == [0, 1]
+    mon.rearm(0)
+    assert mon._since[0] >= now
+    assert mon.stale_ranks(now=now) == [1]
+    assert mon.stale_ranks(now=mon._since[0] + 11.0) == [0, 1]
+    _stamp(tmp_path, 0, mtime=mon._since[0] + 1.0)
+    assert mon.stale_ranks(now=mon._since[0] + 1.5) == [1]
+    assert mon.stale_ranks(now=mon._since[0] + 3.0) == [0, 1]
+
+
 def test_clean_exit_writes_an_exiting_stamp_and_stop_does_not(tmp_path):
     """The worker's atexit hook writes the ``exiting`` stamp; a worker
     stopped on purpose (a rank that goes silent) writes none."""

@@ -99,7 +99,7 @@ for n in ("fluid", "fluid.layers", "fluid.executor", "fluid.framework",
           "fleet.base.role_maker", "fleet.metrics", "distributed.ps",
           "distributed.launch", "distributed.heartbeat",
           "distributed.coordinator", "ops.ps_ops", "fluid.layers.sequence",
-          "fluid.transpiler"):
+          "fluid.transpiler", "telemetry.export"):
     assert "paddle_tpu_torch." + n in names, n
 """
 
@@ -590,7 +590,9 @@ sys.exit(rc if not bad else 99)
 def test_the_launcher_and_its_children_import_no_jax(tmp_path):
     """The port's launcher (lease plane armed) and a rank it starts
     (process group over the launcher's rendezvous, heartbeat and lease
-    renewals) import neither jax nor paddle_tpu."""
+    renewals) import neither jax nor paddle_tpu; nor does a ``--serve``
+    job: its launcher, and its replicas (heartbeats, leases, the decoder
+    engine) map no jaxlib while they serve, and drain to exit 0."""
     child = tmp_path / "child.py"
     child.write_text(_LAUNCHED_CHILD)
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
@@ -605,6 +607,70 @@ def test_the_launcher_and_its_children_import_no_jax(tmp_path):
     assert r.returncode == 0, r.stdout + r.stderr + logs
     assert "LAUNCHER 0 []" in r.stdout
     assert (tmp_path / "ok.0").exists() and (tmp_path / "ok.1").exists()
+
+    import signal
+    import socket
+    import time
+
+    from paddle_tpu_torch.distributed.ps_server import _Conn
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x = fluid.layers.data("x", [8], dtype="float32")
+        pred = fluid.layers.fc(x, 4)
+    exe = fluid.Executor(device="cpu")
+    model = str(tmp_path / "model")
+    with fluid.scope_guard(fluid.Scope()):
+        exe.run(startup)
+        fluid.io.save_inference_model(model, ["x"], [pred], exe,
+                                      main_program=main)
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    base = s.getsockname()[1]
+    s.close()
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _LAUNCHER, "--serve", "--nproc_per_node",
+         "2", "--started_port", str(base), "--lease_secs", "5",
+         "--heartbeat_timeout", "5", "--log_dir",
+         str(tmp_path / "serve_logs"), model, "--device", "cpu"],
+        env=dict(env, PADDLE_SERVE_GEN="1", PADDLE_SERVE_WEIGHT_SYNC="0"),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=REPO)
+    kids = []
+    try:
+        pending, deadline = {base, base + 1}, time.time() + 120
+        while pending and time.time() < deadline:
+            for port in list(pending):
+                try:
+                    if _Conn(f"127.0.0.1:{port}", deadline=1.0).call(
+                            "health")["ok"]:
+                        pending.discard(port)
+                except Exception:  # noqa: BLE001
+                    pass
+            time.sleep(0.2)
+        assert not pending, proc.stdout.read() if proc.poll() else pending
+        for task in os.listdir(f"/proc/{proc.pid}/task"):
+            with open(f"/proc/{proc.pid}/task/{task}/children") as f:
+                kids += [int(k) for k in f.read().split()]
+        assert len(kids) == 2, kids
+        for pid in kids:
+            with open(f"/proc/{pid}/maps") as f:
+                maps = f.read()
+            for lib in ("jaxlib", "xla_extension"):
+                assert lib not in maps, (pid, lib)
+            os.kill(pid, signal.SIGTERM)
+        out = proc.communicate(timeout=60)[0]
+        assert proc.returncode == 0, out
+        assert "LAUNCHER 0 []" in out
+    finally:
+        if proc.poll() is None:   # the launcher and its replicas
+            for pid in kids:
+                try:
+                    os.kill(pid, signal.SIGKILL)
+                except OSError:
+                    pass
+            proc.kill()
+            proc.wait()
 
 
 def test_a_launched_pserver_sees_no_card_and_imports_no_jax():

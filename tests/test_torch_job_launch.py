@@ -390,17 +390,17 @@ def test_launch_hosts_a_durable_coordinator_process(jobs):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--serve"], "serving under the launcher"),
     (["--fleetz_port", "0"], "ROADMAP A8"),
     (["--debugz_port", "0"], "ROADMAP A8"),
     (["--trace_dir", "t"], "ROADMAP A8"),
     (["--straggler_factor", "3"], "ROADMAP A8"),
     (["--straggler_eject_factor", "3"], "ROADMAP A8"),
-], ids=["serve", "fleetz_port", "debugz_port", "trace_dir",
+], ids=["fleetz_port", "debugz_port", "trace_dir",
         "straggler_factor", "straggler_eject_factor"])
 def test_refused_flags_name_their_roadmap_item(argv, item):
     # the pserver flags are ported (tests/test_torch_ps_dist.py,
-    # test_torch_ps_replication.py); --serve waits for the next A6 item
+    # test_torch_ps_replication.py), and --serve
+    # (tests/test_torch_serve_launch.py)
     with pytest.raises(NotImplementedError, match=item):
         tlaunch.launch(argv + ["worker.py"])
 

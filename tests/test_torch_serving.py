@@ -14,8 +14,10 @@ against the port's replica and the port's client against the JAX
 replica, a model the JAX package saved served by the port within 1e-4
 of the JAX predictor, a raw-framing request as ``clients/go/README.md``
 gives it, and replies that hold numpy and plain values only.  Last, the
-refusals of what is not ported (weight sync, debugz, the exporters,
-heartbeat and lease environments, lease fault rules).
+refusals of what is not ported (debugz, the `oom` fault rule).  Live
+weight sync is held in ``test_torch_weight_sync.py``, the replica under
+the launcher (heartbeat, lease) in ``test_torch_serve_launch.py`` and
+the push exporters in ``test_torch_export.py``.
 """
 from __future__ import annotations
 
@@ -284,6 +286,33 @@ def test_server_roundtrip_and_stats(tiny_frozen):
         _stop_tcp(srv)
         inf.close()
     assert srv_mod.current_status() is None
+
+
+def test_stats_reports_the_kernel_launch_counts(tiny_frozen, monkeypatch):
+    """A replica's ``stats`` carries every kernel wrapper's launch count
+    in its process (``ops.kernels.launch_counts``), so that a caller in
+    another process reads which kernels its requests launched."""
+    from paddle_tpu_torch.ops.kernels import (add_ln, flash_attention,
+                                              launch_counts,
+                                              paged_attention)
+
+    monkeypatch.setattr(paged_attention.paged_attention, "launches", 3)
+    monkeypatch.setattr(add_ln.fused_add_ln, "launches", 25)
+    monkeypatch.setattr(flash_attention.flash_attention_bsh,
+                        "launches_tc", 7)
+    inf = InferenceServer(tiny_frozen, max_batch=4, device="cpu")
+    srv, ep = _start_tcp(inf)
+    try:
+        cli = InferenceClient([ep])
+        got = cli.stats()["kernel_launches"]
+        cli.close()
+    finally:
+        _stop_tcp(srv)
+        inf.close()
+    assert got == launch_counts()
+    assert (got["paged_attention"], got["add_ln"],
+            got["flash_attention_bsh_tc"]) == (3, 25, 7)
+    assert len([k for k in got if not k.endswith("_tc")]) == 14
 
 
 def test_client_failover_kill_one_of_two_inprocess(tiny_frozen):
@@ -701,32 +730,13 @@ def test_shutdown_verb_drains_and_stops_serve(tiny_frozen):
 # ---------------------------------------------------------------------------
 
 
-def test_weight_sync_env_armed_raises(tiny_frozen, monkeypatch):
-    monkeypatch.setenv(ws.ENV_SYNC, "1")
-    monkeypatch.setenv(ws.ENV_TABLE, "serve_w")
-    monkeypatch.setenv(ws.ENV_ENDPOINTS, "127.0.0.1:1")
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        InferenceServer(tiny_frozen, device="cpu")
-    # the flag off, or no table: nothing to subscribe, nothing raised
-    monkeypatch.setenv(ws.ENV_SYNC, "0")
-    InferenceServer(tiny_frozen, device="cpu").close()
-    monkeypatch.setenv(ws.ENV_SYNC, "1")
-    monkeypatch.delenv(ws.ENV_TABLE)
-    InferenceServer(tiny_frozen, device="cpu").close()
-
-
 @pytest.mark.parametrize("env", [
     {"PADDLE_DEBUGZ_PORT": "0"},
-    {"PADDLE_METRICS_PUSH_URL": "http://127.0.0.1:1/push"},
-    {"PADDLE_TRACES_PUSH_URL": "http://127.0.0.1:1/traces"},
-    {"PADDLE_COORDINATOR_ENDPOINT": "127.0.0.1:1"},
-    {"PADDLE_HEARTBEAT_DIR": "/nonexistent", "PADDLE_TRAINER_TAG": "t0"},
-], ids=["debugz", "metrics_push", "traces_push", "coordinator",
-        "heartbeat"])
+], ids=["debugz"])
 def test_serve_refuses_unported_environment(tiny_frozen, monkeypatch, env):
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A[68]"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A8"):
         srv_mod.serve(tiny_frozen, port=0, host="127.0.0.1", device="cpu")
     assert srv_mod._ACTIVE is None
 
