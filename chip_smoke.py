@@ -75,7 +75,18 @@ prints no result):
                gradient; the eight
                training-breadth update ops, where, the comparisons and
                the elementwise min / max / mod / floordiv, card against
-               CPU within 1e-6 of each tensor's largest element
+               CPU within 1e-6 of each tensor's largest element; the 83
+               core op types of ops/manipulation.py and ops/math_ops.py
+               (298 cases over f32 with NaN / inf / -0.0, bf16, int32 and
+               bool, with top_k and argsort ties and repeated scatter
+               ids), data movement, cumsum and the scatter adds bit for
+               bit, the arithmetic within CORE_LIMIT_*
+  text_cnn     hapi's CNNEncoder text classifier (embedding 30,000 x
+               128, filters 3 / 4 / 5 x 128, fc 2, Adam 1e-3, f32) at 64
+               x 256: 10 steps on the card, 3 from the same scope on the
+               CPU, the loss gap within TEXT_CNN_LOSS_LIMIT and TF32 on
+               shown to exceed it; the pool_size=2 encoder one step on
+               both
   engine       GenerationEngine over TinyDecoderLM at GPT-2-small widths
                (d 768, 12 layers x 12 heads, FFN 3072, vocab 50257, 1024
                positions): 8 requests, one sampled, two sharing a prefix;
@@ -2814,7 +2825,8 @@ def phase_emitters(torch) -> dict:
              f"CPU {grads['cpu'].tolist()}")
     results["lookup_grad_past_table"] = {"grad": grads["cuda"].tolist()}
     out = {"phase": "emitters", "cases": results,
-           "training_breadth": _emitters_training_breadth(torch)}
+           "training_breadth": _emitters_training_breadth(torch),
+           "core_ops": _emitters_core_ops(torch)}
     emit(out)
     return out
 
@@ -2954,6 +2966,505 @@ def _emitters_training_breadth(torch) -> dict:
                 fail(f"emitter {name} {slot}: card vs CPU {rel} relative")
             worst = max(worst, rel)
         out[name] = {"max_rel_err": worst}
+    return out
+
+
+# the core op types of ops/manipulation.py and ops/math_ops.py that came
+# with the text-CNN slice, card against CPU.  Data movement (every
+# manipulation op, and cumsum, scatter's adds and scatter_nd_add, whose
+# adds run in a fixed order on both devices) is held bit for bit, dtype
+# for dtype; the arithmetic within these limits of max(1, |CPU value|):
+CORE_LIMIT_F32 = 2e-6     # f32 unary math, norms, softmax: an ulp or two
+CORE_LIMIT_MM = 1e-5      # f32 products (TF32 off) and linear algebra
+CORE_LIMIT_BF16 = 2.0 ** -7   # one bf16 rounding step of the result
+
+
+def _core_inputs(torch):
+    """f32 with ties, NaN, both infinities and both zeros; the same in
+    bf16; int32 with its extremes; bool; a 5 x 3 table and its ids."""
+    nan, inf = math.nan, math.inf
+    f = np.array([[3, 1, 3, 2, 3, -0.0, 0.0, nan],
+                  [nan, inf, -inf, nan, 0.0, -0.0, 1.0, -2.5]], np.float32)
+    rng = np.random.default_rng(22)
+    return {
+        "f32": f, "bf16": torch.as_tensor(f).to(torch.bfloat16),
+        "int": np.array([[3, -7, 3, 0, 2 ** 31 - 1, -2 ** 31, 5, 3],
+                         [-1, 2, -2, 5, 0, 0, 7, -7]], np.int32),
+        "bool": rng.random((2, 8)) > 0.5,
+        "r3": rng.standard_normal((2, 3, 8)).astype(np.float32),
+        "table": rng.standard_normal((5, 3)).astype(np.float32),
+        "ids": np.array([0, 3, 0, -1, 9, -6, 3], np.int32),
+        "upd": rng.standard_normal((7, 3)).astype(np.float32),
+        "nd": np.array([[0, 1], [4, 2], [-1, 0], [0, -1], [5, 0], [2, 9]],
+                       np.int32),
+        "long": (rng.standard_normal((4, 299)) * 10).astype(np.float32),
+        "spd": (lambda a: a @ a.transpose(0, 2, 1) + 4 * np.eye(
+            4, dtype=np.float32))(rng.standard_normal((3, 4, 4)).astype(
+                np.float32)),
+    }
+
+
+def _core_cases(torch, x) -> dict:
+    """Every op type of the slice over the inputs ``x`` (``_core_inputs``):
+    name -> (op, ins, attrs, limit), limit None for bit for bit."""
+    kinds = ("f32", "bf16", "int", "bool")
+    bf = lambda a: torch.as_tensor(a).to(torch.bfloat16)  # noqa: E731
+    c = {}
+
+    def each(op, attrs, slot="X", ks=kinds, wrap=None, tag=""):
+        for k in ks:
+            v = x[k] if wrap is None else wrap(x[k])
+            c[f"{op}{tag}_{k}"] = (op, {slot: v}, attrs, None)
+
+    two = lambda v: [v, v]  # noqa: E731
+    each("transpose", {"axis": [1, 0]})
+    each("concat", {"axis": 1}, wrap=two)
+    c["concat_int_bool"] = ("concat", {"X": [x["int"], x["bool"]]},
+                            {"axis": 0}, None)
+    each("split", {"axis": 1, "num": 2})
+    c["split_sections"] = ("split", {"X": x["f32"]},
+                           {"axis": 1, "sections": [3, 5]}, None)
+    each("strided_slice", {"axes": [1], "starts": [7], "ends": [0],
+                           "strides": [-2]}, slot="Input")
+    c["strided_slice_pos"] = ("strided_slice", {"Input": x["r3"]}, {
+        "axes": [1, 2], "starts": [0, 1], "ends": [3, 100],
+        "strides": [2, 3]}, None)
+    each("stack", {"axis": 1}, wrap=two)
+    each("unstack", {"axis": 0})
+    each("unbind", {"axis": 1})
+    for op in ("squeeze", "squeeze2"):
+        each(op, {"axes": [1]}, wrap=lambda v: v[:, None])
+    each("flatten", {"axis": 1})
+    each("flatten2", {"axis": 2}, wrap=lambda v: v[None])
+    each("flatten_contiguous_range", {"start_axis": 0, "stop_axis": 1},
+         wrap=lambda v: v[:, None])
+    each("expand", {"expand_times": [2, 1]})
+    each("expand_v2", {"shape": [3, -1, -1]})
+    each("tile", {"repeat_times": [2, 2]})
+    for k, t in (("f32", x["table"]), ("bf16", bf(x["table"])),
+                 ("int", (x["table"] * 9).astype(np.int32)),
+                 ("bool", x["table"] > 0)):
+        c[f"gather_nd_{k}"] = ("gather_nd", {"X": t, "Index": x["nd"]}, {},
+                               None)
+        c[f"scatter_set_{k}"] = ("scatter", {
+            "X": t, "Ids": x["ids"], "Updates": (
+                x["upd"] > 0 if k == "bool" else x["upd"])},
+            {"overwrite": True}, None)
+        if k != "bool":
+            u = x["upd"] * (100 if k == "bf16" else 1)
+            c[f"scatter_add_{k}"] = ("scatter", {
+                "X": t, "Ids": x["ids"], "Updates": u},
+                {"overwrite": False}, None)
+            c[f"scatter_nd_add_{k}"] = ("scatter_nd_add", {
+                "X": t, "Index": np.repeat(x["nd"][:3], 4, 0),
+                "Updates": x["upd"][:, 0].repeat(2)[:12] * 3}, {}, None)
+    each("pad", {"paddings": [1, 0, 2, 3], "pad_value": -0.5})
+    r4 = x["r3"][None]
+    for m in ("constant", "reflect", "edge"):
+        for fmt in ("NCHW", "NHWC"):
+            c[f"pad2d_{m}_{fmt}"] = ("pad2d", {"X": r4}, {
+                "paddings": [1, 2, 3, 0], "mode": m, "pad_value": 1.5,
+                "data_format": fmt}, None)
+    c["pad2d_reflect_bf16"] = ("pad2d", {"X": bf(r4)}, {
+        "paddings": [2, 1, 9, 9], "mode": "reflect"}, None)
+    c["pad2d_edge_int"] = ("pad2d", {"X": x["int"][None, None]}, {
+        "paddings": [1, 1, 2, 2], "mode": "edge"}, None)
+    for m in ("constant", "reflect", "replicate", "circular"):
+        c[f"pad3d_{m}"] = ("pad3d", {"X": r4[None]}, {
+            "paddings": [1, 2, 0, 1, 1, 0], "mode": m, "value": -2.0},
+            None)
+    c["pad3d_circular_bf16_ndhwc"] = ("pad3d", {"X": bf(r4[None])}, {
+        "paddings": [4, 5, 0, 1, 0, 0], "mode": "circular",
+        "data_format": "NDHWC"}, None)
+    each("arg_max", {"axis": 1})
+    each("arg_min", {"axis": -1, "keepdims": True})
+    each("argsort", {"axis": 1})
+    each("argsort", {"axis": 1, "descending": True},
+         ks=("f32", "bf16", "int"), tag="_desc")
+    each("top_k", {"k": 5})
+    c["top_k_v2_smallest"] = ("top_k_v2", {"X": x["f32"]},
+                              {"k": 6, "largest": False}, None)
+    c["top_k_v2_axis0_int"] = ("top_k_v2", {"X": x["int"]},
+                               {"k": 1, "axis": 0}, None)
+    c["top_k_v2_bf16"] = ("top_k_v2", {"X": x["bf16"]}, {"k": 3}, None)
+    for k, v in (("f32", x["long"]), ("bf16", bf(x["long"]))):
+        c[f"cumsum_{k}"] = ("cumsum", {"X": v}, {"axis": 1}, None)
+        c[f"cumsum_rev_excl_{k}"] = ("cumsum", {"X": v}, {
+            "axis": 1, "reverse": True, "exclusive": True}, None)
+    c["cumsum_long_flat"] = ("cumsum", {"X": x["long"]}, {"flatten": True},
+                             None)
+    c["cumsum_special"] = ("cumsum", {"X": x["f32"]}, {"axis": 1}, None)
+    each("cumsum", {"axis": 0}, ks=("int", "bool"))
+    each("flip", {"axis": [0, 1]})
+    each("roll", {"shifts": [3], "axis": [1]})
+    each("roll", {"shifts": [-5], "axis": []}, ks=("f32",), tag="_flat")
+    each("tril_triu", {"diagonal": 1, "lower": True})
+    c["tril_triu_upper"] = ("tril_triu", {"X": x["r3"]},
+                            {"diagonal": -1, "lower": False}, None)
+    each("diag_v2", {"offset": 1})
+    c["diag_v2_vec"] = ("diag_v2", {"X": x["int"][0]},
+                        {"offset": -2, "padding_value": 9.5}, None)
+    for k in kinds:
+        c[f"index_select_{k}"] = ("index_select", {
+            "X": x[k], "Index": np.array([7, -1, 0, 9], np.int32)},
+            {"dim": 1}, None)
+        c[f"take_along_axis_{k}"] = ("take_along_axis", {
+            "Input": x[k], "Index": np.array([[0, 7, -1], [9, 2, 2]],
+                                             np.int32)}, {"Axis": 1}, None)
+    c["meshgrid"] = ("meshgrid", {"X": [x["f32"][0], x["int"][1],
+                                        x["bool"][0]]}, {}, None)
+    c["shard_index"] = ("shard_index", {"X": x["int"]}, {
+        "index_num": 20, "nshards": 3, "shard_id": 1}, None)
+
+    # math_ops.py
+    act = np.concatenate([x["f32"].ravel(), np.array(
+        [-3.5, -3.0, -2.5, -0.5, 0.5, 2.5, 3.0, 6.0, 7.0], np.float32)])
+    acts = {"sigmoid": {}, "tan": {}, "acos": {}, "asin": {}, "atan": {},
+            "sinh": {}, "cosh": {}, "log2": {}, "log10": {}, "log1p": {},
+            "softplus": {}, "softsign": {}, "silu": {}, "swish": {"beta": 1.5},
+            "logsigmoid": {}, "relu6": {}, "leaky_relu": {}, "elu": {},
+            "hard_sigmoid": {}, "hard_swish": {}, "thresholded_relu": {},
+            "hard_shrink": {}, "soft_shrink": {}, "erf": {}, "mish": {}}
+    for op, a in acts.items():
+        c[f"{op}_f32"] = (op, {"X": act}, a, CORE_LIMIT_F32)
+        c[f"{op}_bf16"] = (op, {"X": bf(act)}, a, CORE_LIMIT_BF16)
+        if op not in ("sigmoid", "silu", "erf"):
+            c[f"{op}_int"] = (op, {"X": x["int"] % 97}, a, CORE_LIMIT_F32)
+        if op not in ("sigmoid", "silu", "erf", "logsigmoid", "soft_shrink"):
+            c[f"{op}_bool"] = (op, {"X": x["bool"]}, a, CORE_LIMIT_F32)
+    r = x["r3"]
+    rng = np.random.default_rng(23)
+    g = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    c.update({
+        "matmul_v2": ("matmul_v2", {"X": g(2, 5, 64), "Y": g(64, 3)},
+                      {"trans_x": False}, CORE_LIMIT_MM),
+        "matmul_v2_trans": ("matmul_v2", {"X": g(2, 64, 5), "Y": g(2, 3, 64)},
+                            {"trans_x": True, "trans_y": True},
+                            CORE_LIMIT_MM),
+        "matmul_v2_int": ("matmul_v2", {"X": x["int"],
+                                        "Y": x["int"].T.copy()}, {}, None),
+        "matmul_v2_bool": ("matmul_v2", {"X": x["bool"],
+                                         "Y": x["bool"].T.copy()}, {}, None),
+        "matmul_v2_bf16_f32": ("matmul_v2", {"X": bf(g(2, 16)),
+                                             "Y": g(16, 4)}, {},
+                               CORE_LIMIT_MM),
+        "dot": ("dot", {"X": g(3, 64), "Y": g(3, 64)}, {}, CORE_LIMIT_MM),
+        "dot_int8": ("dot", {"X": np.array([[1, 2]], np.int8),
+                             "Y": np.array([[100, 100]], np.int8)}, {}, None),
+        "dot_bool": ("dot", {"X": x["bool"], "Y": x["bool"][::-1].copy()},
+                     {}, None),
+        "addmm": ("addmm", {"Input": g(3, 4), "X": g(3, 64), "Y": g(64, 4)},
+                  {"Alpha": 0.5, "Beta": 2.0}, CORE_LIMIT_MM),
+        "kron": ("kron", {"X": g(2, 3), "Y": g(3, 2)}, {}, None),
+        "prelu_all": ("prelu", {"X": x["f32"], "Alpha": np.array(
+            [0.25], np.float32)}, {"mode": "all"}, None),
+        "prelu_channel": ("prelu", {"X": r[None], "Alpha": g(2)},
+                          {"mode": "channel"}, None),
+        "prelu_element": ("prelu", {"X": r, "Alpha": g(3, 8)},
+                          {"mode": "element"}, None),
+        "log_softmax": ("log_softmax", {"X": r}, {"axis": -1},
+                        CORE_LIMIT_F32),
+        "log_softmax_special": ("log_softmax", {"X": x["f32"]}, {"axis": 1},
+                                CORE_LIMIT_F32),
+        "log_softmax_int": ("log_softmax", {"X": x["int"] % 13},
+                            {"axis": 1}, CORE_LIMIT_F32),
+        "log_softmax_bf16": ("log_softmax", {"X": bf(r)}, {"axis": 1},
+                             CORE_LIMIT_BF16),
+        "maxout": ("maxout", {"X": np.concatenate([x["f32"], x["f32"]])[
+            None]}, {"groups": 2}, None),
+        "maxout_int": ("maxout", {"X": x["int"].reshape(1, 16)},
+                       {"groups": 4}, None),
+        "isfinite": ("isfinite", {"X": [r, x["f32"]]}, {}, None),
+        "isfinite_true": ("isfinite", {"X": [r, x["int"]]}, {}, None),
+        "isinf": ("isinf", {"X": x["bf16"]}, {}, None),
+        "isnan": ("isnan", {"X": x["f32"]}, {}, None),
+        "isnan_int": ("isnan", {"X": x["int"]}, {}, None),
+        "isfinite_v2": ("isfinite_v2", {"X": x["f32"]}, {}, None),
+        "isinf_v2": ("isinf_v2", {"X": x["bf16"]}, {}, None),
+        "isnan_v2": ("isnan_v2", {"X": x["bool"]}, {}, None),
+        "p_norm_int": ("p_norm", {"X": x["int"] % 11},
+                       {"porder": 2.0, "axis": 1}, CORE_LIMIT_F32),
+        "p_norm_bf16": ("p_norm", {"X": bf(r)}, {"porder": 2.0, "axis": 2},
+                        CORE_LIMIT_BF16),
+        "trace": ("trace", {"Input": r}, {"offset": 1, "axis1": 1,
+                                          "axis2": 2}, CORE_LIMIT_F32),
+        "trace_int": ("trace", {"Input": x["int"]}, {}, None),
+        "trace_bool": ("trace", {"Input": x["bool"]}, {"offset": 1}, None),
+        "cholesky": ("cholesky", {"X": x["spd"]}, {}, CORE_LIMIT_MM),
+        "cholesky_upper": ("cholesky", {"X": x["spd"]}, {"upper": True},
+                           CORE_LIMIT_MM),
+        "cholesky_not_pd": ("cholesky", {"X": np.array(
+            [[1.0, 2.0], [2.0, 1.0]], np.float32)}, {}, CORE_LIMIT_MM),
+        "inverse": ("inverse", {"Input": x["spd"]}, {}, CORE_LIMIT_MM),
+        "matrix_power": ("matrix_power", {"X": x["spd"] / 6}, {"n": 5},
+                         CORE_LIMIT_MM),
+        "matrix_power_neg": ("matrix_power", {"X": x["spd"]}, {"n": -2},
+                             CORE_LIMIT_MM),
+        "matrix_power_int": ("matrix_power", {"X": np.array(
+            [[1, 1], [1, 0]], np.int32)}, {"n": 7}, None),
+        "logsumexp": ("logsumexp", {"X": r}, {"axis": [1]}, CORE_LIMIT_F32),
+        "logsumexp_special": ("logsumexp", {"X": x["f32"]}, {"axis": [1]},
+                              CORE_LIMIT_F32),
+        "logsumexp_all_bf16": ("logsumexp", {"X": bf(r)}, {"axis": []},
+                               CORE_LIMIT_BF16),
+        "cos_sim": ("cos_sim", {"X": np.concatenate(
+            [np.zeros((1, 8), np.float32), r[0]]), "Y": r[1, :1]}, {},
+            CORE_LIMIT_MM),
+    })
+    for p in (2.0, 1.0, 0.0, 3.0, 0.5, math.inf, -math.inf):
+        c[f"p_norm_{p}"] = ("p_norm", {"X": np.concatenate(
+            [r[0], np.zeros((1, 8), np.float32)])},
+            {"porder": p, "axis": 1}, CORE_LIMIT_F32)
+    return c
+
+
+def _same_on_both(torch, a, b, limit) -> float:
+    """0.0 if ``b`` (the card's) is ``a`` (the CPU's) bit for bit (limit
+    None) or the largest |b - a| / max(1, |a|) within ``limit``, NaN and
+    infinities in the same places; raises ValueError otherwise."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        raise ValueError(f"card {b.dtype} {tuple(b.shape)} vs CPU "
+                         f"{a.dtype} {tuple(a.shape)}")
+    if not a.is_floating_point():
+        if not torch.equal(a, b):
+            raise ValueError("card and CPU differ")
+        return 0.0
+    nan = a.isnan()
+    if not torch.equal(nan, b.isnan()):
+        raise ValueError("NaN in other places")
+    if limit is None:
+        ity = {2: torch.int16, 4: torch.int32}[a.element_size()]
+        if not torch.equal(a.view(ity)[~nan], b.view(ity)[~nan]):
+            raise ValueError("not bit for bit")
+        return 0.0
+    a64, b64 = a.double()[~nan], b.double()[~nan]
+    inf = a64.isinf()
+    if not torch.equal(inf, b64.isinf()) or not torch.equal(
+            a64[inf], b64[inf]):
+        raise ValueError("infinities in other places")
+    if not inf.all():
+        fin = ~inf
+        err = float(((a64[fin] - b64[fin]).abs()
+                     / a64[fin].abs().clamp_min(1.0)).max())
+    else:
+        err = 0.0
+    if err > limit:
+        raise ValueError(f"{err} > {limit}")
+    return err
+
+
+def _emitters_core_ops(torch) -> dict:
+    """Every op type of ops/manipulation.py and ops/math_ops.py that the
+    text-CNN slice ported (``_core_cases``), on the card against the same
+    emitter on the CPU; the three explicit grad ops (argsort_grad,
+    top_k_grad, top_k_v2_grad) from the CPU forward's Indices, bit for
+    bit."""
+    from paddle_tpu_torch.ops import registry as reg
+
+    def run(op, ins, attrs, dev):
+        t_ins = {k: [torch.as_tensor(a, device=dev) for a in
+                     (v if isinstance(v, list) else [v])]
+                 for k, v in ins.items()}
+        return reg.get(op).emit(reg.EmitContext(device=dev), t_ins,
+                                dict(attrs))
+
+    x = _core_inputs(torch)
+    cases = _core_cases(torch, x)
+    for op, fwd in (("argsort", {"axis": 1, "descending": True}),
+                    ("top_k", {"k": 5}),
+                    ("top_k_v2", {"k": 3, "axis": 0, "largest": False})):
+        src = x["f32"] if op != "top_k_v2" else x["r3"][0]
+        out = run(op, {"X": src}, fwd, "cpu")
+        cases[f"{op}_grad"] = (op + "_grad", {
+            "X": src, "Indices": out["Indices"][0],
+            "Out@GRAD": torch.randn(out["Out"][0].shape,
+                                    generator=torch.Generator().manual_seed(
+                                        7))}, fwd, None)
+    worst, n_exact = {}, 0
+    for name, (op, ins, attrs, limit) in cases.items():
+        got = {dev: run(op, ins, attrs, dev) for dev in ("cpu", "cuda")}
+        torch.cuda.synchronize()   # a device assert would surface here
+        if sorted(got["cpu"]) != sorted(got["cuda"]):
+            fail(f"emitter {name}: slots {sorted(got['cuda'])} vs "
+                 f"{sorted(got['cpu'])}")
+        err = 0.0
+        for slot, vals in got["cpu"].items():
+            for i, a in enumerate(vals):
+                try:
+                    err = max(err, _same_on_both(
+                        torch, a, got["cuda"][slot][i].cpu(), limit))
+                except ValueError as e:
+                    fail(f"emitter {name} {slot}[{i}] card vs CPU: {e}")
+        if limit is None:
+            n_exact += 1
+        else:
+            worst[op] = max(worst.get(op, 0.0), err)
+    done = {c[0] for c in cases.values()}
+    from paddle_tpu_torch.ops import manipulation, math_ops
+
+    want = {o for o in reg.registered_ops()
+            if reg.get(o).emit.__module__ in (manipulation.__name__,
+                                              math_ops.__name__)}
+    missing = sorted(_CORE_OP_TYPES - done)
+    if missing or not _CORE_OP_TYPES <= want:
+        fail(f"emitters: core op types not held on the card: {missing}")
+    return {"cases": len(cases), "bit_for_bit": n_exact,
+            "op_types": len(done & _CORE_OP_TYPES),
+            "limits": {"f32": CORE_LIMIT_F32, "f32_products_linalg":
+                       CORE_LIMIT_MM, "bf16": CORE_LIMIT_BF16},
+            "worst_rel_err_by_op": worst}
+
+
+# the 83 op types the slice ported (38 of ops/manipulation.py, 45 of
+# ops/math_ops.py)
+_CORE_OP_TYPES = frozenset("""
+arg_max arg_min argsort argsort_grad concat cumsum diag_v2 expand expand_v2
+flatten flatten2 flatten_contiguous_range flip gather_nd index_select
+meshgrid pad pad2d pad3d roll scatter scatter_nd_add shard_index split
+squeeze squeeze2 stack strided_slice take_along_axis tile top_k top_k_grad
+top_k_v2 top_k_v2_grad transpose tril_triu unbind unstack
+acos addmm asin atan cholesky cos_sim cosh dot elu erf hard_shrink
+hard_sigmoid hard_swish inverse isfinite isfinite_v2 isinf isinf_v2 isnan
+isnan_v2 kron leaky_relu log10 log1p log2 log_softmax logsigmoid logsumexp
+matmul_v2 matrix_power maxout mish p_norm prelu relu6 sigmoid silu sinh
+soft_shrink softplus softsign swish tan thresholded_relu trace
+""".split())
+
+
+# the text classifier of the reference's sentiment-classification recipe
+# (hapi's CNNEncoder) at its widths: a 30,000 x 128 embedding, 128 filters
+# of each of the sizes 3, 4 and 5, two classes; Adam 1e-3, f32
+TEXT_CNN = dict(batch=64, seq=256, vocab=30000, emb=128, filters=128,
+                sizes=(3, 4, 5), classes=2, lr=1e-3, steps=10, cpu_steps=3)
+# its loss, card against CPU over 3 Adam steps from one scope, f32 with
+# TF32 off: the same math in another summation order (cuDNN's conv
+# against the CPU's) moves it by ~1e-7; TF32's 10-bit mantissa in the
+# convolutions and the fc moves it by ~1e-5 or more, so 2e-6 holds the
+# card to f32 and catches TF32
+TEXT_CNN_LOSS_LIMIT = 2e-6
+
+
+def _text_cnn_program(c, pool_size=None):
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.hapi import text
+
+    L = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        ids = L.data("ids", [c["batch"], c["seq"]], "int64",
+                     append_batch_size=False)
+        lbl = L.data("lbl", [c["batch"], 1], "int64",
+                     append_batch_size=False)
+        emb = L.embedding(ids, size=[c["vocab"], c["emb"]])
+        enc = text.CNNEncoder(num_channels=c["emb"],
+                              num_filters=c["filters"],
+                              filter_sizes=c["sizes"], pool_size=pool_size)
+        logits = L.fc(enc(emb), c["classes"])
+        loss = L.mean(L.softmax_with_cross_entropy(logits, lbl))
+        fluid.optimizer.AdamOptimizer(c["lr"]).minimize(loss)
+    return main, startup, loss
+
+
+def _text_cnn_losses(torch, c, pool_size, steps_card, steps_cpu,
+                     tf32=False, profile=False) -> dict:
+    """The program run from one CPU-initialised scope: ``steps_card``
+    steps on the card (each timed, every launch counter set to 0 just
+    before it) and ``steps_cpu`` on the CPU, on one batch from a seed;
+    with ``profile``, 2 more card steps under torch.profiler."""
+    from paddle_tpu_torch import fluid
+
+    main, startup, loss = _text_cnn_program(c, pool_size)
+    cpu_exe, cpu_scope = fluid.Executor(device="cpu"), fluid.Scope()
+    cpu_exe.run(startup, scope=cpu_scope)
+    card_scope = fluid.Scope.from_numpy(
+        {n: v.numpy() for n, v in cpu_scope.vars.items()})
+    card_exe = fluid.Executor()
+    rng = np.random.default_rng(22)
+    feed = {"ids": rng.integers(0, c["vocab"], (c["batch"], c["seq"]))
+            .astype(np.int64),
+            "lbl": rng.integers(0, c["classes"], (c["batch"], 1))
+            .astype(np.int64)}
+    card, ms, launches = [], [], {}
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+    try:
+        for _ in range(steps_card):
+            _all_kernel_launches(reset=True)
+            t0 = time.perf_counter()
+            card.append(float(card_exe.run(main, feed=feed,
+                                           fetch_list=[loss],
+                                           scope=card_scope)[0][0]))
+            ms.append((time.perf_counter() - t0) * 1e3)   # fetch: synced
+            for k, v in _all_kernel_launches().items():
+                launches[k] = launches.get(k, 0) + v
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    prof = None
+    if profile:
+        prof = _step_profile(torch, card_exe, main, card_scope, feed, loss,
+                             2, "text_cnn, f32, 64 x 256, after the timed "
+                             "steps")
+        prof["top_kernels"] = prof["top_kernels"][:8]
+    cpu = [float(cpu_exe.run(main, feed=feed, fetch_list=[loss],
+                             scope=cpu_scope)[0][0])
+           for _ in range(steps_cpu)]
+    n = min(steps_cpu, steps_card)
+    return {"loss_card": card, "loss_cpu": cpu, "step_ms": ms,
+            "profile": prof,
+            "loss_gap": max(abs(a - b) for a, b in zip(card[:n], cpu[:n])),
+            "launches": launches,
+            "ops": sorted({op.type for op in main.global_block().ops})}
+
+
+def phase_text_cnn(torch, card: str) -> dict:
+    """hapi's text-CNN classifier through the port's entry points
+    (``program_guard``, ``hapi.text.CNNEncoder``, ``AdamOptimizer
+    .minimize``, ``Executor.run``): 10 Adam steps on the card at batch 64
+    x 256 tokens, the same program from the same scope 3 steps on the
+    CPU, the loss gap held to ``TEXT_CNN_LOSS_LIMIT``; 3 more card steps
+    with TF32 on show that the limit catches TF32; the ``pool_size=2``
+    encoder (``pool2d``, ``squeeze2``, ``transpose2``) one step on both;
+    2 more card steps under torch.profiler give the device's idle share.
+    No hand-written kernel lies on this path (its ops are plain torch and
+    cuDNN); the launch counters read 0."""
+    t0 = time.perf_counter()
+    c = TEXT_CNN
+    f32 = _text_cnn_losses(torch, c, None, c["steps"], c["cpu_steps"],
+                           profile=True)
+    tf32 = _text_cnn_losses(torch, c, None, c["cpu_steps"], c["cpu_steps"],
+                            tf32=True)
+    pool = _text_cnn_losses(torch, c, 2, 1, 1)
+    losses = f32["loss_card"]
+    if not all(math.isfinite(v) for v in losses) or losses[-1] >= losses[0]:
+        fail(f"text_cnn: card losses {losses}")
+    for what, r in (("f32", f32), ("pool_size 2", pool)):
+        if not r["loss_gap"] <= TEXT_CNN_LOSS_LIMIT:
+            fail(f"text_cnn {what}: card vs CPU loss gap {r['loss_gap']} > "
+                 f"{TEXT_CNN_LOSS_LIMIT}")
+    if not tf32["loss_gap"] > TEXT_CNN_LOSS_LIMIT:
+        fail(f"text_cnn: TF32 moved the loss by {tf32['loss_gap']}, within "
+             f"the limit {TEXT_CNN_LOSS_LIMIT}: the limit would not catch it")
+    if not {"concat", "reduce_max", "conv2d"} <= set(f32["ops"]) \
+            or not {"pool2d", "squeeze2", "transpose2"} <= set(pool["ops"]):
+        fail(f"text_cnn: ops {f32['ops']} / {pool['ops']}")
+    steady = f32["step_ms"][2:]
+    out = {"phase": "text_cnn", "card": card,
+           "model": "embedding 30000 x 128 -> CNNEncoder(128, 128, (3, 4, "
+                    "5)) -> fc 2 -> softmax_with_cross_entropy -> mean; "
+                    "Adam 1e-3, f32, random weights from the startup "
+                    "program, a batch from seed 22",
+           "batch": c["batch"], "seq": c["seq"], "steps": c["steps"],
+           "step_ms_median": statistics.median(steady),
+           "step_ms": f32["step_ms"],
+           "loss_card": f32["loss_card"], "loss_cpu": f32["loss_cpu"],
+           "loss_gap": f32["loss_gap"], "limit": TEXT_CNN_LOSS_LIMIT,
+           "loss_gap_tf32_on": tf32["loss_gap"], "tf32_exceeds_limit": True,
+           "pool_size_2": {k: pool[k] for k in (
+               "loss_card", "loss_cpu", "loss_gap", "step_ms")},
+           "launches": f32["launches"], "profile": f32["profile"],
+           "phase_s": time.perf_counter() - t0}
+    emit(out)
     return out
 
 
@@ -9672,6 +10183,8 @@ def main() -> int:
     build = phase_build()
     kern = phase_kernels(torch)
     phase_emitters(torch)
+    text_cnn = phase_text_cnn(torch, env["card"])
+    torch.cuda.empty_cache()
 
     from paddle_tpu_torch.inference import DecoderConfig, TinyDecoderLM
 
@@ -9847,6 +10360,7 @@ def main() -> int:
         e = _kernel_entry(name, source, replaces, path_launches[main], k)
         e["launches_by_path"] = dict(
             path_launches, ps_train=ps_launches[ps_key.get(name, name)],
+            text_cnn=text_cnn["launches"][ps_key.get(name, name)],
             # summed over the replicas' processes (their stats)
             serve_launch=serve_launch["launches"][name])
         return e

@@ -2,8 +2,9 @@
 
 Parity surface: python/paddle/fluid/layer_helper.py — creates parameters
 (with startup-program init ops), temp variables, appends ops and
-activations.  Ported from the JAX package's ``fluid/layer_helper.py``
-without ``emit_op`` (the dygraph front end is not ported).
+activations.  Ported from the JAX package's ``fluid/layer_helper.py``;
+``emit_op`` appends to the current program only (the dygraph front end
+is not ported).
 """
 from __future__ import annotations
 
@@ -93,6 +94,18 @@ class LayerHelper:
             stop_gradient=stop_gradient,
         )
 
+    def create_global_variable(self, persistable=False, *args, **kwargs):
+        return self.main_program.global_block().create_var(
+            name=unique_name.generate(".".join([self.name, "tmp"])),
+            persistable=persistable, *args, **kwargs)
+
+    def set_variable_initializer(self, var, initializer):
+        startup_block = self.startup_program.global_block()
+        sv = startup_block.create_var(name=var.name, shape=var.shape,
+                                      dtype=var.dtype, persistable=True)
+        initializer(sv, startup_block)
+        return var
+
     # ------------------------------------------------------------------
     def append_bias_op(self, input_var, dim_start=1, dim_end=None):
         bias_attr = self.bias_attr
@@ -122,3 +135,18 @@ class LayerHelper:
         self.append_op(type=act_type, inputs={"X": [input_var]},
                        outputs={"Out": [tmp]}, attrs=act)
         return tmp
+
+
+def emit_op(op_type, ins, attrs=None, out_slots=("Out",), out_dtype=None):
+    """Append one op of ``op_type`` to the current program, one new var
+    per output slot in ``out_dtype`` (else the first input's dtype):
+    the shared backend of the thin tensor layers."""
+    helper = LayerHelper(op_type)
+    ref = next((v for vs in ins.values() for v in vs), None)
+    dtype = out_dtype or (ref.dtype if ref is not None else "float32")
+    outs = {s: [helper.create_variable_for_type_inference(dtype)]
+            for s in out_slots}
+    helper.append_op(type=op_type, inputs=ins, outputs=outs,
+                     attrs=attrs or {})
+    flat = [outs[s][0] for s in out_slots]
+    return flat[0] if len(flat) == 1 else flat

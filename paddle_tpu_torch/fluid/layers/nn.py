@@ -1,10 +1,19 @@
-"""Neural network layers (the ``fluid.layers.*`` DSL) that BERT and
-ResNet build with.
+"""Neural network layers (the ``fluid.layers.*`` DSL): the ones BERT,
+ResNet and the hapi models build with, and the shape, selection and
+math layers over ``ops/manipulation.py`` and ``ops/math_ops.py``
+(split, stack, squeeze, topk, cumsum, pad, scatter, prelu, log_softmax,
+cos_sim, clip, ...).
 
 Parity surface: python/paddle/fluid/layers/nn.py in the reference;
 ported from the JAX package's ``fluid/layers/nn.py``.  Each function
 appends ops through LayerHelper with the same op types, slots and attrs
-as the JAX package, so both packages build the same Program.
+as the JAX package, so both packages build the same Program.  Not
+ported yet, because their op types are not: the losses, ``one_hot``,
+``accuracy``, the norms (``group_norm``, ``instance_norm``,
+``l2_normalize``), ``conv2d_transpose``, ``adaptive_pool2d``, ``shape``,
+``label_smooth`` and ``reduce_min`` / ``reduce_prod`` / ``reduce_all``
+/ ``reduce_any`` (ROADMAP A7 item 2: ``nn_ops.py`` with ``loss.py``,
+then ``reduce_ops.py`` and ``creation.py``).
 """
 from __future__ import annotations
 
@@ -475,3 +484,172 @@ def moe_ffn(input, num_experts, expert_hidden, top_k=2, capacity_factor=1.25,
         attrs={"top_k": int(top_k), "capacity_factor": float(capacity_factor),
                "activation": act})
     return out, aux
+
+
+def _one_out(op_type, x, attrs, name=None, layer=None, ins=None):
+    """Append ``op_type`` over X (or ``ins``) with one Out in X's dtype."""
+    helper = LayerHelper(layer or op_type, name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type=op_type, inputs=ins or {"X": [x]},
+                     outputs={"Out": [out]}, attrs=attrs)
+    return out
+
+
+def log_softmax(input, axis=-1, name=None):
+    return _one_out("log_softmax", input, {"axis": axis}, name)
+
+
+def topk(input, k, name=None):
+    helper = LayerHelper("top_k", name=name)
+    values = helper.create_variable_for_type_inference(input.dtype)
+    indices = helper.create_variable_for_type_inference("int64")
+    helper.append_op(type="top_k", inputs={"X": [input]},
+                     outputs={"Out": [values], "Indices": [indices]},
+                     attrs={"k": k})
+    return values, indices
+
+
+def mul(x, y, x_num_col_dims=1, y_num_col_dims=1, name=None):
+    return _one_out("mul", x, {"x_num_col_dims": x_num_col_dims,
+                               "y_num_col_dims": y_num_col_dims}, name,
+                    ins={"X": [x], "Y": [y]})
+
+
+def clip(x, min, max, name=None):
+    return _one_out("clip", x, {"min": float(min), "max": float(max)}, name)
+
+
+def clip_by_norm(x, max_norm, name=None):
+    return _one_out("clip_by_norm", x, {"max_norm": float(max_norm)}, name)
+
+
+def _with_xshape(op_type, x, attrs, name=None):
+    helper = LayerHelper(op_type, name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    xshape = helper.create_variable_for_type_inference(x.dtype,
+                                                       stop_gradient=True)
+    helper.append_op(type=op_type, inputs={"X": [x]},
+                     outputs={"Out": [out], "XShape": [xshape]}, attrs=attrs)
+    return out
+
+
+def squeeze(input, axes, name=None):
+    return _with_xshape("squeeze2", input, {"axes": list(axes)}, name)
+
+
+def flatten(x, axis=1, name=None):
+    return _with_xshape("flatten2", x, {"axis": axis}, name)
+
+
+def split(input, num_or_sections, dim=-1, name=None):
+    helper = LayerHelper("split", name=name)
+    axis = dim if dim >= 0 else dim + len(input.shape)
+    if isinstance(num_or_sections, int):
+        num, sections, n_out = num_or_sections, [], num_or_sections
+    else:
+        num, sections = 0, list(num_or_sections)
+        n_out = len(sections)
+    outs = [helper.create_variable_for_type_inference(input.dtype)
+            for _ in range(n_out)]
+    helper.append_op(type="split", inputs={"X": [input]},
+                     outputs={"Out": outs},
+                     attrs={"axis": axis, "num": num, "sections": sections})
+    return outs
+
+
+def stack(x, axis=0, name=None):
+    helper = LayerHelper("stack", name=name)
+    out = helper.create_variable_for_type_inference(x[0].dtype)
+    helper.append_op(type="stack", inputs={"X": x}, outputs={"Y": [out]},
+                     attrs={"axis": axis})
+    return out
+
+
+def unstack(x, axis=0, num=None, name=None):
+    helper = LayerHelper("unstack", name=name)
+    if num is None:
+        num = x.shape[axis]
+    outs = [helper.create_variable_for_type_inference(x.dtype)
+            for _ in range(num)]
+    helper.append_op(type="unstack", inputs={"X": [x]}, outputs={"Y": outs},
+                     attrs={"axis": axis, "num": num})
+    return outs
+
+
+def expand(x, expand_times, name=None):
+    return _one_out("expand", x, {"expand_times": list(expand_times)}, name)
+
+
+def gather_nd(input, index, name=None):
+    return _one_out("gather_nd", input, {}, name,
+                    ins={"X": [input], "Index": [index]})
+
+
+def scatter(input, index, updates, name=None, overwrite=True):
+    return _one_out("scatter", input, {"overwrite": overwrite}, name,
+                    ins={"X": [input], "Ids": [index],
+                         "Updates": [updates]})
+
+
+def scatter_nd_add(ref, index, updates, name=None):
+    return _one_out("scatter_nd_add", ref, {}, name,
+                    ins={"X": [ref], "Index": [index],
+                         "Updates": [updates]})
+
+
+def pad(x, paddings, pad_value=0.0, name=None):
+    return _one_out("pad", x, {"paddings": list(paddings),
+                               "pad_value": float(pad_value)}, name)
+
+
+def pad2d(input, paddings=(0, 0, 0, 0), mode="constant", pad_value=0.0,
+          data_format="NCHW", name=None):
+    return _one_out("pad2d", input, {"paddings": list(paddings),
+                                     "mode": mode,
+                                     "pad_value": float(pad_value),
+                                     "data_format": data_format}, name)
+
+
+def strided_slice(input, axes, starts, ends, strides):
+    return _one_out("strided_slice", input, {
+        "axes": list(axes), "starts": list(starts), "ends": list(ends),
+        "strides": list(strides)}, ins={"Input": [input]})
+
+
+def cumsum(x, axis=None, exclusive=None, reverse=None):
+    attrs = {}
+    if axis is not None:
+        attrs["axis"] = axis
+    if exclusive is not None:
+        attrs["exclusive"] = exclusive
+    if reverse is not None:
+        attrs["reverse"] = reverse
+    return _one_out("cumsum", x, attrs)
+
+
+def prelu(x, mode, param_attr=None, name=None):
+    helper = LayerHelper("prelu", param_attr=param_attr, name=name)
+    if mode == "all":
+        alpha_shape = [1]
+    elif mode == "channel":
+        alpha_shape = [x.shape[1]]
+    else:
+        alpha_shape = list(x.shape[1:])
+    alpha = helper.create_parameter(
+        helper.param_attr, shape=alpha_shape, dtype=x.dtype,
+        default_initializer=ConstantInitializer(0.25))
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="prelu", inputs={"X": [x], "Alpha": [alpha]},
+                     outputs={"Out": [out]}, attrs={"mode": mode})
+    return out
+
+
+def cos_sim(X, Y, name=None):
+    """Row-wise cosine similarity (reference layers cos_sim)."""
+    helper = LayerHelper("cos_sim", name=name)
+    out = helper.create_variable_for_type_inference(X.dtype)
+    xn = helper.create_variable_for_type_inference(X.dtype)
+    yn = helper.create_variable_for_type_inference(X.dtype)
+    helper.append_op(type="cos_sim", inputs={"X": [X], "Y": [Y]},
+                     outputs={"Out": [out], "XNorm": [xn], "YNorm": [yn]})
+    return out

@@ -12,12 +12,15 @@ Executor on the model's device (the CUDA card unless ``device="cpu"``).
 ``fit(reshard=...)`` (or PADDLE_ELASTIC_RESHARD) resumes a checkpoint
 written at another world size, as the launcher's elastic resize asks.
 
-``hapi.text`` holds the transformer blocks (``MultiHeadAttention``,
+``hapi.text`` holds the text-CNN encoder (``Conv1dPoolLayer``,
+``CNNEncoder``) and the transformer blocks (``MultiHeadAttention``,
 ``FFN``, ``PrePostProcessLayer``, ``TransformerEncoder``,
-``TransformerDecoder``).  Not ported yet: ``hapi.datasets``,
-``hapi.vision``, the RNN cells, ``TransformerCell``, beam search and the
-CRF (ROADMAP A9); the numerics guards (FLAGS_check_numerics, ROADMAP
-A8) raise where they are asked for.
+``TransformerDecoder``).  Not ported yet: ``hapi.datasets`` and
+``hapi.vision`` (ROADMAP A9); the RNN cells and runners,
+``TransformerCell``, beam search and ``DynamicDecode``, which wait on
+the control-flow ops (ROADMAP A10, then A9); the CRF (ROADMAP A9); the
+numerics guards (FLAGS_check_numerics, ROADMAP A8) raise where they are
+asked for.
 """
 from __future__ import annotations
 

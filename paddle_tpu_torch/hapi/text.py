@@ -1,14 +1,26 @@
-"""hapi.text — the transformer building blocks for hapi networks.
+"""hapi.text — the NLP building blocks for hapi networks: the text-CNN
+encoder and the transformer blocks.
 
 Parity surface: reference python/paddle/incubate/hapi/text/text.py
-(PrePostProcessLayer:2609, MultiHeadAttention:2687, FFN:2900,
-TransformerEncoder:3061, TransformerDecoder:3314); ported from the JAX
-package's ``hapi/text.py`` with the same parameter names.  Each block is
-a static-graph builder whose ``__call__`` emits ops into the current
-Program: ``MultiHeadAttention`` the q/k/v/out projections around the
-fused attention op (``ops/attention.py``); ``TransformerEncoder`` and
+(Conv1dPoolLayer:1980, CNNEncoder:2109, PrePostProcessLayer:2609,
+MultiHeadAttention:2687, FFN:2900, TransformerEncoder:3061,
+TransformerDecoder:3314); ported from the JAX package's ``hapi/text.py``
+with the same parameter names.  Each block is a static-graph builder
+whose ``__call__`` emits ops into the current Program:
+``Conv1dPoolLayer`` a conv2d over the [B, 1, T, D] view and a max-pool
+over time (global, or ``pool_size`` windows through ``squeeze`` and
+``transpose``), ``CNNEncoder`` several of them joined by ``concat``;
+``MultiHeadAttention`` the q/k/v/out projections around the fused
+attention op (``ops/attention.py``); ``TransformerEncoder`` and
 ``TransformerDecoder`` one ``fused_encoder_stack`` /
 ``fused_decoder_stack`` op over all layers (``ops/encoder_stack.py``).
+
+Not ported yet: the RNN cells and runners (``BasicLSTMCell``,
+``BasicGRUCell``, ``RNN``, the stacked and bidirectional forms, the
+seq2seq encoder and decoder), ``TransformerCell``, beam search and
+``DynamicDecode``, which wait on the control-flow ops (ROADMAP A10, then
+A9), and the CRF (``LinearChainCRF``, ``CRFDecoding``,
+``SequenceTagging``, ROADMAP A9).
 
 Instances are reusable and isolated: every block namespaces its
 parameters under a unique (or user-given) prefix.
@@ -20,8 +32,62 @@ from ..fluid.initializer import ConstantInitializer, NormalInitializer
 from ..fluid.layer_helper import LayerHelper
 from ..fluid.param_attr import ParamAttr
 
-__all__ = ["PrePostProcessLayer", "MultiHeadAttention", "FFN",
-           "TransformerEncoder", "TransformerDecoder"]
+__all__ = ["Conv1dPoolLayer", "CNNEncoder", "PrePostProcessLayer",
+           "MultiHeadAttention", "FFN", "TransformerEncoder",
+           "TransformerDecoder"]
+
+
+class Conv1dPoolLayer:
+    """Reference Conv1dPoolLayer (text.py:1980): a 1-D conv over the time
+    axis of [B, T, D] and a max-pool over time.  Emitted as a conv2d with
+    a [filter_size x D] kernel on the [B, 1, T, D] view."""
+
+    def __init__(self, num_channels, num_filters, filter_size,
+                 pool_size=None, act="tanh", name=None):
+        self.num_channels = num_channels  # feature dim D
+        self.num_filters = num_filters
+        self.filter_size = int(filter_size)
+        self.pool_size = pool_size  # None: global max pool over time
+        self.act = act
+        self.name = name or unique_name.generate("conv1d_pool")
+
+    def __call__(self, x):
+        b, t, d = x.shape
+        x4 = layers.reshape(x, [b, 1, t, d])
+        conv = layers.conv2d(
+            x4, num_filters=self.num_filters,
+            filter_size=[self.filter_size, d],
+            padding=[self.filter_size // 2, 0], act=self.act,
+            param_attr=ParamAttr(name=f"{self.name}.w_0"),
+            bias_attr=ParamAttr(name=f"{self.name}.b_0"))
+        # conv: [B, F, T', 1], pooled over T'
+        if self.pool_size is None:
+            return layers.reduce_max(conv, dim=[2, 3])  # [B, F]
+        pooled = layers.pool2d(conv, pool_size=[self.pool_size, 1],
+                               pool_type="max",
+                               pool_stride=[self.pool_size, 1])
+        pooled = layers.squeeze(pooled, axes=[3])  # [B, F, T'']
+        return layers.transpose(pooled, [0, 2, 1])
+
+
+class CNNEncoder:
+    """Reference CNNEncoder (text.py:2109): parallel Conv1dPoolLayers
+    with different filter sizes, their outputs concatenated."""
+
+    def __init__(self, num_channels, num_filters, filter_sizes=(3, 4, 5),
+                 pool_size=None, act="tanh", name=None):
+        name = name or unique_name.generate("cnn_encoder")
+        sizes = list(filter_sizes)
+        filters = (num_filters if isinstance(num_filters, (list, tuple))
+                   else [num_filters] * len(sizes))
+        self.convs = [
+            Conv1dPoolLayer(num_channels, f, s, pool_size=pool_size,
+                            act=act, name=f"{name}.conv{i}")
+            for i, (f, s) in enumerate(zip(filters, sizes))]
+
+    def __call__(self, x):
+        outs = [conv(x) for conv in self.convs]
+        return layers.concat(outs, axis=-1) if len(outs) > 1 else outs[0]
 
 
 class PrePostProcessLayer:

@@ -1,17 +1,31 @@
 """Dense math ops: elementwise (with paddle axis-broadcast), the matmul
-family, the activations and softmax that BERT and ResNet use (exp and
-log for the Transformer NMT's label smoothing), the unary and binary
-ops the learning-rate schedules and the meta-optimizers emit (min, max,
-mod, pow, floor, cos, ...), and the clip / norm ops the optimizer's
-gradient clipping and regularizers emit.
+family (matmul, matmul_v2, mul, dot, addmm, kron), the activations of
+the JAX package's ``_act`` table, softmax and log_softmax, the clip /
+norm ops (clip, clip_by_norm, squared_l2_norm, p_norm), the isfinite
+family, maxout, prelu, logsumexp, cos_sim, trace and the linear algebra
+(cholesky, inverse, matrix_power): the op types of the JAX package's
+``ops/math_ops.py``, with the same slots and attributes.
 
 Parity surface: reference operators/elementwise/*, matmul_op.cc,
-mul_op.cc, activation_op.cc, softmax_op.cc, clip_op.cc,
-clip_by_norm_op.cc, squared_l2_norm_op.cc; ported from the JAX package's
-``ops/math_ops.py``.  Matrix products are ``torch.matmul``
-(cuBLAS on the card), as the JAX package left them to XLA; under a
-``tp_region`` attr ``mul`` and ``matmul`` run a Megatron region over
-"tp" on this rank's block of the weight (``fleet`` module note).
+matmul_v2_op.cc, mul_op.cc, dot_op.cc, addmm_op.cc, kron_op.cc,
+activation_op.cc, softmax_op.cc, log_softmax_op.cc, clip_op.cc,
+clip_by_norm_op.cc, squared_l2_norm_op.cc, p_norm_op.cc,
+isfinite_op.cc, maxout_op.cc, prelu_op.cc, logsumexp_op.cc,
+cos_sim_op.cc, trace_op.cc, cholesky_op.cc, inverse_op.cc,
+matrix_power_op.cc; ported from the JAX package's ``ops/math_ops.py``.
+Matrix products are ``torch.matmul`` (cuBLAS on the card, TF32 off),
+as the JAX package left them to XLA, and the linear algebra is
+``torch.linalg``; under a ``tp_region`` attr ``mul`` and ``matmul`` run
+a Megatron region over "tp" on this rank's block of the weight
+(``fleet`` module note).
+
+None of these op types has a ``pallas_call`` in the JAX package, so
+none has a hand-written kernel here: each emitter is plain torch and is
+the op's only path, on the CPU and on the card alike.  Where torch's
+derivative differs from JAX's, the emitter takes JAX's: lax.min / max's
+tie rule (``_MinMax``, ``_Clip``: half the cotangent on a tie or a clip
+bound), lax.abs's (``_Abs``: the cotangent at 0), ``leaky_relu``'s 1 at
+0, the 2-norm's NaN at a zero vector.
 """
 from __future__ import annotations
 
@@ -300,7 +314,29 @@ def _rsqrt(x, a):
     return torch.rsqrt(x)
 
 
-_act("abs", lambda x, a: x if x.dtype == torch.bool else torch.abs(x))
+class _Abs(torch.autograd.Function):
+    """torch.abs whose gradient follows lax.abs's: the cotangent where
+    x >= 0 (so at 0 and -0.0 too), its negative elsewhere (at NaN too);
+    torch's own gives 0 at 0 and NaN at NaN."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.abs(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.where(x >= 0, g, -g)
+
+
+def _abs(x):
+    if x.is_floating_point() and x.requires_grad:
+        return _Abs.apply(x)
+    return torch.abs(x)
+
+
+_act("abs", lambda x, a: x if x.dtype == torch.bool else _abs(x))
 _act("floor", _integral_kept(torch.floor, "floor"))
 _act("ceil", _integral_kept(torch.ceil, "ceil"))
 _act("round", _integral_kept(torch.round, "round"))  # half to even
@@ -386,3 +422,335 @@ def squared_l2_norm(ctx, ins, attrs):
     x = ins["X"][0]
     sq = x if x.dtype == torch.bool else torch.square(x)
     return {"Out": [_narrow_int_sum(torch.sum(sq), x).reshape(1)]}
+
+
+# ---------------------------------------------------------------------------
+# the rest of the JAX package's math_ops.py: products, activations,
+# normalizers, the isfinite family, norms and linear algebra
+# ---------------------------------------------------------------------------
+
+
+@register("matmul_v2")
+def matmul_v2(ctx, ins, attrs):
+    x, y = _promoted(ins["X"][0], ins["Y"][0])
+    if attrs.get("trans_x", False):
+        x = x.transpose(-1, -2)
+    if attrs.get("trans_y", False):
+        y = y.transpose(-1, -2)
+    return {"Out": [_product(x, y)]}
+
+
+@register("dot")
+def dot(ctx, ins, attrs):
+    """jnp.sum(x * y, -1), keeping the axis for a batch of rows: the
+    product in the promoted dtype (a narrow int wraps there, two bools
+    AND), the sum of an integer or bool product in int32."""
+    from .reduce_ops import _narrow_int_sum
+
+    x, y = _promoted(ins["X"][0], ins["Y"][0])
+    p = x & y if x.dtype == torch.bool else x * y
+    out = torch.sum(p, dim=-1, keepdim=x.dim() > 1)
+    return {"Out": [_narrow_int_sum(out, p)]}
+
+
+@register("addmm")
+def addmm(ctx, ins, attrs):
+    """beta * Input + alpha * (X @ Y); Python-float scales, so an integer
+    operand gives float32, as jnp's weak floats promote it."""
+    inp = ins["Input"][0]
+    prod = _product(*_promoted(ins["X"][0], ins["Y"][0]))
+    return {"Out": [attrs.get("Beta", 1.0) * inp
+                    + attrs.get("Alpha", 1.0) * prod]}
+
+
+@register("kron")
+def kron(ctx, ins, attrs):
+    return {"Out": [torch.kron(*_promoted(ins["X"][0], ins["Y"][0]))]}
+
+
+def _no_int(name):
+    """An op whose JAX function refuses integer and bool X (TypeError)."""
+    def check(x):
+        if not x.is_floating_point():
+            raise TypeError(f"{name} does not accept dtype {x.dtype}")
+        return x
+
+    return check
+
+
+def _no_bool(name):
+    """An op that negates X first, which jnp refuses for bool."""
+    def check(x):
+        if x.dtype == torch.bool:
+            raise TypeError(f"{name}: neg does not accept dtype bool")
+        return x
+
+    return check
+
+
+def _clip(x, lo, hi):
+    """jnp.clip with float bounds: an integer or bool X in float32 first,
+    the gradient halved on a bound (``_Clip``)."""
+    return _Clip.apply(_inexact(x), lo, hi)
+
+
+def _maximum0(x):
+    """jnp.maximum(x, 0.0) under lax.max's tie rule (``_MinMax``)."""
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    return _min_max(torch.maximum)(x, zero)
+
+
+def _softplus(x):
+    """jax.nn.softplus = jnp.logaddexp(x, 0)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                          device=x.device))
+
+
+def _log_sigmoid(x, a):
+    """jax.nn.log_sigmoid = -softplus(-x), -x in X's own dtype first."""
+    return -_softplus(_inexact(-_no_bool("logsigmoid")(x)))
+
+
+def _softsign(x, a):
+    """x / (|x| + 1), |x| and + 1 in X's own dtype (jnp.abs of bool is
+    bool, and bool + 1 an int), the division in float32."""
+    den = (x.to(torch.int32) if x.dtype == torch.bool else torch.abs(x)) + 1
+    return torch.true_divide(x, den)
+
+
+def _shrink(x, a):
+    """soft_shrink: sign(x) * max(|x| - lambda, 0), |x| in X's own dtype
+    (an integer X's minimum wraps there), jnp.sign's NaN and -0.0 kept."""
+    ax = _abs(_no_bool("soft_shrink")(x))
+    return _sign(x, a) * _maximum0(_inexact(ax) - a.get("lambda", 0.5))
+
+
+def _hard_shrink(x, a):
+    ax = x if x.dtype == torch.bool else torch.abs(x)
+    return torch.where(ax > a.get("threshold", 0.5), _inexact(x), 0.0)
+
+
+def _elu(x, a):
+    """jax.nn.elu: x where x > 0, else alpha * expm1(x), the expm1 taken
+    of 0 where x > 0 (no overflow, no NaN gradient)."""
+    x = _inexact(x)
+    pos = x > 0
+    return torch.where(pos, x, a.get("alpha", 1.0) * torch.expm1(
+        torch.where(pos, torch.zeros_like(x), x)))
+
+
+_act("sigmoid", lambda x, a: torch.sigmoid(_no_int("logistic")(x)))
+_act("tan", lambda x, a: torch.tan(_inexact(x)))
+_act("acos", lambda x, a: torch.acos(_inexact(x)))
+_act("asin", lambda x, a: torch.asin(_inexact(x)))
+_act("atan", lambda x, a: torch.atan(_inexact(x)))
+_act("sinh", lambda x, a: torch.sinh(_inexact(x)))
+_act("cosh", lambda x, a: torch.cosh(_inexact(x)))
+_act("log2", lambda x, a: torch.log2(_inexact(x)))
+_act("log10", lambda x, a: torch.log10(_inexact(x)))
+_act("log1p", lambda x, a: torch.log1p(_inexact(x)))
+_act("softplus", lambda x, a: _softplus(_inexact(x)))
+_act("softsign", _softsign)
+_act("silu", lambda x, a: x * torch.sigmoid(_no_int("logistic")(x)))
+_act("swish", lambda x, a: _inexact(x) * torch.sigmoid(
+    a.get("beta", 1.0) * _inexact(x)))
+_act("logsigmoid", _log_sigmoid)
+_act("relu6", lambda x, a: _clip(x, 0.0, a.get("threshold", 6.0)))
+# jax.nn.leaky_relu: x where x >= 0, so the gradient at 0 is 1
+_act("leaky_relu", lambda x, a: torch.where(
+    x >= 0, _inexact(x), a.get("alpha", 0.02) * _inexact(x)))
+_act("elu", _elu)
+_act("hard_sigmoid", lambda x, a: _clip(
+    a.get("slope", 0.2) * _inexact(x) + a.get("offset", 0.5), 0.0, 1.0))
+_act("hard_swish", lambda x, a: _inexact(x) * _clip(
+    _inexact(x) + a.get("offset", 3.0), 0.0, a.get("threshold", 6.0))
+    / a.get("scale", 6.0))
+_act("thresholded_relu", lambda x, a: torch.where(
+    x > a.get("threshold", 1.0), _inexact(x), 0.0))
+_act("hard_shrink", _hard_shrink)
+_act("soft_shrink", _shrink)
+_act("erf", lambda x, a: torch.erf(_no_int("erf")(x)))
+_act("mish", lambda x, a: _inexact(x) * torch.tanh(_softplus(_inexact(x))))
+
+
+@register("prelu")
+def prelu(ctx, ins, attrs):
+    """x where x > 0, else alpha * x; a "channel" alpha on axis 1."""
+    x, alpha = ins["X"][0], ins["Alpha"][0]
+    if attrs.get("mode", "all") == "channel":
+        alpha = alpha.reshape((1, -1) + (1,) * (x.dim() - 2))
+    return {"Out": [torch.where(x > 0, x, alpha * x)]}
+
+
+@register("log_softmax")
+def log_softmax(ctx, ins, attrs):
+    """jax.nn.log_softmax: a float X as torch.log_softmax; an integer X
+    gives float32, x - max taken in X's own dtype first (a uint8 X wraps
+    there); a bool X raises, as jnp's subtraction refuses it."""
+    x, axis = ins["X"][0], attrs.get("axis", -1)
+    if x.is_floating_point():
+        return {"Out": [torch.log_softmax(x, dim=axis)]}
+    if x.dtype == torch.bool:
+        raise TypeError("log_softmax: sub does not accept dtype bool")
+    s = (x - torch.amax(x, dim=axis, keepdim=True)).float()
+    return {"Out": [s - torch.log(torch.exp(s).sum(dim=axis,
+                                                   keepdim=True))]}
+
+
+@register("maxout")
+def maxout(ctx, ins, attrs):
+    """The max over each group of ``groups`` channels; ``amax`` splits the
+    gradient evenly between tied values, as jnp.max's VJP does."""
+    x = ins["X"][0]
+    g = attrs["groups"]
+    n, c = x.shape[0], x.shape[1]
+    return {"Out": [torch.amax(x.reshape((n, c // g, g) + tuple(x.shape[2:])),
+                               dim=2)]}
+
+
+@register("isfinite", stop_gradient=True, no_vjp_grad=True)
+def isfinite(ctx, ins, attrs):
+    """One bool of shape [1]: every element of every X finite (reference
+    isfinite_op)."""
+    ok = torch.ones((), dtype=torch.bool, device=ins["X"][0].device)
+    for x in ins["X"]:
+        ok = ok & torch.isfinite(x).all()
+    return {"Out": [ok.reshape(1)]}
+
+
+@register("isinf", stop_gradient=True, no_vjp_grad=True)
+def isinf_reduce(ctx, ins, attrs):
+    return {"Out": [torch.isinf(ins["X"][0]).any().reshape(1)]}
+
+
+@register("isnan", stop_gradient=True, no_vjp_grad=True)
+def isnan_reduce(ctx, ins, attrs):
+    return {"Out": [torch.isnan(ins["X"][0]).any().reshape(1)]}
+
+
+for _name, _fn in (("isfinite_v2", torch.isfinite), ("isinf_v2", torch.isinf),
+                   ("isnan_v2", torch.isnan)):
+    register(_name, stop_gradient=True, no_vjp_grad=True)(
+        lambda ctx, ins, attrs, _fn=_fn: {"Out": [_fn(ins["X"][0])]})
+
+
+@register("p_norm")
+def p_norm(ctx, ins, attrs):
+    """jnp.linalg.norm's vector norms, spelled as jnp spells them (an
+    integer X in float32): inf / -inf the max / min of |x| (the max then
+    taken with 0, jnp's ``initial``, under lax.max's tie rule), 0 the count
+    of nonzeros, 1 the sum of |x|, 2 sqrt(sum(x * x)), else
+    sum(|x| ** p) ** (1 / p).  So the gradient of the 2-norm at a zero
+    vector is NaN, as in JAX (torch.linalg.vector_norm gives 0), and |x|
+    takes lax.abs's derivative (``_abs``)."""
+    x = _inexact(ins["X"][0])
+    p = float(attrs.get("porder", 2.0))
+    axis = attrs.get("axis", -1)
+    keep = attrs.get("keepdim", False)
+    if p == math.inf:   # amax(.., initial=0): a max with 0 after
+        return {"Out": [_maximum0(torch.amax(_abs(x), dim=axis,
+                                             keepdim=keep))]}
+    if p == -math.inf:
+        return {"Out": [torch.amin(_abs(x), dim=axis, keepdim=keep)]}
+    if p == 0:
+        return {"Out": [torch.sum(x != 0, dim=axis, keepdim=keep,
+                                  dtype=x.dtype)]}
+    if p == 1:
+        return {"Out": [torch.sum(_abs(x), dim=axis, keepdim=keep)]}
+    if p == 2:
+        return {"Out": [torch.sqrt(torch.sum(x * x, dim=axis,
+                                             keepdim=keep))]}
+    s = torch.sum(_abs(x) ** p, dim=axis, keepdim=keep)
+    return {"Out": [s ** torch.reciprocal(torch.tensor(p, dtype=x.dtype))
+                    .item()]}
+
+
+@register("trace")
+def trace_op(ctx, ins, attrs):
+    """jnp.trace: the sum of the ``offset`` diagonal of (axis1, axis2); an
+    integer or bool X sums in int32 (uint8 in uint32)."""
+    from .reduce_ops import _narrow_int_sum
+
+    x = ins["Input"][0]
+    d = torch.diagonal(x, attrs.get("offset", 0), attrs.get("axis1", 0),
+                       attrs.get("axis2", 1))
+    return {"Out": [_narrow_int_sum(torch.sum(d, dim=-1), x)]}
+
+
+@register("cholesky")
+def cholesky(ctx, ins, attrs):
+    """jnp.linalg.cholesky: the factor of X's symmetric part (so the
+    gradient is symmetric, as lax's); a matrix that is not positive
+    definite gives NaN in the lower triangle, not an error; ``upper``
+    transposes."""
+    x = ins["X"][0]
+    sym = (x + x.transpose(-1, -2)) / 2
+    if x.device.type == "meta":
+        out = sym
+    else:
+        low, info = torch.linalg.cholesky_ex(sym)
+        bad = (info != 0).reshape(info.shape + (1, 1))
+        out = torch.where(bad, torch.full_like(low, math.nan), low).tril()
+    if attrs.get("upper", False):
+        out = out.transpose(-1, -2)
+    return {"Out": [out]}
+
+
+@register("inverse")
+def inverse(ctx, ins, attrs):
+    """jnp.linalg.inv: a singular matrix gives infinities, not an
+    error."""
+    x = ins["Input"][0]
+    if x.device.type == "meta":
+        return {"Output": [x.clone()]}
+    return {"Output": [torch.linalg.inv_ex(x).inverse]}
+
+
+@register("matrix_power")
+def matrix_power(ctx, ins, attrs):
+    """jnp.linalg.matrix_power's square-and-multiply, its products in the
+    same order: n = 0 the identity, n < 0 the power of the inverse."""
+    x, n = ins["X"][0], int(attrs["n"])
+    if n == 0:
+        eye = torch.eye(x.shape[-1], dtype=x.dtype, device=x.device)
+        return {"Out": [eye.expand(x.shape).clone()]}
+    if n < 0:
+        x, n = inverse(ctx, {"Input": [x]}, {})["Output"][0], -n
+    z = result = None
+    while n > 0:
+        z = x if z is None else _product(z, z)
+        n, bit = divmod(n, 2)
+        if bit:
+            result = z if result is None else _product(result, z)
+    return {"Out": [result]}
+
+
+@register("logsumexp")
+def logsumexp(ctx, ins, attrs):
+    """jax.scipy.special.logsumexp: an integer X in float32; the max taken
+    out, as a constant and only where finite; at least rank 1."""
+    x = _inexact(ins["X"][0])
+    axis = attrs.get("axis", None)
+    dims = tuple(range(x.dim())) if not axis else tuple(
+        a % x.dim() for a in axis)
+    keep = attrs.get("keepdim", False)
+    amax = torch.amax(x.detach(), dim=dims, keepdim=True)
+    amax = torch.where(torch.isfinite(amax), amax, 0)
+    s = torch.sum(torch.exp(x - amax), dim=dims, keepdim=keep)
+    out = torch.log(torch.abs(s)) + (amax if keep else amax.squeeze(dims))
+    return {"Out": [out.reshape(1) if out.dim() == 0 else out]}
+
+
+@register("cos_sim")
+def cos_sim(ctx, ins, attrs):
+    """Row-wise cosine similarity (reference cos_sim_op.cc): X [N, D],
+    Y [N, D] or [1, D]; Out [N, 1] and the saved norms; the floor 1e-12
+    under lax.max's tie rule."""
+    x, y = ins["X"][0], ins["Y"][0]
+    xn = torch.sqrt(torch.sum(torch.square(x), dim=1, keepdim=True))
+    yn = torch.sqrt(torch.sum(torch.square(y), dim=1, keepdim=True))
+    d = torch.sum(x * y, dim=1, keepdim=True)
+    den = xn * yn
+    floor = torch.tensor(1e-12, dtype=den.dtype, device=den.device)
+    return {"Out": [d / _min_max(torch.maximum)(den, floor)],
+            "XNorm": [xn], "YNorm": [yn]}

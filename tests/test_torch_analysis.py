@@ -376,13 +376,13 @@ def test_broken_program_findings_match_jax(name):
 
 def test_unregistered_op_type_is_an_error_only_in_the_port():
     """The listed exception: an op type the JAX package registers and
-    the port does not."""
+    the port does not (``selu``, of ``ops/misc_ops.py``, ROADMAP A10)."""
     def build(fluid):
         main, startup = _fresh(fluid)
         with fluid.unique_name.guard(), fluid.program_guard(main, startup):
             x = fluid.layers.data("x", [4, 8], append_batch_size=False)
         main.global_block().append_op(
-            type="sigmoid", inputs={"X": [x.name]},
+            type="selu", inputs={"X": [x.name]},
             outputs={"Out": ["s"]}, infer=False)
         main.global_block().var("s").shape = (4, 8)
         return main
@@ -392,7 +392,7 @@ def test_unregistered_op_type_is_an_error_only_in_the_port():
     assert not [f for f in jf if f.severity == ERROR]
     (err,) = [f for f in tf if f.severity == ERROR]
     assert (err.check, err.op_type, err.op_index) == ("shape-dtype",
-                                                      "sigmoid", 0)
+                                                      "selu", 0)
     assert "no registered emitter" in err.message
 
 
