@@ -1,9 +1,11 @@
 """Parameter initializers. Parity surface: python/paddle/fluid/initializer.py
 (ConstantInitializer, UniformInitializer, NormalInitializer,
-TruncatedNormalInitializer, XavierInitializer, NumpyArrayInitializer),
-ported from the JAX package's ``fluid/initializer.py``.  Each appends an
-init op to the startup program; the Executor runs it once and the value
-lives in the Scope.  MSRA and Bilinear are not ported yet (ROADMAP A7).
+TruncatedNormalInitializer, XavierInitializer, MSRAInitializer,
+NumpyArrayInitializer, BilinearInitializer), ported from the JAX
+package's ``fluid/initializer.py``, all of it.  Each appends an init op
+to the startup program; the Executor runs it once and the value lives in
+the Scope.  The random ones draw from the generator the Executor's step
+context hands each op, never from a global one.
 """
 from __future__ import annotations
 
@@ -95,6 +97,25 @@ class XavierInitializer(Initializer):
         return NormalInitializer(0.0, std, self.seed)(var, block)
 
 
+class MSRAInitializer(Initializer):
+    """Kaiming He init (reference initializer.py MSRAInitializer): uniform
+    in +-sqrt(6 / fan_in), or normal with std sqrt(2 / fan_in)."""
+
+    def __init__(self, uniform=True, fan_in=None, seed=0, negative_slope=0.0,
+                 nonlinearity="relu"):
+        self.uniform = uniform
+        self.fan_in, self.seed = fan_in, seed
+
+    def __call__(self, var, block):
+        fi, _ = _fan_in_out(var)
+        fan_in = self.fan_in if self.fan_in is not None else fi
+        if self.uniform:
+            limit = float(np.sqrt(6.0 / fan_in))
+            return UniformInitializer(-limit, limit, self.seed)(var, block)
+        std = float(np.sqrt(2.0 / fan_in))
+        return NormalInitializer(0.0, std, self.seed)(var, block)
+
+
 class NumpyArrayInitializer(Initializer):
     def __init__(self, value):
         self.value = np.asarray(value)
@@ -108,9 +129,32 @@ class NumpyArrayInitializer(Initializer):
         )
 
 
+class BilinearInitializer(Initializer):
+    """The bilinear upsampling kernel of a ``conv2d_transpose``
+    upsampler: every [kh, kw] slice of the
+    4-D weight holds (1 - |x / f - c|)(1 - |y / f - c|), f = ceil(kw / 2),
+    c = (2 f - 1 - f % 2) / (2 f); the JAX package's array bit for bit,
+    through ``assign_value``."""
+
+    def __call__(self, var, block):
+        shape = var.shape
+        if len(shape) != 4:
+            raise ValueError("BilinearInitializer needs a 4-D weight")
+        f = np.ceil(shape[3] / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        weight = np.zeros(shape, dtype=np.float32)
+        idx = np.arange(int(np.prod(shape)))
+        x = idx % shape[3]
+        y = (idx // shape[3]) % shape[2]
+        weight.flat[:] = (1 - np.abs(x / f - c)) * (1 - np.abs(y / f - c))
+        return NumpyArrayInitializer(weight)(var, block)
+
+
 # paddle-style aliases
 Constant = ConstantInitializer
 Uniform = UniformInitializer
 Normal = NormalInitializer
 TruncatedNormal = TruncatedNormalInitializer
 Xavier = XavierInitializer
+MSRA = MSRAInitializer
+Bilinear = BilinearInitializer

@@ -1,12 +1,13 @@
 """Miscellaneous layers: add_position_encoding (the hapi Transformer
 NMT's), sum, shard_index, the random tensors, the static rank / size /
-emptiness constants, scatter_nd and the step counter.
+emptiness constants, scatter_nd, the step counter and the streaming
+``auc`` metric.
 
 Parity surface: python/paddle/fluid/layers/nn.py + tensor.py entries in
 the reference; ported from the JAX package's ``fluid/layers/misc.py``.
 The rest of that file waits on op types the port does not register yet
-(selu, brelu, multiplex, unique, hash, sampling_id, the metrics, ...:
-ROADMAP A7 item 2 and A10).
+(selu, brelu, multiplex, unique, hash, sampling_id, chunk_eval, ...:
+ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ __all__ = [
     "add_position_encoding", "sum", "shard_index", "gaussian_random",
     "uniform_random", "gaussian_random_batch_size_like",
     "uniform_random_batch_size_like", "rank", "size", "is_empty",
-    "scatter_nd", "autoincreased_step_counter",
+    "scatter_nd", "autoincreased_step_counter", "auc",
 ]
 
 
@@ -141,3 +142,40 @@ def autoincreased_step_counter(counter_name=None, begin=1, step=1):
     helper.append_op(type="increment", inputs={"X": [counter]},
                      outputs={"Out": [counter]}, attrs={"step": float(step)})
     return counter
+
+
+def auc(input, label, curve="ROC", num_thresholds=4095, topk=1,
+        slide_steps=1):
+    """Streaming ROC or PR AUC (reference layers/metric_op.py auc over
+    metrics/auc_op.cc): two persistable [num_thresholds + 1] f32 stat
+    buffers, the op's StatPosOut / StatNegOut written back into them, so
+    the counts accumulate across runs.  Returns (auc, [stat_pos,
+    stat_neg])."""
+    from ..optimizer import _create_persistable_var
+
+    nt = int(num_thresholds)
+    stat_pos = _create_persistable_var(
+        f"auc_stat_pos_{unique_suffix()}", (nt + 1,), "float32", 0.0)
+    stat_neg = _create_persistable_var(
+        f"auc_stat_neg_{unique_suffix()}", (nt + 1,), "float32", 0.0)
+    helper = LayerHelper("auc")
+    out = helper.create_variable_for_type_inference("float32")
+    helper.append_op(
+        type="auc",
+        inputs={"Predict": [input], "Label": [label],
+                "StatPos": [stat_pos], "StatNeg": [stat_neg]},
+        outputs={"AUC": [out], "StatPosOut": [stat_pos],
+                 "StatNegOut": [stat_neg]},
+        attrs={"num_thresholds": nt, "curve": curve},
+    )
+    return out, [stat_pos, stat_neg]
+
+
+# the stat buffers' name suffixes, one process-wide counter (as the JAX
+# package's: not reset by unique_name.guard)
+_suffix_counter = [0]
+
+
+def unique_suffix():
+    _suffix_counter[0] += 1
+    return _suffix_counter[0]

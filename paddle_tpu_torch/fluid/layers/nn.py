@@ -2,18 +2,16 @@
 ResNet and the hapi models build with, and the shape, selection and
 math layers over ``ops/manipulation.py`` and ``ops/math_ops.py``
 (split, stack, squeeze, topk, cumsum, pad, scatter, prelu, log_softmax,
-cos_sim, clip, ...).
+cos_sim, clip, ...), and the losses, metrics, norms and convolutions
+over ``ops/nn_ops.py`` (cross_entropy, one_hot, label_smooth, accuracy,
+group_norm, instance_norm, l2_normalize, conv2d_transpose,
+adaptive_pool2d, ...) with the reductions and ``shape``.
 
 Parity surface: python/paddle/fluid/layers/nn.py in the reference;
 ported from the JAX package's ``fluid/layers/nn.py``.  Each function
 appends ops through LayerHelper with the same op types, slots and attrs
-as the JAX package, so both packages build the same Program.  Not
-ported yet, because their op types are not: the losses, ``one_hot``,
-``accuracy``, the norms (``group_norm``, ``instance_norm``,
-``l2_normalize``), ``conv2d_transpose``, ``adaptive_pool2d``, ``shape``,
-``label_smooth`` and ``reduce_min`` / ``reduce_prod`` / ``reduce_all``
-/ ``reduce_any`` (ROADMAP A7 item 2: ``nn_ops.py`` with ``loss.py``,
-then ``reduce_ops.py`` and ``creation.py``).
+as the JAX package, so both packages build the same Program.
+``unique_name_layer`` is the JAX package's stub, which raises.
 """
 from __future__ import annotations
 
@@ -115,6 +113,51 @@ def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
     return helper.append_activation(pre_act)
 
 
+def conv2d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     padding=0, stride=1, dilation=1, groups=1,
+                     param_attr=None, bias_attr=None, use_cudnn=True,
+                     act=None, name=None):
+    """Transposed 2-D convolution, NCHW, filter [C, num_filters / groups,
+    kh, kw]; the filter size from ``output_size`` when not given."""
+    helper = LayerHelper("conv2d_transpose", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    num_channels = input.shape[1]
+    if isinstance(stride, int):
+        stride = [stride, stride]
+    if isinstance(padding, int):
+        padding = [padding, padding]
+    if isinstance(dilation, int):
+        dilation = [dilation, dilation]
+    if filter_size is None:
+        if output_size is None:
+            raise ValueError("either filter_size or output_size must be set")
+        if isinstance(output_size, int):
+            output_size = [output_size, output_size]
+        h_in, w_in = input.shape[2], input.shape[3]
+        filter_size = [
+            (output_size[0] - (h_in - 1) * stride[0] + 2 * padding[0] - 1)
+            // dilation[0] + 1,
+            (output_size[1] - (w_in - 1) * stride[1] + 2 * padding[1] - 1)
+            // dilation[1] + 1,
+        ]
+    elif isinstance(filter_size, int):
+        filter_size = [filter_size, filter_size]
+    filter_shape = [num_channels, num_filters // groups] + list(filter_size)
+    w = helper.create_parameter(helper.param_attr, shape=filter_shape,
+                                dtype=dtype)
+    pre_bias = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="conv2d_transpose",
+        inputs={"Input": [input], "Filter": [w]},
+        outputs={"Output": [pre_bias]},
+        attrs={"strides": stride, "paddings": padding,
+               "dilations": dilation, "groups": groups},
+    )
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
 def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
            pool_padding=0, global_pooling=False, use_cudnn=True,
            ceil_mode=False, exclusive=True, name=None, data_format="NCHW"):
@@ -134,6 +177,22 @@ def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
                "strides": pool_stride, "paddings": pool_padding,
                "global_pooling": global_pooling, "ceil_mode": ceil_mode,
                "exclusive": exclusive, "data_format": data_format},
+    )
+    return out
+
+
+def adaptive_pool2d(input, pool_size, pool_type="max", require_index=False,
+                    name=None):
+    helper = LayerHelper("adaptive_pool2d", name=name)
+    if isinstance(pool_size, int):
+        pool_size = [pool_size, pool_size]
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="pool2d",
+        inputs={"X": [input]},
+        outputs={"Out": [out]},
+        attrs={"pooling_type": pool_type, "ksize": pool_size,
+               "adaptive": True},
     )
     return out
 
@@ -211,6 +270,59 @@ def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
     return helper.append_activation(out)
 
 
+def _scale_bias_inputs(helper, input, dtype):
+    """X with the Scale (ones) and Bias parameters a norm layer takes,
+    each left out where its attr is False."""
+    channels = input.shape[1]
+    inputs = {"X": [input]}
+    if helper.param_attr is not False:
+        inputs["Scale"] = [helper.create_parameter(
+            helper.param_attr, shape=[channels], dtype=dtype,
+            default_initializer=ConstantInitializer(1.0))]
+    if helper.bias_attr is not False:
+        inputs["Bias"] = [helper.create_parameter(
+            helper.bias_attr, shape=[channels], dtype=dtype, is_bias=True)]
+    return inputs
+
+
+def group_norm(input, groups, epsilon=1e-5, param_attr=None, bias_attr=None,
+               act=None, data_layout="NCHW", name=None):
+    helper = LayerHelper("group_norm", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    inputs = _scale_bias_inputs(helper, input, dtype)
+    out = helper.create_variable_for_type_inference(dtype)
+    mean = helper.create_variable_for_type_inference(dtype,
+                                                     stop_gradient=True)
+    var = helper.create_variable_for_type_inference(dtype,
+                                                    stop_gradient=True)
+    helper.append_op(
+        type="group_norm",
+        inputs=inputs,
+        outputs={"Y": [out], "Mean": [mean], "Variance": [var]},
+        attrs={"groups": groups, "epsilon": epsilon},
+    )
+    return helper.append_activation(out)
+
+
+def instance_norm(input, epsilon=1e-5, param_attr=None, bias_attr=None,
+                  name=None):
+    helper = LayerHelper("instance_norm", param_attr=param_attr,
+                         bias_attr=bias_attr, name=name)
+    dtype = input.dtype
+    inputs = _scale_bias_inputs(helper, input, dtype)
+    out = helper.create_variable_for_type_inference(dtype)
+    sm = helper.create_variable_for_type_inference(dtype, stop_gradient=True)
+    sv = helper.create_variable_for_type_inference(dtype, stop_gradient=True)
+    helper.append_op(
+        type="instance_norm",
+        inputs=inputs,
+        outputs={"Y": [out], "SavedMean": [sm], "SavedVariance": [sv]},
+        attrs={"epsilon": epsilon},
+    )
+    return out
+
+
 def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
             dropout_implementation="downgrade_in_infer"):
     helper = LayerHelper("dropout", name=name)
@@ -251,6 +363,67 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
     if return_softmax:
         return loss, softmax_out
     return loss
+
+
+def cross_entropy(input, label, soft_label=False, ignore_index=-100):
+    helper = LayerHelper("cross_entropy")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="cross_entropy",
+        inputs={"X": [input], "Label": [label]},
+        outputs={"Y": [out]},
+        attrs={"soft_label": soft_label, "ignore_index": ignore_index},
+    )
+    return out
+
+
+def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100, name=None,
+                                      normalize=False):
+    helper = LayerHelper("sigmoid_cross_entropy_with_logits", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        type="sigmoid_cross_entropy_with_logits",
+        inputs={"X": [x], "Label": [label]},
+        outputs={"Out": [out]},
+        attrs={"ignore_index": ignore_index, "normalize": normalize},
+    )
+    return out
+
+
+def one_hot(input, depth, allow_out_of_range=False):
+    """float32 one-hot rows (zero for an id outside [0, depth)); the op is
+    ``one_hot`` for ids with a trailing dim of 1, else ``one_hot_v2``."""
+    helper = LayerHelper("one_hot")
+    out = helper.create_variable_for_type_inference("float32")
+    op_type = ("one_hot" if (input.shape and input.shape[-1] == 1)
+               else "one_hot_v2")
+    helper.append_op(type=op_type, inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs={"depth": depth})
+    out.stop_gradient = True
+    return out
+
+
+def accuracy(input, label, k=1, correct=None, total=None):
+    """Top-k accuracy: ``top_k`` then ``accuracy`` (Accuracy f32, Correct
+    and Total int32)."""
+    helper = LayerHelper("accuracy")
+    topk_out = helper.create_variable_for_type_inference(input.dtype)
+    topk_indices = helper.create_variable_for_type_inference("int64")
+    helper.append_op(type="top_k", inputs={"X": [input]},
+                     outputs={"Out": [topk_out], "Indices": [topk_indices]},
+                     attrs={"k": k})
+    acc_out = helper.create_variable_for_type_inference("float32")
+    correct = correct or helper.create_variable_for_type_inference("int32")
+    total = total or helper.create_variable_for_type_inference("int32")
+    helper.append_op(
+        type="accuracy",
+        inputs={"Out": [topk_out], "Indices": [topk_indices],
+                "Label": [label]},
+        outputs={"Accuracy": [acc_out], "Correct": [correct],
+                 "Total": [total]},
+    )
+    acc_out.stop_gradient = True
+    return acc_out
 
 
 def square_error_cost(input, label):
@@ -329,6 +502,10 @@ def _reduce(op_type):
 reduce_sum = _reduce("reduce_sum")
 reduce_mean = _reduce("reduce_mean")
 reduce_max = _reduce("reduce_max")
+reduce_min = _reduce("reduce_min")
+reduce_prod = _reduce("reduce_prod")
+reduce_all = _reduce("reduce_all")
+reduce_any = _reduce("reduce_any")
 
 
 def mean(x, name=None):
@@ -350,6 +527,16 @@ def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,
                "bias_after_scale": bias_after_scale},
     )
     return helper.append_activation(out)
+
+
+def l2_normalize(x, axis, epsilon=1e-12, name=None):
+    helper = LayerHelper("l2_normalize", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    nrm = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="norm", inputs={"X": [x]},
+                     outputs={"Out": [out], "Norm": [nrm]},
+                     attrs={"axis": axis, "epsilon": epsilon})
+    return out
 
 
 def reshape(x, shape, actual_shape=None, act=None, inplace=False, name=None):
@@ -486,12 +673,14 @@ def moe_ffn(input, num_experts, expert_hidden, top_k=2, capacity_factor=1.25,
     return out, aux
 
 
-def _one_out(op_type, x, attrs, name=None, layer=None, ins=None):
-    """Append ``op_type`` over X (or ``ins``) with one Out in X's dtype."""
+def _one_out(op_type, x, attrs, name=None, layer=None, ins=None,
+             out_slot="Out"):
+    """Append ``op_type`` over X (or ``ins``) with one output (``Out``) in
+    X's dtype."""
     helper = LayerHelper(layer or op_type, name=name)
     out = helper.create_variable_for_type_inference(x.dtype)
     helper.append_op(type=op_type, inputs=ins or {"X": [x]},
-                     outputs={"Out": [out]}, attrs=attrs)
+                     outputs={out_slot: [out]}, attrs=attrs)
     return out
 
 
@@ -653,3 +842,65 @@ def cos_sim(X, Y, name=None):
     helper.append_op(type="cos_sim", inputs={"X": [X], "Y": [Y]},
                      outputs={"Out": [out], "XNorm": [xn], "YNorm": [yn]})
     return out
+
+
+def shape(input):
+    helper = LayerHelper("shape")
+    out = helper.create_variable_for_type_inference("int32",
+                                                    stop_gradient=True)
+    helper.append_op(type="shape", inputs={"Input": [input]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, dtype="float32",
+                 name=None):
+    helper = LayerHelper("label_smooth", name=name)
+    out = helper.create_variable_for_type_inference(dtype)
+    inputs = {"X": [label]}
+    if prior_dist is not None:
+        inputs["PriorDist"] = [prior_dist]
+    helper.append_op(type="label_smooth", inputs=inputs,
+                     outputs={"Out": [out]},
+                     attrs={"epsilon": float(epsilon)})
+    return out
+
+
+def smooth_l1(x, y, inside_weight=None, outside_weight=None, sigma=None):
+    helper = LayerHelper("smooth_l1_loss")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    diff = helper.create_variable_for_type_inference(x.dtype)
+    inputs = {"X": [x], "Y": [y]}
+    if inside_weight is not None:
+        inputs["InsideWeight"] = [inside_weight]
+    if outside_weight is not None:
+        inputs["OutsideWeight"] = [outside_weight]
+    helper.append_op(type="smooth_l1_loss", inputs=inputs,
+                     outputs={"Out": [out], "Diff": [diff]},
+                     attrs={"sigma": sigma or 1.0})
+    return out
+
+
+def huber_loss(input, label, delta):
+    helper = LayerHelper("huber_loss")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    residual = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="huber_loss", inputs={"X": [input], "Y": [label]},
+                     outputs={"Out": [out], "Residual": [residual]},
+                     attrs={"delta": float(delta)})
+    return out
+
+
+def kldiv_loss(x, target, reduction="mean", name=None):
+    return _one_out("kldiv_loss", x, {"reduction": reduction}, name,
+                    ins={"X": [x], "Target": [target]}, out_slot="Loss")
+
+
+def log_loss(input, label, epsilon=1e-4, name=None):
+    return _one_out("log_loss", input, {"epsilon": float(epsilon)}, name,
+                    ins={"Predicted": [input], "Labels": [label]},
+                    out_slot="Loss")
+
+
+def unique_name_layer():  # the JAX package's placeholder stub
+    raise NotImplementedError

@@ -4,15 +4,16 @@ layers and increment, which the learning-rate schedules and the
 meta-optimizers build with; the selection, sorting and linear-algebra
 layers over ``ops/manipulation.py`` and ``ops/math_ops.py`` (argmax,
 argsort, flip, roll, tile, index_select, tril, diag, dot, kron, trace,
-cholesky, inverse, ...); and the isfinite family.
+cholesky, inverse, ...); the isfinite family; and the creation layers
+over ``ops/creation.py`` (ones_like, full_like, range / arange,
+linspace, eye, fill_constant_batch_size_like).
 
 Parity surface: python/paddle/fluid/layers/tensor.py in the reference;
-ported from the JAX package's ``fluid/layers/tensor.py``.  Not ported
-yet, because their op types are not: ``ones_like``, ``full_like``,
-``range`` / ``arange``, ``linspace``, ``eye`` and
-``fill_constant_batch_size_like`` (ROADMAP A7 item 2, ``creation.py``).
+ported from the JAX package's ``fluid/layers/tensor.py``.
 """
 from __future__ import annotations
+
+import builtins
 
 import numpy as np
 
@@ -53,6 +54,22 @@ def fill_constant(shape, dtype, value, out=None, name=None):
         outputs={"Out": [out]},
         attrs={"shape": list(shape), "dtype": convert_dtype(dtype),
                "value": float(value)},
+    )
+    out.stop_gradient = True
+    return out
+
+
+def fill_constant_batch_size_like(input, shape, dtype, value,
+                                  input_dim_idx=0, output_dim_idx=0):
+    helper = LayerHelper("fill_constant_batch_size_like")
+    out = helper.create_variable_for_type_inference(dtype=dtype)
+    helper.append_op(
+        type="fill_constant_batch_size_like",
+        inputs={"Input": [input]},
+        outputs={"Out": [out]},
+        attrs={"shape": list(shape), "dtype": convert_dtype(dtype),
+               "value": float(value), "input_dim_idx": input_dim_idx,
+               "output_dim_idx": output_dim_idx},
     )
     out.stop_gradient = True
     return out
@@ -210,6 +227,67 @@ def zeros_like(x, out=None):
     return out
 
 
+def ones_like(x, out=None):
+    helper = LayerHelper("ones_like")
+    if out is None:
+        out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="fill_any_like", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"value": 1.0})
+    return out
+
+
+def full_like(x, fill_value, dtype=None):
+    helper = LayerHelper("full_like")
+    out = helper.create_variable_for_type_inference(dtype=dtype or x.dtype)
+    attrs = {"value": float(fill_value)}
+    if dtype is not None:
+        attrs["dtype"] = convert_dtype(dtype)
+    helper.append_op(type="fill_any_like", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs=attrs)
+    return out
+
+
+def range(start, end, step, dtype="int64"):
+    helper = LayerHelper("range")
+    out = helper.create_variable_for_type_inference(dtype=dtype)
+    helper.append_op(
+        type="range",
+        outputs={"Out": [out]},
+        attrs={"start": float(start), "end": float(end),
+               "step": float(step), "dtype": convert_dtype(dtype)},
+    )
+    out.stop_gradient = True
+    return out
+
+
+arange = range
+
+
+def linspace(start, stop, num, dtype="float32"):
+    helper = LayerHelper("linspace")
+    out = helper.create_variable_for_type_inference(dtype=dtype)
+    helper.append_op(
+        type="linspace",
+        outputs={"Out": [out]},
+        attrs={"start": float(start), "stop": float(stop), "num": int(num),
+               "dtype": convert_dtype(dtype)},
+    )
+    return out
+
+
+def eye(num_rows, num_columns=None, dtype="float32"):
+    helper = LayerHelper("eye")
+    out = helper.create_variable_for_type_inference(dtype=dtype)
+    helper.append_op(
+        type="eye",
+        outputs={"Out": [out]},
+        attrs={"num_rows": int(num_rows),
+               "num_columns": int(num_columns or num_rows),
+               "dtype": convert_dtype(dtype)},
+    )
+    return out
+
+
 def diag(diagonal):
     helper = LayerHelper("diag")
     out = helper.create_variable_for_type_inference(dtype=diagonal.dtype)
@@ -344,7 +422,7 @@ def take_along_axis(x, indices, axis, name=None):
 def unbind(x, axis=0, name=None):
     helper = LayerHelper("unbind")
     outs = [helper.create_variable_for_type_inference(x.dtype)
-            for _ in range(x.shape[axis])]
+            for _ in builtins.range(x.shape[axis])]
     helper.append_op(type="unbind", inputs={"X": [x]}, outputs={"Out": outs},
                      attrs={"axis": axis})
     return outs

@@ -835,11 +835,14 @@ def meshgrid(ctx, ins, attrs):
 
 @register("take_along_axis")
 def take_along_axis(ctx, ins, attrs):
+    x, idx = ins["Input"][0], ins["Index"][0]
+    return {"Result": [take_along(x, idx, attrs.get("Axis", 0) % x.dim())]}
+
+
+def take_along(x, idx, axis):
     """jnp.take_along_axis: the index broadcast against x off the axis, a
     negative index wrapped once, one still out of range read as the
-    fill value (NaN for floats, as ``take``)."""
-    x, idx = ins["Input"][0], ins["Index"][0]
-    axis = attrs.get("Axis", 0) % x.dim()
+    fill value (NaN for floats, as ``take``) and given no gradient."""
     shape = list(torch.broadcast_shapes(
         x.shape[:axis] + (1,) + x.shape[axis + 1:],
         idx.shape[:axis] + (1,) + idx.shape[axis + 1:]))
@@ -851,7 +854,7 @@ def take_along_axis(ctx, ins, attrs):
     idx = torch.where(idx < 0, idx + n, idx)
     ok = (idx >= 0) & (idx < n)
     out = torch.gather(xb, axis, idx.clamp(0, max(n - 1, 0)))
-    return {"Result": [torch.where(ok, out, _fill_value(x.dtype))]}
+    return torch.where(ok, out, _fill_value(x.dtype))
 
 
 @register("shard_index", stop_gradient=True, no_vjp_grad=True)

@@ -147,15 +147,60 @@ def _unbroadcast(g, shape):
     return g.sum(dim=dims, keepdim=True) if dims else g
 
 
+class _Resigned(torch.autograd.Function):
+    """``fixed`` (``z`` with the sign of its zeros set) as the value, the
+    gradient passed to ``z`` as it is."""
+
+    @staticmethod
+    def forward(ctx, z, fixed):
+        return fixed
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def xla_zero_sign(z, neg_zero):
+    """``z`` whose zeros are -0.0 where ``neg_zero``, else +0.0, its
+    gradient untouched.  XLA's min and max order -0.0 below +0.0 (a zero
+    min is -0.0 if either zero is, a zero max +0.0 if either is); torch's
+    minimum, maximum, amin and amax return whichever zero they met
+    first."""
+    if not z.is_floating_point():
+        return z
+    fixed = torch.where(z == 0, torch.where(neg_zero, -0.0, 0.0).to(z.dtype),
+                        z)
+    if z.requires_grad:
+        return _Resigned.apply(z, fixed)
+    return fixed
+
+
+def extreme(x, is_min, dim=None, keepdim=False):
+    """jnp.min / jnp.max over ``dim`` (all if None): torch.amin / amax
+    (ties share the gradient evenly, as jnp's VJP), zeros signed as
+    XLA's (``xla_zero_sign``)."""
+    fn = torch.amin if is_min else torch.amax
+    z = fn(x) if dim is None else fn(x, dim=dim, keepdim=keepdim)
+    if not x.is_floating_point():
+        return z
+    # min: -0.0 if the slice holds a -0.0; max: +0.0 unless every zero
+    # of the slice is -0.0
+    zero = (x == 0) & (x.signbit() if is_min else ~x.signbit())
+    has = zero.any() if dim is None else zero.any(dim=dim, keepdim=keepdim)
+    return xla_zero_sign(z, has if is_min else ~has)
+
+
 class _MinMax(torch.autograd.Function):
     """torch.minimum / maximum whose gradient follows lax.min / lax.max:
-    an operand gets the cotangent where it equals the result, half of it
-    where both do (a tie, -0.0 against 0.0 included), and none where the
-    result is NaN (torch would pass it to the NaN operand)."""
+    the cotangent times 1 where an operand equals the result, 0.5 where
+    both do (a tie, -0.0 against 0.0 included), 0 where it does not or
+    the result is NaN (torch would pass it to the NaN operand).  A
+    product, as lax's rule is: an infinite or NaN cotangent gives NaN
+    to the operand that lost, where a select would give 0."""
 
     @staticmethod
     def forward(ctx, x, y, fn):
-        z = fn(x, y)
+        z = _signed_min_max(fn, x, y)
         ctx.save_for_backward(x, y, z)
         return z
 
@@ -163,10 +208,22 @@ class _MinMax(torch.autograd.Function):
     def backward(ctx, g):
         x, y, z = ctx.saved_tensors
         xz, yz = x == z, y == z
-        half = torch.where(xz & yz, 0.5, 1.0).to(g.dtype)
-        zero = torch.zeros((), dtype=g.dtype, device=g.device)
-        return (_unbroadcast(torch.where(xz, g * half, zero), x.shape),
-                _unbroadcast(torch.where(yz, g * half, zero), y.shape), None)
+        half = torch.where(xz & yz, 0.5, 1.0)
+        return (_unbroadcast(g * torch.where(xz, half, 0.0).to(g.dtype),
+                             x.shape),
+                _unbroadcast(g * torch.where(yz, half, 0.0).to(g.dtype),
+                             y.shape), None)
+
+
+def _signed_min_max(fn, x, y):
+    """torch.minimum / maximum with XLA's signed zeros: a zero min is -0.0
+    if either operand is -0.0, a zero max -0.0 only if both are."""
+    z = fn(x, y)
+    if not z.is_floating_point():
+        return z
+    if fn is torch.minimum:
+        return xla_zero_sign(z, x.signbit() | y.signbit())
+    return xla_zero_sign(z, x.signbit() & y.signbit())
 
 
 def _min_max(fn):
@@ -174,7 +231,7 @@ def _min_max(fn):
         x, y = _promoted(x, y)
         if x.is_floating_point() and (x.requires_grad or y.requires_grad):
             return _MinMax.apply(x, y, fn)
-        return fn(x, y)
+        return _signed_min_max(fn, x, y)
 
     return op
 
@@ -599,13 +656,13 @@ def log_softmax(ctx, ins, attrs):
 
 @register("maxout")
 def maxout(ctx, ins, attrs):
-    """The max over each group of ``groups`` channels; ``amax`` splits the
-    gradient evenly between tied values, as jnp.max's VJP does."""
+    """The max over each group of ``groups`` channels (``extreme``: the
+    gradient split evenly between tied values, as jnp.max's VJP does)."""
     x = ins["X"][0]
     g = attrs["groups"]
     n, c = x.shape[0], x.shape[1]
-    return {"Out": [torch.amax(x.reshape((n, c // g, g) + tuple(x.shape[2:])),
-                               dim=2)]}
+    return {"Out": [extreme(x.reshape((n, c // g, g) + tuple(x.shape[2:])),
+                            False, dim=2)]}
 
 
 @register("isfinite", stop_gradient=True, no_vjp_grad=True)

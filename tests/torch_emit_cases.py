@@ -157,11 +157,13 @@ def _with(ins, leaves):
 
 
 def assert_vjp_matches(op, ins, attrs, out_slot="Out", seed=4, atol=2e-6,
-                       rtol=1e-6):
+                       rtol=1e-6, jit=False):
     """The gradient of ``out_slot``'s first output with respect to every
     f32 input, one random cotangent: torch autograd through the port's
     emitter against jax.vjp of the JAX emitter (both at the same
-    primal)."""
+    primal); with ``jit`` the JAX side compiled as one program (one XLA
+    compile instead of one dispatch a primitive), for ops whose
+    derivative no FMA contraction moves."""
     names = float_slots(ins)
     jins = inputs(ins, "jax")
 
@@ -170,10 +172,16 @@ def assert_vjp_matches(op, ins, attrs, out_slot="Out", seed=4, atol=2e-6,
                                  _with(jins, dict(zip(names, args))),
                                  dict(attrs))[out_slot][0]
 
-    out, vjp = jax.vjp(jfn, *[jins[k][i] for k, i in names])
+    primals = [jins[k][i] for k, i in names]
+    out = jax.eval_shape(jfn, *primals)
     g = np.random.default_rng(seed).standard_normal(out.shape).astype(
         np.float32)
-    want = vjp(jnp.asarray(g, out.dtype))
+
+    def pullback(ct, *args):
+        return jax.vjp(jfn, *args)[1](ct)
+
+    want = (jax.jit(pullback) if jit else pullback)(
+        jnp.asarray(g, out.dtype), *primals)
     tins = inputs(ins, "torch")
     leaves = {n: tins[n[0]][n[1]].requires_grad_() for n in names}
     got = treg.get(op).emit(treg.EmitContext(), _with(tins, leaves),
