@@ -152,6 +152,17 @@ prints no result):
                (plain versions) from the same weights: f32 with TF32 off
                (then once on, to show the loss limit catches it), and bf16
                AMP
+  bert_fp16_train  bert_train under float16 AMP (the reference's
+               defaults: dynamic loss scaling from 2^15): every launch of
+               rows 2-5 on its f16 form (26 / 26 / 12 / 24 a step), the
+               scale fetched each step, the losses falling; 3 profiled
+               steps; 2 layers at 2 x 128 card vs CPU from one scope
+               (TRAIN_PARITY_LOSS_F16 / _LN_F16, which the card's bf16
+               forms swapped in exceed; the CPU run in a child started
+               with the script, beside the phases before this one); an
+               overflow drill from 2^40 whose
+               skipped steps leave every update output bit for bit and
+               whose scale follows the rule on the card's own found_inf
   resnet_train ResNet-50 training as the JAX package's bench runs it:
                FLAGS_conv_bn_fusion (53 fused_conv_bn ops), Momentum
                0.1/0.9, bf16 AMP, batch 128 at 224 x 224, one fixed seed-0
@@ -342,7 +353,10 @@ prints no result):
                BERT-base with a moe_ffn of 8 experts at dp 2 x ep 2 and
                dp 1 x ep 4, ZeRO-2 at dp 4 against unsharded dp, and the
                dense, DGC and LocalSGD multi-slice modes at dcn 2 x dp 2,
-               on one set of four ranks, at 4 of BERT-base's layers
+               on one set of four ranks, at 4 of BERT-base's layers;
+               dist_zero also ZeRO-2 under float16 AMP from an
+               overflowing scale, every rank's scale and counters the
+               one-process run's each step
   dist_elastic BERT-base (4 of its 12 layers, the fused stack, bf16 AMP, Adam,
                dropout 0.1, ZeRO-2) started at dp 4 by ``python -m
                paddle_tpu_torch.distributed.launch`` with the lease plane
@@ -358,7 +372,11 @@ prints no result):
                start-up by stage, step ms a rank, save ms and bytes a
                shard, detect-to-relaunch seconds, each rank's largest
                gap between answered lease renewals, rows 2-5 a step a
-               rank, and beside each attempt the jobs that ran with it
+               rank, and beside each attempt the jobs that ran with it.
+               Its jobs run beside the gloo spawn and serve_launch,
+               started once ps_train's jobs have exited, and are held
+               after the dist phases; the card's free memory over that
+               window is the ``dist_window`` line's
 
   ps_train     the parameter server, no kernel on its path (rows 1-14:
                0 launches): (a) examples/ps_embedding_training.py's
@@ -387,7 +405,7 @@ prints no result):
   serve_launch a serving fleet under the port's launcher, beside the gloo
                spawn: ``python -m paddle_tpu_torch.distributed.launch
                --serve --nproc_per_node 2 --elastic_retries 2 --lease_secs
-               5 --heartbeat_timeout 10 --serve_kv_cache 1
+               10 --heartbeat_timeout 10 --serve_kv_cache 1
                --serve_kv_pages 64 --servers (two loopback ports)
                --ps_replication 2`` over the serve phase's BERT-base f32
                export (--max_batch 8), each replica with a 2-layer decoder
@@ -425,6 +443,7 @@ import atexit
 import collections
 import contextlib
 import dataclasses
+import functools
 import hashlib
 import json
 import math
@@ -448,6 +467,20 @@ ATOL_BF16 = 1e-2            # bf16 output rounding (8-bit mantissa)
 # bf16 outputs of the flash and LN kernels: both versions compute in f32
 # and round once, so they may differ by one bf16 ulp (2**-7 relative)
 RTOL_BF16 = 2.0 ** -7
+# the same for f16 outputs (float16 AMP): one f16 ulp, 2**-10 relative
+RTOL_F16 = 2.0 ** -10
+
+
+def _rtol16(dtype) -> float:
+    """One ulp of a 16-bit float dtype, relative: the limit a kernel and
+    its plain version, each rounding once from f32, are held to."""
+    import torch
+
+    return RTOL_F16 if dtype == torch.float16 else RTOL_BF16
+
+
+def _dtype_name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
 # f32 log-sum-exp over up to 4096 keys: l sums terms in (0, 1] whose
 # largest is 1, in another order in each version, and the rounding errors
 # add like a random walk, ~sqrt(4096) * 2^-24 = 4e-6 of l (1e-6 read at
@@ -464,6 +497,24 @@ BERT_PARITY_LIMIT = 5e-4    # BERT-base card vs CPU, f32, TF32 off
 TRAIN_PARITY_LOSS = 2e-5
 TRAIN_PARITY_PARAM = 2e-5
 TRAIN_PARITY_LOSS_BF16 = 2e-2
+# Under float16 AMP (bert_fp16_train's parity, 2 of BERT-base's layers at
+# full width, 2 x 128, 3 Adam steps at 1e-4, one scope): both sides round
+# activations to f16 at the same casts, one f16 ulp (2^-10) apart where
+# their f32 sums part.  Measured on the H100: the loss
+# gap 6.8e-5, the first LayerNorm scale 9.3e-6 after the steps; with the
+# card's rows 2-5 on their bf16 forms (bf16 rounding, 8x coarser) 3.9e-4
+# and 2.0e-4.  The limits sit between: the f16 run 3x and 5x under them,
+# the swapped one 1.9x and 3.9x over, and it must exceed one
+TRAIN_PARITY_LOSS_F16 = 2e-4
+TRAIN_PARITY_LN_F16 = 5e-5
+# the overflow drill: a start scale whose f16 gradients overflow, cut by
+# 0.01 at each overflow until the steps update
+FP16_DRILL = {"init_loss_scaling": 2.0 ** 40, "decr_every_n_nan_or_inf": 1,
+              "decr_ratio": 0.01, "incr_every_n_steps": 1000, "steps": 8}
+# the reference's float16 defaults (Fluid 1.8 decorate)
+FP16_AMP = {"init_loss_scaling": 2.0 ** 15, "incr_every_n_steps": 1000,
+            "decr_every_n_nan_or_inf": 2, "incr_ratio": 2.0,
+            "decr_ratio": 0.8}
 # LN backward's dscale/dshift: f32 sums over 4096 rows of terms near 1,
 # taken in another order (the kernel's per-warp partials, torch's tree):
 # errors grow like sqrt(4096) ulps of partial sums up to ~200, whatever
@@ -876,20 +927,23 @@ def _bsh_fwd_rounding(torch, fa, name, kw, o, lse, checks, mask, keep_div,
 
 def _bsh_fwd_check(torch, fa, name, kw, is_bf16) -> tuple:
     """Row 4 against its plain version (fed the Philox bits it drew):
-    f32 (the SIMT kernel) elementwise at ATOL_F32; bf16 (the wgmma
-    kernel, which must have run: ``launches_tc``) rounding by rounding
-    (``_bsh_fwd_rounding``), and its Philox bits equal to the f32 SIMT
-    forward's for the same seed and offset.  Returns (result, o, lse,
-    bits, keep mask, keep_div)."""
+    f32 (the SIMT kernel) elementwise at ATOL_F32; bf16 or f16 (the wgmma
+    kernel's form for it, which must have run: ``launches_tc``, and
+    ``launches_f16`` for f16; ``is_bf16`` names the 16-bit route) rounding
+    by rounding (``_bsh_fwd_rounding``), and its Philox bits equal to the
+    f32 SIMT forward's for the same seed and offset.  Returns (result, o,
+    lse, bits, keep mask, keep_div)."""
     p = kw.get("dropout_prob", 0.0)
-    n0 = (fa.flash_attention_bsh.launches, fa.flash_attention_bsh.launches_tc)
+    f16 = int(kw["q"].dtype == torch.float16)
+    fn = fa.flash_attention_bsh
+    n0 = (fn.launches, fn.launches_tc, fn.launches_f16)
     o, lse, bits, checks = fa.flash_attention_bsh_fwd(
         **kw, return_bits=True, return_probs=True)
-    ran = (fa.flash_attention_bsh.launches - n0[0],
-           fa.flash_attention_bsh.launches_tc - n0[1])
-    if ran != (1, int(is_bf16)) or (checks is None) == is_bf16:
+    ran = (fn.launches - n0[0], fn.launches_tc - n0[1],
+           fn.launches_f16 - n0[2])
+    if ran != (1, int(is_bf16), f16) or (checks is None) == is_bf16:
         fail(f"flash_attention_bsh {name}: the forward launched {ran} (all, "
-             f"on the tensor cores)")
+             f"on the tensor cores, in f16)")
     mask, keep_div = kw.get("mask"), 1.0 - p
     if "dropout_seed" in kw:
         mask = bits
@@ -1108,8 +1162,10 @@ def _kernels_ln(torch, F, flush) -> tuple:
 
 
 def _check_grads(name, got, want, is_bf16) -> dict:
+    """dq, dk, dv within ATOL_F32 in f32, one ulp of their 16-bit dtype
+    (bf16 or f16: ``is_bf16`` names the 16-bit route) plus 1e-5 else."""
     return {g: _check(f"{name} {g}", a, b, 1e-5 if is_bf16 else ATOL_F32,
-                      RTOL_BF16 if is_bf16 else 0.0)["max_abs_err"]
+                      _rtol16(a.dtype) if is_bf16 else 0.0)["max_abs_err"]
             for g, a, b in zip(("dq", "dk", "dv"), got, want)}
 
 
@@ -1132,8 +1188,8 @@ def _flash_train_case(torch, rng, b, s, nh, d, dtype, causal=False, p=0.0,
 
 def _bwd_f64(torch, q, k, v, bias, o, lse, do, nh, causal):
     """(dq, dk, dv) in float64 under the TPU kernel's rounding rule: s,
-    dp and delta in float64, p and ds rounded to bf16 from them, the
-    products in float64."""
+    dp and delta in float64, p and ds rounded to q's dtype (bf16 or f16)
+    from them, the products in float64."""
     b, s, hd = q.shape
     d = hd // nh
 
@@ -1150,8 +1206,8 @@ def _bwd_f64(torch, q, k, v, bias, o, lse, do, nh, causal):
     dof = heads(do)
     dp = dof @ heads(v).transpose(-1, -2)
     delta = (dof * heads(o)).sum(-1, keepdim=True)
-    ds = (p * (dp - delta) / math.sqrt(d)).to(torch.bfloat16).double()
-    p = p.to(torch.bfloat16).double()
+    ds = (p * (dp - delta) / math.sqrt(d)).to(q.dtype).double()
+    p = p.to(q.dtype).double()
     out = (ds @ heads(k), ds.transpose(-1, -2) @ heads(q),
            p.transpose(-1, -2) @ dof)
     return tuple(t.transpose(1, 2).reshape(b, s, hd) for t in out)
@@ -1167,7 +1223,7 @@ def _end_to_end(grads, ref) -> dict:
     for g, a, b in zip(("dq", "dk", "dv"), grads, ref):
         diff = (a.float() - b.float()).abs()
         out[g] = {"max_abs_err": diff.max().item(),
-                  "beyond_limit": int((diff > 1e-5 + RTOL_BF16
+                  "beyond_limit": int((diff > 1e-5 + _rtol16(a.dtype)
                                        * b.float().abs()).sum()),
                   "elements": diff.numel()}
     return out
@@ -1191,7 +1247,8 @@ def _flash_bwd_check(torch, fa, name, kw, do) -> dict:
     plain version's, and the kernels' dq, dk, dv against the plain
     products of those intermediates.  The end-to-end difference is
     reported beside them."""
-    is_bf16 = kw["q"].dtype == torch.bfloat16
+    # the 16-bit route (bf16 or f16: the wgmma kernels' two forms)
+    is_bf16 = kw["q"].dtype in (torch.bfloat16, torch.float16)
     p = kw["dropout_prob"]
     r, o, lse, bits, mask, keep_div = _bsh_fwd_check(torch, fa, name, kw,
                                                      is_bf16)
@@ -1215,7 +1272,7 @@ def _flash_bwd_check(torch, fa, name, kw, do) -> dict:
         p_k, ds_k, dsq_k = out[3]
         r["intermediates"] = {
             t: _check(f"flash backward {name} {t}", a, p_ref if t == "p"
-                      else ds_ref, 1e-5, RTOL_BF16)["max_abs_err"]
+                      else ds_ref, 1e-5, _rtol16(a.dtype))["max_abs_err"]
             for t, a in (("p", p_k), ("ds", ds_k), ("ds_dq", dsq_k))}
         fed = fa.bwd_products_reference(q, k, v, do, p_k, ds_k, nh,
                                         ds_q=dsq_k)
@@ -1249,8 +1306,8 @@ def _flash_bwd_check(torch, fa, name, kw, do) -> dict:
 
 
 def _bsh_pair_timed(torch, F, flush, fa, kw, do, checked, what):
-    """Rows 4 and 5 timed on one checked bf16 case (``kw``, ``do``: a
-    padding bias, Philox dropout) beside the plain versions and SDPA
+    """Rows 4 and 5 timed on one checked bf16 or f16 case (``kw``, ``do``:
+    a padding bias, Philox dropout) beside the plain versions and SDPA
     (with the same dropout, on pre-split heads; its autograd backward),
     and each without dropout: what drawing the Philox bits costs."""
     q, k, v, bias = kw["q"], kw["k"], kw["v"], kw["bias"]
@@ -1268,10 +1325,11 @@ def _bsh_pair_timed(torch, F, flush, fa, kw, do, checked, what):
                                            attn_mask=bias.to(q.dtype),
                                            dropout_p=p)
     fwd = {"shape": {"B": b, "S": s, "H": h, "nh": nh, "D": h // nh,
-                     "bias": "per key", "dtype": "bfloat16",
+                     "bias": "per key", "dtype": _dtype_name(q.dtype),
                      "dropout": f"Philox, p={p}"},
            "library": f"F.scaled_dot_product_attention with dropout_p={p} "
-                      f"on pre-split heads, additive bf16 mask",
+                      f"on pre-split heads, additive "
+                      f"{_dtype_name(q.dtype)} mask",
            "max_abs_err": checked["max_abs_err"]}
     n_tc = fa.flash_attention_bsh.launches_tc
     fwd.update(_timed(
@@ -1347,7 +1405,7 @@ def _kernels_flash_train(torch, F, flush) -> tuple:
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
 
     rng = np.random.default_rng(7)
-    f32, bf16 = torch.float32, torch.bfloat16
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
     cases = [
         ("f32", (8, 512, 12, 64, f32), {}),
         ("bf16", (8, 512, 12, 64, bf16), {}),
@@ -1363,21 +1421,38 @@ def _kernels_flash_train(torch, F, flush) -> tuple:
         ("philox_bf16", (8, 512, 12, 64, bf16), dict(p=0.1, mode="philox")),
         ("philox_bf16_causal_d128", (2, 256, 4, 128, bf16),
          dict(p=0.3, mode="philox", causal=True)),
+        # the f16 forms (float16 AMP): BERT's shape, then the others
+        ("f16", (8, 512, 12, 64, f16), {}),
+        ("philox_f16", (8, 512, 12, 64, f16), dict(p=0.1, mode="philox")),
+        ("mask_f16_causal", (2, 256, 4, 64, f16),
+         dict(p=0.2, mode="mask", causal=True)),
+        ("d128_f16_causal", (2, 256, 4, 128, f16), dict(causal=True)),
+        ("philox_f16_d256", (2, 512, 4, 256, f16),
+         dict(p=0.1, mode="philox")),
     ]
     results = {}
-    main = None
+    main = {}
     for name, shape, extra in cases:
         kw, do = _flash_train_case(torch, rng, *shape, **extra)
         results[name] = _flash_bwd_check(torch, fa, name, kw, do)
-        if name == "philox_bf16":
-            main = (kw, do)
+        if name in ("philox_bf16", "philox_f16"):
+            main[name] = (kw, do)
         del kw, do
 
-    kw, do = main
+    # the f16 forms at BERT's training shape (bert_fp16_train's), then
+    # the bf16 ones (bert_train's)
+    kw, do = main.pop("philox_f16")
+    fwd16, bwd16 = _bsh_pair_timed(torch, F, flush, fa, kw, do,
+                                   results["philox_f16"],
+                                   "BERT's training shape in f16")
+    fwd16["shape"]["bias"] = "per key, lengths 128..512"
+    del kw, do
+    kw, do = main.pop("philox_bf16")
     fwd, bwd = _bsh_pair_timed(torch, F, flush, fa, kw, do,
                                results["philox_bf16"],
                                "BERT's training shape")
     fwd["shape"]["bias"] = "per key, lengths 128..512"
+    fwd["f16"], bwd["f16"] = fwd16, bwd16
     del main, kw, do
     torch.cuda.empty_cache()
     _tp_block_timed(torch, F, flush, fa, rng, results, fwd, bwd)
@@ -1507,7 +1582,7 @@ def _ln_bwd_timed(torch, F, flush, add_ln, kw, g, res) -> dict:
     F.layer_norm and its bound."""
     x, y, scale = kw["x"], kw["y"], kw["scale"]
     r, h = x.shape
-    is_bf16 = x.dtype == torch.bfloat16
+    low = x.dtype != torch.float32       # bf16 or f16
     _, mean, rstd = add_ln.fused_add_ln_fwd(**kw)
     s_ = (x.float() + y.float()).to(x.dtype) if y is not None else x
     xs = s_.detach().clone().requires_grad_()
@@ -1515,7 +1590,7 @@ def _ln_bwd_timed(torch, F, flush, add_ln, kw, g, res) -> dict:
     bs = kw["shift"].to(x.dtype).detach().clone().requires_grad_()
     lib_out = F.layer_norm(xs, (h,), ws, bs, 1e-5)
     out = {"shape": {"R": r, "H": h, "y": y is not None,
-                     "dtype": "bfloat16" if is_bf16 else "float32"},
+                     "dtype": _dtype_name(x.dtype)},
            "library": "autograd backward of F.layer_norm (dx, dweight, "
                       "dbias; the residual add left out)",
            "max_abs_err": max(res["max_abs_err"], res["dscale"],
@@ -1529,7 +1604,7 @@ def _ln_bwd_timed(torch, F, flush, add_ln, kw, g, res) -> dict:
                                     retain_graph=True),
         nbytes=add_ln.bound_bytes_bwd(x, y),
         flops=add_ln.bound_flops_bwd(x, y),
-        peak_flops=BF16_FLOPS if is_bf16 else F32_FLOPS))
+        peak_flops=BF16_FLOPS if low else F32_FLOPS))
     threads, per_block, nblocks, ngroups = add_ln.bwd_geometry(
         r, h, torch.cuda.get_device_properties(0).multi_processor_count)
     out["geometry"] = {"threads": threads, "rows_per_block": per_block,
@@ -1538,18 +1613,20 @@ def _ln_bwd_timed(torch, F, flush, add_ln, kw, g, res) -> dict:
 
 
 def _ln_fwd_timed(torch, F, flush, add_ln, kw) -> dict:
-    """Row 2 on ``kw`` (bf16 with the residual) against its plain version
-    and timed beside F.layer_norm of x + y."""
+    """Row 2 on ``kw`` (bf16 or f16 with the residual) against its plain
+    version and timed beside F.layer_norm of x + y in the same dtype."""
     x, y = kw["x"], kw["y"]
     r, h = x.shape
+    dt = _dtype_name(x.dtype)
     s_ = (x.float() + y.float()).to(x.dtype)
     lib_scale, lib_shift = kw["scale"].to(x.dtype), kw["shift"].to(x.dtype)
-    out = {"shape": {"R": r, "H": h, "y": True, "dtype": "bfloat16"},
+    out = {"shape": {"R": r, "H": h, "y": True, "dtype": dt},
            "library": "F.layer_norm of x + y (the add left out)",
            "max_abs_err": _check(
-               f"add_ln {r} x {h} bf16_y out", add_ln.fused_add_ln_fwd(**kw)[0],
+               f"add_ln {r} x {h} {dt}_y out",
+               add_ln.fused_add_ln_fwd(**kw)[0],
                add_ln.fused_add_ln_reference(**kw)[0], 1e-5,
-               RTOL_BF16)["max_abs_err"]}
+               _rtol16(x.dtype))["max_abs_err"]}
     out.update(_timed(
         torch, flush, lambda: add_ln.fused_add_ln_fwd(**kw),
         lambda: add_ln.fused_add_ln_reference(**kw),
@@ -1643,9 +1720,11 @@ def _kernels_ln_train(torch, F, flush) -> tuple:
     for name, dtype, with_y in (("f32", torch.float32, False),
                                 ("f32_y", torch.float32, True),
                                 ("bf16", torch.bfloat16, False),
-                                ("bf16_y", torch.bfloat16, True)):
+                                ("bf16_y", torch.bfloat16, True),
+                                ("f16", torch.float16, False),
+                                ("f16_y", torch.float16, True)):
         kw, g = _ln_case(torch, rng, r, h, dtype, with_y)
-        is_bf16 = dtype == torch.bfloat16
+        is_bf16 = dtype != torch.float32      # bf16 or f16
         _, mean, rstd = add_ln.fused_add_ln_fwd(**kw)
         x, y, scale = kw["x"], kw["y"], kw["scale"]
         dx, dsc, dsh = add_ln.fused_add_ln_bwd(x, y, scale, mean, rstd, g)
@@ -1654,17 +1733,23 @@ def _kernels_ln_train(torch, F, flush) -> tuple:
         torch.cuda.synchronize()
         res = _check(f"add_ln backward {name} dx", dx, rdx,
                      1e-5 if is_bf16 else ATOL_F32,
-                     RTOL_BF16 if is_bf16 else 0.0)
+                     _rtol16(dtype) if is_bf16 else 0.0)
+        if dtype == torch.float16:
+            res["forward"] = _check(
+                f"add_ln {name} out", add_ln.fused_add_ln_fwd(**kw)[0],
+                add_ln.fused_add_ln_reference(**kw)[0], 1e-5,
+                RTOL_F16)["max_abs_err"]
         res["dscale"] = _check(f"add_ln backward {name} dscale", dsc, rdsc,
                                ATOL_SUM, RTOL_SUM)["max_abs_err"]
         res["dshift"] = _check(f"add_ln backward {name} dshift", dsh, rdsh,
                                ATOL_SUM, RTOL_SUM)["max_abs_err"]
         results[name] = res
-        if name in ("f32", "bf16_y"):
+        if name in ("f32", "bf16_y", "f16_y"):
             timed[name] = _ln_bwd_timed(torch, F, flush, add_ln, kw, g, res)
-        if name == "bf16_y":
+        if name in ("bf16_y", "f16_y"):
             # the forward at the same shapes, for the training path's row
-            timed["fwd_bf16_y"] = _ln_fwd_timed(torch, F, flush, add_ln, kw)
+            timed[f"fwd_{name}"] = _ln_fwd_timed(torch, F, flush, add_ln,
+                                                 kw)
             results["one_launch"] = _ln_bwd_one_launch(torch, add_ln, kw, g)
         del kw, g, dx, rdx
 
@@ -1677,9 +1762,11 @@ def _kernels_ln_train(torch, F, flush) -> tuple:
             ("bf16_y_h4096", 128, 4096, torch.bfloat16, True),
             ("f32_h4096", 64, 4096, torch.float32, False),
             ("bf16_h2052", 64, 2052, torch.bfloat16, False),
-            ("f32_y_1000_rows_h1024", 1000, 1024, torch.float32, True)):
+            ("f32_y_1000_rows_h1024", 1000, 1024, torch.float32, True),
+            ("f16_y_h772", 512, 772, torch.float16, True),
+            ("f16_y_h4096", 128, 4096, torch.float16, True)):
         kw, g = _ln_case(torch, rng, r_, h_, dtype, with_y)
-        is_bf16 = dtype == torch.bfloat16
+        is_bf16 = dtype != torch.float32      # bf16 or f16
         _, mean, rstd = add_ln.fused_add_ln_fwd(**kw)
         x, y, scale = kw["x"], kw["y"], kw["scale"]
         got = add_ln.fused_add_ln_bwd(x, y, scale, mean, rstd, g)
@@ -1687,7 +1774,12 @@ def _kernels_ln_train(torch, F, flush) -> tuple:
         torch.cuda.synchronize()
         res = _check(f"add_ln backward {name} dx", got[0], want[0],
                      1e-5 if is_bf16 else ATOL_F32,
-                     RTOL_BF16 if is_bf16 else 0.0)
+                     _rtol16(dtype) if is_bf16 else 0.0)
+        if is_bf16:
+            res["forward"] = _check(
+                f"add_ln {name} out", add_ln.fused_add_ln_fwd(**kw)[0],
+                add_ln.fused_add_ln_reference(**kw)[0], 1e-5,
+                _rtol16(dtype))["max_abs_err"]
         for i, part in ((1, "dscale"), (2, "dshift")):
             res[part] = _check(f"add_ln backward {name} {part}", got[i],
                                want[i], ATOL_SUM, RTOL_SUM)["max_abs_err"]
@@ -1886,7 +1978,8 @@ def _bhsd_keep(fa, kw, bits):
 
 def _fwd_rounding(torch, name, o, lse, checks, probs_ref, products,
                   o_ref) -> dict:
-    """A bf16 wgmma forward (row 4 or row 6) held rounding by rounding, as
+    """A bf16 (or f16) wgmma forward (row 4 or row 6) held rounding by
+    rounding, as
     the backwards are: it rounds p c to bf16 before P.V relative to its
     running max after each 64-key tile, the plain version relative to the
     row's max, and where an f32 p sits within the two versions' f32
@@ -1898,6 +1991,7 @@ def _fwd_rounding(torch, name, o, lse, checks, probs_ref, products,
     |plain| (two roundings of one value differ by at most 2^-8 of it);
     the end-to-end difference from the plain forward is reported."""
     p_k, m_k = checks
+    rtol = _rtol16(o.dtype)
     p_ref, _, l_ref = probs_ref
     tile = p_k.shape[-1] // m_k.shape[-1]
     pn_k = p_k.float() * torch.exp(
@@ -1905,16 +1999,16 @@ def _fwd_rounding(torch, name, o, lse, checks, probs_ref, products,
     pn_ref = p_ref / l_ref
     del p_ref, l_ref, probs_ref
     r = {"p_over_l": _check(f"{name} forward p c / l", pn_k, pn_ref, 1e-5,
-                            RTOL_BF16)["max_abs_err"]}
+                            rtol)["max_abs_err"]}
     del pn_k, pn_ref
     fed = products(p_k, m_k, tile)
     r["o_vs_products"] = _check(f"{name} o", o, fed, 1e-5,
-                                RTOL_BF16)["max_abs_err"]
+                                rtol)["max_abs_err"]
     del fed
     diff = (o.float() - o_ref.float()).abs()
     r["o_end_to_end"] = {
         "max_abs_err": diff.max().item(),
-        "beyond_limit": int((diff > 1e-5 + RTOL_BF16
+        "beyond_limit": int((diff > 1e-5 + rtol
                              * o_ref.float().abs()).sum()),
         "elements": diff.numel()}
     return r
@@ -2419,6 +2513,13 @@ def phase_kernels(torch) -> dict:
     out["add_ln_bwd"] = ln["bf16_y"]
     out["add_ln_bwd_f32"] = ln["f32"]
     out["add_ln_train"] = ln["fwd_bf16_y"]
+    # the f16 forms at the same rows (bert_fp16_train's)
+    out["add_ln_bwd_f16"] = ln["f16_y"]
+    out["add_ln_train_f16"] = ln["fwd_f16_y"]
+    out["flash_attention_bsh_train_f16"] = out[
+        "flash_attention_bsh_train"].pop("f16")
+    out["flash_attention_bsh_bwd_f16"] = out[
+        "flash_attention_bsh_bwd"].pop("f16")
     out["add_ln_bwd_nmt"] = ln["nmt_bf16_y"]
     out["add_ln_train_nmt"] = ln["nmt_fwd_bf16_y"]
     out["cases"]["bert_long"], out["bert_long"] = _kernels_bert_long(
@@ -4431,9 +4532,13 @@ def phase_serve(torch, card: str, dec_cfg, model_dir: str) -> dict:
     return out
 
 
-def _train_program(cfg, b: int, s: int, max_preds: int, amp: bool):
+def _train_program(cfg, b: int, s: int, max_preds: int, amp: bool,
+                   fp16=None):
     """BERT pretraining as a user builds it: the MLM + NSP program, Adam at
-    1e-4, bf16 AMP (``decorate``) when ``amp``, ``minimize``."""
+    1e-4, bf16 AMP (``decorate``) when ``amp``, ``minimize``.  ``fp16``
+    (the decorate() settings of float16 AMP): float16 AMP with dynamic
+    loss scaling instead.  Returns (main, startup, loss, the optimizer
+    minimize ran: the AMP decorator under AMP)."""
     from paddle_tpu_torch import fluid
     from paddle_tpu_torch.contrib import mixed_precision
     from paddle_tpu_torch.models import bert
@@ -4444,10 +4549,12 @@ def _train_program(cfg, b: int, s: int, max_preds: int, amp: bool):
             cfg, b, s, max_preds, main_program=main, startup_program=startup)
         with fluid.program_guard(m, st):
             opt = fluid.optimizer.AdamOptimizer(learning_rate=1e-4)
-            if amp:
+            if fp16 is not None:
+                opt = mixed_precision.decorate(opt, use_bf16=False, **fp16)
+            elif amp:
                 opt = mixed_precision.decorate(opt, use_bf16=True)
             opt.minimize(loss)
-    return m, st, loss
+    return m, st, loss, opt
 
 
 KERNEL_COUNTERS = ("row6", "row7", "row8", "row9", "row6_tc", "row7_tc",
@@ -4580,7 +4687,7 @@ def phase_bert_train(torch, card: str) -> dict:
     cfg.fuse_stack = True
     b, s, max_preds, n_steps, n_warm = 8, 512, 76, 10, 2
     t0 = time.perf_counter()
-    main, startup, loss = _train_program(cfg, b, s, max_preds, amp=True)
+    main, startup, loss, _ = _train_program(cfg, b, s, max_preds, amp=True)
     build_s = time.perf_counter() - t0
     want = _launches_per_step(main, bf16=True)
     scope = fluid.Scope()
@@ -4627,7 +4734,7 @@ def _train_parity(torch, cfg, amp: bool, steps: int = 3) -> dict:
     from paddle_tpu_torch.models import bert
 
     b, s, max_preds = 2, 128, 20
-    main, startup, loss = _train_program(cfg, b, s, max_preds, amp)
+    main, startup, loss, _ = _train_program(cfg, b, s, max_preds, amp)
     cpu_exe, cpu_scope = fluid.Executor(device="cpu"), fluid.Scope()
     cpu_exe.run(startup, scope=cpu_scope)
     card_scope = fluid.Scope.from_numpy(
@@ -4721,6 +4828,393 @@ def phase_bert_train_profile(torch, train: dict) -> dict:
         torch, train["exe"], train["main"], train["scope"], train["feed"],
         train["loss"], 3, "window = 3 training steps of 8 x 512 (forward, "
         "backward, Adam, loss fetch)")}
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# BERT-base pretraining under float16 AMP: bert_fp16_train
+# ---------------------------------------------------------------------------
+
+F16_ROWS = ("bsh_fwd", "bsh_bwd", "ln_fwd", "ln_bwd")
+
+
+def _f16_counters():
+    """Rows 2-5's launches of their f16 forms (``launches_f16``)."""
+    from paddle_tpu_torch.ops.kernels import add_ln
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    return {"bsh_fwd_f16": _Counter(fa.flash_attention_bsh, "launches_f16"),
+            "bsh_bwd_f16": _Counter(fa.flash_attention_bsh_bwd,
+                                    "launches_f16"),
+            "ln_fwd_f16": _Counter(add_ln.fused_add_ln, "launches_f16"),
+            "ln_bwd_f16": _Counter(add_ln.fused_add_ln_bwd, "launches_f16")}
+
+
+def _update_outputs(main, scope) -> dict:
+    """Every var an update op writes (parameters, Adam's moments and beta
+    powers): name -> a copy of its tensor."""
+    from paddle_tpu_torch.ops.optimizer_ops import UPDATE_OPS
+
+    names = {n for op in main.global_block().ops if op.type in UPDATE_OPS
+             for n in op.output_names()}
+    return {n: scope.find_var(n).clone() for n in sorted(names)}
+
+
+def _fp16_drill(torch, cfg, b, s, max_preds) -> dict:
+    """The overflow drill: BERT-base 8 x 512 under float16 AMP from a start
+    scale of 2^40 (FP16_DRILL: each overflow cuts it by 0.01).  Per step
+    found_inf and the scale are fetched; a step with found_inf must leave
+    every parameter, moment and beta power bit for bit, a step without it
+    must move them, the scale must follow the decorator's rule applied to
+    the card's own found_inf sequence, and the steps after the overflows
+    must update with a finite loss."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import bert
+
+    c = FP16_DRILL
+    amp = {k: c[k] for k in ("init_loss_scaling", "decr_every_n_nan_or_inf",
+                             "decr_ratio", "incr_every_n_steps")}
+    main, startup, loss, opt = _train_program(cfg, b, s, max_preds, True,
+                                              fp16=amp)
+    scope, exe = fluid.Scope(), fluid.Executor()
+    exe.run(startup, scope=scope)
+    feed = {k: torch.as_tensor(v, device=exe.device) for k, v in
+            bert.random_pretrain_batch(cfg, b, s, max_preds, seed=0).items()}
+    scale, good, bad = c["init_loss_scaling"], 0, 0
+    steps = []
+    for i in range(c["steps"]):
+        before = _update_outputs(main, scope)
+        lv, sc, fi = exe.run(main, feed=feed, fetch_list=[
+            loss, opt.get_loss_scaling(), opt._found_inf], scope=scope)
+        after = _update_outputs(main, scope)
+        found = bool(np.asarray(fi).reshape(-1)[0])
+        moved = [n for n in before if not torch.equal(before[n], after[n])]
+        del before, after
+        # the decorator's rule on this found_inf, op by op in f32:
+        # factor = (1 + grow (incr - 1)) (shrink (decr - 1) + 1)
+        f = np.float32
+        good, bad = (0, bad + 1) if found else (good + 1, 0)
+        grow = f(good >= c["incr_every_n_steps"])
+        shrink = f(bad >= c["decr_every_n_nan_or_inf"])
+        factor = (f(grow * f(1.0)) + f(1.0)) * (
+            f(shrink * f(c["decr_ratio"] - 1.0)) + f(1.0))
+        scale = float(f(scale) * factor)
+        good, bad = int(good * (1 - grow)), int(bad * (1 - shrink))
+        got = float(np.asarray(sc).reshape(-1)[0])
+        lv = float(np.asarray(lv).reshape(-1)[0])
+        steps.append({"found_inf": found, "scale": got, "loss": lv,
+                      "moved": len(moved)})
+        if got != scale:
+            fail(f"bert_fp16_train overflow drill step {i}: scale {got}, "
+                 f"the rule on the card's found_inf gives {scale}")
+        if found and moved:
+            fail(f"bert_fp16_train overflow drill step {i}: a skipped step "
+                 f"moved {len(moved)} update outputs, {moved[:4]}")
+        if not found and (len(moved) == 0 or not math.isfinite(lv)):
+            fail(f"bert_fp16_train overflow drill step {i}: an updating "
+                 f"step moved {len(moved)} outputs, loss {lv}")
+    skipped = sum(st["found_inf"] for st in steps)
+    if not skipped or steps[-1]["found_inf"]:
+        fail(f"bert_fp16_train overflow drill: found_inf "
+             f"{[st['found_inf'] for st in steps]}")
+    return {"settings": amp, "steps": steps, "skipped": skipped,
+            "update_outputs": len(_update_outputs(main, scope))}
+
+
+FP16_PARITY_PARAMS = ("encoder_stack.qkv_w", "encoder_stack.ffn_w2",
+                      "encoder_stack.ln1_scale", "word_embedding",
+                      "mask_lm_trans_fc.w_0", "next_sent_fc.w_0")
+
+
+@contextlib.contextmanager
+def _bf16_forms_swapped_in(torch):
+    """Rows 2-5 on CUDA tensors run their bf16 forms on f16 inputs (cast
+    in and out): the fault bert_fp16_train's parity must catch.  CPU
+    tensors take the plain versions as ever."""
+    from paddle_tpu_torch.ops.kernels import add_ln
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    def to16(t, src, dst):
+        return (t.to(dst) if isinstance(t, torch.Tensor) and t.is_cuda
+                and t.dtype == src else t)
+
+    def via_bf16(fn):
+        @functools.wraps(fn)      # its launch counters come along
+        def call(*a, **k):
+            out = fn(*(to16(t, torch.float16, torch.bfloat16) for t in a),
+                     **{n: to16(v, torch.float16, torch.bfloat16)
+                        for n, v in k.items()})
+            return tuple(to16(t, torch.bfloat16, torch.float16)
+                         for t in out)
+        return call
+
+    real = {}
+    try:
+        for mod, name in ((fa, "flash_attention_bsh_fwd"),
+                          (fa, "flash_attention_bsh_bwd"),
+                          (add_ln, "fused_add_ln_fwd"),
+                          (add_ln, "fused_add_ln_bwd")):
+            real[mod, name] = getattr(mod, name)
+            setattr(mod, name, via_bf16(real[mod, name]))
+        yield
+    finally:
+        for (mod, name), fn in real.items():
+            setattr(mod, name, fn)
+
+
+# bert_fp16_train's card-vs-CPU parity: 2 of BERT-base's layers at full
+# width, 2 x 128, 3 Adam steps under float16 AMP (the reference
+# defaults), no dropout.  The CPU half runs in a child started with the
+# script (``_fp16_parity_start``): f16 on the CPU takes minutes on a host
+# without f16 vector instructions, and the card's phases before
+# bert_fp16_train leave most of the host's cores idle meanwhile
+FP16_PARITY = {"layers": 2, "batch": 2, "seq": 128, "max_preds": 20,
+               "steps": 3, "seed": 3, "threads": 4}
+FP16_PARITY_WAIT_S = 600
+
+
+def _fp16_parity_program():
+    """The parity's program, built alike in the CPU child and on the card:
+    (main, startup, loss, the decorator, the numpy feed)."""
+    from paddle_tpu_torch.models import bert
+
+    c = FP16_PARITY
+    cfg = bert.BertConfig.base()
+    cfg.fuse_stack = True
+    cfg.num_hidden_layers = c["layers"]
+    cfg.hidden_dropout_prob = cfg.attention_probs_dropout_prob = 0.0
+    main, startup, loss, opt = _train_program(
+        cfg, c["batch"], c["seq"], c["max_preds"], True, fp16=FP16_AMP)
+    feed = bert.random_pretrain_batch(cfg, c["batch"], c["seq"],
+                                      c["max_preds"], seed=c["seed"])
+    return main, startup, loss, opt, feed
+
+
+def _fp16_parity_steps(exe, main, scope, loss, opt, feed) -> list:
+    """FP16_PARITY's steps: each step's [loss, scale]."""
+    return [[float(np.asarray(v).reshape(-1)[0]) for v in
+             exe.run(main, feed=feed, scope=scope,
+                     fetch_list=[loss, opt.get_loss_scaling()])]
+            for _ in range(FP16_PARITY["steps"])]
+
+
+def _fp16_parity_child(out_dir: str) -> int:
+    """The CPU half of the parity (``python3 chip_smoke.py
+    --fp16-parity-child DIR``; no card): the initialised scope, the steps'
+    losses and scales and FP16_PARITY_PARAMS after them, pickled into
+    ``DIR/cpu.pkl`` once all are in."""
+    import pickle
+
+    import torch
+
+    torch.set_num_threads(FP16_PARITY["threads"])
+    os.nice(10)     # the card's phases beside it keep their host
+    from paddle_tpu_torch import fluid
+
+    t0 = time.perf_counter()
+    main, startup, loss, opt, feed = _fp16_parity_program()
+    exe, scope = fluid.Executor(device="cpu"), fluid.Scope()
+    exe.run(startup, scope=scope)
+    init = {n: v.numpy().copy() for n, v in scope.vars.items()}
+    steps = _fp16_parity_steps(exe, main, scope, loss, opt, feed)
+    params = {n: scope.find_var(n).float().numpy()
+              for n in FP16_PARITY_PARAMS}
+    tmp = os.path.join(out_dir, "cpu.pkl.tmp")
+    with open(tmp, "wb") as f:
+        pickle.dump({"init": init, "steps": steps, "params": params,
+                     "seconds": time.perf_counter() - t0}, f, protocol=5)
+    os.replace(tmp, os.path.join(out_dir, "cpu.pkl"))
+    return 0
+
+
+def _fp16_parity_start() -> dict:
+    """Start the parity's CPU half in a child that sees no card; it runs
+    beside the phases before bert_fp16_train."""
+    import shutil
+    import tempfile
+
+    here = os.path.abspath(__file__)
+    d = tempfile.mkdtemp(prefix="fp16_parity_")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (os.path.dirname(here), env.get("PYTHONPATH")) if p)
+    log = open(os.path.join(d, "child.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, here, "--fp16-parity-child", d],
+        cwd=os.path.dirname(here), env=env, stdout=log, stderr=log)
+    h = {"proc": proc, "dir": d, "log": log, "t0": time.perf_counter()}
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+        shutil.rmtree(d, ignore_errors=True)
+
+    atexit.register(stop)
+    return h
+
+
+def _fp16_parity(torch, started: dict) -> tuple:
+    """bert_fp16_train's parity: the CPU child's run (``_fp16_parity_start``)
+    against two card runs from its initialised scope (the scale and its
+    counters with it): with the f16 kernels, then with the bf16 forms
+    swapped in (``_bf16_forms_swapped_in``).  Each card run against the
+    CPU run: each step's loss and scale, FP16_PARITY_PARAMS' largest
+    differences after the steps; and the CPU child's seconds and how
+    long the card waited for it."""
+    import pickle
+
+    from paddle_tpu_torch import fluid
+
+    proc = started["proc"]
+    t_wait = time.perf_counter()
+    try:
+        rc = proc.wait(timeout=FP16_PARITY_WAIT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = f"no exit within {FP16_PARITY_WAIT_S} s"
+    waited = time.perf_counter() - t_wait
+    started["log"].close()
+    out = os.path.join(started["dir"], "cpu.pkl")
+    if rc != 0 or not os.path.exists(out):
+        with open(os.path.join(started["dir"], "child.log")) as f:
+            fail(f"bert_fp16_train parity: the CPU child exited {rc}: "
+                 f"{f.read()[-3000:]}")
+    with open(out, "rb") as f:
+        cpu_run = pickle.load(f)
+    main, _, loss, opt, feed = _fp16_parity_program()
+    cpu = cpu_run["steps"]
+    runs = []
+    for swap in (False, True):
+        card_scope = fluid.Scope.from_numpy(cpu_run["init"])
+        with (_bf16_forms_swapped_in(torch) if swap
+              else contextlib.nullcontext()):
+            card = _fp16_parity_steps(fluid.Executor(), main, card_scope,
+                                      loss, opt, feed)
+        runs.append({
+            "loss_card": [c[0] for c in card],
+            "loss_cpu": [c[0] for c in cpu],
+            "scale_card": [c[1] for c in card],
+            "scale_cpu": [c[1] for c in cpu],
+            "loss_diff": max(abs(a[0] - c[0]) for a, c in zip(card, cpu)),
+            "param_diff": {n: float(np.abs(
+                card_scope.find_var(n).float().cpu().numpy()
+                - cpu_run["params"][n]).max())
+                for n in FP16_PARITY_PARAMS}})
+        del card_scope
+    runs[0]["cpu_child_s"] = cpu_run["seconds"]
+    runs[0]["waited_for_cpu_s"] = waited
+    return tuple(runs)
+
+
+def phase_bert_fp16_train(torch, card: str, parity_cpu: dict) -> dict:
+    """BERT-base pretraining on the card under float16 AMP: fuse_stack,
+    Adam, dropout 0.1, 8 x 512, the reference's float16 defaults
+    (FP16_AMP: dynamic loss scaling from 2^15), on one fixed batch, with
+    bert_train's 2 warm and 10 timed steps.  Every step launches rows 2-5
+    as the program needs (26 / 26 / 12 / 24), every one of them on its
+    f16 form (``launches_f16``), and fetches the scale; the losses are
+    finite and fall.  Then 3 steps under torch.profiler (the device's idle
+    share), the card-vs-CPU parity at 2 layers against ``parity_cpu``,
+    the CPU child ``_fp16_parity_start`` started (FP16 limit, and the
+    bf16 forms swapped in must exceed it) and the overflow drill."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import bert
+
+    t_phase = time.perf_counter()
+    cfg = bert.BertConfig.base()
+    cfg.fuse_stack = True
+    b, s, max_preds, n_steps, n_warm = 8, 512, 76, 10, 2
+    t0 = time.perf_counter()
+    main, startup, loss, opt = _train_program(cfg, b, s, max_preds, True,
+                                              fp16=FP16_AMP)
+    build_s = time.perf_counter() - t0
+    want = _launches_per_step(main, bf16=True)
+    want.update({f"{k}_f16": want[k] for k in F16_ROWS})
+    scope, exe = fluid.Scope(), fluid.Executor()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    feed = {k: torch.as_tensor(v, device=exe.device) for k, v in
+            bert.random_pretrain_batch(cfg, b, s, max_preds, seed=0).items()}
+    fetch = [loss, opt.get_loss_scaling()]
+
+    def step():
+        lv, sc = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+        return (float(np.asarray(lv).reshape(-1)[0]),
+                float(np.asarray(sc).reshape(-1)[0]))
+
+    warm = [step() for _ in range(n_warm)]
+    torch.cuda.reset_peak_memory_stats()
+    counters = dict(_counters(), **_f16_counters())
+    total = dict.fromkeys(counters, 0)
+    losses, scales, step_ms = [w[0] for w in warm], [w[1] for w in warm], []
+    for i in range(n_steps):
+        t0 = time.perf_counter()
+        (lv, sc), got = _count_step(counters, step)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if got != want:
+            fail(f"bert_fp16_train step {i} launched {got}, the program "
+                 f"needs {want}")
+        for k in total:
+            total[k] += got[k]
+        losses.append(lv)
+        scales.append(sc)
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"bert_fp16_train losses not finite: {losses}")
+    if not statistics.mean(losses[-3:]) < statistics.mean(losses[:3]):
+        fail(f"bert_fp16_train loss did not fall on a fixed batch: {losses}")
+    med = statistics.median(step_ms)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof = _step_profile(torch, exe, main, scope, feed, loss, 3,
+                         "window = 3 float16 AMP training steps of 8 x 512")
+    del exe, scope, feed
+    torch.cuda.empty_cache()
+    parity, swapped = _fp16_parity(torch, parity_cpu)
+    ln = "encoder_stack.ln1_scale"
+    for what, got, limit in (
+            ("loss", parity["loss_diff"], TRAIN_PARITY_LOSS_F16),
+            (ln, parity["param_diff"][ln], TRAIN_PARITY_LN_F16)):
+        if not math.isfinite(got) or got > limit:
+            fail(f"bert_fp16_train card vs CPU {what}: {got} > {limit} "
+                 f"({parity})")
+    if parity["scale_card"] != parity["scale_cpu"]:
+        fail(f"bert_fp16_train card vs CPU scales {parity['scale_card']} "
+             f"vs {parity['scale_cpu']}")
+    if not (swapped["loss_diff"] > TRAIN_PARITY_LOSS_F16
+            or swapped["param_diff"][ln] > TRAIN_PARITY_LN_F16):
+        fail(f"bert_fp16_train parity: the bf16 forms swapped in stay "
+             f"within both limits ({swapped})")
+    drill = _fp16_drill(torch, cfg, b, s, max_preds)
+    out = {"phase": "bert_fp16_train", "card": card,
+           "config": {"vocab": cfg.vocab_size, "hidden": cfg.hidden_size,
+                      "layers": cfg.num_hidden_layers,
+                      "heads": cfg.num_attention_heads,
+                      "ffn": cfg.intermediate_size, "dropout": 0.1,
+                      "fuse_stack": True, "optimizer": "Adam 1e-4",
+                      "amp": "float16, dynamic loss scaling",
+                      "amp_settings": FP16_AMP, "batch": b, "seq": s,
+                      "max_preds": max_preds},
+           "program_ops": len(main.global_block().ops), "build_s": build_s,
+           "steps": n_steps, "warm_steps": n_warm,
+           "step_ms_median": med, "step_ms_min": min(step_ms),
+           "step_ms_max": max(step_ms), "tokens_per_s": b * s / (med / 1e3),
+           "losses": losses, "scales": scales,
+           "launches_per_step": want, "launches": total,
+           "peak_mem_gb": peak,
+           "profile": {k: prof[k] for k in ("steps", "wall_ms",
+                                            "device_busy_ms",
+                                            "device_idle_share")},
+           "top_kernels": prof["top_kernels"][:8],
+           "parity": {**parity, "limit": TRAIN_PARITY_LOSS_F16,
+                      "limit_ln1_scale": TRAIN_PARITY_LN_F16,
+                      **{k: FP16_PARITY[k] for k in (
+                          "layers", "batch", "seq", "steps")},
+                      "bf16_forms_swapped_in": swapped},
+           "overflow_drill": drill,
+           "seconds": time.perf_counter() - t_phase}
     emit(out)
     return out
 
@@ -6422,7 +6916,7 @@ def phase_bert_long_train(torch, card: str, n_steps: int = 5,
     for remat in REMAT_LADDER:
         name = remat.get("remat_policy") or next(iter(remat))
         cfg = dataclasses.replace(base, **remat)
-        main, startup, loss = _train_program(cfg, b, s, max_preds, amp=True)
+        main, startup, loss, _ = _train_program(cfg, b, s, max_preds, amp=True)
         if not scope.vars:
             # the rungs' programs hold the same parameters: one startup
             exe.run(startup, scope=scope)
@@ -7311,7 +7805,7 @@ def phase_verify(torch, card: str) -> dict:
         state = {}
 
         def bert_train():
-            m, st, loss = _train_program(cfg, 8, 512, 76, amp=True)
+            m, st, loss, _ = _train_program(cfg, 8, 512, 76, amp=True)
             state.update(main=m, startup=st, loss=loss)
             return m, [loss.name]
 
@@ -7472,6 +7966,15 @@ DIST_EP = dict(DIST_TRAIN, mesh={"dp": 2, "ep": 2}, fuse_stack=False,
                moe=True, drop_steps=0, gather_state=False)
 DIST_EP4 = dict(DIST_EP, mesh={"dp": 1, "ep": 4})
 DIST_ZERO = dict(DIST_TRAIN, mesh={"dp": 4}, fuse_stack=True, drop_steps=0)
+# dist_zero's float16 run: ZeRO-2 at dp 4 through strategy.amp with
+# use_bf16 off, from a start scale whose f16 gradients overflow (cut by
+# 0.01 at each overflow), 6 steps: the first skip on every rank alike
+DIST_ZERO_F16 = dict(DIST_ZERO, sharding=True, steps=6, timed=0, fp16=dict(
+    FP16_AMP, init_loss_scaling=2.0 ** 40, decr_every_n_nan_or_inf=1,
+    decr_ratio=0.01))
+# its losses against the one-process f16 run's: the limit of the bf16 runs
+# (the same casts on both sides; the dp sums and the updates part them)
+DIST_LOSS_F16 = 2e-2
 DIST_DCN = dict(DIST_TRAIN, mesh={"dcn": 2, "dp": 2}, fuse_stack=True,
                 drop_steps=0, dcn=2)
 DIST_DGC = dict(DIST_DCN, timed=0, gather_state=False,
@@ -7856,7 +8359,12 @@ def _fleet_bert_program(cfg, amp: bool, mesh_axes, plan=None, shape=None):
         with fluid.program_guard(m, st):
             opt = fluid.optimizer.AdamOptimizer(learning_rate=1e-4)
             strategy = fleet.DistributedStrategy()
-            if amp and plan.get("dcn"):
+            if amp and plan.get("fp16"):
+                # float16 AMP through fleet: its found_inf reduced over
+                # every rank where the gradients are blocks (ZeRO-2)
+                strategy.amp = True
+                strategy.amp_configs = dict(plan["fp16"], use_bf16=False)
+            elif amp and plan.get("dcn"):
                 # strategy.amp: the sync ops' bf16 wire is its default
                 strategy.amp = True
             elif amp:
@@ -8200,33 +8708,35 @@ _ONE_PROCESS = {}
 
 
 def _one_process_run(torch, cfg, amp: bool, steps: int,
-                     keep_params: bool = False) -> dict:
+                     keep_params: bool = False, fp16=None) -> dict:
     """The same program without a mesh, in this process: the reference of
     the dist phases (same seed-0 startup, same global batch); with
-    ``keep_params`` its parameters after ``steps`` steps.  Kept for the
-    phases that share it (dist_train and dist_pp: the fused stack)."""
+    ``keep_params`` its parameters after ``steps`` steps; with ``fp16``
+    (decorate()'s settings) under float16 AMP, the scale and its counters
+    after each step in ``scales``.  Kept for the phases that share it
+    (dist_train and dist_pp: the fused stack)."""
     key = (cfg.fuse_stack, cfg.num_hidden_layers, cfg.moe_num_experts, amp,
-           steps, keep_params)
+           steps, keep_params, json.dumps(fp16, sort_keys=True))
     if key not in _ONE_PROCESS:
         _ONE_PROCESS[key] = _one_process_train(torch, cfg, amp, steps,
-                                               keep_params)
+                                               keep_params, fp16)
     return _ONE_PROCESS[key]
 
 
 def _one_process_train(torch, cfg, amp: bool, steps: int,
-                       keep_params: bool = False) -> dict:
+                       keep_params: bool = False, fp16=None) -> dict:
     from paddle_tpu_torch import fluid
     from paddle_tpu_torch.models import bert
 
     c = DIST_TRAIN
-    main, startup, loss = _train_program(cfg, c["batch"], c["seq"],
-                                         c["max_preds"], amp)
+    main, startup, loss, _ = _train_program(cfg, c["batch"], c["seq"],
+                                            c["max_preds"], amp, fp16=fp16)
     exe, scope = fluid.Executor(), fluid.Scope()
     exe.run(startup, scope=scope)
     init = _state_hash(scope, [p.name for p in main.all_parameters()])
     feed = bert.random_pretrain_batch(cfg, c["batch"], c["seq"],
                                       c["max_preds"], seed=0)
-    losses, step_ms, routing = [], [], []
+    losses, step_ms, routing, scales = [], [], [], []
     for i in range(steps):
         t0 = time.perf_counter()
         with (_watch_op("moe_ffn", _moe_routing(routing))   # the first step's
@@ -8234,9 +8744,13 @@ def _one_process_train(torch, cfg, amp: bool, steps: int,
             losses.append(float(exe.run(main, feed=feed, fetch_list=[loss],
                                         scope=scope)[0][0]))
         step_ms.append((time.perf_counter() - t0) * 1e3)
+        if fp16 is not None:
+            scales.append(_scale_state(scope))
     out = {"losses": losses, "init_hash": init,
            "routing": routing[:cfg.num_hidden_layers] or None,
            "step_ms_after_first": statistics.median(step_ms[1:])}
+    if fp16 is not None:
+        out["scales"] = scales
     if keep_params:
         out["params"] = _params(scope, main)
     return out
@@ -8555,11 +9069,27 @@ def phase_dist_ep(torch, card: str, raw: list) -> dict:
     return out
 
 
+def _scale_state(scope) -> list:
+    """float16 AMP's scale and its two counters in ``scope`` (the names
+    the decorator's persistables take under one unique_name guard)."""
+    return [float(scope.find_var(n).reshape(-1)[0])
+            for n in ("loss_scaling_0", "good_steps_0", "bad_steps_0")]
+
+
 def _dist_zero_child(torch, rank: int, world: int) -> dict:
     """BERT-base with the fused stack, bf16 AMP, at dp 4: ZeRO-2
     (``strategy.sharding``), then the unsharded run; each with its
-    Adam-moment bytes on this rank and its peak memory."""
+    Adam-moment bytes on this rank and its peak memory.  Then ZeRO-2
+    under float16 AMP (DIST_ZERO_F16) with this rank's scale and counters
+    after each step."""
     out = {}
+    c = DIST_ZERO_F16
+    run = _dist_train_run(torch, _dist_bert_cfg(c["layers"]), True,
+                          c["steps"], plan=c,
+                          probe=lambda i, scope, main: _scale_state(scope))
+    run.pop("scope")
+    torch.cuda.empty_cache()
+    out["fp16"] = run
     for name, plan in (("zero", dict(DIST_ZERO, sharding=True)),
                        ("dp", DIST_ZERO)):
         torch.cuda.reset_peak_memory_stats()
@@ -8642,6 +9172,33 @@ def phase_dist_zero(torch, card: str, raw: list) -> dict:
     if differ:
         fail(f"dist_zero: the sharded run's state differs from the "
              f"unsharded one's: {sorted(set(differ))[:8]}")
+    # float16 AMP: every rank the same scale and counters each step (so
+    # the same found_inf: a skipped step cuts the scale), the one-process
+    # run's too, and its losses within DIST_LOSS_F16
+    c16 = DIST_ZERO_F16
+    runs16 = [r["fp16"] for r in raw]
+    ref16 = _one_process_run(torch, _dist_bert_cfg(c16["layers"]), True,
+                             c16["steps"], fp16=c16["fp16"])
+    for r, run in enumerate(runs16):
+        if run["probes"] != ref16["scales"]:
+            fail(f"dist_zero fp16: rank {r}'s scale and counters "
+                 f"{run['probes']} vs the one-process run's "
+                 f"{ref16['scales']}")
+    _same_runs("dist_zero fp16", runs16)
+    skipped = [i for i, (a, b) in enumerate(zip(
+        [c16["fp16"]["init_loss_scaling"]] + [p[0] for p in ref16["scales"]],
+        [p[0] for p in ref16["scales"]])) if b < a]
+    if not skipped or len(skipped) == c16["steps"]:
+        fail(f"dist_zero fp16: skipped steps {skipped} of {c16['steps']}")
+    out["fp16"] = {
+        "settings": c16["fp16"], "steps": c16["steps"],
+        "losses": runs16[0]["losses"], "one_process": ref16["losses"],
+        "scale_good_bad_by_step": ref16["scales"], "skipped_steps": skipped,
+        "loss_diff": _loss_diff("dist_zero fp16", runs16[0]["losses"],
+                                ref16["losses"], DIST_LOSS_F16),
+        "limit": DIST_LOSS_F16,
+        "found_inf_reductions": "c_allreduce_max over dp, each step",
+        "launches": runs16[0]["launches"]}
     out.update(one_process=ref["losses"], limit=DIST_LOSS_BF16,
                state_bit_equal_vars=len(raw[0]["dp"]["var_hashes"]),
                moment_bytes_ratio=raw[0]["zero"]["moment_bytes"]
@@ -8848,8 +9405,8 @@ def _dist_nccl_child(torch, rank: int, world: int) -> dict:
         if what == "mesh":
             main, startup, loss = _fleet_bert_program(cfg, False, {"dp": 1})
         else:
-            main, startup, loss = _train_program(cfg, c["batch"], c["seq"],
-                                                 c["max_preds"], False)
+            main, startup, loss, _ = _train_program(
+                cfg, c["batch"], c["seq"], c["max_preds"], False)
         exe, scope = fluid.Executor(), fluid.Scope()
         exe.run(startup, scope=scope)
         losses = [float(exe.run(main, feed=feed, fetch_list=[loss],
@@ -8913,6 +9470,11 @@ ELASTIC = dict(batch=12, seq=512, max_preds=76, freq=2, world=4, keep=5,
 ELASTIC_FAULT = ("crash:ckpt_shard_committed:2", "trainer1")
 # drill (b): trainer3 is lost for good at the start of step 5
 ELASTIC_DIE = ("trainer3", 5)
+# in main the drills start once the parameter-server jobs have exited:
+# their start-ups and the drills' (19 ranks importing torch and building
+# their programs) would otherwise all land on the host's cores at once,
+# beside the gloo ranks' and serve_launch's
+ELASTIC_AFTER_MAX_S = 300
 ELASTIC_ROWS = ("bsh_fwd", "bsh_fwd_tc", "bsh_bwd", "bsh_bwd_tc", "ln_fwd",
                 "ln_bwd")
 
@@ -9028,6 +9590,18 @@ def _elastic_child(cfg_path: str) -> int:
     return 0
 
 
+def _elastic_child_env(env: dict) -> dict:
+    """A drill launcher's environment: this process's, less every job
+    variable (PADDLE_*, FLAGS_*) it holds, plus ``env``.  A variable that
+    another job or test in this process left behind would otherwise reach
+    the launcher and its ranks: PADDLE_GOODPUT makes the port's launcher
+    refuse to start, a stale PADDLE_COORDINATOR_ENDPOINT, fault spec or
+    PADDLE_ELASTIC_RESHARD changes what the drill holds."""
+    base = {k: v for k, v in os.environ.items()
+            if not k.startswith(("PADDLE_", "FLAGS_"))}
+    return dict(base, **env)
+
+
 def _elastic_launch(c: dict, name: str, workdir: str, world: int,
                     flags=(), env=None):
     """Start one dist_elastic job under the port's launcher: its config
@@ -9039,12 +9613,8 @@ def _elastic_launch(c: dict, name: str, workdir: str, world: int,
     logs = os.path.join(workdir, f"{name}.logs")
     os.makedirs(c["trace_dir"], exist_ok=True)
     here = os.path.dirname(os.path.abspath(__file__))
-    full = dict(os.environ, PYTHONPATH=here, PADDLE_CKPT_SHARDED="1",
-                PADDLE_CKPT_FSYNC="0", **(env or {}))
-    for k in ("PADDLE_ELASTIC_RESHARD", "PADDLE_PS_FAULT_SPEC",
-              "PADDLE_PS_FAULT_TAGS", "PADDLE_TRACING"):
-        if k not in (env or {}):
-            full.pop(k, None)
+    full = _elastic_child_env(dict(PYTHONPATH=here, PADDLE_CKPT_SHARDED="1",
+                                   PADDLE_CKPT_FSYNC="0", **(env or {})))
     err = open(os.path.join(workdir, f"{name}.launcher.log"), "w")
     cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
            "--nproc_per_node", str(world), "--log_dir", logs,
@@ -9203,13 +9773,16 @@ def _elastic_windows(jobs: dict) -> dict:
     return out
 
 
-def _elastic_costs(name: str, jobs: dict) -> dict:
+def _elastic_costs(name: str, jobs: dict, beside=None) -> dict:
     """Per attempt of job ``name``: each rank's start-up seconds (process
     start to ready to step, restore included), its step ms (median), save
     ms and bytes of its shard, each rank's lease renewals and their
     largest gap as the rank saw them answered, and the jobs whose
-    attempts ran beside it (their ranks shared the card and the host)."""
+    attempts ran beside it (their ranks shared the card and the host):
+    the other drills' attempts, and the jobs of ``beside`` (name ->
+    window) whose windows overlap it."""
     job, win = jobs[name], _elastic_windows(jobs)
+    win.update({(n, 0): w for n, w in (beside or {}).items()})
     out = []
     for i, att in enumerate(_elastic_attempts(job)):
         t0, t1 = win[name, i]
@@ -9256,78 +9829,148 @@ def _elastic_launches(job: dict) -> dict:
     return json.loads(seen.pop())
 
 
-def phase_dist_elastic(torch, card: str, workdir: str, c=None) -> dict:
-    """The job control plane on the card: BERT-base (ELASTIC) started by
-    ``python -m paddle_tpu_torch.distributed.launch`` at dp 4 with the
-    lease plane armed, every rank checkpointing sharded; then
-
-      clean  steps 1-4, saves at 2 and 4;
-      (a)    the same job with ``crash:ckpt_shard_committed:2`` in
-             trainer1 and --elastic_retries 1: step 4's save is torn
-             (no global manifest), the relaunch restores step 2 and runs
-             3-4, whose losses and step-4 checkpoint (every f32 master
-             parameter and Adam moment) equal the clean run's bit for
-             bit; the torn step was never restored;
-      (b)    from the clean step-4 checkpoint, trainer3 lost for good at
-             the start of step 5 under --elastic_retries 2
-             --elastic_retries_per_rank 0 --min_world_size 3: the
-             coordinator evicts it (membership epoch 1), the launcher
-             restarts 3 ranks with PADDLE_ELASTIC_RESHARD=1, ZeRO's
-             moments split again for dp 3, steps 5-6 equal bit for bit a
-             clean dp-3 launch restored from the same checkpoint.
-
-    (a) runs beside the clean run, and (b) and its reference beside
-    (a)'s relaunch.  Each launcher's exit code and restarts are held; a
-    rank failing for any other reason fails the phase.  Reports each attempt's
-    start-up seconds, step ms a rank, save ms and bytes a shard, the
-    jobs that ran beside it, the detect-to-relaunch seconds of (a) and
-    (b), each rank's largest gap between answered lease renewals, and
-    rows 2-5's launches a step a rank (held to the program's on the card,
-    rows 4-5 on wgmma)."""
+def _elastic_start(card: str, workdir: str, c=None, after=()) -> dict:
+    """Start the dist_elastic drills (``phase_dist_elastic``) in a thread
+    of their own: clean and (a) at once; once clean has exited, (b) and
+    its dp-3 reference from the clean step-4 checkpoint, beside (a)'s
+    relaunch.  With ``after`` (processes) the drills start once all of
+    them have exited, or ELASTIC_AFTER_MAX_S later.  Returns the handle
+    ``_elastic_finish`` joins; the drills run beside whatever the caller
+    does meanwhile (``main``: the gloo spawn and serve_launch, after the
+    PS jobs)."""
     import shutil
+    import threading
 
-    t0 = time.perf_counter()
     c = dict(ELASTIC, **(c or {}))
-    on_card = c["device"].startswith("cuda")
-    jobs = {}
+    h = {"card": card, "workdir": workdir, "c": c, "jobs": {},
+         "t0": time.perf_counter(), "error": None, "procs": [],
+         "started_after_s": 0.0}
 
     def spec(name, root, steps, **kw):
         return dict(c, root=os.path.join(workdir, root), steps=steps,
                     trace_dir=os.path.join(workdir, f"{name}.traces"), **kw)
 
     def start(name, conf, world, flags=(), env=None):
-        return name, _elastic_launch(conf, name, workdir, world, flags, env)
+        launched = _elastic_launch(conf, name, workdir, world, flags, env)
+        h["procs"].append(launched[0])
+        return name, launched
 
     def join(started):
         deadline = time.monotonic() + c["join_s"]
         for name, (proc, job) in started:
-            jobs[name] = _elastic_join(job["c"], proc, job, deadline)
+            h["jobs"][name] = _elastic_join(job["c"], proc, job, deadline)
 
+    def run():
+        try:
+            until = time.monotonic() + ELASTIC_AFTER_MAX_S
+            while (any(p.poll() is None for p in after)
+                   and time.monotonic() < until):
+                time.sleep(0.5)
+            h["started_after_s"] = time.perf_counter() - h["t0"]
+            fault, fault_tag = ELASTIC_FAULT
+            a_env = {"FLAGS_ps_fault_injection": "1",
+                     "PADDLE_PS_FAULT_SPEC": fault,
+                     "PADDLE_PS_FAULT_TAGS": fault_tag}
+            W = c["world"]
+            # (a) runs beside the clean run; (b) and its reference start
+            # once the clean step-4 checkpoint is committed, beside (a)'s
+            # relaunch (the card holds 11 ranks at once: ~4 GB each)
+            clean = start("clean", spec("clean", "clean", 4), W)
+            a_job = start("a", spec("a", "a", 4), W,
+                          ("--elastic_retries", "1"), a_env)
+            join([clean])
+            if h["jobs"]["clean"]["rc"] != 0:
+                join([a_job])    # _elastic_finish fails on the clean run
+                return
+            clean_root = h["jobs"]["clean"]["c"]["root"]
+            for root in ("b", "b3"):
+                shutil.copytree(
+                    os.path.join(clean_root, "ckpt-00000004"),
+                    os.path.join(workdir, root, "ckpt-00000004"),
+                    copy_function=os.link)
+            die_tag, die_at = ELASTIC_DIE
+            b_run = ("b", spec("b", "b", 6, die_tag=die_tag, die_at=die_at),
+                     W, ("--elastic_retries", "2",
+                         "--elastic_retries_per_rank", "0",
+                         "--min_world_size", str(W - 1)))
+            ref_run = ("b3", spec("b3", "b3", 6), W - 1, (),
+                       {"PADDLE_ELASTIC_RESHARD": "1"})
+            join([a_job, start(*b_run), start(*ref_run)])
+        except BaseException as e:     # re-raised by _elastic_finish
+            h["error"] = e
+
+    h["thread"] = threading.Thread(target=run, name="dist_elastic",
+                                   daemon=True)
+    h["thread"].start()
+    return h
+
+
+def _elastic_kill(h: dict) -> None:
+    """Kill every drill launcher (its session: the ranks too) that has
+    not exited, then wait for the drills' thread."""
+    for proc in list(h["procs"]):
+        if proc.poll() is None:
+            try:
+                os.killpg(proc.pid, 9)
+            except ProcessLookupError:
+                pass
+    h["thread"].join(timeout=60)
+
+
+class _FreeMemory:
+    """The card's free memory (``torch.cuda.mem_get_info``, device wide:
+    every process's allocations) sampled every ``every`` seconds in a
+    thread of its own, while the dist jobs share the card."""
+
+    def __init__(self, torch, every: float = 0.5):
+        import threading
+
+        self.torch, self.every = torch, every
+        self.low, self.at, self.n = None, None, 0
+        self.total = torch.cuda.mem_get_info(0)[1]
+        self.t0 = time.perf_counter()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run,
+                                        name="free_memory", daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        while not self._stop.wait(self.every):
+            free = self.torch.cuda.mem_get_info(0)[0]
+            self.n += 1
+            if self.low is None or free < self.low:
+                self.low, self.at = free, time.perf_counter() - self.t0
+
+    def stop(self) -> dict:
+        self._stop.set()
+        self._thread.join()
+        return {"free_low_gb": None if self.low is None
+                else self.low / 2 ** 30,
+                "low_at_s": self.at, "total_gb": self.total / 2 ** 30,
+                "samples": self.n, "every_s": self.every,
+                "window_s": time.perf_counter() - self.t0}
+
+
+def _elastic_finish(torch, h: dict, beside=None) -> dict:
+    """Join the drills ``_elastic_start`` started and hold them (the checks
+    of ``phase_dist_elastic``).  ``beside``: other jobs' windows on the
+    host clock (name -> (start, end)), added to each attempt's
+    ``concurrent_with`` where they overlap it."""
+    import shutil
+
+    t_wait = time.perf_counter()
+    h["thread"].join()
+    waited = time.perf_counter() - t_wait
+    if h["error"] is not None:
+        raise h["error"]
+    c, jobs, workdir = h["c"], h["jobs"], h["workdir"]
+    card, t0 = h["card"], h["t0"]
+    on_card = c["device"].startswith("cuda")
     fault, fault_tag = ELASTIC_FAULT
-    a_env = {"FLAGS_ps_fault_injection": "1", "PADDLE_PS_FAULT_SPEC": fault,
-             "PADDLE_PS_FAULT_TAGS": fault_tag}
+    die_tag, die_at = ELASTIC_DIE
     W = c["world"]
-    # (a) runs beside the clean run; (b) and its reference start once the
-    # clean step-4 checkpoint is committed, beside (a)'s relaunch (the
-    # card holds 11 ranks at once: ~4 GB each at these shapes)
-    clean = start("clean", spec("clean", "clean", 4), W)
-    a_job = start("a", spec("a", "a", 4), W, ("--elastic_retries", "1"),
-                  a_env)
-    join([clean])
     _elastic_check(jobs["clean"], [])
     clean_root = jobs["clean"]["c"]["root"]
-    # (b) and its reference start from the clean step-4 checkpoint
-    for root in ("b", "b3"):
-        shutil.copytree(os.path.join(clean_root, "ckpt-00000004"),
-                        os.path.join(workdir, root, "ckpt-00000004"),
-                        copy_function=os.link)
-    die_tag, die_at = ELASTIC_DIE
-    b_run = ("b", spec("b", "b", 6, die_tag=die_tag, die_at=die_at), W,
-             ("--elastic_retries", "2", "--elastic_retries_per_rank", "0",
-              "--min_world_size", str(W - 1)))
-    ref_run = ("b3", spec("b3", "b3", 6), W - 1, (),
-               {"PADDLE_ELASTIC_RESHARD": "1"})
-    join([a_job, start(*b_run), start(*ref_run)])
     _elastic_check(jobs["a"], [(fault_tag, "nonzero exit (code 1)")])
     with open(os.path.join(jobs["a"]["logs"], "workerlog.1")) as f:
         if "at phase 'ckpt_shard_committed'" not in f.read():
@@ -9402,13 +10045,47 @@ def phase_dist_elastic(torch, card: str, workdir: str, c=None) -> dict:
                  **_elastic_restart_gap(jobs["a"])},
            "b": {"losses": b_losses, "dp3_reference": ref_losses,
                  "state": b_state, **_elastic_restart_gap(jobs["b"])},
-           "costs": {n: _elastic_costs(n, jobs) for n in jobs},
+           "costs": {n: _elastic_costs(n, jobs, beside) for n in jobs},
            "launches_per_step_per_rank": launches,
-           "seconds": time.perf_counter() - t0}
+           "seconds": time.perf_counter() - t0,
+           # the seconds the drills waited to start (``after``), and how
+           # long the caller waited for them after its own work
+           "started_after_s": h["started_after_s"], "waited_s": waited}
     for root in ("clean", "a", "b", "b3"):
         shutil.rmtree(os.path.join(workdir, root), ignore_errors=True)
     emit(out)
     return out
+
+
+def phase_dist_elastic(torch, card: str, workdir: str, c=None) -> dict:
+    """The job control plane on the card: BERT-base (ELASTIC) started by
+    ``python -m paddle_tpu_torch.distributed.launch`` at dp 4 with the
+    lease plane armed, every rank checkpointing sharded; then
+
+      clean  steps 1-4, saves at 2 and 4;
+      (a)    the same job with ``crash:ckpt_shard_committed:2`` in
+             trainer1 and --elastic_retries 1: step 4's save is torn
+             (no global manifest), the relaunch restores step 2 and runs
+             3-4, whose losses and step-4 checkpoint (every f32 master
+             parameter and Adam moment) equal the clean run's bit for
+             bit; the torn step was never restored;
+      (b)    from the clean step-4 checkpoint, trainer3 lost for good at
+             the start of step 5 under --elastic_retries 2
+             --elastic_retries_per_rank 0 --min_world_size 3: the
+             coordinator evicts it (membership epoch 1), the launcher
+             restarts 3 ranks with PADDLE_ELASTIC_RESHARD=1, ZeRO's
+             moments split again for dp 3, steps 5-6 equal bit for bit a
+             clean dp-3 launch restored from the same checkpoint.
+
+    (a) runs beside the clean run, and (b) and its reference beside
+    (a)'s relaunch.  Each launcher's exit code and restarts are held; a
+    rank failing for any other reason fails the phase.  Reports each attempt's
+    start-up seconds, step ms a rank, save ms and bytes a shard, the
+    jobs that ran beside it, the detect-to-relaunch seconds of (a) and
+    (b), each rank's largest gap between answered lease renewals, and
+    rows 2-5's launches a step a rank (held to the program's on the card,
+    rows 4-5 on wgmma)."""
+    return _elastic_finish(torch, _elastic_start(card, workdir, c))
 
 
 def _kernel_entry(name, source, replaces, launches, k) -> dict:
@@ -9998,7 +10675,12 @@ def phase_ps_train(torch, card: str, example: dict, jobs: dict) -> dict:
 # decoder each serve_launch replica attaches (PADDLE_SERVE_GEN_CONFIG)
 GPT2_SMALL = dict(vocab=50257, d_model=768, n_layers=12, n_heads=12,
                   ffn=3072, max_seq=1024)
-SERVE_LAUNCH = dict(retries=2, lease_secs=5.0, hb_timeout=10.0,
+# the lease as dist_elastic's, 10 s: the launcher grants a replica 10
+# lease periods from its spawn to its first renewal, which comes once it
+# has loaded the export and the decoder and bound its port; with the
+# dist_elastic drills beside it that start-up passed 5 s x 10 three
+# times in a row on the H100's host
+SERVE_LAUNCH = dict(retries=2, lease_secs=10.0, hb_timeout=10.0,
                     kv_pages=64, poll_secs=0.5, table="serve_bert_w",
                     seeds=(1, 2), threads=4, before_kill_s=3.0,
                     after_v2_s=3.0, gen_tokens=16, join_s=600,
@@ -10693,6 +11375,8 @@ def main() -> int:
     ap.add_argument("--dist-dir", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--elastic-child", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--ps-child", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--fp16-parity-child", default=None,
+                    help=argparse.SUPPRESS)
     ap.add_argument("--serve-launch-child", default=None,
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -10700,6 +11384,8 @@ def main() -> int:
         return _serve_launch_child(args.serve_launch_child)
     if args.ps_child:
         return _ps_child(args.ps_child)
+    if args.fp16_parity_child:
+        return _fp16_parity_child(args.fp16_parity_child)
     if args.elastic_child:
         return _elastic_child(args.elastic_child)
     if args.fit_child:
@@ -10717,6 +11403,8 @@ def main() -> int:
     os.environ["PADDLE_TRACING"] = "1"   # engine spans: per-step times
     t_start = time.perf_counter()
     env = phase_env(torch)
+    # bert_fp16_train's CPU reference, beside the phases before it
+    fp16_parity_cpu = _fp16_parity_start()
     build = phase_build()
     kern = phase_kernels(torch)
     phase_emitters(torch)
@@ -10757,6 +11445,9 @@ def main() -> int:
     del train
     torch.cuda.empty_cache()
     phase_bert_train_parity(torch)
+    fp16 = phase_bert_fp16_train(torch, env["card"],
+                                 fp16_parity_cpu)["launches"]
+    torch.cuda.empty_cache()
 
     rtrain = phase_resnet_train(torch, env["card"])
     phase_resnet_train_profile(torch, rtrain)
@@ -10795,12 +11486,17 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory(prefix="chip-dist-") as tmp:
-        # the parameter-server jobs and the serve_launch job run beside
-        # the dist ranks
+        # the parameter-server jobs, the serve_launch job and the
+        # dist_elastic drills run beside the dist ranks
         os.makedirs(os.path.join(tmp, "ps"))
+        os.makedirs(os.path.join(tmp, "elastic"))
+        free_mem = _FreeMemory(torch)
         ps_started = _ps_jobs_start(os.path.join(tmp, "ps"))
         sl_started = _serve_launch_start(os.path.join(tmp, "serve_launch"),
                                          serve_model)
+        el_started = _elastic_start(
+            env["card"], os.path.join(tmp, "elastic"),
+            after=[j["proc"] for j in ps_started["jobs"].values()])
         try:
             # the gloo phases' four ranks start once for all their
             # bodies, the NCCL rank beside them
@@ -10811,6 +11507,8 @@ def main() -> int:
         except BaseException:
             _ps_jobs_kill(ps_started)
             _serve_launch_kill(sl_started)
+            _elastic_kill(el_started)
+            free_mem.stop()
             raise
         windows = {m: r[0]["window"] for m, r in raw.items()}
         windows["serve_launch"] = served["window"]
@@ -10843,9 +11541,17 @@ def main() -> int:
                               dzero["dp"]["losses"])
         del raw
         torch.cuda.empty_cache()
-        os.makedirs(os.path.join(tmp, "elastic"))
-        delastic = phase_dist_elastic(torch, env["card"],
-                                      os.path.join(tmp, "elastic"))
+        try:
+            delastic = _elastic_finish(torch, el_started, beside=windows)
+        finally:
+            _elastic_kill(el_started)
+            mem = free_mem.stop()
+        emit({"phase": "dist_window", "card": env["card"],
+              "free_memory": mem,
+              "beside": sorted(windows) + ["dist_elastic"],
+              "dist_elastic_seconds": delastic["seconds"],
+              "dist_elastic_started_after_s": delastic["started_after_s"],
+              "dist_elastic_waited_s": delastic["waited_s"]})
     dlaunches = dtrain["bf16"]["launches"]
     dlaunches_f32 = dtrain["f32"]["launches"]
 
@@ -10979,6 +11685,22 @@ def main() -> int:
               {"bert_train": launches["ln_bwd"],
                "nmt_train": nlaunches["ln_bwd"], **new_paths("ln_bwd"),
                **dist_paths("ln_bwd"), **tp_pp_paths("ln_bwd")}),
+        # the f16 forms of rows 2-5 (float16 AMP) on the path that runs
+        # them, bert_fp16_train's 10 timed steps; no other path runs f16
+        *[dict(_kernel_entry(name, source, f"paddle_tpu/ops/pallas/{at}",
+                             fp16[key], kern[timed]),
+               launches_by_path={"bert_fp16_train": fp16[key]})
+          for name, source, at, key, timed in (
+              ("flash_attention_bsh_f16", "flash_attention_bsh.cu",
+               "flash_attention.py:1500", "bsh_fwd_f16",
+               "flash_attention_bsh_train_f16"),
+              ("flash_attention_bsh_bwd_f16", "flash_attention_bsh.cu",
+               "flash_attention.py:1697", "bsh_bwd_f16",
+               "flash_attention_bsh_bwd_f16"),
+              ("add_ln_f16", "add_ln.cu", "add_ln.py:145", "ln_fwd_f16",
+               "add_ln_train_f16"),
+              ("add_ln_bwd_f16", "add_ln.cu", "add_ln.py:175",
+               "ln_bwd_f16", "add_ln_bwd_f16"))],
         entry("flash_attention", "flash_attention_bhsd.cu",
               "paddle_tpu/ops/pallas/flash_attention.py:392",
               kern["flash_attention"],

@@ -20,7 +20,11 @@ op for op.  Sequence parallelism marks the attention-bearing ops
 (``apply_sequence_parallel``) before backward, as the JAX package does;
 their sp regions (``ops/encoder_stack.py``, ``ops/attention.py``) make
 every parameter gradient whole on each sp rank, so only dp needs the
-mean.  ``strategy.amp`` decorates the inner optimizer (bf16).
+mean.  ``strategy.amp`` decorates the inner optimizer: bf16, or float16
+with dynamic loss scaling (``amp_configs={"use_bf16": False}``), whose
+found_inf is reduced over every mesh axis (a ``c_allreduce_max`` each)
+wherever a rank's gradients are its blocks (tp, pp, ep, ZeRO-2), so
+every rank skips the same steps with the same scale.
 
 Tensor parallelism (a "tp" axis with ``tensor_parallel_rules``).  The
 rules shard parameters (``apply_tensor_parallel_rules``): a rank holds
@@ -365,7 +369,7 @@ class DistributedOptimizer:
             raise NotImplementedError(
                 "strategy.gradient_merge with tp, pp or ep: its "
                 "accumulators are whole parameters, the gradients a "
-                "rank's blocks; not ported (ROADMAP A7)")
+                "rank's blocks; not ported (ROADMAP A4, item 7)")
         # marks the attention ops BEFORE backward: the grad ops snapshot
         # the forward attrs, so the backward ring is sequence-parallel too
         if sp_active:
@@ -381,6 +385,15 @@ class DistributedOptimizer:
             amp_cfg = dict(strategy.amp_configs or {})
             amp_cfg.pop("bf16_grad_sync", None)  # a dcn-mode knob
             inner = decorate(inner, **amp_cfg)
+            # its loss-scaling vars and found_inf, for a caller to fetch
+            self._amp_optimizer = inner
+            if (tp_active or pp_active or ep_active
+                    or (strategy.sharding and dp > 1)):
+                # float16's found_inf from this rank's gradient blocks:
+                # made the OR over every rank, so all skip alike
+                inner._found_inf_rings = tuple(
+                    mesh.ring_id(a) for a in mesh.axis_names
+                    if mesh.shape[a] > 1)
         if strategy.recompute and strategy.recompute_configs.get(
                 "checkpoints"):
             from ..fluid.optimizer import RecomputeOptimizer

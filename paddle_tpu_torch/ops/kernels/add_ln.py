@@ -48,7 +48,11 @@ once, scale and shift read once (as f32) and the two f32 stats a row;
 ``bound_bytes_bwd`` x, y, g, scale and the stats read once, dx, dscale
 and dshift written once; both against 3.35 TB/s on an H100 SXM.
 ``fused_add_ln.launches`` and ``fused_add_ln_bwd.launches`` count kernel
-launches (one a call each).
+launches (one a call each), ``.launches_f16`` those of the f16 form.
+
+Dtypes: float32, bfloat16 and float16 (float16 AMP: the same kernels
+over __half, code 2; the statistics stay f32 and only the stores round to
+f16).
 """
 from __future__ import annotations
 
@@ -57,7 +61,7 @@ import functools
 
 import torch
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 MAX_H = 4096  # 32 four-element chunks a lane
 
 
@@ -96,8 +100,8 @@ def check_kernel_inputs(x, y, scale, shift) -> None:
     """What the CUDA kernel takes; raises ValueError on anything else.
     Device-independent, so the CPU tests call it directly."""
     if x.dtype not in _DTYPE_CODES:
-        raise ValueError(f"add_ln kernel takes float32 or bfloat16 x, got "
-                         f"{x.dtype}")
+        raise ValueError(f"add_ln kernel takes float32, bfloat16 or "
+                         f"float16 x, got {x.dtype}")
     if x.dim() < 1:
         raise ValueError("x must have a last (normalised) axis")
     h = x.shape[-1]
@@ -207,6 +211,8 @@ def _cuda_add_ln(x, y, scale, shift, eps: float):
     if err:
         raise RuntimeError(f"add_ln kernel launch failed: CUDA error {err}")
     fused_add_ln.launches += 1
+    if x.dtype == torch.float16:
+        fused_add_ln.launches_f16 += 1
     return out, mean, rstd
 
 
@@ -229,6 +235,7 @@ def fused_add_ln(x, y, scale, shift, eps: float = 1e-5):
 
 
 fused_add_ln.launches = 0
+fused_add_ln.launches_f16 = 0
 
 BWD_GROUP = 16  # block partial rows that one group sum takes
 
@@ -290,6 +297,8 @@ def _cuda_add_ln_bwd(x, y, scale, mean, rstd, g):
         raise RuntimeError(f"add_ln backward kernel launch failed: CUDA "
                            f"error {err}")
     fused_add_ln_bwd.launches += 1
+    if x.dtype == torch.float16:
+        fused_add_ln_bwd.launches_f16 += 1
     return dx, dparams[0], dparams[1]
 
 
@@ -306,6 +315,7 @@ def fused_add_ln_bwd(x, y, scale, mean, rstd, g):
 
 
 fused_add_ln_bwd.launches = 0
+fused_add_ln_bwd.launches_f16 = 0
 
 
 class _AddLN(torch.autograd.Function):

@@ -81,12 +81,19 @@
 // with the row in registers; wider rows four warps, two blocks an SM, and
 // past a few thousand columns the registers spill: right, but slow.
 //
+// float16.  The same kernels over __half (dtype code 2): 16-byte loads
+// of 8 halves (8-byte chunks of 4 when H % 8 != 0), widened to f32 in
+// registers; the statistics, the reductions and the affine stay f32 and
+// only the stores round to f16 (round to nearest, overflowing to inf as
+// __float2half_rn does: no clamping).
+//
 // C interface (ctypes): add_ln_fwd_launch and add_ln_bwd_launch return
 // cudaGetLastError() after the launch.  The kernels run on the caller's
 // stream, allocate nothing and do not synchronise.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -104,12 +111,26 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
   const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.y));
   v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
 }
+__device__ __forceinline__ void load4(const __half* p, float (&v)[4]) {
+  const uint2 t = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&t.x));
+  const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&t.y));
+  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+}
 __device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
 __device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
   const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
   const __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
+  uint2 t;
+  t.x = *reinterpret_cast<const uint32_t*>(&a);
+  t.y = *reinterpret_cast<const uint32_t*>(&b);
+  *reinterpret_cast<uint2*>(p) = t;
+}
+__device__ __forceinline__ void store4(__half* p, const float (&v)[4]) {
+  const __half2 a = __floats2half2_rn(v[0], v[1]);
+  const __half2 b = __floats2half2_rn(v[2], v[3]);
   uint2 t;
   t.x = *reinterpret_cast<const uint32_t*>(&a);
   t.y = *reinterpret_cast<const uint32_t*>(&b);
@@ -156,8 +177,27 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&v)[8]) {
   }
   *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
 }
-// VEC-wide chunks: 4 (a 16-byte f32 or 8-byte bf16 load) or 8 (a 16-byte
-// bf16 load)
+__device__ __forceinline__ void load8(const __half* p, float (&v)[8]) {
+  const uint4 t = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&w[i]));
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void store8(__half* p, const float (&v)[8]) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __half2 t = __floats2half2_rn(v[2 * i], v[2 * i + 1]);
+    w[i] = *reinterpret_cast<const uint32_t*>(&t);
+  }
+  *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+// VEC-wide chunks: 4 (a 16-byte f32 or 8-byte 16-bit load) or 8 (a
+// 16-byte 16-bit load)
 template <typename T>
 __device__ __forceinline__ void loadv(const T* p, float (&v)[4]) { load4(p, v); }
 template <typename T>
@@ -167,33 +207,46 @@ __device__ __forceinline__ void storev(T* p, const float (&v)[4]) { store4(p, v)
 __device__ __forceinline__ void storev(__nv_bfloat16* p, const float (&v)[8]) {
   store8(p, v);
 }
+__device__ __forceinline__ void storev(__half* p, const float (&v)[8]) {
+  store8(p, v);
+}
 
 // ---------------------------------------------------------------------------
 // forward
 // ---------------------------------------------------------------------------
 
-// VEC-wide chunks as raw bits: 16 bytes (8 bf16 or 4 f32) or 8 bytes (4
-// bf16), loaded now and widened when the row's turn comes
+// VEC-wide chunks as raw bits: 16 bytes (8 bf16 / f16 or 4 f32) or 8
+// bytes (4 bf16 / f16), loaded now and widened (as T) when the row's turn
+// comes
 template <typename T, int VEC>
 using raw_t = typename std::conditional<VEC * sizeof(T) == 16, uint4,
                                         uint2>::type;
 
+template <typename T>
 __device__ __forceinline__ void widen(const uint4& r, float (&v)[4]) {
+  static_assert(std::is_same<T, float>::value, "4 f32 a 16-byte chunk");
   v[0] = __uint_as_float(r.x); v[1] = __uint_as_float(r.y);
   v[2] = __uint_as_float(r.z); v[3] = __uint_as_float(r.w);
 }
-__device__ __forceinline__ void widen_bf16(uint32_t w, float* v) {
-  const float2 f = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&w));
+// two 16-bit elements of type T
+template <typename T>
+__device__ __forceinline__ void widen2(uint32_t w, float* v) {
+  float2 f;
+  if constexpr (std::is_same<T, __half>::value)
+    f = __half22float2(*reinterpret_cast<const __half2*>(&w));
+  else
+    f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
   v[0] = f.x;
   v[1] = f.y;
 }
+template <typename T>
 __device__ __forceinline__ void widen(const uint4& r, float (&v)[8]) {
-  widen_bf16(r.x, v); widen_bf16(r.y, v + 2);
-  widen_bf16(r.z, v + 4); widen_bf16(r.w, v + 6);
+  widen2<T>(r.x, v); widen2<T>(r.y, v + 2);
+  widen2<T>(r.z, v + 4); widen2<T>(r.w, v + 6);
 }
+template <typename T>
 __device__ __forceinline__ void widen(const uint2& r, float (&v)[4]) {
-  widen_bf16(r.x, v); widen_bf16(r.y, v + 2);
+  widen2<T>(r.x, v); widen2<T>(r.y, v + 2);
 }
 
 struct FwdArgs {
@@ -323,10 +376,10 @@ add_ln_fwd_kernel(FwdArgs a) {
 #pragma unroll
       for (int c = 0; c < NCH; ++c) {
         if (lane + 32 * c < nch) {
-          widen(rx[c], v[c]);
+          widen<T>(rx[c], v[c]);
           if (HAS_Y) {
             float w[VEC];
-            widen(ry[c], w);
+            widen<T>(ry[c], w);
 #pragma unroll
             for (int i = 0; i < VEC; ++i) v[c][i] += w[i];
           }
@@ -646,7 +699,8 @@ int launch_bwd_v(const BwdArgs& a, int nblocks, int threads,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x, y, out); scale and shift are f32.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (x, y, out); scale and
+// shift are f32.
 // y may be null.  nblocks and threads come from the wrapper's
 // fwd_geometry (threads 256 up to h = 1024, 128 beyond); the warps walk
 // the rows with a stride of nblocks * threads / 32.  Returns 0 on
@@ -669,10 +723,14 @@ extern "C" int add_ln_fwd_launch(const void* x, const void* y,
     return h % 8 == 0
                ? launch_fwd_v<__nv_bfloat16, 8>(a, nblocks, threads, s)
                : launch_fwd_v<__nv_bfloat16, 4>(a, nblocks, threads, s);
+  if (dtype == 2)
+    return h % 8 == 0 ? launch_fwd_v<__half, 8>(a, nblocks, threads, s)
+                      : launch_fwd_v<__half, 4>(a, nblocks, threads, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// dtype: 0 = float32, 1 = bfloat16 (x, y, g, dx); scale, mean, rstd,
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (x, y, g, dx); scale,
+// mean, rstd,
 // dscale and dshift are f32.  y may be null.  part is the f32 workspace
 // [nblocks + ngroups][2][h] and ticket the [1 + ngroups] counters, zero
 // before the first call (each call leaves them at zero), with nblocks =
@@ -703,5 +761,8 @@ extern "C" int add_ln_bwd_launch(const void* x, const void* y,
     return h % 8 == 0
                ? launch_bwd_v<__nv_bfloat16, 8>(a, nblocks, threads, s)
                : launch_bwd_v<__nv_bfloat16, 4>(a, nblocks, threads, s);
+  if (dtype == 2)
+    return h % 8 == 0 ? launch_bwd_v<__half, 8>(a, nblocks, threads, s)
+                      : launch_bwd_v<__half, 4>(a, nblocks, threads, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

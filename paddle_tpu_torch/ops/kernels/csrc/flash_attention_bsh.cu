@@ -127,15 +127,25 @@
 // drop_queries_by_keys), so every word drawn is used.  f32 stays on the
 // SIMT kernels above: tensor cores would round it to TF32.
 //
+// float16 (float16 AMP's rows 4 and 5): the same wgmma kernels instantiated
+// over __half (the element type E of hopper_mma.cuh and flash_tc.cuh):
+// the same tiles, swizzles and Philox stream, .f32.f16.f16 products, and
+// p c and ds rounded to f16 where the bf16 form rounds them to bf16 (the
+// TPU kernels round them to the inputs' dtype).  f16 overflows at 65504:
+// a ds past it (a loss-scaled dO) rounds to inf and reaches the
+// gradients, as in the TPU kernel, for the AMP decorator's found_inf.
+//
 // C interface (ctypes): flash_attention_bsh_launch (f32) and
-// flash_attention_bsh_fwd_tc_launch (bf16), flash_attention_bsh_bwd_launch
-// (f32) and flash_attention_bsh_bwd_tc_launch (bf16) return
+// flash_attention_bsh_fwd_tc_launch (bf16 / f16),
+// flash_attention_bsh_bwd_launch (f32) and
+// flash_attention_bsh_bwd_tc_launch (bf16 / f16) return
 // cudaGetLastError() after the launch (the first failing one).  The
 // kernels run on the caller's stream, allocate nothing and do not
 // synchronise.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -836,17 +846,18 @@ int launch_bwd_d(int head_dim, const BwdArgs& a, const Dropout& dr, int batch,
 }
 
 // ---------------------------------------------------------------------------
-// forward on the tensor cores (bf16)
+// forward on the tensor cores (bf16, or f16: E)
 // ---------------------------------------------------------------------------
 
+template <typename E>
 struct FwdArgs {
-  const __nv_bfloat16* q;  // [B, Sq, H]
-  const __nv_bfloat16* k;  // [B, Skv, H]
-  const __nv_bfloat16* v;
+  const E* q;              // [B, Sq, H]
+  const E* k;              // [B, Skv, H]
+  const E* v;
   const float* bias;       // [B, Skv] or null
-  __nv_bfloat16* o;        // [B, Sq, H]
+  E* o;                    // [B, Sq, H]
   float* lse;              // [B, nh, Sq]
-  __nv_bfloat16* p_out;    // check outputs (null on the training path):
+  E* p_out;                // check outputs (null on the training path):
   float* m_out;            // [B, nh, Sq, Skv] and [B, nh, Sq, Skv / 64]
   int sq, skv, nh, causal;
   float sm_scale;
@@ -859,16 +870,16 @@ struct FwdArgs {
 // Skv) is top-left, its key tiles past the diagonal skipped.  sm_scale
 // multiplies the scores: with a power of two that is bit for bit the
 // prescale rule's q * sm_scale.
-template <int D, int DO, int BMODE>
+template <int D, int DO, int BMODE, typename E>
 __global__ void __launch_bounds__(128)
-flash_fwd_bsh_tc_kernel(FwdArgs a, Dropout dr) {
+flash_fwd_bsh_tc_kernel(FwdArgs<E> a, Dropout dr) {
   const int q0 = blockIdx.x * kTcRows;
   const int bh = blockIdx.y, dsplit = blockIdx.z;
   const int b = bh / a.nh, h = bh - b * a.nh;
   const int64_t hs = (int64_t)a.nh * D;
   const int64_t qofs = ((int64_t)b * a.sq + q0) * hs + h * D;
   const int64_t kofs = (int64_t)b * a.skv * hs + h * D;
-  FwdTile f;
+  FwdTileT<E> f;
   f.q = a.q + qofs;
   f.k = a.k + kofs;
   f.v = a.v + kofs + dsplit * DO;
@@ -890,24 +901,24 @@ flash_fwd_bsh_tc_kernel(FwdArgs a, Dropout dr) {
   fwd_tc_tile<D, DO, BMODE, float>(f, dr);
 }
 
-template <int D, int DO, int BMODE>
-int launch_fwd_tc(const FwdArgs& a, const Dropout& dr, int batch,
+template <int D, int DO, int BMODE, typename E>
+int launch_fwd_tc(const FwdArgs<E>& a, const Dropout& dr, int batch,
                   cudaStream_t stream) {
   constexpr int kSmem = fwd_tc_smem_bytes<D, DO, BMODE, float>();
   static const cudaError_t attr =
-      allow_smem(flash_fwd_bsh_tc_kernel<D, DO, BMODE>, kSmem);  // once
+      allow_smem(flash_fwd_bsh_tc_kernel<D, DO, BMODE, E>, kSmem);  // once
   if (attr != cudaSuccess) return static_cast<int>(attr);
   if (a.sq % kTcRows != 0 || a.skv % kTcRows != 0 ||
       (int64_t)batch * a.nh > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  flash_fwd_bsh_tc_kernel<D, DO, BMODE>
+  flash_fwd_bsh_tc_kernel<D, DO, BMODE, E>
       <<<dim3(a.sq / kTcRows, batch * a.nh, D / DO), 128, kSmem, stream>>>(
           a, dr);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, int DO>
-int launch_fwd_tc_bias(const FwdArgs& a, const Dropout& dr, int batch,
+template <int D, int DO, typename E>
+int launch_fwd_tc_bias(const FwdArgs<E>& a, const Dropout& dr, int batch,
                        cudaStream_t stream) {
   if (a.bias) return launch_fwd_tc<D, DO, kKeyBias>(a, dr, batch, stream);
   return launch_fwd_tc<D, DO, kNoBias>(a, dr, batch, stream);
@@ -915,7 +926,8 @@ int launch_fwd_tc_bias(const FwdArgs& a, const Dropout& dr, int batch,
 
 // D 256 in two 128-column slices (grid z), each recomputing S: 64 O
 // accumulators a thread at most (row 6's split)
-int launch_fwd_tc_d(int head_dim, const FwdArgs& a, const Dropout& dr,
+template <typename E>
+int launch_fwd_tc_d(int head_dim, const FwdArgs<E>& a, const Dropout& dr,
                     int batch, cudaStream_t stream) {
   switch (head_dim) {
     case 64:
@@ -930,7 +942,7 @@ int launch_fwd_tc_d(int head_dim, const FwdArgs& a, const Dropout& dr,
 }
 
 // ---------------------------------------------------------------------------
-// backward on the tensor cores (bf16)
+// backward on the tensor cores (bf16, or f16: E)
 // ---------------------------------------------------------------------------
 
 template <int D, int BQ>
@@ -942,9 +954,11 @@ constexpr int dkv_tc_smem_bytes() {
 // one warpgroup; the query tiles (BQ rows of q and dO, their lse and
 // delta) stream through a 2-stage cp.async ring.  Per query tile:
 //   S^T  = K . Q^T and dP^T = V . dO^T   (A: K, V; B: Q, dO; K-major)
-//   p c, ds in registers, rounded to bf16: the A operands of
+//   p c, ds in registers, rounded to E: the A operands of
 //   dV  += (p c)^T . dO and dK += ds^T . Q  (B: dO, Q; MN-major)
-template <int D, int BQ, int DO>
+// In f16 a ds past 65504 rounds to inf (a scaled dO's overflow), which
+// dK carries on to float16 AMP's found_inf: nothing saturates it.
+template <int D, int BQ, int DO, typename E>
 __global__ void __launch_bounds__(128)
 flash_bwd_dkv_tc_kernel(BwdArgs a, Dropout dr) {
   constexpr int NSPLIT = D / DO;
@@ -967,10 +981,9 @@ flash_bwd_dkv_tc_kernel(BwdArgs a, Dropout dr) {
   const int64_t hs = (int64_t)a.nh * D;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const __nv_bfloat16* qb = static_cast<const __nv_bfloat16*>(a.q) +
-                            (int64_t)b * a.sq * hs + h * D;
-  const __nv_bfloat16* dob = static_cast<const __nv_bfloat16*>(a.dout) +
-                             (int64_t)b * a.sq * hs + h * D;
+  const E* qb = static_cast<const E*>(a.q) + (int64_t)b * a.sq * hs + h * D;
+  const E* dob =
+      static_cast<const E*>(a.dout) + (int64_t)b * a.sq * hs + h * D;
   const int64_t kofs = ((int64_t)b * a.skv + k0) * hs + h * D;
   const float* lseb = a.lse + (int64_t)bh * a.sq;
   const float* deltab = a.delta + (int64_t)bh * a.sq;
@@ -989,10 +1002,8 @@ flash_bwd_dkv_tc_kernel(BwdArgs a, Dropout dr) {
                  deltab + qt * BQ + (tid - BQ / 4) * 4, true);
   };
 
-  tile_async<kTcRows, D>(ks, static_cast<const __nv_bfloat16*>(a.k) + kofs,
-                         hs);
-  tile_async<kTcRows, D>(vs, static_cast<const __nv_bfloat16*>(a.v) + kofs,
-                         hs);
+  tile_async<kTcRows, D>(ks, static_cast<const E*>(a.k) + kofs, hs);
+  tile_async<kTcRows, D>(vs, static_cast<const E*>(a.v) + kofs, hs);
   if (lo < nq) load_q(lo, 0);
   cp_async_commit();
 
@@ -1030,8 +1041,8 @@ flash_bwd_dkv_tc_kernel(BwdArgs a, Dropout dr) {
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t ko = (kk >> 2) * (kTcRows * 128) + (kk & 3) * 32;
       const uint32_t qo = (kk >> 2) * (BQ * 128) + (kk & 3) * 32;
-      wgmma_ss<BQ, 0>(sacc, desc_sw128(ks + ko), desc_sw128(qd + qo));
-      wgmma_ss<BQ, 0>(dpacc, desc_sw128(vs + ko), desc_sw128(dod + qo));
+      wgmma_ss<BQ, 0, E>(sacc, desc_sw128(ks + ko), desc_sw128(qd + qo));
+      wgmma_ss<BQ, 0, E>(dpacc, desc_sw128(vs + ko), desc_sw128(dod + qo));
     }
     wg_commit();
     wg_wait<0>();
@@ -1055,10 +1066,8 @@ flash_bwd_dkv_tc_kernel(BwdArgs a, Dropout dr) {
         dpacc[idx] = p * (dpacc[idx] * cm[idx] - delta_s[qc]) * scale;  // ds
         if (a.p_out) {
           const int64_t at = ((int64_t)bh * a.sq + q0 + qc) * a.skv + k0 + kr;
-          static_cast<__nv_bfloat16*>(a.p_out)[at] =
-              __float2bfloat16_rn(sacc[idx]);
-          static_cast<__nv_bfloat16*>(a.ds_out)[at] =
-              __float2bfloat16_rn(dpacc[idx]);
+          static_cast<E*>(a.p_out)[at] = round_to<E>(sacc[idx]);
+          static_cast<E*>(a.ds_out)[at] = round_to<E>(dpacc[idx]);
         }
       }
 
@@ -1071,14 +1080,14 @@ flash_bwd_dkv_tc_kernel(BwdArgs a, Dropout dr) {
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk) {
       uint32_t pa[4], da[4];
-      a_frag(sacc, kk, pa);
-      a_frag(dpacc, kk, da);
+      a_frag<E>(sacc, kk, pa);
+      a_frag<E>(dpacc, kk, da);
 #pragma unroll
       for (int cb = 0; cb < DO / 64; ++cb) {
         const uint32_t off =
             (dsplit * (DO / 64) + cb) * (BQ * 128) + kk * 16 * 128;
-        wgmma_rs_n64<1>(dv[cb], pa, desc_sw128(dod + off));
-        wgmma_rs_n64<1>(dk[cb], da, desc_sw128(qd + off));
+        wgmma_rs_n64<1, E>(dv[cb], pa, desc_sw128(dod + off));
+        wgmma_rs_n64<1, E>(dk[cb], da, desc_sw128(qd + off));
       }
     }
     wg_commit();
@@ -1094,8 +1103,8 @@ flash_bwd_dkv_tc_kernel(BwdArgs a, Dropout dr) {
 #pragma unroll
   for (int cb = 0; cb < DO / 64; ++cb) {
     const int64_t at = kofs + dsplit * DO + cb * 64;
-    store_frag(static_cast<__nv_bfloat16*>(a.dk) + at, hs, dk[cb]);
-    store_frag(static_cast<__nv_bfloat16*>(a.dv) + at, hs, dv[cb]);
+    store_frag(static_cast<E*>(a.dk) + at, hs, dk[cb]);
+    store_frag(static_cast<E*>(a.dv) + at, hs, dv[cb]);
   }
 }
 
@@ -1108,8 +1117,8 @@ constexpr int dq_tc_smem_bytes() {
 // dq of one (64-query tile, head, DO-column slice, batch): one warpgroup;
 // the key tiles (64 rows of k and v, their bias) stream through a 2-stage
 // cp.async ring.  Per key tile: S = Q . K^T, dP = dO . V^T (K-major), ds
-// in registers rounded to bf16, dQ += ds . K (B: K, MN-major).
-template <int D, int DO>
+// in registers rounded to E, dQ += ds . K (B: K, MN-major).
+template <int D, int DO, typename E>
 __global__ void __launch_bounds__(128)
 flash_bwd_dq_tc_kernel(BwdArgs a, Dropout dr) {
   constexpr int NSPLIT = D / DO;
@@ -1131,10 +1140,8 @@ flash_bwd_dq_tc_kernel(BwdArgs a, Dropout dr) {
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
   const int64_t qofs = ((int64_t)b * a.sq + q0) * hs + h * D;
-  const __nv_bfloat16* kb = static_cast<const __nv_bfloat16*>(a.k) +
-                            (int64_t)b * a.skv * hs + h * D;
-  const __nv_bfloat16* vb = static_cast<const __nv_bfloat16*>(a.v) +
-                            (int64_t)b * a.skv * hs + h * D;
+  const E* kb = static_cast<const E*>(a.k) + (int64_t)b * a.skv * hs + h * D;
+  const E* vb = static_cast<const E*>(a.v) + (int64_t)b * a.skv * hs + h * D;
   const float* biasb = a.bias ? a.bias + (int64_t)b * a.skv : nullptr;
   int nk = a.skv / kTcRows;
   if (a.causal) nk = min(nk, (q0 + 2 * kTcRows - 1) / kTcRows);
@@ -1148,10 +1155,8 @@ flash_bwd_dq_tc_kernel(BwdArgs a, Dropout dr) {
                  biasb + kt * kTcRows + tid * 4, true);
   };
 
-  tile_async<kTcRows, D>(qs, static_cast<const __nv_bfloat16*>(a.q) + qofs,
-                         hs);
-  tile_async<kTcRows, D>(dos,
-                         static_cast<const __nv_bfloat16*>(a.dout) + qofs, hs);
+  tile_async<kTcRows, D>(qs, static_cast<const E*>(a.q) + qofs, hs);
+  tile_async<kTcRows, D>(dos, static_cast<const E*>(a.dout) + qofs, hs);
   if (nk > 0) load_kv(0, 0);
   cp_async_commit();
 
@@ -1184,8 +1189,8 @@ flash_bwd_dq_tc_kernel(BwdArgs a, Dropout dr) {
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t off = (kk >> 2) * (kTcRows * 128) + (kk & 3) * 32;
-      wgmma_ss<64, 0>(sacc, desc_sw128(qs + off), desc_sw128(kd + off));
-      wgmma_ss<64, 0>(dpacc, desc_sw128(dos + off), desc_sw128(vd + off));
+      wgmma_ss<64, 0, E>(sacc, desc_sw128(qs + off), desc_sw128(kd + off));
+      wgmma_ss<64, 0, E>(dpacc, desc_sw128(dos + off), desc_sw128(vd + off));
     }
     wg_commit();
     wg_wait<0>();
@@ -1208,9 +1213,9 @@ flash_bwd_dq_tc_kernel(BwdArgs a, Dropout dr) {
         dpacc[idx] =
             p * (dpacc[idx] * cm[idx] - ((e & 2) ? dl1 : dl0)) * scale;
         if (a.dsq_out)
-          static_cast<__nv_bfloat16*>(
+          static_cast<E*>(
               a.dsq_out)[((int64_t)bh * a.sq + q0 + qr) * a.skv + k0 + kc] =
-              __float2bfloat16_rn(dpacc[idx]);
+              round_to<E>(dpacc[idx]);
       }
 
 #pragma unroll
@@ -1219,12 +1224,12 @@ flash_bwd_dq_tc_kernel(BwdArgs a, Dropout dr) {
 #pragma unroll
     for (int kk = 0; kk < kTcRows / 16; ++kk) {
       uint32_t da[4];
-      a_frag(dpacc, kk, da);
+      a_frag<E>(dpacc, kk, da);
 #pragma unroll
       for (int cb = 0; cb < DO / 64; ++cb) {
         const uint32_t off =
             (dsplit * (DO / 64) + cb) * (kTcRows * 128) + kk * 16 * 128;
-        wgmma_rs_n64<1>(dq[cb], da, desc_sw128(kd + off));
+        wgmma_rs_n64<1, E>(dq[cb], da, desc_sw128(kd + off));
       }
     }
     wg_commit();
@@ -1236,44 +1241,45 @@ flash_bwd_dq_tc_kernel(BwdArgs a, Dropout dr) {
 
 #pragma unroll
   for (int cb = 0; cb < DO / 64; ++cb)
-    store_frag(static_cast<__nv_bfloat16*>(a.dq) + qofs + dsplit * DO +
+    store_frag(static_cast<E*>(a.dq) + qofs + dsplit * DO +
                    cb * 64,
                hs, dq[cb]);
 }
 
-template <int D, int BQ, int DO>
+template <int D, int BQ, int DO, typename E>
 int launch_bwd_tc(const BwdArgs& a, const Dropout& dr, int batch,
                   cudaStream_t stream) {
   constexpr int kDkv = dkv_tc_smem_bytes<D, BQ>();
   constexpr int kDq = dq_tc_smem_bytes<D>();
   static const cudaError_t attr_dkv =
-      allow_smem(flash_bwd_dkv_tc_kernel<D, BQ, DO>, kDkv);
+      allow_smem(flash_bwd_dkv_tc_kernel<D, BQ, DO, E>, kDkv);
   static const cudaError_t attr_dq =
-      allow_smem(flash_bwd_dq_tc_kernel<D, DO>, kDq);
+      allow_smem(flash_bwd_dq_tc_kernel<D, DO, E>, kDq);
   if (attr_dkv != cudaSuccess) return static_cast<int>(attr_dkv);
   if (attr_dq != cudaSuccess) return static_cast<int>(attr_dq);
   if (a.sq % kTcRows != 0 || a.skv % kTcRows != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  flash_bwd_dkv_tc_kernel<D, BQ, DO>
+  flash_bwd_dkv_tc_kernel<D, BQ, DO, E>
       <<<dim3(a.skv / kTcRows, a.nh * (D / DO), batch), 128, kDkv,
          stream>>>(a, dr);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  flash_bwd_dq_tc_kernel<D, DO>
+  flash_bwd_dq_tc_kernel<D, DO, E>
       <<<dim3(a.sq / kTcRows, a.nh * (D / DO), batch), 128, kDq, stream>>>(
           a, dr);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename E>
 int launch_bwd_tc_d(int head_dim, const BwdArgs& a, const Dropout& dr,
                     int batch, cudaStream_t stream) {
   switch (head_dim) {
     case 64:
-      return launch_bwd_tc<64, 64, 64>(a, dr, batch, stream);
+      return launch_bwd_tc<64, 64, 64, E>(a, dr, batch, stream);
     case 128:
-      return launch_bwd_tc<128, 32, 128>(a, dr, batch, stream);
+      return launch_bwd_tc<128, 32, 128, E>(a, dr, batch, stream);
     case 256:
-      return launch_bwd_tc<256, 32, 128>(a, dr, batch, stream);
+      return launch_bwd_tc<256, 32, 128, E>(a, dr, batch, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1306,10 +1312,10 @@ extern "C" int flash_attention_bsh_launch(
                       static_cast<cudaStream_t>(stream));
 }
 
-// The bf16 forward on the tensor cores: the arguments of
-// flash_attention_bsh_launch (dtype must be 1; prescale is implied, see
+// The bf16 (dtype 1) or f16 (dtype 2) forward on the tensor cores: the
+// arguments of flash_attention_bsh_launch (prescale is implied, see
 // flash_fwd_bsh_tc_kernel), then two check outputs that are null on the
-// training path: p_out (bf16 [B, nh, Sq, Skv], zeros where a causal tile
+// training path: p_out (q's dtype [B, nh, Sq, Skv], zeros where a causal tile
 // is skipped) the rounded p c its P . V products take, relative to the
 // running max m_out (f32 [B, nh, Sq, Skv / 64]: the max after each key
 // tile, left as given where a tile is skipped).
@@ -1321,21 +1327,31 @@ extern "C" int flash_attention_bsh_fwd_tc_launch(
     int thresh, float keep_div, void* p_out, void* m_out, void* stream) {
   (void)prescale;
   if (batch <= 0 || sq <= 0 || skv <= 0 || nh <= 0 || (causal && sq != skv)
-      || dtype != 1 || !dropout_ok(drop_mode, mask, thresh, keep_div))
+      || (dtype != 1 && dtype != 2)
+      || !dropout_ok(drop_mode, mask, thresh, keep_div))
     return static_cast<int>(cudaErrorInvalidValue);
   const Dropout dr = make_dropout(drop_mode, mask, bits_out, seed, offset,
                                   thresh, keep_div);
-  const FwdArgs a = {static_cast<const __nv_bfloat16*>(q),
-                     static_cast<const __nv_bfloat16*>(k),
-                     static_cast<const __nv_bfloat16*>(v),
-                     static_cast<const float*>(bias),
-                     static_cast<__nv_bfloat16*>(o),
-                     static_cast<float*>(lse),
-                     static_cast<__nv_bfloat16*>(p_out),
-                     static_cast<float*>(m_out), sq, skv, nh, causal,
-                     sm_scale};
-  return launch_fwd_tc_d(head_dim, a, dr, batch,
-                         static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 2) {
+    const FwdArgs<__half> a = {
+        static_cast<const __half*>(q), static_cast<const __half*>(k),
+        static_cast<const __half*>(v), static_cast<const float*>(bias),
+        static_cast<__half*>(o), static_cast<float*>(lse),
+        static_cast<__half*>(p_out), static_cast<float*>(m_out), sq, skv,
+        nh, causal, sm_scale};
+    return launch_fwd_tc_d(head_dim, a, dr, batch, s);
+  }
+  const FwdArgs<__nv_bfloat16> a = {static_cast<const __nv_bfloat16*>(q),
+                                    static_cast<const __nv_bfloat16*>(k),
+                                    static_cast<const __nv_bfloat16*>(v),
+                                    static_cast<const float*>(bias),
+                                    static_cast<__nv_bfloat16*>(o),
+                                    static_cast<float*>(lse),
+                                    static_cast<__nv_bfloat16*>(p_out),
+                                    static_cast<float*>(m_out), sq, skv, nh,
+                                    causal, sm_scale};
+  return launch_fwd_tc_d(head_dim, a, dr, batch, s);
 }
 
 // The f32 backward on the SIMT kernels (dtype must be 0; bf16 takes
@@ -1364,11 +1380,11 @@ extern "C" int flash_attention_bsh_bwd_launch(
                              static_cast<cudaStream_t>(stream));
 }
 
-// The bf16 backward on the tensor cores: the arguments of
-// flash_attention_bsh_bwd_launch (dtype must be 1), then three check
-// outputs that are null on the training path: p_out and ds_out receive
-// the dk/dv kernel's rounded p c and ds, dsq_out the dq kernel's ds (bf16
-// [B, nh, Sq, Skv]).  Launches the dk/dv kernel, then the dq kernel.
+// The bf16 (dtype 1) or f16 (dtype 2) backward on the tensor cores: the
+// arguments of flash_attention_bsh_bwd_launch, then three check outputs
+// that are null on the training path: p_out and ds_out receive the dk/dv
+// kernel's rounded p c and ds, dsq_out the dq kernel's ds (q's dtype [B,
+// nh, Sq, Skv]).  Launches the dk/dv kernel, then the dq kernel.
 extern "C" int flash_attention_bsh_bwd_tc_launch(
     const void* q, const void* k, const void* v, const void* bias,
     const void* lse, const void* delta, const void* dout, void* dq, void* dk,
@@ -1377,7 +1393,8 @@ extern "C" int flash_attention_bsh_bwd_tc_launch(
     const void* mask, unsigned long long seed, int offset, int thresh,
     float keep_div, void* p_out, void* ds_out, void* dsq_out, void* stream) {
   if (batch <= 0 || sq <= 0 || skv <= 0 || nh <= 0 || (causal && sq != skv)
-      || dtype != 1 || !dropout_ok(drop_mode, mask, thresh, keep_div) ||
+      || (dtype != 1 && dtype != 2)
+      || !dropout_ok(drop_mode, mask, thresh, keep_div) ||
       (p_out == nullptr) != (ds_out == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const BwdArgs a = {q, k, v, static_cast<const float*>(bias),
@@ -1387,6 +1404,7 @@ extern "C" int flash_attention_bsh_bwd_tc_launch(
                      dsq_out};
   const Dropout dr = make_dropout(drop_mode, mask, nullptr, seed, offset,
                                   thresh, keep_div);
-  return launch_bwd_tc_d(head_dim, a, dr, batch,
-                         static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 2) return launch_bwd_tc_d<__half>(head_dim, a, dr, batch, s);
+  return launch_bwd_tc_d<__nv_bfloat16>(head_dim, a, dr, batch, s);
 }

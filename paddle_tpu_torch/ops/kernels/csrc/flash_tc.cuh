@@ -4,9 +4,10 @@
 // tile copy into the swizzled layout of hopper_mma.cuh, the staged bias
 // tiles, the dropout multipliers of an accumulator fragment (the explicit
 // mask or the Philox bits of flash_common.cuh, drawn so that every word
-// is used), the bf16 store of an m64n64 accumulator, and the forward of
+// is used), the 16-bit store of an m64n64 accumulator, and the forward of
 // one 64-query tile (fwd_tc_tile), which rows 4 and 6 both run: the one
-// forward body, whatever the layout.
+// forward body, whatever the layout.  Each takes the operands' element
+// type E (hopper_mma.cuh): bf16, or __half for row 4's f16 form.
 //
 // Every item sits in an anonymous namespace, local to the library that
 // includes it.
@@ -27,10 +28,10 @@ constexpr int kTcRows = 64;  // rows of a warpgroup's tile: M of every wgmma
 // cp.async an R x D tile (R rows from src, row stride rs elements: H of
 // [B, S, H], D of [B, nh, S, D]) into D / 64 swizzled column blocks of R
 // rows
-template <int R, int D>
-__device__ __forceinline__ void tile_async(uint32_t dst,
-                                           const __nv_bfloat16* src,
+template <int R, int D, typename E>
+__device__ __forceinline__ void tile_async(uint32_t dst, const E* src,
                                            int64_t rs) {
+  static_assert(sizeof(E) == 2, "16-bit operands: 8 a 16-byte chunk");
   constexpr int CH = D / 8;  // 16-byte chunks a row
   for (int idx = threadIdx.x; idx < R * CH; idx += 128) {
     const int r = idx / CH, ch = idx - r * CH;
@@ -141,9 +142,10 @@ __device__ __forceinline__ void drop_queries_by_keys(const Dropout& dr,
   }
 }
 
-// store a 64 x 64 block of f32 accumulators as bf16 rows, row stride rs
-// elements
-__device__ __forceinline__ void store_frag(__nv_bfloat16* dst, int64_t rs,
+// store a 64 x 64 block of f32 accumulators as E rows (bf16 or f16), row
+// stride rs elements
+template <typename E>
+__device__ __forceinline__ void store_frag(E* dst, int64_t rs,
                                            const float (&d)[32]) {
   const int lane = threadIdx.x & 31;
   const int r = 16 * (threadIdx.x >> 5) + (lane >> 2), t = lane & 3;
@@ -151,9 +153,9 @@ __device__ __forceinline__ void store_frag(__nv_bfloat16* dst, int64_t rs,
   for (int i = 0; i < 8; ++i) {
     const int col = 8 * i + 2 * t;
     *reinterpret_cast<uint32_t*>(dst + r * rs + col) =
-        pack_bf16(d[4 * i], d[4 * i + 1]);
+        pack2<E>(d[4 * i], d[4 * i + 1]);
     *reinterpret_cast<uint32_t*>(dst + (r + 8) * rs + col) =
-        pack_bf16(d[4 * i + 2], d[4 * i + 3]);
+        pack2<E>(d[4 * i + 2], d[4 * i + 3]);
   }
 }
 
@@ -221,22 +223,24 @@ constexpr int fwd_tc_smem_bytes() {
 // One block's part of the forward, its pointers already at the block's
 // head (b, h) and slice, whatever the layout: [B, S, H] rows (row 4) or
 // [B, nh, S, D] rows (row 6) differ only in the row stride.
-struct FwdTile {
-  const __nv_bfloat16* q;  // query row q0, column 0 of the head
-  const __nv_bfloat16* k;  // key row 0, column 0 of the head
-  const __nv_bfloat16* v;  // key row 0, the slice's first column
-  __nv_bfloat16* o;        // query row q0, the slice's first column
+template <typename E = __nv_bfloat16>
+struct FwdTileT {
+  const E* q;              // query row q0, column 0 of the head
+  const E* k;              // key row 0, column 0 of the head
+  const E* v;              // key row 0, the slice's first column
+  E* o;                    // query row q0, the slice's first column
   int64_t rs;              // row stride of q, k, v and o (elements)
   const void* bias;        // key: f32 at key 0; full: [Sq, Skv] rows at
                            // query row q0; null without a bias
   float* lse;              // at query row q0 of bh ([BH, Sq])
-  __nv_bfloat16* p_out;    // check outputs [BH, Sq, Skv] and [BH, Sq,
+  E* p_out;                // check outputs [BH, Sq, Skv] and [BH, Sq,
   float* m_out;            // Skv / 64], or null
   int bh, sq, skv, q0, nk; // nk: the key tiles this query tile visits
   int causal, q_off, k_off;
   float sm_scale;
   int checks;              // this slice writes lse and the check outputs
 };
+using FwdTile = FwdTileT<>;
 
 // o and lse of one (64-query tile, bh, DO-column slice of the head): one
 // warpgroup; Q lands once, the key tiles (64 rows of k, the slice of v,
@@ -246,14 +250,14 @@ struct FwdTile {
 // arithmetic alone) drawn while it runs, then in registers the scores
 // (scale, bias in f32, p = 0 at a masked score), the online softmax (row
 // max and sum over the quad of lanes that holds a row, exp by the ex2
-// unit; l sums the undropped p), and p c rounded to bf16 as the A operand
+// unit; l sums the undropped p), and p c rounded to E as the A operand
 // of O += (p c) . V (V MN-major), after O is rescaled by alpha = exp(m -
 // m_new) (the previous tile's P . V has retired by then): p c is rounded
 // relative to the running max of the key tiles seen so far.  A row that
 // sees no key keeps m = NEG_INF, alpha = 1, l = 0: o = 0, lse = NEG_INF.
 // The slice f.checks writes lse and the check outputs.
-template <int D, int DO, int BMODE, typename BT>
-__device__ __forceinline__ void fwd_tc_tile(const FwdTile& f,
+template <int D, int DO, int BMODE, typename BT, typename E>
+__device__ __forceinline__ void fwd_tc_tile(const FwdTileT<E>& f,
                                             const Dropout& dr) {
   constexpr int T_BYTES = kTcRows * D * 2;     // the Q tile, a K tile
   constexpr int STAGE = T_BYTES + kTcRows * DO * 2;   // K, then V's slice
@@ -314,7 +318,7 @@ __device__ __forceinline__ void fwd_tc_tile(const FwdTile& f,
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t off = (kk >> 2) * (kTcRows * 128) + (kk & 3) * 32;
-      wgmma_ss<64, 0>(sacc, desc_sw128(qs + off), desc_sw128(kd + off));
+      wgmma_ss<64, 0, E>(sacc, desc_sw128(qs + off), desc_sw128(kd + off));
     }
     wg_commit();
     // the dropout multipliers (Philox: arithmetic alone) while the
@@ -370,7 +374,7 @@ __device__ __forceinline__ void fwd_tc_tile(const FwdTile& f,
         sacc[idx] = p * cm[idx];   // p c: the numerator only
         if (f.checks && (f.p_out || dr.bits_out)) {
           const int64_t at = ((int64_t)f.bh * f.sq + q0 + qr) * skv + k0 + kc;
-          if (f.p_out) f.p_out[at] = __float2bfloat16_rn(sacc[idx]);
+          if (f.p_out) f.p_out[at] = round_to<E>(sacc[idx]);
           if (dr.bits_out) dr.bits_out[at] = cm[idx] != 0.f ? 1 : 0;
         }
       }
@@ -402,10 +406,10 @@ __device__ __forceinline__ void fwd_tc_tile(const FwdTile& f,
 #pragma unroll
     for (int kk = 0; kk < kTcRows / 16; ++kk) {
       uint32_t pa[4];
-      a_frag(sacc, kk, pa);
+      a_frag<E>(sacc, kk, pa);
 #pragma unroll
       for (int cb = 0; cb < DO / 64; ++cb)
-        wgmma_rs_n64<1>(o[cb], pa,
+        wgmma_rs_n64<1, E>(o[cb], pa,
                         desc_sw128(vd + cb * (kTcRows * 128) + kk * 16 * 128));
     }
     wg_commit();

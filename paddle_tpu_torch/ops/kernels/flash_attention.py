@@ -93,7 +93,14 @@ Launch counters: ``flash_attention_bsh.launches`` (BSH forward),
 ``flash_attention.launches`` (row 6), ``flash_attention_bwd_fused``
 (row 7), ``flash_attention_bwd_dq`` (row 8) and
 ``flash_attention_bwd_dkv`` (row 9) ``.launches``; each also counts
-``.launches_tc``, the launches of its wgmma kernels.
+``.launches_tc``, the launches of its wgmma kernels, and the BSH pair
+``.launches_f16``, those of the wgmma kernels' f16 form.
+
+float16 (float16 AMP): the BSH kernels (rows 4 and 5) take it on their
+wgmma route (``_BSH_DTYPE_CODES``), rounding p c and ds to f16 where the
+bf16 form rounds to bf16; the plain versions round by dtype alike.  The
+BHSD kernels (rows 6-9) still refuse an f16 CUDA tensor with
+ValueError; their plain versions take it.
 """
 from __future__ import annotations
 
@@ -108,6 +115,10 @@ NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 256)
 KERNEL_ROWS = 64  # the kernels' tile rows (32 at D = 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the BSH kernels (rows 4 and 5) also take float16, on their wgmma route;
+# the BHSD kernels (rows 6-9) refuse it
+_BSH_DTYPE_CODES = {**_DTYPE_CODES, torch.float16: 2}
+_TC_DTYPES = (torch.bfloat16, torch.float16)
 _NO_DROP, _MASK_DROP, _PHILOX_DROP = 0, 1, 2
 
 
@@ -338,9 +349,9 @@ def check_kernel_inputs(q, k, v, bias, num_heads, causal=False,
     Device-independent, so the CPU tests call it directly."""
     if not 0.0 <= dropout_prob < 1.0:
         raise ValueError(f"dropout_prob {dropout_prob} is not in [0, 1)")
-    if q.dtype not in _DTYPE_CODES:
-        raise ValueError(f"flash kernel takes float32 or bfloat16 q, got "
-                         f"{q.dtype}")
+    if q.dtype not in _BSH_DTYPE_CODES:
+        raise ValueError(f"flash kernel takes float32, bfloat16 or float16 "
+                         f"q, got {q.dtype}")
     for name, t in (("k", k), ("v", v)):
         if t.dtype != q.dtype:
             raise ValueError(f"{name} dtype {t.dtype} != q dtype {q.dtype}")
@@ -438,9 +449,9 @@ def simt_fwd_grid(b, sq, num_heads, head_dim) -> tuple:
 
 def bsh_fwd_route(dtype) -> str:
     """Which forward kernel row 4 launches, by dtype alone: "tc" (the
-    wgmma kernel) for bf16; "simt" (f32 FMA) for float32, which tensor
-    cores would round to TF32."""
-    return "tc" if dtype == torch.bfloat16 else "simt"
+    wgmma kernel, its bf16 or its f16 form) for bf16 and float16; "simt"
+    (f32 FMA) for float32, which tensor cores would round to TF32."""
+    return "tc" if dtype in _TC_DTYPES else "simt"
 
 
 def _cuda_flash_bsh(q, k, v, bias, num_heads, sm_scale, causal,
@@ -449,7 +460,7 @@ def _cuda_flash_bsh(q, k, v, bias, num_heads, sm_scale, causal,
     """Launch row 4 on the route ``bsh_fwd_route`` names.  Returns (o,
     lse, bits, checks): bits the Philox keep bits when ``return_bits``,
     checks on the tensor-core route with ``return_probs`` (p c as the
-    kernel rounds it for P.V, bf16 [B, nh, Sq, Skv], and its running max
+    kernel rounds it for P.V, q's dtype [B, nh, Sq, Skv], and its running max
     after each 64-key tile, f32 [B, nh, Sq, Skv / 64]), else None."""
     check_kernel_inputs(q, k, v, bias, num_heads, causal, dropout_prob, mask)
     b, sq, hdim = q.shape
@@ -480,7 +491,7 @@ def _cuda_flash_bsh(q, k, v, bias, num_heads, sm_scale, causal,
                  None if bias is None else bias.data_ptr(), o.data_ptr(),
                  lse.data_ptr(), b, sq, skv, num_heads, hdim // num_heads,
                  float(sm_scale), int(prescale_ok(sm_scale)), int(causal),
-                 _DTYPE_CODES[q.dtype], mode,
+                 _BSH_DTYPE_CODES[q.dtype], mode,
                  None if mask is None else mask.data_ptr(),
                  None if bits is None else bits.data_ptr(),
                  int(seed or 0) & ((1 << 64) - 1), int(offset), thresh,
@@ -495,6 +506,8 @@ def _cuda_flash_bsh(q, k, v, bias, num_heads, sm_scale, causal,
     flash_attention_bsh.launches += 1
     if tc:
         flash_attention_bsh.launches_tc += 1
+    if q.dtype == torch.float16:
+        flash_attention_bsh.launches_f16 += 1
     return o, lse, bits, checks
 
 
@@ -537,9 +550,10 @@ def flash_attention_bsh_fwd(q, k, v, bias=None, num_heads=None,
 
 def bsh_bwd_route(dtype) -> str:
     """Which backward kernels row 5 launches, by dtype alone: "tc" (the
-    wgmma kernels) for bf16, "simt" (f32 FMA) for float32, which tensor
-    cores would round to TF32."""
-    return "tc" if dtype == torch.bfloat16 else "simt"
+    wgmma kernels, their bf16 or their f16 form) for bf16 and float16,
+    "simt" (f32 FMA) for float32, which tensor cores would round to
+    TF32."""
+    return "tc" if dtype in _TC_DTYPES else "simt"
 
 
 def _aligned(t):
@@ -587,7 +601,7 @@ def _cuda_flash_bsh_bwd(q, k, v, bias, o, lse, do, num_heads, sm_scale,
                  delta.data_ptr(), do.data_ptr(), dq.data_ptr(),
                  dk.data_ptr(), dv.data_ptr(), b, sq, skv, num_heads, d,
                  float(sm_scale), int(prescale_ok(sm_scale)), int(causal),
-                 _DTYPE_CODES[q.dtype], mode,
+                 _BSH_DTYPE_CODES[q.dtype], mode,
                  None if mask is None else mask.data_ptr(),
                  int(seed or 0) & ((1 << 64) - 1), int(offset), thresh,
                  float(keep_div),
@@ -599,6 +613,8 @@ def _cuda_flash_bsh_bwd(q, k, v, bias, o, lse, do, num_heads, sm_scale,
     flash_attention_bsh_bwd.launches += 2  # the dk/dv and the dq kernel
     if tc:
         flash_attention_bsh_bwd.launches_tc += 2
+    if q.dtype == torch.float16:
+        flash_attention_bsh_bwd.launches_f16 += 2
     if return_probs:
         return dq, dk, dv, probs if tc else None
     return dq, dk, dv
@@ -637,6 +653,7 @@ def flash_attention_bsh_bwd(q, k, v, bias, o, lse, do, num_heads,
 
 flash_attention_bsh_bwd.launches = 0
 flash_attention_bsh_bwd.launches_tc = 0
+flash_attention_bsh_bwd.launches_f16 = 0
 
 
 def _bsh_backward(ctx, do):
@@ -724,6 +741,7 @@ def flash_attention_bsh(q, k, v, bias=None, num_heads=None, sm_scale=None,
 
 flash_attention_bsh.launches = 0
 flash_attention_bsh.launches_tc = 0
+flash_attention_bsh.launches_f16 = 0
 
 
 def _pairs(q, k, causal):
@@ -960,10 +978,10 @@ def flash_attention_bwd_reference(q, k, v, bias, o, lse, do, sm_scale=None,
     dtypes, dbias in the bias's shape and dtype, or None) from the
     forward's o and lse: the intermediates of ``bhsd_bwd_probs_reference``
     through ``bhsd_bwd_products_reference``: dq = ds0 k sm_scale, dk =
-    ds0^T q sm_scale, dv = (p c)^T dO.  In bf16, every bias mode, p c and
-    ds0 sm_scale are rounded first (``bhsd_bwd_rounded``), as the TPU's
-    kernels (rows 7, 8 and 9) round them: the rule goes by dtype, and in
-    f32 the rounding would be a no-op.  dbias = the unrounded ds0 without
+    ds0^T q sm_scale, dv = (p c)^T dO.  In bf16 and f16, every bias mode,
+    p c and ds0 sm_scale are rounded first (``bhsd_bwd_rounded``), as the
+    TPU's kernels (rows 7, 8 and 9) round them: the rule goes by dtype, and
+    in f32 the rounding would be a no-op.  dbias = the unrounded ds0 without
     sm_scale, summed back to the bias's shape (key: over heads and rows,
     and the batch when the bias has one row; full: over the broadcast
     batch and heads)."""
@@ -974,7 +992,7 @@ def flash_attention_bwd_reference(q, k, v, bias, o, lse, do, sm_scale=None,
     p_num, ds0 = bhsd_bwd_probs_reference(
         q, k, v, bias, o, lse, do, sm_scale, causal, mask, keep_div,
         q_offset, k_offset, g_lse)
-    if q.dtype == torch.bfloat16:
+    if q.dtype in _TC_DTYPES:
         p_r, ds_r = bhsd_bwd_rounded(p_num, ds0, sm_scale, do.dtype, q.dtype)
         dq, dk, dv = bhsd_bwd_products_reference(q, k, v, do, p_r, ds_r)
     else:

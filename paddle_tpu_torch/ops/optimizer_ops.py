@@ -23,6 +23,12 @@ norms of the whole parameter and update: their squared sums over the
 rows are summed over the axis (``_norm``), so the trust ratio is the
 unsharded one.  A parameter that tp, pp or ep split reaches these ops as
 a block, and fleet refuses that (``_finish_param_sharding``).
+
+float16 AMP's skip (the reference's conditional skip of an overflowed
+step, branch free): an update op with a ``SkipUpdate`` input (the
+decorator's bool [1] ``found_inf``) selects each of its old inputs for
+the matching output where the flag is set, so a skipped step leaves the
+parameter, its moments and its beta powers bit for bit.
 """
 from __future__ import annotations
 
@@ -60,6 +66,28 @@ def _zero(update):
         out = update(ctx, ins, attrs)
         out["ParamOut"] = [dist.all_gather(out["ParamOut"][0].contiguous(),
                                            axis, 0, mesh)]
+        return out
+
+    return emit
+
+
+def _skippable(update):
+    """``update``, with every output replaced by its input where the
+    op's ``SkipUpdate`` flag is set."""
+
+    @functools.wraps(update)
+    def emit(ctx, ins, attrs):
+        skip = ins.get("SkipUpdate")
+        if not skip:
+            return update(ctx, ins, attrs)
+        flag = skip[0].reshape(()).to(torch.bool)
+        ins = {k: v for k, v in ins.items() if k != "SkipUpdate"}
+        out = update(ctx, ins, attrs)
+        for slot, vals in out.items():
+            old = ins.get(slot[:-3]) or ins.get(slot[:-3] + "ulator")
+            if old is None:
+                raise ValueError(f"SkipUpdate: {slot} has no input to keep")
+            out[slot] = [torch.where(flag, old[0], vals[0])]
         return out
 
     return emit
@@ -266,11 +294,12 @@ def dpsgd(ctx, ins, attrs):
     return {"ParamOut": [p - _lr(ins) * (g * scale + noise) / batch]}
 
 
-for _name, _fn in (("sgd", sgd), ("momentum", momentum), ("adam", adam),
-                   ("adamw", adamw), ("adamax", adamax),
-                   ("adagrad", adagrad),
-                   ("decayed_adagrad", decayed_adagrad),
-                   ("rmsprop", rmsprop), ("lamb", lamb),
-                   ("lars_momentum", lars_momentum), ("ftrl", ftrl),
-                   ("dpsgd", dpsgd)):
-    register(_name, no_vjp_grad=True)(_zero(_fn))
+_UPDATES = (("sgd", sgd), ("momentum", momentum), ("adam", adam),
+            ("adamw", adamw), ("adamax", adamax), ("adagrad", adagrad),
+            ("decayed_adagrad", decayed_adagrad), ("rmsprop", rmsprop),
+            ("lamb", lamb), ("lars_momentum", lars_momentum),
+            ("ftrl", ftrl), ("dpsgd", dpsgd))
+# the op types that take a SkipUpdate input
+UPDATE_OPS = frozenset(name for name, _ in _UPDATES)
+for _name, _fn in _UPDATES:
+    register(_name, no_vjp_grad=True)(_skippable(_zero(_fn)))

@@ -5,16 +5,18 @@ forward in interpret mode — with and without the residual, and the
 package's emitter, on the same numpy inputs; the backward (dx = dy,
 dscale, dshift) of the port's autograd Function against ``jax.vjp`` of
 the JAX package's custom VJP (its Pallas backward in interpret mode),
-with and without the residual, in f32 and bf16.  Also the CUDA wrappers'
-input checks.
+with and without the residual, in f32, bf16 and f16, and the f16 forward
+(out, mean, rstd) against the Pallas forward on f16 inputs.  Also the
+CUDA wrappers' input checks, which take f16 (float16 AMP's form).
 
 Tolerances (f32): out 2e-6 and the stats 1e-6 (the same math; XLA and
 torch sum the row in other orders).  Variance: the port's emitter forms
 it from the kernel's rstd as 1/rstd**2 - eps, a few f32 ulps of
 var + eps from the direct variance: rtol 2e-6 on var + eps.  Backward:
-dx 2e-6 in f32 and one bf16 ulp (2^-7 relative, atol 1e-2 near zero) in
-bf16; dscale and dshift 2e-6 relative (sums over up to 128 rows of
-products near 1) in both.
+dx 2e-6 in f32, one bf16 ulp (2^-7 relative, atol 1e-2 near zero) in
+bf16 and one f16 ulp (2^-10 relative, atol 2e-3) in f16; dscale and
+dshift 2e-6 relative (sums over up to 128 rows of products near 1) in
+all three.
 """
 from __future__ import annotations
 
@@ -71,6 +73,32 @@ def test_stats_match_the_pallas_forward(with_y):
     _, mean_t, rstd_t = add_ln.fused_add_ln_fwd(
         torch.as_tensor(x["x"]), None if y is None else torch.as_tensor(y),
         torch.as_tensor(x["scale"]), torch.as_tensor(x["shift"]), eps=1e-5)
+    np.testing.assert_allclose(mean_t.numpy(), np.asarray(mean_j)[0],
+                               atol=STAT_TOL, rtol=0)
+    np.testing.assert_allclose(rstd_t.numpy(), np.asarray(rstd_j)[0],
+                               atol=STAT_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("with_y", [False, True], ids=["no_y", "y"])
+def test_f16_matches_the_pallas_forward(with_y):
+    """float16 out, mean and rstd of the port's plain forward against the
+    JAX package's ``_ln_fwd`` (its Pallas kernel in interpret mode) on the
+    same f16 inputs: f32 statistics (within STAT_TOL), out rounded once
+    to f16 (within one f16 ulp, 2^-10 relative, plus 2^-11 near zero)."""
+    x = _inputs(9, (64, 768))
+    y = x["y"] if with_y else None
+    out_j, mean_j, rstd_j = jax_add_ln._ln_fwd(
+        jnp.asarray(x["x"], jnp.float16),
+        None if y is None else jnp.asarray(y, jnp.float16),
+        jnp.asarray(x["scale"]), jnp.asarray(x["shift"]), eps=1e-5)
+    out_t, mean_t, rstd_t = add_ln.fused_add_ln_fwd(
+        torch.as_tensor(x["x"]).half(),
+        None if y is None else torch.as_tensor(y).half(),
+        torch.as_tensor(x["scale"]), torch.as_tensor(x["shift"]), eps=1e-5)
+    assert out_t.dtype == torch.float16 and mean_t.dtype == torch.float32
+    np.testing.assert_allclose(out_t.float().numpy(),
+                               np.asarray(out_j, np.float32),
+                               atol=2.0 ** -11, rtol=2.0 ** -10)
     np.testing.assert_allclose(mean_t.numpy(), np.asarray(mean_j)[0],
                                atol=STAT_TOL, rtol=0)
     np.testing.assert_allclose(rstd_t.numpy(), np.asarray(rstd_j)[0],
@@ -166,15 +194,17 @@ def _good(r=8, h=768, dtype=torch.float32, y=True):
 
 
 @pytest.mark.parametrize("kw", [dict(), dict(y=False), dict(h=4),
-                                dict(h=4096), dict(dtype=torch.bfloat16)],
-                         ids=["y", "no_y", "h4", "h4096", "bf16"])
+                                dict(h=4096), dict(dtype=torch.bfloat16),
+                                dict(dtype=torch.float16)],
+                         ids=["y", "no_y", "h4", "h4096", "bf16", "f16"])
 def test_kernel_check_accepts_supported_inputs(kw):
     add_ln.check_kernel_inputs(**_good(**kw))
 
 
 BAD = {
     "x_float64": lambda x: x.update(x=x["x"].double(), y=x["y"].double()),
-    "x_float16": lambda x: x.update(x=x["x"].half(), y=x["y"].half()),
+    # float16 is a kernel dtype (float16 AMP): f16 x beside an f32 y is not
+    "x_float16": lambda x: x.update(x=x["x"].half()),
     "h_not_multiple_of_4": lambda x: x.update(
         x=torch.zeros(8, 766), y=torch.zeros(8, 766),
         scale=torch.ones(766), shift=torch.zeros(766)),
@@ -230,13 +260,13 @@ def _jax_bwd(x, y, scale, shift, g):
     return (out[0], out[1] if y is not None else None, out[-2], out[-1])
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("with_y", [False, True], ids=["no_y", "y"])
 def test_backward_matches_jax_vjp(with_y, dtype):
     x = _inputs(6, (2, 64, 128))
     g = np.random.default_rng(7).standard_normal((2, 64, 128)).astype(
         np.float32)
-    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    jdt = getattr(jnp, dtype)
     tdt = getattr(torch, dtype)
     want = _jax_bwd(jnp.asarray(x["x"], jdt),
                     jnp.asarray(x["y"], jdt) if with_y else None,
@@ -253,15 +283,17 @@ def test_backward_matches_jax_vjp(with_y, dtype):
     got = torch.autograd.grad(out, live, torch.as_tensor(g).to(tdt))
     got = list(got) if with_y else [got[0], None, got[1], got[2]]
     assert got[0].dtype == tdt and got[2].dtype == torch.float32
-    bf16 = dtype == "bfloat16"
+    # dx within one ulp of the dtype (2^-7 bf16, 2^-10 f16), with an
+    # atol for values near zero
+    atol, rtol = {"float32": (OUT_TOL, 0), "bfloat16": (1e-2, 2.0 ** -7),
+                  "float16": (2e-3, 2.0 ** -10)}[dtype]
     for name, a, b in zip(("dx", "dy", "dscale", "dshift"), want, got):
         if a is None:
             assert b is None
             continue
         b = b.float().numpy()
         if name in ("dx", "dy"):
-            np.testing.assert_allclose(b, a, atol=1e-2 if bf16 else OUT_TOL,
-                                       rtol=2.0 ** -7 if bf16 else 0,
+            np.testing.assert_allclose(b, a, atol=atol, rtol=rtol,
                                        err_msg=name)
         else:
             np.testing.assert_allclose(b, a, atol=1e-5, rtol=2e-6,

@@ -15,9 +15,12 @@ with the lease plane armed, sharded checkpoints every 2 steps.
   bit a clean dp-3 launch restored from the same checkpoint.
 
 The phase holds all of that itself (its ``fail`` raises here); the
-tests read its report.  As on the card, (a) runs beside the clean run
-and (b) beside its reference and (a)'s relaunch, each launcher and its
-ranks with a deadline.
+tests read its report.  Its launchers take none of the job variables
+(PADDLE_*, FLAGS_*) this process may hold from an earlier test: one
+such variable (PADDLE_GOODPUT, which the port's launcher refuses) failed
+the whole fixture before they were dropped.  As on the card, (a) runs
+beside the clean run and (b) beside its reference and (a)'s relaunch,
+each launcher and its ranks with a deadline.
 """
 from __future__ import annotations
 
@@ -111,3 +114,20 @@ def test_each_attempt_names_the_jobs_beside_it(report):
     for job, c in costs.items():
         for att in c["attempts"]:
             assert job not in att["concurrent_with"]
+
+
+def test_the_drills_take_no_job_variable_from_this_process(monkeypatch):
+    """Job variables left in this process (here PADDLE_GOODPUT, which the
+    port's launcher refuses, a dead coordinator endpoint, a reshard flag
+    and a flag) do not reach the drills' launchers; the drill's own
+    variables and the rest of the environment do."""
+    for k, v in (("PADDLE_GOODPUT", "1"),
+                 ("PADDLE_COORDINATOR_ENDPOINT", "127.0.0.1:1"),
+                 ("PADDLE_ELASTIC_RESHARD", "1"),
+                 ("FLAGS_check_numerics", "1"),
+                 ("DRILL_PROBE", "kept")):
+        monkeypatch.setenv(k, v)
+    env = chip_smoke._elastic_child_env({"PADDLE_CKPT_SHARDED": "1"})
+    assert env["PADDLE_CKPT_SHARDED"] == "1" and env["DRILL_PROBE"] == "kept"
+    assert not [k for k in env if k.startswith(("PADDLE_", "FLAGS_"))
+                and k != "PADDLE_CKPT_SHARDED"]

@@ -6,7 +6,9 @@ gradients of its custom VJP (``jax.vjp``) against the port's autograd
 Function, with bias and causal, and with dropout from the same explicit
 uint8 keep mask on both sides.  Also the dispatch gates against the JAX
 package's, and the CUDA wrappers' input checks, which refuse what the
-kernels do not take.
+kernels do not take.  float16 (float16 AMP): the BSH kernels take it on
+their wgmma route; the plain forward and backward in f16 against the
+JAX kernels on f16 inputs, each held at one f16 ulp (2^-10).
 
 Tolerances: o 2e-6 and lse 2e-5 in f32 (the same math; the Pallas kernel
 sums its online softmax tile by tile, torch in one pass, and the lse is
@@ -116,11 +118,12 @@ def _grid(rng, shape, step, top):
                            dtype=torch.float32)
 
 
-def _rows_past(a, w, n):
-    """Rows of ``a`` (last dim n) with an element past 1e-5 + 2^-7 |w|."""
+def _rows_past(a, w, n, ulp=2.0 ** -7):
+    """Rows of ``a`` (last dim n) with an element past 1e-5 + ulp |w|
+    (one bf16 ulp by default)."""
     a = np.asarray(a, np.float32).reshape(-1, n)
     w = np.asarray(w, np.float32).reshape(a.shape)
-    return int((np.abs(a - w) > 1e-5 + 2.0 ** -7 * np.abs(w)).any(1).sum())
+    return int((np.abs(a - w) > 1e-5 + ulp * np.abs(w)).any(1).sum())
 
 
 BF16_FWD = {
@@ -219,12 +222,15 @@ def test_plain_forward_products_of_tiles_are_the_plain_forward():
     np.testing.assert_allclose(got.numpy(), o.numpy(), atol=O_TOL, rtol=0)
 
 
+# the ids the cases had while float16 took the SIMT route (the kernel
+# refused it then)
 @pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "tc"),
                                          (torch.float32, "simt"),
-                                         (torch.float16, "simt")])
+                                         (torch.float16, "tc")],
+                         ids=["dtype0-tc", "dtype1-simt", "dtype2-simt"])
 def test_forward_route_by_dtype(dtype, route):
-    """Row 4 on the wgmma kernel for bf16; f32 (which tensor cores would
-    round to TF32) stays on the SIMT kernel."""
+    """Row 4 on the wgmma kernel for bf16 and f16 (its f16 form); f32
+    (which tensor cores would round to TF32) stays on the SIMT kernel."""
     assert fa.bsh_fwd_route(dtype) == route
 
 
@@ -389,8 +395,10 @@ def _good(b=2, sq=128, skv=128, nh=2, d=64, dtype=torch.float32):
 
 @pytest.mark.parametrize("kw", [dict(), dict(d=128), dict(d=256),
                                 dict(dtype=torch.bfloat16), dict(skv=192),
-                                dict(sq=64, skv=64)],
-                         ids=["d64", "d128", "d256", "bf16", "rect", "s64"])
+                                dict(sq=64, skv=64),
+                                dict(dtype=torch.float16)],
+                         ids=["d64", "d128", "d256", "bf16", "rect", "s64",
+                              "f16"])
 def test_kernel_check_accepts_supported_inputs(kw):
     fa.check_kernel_inputs(**_good(**kw))
     x = _good(**kw)
@@ -402,6 +410,7 @@ def test_kernel_check_accepts_supported_inputs(kw):
 
 BAD = {
     "q_float64": lambda x: x.update(q=x["q"].double()),
+    # float16 is a kernel dtype (float16 AMP): f16 q beside f32 k, v is not
     "q_float16": lambda x: x.update(q=x["q"].half()),
     "k_dtype_differs": lambda x: x.update(k=x["k"].bfloat16()),
     "q_2d": lambda x: x.update(q=x["q"][0]),
@@ -604,10 +613,11 @@ def test_bf16_plain_backward_rounds_as_the_tpu_kernel(causal, force_pallas):
 
 
 @pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "tc"),
-                                         (torch.float32, "simt")])
+                                         (torch.float32, "simt"),
+                                         (torch.float16, "tc")])
 def test_backward_route_by_dtype(dtype, route):
-    """The wgmma pair takes bf16; f32 stays on the SIMT pair, which tensor
-    cores would round to TF32."""
+    """The wgmma pair takes bf16 and f16 (its f16 form); f32 stays on the
+    SIMT pair, which tensor cores would round to TF32."""
     assert fa.bsh_bwd_route(dtype) == route
 
 
@@ -707,3 +717,96 @@ def test_both_forward_routes_get_aligned_rows(dtype, entry, monkeypatch):
     assert args[0] % 16 == 0 and args[0] != q.data_ptr()
     assert args[3] % 16 == 0 and args[3] != bias.data_ptr()
     assert args[1] == x["k"].data_ptr() and args[2] == x["v"].data_ptr()
+
+
+F16_FWD = {n: BF16_FWD[n] for n in ("none_causal_d64", "key_d64",
+                                    "key_causal_d128", "key_mask_d64")}
+
+
+@pytest.mark.parametrize("case", sorted(F16_FWD))
+def test_f16_rounds_once_from_f32_math(case, force_pallas):
+    """float16 o and lse of the port's plain forward against
+    ``_flash_fwd_bsh`` (interpret mode) on the same f16 inputs, as the
+    bf16 test above: f32 scores and softmax, p c rounded once, to f16,
+    before P.V.  o within one f16 ulp (rtol 2^-10) plus 1e-5 save at
+    most 2 of its 256 rows of D, the lse within 2e-5; the port rounds p c
+    to f16 exactly (``bsh_fwd_probs_reference``)."""
+    key_bias, causal, d, p = F16_FWD[case]
+    b, nh = 2, 2
+    rng = np.random.default_rng(23)
+    q, k, v = (_grid(rng, (b, S, nh * d), 1 / 8, 2).to(torch.float16)
+               for _ in range(3))
+    bias = None
+    if key_bias:
+        pad = torch.as_tensor(rng.random((b, 1, 1, S)) > 0.8)
+        bias = torch.where(pad, -1e4, _grid(rng, (b, 1, 1, S), 1 / 16, 2))
+    mask = (torch.as_tensor(rng.random((b, nh, S, S)) > p).to(torch.uint8)
+            if p else None)
+    sm = 1.0 / math.sqrt(d)
+
+    def j(t):
+        return jnp.asarray(t.float().numpy(), jnp.float16)
+
+    o_j, lse_j = jfa._flash_fwd_bsh(
+        j(q), j(k), j(v),
+        None if bias is None else jnp.asarray(bias.numpy().reshape(b, 1, S)),
+        None if mask is None else jnp.asarray(mask.numpy()), None, None,
+        sm_scale=sm, nh=nh, causal=causal, dropout_prob=p)
+    o_t, lse_t = fa.flash_attention_bsh_fwd(q, k, v, bias, num_heads=nh,
+                                            causal=causal, dropout_prob=p,
+                                            mask=mask)
+    assert o_t.dtype == torch.float16 and lse_t.dtype == torch.float32
+    o_j = np.asarray(o_j.astype(jnp.float32))
+    assert _rows_past(o_t.float().numpy(), o_j, d, 2.0 ** -10) <= 2
+    np.testing.assert_allclose(lse_t.numpy(), np.asarray(lse_j),
+                               atol=LSE_TOL, rtol=0)
+    p_num, m, _ = fa.bsh_fwd_probs_reference(
+        q, k, bias, nh, sm, causal, mask, 1.0 - p)
+    pr = torch.exp(fa._scores(q, k, bias, nh, sm, causal) - m)
+    if mask is not None:
+        pr = torch.where(mask != 0, pr / (1.0 - p), 0.0)
+    assert torch.equal(p_num, pr.to(torch.float16).float())
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_f16_plain_backward_rounds_as_the_tpu_kernel(causal, force_pallas):
+    """float16 dq/dk/dv of the port's plain backward against
+    ``_flash_bwd_bsh`` (interpret mode) on the same f16 q, k, v, dO, o
+    and f32 lse: both round p c and ds to f16 before the products and
+    sum in f32.  XLA's exp and torch's differ by an f32 ulp for some
+    arguments; where that straddles an f16 boundary one p c or ds rounds
+    to its neighbour, which moves the outputs that sum it by one f16 ulp
+    of that term (at most 2^-10 of the largest gradient).  So each
+    gradient agrees to one f16 ulp (rtol 2^-10) plus 1e-5 save at most
+    0.2% of its elements, and every element within 2^-10 of the largest
+    |gradient|."""
+    b = 2
+    rng = np.random.default_rng(5)
+    x = {n: torch.as_tensor(rng.standard_normal((b, S, H)),
+                            dtype=torch.float32).to(torch.float16)
+         for n in ("q", "k", "v", "do")}
+    bias = np.where(rng.random((b, 1, 1, S)) > 0.25, 0.0, -1e4).astype(
+        np.float32)
+    tb = torch.as_tensor(bias)
+    o, lse = fa.flash_attention_bsh_fwd(x["q"].float(), x["k"].float(),
+                                        x["v"].float(), tb, num_heads=NH,
+                                        causal=causal)
+    o = o.half()
+    got = fa.flash_attention_bsh_bwd(x["q"], x["k"], x["v"], tb, o, lse,
+                                     x["do"], NH, causal=causal)
+
+    def j(t):
+        return jnp.asarray(t.float().numpy(), jnp.float16)
+
+    res = (j(x["q"]), j(x["k"]), j(x["v"]),
+           jnp.asarray(bias.reshape(b, 1, S)), None, None, None, j(o),
+           jnp.asarray(lse.numpy()))
+    want = jfa._flash_bwd_bsh(res, j(x["do"]), sm_scale=1.0 / math.sqrt(D),
+                              nh=NH, causal=causal, dropout_prob=0.0)
+    for name, a, w in zip("qkv", got, want):
+        assert a.dtype == torch.float16
+        w = np.asarray(w.astype(jnp.float32))
+        err = np.abs(a.float().numpy() - w)
+        past = err > 1e-5 + 2.0 ** -10 * np.abs(w)
+        assert past.mean() <= 2e-3, (name, past.sum())
+        assert err.max() <= 2.0 ** -10 * np.abs(w).max(), name

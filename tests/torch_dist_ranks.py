@@ -777,12 +777,100 @@ def _moe_op_cases(p):
     return out
 
 
+def amp_f16_run(p):
+    """Tiny BERT under float16 AMP, through fleet with p["strategy"]'s
+    fields (amp on, ``amp_configs`` = p["amp"] with use_bf16 off), or with
+    p["strategy"] None the decorator alone in one process.  A fault
+    injection makes this rank's own gradient block of p["inject_grad"]
+    non-finite at the steps p["inject"][rank] names: the gradient times
+    the persistable ``amp_inject`` (inf there, 1 elsewhere), right after
+    the op that writes it, so before any reduction of it.  Per step: the
+    loss, the scale, both counters, found_inf from this rank's gradients
+    and as reduced, and whether any update output moved."""
+    import math
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from paddle_tpu_torch import fleet, fluid
+    from paddle_tpu_torch.contrib import mixed_precision as mp
+    from paddle_tpu_torch.fluid.layers import nn
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.ops.optimizer_ops import UPDATE_OPS
+
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    cfg, main, startup, loss = build_bert(fluid, nn, bert, *p["bert"])
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        main.global_block().create_var(name="amp_inject", shape=(1,),
+                                       dtype="float32", persistable=True)
+        opt = fluid.optimizer.AdamOptimizer(1e-3)
+        if p["strategy"] is None:
+            dec = mp.decorate(opt, use_bf16=False, **p["amp"])
+            dec.minimize(loss)
+        else:
+            strategy = set_strategy(fleet.DistributedStrategy(), dict(
+                p["strategy"], amp=True,
+                amp_configs=dict(p["amp"], use_bf16=False)))
+            fleet.init()
+            fopt = fleet.distributed_optimizer(opt, strategy)
+            fopt.minimize(loss)
+            dec = fopt._amp_optimizer
+    block = main.global_block()
+    # this rank's own found_inf flags land in persistables (a fetch under
+    # a mesh would be reduced over the ranks)
+    flags = {"found_inf_local": dec._found_inf_local,
+             "found_inf": dec._found_inf}
+    for name, var in flags.items():
+        keep = block.create_var(name=f"amp_{name}", shape=(1,),
+                                dtype="float32", persistable=True)
+        block.append_op(type="cast", inputs={"X": [var]},
+                        outputs={"Out": [keep]},
+                        attrs={"in_dtype": var.dtype,
+                               "out_dtype": keep.dtype})
+    at = next(i for i, op in enumerate(block.ops)
+              if p["inject_grad"] in op.output_names())
+    block._insert_op(at + 1, type="elementwise_mul",
+                     inputs={"X": [p["inject_grad"]], "Y": ["amp_inject"]},
+                     outputs={"Out": [p["inject_grad"]]})
+    main._bump_version()
+    state = dict(p["state"], amp_inject=np.ones(1, np.float32),
+                 **{f"amp_{n}": np.zeros(1, np.float32) for n in flags})
+    scope = fluid.Scope.from_numpy(state, device="cpu", program=main)
+    exe = fluid.Executor(device="cpu")
+    written = sorted({n for op in block.ops if op.type in UPDATE_OPS
+                      for n in op.output_names()})
+    fetch = [loss, dec.get_loss_scaling(), dec._good_steps, dec._bad_steps]
+    steps = []
+    for i, f in enumerate(p["feeds"]):
+        scope.find_var("amp_inject").fill_(
+            math.inf if i in p["inject"].get(rank, ()) else 1.0)
+        before = [_np(scope.find_var(n)).copy() for n in written]
+        out = exe.run(main, feed=f, fetch_list=fetch, scope=scope)
+        moved = any(b.tobytes() != _np(scope.find_var(n)).tobytes()
+                    for n, b in zip(written, before))
+        v = [float(np.asarray(o).reshape(-1)[0]) for o in out]
+        steps.append({"loss": v[0], "scale": v[1], "good": v[2],
+                      "bad": v[3], "moved": moved, **{
+                          n: bool(_np(scope.find_var(f"amp_{n}"))[0])
+                          for n in flags}})
+    return {"steps": steps,
+            "reductions": [(op.type, op.attrs.get("ring_id"))
+                           for op in block.ops
+                           if op.type == "c_allreduce_max"]}
+
+
+def body_amp_f16(rank, world, p):
+    """Each case of p["cases"] (over p["common"]) through ``amp_f16_run``
+    on this rank."""
+    return [amp_f16_run(dict(p["common"], **case)) for case in p["cases"]]
+
+
 BODIES = {"collectives": body_collectives, "ring": body_ring,
           "fleet_attn": body_fleet_attn, "fleet_bert": body_fleet_bert,
           "decoder_ring": body_decoder_ring,
           "fetch_startup": body_fetch_startup, "tp": body_tp,
           "two_fc_tp": body_two_fc_tp, "fleet_runs": body_fleet_runs,
-          "pipeline": body_pipeline}
+          "pipeline": body_pipeline, "amp_f16": body_amp_f16}
 
 
 def main(argv) -> int:
